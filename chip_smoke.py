@@ -5,17 +5,22 @@
 
 Phases, each fatal on failure:
 
-1. build: compile csrc/paged_attention.cu with nvcc (route: plain C
-   interface + ctypes) and print the compiler's register/shared-memory
-   report;
+1. build: compile the three kernel sources (csrc/paged_attention.cu,
+   paged_decode.cu, paged_prefill.cu), one nvcc each, all at once
+   (route: plain C interface + ctypes), and print the compiler's
+   register/spill report;
 2. kernels: random inputs from a seed at Llama-3.2-3B attention shapes
    (nq=24, nkv=8, d=128, bs=32, bf16, a 28-layer cache past 2^31
    elements) run through each kernel and its plain PyTorch version on
    the card, in bf16 and again in f32 on the same inputs; prints max
    error against the stated tolerance, the kernel's time, the plain
    version's, the least time the card could take (bound) and one PyTorch
-   library call on the same function (SDPA over the gathered context) as
-   a yardstick;
+   library call on the same function as a yardstick: SDPA (enable_gqa)
+   over each lane's context read once, the lanes' contexts end to end
+   under a block-causal mask (the padded per-row yardstick of earlier
+   runs is printed beside it). For the decode and prefill kernels it
+   also prints the grid (split count), registers/spills, shared memory,
+   achieved GB/s or TFLOP/s and bound / kernel time;
 3. forward: the same random params through models/llama.forward on the
    CPU (plain versions) and on the card (kernels), 2 layers at full 3B
    width, bf16; logits held to a stated tolerance;
@@ -25,16 +30,23 @@ Phases, each fatal on failure:
    /health, /v1/models, a greedy completion, a streamed completion, a
    chat request and 4 concurrent multi-chunk completions (packed prefill
    on the ragged kernel); checks token counts, finish reasons and usage;
-5. decode kernel: an in-process LLMEngine with --no-ragged-kernel drives
-   paged_decode_attention; its greedy tokens must equal those of a
-   ragged-kernel engine with the same weights (the two kernels run the
-   same page walk per decode row, so the outputs are bit-identical).
+5. decode kernel: one ModelRunner.decode step of the 28-layer model over
+   the same cache state on the ragged kernel and on
+   paged_decode_attention, logits held to a stated tolerance; then an
+   in-process LLMEngine with --no-ragged-kernel drives
+   paged_decode_attention, and its greedy tokens are compared with a
+   ragged-kernel engine's: the two kernels sum in different orders, so a
+   divergence passes only where the ragged engine's top-2 logprob gap at
+   the first differing step is below that tolerance (the first
+   divergence is printed).
 
 Launch counts are reset just before the serve phase's requests (through
-the server's /debug/kernel_launches) and before the decode phase, and
-read just after; a kernel launched 0 times on those paths fails the run.
-The server's log goes to build/chip_smoke_serve.log. The last lines are the kernels JSON, the card's name and power limit
-(nvidia-smi), and {"ok": true, "device": {...}}.
+the server's /debug/kernel_launches) and before the decode phase's
+--no-ragged-kernel engine, and read just after; a kernel launched 0
+times on those paths fails the run. The server's log goes to
+build/chip_smoke_serve.log. The last lines are the kernels JSON, the
+card's name and power limit (nvidia-smi), and {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -53,15 +65,25 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+SPIN_CYCLES = 120_000      # ~60 us at the H100's 1.98 GHz boost clock
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
 # kernel vs plain, per (row, head): |out - ref| <= TOL * max|ref| over d.
-# bf16: both round one f32 result once, so they differ by at most one
-# bf16 step (<= 2^-7 of the row's largest value); 2^-6 is two steps.
+# bf16: the plain versions and the ragged kernel round one f32 result
+# once, so they differ by at most one bf16 step (<= 2^-7 of the row's
+# largest value); the decode and prefill kernels also round P to bf16
+# (relative 2^-9 per weight) for the tensor-core PV product, which moves
+# a row by a fraction of a step more. 2^-6 is two steps.
 # f32: summation order only; a row that saw one key too many or too few
 # moves by ~1e-3 of its largest value at these context lengths.
 BF16_REL_TOL = 2.0**-6
 F32_REL_TOL = 1e-4
 LOGIT_REL_TOL = 5e-2       # forward, max|dlogit| / max|logit|, bf16
+# decode phase: the same 28-layer bf16 decode step on two kernels that
+# differ only in summation order (and so, rarely, in one bf16 rounding of
+# an attention output), max|dlogit| / max|logit|; held to the forward
+# phase's bound, which covers a larger difference (other GEMMs and
+# attention code on the CPU)
+DECODE_LOGIT_REL_TOL = LOGIT_REL_TOL
 
 
 def fail(msg: str) -> None:
@@ -80,16 +102,41 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_report(log: str) -> list[str]:
+    """Registers and spills per kernel instantiation from a -Xptxas -v
+    log (names demangled where c++filt is installed)."""
+    import shutil
+
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("registers" in line or "spill" in line):
+            out.append(f"{name}: {line.strip()}")
+    filt = shutil.which("c++filt") or shutil.which("cu++filt")
+    if filt and out:
+        res = subprocess.run([filt], input="\n".join(out),
+                             capture_output=True, text=True, timeout=60)
+        if res.returncode == 0:
+            out = res.stdout.splitlines()
+    return out
+
+
 # -- timing --------------------------------------------------------------------
-def time_cuda(torch, fn, iters: int, flush) -> float:
-    """Mean ms per call over `iters` calls, each with a cold L2 (a 256 MB
-    write between calls) and timed alone with CUDA events."""
+def time_cuda(torch, fn, iters: int, flush, spread: list | None = None
+              ) -> float:
+    """Median ms per call over `iters` calls, each with a cold L2 (a 256 MB
+    write between calls) and timed alone with CUDA events. A spin of some
+    60 us on the card after the flush keeps the host's enqueue of the call
+    (tens of us of Python for a wrapper) off the timed span, so the events
+    time the card's work alone; the median drops the odd call that a host
+    stall still stretches. `spread`, if given, receives (min, mean, max)."""
     fn()
     torch.cuda.synchronize()
-    total = 0.0
     evs = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -97,9 +144,48 @@ def time_cuda(torch, fn, iters: int, flush) -> float:
         b.record()
         evs.append((a, b))
     torch.cuda.synchronize()
-    for a, b in evs:
-        total += a.elapsed_time(b)
-    return total / iters
+    ms = sorted(a.elapsed_time(b) for a, b in evs)
+    if spread is not None:
+        spread[:] = [ms[0], sum(ms) / len(ms), ms[-1]]
+    return ms[len(ms) // 2]
+
+
+def device_breakdown(torch, fn, flush, names, n: int = 10) -> str:
+    """Device time per call of each CUDA kernel whose name holds one of
+    `names`, from torch.profiler over n calls, with the L2 left warm,
+    flushed by a 256 MB write (as time_cuda does: the L2 then holds dirty
+    lines that the timed kernel must write back) and flushed by a 256 MB
+    read (clean lines); beside it the host's time to enqueue one call.
+    "not measured" where the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    out = []
+    for mode, before in (("warm", lambda: None), ("write-flushed", flush.zero_),
+                         ("read-flushed", lambda: flush.amax())):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                before()
+                fn()
+            torch.cuda.synchronize()
+        parts = []
+        for ev in prof.key_averages():
+            dev_us = getattr(ev, "device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "cuda_time_total", 0.0)
+            hit = [k for k in names if k in ev.key]
+            if hit and dev_us:
+                parts.append(f"{hit[0]} {dev_us / n:.1f} us")
+        out.append(f"{mode}: " + (", ".join(parts) if parts
+                                   else "not measured"))
+    return "; ".join(out) + f"; host enqueue {host_us:.1f} us/call"
 
 
 # -- kernel phase --------------------------------------------------------------
@@ -156,9 +242,10 @@ def kernel_phase(torch) -> list[tuple[str, dict]]:
     seg_meta_d = torch.tensor(seg_meta, dtype=torch.int32, device=dev)
     covered = [i for i in range(len(dec_ctx))] + list(range(tq, R))
 
-    def dense_sdpa_inputs(rows_q, qpos, lane_of_row, window=None):
-        """Gathered dense context for SDPA: (rows, nq, 1, d) queries over
-        each row's lane context, with a boolean visibility mask."""
+    def padded_sdpa_inputs(rows_q, qpos, lane_of_row, window=None):
+        """The earlier (padded) yardstick: each row its own copy of its
+        lane's context padded to P * bs keys, repeated over the g query
+        heads: (rows, nq, 1, d) queries, a boolean visibility mask."""
         C = P * bs
         slots_l = (tables_d.long()[:, :, None] * bs
                    + torch.arange(bs, device=dev)).reshape(len(lanes_ctx), C)
@@ -173,7 +260,32 @@ def kernel_phase(torch) -> list[tuple[str, dict]]:
         k = k.repeat_interleave(g, dim=1).contiguous()
         v = v.repeat_interleave(g, dim=1).contiguous()
         return (rows_q[:, :, None, :].contiguous(), k, v,
-                mask[:, None, None, :].contiguous())
+                mask[:, None, None, :].contiguous(), False)
+
+    def fair_sdpa_inputs(rows_q, qpos, lane_of_row, tables, window=None):
+        """One SDPA call that reads each lane's context once: the rows
+        (1, nq, R, d) over the lanes' contexts (positions 0 .. the lane's
+        last row) laid end to end, (1, nkv, sum ctx, d), GQA through
+        enable_gqa, under a block-causal mask (a row sees its own lane's
+        keys up to its position)."""
+        lane_t = torch.tensor(lane_of_row, device=dev)
+        qp = torch.tensor(qpos, device=dev)
+        kslots, klane, kpos = [], [], []
+        for lane in sorted(set(lane_of_row)):
+            n = max(q for q, ln in zip(qpos, lane_of_row) if ln == lane) + 1
+            pos = torch.arange(n, device=dev)
+            kslots.append(tables[lane].long()[pos // bs] * bs + pos % bs)
+            klane.append(torch.full_like(pos, lane))
+            kpos.append(pos)
+        sl = torch.cat(kslots)
+        kl, kp = torch.cat(klane), torch.cat(kpos)
+        mask = (kl[None, :] == lane_t[:, None]) & (kp[None, :] <= qp[:, None])
+        if window is not None:
+            mask &= kp[None, :] > qp[:, None] - window
+        return (rows_q.transpose(0, 1)[None].contiguous(),
+                k_cache[layer][:, sl][None].contiguous(),
+                v_cache[layer][:, sl][None].contiguous(),
+                mask[None, None].contiguous(), True)
 
     def visible_keys(qpos, window=None):
         return sum(
@@ -214,26 +326,46 @@ def kernel_phase(torch) -> list[tuple[str, dict]]:
     k32 = k_cache[layer:layer + 1].float()
     v32 = v_cache[layer:layer + 1].float()
 
+    def sdpa_ms(args):
+        q4, k4, v4, m4, gqa = args
+        kw_gqa = {"enable_gqa": True} if gqa else {}
+        return time_cuda(
+            torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=m4, scale=scale, **kw_gqa),
+            20, flush)
+
     def check(name, kern, plain, rows_sel, lib_args, n_rows, qpos,
               kv_tokens, f32_args, window=None, iters=20):
         err = compare(f"{name} bf16", kern(), plain(), rows_sel,
                       BF16_REL_TOL)
         kern32, plain32 = f32_args
         compare(f"{name} f32", kern32(), plain32(), rows_sel, F32_REL_TOL)
-        ms = time_cuda(torch, kern, iters, flush)
+        spread = []
+        ms = time_cuda(torch, kern, iters, flush, spread)
         plain_ms = time_cuda(torch, plain, 3, flush)
-        q4, k4, v4, m4 = lib_args
-        lib_ms = time_cuda(
-            torch, lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, attn_mask=m4, scale=scale),
-            iters, flush,
-        )
+        fair, padded = lib_args
+        lib_ms = sdpa_ms(fair())
+        padded_ms = sdpa_ms(padded())
+        torch.cuda.empty_cache()
         bms, by = bound(n_rows, qpos, kv_tokens, window)
-        print(f"kernel {name}: kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
-              f"bound_ms={bms:.4f} ({by}) library_ms={lib_ms:.4f}",
-              flush=True)
+        print(f"kernel {name}: kernel_ms={ms:.4f} (median of {iters}; min "
+              f"{spread[0]:.4f}, mean {spread[1]:.4f}, max {spread[2]:.4f}) "
+              f"plain_ms={plain_ms:.3f} "
+              f"bound_ms={bms:.4f} ({by}) library_ms={lib_ms:.4f} "
+              f"(one SDPA over each lane's context once; the padded "
+              f"per-row yardstick: {padded_ms:.4f})", flush=True)
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+
+    def report(name, st, grid, smem, rate, kern, kernels):
+        """Grid, shared memory, achieved rate, roofline share and
+        device-time breakdown of a redesigned kernel (registers and
+        spills: the build phase's ptxas lines)."""
+        print(f"kernel {name}: grid {grid}, dynamic shared memory {smem} "
+              f"bytes, {rate}, bound/kernel = "
+              f"{st['bound_ms'] / st['ms']:.3f}", flush=True)
+        print(f"kernel {name}: profiler, per call: "
+              f"{device_breakdown(torch, kern, flush, kernels)}", flush=True)
 
     kw = dict(block_size=bs, scale=scale)
     # ragged: the decode rows + prefill chunks mix, full context
@@ -260,7 +392,9 @@ def kernel_phase(torch) -> list[tuple[str, dict]]:
         ragged(pa.ragged_paged_attention, q_r, k_cache, v_cache, layer),
         ragged(pa.ragged_paged_attention_plain, q_r, k_cache, v_cache,
                layer),
-        rows_t, dense_sdpa_inputs(q_r[rows_t], qpos_r, lane_r),
+        rows_t,
+        (lambda: fair_sdpa_inputs(q_r[rows_t], qpos_r, lane_r, tables_d),
+         lambda: padded_sdpa_inputs(q_r[rows_t], qpos_r, lane_r)),
         len(covered), qpos_r, kv_tok,
         (ragged(pa.ragged_paged_attention, q_r32, k32, v32, 0),
          ragged(pa.ragged_paged_attention_plain, q_r32, k32, v32, 0)),
@@ -288,7 +422,8 @@ def kernel_phase(torch) -> list[tuple[str, dict]]:
     q_p = torch.randn((t, nq, d), generator=gen, device=dev, dtype=dt)
     qpos_p = [qs + i for i in range(t)]
 
-    def sdpa_prefill():
+    def sdpa_prefill_padded():
+        """The earlier yardstick: k and v repeated over the g heads."""
         C = pf_table.numel() * bs
         sl = (pf_table.long()[:, None] * bs
               + torch.arange(bs, device=dev)).reshape(-1)
@@ -297,7 +432,7 @@ def kernel_phase(torch) -> list[tuple[str, dict]]:
         mask = (torch.arange(C, device=dev)[None, :]
                 <= torch.tensor(qpos_p, device=dev)[:, None])
         return (q_p.transpose(0, 1)[None].contiguous(), k.contiguous(),
-                v.contiguous(), mask[None, None])
+                v.contiguous(), mask[None, None], False)
 
     q_p32 = q_p.float()
     pre = check(
@@ -306,12 +441,26 @@ def kernel_phase(torch) -> list[tuple[str, dict]]:
             q_p, k_cache, v_cache, layer, pf_table, qs, **kw),
         lambda: pa.paged_prefill_attention_plain(
             q_p, k_cache, v_cache, layer, pf_table, qs, **kw),
-        torch.arange(t, device=dev), sdpa_prefill(), t, qpos_p, qs + t,
+        torch.arange(t, device=dev),
+        (lambda: fair_sdpa_inputs(q_p, qpos_p, [0] * t, pf_table[None]),
+         sdpa_prefill_padded),
+        t, qpos_p, qs + t,
         (lambda: pa.paged_prefill_attention(
             q_p32, k32, v32, 0, pf_table, qs, **kw),
          lambda: pa.paged_prefill_attention_plain(
             q_p32, k32, v32, 0, pf_table, qs, **kw)),
     )
+
+    n_tiles = -(-t * g // pa.PREFILL_BM)
+    report("paged_prefill_attention", pre,
+           f"({n_tiles}, {nkv}) = {n_tiles * nkv} blocks of "
+           f"{pa.PREFILL_BM} fused rows x {pa.PREFILL_BN}-key tiles",
+           pa._prefill_smem(d, 2, 2),
+           f"{4 * visible_keys(qpos_p) * nq * d / pre['ms'] / 1e9:.1f} "
+           f"TFLOP/s (bf16)",
+           lambda: pa.paged_prefill_attention(
+               q_p, k_cache, v_cache, layer, pf_table, qs, **kw),
+           ("prefill_kernel",))
 
     # decode: the 8 decode lanes
     b = len(dec_ctx)
@@ -327,13 +476,24 @@ def kernel_phase(torch) -> list[tuple[str, dict]]:
         lambda: pa.paged_decode_attention_plain(
             q_d, k_cache, v_cache, layer, tab_d, ctx_d, **kw),
         torch.arange(b, device=dev),
-        dense_sdpa_inputs(q_d, qpos_d, list(range(b))), b, qpos_d,
-        sum(dec_ctx),
+        (lambda: fair_sdpa_inputs(q_d, qpos_d, list(range(b)), tab_d),
+         lambda: padded_sdpa_inputs(q_d, qpos_d, list(range(b)))),
+        b, qpos_d, sum(dec_ctx),
         (lambda: pa.paged_decode_attention(
             q_d32, k32, v32, 0, tab_d, ctx_d, **kw),
          lambda: pa.paged_decode_attention_plain(
             q_d32, k32, v32, 0, tab_d, ctx_d, **kw)),
     )
+    pps, n_splits = pa._decode_split_plan(P, bs)
+    kv_bytes = 2 * sum(dec_ctx) * nkv * d * 2 + 2 * b * nq * d * 2
+    report("paged_decode_attention", dec,
+           f"({b}, {nkv}, {n_splits}) = {b * nkv * n_splits} blocks "
+           f"({n_splits} splits of {pps} pages) + merge ({b}, {nkv})",
+           pa._decode_smem(g, d, 2, 2),
+           f"{kv_bytes / dec['ms'] / 1e6:.1f} GB/s",
+           lambda: pa.paged_decode_attention(
+               q_d, k_cache, v_cache, layer, tab_d, ctx_d, **kw),
+           ("decode_split_kernel", "decode_merge_kernel"))
     del k_cache, v_cache, k32, v32, flush
     torch.cuda.empty_cache()
     return [("ragged", rag), ("prefill", pre), ("decode", dec)]
@@ -573,6 +733,43 @@ def serve_phase() -> dict:
 
 
 # -- decode-kernel phase -------------------------------------------------------
+def decode_step_check(torch, runner, prompts) -> float:
+    """One ModelRunner.decode step of the 28-layer model over the same
+    cache state on the ragged kernel and on paged_decode_attention;
+    returns max|logit| of the ragged step and fails if
+    max|dlogit| / max|logit| exceeds DECODE_LOGIT_REL_TOL."""
+    bs = runner.block_size
+    tables, nxt = [], 1
+    for p in prompts:
+        n = -(-(len(p) + 1) // bs)
+        tables.append(list(range(nxt, nxt + n)))
+        nxt += n
+    for p, tb in zip(prompts, tables):
+        runner.prefill(p, 0, tb, len(p))
+    args = ([11 * (i + 1) for i in range(len(prompts))],
+            [len(p) for p in prompts], tables,
+            [len(p) + 1 for p in prompts])
+    assert runner.ragged_kernel
+    ragged = runner.decode(*args)[:len(prompts)].float()
+    runner.ragged_kernel = False
+    try:
+        dec = runner.decode(*args)[:len(prompts)].float()
+    finally:
+        runner.ragged_kernel = True
+    torch.cuda.synchronize()
+    if not (torch.isfinite(ragged).all() and torch.isfinite(dec).all()):
+        fail("decode phase: non-finite logits")
+    top = float(ragged.abs().max())
+    rel = float((dec - ragged).abs().max()) / top
+    print(f"decode phase: one {runner.model_config.num_layers}-layer decode "
+          f"step, {len(prompts)} lanes, "
+          f"ragged vs decode kernel: max|dlogit|/max|logit|={rel:.3e} "
+          f"(max|logit| {top:.3f}, tol {DECODE_LOGIT_REL_TOL})", flush=True)
+    if not rel <= DECODE_LOGIT_REL_TOL:
+        fail(f"decode phase: logits differ by {rel:.3e} of max|logit|")
+    return top
+
+
 def decode_phase(torch, pa) -> dict:
     from production_stack_tpu_torch.engine.config import EngineConfig
     from production_stack_tpu_torch.engine.llm_engine import LLMEngine
@@ -582,9 +779,9 @@ def decode_phase(torch, pa) -> dict:
 
     prompts = [[(7 * i + 3 * j) % 256 + 1 for j in range(n)]
                for i, n in enumerate((5, 33, 97, 300))]
-    sp = SamplingParams(max_tokens=12, temperature=0, ignore_eos=True)
-    tokens = {}
-    counts = {}
+    sp = SamplingParams(max_tokens=12, temperature=0, ignore_eos=True,
+                        logprobs=2)
+    outs, counts, gap_tol = {}, {}, None
     for ragged in (True, False):
         eng = LLMEngine(EngineConfig(
             model="llama-3.2-3b", tokenizer="byte", device="cuda",
@@ -592,19 +789,40 @@ def decode_phase(torch, pa) -> dict:
             ragged_kernel=ragged,
         ))
         pa.reset_launch_counts()
-        outs = eng.generate(prompts, sp)
+        t0 = time.perf_counter()
+        outs[ragged] = eng.generate(prompts, sp)
         torch.cuda.synchronize()
+        print(f"decode phase: {'ragged' if ragged else 'decode'}-kernel "
+              f"engine generated {len(prompts)} x {sp.max_tokens} tokens in "
+              f"{time.perf_counter() - t0:.3f}s (host clock, prefill "
+              "included)", flush=True)
         if not ragged:
             counts = pa.launch_counts()
-        tokens[ragged] = [o.token_ids for o in outs]
+        else:
+            # the direct check, on this engine's weights after its run
+            gap_tol = DECODE_LOGIT_REL_TOL * decode_step_check(
+                torch, eng.runner, prompts)
         del eng
         torch.cuda.empty_cache()
-    same = tokens[True] == tokens[False]
+    n_same = 0
+    for i, (r, d) in enumerate(zip(outs[True], outs[False])):
+        if r.token_ids == d.token_ids:
+            n_same += 1
+            continue
+        k = next(k for k, (a, b) in enumerate(zip(r.token_ids, d.token_ids))
+                 if a != b)
+        top2 = r.logprobs[k]["top_logprobs"]
+        gap = top2[0]["logprob"] - top2[1]["logprob"]
+        print(f"decode phase: prompt {i} diverges at step {k}: ragged "
+              f"{r.token_ids[k]} vs decode {d.token_ids[k]}, ragged top-2 "
+              f"logprob gap {gap:.4f} (passes below {gap_tol:.4f})",
+              flush=True)
+        if not gap < gap_tol:
+            fail(f"decode phase: prompt {i} diverges at step {k} with a "
+                 f"top-2 gap of {gap:.4f} >= {gap_tol:.4f}")
     print(f"decode phase: --no-ragged-kernel engine launches {counts}; "
-          f"greedy tokens equal to the ragged-kernel engine: {same}",
-          flush=True)
-    if not same:
-        fail(f"decode phase: tokens differ {tokens}")
+          f"{n_same}/{len(prompts)} greedy token sequences equal to the "
+          "ragged-kernel engine's", flush=True)
     return counts
 
 
@@ -630,13 +848,15 @@ def main() -> int:
     from production_stack_tpu_torch.ops import paged_attention as pa
 
     t0 = time.perf_counter()
-    lib = cuda_build.build("paged_attention")
-    cuda_build.load("paged_attention")
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.1f}s",
+    libs = cuda_build.build_all()
+    for name in libs:
+        cuda_build.load(name)
+    print(f"build: {', '.join(p.name for p in libs.values())} in "
+          f"{time.perf_counter() - t0:.1f}s (one nvcc each, in parallel)",
           flush=True)
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    for name, path in libs.items():
+        for line in ptxas_report(path.with_suffix(".log").read_text()):
+            print(f"  ptxas {name}: {line}", flush=True)
 
     stats = kernel_phase(torch)
     forward_phase(torch)
@@ -649,7 +869,9 @@ def main() -> int:
     }
     print(f"launches: serve path {serve_counts}, decode path "
           f"{decode_counts}", flush=True)
-    src = "production_stack_tpu_torch/csrc/paged_attention.cu"
+    src = {"ragged": "production_stack_tpu_torch/csrc/paged_attention.cu",
+           "prefill": "production_stack_tpu_torch/csrc/paged_prefill.cu",
+           "decode": "production_stack_tpu_torch/csrc/paged_decode.cu"}
     replaces = {
         "ragged": "production_stack_tpu/ops/pallas_attention.py:500",
         "prefill": "production_stack_tpu/ops/pallas_attention.py:641",
@@ -661,7 +883,7 @@ def main() -> int:
     kernels = []
     for kind, st in stats:
         kernels.append({
-            "name": names[kind], "route": "cuda", "source": src,
+            "name": names[kind], "route": "cuda", "source": src[kind],
             "replaces": replaces[kind], "launches": launches[kind], **st,
         })
     zero = [k["name"] for k in kernels if k["launches"] < 1]

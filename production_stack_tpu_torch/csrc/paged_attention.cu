@@ -1,34 +1,31 @@
 // Paged GQA attention over the head-major paged KV cache, for Hopper
-// (sm_90a). Three entry points, one per TPU kernel of
-// production_stack_tpu/ops/pallas_attention.py:
-//
-//   pst_ragged_paged_attention   <- ragged_paged_attention / _ragged_kernel
-//   pst_paged_prefill_attention  <- paged_prefill_attention / _prefill_kernel
-//   pst_paged_decode_attention   <- paged_decode_attention / _decode_kernel
+// (sm_90a): pst_ragged_paged_attention, the port of
+// ragged_paged_attention / _ragged_kernel of
+// production_stack_tpu/ops/pallas_attention.py. (The decode and prefill
+// kernels live in paged_decode.cu and paged_prefill.cu.)
 //
 // Cache layout: k_cache, v_cache are (L, nkv, slots, d), row-major; the
 // key of absolute position p of a sequence lives in slot
 // table[p / bs] * bs + p % bs. Offsets are 64-bit: ((layer * nkv + h) *
 // slots + slot) * d passes 2^31 on a large cache.
 //
-// Shared design (first, simple version). One thread block per (query-row
-// tile or sequence, kv head). The tile's TQ query rows times the g query
-// heads of that kv head form R = TQ * g fused rows (fused row f is query
-// row f / g, head h * g + f % g, the Pallas packing), held in shared
-// memory as f32 and pre-scaled. The block walks the lane's pages in key
-// chunks of up to KC keys: it loads the chunk's K and V into shared
-// memory as f32, computes the R x KC scores, updates an f32 running
-// max / sum per row (online softmax, MASK_VALUE = -1e30 for masked keys,
-// exactly the Pallas recurrence), and rescales an f32 accumulator of
-// R x d in shared memory. Each block stores only its own rows: unlike
-// the TPU grid, blocks run in parallel and carry nothing between them.
+// Design (first, simple version). One thread block per (query-row tile,
+// kv head). The tile's TQ query rows times the g query heads of that kv
+// head form R = TQ * g fused rows (fused row f is query row f / g, head
+// h * g + f % g, the Pallas packing), held in shared memory as f32 and
+// pre-scaled. The block walks each segment's pages in key chunks of up
+// to KC keys: it loads the chunk's K and V into shared memory as f32,
+// computes the R x KC scores, updates an f32 running max / sum per row
+// (online softmax, MASK_VALUE = -1e30 for masked keys, exactly the
+// Pallas recurrence), and rescales an f32 accumulator of R x d in shared
+// memory. Each block stores only its own rows: unlike the TPU grid,
+// blocks run in parallel and carry nothing between them.
 //
-// What bounds it: every entry point must read the K and V bytes of the
-// pages it walks from device memory (bs * d * sizeof(T) per page and
-// head, twice); q and out are small beside them at decode. The kernels
-// read each walked page once per (row tile, kv head), so a prefill chunk
-// of t rows reads its context t / TQ times (mostly from L2). No tensor
-// cores, TMA or split-K yet: those are the Hopper redesign's work.
+// What bounds it: the K and V bytes of the pages it walks (bs * d *
+// sizeof(T) per page and head, twice); q and out are small beside them at
+// decode. It reads each walked page once per (row tile, kv head). No
+// tensor cores, TMA or split-K yet: its Hopper redesign is queued
+// (ROADMAP Queue 2 item 4c).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -232,56 +229,6 @@ __global__ void __launch_bounds__(THREADS) ragged_kernel(
   }
 }
 
-// paged_prefill_attention (pallas_attention.py:_prefill_kernel). Grid:
-// (t / tq q-tiles, nkv). Tile i holds rows at positions tile_base + r,
-// tile_base = q_start + i * tq, and walks pages up to tile_base + tq;
-// with a window, from the page of the tile's earliest visible key.
-// Bound: KV bytes of the context pages, once per tile.
-template <typename TQ, typename TC>
-__global__ void __launch_bounds__(THREADS) prefill_kernel(
-    const TQ* __restrict__ q, const TC* __restrict__ kc,
-    const TC* __restrict__ vc, TQ* __restrict__ out,
-    const int* __restrict__ block_table, int q_start, int layer, int nq,
-    int nkv, int64_t slots, int d, int bs, int num_pages, int tq,
-    float scale, int window) {
-  extern __shared__ float smem_raw[];
-  const int i = blockIdx.x, h = blockIdx.y;
-  const int g = nq / nkv, R = tq * g;
-  const Smem sm = carve(smem_raw, R, d);
-  const int64_t row_base = (int64_t)i * tq;
-  const int tile_base = q_start + i * tq;
-  const int n_used = min((tile_base + tq + bs - 1) / bs, num_pages);
-  const int n_start = window > 0 ? max(tile_base - window + 1, 0) / bs : 0;
-  load_q(q, row_base, tq, nq, d, h, g, scale, sm);
-  walk_pages(kc, vc, ((int64_t)layer * nkv + h) * slots, block_table,
-             n_start, n_used, bs, d, R, g, tile_base, window, sm);
-  store_rows(out, row_base, 0, tq, nq, d, h, g, sm);
-}
-
-// paged_decode_attention (pallas_attention.py:_decode_kernel). Grid:
-// (b, nkv). Sequence i's one query row sits at position ctx - 1 and walks
-// pages [n_start, ceil(ctx / bs)). Bound: KV bytes of its context.
-template <typename TQ, typename TC>
-__global__ void __launch_bounds__(THREADS) decode_kernel(
-    const TQ* __restrict__ q, const TC* __restrict__ kc,
-    const TC* __restrict__ vc, TQ* __restrict__ out,
-    const int* __restrict__ block_tables,
-    const int* __restrict__ context_lens, int layer, int nq, int nkv,
-    int64_t slots, int d, int bs, int num_pages, float scale, int window) {
-  extern __shared__ float smem_raw[];
-  const int i = blockIdx.x, h = blockIdx.y;
-  const int g = nq / nkv;
-  const Smem sm = carve(smem_raw, g, d);
-  const int ctx = context_lens[i];
-  const int n_used = min((ctx + bs - 1) / bs, num_pages);
-  const int n_start = window > 0 ? max(ctx - window, 0) / bs : 0;
-  load_q(q, (int64_t)i, 1, nq, d, h, g, scale, sm);
-  walk_pages(kc, vc, ((int64_t)layer * nkv + h) * slots,
-             block_tables + (int64_t)i * num_pages, n_start, n_used, bs, d,
-             g, g, ctx - 1, window, sm);
-  store_rows(out, (int64_t)i, 0, 1, nq, d, h, g, sm);
-}
-
 template <typename K>
 cudaError_t prepare(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(
@@ -323,42 +270,6 @@ int pst_ragged_paged_attention(
         (const int*)block_tables, (const int*)blk_seg,
         (const int*)seg_meta, layer, nq, nkv, slots, d, bs, num_pages, tq,
         scale, window);
-  )
-  return (int)cudaGetLastError();
-}
-
-int pst_paged_prefill_attention(
-    const void* q, const void* k_cache, const void* v_cache, void* out,
-    const void* block_table, int q_dtype, int cache_dtype, int layer,
-    int q_start, int t, int tq, int nq, int nkv, int64_t slots, int d,
-    int bs, int num_pages, float scale, int window, void* stream) {
-  const size_t bytes = smem_bytes(tq * (nq / nkv), d);
-  const dim3 grid(t / tq, nkv);
-  PST_DISPATCH(q_dtype, cache_dtype,
-    cudaError_t e = prepare(prefill_kernel<TQ, TC>, bytes);
-    if (e != cudaSuccess) return (int)e;
-    prefill_kernel<TQ, TC><<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
-        (const TQ*)q, (const TC*)k_cache, (const TC*)v_cache, (TQ*)out,
-        (const int*)block_table, q_start, layer, nq, nkv, slots, d, bs,
-        num_pages, tq, scale, window);
-  )
-  return (int)cudaGetLastError();
-}
-
-int pst_paged_decode_attention(
-    const void* q, const void* k_cache, const void* v_cache, void* out,
-    const void* block_tables, const void* context_lens, int q_dtype,
-    int cache_dtype, int layer, int b, int nq, int nkv, int64_t slots,
-    int d, int bs, int num_pages, float scale, int window, void* stream) {
-  const size_t bytes = smem_bytes(nq / nkv, d);
-  const dim3 grid(b, nkv);
-  PST_DISPATCH(q_dtype, cache_dtype,
-    cudaError_t e = prepare(decode_kernel<TQ, TC>, bytes);
-    if (e != cudaSuccess) return (int)e;
-    decode_kernel<TQ, TC><<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
-        (const TQ*)q, (const TC*)k_cache, (const TC*)v_cache, (TQ*)out,
-        (const int*)block_tables, (const int*)context_lens, layer, nq, nkv,
-        slots, d, bs, num_pages, scale, window);
   )
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,14 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-Each source compiles with ``nvcc`` into a shared library with a plain C
-interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds). The build runs at first use into ``build/kernels/`` beside the
-package; the library's file name carries a hash of its source, so an
-edited source never loads a stale build. Nothing here runs at import time: the CPU-only tests import every
-module.
+Each library is one source, ``csrc/<name>.cu``, compiled with ``nvcc``
+into a shared library with a plain C interface and loaded with
+``ctypes`` (no PyTorch headers, so a build takes seconds). The build runs
+at first use into ``build/kernels/`` beside the package; the library's
+file name carries a hash of its source, of every header under ``csrc/``
+(which any source may include) and of the compiler flags, so an edited
+source or header never loads a stale build. ``build_all`` starts one
+``nvcc`` per library at once. Nothing here runs at import time: the
+CPU-only tests import every module.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# one library per source: ragged (paged_attention.cu), decode, prefill
+LIBRARIES = ("paged_attention", "paged_decode", "paged_prefill")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -45,33 +50,65 @@ def nvcc_path() -> str:
     )
 
 
+def sources(name: str) -> list[Path]:
+    """The files a library is built from: its .cu and every csrc header."""
+    return [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return build_dir() / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for src in sources(name):
+        h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless a build of this exact source exists.
-    The compiler's -Xptxas -v report (registers, shared memory, spills)
-    lands beside the library as <lib>.log."""
+def _start(name: str):
+    """(final path, temp path, running nvcc) for a library not yet built,
+    or None when a build of these exact sources exists."""
     out = library_path(name)
     if out.exists():
-        return out
+        return None
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return out, tmp, proc
+
+
+def _finish(name: str, started) -> Path:
+    out, tmp, proc = started
+    stdout, stderr = proc.communicate()
+    out.with_suffix(".log").write_text(stdout + stderr)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed for {name}.cu ({proc.returncode}):\n"
-            f"{proc.stderr[-4000:]}"
+            f"nvcc failed for {name}.cu ({proc.returncode}):\n{stderr[-4000:]}"
         )
     os.replace(tmp, out)  # atomic: concurrent builders never see a part
     return out
+
+
+def build_all(names=LIBRARIES) -> dict[str, Path]:
+    """Compile every library not yet built, one nvcc each, all at once.
+    Each compiler's -Xptxas -v report (registers, shared memory, spills)
+    lands beside its library as <lib>.log."""
+    started = {n: _start(n) for n in names}
+    errors, paths = [], {}
+    for n, st in started.items():
+        try:
+            paths[n] = library_path(n) if st is None else _finish(n, st)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return paths
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu unless a build of these exact sources
+    exists."""
+    return build_all((name,))[name]
 
 
 def load(name: str) -> ctypes.CDLL:

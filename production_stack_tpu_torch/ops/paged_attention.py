@@ -1,5 +1,6 @@
 """Paged GQA attention over the head-major paged KV cache: the three
-hand-written CUDA kernels (csrc/paged_attention.cu), their wrappers, their
+hand-written CUDA kernels (csrc/paged_attention.cu for ragged,
+csrc/paged_decode.cu, csrc/paged_prefill.cu), their wrappers, their
 plain PyTorch versions and a launch counter.
 
 Counterpart of ``production_stack_tpu/ops/pallas_attention.py``; the
@@ -9,15 +10,20 @@ functions keep its names, signatures and layouts:
   the full cache, so no per-layer copy is ever made;
 - ``ragged_paged_attention`` runs a flattened row space of any lane mix
   described by CSR segment metadata (``blk_seg``, ``seg_meta``);
-- ``paged_prefill_attention`` runs one sequence's contiguous chunk;
-- ``paged_decode_attention`` runs one query row per sequence.
+- ``paged_prefill_attention`` runs one sequence's contiguous chunk
+  (tensor-core tiles of 64 fused rows x 64 keys on the card);
+- ``paged_decode_attention`` runs one query row per sequence, its
+  context split across blocks (split-K) and the splits merged.
 
 A wrapper checks its inputs the same way for both devices, then, handed
-CUDA tensors, launches its kernel (or raises); handed CPU tensors, it
-computes the plain version. There is no fallback from one to the other.
-The plain versions walk the same page ranges with the same masking
-(MASK_VALUE = -1e30, f32 softmax), so a row's result does not depend on
-which of the two computed it beyond summation order.
+CUDA tensors, checks the shapes its kernel takes (head dims, block
+sizes, shared memory) and launches the kernel (or raises); handed CPU
+tensors, it computes the plain version. There is no fallback from one
+to the other. The plain versions walk the same page ranges with the same
+masking (MASK_VALUE = -1e30, f32 softmax), and the decode one the same
+splits, so a row's result does not depend on which of the two computed
+it beyond summation order (and, in bf16, the rounding of P before the
+card kernels' tensor-core PV product).
 """
 
 from __future__ import annotations
@@ -32,11 +38,26 @@ MASK_VALUE = -1e30
 # RAGGED_TQ): prefill chunks pack RAGGED_TQ-aligned, decode lanes share
 # blocks one row each.
 RAGGED_TQ = 8
-# Query-tile rows of the card's prefill kernel. The Pallas kernel sizes
-# its tile to TPU VMEM (_prefill_q_tile); on the card one block holds
-# PREFILL_TQ rows x g heads in shared memory, and more tiles mean more
-# blocks in flight.
+# Row granularity of a prefill chunk: the runner pads chunks to a
+# multiple of PREFILL_TQ rows (the kernel itself tiles 64 fused rows and
+# masks a partly filled last tile). The plain version walks PREFILL_TQ-row
+# tiles, each over its own page range.
 PREFILL_TQ = 8
+# Fused query rows x keys of one prefill kernel tile (csrc/paged_prefill.cu
+# BM, BN).
+PREFILL_BM = PREFILL_BN = 64
+# Keys one decode split walks: split s holds table pages
+# [s * pps, (s + 1) * pps), pps = DECODE_SPLIT_KEYS // block_size.
+DECODE_SPLIT_KEYS = 256
+# Keys of one decode chunk in the kernel's shared-memory ring (KT), and
+# the ring's stages (NSTAGE) by cache element size.
+DECODE_KT = 64
+DECODE_STAGES = {2: 3, 4: 2}
+# Query heads per kv head the decode kernel takes: one 16-row MMA tile.
+DECODE_MAX_G = 16
+# Shapes the decode and prefill kernels are built for.
+KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_BLOCK_SIZES = (8, 16, 32, 64, 128)
 # Shared memory one block may use on Hopper (227 KB).
 MAX_SMEM_BYTES = 232448
 
@@ -62,27 +83,14 @@ def _attend(q_rows, k_cache, v_cache, layer, pages, q_pos, kpos0,
     """Rows at absolute positions `q_pos` over the keys of `pages` (page j
     holds positions kpos0 + j*bs ..). A row that walks no page gives 0,
     a row whose walked keys are all masked gives their uniform average —
-    both what the online-softmax kernels give."""
-    n, nq, d = q_rows.shape
+    both what the online-softmax kernels give. It is the merge of one
+    split, so a decode row whose pages fit one split is bit-identical
+    whichever plain version computed it."""
     if pages.numel() == 0:
         return torch.zeros_like(q_rows)
-    nkv = k_cache.shape[1]
-    g = nq // nkv
-    offs = torch.arange(block_size, device=pages.device)
-    slots = (pages.long()[:, None] * block_size + offs).reshape(-1)
-    k = k_cache[layer][:, slots].float()  # (nkv, K, d)
-    v = v_cache[layer][:, slots].float()
-    qf = q_rows.float().reshape(n, nkv, g, d) * scale
-    s = torch.einsum("nhgd,hkd->nhgk", qf, k)
-    kpos = kpos0 + torch.arange(slots.numel(), device=q_rows.device)
-    qp = q_pos.to(q_rows.device).long()[:, None]
-    valid = kpos[None, :] <= qp
-    if window is not None:
-        valid = valid & (kpos[None, :] > qp - window)
-    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, MASK_VALUE))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("nhgk,hkd->nhgd", p, v)
-    return out.reshape(n, nq, d).to(q_rows.dtype)
+    return _merge_splits([_attend_stats(q_rows, k_cache, v_cache, layer,
+                                        pages, q_pos, kpos0, block_size,
+                                        scale, window)], q_rows)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -145,23 +153,88 @@ def paged_prefill_attention_plain(q, k_cache, v_cache, layer, block_table,
     return out
 
 
+def _decode_split_plan(num_pages: int, block_size: int,
+                       pages_per_split: int | None = None):
+    """(pages_per_split, n_splits) of the decode kernel's grid: split s
+    walks table pages [s * pps, (s + 1) * pps) intersected with the
+    sequence's [n_start, n_used). Sized from the table's width, which the
+    host knows, never from context lengths on the device."""
+    pps = pages_per_split or max(1, DECODE_SPLIT_KEYS // block_size)
+    return pps, max(1, _cdiv(num_pages, pps))
+
+
+def _decode_pages(ctx: int, block_size: int, num_pages: int, window):
+    """The pages [n_start, n_used) a decode row at position ctx - 1
+    walks (Pallas _decode_kernel)."""
+    n_used = min(_cdiv(ctx, block_size), num_pages)
+    n_start = 0 if window is None else max(ctx - window, 0) // block_size
+    return min(n_start, n_used), n_used
+
+
+def _attend_stats(q_rows, k_cache, v_cache, layer, pages, q_pos, kpos0,
+                  block_size, scale, window):
+    """f32 softmax statistics of rows at positions `q_pos` over the keys
+    of `pages` (page j holds positions kpos0 + j*bs ..): m (n, nq) the
+    max masked score, l (n, nq) the sum of exp(s - m), acc (n, nq, d) the
+    exp(s - m)-weighted sum of v. The scale applies to the f32 scores."""
+    n, nq, d = q_rows.shape
+    nkv = k_cache.shape[1]
+    g = nq // nkv
+    offs = torch.arange(block_size, device=pages.device)
+    slots = (pages.long()[:, None] * block_size + offs).reshape(-1)
+    k = k_cache[layer][:, slots].float()  # (nkv, K, d)
+    v = v_cache[layer][:, slots].float()
+    qf = q_rows.float().reshape(n, nkv, g, d)
+    s = torch.einsum("nhgd,hkd->nhgk", qf, k) * scale
+    kpos = kpos0 + torch.arange(slots.numel(), device=q_rows.device)
+    qp = q_pos.to(q_rows.device).long()[:, None]
+    valid = kpos[None, :] <= qp
+    if window is not None:
+        valid = valid & (kpos[None, :] > qp - window)
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, MASK_VALUE))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    acc = torch.einsum("nhgk,hkd->nhgd", p, v)
+    return (m.reshape(n, nq), p.sum(dim=-1).reshape(n, nq),
+            acc.reshape(n, nq, d))
+
+
+def _merge_splits(parts, like):
+    """Combine per-split (m, l, acc) as the decode kernel's merge does:
+    out = sum_s acc_s e^(m_s - M) / max(sum_s l_s e^(m_s - M), 1e-30),
+    M = max_s m_s; no split at all gives 0."""
+    if not parts:
+        return torch.zeros_like(like)
+    m = torch.stack([pt[0] for pt in parts])  # (S, n, nq)
+    w = torch.exp(m - m.amax(dim=0))
+    l = (torch.stack([pt[1] for pt in parts]) * w).sum(dim=0)
+    acc = (torch.stack([pt[2] for pt in parts]) * w[..., None]).sum(dim=0)
+    return (acc / l.clamp_min(1e-30)[..., None]).to(like.dtype)
+
+
 def paged_decode_attention_plain(q, k_cache, v_cache, layer, block_tables,
                                  context_lens, *, block_size, scale,
-                                 window=None):
-    """Plain PyTorch version of the decode kernel."""
+                                 window=None, pages_per_split=None):
+    """Plain PyTorch version of the decode kernel: the same split plan
+    (`_decode_split_plan`; `pages_per_split` overrides the kernel's) and
+    the same merge of per-split (m, l, acc)."""
     num_pages = block_tables.shape[1]
     bs = block_size
+    pps, n_splits = _decode_split_plan(num_pages, bs, pages_per_split)
     out = torch.empty_like(q)
     for i, ctx in enumerate(context_lens.tolist()):
-        n_used = min(_cdiv(ctx, bs), num_pages)
-        n_start = 0 if window is None else max(ctx - window, 0) // bs
-        n_start = min(n_start, n_used)
-        out[i:i + 1] = _attend(
-            q[i:i + 1], k_cache, v_cache, int(layer),
-            block_tables[i, n_start:n_used],
-            torch.tensor([ctx - 1], device=q.device), n_start * bs, bs,
-            scale, window,
-        )
+        n_start, n_used = _decode_pages(ctx, bs, num_pages, window)
+        parts = []
+        for sp in range(n_splits):
+            lo, hi = max(sp * pps, n_start), min((sp + 1) * pps, n_used)
+            if lo < hi:
+                parts.append(_attend_stats(
+                    q[i:i + 1], k_cache, v_cache, int(layer),
+                    block_tables[i, lo:hi],
+                    torch.tensor([ctx - 1], device=q.device), lo * bs, bs,
+                    scale, window,
+                ))
+        out[i:i + 1] = _merge_splits(parts, q[i:i + 1])
     return out
 
 
@@ -225,45 +298,116 @@ def _check_layer(layer, k_cache):
     return layer
 
 
-def _smem(rows, d) -> int:
-    need = 4 * (2 * rows * d + 32 * (d + 1) + 32 * d + rows * 32 + 3 * rows)
+def _fits(need: int, what: str) -> int:
     if need > MAX_SMEM_BYTES:
         raise ValueError(
-            f"{rows} fused query rows at head_dim {d} need {need} bytes of "
-            "shared memory, more than a Hopper block has"
+            f"{what} needs {need} bytes of shared memory, more than a "
+            "Hopper block has"
         )
     return need
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ragged_smem(rows, d) -> int:
+    """csrc/paged_attention.cu smem_bytes: q and acc (rows x d), one
+    32-key K (padded) and V chunk, scores and softmax state, all f32."""
+    return _fits(
+        4 * (2 * rows * d + 32 * (d + 1) + 32 * d + rows * 32 + 3 * rows),
+        f"the ragged kernel's {rows} fused query rows at head_dim {d}",
+    )
 
 
-def _lib():
+def _decode_smem(g, d, q_itemsize, cache_itemsize) -> int:
+    """csrc/paged_decode.cu smem_bytes: the q tile (16 rows of d elements
+    + 16 bytes), the split's table slice (32 ints), the ring of
+    DECODE_STAGES stages of K and V chunks (DECODE_KT rows of d elements +
+    16 bytes), whose space the four warps' (m, l, acc) reuse, and on the
+    FMA path (not bf16 q and cache) each warp's 16 x 16 block of P."""
+    mma = q_itemsize == 2 and cache_itemsize == 2
+    ring = (DECODE_STAGES[cache_itemsize] * 2 * DECODE_KT
+            * (d * cache_itemsize + 16))
+    need = (16 * (d * q_itemsize + 16) + 4 * 32
+            + max(ring, 4 * 4 * g * (d + 2)) + (0 if mma else 4 * 4 * 16 * 16))
+    return _fits(need, f"the decode kernel at g={g}, head_dim {d}")
+
+
+def _prefill_smem(d, q_itemsize, cache_itemsize) -> int:
+    """csrc/paged_prefill.cu smem_bytes: the Q tile (PREFILL_BM rows of d
+    elements + 16 bytes), two stages of K and V tiles (PREFILL_BN rows),
+    and on the FMA path (not bf16 q and cache) each warp's 16 x
+    PREFILL_BN block of P in f32."""
+    mma = q_itemsize == 2 and cache_itemsize == 2
+    need = (PREFILL_BM * (d * q_itemsize + 16)
+            + 2 * 2 * PREFILL_BN * (d * cache_itemsize + 16)
+            + (0 if mma else 4 * 4 * 16 * PREFILL_BN))
+    return _fits(need, f"the prefill kernel at head_dim {d}")
+
+
+def _check_aligned(*tensors):
+    """The decode and prefill kernels copy rows into shared memory in
+    16-byte pieces (cp.async): the tensors they copy from must start on a
+    16-byte boundary."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("the card kernels need 16-byte aligned q and "
+                             "caches (a view at an odd offset?)")
+
+
+def _check_kernel_shapes(d, block_size, g=None):
+    """Shapes the decode and prefill kernels are built for (g: decode's
+    query heads per kv head); raised before any launch."""
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the card kernels take head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, got {d}")
+    if block_size not in KERNEL_BLOCK_SIZES:
+        raise ValueError(f"the card kernels take block_size in "
+                         f"{KERNEL_BLOCK_SIZES}, got {block_size}")
+    if g is not None and g > DECODE_MAX_G:
+        raise ValueError(f"the decode kernel takes at most {DECODE_MAX_G} "
+                         f"query heads per kv head, got {g}")
+
+
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+_VP, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                         ctypes.c_float)
+# entry point -> (library, argtypes), exactly the C signatures
+_ENTRY_POINTS = {
+    "pst_ragged_paged_attention": ("paged_attention", [
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP,   # q k v out tables blk_seg meta
+        _I32, _I32, _I32, _I32, _I32, _I32, _I32,  # dtypes layer G tq nq nkv
+        _I64, _I32, _I32, _I32, _F32, _I32, _VP,   # slots d bs P scale win s
+    ]),
+    "pst_paged_prefill_attention": ("paged_prefill", [
+        _VP, _VP, _VP, _VP, _VP,             # q k v out table
+        _I32, _I32, _I32, _I32, _I32, _I32, _I32,  # dtypes layer q_start t nq nkv
+        _I64, _I32, _I32, _I32, _F32, _I32, _VP,   # slots d bs P scale win s
+    ]),
+    "pst_paged_decode_attention": ("paged_decode", [
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,  # q k v out acc ml tables ctx
+        _I32, _I32, _I32, _I32, _I32, _I32,  # dtypes layer b nq nkv
+        _I64, _I32, _I32, _I32, _I32, _I32,  # slots d bs P pps n_splits
+        _F32, _I32, _VP,                     # scale window stream
+    ]),
+}
+
+
+def _kernel(entry: str):
+    """The C entry point, its library built and loaded on first use."""
     from production_stack_tpu_torch.ops import cuda_build
 
-    lib = cuda_build.load("paged_attention")
-    if not getattr(lib, "_pst_typed", False):
-        vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                             ctypes.c_float)
-        lib.pst_ragged_paged_attention.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
-            i64, i32, i32, i32, f32, i32, vp,
-        ]
-        lib.pst_paged_prefill_attention.argtypes = [
-            vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, i64,
-            i32, i32, i32, f32, i32, vp,
-        ]
-        lib.pst_paged_decode_attention.argtypes = [
-            vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i64, i32,
-            i32, i32, f32, i32, vp,
-        ]
-        for fn in (lib.pst_ragged_paged_attention,
-                   lib.pst_paged_prefill_attention,
-                   lib.pst_paged_decode_attention):
-            fn.restype = ctypes.c_int
-        lib._pst_typed = True
-    return lib
+    lib_name, argtypes = _ENTRY_POINTS[entry]
+    fn = getattr(cuda_build.load(lib_name), entry)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _stream(t: torch.Tensor) -> int:
+    """PyTorch's current stream on t's device, as the raw cudaStream_t."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -300,7 +444,7 @@ def ragged_paged_attention(q, k_cache, v_cache, layer, block_tables,
     if n_blocks < 1 or r % n_blocks:
         raise ValueError(f"row space {r} must tile into {n_blocks} blocks")
     tq = r // n_blocks
-    _smem(tq * (nq // nkv), d)
+    _ragged_smem(tq * (nq // nkv), d)
     layer = _check_layer(layer, k_cache)
     if on_cpu:
         return ragged_paged_attention_plain(
@@ -308,13 +452,12 @@ def ragged_paged_attention(q, k_cache, v_cache, layer, block_tables,
             block_size=block_size, scale=scale, window=window,
         )
     out = torch.empty_like(q)
-    rc = _lib().pst_ragged_paged_attention(
+    rc = _kernel("pst_ragged_paged_attention")(
         _ptr(q), _ptr(k_cache), _ptr(v_cache), _ptr(out),
         _ptr(block_tables), _ptr(blk_seg), _ptr(seg_meta),
         _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype], layer,
         n_blocks, tq, nq, nkv, slots, d, block_size,
-        block_tables.shape[1], float(scale), _window_arg(window),
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
+        block_tables.shape[1], float(scale), _window_arg(window), _stream(q),
     )
     _raise_on(rc, "ragged paged attention")
     _LAUNCHES["ragged"] += 1
@@ -324,7 +467,8 @@ def ragged_paged_attention(q, k_cache, v_cache, layer, block_tables,
 def paged_prefill_attention(q, k_cache, v_cache, layer, block_table,
                             q_start, *, block_size, scale, window=None):
     """Chunked-prefill paged attention for one sequence whose t query
-    rows sit at positions q_start, q_start + 1, ... -> (t, nq, d)."""
+    rows (a positive multiple of PREFILL_TQ) sit at positions q_start,
+    q_start + 1, ... -> (t, nq, d)."""
     on_cpu = _on_cpu(q, k_cache, v_cache, block_table)
     nq, nkv, slots, d = _check_common(q, k_cache, v_cache, block_size)
     _check_index("block_table", block_table, 1)
@@ -332,7 +476,6 @@ def paged_prefill_attention(q, k_cache, v_cache, layer, block_table,
     if t == 0 or t % PREFILL_TQ:
         raise ValueError(f"chunk rows {t} must be a positive multiple of "
                          f"{PREFILL_TQ}")
-    _smem(PREFILL_TQ * (nq // nkv), d)
     layer = _check_layer(layer, k_cache)
     q_start = int(q_start)
     if q_start < 0:
@@ -342,13 +485,15 @@ def paged_prefill_attention(q, k_cache, v_cache, layer, block_table,
             q, k_cache, v_cache, layer, block_table, q_start,
             block_size=block_size, scale=scale, window=window,
         )
+    _check_kernel_shapes(d, block_size)
+    _check_aligned(q, k_cache, v_cache)
+    _prefill_smem(d, q.element_size(), k_cache.element_size())
     out = torch.empty_like(q)
-    rc = _lib().pst_paged_prefill_attention(
+    rc = _kernel("pst_paged_prefill_attention")(
         _ptr(q), _ptr(k_cache), _ptr(v_cache), _ptr(out), _ptr(block_table),
         _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype], layer, q_start,
-        t, PREFILL_TQ, nq, nkv, slots, d, block_size, block_table.shape[0],
-        float(scale), _window_arg(window),
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
+        t, nq, nkv, slots, d, block_size, block_table.shape[0],
+        float(scale), _window_arg(window), _stream(q),
     )
     _raise_on(rc, "paged prefill attention")
     _LAUNCHES["prefill"] += 1
@@ -357,7 +502,12 @@ def paged_prefill_attention(q, k_cache, v_cache, layer, block_table,
 
 def paged_decode_attention(q, k_cache, v_cache, layer, block_tables,
                            context_lens, *, block_size, scale, window=None):
-    """One decode step of paged attention. Returns (b, nq, d) in q.dtype."""
+    """One decode step of paged attention. Returns (b, nq, d) in q.dtype.
+
+    On the card the context splits into `_decode_split_plan` splits of
+    DECODE_SPLIT_KEYS keys, each one block per (sequence, kv head); with
+    more than one split, f32 scratch holds each split's (m, l, acc) and a
+    second kernel merges them."""
     on_cpu = _on_cpu(q, k_cache, v_cache, block_tables, context_lens)
     nq, nkv, slots, d = _check_common(q, k_cache, v_cache, block_size)
     _check_index("block_tables", block_tables, 2)
@@ -368,21 +518,33 @@ def paged_decode_attention(q, k_cache, v_cache, layer, block_tables,
             f"q {tuple(q.shape)}, block_tables {tuple(block_tables.shape)} "
             f"and context_lens {tuple(context_lens.shape)} disagree on batch"
         )
-    _smem(nq // nkv, d)
     layer = _check_layer(layer, k_cache)
     if on_cpu:
         return paged_decode_attention_plain(
             q, k_cache, v_cache, layer, block_tables, context_lens,
             block_size=block_size, scale=scale, window=window,
         )
+    g = nq // nkv
+    _check_kernel_shapes(d, block_size, g)
+    _check_aligned(q, k_cache, v_cache)
+    _decode_smem(g, d, q.element_size(), k_cache.element_size())
+    num_pages = block_tables.shape[1]
+    pps, n_splits = _decode_split_plan(num_pages, block_size)
     out = torch.empty_like(q)
-    rc = _lib().pst_paged_decode_attention(
-        _ptr(q), _ptr(k_cache), _ptr(v_cache), _ptr(out),
+    part_acc = part_ml = 0  # null: one split writes the output itself
+    if n_splits > 1:
+        # f32 scratch: (b, nkv, n_splits, g, d) acc, then (.., g, 2) m, l
+        n_acc = b * nkv * n_splits * g * d
+        scratch = torch.empty((n_acc + n_acc // d * 2,),
+                              dtype=torch.float32, device=q.device)
+        part_acc = _ptr(scratch)
+        part_ml = part_acc + 4 * n_acc
+    rc = _kernel("pst_paged_decode_attention")(
+        _ptr(q), _ptr(k_cache), _ptr(v_cache), _ptr(out), part_acc, part_ml,
         _ptr(block_tables), _ptr(context_lens), _DTYPE_CODES[q.dtype],
         _DTYPE_CODES[k_cache.dtype], layer, b, nq, nkv, slots, d,
-        block_size, block_tables.shape[1], float(scale),
-        _window_arg(window),
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
+        block_size, num_pages, pps, n_splits, float(scale),
+        _window_arg(window), _stream(q),
     )
     _raise_on(rc, "paged decode attention")
     _LAUNCHES["decode"] += 1

@@ -135,6 +135,130 @@ def test_kernel_matches_plain_on_card(cuda_device, kind, dtype):
                                atol=tol)
 
 
+def _assert_rel(out, ref, rel):
+    """|out - ref| <= rel * max|ref| per (row, head), over d."""
+    o, r = out.float(), ref.float()
+    err = (o - r).abs()
+    tol = rel * r.abs().amax(dim=-1, keepdim=True)
+    worst = float((err / tol.clamp_min(1e-30)).max())
+    assert worst <= 1.0, f"worst err / tol = {worst:.3f}"
+
+
+# f32: summation order only. bf16: the prefill kernel rounds P to bf16
+# for the tensor-core PV product and both round the output once; the
+# card check's per-(row, head) tolerance.
+_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-6}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,d", [(8, 64), (8, 128), (32, 64), (32, 128)])
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_many_splits(cuda_device, bs, d, window, dtype):
+    """Contexts up to 2048 keys: up to 2048 / DECODE_SPLIT_KEYS splits per
+    sequence merged by the second kernel, a context ending on a split
+    boundary, and with a window whole splits left empty."""
+    q, kc, vc, tables, ctx = decode_case(17, b=5, pages=2048 // bs, bs=bs,
+                                         g=3, d=d)
+    ctx[1], ctx[2], ctx[3] = tpa.DECODE_SPLIT_KEYS, 1, 700
+    args = [_t(x).to(cuda_device, dtype) for x in (q, kc, vc)]
+    args += [1, _t(tables).to(cuda_device), _t(ctx).to(cuda_device)]
+    kw = dict(block_size=bs, scale=d**-0.5, window=window)
+    before = tpa.launch_counts()["decode"]
+    out = tpa.paged_decode_attention(*args, **kw)
+    ref = tpa.paged_decode_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert tpa.launch_counts()["decode"] == before + 1
+    assert tpa._decode_split_plan(tables.shape[1], bs)[1] == 2048 // 256
+    _assert_rel(out, ref, _REL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 8, 12, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_head_groups(cuda_device, g, dtype):
+    """1 to 16 query heads per kv head fill the kernel's 16-row tile (rows
+    8..15 hold heads only from g = 9)."""
+    q, kc, vc, tables, ctx = decode_case(21, b=3, pages=1024 // 16, bs=16,
+                                         nkv=2, g=g, d=128)
+    args = [_t(x).to(cuda_device, dtype) for x in (q, kc, vc)]
+    args += [0, _t(tables).to(cuda_device), _t(ctx).to(cuda_device)]
+    kw = dict(block_size=16, scale=0.088, window=300)
+    out = tpa.paged_decode_attention(*args, **kw)
+    ref = tpa.paged_decode_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_rel(out, ref, _REL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [40, 72])
+@pytest.mark.parametrize("bs,d", [(8, 64), (32, 128), (8, 128), (32, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_kernel_partial_tiles(cuda_device, t, bs, d, dtype):
+    """t * g fused rows not a multiple of the 64-row tile (the last tile
+    is partly filled), q_start mid-page, g = 3 (tiles cut query rows)."""
+    q, kc, vc, table, q_start = prefill_case(
+        18, t=t, prefix_pages=300 // bs, bs=bs, g=3, d=d)
+    args = [_t(x).to(cuda_device, dtype) for x in (q, kc, vc)]
+    args += [0, _t(table).to(cuda_device), q_start]
+    kw = dict(block_size=bs, scale=d**-0.5)
+    out = tpa.paged_prefill_attention(*args, **kw)
+    ref = tpa.paged_prefill_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_rel(out, ref, _REL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 50, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_kernel_window(cuda_device, window, dtype):
+    q, kc, vc, table, q_start = prefill_case(19, t=72, prefix_pages=40,
+                                             bs=8, g=3, d=128)
+    args = [_t(x).to(cuda_device, dtype) for x in (q, kc, vc)]
+    args += [1, _t(table).to(cuda_device), q_start]
+    kw = dict(block_size=8, scale=0.09, window=window)
+    out = tpa.paged_prefill_attention(*args, **kw)
+    ref = tpa.paged_prefill_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_rel(out, ref, _REL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,cache_dtype", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+def test_mixed_dtypes_take_the_fma_path(cuda_device, q_dtype, cache_dtype):
+    """q and cache of different types: the f32 CUDA-core path of both
+    kernels (same tiles, ring and masks); output in q's type."""
+    q, kc, vc, tables, ctx = decode_case(22, b=3, pages=64, bs=8, g=3, d=64)
+    args = [_t(q).to(cuda_device, q_dtype)]
+    args += [_t(x).to(cuda_device, cache_dtype) for x in (kc, vc)]
+    args += [1, _t(tables).to(cuda_device), _t(ctx).to(cuda_device)]
+    kw = dict(block_size=8, scale=0.125)
+    out = tpa.paged_decode_attention(*args, **kw)
+    ref = tpa.paged_decode_attention_plain(*args, **kw)
+    q, kc, vc, table, q_start = prefill_case(23, t=40, prefix_pages=30,
+                                             bs=8, g=3, d=64)
+    pargs = [_t(q).to(cuda_device, q_dtype)]
+    pargs += [_t(x).to(cuda_device, cache_dtype) for x in (kc, vc)]
+    pargs += [0, _t(table).to(cuda_device), q_start]
+    pout = tpa.paged_prefill_attention(*pargs, **kw)
+    pref = tpa.paged_prefill_attention_plain(*pargs, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == pout.dtype == q_dtype
+    _assert_rel(out, ref, _REL[q_dtype])
+    _assert_rel(pout, pref, _REL[q_dtype])
+
+
+@pytest.mark.cuda
+def test_card_wrappers_reject_unbuilt_shapes(cuda_device):
+    q, kc, vc, tables, ctx = decode_case(20, d=32)
+    args = [_t(x).to(cuda_device) for x in (q, kc, vc)]
+    with pytest.raises(ValueError, match="head_dim"):
+        tpa.paged_decode_attention(
+            *args, 0, _t(tables).to(cuda_device), _t(ctx).to(cuda_device),
+            block_size=8, scale=0.1)
+
+
 @pytest.mark.cuda
 def test_matmul_f32_on_card_keeps_the_f32_accumulator(cuda_device):
     """bf16 GEMM with a float32 output against the float32 product of the

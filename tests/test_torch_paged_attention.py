@@ -69,6 +69,106 @@ def test_decode_bf16_cache_matches_pallas():
     np.testing.assert_allclose(out.float().numpy(), _np(ref), atol=2**-6)
 
 
+# -- decode split plan (the card kernel's split-K) ----------------------------
+def _rel_close(out, ref, rel):
+    """|out - ref| <= rel * max|ref| per (row, head), over d."""
+    o, r = out.float(), torch.as_tensor(np.asarray(ref, np.float32))
+    tol = rel * r.abs().amax(dim=-1, keepdim=True)
+    assert bool(((o - r).abs() <= tol).all()), float(
+        ((o - r).abs() / tol.clamp_min(1e-30)).max())
+
+
+@pytest.mark.parametrize("pps,window,ctx,pages", [
+    (1, None, [16, 32, 9, 1], 4),    # one page per split
+    (2, None, [16, 32, 9, 1], 4),    # 16 and 32 end on split boundaries
+    (2, None, [64, 48, 33, 0], 8),   # ctx 0 walks nothing: 0
+    (1, 5, [32, 30, 17, 8], 4),      # window: the first splits are empty
+    (2, 13, [64, 48, 33, 2], 8),     # window empties whole 2-page splits
+    (None, 20, [64, 31, 40, 7], 8),  # the kernel's own plan: one split
+])
+def test_decode_split_plan_matches_pallas(pps, window, ctx, pages):
+    q, kc, vc, tables, _ = decode_case(15, pages=pages)
+    ctx = np.asarray(ctx, np.int32)
+    scale = q.shape[-1] ** -0.5
+    ref = jpa.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.int32(1),
+        jnp.asarray(tables), jnp.asarray(ctx), block_size=8, scale=scale,
+        interpret=True, window=window,
+    )
+    out = tpa.paged_decode_attention_plain(
+        _t(q), _t(kc), _t(vc), 1, _t(tables), _t(ctx), block_size=8,
+        scale=scale, window=window, pages_per_split=pps,
+    )
+    np.testing.assert_allclose(out.numpy(), _np(ref), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("pps", [1, 2])
+def test_decode_split_plan_bf16_cache_matches_pallas(pps):
+    """bf16 q and cache over many splits: both sides read the same bf16
+    values and round the f32 result once, held per (row, head) to the
+    card check's 2^-6 * max|ref|."""
+    q, kc, vc, tables, ctx = decode_case(16, pages=8, d=64)
+    scale = 0.125
+    ref = jpa.paged_decode_attention(
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(kc, jnp.bfloat16),
+        jnp.asarray(vc, jnp.bfloat16), jnp.int32(0), jnp.asarray(tables),
+        jnp.asarray(ctx), block_size=8, scale=scale, interpret=True,
+        window=17,
+    )
+    out = tpa.paged_decode_attention_plain(
+        _t(q, torch.bfloat16), _t(kc, torch.bfloat16),
+        _t(vc, torch.bfloat16), 0, _t(tables), _t(ctx), block_size=8,
+        scale=scale, window=17, pages_per_split=pps,
+    )
+    _rel_close(out, _np(ref), 2.0**-6)
+
+
+def test_decode_split_plan_sizes_from_the_table_width():
+    assert tpa._decode_split_plan(64, 32) == (8, 8)     # 256 keys a split
+    assert tpa._decode_split_plan(65, 32) == (8, 9)
+    assert tpa._decode_split_plan(4, 8) == (32, 1)
+    assert tpa._decode_split_plan(0, 8) == (32, 1)      # never an empty grid
+    assert tpa._decode_split_plan(5, 8, pages_per_split=2) == (2, 3)
+    assert tpa._decode_split_plan(1, 128) == (2, 1)
+
+
+def test_merge_of_no_split_is_zero_and_masked_splits_weigh_nothing():
+    like = torch.ones((1, 2, 4))
+    torch.testing.assert_close(tpa._merge_splits([], like),
+                               torch.zeros_like(like))
+    m = torch.tensor([[0.5, tpa.MASK_VALUE]])
+    real = (m, torch.tensor([[2.0, 3.0]]), torch.ones((1, 2, 4)))
+    masked = (torch.full((1, 2), tpa.MASK_VALUE), torch.tensor([[5.0, 0.0]]),
+              torch.full((1, 2, 4), 7.0))
+    out = tpa._merge_splits([real, masked], like)
+    # head 0: the split that saw only masked keys weighs e^-1e30 = 0;
+    # head 1: both maxima are MASK_VALUE, so both count (uniform average)
+    torch.testing.assert_close(out[0, 0], torch.full((4,), 0.5))
+    torch.testing.assert_close(out[0, 1], torch.full((4,), 8.0 / 3.0))
+
+
+@pytest.mark.parametrize("d,bs,g,match", [
+    (96, 32, 3, "head_dim"), (16, 4, 2, "head_dim"), (128, 4, 3, "block_size"),
+    (128, 256, 3, "block_size"), (64, 8, 17, "query heads"),
+])
+def test_card_kernels_reject_unbuilt_shapes(d, bs, g, match):
+    with pytest.raises(ValueError, match=match):
+        tpa._check_kernel_shapes(d, bs, g)
+
+
+def test_card_kernel_shared_memory_mirrors():
+    # bf16 3B shapes: decode 106 KB, prefill 85 KB (two blocks per SM)
+    assert tpa._decode_smem(3, 128, 2, 2) == 16 * 272 + 128 + 6 * 64 * 272
+    # f32 decode: two stages and the P buffer of the FMA path
+    assert (tpa._decode_smem(16, 128, 4, 4)
+            == 16 * 528 + 128 + 4 * 64 * 528 + 4096)
+    assert tpa._prefill_smem(128, 2, 2) == 64 * 272 + 4 * 64 * 272
+    # f32 adds the per-warp P buffer of the FMA path
+    assert tpa._prefill_smem(128, 4, 4) == 64 * 528 + 4 * 64 * 528 + 16384
+    with pytest.raises(ValueError, match="shared memory"):
+        tpa._prefill_smem(256, 4, 4)
+
+
 # -- prefill ---------------------------------------------------------------
 @pytest.mark.parametrize("seed,t,window", [
     (0, 16, None), (1, 32, None), (2, 16, 5), (3, 32, 21), (4, 8, 100),
@@ -111,7 +211,9 @@ def test_ragged_plain_matches_pallas(layer, window):
 
 def test_ragged_decode_rows_equal_decode_kernel_plain():
     """Decode lanes as single-row ragged segments give the decode
-    kernel's rows: both walk the same pages with the same masks."""
+    kernel's rows: both walk the same pages with the same masks, and
+    these contexts fit one decode split, whose merge is the ragged
+    version's arithmetic."""
     q, kc, vc, tables, ctx = decode_case(6, b=5)
     r_pad = 8
     blk_seg = np.asarray([0, 5], np.int32)
