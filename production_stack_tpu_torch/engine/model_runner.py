@@ -75,6 +75,20 @@ class ModelRunner:
         self.max_model_len = config.resolved_max_model_len()
         self.block_size = config.block_size
         mc = self.model_config
+        if self.device.type == "cuda":
+            # refuse at boot what the card kernels are not built for: the
+            # prefill kernel runs on every path, the decode kernel under
+            # --no-ragged-kernel
+            g = mc.num_heads // mc.num_kv_heads
+            try:
+                paged_attention.check_kernel_shapes(
+                    mc.head_dim, self.block_size,
+                    None if config.ragged_kernel else g)
+            except ValueError as e:
+                raise ValueError(
+                    f"model {mc.name} (head_dim {mc.head_dim}, {g} query "
+                    f"heads per kv head) at block_size {self.block_size} "
+                    f"cannot run on the card: {e}") from None
 
         if params is None:
             if config.model not in list_presets():

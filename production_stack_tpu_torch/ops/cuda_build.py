@@ -1,14 +1,13 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-Each library is one source, ``csrc/<name>.cu``, compiled with ``nvcc``
-into a shared library with a plain C interface and loaded with
-``ctypes`` (no PyTorch headers, so a build takes seconds). The build runs
-at first use into ``build/kernels/`` beside the package; the library's
-file name carries a hash of its source, of every header under ``csrc/``
-(which any source may include) and of the compiler flags, so an edited
-source or header never loads a stale build. ``build_all`` starts one
-``nvcc`` per library at once. Nothing here runs at import time: the
-CPU-only tests import every module.
+Every ``csrc/*.cu`` goes into one shared library with a plain C
+interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
+seconds): one ``nvcc -c`` per source, all started at once, then one link.
+The build runs at first use into ``build/kernels/`` beside the package;
+the library's file name carries a hash of every file under ``csrc/`` and
+of the compiler flags, so an edited source or header never loads a stale
+build. Nothing here runs at import time: the CPU-only tests import every
+module.
 """
 
 from __future__ import annotations
@@ -18,18 +17,17 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# one library per source: ragged (paged_attention.cu), decode, prefill
-LIBRARIES = ("paged_attention", "paged_decode", "paged_prefill")
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIB: ctypes.CDLL | None = None
 _LOCK = threading.Lock()
 
 
@@ -50,72 +48,57 @@ def nvcc_path() -> str:
     )
 
 
-def sources(name: str) -> list[Path]:
-    """The files a library is built from: its .cu and every csrc header."""
-    return [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+def sources() -> list[Path]:
+    """Every file under csrc/ (the .cu sources and the headers they
+    include), in a fixed order."""
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
 
 
-def library_path(name: str) -> Path:
+def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources(name):
+    for src in sources():
         h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
     h.update(" ".join(NVCC_FLAGS).encode())
-    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"libpst_kernels-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str):
-    """(final path, temp path, running nvcc) for a library not yet built,
-    or None when a build of these exact sources exists."""
-    out = library_path(name)
+def build() -> Path:
+    """Compile csrc/*.cu unless a build of these exact sources exists.
+    The compilers' -Xptxas -v reports (registers, shared memory, spills)
+    land beside the library as <lib>.log."""
+    out = library_path()
     if out.exists():
-        return None
+        return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
-    return out, tmp, proc
-
-
-def _finish(name: str, started) -> Path:
-    out, tmp, proc = started
-    stdout, stderr = proc.communicate()
-    out.with_suffix(".log").write_text(stdout + stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed for {name}.cu ({proc.returncode}):\n{stderr[-4000:]}"
-        )
-    os.replace(tmp, out)  # atomic: concurrent builders never see a part
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        cus = [s for s in sources() if s.suffix == ".cu"]
+        objs = [Path(tmp) / f"{s.stem}.o" for s in cus]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(cus, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [f"{s.name} ({p.returncode}):\n{log[-4000:]}"
+                  for s, p, log in zip(cus, procs, logs) if p.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        lib = Path(tmp) / out.name
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(lib), *map(str, objs)],
+            capture_output=True, text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr[-4000:]}")
+        out.with_suffix(".log").write_text("".join(logs))
+        os.replace(lib, out)  # atomic: concurrent builders never see a part
     return out
 
 
-def build_all(names=LIBRARIES) -> dict[str, Path]:
-    """Compile every library not yet built, one nvcc each, all at once.
-    Each compiler's -Xptxas -v report (registers, shared memory, spills)
-    lands beside its library as <lib>.log."""
-    started = {n: _start(n) for n in names}
-    errors, paths = [], {}
-    for n, st in started.items():
-        try:
-            paths[n] = library_path(n) if st is None else _finish(n, st)
-        except RuntimeError as e:
-            errors.append(str(e))
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    return paths
-
-
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless a build of these exact sources
-    exists."""
-    return build_all((name,))[name]
-
-
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, building it first if needed."""
+def load() -> ctypes.CDLL:
+    """The loaded kernel library, building it first if needed."""
+    global _LIB
     with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            _LIBS[name] = lib
-        return lib
+        if _LIB is None:
+            _LIB = ctypes.CDLL(str(build()))
+        return _LIB

@@ -1,7 +1,8 @@
 """Paged GQA attention over the head-major paged KV cache: the three
 hand-written CUDA kernels (csrc/paged_attention.cu for ragged,
-csrc/paged_decode.cu, csrc/paged_prefill.cu), their wrappers, their
-plain PyTorch versions and a launch counter.
+csrc/paged_decode.cu, csrc/paged_prefill.cu, built into one library by
+ops/cuda_build.py), their wrappers, their plain PyTorch versions and a
+launch counter.
 
 Counterpart of ``production_stack_tpu/ops/pallas_attention.py``; the
 functions keep its names, signatures and layouts:
@@ -29,6 +30,7 @@ card kernels' tensor-core PV product).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -241,28 +243,33 @@ def paged_decode_attention_plain(q, k_cache, v_cache, layer, block_tables,
 # -- wrappers ----------------------------------------------------------------
 def _on_cpu(*tensors) -> bool:
     """True when every tensor lies on the CPU, False when every one lies
-    on a CUDA device; anything else is an error."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
+    on one CUDA device; anything else is an error."""
+    if all(t.is_cuda for t in tensors):
+        if len({t.get_device() for t in tensors}) == 1:
+            return False
+    elif all(t.is_cpu for t in tensors):
         return True
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
-        return False
     raise ValueError(
         "paged attention needs all tensors on the CPU or all on one CUDA "
         f"device, got {sorted(str(t.device) for t in tensors)}"
     )
 
 
-def _check_common(q, k_cache, v_cache, block_size):
-    if q.dim() != 3 or k_cache.dim() != 4:
+@functools.lru_cache(maxsize=1024)
+def _shapes(q_shape, q_dtype, cache_shape, cache_dtype, v_shape, v_dtype,
+            block_size):
+    """(nq, nkv, slots, d) of q (rows, nq, d) and the caches (L, nkv,
+    slots, d), or ValueError. A function of shapes and dtypes alone, so a
+    wrapper checks each combination once, not on every call."""
+    if len(q_shape) != 3 or len(cache_shape) != 4:
         raise ValueError(
             f"q must be (rows, nq, d) and the cache (L, nkv, slots, d); got "
-            f"{tuple(q.shape)} and {tuple(k_cache.shape)}"
+            f"{tuple(q_shape)} and {tuple(cache_shape)}"
         )
-    if v_cache.shape != k_cache.shape or v_cache.dtype != k_cache.dtype:
+    if v_shape != cache_shape or v_dtype != cache_dtype:
         raise ValueError("k_cache and v_cache must match in shape and dtype")
-    _, nq, d = q.shape
-    _, nkv, slots, dc = k_cache.shape
+    _, nq, d = q_shape
+    _, nkv, slots, dc = cache_shape
     if dc != d or nq % nkv:
         raise ValueError(
             f"head dims disagree (q d={d}, cache d={dc}) or nq={nq} is not "
@@ -270,17 +277,23 @@ def _check_common(q, k_cache, v_cache, block_size):
         )
     if d > 256 or d % 8:
         raise ValueError(f"head_dim must be <= 256 and a multiple of 8, got {d}")
-    if q.dtype not in _DTYPE_CODES or k_cache.dtype not in _DTYPE_CODES:
+    if q_dtype not in _DTYPE_CODES or cache_dtype not in _DTYPE_CODES:
         raise ValueError(
-            f"kernels take float32 or bfloat16, got q {q.dtype} and cache "
-            f"{k_cache.dtype}"
+            f"kernels take float32 or bfloat16, got q {q_dtype} and cache "
+            f"{cache_dtype}"
         )
     if slots % block_size:
         raise ValueError(f"cache slots {slots} not a multiple of {block_size}")
+    return nq, nkv, slots, d
+
+
+def _check_common(q, k_cache, v_cache, block_size):
+    shapes = _shapes(q.shape, q.dtype, k_cache.shape, k_cache.dtype,
+                     v_cache.shape, v_cache.dtype, block_size)
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    return nq, nkv, slots, d
+    return shapes
 
 
 def _check_index(name, t, dim):
@@ -342,19 +355,10 @@ def _prefill_smem(d, q_itemsize, cache_itemsize) -> int:
     return _fits(need, f"the prefill kernel at head_dim {d}")
 
 
-def _check_aligned(*tensors):
-    """The decode and prefill kernels copy rows into shared memory in
-    16-byte pieces (cp.async): the tensors they copy from must start on a
-    16-byte boundary."""
-    for t in tensors:
-        if t.data_ptr() % 16:
-            raise ValueError("the card kernels need 16-byte aligned q and "
-                             "caches (a view at an odd offset?)")
-
-
-def _check_kernel_shapes(d, block_size, g=None):
+def check_kernel_shapes(d, block_size, g=None):
     """Shapes the decode and prefill kernels are built for (g: decode's
-    query heads per kv head); raised before any launch."""
+    query heads per kv head); raised before any launch, and by the model
+    runner at boot for the model it serves on the card."""
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the card kernels take head_dim in "
                          f"{KERNEL_HEAD_DIMS}, got {d}")
@@ -366,48 +370,72 @@ def _check_kernel_shapes(d, block_size, g=None):
                          f"query heads per kv head, got {g}")
 
 
-def _ptr(t: torch.Tensor) -> int:
-    return t.data_ptr()
+@functools.lru_cache(maxsize=1024)
+def _decode_plan(g, d, q_itemsize, cache_itemsize, block_size, num_pages):
+    """The decode kernel's (pages_per_split, n_splits) for these shapes,
+    after checking that it is built for them and that they fit."""
+    check_kernel_shapes(d, block_size, g)
+    _decode_smem(g, d, q_itemsize, cache_itemsize)
+    return _decode_split_plan(num_pages, block_size)
+
+
+@functools.lru_cache(maxsize=1024)
+def _prefill_plan(d, q_itemsize, cache_itemsize, block_size):
+    check_kernel_shapes(d, block_size)
+    _prefill_smem(d, q_itemsize, cache_itemsize)
+
+
+def _check_aligned(*ptrs):
+    """The decode and prefill kernels copy rows into shared memory in
+    16-byte pieces (cp.async): the tensors they copy from must start on a
+    16-byte boundary."""
+    for p in ptrs:
+        if p % 16:
+            raise ValueError("the card kernels need 16-byte aligned q and "
+                             "caches (a view at an odd offset?)")
 
 
 _VP, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                          ctypes.c_float)
-# entry point -> (library, argtypes), exactly the C signatures
-_ENTRY_POINTS = {
-    "pst_ragged_paged_attention": ("paged_attention", [
+# entry point -> argtypes, exactly the C signatures
+_ARGTYPES = {
+    "pst_ragged_paged_attention": [
         _VP, _VP, _VP, _VP, _VP, _VP, _VP,   # q k v out tables blk_seg meta
         _I32, _I32, _I32, _I32, _I32, _I32, _I32,  # dtypes layer G tq nq nkv
         _I64, _I32, _I32, _I32, _F32, _I32, _VP,   # slots d bs P scale win s
-    ]),
-    "pst_paged_prefill_attention": ("paged_prefill", [
+    ],
+    "pst_paged_prefill_attention": [
         _VP, _VP, _VP, _VP, _VP,             # q k v out table
         _I32, _I32, _I32, _I32, _I32, _I32, _I32,  # dtypes layer q_start t nq nkv
         _I64, _I32, _I32, _I32, _F32, _I32, _VP,   # slots d bs P scale win s
-    ]),
-    "pst_paged_decode_attention": ("paged_decode", [
+    ],
+    "pst_paged_decode_attention": [
         _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,  # q k v out acc ml tables ctx
         _I32, _I32, _I32, _I32, _I32, _I32,  # dtypes layer b nq nkv
         _I64, _I32, _I32, _I32, _I32, _I32,  # slots d bs P pps n_splits
         _F32, _I32, _VP,                     # scale window stream
-    ]),
+    ],
 }
+_FNS: dict = {}
 
 
 def _kernel(entry: str):
-    """The C entry point, its library built and loaded on first use."""
-    from production_stack_tpu_torch.ops import cuda_build
+    """The C entry point, the kernel library built and loaded on first
+    use."""
+    fn = _FNS.get(entry)
+    if fn is None:
+        from production_stack_tpu_torch.ops import cuda_build
 
-    lib_name, argtypes = _ENTRY_POINTS[entry]
-    fn = getattr(cuda_build.load(lib_name), entry)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
+        fn = getattr(cuda_build.load(), entry)
+        fn.argtypes = _ARGTYPES[entry]
         fn.restype = ctypes.c_int
+        _FNS[entry] = fn
     return fn
 
 
 def _stream(t: torch.Tensor) -> int:
     """PyTorch's current stream on t's device, as the raw cudaStream_t."""
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -453,8 +481,8 @@ def ragged_paged_attention(q, k_cache, v_cache, layer, block_tables,
         )
     out = torch.empty_like(q)
     rc = _kernel("pst_ragged_paged_attention")(
-        _ptr(q), _ptr(k_cache), _ptr(v_cache), _ptr(out),
-        _ptr(block_tables), _ptr(blk_seg), _ptr(seg_meta),
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+        block_tables.data_ptr(), blk_seg.data_ptr(), seg_meta.data_ptr(),
         _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype], layer,
         n_blocks, tq, nq, nkv, slots, d, block_size,
         block_tables.shape[1], float(scale), _window_arg(window), _stream(q),
@@ -485,12 +513,12 @@ def paged_prefill_attention(q, k_cache, v_cache, layer, block_table,
             q, k_cache, v_cache, layer, block_table, q_start,
             block_size=block_size, scale=scale, window=window,
         )
-    _check_kernel_shapes(d, block_size)
-    _check_aligned(q, k_cache, v_cache)
-    _prefill_smem(d, q.element_size(), k_cache.element_size())
+    _prefill_plan(d, q.element_size(), k_cache.element_size(), block_size)
+    ptrs = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr())
+    _check_aligned(*ptrs)
     out = torch.empty_like(q)
     rc = _kernel("pst_paged_prefill_attention")(
-        _ptr(q), _ptr(k_cache), _ptr(v_cache), _ptr(out), _ptr(block_table),
+        *ptrs, out.data_ptr(), block_table.data_ptr(),
         _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype], layer, q_start,
         t, nq, nkv, slots, d, block_size, block_table.shape[0],
         float(scale), _window_arg(window), _stream(q),
@@ -525,11 +553,12 @@ def paged_decode_attention(q, k_cache, v_cache, layer, block_tables,
             block_size=block_size, scale=scale, window=window,
         )
     g = nq // nkv
-    _check_kernel_shapes(d, block_size, g)
-    _check_aligned(q, k_cache, v_cache)
-    _decode_smem(g, d, q.element_size(), k_cache.element_size())
     num_pages = block_tables.shape[1]
-    pps, n_splits = _decode_split_plan(num_pages, block_size)
+    pps, n_splits = _decode_plan(g, d, q.element_size(),
+                                 k_cache.element_size(), block_size,
+                                 num_pages)
+    ptrs = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr())
+    _check_aligned(*ptrs)
     out = torch.empty_like(q)
     part_acc = part_ml = 0  # null: one split writes the output itself
     if n_splits > 1:
@@ -537,11 +566,11 @@ def paged_decode_attention(q, k_cache, v_cache, layer, block_tables,
         n_acc = b * nkv * n_splits * g * d
         scratch = torch.empty((n_acc + n_acc // d * 2,),
                               dtype=torch.float32, device=q.device)
-        part_acc = _ptr(scratch)
+        part_acc = scratch.data_ptr()
         part_ml = part_acc + 4 * n_acc
     rc = _kernel("pst_paged_decode_attention")(
-        _ptr(q), _ptr(k_cache), _ptr(v_cache), _ptr(out), part_acc, part_ml,
-        _ptr(block_tables), _ptr(context_lens), _DTYPE_CODES[q.dtype],
+        *ptrs, out.data_ptr(), part_acc, part_ml, block_tables.data_ptr(),
+        context_lens.data_ptr(), _DTYPE_CODES[q.dtype],
         _DTYPE_CODES[k_cache.dtype], layer, b, nq, nkv, slots, d,
         block_size, num_pages, pps, n_splits, float(scale),
         _window_arg(window), _stream(q),

@@ -10,6 +10,8 @@ port runs its plain versions, through the ragged kernel's seam and
 through the composed prefill/decode kernels' (--no-ragged-kernel).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -147,3 +149,48 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LLMEngine(EngineConfig(**BASE, device="cuda"))
+
+
+@pytest.mark.parametrize("over,match", [
+    ({}, "head_dim"),  # pst-tiny-debug: head_dim 16
+    ({"model": "llama-3.2-3b", "block_size": 4}, "block_size"),
+    ({"model": "llama-3.2-3b", "block_size": 256}, "block_size"),
+])
+def test_card_refuses_unbuilt_kernel_shapes_at_boot(monkeypatch, over,
+                                                    match):
+    """On the card, a model or block size the prefill and decode kernels
+    are not built for refuses when the engine starts, before any weight
+    or cache is allocated, not at the first request."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch, "Generator", _Booted.stop)
+    with pytest.raises(ValueError, match=f"cannot run on the card.*{match}"):
+        LLMEngine(EngineConfig(**{**BASE, **over}, device="cuda"))
+
+
+def test_card_boot_checks_decode_heads_only_without_ragged_kernel(
+        monkeypatch):
+    """The decode kernel (one 16-row MMA tile of query heads per kv head)
+    serves only --no-ragged-kernel, so only then does the head count
+    refuse."""
+    from production_stack_tpu_torch.engine import model_runner
+    from production_stack_tpu_torch.models.config import get_model_config
+
+    wide = dataclasses.replace(get_model_config("llama-3.2-3b"),
+                               num_heads=24 * 3, num_kv_heads=2)
+    monkeypatch.setattr(EngineConfig, "model_config", lambda self: wide)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch, "Generator", _Booted.stop)
+    cfg = {**BASE, "block_size": 32, "device": "cuda"}
+    with pytest.raises(ValueError, match="query heads per kv head, got 36"):
+        model_runner.ModelRunner(EngineConfig(**cfg, ragged_kernel=False))
+    with pytest.raises(_Booted):
+        model_runner.ModelRunner(EngineConfig(**cfg))
+
+
+class _Booted(Exception):
+    """Raised in place of the weights' random init: the boot checks
+    passed."""
+
+    @staticmethod
+    def stop(*args, **kwargs):
+        raise _Booted

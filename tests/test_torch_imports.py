@@ -43,38 +43,40 @@ def test_every_port_module_imports_without_a_card():
         importlib.import_module(name)
     from production_stack_tpu_torch.ops import cuda_build
 
-    assert cuda_build._LIBS == {}  # importing built nothing
+    assert cuda_build._LIB is None  # importing built nothing
 
 
 def test_kernel_source_ships_with_the_package():
     from production_stack_tpu_torch.ops import cuda_build
     from production_stack_tpu_torch.ops import paged_attention as pa
 
-    entries = {e: lib for e, (lib, _) in pa._ENTRY_POINTS.items()}
-    assert sorted(entries) == ["pst_paged_decode_attention",
-                               "pst_paged_prefill_attention",
-                               "pst_ragged_paged_attention"]
-    for entry, lib in entries.items():
-        assert lib in cuda_build.LIBRARIES
-        text = (cuda_build.CSRC / f"{lib}.cu").read_text()
-        assert f"int {entry}(" in text
+    assert sorted(pa._ARGTYPES) == ["pst_paged_decode_attention",
+                                    "pst_paged_prefill_attention",
+                                    "pst_ragged_paged_attention"]
+    text = "".join(s.read_text() for s in cuda_build.sources()
+                   if s.suffix == ".cu")
+    for entry in pa._ARGTYPES:
+        assert text.count(f"int {entry}(") == 1
     assert "sm_90a" in " ".join(cuda_build.NVCC_FLAGS)
     # the build output lands in a directory git ignores
     assert "build/" in (REPO / ".gitignore").read_text().split()
 
 
 def test_library_name_hashes_shared_headers(tmp_path, monkeypatch):
-    """A library's file name changes when its source or any csrc header
+    """The library's file name changes when any csrc source or header
     changes, so an edited header never loads a stale build."""
     from production_stack_tpu_torch.ops import cuda_build
 
     (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
     (tmp_path / "common.cuh").write_text("// v1\n")
+    (tmp_path / "notes.txt").write_text("not a source\n")
     monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
-    first = cuda_build.library_path("k")
-    assert cuda_build.sources("k") == [tmp_path / "k.cu",
-                                       tmp_path / "common.cuh"]
+    first = cuda_build.library_path()
+    assert cuda_build.sources() == [tmp_path / "common.cuh",
+                                    tmp_path / "k.cu"]
     (tmp_path / "common.cuh").write_text("// v2\n")
-    second = cuda_build.library_path("k")
+    second = cuda_build.library_path()
     (tmp_path / "k.cu").write_text('#include "common.cuh"\n// edit\n')
-    assert len({first, second, cuda_build.library_path("k")}) == 3
+    third = cuda_build.library_path()
+    (tmp_path / "other.cu").write_text("// a new source\n")
+    assert len({first, second, third, cuda_build.library_path()}) == 4

@@ -153,7 +153,7 @@ def test_merge_of_no_split_is_zero_and_masked_splits_weigh_nothing():
 ])
 def test_card_kernels_reject_unbuilt_shapes(d, bs, g, match):
     with pytest.raises(ValueError, match=match):
-        tpa._check_kernel_shapes(d, bs, g)
+        tpa.check_kernel_shapes(d, bs, g)
 
 
 def test_card_kernel_shared_memory_mirrors():
