@@ -6,9 +6,10 @@
 Phases, each fatal on failure:
 
 1. build: compile the three kernel sources (csrc/paged_attention.cu,
-   paged_decode.cu, paged_prefill.cu), one nvcc each, all at once, and
-   link them into one library (route: plain C interface + ctypes); print
-   the compiler's register/spill report;
+   paged_decode.cu, paged_prefill.cu; the first and last include the
+   tile of paged_tile.cuh), one nvcc each, all at once, and link them
+   into one library (route: plain C interface + ctypes); print the
+   compiler's register/spill report;
 2. kernels: random inputs from a seed at Llama-3.2-3B attention shapes
    (nq=24, nkv=8, d=128, bs=32, bf16, a 28-layer cache past 2^31
    elements) run through each kernel and its plain PyTorch version on
@@ -23,9 +24,11 @@ Phases, each fatal on failure:
    and prefill one SDPA (enable_gqa) over each lane's context read once,
    the lanes' contexts end to end under a block-causal mask; for decode
    one SDPA of each lane's row over its context padded to the table
-   width. For the decode and prefill kernels it also prints the grid
-   (split count), shared memory, achieved GB/s or TFLOP/s and bound /
-   kernel time;
+   width. For each kernel it also prints the grid (split count), shared
+   memory, achieved GB/s or TFLOP/s and bound / kernel time. The ragged
+   kernel is also checked and timed on the decode lanes alone, packed as
+   the model runner packs a decode step (one single-row segment per
+   lane), beside the decode kernel on the same lanes;
 3. forward: the same random params through models/llama.forward on the
    CPU (plain versions) and on the card (kernels), 2 layers at full 3B
    width, bf16; logits held to a stated tolerance;
@@ -74,22 +77,22 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
 # kernel vs plain, per (row, head): |out - ref| <= TOL * max|ref| over d.
-# bf16: the plain versions and the ragged kernel round one f32 result
-# once, so they differ by at most one bf16 step (<= 2^-7 of the row's
-# largest value); the decode and prefill kernels also round P to bf16
-# (relative 2^-9 per weight) for the tensor-core PV product, which moves
-# a row by a fraction of a step more. 2^-6 is two steps.
+# bf16: the plain versions and the kernels round one f32 result once, so
+# they differ by at most one bf16 step (<= 2^-7 of the row's largest
+# value); the kernels also round P to bf16 (relative 2^-9 per weight) for
+# the tensor-core PV product, which moves a row by a fraction of a step
+# more. 2^-6 is two steps.
 # f32: summation order only; a row that saw one key too many or too few
 # moves by ~1e-3 of its largest value at these context lengths.
 BF16_REL_TOL = 2.0**-6
 F32_REL_TOL = 1e-4
 LOGIT_REL_TOL = 5e-2       # forward, max|dlogit| / max|logit|, bf16
 # decode phase: the same 28-layer bf16 decode step on two kernels that
-# differ in summation order and in the rounding of P to bf16 (decode
-# kernel), max|dlogit| / max|logit|: sound runs read 1.6e-2, the same
-# step with the last split of the longest lane skipped reads 0.35 (on an
-# H100); the bound is about twice the sound reading, and the faulty step
-# must land above it in every run
+# differ in summation order (both round P to bf16 for the tensor-core PV
+# product), max|dlogit| / max|logit|: sound runs read 1.5e-2 to 1.6e-2,
+# the same step with the last split of the longest lane skipped reads
+# 0.35 (on an H100); the bound is about twice the sound reading, and the
+# faulty step must land above it in every run
 DECODE_LOGIT_REL_TOL = 3e-2
 
 
@@ -373,7 +376,7 @@ def kernel_phase(torch) -> list[tuple[str, dict]]:
         len(covered), qpos_r, kv_tok,
         (ragged(pa.ragged_paged_attention, q_r32, k32, v32, 0),
          ragged(pa.ragged_paged_attention_plain, q_r32, k32, v32, 0)),
-        ("ragged_kernel",),
+        ("ragged_tile_kernel",),
     )
     # one windowed case on the same mix (kernel vs plain only)
     w = 256
@@ -390,6 +393,16 @@ def kernel_phase(torch) -> list[tuple[str, dict]]:
         ragged(pa.ragged_paged_attention_plain, q_r32, k32, v32, 0, w)(),
         rows_t, F32_REL_TOL)
     rag["max_abs_err"] = max(rag["max_abs_err"], werr)
+    smem = pa._prefill_smem(d, 2, 2)  # the prefill tile: ragged too
+    n_x, n_y = pa._ragged_grid(len(seg_meta), tq, g, nkv)
+    rag_bytes = 2 * kv_tok * nkv * d * 2 + 2 * len(covered) * nq * d * 2
+    report("ragged_paged_attention", rag,
+           f"({n_x}, {n_y}) = {n_x * n_y} blocks, one per (segment, "
+           f"{pa.PREFILL_BM}-fused-row tile, kv head), "
+           f"{pa.PREFILL_BN}-key tiles", smem,
+           f"{rag_bytes / rag['ms'] / 1e6:.1f} GB/s, "
+           f"{4 * visible_keys(qpos_r) * nq * d / rag['ms'] / 1e9:.1f} "
+           "TFLOP/s (bf16)")
 
     # prefill: one 512-row chunk at q_start 1024 over 48 shuffled pages
     t, qs = 512, 1024
@@ -419,7 +432,7 @@ def kernel_phase(torch) -> list[tuple[str, dict]]:
     report("paged_prefill_attention", pre,
            f"({n_tiles}, {nkv}) = {n_tiles * nkv} blocks of "
            f"{pa.PREFILL_BM} fused rows x {pa.PREFILL_BN}-key tiles",
-           pa._prefill_smem(d, 2, 2),
+           smem,
            f"{4 * visible_keys(qpos_p) * nq * d / pre['ms'] / 1e9:.1f} "
            f"TFLOP/s (bf16)")
 
@@ -452,6 +465,41 @@ def kernel_phase(torch) -> list[tuple[str, dict]]:
            f"({n_splits} splits of {pps} pages) + merge ({b}, {nkv})",
            pa._decode_smem(g, d, 2, 2),
            f"{kv_bytes / dec['ms'] / 1e6:.1f} GB/s")
+
+    # the ragged kernel on the same decode lanes alone, packed as the
+    # model runner packs a decode step (one single-row segment a lane):
+    # the launch the serving engine makes most
+    from production_stack_tpu_torch.engine.model_runner import (
+        decode_segments,
+    )
+    r_pad, dblk, dmeta = decode_segments(np.asarray(dec_ctx, np.int32))
+    assert r_pad == b
+    dblk_d = torch.from_numpy(dblk).to(dev)
+    dmeta_d = torch.from_numpy(dmeta).to(dev)
+
+    def ragged_dec(fn, qq, kk, vv, ll):
+        return lambda: fn(qq, kk, vv, ll, tab_d, dblk_d, dmeta_d, **kw)
+
+    rdec = check(
+        "ragged_paged_attention decode-only",
+        ragged_dec(pa.ragged_paged_attention, q_d, k_cache, v_cache, layer),
+        ragged_dec(pa.ragged_paged_attention_plain, q_d, k_cache, v_cache,
+                   layer),
+        torch.arange(b, device=dev),
+        lambda: padded_decode_sdpa_inputs(q_d, qpos_d, tab_d),
+        b, qpos_d, sum(dec_ctx),
+        (ragged_dec(pa.ragged_paged_attention, q_d32, k32, v32, 0),
+         ragged_dec(pa.ragged_paged_attention_plain, q_d32, k32, v32, 0)),
+        ("ragged_tile_kernel",),
+    )
+    n_x, n_y = pa._ragged_grid(len(dmeta), tq, g, nkv)
+    report("ragged_paged_attention decode-only", rdec,
+           f"({n_x}, {n_y}) = {n_x * n_y} blocks", smem,
+           f"{kv_bytes / rdec['ms'] / 1e6:.1f} GB/s")
+    print(f"decode lanes ({b}, contexts {dec_ctx}): ragged_paged_attention "
+          f"kernel_ms={rdec['ms']:.4f} beside paged_decode_attention "
+          f"kernel_ms={dec['ms']:.4f} (x{rdec['ms'] / dec['ms']:.2f})",
+          flush=True)
     del k_cache, v_cache, k32, v32, flush
     torch.cuda.empty_cache()
     return [("ragged", rag), ("prefill", pre), ("decode", dec)]

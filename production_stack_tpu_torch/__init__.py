@@ -3,8 +3,8 @@ NVIDIA Hopper.
 
 Module paths mirror ``production_stack_tpu`` so each module's counterpart
 is easy to find; this package imports ``torch`` and nothing of the JAX
-package. Paged attention runs on hand-written CUDA kernels
-(``csrc/paged_attention.cu``) on the card, and on their plain PyTorch
+package. Paged attention runs on hand-written CUDA kernels (``csrc/``:
+ragged, decode and prefill) on the card, and on their plain PyTorch
 versions for CPU tensors.
 
 Layout:

@@ -54,6 +54,24 @@ def _ceil_tq(n: int) -> int:
     return -(-n // RAGGED_TQ) * RAGGED_TQ
 
 
+def decode_segments(ctx: np.ndarray):
+    """The ragged kernel's row space for a decode step of len(ctx) lanes:
+    (r_pad, blk_seg, seg_meta), lane i one single-row segment at row i
+    (position ctx[i] - 1), RAGGED_TQ lanes to a row block."""
+    b = len(ctx)
+    r_pad = _ceil_tq(b)
+    n_blk = r_pad // RAGGED_TQ
+    blk_seg = np.minimum(
+        np.arange(n_blk + 1, dtype=np.int32) * RAGGED_TQ, b
+    ).astype(np.int32)
+    lanes = np.arange(b, dtype=np.int32)
+    seg_meta = np.stack([
+        lanes, lanes % RAGGED_TQ, np.ones((b,), np.int32),
+        np.asarray(ctx, np.int32) - 1,
+    ], axis=1).astype(np.int32)
+    return r_pad, blk_seg, seg_meta
+
+
 def resolve_dtype(name: str) -> torch.dtype:
     if name not in DTYPES:
         raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got {name!r}")
@@ -77,8 +95,8 @@ class ModelRunner:
         mc = self.model_config
         if self.device.type == "cuda":
             # refuse at boot what the card kernels are not built for: the
-            # prefill kernel runs on every path, the decode kernel under
-            # --no-ragged-kernel
+            # prefill tile (prefill and ragged kernels) runs on every path,
+            # the decode kernel under --no-ragged-kernel
             g = mc.num_heads // mc.num_kv_heads
             try:
                 paged_attention.check_kernel_shapes(
@@ -447,16 +465,7 @@ class ModelRunner:
         per-sequence decode kernel with --no-ragged-kernel."""
         tables_d = self._dev(tables)
         if self.ragged_kernel:
-            tq = RAGGED_TQ
-            r_pad = _ceil_tq(b)
-            n_blk = r_pad // tq
-            blk_seg = np.minimum(
-                np.arange(n_blk + 1, dtype=np.int32) * tq, b
-            ).astype(np.int32)
-            lanes = np.arange(b, dtype=np.int32)
-            seg_meta = np.stack([
-                lanes, lanes % tq, np.ones((b,), np.int32), ctx - 1,
-            ], axis=1).astype(np.int32)
+            r_pad, blk_seg, seg_meta = decode_segments(ctx)
             blk_seg_d, seg_meta_d = self._dev(blk_seg), self._dev(seg_meta)
 
             def attn(q, l, kc, vc):

@@ -1,8 +1,8 @@
 """Paged GQA attention over the head-major paged KV cache: the three
 hand-written CUDA kernels (csrc/paged_attention.cu for ragged,
-csrc/paged_decode.cu, csrc/paged_prefill.cu, built into one library by
-ops/cuda_build.py), their wrappers, their plain PyTorch versions and a
-launch counter.
+csrc/paged_decode.cu, csrc/paged_prefill.cu, the first and last sharing
+csrc/paged_tile.cuh; built into one library by ops/cuda_build.py), their
+wrappers, their plain PyTorch versions and a launch counter.
 
 Counterpart of ``production_stack_tpu/ops/pallas_attention.py``; the
 functions keep its names, signatures and layouts:
@@ -10,9 +10,12 @@ functions keep its names, signatures and layouts:
 - the KV cache is HEAD-MAJOR ``(L, nkv, slots, d)``; ``layer`` indexes
   the full cache, so no per-layer copy is ever made;
 - ``ragged_paged_attention`` runs a flattened row space of any lane mix
-  described by CSR segment metadata (``blk_seg``, ``seg_meta``);
+  described by CSR segment metadata (``blk_seg``, ``seg_meta``); on the
+  card each segment is a contiguous chunk run on the prefill kernel's
+  tile, one block per (segment, tile, kv head);
 - ``paged_prefill_attention`` runs one sequence's contiguous chunk
-  (tensor-core tiles of 64 fused rows x 64 keys on the card);
+  (tensor-core tiles of 64 fused rows x 64 keys on the card, shared
+  with the ragged kernel in csrc/paged_tile.cuh);
 - ``paged_decode_attention`` runs one query row per sequence, its
   context split across blocks (split-K) and the splits merged.
 
@@ -45,8 +48,8 @@ RAGGED_TQ = 8
 # masks a partly filled last tile). The plain version walks PREFILL_TQ-row
 # tiles, each over its own page range.
 PREFILL_TQ = 8
-# Fused query rows x keys of one prefill kernel tile (csrc/paged_prefill.cu
-# BM, BN).
+# Fused query rows x keys of one prefill (and ragged) kernel tile
+# (csrc/paged_tile.cuh BM, BN).
 PREFILL_BM = PREFILL_BN = 64
 # Keys one decode split walks: split s holds table pages
 # [s * pps, (s + 1) * pps), pps = DECODE_SPLIT_KEYS // block_size.
@@ -57,7 +60,7 @@ DECODE_KT = 64
 DECODE_STAGES = {2: 3, 4: 2}
 # Query heads per kv head the decode kernel takes: one 16-row MMA tile.
 DECODE_MAX_G = 16
-# Shapes the decode and prefill kernels are built for.
+# Shapes the card kernels are built for.
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_BLOCK_SIZES = (8, 16, 32, 64, 128)
 # Shared memory one block may use on Hopper (227 KB).
@@ -320,15 +323,6 @@ def _fits(need: int, what: str) -> int:
     return need
 
 
-def _ragged_smem(rows, d) -> int:
-    """csrc/paged_attention.cu smem_bytes: q and acc (rows x d), one
-    32-key K (padded) and V chunk, scores and softmax state, all f32."""
-    return _fits(
-        4 * (2 * rows * d + 32 * (d + 1) + 32 * d + rows * 32 + 3 * rows),
-        f"the ragged kernel's {rows} fused query rows at head_dim {d}",
-    )
-
-
 def _decode_smem(g, d, q_itemsize, cache_itemsize) -> int:
     """csrc/paged_decode.cu smem_bytes: the q tile (16 rows of d elements
     + 16 bytes), the split's table slice (32 ints), the ring of
@@ -344,7 +338,8 @@ def _decode_smem(g, d, q_itemsize, cache_itemsize) -> int:
 
 
 def _prefill_smem(d, q_itemsize, cache_itemsize) -> int:
-    """csrc/paged_prefill.cu smem_bytes: the Q tile (PREFILL_BM rows of d
+    """csrc/paged_tile.cuh smem_bytes, the prefill and ragged kernels'
+    shared memory per block: the Q tile (PREFILL_BM rows of d
     elements + 16 bytes), two stages of K and V tiles (PREFILL_BN rows),
     and on the FMA path (not bf16 q and cache) each warp's 16 x
     PREFILL_BN block of P in f32."""
@@ -356,9 +351,9 @@ def _prefill_smem(d, q_itemsize, cache_itemsize) -> int:
 
 
 def check_kernel_shapes(d, block_size, g=None):
-    """Shapes the decode and prefill kernels are built for (g: decode's
-    query heads per kv head); raised before any launch, and by the model
-    runner at boot for the model it serves on the card."""
+    """Shapes the card kernels are built for (g: decode's query heads per
+    kv head); raised before any launch, and by the model runner at boot
+    for the model it serves on the card."""
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the card kernels take head_dim in "
                          f"{KERNEL_HEAD_DIMS}, got {d}")
@@ -381,14 +376,24 @@ def _decode_plan(g, d, q_itemsize, cache_itemsize, block_size, num_pages):
 
 @functools.lru_cache(maxsize=1024)
 def _prefill_plan(d, q_itemsize, cache_itemsize, block_size):
+    """Checks that the prefill tile (prefill and ragged kernels) is built
+    for these shapes and fits."""
     check_kernel_shapes(d, block_size)
     _prefill_smem(d, q_itemsize, cache_itemsize)
 
 
+def _ragged_grid(n_segs: int, tq: int, g: int, nkv: int) -> tuple:
+    """The ragged kernel's grid (csrc/paged_attention.cu launch): one block
+    per (segment, PREFILL_BM-fused-row tile of a segment's at most tq * g
+    fused rows, kv head), (n_segs * tiles_per_seg, nkv). Shapes alone:
+    the host never reads the segments."""
+    return n_segs * _cdiv(tq * g, PREFILL_BM), nkv
+
+
 def _check_aligned(*ptrs):
-    """The decode and prefill kernels copy rows into shared memory in
-    16-byte pieces (cp.async): the tensors they copy from must start on a
-    16-byte boundary."""
+    """The card kernels copy rows into shared memory in 16-byte pieces
+    (cp.async): the tensors they copy from must start on a 16-byte
+    boundary."""
     for p in ptrs:
         if p % 16:
             raise ValueError("the card kernels need 16-byte aligned q and "
@@ -401,7 +406,8 @@ _VP, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 _ARGTYPES = {
     "pst_ragged_paged_attention": [
         _VP, _VP, _VP, _VP, _VP, _VP, _VP,   # q k v out tables blk_seg meta
-        _I32, _I32, _I32, _I32, _I32, _I32, _I32,  # dtypes layer G tq nq nkv
+        _I32, _I32, _I32, _I32, _I32,        # dtypes layer G SC
+        _I32, _I32, _I32,                    # tq nq nkv
         _I64, _I32, _I32, _I32, _F32, _I32, _VP,   # slots d bs P scale win s
     ],
     "pst_paged_prefill_attention": [
@@ -459,7 +465,11 @@ def ragged_paged_attention(q, k_cache, v_cache, layer, block_tables,
     q (R, nq, d) holds every lane's query rows back to back; block i of
     R // G rows owns segments [blk_seg[i], blk_seg[i+1]) of seg_meta,
     each [lane, row0, n_rows, q_pos0]. Returns (R, nq, d) in q.dtype;
-    rows covered by no segment are undefined."""
+    rows covered by no segment are undefined.
+
+    On the card one block runs each (segment, PREFILL_BM-fused-row tile,
+    kv head) on the prefill kernel's tile (`_ragged_grid`), so it takes
+    the prefill kernel's head dims and block sizes."""
     on_cpu = _on_cpu(q, k_cache, v_cache, block_tables, blk_seg, seg_meta)
     nq, nkv, slots, d = _check_common(q, k_cache, v_cache, block_size)
     _check_index("block_tables", block_tables, 2)
@@ -472,20 +482,25 @@ def ragged_paged_attention(q, k_cache, v_cache, layer, block_tables,
     if n_blocks < 1 or r % n_blocks:
         raise ValueError(f"row space {r} must tile into {n_blocks} blocks")
     tq = r // n_blocks
-    _ragged_smem(tq * (nq // nkv), d)
     layer = _check_layer(layer, k_cache)
     if on_cpu:
         return ragged_paged_attention_plain(
             q, k_cache, v_cache, layer, block_tables, blk_seg, seg_meta,
             block_size=block_size, scale=scale, window=window,
         )
+    _prefill_plan(d, q.element_size(), k_cache.element_size(), block_size)
+    ptrs = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr())
+    _check_aligned(*ptrs)
     out = torch.empty_like(q)
+    n_segs = seg_meta.shape[0]
+    if n_segs == 0:
+        return out  # no segment: every row undefined, nothing to launch
     rc = _kernel("pst_ragged_paged_attention")(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        block_tables.data_ptr(), blk_seg.data_ptr(), seg_meta.data_ptr(),
-        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype], layer,
-        n_blocks, tq, nq, nkv, slots, d, block_size,
-        block_tables.shape[1], float(scale), _window_arg(window), _stream(q),
+        *ptrs, out.data_ptr(), block_tables.data_ptr(), blk_seg.data_ptr(),
+        seg_meta.data_ptr(), _DTYPE_CODES[q.dtype],
+        _DTYPE_CODES[k_cache.dtype], layer, n_blocks, n_segs, tq, nq, nkv,
+        slots, d, block_size, block_tables.shape[1], float(scale),
+        _window_arg(window), _stream(q),
     )
     _raise_on(rc, "ragged paged attention")
     _LAUNCHES["ragged"] += 1

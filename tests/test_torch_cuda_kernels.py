@@ -59,32 +59,56 @@ def prefill_case(seed, t=16, prefix_pages=2, bs=8, nkv=2, g=2, d=32,
 
 
 
-def ragged_case(seed, window_pages=2):
-    """One 16-row prefill chunk starting mid-page + 4 decode lanes with
-    page-straddling contexts in one row space: 2 prefill blocks, 1 decode
-    block holding the 4 single-row segments and an idle segment, and a
-    trailing block with no segment."""
+# Ragged row spaces of RAGGED_TQ = 8 rows to a block: (blk_seg, seg_meta
+# rows [lane, row0, n_rows, qpos0]). Positions start mid-page at block
+# sizes 8 and 32.
+RAGGED_LAYOUTS = {
+    # a 16-row prefill chunk (2 blocks), a block of 4 single-row decode
+    # segments (contexts 1, 9, 33, 70) and an idle segment, a block with
+    # no segment
+    "mixed": ([0, 1, 2, 7, 7],
+              [[0, 0, 8, 37], [0, 0, 8, 45],
+               [1, 0, 1, 0], [2, 1, 1, 8], [3, 2, 1, 32], [4, 3, 1, 69],
+               [0, 4, 0, 0]]),
+    # two lanes' segments sharing one row block (rows 0-2 and 3-7)
+    "shared": ([0, 2, 3], [[0, 0, 3, 40], [1, 3, 5, 61], [2, 0, 8, 5]]),
+    # segments clipped at the block's edges: rows 5.. run past tq, rows
+    # ..2 of a segment whose row0 is -2
+    "clipped": ([0, 2, 3], [[0, 5, 8, 30], [1, -2, 5, 50], [2, 0, 8, 90]]),
+    # seg_meta rows past blk_seg[G] belong to no block and store nothing
+    "trailing": ([0, 1, 2],
+                 [[0, 0, 8, 20], [1, 0, 8, 44], [1, 0, 8, 3], [0, 2, 4, 60]]),
+}
+# (layout, block_size, nkv, g) of the ragged parity cases on the CPU (vs
+# Pallas) and on the card (vs the plain version); g = 16 at nkv = 1 gives
+# 128 fused rows a block, two 64-row kernel tiles a segment
+RAGGED_CASES = [
+    (layout, bs, 2, 3 if layout == "shared" else 2)
+    for layout in RAGGED_LAYOUTS for bs in (8, 32)
+] + [("mixed", 8, 1, 16), ("mixed", 32, 1, 16)]
+
+
+def ragged_case(seed, layout="mixed", bs=8, nkv=2, g=2, d=32):
+    """Random q, caches and per-lane page tables for RAGGED_LAYOUTS[layout]:
+    (q, kc, vc, tables, blk_seg, seg_meta, rows), rows the rows some
+    segment covers (the others are undefined in the kernel contract)."""
     rng = np.random.RandomState(seed)
-    bs, nkv, g, d = 8, 2, 2, 32
-    nq = nkv * g
-    q_start, t = 13, 16
-    pf_pages = -(-(q_start + t) // bs)
-    dec_ctx = np.asarray([1, 7, 9, 16], np.int32)
-    b, pages = len(dec_ctx), 2
-    num_blocks = 1 + pf_pages + b * pages
+    blk_seg, seg = (np.asarray(x, np.int32) for x in RAGGED_LAYOUTS[layout])
+    tq = 8
+    n_blk = len(blk_seg) - 1
+    lanes = int(seg[:, 0].max()) + 1
+    pages = max(-(-int(qpos0 + n) // bs) for _, _, n, qpos0 in seg)
+    num_blocks = 1 + lanes * pages  # block 0 is the null/trash block
     kc, vc = _cache_pair(rng, 2, nkv, num_blocks * bs, d)
-    perm = rng.permutation(np.arange(1, num_blocks)).astype(np.int32)
-    n_pages = max(pf_pages, pages)
-    tables = np.zeros((1 + b, n_pages), np.int32)
-    tables[0, :pf_pages] = perm[:pf_pages]
-    tables[1:, :pages] = perm[pf_pages:].reshape(b, pages)
-    seg = [[0, 0, 8, q_start], [0, 0, 8, q_start + 8]]
-    seg += [[1 + i, i, 1, int(c) - 1] for i, c in enumerate(dec_ctx)]
-    seg += [[0, 4, 0, 0]]  # idle segment: stores nothing
-    blk_seg = np.asarray([0, 1, 2, 7, 7], np.int32)
-    q = rng.randn(32, nq, d).astype(np.float32)
-    return (q, kc, vc, tables, blk_seg, np.asarray(seg, np.int32),
-            list(range(16)) + list(range(16, 16 + b)))
+    tables = rng.permutation(np.arange(1, num_blocks)).astype(np.int32)
+    tables = tables.reshape(lanes, pages)
+    q = rng.randn(n_blk * tq, nkv * g, d).astype(np.float32)
+    rows = set()
+    for i in range(n_blk):
+        for _, row0, n, _ in seg[blk_seg[i]:blk_seg[i + 1]]:
+            rows.update(range(i * tq + max(row0, 0),
+                              i * tq + min(row0 + n, tq)))
+    return q, kc, vc, tables, blk_seg, seg, sorted(rows)
 
 
 # -- on the card -------------------------------------------------------------
@@ -114,7 +138,7 @@ def _run_case(kind, dev, dtype):
         return (tpa.paged_prefill_attention(*args, **kw),
                 tpa.paged_prefill_attention_plain(*args, **kw),
                 slice(None))
-    q, kc, vc, tables, blk_seg, seg, rows = ragged_case(13)
+    q, kc, vc, tables, blk_seg, seg, rows = ragged_case(13, d=128)
     args = put(q, kc, vc) + [1] + [_t(x).to(dev)
                                    for x in (tables, blk_seg, seg)]
     return (tpa.ragged_paged_attention(*args, window=7, **kw),
@@ -224,10 +248,32 @@ def test_prefill_kernel_window(cuda_device, window, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout,bs,nkv,g", RAGGED_CASES)
+@pytest.mark.parametrize("window", [None, 12])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_kernel_layouts(cuda_device, layout, bs, nkv, g, window,
+                               dtype):
+    """Segments sharing a row block, clipped at its edges, past
+    blk_seg[G], two kernel tiles to a segment (g = 16), windows that skip
+    the first pages: one launch, kernel against plain on covered rows."""
+    q, kc, vc, tables, blk_seg, seg, rows = ragged_case(
+        24, layout, bs=bs, nkv=nkv, g=g, d=128)
+    args = [_t(x).to(cuda_device, dtype) for x in (q, kc, vc)]
+    args += [1] + [_t(x).to(cuda_device) for x in (tables, blk_seg, seg)]
+    kw = dict(block_size=bs, scale=128**-0.5, window=window)
+    before = tpa.launch_counts()["ragged"]
+    out = tpa.ragged_paged_attention(*args, **kw)
+    ref = tpa.ragged_paged_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert tpa.launch_counts()["ragged"] == before + 1
+    _assert_rel(out[rows], ref[rows], _REL[dtype])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("q_dtype,cache_dtype", [
     (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
 def test_mixed_dtypes_take_the_fma_path(cuda_device, q_dtype, cache_dtype):
-    """q and cache of different types: the f32 CUDA-core path of both
+    """q and cache of different types: the f32 CUDA-core path of the three
     kernels (same tiles, ring and masks); output in q's type."""
     q, kc, vc, tables, ctx = decode_case(22, b=3, pages=64, bs=8, g=3, d=64)
     args = [_t(q).to(cuda_device, q_dtype)]
@@ -243,10 +289,18 @@ def test_mixed_dtypes_take_the_fma_path(cuda_device, q_dtype, cache_dtype):
     pargs += [0, _t(table).to(cuda_device), q_start]
     pout = tpa.paged_prefill_attention(*pargs, **kw)
     pref = tpa.paged_prefill_attention_plain(*pargs, **kw)
+    q, kc, vc, tables, blk_seg, seg, rows = ragged_case(25, "shared", g=3,
+                                                        d=64)
+    rargs = [_t(q).to(cuda_device, q_dtype)]
+    rargs += [_t(x).to(cuda_device, cache_dtype) for x in (kc, vc)]
+    rargs += [1] + [_t(x).to(cuda_device) for x in (tables, blk_seg, seg)]
+    rout = tpa.ragged_paged_attention(*rargs, **kw)
+    rref = tpa.ragged_paged_attention_plain(*rargs, **kw)
     torch.cuda.synchronize()
-    assert out.dtype == pout.dtype == q_dtype
+    assert out.dtype == pout.dtype == rout.dtype == q_dtype
     _assert_rel(out, ref, _REL[q_dtype])
     _assert_rel(pout, pref, _REL[q_dtype])
+    _assert_rel(rout[rows], rref[rows], _REL[q_dtype])
 
 
 @pytest.mark.cuda
@@ -257,6 +311,11 @@ def test_card_wrappers_reject_unbuilt_shapes(cuda_device):
         tpa.paged_decode_attention(
             *args, 0, _t(tables).to(cuda_device), _t(ctx).to(cuda_device),
             block_size=8, scale=0.1)
+    q, kc, vc, tables, blk_seg, seg, _ = ragged_case(20, d=32)
+    args = [_t(x).to(cuda_device) for x in (q, kc, vc, tables, blk_seg, seg)]
+    with pytest.raises(ValueError, match="head_dim"):
+        tpa.ragged_paged_attention(*args[:3], 0, *args[3:], block_size=8,
+                                   scale=0.1)
 
 
 @pytest.mark.cuda

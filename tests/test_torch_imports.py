@@ -13,7 +13,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "production_stack_tpu_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                        REPO / "scripts/torch_kernel_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "production_stack_tpu", "aiohttp",
              "prometheus_client", "xxhash")
 
@@ -60,6 +61,27 @@ def test_kernel_source_ships_with_the_package():
     assert "sm_90a" in " ".join(cuda_build.NVCC_FLAGS)
     # the build output lands in a directory git ignores
     assert "build/" in (REPO / ".gitignore").read_text().split()
+
+
+def test_argtypes_match_the_c_signatures():
+    """Each entry point's ctypes argtypes follow its C parameter list
+    (pointers and the stream c_void_p, int64_t c_int64, float c_float,
+    int c_int): a wrong one would pass a cut or shifted argument."""
+    import ctypes
+    import re
+
+    from production_stack_tpu_torch.ops import cuda_build
+    from production_stack_tpu_torch.ops import paged_attention as pa
+
+    text = "".join(s.read_text() for s in cuda_build.sources()
+                   if s.suffix == ".cu")
+    kinds = {ctypes.c_void_p: "ptr", ctypes.c_int64: "int64_t",
+             ctypes.c_float: "float", ctypes.c_int: "int"}
+    for entry, argtypes in pa._ARGTYPES.items():
+        params = re.search(rf"int {entry}\(([^)]*)\)", text).group(1)
+        want = ["ptr" if "*" in p else p.split()[0]
+                for p in params.split(",")]
+        assert [kinds[a] for a in argtypes] == want, entry
 
 
 def test_library_name_hashes_shared_headers(tmp_path, monkeypatch):

@@ -21,6 +21,7 @@ from production_stack_tpu.ops import pallas_attention as jpa
 from production_stack_tpu_torch.ops import attention as torch_attn
 from production_stack_tpu_torch.ops import paged_attention as tpa
 from test_torch_cuda_kernels import (
+    RAGGED_CASES,
     _np,
     _t,
     decode_case,
@@ -167,6 +168,12 @@ def test_card_kernel_shared_memory_mirrors():
     assert tpa._prefill_smem(128, 4, 4) == 64 * 528 + 4 * 64 * 528 + 16384
     with pytest.raises(ValueError, match="shared memory"):
         tpa._prefill_smem(256, 4, 4)
+    # the ragged kernel runs on the prefill tile: its blocks keep two to
+    # an SM at 3B bf16 (228 KB an SM, 1 KB of it reserved per block)
+    assert 2 * (tpa._prefill_smem(128, 2, 2) + 1024) <= 228 * 1024
+    assert not hasattr(tpa, "_ragged_smem")
+    with pytest.raises(ValueError, match="head_dim"):
+        tpa._prefill_plan(96, 2, 2, 32)
 
 
 # -- prefill ---------------------------------------------------------------
@@ -207,6 +214,57 @@ def test_ragged_plain_matches_pallas(layer, window):
     # rows no segment covers are undefined in the kernel contract
     np.testing.assert_allclose(out.numpy()[rows], _np(ref)[rows],
                                rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("layout,bs,nkv,g", RAGGED_CASES)
+@pytest.mark.parametrize("window", [None, 12])
+def test_ragged_layouts_match_pallas(layout, bs, nkv, g, window):
+    """The card tests' ragged row spaces (segments sharing a row block,
+    clipped at its edges, past blk_seg[G], g = 16 at nkv = 1, windows that
+    skip the first pages) through Pallas interpret and the plain version."""
+    q, kc, vc, tables, blk_seg, seg, rows = ragged_case(
+        24, layout, bs=bs, nkv=nkv, g=g)
+    scale = q.shape[-1] ** -0.5
+    ref = jpa.ragged_paged_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.int32(1),
+        jnp.asarray(tables), jnp.asarray(blk_seg), jnp.asarray(seg),
+        block_size=bs, scale=scale, interpret=True, window=window,
+    )
+    out = tpa.ragged_paged_attention(
+        _t(q), _t(kc), _t(vc), 1, _t(tables), _t(blk_seg), _t(seg),
+        block_size=bs, scale=scale, window=window,
+    )
+    np.testing.assert_allclose(out.numpy()[rows], _np(ref)[rows],
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("n_segs,tq,g,nkv,grid", [
+    (89, 8, 3, 8, (89, 8)),    # 3B (nq 24, nkv 8): 24 fused rows, one tile
+    (8, 8, 3, 8, (8, 8)),      # a 3B decode step of 8 lanes
+    (10, 8, 16, 1, (20, 1)),   # g = 16: 128 fused rows, two tiles
+    (3, 64, 3, 8, (9, 8)),     # 192 fused rows, three tiles
+    (5, 8, 8, 4, (5, 4)),      # exactly one 64-row tile
+])
+def test_ragged_grid_plan(n_segs, tq, g, nkv, grid):
+    """One block per (segment, 64-fused-row tile, kv head), sized from
+    shapes alone."""
+    assert tpa._ragged_grid(n_segs, tq, g, nkv) == grid
+
+
+def test_decode_segments_pack_lanes_into_row_blocks():
+    """The runner's decode step on the ragged kernel: lane i is a one-row
+    segment at row i, position ctx - 1, RAGGED_TQ lanes to a row block."""
+    from production_stack_tpu_torch.engine.model_runner import (
+        decode_segments,
+    )
+
+    ctx = np.arange(1, 11, dtype=np.int32) * 7
+    r_pad, blk_seg, seg = decode_segments(ctx)
+    assert r_pad == 16
+    assert blk_seg.tolist() == [0, 8, 10]
+    assert seg.tolist() == [[i, i % 8, 1, int(c) - 1]
+                            for i, c in enumerate(ctx)]
+    assert seg.dtype == blk_seg.dtype == np.int32
 
 
 def test_ragged_decode_rows_equal_decode_kernel_plain():
