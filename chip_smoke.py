@@ -34,10 +34,16 @@ Phases, each fatal on failure:
    width, bf16; logits held to a stated tolerance;
 4. serve: the port's CLI (python -m production_stack_tpu_torch.engine)
    starts its OpenAI server on loopback with llama-3.2-3b (all 28
-   layers, random bf16 weights, byte tokenizer) in a child process:
-   /health, /v1/models, a greedy completion, a streamed completion, a
-   chat request and 4 concurrent multi-chunk completions (packed prefill
-   on the ragged kernel); checks token counts, finish reasons and usage;
+   layers, random bf16 weights, byte tokenizer) on its default config
+   (unified ragged rounds) in a child process: /health, /v1/models, a
+   greedy completion, a streamed completion, a chat request, 4
+   concurrent multi-chunk completions (packed prefill or mixed rounds,
+   on the ragged kernel), then a ~1500-token prompt (three 512-token
+   chunks) sent while four greedy requests decode, so its chunks ride
+   mixed rounds (tpu:ragged_rounds > 0 on /metrics); checks token
+   counts, finish reasons and usage, and that the ragged kernel
+   launched 28 times a forward and the prefill kernel 28 times a
+   single-sequence prefill;
 5. decode kernel: one ModelRunner.decode step of the 28-layer model over
    the same cache state on the ragged kernel and on
    paged_decode_attention, logits held to a stated tolerance, which the
@@ -48,13 +54,22 @@ Phases, each fatal on failure:
    sum in different orders, so a divergence passes only where the
    ragged engine's top-2 logprob gap at the first differing step is
    below the largest logit difference the direct step measured (the
-   first divergence is printed).
+   first divergence is printed);
+6. mixed rounds: an in-process 28-layer bf16 engine with
+   num_scheduler_steps=8 (unified ragged rounds, device stops, adaptive
+   K) serves four greedy requests and a ~1500-token prompt arriving
+   while they decode; its greedy streams are held to a split K=1
+   engine's under the decode phase's near-tie rule, and both engines'
+   launches to 28 a forward. Then wall ms per generated token at batch
+   8 for K=1 and K=8 decode, the wall time of each mixed round, and a
+   torch.profiler breakdown of one mixed round's device time (host
+   clock; reported beside the card's name and power limit, not claims).
 
 Launch counts are reset just before the serve phase's requests (through
-the server's /debug/kernel_launches) and before the decode phase's
---no-ragged-kernel engine, and read just after; a kernel launched 0
-times on those paths fails the run. The server's log goes to
-build/chip_smoke_serve.log. The last lines are the kernels JSON, the
+the server's /debug/kernel_launches), before the decode phase's
+--no-ragged-kernel engine and before each mixed-round engine, and read
+just after; a kernel launched 0 times on those paths fails the run. The
+server's log goes to build/chip_smoke_serve.log. The last lines are the kernels JSON, the
 card's name and power limit (nvidia-smi), and {"ok": true, "device":
 {...}}.
 """
@@ -94,6 +109,10 @@ LOGIT_REL_TOL = 5e-2       # forward, max|dlogit| / max|logit|, bf16
 # 0.35 (on an H100); the bound is about twice the sound reading, and the
 # faulty step must land above it in every run
 DECODE_LOGIT_REL_TOL = 3e-2
+LAYERS_3B = 28
+# the prompt that arrives while other requests decode: three 512-token
+# chunks at the engine's default max_prefill_chunk
+LONG_PROMPT_TOKENS = 1500
 
 
 def fail(msg: str) -> None:
@@ -632,6 +651,30 @@ def log_tail(log_path: Path, n: int = 40) -> str:
     return "\n".join(log_path.read_text(errors="replace").splitlines()[-n:])
 
 
+def metric(port: int, name: str) -> float:
+    """One sample of the server's /metrics text (the first with `name`)."""
+    for ln in http(port, "/metrics")[1].splitlines():
+        if ln.split("{")[0] == name:
+            return float(ln.rsplit(" ", 1)[1])
+    fail(f"/metrics has no {name}")
+
+
+def check_launches(what: str, launches: dict, dispatches: dict) -> None:
+    """Every ragged-kernel forward launches it once a layer (packed and
+    single-step decode forwards, each iteration of a fused loop, each
+    mixed round's step-0 forward), the prefill kernel once a layer per
+    single-sequence prefill."""
+    layers = LAYERS_3B
+    fwd = (dispatches["prefill_batch"] + dispatches["decode"]
+           + dispatches["decode_iterations"])
+    want = {"ragged": layers * fwd, "prefill": layers * dispatches["prefill"]}
+    got = {k: launches[k] for k in want}
+    print(f"{what}: launches {got}, {layers} x forwards {want}", flush=True)
+    if got != want:
+        fail(f"{what}: kernel launches {got} are not {layers} a forward "
+             f"{want}")
+
+
 def serve_phase() -> dict:
     port = free_port()
     log_path = REPO / "build" / "chip_smoke_serve.log"
@@ -708,7 +751,8 @@ def serve_phase() -> dict:
             fail(f"serve: bad chat response {body[:400]}")
 
         # 4 concurrent multi-chunk prompts: their chunks pack into
-        # prefill_batch forwards (ragged kernel on prefill segments)
+        # prefill_batch forwards, or into mixed rounds beside the lanes
+        # already decoding (ragged kernel on prefill segments either way)
         before = json.loads(http(port, "/debug/kernel_launches")[1])
         prompts = [(f"request {i}: " + "lorem ipsum dolor sit amet " * 45)
                    for i in range(4)]
@@ -716,21 +760,51 @@ def serve_phase() -> dict:
         with ThreadPoolExecutor(4) as ex:
             list(ex.map(lambda p: completion(p, 24), prompts))
         report = json.loads(http(port, "/debug/kernel_launches")[1])
-        packed = (report["dispatches"]["prefill_batch"]
-                  - before["dispatches"]["prefill_batch"])
+        packed = {k: report["dispatches"][k] - before["dispatches"][k]
+                  for k in ("prefill_batch", "ragged")}
         print(f"serve: 4 concurrent completions in "
-              f"{time.perf_counter() - t1:.2f}s, {packed} packed prefill "
-              f"forwards; since the reset: dispatches "
+              f"{time.perf_counter() - t1:.2f}s, packed prefill and mixed "
+              f"forwards {packed}; since the reset: dispatches "
               f"{report['dispatches']}, launches {report['launches']}",
               flush=True)
-        if packed < 1:
-            fail("serve: no packed prefill forward ran")
+        if sum(packed.values()) < 1:
+            fail("serve: no packed prefill or mixed forward ran")
+
+        # a ~1500-token prompt (three 512-token chunks) arrives while four
+        # greedy requests decode: its chunks ride unified ragged rounds
+        gen0 = metric(port, "vllm:generation_tokens_total")
+        rounds0 = metric(port, "tpu:ragged_rounds_total")
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(5) as ex:
+            lanes = [ex.submit(completion, f"decoding lane {i}: " + "ab " * 9,
+                               64) for i in range(4)]
+            while metric(port, "vllm:generation_tokens_total") < gen0 + 4:
+                if any(f.done() for f in lanes):
+                    fail("serve: a decoding lane finished before the long "
+                         "prompt was sent")
+                time.sleep(0.01)
+            long_req = ex.submit(completion, "long " + "x y z " * (
+                (LONG_PROMPT_TOKENS - 6) // 6), 8)
+            for f in lanes + [long_req]:
+                f.result()
+        rounds = metric(port, "tpu:ragged_rounds_total") - rounds0
+        print(f"serve: a {LONG_PROMPT_TOKENS}-token prompt beside 4 decoding "
+              f"lanes in "
+              f"{time.perf_counter() - t1:.2f}s, {rounds:.0f} mixed rounds "
+              "(tpu:ragged_rounds)", flush=True)
+        if not rounds > 0:
+            fail("serve: no mixed (ragged) round ran")
         metrics = http(port, "/metrics")[1]
         for gauge in ("vllm:num_requests_running",
                       "vllm:num_requests_waiting",
-                      "vllm:gpu_cache_usage_perc"):
+                      "vllm:gpu_cache_usage_perc", "tpu:ragged_rounds_total",
+                      "tpu:decode_k_count"):
             if gauge not in metrics:
                 fail(f"serve: /metrics lacks {gauge}")
+        report = json.loads(http(port, "/debug/kernel_launches")[1])
+        print(f"serve: since the reset: dispatches {report['dispatches']}, "
+              f"launches {report['launches']}", flush=True)
+        check_launches("serve", report["launches"], report["dispatches"])
     finally:
         stop_server(proc)
     print(f"serve: server exited with {proc.returncode}; log tail:\n"
@@ -794,7 +868,30 @@ def decode_step_check(torch, pa, runner, prompts) -> float:
     return dmax
 
 
-def decode_phase(torch, pa) -> dict:
+def near_tie_check(what: str, ref, other, gap_tol: float) -> int:
+    """Greedy streams of two engines (outputs with top-2 logprobs) that
+    sum in different orders may part only where `ref`'s top-2 logprob gap
+    at the first differing step is below gap_tol; returns how many are
+    equal."""
+    n_same = 0
+    for i, (r, d) in enumerate(zip(ref, other)):
+        if r.token_ids == d.token_ids:
+            n_same += 1
+            continue
+        k = next(k for k, (a, b) in enumerate(zip(r.token_ids, d.token_ids))
+                 if a != b)
+        top2 = r.logprobs[k]["top_logprobs"]
+        gap = top2[0]["logprob"] - top2[1]["logprob"]
+        print(f"{what}: request {i} diverges at step {k}: "
+              f"{r.token_ids[k]} vs {d.token_ids[k]}, top-2 logprob gap "
+              f"{gap:.4f} (passes below {gap_tol:.4f})", flush=True)
+        if not gap < gap_tol:
+            fail(f"{what}: request {i} diverges at step {k} with a top-2 "
+                 f"gap of {gap:.4f} >= {gap_tol:.4f}")
+    return n_same
+
+
+def decode_phase(torch, pa) -> tuple[dict, float]:
     from production_stack_tpu_torch.engine.config import EngineConfig
     from production_stack_tpu_torch.engine.llm_engine import LLMEngine
     from production_stack_tpu_torch.engine.sampling_params import (
@@ -810,7 +907,7 @@ def decode_phase(torch, pa) -> dict:
         eng = LLMEngine(EngineConfig(
             model="llama-3.2-3b", tokenizer="byte", device="cuda",
             block_size=32, num_kv_blocks=256, max_num_seqs=4, seed=SEED,
-            ragged_kernel=ragged,
+            ragged_kernel=ragged, ragged_dispatch=ragged,
         ))
         pa.reset_launch_counts()
         t0 = time.perf_counter()
@@ -828,26 +925,141 @@ def decode_phase(torch, pa) -> dict:
             gap_tol = decode_step_check(torch, pa, eng.runner, prompts)
         del eng
         torch.cuda.empty_cache()
-    n_same = 0
-    for i, (r, d) in enumerate(zip(outs[True], outs[False])):
-        if r.token_ids == d.token_ids:
-            n_same += 1
-            continue
-        k = next(k for k, (a, b) in enumerate(zip(r.token_ids, d.token_ids))
-                 if a != b)
-        top2 = r.logprobs[k]["top_logprobs"]
-        gap = top2[0]["logprob"] - top2[1]["logprob"]
-        print(f"decode phase: prompt {i} diverges at step {k}: ragged "
-              f"{r.token_ids[k]} vs decode {d.token_ids[k]}, ragged top-2 "
-              f"logprob gap {gap:.4f} (passes below {gap_tol:.4f})",
-              flush=True)
-        if not gap < gap_tol:
-            fail(f"decode phase: prompt {i} diverges at step {k} with a "
-                 f"top-2 gap of {gap:.4f} >= {gap_tol:.4f}")
+    n_same = near_tie_check("decode phase", outs[True], outs[False],
+                            gap_tol)
     print(f"decode phase: --no-ragged-kernel engine launches {counts}; "
           f"{n_same}/{len(prompts)} greedy token sequences equal to the "
           "ragged-kernel engine's", flush=True)
-    return counts
+    return counts, gap_tol
+
+
+# -- mixed-round phase ---------------------------------------------------------
+def profile_step(torch, step) -> str:
+    """One engine step under torch.profiler: its wall time, the device
+    time of the CUDA kernels it ran (busy share of the wall) and the
+    kernels taking most of it ("not measured" without device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = []
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us:
+            kern.append((us / 1e3, ev.count, ev.key))
+    if not kern:
+        return f"wall {wall_ms:.2f} ms, device time not measured"
+    kern.sort(reverse=True)
+    dev_ms = sum(k[0] for k in kern)
+    top = "; ".join(f"{name[:60]} x{n} {ms:.3f} ms ({ms / dev_ms:.1%})"
+                    for ms, n, name in kern[:8])
+    return (f"wall {wall_ms:.2f} ms, device {dev_ms:.3f} ms in "
+            f"{sum(k[1] for k in kern)} kernels (busy {dev_ms / wall_ms:.1%} "
+            f"of the wall); top: {top}")
+
+
+def mixed_phase(torch, pa, gap_tol: float, smi: str) -> dict:
+    """An in-process 28-layer engine at K=8 with unified ragged rounds and
+    a split K=1 engine serve the same staggered mix (four greedy requests,
+    then a ~1500-token prompt while they decode); then decode at batch 8
+    on each. Returns the K=8 engine's launch counts."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.llm_engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+
+    prompts = [[(11 * i + 5 * j) % 250 + 1 for j in range(n)]
+               for i, n in enumerate((17, 40, 64, 90))]
+    long_prompt = [(3 * j) % 250 + 1 for j in range(LONG_PROMPT_TOKENS)]
+    # 32 tokens: at K=8 the decode lanes take 1 + 8 (step 1) and then
+    # ride all three of the long prompt's chunks (steps 2-4, the last
+    # round exiting after 7 iterations)
+    sp = SamplingParams(max_tokens=32, temperature=0, ignore_eos=True,
+                        logprobs=2)
+    outs, counts = {}, {}
+    for k in (8, 1):
+        eng = LLMEngine(EngineConfig(
+            model="llama-3.2-3b", tokenizer="byte", device="cuda",
+            block_size=32, num_kv_blocks=512, max_num_seqs=8, seed=SEED,
+            num_scheduler_steps=k, ragged_dispatch=k > 1,
+        ))
+        name = f"mixed phase K={k} {'ragged' if k > 1 else 'split'}"
+        pa.reset_launch_counts()
+        for i, p in enumerate(prompts):
+            eng.add_request(f"d{i}", prompt_token_ids=p, sampling_params=sp)
+        finals, mixed_ms, step, prof = {}, [], 0, None
+        t0 = time.perf_counter()
+        while eng.has_unfinished():
+            if step == 2:
+                eng.add_request("long", prompt_token_ids=long_prompt,
+                                sampling_params=sp)
+            before = eng.stats().ragged_rounds_total
+            ts = time.perf_counter()
+            if k > 1 and step == 4:
+                # the third mixed round, under the profiler (the first
+                # two are timed without it)
+                prof = profile_step(torch, lambda: finals.update(
+                    {o.request_id: o for o in eng.step() if o.finished}))
+            else:
+                finals.update({o.request_id: o for o in eng.step()
+                               if o.finished})
+                torch.cuda.synchronize()
+                if eng.stats().ragged_rounds_total > before:
+                    mixed_ms.append((time.perf_counter() - ts) * 1e3)
+            step += 1
+        st = eng.stats()
+        counts[k] = pa.launch_counts()
+        print(f"{name}: {step} steps in {time.perf_counter() - t0:.3f}s "
+              f"(host clock, first use of each shape included), "
+              f"{st.ragged_rounds_total} mixed rounds, decode K histogram "
+              f"{dict(sorted(st.decode_k_hist.items()))}, early exits "
+              f"{st.decode_early_exit_rounds_total}; dispatches "
+              f"{eng.runner.dispatch_counts}", flush=True)
+        check_launches(name, counts[k], eng.runner.dispatch_counts)
+        if k > 1:
+            if not (st.ragged_rounds_total > 0 and 8 in st.decode_k_hist):
+                fail(f"{name}: no mixed round or no K=8 round ran")
+            walls = [round(x, 2) for x in mixed_ms]
+            print(f"{name}: mixed-round wall ms {walls} (host clock, step() "
+                  f"to synchronize; the first includes first-use costs) on "
+                  f"{smi}", flush=True)
+            print(f"{name}: one mixed round under torch.profiler: "
+                  f"{prof or 'step 4 did not run'}", flush=True)
+        outs[k] = [finals[r] for r in ("d0", "d1", "d2", "d3", "long")]
+
+        # decode at batch 8: wall ms per generated token
+        bsp = SamplingParams(max_tokens=33, temperature=0, ignore_eos=True)
+        for i in range(8):
+            eng.add_request(f"b{i}", prompt_token_ids=[(7 * i + j) % 250 + 1
+                                                       for j in range(32)],
+                            sampling_params=bsp)
+        eng.step()  # the packed prefill: one token each
+        torch.cuda.synchronize()
+        gen0, t0 = st.generation_tokens_total + 8, time.perf_counter()
+        while eng.has_unfinished():
+            eng.step()
+        torch.cuda.synchronize()
+        n_tok = eng.stats().generation_tokens_total - gen0
+        ms = (time.perf_counter() - t0) * 1e3
+        print(f"{name}: decode at batch 8: {n_tok} tokens in {ms:.1f} ms = "
+              f"{ms / n_tok:.3f} wall ms per generated token (host clock) "
+              f"on {smi}", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+    n_same = near_tie_check("mixed phase", outs[8], outs[1], gap_tol)
+    print(f"mixed phase: {n_same}/{len(outs[8])} greedy token sequences of "
+          "the K=8 ragged-round engine equal to the split K=1 engine's",
+          flush=True)
+    return counts[8]
 
 
 def main() -> int:
@@ -882,14 +1094,18 @@ def main() -> int:
     stats = kernel_phase(torch)
     forward_phase(torch)
     serve_counts = serve_phase()
-    decode_counts = decode_phase(torch, pa)
+    decode_counts, gap_tol = decode_phase(torch, pa)
+    mixed_counts = mixed_phase(torch, pa, gap_tol, smi)
     launches = {
         "ragged": serve_counts["ragged"],
         "prefill": serve_counts["prefill"],
         "decode": decode_counts["decode"],
     }
     print(f"launches: serve path {serve_counts}, decode path "
-          f"{decode_counts}", flush=True)
+          f"{decode_counts}, mixed-round path {mixed_counts}; a served "
+          f"mixed round launches the ragged kernel {LAYERS_3B} times a "
+          "forward (its step-0 forward and each further decode iteration)",
+          flush=True)
     src = {"ragged": "production_stack_tpu_torch/csrc/paged_attention.cu",
            "prefill": "production_stack_tpu_torch/csrc/paged_prefill.cu",
            "decode": "production_stack_tpu_torch/csrc/paged_decode.cu"}

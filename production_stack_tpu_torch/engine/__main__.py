@@ -1,9 +1,10 @@
 """CLI: `python -m production_stack_tpu_torch.engine` — serve a model.
 
-Flag names follow ``python -m production_stack_tpu.engine`` (and
-``vllm serve``). This slice serves split prefill/decode rounds with
-single-step decode: ``--ragged-dispatch`` and ``--prefill-pipeline``
-default off, and every flag whose feature is not ported yet makes the
+Flag names and defaults follow ``python -m production_stack_tpu.engine``
+(and ``vllm serve``): unified ragged rounds, device stops and adaptive K
+are on; ``--no-ragged-dispatch`` selects split prefill/decode rounds,
+``--num-scheduler-steps K`` fused K-step decode. ``--prefill-pipeline``
+defaults off, and every flag whose feature is not ported yet makes the
 engine refuse to start (NotImplementedError from EngineConfig).
 """
 
@@ -67,13 +68,36 @@ def build_parser() -> argparse.ArgumentParser:
                    action="store_false",
                    help="compose the per-sequence prefill and decode "
                         "kernels instead")
+    p.add_argument("--num-scheduler-steps", type=int, default=1,
+                   help="fused decode+sample iterations per dispatch "
+                        "(on-device sampling); the cap under "
+                        "--adaptive-decode-k")
+    p.add_argument("--device-stop", action="store_true", default=True,
+                   help="evaluate EOS/stop-token/max-token stops inside "
+                        "the fused decode loop")
+    p.add_argument("--no-device-stop", dest="device_stop",
+                   action="store_false",
+                   help="fixed-trip fused loop; overshoot discarded on "
+                        "the host")
+    p.add_argument("--adaptive-decode-k", action="store_true",
+                   default=True,
+                   help="size each fused round from pow2 buckets up to "
+                        "--num-scheduler-steps")
+    p.add_argument("--no-adaptive-decode-k", dest="adaptive_decode_k",
+                   action="store_false",
+                   help="every round dispatches the full "
+                        "--num-scheduler-steps")
+    p.add_argument("--ragged-dispatch", action="store_true", default=True,
+                   help="unified ragged rounds: prefill chunks and decode "
+                        "lanes in one lane-typed forward")
+    p.add_argument("--no-ragged-dispatch", dest="ragged_dispatch",
+                   action="store_false",
+                   help="split alternating prefill/decode rounds")
     p.add_argument("--chat-template", default=None)
     p.add_argument("--api-key", default=os.environ.get("PST_API_KEY"),
                    help="require `Authorization: Bearer <key>` on /v1/*")
     # not ported yet: accepted so existing deployments parse, refused by
     # EngineConfig when switched on
-    p.add_argument("--num-scheduler-steps", type=int, default=1)
-    p.add_argument("--ragged-dispatch", action="store_true", default=False)
     p.add_argument("--prefill-pipeline", action="store_true",
                    default=False)
     p.add_argument("--async-decode", action="store_true", default=False)
@@ -114,6 +138,8 @@ def config_from_args(args: argparse.Namespace) -> EngineConfig:
         served_model_name=args.served_model_name,
         api_key=args.api_key,
         num_scheduler_steps=args.num_scheduler_steps,
+        device_stop=args.device_stop,
+        adaptive_decode_k=args.adaptive_decode_k,
         ragged_dispatch=args.ragged_dispatch,
         prefill_pipeline=args.prefill_pipeline,
         async_decode=args.async_decode,

@@ -1,11 +1,14 @@
 """Engine configuration.
 
-The fields of ``production_stack_tpu/engine/config.py`` that this slice
-of the port serves, plus ``device``. The slice serves split
-prefill/decode rounds with single-step decode and no prefill pipeline.
-The fields of features not ported yet stay so that asking for one fails
-loudly: ``__post_init__`` raises NotImplementedError for each (see
-``unported``), so no request ever reaches a missing path.
+The fields of ``production_stack_tpu/engine/config.py`` that the port
+serves, plus ``device``, with the JAX package's defaults: unified ragged
+rounds (a round holding prefill chunks and decode lanes runs as one
+lane-typed forward on the ragged kernel), fused K-step decode up to
+``num_scheduler_steps`` with device-side stop masks and adaptive K, and
+no prefill pipeline. The fields of features not ported yet stay so that
+asking for one fails loudly: ``__post_init__`` raises
+NotImplementedError for each (see ``unported``), so no request ever
+reaches a missing path.
 """
 
 from __future__ import annotations
@@ -58,6 +61,27 @@ class EngineConfig:
     # (decode lanes as one-row segments). False (--no-ragged-kernel)
     # composes the per-sequence prefill and decode kernels instead.
     ragged_kernel: bool = True
+    # fused decode iterations per dispatch (vLLM --num-scheduler-steps):
+    # sampling (penalties included) runs on the device and K tokens come
+    # back in one fetch. At most block_size (idle and frozen lanes write
+    # inside the trash block). With adaptive_decode_k this is the cap.
+    num_scheduler_steps: int = 1
+    # device-side stop masks in the fused loop: EOS, stop_token_ids and
+    # the max_tokens countdown freeze a lane mid-round (pad token, KV
+    # write to the trash slot, no state update); the host applies each
+    # lane's valid count, and a round whose lanes are all done exits.
+    # False (--no-device-stop) keeps the fixed-trip loop.
+    device_stop: bool = True
+    # the scheduler sizes each round's K from pow2 buckets up to
+    # num_scheduler_steps (clamped while admission waits, bounded by the
+    # batch's remaining budget); False keeps the fixed K
+    adaptive_decode_k: bool = True
+    # unified ragged rounds: a round with both prefill chunks and
+    # decode-ready lanes runs as ONE lane-typed forward (one ragged
+    # kernel launch a layer over [prefill rows | decode rows]) followed by
+    # the decode loop. False (--no-ragged-dispatch) alternates split
+    # prefill and decode rounds.
+    ragged_dispatch: bool = True
 
     # serving
     served_model_name: str | None = None
@@ -65,8 +89,6 @@ class EngineConfig:
     api_key: str | None = None
 
     # -- not ported yet: any non-default value refuses at construction --
-    num_scheduler_steps: int = 1      # fused K-step decode
-    ragged_dispatch: bool = False     # unified prefill+decode rounds
     prefill_pipeline: bool = False    # fused h2d buffer + staged chunks
     async_decode: bool = False        # double-buffered decode
     precompile_serving: bool = False  # startup shape warmup
@@ -88,8 +110,12 @@ class EngineConfig:
     def unported(self) -> list[str]:
         """Names of the requested features this port cannot serve yet."""
         checks = {
-            "ragged_dispatch": self.ragged_dispatch,
-            "num_scheduler_steps>1": self.num_scheduler_steps != 1,
+            # the composed-kernel ragged round (per-lane prefill and
+            # decode kernels in one round) is not ported
+            "ragged_dispatch with --no-ragged-kernel (pass "
+            "--no-ragged-dispatch)": (
+                self.ragged_dispatch and not self.ragged_kernel
+            ),
             "prefill_pipeline": self.prefill_pipeline,
             "async_decode": self.async_decode,
             "precompile_serving": self.precompile_serving,
@@ -119,6 +145,12 @@ class EngineConfig:
         if self.scheduling_policy not in ("fcfs", "priority"):
             raise ValueError(
                 "scheduling_policy must be 'fcfs' or 'priority'"
+            )
+        if not 1 <= self.num_scheduler_steps <= self.block_size:
+            raise ValueError(
+                f"num_scheduler_steps={self.num_scheduler_steps} must be in "
+                f"[1, block_size={self.block_size}]: idle lanes would "
+                "overrun the trash block"
             )
         missing = self.unported()
         if self.model_config().is_moe:

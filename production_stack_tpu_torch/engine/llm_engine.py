@@ -1,15 +1,19 @@
 """LLMEngine: ties scheduler + block manager + model runner + sampler into
-the step loop. One step == one prefill chunk group OR one decode batch.
+the step loop. One step == one prefill chunk group, one decode round, or
+one lane-typed round holding both.
 
-Counterpart of the split-round path of
-``production_stack_tpu/engine/llm_engine.py``: ``step`` ->
-``_step_scheduled`` -> ``_run_prefill_works`` (standard works, packed
-when several) or ``_run_decode_round`` (single-step decode, host-side
+Counterpart of ``production_stack_tpu/engine/llm_engine.py`` on one
+device: ``step`` -> ``_step_scheduled`` -> ``_step_ragged`` (a planned
+mixed round: ONE ``ModelRunner.ragged_dispatch``, or split execution of
+the same plan for lanes the fused round cannot take),
+``_run_prefill_works`` (standard works, packed when several) or
+``_run_decode_round`` (the fused K-step ``decode_multi`` with device
+stops when the round's K > 1, else single-step decode with host-side
 sampling). The scheduler, block manager and sequences are the JAX
-package's, copied. Staging, async decode, ragged rounds, long prefill,
-KV export, speculative and guided decoding, LoRA and prompt logprobs are
-not ported here: EngineConfig refuses their flags and add_request
-refuses their request fields.
+package's, copied. Staging, async decode, the composed-kernel ragged
+round, long prefill, KV export, speculative and guided decoding, LoRA
+and prompt logprobs are not ported here: EngineConfig refuses their
+flags and add_request refuses their request fields.
 """
 
 from __future__ import annotations
@@ -65,16 +69,40 @@ class LLMEngine:
                 max_prefill_seqs=config.max_prefill_seqs,
                 scheduling_policy=config.scheduling_policy,
                 decode_interleave=config.decode_interleave,
+                decode_lookahead=max(0, config.num_scheduler_steps - 1),
+                decode_k_cap=config.num_scheduler_steps,
+                adaptive_decode_k=(
+                    config.adaptive_decode_k
+                    and config.num_scheduler_steps > 1
+                ),
+                ragged_dispatch=config.ragged_dispatch,
             ),
             self.block_manager,
         )
+        # device-side stop masks ride the fused K-step loop only
+        self._device_stop = (
+            config.device_stop and config.num_scheduler_steps > 1
+        )
+        self._ragged_dispatch = config.ragged_dispatch
         self._seqs: dict[str, Sequence] = {}
         # lifetime counters for /metrics
         self._prompt_tokens_total = 0
         self._generation_tokens_total = 0
         self._preemptions_total = 0
         self._finished_total = 0
+        # decode rounds, the chosen-K histogram (tpu:decode_k),
+        # host-discarded overshoot tokens (~0 under device stops) and
+        # rounds whose device loop exited early
         self._decode_rounds_total = 0
+        self._decode_k_hist: dict[int, int] = {}
+        self._decode_overshoot_tokens_total = 0
+        self._decode_early_exit_rounds_total = 0
+        # unified ragged rounds: dispatched fused, planned mixed but run
+        # split (lanes the fused round cannot take), and lane totals
+        self._ragged_rounds_total = 0
+        self._ragged_split_rounds_total = 0
+        self._ragged_prefill_lanes_total = 0
+        self._ragged_decode_lanes_total = 0
 
     def add_request(
         self,
@@ -180,7 +208,14 @@ class LLMEngine:
             self._seqs.pop(seq.request_id, None)
 
         stepped: list[Sequence] = []
-        if sched_out.prefills:
+        if sched_out.is_ragged:
+            # prefill-chunk lanes + the decode batch in ONE lane-typed
+            # round (split execution for lanes the fused round cannot
+            # take)
+            stepped.extend(
+                self._step_ragged(sched_out.prefills, sched_out.decode)
+            )
+        elif sched_out.prefills:
             stepped.extend(self._run_prefill_works(sched_out.prefills))
         elif sched_out.decode is not None:
             stepped.extend(
@@ -194,10 +229,31 @@ class LLMEngine:
     def _run_decode_round(
         self, seqs: list[Sequence], k_steps: int
     ) -> list[Sequence]:
-        """One single-step decode round over `seqs`: one forward, host-
-        side sampling (penalties / logit bias applied first), one token
-        appended per sequence."""
-        assert k_steps == 1, "fused K-step decode is not ported yet"
+        """One decode round over `seqs` (the split path's decode step and
+        the ragged round's split execution): the fused K-step loop on the
+        device when K > 1, else one forward with host-side sampling
+        (penalties / logit bias applied first)."""
+        if k_steps > 1:
+            temps, top_ps, top_ks, min_ps, keys, needs_pen = (
+                self._sampling_arrays(seqs)
+            )
+            penalties = self._penalty_args(seqs) if needs_pen else None
+            want_lp = any(
+                s.sampling_params.logprobs is not None for s in seqs
+            )
+            stop = self._stop_arrays(seqs) if self._device_stop else None
+            ys = self.runner.decode_multi(
+                [s.all_token_ids[-1] for s in seqs],
+                [s.num_tokens - 1 for s in seqs],
+                [s.block_table for s in seqs],
+                [s.num_tokens for s in seqs], k_steps,
+                temps, top_ps, top_ks, keys, min_ps=min_ps,
+                penalties=penalties, want_logprobs=want_lp,
+                logit_bias=self._bias_arrays(seqs), stop=stop,
+            )
+            self._apply_fused_decode(seqs, k_steps, ys, want_lp,
+                                     stop is not None)
+            return list(seqs)
         tokens = [s.all_token_ids[-1] for s in seqs]
         positions = [s.num_tokens - 1 for s in seqs]
         tables = [s.block_table for s in seqs]
@@ -220,7 +276,172 @@ class LLMEngine:
                 )
             self._append_token(seq, int(token), entry)
             stepped.append(seq)
+        # adaptive K can size a round down to 1: it belongs in the
+        # tpu:decode_k histogram too
+        self._note_decode_round(seqs, 1)
+        return stepped
+
+    def _apply_fused_decode(self, seqs: list[Sequence], k_steps: int, ys,
+                            want_lp: bool, with_stop: bool) -> None:
+        """Fetch a fused round's device results in one place (the fetch
+        phase meter) and apply them: ys as decode_multi returns it."""
+        ys = ys if isinstance(ys, tuple) else (ys,)
+        tf = time.perf_counter()
+        host = [_to_numpy(a) for a in ys]
+        self.runner._phase_add("fetch", time.perf_counter() - tf)
+        valid = host.pop() if with_stop else None
+        self._apply_multi_tokens(
+            seqs, host[0], k_steps,
+            lps=tuple(host[1:4]) if want_lp else None, valid=valid,
+        )
+
+    def _apply_multi_tokens(
+        self, seqs: list[Sequence], toks: np.ndarray, k: int,
+        lps: tuple | None = None, valid: np.ndarray | None = None,
+    ) -> None:
+        """Apply a fused round's (k, b) sampled tokens. `lps` = (chosen
+        (k, b), top_vals (k, b, CAP), top_ids (k, b, CAP)) when a lane
+        asked for logprobs. `valid` = the device-stop per-lane valid
+        counts: rows at or past valid[lane] were frozen on the device and
+        are skipped without counting as overshoot."""
+        vcounts = valid[:len(seqs)].tolist() if valid is not None else None
+        if vcounts and max(vcounts) < k:
+            # every lane froze before the trip count: the loop exited
+            self._decode_early_exit_rounds_total += 1
+        for i in range(k):
+            for j, seq in enumerate(seqs):
+                if vcounts is not None and i >= vcounts[j]:
+                    continue  # device-frozen rows: pad, never sampled
+                if seq.finished:
+                    # host-side stop (stop strings, or the fixed-trip
+                    # --no-device-stop loop): a sampled slot discarded
+                    self._decode_overshoot_tokens_total += 1
+                    continue
+                seq.num_computed_tokens = seq.num_tokens
+                entry = None
+                n = seq.sampling_params.logprobs
+                if lps is not None and n is not None:
+                    chosen, tv, ti = lps
+                    entry = {
+                        "token_id": int(toks[i, j]),
+                        "logprob": float(chosen[i, j]),
+                        "top_logprobs": [
+                            {"token_id": int(ti[i, j, m]),
+                             "logprob": float(tv[i, j, m])}
+                            for m in range(n)
+                        ],
+                    }
+                self._append_token(seq, int(toks[i, j]), entry)
+        self._note_decode_round(seqs, k)
+
+    def _note_decode_round(self, seqs: list[Sequence], k: int) -> None:
+        """Per-round decode accounting shared by the fused and the
+        single-step paths: tpu:decode_rounds and the tpu:decode_k
+        chosen-K histogram."""
         self._decode_rounds_total += 1
+        self._decode_k_hist[k] = self._decode_k_hist.get(k, 0) + 1
+
+    # -- unified ragged rounds ----------------------------------------------
+    def _penalty_args(self, seqs: list[Sequence]) -> tuple:
+        """(gen_lists, presence, frequency, repetition) for the fused
+        decode loop."""
+        pres = np.zeros((len(seqs),), np.float32)
+        freq = np.zeros((len(seqs),), np.float32)
+        rep = np.ones((len(seqs),), np.float32)
+        for i, s in enumerate(seqs):
+            pres[i] = s.sampling_params.presence_penalty
+            freq[i] = s.sampling_params.frequency_penalty
+            rep[i] = s.sampling_params.repetition_penalty
+        return (
+            [list(s.generated_token_ids) for s in seqs], pres, freq, rep,
+        )
+
+    def _ragged_prefill_fusable(self, works: list[PrefillWork]) -> bool:
+        """Prefill lanes the fused round can serve: final chunks whose
+        first token the device sample may give (prompt_logprobs requests
+        are refused at add_request)."""
+        return not any(
+            w.is_last_chunk and self._needs_host_first_sample(w.seq)
+            for w in works
+        )
+
+    def _step_ragged(self, works: list[PrefillWork], dwork) -> list[Sequence]:
+        """One planned lane-typed round: prefill-chunk lanes + the decode
+        batch in ONE ragged_dispatch when every lane is fusable, else
+        split execution of the SAME plan (both halves still run this
+        step)."""
+        if not self._ragged_prefill_fusable(works):
+            self._ragged_split_rounds_total += 1
+            stepped = self._run_prefill_works(works)
+            stepped.extend(self._run_decode_round(dwork.seqs, dwork.k))
+            return stepped
+        return self._dispatch_ragged(works, dwork.seqs, dwork.k)
+
+    def _dispatch_ragged(self, works: list[PrefillWork],
+                         seqs: list[Sequence],
+                         k_steps: int) -> list[Sequence]:
+        """The fused lane-typed round: one packed upload, one dispatch,
+        then the prefill bookkeeping and the shared fused-decode
+        bookkeeping."""
+        now = time.time()
+        for w in works:
+            if w.seq.metrics.first_scheduled_time is None:
+                w.seq.metrics.first_scheduled_time = now
+        pf_sampling = self._sampling_arrays([w.seq for w in works])[:5]
+        temps, top_ps, top_ks, min_ps, keys, needs_pen = (
+            self._sampling_arrays(seqs)
+        )
+        want_lp = any(s.sampling_params.logprobs is not None for s in seqs)
+        stop = self._stop_arrays(seqs) if self._device_stop else None
+        pf_sampled, pf_logits, ys = self.runner.ragged_dispatch(
+            [w.seq.prompt_token_ids[w.chunk_start:w.chunk_start + w.chunk_len]
+             for w in works],
+            [w.chunk_start for w in works],
+            [w.seq.block_table for w in works],
+            [w.chunk_start + w.chunk_len for w in works],
+            [s.all_token_ids[-1] for s in seqs],
+            [s.num_tokens - 1 for s in seqs],
+            [s.block_table for s in seqs],
+            [s.num_tokens for s in seqs],
+            k_steps, temps, top_ps, top_ks, keys, min_ps=min_ps,
+            pf_sampling=pf_sampling,
+            penalties=self._penalty_args(seqs) if needs_pen else None,
+            want_logprobs=want_lp, logit_bias=self._bias_arrays(seqs),
+            stop=stop,
+        )
+        stepped: list[Sequence] = []
+        for w in works:
+            w.seq.num_computed_tokens += w.chunk_len
+            self._prompt_tokens_total += w.chunk_len
+        finals = [(i, w) for i, w in enumerate(works) if w.is_last_chunk]
+        if finals:
+            tf = time.perf_counter()
+            toks_np = _to_numpy(pf_sampled)  # ONE fetch for the lanes
+            self.runner._phase_add("fetch", time.perf_counter() - tf)
+            for i, w in finals:
+                tok = int(toks_np[i])
+                if tok < 0:
+                    # only non-real lanes are pinned to the idle
+                    # sentinel: a real lane with it means the lane
+                    # packing drifted
+                    raise RuntimeError(
+                        f"ragged dispatch returned the idle-lane sentinel "
+                        f"for real prefill lane {i} ({w.seq.request_id})"
+                    )
+                entry = None
+                n = w.seq.sampling_params.logprobs
+                if n is not None:
+                    entry = self._host_logprob_entry(
+                        _to_numpy(pf_logits[i]), tok, n
+                    )
+                self._append_token(w.seq, tok, entry)
+                stepped.append(w.seq)
+        self._apply_fused_decode(seqs, k_steps, ys, want_lp,
+                                 stop is not None)
+        stepped.extend(seqs)
+        self._ragged_rounds_total += 1
+        self._ragged_prefill_lanes_total += len(works)
+        self._ragged_decode_lanes_total += len(seqs)
         return stepped
 
     def _run_prefill_works(
@@ -274,9 +495,10 @@ class LLMEngine:
         # a post-preemption sequence with active penalties folds its
         # generated history into the prompt, so its "first" token needs
         # the penalised logits: sample those lanes on the host
-        pen = [(i, w) for i, w in finals if self._needs_host_sample(w.seq)]
+        pen = [(i, w) for i, w in finals
+               if self._needs_host_first_sample(w.seq)]
         for i, w in finals:
-            if self._needs_host_sample(w.seq):
+            if self._needs_host_first_sample(w.seq):
                 continue
             entry = None
             n = w.seq.sampling_params.logprobs
@@ -304,7 +526,7 @@ class LLMEngine:
         return stepped
 
     @staticmethod
-    def _needs_host_sample(s: Sequence) -> bool:
+    def _needs_host_first_sample(s: Sequence) -> bool:
         """A final prefill chunk whose first token cannot be taken from
         the on-device sample: logit_bias, or non-empty penalty state
         after a preemption recompute."""
@@ -362,6 +584,65 @@ class LLMEngine:
                 np.uint32(len(s.generated_token_ids)),
             )
         return temps, top_ps, top_ks, min_ps, keys, needs_penalties
+
+    # stackcheck: hot-path — host arrays for the fused decode dispatch:
+    # one pass over the batch, no device work
+    def _stop_arrays(
+        self, seqs: list[Sequence]
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray | None]:
+        """Per-lane device-stop arrays for decode_multi / ragged_dispatch:
+        (eos, min_rem, budget, stop_ids|None). eos is -1 under ignore_eos
+        (or an EOS-less tokenizer); min_rem / budget are this round's
+        countdowns of the host's min_tokens and max_tokens + max_model_len
+        gates (Sequence.check_stop); stop_ids pads each lane's
+        stop_token_ids to the batch's pow2 cap (>= 4) with -1. Stop
+        STRINGS stay host-resolved."""
+        b = len(seqs)
+        eos = np.full((b,), -1, np.int32)
+        min_rem = np.zeros((b,), np.int32)
+        budget = np.zeros((b,), np.int32)
+        mml = self.scheduler.config.max_model_len
+        max_ids = 0
+        for i, s in enumerate(seqs):
+            sp = s.sampling_params
+            if not sp.ignore_eos and s.eos_token_id is not None:
+                eos[i] = int(s.eos_token_id)
+            gen = len(s.generated_token_ids)
+            min_rem[i] = max(0, sp.min_tokens - gen)
+            # scheduled lanes are unfinished, so both terms are >= 1
+            budget[i] = max(1, min(sp.max_tokens - gen, mml - s.num_tokens))
+            if sp.stop_token_ids:
+                max_ids = max(max_ids, len(sp.stop_token_ids))
+        stop_ids = None
+        if max_ids:
+            cap = max(4, 1 << (max_ids - 1).bit_length())
+            stop_ids = np.full((b, cap), -1, np.int32)
+            for i, s in enumerate(seqs):
+                ids = list(s.sampling_params.stop_token_ids or ())
+                if ids:
+                    stop_ids[i, :len(ids)] = ids
+        return eos, min_rem, budget, stop_ids
+
+    @staticmethod
+    def _bias_arrays(
+        seqs: list[Sequence],
+    ) -> tuple[np.ndarray, np.ndarray] | None:
+        """Per-lane OpenAI logit_bias as dense (b, cap) id / value arrays
+        (cap: the pow2 bucket of the largest map, >= 8), or None when no
+        lane has one; padding adds 0.0 to token 0."""
+        maxn = max(len(s.sampling_params.logit_bias or {}) for s in seqs)
+        if maxn == 0:
+            return None
+        cap = max(8, 1 << (maxn - 1).bit_length())
+        ids = np.zeros((len(seqs), cap), np.int32)
+        vals = np.zeros((len(seqs), cap), np.float32)
+        for i, sq in enumerate(seqs):
+            for j, (t, v) in enumerate(
+                (sq.sampling_params.logit_bias or {}).items()
+            ):
+                ids[i, j] = t
+                vals[i, j] = v
+        return ids, vals
 
     def _seq_seed(self, s: Sequence) -> int:
         sp = s.sampling_params
@@ -570,6 +851,15 @@ class LLMEngine:
             prefill_dispatch_seconds_total=phase["dispatch"],
             prefill_fetch_seconds_total=phase["fetch"],
             decode_rounds_total=self._decode_rounds_total,
+            decode_overshoot_tokens_total=(
+                self._decode_overshoot_tokens_total),
+            decode_early_exit_rounds_total=(
+                self._decode_early_exit_rounds_total),
+            decode_k_hist=dict(self._decode_k_hist),
+            ragged_rounds_total=self._ragged_rounds_total,
+            ragged_split_rounds_total=self._ragged_split_rounds_total,
+            ragged_prefill_lanes_total=self._ragged_prefill_lanes_total,
+            ragged_decode_lanes_total=self._ragged_decode_lanes_total,
         )
 
     # -- offline convenience (tests, benchmarks) ---------------------------

@@ -1,14 +1,21 @@
 """Model runner: owns params + the paged KV cache on the device and runs
 the prefill / packed-prefill / decode forwards.
 
-Counterpart of the split-round slice of
-``production_stack_tpu/engine/model_runner.py``: single-sequence
-``prefill``, packed ``prefill_batch`` (the raw-args variant) and
-single-step ``decode``. Host-side padding keeps the JAX buckets — chunks
-pad to a power of two >= 8, contexts to a power-of-two block count,
-decode to max_num_seqs lanes — so the kernels see the same padded tables
-and metadata as the Pallas kernels do. PyTorch runs eagerly: there is no
-jit and no program cache.
+Counterpart of ``production_stack_tpu/engine/model_runner.py`` without
+its staging, pipeline, LoRA, guided and export paths: single-sequence
+``prefill``, packed ``prefill_batch`` (the raw-args variant),
+single-step ``decode``, the fused K-step ``decode_multi`` and the
+unified lane-typed round ``ragged_dispatch``. Host-side padding keeps
+the JAX buckets — chunks pad to a power of two >= 8, contexts to a
+power-of-two block count, decode to max_num_seqs lanes, ragged-round
+prefill rows to a power of two — so the kernels see the same padded
+tables and metadata as the Pallas kernels do. PyTorch runs eagerly:
+there is no jit and no program cache. The fused paths ship their inputs
+as ONE packed int32 host buffer a dispatch (pinned, one non_blocking
+copy on the card; f32 fields bit-viewed), and their K-step loop is a
+Python loop whose per-iteration inputs are computed on the device from
+the carried tensors: the only host read inside it is the early-exit
+test of the device-stop variant.
 
 Attention goes through one seam, ``_attn(kind, ...)``: on a CUDA device
 the wrappers in ops/paged_attention.py launch the hand-written kernels,
@@ -18,6 +25,7 @@ the runner was built for; there is no fallback between the two.
 
 from __future__ import annotations
 
+import functools
 import math
 import time
 
@@ -26,9 +34,16 @@ import torch
 
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.sampler import (
+    LOGPROB_CAP,
+    RAGGED_IDLE_TOKEN,
+    STOP_PAD_TOKEN,
     TOP_CAP,
+    apply_penalties,
     gumbel_noise,
+    round_noise,
     sample_tokens,
+    stop_hit,
+    token_logprobs,
 )
 from production_stack_tpu_torch.models import llama
 from production_stack_tpu_torch.models.config import ModelConfig, list_presets
@@ -44,6 +59,11 @@ DTYPES = {
 
 # Row-block height of the ragged kernel's flattened query-row space.
 RAGGED_TQ = paged_attention.RAGGED_TQ
+
+# lane types of a unified ragged round's packed header
+RAGGED_LANE_IDLE = 0
+RAGGED_LANE_PREFILL = 1
+RAGGED_LANE_DECODE = 2
 
 
 def next_pow2(n: int) -> int:
@@ -70,6 +90,16 @@ def decode_segments(ctx: np.ndarray):
         np.asarray(ctx, np.int32) - 1,
     ], axis=1).astype(np.int32)
     return r_pad, blk_seg, seg_meta
+
+
+def decode_seg_meta(ctx: torch.Tensor) -> torch.Tensor:
+    """decode_segments' seg_meta built where `ctx` lives (the fused loop
+    keeps its context lengths on the device)."""
+    lanes = torch.arange(ctx.shape[0], dtype=torch.int32, device=ctx.device)
+    return torch.stack([
+        lanes, lanes % RAGGED_TQ, torch.ones_like(lanes),
+        ctx.to(torch.int32) - 1,
+    ], dim=1)
 
 
 def resolve_dtype(name: str) -> torch.dtype:
@@ -155,8 +185,14 @@ class ModelRunner:
         }
         # forwards run per entry point (packed prefill included), so a
         # run can show which paths it took
+        # (decode_iterations: forwards the fused K-step loops ran, so a
+        # run can see a round that exited before its K)
+        self._blk_seg_cache: dict[int, torch.Tensor] = {}
+        # sampler candidates (and noise columns) per row
+        self._top_cap = min(TOP_CAP, self.model_config.vocab_size)
         self.dispatch_counts = {"prefill": 0, "prefill_batch": 0,
-                                "decode": 0}
+                                "decode": 0, "decode_multi": 0,
+                                "ragged": 0, "decode_iterations": 0}
 
     # -- sizing -----------------------------------------------------------
     def _resolve_num_blocks(self) -> int:
@@ -271,10 +307,10 @@ class ModelRunner:
                keys) -> torch.Tensor:
         """On-device sampling of one token per row of `logits` with
         per-row (seed, step) keys; returns (rows,) int32 on the device."""
-        cap = min(TOP_CAP, self.model_config.vocab_size)
         return sample_tokens(
             logits, self._dev(temps), self._dev(top_ps), self._dev(top_ks),
-            self._dev(gumbel_noise(keys, cap)), min_p=self._dev(min_ps),
+            self._dev(gumbel_noise(keys, self._top_cap)),
+            min_p=self._dev(min_ps),
         )
 
     def _phase_add(self, name: str, dt: float) -> None:
@@ -459,26 +495,38 @@ class ModelRunner:
         self._phase_add("dispatch", time.perf_counter() - t2)
         return sampled, logits
 
-    def _decode_attn(self, b: int, tables: np.ndarray, ctx: np.ndarray):
-        """Decode-shaped attention: the ragged kernel with one single-row
-        segment per lane (blocks hold up to RAGGED_TQ lanes), or the
-        per-sequence decode kernel with --no-ragged-kernel."""
-        tables_d = self._dev(tables)
+    def _decode_blk_seg(self, b: int) -> torch.Tensor:
+        """The CSR row-block offsets of a b-lane decode step (shapes
+        alone, so built once per b and kept on the device)."""
+        blk = self._blk_seg_cache.get(b)
+        if blk is None:
+            _, blk_np, _ = decode_segments(np.ones((b,), np.int32))
+            blk = self._blk_seg_cache[b] = self._dev(blk_np)
+        return blk
+
+    def _decode_attn(self, b: int, tables_d: torch.Tensor,
+                     ctx_d: torch.Tensor):
+        """Decode-shaped attention over b lanes whose page tables and
+        context lengths are device tensors: the ragged kernel with one
+        single-row segment per lane (blocks hold up to RAGGED_TQ lanes;
+        the segment metadata is built on the device from ctx_d, so a
+        fused loop reads nothing back), or the per-sequence decode
+        kernel with --no-ragged-kernel."""
         if self.ragged_kernel:
-            r_pad, blk_seg, seg_meta = decode_segments(ctx)
-            blk_seg_d, seg_meta_d = self._dev(blk_seg), self._dev(seg_meta)
+            r_pad = _ceil_tq(b)
+            blk_seg_d = self._decode_blk_seg(b)
+            seg_meta_d = decode_seg_meta(ctx_d)
 
             def attn(q, l, kc, vc):
-                qp = torch.zeros((r_pad,) + tuple(q.shape[1:]),
-                                 dtype=q.dtype, device=q.device)
-                qp[:b] = q
+                qp = q
+                if r_pad != b:
+                    qp = q.new_zeros((r_pad,) + tuple(q.shape[1:]))
+                    qp[:b] = q
                 out = self._attn(
                     "ragged", qp, l, kc, vc, tables_d, blk_seg_d, seg_meta_d
                 )
                 return out[:b]
             return attn
-
-        ctx_d = self._dev(ctx)
 
         def attn(q, l, kc, vc):
             return self._attn("decode", q, l, kc, vc, tables_d, ctx_d)
@@ -516,7 +564,7 @@ class ModelRunner:
             )
             for i in range(b)
         ])
-        attn = self._decode_attn(b, tables, ctx)
+        attn = self._decode_attn(b, self._dev(tables), self._dev(ctx))
         logits, _, _ = llama.forward(
             self.model_config, self.params, self._dev(tokens),
             self._dev(pos), self.k_cache, self.v_cache,
@@ -525,6 +573,797 @@ class ModelRunner:
         )
         self.dispatch_counts["decode"] += 1
         return logits
+
+    # -- packed host->device buffers -----------------------------------------
+    @staticmethod
+    def _layout_of(fields: list[tuple[str, tuple[int, ...]]]):
+        """{name: (offset, shape)} and the total length of a packed
+        int32 buffer holding `fields` back to back."""
+        layout: dict[str, tuple[int, tuple[int, ...]]] = {}
+        off = 0
+        for name, shape in fields:
+            layout[name] = (off, shape)
+            off += int(np.prod(shape))
+        return layout, off
+
+    @staticmethod
+    def _pack_put(packed: np.ndarray, layout: dict, name: str,
+                  arr: np.ndarray) -> None:
+        """Write one field; f32/u32 fields travel as their int32 bits."""
+        off, shape = layout[name]
+        n = int(np.prod(shape))
+        packed[off:off + n] = np.ascontiguousarray(arr).reshape(-1).view(
+            np.int32)
+
+    @staticmethod
+    def _pack_seg(packed: torch.Tensor, layout: dict, name: str):
+        """Device-side read of one field (the mirror of _pack_put); an
+        f32 field is `.view(torch.float32)` of it."""
+        off, shape = layout[name]
+        n = int(np.prod(shape))
+        return packed[off:off + n].reshape(shape)
+
+    def _upload(self, packed: np.ndarray) -> torch.Tensor:
+        """The ONE host->device copy of a dispatch: pinned and
+        non_blocking on the card."""
+        t = torch.from_numpy(packed)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    # -- fused K-step decode ----------------------------------------------------
+    def _decode_pack_layout(self, b: int, c_pad: int, k_steps: int,
+                            stop_cap: int | None = None,
+                            use_penalties: bool = False,
+                            bias_cap: int = 0):
+        """Layout of the ONE int32 buffer a fused decode round ships.
+        `noise` is the round's (k, b, cap) sampler noise, drawn on the
+        host from each lane's (seed, step + i) key. `stop_cap` None = the
+        fixed-trip loop; an int adds the per-lane EOS id, min_tokens gate
+        and remaining budget, and when > 0 a (b, stop_cap) stop-id
+        matrix. Penalties add the generated-id history (b, c_pad), -1
+        padded; logit bias its (b, bias_cap) ids and values."""
+        n_pages = c_pad // self.block_size
+        fields = [
+            ("tokens", (b,)),
+            ("positions", (b,)),
+            ("ctx", (b,)),
+            ("temps", (b,)),
+            ("top_ps", (b,)),
+            ("top_ks", (b,)),
+            ("min_ps", (b,)),
+            ("noise", (k_steps, b, self._top_cap)),
+            ("page_tables", (b, n_pages)),
+        ]
+        if stop_cap is not None:
+            fields += [
+                ("stop_eos", (b,)),
+                ("stop_min", (b,)),
+                ("stop_budget", (b,)),
+            ]
+            if stop_cap > 0:
+                fields.append(("stop_ids", (b, stop_cap)))
+        if use_penalties:
+            fields += [
+                ("gen_ids", (b, c_pad)),
+                ("presence", (b,)),
+                ("frequency", (b,)),
+                ("repetition", (b,)),
+            ]
+        if bias_cap:
+            fields += [("lb_ids", (b, bias_cap)), ("lb_vals", (b, bias_cap))]
+        return self._layout_of(fields)
+
+    @staticmethod
+    def _stop_cap(stop: tuple | None) -> int | None:
+        if stop is None:
+            return None
+        return 0 if stop[3] is None else int(stop[3].shape[1])
+
+    # stackcheck: hot-path — host build of the fused decode round's one
+    # h2d buffer: one pass over the lanes, no device work
+    def _fill_decode_pack(
+        self, c_pad: int, k_steps: int, token_ids, positions, block_tables,
+        context_lens, temps, top_ps, top_ks, keys, min_ps=None,
+        stop: tuple | None = None, penalties: tuple | None = None,
+        logit_bias: tuple | None = None,
+    ) -> np.ndarray:
+        """Build the packed buffer of a fused decode round (layout:
+        _decode_pack_layout) for len(positions) real lanes, padded to
+        max_num_seqs. Padded lanes ship token 0, context 1, the zero
+        table (trash block 0), EOS -1 and budget 0, so under device stops
+        they are done from iteration 0."""
+        b = self.config.max_num_seqs
+        n = len(positions)
+        stop_cap = self._stop_cap(stop)
+        bias_cap = 0 if logit_bias is None else int(logit_bias[0].shape[1])
+        layout, total = self._decode_pack_layout(
+            b, c_pad, k_steps, stop_cap, penalties is not None, bias_cap,
+        )
+        packed = np.zeros((total,), np.int32)
+        put = functools.partial(self._pack_put, packed, layout)
+
+        def lanes(vals, fill, dtype, tail=()):
+            full = np.full((b,) + tail, fill, dtype)
+            if vals is not None:
+                full[:n] = vals
+            return full
+
+        put("tokens", lanes(token_ids, 0, np.int32))
+        put("positions", lanes(positions, 0, np.int32))
+        put("ctx", lanes(context_lens, 1, np.int32))
+        t_full = lanes(temps, 0.0, np.float32)
+        put("temps", t_full)
+        put("top_ps", lanes(top_ps, 1.0, np.float32))
+        put("top_ks", lanes(top_ks, -1, np.int32))
+        put("min_ps", lanes(min_ps, 0.0, np.float32))
+        put("noise", round_noise(lanes(keys, 0, np.uint32, (2,)), t_full,
+                                 k_steps, self._top_cap))
+        n_pages = c_pad // self.block_size
+        put("page_tables", np.stack([
+            self._padded_block_table(
+                block_tables[i] if i < n else [], n_pages
+            )
+            for i in range(b)
+        ]))
+        if stop is not None:
+            eos, min_rem, budget, stop_ids = stop
+            put("stop_eos", lanes(eos, -1, np.int32))
+            put("stop_min", lanes(min_rem, 0, np.int32))
+            put("stop_budget", lanes(budget, 0, np.int32))
+            if stop_cap:
+                put("stop_ids", lanes(stop_ids, -1, np.int32, (stop_cap,)))
+        if penalties is not None:
+            gen_lists, presence, frequency, repetition = penalties
+            # generated tokens are part of the context: c_pad holds them
+            gen = np.full((b, c_pad), -1, np.int32)
+            for i, g in enumerate(gen_lists):
+                gen[i, :len(g)] = g
+            put("gen_ids", gen)
+            put("presence", lanes(presence, 0.0, np.float32))
+            put("frequency", lanes(frequency, 0.0, np.float32))
+            put("repetition", lanes(repetition, 1.0, np.float32))
+        if bias_cap:
+            # padding adds 0.0 to token 0: a no-op
+            put("lb_ids", lanes(logit_bias[0], 0, np.int32, (bias_cap,)))
+            put("lb_vals", lanes(logit_bias[1], 0.0, np.float32,
+                                 (bias_cap,)))
+        return packed
+
+    def _decode_round_core(self, b: int, c_pad: int, k_steps: int,
+                           use_penalties: bool = False,
+                           want_logprobs: bool = False,
+                           bias_cap: int = 0,
+                           stop_cap: int | None = None):
+        """The fused K-step decode round as four closures shared by
+        decode_multi and the unified ragged round (whose step-0 decode
+        forward is welded to the prefill rows): `unpack` (packed buffer ->
+        consts, carry), `fwd_args` (one forward's tokens, positions, write
+        slots, context lengths from the carry), `post` (sample and advance
+        the stop/penalty state from one iteration's logits) and
+        `run(first_logits=...)` (the loop; with first_logits it applies
+        iteration 0's post half to externally computed logits and loops
+        from iteration 1).
+
+        The carry is (tokens, positions, ctx, counts, done, valid), all on
+        the device. Under device stops (`stop_cap` not None) a lane is
+        done once its append count reaches its budget or it samples its
+        EOS / a stop id at or past its min_tokens gate; a done lane
+        freezes: its sampled slot is pinned to STOP_PAD_TOKEN, its KV
+        write goes to the trash slot 0, its position and context stop
+        advancing, its penalty counts stop updating. The loop then reads
+        one flag per iteration, `done.all()`, and exits when it is set;
+        the round returns each lane's valid count last. Tokens below a
+        lane's valid count equal the fixed-trip loop's."""
+        mc = self.model_config
+        bs = self.block_size
+        n_pages = c_pad // bs
+        use_stop = stop_cap is not None
+        layout, _ = self._decode_pack_layout(
+            b, c_pad, k_steps, stop_cap, use_penalties, bias_cap,
+        )
+        lane = torch.arange(b, device=self.device)
+
+        def unpack(packed):
+            seg = functools.partial(self._pack_seg, packed, layout)
+
+            def f32(name):
+                return seg(name).view(torch.float32)
+
+            consts = {
+                "temps": f32("temps"),
+                "top_ps": f32("top_ps"),
+                "top_ks": seg("top_ks"),
+                "min_ps": f32("min_ps"),
+                "noise": f32("noise"),
+                "page_tables": seg("page_tables"),
+            }
+            counts0 = None
+            if use_penalties:
+                # per-lane generated-token counts, kept on the device
+                # through the loop
+                gen_ids = seg("gen_ids")
+                counts0 = torch.zeros(
+                    (b, mc.vocab_size), dtype=torch.float32,
+                    device=packed.device,
+                ).scatter_add_(1, gen_ids.clamp_min(0).long(),
+                               (gen_ids >= 0).float())
+                consts.update(presence=f32("presence"),
+                              frequency=f32("frequency"),
+                              repetition=f32("repetition"))
+            if bias_cap:
+                consts.update(lb_ids=seg("lb_ids").long(),
+                              lb_vals=f32("lb_vals"))
+            if use_stop:
+                consts.update(
+                    eos_ids=seg("stop_eos"), min_need=seg("stop_min"),
+                    budget=seg("stop_budget"),
+                    s_ids=seg("stop_ids") if stop_cap else None,
+                )
+                # padded lanes ship budget 0: done from iteration 0
+                done0 = consts["budget"] <= 0
+            else:
+                done0 = torch.zeros((b,), dtype=torch.bool,
+                                    device=packed.device)
+            valid0 = torch.zeros((b,), dtype=torch.int32,
+                                 device=packed.device)
+            carry0 = (seg("tokens"), seg("positions"), seg("ctx"), counts0,
+                      done0, valid0)
+            return consts, carry0
+
+        def fwd_args(carry, consts):
+            """(tokens, positions, write_slots, ctx) of one decode forward,
+            computed on the device: each lane's slot from its block table
+            (idle lanes carry the zero table, so they write the trash
+            block 0, and K <= block_size keeps them inside it)."""
+            tokens, positions, ctx, _, done, _ = carry
+            page = torch.clamp(positions // bs, max=n_pages - 1).long()
+            write_slots = (consts["page_tables"][lane, page] * bs
+                           + positions % bs)
+            if use_stop:
+                # a frozen lane's overshoot KV never lands past its end
+                write_slots = torch.where(
+                    done, torch.zeros_like(write_slots), write_slots)
+            return tokens, positions, write_slots, ctx
+
+        def fwd(carry, consts):
+            tokens, positions, write_slots, ctx = fwd_args(carry, consts)
+            attn = self._decode_attn(b, consts["page_tables"], ctx)
+            logits, _, _ = llama.forward(
+                mc, self.params, tokens, positions, self.k_cache,
+                self.v_cache, write_slots, attn, logits_rows=lane,
+            )
+            return logits
+
+        def post(logits, carry, i, consts):
+            """Sample iteration i from its logits and advance the stop
+            and penalty state; returns (carry', ys_i)."""
+            tokens, positions, ctx, counts, done, valid = carry
+            if use_penalties:
+                logits = apply_penalties(
+                    logits, counts > 0, counts, consts["presence"],
+                    consts["frequency"], consts["repetition"],
+                )
+            if bias_cap:
+                # OpenAI logit_bias, after penalties (the host path's
+                # order)
+                logits = logits.scatter_add(1, consts["lb_ids"],
+                                            consts["lb_vals"])
+            nxt = sample_tokens(
+                logits, consts["temps"], consts["top_ps"],
+                consts["top_ks"], consts["noise"][i],
+                min_p=consts["min_ps"],
+            )
+            live = ~done
+            if use_stop:
+                nxt = torch.where(done, torch.full_like(nxt, STOP_PAD_TOKEN),
+                                  nxt)
+            if use_penalties:
+                inc = live.float() if use_stop else torch.ones_like(
+                    counts[:, 0])
+                counts = counts.scatter_add(1, nxt.long()[:, None],
+                                            inc[:, None])
+            valid = valid + live.to(torch.int32)
+            adv = 1
+            if use_stop:
+                # the stop token itself is appended; the lane freezes
+                # from the next iteration (budget first, then the
+                # min_tokens-gated EOS/stop-id check: check_stop's order)
+                hit = stop_hit(nxt, consts["eos_ids"], consts["s_ids"])
+                done = done | (valid >= consts["budget"]) | (
+                    live & hit & (valid >= consts["min_need"]))
+                adv = (~done).to(torch.int32)
+            ys = (nxt, *token_logprobs(logits, nxt)) if want_logprobs else (
+                nxt,)
+            return (nxt, positions + adv, ctx + adv, counts, done,
+                    valid), ys
+
+        def run(consts, carry0, first_logits=None):
+            dev = self.device
+            toks = torch.full((k_steps, b), STOP_PAD_TOKEN,
+                              dtype=torch.int32, device=dev)
+            bufs = [toks]
+            if want_logprobs:
+                bufs += [
+                    torch.zeros((k_steps, b), dtype=torch.float32,
+                                device=dev),
+                    torch.zeros((k_steps, b, LOGPROB_CAP),
+                                dtype=torch.float32, device=dev),
+                    torch.zeros((k_steps, b, LOGPROB_CAP),
+                                dtype=torch.int32, device=dev),
+                ]
+            carry, i = carry0, 0
+            if first_logits is not None:
+                carry, ys = post(first_logits, carry, 0, consts)
+                for buf, y in zip(bufs, ys):
+                    buf[0] = y
+                i = 1
+            while i < k_steps:
+                # the loop's one host read: a 1-byte flag (real lanes
+                # enter with budget >= 1, so iteration 0 always runs)
+                if use_stop and i > 0 and bool(carry[4].all()):
+                    break
+                carry, ys = post(fwd(carry, consts), carry, i, consts)
+                for buf, y in zip(bufs, ys):
+                    buf[i] = y
+                i += 1
+            self.dispatch_counts["decode_iterations"] += i
+            if use_stop:
+                bufs.append(carry[5])
+            return bufs[0] if len(bufs) == 1 else tuple(bufs)
+
+        return {"unpack": unpack, "fwd_args": fwd_args, "run": run}
+
+    # stackcheck: hot-path — one packed upload, the fused loop; fetches
+    # stay with the caller
+    @torch.inference_mode()
+    def decode_multi(
+        self,
+        token_ids: list[int],
+        positions: list[int],
+        block_tables: list[list[int]],
+        context_lens: list[int],
+        steps: int,
+        temps: np.ndarray,      # (b_actual,) float32
+        top_ps: np.ndarray,
+        top_ks: np.ndarray,
+        keys: np.ndarray,       # (b_actual, 2) uint32
+        min_ps: np.ndarray | None = None,
+        penalties: tuple | None = None,
+        want_logprobs: bool = False,
+        logit_bias: tuple | None = None,  # ((b_actual, cap) i32 ids,
+                                          #  (b_actual, cap) f32 vals)
+        stop: tuple | None = None,  # (eos (b_actual,) i32, -1 = ignore,
+                                    #  min_rem, budget (b_actual,) i32,
+                                    #  stop_ids (b_actual, cap) i32 | None)
+    ):
+        """`steps` fused decode+sample iterations, one packed upload;
+        returns (steps, b) int32 sampled tokens on the device, or with
+        `want_logprobs` (tokens, chosen (k, b) f32, top_vals (k, b, CAP)
+        f32, top_ids (k, b, CAP) i32). With `stop` the return is always a
+        tuple whose last element is the (b,) int32 per-lane valid count:
+        rows at or past valid[lane] are pad and the loop exits once every
+        lane is done. Iteration i samples with key (seed, step + i), so K
+        fused steps give the tokens of K single steps. The caller has
+        grown each block table to cover context_len + steps - 1.
+
+        `penalties`: (gen_id lists, presence, frequency, repetition);
+        token counts then ride the loop on the device."""
+        if steps > self.block_size:
+            raise ValueError(
+                f"num_scheduler_steps={steps} > block_size="
+                f"{self.block_size}: idle lanes would overrun the trash "
+                "block"
+            )
+        b = self.config.max_num_seqs
+        c_pad = self._ctx_bucket(max(context_lens) + steps - 1)
+        packed = self._fill_decode_pack(
+            c_pad, steps, token_ids, positions, block_tables, context_lens,
+            temps, top_ps, top_ks, keys, min_ps=min_ps, stop=stop,
+            penalties=penalties, logit_bias=logit_bias,
+        )
+        core = self._decode_round_core(
+            b, c_pad, steps, use_penalties=penalties is not None,
+            want_logprobs=want_logprobs,
+            bias_cap=0 if logit_bias is None else int(
+                logit_bias[0].shape[1]),
+            stop_cap=self._stop_cap(stop),
+        )
+        consts, carry0 = core["unpack"](self._upload(packed))
+        ys = core["run"](consts, carry0)
+        self.dispatch_counts["decode_multi"] += 1
+        return ys
+
+    # -- ragged-rows prefill -----------------------------------------------------
+    # In a unified round the prefill lanes' chunk rows pack back to back on
+    # one flat row axis, RAGGED_TQ-aligned, one segment a row block; lane
+    # offsets ride per-lane metadata at a static lane cap.
+    def _rows_lane_cap(self) -> int:
+        """Prefill-lane capacity of a ragged-rows pack."""
+        return next_pow2(max(self.config.max_prefill_seqs, 1))
+
+    def _rows_bucket(self, n_rows: int) -> int:
+        return next_pow2(max(n_rows, RAGGED_TQ))
+
+    def _rows_dims(self, chunks: list[list[int]],
+                   total_lens: list[int]) -> tuple[int, int]:
+        """(r_pad, pc_pad) row and context buckets of a prefill group."""
+        r_pad = self._rows_bucket(sum(_ceil_tq(len(c)) for c in chunks))
+        pc_pad = max(self._ctx_bucket(tl) for tl in total_lens)
+        return r_pad, pc_pad
+
+    def _rows_prefill_pack_layout(self, r_pad: int, pc_pad: int):
+        """Flat row-axis fields + per-lane metadata at the lane cap; the
+        sampler noise (s_cap, cap) takes the place of the JAX keys."""
+        s_cap = self._rows_lane_cap()
+        fields = [
+            ("tokens", (r_pad,)),
+            ("positions", (r_pad,)),
+            ("write_slots", (r_pad,)),
+            ("tables", (s_cap, pc_pad // self.block_size)),
+            ("lane_row0", (s_cap,)),
+            ("lane_rows", (s_cap,)),
+            ("q_starts", (s_cap,)),
+            ("last_rows", (s_cap,)),
+            ("temps", (s_cap,)),
+            ("top_ps", (s_cap,)),
+            ("top_ks", (s_cap,)),
+            ("min_ps", (s_cap,)),
+            ("noise", (s_cap, self._top_cap)),
+        ]
+        return self._layout_of(fields)
+
+    # stackcheck: hot-path — host build of the ragged-rows prefill pack;
+    # one pass over the lanes, no device work
+    def _fill_rows_prefill_pack(
+        self,
+        chunks: list[list[int]],
+        start_positions: list[int],
+        block_tables: list[list[int]],
+        total_lens: list[int],
+        sampling=None,
+    ) -> tuple[int, int, np.ndarray]:
+        """Host build of the ragged-rows prefill pack; returns (r_pad,
+        pc_pad, packed). Lane i's chunk occupies rows [lane_row0[i],
+        lane_row0[i] + len(chunk)); alignment and bucket tail rows carry
+        position -1 -> rope 0 and write the trash slot."""
+        n = len(chunks)
+        s_cap = self._rows_lane_cap()
+        r_pad, pc_pad = self._rows_dims(chunks, total_lens)
+        n_pages = pc_pad // self.block_size
+        tokens = np.zeros((r_pad,), np.int32)
+        positions = np.full((r_pad,), -1, np.int32)
+        write_slots = np.zeros((r_pad,), np.int32)
+        tables = np.zeros((s_cap, n_pages), np.int32)
+        lane_row0 = np.zeros((s_cap,), np.int32)
+        lane_rows = np.zeros((s_cap,), np.int32)
+        q_starts = np.zeros((s_cap,), np.int32)
+        last_rows = np.zeros((s_cap,), np.int32)
+        row = 0
+        for i, (ids, start) in enumerate(zip(chunks, start_positions)):
+            t = len(ids)
+            tokens[row:row + t] = ids
+            pos = np.arange(start, start + t, dtype=np.int32)
+            positions[row:row + t] = pos
+            write_slots[row:row + t] = self._slots_for_positions(
+                block_tables[i], pos
+            )
+            tables[i] = self._padded_block_table(block_tables[i], n_pages)
+            lane_row0[i] = row
+            lane_rows[i] = _ceil_tq(t)
+            q_starts[i] = start
+            last_rows[i] = row + t - 1
+            row += _ceil_tq(t)
+        # idle lanes: empty row ranges past the packed region (they cover
+        # no block), last row 0 (the round pins their sample)
+        lane_row0[n:] = row
+        layout, size = self._rows_prefill_pack_layout(r_pad, pc_pad)
+        packed = np.zeros((size,), np.int32)
+        put = functools.partial(self._pack_put, packed, layout)
+        put("tokens", tokens)
+        put("positions", np.maximum(positions, 0))
+        put("write_slots", write_slots)
+        put("tables", tables)
+        put("lane_row0", lane_row0)
+        put("lane_rows", lane_rows)
+        put("q_starts", q_starts)
+        put("last_rows", last_rows)
+        temps, top_ps, top_ks, min_ps, keys = self._sampling_args(
+            s_cap, sampling
+        )
+        put("temps", temps)
+        put("top_ps", top_ps)
+        put("top_ks", top_ks)
+        put("min_ps", min_ps)
+        put("noise", round_noise(keys, temps, 1, self._top_cap)[0])
+        return r_pad, pc_pad, packed
+
+    @staticmethod
+    def _rows_pf_seg_meta(r_pad: int, lane_row0: torch.Tensor,
+                          lane_rows: torch.Tensor,
+                          q_starts: torch.Tensor) -> torch.Tensor:
+        """Per-block segment metadata of the ragged-rows prefill region,
+        built on the device: each RAGGED_TQ block belongs to at most one
+        lane (lanes pack TQ-aligned) and carries one segment [lane, 0,
+        TQ, q_pos of its first row]; a block outside every lane carries a
+        zero-row segment the kernel walks past."""
+        tq = RAGGED_TQ
+        blk0 = torch.arange(r_pad // tq, dtype=torch.int32,
+                            device=lane_row0.device) * tq
+        ends = lane_row0 + lane_rows
+        cover = ((blk0[:, None] >= lane_row0[None, :])
+                 & (blk0[:, None] < ends[None, :]))
+        has = cover.any(dim=1)
+        # first covering lane (0 where none), as jnp.argmax of a bool
+        lane_of = cover.to(torch.int32).argmax(dim=1)
+        qpos0 = q_starts[lane_of] + (blk0 - lane_row0[lane_of])
+        return torch.stack([
+            lane_of.to(torch.int32), torch.zeros_like(blk0),
+            has.to(torch.int32) * tq,
+            torch.where(has, qpos0, torch.zeros_like(qpos0)),
+        ], dim=1).to(torch.int32)
+
+    def _make_prefill_rows_step(self, r_pad: int, pc_pad: int):
+        """Ragged-rows packed prefill: chunks of up to max_prefill_seqs
+        sequences on ONE flat row axis, the group's chunk attention ONE
+        ragged kernel launch a layer. `step(packed)` -> (sampled (s_cap,)
+        int32, logits (s_cap, vocab)); `step.unpack` is shared with the
+        unified round (_build_ragged_rows)."""
+        mc = self.model_config
+        layout, _ = self._rows_prefill_pack_layout(r_pad, pc_pad)
+
+        def unpack(packed):
+            seg = functools.partial(self._pack_seg, packed, layout)
+            pf = {name: seg(name) for name in (
+                "tokens", "positions", "write_slots", "tables", "lane_row0",
+                "lane_rows", "q_starts", "last_rows", "top_ks")}
+            for name in ("temps", "top_ps", "min_ps", "noise"):
+                pf[name] = seg(name).view(torch.float32)
+            return pf
+
+        def sample(pf, logits):
+            return sample_tokens(logits, pf["temps"], pf["top_ps"],
+                                 pf["top_ks"], pf["noise"],
+                                 min_p=pf["min_ps"])
+
+        def step(packed):
+            pf = unpack(packed)
+            seg_meta = self._rows_pf_seg_meta(
+                r_pad, pf["lane_row0"], pf["lane_rows"], pf["q_starts"])
+            blk_seg = torch.arange(r_pad // RAGGED_TQ + 1,
+                                   dtype=torch.int32, device=packed.device)
+
+            def attn(q, l, kc, vc):
+                return self._attn("ragged", q, l, kc, vc, pf["tables"],
+                                  blk_seg, seg_meta)
+
+            logits, _, _ = llama.forward(
+                mc, self.params, pf["tokens"], pf["positions"],
+                self.k_cache, self.v_cache, pf["write_slots"], attn,
+                logits_rows=pf["last_rows"],
+            )
+            return sample(pf, logits), logits
+
+        step.unpack = unpack
+        step.sample = sample
+        return step
+
+    # -- unified ragged rounds ---------------------------------------------------
+    # ONE lane-typed engine round: one packed buffer whose lanes mix
+    # prefill chunks and decode steps, one forward over [prefill rows |
+    # decode rows] with one ragged kernel launch a layer, then decode
+    # iterations 1..K-1 on the shared decode core. The two lane sets are
+    # different sequences with disjoint block tables, so the tokens equal
+    # a split prefill round followed by a decode round.
+    def _ragged_rows_pack_sizes(
+        self, r_pad: int, pc_pad: int, b: int, c_pad: int, k_steps: int,
+        stop_cap: int | None = None, use_penalties: bool = False,
+        bias_cap: int = 0,
+    ) -> tuple[int, int, int]:
+        """(meta, prefill, decode) segment lengths of a ragged round's
+        packed buffer: the lane-type header (lane cap + b lanes), the
+        ragged-rows prefill pack, the decode pack."""
+        meta = self._rows_lane_cap() + b
+        _, pf = self._rows_prefill_pack_layout(r_pad, pc_pad)
+        _, dec = self._decode_pack_layout(b, c_pad, k_steps, stop_cap,
+                                          use_penalties, bias_cap)
+        return meta, pf, dec
+
+    # stackcheck: hot-path — host build of the ragged round's one h2d
+    # buffer; one pass over the lanes, no device work
+    def _fill_ragged_rows_pack(
+        self,
+        pf_chunks, pf_start_positions, pf_block_tables, pf_total_lens,
+        pf_sampling, c_pad, token_ids, positions, block_tables,
+        context_lens, steps, temps, top_ps, top_ks, keys, min_ps=None,
+        stop=None, penalties=None, logit_bias=None,
+    ) -> tuple[int, int, np.ndarray]:
+        """Lane-type header + ragged-rows prefill pack + decode pack, one
+        int32 buffer. Returns (r_pad, pc_pad, packed)."""
+        b = self.config.max_num_seqs
+        s_cap = self._rows_lane_cap()
+        r_pad, pc_pad, pf_packed = self._fill_rows_prefill_pack(
+            pf_chunks, pf_start_positions, pf_block_tables, pf_total_lens,
+            sampling=pf_sampling,
+        )
+        dec_packed = self._fill_decode_pack(
+            c_pad, steps, token_ids, positions, block_tables, context_lens,
+            temps, top_ps, top_ks, keys, min_ps=min_ps, stop=stop,
+            penalties=penalties, logit_bias=logit_bias,
+        )
+        types = np.full((s_cap + b,), RAGGED_LANE_IDLE, np.int32)
+        types[:len(pf_chunks)] = RAGGED_LANE_PREFILL
+        types[s_cap:s_cap + len(positions)] = RAGGED_LANE_DECODE
+        packed = np.concatenate([types, pf_packed, dec_packed])
+        return r_pad, pc_pad, packed
+
+    def _ragged_rows_meta(self, r_pad: int, pf: dict,
+                          dec_tables: torch.Tensor, d_ctx: torch.Tensor,
+                          n_pages: int):
+        """(tables, blk_seg, seg_meta) of a ragged round's step-0 forward,
+        built on the device. Rows: [prefill rows (r_pad) | decode rows
+        (b, padded to RAGGED_TQ)]. seg_meta: the prefill blocks' segments,
+        then one single-row segment a decode lane, [s_cap + lane,
+        lane % TQ, 1, ctx - 1]; blk_seg: arange(n_pf_blk + 1), then
+        n_pf_blk + min((j + 1) * TQ, b); tables: prefill lanes then decode
+        lanes, padded to the wider page count with the null block."""
+        tq = RAGGED_TQ
+        b = dec_tables.shape[0]
+        pf_tab = pf["tables"]
+        s_cap = pf_tab.shape[0]
+        dev = dec_tables.device
+        tables = torch.cat([
+            torch.nn.functional.pad(pf_tab, (0, n_pages - pf_tab.shape[1])),
+            torch.nn.functional.pad(dec_tables,
+                                    (0, n_pages - dec_tables.shape[1])),
+        ])
+        pf_seg = self._rows_pf_seg_meta(
+            r_pad, pf["lane_row0"], pf["lane_rows"], pf["q_starts"])
+        dl = torch.arange(b, dtype=torch.int32, device=dev)
+        dec_seg = torch.stack([
+            s_cap + dl, dl % tq, torch.ones_like(dl),
+            d_ctx.to(torch.int32) - 1,
+        ], dim=1)
+        n_pf_blk = r_pad // tq
+        blk_seg = torch.cat([
+            torch.arange(n_pf_blk + 1, dtype=torch.int32, device=dev),
+            n_pf_blk + torch.clamp(
+                (torch.arange(_ceil_tq(b) // tq, dtype=torch.int32,
+                              device=dev) + 1) * tq, max=b),
+        ])
+        return tables, blk_seg, torch.cat([pf_seg, dec_seg])
+
+    def _build_ragged_rows(self, r_pad: int, pc_pad: int, b: int,
+                           c_pad: int, k_steps: int,
+                           use_penalties: bool = False,
+                           want_logprobs: bool = False,
+                           bias_cap: int = 0,
+                           stop_cap: int | None = None):
+        """The unified round as `step(packed)` -> (pf_sampled (s_cap,)
+        int32, RAGGED_IDLE_TOKEN on non-prefill lanes; pf_logits (s_cap,
+        vocab); decode ys as decode_multi returns them). The prefill
+        lanes' rows and the decode lanes' step-0 rows share one row space
+        and one forward, whose attention is one ragged kernel launch a
+        layer; decode iterations 1..K-1 continue on the decode core."""
+        mc = self.model_config
+        s_cap = self._rows_lane_cap()
+        b_pad = _ceil_tq(b)
+        pf_step = self._make_prefill_rows_step(r_pad, pc_pad)
+        core = self._decode_round_core(
+            b, c_pad, k_steps, use_penalties=use_penalties,
+            want_logprobs=want_logprobs, bias_cap=bias_cap,
+            stop_cap=stop_cap,
+        )
+        meta_n, pf_n, _ = self._ragged_rows_pack_sizes(
+            r_pad, pc_pad, b, c_pad, k_steps, stop_cap, use_penalties,
+            bias_cap,
+        )
+        n_pages = max(pc_pad, c_pad) // self.block_size
+
+        def step(packed):
+            lane_types = packed[:s_cap]
+            pf = pf_step.unpack(packed[meta_n:meta_n + pf_n])
+            consts, carry0 = core["unpack"](packed[meta_n + pf_n:])
+            # decode write slots / ctx from the shared core, so frozen-
+            # lane trash redirection matches the loop's
+            d_tokens, d_positions, d_ws, d_ctx = core["fwd_args"](
+                carry0, consts)
+            tables, blk_seg, seg_meta = self._ragged_rows_meta(
+                r_pad, pf, consts["page_tables"], d_ctx, n_pages)
+            n_rows = r_pad + b
+
+            def attn(q, l, kc, vc):
+                qp = q
+                if b_pad != b:
+                    qp = q.new_zeros((r_pad + b_pad,) + tuple(q.shape[1:]))
+                    qp[:n_rows] = q
+                out = self._attn("ragged", qp, l, kc, vc, tables, blk_seg,
+                                 seg_meta)
+                return out[:n_rows]
+
+            logits, _, _ = llama.forward(
+                mc, self.params, torch.cat([pf["tokens"], d_tokens]),
+                torch.cat([pf["positions"], d_positions]), self.k_cache,
+                self.v_cache, torch.cat([pf["write_slots"], d_ws]), attn,
+                logits_rows=torch.cat([
+                    pf["last_rows"],
+                    r_pad + torch.arange(b, dtype=torch.int32,
+                                         device=packed.device),
+                ]),
+            )
+            pf_logits = logits[:s_cap]
+            pf_sampled = torch.where(
+                lane_types == RAGGED_LANE_PREFILL,
+                pf_step.sample(pf, pf_logits),
+                torch.full_like(lane_types, RAGGED_IDLE_TOKEN),
+            )
+            ys = core["run"](consts, carry0, first_logits=logits[s_cap:])
+            return pf_sampled, pf_logits, ys
+
+        return step
+
+    # stackcheck: hot-path — ONE packed upload serves the whole lane-typed
+    # round; fetches stay with the caller
+    @torch.inference_mode()
+    def ragged_dispatch(
+        self,
+        pf_chunks: list[list[int]],
+        pf_start_positions: list[int],
+        pf_block_tables: list[list[int]],
+        pf_total_lens: list[int],
+        token_ids: list[int],
+        positions: list[int],
+        block_tables: list[list[int]],
+        context_lens: list[int],
+        steps: int,
+        temps, top_ps, top_ks, keys,
+        min_ps=None,
+        pf_sampling=None,
+        penalties: tuple | None = None,
+        want_logprobs: bool = False,
+        logit_bias: tuple | None = None,
+        stop: tuple | None = None,
+    ) -> tuple:
+        """One lane-typed round: prefill chunk lanes + fused decode lanes.
+        Returns (pf_sampled (s_cap,) int32 on the device, RAGGED_IDLE_TOKEN
+        on non-prefill lanes; pf_logits (s_cap, vocab); dec_ys) where
+        dec_ys has decode_multi's return shape for the same flags."""
+        if steps > self.block_size:
+            raise ValueError(
+                f"num_scheduler_steps={steps} > block_size="
+                f"{self.block_size}: idle lanes would overrun the trash "
+                "block"
+            )
+        if not self.ragged_kernel:
+            raise NotImplementedError(
+                "the composed-kernel ragged round is not ported to the "
+                "PyTorch engine yet: pass --no-ragged-dispatch"
+            )
+        b = self.config.max_num_seqs
+        c_pad = self._ctx_bucket(max(context_lens) + steps - 1)
+        bias_cap = 0 if logit_bias is None else int(logit_bias[0].shape[1])
+        t0 = time.perf_counter()
+        r_pad, pc_pad, packed = self._fill_ragged_rows_pack(
+            pf_chunks, pf_start_positions, pf_block_tables, pf_total_lens,
+            pf_sampling, c_pad, token_ids, positions, block_tables,
+            context_lens, steps, temps, top_ps, top_ks, keys, min_ps=min_ps,
+            stop=stop, penalties=penalties, logit_bias=logit_bias,
+        )
+        t1 = time.perf_counter()
+        self._phase_add("prep", t1 - t0)
+        packed_dev = self._upload(packed)
+        t2 = time.perf_counter()
+        self._phase_add("h2d", t2 - t1)
+        step = self._build_ragged_rows(
+            r_pad, pc_pad, b, c_pad, steps,
+            use_penalties=penalties is not None,
+            want_logprobs=want_logprobs, bias_cap=bias_cap,
+            stop_cap=self._stop_cap(stop),
+        )
+        out = step(packed_dev)
+        self.dispatch_counts["ragged"] += 1
+        self._phase_add("dispatch", time.perf_counter() - t2)
+        return out
 
 
 def _to_device(tree: dict, device: torch.device) -> dict:

@@ -79,6 +79,8 @@ class EngineStatsSnapshot:
     decode_rounds_total: int = 0
     decode_overshoot_tokens_total: int = 0
     decode_early_exit_rounds_total: int = 0
+    # chosen K -> rounds dispatched with it (tpu:decode_k)
+    decode_k_hist: dict = field(default_factory=dict)
     # unified ragged dispatch: fused lane-typed rounds, rounds a mixed
     # plan ran split (exotic lanes), and per-side lane totals —
     # tpu:ragged_* in /metrics and the bench `ragged_dispatch` slot

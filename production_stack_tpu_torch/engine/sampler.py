@@ -10,7 +10,9 @@ Randomness: JAX derives each row's gumbel noise from a per-row key
 the same (seed, step) key data with numpy's counter-based Philox, so a
 row's draw depends only on its own key, never on the batch around it.
 The numbers differ from JAX's threefry; tests hand both samplers the
-same noise.
+same noise. A fused K-step round draws its whole (K, b, TOP_CAP) block
+at once (`round_noise`, keys (seed, step + i)), so K fused steps sample
+exactly what K single steps would.
 """
 
 from __future__ import annotations
@@ -20,6 +22,16 @@ import torch
 
 TOP_CAP = 64
 LOGPROB_CAP = 20  # top-N logprob bucket; hosts slice to the requested N
+
+# device-side stop masks (fused decode): the token a frozen lane's
+# sampled slot is pinned to. The host reads only each lane's valid
+# count of tokens, never the pinned slots.
+STOP_PAD_TOKEN = 0
+
+# unified ragged rounds: the sentinel a NON-prefill lane's sampled
+# first-token slot is pinned to (negative, so it never collides with a
+# real token id); hosts consume only rows >= 0.
+RAGGED_IDLE_TOKEN = -1
 
 
 def gumbel_noise(key_data: np.ndarray, top_cap: int = TOP_CAP) -> np.ndarray:
@@ -31,6 +43,21 @@ def gumbel_noise(key_data: np.ndarray, top_cap: int = TOP_CAP) -> np.ndarray:
             np.random.Philox(key=int(seed) << 32 | int(step))
         )
         out[i] = gen.gumbel(size=top_cap)
+    return out
+
+
+def round_noise(key_data: np.ndarray, temps: np.ndarray, k_steps: int,
+                top_cap: int = TOP_CAP) -> np.ndarray:
+    """(b, 2) base keys -> (k_steps, b, top_cap) noise for a fused round:
+    row (i, lane) is gumbel_noise of key (seed, step + i). Greedy lanes
+    (temperature <= 0) get zeros: the sampler never reads their noise."""
+    key_data = np.asarray(key_data, np.uint64).reshape(-1, 2)
+    out = np.zeros((k_steps, key_data.shape[0], top_cap), np.float32)
+    steps = np.arange(k_steps, dtype=np.uint64)
+    for lane in np.flatnonzero(np.asarray(temps, np.float32) > 0.0):
+        seed, step = key_data[lane]
+        keys = np.stack([np.full_like(steps, seed), step + steps], axis=1)
+        out[:, lane] = gumbel_noise(keys, top_cap)
     return out
 
 
@@ -87,3 +114,30 @@ def apply_penalties(
     rep = repetition[:, None]
     penalized = torch.where(logits > 0, logits / rep, logits * rep)
     return torch.where(output_mask, penalized, logits)
+
+
+def stop_hit(
+    tokens: torch.Tensor,            # (b,) int32 just-sampled tokens
+    eos_ids: torch.Tensor,           # (b,) int32 per-lane EOS (-1 = none)
+    stop_ids: torch.Tensor | None,   # (b, cap) int32 padded with -1
+) -> torch.Tensor:
+    """Per-lane bool: the sampled token is that lane's EOS or one of its
+    stop_token_ids. The min_tokens / max_tokens gates are the caller's
+    (they depend on the loop's per-lane counts). -1 never matches."""
+    hit = tokens == eos_ids
+    if stop_ids is not None:
+        hit = hit | (tokens[:, None] == stop_ids).any(dim=1)
+    return hit
+
+
+def token_logprobs(
+    logits: torch.Tensor,  # (b, vocab) float32, post-penalty
+    tokens: torch.Tensor,  # (b,) int32 chosen tokens
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-row chosen-token logprob and the top-LOGPROB_CAP alternatives
+    from log_softmax of the (pre-temperature) logits. Returns (chosen
+    (b,), top_vals (b, CAP), top_ids (b, CAP) int32)."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    chosen = torch.gather(lp, 1, tokens.long()[:, None])[:, 0]
+    top_vals, top_ids = torch.topk(lp, LOGPROB_CAP, dim=-1)
+    return chosen, top_vals, top_ids.to(torch.int32)

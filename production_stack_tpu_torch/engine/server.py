@@ -4,7 +4,8 @@ Counterpart of ``production_stack_tpu/engine/server.py`` for the
 endpoints this slice serves: ``/health``, ``/v1/models`` (with
 ``max_model_len`` and the PD role), ``/v1/completions`` and
 ``/v1/chat/completions`` (both with ``stream``), and a plain-text
-``/metrics`` carrying the ``vllm:*`` gauges the router scrapes, and
+``/metrics`` carrying the ``vllm:*`` gauges the router scrapes and the
+``tpu:*`` decode and ragged-round counters, and
 ``/debug/kernel_launches``, which reads (GET) or zeroes (DELETE) the
 attention kernels' launch counts and the runner's forward dispatches. The
 Prometheus text is written by hand and HTTP/1.1 is parsed by hand
@@ -175,6 +176,41 @@ class EngineServer:
         ):
             lines += [f"# HELP {name} {help_}", f"# TYPE {name} {kind}",
                       f"{name}{labels} {float(value)}"]
+        # the JAX engine's tpu:* families (counter samples carry _total,
+        # as prometheus_client writes them)
+        for name, help_, value in (
+            ("tpu:decode_rounds", "Decode rounds dispatched",
+             st.decode_rounds_total),
+            ("tpu:decode_overshoot_tokens",
+             "Sampled decode slots discarded by the host past a stop",
+             st.decode_overshoot_tokens_total),
+            ("tpu:decode_early_exit_rounds",
+             "Fused decode rounds whose loop exited before the trip count",
+             st.decode_early_exit_rounds_total),
+            ("tpu:ragged_rounds",
+             "Lane-typed ragged rounds dispatched fused",
+             st.ragged_rounds_total),
+            ("tpu:ragged_split_rounds",
+             "Planned mixed rounds executed as split dispatches",
+             st.ragged_split_rounds_total),
+        ):
+            lines += [f"# HELP {name} {help_}", f"# TYPE {name} counter",
+                      f"{name}_total{labels} {float(value)}"]
+        name = "tpu:decode_k"
+        lines += [f"# HELP {name} Fused decode iterations dispatched per "
+                  "round", f"# TYPE {name} histogram"]
+        for le in (1, 2, 4, 8, 16, 32):
+            seen = sum(n for k, n in st.decode_k_hist.items() if k <= le)
+            lines.append(f'{name}_bucket{{model_name="{self.model_name}",'
+                         f'le="{float(le)}"}} {float(seen)}')
+        total = sum(st.decode_k_hist.values())
+        lines += [
+            f'{name}_bucket{{model_name="{self.model_name}",le="+Inf"}} '
+            f"{float(total)}",
+            f"{name}_count{labels} {float(total)}",
+            f"{name}_sum{labels} "
+            f"{float(sum(k * n for k, n in st.decode_k_hist.items()))}",
+        ]
         payload = ("\n".join(lines) + "\n").encode()
         await _send(writer, 200, payload,
                     "text/plain; version=0.0.4; charset=utf-8")

@@ -1,8 +1,10 @@
 """The PyTorch port's LLMEngine against the JAX package's, both on the CPU
-in the slice's configuration: split prefill/decode rounds, single-step
-decode, no prefill pipeline. The same JAX-initialised float32 weights go
-to both (carried across with params_from_numpy); greedy token streams
-must be equal, token for token.
+in the split configuration (--no-ragged-dispatch): split prefill/decode
+rounds, single-step decode, no prefill pipeline. The same
+JAX-initialised float32 weights go to both (carried across with
+params_from_numpy); greedy token streams must be equal, token for token.
+The unified ragged rounds and fused K-step decode are held to the JAX
+engine in test_torch_ragged_rounds.py and test_torch_multistep.py.
 
 The JAX engine runs its XLA gather path here (its Pallas kernels are held
 against the port's plain versions in test_torch_paged_attention.py); the
@@ -34,7 +36,7 @@ from production_stack_tpu_torch.ops import paged_attention as tpa
 BASE = dict(
     model="pst-tiny-debug", tokenizer="byte", dtype="float32",
     cache_dtype="float32", block_size=4, num_kv_blocks=128, max_num_seqs=4,
-    max_prefill_chunk=16, seed=0,
+    max_prefill_chunk=16, seed=0, ragged_dispatch=False,
 )
 
 
@@ -70,8 +72,8 @@ def test_greedy_tokens_match_jax_engine(np_params, case, ragged):
     prompts, over = _prompts(case)
     n_tokens = 10
     jeng = JEngine(JConfig(
-        **{**BASE, **over}, attention_impl="xla", ragged_dispatch=False,
-        prefill_pipeline=False, num_scheduler_steps=1,
+        **{**BASE, **over}, attention_impl="xla", prefill_pipeline=False,
+        num_scheduler_steps=1,
     ), params=jax.tree_util.tree_map(jnp.asarray, np_params))
     want = [o.token_ids for o in jeng.generate(
         prompts, JSampling(max_tokens=n_tokens, temperature=0.0,
@@ -95,7 +97,7 @@ def test_stop_and_stats_match_jax_engine(np_params):
     """Stop tokens and the /metrics counters follow the JAX engine."""
     prompt = [[10, 20, 30, 40, 50, 60]]
     jeng = JEngine(JConfig(**BASE, attention_impl="xla",
-                           ragged_dispatch=False, prefill_pipeline=False),
+                           prefill_pipeline=False),
                    params=jax.tree_util.tree_map(jnp.asarray, np_params))
     [free] = jeng.generate(prompt, JSampling(max_tokens=6, temperature=0.0,
                                              ignore_eos=True))
@@ -124,7 +126,8 @@ def test_seeded_sampling_is_reproducible(np_params):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("ragged_dispatch", True), ("num_scheduler_steps", 4),
+    ("precompile_serving", True), ("long_prefill_threshold", 1024),
+    ("ragged_kernel", False),  # the composed-kernel ragged round
     ("prefill_pipeline", True), ("async_decode", True),
     ("enable_lora", True), ("tensor_parallel_size", 2),
     ("pipeline_parallel_size", 2), ("multihost", True),
@@ -132,8 +135,12 @@ def test_seeded_sampling_is_reproducible(np_params):
     ("remote_cache_url", "127.0.0.1:1"), ("model", "pst-tiny-moe-debug"),
 ])
 def test_unported_flags_refuse_to_start(field, value):
-    with pytest.raises(NotImplementedError):
-        EngineConfig(**{**BASE, field: value}, device="cpu")
+    """On the default (unified ragged round) configuration."""
+    with pytest.raises(NotImplementedError,
+                       match="--no-ragged-dispatch" if field == "ragged_kernel"
+                       else field):
+        EngineConfig(**{**BASE, "ragged_dispatch": True, field: value},
+                     device="cpu")
 
 
 def test_unported_request_fields_refuse(np_params):

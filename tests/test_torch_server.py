@@ -152,7 +152,9 @@ def test_kernel_launch_report_reads_and_resets(port):
     the forward dispatches are, and DELETE zeroes both."""
     st, _, body = call(port, "/debug/kernel_launches", method="DELETE")
     zero = {"launches": {"decode": 0, "prefill": 0, "ragged": 0},
-            "dispatches": {"prefill": 0, "prefill_batch": 0, "decode": 0}}
+            "dispatches": {"prefill": 0, "prefill_batch": 0, "decode": 0,
+                           "decode_multi": 0, "ragged": 0,
+                           "decode_iterations": 0}}
     assert st == 200 and json.loads(body) == zero
     call(port, "/v1/completions", {"prompt": "count me", "max_tokens": 3,
                                    "temperature": 0, "ignore_eos": True})
@@ -176,3 +178,19 @@ def test_refusals(port, path, body, status):
     st, _, text = call(port, path, body)
     assert st == status
     assert "error" in json.loads(text)
+
+
+def test_metrics_tpu_counters(port):
+    """The JAX engine's decode and ragged-round families, under its own
+    names: counters with their _total samples, the decode_k histogram."""
+    st, _, text = call(port, "/metrics")
+    samples = {ln.split("{")[0]: float(ln.rsplit(" ", 1)[1])
+               for ln in text.splitlines() if ln and not ln.startswith("#")}
+    for family in ("tpu:decode_rounds", "tpu:ragged_rounds",
+                   "tpu:ragged_split_rounds", "tpu:decode_early_exit_rounds",
+                   "tpu:decode_overshoot_tokens"):
+        assert f"# TYPE {family} counter" in text
+        assert samples[f"{family}_total"] >= 0
+    assert "# TYPE tpu:decode_k histogram" in text
+    assert samples["tpu:decode_k_count"] == samples["tpu:decode_rounds_total"]
+    assert 'tpu:decode_k_bucket{model_name="pst-tiny-debug",le="+Inf"}' in text
