@@ -35,15 +35,19 @@ Phases, each fatal on failure:
 4. serve: the port's CLI (python -m production_stack_tpu_torch.engine)
    starts its OpenAI server on loopback with llama-3.2-3b (all 28
    layers, random bf16 weights, byte tokenizer) on its default config
-   (unified ragged rounds) in a child process: /health, /v1/models, a
-   greedy completion, a streamed completion, a chat request, 4
-   concurrent multi-chunk completions (packed prefill or mixed rounds,
-   on the ragged kernel), then a ~1500-token prompt (three 512-token
-   chunks) sent while four greedy requests decode, so its chunks ride
-   mixed rounds (tpu:ragged_rounds > 0 on /metrics); checks token
-   counts, finish reasons and usage, and that the ragged kernel
-   launched 28 times a forward and the prefill kernel 28 times a
-   single-sequence prefill;
+   (unified ragged rounds, prefill pipeline, decode prefetch) in a child
+   process: /health, /v1/models, a greedy completion, a streamed
+   completion, a chat request, 4 concurrent multi-chunk completions
+   (packed prefill or mixed rounds, on the ragged kernel), then a
+   ~1500-token prompt (three 512-token chunks) sent while four greedy
+   requests decode, so its chunks ride mixed rounds (tpu:ragged_rounds
+   > 0 on /metrics), then one prompt sent twice; checks token counts,
+   finish reasons and usage, that /metrics (parsed with the standard
+   library) has the four families the router parses with a prefix-cache
+   hit rate above 0 and one scheduling delay per finished request, and
+   that the ragged kernel launched 28 times a forward and the prefill
+   kernel 28 times a single-sequence prefill; prints the staged prefill
+   hits, misses and chained chunks;
 5. decode kernel: one ModelRunner.decode step of the 28-layer model over
    the same cache state on the ragged kernel and on
    paged_decode_attention, logits held to a stated tolerance, which the
@@ -55,20 +59,35 @@ Phases, each fatal on failure:
    ragged engine's top-2 logprob gap at the first differing step is
    below the largest logit difference the direct step measured (the
    first divergence is printed);
-6. mixed rounds: an in-process 28-layer bf16 engine with
+6. pipeline: an in-process 28-layer bf16 engine on the default config
+   takes a cold ~1500-token prompt alone and must chain its three
+   512-token chunks in one engine step with one fetch; the buffers of
+   stage_prefill, stage_prefill_batch, stage_decode_multi and
+   stage_ragged, read back after their copy events, must equal byte for
+   byte what the unstaged dispatch builds from the same arguments, and a
+   packed prefill on a staged buffer must give the unstaged one's tokens
+   and logits; prints the prefill phase seconds (prep, h2d, dispatch,
+   fetch) of the same prompts on this engine and on one with
+   --no-prefill-pipeline --no-prefetch-decode;
+7. mixed rounds: in-process 28-layer bf16 engines with
    num_scheduler_steps=8 (unified ragged rounds, device stops, adaptive
-   K) serves four greedy requests and a ~1500-token prompt arriving
-   while they decode; its greedy streams are held to a split K=1
-   engine's under the decode phase's near-tie rule, and both engines'
-   launches to 28 a forward. Then wall ms per generated token at batch
-   8 for K=1 and K=8 decode, the wall time of each mixed round, and a
-   torch.profiler breakdown of one mixed round's device time (host
-   clock; reported beside the card's name and power limit, not claims).
+   K), one on the default config and one without the prefill pipeline
+   and the decode prefetch, and a split K=1 engine, serve four greedy
+   requests and a ~1500-token prompt arriving while they decode; the
+   default engine must consume staged decode and ragged rounds, and its
+   greedy streams are held to both other engines' under the decode
+   phase's near-tie rule, every engine's launches to 28 a forward. Then
+   wall ms per generated token at batch 8 on each engine, the wall time
+   of each mixed round, and a torch.profiler breakdown of one mixed
+   round's device time (host clock; reported beside the card's name and
+   power limit and the reads taken before staging existed, not
+   claims).
 
 Launch counts are reset just before the serve phase's requests (through
 the server's /debug/kernel_launches), before the decode phase's
---no-ragged-kernel engine and before each mixed-round engine, and read
-just after; a kernel launched 0 times on those paths fails the run. The
+--no-ragged-kernel engine, before each pipeline-phase engine and before
+each mixed-round engine, and read just after; a kernel launched 0 times
+on those paths fails the run. The
 server's log goes to build/chip_smoke_serve.log. The last lines are the kernels JSON, the
 card's name and power limit (nvidia-smi), and {"ok": true, "device":
 {...}}.
@@ -653,10 +672,43 @@ def log_tail(log_path: Path, n: int = 40) -> str:
 
 def metric(port: int, name: str) -> float:
     """One sample of the server's /metrics text (the first with `name`)."""
-    for ln in http(port, "/metrics")[1].splitlines():
-        if ln.split("{")[0] == name:
-            return float(ln.rsplit(" ", 1)[1])
-    fail(f"/metrics has no {name}")
+    samples, _ = parse_metrics(http(port, "/metrics")[1])
+    if name not in samples:
+        fail(f"/metrics has no {name}")
+    return samples[name][0][1]
+
+
+def parse_metrics(text: str) -> tuple[dict, dict]:
+    """Prometheus text exposition -> ({sample name: [(labels, value)]},
+    {family: type}), with the standard library only (the card's machine
+    has no prometheus_client)."""
+    samples: dict[str, list] = {}
+    types: dict[str, str] = {}
+    for ln in text.splitlines():
+        if ln.startswith("# TYPE "):
+            _, _, fam, kind = ln.split(" ", 3)
+            types[fam] = kind
+            continue
+        if not ln or ln.startswith("#"):
+            continue
+        head, value = ln.rsplit(" ", 1)
+        name, _, rest = head.partition("{")
+        labels = {}
+        for part in rest.rstrip("}").split(","):
+            if "=" in part:
+                k, v = part.split("=", 1)
+                labels[k] = v.strip('"')
+        samples.setdefault(name, []).append((labels, float(value)))
+    return samples, types
+
+
+# the families the router parses (router/stats/engine_stats.py)
+ROUTER_FAMILIES = {
+    "vllm:gpu_prefix_cache_hit_rate": "gauge",
+    "vllm:gpu_prefix_cache_hits_total": "gauge",
+    "vllm:gpu_prefix_cache_queries_total": "gauge",
+    "tpu:scheduling_delay_seconds": "histogram",
+}
 
 
 def check_launches(what: str, launches: dict, dispatches: dict) -> None:
@@ -702,7 +754,10 @@ def serve_phase() -> dict:
         assert card["id"] == "llama-3.2-3b" and card["max_model_len"], card
         assert "kv_role" not in card or card["kv_role"] is None, card
 
+        sent = [0]
+
         def completion(prompt, n, **extra):
+            sent[0] += 1
             st, body = http(port, "/v1/completions", {
                 "prompt": prompt, "max_tokens": n, "temperature": 0,
                 "ignore_eos": True, **extra})
@@ -727,6 +782,7 @@ def serve_phase() -> dict:
         print(f"serve: greedy completion (32 tokens) in "
               f"{time.perf_counter() - t1:.2f}s", flush=True)
 
+        sent[0] += 2  # the streamed completion and the chat request
         st, body = http(port, "/v1/completions", {
             "prompt": "Stream me some tokens", "max_tokens": 16,
             "temperature": 0.8, "top_p": 0.9, "ignore_eos": True,
@@ -801,6 +857,38 @@ def serve_phase() -> dict:
                       "tpu:decode_k_count"):
             if gauge not in metrics:
                 fail(f"serve: /metrics lacks {gauge}")
+        # one multi-chunk prompt sent twice: the second finds its blocks
+        # in the prefix cache; then the router's families are read back
+        repeat = "repeat " + "the same words again " * 40
+        for _ in range(2):
+            completion(repeat, 8)
+        samples, types = parse_metrics(http(port, "/metrics")[1])
+        for fam, kind in ROUTER_FAMILIES.items():
+            if types.get(fam) != kind:
+                fail(f"serve: /metrics has {fam} as {types.get(fam)}, not "
+                     f"{kind}")
+
+        def one(name):
+            return samples[name][0][1]
+
+        finished = sum(v for _, v in samples["vllm:request_success_total"])
+        delay_n = one("tpu:scheduling_delay_seconds_count")
+        rate = one("vllm:gpu_prefix_cache_hit_rate")
+        print(f"serve: router families: prefix-cache hit rate {rate:.4f} "
+              f"({one('vllm:gpu_prefix_cache_hits_total'):.0f} / "
+              f"{one('vllm:gpu_prefix_cache_queries_total'):.0f} tokens), "
+              f"scheduling delay count {delay_n:.0f} sum "
+              f"{one('tpu:scheduling_delay_seconds_sum'):.4f} s over "
+              f"{finished:.0f} finished requests ({sent[0]} sent); staged "
+              f"prefill hits {one('tpu:prefill_staged_hits_total'):.0f}, "
+              f"misses {one('tpu:prefill_staged_misses_total'):.0f}, "
+              f"chained chunks "
+              f"{one('tpu:prefill_chained_chunks_total'):.0f}", flush=True)
+        if not rate > 0:
+            fail("serve: prefix-cache hit rate 0 after a repeated prompt")
+        if not delay_n == finished == sent[0]:
+            fail(f"serve: scheduling delay count {delay_n}, finished "
+                 f"{finished}, sent {sent[0]} differ")
         report = json.loads(http(port, "/debug/kernel_launches")[1])
         print(f"serve: since the reset: dispatches {report['dispatches']}, "
               f"launches {report['launches']}", flush=True)
@@ -933,6 +1021,166 @@ def decode_phase(torch, pa) -> tuple[dict, float]:
     return counts, gap_tol
 
 
+# -- pipeline phase ------------------------------------------------------------
+def stage_readback_check(torch, runner) -> None:
+    """Each stage_* buffer, read back once its copy event has fired,
+    equals byte for byte what the unstaged dispatch builds from the same
+    arguments; and a packed prefill dispatch consuming a staged buffer
+    gives the unstaged dispatch's tokens and logits."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    bs = runner.block_size
+    blocks = iter(range(400, 1 << 20))
+
+    def table(n_tok):
+        return [next(blocks) for _ in range(-(-n_tok // bs))]
+
+    b = runner.config.max_num_seqs
+    temps = np.zeros(b, np.float32)
+    top_ps, top_ks = np.ones(b, np.float32), np.full(b, -1, np.int32)
+    keys = np.stack([np.arange(b), np.full(b, 7)], 1).astype(np.uint32)
+    # the prefill tables first: the packed prefill below writes through
+    # them, so they stay inside the cache; the decode lanes' are only
+    # read back
+    chunks = [rng.integers(1, 250, size=n).tolist() for n in (512, 300, 77)]
+    starts = [0, 64, 0]
+    pf_tabs = [table(s + len(c)) for s, c in zip(starts, chunks)]
+    assert max(max(t) for t in pf_tabs) < runner.num_blocks
+    totals = [s + len(c) for s, c in zip(starts, chunks)]
+    ctx = [int(c) for c in rng.integers(20, 900, size=b)]
+    dec_tabs = [table(c + 16) for c in ctx]
+    pos = [c - 1 for c in ctx]
+    stop = (np.full(b, 2, np.int32), np.zeros(b, np.int32),
+            np.full(b, 20, np.int32), None)
+    # (temps, top_ps, top_ks, min_ps, keys)
+    sampling = (np.zeros(3, np.float32), np.ones(3, np.float32),
+                np.full(3, -1, np.int32), np.zeros(3, np.float32),
+                np.zeros((3, 2), np.uint32))
+    c_pad = runner._ctx_bucket(max(ctx) + 7)
+    cases = {
+        "stage_prefill": (
+            runner.stage_prefill(chunks[0], 0, pf_tabs[0], totals[0]),
+            runner._fill_prefill_pack(chunks[0], 0, pf_tabs[0],
+                                      totals[0])[-1]),
+        "stage_prefill_batch": (
+            runner.stage_prefill_batch(chunks, starts, pf_tabs, totals,
+                                       sampling=sampling),
+            runner._fill_rows_prefill_pack(chunks, starts, pf_tabs, totals,
+                                           sampling=sampling)[-1]),
+        "stage_decode_multi": (
+            runner.stage_decode_multi(pos, dec_tabs, ctx, 8, temps, top_ps,
+                                      top_ks, keys, stop=stop),
+            runner._fill_decode_pack(c_pad, 8, None, pos, dec_tabs, ctx,
+                                     temps, top_ps, top_ks, keys, stop=stop,
+                                     chained=True)),
+        "stage_ragged": (
+            runner.stage_ragged(chunks[1:], starts[1:], pf_tabs[1:],
+                                totals[1:], None, pos, dec_tabs, ctx, 8,
+                                temps, top_ps, top_ks, keys, stop=stop),
+            runner._fill_ragged_rows_pack(
+                chunks[1:], starts[1:], pf_tabs[1:], totals[1:], None,
+                c_pad, None, pos, dec_tabs, ctx, 8, temps, top_ps, top_ks,
+                keys, stop=stop, chained=True)[-1]),
+    }
+    for name, (h, want) in cases.items():
+        h.event.synchronize()
+        got = h.dev.cpu().numpy()
+        same = got.dtype == want.dtype and got.shape == want.shape and (
+            got.tobytes() == want.tobytes())
+        print(f"pipeline phase: {name}: {got.size * 4} bytes read back after "
+              f"the copy event, {'equal' if same else 'DIFFERENT'} to the "
+              f"unstaged build", flush=True)
+        if not same:
+            fail(f"pipeline phase: the {name} buffer differs from the "
+                 "unstaged dispatch's")
+    h = runner.stage_prefill_batch(chunks, starts, pf_tabs, totals,
+                                   sampling=sampling)
+    tok_s, lg_s = runner.prefill_batch(chunks, starts, pf_tabs, totals,
+                                       sampling=sampling, staged=h)
+    tok_u, lg_u = runner.prefill_batch(chunks, starts, pf_tabs, totals,
+                                       sampling=sampling)
+    torch.cuda.synchronize()
+    if not (torch.equal(tok_s[:3], tok_u[:3])
+            and torch.equal(lg_s[:3], lg_u[:3])):
+        fail("pipeline phase: a staged packed prefill differs from the "
+             "unstaged one")
+    print("pipeline phase: packed prefill on a staged buffer: tokens and "
+          "logits equal to the unstaged dispatch's", flush=True)
+
+
+def pipeline_phase(torch, pa, smi: str) -> None:
+    """In process, 28 layers, bf16: a cold ~1500-token prompt alone chains
+    its three 512-token chunks in one engine step with one fetch; the
+    staged buffers read back equal the unstaged builds; and the prefill
+    phase seconds of the same work on the default (staged) engine and on
+    one with --no-prefill-pipeline --no-prefetch-decode."""
+    from production_stack_tpu_torch.engine import llm_engine
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+
+    cold = [(5 * j) % 250 + 1 for j in range(LONG_PROMPT_TOKENS)]
+    group = [[(13 * i + 3 * j) % 250 + 1 for j in range(700)]
+             for i in range(4)]
+    sp = SamplingParams(max_tokens=4, temperature=0, ignore_eos=True)
+    for staged in (True, False):
+        name = "staged" if staged else "unstaged"
+        eng = llm_engine.LLMEngine(EngineConfig(
+            model="llama-3.2-3b", tokenizer="byte", device="cuda",
+            block_size=32, num_kv_blocks=512, max_num_seqs=8, seed=SEED,
+            prefill_pipeline=staged, prefetch_decode=staged,
+        ))
+        phase0 = dict(eng.runner.prefill_phase_s)
+        pa.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.add_request("cold", prompt_token_ids=cold, sampling_params=sp)
+        fetches = []
+        to_numpy = llm_engine._to_numpy
+        llm_engine._to_numpy = lambda t: (fetches.append(1), to_numpy(t))[1]
+        try:
+            eng.step()
+        finally:
+            llm_engine._to_numpy = to_numpy
+        d = eng.runner.dispatch_counts
+        print(f"pipeline phase: {name} engine, first step on the cold "
+              f"{LONG_PROMPT_TOKENS}-token prompt: {eng.last_step_kind}, "
+              f"{d['prefill']} prefill forwards, chained chunks "
+              f"{eng._pf_chained_chunks_total}, {len(fetches)} fetch(es)",
+              flush=True)
+        if staged and not (eng.last_step_kind == "prefill"
+                           and d["prefill"] == 3
+                           and eng._pf_chained_chunks_total == 2
+                           and len(fetches) == 1):
+            fail("pipeline phase: the cold prompt's three chunks did not "
+                 "chain in one step with one fetch")
+        while eng.has_unfinished():
+            eng.step()
+        for i, p in enumerate(group):
+            eng.add_request(f"g{i}", prompt_token_ids=p, sampling_params=sp)
+        while eng.has_unfinished():
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        phases = {k: round(v - phase0[k], 4)
+                  for k, v in eng.runner.prefill_phase_s.items()}
+        print(f"pipeline phase: {name} engine, the cold prompt then 4 "
+              f"x 700-token prompts: {wall:.3f} s wall, prefill phase "
+              f"seconds {phases}, staged prefill hits "
+              f"{eng._pf_staged_hits_total} misses "
+              f"{eng._pf_staged_misses_total}, chained chunks "
+              f"{eng._pf_chained_chunks_total} (host clock) on {smi}",
+              flush=True)
+        check_launches(f"pipeline phase, {name} engine", pa.launch_counts(),
+                       eng.runner.dispatch_counts)
+        if staged:
+            stage_readback_check(torch, eng.runner)
+        del eng
+        torch.cuda.empty_cache()
+
+
 # -- mixed-round phase ---------------------------------------------------------
 def profile_step(torch, step) -> str:
     """One engine step under torch.profiler: its wall time, the device
@@ -966,45 +1214,74 @@ def profile_step(torch, step) -> str:
             f"of the wall); top: {top}")
 
 
+# this phase's reads before the prefill pipeline and the decode prefetch
+# existed, printed beside this run's: wall ms per generated token at
+# batch 8 by K, and a mixed round's wall ms at K=8 (NVIDIA H100 80GB
+# HBM3, 700 W; another machine, so they set a scale, not a baseline)
+UNSTAGED_MS_PER_TOKEN = {1: 6.501, 8: 5.478}
+UNSTAGED_MIXED_ROUND_MS = 414.83
+
+
 def mixed_phase(torch, pa, gap_tol: float, smi: str) -> dict:
-    """An in-process 28-layer engine at K=8 with unified ragged rounds and
-    a split K=1 engine serve the same staggered mix (four greedy requests,
-    then a ~1500-token prompt while they decode); then decode at batch 8
-    on each. Returns the K=8 engine's launch counts."""
+    """In-process 28-layer engines serve the same staggered mix (four
+    greedy requests, then a ~1500-token prompt while they decode): K=8
+    with unified ragged rounds on the default config (prefill pipeline
+    and decode prefetch on), the same without them, and a split K=1
+    engine; then decode at batch 8. The two K=8 engines take their turns
+    twice, in the order default, unstaged, unstaged, default, each turn
+    on prompts of its own (the prefix cache would serve a repeat).
+    Returns the default K=8 engine's launch counts over its turns."""
     from production_stack_tpu_torch.engine.config import EngineConfig
     from production_stack_tpu_torch.engine.llm_engine import LLMEngine
     from production_stack_tpu_torch.engine.sampling_params import (
         SamplingParams,
     )
 
-    prompts = [[(11 * i + 5 * j) % 250 + 1 for j in range(n)]
-               for i, n in enumerate((17, 40, 64, 90))]
-    long_prompt = [(3 * j) % 250 + 1 for j in range(LONG_PROMPT_TOKENS)]
     # 32 tokens: at K=8 the decode lanes take 1 + 8 (step 1) and then
     # ride all three of the long prompt's chunks (steps 2-4, the last
     # round exiting after 7 iterations)
     sp = SamplingParams(max_tokens=32, temperature=0, ignore_eos=True,
                         logprobs=2)
-    outs, counts = {}, {}
-    for k in (8, 1):
-        eng = LLMEngine(EngineConfig(
+    bsp = SamplingParams(max_tokens=33, temperature=0, ignore_eos=True)
+    default, unstaged, split = ("K=8 ragged default", "K=8 ragged unstaged",
+                                "K=1 split")
+    specs = {default: (8, True), unstaged: (8, False), split: (1, True)}
+    engines = {
+        name: LLMEngine(EngineConfig(
             model="llama-3.2-3b", tokenizer="byte", device="cuda",
             block_size=32, num_kv_blocks=512, max_num_seqs=8, seed=SEED,
             num_scheduler_steps=k, ragged_dispatch=k > 1,
-        ))
-        name = f"mixed phase K={k} {'ragged' if k > 1 else 'split'}"
+            prefill_pipeline=staged, prefetch_decode=staged,
+        )) for name, (k, staged) in specs.items()
+    }
+    launches = {name: dict.fromkeys(("decode", "prefill", "ragged"), 0)
+                for name in specs}
+    outs: dict = {}
+
+    def mix(name: str, turn: int, profile: bool) -> None:
+        """The staggered mix on prompts of this turn; its streams, the
+        wall of each mixed round, launches held to 28 a forward."""
+        eng = engines[name]
+        k = specs[name][0]
+        prompts = [[(11 * i + 5 * j + 17 * turn) % 250 + 1 for j in range(n)]
+                   for i, n in enumerate((17, 40, 64, 90))]
+        long_prompt = [(3 * j + 7 * turn) % 250 + 1
+                       for j in range(LONG_PROMPT_TOKENS)]
         pa.reset_launch_counts()
+        runs0 = dict(eng.runner.dispatch_counts)
+        st0 = eng.stats()
         for i, p in enumerate(prompts):
-            eng.add_request(f"d{i}", prompt_token_ids=p, sampling_params=sp)
+            eng.add_request(f"t{turn}d{i}", prompt_token_ids=p,
+                            sampling_params=sp)
         finals, mixed_ms, step, prof = {}, [], 0, None
         t0 = time.perf_counter()
         while eng.has_unfinished():
             if step == 2:
-                eng.add_request("long", prompt_token_ids=long_prompt,
+                eng.add_request(f"t{turn}long", prompt_token_ids=long_prompt,
                                 sampling_params=sp)
             before = eng.stats().ragged_rounds_total
             ts = time.perf_counter()
-            if k > 1 and step == 4:
+            if profile and step == 4:
                 # the third mixed round, under the profiler (the first
                 # two are timed without it)
                 prof = profile_step(torch, lambda: finals.update(
@@ -1017,49 +1294,83 @@ def mixed_phase(torch, pa, gap_tol: float, smi: str) -> dict:
                     mixed_ms.append((time.perf_counter() - ts) * 1e3)
             step += 1
         st = eng.stats()
-        counts[k] = pa.launch_counts()
-        print(f"{name}: {step} steps in {time.perf_counter() - t0:.3f}s "
-              f"(host clock, first use of each shape included), "
-              f"{st.ragged_rounds_total} mixed rounds, decode K histogram "
-              f"{dict(sorted(st.decode_k_hist.items()))}, early exits "
-              f"{st.decode_early_exit_rounds_total}; dispatches "
-              f"{eng.runner.dispatch_counts}", flush=True)
-        check_launches(name, counts[k], eng.runner.dispatch_counts)
+        runs = {key: v - runs0[key]
+                for key, v in eng.runner.dispatch_counts.items()}
+        got = pa.launch_counts()
+        for key in launches[name]:
+            launches[name][key] += got[key]
+        hist = {kk: n - st0.decode_k_hist.get(kk, 0)
+                for kk, n in sorted(st.decode_k_hist.items())}
+        n_mixed = st.ragged_rounds_total - st0.ragged_rounds_total
+        what = f"mixed phase {name}, turn {turn}"
+        print(f"{what}: {step} steps in {time.perf_counter() - t0:.3f}s "
+              f"(host clock), {n_mixed} mixed rounds, decode K histogram "
+              f"{hist}; dispatches {runs}", flush=True)
+        check_launches(what, got, runs)
         if k > 1:
-            if not (st.ragged_rounds_total > 0 and 8 in st.decode_k_hist):
-                fail(f"{name}: no mixed round or no K=8 round ran")
-            walls = [round(x, 2) for x in mixed_ms]
-            print(f"{name}: mixed-round wall ms {walls} (host clock, step() "
-                  f"to synchronize; the first includes first-use costs) on "
-                  f"{smi}", flush=True)
-            print(f"{name}: one mixed round under torch.profiler: "
-                  f"{prof or 'step 4 did not run'}", flush=True)
-        outs[k] = [finals[r] for r in ("d0", "d1", "d2", "d3", "long")]
+            if not (n_mixed > 0 and hist.get(8)):
+                fail(f"{what}: no mixed round or no K=8 round ran")
+            print(f"{what}: mixed-round wall ms "
+                  f"{[round(x, 2) for x in mixed_ms]} (host clock, step() "
+                  f"to synchronize; before staging: "
+                  f"{UNSTAGED_MIXED_ROUND_MS} ms) on {smi}",
+                  flush=True)
+            if profile:
+                print(f"{what}: one mixed round under torch.profiler: "
+                      f"{prof or 'step 4 did not run'}", flush=True)
+        outs[name, turn] = [finals[f"t{turn}{r}"]
+                            for r in ("d0", "d1", "d2", "d3", "long")]
 
-        # decode at batch 8: wall ms per generated token
-        bsp = SamplingParams(max_tokens=33, temperature=0, ignore_eos=True)
+    def decode8(name: str, turn: int) -> None:
+        """Decode at batch 8: wall ms per generated token."""
+        eng = engines[name]
+        k = specs[name][0]
         for i in range(8):
-            eng.add_request(f"b{i}", prompt_token_ids=[(7 * i + j) % 250 + 1
-                                                       for j in range(32)],
-                            sampling_params=bsp)
+            eng.add_request(
+                f"t{turn}b{i}", prompt_token_ids=[
+                    (7 * i + j + 13 * turn) % 250 + 1 for j in range(32)],
+                sampling_params=bsp)
         eng.step()  # the packed prefill: one token each
         torch.cuda.synchronize()
-        gen0, t0 = st.generation_tokens_total + 8, time.perf_counter()
+        gen0, t0 = eng.stats().generation_tokens_total, time.perf_counter()
         while eng.has_unfinished():
             eng.step()
         torch.cuda.synchronize()
         n_tok = eng.stats().generation_tokens_total - gen0
         ms = (time.perf_counter() - t0) * 1e3
-        print(f"{name}: decode at batch 8: {n_tok} tokens in {ms:.1f} ms = "
-              f"{ms / n_tok:.3f} wall ms per generated token (host clock) "
-              f"on {smi}", flush=True)
-        del eng
-        torch.cuda.empty_cache()
-    n_same = near_tie_check("mixed phase", outs[8], outs[1], gap_tol)
-    print(f"mixed phase: {n_same}/{len(outs[8])} greedy token sequences of "
-          "the K=8 ragged-round engine equal to the split K=1 engine's",
-          flush=True)
-    return counts[8]
+        print(f"mixed phase {name}, turn {turn}: decode at batch 8: {n_tok} "
+              f"tokens in {ms:.1f} ms = {ms / n_tok:.3f} wall ms per "
+              f"generated token (host clock; before staging at K={k}: "
+              f"{UNSTAGED_MS_PER_TOKEN[k]}) on {smi}", flush=True)
+
+    turns = [(default, 0), (unstaged, 0), (unstaged, 1), (default, 1)]
+    for name, turn in turns:
+        mix(name, turn, profile=(name, turn) == (default, 0))
+    mix(split, 0, profile=False)
+    for name, turn in turns + [(split, 0)]:
+        decode8(name, turn)
+    for name, eng in engines.items():
+        hits = {"decode": (eng._staged_hits_total, eng._staged_misses_total),
+                "ragged": (eng._ragged_staged_hits_total,
+                           eng._ragged_staged_misses_total),
+                "prefill": (eng._pf_staged_hits_total,
+                            eng._pf_staged_misses_total)}
+        print(f"mixed phase {name}: staged (hits, misses) {hits}",
+              flush=True)
+        if name == default and not (hits["decode"][0] > 0
+                                    and hits["ragged"][0] > 0):
+            fail(f"mixed phase {name}: no staged decode or ragged round "
+                 "was consumed")
+    for other, turn in ((unstaged, 0), (unstaged, 1), (split, 0)):
+        ref = outs[default, turn]
+        n_same = near_tie_check(f"mixed phase (vs {other}, turn {turn})",
+                                ref, outs[other, turn], gap_tol)
+        print(f"mixed phase: {n_same}/{len(ref)} greedy token sequences of "
+              f"the default K=8 engine equal to the {other} engine's "
+              f"(turn {turn})", flush=True)
+    del engines
+    torch.cuda.empty_cache()
+    return launches[default]
 
 
 def main() -> int:
@@ -1095,6 +1406,7 @@ def main() -> int:
     forward_phase(torch)
     serve_counts = serve_phase()
     decode_counts, gap_tol = decode_phase(torch, pa)
+    pipeline_phase(torch, pa, smi)
     mixed_counts = mixed_phase(torch, pa, gap_tol, smi)
     launches = {
         "ragged": serve_counts["ragged"],

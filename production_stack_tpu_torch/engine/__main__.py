@@ -2,10 +2,12 @@
 
 Flag names and defaults follow ``python -m production_stack_tpu.engine``
 (and ``vllm serve``): unified ragged rounds, device stops and adaptive K
-are on; ``--no-ragged-dispatch`` selects split prefill/decode rounds,
-``--num-scheduler-steps K`` fused K-step decode. ``--prefill-pipeline``
-defaults off, and every flag whose feature is not ported yet makes the
-engine refuse to start (NotImplementedError from EngineConfig).
+are on, and so are the prefill pipeline and the decode prefetch
+(``--no-prefill-pipeline``, ``--no-prefetch-decode``);
+``--no-ragged-dispatch`` selects split prefill/decode rounds,
+``--num-scheduler-steps K`` fused K-step decode. Every flag whose
+feature is not ported yet makes the engine refuse to start
+(NotImplementedError from EngineConfig).
 """
 
 from __future__ import annotations
@@ -93,13 +95,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-ragged-dispatch", dest="ragged_dispatch",
                    action="store_false",
                    help="split alternating prefill/decode rounds")
+    p.add_argument("--prefetch-decode", action="store_true", default=True,
+                   help="speculative h2d prefetch: upload the next fused "
+                        "round's inputs while the current one executes")
+    p.add_argument("--no-prefetch-decode", dest="prefetch_decode",
+                   action="store_false")
+    p.add_argument("--prefill-pipeline", action="store_true",
+                   default=True,
+                   help="pipelined prefill: one packed h2d buffer per "
+                        "prefill dispatch, chunk N+1 staged while chunk "
+                        "N computes, cold multi-chunk prompts chained "
+                        "without host round-trips")
+    p.add_argument("--no-prefill-pipeline", dest="prefill_pipeline",
+                   action="store_false",
+                   help="serial per-array prefill uploads")
     p.add_argument("--chat-template", default=None)
     p.add_argument("--api-key", default=os.environ.get("PST_API_KEY"),
                    help="require `Authorization: Bearer <key>` on /v1/*")
     # not ported yet: accepted so existing deployments parse, refused by
     # EngineConfig when switched on
-    p.add_argument("--prefill-pipeline", action="store_true",
-                   default=False)
     p.add_argument("--async-decode", action="store_true", default=False)
     p.add_argument("--enable-lora", action="store_true")
     p.add_argument("--tensor-parallel-size", type=int, default=1)
@@ -142,6 +156,7 @@ def config_from_args(args: argparse.Namespace) -> EngineConfig:
         adaptive_decode_k=args.adaptive_decode_k,
         ragged_dispatch=args.ragged_dispatch,
         prefill_pipeline=args.prefill_pipeline,
+        prefetch_decode=args.prefetch_decode,
         async_decode=args.async_decode,
         enable_lora=args.enable_lora,
         tensor_parallel_size=args.tensor_parallel_size,

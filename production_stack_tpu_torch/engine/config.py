@@ -4,8 +4,9 @@ The fields of ``production_stack_tpu/engine/config.py`` that the port
 serves, plus ``device``, with the JAX package's defaults: unified ragged
 rounds (a round holding prefill chunks and decode lanes runs as one
 lane-typed forward on the ragged kernel), fused K-step decode up to
-``num_scheduler_steps`` with device-side stop masks and adaptive K, and
-no prefill pipeline. The fields of features not ported yet stay so that
+``num_scheduler_steps`` with device-side stop masks and adaptive K, the
+prefill pipeline and the decode prefetch. The fields of features not
+ported yet stay so that
 asking for one fails loudly: ``__post_init__`` raises
 NotImplementedError for each (see ``unported``), so no request ever
 reaches a missing path.
@@ -82,6 +83,21 @@ class EngineConfig:
     # the decode loop. False (--no-ragged-dispatch) alternates split
     # prefill and decode rounds.
     ragged_dispatch: bool = True
+    # speculative h2d prefetch: while a fused decode (or ragged) round
+    # runs, the NEXT round's packed buffer for the same lanes (positions,
+    # contexts, keys advanced by K) is built and its copy started on a
+    # side stream; the next round runs chained on the device tokens when
+    # the prediction holds, else the stage is a counted miss. Acts only
+    # when num_scheduler_steps > 1. False: --no-prefetch-decode.
+    prefetch_decode: bool = True
+    # pipelined prefill: every prefill dispatch ships ONE packed buffer
+    # (packed groups on the ragged-rows layout under the ragged kernel),
+    # the next chunk's buffer is staged while a chunk computes, a cold
+    # multi-chunk prompt chains its chunks in one engine step with one
+    # fetch, and a staged chunk is a zero-cost admission for the
+    # scheduler's interleave. False: --no-prefill-pipeline, the
+    # per-array upload path.
+    prefill_pipeline: bool = True
 
     # serving
     served_model_name: str | None = None
@@ -89,7 +105,6 @@ class EngineConfig:
     api_key: str | None = None
 
     # -- not ported yet: any non-default value refuses at construction --
-    prefill_pipeline: bool = False    # fused h2d buffer + staged chunks
     async_decode: bool = False        # double-buffered decode
     precompile_serving: bool = False  # startup shape warmup
     num_speculative_tokens: int = 0   # ngram spec decode
@@ -116,7 +131,6 @@ class EngineConfig:
             "--no-ragged-dispatch)": (
                 self.ragged_dispatch and not self.ragged_kernel
             ),
-            "prefill_pipeline": self.prefill_pipeline,
             "async_decode": self.async_decode,
             "precompile_serving": self.precompile_serving,
             "num_speculative_tokens": self.num_speculative_tokens > 0,

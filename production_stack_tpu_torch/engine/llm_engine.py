@@ -6,11 +6,15 @@ Counterpart of ``production_stack_tpu/engine/llm_engine.py`` on one
 device: ``step`` -> ``_step_scheduled`` -> ``_step_ragged`` (a planned
 mixed round: ONE ``ModelRunner.ragged_dispatch``, or split execution of
 the same plan for lanes the fused round cannot take),
-``_run_prefill_works`` (standard works, packed when several) or
-``_run_decode_round`` (the fused K-step ``decode_multi`` with device
-stops when the round's K > 1, else single-step decode with host-side
-sampling). The scheduler, block manager and sequences are the JAX
-package's, copied. Staging, async decode, the composed-kernel ragged
+``_run_prefill_works`` (standard works, packed when several; under the
+prefill pipeline a cold prompt's chunks chain in one step and the next
+chunk is staged) or ``_run_decode_round`` (the fused K-step
+``decode_multi`` with device stops when the round's K > 1, else
+single-step decode with host-side sampling). With K > 1 the decode
+prefetch stages the next fused or ragged round while the current one
+runs; every stage is validated by fingerprint at its dispatch, and a
+stale one is a counted miss. The scheduler, block manager and sequences
+are the JAX package's, copied. Async decode, the composed-kernel ragged
 round, long prefill, KV export, speculative and guided decoding, LoRA
 and prompt logprobs are not ported here: EngineConfig refuses their
 flags and add_request refuses their request fields.
@@ -84,6 +88,30 @@ class LLMEngine:
             config.device_stop and config.num_scheduler_steps > 1
         )
         self._ragged_dispatch = config.ragged_dispatch
+        # speculative h2d prefetch (stage_decode_multi / stage_ragged):
+        # the NEXT fused round's buffer is copied while the current round
+        # runs, and that round chains on the device tokens when the
+        # prediction holds (fused rounds only: K > 1)
+        self._prefetch_decode = (
+            config.prefetch_decode and config.num_scheduler_steps > 1
+        )
+        self._staged_decode: dict | None = None
+        self._staged_hits_total = 0
+        self._staged_misses_total = 0
+        # pipelined prefill: staged next chunk, chained cold prompts,
+        # zero-cost staged admission in the scheduler's interleave
+        self._prefill_pipeline = config.prefill_pipeline
+        self._staged_prefill: dict | None = None
+        self._pf_staged_hits_total = 0
+        self._pf_staged_misses_total = 0
+        self._pf_chained_chunks_total = 0
+        # staged NEXT ragged round: a lane-mix change between stage and
+        # dispatch is a counted miss, never a dispatch error
+        self._staged_ragged: dict | None = None
+        self._ragged_staged_hits_total = 0
+        self._ragged_staged_misses_total = 0
+        # "ragged" | "prefill" | "decode" | "idle": the last step's round
+        self.last_step_kind = "idle"
         self._seqs: dict[str, Sequence] = {}
         # lifetime counters for /metrics
         self._prompt_tokens_total = 0
@@ -196,7 +224,38 @@ class LLMEngine:
 
     def _step_scheduled(self) -> list[RequestOutput]:
         sched_out = self.scheduler.schedule()
+        if sched_out.preempted or sched_out.prefills or sched_out.aborted:
+            # a table free or lane-set change invalidates the staged
+            # decode round (the free epoch in its fingerprint already
+            # would; dropping it here releases the buffer). A RAGGED
+            # round's stage expects prefill lanes: _dispatch_ragged
+            # validates (or miss-counts) it
+            self._staged_decode = None
+        if self._staged_ragged is not None and (
+            sched_out.preempted or sched_out.aborted
+            or not sched_out.is_ragged
+        ):
+            # the staged lane mix did not come true (a table was freed,
+            # the prefill drained, or the round went pure): a counted
+            # staging miss, never a dispatch error
+            self._ragged_staged_misses_total += 1
+            self._staged_ragged = None
+        if sched_out.preempted:
+            # preemption frees tables that can be handed out again: the
+            # staged prefill buffer goes too, and a zero-cost admission
+            # granted for it in this schedule() becomes a charged one
+            if self._staged_prefill is not None:
+                self._pf_staged_misses_total += 1
+                self.scheduler.note_staged_prefill_miss()
+            self._staged_prefill = None
+            self.scheduler.staged_prefill_ready = False
         self._preemptions_total += len(sched_out.preempted)
+        self.last_step_kind = (
+            "ragged" if sched_out.is_ragged
+            else "prefill" if sched_out.prefills
+            else "decode" if sched_out.decode is not None
+            else "idle"
+        )
         if sched_out.is_empty:
             return []
 
@@ -216,7 +275,30 @@ class LLMEngine:
                 self._step_ragged(sched_out.prefills, sched_out.decode)
             )
         elif sched_out.prefills:
-            stepped.extend(self._run_prefill_works(sched_out.prefills))
+            # pipelined prefill: a buffer staged in an earlier round may
+            # serve this dispatch (fingerprint-checked in
+            # _run_prefill_works); then a cold group's next chunks chain
+            # in THIS step while nothing is decode-ready, and otherwise
+            # the next chunk is staged so its copy overlaps the
+            # interleaved decode round. The chain is capped: one step
+            # holds the server's step lock.
+            staged = self._staged_prefill
+            self._staged_prefill = None
+            self.scheduler.staged_prefill_ready = False
+            works = sched_out.prefills
+            chain_budget = self.scheduler.config.max_staged_prefill_run
+            while True:
+                stepped.extend(self._run_prefill_works(works, staged))
+                staged = None
+                if chain_budget <= 0:
+                    break
+                nxt = self._chain_next_prefill(works)
+                if nxt is None:
+                    break
+                chain_budget -= 1
+                self._pf_chained_chunks_total += len(nxt)
+                works = nxt
+            self._maybe_stage_prefill(works)
         elif sched_out.decode is not None:
             stepped.extend(
                 self._run_decode_round(
@@ -226,13 +308,82 @@ class LLMEngine:
         outputs.extend(self._finalize_stepped(stepped))
         return outputs
 
+    # -- decode prefetch -----------------------------------------------------
+    def _reserve_next_round(self, seqs: list[Sequence], k: int) -> bool:
+        """Bounds and block reservation for staging a SECOND fused round
+        before the first one's tokens are applied: every lane at least 2K
+        tokens from its max_tokens / max_model_len bounds, and tables
+        grown to cover both rounds. All or nothing: blocks are allocated
+        only after every lane passed, so a refusal leaves no lane holding
+        speculatively grown tables."""
+        bs = self.block_manager.block_size
+        grow = 0
+        for s in seqs:
+            remaining = s.sampling_params.max_tokens - len(
+                s.generated_token_ids) - k
+            if remaining < k:
+                return False  # final rounds run unstaged
+            if s.num_tokens + 2 * k >= self.scheduler.config.max_model_len:
+                return False
+            need = (s.num_tokens + 2 * k + bs - 1) // bs - len(s.block_table)
+            if need > 0:
+                grow += need
+        if grow > self.block_manager.num_free_blocks:
+            return False  # needs preemption: go through schedule()
+        for s in seqs:
+            ok = self.block_manager.ensure_capacity(
+                s.num_tokens + 2 * k, s.block_table
+            )
+            assert ok  # guaranteed by the free-block check above
+        return True
+
+    def _can_stage(self, seqs: list[Sequence], k: int) -> bool:
+        """True when the NEXT fused round on these same lanes can be
+        staged: no waiting admission, no lane mid-prefill under ragged
+        rounds (the next round is lane-typed: the ragged stage covers
+        it), and tables growable to cover this round and the next."""
+        if self.scheduler.waiting:
+            return False  # admission will change the lane set
+        if self._ragged_dispatch and any(
+            not s.prefill_done for s in self.scheduler.running
+        ):
+            return False
+        return self._reserve_next_round(seqs, k)
+
+    def _stage_fingerprint(
+        self, seqs: list[Sequence], k: int, advance: int = 0
+    ) -> tuple:
+        """State a staged buffer was built for, as observed at the NEXT
+        dispatch: the same lanes in the same order, each exactly
+        `advance` tokens further, tables untouched since the stage's
+        growth and NO free() in between (the free epoch: freed block ids
+        can be handed to another sequence). At stage time `advance` is
+        the current round's K and `k` the staged round's predicted K."""
+        return (
+            tuple(s.request_id for s in seqs),
+            tuple(s.num_tokens + advance for s in seqs),
+            tuple(len(s.block_table) for s in seqs),
+            self.block_manager.free_epoch,
+            k,
+        )
+
+    @staticmethod
+    def _advance_stop(stop: tuple | None, k: int) -> tuple | None:
+        """A round's device-stop arrays as the round K tokens later sees
+        them (a lane that freezes earlier breaks the fingerprint, so the
+        stale stage is never dispatched)."""
+        if stop is None:
+            return None
+        return (stop[0], np.maximum(stop[1] - k, 0), stop[2] - k, stop[3])
+
     def _run_decode_round(
         self, seqs: list[Sequence], k_steps: int
     ) -> list[Sequence]:
         """One decode round over `seqs` (the split path's decode step and
         the ragged round's split execution): the fused K-step loop on the
-        device when K > 1, else one forward with host-side sampling
-        (penalties / logit bias applied first)."""
+        device when K > 1 (chained on a staged buffer when the prefetch
+        prediction held, then staging the next round), else one forward
+        with host-side sampling (penalties / logit bias applied first)."""
         if k_steps > 1:
             temps, top_ps, top_ks, min_ps, keys, needs_pen = (
                 self._sampling_arrays(seqs)
@@ -241,16 +392,57 @@ class LLMEngine:
             want_lp = any(
                 s.sampling_params.logprobs is not None for s in seqs
             )
+            bias = self._bias_arrays(seqs)
             stop = self._stop_arrays(seqs) if self._device_stop else None
+            tokens = [s.all_token_ids[-1] for s in seqs]
+            staged_kw = {}
+            st = self._staged_decode
+            self._staged_decode = None
+            if st is not None:
+                if (penalties is None and bias is None
+                        and st["fp"] == self._stage_fingerprint(
+                            seqs, k_steps)):
+                    # the prediction held: chain on the previous round's
+                    # device tokens with the buffer already copied
+                    staged_kw = {"staged": st["handle"]}
+                    tokens = st["chain_tokens"]
+                    self._staged_hits_total += 1
+                else:
+                    self._staged_misses_total += 1
             ys = self.runner.decode_multi(
-                [s.all_token_ids[-1] for s in seqs],
+                tokens,
                 [s.num_tokens - 1 for s in seqs],
                 [s.block_table for s in seqs],
                 [s.num_tokens for s in seqs], k_steps,
                 temps, top_ps, top_ks, keys, min_ps=min_ps,
                 penalties=penalties, want_logprobs=want_lp,
-                logit_bias=self._bias_arrays(seqs), stop=stop,
+                logit_bias=bias, stop=stop, **staged_kw,
             )
+            if (self._prefetch_decode and penalties is None
+                    and bias is None and self._can_stage(seqs, k_steps)):
+                # stage round N+1 now: its copy rides out this round's
+                # fetch. Its K is predicted and capped at this round's,
+                # the most _reserve_next_round grew the tables for.
+                nk = keys.copy()
+                nk[:, 1] += k_steps
+                k_next = min(
+                    self.scheduler.pick_decode_k(seqs, advance=k_steps),
+                    k_steps,
+                )
+                toks_dev = ys[0] if isinstance(ys, tuple) else ys
+                self._staged_decode = {
+                    "fp": self._stage_fingerprint(
+                        seqs, k_next, advance=k_steps),
+                    "handle": self.runner.stage_decode_multi(
+                        [s.num_tokens - 1 + k_steps for s in seqs],
+                        [s.block_table for s in seqs],
+                        [s.num_tokens + k_steps for s in seqs],
+                        k_next, temps, top_ps, top_ks, nk,
+                        min_ps=min_ps,
+                        stop=self._advance_stop(stop, k_steps),
+                    ),
+                    "chain_tokens": toks_dev[-1],
+                }
             self._apply_fused_decode(seqs, k_steps, ys, want_lp,
                                      stop is not None)
             return list(seqs)
@@ -372,6 +564,10 @@ class LLMEngine:
         step)."""
         if not self._ragged_prefill_fusable(works):
             self._ragged_split_rounds_total += 1
+            if self._staged_ragged is not None:
+                # the stage expects the fused round: a counted miss
+                self._ragged_staged_misses_total += 1
+                self._staged_ragged = None
             stepped = self._run_prefill_works(works)
             stepped.extend(self._run_decode_round(dwork.seqs, dwork.k))
             return stepped
@@ -380,10 +576,17 @@ class LLMEngine:
     def _dispatch_ragged(self, works: list[PrefillWork],
                          seqs: list[Sequence],
                          k_steps: int) -> list[Sequence]:
-        """The fused lane-typed round: one packed upload, one dispatch,
-        then the prefill bookkeeping and the shared fused-decode
-        bookkeeping."""
+        """The fused lane-typed round: one packed buffer (staged ahead
+        when the prediction held), one dispatch, the next round staged
+        before any fetch, then the prefill bookkeeping and the shared
+        fused-decode bookkeeping."""
         now = time.time()
+        if self._staged_prefill is not None:
+            # a pure-prefill round was staged but the round went
+            # lane-typed: the prefill stage cannot serve it
+            self._pf_staged_misses_total += 1
+            self._staged_prefill = None
+            self.scheduler.staged_prefill_ready = False
         for w in works:
             if w.seq.metrics.first_scheduled_time is None:
                 w.seq.metrics.first_scheduled_time = now
@@ -391,23 +594,48 @@ class LLMEngine:
         temps, top_ps, top_ks, min_ps, keys, needs_pen = (
             self._sampling_arrays(seqs)
         )
+        penalties = self._penalty_args(seqs) if needs_pen else None
         want_lp = any(s.sampling_params.logprobs is not None for s in seqs)
+        bias = self._bias_arrays(seqs)
         stop = self._stop_arrays(seqs) if self._device_stop else None
+        tokens = [s.all_token_ids[-1] for s in seqs]
+        staged_kw = {}
+        st = self._staged_ragged
+        self._staged_ragged = None
+        if st is not None:
+            if (penalties is None and bias is None
+                    and st["fp"] == self._ragged_fingerprint(
+                        works, seqs, k_steps)):
+                # the prediction held: the decode lanes chain on the
+                # previous round's device tokens, the buffer is copied
+                staged_kw = {"staged": st["handle"]}
+                tokens = st["chain_tokens"]
+                self._ragged_staged_hits_total += 1
+            else:
+                # lane mix or state drifted since the stage (the runner
+                # also checks the buffer's total length): a counted
+                # miss, the dispatch builds and uploads its own
+                self._ragged_staged_misses_total += 1
         pf_sampled, pf_logits, ys = self.runner.ragged_dispatch(
             [w.seq.prompt_token_ids[w.chunk_start:w.chunk_start + w.chunk_len]
              for w in works],
             [w.chunk_start for w in works],
             [w.seq.block_table for w in works],
             [w.chunk_start + w.chunk_len for w in works],
-            [s.all_token_ids[-1] for s in seqs],
+            tokens,
             [s.num_tokens - 1 for s in seqs],
             [s.block_table for s in seqs],
             [s.num_tokens for s in seqs],
             k_steps, temps, top_ps, top_ks, keys, min_ps=min_ps,
-            pf_sampling=pf_sampling,
-            penalties=self._penalty_args(seqs) if needs_pen else None,
-            want_logprobs=want_lp, logit_bias=self._bias_arrays(seqs),
-            stop=stop,
+            pf_sampling=pf_sampling, penalties=penalties,
+            want_logprobs=want_lp, logit_bias=bias, stop=stop,
+            **staged_kw,
+        )
+        # stage the predicted NEXT ragged round before any fetch below,
+        # so its copy overlaps this round
+        self._maybe_stage_ragged(
+            works, seqs, k_steps, temps, top_ps, top_ks, keys, min_ps,
+            stop, penalties, bias, ys[0] if isinstance(ys, tuple) else ys,
         )
         stepped: list[Sequence] = []
         for w in works:
@@ -444,17 +672,218 @@ class LLMEngine:
         self._ragged_decode_lanes_total += len(seqs)
         return stepped
 
-    def _run_prefill_works(
+    def _predict_next_prefill_works(
         self, works: list[PrefillWork]
+    ) -> list[PrefillWork]:
+        """The chunk set of the round AFTER `works`, predicted before
+        this round's bookkeeping lands (the ragged stage starts while
+        the dispatch is in flight): each non-final lane advances by its
+        own chunk."""
+        nxt: list[PrefillWork] = []
+        chunked = self.scheduler.config.enable_chunked_prefill
+        for w in works:
+            s = w.seq
+            start = w.chunk_start + w.chunk_len
+            rem = s.num_prompt_tokens - start
+            if rem <= 0:
+                continue
+            clen = (min(rem, self.scheduler.config.max_prefill_chunk)
+                    if chunked else rem)
+            nxt.append(PrefillWork(seq=s, chunk_start=start,
+                                   chunk_len=clen))
+        return nxt
+
+    def _ragged_fingerprint(
+        self, works: list[PrefillWork], seqs: list[Sequence], k: int
+    ) -> tuple:
+        """State a staged ragged buffer was built for, as observed at
+        dispatch: the prefill lanes' fingerprint, the decode lanes in
+        order at exact token counts and table lengths, the free epoch
+        and the round's K. Any lane-mix change — a prefill lane
+        finishing, an admission, another adaptive K — breaks it."""
+        return (
+            self._prefill_fingerprint(works),
+            tuple(s.request_id for s in seqs),
+            tuple(s.num_tokens for s in seqs),
+            tuple(len(s.block_table) for s in seqs),
+            self.block_manager.free_epoch,
+            k,
+        )
+
+    def _maybe_stage_ragged(
+        self, works, seqs, k_steps, temps, top_ps, top_ks, keys, min_ps,
+        stop, penalties, bias, toks_dev,
+    ) -> None:
+        """Stage the PREDICTED next lane-typed round: prefill lanes
+        advance by their chunk, decode lanes chain on this round's
+        device tokens advanced by K. Validated by fingerprint, and by
+        the runner's bucket key and total length, before use."""
+        if not (self._prefetch_decode and self._prefill_pipeline):
+            return
+        if penalties is not None or bias is not None:
+            return  # per-round host state does not chain
+        if self.scheduler.waiting:
+            return  # admission will change the lane set
+        if any(w.is_last_chunk for w in works):
+            # a finishing prefill lane moves to the decode side next
+            # round: the lane mix changes by construction
+            return
+        nxt = self._predict_next_prefill_works(works)
+        if not nxt:
+            return
+        if not self._reserve_next_round(seqs, k_steps):
+            return
+        k_next = min(
+            self.scheduler.pick_decode_k(seqs, advance=k_steps), k_steps,
+        )
+        nk = keys.copy()
+        nk[:, 1] += k_steps
+        handle = self.runner.stage_ragged(
+            [w.seq.prompt_token_ids[w.chunk_start:w.chunk_start + w.chunk_len]
+             for w in nxt],
+            [w.chunk_start for w in nxt],
+            [w.seq.block_table for w in nxt],
+            [w.chunk_start + w.chunk_len for w in nxt],
+            self._sampling_arrays([w.seq for w in nxt])[:5],
+            [s.num_tokens - 1 + k_steps for s in seqs],
+            [s.block_table for s in seqs],
+            [s.num_tokens + k_steps for s in seqs],
+            k_next, temps, top_ps, top_ks, nk, min_ps=min_ps,
+            stop=self._advance_stop(stop, k_steps),
+        )
+        self._staged_ragged = {
+            "fp": (
+                self._prefill_fingerprint(nxt),
+                tuple(s.request_id for s in seqs),
+                tuple(s.num_tokens + k_steps for s in seqs),
+                tuple(len(s.block_table) for s in seqs),
+                self.block_manager.free_epoch,
+                k_next,
+            ),
+            "handle": handle,
+            "chain_tokens": toks_dev[-1],
+        }
+
+    # -- pipelined prefill -----------------------------------------------------
+    def _prefill_fingerprint(self, works: list[PrefillWork]) -> tuple:
+        """State a staged prefill buffer was built for, as observed at
+        dispatch: the same sequences in the same order at the same chunk
+        offsets, tables untouched (length + the free epoch), and no
+        token appended since the stage (the sampling keys hold the
+        generated length)."""
+        return (
+            tuple(w.seq.request_id for w in works),
+            tuple(w.chunk_start for w in works),
+            tuple(w.chunk_len for w in works),
+            tuple(len(w.seq.block_table) for w in works),
+            tuple(len(w.seq.generated_token_ids) for w in works),
+            self.block_manager.free_epoch,
+        )
+
+    def _next_prefill_works(
+        self, works: list[PrefillWork]
+    ) -> list[PrefillWork]:
+        """The predicted chunk set after `works` completes: the same
+        sequences (order kept) that still have prompt left."""
+        nxt: list[PrefillWork] = []
+        chunked = self.scheduler.config.enable_chunked_prefill
+        for w in works:
+            s = w.seq
+            if s.finished or s not in self.scheduler.running:
+                continue
+            rem = s.num_uncomputed_prompt_tokens
+            if rem <= 0:
+                continue
+            clen = (min(rem, self.scheduler.config.max_prefill_chunk)
+                    if chunked else rem)
+            nxt.append(PrefillWork(seq=s, chunk_start=s.num_computed_tokens,
+                                   chunk_len=clen))
+        return nxt
+
+    def _chain_next_prefill(
+        self, works: list[PrefillWork]
+    ) -> list[PrefillWork] | None:
+        """Chained multi-chunk dispatch: when every scheduled chunk was
+        non-final and NOTHING is decode-ready or waiting, the group's
+        next chunks run in this same engine step — no scheduler pass
+        between a cold prompt's chunks, each chunk's upload overlapping
+        the previous chunk's compute. Only the final chunk's sampled
+        token is fetched."""
+        if not self._prefill_pipeline:
+            return None
+        if any(w.is_last_chunk for w in works):
+            return None  # finals made their sequences decode-ready
+        if self.scheduler.waiting:
+            return None  # admission may pack new arrivals into the group
+        if any(s.prefill_done and not s.finished
+               for s in self.scheduler.running):
+            return None  # a decode stream would starve: interleave
+        return self._next_prefill_works(works) or None
+
+    def _maybe_stage_prefill(self, works: list[PrefillWork]) -> None:
+        """Stage the predicted next chunk group's packed buffer, so its
+        copy rides out the interleaved decode round instead of sitting
+        before the next prefill dispatch; validated by fingerprint
+        before use."""
+        if not self._prefill_pipeline:
+            return
+        if self.scheduler.waiting:
+            return  # the next group will include new admissions
+        if self._ragged_dispatch and any(
+            s.prefill_done and not s.finished
+            for s in self.scheduler.running
+        ):
+            # a decode-ready lane exists: the next round is lane-typed
+            # and consumes the RAGGED stage, never this one
+            return
+        nxt = self._next_prefill_works(works)
+        if not nxt:
+            return
+        sampling = self._sampling_arrays([w.seq for w in nxt])[:5]
+        chunks = [
+            w.seq.prompt_token_ids[w.chunk_start:w.chunk_start + w.chunk_len]
+            for w in nxt
+        ]
+        if len(nxt) == 1:
+            w = nxt[0]
+            handle = self.runner.stage_prefill(
+                chunks[0], w.chunk_start, w.seq.block_table,
+                w.chunk_start + w.chunk_len, sampling=sampling,
+            )
+        else:
+            handle = self.runner.stage_prefill_batch(
+                chunks,
+                start_positions=[w.chunk_start for w in nxt],
+                block_tables=[w.seq.block_table for w in nxt],
+                total_lens=[w.chunk_start + w.chunk_len for w in nxt],
+                sampling=sampling,
+            )
+        self._staged_prefill = {"fp": self._prefill_fingerprint(nxt),
+                                "handle": handle}
+        self.scheduler.staged_prefill_ready = True
+
+    def _run_prefill_works(
+        self, works: list[PrefillWork], staged: dict | None = None,
     ) -> list[Sequence]:
         """Dispatch one scheduled prefill chunk group: one sequence on
         the single-sequence forward, several in one packed forward; first
-        tokens (sampled on the device) are appended for final chunks."""
+        tokens (sampled on the device) are appended for final chunks.
+        `staged` = a _maybe_stage_prefill record, used when its
+        fingerprint matches this exact group (else a counted miss)."""
         stepped: list[Sequence] = []
         now = time.time()
         for w in works:
             if w.seq.metrics.first_scheduled_time is None:
                 w.seq.metrics.first_scheduled_time = now
+        staged_kw = {}
+        if staged is not None:
+            if staged["fp"] == self._prefill_fingerprint(works):
+                # the prediction held: the buffer's copy already ran
+                staged_kw = {"staged": staged["handle"]}
+                self._pf_staged_hits_total += 1
+            else:
+                self._pf_staged_misses_total += 1
+                self.scheduler.note_staged_prefill_miss()
         seqs_w = [w.seq for w in works]
         temps, top_ps, top_ks, min_ps, keys, _ = (
             self._sampling_arrays(seqs_w)
@@ -471,7 +900,7 @@ class LLMEngine:
                 start_pos=w.chunk_start,
                 block_table=w.seq.block_table,
                 total_len=w.chunk_start + w.chunk_len,
-                sampling=sampling,
+                sampling=sampling, **staged_kw,
             )
             tokens_dev = token_dev[None]
             last_logits = logits[None]
@@ -481,7 +910,7 @@ class LLMEngine:
                 start_positions=[w.chunk_start for w in works],
                 block_tables=[w.seq.block_table for w in works],
                 total_lens=[w.chunk_start + w.chunk_len for w in works],
-                sampling=sampling,
+                sampling=sampling, **staged_kw,
             )
         toks_np = None
         if any(w.is_last_chunk for w in works):
@@ -850,6 +1279,9 @@ class LLMEngine:
             prefill_h2d_seconds_total=phase["h2d"],
             prefill_dispatch_seconds_total=phase["dispatch"],
             prefill_fetch_seconds_total=phase["fetch"],
+            prefill_staged_hits_total=self._pf_staged_hits_total,
+            prefill_staged_misses_total=self._pf_staged_misses_total,
+            prefill_chained_chunks_total=self._pf_chained_chunks_total,
             decode_rounds_total=self._decode_rounds_total,
             decode_overshoot_tokens_total=(
                 self._decode_overshoot_tokens_total),

@@ -2,20 +2,30 @@
 the prefill / packed-prefill / decode forwards.
 
 Counterpart of ``production_stack_tpu/engine/model_runner.py`` without
-its staging, pipeline, LoRA, guided and export paths: single-sequence
-``prefill``, packed ``prefill_batch`` (the raw-args variant),
-single-step ``decode``, the fused K-step ``decode_multi`` and the
-unified lane-typed round ``ragged_dispatch``. Host-side padding keeps
-the JAX buckets — chunks pad to a power of two >= 8, contexts to a
-power-of-two block count, decode to max_num_seqs lanes, ragged-round
-prefill rows to a power of two — so the kernels see the same padded
-tables and metadata as the Pallas kernels do. PyTorch runs eagerly:
-there is no jit and no program cache. The fused paths ship their inputs
-as ONE packed int32 host buffer a dispatch (pinned, one non_blocking
-copy on the card; f32 fields bit-viewed), and their K-step loop is a
+its LoRA, guided, prompt-logprob and export paths: single-sequence
+``prefill``, packed ``prefill_batch``, single-step ``decode``, the fused
+K-step ``decode_multi``, the unified lane-typed round
+``ragged_dispatch``, and the staging of each (``stage_prefill``,
+``stage_prefill_batch``, ``stage_decode_multi``, ``stage_ragged``).
+Host-side padding keeps the JAX buckets — chunks pad to a power of two
+>= 8, contexts to a power-of-two block count, decode to max_num_seqs
+lanes, ragged-round prefill rows to a power of two — so the kernels see
+the same padded tables and metadata as the Pallas kernels do. PyTorch
+runs eagerly: there is no jit and no program cache.
+
+Every dispatch of the default configuration ships its inputs as ONE
+packed int32 host buffer (pinned, one non_blocking copy on the card;
+f32 fields bit-viewed): the fused paths always, prefill under
+``prefill_pipeline`` (packed groups then run the ragged-rows layout on
+the ragged kernel). A ``stage_*`` call builds the buffer of a FUTURE
+dispatch and starts its copy on a side stream (``StagedBuffer``); the
+dispatch that consumes it makes its stream wait for the copy. A staged
+buffer whose bucket key or total length does not match the dispatch is
+ignored and the dispatch builds its own. The fused K-step loop is a
 Python loop whose per-iteration inputs are computed on the device from
 the carried tensors: the only host read inside it is the early-exit
-test of the device-stop variant.
+test of the device-stop variant. A chained round takes its tokens from
+the previous round's device output instead of the buffer.
 
 Attention goes through one seam, ``_attn(kind, ...)``: on a CUDA device
 the wrappers in ops/paged_attention.py launch the hand-written kernels,
@@ -25,6 +35,7 @@ the runner was built for; there is no fallback between the two.
 
 from __future__ import annotations
 
+import collections
 import functools
 import math
 import time
@@ -108,6 +119,26 @@ def resolve_dtype(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
+class StagedBuffer:
+    """The packed buffer of a future dispatch, its copy already started.
+
+    `key` names the bucket it was built for (the dispatch compares it
+    with its own). On the card, `dev` was allocated and filled on the
+    runner's copy stream from the pinned `host` tensor, and `event`
+    fires when the copy is done: ModelRunner._take makes the consuming
+    stream wait on it. On the CPU `dev` is the host buffer itself and
+    `event` is None."""
+
+    __slots__ = ("key", "dev", "host", "event")
+
+    def __init__(self, key, dev: torch.Tensor,
+                 host: torch.Tensor | None = None, event=None):
+        self.key = key
+        self.dev = dev
+        self.host = host
+        self.event = event
+
+
 class ModelRunner:
     def __init__(self, config: EngineConfig, params: dict | None = None):
         self.config = config
@@ -173,6 +204,14 @@ class ModelRunner:
         self._scale = mc.head_dim**-0.5
         self.attention_impl = "cuda" if self.device.type == "cuda" else "torch"
         self.ragged_kernel = bool(config.ragged_kernel)
+        # pipelined prefill: one packed buffer a prefill dispatch (packed
+        # groups on the ragged-rows layout under the ragged kernel)
+        self.prefill_pipeline = bool(config.prefill_pipeline)
+        # staged copies: a side stream (made at the first stage), and the
+        # pinned sources of copies that may still be in flight, held
+        # until their event fires even when the handle is dropped
+        self._copy_stream = None
+        self._inflight: collections.deque = collections.deque()
         logger.info(
             "attention impl: %s%s", self.attention_impl,
             " (ragged kernel)" if self.ragged_kernel else "",
@@ -252,6 +291,8 @@ class ModelRunner:
         )
 
     # -- host-side helpers -------------------------------------------------
+    # stackcheck: not-hot — numpy over host lists (block tables,
+    # positions); no device tensor reaches it
     def _slots_for_positions(
         self, block_table: list[int], positions: np.ndarray
     ) -> np.ndarray:
@@ -268,6 +309,7 @@ class ModelRunner:
         slots[positions < 0] = 0
         return slots
 
+    # stackcheck: not-hot — numpy over a host block-table list
     def _padded_block_table(
         self, block_table: list[int], n_pages: int
     ) -> np.ndarray:
@@ -280,6 +322,8 @@ class ModelRunner:
         return bt
 
     @staticmethod
+    # stackcheck: not-hot — pads the host sampling arrays the engine
+    # built; no device tensor reaches it
     def _sampling_args(
         n: int, sampling=None
     ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray,
@@ -316,6 +360,259 @@ class ModelRunner:
     def _phase_add(self, name: str, dt: float) -> None:
         self.prefill_phase_s[name] += dt
 
+    # -- pipelined prefill: one packed buffer a dispatch ---------------------
+    def _prefill_pack_layout(self, t_pad: int, c_pad: int):
+        """Layout of the ONE int32 buffer a single-sequence prefill ships
+        under the pipeline; the sampler noise (1, cap) takes the place of
+        the JAX keys. The chunk's start position stays a host argument
+        of the dispatch (the prefill kernel takes it as a scalar)."""
+        return self._layout_of([
+            ("tokens", (t_pad,)),
+            ("positions", (t_pad,)),
+            ("write_slots", (t_pad,)),
+            ("table", (c_pad // self.block_size,)),
+            ("last_row", (1,)),
+            ("temps", (1,)),
+            ("top_ps", (1,)),
+            ("top_ks", (1,)),
+            ("min_ps", (1,)),
+            ("noise", (1, self._top_cap)),
+        ])
+
+    def _packed_prefill_pack_layout(self, s_pad: int, t_pad: int,
+                                    c_pad: int):
+        """The (s_pad, t_pad) packed-group variant (the pipeline without
+        the ragged kernel): lane s holds rows [s * t_pad, (s+1) * t_pad)."""
+        return self._layout_of([
+            ("tokens", (s_pad * t_pad,)),
+            ("positions", (s_pad * t_pad,)),
+            ("write_slots", (s_pad * t_pad,)),
+            ("tables", (s_pad, c_pad // self.block_size)),
+            ("last_rows", (s_pad,)),
+            ("temps", (s_pad,)),
+            ("top_ps", (s_pad,)),
+            ("top_ks", (s_pad,)),
+            ("min_ps", (s_pad,)),
+            ("noise", (s_pad, self._top_cap)),
+        ])
+
+    def _put_sampling(self, put, n: int, sampling) -> None:
+        """The sampling fields of a prefill pack for n lanes: the
+        parameters and one row of noise a lane (zeros for greedy)."""
+        temps, top_ps, top_ks, min_ps, keys = self._sampling_args(
+            n, sampling
+        )
+        put("temps", temps)
+        put("top_ps", top_ps)
+        put("top_ks", top_ks)
+        put("min_ps", min_ps)
+        put("noise", round_noise(keys, temps, 1, self._top_cap)[0])
+
+    def _prefill_host_prep(self, token_ids: list[int], start_pos: int,
+                           block_table: list[int], total_len: int):
+        """Host arrays of one prefill chunk, shared by the packed and the
+        per-array paths: (t_pad, c_pad, tokens, positions, write_slots,
+        table). Padded rows carry position 0 (rope of 0) and write the
+        trash slot."""
+        t = len(token_ids)
+        t_pad = self._prefill_bucket(t)
+        c_pad = self._ctx_bucket(total_len)
+        tokens = np.zeros((t_pad,), dtype=np.int32)
+        tokens[:t] = token_ids
+        positions = np.full((t_pad,), -1, dtype=np.int32)
+        positions[:t] = np.arange(start_pos, start_pos + t)
+        write_slots = self._slots_for_positions(block_table, positions)
+        table = self._padded_block_table(
+            block_table, c_pad // self.block_size
+        )
+        return (t_pad, c_pad, tokens, np.maximum(positions, 0), write_slots,
+                table)
+
+    # stackcheck: hot-path — host build of a prefill dispatch's one h2d
+    # buffer (dispatch and staging); no device work
+    def _fill_prefill_pack(
+        self, token_ids: list[int], start_pos: int,
+        block_table: list[int], total_len: int, sampling=None,
+    ) -> tuple[int, int, np.ndarray]:
+        """Host build of the single-sequence prefill pack; returns (t_pad,
+        c_pad, packed)."""
+        t_pad, c_pad, tokens, positions, write_slots, table = (
+            self._prefill_host_prep(token_ids, start_pos, block_table,
+                                    total_len))
+        layout, size = self._prefill_pack_layout(t_pad, c_pad)
+        packed = np.zeros((size,), np.int32)
+        put = functools.partial(self._pack_put, packed, layout)
+        put("tokens", tokens)
+        put("positions", positions)
+        put("write_slots", write_slots)
+        put("table", table)
+        put("last_row", np.full((1,), len(token_ids) - 1, np.int32))
+        self._put_sampling(put, 1, sampling)
+        return t_pad, c_pad, packed
+
+    # stackcheck: hot-path — host build of a packed prefill group's one
+    # h2d buffer; one pass over the lanes, no device work
+    def _fill_packed_prefill_pack(
+        self, chunks, start_positions, block_tables, total_lens,
+        sampling=None,
+    ) -> tuple[int, int, int, np.ndarray]:
+        """Host build of the (s_pad, t_pad) packed prefill pack; returns
+        (s_pad, t_pad, c_pad, packed)."""
+        (s_pad, t_pad, c_pad, tokens, positions_dev, write_slots,
+         _q_starts, tables) = self._packed_host_prep(
+            chunks, start_positions, block_tables, total_lens
+        )
+        last_rows = np.arange(s_pad, dtype=np.int32) * t_pad
+        for s, ids in enumerate(chunks):
+            last_rows[s] += len(ids) - 1
+        layout, size = self._packed_prefill_pack_layout(s_pad, t_pad, c_pad)
+        packed = np.zeros((size,), np.int32)
+        put = functools.partial(self._pack_put, packed, layout)
+        put("tokens", tokens)
+        put("positions", positions_dev)
+        put("write_slots", write_slots)
+        put("tables", tables)
+        put("last_rows", last_rows)
+        self._put_sampling(put, s_pad, sampling)
+        return s_pad, t_pad, c_pad, packed
+
+    def _single_prefill_step(self, t_pad: int, c_pad: int):
+        """`step(packed, start_pos)` -> (token, logits (vocab,)): the
+        single-sequence prefill forward on its packed buffer."""
+        mc = self.model_config
+        layout, _ = self._prefill_pack_layout(t_pad, c_pad)
+
+        def step(packed, start_pos):
+            seg = functools.partial(self._pack_seg, packed, layout)
+            table = seg("table")
+
+            def attn(q, l, kc, vc):
+                return self._attn("prefill", q, l, kc, vc, table, start_pos)
+
+            logits, _, _ = llama.forward(
+                mc, self.params, seg("tokens"), seg("positions"),
+                self.k_cache, self.v_cache, seg("write_slots"), attn,
+                logits_rows=seg("last_row"),
+            )
+            token = sample_tokens(
+                logits, seg("temps").view(torch.float32),
+                seg("top_ps").view(torch.float32), seg("top_ks"),
+                seg("noise").view(torch.float32),
+                min_p=seg("min_ps").view(torch.float32),
+            )[0]
+            return token, logits[0]
+
+        return step
+
+    def _packed_prefill_step(self, s_pad: int, t_pad: int, c_pad: int):
+        """`step(packed, q_starts)` -> (sampled (s_pad,), logits (s_pad,
+        vocab)): the (s_pad, t_pad) packed group on the composed prefill
+        kernel, one launch a lane a layer."""
+        mc = self.model_config
+        layout, _ = self._packed_prefill_pack_layout(s_pad, t_pad, c_pad)
+
+        def step(packed, q_starts):
+            seg = functools.partial(self._pack_seg, packed, layout)
+            # padding lanes start at 0 over the null table
+            starts = list(q_starts) + [0] * (s_pad - len(q_starts))
+            attn = self._packed_attn(s_pad, t_pad, seg("tables"), starts)
+            logits, _, _ = llama.forward(
+                mc, self.params, seg("tokens"), seg("positions"),
+                self.k_cache, self.v_cache, seg("write_slots"), attn,
+                logits_rows=seg("last_rows"),
+            )
+            sampled = sample_tokens(
+                logits, seg("temps").view(torch.float32),
+                seg("top_ps").view(torch.float32), seg("top_ks"),
+                seg("noise").view(torch.float32),
+                min_p=seg("min_ps").view(torch.float32),
+            )
+            return sampled, logits
+
+        return step
+
+    # -- staged buffers ----------------------------------------------------------
+    def _stage(self, key, packed: np.ndarray) -> StagedBuffer:
+        """Start the copy of a future dispatch's packed buffer: pinned,
+        non_blocking on the runner's copy stream, an event recorded
+        after it. Enqueue only: nothing here waits on the card."""
+        host = torch.from_numpy(packed)
+        if self.device.type != "cuda":
+            return StagedBuffer(key, host)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        # pinned sources whose copies are done can go
+        while self._inflight and self._inflight[0][0].query():
+            self._inflight.popleft()
+        host = host.pin_memory()
+        with torch.cuda.stream(self._copy_stream):
+            dev = host.to(self.device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._copy_stream)
+        self._inflight.append((event, host))
+        return StagedBuffer(key, dev, host, event)
+
+    def _take(self, staged: StagedBuffer) -> torch.Tensor:
+        """The device buffer of a staged handle, for a dispatch on the
+        current stream: that stream waits for the copy, and the tensor is
+        marked used by it, so the allocator does not hand its memory out
+        while the dispatch still reads it."""
+        if staged.event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(staged.event)
+            staged.dev.record_stream(stream)
+        return staged.dev
+
+    # stackcheck: hot-path — staging must overlap the dispatch in flight:
+    # a host-device sync here would serialize the prefill pipeline
+    def stage_prefill(
+        self, token_ids: list[int], start_pos: int,
+        block_table: list[int], total_len: int, sampling=None,
+    ) -> StagedBuffer:
+        """Build the packed buffer of a FUTURE single-sequence prefill
+        chunk and start its copy, so the upload overlaps the dispatch in
+        flight; returns a handle for prefill(staged=...). The caller
+        (engine) validates its fingerprint before use."""
+        t0 = time.perf_counter()
+        t_pad, c_pad, packed = self._fill_prefill_pack(
+            token_ids, start_pos, block_table, total_len, sampling=sampling,
+        )
+        t1 = time.perf_counter()
+        self._phase_add("prep", t1 - t0)
+        handle = self._stage(("single", t_pad, c_pad), packed)
+        self._phase_add("h2d", time.perf_counter() - t1)
+        return handle
+
+    # stackcheck: hot-path
+    def stage_prefill_batch(
+        self,
+        chunks: list[list[int]],
+        start_positions: list[int],
+        block_tables: list[list[int]],
+        total_lens: list[int],
+        sampling=None,
+    ) -> StagedBuffer:
+        """Packed-group variant of stage_prefill (the ragged-rows layout
+        under the ragged kernel)."""
+        t0 = time.perf_counter()
+        if self.ragged_kernel:
+            r_pad, pc_pad, packed = self._fill_rows_prefill_pack(
+                chunks, start_positions, block_tables, total_lens,
+                sampling=sampling,
+            )
+            key = ("rows", r_pad, pc_pad)
+        else:
+            s_pad, t_pad, c_pad, packed = self._fill_packed_prefill_pack(
+                chunks, start_positions, block_tables, total_lens,
+                sampling=sampling,
+            )
+            key = ("packed", s_pad, t_pad, c_pad)
+        t1 = time.perf_counter()
+        self._phase_add("prep", t1 - t0)
+        handle = self._stage(key, packed)
+        self._phase_add("h2d", time.perf_counter() - t1)
+        return handle
+
     # -- public API --------------------------------------------------------
     @torch.inference_mode()
     def prefill(
@@ -325,25 +622,43 @@ class ModelRunner:
         block_table: list[int],
         total_len: int,
         sampling=None,
+        staged: StagedBuffer | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Run one prefill chunk; returns (token, logits) on the device:
         the first generated token sampled from the chunk's last actual
         row, and that row's f32 (vocab,) logits. K/V for the chunk is
-        written into the cache."""
+        written into the cache.
+
+        `staged` = a stage_prefill handle whose copy is already under
+        way; used only when its bucket key matches (the CALLER guarantees
+        its content equals what these arguments build)."""
+        if self.prefill_pipeline:
+            t_pad = self._prefill_bucket(len(token_ids))
+            c_pad = self._ctx_bucket(total_len)
+            packed_dev = None
+            if staged is not None and staged.key == ("single", t_pad,
+                                                     c_pad):
+                packed_dev = self._take(staged)
+            if packed_dev is None:
+                t0 = time.perf_counter()
+                t_pad, c_pad, packed = self._fill_prefill_pack(
+                    token_ids, start_pos, block_table, total_len,
+                    sampling=sampling,
+                )
+                t1 = time.perf_counter()
+                self._phase_add("prep", t1 - t0)
+                packed_dev = self._upload(packed)
+                self._phase_add("h2d", time.perf_counter() - t1)
+            t2 = time.perf_counter()
+            out = self._single_prefill_step(t_pad, c_pad)(packed_dev,
+                                                          start_pos)
+            self.dispatch_counts["prefill"] += 1
+            self._phase_add("dispatch", time.perf_counter() - t2)
+            return out
         t0 = time.perf_counter()
-        t = len(token_ids)
-        t_pad = self._prefill_bucket(t)
-        c_pad = self._ctx_bucket(total_len)
-        tokens = np.zeros((t_pad,), dtype=np.int32)
-        tokens[:t] = token_ids
-        positions = np.full((t_pad,), -1, dtype=np.int32)
-        positions[:t] = np.arange(start_pos, start_pos + t)
-        write_slots = self._slots_for_positions(block_table, positions)
-        # padded rows carry position -1 -> rope of 0, write to trash
-        positions_dev = np.where(positions < 0, 0, positions)
-        table = self._padded_block_table(
-            block_table, c_pad // self.block_size
-        )
+        _, _, tokens, positions_dev, write_slots, table = (
+            self._prefill_host_prep(token_ids, start_pos, block_table,
+                                    total_len))
         temps, top_ps, top_ks, min_ps, keys = self._sampling_args(
             1, sampling
         )
@@ -364,7 +679,8 @@ class ModelRunner:
         logits, _, _ = llama.forward(
             self.model_config, self.params, tokens_d, pos_d, self.k_cache,
             self.v_cache, slots_d, attn,
-            logits_rows=torch.tensor([t - 1], device=self.device),
+            logits_rows=torch.tensor([len(token_ids) - 1],
+                                     device=self.device),
         )
         token = self.sample(logits, temps, top_ps, top_ks, min_ps, keys)[0]
         self.dispatch_counts["prefill"] += 1
@@ -413,12 +729,12 @@ class ModelRunner:
         return (s_pad, t_pad, c_pad, tokens, positions_dev, write_slots,
                 q_starts, tables)
 
-    def _packed_attn(self, s_pad: int, t_pad: int, tables: np.ndarray,
-                     q_starts: np.ndarray):
+    def _packed_attn(self, s_pad: int, t_pad: int, tables_d: torch.Tensor,
+                     q_starts):
         """Attention over s_pad back-to-back chunks on one flat token axis
-        (row s*t_pad + r is row r of chunk s)."""
+        (row s*t_pad + r is row r of chunk s); `tables_d` on the device,
+        `q_starts` each lane's start position on the host."""
         mc = self.model_config
-        tables_d = self._dev(tables)
         if self.ragged_kernel:
             # ONE ragged-kernel launch per layer: every block of t_pad
             # (pow2 >= RAGGED_TQ) belongs to exactly one lane, so each
@@ -431,7 +747,7 @@ class ModelRunner:
                 lane_of,
                 np.zeros((n_blk,), np.int32),
                 np.full((n_blk,), tq, np.int32),
-                q_starts[lane_of] + off_in,
+                np.asarray(q_starts, np.int32)[lane_of] + off_in,
             ], axis=1).astype(np.int32)
             blk_seg_d = self._dev(np.arange(n_blk + 1, dtype=np.int32))
             seg_meta_d = self._dev(seg_meta)
@@ -461,11 +777,48 @@ class ModelRunner:
         block_tables: list[list[int]],
         total_lens: list[int],
         sampling=None,
+        staged: StagedBuffer | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Run one prompt chunk for EACH of n sequences in a single packed
-        forward; returns (tokens, logits) on the device — tokens (s_pad,)
-        sampled from each chunk's last actual row, logits (s_pad, vocab)
-        (rows >= n are padding). K/V for every chunk is written."""
+        forward; returns (tokens, logits) on the device — tokens (s,)
+        sampled from each chunk's last actual row, logits (s, vocab)
+        (rows >= n are padding; s = the lane cap on the ragged-rows
+        layout, s_pad otherwise). K/V for every chunk is written.
+
+        `staged` = a stage_prefill_batch handle (see prefill)."""
+        if self.prefill_pipeline:
+            if self.ragged_kernel:
+                # ragged-rows layout: one ragged launch a layer over the
+                # group's rows, whatever the lane mix
+                r_pad, pc_pad = self._rows_dims(chunks, total_lens)
+                key = ("rows", r_pad, pc_pad)
+                fill = self._fill_rows_prefill_pack
+            else:
+                s_pad = next_pow2(max(len(chunks), 1))
+                t_pad = self._prefill_bucket(max(len(c) for c in chunks))
+                c_pad = max(self._ctx_bucket(tl) for tl in total_lens)
+                key = ("packed", s_pad, t_pad, c_pad)
+                fill = self._fill_packed_prefill_pack
+            packed_dev = None
+            if staged is not None and staged.key == key:
+                packed_dev = self._take(staged)
+            if packed_dev is None:
+                t0 = time.perf_counter()
+                packed = fill(chunks, start_positions, block_tables,
+                              total_lens, sampling=sampling)[-1]
+                t1 = time.perf_counter()
+                self._phase_add("prep", t1 - t0)
+                packed_dev = self._upload(packed)
+                self._phase_add("h2d", time.perf_counter() - t1)
+            t2 = time.perf_counter()
+            if self.ragged_kernel:
+                out = self._make_prefill_rows_step(r_pad, pc_pad)(packed_dev)
+            else:
+                out = self._packed_prefill_step(s_pad, t_pad, c_pad)(
+                    packed_dev, start_positions)
+            self.dispatch_counts["prefill_batch"] += 1
+            self._phase_add("dispatch", time.perf_counter() - t2)
+            return out
         t0 = time.perf_counter()
         (s_pad, t_pad, c_pad, tokens, positions_dev, write_slots,
          q_starts, tables) = self._packed_host_prep(
@@ -479,7 +832,7 @@ class ModelRunner:
         )
         t1 = time.perf_counter()
         self._phase_add("prep", t1 - t0)
-        attn = self._packed_attn(s_pad, t_pad, tables, q_starts)
+        attn = self._packed_attn(s_pad, t_pad, self._dev(tables), q_starts)
         tokens_d = self._dev(tokens.reshape(-1))
         pos_d = self._dev(positions_dev.reshape(-1))
         slots_d = self._dev(write_slots.reshape(-1))
@@ -615,17 +968,19 @@ class ModelRunner:
     def _decode_pack_layout(self, b: int, c_pad: int, k_steps: int,
                             stop_cap: int | None = None,
                             use_penalties: bool = False,
-                            bias_cap: int = 0):
+                            bias_cap: int = 0, chained: bool = False):
         """Layout of the ONE int32 buffer a fused decode round ships.
         `noise` is the round's (k, b, cap) sampler noise, drawn on the
         host from each lane's (seed, step + i) key. `stop_cap` None = the
         fixed-trip loop; an int adds the per-lane EOS id, min_tokens gate
         and remaining budget, and when > 0 a (b, stop_cap) stop-id
         matrix. Penalties add the generated-id history (b, c_pad), -1
-        padded; logit bias its (b, bias_cap) ids and values."""
+        padded; logit bias its (b, bias_cap) ids and values. A `chained`
+        round has no tokens field: its tokens are the previous round's
+        last row, on the device."""
         n_pages = c_pad // self.block_size
-        fields = [
-            ("tokens", (b,)),
+        fields = [] if chained else [("tokens", (b,))]
+        fields += [
             ("positions", (b,)),
             ("ctx", (b,)),
             ("temps", (b,)),
@@ -666,19 +1021,21 @@ class ModelRunner:
         self, c_pad: int, k_steps: int, token_ids, positions, block_tables,
         context_lens, temps, top_ps, top_ks, keys, min_ps=None,
         stop: tuple | None = None, penalties: tuple | None = None,
-        logit_bias: tuple | None = None,
+        logit_bias: tuple | None = None, chained: bool = False,
     ) -> np.ndarray:
         """Build the packed buffer of a fused decode round (layout:
         _decode_pack_layout) for len(positions) real lanes, padded to
         max_num_seqs. Padded lanes ship token 0, context 1, the zero
         table (trash block 0), EOS -1 and budget 0, so under device stops
-        they are done from iteration 0."""
+        they are done from iteration 0. Shared by the dispatch
+        (decode_multi, ragged_dispatch) and the staging (stage_*)."""
         b = self.config.max_num_seqs
         n = len(positions)
         stop_cap = self._stop_cap(stop)
         bias_cap = 0 if logit_bias is None else int(logit_bias[0].shape[1])
         layout, total = self._decode_pack_layout(
             b, c_pad, k_steps, stop_cap, penalties is not None, bias_cap,
+            chained,
         )
         packed = np.zeros((total,), np.int32)
         put = functools.partial(self._pack_put, packed, layout)
@@ -689,7 +1046,8 @@ class ModelRunner:
                 full[:n] = vals
             return full
 
-        put("tokens", lanes(token_ids, 0, np.int32))
+        if not chained:
+            put("tokens", lanes(token_ids, 0, np.int32))
         put("positions", lanes(positions, 0, np.int32))
         put("ctx", lanes(context_lens, 1, np.int32))
         t_full = lanes(temps, 0.0, np.float32)
@@ -734,7 +1092,8 @@ class ModelRunner:
                            use_penalties: bool = False,
                            want_logprobs: bool = False,
                            bias_cap: int = 0,
-                           stop_cap: int | None = None):
+                           stop_cap: int | None = None,
+                           chained: bool = False):
         """The fused K-step decode round as four closures shared by
         decode_multi and the unified ragged round (whose step-0 decode
         forward is welded to the prefill rows): `unpack` (packed buffer ->
@@ -760,11 +1119,13 @@ class ModelRunner:
         n_pages = c_pad // bs
         use_stop = stop_cap is not None
         layout, _ = self._decode_pack_layout(
-            b, c_pad, k_steps, stop_cap, use_penalties, bias_cap,
+            b, c_pad, k_steps, stop_cap, use_penalties, bias_cap, chained,
         )
         lane = torch.arange(b, device=self.device)
 
-        def unpack(packed):
+        def unpack(packed, chained_tokens=None):
+            """Packed buffer -> (consts, carry0); a chained round's
+            tokens are `chained_tokens`, (b,) int32 on the device."""
             seg = functools.partial(self._pack_seg, packed, layout)
 
             def f32(name):
@@ -807,8 +1168,9 @@ class ModelRunner:
                                     device=packed.device)
             valid0 = torch.zeros((b,), dtype=torch.int32,
                                  device=packed.device)
-            carry0 = (seg("tokens"), seg("positions"), seg("ctx"), counts0,
-                      done0, valid0)
+            tokens = chained_tokens if chained else seg("tokens")
+            carry0 = (tokens, seg("positions"), seg("ctx"), counts0, done0,
+                      valid0)
             return consts, carry0
 
         def fwd_args(carry, consts):
@@ -914,6 +1276,28 @@ class ModelRunner:
 
         return {"unpack": unpack, "fwd_args": fwd_args, "run": run}
 
+    # stackcheck: hot-path — speculative prefetch of the NEXT chained
+    # fused round: enqueue only, no device fetch
+    def stage_decode_multi(
+        self, positions, block_tables, context_lens, steps,
+        temps, top_ps, top_ks, keys, min_ps=None, stop=None,
+    ) -> StagedBuffer:
+        """Build the packed buffer of the next fused round on the same
+        lanes (chained: its tokens will be this round's last row) and
+        start its copy, so the upload overlaps the round in flight and
+        its fetch. The engine stages with PREDICTED state (positions,
+        contexts, keys and the stop countdowns advanced by K) and
+        validates the prediction before dispatching on it; a stale stage
+        (context-bucket or length mismatch) is ignored by decode_multi.
+        Returns a handle for decode_multi(staged=...)."""
+        c_pad = self._ctx_bucket(max(context_lens) + max(0, steps - 1))
+        packed = self._fill_decode_pack(
+            c_pad, steps, None, positions, block_tables, context_lens,
+            temps, top_ps, top_ks, keys, min_ps=min_ps, stop=stop,
+            chained=True,
+        )
+        return self._stage(c_pad, packed)
+
     # stackcheck: hot-path — one packed upload, the fused loop; fetches
     # stay with the caller
     @torch.inference_mode()
@@ -936,6 +1320,7 @@ class ModelRunner:
         stop: tuple | None = None,  # (eos (b_actual,) i32, -1 = ignore,
                                     #  min_rem, budget (b_actual,) i32,
                                     #  stop_ids (b_actual, cap) i32 | None)
+        staged: StagedBuffer | None = None,  # from stage_decode_multi
     ):
         """`steps` fused decode+sample iterations, one packed upload;
         returns (steps, b) int32 sampled tokens on the device, or with
@@ -948,7 +1333,13 @@ class ModelRunner:
         grown each block table to cover context_len + steps - 1.
 
         `penalties`: (gen_id lists, presence, frequency, repetition);
-        token counts then ride the loop on the device."""
+        token counts then ride the loop on the device.
+
+        `token_ids` may be a full-lane (b,) int32 DEVICE tensor instead
+        of a host list: the round is then chained on the previous
+        round's sampled tokens, and a `staged` buffer (stage_decode_multi)
+        is used when its context bucket and total length match this
+        dispatch's layout; otherwise the buffer is built here."""
         if steps > self.block_size:
             raise ValueError(
                 f"num_scheduler_steps={steps} > block_size="
@@ -956,20 +1347,34 @@ class ModelRunner:
                 "block"
             )
         b = self.config.max_num_seqs
+        chained = isinstance(token_ids, torch.Tensor)
         c_pad = self._ctx_bucket(max(context_lens) + steps - 1)
-        packed = self._fill_decode_pack(
-            c_pad, steps, token_ids, positions, block_tables, context_lens,
-            temps, top_ps, top_ks, keys, min_ps=min_ps, stop=stop,
-            penalties=penalties, logit_bias=logit_bias,
-        )
+        bias_cap = 0 if logit_bias is None else int(logit_bias[0].shape[1])
+        stop_cap = self._stop_cap(stop)
+        packed_dev = None
+        if staged is not None and chained and staged.key == c_pad:
+            # the stop fields vary with the batch's stop-id cap: a total
+            # length that differs is a stale stage, rebuilt here
+            _, want_total = self._decode_pack_layout(
+                b, c_pad, steps, stop_cap, penalties is not None, bias_cap,
+                chained,
+            )
+            if staged.dev.shape[0] == want_total:
+                packed_dev = self._take(staged)
+        if packed_dev is None:
+            packed_dev = self._upload(self._fill_decode_pack(
+                c_pad, steps, token_ids, positions, block_tables,
+                context_lens, temps, top_ps, top_ks, keys, min_ps=min_ps,
+                stop=stop, penalties=penalties, logit_bias=logit_bias,
+                chained=chained,
+            ))
         core = self._decode_round_core(
             b, c_pad, steps, use_penalties=penalties is not None,
-            want_logprobs=want_logprobs,
-            bias_cap=0 if logit_bias is None else int(
-                logit_bias[0].shape[1]),
-            stop_cap=self._stop_cap(stop),
+            want_logprobs=want_logprobs, bias_cap=bias_cap,
+            stop_cap=stop_cap, chained=chained,
         )
-        consts, carry0 = core["unpack"](self._upload(packed))
+        consts, carry0 = core["unpack"](
+            packed_dev, chained_tokens=token_ids if chained else None)
         ys = core["run"](consts, carry0)
         self.dispatch_counts["decode_multi"] += 1
         return ys
@@ -1068,14 +1473,7 @@ class ModelRunner:
         put("lane_rows", lane_rows)
         put("q_starts", q_starts)
         put("last_rows", last_rows)
-        temps, top_ps, top_ks, min_ps, keys = self._sampling_args(
-            s_cap, sampling
-        )
-        put("temps", temps)
-        put("top_ps", top_ps)
-        put("top_ks", top_ks)
-        put("min_ps", min_ps)
-        put("noise", round_noise(keys, temps, 1, self._top_cap)[0])
+        self._put_sampling(put, s_cap, sampling)
         return r_pad, pc_pad, packed
 
     @staticmethod
@@ -1158,15 +1556,16 @@ class ModelRunner:
     def _ragged_rows_pack_sizes(
         self, r_pad: int, pc_pad: int, b: int, c_pad: int, k_steps: int,
         stop_cap: int | None = None, use_penalties: bool = False,
-        bias_cap: int = 0,
+        bias_cap: int = 0, chained: bool = False,
     ) -> tuple[int, int, int]:
         """(meta, prefill, decode) segment lengths of a ragged round's
         packed buffer: the lane-type header (lane cap + b lanes), the
-        ragged-rows prefill pack, the decode pack."""
+        ragged-rows prefill pack, the decode pack. A staged buffer whose
+        total differs from the dispatch's is stale."""
         meta = self._rows_lane_cap() + b
         _, pf = self._rows_prefill_pack_layout(r_pad, pc_pad)
         _, dec = self._decode_pack_layout(b, c_pad, k_steps, stop_cap,
-                                          use_penalties, bias_cap)
+                                          use_penalties, bias_cap, chained)
         return meta, pf, dec
 
     # stackcheck: hot-path — host build of the ragged round's one h2d
@@ -1176,10 +1575,11 @@ class ModelRunner:
         pf_chunks, pf_start_positions, pf_block_tables, pf_total_lens,
         pf_sampling, c_pad, token_ids, positions, block_tables,
         context_lens, steps, temps, top_ps, top_ks, keys, min_ps=None,
-        stop=None, penalties=None, logit_bias=None,
+        stop=None, penalties=None, logit_bias=None, chained=False,
     ) -> tuple[int, int, np.ndarray]:
         """Lane-type header + ragged-rows prefill pack + decode pack, one
-        int32 buffer. Returns (r_pad, pc_pad, packed)."""
+        int32 buffer (dispatch and staging). Returns (r_pad, pc_pad,
+        packed)."""
         b = self.config.max_num_seqs
         s_cap = self._rows_lane_cap()
         r_pad, pc_pad, pf_packed = self._fill_rows_prefill_pack(
@@ -1189,7 +1589,7 @@ class ModelRunner:
         dec_packed = self._fill_decode_pack(
             c_pad, steps, token_ids, positions, block_tables, context_lens,
             temps, top_ps, top_ks, keys, min_ps=min_ps, stop=stop,
-            penalties=penalties, logit_bias=logit_bias,
+            penalties=penalties, logit_bias=logit_bias, chained=chained,
         )
         types = np.full((s_cap + b,), RAGGED_LANE_IDLE, np.int32)
         types[:len(pf_chunks)] = RAGGED_LANE_PREFILL
@@ -1238,8 +1638,10 @@ class ModelRunner:
                            use_penalties: bool = False,
                            want_logprobs: bool = False,
                            bias_cap: int = 0,
-                           stop_cap: int | None = None):
-        """The unified round as `step(packed)` -> (pf_sampled (s_cap,)
+                           stop_cap: int | None = None,
+                           chained: bool = False):
+        """The unified round as `step(packed, chained_tokens=None)` ->
+        (pf_sampled (s_cap,)
         int32, RAGGED_IDLE_TOKEN on non-prefill lanes; pf_logits (s_cap,
         vocab); decode ys as decode_multi returns them). The prefill
         lanes' rows and the decode lanes' step-0 rows share one row space
@@ -1252,18 +1654,19 @@ class ModelRunner:
         core = self._decode_round_core(
             b, c_pad, k_steps, use_penalties=use_penalties,
             want_logprobs=want_logprobs, bias_cap=bias_cap,
-            stop_cap=stop_cap,
+            stop_cap=stop_cap, chained=chained,
         )
         meta_n, pf_n, _ = self._ragged_rows_pack_sizes(
             r_pad, pc_pad, b, c_pad, k_steps, stop_cap, use_penalties,
-            bias_cap,
+            bias_cap, chained,
         )
         n_pages = max(pc_pad, c_pad) // self.block_size
 
-        def step(packed):
+        def step(packed, chained_tokens=None):
             lane_types = packed[:s_cap]
             pf = pf_step.unpack(packed[meta_n:meta_n + pf_n])
-            consts, carry0 = core["unpack"](packed[meta_n + pf_n:])
+            consts, carry0 = core["unpack"](packed[meta_n + pf_n:],
+                                            chained_tokens=chained_tokens)
             # decode write slots / ctx from the shared core, so frozen-
             # lane trash redirection matches the loop's
             d_tokens, d_positions, d_ws, d_ctx = core["fwd_args"](
@@ -1302,6 +1705,38 @@ class ModelRunner:
 
         return step
 
+    # stackcheck: hot-path — speculative prefetch of the NEXT ragged
+    # round's buffer: enqueue only, no device fetch
+    def stage_ragged(
+        self,
+        pf_chunks: list[list[int]],
+        pf_start_positions: list[int],
+        pf_block_tables: list[list[int]],
+        pf_total_lens: list[int],
+        pf_sampling,
+        positions, block_tables, context_lens, steps,
+        temps, top_ps, top_ks, keys,
+        min_ps=None, stop=None,
+    ) -> StagedBuffer:
+        """Build the predicted next ragged round's packed buffer (its
+        decode half chained: the tokens ride on the device from the
+        current round) and start its copy. Returns a handle for
+        ragged_dispatch(staged=...); the caller validates its
+        fingerprint, and the dispatch its bucket key and total length."""
+        t0 = time.perf_counter()
+        c_pad = self._ctx_bucket(max(context_lens) + max(0, steps - 1))
+        r_pad, pc_pad, packed = self._fill_ragged_rows_pack(
+            pf_chunks, pf_start_positions, pf_block_tables, pf_total_lens,
+            pf_sampling, c_pad, None, positions, block_tables,
+            context_lens, steps, temps, top_ps, top_ks, keys,
+            min_ps=min_ps, stop=stop, chained=True,
+        )
+        t1 = time.perf_counter()
+        self._phase_add("prep", t1 - t0)
+        handle = self._stage(("rows", r_pad, pc_pad, c_pad), packed)
+        self._phase_add("h2d", time.perf_counter() - t1)
+        return handle
+
     # stackcheck: hot-path — ONE packed upload serves the whole lane-typed
     # round; fetches stay with the caller
     @torch.inference_mode()
@@ -1323,11 +1758,17 @@ class ModelRunner:
         want_logprobs: bool = False,
         logit_bias: tuple | None = None,
         stop: tuple | None = None,
+        staged: StagedBuffer | None = None,
     ) -> tuple:
         """One lane-typed round: prefill chunk lanes + fused decode lanes.
         Returns (pf_sampled (s_cap,) int32 on the device, RAGGED_IDLE_TOKEN
         on non-prefill lanes; pf_logits (s_cap, vocab); dec_ys) where
-        dec_ys has decode_multi's return shape for the same flags."""
+        dec_ys has decode_multi's return shape for the same flags.
+        `token_ids` may be a device tensor (chained decode half, see
+        decode_multi); `staged` = a stage_ragged handle, used only when
+        its bucket key AND total length match this dispatch (a lane-mix
+        or stop-cap change since the stage rebuilds here: a counted miss
+        for the engine, never an error)."""
         if steps > self.block_size:
             raise ValueError(
                 f"num_scheduler_steps={steps} > block_size="
@@ -1340,27 +1781,42 @@ class ModelRunner:
                 "PyTorch engine yet: pass --no-ragged-dispatch"
             )
         b = self.config.max_num_seqs
+        chained = isinstance(token_ids, torch.Tensor)
         c_pad = self._ctx_bucket(max(context_lens) + steps - 1)
         bias_cap = 0 if logit_bias is None else int(logit_bias[0].shape[1])
-        t0 = time.perf_counter()
-        r_pad, pc_pad, packed = self._fill_ragged_rows_pack(
-            pf_chunks, pf_start_positions, pf_block_tables, pf_total_lens,
-            pf_sampling, c_pad, token_ids, positions, block_tables,
-            context_lens, steps, temps, top_ps, top_ks, keys, min_ps=min_ps,
-            stop=stop, penalties=penalties, logit_bias=logit_bias,
-        )
-        t1 = time.perf_counter()
-        self._phase_add("prep", t1 - t0)
-        packed_dev = self._upload(packed)
+        stop_cap = self._stop_cap(stop)
+        r_pad, pc_pad = self._rows_dims(pf_chunks, pf_total_lens)
+        packed_dev = None
+        if (staged is not None and chained
+                and staged.key == ("rows", r_pad, pc_pad, c_pad)):
+            want_total = sum(self._ragged_rows_pack_sizes(
+                r_pad, pc_pad, b, c_pad, steps, stop_cap,
+                penalties is not None, bias_cap, chained,
+            ))
+            if staged.dev.shape[0] == want_total:
+                packed_dev = self._take(staged)
+        if packed_dev is None:
+            t0 = time.perf_counter()
+            r_pad, pc_pad, packed = self._fill_ragged_rows_pack(
+                pf_chunks, pf_start_positions, pf_block_tables,
+                pf_total_lens, pf_sampling, c_pad, token_ids, positions,
+                block_tables, context_lens, steps, temps, top_ps, top_ks,
+                keys, min_ps=min_ps, stop=stop, penalties=penalties,
+                logit_bias=logit_bias, chained=chained,
+            )
+            t1 = time.perf_counter()
+            self._phase_add("prep", t1 - t0)
+            packed_dev = self._upload(packed)
+            self._phase_add("h2d", time.perf_counter() - t1)
         t2 = time.perf_counter()
-        self._phase_add("h2d", t2 - t1)
         step = self._build_ragged_rows(
             r_pad, pc_pad, b, c_pad, steps,
             use_penalties=penalties is not None,
             want_logprobs=want_logprobs, bias_cap=bias_cap,
-            stop_cap=self._stop_cap(stop),
+            stop_cap=stop_cap, chained=chained,
         )
-        out = step(packed_dev)
+        out = step(packed_dev,
+                   chained_tokens=token_ids if chained else None)
         self.dispatch_counts["ragged"] += 1
         self._phase_add("dispatch", time.perf_counter() - t2)
         return out

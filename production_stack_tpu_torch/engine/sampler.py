@@ -34,6 +34,7 @@ STOP_PAD_TOKEN = 0
 RAGGED_IDLE_TOKEN = -1
 
 
+# stackcheck: not-hot — numpy Philox draws from host key arrays
 def gumbel_noise(key_data: np.ndarray, top_cap: int = TOP_CAP) -> np.ndarray:
     """(b, 2) uint32 key data -> (b, top_cap) float32 gumbel noise."""
     key_data = np.asarray(key_data, np.uint64).reshape(-1, 2)
@@ -46,6 +47,8 @@ def gumbel_noise(key_data: np.ndarray, top_cap: int = TOP_CAP) -> np.ndarray:
     return out
 
 
+# stackcheck: not-hot — numpy noise of a fused round from host key
+# arrays, built while the buffer is filled
 def round_noise(key_data: np.ndarray, temps: np.ndarray, k_steps: int,
                 top_cap: int = TOP_CAP) -> np.ndarray:
     """(b, 2) base keys -> (k_steps, b, top_cap) noise for a fused round:

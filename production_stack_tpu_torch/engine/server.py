@@ -3,9 +3,10 @@
 Counterpart of ``production_stack_tpu/engine/server.py`` for the
 endpoints this slice serves: ``/health``, ``/v1/models`` (with
 ``max_model_len`` and the PD role), ``/v1/completions`` and
-``/v1/chat/completions`` (both with ``stream``), and a plain-text
-``/metrics`` carrying the ``vllm:*`` gauges the router scrapes and the
-``tpu:*`` decode and ragged-round counters, and
+``/v1/chat/completions`` (both with ``stream``), ``/metrics`` (the JAX
+engine's families the port serves, written by engine/metrics.py: the
+``vllm:*`` families the router scrapes, request latency histograms and
+the ``tpu:*`` prefill, staging, decode and ragged-round families), and
 ``/debug/kernel_launches``, which reads (GET) or zeroes (DELETE) the
 attention kernels' launch counts and the runner's forward dispatches. The
 Prometheus text is written by hand and HTTP/1.1 is parsed by hand
@@ -26,6 +27,7 @@ from production_stack_tpu_torch.engine.async_engine import (
     EngineSleepingError,
 )
 from production_stack_tpu_torch.engine.config import EngineConfig
+from production_stack_tpu_torch.engine.metrics import EngineMetrics
 from production_stack_tpu_torch.ops import paged_attention
 from production_stack_tpu_torch.utils import init_logger
 
@@ -52,6 +54,7 @@ class EngineServer:
         self.engine = AsyncLLMEngine(config, params=params)
         self.model_name = config.served_model_name or config.model
         self.max_model_len = config.resolved_max_model_len()
+        self.metrics = EngineMetrics(self.model_name)
         self._server: asyncio.AbstractServer | None = None
         self._routes = {
             ("GET", "/health"): self.handle_health,
@@ -155,63 +158,7 @@ class EngineServer:
         await _send_json(writer, 200, {"object": "list", "data": [card]})
 
     async def handle_metrics(self, body, writer) -> None:
-        st = self.engine.stats()
-        labels = f'{{model_name="{self.model_name}"}}'
-        lines = []
-        for name, help_, kind, value in (
-            ("vllm:num_requests_running",
-             "Requests currently running on the engine.", "gauge",
-             st.num_running),
-            ("vllm:num_requests_waiting",
-             "Requests waiting to be scheduled.", "gauge", st.num_waiting),
-            ("vllm:gpu_cache_usage_perc",
-             "Fraction of KV cache blocks in use (0-1).", "gauge",
-             st.kv_usage),
-            ("vllm:prompt_tokens_total", "Prefilled prompt tokens.",
-             "counter", st.prompt_tokens_total),
-            ("vllm:generation_tokens_total", "Generated tokens.",
-             "counter", st.generation_tokens_total),
-            ("vllm:num_preemptions_total", "Preempted sequences.",
-             "counter", st.num_preemptions_total),
-        ):
-            lines += [f"# HELP {name} {help_}", f"# TYPE {name} {kind}",
-                      f"{name}{labels} {float(value)}"]
-        # the JAX engine's tpu:* families (counter samples carry _total,
-        # as prometheus_client writes them)
-        for name, help_, value in (
-            ("tpu:decode_rounds", "Decode rounds dispatched",
-             st.decode_rounds_total),
-            ("tpu:decode_overshoot_tokens",
-             "Sampled decode slots discarded by the host past a stop",
-             st.decode_overshoot_tokens_total),
-            ("tpu:decode_early_exit_rounds",
-             "Fused decode rounds whose loop exited before the trip count",
-             st.decode_early_exit_rounds_total),
-            ("tpu:ragged_rounds",
-             "Lane-typed ragged rounds dispatched fused",
-             st.ragged_rounds_total),
-            ("tpu:ragged_split_rounds",
-             "Planned mixed rounds executed as split dispatches",
-             st.ragged_split_rounds_total),
-        ):
-            lines += [f"# HELP {name} {help_}", f"# TYPE {name} counter",
-                      f"{name}_total{labels} {float(value)}"]
-        name = "tpu:decode_k"
-        lines += [f"# HELP {name} Fused decode iterations dispatched per "
-                  "round", f"# TYPE {name} histogram"]
-        for le in (1, 2, 4, 8, 16, 32):
-            seen = sum(n for k, n in st.decode_k_hist.items() if k <= le)
-            lines.append(f'{name}_bucket{{model_name="{self.model_name}",'
-                         f'le="{float(le)}"}} {float(seen)}')
-        total = sum(st.decode_k_hist.values())
-        lines += [
-            f'{name}_bucket{{model_name="{self.model_name}",le="+Inf"}} '
-            f"{float(total)}",
-            f"{name}_count{labels} {float(total)}",
-            f"{name}_sum{labels} "
-            f"{float(sum(k * n for k, n in st.decode_k_hist.items()))}",
-        ]
-        payload = ("\n".join(lines) + "\n").encode()
+        payload = self.metrics.render(self.engine.stats()).encode()
         await _send(writer, 200, payload,
                     "text/plain; version=0.0.4; charset=utf-8")
 
@@ -289,6 +236,7 @@ class EngineServer:
             )
         model = req.get("model") or self.model_name
         request_id = proto.make_id("chatcmpl" if chat else "cmpl")
+        arrival = time.time()
         gen = self.engine.generate(
             request_id, prompt_token_ids=ids, sampling_params=sp,
             priority=int(req.get("priority", 0)),
@@ -298,12 +246,14 @@ class EngineServer:
             # engine refuses still gets a plain error response
             first = await anext(gen)
             await self._stream(first, gen, writer, request_id, model,
-                               chat, len(ids), _wants_usage(req))
+                               chat, len(ids), _wants_usage(req), arrival)
             return
         text, reason, n_out = "", None, 0
         async for out in gen:
             text, reason, n_out = out.text, out.finish_reason, len(
                 out.token_ids)
+            if out.finished:
+                self.metrics.observe_finish(out, arrival)
         if reason == "error":
             raise HttpError(500, "engine step failed")
         make = proto.chat_response if chat else proto.completion_response
@@ -311,7 +261,7 @@ class EngineServer:
             request_id, model, text, reason, len(ids), n_out))
 
     async def _stream(self, first, gen, writer, request_id, model, chat,
-                      n_prompt, include_usage) -> None:
+                      n_prompt, include_usage, arrival) -> None:
         writer.write(_head(200, "text/event-stream", None))
 
         async def event(data: dict) -> None:
@@ -327,6 +277,8 @@ class EngineServer:
         while out is not None:
             n_out = len(out.token_ids)
             reason = out.finish_reason if out.finished else None
+            if out.finished:
+                self.metrics.observe_finish(out, arrival)
             if out.delta_text or reason is not None:
                 if chat:
                     delta = {"content": out.delta_text} if (

@@ -343,3 +343,75 @@ def test_card_wrapper_rejects_host_metadata(cuda_device):
     with pytest.raises(ValueError, match="CPU or all on one"):
         tpa.paged_decode_attention(*args, 0, _t(tables), _t(ctx),
                                    block_size=8, scale=0.1)
+
+
+@pytest.mark.cuda
+def test_staged_buffers_on_busy_streams(cuda_device, monkeypatch):
+    """The staged copies of the prefill pipeline and the decode prefetch
+    run on the runner's side stream: a buffer consumed right after
+    stage_* — with the compute stream busy, and with the copy queued
+    behind a large transfer so that only the event orders it — gives the
+    unstaged dispatch's tokens and logits, and a handle dropped with its
+    copy in flight leaves the next dispatch correct."""
+    import dataclasses
+
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.model_runner import ModelRunner
+    from production_stack_tpu_torch.models.config import get_model_config
+
+    small = dataclasses.replace(get_model_config("pst-tiny-debug"),
+                                num_heads=4, num_kv_heads=2, head_dim=64,
+                                hidden_size=256)
+    monkeypatch.setattr(EngineConfig, "model_config", lambda self: small)
+    cfg = EngineConfig(model="pst-tiny-debug", tokenizer="byte",
+                       dtype="float32", cache_dtype="float32", block_size=8,
+                       num_kv_blocks=64, max_num_seqs=4, max_prefill_chunk=64,
+                       num_scheduler_steps=4, device="cuda")
+    staged, ref = ModelRunner(cfg), ModelRunner(cfg)
+    rng = np.random.RandomState(40)
+    big = torch.empty(64 * 2**20, dtype=torch.float32).pin_memory()
+
+    def hold_back_copies():
+        """The compute stream busy, and the copy stream busy with 256 MB
+        ahead of whatever is staged next."""
+        x = torch.randn((2048, 2048), device=cuda_device)
+        for _ in range(8):
+            x = x @ x * 1e-3
+        staged._stage(None, np.zeros(1, np.int32))  # makes the stream
+        with torch.cuda.stream(staged._copy_stream):
+            big.to(cuda_device, non_blocking=True)
+
+    ids = rng.randint(0, 384, size=40).tolist()
+    args = (ids, 0, [1, 2, 3, 4, 5], len(ids))
+    hold_back_copies()
+    h = staged.stage_prefill(*args)
+    tok, logits = staged.prefill(*args, staged=h)
+    want_tok, want_logits = ref.prefill(*args)
+    torch.cuda.synchronize()
+    assert int(tok) == int(want_tok)
+    assert torch.equal(logits, want_logits)
+
+    # a dropped stage: its pinned source stays held until its copy is done
+    hold_back_copies()
+    dropped = staged.stage_prefill(*args)
+    held = dropped.host.data_ptr()
+    del dropped
+    assert any(src.data_ptr() == held for _, src in staged._inflight)
+    args2 = (ids[:17], 0, [6, 7, 8], 17)
+    tok, logits = staged.prefill(*args2)
+    want_tok, want_logits = ref.prefill(*args2)
+    torch.cuda.synchronize()
+    assert int(tok) == int(want_tok) and torch.equal(logits, want_logits)
+
+    # a chained fused decode round on a staged buffer
+    tables, pos, ctx = [[1, 2, 3, 4, 5, 9, 10]], [40], [41]
+    sampling = (np.zeros(1, np.float32), np.ones(1, np.float32),
+                np.full(1, -1, np.int32), np.zeros((1, 2), np.uint32))
+    first = staged.decode_multi([int(tok)], pos, tables, ctx, 4, *sampling)
+    ref.decode_multi([int(tok)], pos, tables, ctx, 4, *sampling)
+    nxt = ([44], tables, [45])
+    hold_back_copies()
+    h = staged.stage_decode_multi(*nxt, 4, *sampling)
+    got = staged.decode_multi(first[-1], *nxt, 4, *sampling, staged=h)
+    want = ref.decode_multi([int(first[-1][0])], *nxt, 4, *sampling)
+    assert torch.equal(got[:, 0].cpu(), want[:, 0].cpu())

@@ -246,8 +246,12 @@ def test_adaptive_k_shrinks_under_cold_prefill(np_params, jax_streams):
     long_prompt = list(range(1, 30))
 
     def run(adaptive):
+        # without the prefill pipeline, as the reference's test runs it:
+        # its staged bypass drains the cold chunks before any decode
+        # round sees the backlog
         eng = _engine(np_params, 8, max_num_seqs=2, num_kv_blocks=128,
-                      max_prefill_chunk=8, adaptive_decode_k=adaptive)
+                      max_prefill_chunk=8, adaptive_decode_k=adaptive,
+                      prefill_pipeline=False)
         eng.ks = []  # every round's K, in order
         note = eng._note_decode_round
         eng._note_decode_round = lambda seqs, k: (eng.ks.append(k),

@@ -301,7 +301,11 @@ def test_host_sampled_final_runs_the_plan_split(np_params, jax_outputs):
 def test_preemption_in_mixed_rounds_matches_jax(np_params, jax_outputs):
     """A pool too small for three lanes preempts during mixed rounds; the
     recomputed lane with a penalty takes its first token on the host, so
-    that round runs split. Streams still equal the JAX engine's."""
+    that round runs split. Streams still equal the JAX engine's. The
+    engine runs without the prefill pipeline and the decode prefetch, as
+    the reference engine does: with them, the JAX engine and the port
+    both compose this mix without a split round
+    (test_torch_prefill_pipeline.py holds their round kinds equal)."""
     rng = np.random.RandomState(3)
     arrivals = [(t, rid, rng.randint(0, 384, size=n).tolist())
                 for t, rid, n in ((0, "a", 24), (2, "b", 30), (3, "c", 20))]
@@ -309,7 +313,8 @@ def test_preemption_in_mixed_rounds_matches_jax(np_params, jax_outputs):
            "b": _greedy(24, ignore_eos=True, repetition_penalty=1.2),
            "c": _greedy(20, ignore_eos=True)}
     want = jax_outputs(arrivals, kws)
-    eng = _engine(np_params, num_kv_blocks=11, enable_prefix_caching=False)
+    eng = _engine(np_params, num_kv_blocks=11, enable_prefix_caching=False,
+                  prefill_pipeline=False, prefetch_decode=False)
     got = _run_staggered(eng, arrivals, kws)
     assert {r: o.token_ids for r, o in got.items()} == {
         r: o.token_ids for r, o in want.items()}

@@ -182,14 +182,15 @@ def test_refusals(port, path, body, status):
 
 def test_metrics_tpu_counters(port):
     """The JAX engine's decode and ragged-round families, under its own
-    names: counters with their _total samples, the decode_k histogram."""
+    names: counters written as prometheus_client writes them (x_total in
+    the TYPE line and the sample), the decode_k histogram."""
     st, _, text = call(port, "/metrics")
     samples = {ln.split("{")[0]: float(ln.rsplit(" ", 1)[1])
                for ln in text.splitlines() if ln and not ln.startswith("#")}
     for family in ("tpu:decode_rounds", "tpu:ragged_rounds",
                    "tpu:ragged_split_rounds", "tpu:decode_early_exit_rounds",
                    "tpu:decode_overshoot_tokens"):
-        assert f"# TYPE {family} counter" in text
+        assert f"# TYPE {family}_total counter" in text
         assert samples[f"{family}_total"] >= 0
     assert "# TYPE tpu:decode_k histogram" in text
     assert samples["tpu:decode_k_count"] == samples["tpu:decode_rounds_total"]
