@@ -32,7 +32,17 @@ Phases, each fatal on failure:
 3. forward: the same random params through models/llama.forward on the
    CPU (plain versions) and on the card (kernels), 2 layers at full 3B
    width, bf16; logits held to a stated tolerance;
-4. serve: the port's CLI (python -m production_stack_tpu_torch.engine)
+4. families: HF checkpoints of the published configs of Qwen2-7B (28
+   query heads over 4 kv heads, qkv bias), Mistral-7B-v0.1 (a 4096-token
+   window) and Llama-3.2-1B (head_dim 64, tied embeddings), cut to 2
+   layers, written from seeded params (models/debug_checkpoint.py),
+   read back through models/weights.py onto the card byte for byte,
+   logits held to the CPU as in phase 3, and an engine booted on each
+   directory generates; a 5000-token Mistral prompt (past its window,
+   ten prefill chunks) on the prefill kernel is held to the same
+   forward on the plain attention on the card; a Gemma-7B config
+   (head_dim 256) is refused at boot with a message naming it;
+5. serve: the port's CLI (python -m production_stack_tpu_torch.engine)
    starts its OpenAI server on loopback with llama-3.2-3b (all 28
    layers, random bf16 weights, byte tokenizer) on its default config
    (unified ragged rounds, prefill pipeline, decode prefetch) in a child
@@ -48,7 +58,7 @@ Phases, each fatal on failure:
    that the ragged kernel launched 28 times a forward and the prefill
    kernel 28 times a single-sequence prefill; prints the staged prefill
    hits, misses and chained chunks;
-5. decode kernel: one ModelRunner.decode step of the 28-layer model over
+6. decode kernel: one ModelRunner.decode step of the 28-layer model over
    the same cache state on the ragged kernel and on
    paged_decode_attention, logits held to a stated tolerance, which the
    same step with a planted fault (a lane longer than one split loses
@@ -59,7 +69,7 @@ Phases, each fatal on failure:
    ragged engine's top-2 logprob gap at the first differing step is
    below the largest logit difference the direct step measured (the
    first divergence is printed);
-6. pipeline: an in-process 28-layer bf16 engine on the default config
+7. pipeline: an in-process 28-layer bf16 engine on the default config
    takes a cold ~1500-token prompt alone and must chain its three
    512-token chunks in one engine step with one fetch; the buffers of
    stage_prefill, stage_prefill_batch, stage_decode_multi and
@@ -69,7 +79,7 @@ Phases, each fatal on failure:
    and logits; prints the prefill phase seconds (prep, h2d, dispatch,
    fetch) of the same prompts on this engine and on one with
    --no-prefill-pipeline --no-prefetch-decode;
-7. mixed rounds: in-process 28-layer bf16 engines with
+8. mixed rounds: in-process 28-layer bf16 engines with
    num_scheduler_steps=8 (unified ragged rounds, device stops, adaptive
    K), one on the default config and one without the prefill pipeline
    and the decode prefetch, and a split K=1 engine, serve four greedy
@@ -81,14 +91,34 @@ Phases, each fatal on failure:
    of each mixed round, and a torch.profiler breakdown of one mixed
    round's device time (host clock; reported beside the card's name and
    power limit and the reads taken before staging existed, not
-   claims).
+   claims);
+9. checkpoint: the seeded llama-3.2-3b params (28 layers, bf16) written
+   as an HF checkpoint (two shards, 6.4 GB) in a temporary directory
+   under build/ that the phase removes, read back byte for byte (write
+   and load seconds printed), then served by the CLI with --model <dir>
+   --enable-lora --max-loras 4 --max-lora-rank 16 --num-scheduler-steps
+   8; two PEFT adapters (rank 16 and 8, q/k/v/o) written by
+   engine/lora.py are loaded over /v1/load_lora_adapter and listed by
+   /v1/models; three short and three ~1100-token requests (base, each
+   adapter) are sent at once, so prefill chunks and decode rows of
+   different slots share ragged rounds (token ids read back through
+   return_tokens_as_token_ids); launches held to 28 a forward; an
+   unloaded adapter's name gets 404. In process on the same
+   directory: one decode step with lanes [base, ad16, base, ad8] leaves
+   the base lanes' logits bit-equal to the step without adapters; the
+   base streams are held to an engine without LoRA and each adapter's
+   to an engine on merged weights W + A @ B, under the near-tie rule
+   (an adapter's tolerance is at least the LoRA vs merged forward's
+   max|dlogit| over 256 rows).
 
 Launch counts are reset just before the serve phase's requests (through
 the server's /debug/kernel_launches), before the decode phase's
 --no-ragged-kernel engine, before each pipeline-phase engine and before
-each mixed-round engine, and read just after; a kernel launched 0 times
-on those paths fails the run. The
-server's log goes to build/chip_smoke_serve.log. The last lines are the kernels JSON, the
+each mixed-round engine and before the checkpoint phase's requests, and
+read just after; a kernel launched 0 times on those paths fails the
+run. The
+servers' logs go to build/chip_smoke_serve.log and
+build/chip_smoke_lora_serve.log. The last lines are the kernels JSON, the
 card's name and power limit (nvidia-smi), and {"ok": true, "device":
 {...}}.
 """
@@ -544,6 +574,74 @@ def kernel_phase(torch) -> list[tuple[str, dict]]:
 
 
 # -- forward phase -------------------------------------------------------------
+def two_step_logits(torch, pa, cfg, params, dev):
+    """Logits of a 40-token prompt's last row (one 64-row prefill chunk on
+    paged_prefill_attention) and of one decode step after it (a
+    single-row segment on ragged_paged_attention), through
+    models/llama.forward on `dev`'s params; (2, vocab) f32 on the CPU."""
+    from production_stack_tpu_torch.models import llama
+
+    bs, n_blocks = 32, 16
+    scale = cfg.head_dim**-0.5
+    t, first = 64, 40  # a 40-token prompt padded to a 64-row chunk
+    shape = (cfg.num_layers, cfg.num_kv_heads, n_blocks * bs, cfg.head_dim)
+    kc = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    vc = torch.zeros_like(kc)
+    table = torch.arange(1, 4, dtype=torch.int32, device=dev)
+    toks = torch.arange(t, device=dev) * 37 % cfg.vocab_size
+    pos = torch.arange(t, device=dev)
+    pos[first:] = 0
+    slots = torch.arange(t, device=dev) + bs
+    slots[first:] = 0
+
+    def attn_pf(q, l, k, v):
+        return pa.paged_prefill_attention(q, k, v, l, table, 0,
+                                          block_size=bs, scale=scale,
+                                          window=cfg.sliding_window)
+
+    lg1, _, _ = llama.forward(
+        cfg, params, toks, pos, kc, vc, slots, attn_pf,
+        logits_rows=torch.tensor([first - 1], device=dev))
+    blk = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    meta = torch.tensor([[0, 0, 1, first]], dtype=torch.int32, device=dev)
+
+    def attn_dec(q, l, k, v):
+        qp = torch.zeros((8,) + tuple(q.shape[1:]), dtype=q.dtype,
+                         device=dev)
+        qp[:1] = q
+        return pa.ragged_paged_attention(
+            qp, k, v, l, table[None, :], blk, meta, block_size=bs,
+            scale=scale, window=cfg.sliding_window)[:1]
+
+    lg2, _, _ = llama.forward(
+        cfg, params, torch.tensor([5], device=dev),
+        torch.tensor([first], device=dev), kc, vc,
+        torch.tensor([bs + first], device=dev), attn_dec,
+        logits_rows=torch.tensor([0], device=dev))
+    return torch.cat([lg1, lg2]).float().cpu()
+
+
+def tree_to(tree, dev):
+    return {k: tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def card_vs_cpu(torch, pa, what, cfg, params_gpu) -> float:
+    """two_step_logits on the card (kernels) against the CPU (plain
+    versions) on the same params; fails above LOGIT_REL_TOL."""
+    ref = two_step_logits(torch, pa, cfg, tree_to(params_gpu, "cpu"), "cpu")
+    got = two_step_logits(torch, pa, cfg, params_gpu, "cuda")
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        fail(f"{what}: non-finite logits on the card")
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    print(f"{what}: logits {tuple(got.shape)} card vs CPU "
+          f"max|d|/max|ref|={rel:.3e} tol={LOGIT_REL_TOL}", flush=True)
+    if not rel <= LOGIT_REL_TOL:
+        fail(f"{what}: relative logit error {rel} > {LOGIT_REL_TOL}")
+    return rel
+
+
 def forward_phase(torch) -> None:
     import dataclasses
 
@@ -553,68 +651,11 @@ def forward_phase(torch) -> None:
 
     cfg = dataclasses.replace(get_model_config("llama-3.2-3b"),
                               num_layers=2)
-    bs, n_blocks = 32, 16
-    gen = torch.Generator(device="cpu").manual_seed(SEED)
-    params_cpu = llama.init_params(cfg, gen, torch.bfloat16, "cpu")
-
-    def to(tree, dev):
-        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev)
-                for k, v in tree.items()}
-
-    params_gpu = to(params_cpu, "cuda")
-    scale = cfg.head_dim**-0.5
-    t, first = 64, 40  # a 40-token prompt padded to a 64-row chunk
-
-    def run(dev, params):
-        shape = (cfg.num_layers, cfg.num_kv_heads, n_blocks * bs,
-                 cfg.head_dim)
-        kc = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
-        vc = torch.zeros_like(kc)
-        table = torch.arange(1, 4, dtype=torch.int32, device=dev)
-        toks = torch.arange(t, device=dev) * 37 % cfg.vocab_size
-        pos = torch.arange(t, device=dev)
-        pos[first:] = 0
-        slots = torch.arange(t, device=dev) + bs
-        slots[first:] = 0
-
-        def attn_pf(q, l, k, v):
-            return pa.paged_prefill_attention(q, k, v, l, table, 0,
-                                              block_size=bs, scale=scale)
-
-        lg1, _, _ = llama.forward(
-            cfg, params, toks, pos, kc, vc, slots, attn_pf,
-            logits_rows=torch.tensor([first - 1], device=dev))
-        # one decode step on the ragged kernel (single-row segment)
-        blk = torch.tensor([0, 1], dtype=torch.int32, device=dev)
-        meta = torch.tensor([[0, 0, 1, first]], dtype=torch.int32,
-                            device=dev)
-
-        def attn_dec(q, l, k, v):
-            qp = torch.zeros((8,) + tuple(q.shape[1:]), dtype=q.dtype,
-                             device=dev)
-            qp[:1] = q
-            return pa.ragged_paged_attention(
-                qp, k, v, l, table[None, :], blk, meta, block_size=bs,
-                scale=scale)[:1]
-
-        lg2, _, _ = llama.forward(
-            cfg, params, torch.tensor([5], device=dev),
-            torch.tensor([first], device=dev), kc, vc,
-            torch.tensor([bs + first], device=dev), attn_dec,
-            logits_rows=torch.tensor([0], device=dev))
-        return torch.cat([lg1, lg2]).float().cpu()
-
-    ref = run("cpu", params_cpu)
-    got = run("cuda", params_gpu)
-    torch.cuda.synchronize()
-    if not torch.isfinite(got).all():
-        fail("forward: non-finite logits on the card")
-    rel = float((got - ref).abs().max() / ref.abs().max())
-    print(f"forward llama-3.2-3b x2 layers bf16: logits {tuple(got.shape)} "
-          f"max|d|/max|ref|={rel:.3e} tol={LOGIT_REL_TOL}", flush=True)
-    if not rel <= LOGIT_REL_TOL:
-        fail(f"forward: relative logit error {rel} > {LOGIT_REL_TOL}")
-    del params_gpu
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = llama.init_params(cfg, gen, torch.bfloat16, "cuda")
+    card_vs_cpu(torch, pa, "forward llama-3.2-3b x2 layers bf16", cfg,
+                params)
+    del params
     torch.cuda.empty_cache()
 
 
@@ -637,14 +678,15 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def start_server(port: int, log_path: Path) -> subprocess.Popen:
+def start_server(port: int, log_path: Path, model: str = "llama-3.2-3b",
+                 extra: tuple = ()) -> subprocess.Popen:
     """The port's CLI in a child process, as a user starts it."""
     cmd = [
         sys.executable, "-m", "production_stack_tpu_torch.engine",
-        "--model", "llama-3.2-3b", "--tokenizer", "byte",
+        "--model", model, "--tokenizer", "byte",
         "--block-size", "32", "--num-kv-blocks", "1024",
         "--max-num-seqs", "8", "--seed", str(SEED),
-        "--host", "127.0.0.1", "--port", str(port),
+        "--host", "127.0.0.1", "--port", str(port), *extra,
     ]
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -727,29 +769,33 @@ def check_launches(what: str, launches: dict, dispatches: dict) -> None:
              f"{want}")
 
 
+def wait_healthy(what: str, proc, port: int, log_path: Path,
+                 t0: float) -> float:
+    """Seconds from t0 until the server answers /health with 200."""
+    while True:
+        if proc.poll() is not None:
+            fail(f"{what}: server exited with {proc.returncode}:\n"
+                 f"{log_tail(log_path)}")
+        if time.perf_counter() - t0 > 600:
+            fail(f"{what}: server not healthy after 600 s:\n"
+                 f"{log_tail(log_path)}")
+        try:
+            st, body = http(port, "/health", timeout=5)
+            if st == 200 and json.loads(body)["status"] == "healthy":
+                return time.perf_counter() - t0
+        except OSError:
+            pass
+        time.sleep(0.5)
+
+
 def serve_phase() -> dict:
     port = free_port()
     log_path = REPO / "build" / "chip_smoke_serve.log"
     t0 = time.perf_counter()
     proc = start_server(port, log_path)
     try:
-        while True:
-            if proc.poll() is not None:
-                fail(f"serve: server exited with {proc.returncode}:\n"
-                     f"{log_tail(log_path)}")
-            if time.perf_counter() - t0 > 600:
-                fail(f"serve: server not healthy after 600 s:\n"
-                     f"{log_tail(log_path)}")
-            try:
-                st, body = http(port, "/health", timeout=5)
-                if st == 200:
-                    break
-            except OSError:
-                pass
-            time.sleep(0.5)
-        print(f"serve: healthy {time.perf_counter() - t0:.1f}s after "
-              "start", flush=True)
-        assert json.loads(body)["status"] == "healthy", body
+        boot = wait_healthy("serve", proc, port, log_path, t0)
+        print(f"serve: healthy {boot:.1f}s after start", flush=True)
         card = json.loads(http(port, "/v1/models")[1])["data"][0]
         assert card["id"] == "llama-3.2-3b" and card["max_model_len"], card
         assert "kv_role" not in card or card["kv_role"] is None, card
@@ -1373,6 +1419,511 @@ def mixed_phase(torch, pa, gap_tol: float, smi: str) -> dict:
     return launches[default]
 
 
+# -- families phase ------------------------------------------------------------
+# published config.json of each model (Hugging Face Hub, the model's main
+# revision; fields the loader does not read left out), cut to 2 layers
+FAMILY_CONFIGS = {
+    # Qwen/Qwen2-7B: 28 query heads over 4 kv heads (g = 7), qkv bias;
+    # its sliding_window is off (use_sliding_window false)
+    "Qwen2-7B": {
+        "architectures": ["Qwen2ForCausalLM"], "hidden_act": "silu",
+        "hidden_size": 3584, "intermediate_size": 18944,
+        "max_position_embeddings": 131072, "max_window_layers": 28,
+        "num_attention_heads": 28, "num_hidden_layers": 28,
+        "num_key_value_heads": 4, "rms_norm_eps": 1e-06,
+        "rope_theta": 1000000.0, "sliding_window": 131072,
+        "tie_word_embeddings": False, "use_sliding_window": False,
+        "vocab_size": 152064},
+    # mistralai/Mistral-7B-v0.1: a 4096-token sliding window
+    "Mistral-7B-v0.1": {
+        "architectures": ["MistralForCausalLM"], "hidden_act": "silu",
+        "hidden_size": 4096, "intermediate_size": 14336,
+        "max_position_embeddings": 32768, "num_attention_heads": 32,
+        "num_hidden_layers": 32, "num_key_value_heads": 8,
+        "rms_norm_eps": 1e-05, "rope_theta": 10000.0,
+        "sliding_window": 4096, "tie_word_embeddings": False,
+        "vocab_size": 32000},
+    # meta-llama/Llama-3.2-1B: head_dim 64, tied embeddings
+    "Llama-3.2-1B": {
+        "architectures": ["LlamaForCausalLM"], "head_dim": 64,
+        "hidden_act": "silu", "hidden_size": 2048,
+        "intermediate_size": 8192, "max_position_embeddings": 131072,
+        "num_attention_heads": 32, "num_hidden_layers": 16,
+        "num_key_value_heads": 8, "rms_norm_eps": 1e-05,
+        "rope_theta": 500000.0, "tie_word_embeddings": True,
+        "vocab_size": 128256},
+}
+# google/gemma-7b: head_dim 256, which the card kernels do not take
+GEMMA_7B = {
+    "architectures": ["GemmaForCausalLM"], "head_dim": 256,
+    "hidden_act": "gelu", "hidden_size": 3072, "intermediate_size": 24576,
+    "max_position_embeddings": 8192, "num_attention_heads": 16,
+    "num_hidden_layers": 28, "num_key_value_heads": 16,
+    "rms_norm_eps": 1e-06, "rope_theta": 10000.0, "vocab_size": 256000}
+FAMILY_LAYERS = 2
+# the Mistral prompt past its window: ten prefill chunks of <= 512 rows
+WINDOW_PROMPT_TOKENS = 5000
+
+
+def tree_equal(torch, got: dict, want: dict) -> bool:
+    """Same keys and, leaf for leaf, the same dtype, shape and bytes."""
+    if sorted(got) != sorted(want):
+        return False
+    return all(
+        tree_equal(torch, got[k], want[k]) if isinstance(want[k], dict)
+        else (got[k].dtype == want[k].dtype
+              and torch.equal(got[k], want[k]))
+        for k in want)
+
+
+def chunked_logits(torch, pa, cfg, params, n_tok: int, plain: bool,
+                   window="cfg"):
+    """The last row's logits of each <= 512-row prefill chunk of an
+    n_tok-token prompt on the card, attention through the prefill kernel
+    or (`plain`) its plain version, with the config's window (or
+    `window`)."""
+    from production_stack_tpu_torch.models import llama
+
+    bs, chunk = 32, 512
+    win = cfg.sliding_window if window == "cfg" else window
+    pages = -(-n_tok // bs)
+    shape = (cfg.num_layers, cfg.num_kv_heads, (pages + 1) * bs,
+             cfg.head_dim)
+    kc = torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+    vc = torch.zeros_like(kc)
+    table = torch.arange(1, pages + 1, dtype=torch.int32, device="cuda")
+    ids = torch.arange(n_tok, device="cuda") * 7919 % cfg.vocab_size
+    fn = (pa.paged_prefill_attention_plain if plain
+          else pa.paged_prefill_attention)
+    out = []
+    for s0 in range(0, n_tok, chunk):
+        t = min(chunk, n_tok - s0)
+        pos = torch.arange(s0, s0 + t, device="cuda")
+
+        def attn(q, l, k, v, s0=s0):
+            return fn(q, k, v, l, table, s0, block_size=bs,
+                      scale=cfg.head_dim**-0.5, window=win)
+
+        lg, _, _ = llama.forward(
+            cfg, params, ids[s0:s0 + t], pos, kc, vc, pos + bs, attn,
+            logits_rows=torch.tensor([t - 1], device="cuda"))
+        out.append(lg)
+    return torch.cat(out).float()
+
+
+def families_phase(torch, pa, smi: str) -> None:
+    """HF checkpoints of published configs at full width, cut to 2
+    layers: written from seeded params (qkv biases drawn too), read back
+    byte for byte through models/weights.py onto the card, logits held
+    to the CPU, a short greedy run through an engine booted on the
+    directory; the Mistral prompt past its window held to the plain
+    attention on the card; Gemma-7B's head_dim 256 refused at boot."""
+    import shutil
+    import tempfile
+
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.llm_engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.models.config import get_model_config
+    from production_stack_tpu_torch.models.debug_checkpoint import (
+        write_hf_checkpoint,
+    )
+    from production_stack_tpu_torch.models.weights import load_hf_weights
+
+    (REPO / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="families-", dir=REPO / "build"))
+    try:
+        for i, (name, published) in enumerate(FAMILY_CONFIGS.items()):
+            d = root / name
+            d.mkdir()
+            hf = dict(published, num_hidden_layers=FAMILY_LAYERS)
+            (d / "config.json").write_text(json.dumps(hf))
+            cfg = get_model_config(str(d))
+            g_heads = cfg.num_heads // cfg.num_kv_heads
+            gen = torch.Generator(device="cuda").manual_seed(SEED + i)
+            params = llama.init_params(cfg, gen, torch.bfloat16, "cuda")
+            if cfg.qkv_bias:
+                for b in ("bq", "bk", "bv"):
+                    params["layers"][b] = (torch.randn(
+                        params["layers"][b].shape, generator=gen,
+                        device="cuda") * 0.5).bfloat16()
+            t0 = time.perf_counter()
+            write_hf_checkpoint(str(d), hf, params)
+            t1 = time.perf_counter()
+            loaded = load_hf_weights(cfg, str(d), torch.bfloat16, "cuda")
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            print(f"families phase {name}: head_dim {cfg.head_dim}, g "
+                  f"{g_heads}, window {cfg.sliding_window}, qkv bias "
+                  f"{cfg.qkv_bias}, tied {cfg.tie_word_embeddings}, "
+                  f"{FAMILY_LAYERS} layers: wrote {t1 - t0:.2f}s, loaded "
+                  f"{t2 - t1:.2f}s", flush=True)
+            if not tree_equal(torch, loaded, params):
+                fail(f"families phase {name}: the loaded params differ "
+                     "from the written ones")
+            del params
+            card_vs_cpu(torch, pa, f"families phase {name}", cfg, loaded)
+            if cfg.sliding_window:
+                kern = chunked_logits(torch, pa, cfg, loaded,
+                                      WINDOW_PROMPT_TOKENS, plain=False)
+                plain = chunked_logits(torch, pa, cfg, loaded,
+                                       WINDOW_PROMPT_TOKENS, plain=True)
+                full = chunked_logits(torch, pa, cfg, loaded,
+                                      WINDOW_PROMPT_TOKENS, plain=False,
+                                      window=None)
+                torch.cuda.synchronize()
+                top = float(plain.abs().max())
+                rel = float((kern - plain).abs().max()) / top
+                rel_full = float((full[-1] - plain[-1]).abs().max()) / top
+                print(f"families phase {name}: a {WINDOW_PROMPT_TOKENS}-"
+                      f"token prompt past the {cfg.sliding_window}-token "
+                      f"window, last rows of {kern.shape[0]} chunks, "
+                      f"kernel vs plain on the card max|d|/max|ref|="
+                      f"{rel:.3e} tol={LOGIT_REL_TOL} (the same kernel "
+                      f"without the window moves the last chunk's row by "
+                      f"{rel_full:.3e})", flush=True)
+                if not (torch.isfinite(kern).all() and rel <= LOGIT_REL_TOL):
+                    fail(f"families phase {name}: windowed prompt logits "
+                         f"differ by {rel:.3e}")
+            del loaded
+            torch.cuda.empty_cache()
+            eng = LLMEngine(EngineConfig(
+                model=str(d), tokenizer="byte", device="cuda",
+                block_size=32, num_kv_blocks=64, max_num_seqs=4, seed=SEED))
+            outs = eng.generate(
+                [[(5 * j + i) % 250 + 1 for j in range(n)] for n in (9, 77)],
+                SamplingParams(max_tokens=8, temperature=0,
+                               ignore_eos=True))
+            if [len(o.token_ids) for o in outs] != [8, 8]:
+                fail(f"families phase {name}: engine on the checkpoint "
+                     f"gave {[o.token_ids for o in outs]}")
+            print(f"families phase {name}: engine booted on the "
+                  f"directory, greedy tokens {[o.token_ids for o in outs]}",
+                  flush=True)
+            del eng
+            shutil.rmtree(d)
+            torch.cuda.empty_cache()
+        d = root / "gemma-7b"
+        d.mkdir()
+        (d / "config.json").write_text(json.dumps(GEMMA_7B))
+        try:
+            LLMEngine(EngineConfig(model=str(d), tokenizer="byte",
+                                   device="cuda", num_kv_blocks=64))
+        except ValueError as e:
+            if "gemma-7b" not in str(e) or "head_dim 256" not in str(e):
+                fail(f"families phase: Gemma-7B refused without naming "
+                     f"it: {e}")
+            print(f"families phase: Gemma-7B refused at boot: {e}",
+                  flush=True)
+        else:
+            fail("families phase: Gemma-7B (head_dim 256) booted on the "
+                 "card")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# -- checkpoint phase ----------------------------------------------------------
+class Stream:
+    """A greedy stream read over HTTP: token ids (vLLM's
+    return_tokens_as_token_ids) for near_tie_check."""
+
+    def __init__(self, token_ids):
+        self.token_ids = token_ids
+
+
+def lora_weights(torch, cfg, rank: int, seed: int) -> dict:
+    """Seeded adapter arrays for q/k/v/o, ours (L, in, r) / (L, r, out),
+    bf16: with scaling 1 each moves its projection by about half the
+    base projection's spread (A ~ N(0, 1/in), B ~ N(0, 1/(4 r)))."""
+    g = torch.Generator().manual_seed(seed)
+    h, L = cfg.hidden_size, cfg.num_layers
+    dims = {"wq": (h, cfg.q_size), "wk": (h, cfg.kv_size),
+            "wv": (h, cfg.kv_size), "wo": (cfg.q_size, h)}
+    w = {}
+    for t, (din, dout) in dims.items():
+        w[f"{t}_A"] = (torch.randn((L, din, rank), generator=g)
+                       * din**-0.5).bfloat16()
+        w[f"{t}_B"] = (torch.randn((L, rank, dout), generator=g)
+                       * 0.5 * rank**-0.5).bfloat16()
+    return w
+
+
+def merged_params(torch, params: dict, w: dict) -> dict:
+    """The base params with W + A @ B (scaling 1) in every target,
+    summed in f32 and rounded to bf16 once."""
+    layers = dict(params["layers"])
+    for t in ("wq", "wk", "wv", "wo"):
+        delta = torch.bmm(w[f"{t}_A"].cuda().float(),
+                          w[f"{t}_B"].cuda().float())
+        layers[t] = (layers[t].float() + delta).bfloat16()
+    return {**params, "layers": layers}
+
+
+def all_row_logits(torch, pa, cfg, params, ids, lora=None, slot=None):
+    """f32 logits of every row of one prompt (one prefill chunk on the
+    prefill kernel), optionally with one adapter slot."""
+    from production_stack_tpu_torch.models import llama
+
+    bs, T = 32, len(ids)
+    pages = -(-T // bs)
+    shape = (cfg.num_layers, cfg.num_kv_heads, (pages + 1) * bs,
+             cfg.head_dim)
+    kc = torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+    vc = torch.zeros_like(kc)
+    table = torch.arange(1, pages + 1, dtype=torch.int32, device="cuda")
+    pos = torch.arange(T, device="cuda")
+
+    def attn(q, l, k, v):
+        return pa.paged_prefill_attention(q, k, v, l, table, 0,
+                                          block_size=bs,
+                                          scale=cfg.head_dim**-0.5)
+
+    kw = {} if lora is None else {"lora": lora, "lora_slots": slot}
+    lg, _, _ = llama.forward(cfg, params, torch.tensor(ids, device="cuda"),
+                             pos, kc, vc, pos + bs, attn, logits_rows=pos,
+                             **kw)
+    return lg
+
+
+# the checkpoint phase's long prompts: three prefill chunks each
+LORA_LONG_PROMPT_TOKENS = 1100
+
+
+def checkpoint_phase(torch, pa, gap_tol: float, smi: str) -> dict:
+    """llama-3.2-3b at full width and depth as an HF checkpoint: written
+    from seeded bf16 params (sharded as HF shards it), read back byte for
+    byte, served by the CLI with --enable-lora; two PEFT adapters (rank
+    16 and 8) loaded over HTTP; base and adapter requests sent at once,
+    so prefill chunks and decode rows of different slots share ragged
+    rounds. The base streams are held to an engine without LoRA, each
+    adapter's to an engine on merged weights, under the near-tie rule;
+    one in-process decode step shows a base lane's logits unchanged to
+    the bit by the adapters beside it. Returns the served run's kernel
+    launches."""
+    import shutil
+    import tempfile
+    import urllib.error
+
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.llm_engine import LLMEngine
+    from production_stack_tpu_torch.engine.lora import write_peft_adapter
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.models.config import get_model_config
+    from production_stack_tpu_torch.models.debug_checkpoint import (
+        hf_config_of,
+        write_hf_checkpoint,
+    )
+    from production_stack_tpu_torch.models.weights import load_hf_weights
+
+    cfg = get_model_config("llama-3.2-3b")
+    (REPO / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="ckpt-", dir=REPO / "build"))
+    ckdir = str(root / "llama-3.2-3b")
+    proc = None
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = llama.init_params(cfg, gen, torch.bfloat16, "cuda")
+        t0 = time.perf_counter()
+        # HF ships Llama-3.2-3B in two shards of <= 5 GB
+        shards = write_hf_checkpoint(ckdir, hf_config_of(cfg), params,
+                                     shard_bytes=5 * 10**9)
+        t1 = time.perf_counter()
+        loaded = load_hf_weights(get_model_config(ckdir), ckdir,
+                                 torch.bfloat16, "cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+        size = sum(os.path.getsize(p) for p in shards)
+        print(f"checkpoint phase: wrote {len(shards)} shards, "
+              f"{size / 1e9:.2f} GB, in {t1 - t0:.2f}s; load_hf_weights "
+              f"onto the card in {load_s:.2f}s ({size / load_s / 1e9:.2f} "
+              f"GB/s) on {smi}", flush=True)
+        if not tree_equal(torch, loaded, params):
+            fail("checkpoint phase: the loaded params differ from the "
+                 "written ones")
+        del loaded, params
+        torch.cuda.empty_cache()
+
+        ranks = {"ad16": 16, "ad8": 8}
+        weights = {name: lora_weights(torch, cfg, r, SEED + r)
+                   for name, r in ranks.items()}
+        for name, r in ranks.items():
+            write_peft_adapter(str(root / name), weights[name],
+                               lora_alpha=float(r))  # scaling 1
+
+        port = free_port()
+        log_path = REPO / "build" / "chip_smoke_lora_serve.log"
+        t0 = time.perf_counter()
+        proc = start_server(port, log_path, model=ckdir, extra=(
+            "--enable-lora", "--max-loras", "4", "--max-lora-rank", "16",
+            "--num-scheduler-steps", "8"))
+        boot = wait_healthy("checkpoint phase", proc, port, log_path, t0)
+        print(f"checkpoint phase: --model <dir> --enable-lora server "
+              f"healthy {boot:.1f}s after start (the load included) on "
+              f"{smi}", flush=True)
+        for name in ranks:
+            st, body = http(port, "/v1/load_lora_adapter", {
+                "lora_name": name, "lora_path": str(root / name)})
+            if st != 200:
+                fail(f"checkpoint phase: loading {name}: {body}")
+        ids = [c["id"] for c in json.loads(http(port, "/v1/models")[1])[
+            "data"]]
+        if ids != [ckdir, "ad16", "ad8"]:
+            fail(f"checkpoint phase: /v1/models lists {ids}")
+
+        models = [None, "ad16", "ad8"]
+        short = {m: [(9 * i + 5 * j) % 250 + 1 for j in range(20 + 7 * i)]
+                 for i, m in enumerate(models)}
+        long = {m: [(11 * i + 3 * j) % 250 + 1
+                    for j in range(LORA_LONG_PROMPT_TOKENS)]
+                for i, m in enumerate(models)}
+        n_short, n_long = 40, 8
+
+        def completion(ids, n, model):
+            body = {"prompt": ids, "max_tokens": n, "temperature": 0,
+                    "ignore_eos": True, "logprobs": 1,
+                    "return_tokens_as_token_ids": True}
+            if model is not None:
+                body["model"] = model
+            st, text = http(port, "/v1/completions", body)
+            r = json.loads(text)
+            toks = r["choices"][0]["logprobs"]["tokens"]
+            if st != 200 or len(toks) != n:
+                fail(f"checkpoint phase: bad completion {text[:300]}")
+            return Stream([int(t.split(":")[1]) for t in toks])
+
+        http(port, "/debug/kernel_launches", method="DELETE")
+        rounds0 = metric(port, "tpu:ragged_rounds_total")
+        gen0 = metric(port, "vllm:generation_tokens_total")
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(6) as ex:
+            lanes = {m: ex.submit(completion, short[m], n_short, m)
+                     for m in models}
+            while metric(port, "vllm:generation_tokens_total") < gen0 + 3:
+                if any(f.done() for f in lanes.values()):
+                    fail("checkpoint phase: a decoding lane finished "
+                         "before the long prompts were sent")
+                time.sleep(0.01)
+            longs = {m: ex.submit(completion, long[m], n_long, m)
+                     for m in models}
+            served = {("short", m): f.result() for m, f in lanes.items()}
+            served.update({("long", m): f.result()
+                           for m, f in longs.items()})
+        rounds = metric(port, "tpu:ragged_rounds_total") - rounds0
+        report = json.loads(http(port, "/debug/kernel_launches")[1])
+        print(f"checkpoint phase: 3 short + 3 long requests over base, "
+              f"ad16 and ad8 in {time.perf_counter() - t1:.2f}s, "
+              f"{rounds:.0f} mixed rounds; dispatches "
+              f"{report['dispatches']}, launches {report['launches']}",
+              flush=True)
+        if not rounds > 0:
+            fail("checkpoint phase: no mixed round served the adapters")
+        check_launches("checkpoint phase", report["launches"],
+                       report["dispatches"])
+        st, body = http(port, "/v1/unload_lora_adapter",
+                        {"lora_name": "ad8"})
+        try:
+            http(port, "/v1/completions", {"prompt": "x", "max_tokens": 2,
+                                           "model": "ad8"})
+            fail("checkpoint phase: a request for an unloaded adapter "
+                 "was served")
+        except urllib.error.HTTPError as e:
+            if e.code != 404:
+                fail(f"checkpoint phase: unloaded adapter gave {e.code}")
+        print(f"checkpoint phase: ad8 unloaded ({st}); a request naming it "
+              "gets 404", flush=True)
+        stop_server(proc)
+        proc = None
+
+        # references in process, on the same checkpoint
+        sp = SamplingParams(max_tokens=n_short, temperature=0,
+                            ignore_eos=True, logprobs=2)
+        sp_long = SamplingParams(max_tokens=n_long, temperature=0,
+                                 ignore_eos=True, logprobs=2)
+        base_cfg = dict(model=ckdir, tokenizer="byte", device="cuda",
+                        block_size=32, num_kv_blocks=512, max_num_seqs=8,
+                        seed=SEED)
+
+        def reference(eng, model):
+            return [eng.generate([short[model]], sp)[0],
+                    eng.generate([long[model]], sp_long)[0]]
+
+        lora_eng = LLMEngine(EngineConfig(**base_cfg, enable_lora=True,
+                                          max_loras=4, max_lora_rank=16))
+        for name in ranks:
+            lora_eng.load_lora(name, str(root / name))
+        r = lora_eng.runner
+        base_params = r.params
+        # one decode step, lanes [base, ad16, base, ad8], with and without
+        # the adapters: the base lanes' logits must not move by a bit
+        prompts = [short[None], short["ad16"], long[None][:300],
+                   short["ad8"]]
+        tables, nxt = [], 1
+        for p in prompts:
+            n = -(-(len(p) + 1) // 32)
+            tables.append(list(range(nxt, nxt + n)))
+            nxt += n
+        for p, tb in zip(prompts, tables):
+            r.prefill(p, 0, tb, len(p))
+        step = ([7, 7, 7, 7], [len(p) for p in prompts], tables,
+                [len(p) + 1 for p in prompts])
+        with_ad = r.decode(*step, lora_slots=[0, 1, 0, 2])[:4]
+        without = r.decode(*step)[:4]
+        moved = float((with_ad[[1, 3]] - without[[1, 3]]).abs().max())
+        exact = torch.equal(with_ad[[0, 2]], without[[0, 2]])
+        print(f"checkpoint phase: one decode step with lanes [base, ad16, "
+              f"base, ad8]: base lanes bit-equal without the adapters "
+              f"{exact}; the adapters move their lanes' logits by up to "
+              f"{moved:.3f}", flush=True)
+        if not exact or not moved > 0:
+            fail("checkpoint phase: slot 0 did not add an exact zero, or "
+                 "an adapter changed nothing")
+        probe = long[None][:256]
+        tols = {}
+        for slot, name in enumerate(ranks, start=1):
+            merged = merged_params(torch, base_params, weights[name])
+            via_lora = all_row_logits(torch, pa, cfg, base_params, probe,
+                                      r.lora_manager.buffers, slot)
+            via_merge = all_row_logits(torch, pa, cfg, merged, probe)
+            tols[name] = float((via_lora - via_merge).abs().max())
+            del via_lora, via_merge
+            m_eng = LLMEngine(EngineConfig(**base_cfg), params=merged)
+            del merged
+            refs = reference(m_eng, name)
+            del m_eng
+            torch.cuda.empty_cache()
+            tol = max(gap_tol, tols[name])
+            n_same = near_tie_check(
+                f"checkpoint phase ({name} vs merged weights)", refs,
+                [served["short", name], served["long", name]], tol)
+            print(f"checkpoint phase: {name}: {n_same}/2 served greedy "
+                  f"streams equal to the merged-weight engine's; LoRA vs "
+                  f"merged forward over 256 rows max|dlogit| "
+                  f"{tols[name]:.4f}, near-tie tolerance {tol:.4f}",
+                  flush=True)
+        del lora_eng, r, base_params
+        torch.cuda.empty_cache()
+        base_eng = LLMEngine(EngineConfig(**base_cfg))
+        refs = reference(base_eng, None)
+        del base_eng
+        n_same = near_tie_check(
+            "checkpoint phase (base vs no-LoRA engine)", refs,
+            [served["short", None], served["long", None]], gap_tol)
+        print(f"checkpoint phase: base: {n_same}/2 served greedy streams "
+              "equal to the engine without LoRA's", flush=True)
+    finally:
+        if proc is not None:
+            stop_server(proc)
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return report["launches"]
+
+
 def main() -> int:
     try:
         import torch
@@ -1404,17 +1955,20 @@ def main() -> int:
 
     stats = kernel_phase(torch)
     forward_phase(torch)
+    families_phase(torch, pa, smi)
     serve_counts = serve_phase()
     decode_counts, gap_tol = decode_phase(torch, pa)
     pipeline_phase(torch, pa, smi)
     mixed_counts = mixed_phase(torch, pa, gap_tol, smi)
+    lora_counts = checkpoint_phase(torch, pa, gap_tol, smi)
     launches = {
         "ragged": serve_counts["ragged"],
         "prefill": serve_counts["prefill"],
         "decode": decode_counts["decode"],
     }
     print(f"launches: serve path {serve_counts}, decode path "
-          f"{decode_counts}, mixed-round path {mixed_counts}; a served "
+          f"{decode_counts}, mixed-round path {mixed_counts}, loaded "
+          f"checkpoint with adapters {lora_counts}; a served "
           f"mixed round launches the ragged kernel {LAYERS_3B} times a "
           "forward (its step-0 forward and each further decode iteration)",
           flush=True)

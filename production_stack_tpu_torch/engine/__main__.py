@@ -5,7 +5,12 @@ Flag names and defaults follow ``python -m production_stack_tpu.engine``
 are on, and so are the prefill pipeline and the decode prefetch
 (``--no-prefill-pipeline``, ``--no-prefetch-decode``);
 ``--no-ragged-dispatch`` selects split prefill/decode rounds,
-``--num-scheduler-steps K`` fused K-step decode. Every flag whose
+``--num-scheduler-steps K`` fused K-step decode. ``--model`` takes a
+preset name (random weights from ``--seed``), a local HF checkpoint
+directory or an HF id in the local cache (its weights are loaded; one
+that resolves but cannot load stops the boot). ``--enable-lora`` serves
+adapters loaded through ``POST /v1/load_lora_adapter``, up to
+``--max-loras`` of rank up to ``--max-lora-rank``. Every flag whose
 feature is not ported yet makes the engine refuse to start
 (NotImplementedError from EngineConfig).
 """
@@ -25,7 +30,8 @@ def build_parser() -> argparse.ArgumentParser:
                     "paged attention",
     )
     p.add_argument("--model", default="pst-tiny-debug",
-                   help="preset name (random weights)")
+                   help="preset name (random weights), local HF "
+                        "checkpoint dir, or HF id in the local cache")
     p.add_argument("--tokenizer", default=None,
                    help="tokenizer dir, or 'byte' for the hermetic tokenizer")
     p.add_argument("--served-model-name", default=None)
@@ -112,10 +118,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chat-template", default=None)
     p.add_argument("--api-key", default=os.environ.get("PST_API_KEY"),
                    help="require `Authorization: Bearer <key>` on /v1/*")
+    p.add_argument("--enable-lora", action="store_true",
+                   help="serve LoRA adapters (POST /v1/load_lora_adapter)")
+    p.add_argument("--max-loras", type=int, default=4,
+                   help="adapter slots loaded at once")
+    p.add_argument("--max-lora-rank", type=int, default=16)
     # not ported yet: accepted so existing deployments parse, refused by
     # EngineConfig when switched on
     p.add_argument("--async-decode", action="store_true", default=False)
-    p.add_argument("--enable-lora", action="store_true")
     p.add_argument("--tensor-parallel-size", type=int, default=1)
     p.add_argument("--pipeline-parallel-size", type=int, default=1)
     p.add_argument("--context-parallel-size", type=int, default=0)
@@ -159,6 +169,8 @@ def config_from_args(args: argparse.Namespace) -> EngineConfig:
         prefetch_decode=args.prefetch_decode,
         async_decode=args.async_decode,
         enable_lora=args.enable_lora,
+        max_loras=args.max_loras,
+        max_lora_rank=args.max_lora_rank,
         tensor_parallel_size=args.tensor_parallel_size,
         pipeline_parallel_size=args.pipeline_parallel_size,
         context_parallel_size=args.context_parallel_size,

@@ -187,6 +187,15 @@ class AsyncLLMEngine:
     def has_request_prefix(self, request_id: str) -> bool:
         return self.engine.has_request_prefix(request_id)
 
+    # -- LoRA adapters (under the step lock: a step reads the buffers) ----
+    def load_lora(self, name: str, path: str) -> None:
+        with self._lock:
+            self.engine.load_lora(name, path)
+
+    def unload_lora(self, name: str) -> None:
+        with self._lock:
+            self.engine.unload_lora(name)
+
     # -- introspection -----------------------------------------------------
     def stats(self) -> EngineStatsSnapshot:
         with self._lock:

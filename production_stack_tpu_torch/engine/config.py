@@ -104,11 +104,16 @@ class EngineConfig:
     # require `Authorization: Bearer <key>` on /v1/* (vLLM --api-key)
     api_key: str | None = None
 
+    # multi-LoRA: adapters hot-loaded into max_loras stacked slots of
+    # rank up to max_lora_rank (engine/lora.py)
+    enable_lora: bool = False
+    max_loras: int = 4
+    max_lora_rank: int = 16
+
     # -- not ported yet: any non-default value refuses at construction --
     async_decode: bool = False        # double-buffered decode
     precompile_serving: bool = False  # startup shape warmup
     num_speculative_tokens: int = 0   # ngram spec decode
-    enable_lora: bool = False
     tensor_parallel_size: int = 1
     pipeline_parallel_size: int = 1
     context_parallel_size: int = 0
@@ -134,7 +139,6 @@ class EngineConfig:
             "async_decode": self.async_decode,
             "precompile_serving": self.precompile_serving,
             "num_speculative_tokens": self.num_speculative_tokens > 0,
-            "enable_lora": self.enable_lora,
             "tensor_parallel_size>1": self.tensor_parallel_size > 1,
             "pipeline_parallel_size>1": self.pipeline_parallel_size > 1,
             "context_parallel_size>1": self.context_parallel_size > 1,

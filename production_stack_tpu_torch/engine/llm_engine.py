@@ -14,10 +14,12 @@ single-step decode with host-side sampling). With K > 1 the decode
 prefetch stages the next fused or ragged round while the current one
 runs; every stage is validated by fingerprint at its dispatch, and a
 stale one is a counted miss. The scheduler, block manager and sequences
-are the JAX package's, copied. Async decode, the composed-kernel ragged
-round, long prefill, KV export, speculative and guided decoding, LoRA
-and prompt logprobs are not ported here: EngineConfig refuses their
-flags and add_request refuses their request fields.
+are the JAX package's, copied. Multi-LoRA (``--enable-lora``): every
+dispatch carries its lanes' adapter slots, and every staged buffer's
+fingerprint holds the slots it was built for. Async decode, the
+composed-kernel ragged round, long prefill, KV export, speculative and
+guided decoding and prompt logprobs are not ported here: EngineConfig
+refuses their flags and add_request refuses their request fields.
 """
 
 from __future__ import annotations
@@ -158,7 +160,6 @@ class LLMEngine:
         sp = sampling_params or SamplingParams()
         unported = [
             name for name, on in (
-                ("lora", lora_name is not None),
                 ("prompt_logprobs", sp.prompt_logprobs is not None),
                 ("guided decoding", any(
                     x is not None for x in (
@@ -191,12 +192,23 @@ class LLMEngine:
                 )
         if sp.logprobs is not None and not 0 <= sp.logprobs <= LOGPROB_CAP:
             raise ValueError(f"logprobs must be in [0, {LOGPROB_CAP}]")
+        lora = self.runner.lora_manager
+        if lora_name is not None:
+            if lora is None:
+                raise ValueError(
+                    "request names a LoRA adapter but the engine was "
+                    "started without --enable-lora"
+                )
+            lora.slot_of(lora_name)  # raises KeyError if unknown
         seq = Sequence(
             request_id=request_id,
             prompt_token_ids=prompt_token_ids,
             sampling_params=sp,
             eos_token_id=self.tokenizer.eos_token_id,
             arrival_time=arrival_time,
+            lora_name=lora_name,
+            hash_seed=(None if lora is None
+                       else lora.hash_seed_of(lora_name)),
             priority=int(priority),
         )
         self._seqs[request_id] = seq
@@ -358,13 +370,17 @@ class LLMEngine:
         `advance` tokens further, tables untouched since the stage's
         growth and NO free() in between (the free epoch: freed block ids
         can be handed to another sequence). At stage time `advance` is
-        the current round's K and `k` the staged round's predicted K."""
+        the current round's K and `k` the staged round's predicted K.
+        The lanes' adapter slots are part of it: an unload or reload
+        between the stage and the dispatch that moves a slot breaks
+        it."""
         return (
             tuple(s.request_id for s in seqs),
             tuple(s.num_tokens + advance for s in seqs),
             tuple(len(s.block_table) for s in seqs),
             self.block_manager.free_epoch,
             k,
+            self._slots_key(seqs),
         )
 
     @staticmethod
@@ -395,6 +411,7 @@ class LLMEngine:
             bias = self._bias_arrays(seqs)
             stop = self._stop_arrays(seqs) if self._device_stop else None
             tokens = [s.all_token_ids[-1] for s in seqs]
+            slots = self._lora_slots(seqs)
             staged_kw = {}
             st = self._staged_decode
             self._staged_decode = None
@@ -416,7 +433,7 @@ class LLMEngine:
                 [s.num_tokens for s in seqs], k_steps,
                 temps, top_ps, top_ks, keys, min_ps=min_ps,
                 penalties=penalties, want_logprobs=want_lp,
-                logit_bias=bias, stop=stop, **staged_kw,
+                logit_bias=bias, stop=stop, lora_slots=slots, **staged_kw,
             )
             if (self._prefetch_decode and penalties is None
                     and bias is None and self._can_stage(seqs, k_steps)):
@@ -440,6 +457,7 @@ class LLMEngine:
                         k_next, temps, top_ps, top_ks, nk,
                         min_ps=min_ps,
                         stop=self._advance_stop(stop, k_steps),
+                        lora_slots=slots,
                     ),
                     "chain_tokens": toks_dev[-1],
                 }
@@ -450,7 +468,8 @@ class LLMEngine:
         positions = [s.num_tokens - 1 for s in seqs]
         tables = [s.block_table for s in seqs]
         ctx_lens = [s.num_tokens for s in seqs]
-        logits = self.runner.decode(tokens, positions, tables, ctx_lens)
+        logits = self.runner.decode(tokens, positions, tables, ctx_lens,
+                                    lora_slots=self._lora_slots(seqs))
         sampled, used_logits = self._sample(
             seqs, logits[: len(seqs)], return_logits=True
         )
@@ -629,7 +648,8 @@ class LLMEngine:
             k_steps, temps, top_ps, top_ks, keys, min_ps=min_ps,
             pf_sampling=pf_sampling, penalties=penalties,
             want_logprobs=want_lp, logit_bias=bias, stop=stop,
-            **staged_kw,
+            pf_lora_slots=self._lora_slots([w.seq for w in works]),
+            lora_slots=self._lora_slots(seqs), **staged_kw,
         )
         # stage the predicted NEXT ragged round before any fetch below,
         # so its copy overlaps this round
@@ -699,8 +719,9 @@ class LLMEngine:
         """State a staged ragged buffer was built for, as observed at
         dispatch: the prefill lanes' fingerprint, the decode lanes in
         order at exact token counts and table lengths, the free epoch
-        and the round's K. Any lane-mix change — a prefill lane
-        finishing, an admission, another adaptive K — breaks it."""
+        and the round's K, and both lane sets' adapter slots. Any
+        lane-mix change — a prefill lane finishing, an admission, another
+        adaptive K — breaks it."""
         return (
             self._prefill_fingerprint(works),
             tuple(s.request_id for s in seqs),
@@ -708,6 +729,7 @@ class LLMEngine:
             tuple(len(s.block_table) for s in seqs),
             self.block_manager.free_epoch,
             k,
+            self._slots_key(seqs),
         )
 
     def _maybe_stage_ragged(
@@ -750,6 +772,8 @@ class LLMEngine:
             [s.num_tokens + k_steps for s in seqs],
             k_next, temps, top_ps, top_ks, nk, min_ps=min_ps,
             stop=self._advance_stop(stop, k_steps),
+            pf_lora_slots=self._lora_slots([w.seq for w in nxt]),
+            lora_slots=self._lora_slots(seqs),
         )
         self._staged_ragged = {
             "fp": (
@@ -759,6 +783,7 @@ class LLMEngine:
                 tuple(len(s.block_table) for s in seqs),
                 self.block_manager.free_epoch,
                 k_next,
+                self._slots_key(seqs),
             ),
             "handle": handle,
             "chain_tokens": toks_dev[-1],
@@ -768,9 +793,9 @@ class LLMEngine:
     def _prefill_fingerprint(self, works: list[PrefillWork]) -> tuple:
         """State a staged prefill buffer was built for, as observed at
         dispatch: the same sequences in the same order at the same chunk
-        offsets, tables untouched (length + the free epoch), and no
-        token appended since the stage (the sampling keys hold the
-        generated length)."""
+        offsets, tables untouched (length + the free epoch), no token
+        appended since the stage (the sampling keys hold the generated
+        length) and the same adapter slots."""
         return (
             tuple(w.seq.request_id for w in works),
             tuple(w.chunk_start for w in works),
@@ -778,6 +803,7 @@ class LLMEngine:
             tuple(len(w.seq.block_table) for w in works),
             tuple(len(w.seq.generated_token_ids) for w in works),
             self.block_manager.free_epoch,
+            self._slots_key([w.seq for w in works]),
         )
 
     def _next_prefill_works(
@@ -844,11 +870,13 @@ class LLMEngine:
             w.seq.prompt_token_ids[w.chunk_start:w.chunk_start + w.chunk_len]
             for w in nxt
         ]
+        slots = self._lora_slots([w.seq for w in nxt])
         if len(nxt) == 1:
             w = nxt[0]
             handle = self.runner.stage_prefill(
                 chunks[0], w.chunk_start, w.seq.block_table,
                 w.chunk_start + w.chunk_len, sampling=sampling,
+                lora_slot=slots[0] if slots else 0,
             )
         else:
             handle = self.runner.stage_prefill_batch(
@@ -856,7 +884,7 @@ class LLMEngine:
                 start_positions=[w.chunk_start for w in nxt],
                 block_tables=[w.seq.block_table for w in nxt],
                 total_lens=[w.chunk_start + w.chunk_len for w in nxt],
-                sampling=sampling,
+                sampling=sampling, lora_slots=slots,
             )
         self._staged_prefill = {"fp": self._prefill_fingerprint(nxt),
                                 "handle": handle}
@@ -893,6 +921,7 @@ class LLMEngine:
             w.seq.prompt_token_ids[w.chunk_start:w.chunk_start + w.chunk_len]
             for w in works
         ]
+        slots = self._lora_slots(seqs_w)
         if len(works) == 1:
             w = works[0]
             token_dev, logits = self.runner.prefill(
@@ -900,7 +929,8 @@ class LLMEngine:
                 start_pos=w.chunk_start,
                 block_table=w.seq.block_table,
                 total_len=w.chunk_start + w.chunk_len,
-                sampling=sampling, **staged_kw,
+                sampling=sampling, lora_slot=slots[0] if slots else 0,
+                **staged_kw,
             )
             tokens_dev = token_dev[None]
             last_logits = logits[None]
@@ -910,7 +940,7 @@ class LLMEngine:
                 start_positions=[w.chunk_start for w in works],
                 block_tables=[w.seq.block_table for w in works],
                 total_lens=[w.chunk_start + w.chunk_len for w in works],
-                sampling=sampling, **staged_kw,
+                sampling=sampling, lora_slots=slots, **staged_kw,
             )
         toks_np = None
         if any(w.is_last_chunk for w in works):
@@ -1258,6 +1288,48 @@ class LLMEngine:
             logprobs=lp_all,
             new_logprobs=lp_new,
         )
+
+    # -- LoRA hot-load (adapters applied in the forwards; engine/lora.py)
+    def load_lora(self, name: str, path: str) -> None:
+        if self.runner.lora_manager is None:
+            raise RuntimeError(
+                "LoRA is disabled; start the engine with --enable-lora"
+            )
+        self.runner.lora_manager.load(name, path)
+
+    def unload_lora(self, name: str) -> None:
+        if self.runner.lora_manager is not None:
+            self.runner.lora_manager.unload(name)
+
+    def list_loras(self) -> list[str]:
+        if self.runner.lora_manager is None:
+            return []
+        return self.runner.lora_manager.list_adapters()
+
+    def _lora_slot(self, seq: Sequence) -> int:
+        if self.runner.lora_manager is None:
+            return 0
+        try:
+            return self.runner.lora_manager.slot_of(seq.lora_name)
+        except KeyError:
+            # adapter unloaded mid-request: degrade to the base model
+            # rather than killing the step loop
+            logger.warning(
+                "request %s: LoRA %r no longer loaded; using base model",
+                seq.request_id, seq.lora_name,
+            )
+            seq.lora_name = None
+            return 0
+
+    def _lora_slots(self, seqs: list[Sequence]) -> list[int] | None:
+        """Each lane's adapter slot for a dispatch (None: LoRA is off)."""
+        if self.runner.lora_manager is None:
+            return None
+        return [self._lora_slot(s) for s in seqs]
+
+    def _slots_key(self, seqs: list[Sequence]) -> tuple:
+        """The lanes' adapter slots, as a fingerprint field."""
+        return tuple(self._lora_slots(seqs) or ())
 
     def shutdown(self) -> None:
         """Nothing to release: no offload tiers or followers in this port."""

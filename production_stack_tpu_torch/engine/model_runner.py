@@ -2,7 +2,7 @@
 the prefill / packed-prefill / decode forwards.
 
 Counterpart of ``production_stack_tpu/engine/model_runner.py`` without
-its LoRA, guided, prompt-logprob and export paths: single-sequence
+its guided, prompt-logprob and export paths: single-sequence
 ``prefill``, packed ``prefill_batch``, single-step ``decode``, the fused
 K-step ``decode_multi``, the unified lane-typed round
 ``ragged_dispatch``, and the staging of each (``stage_prefill``,
@@ -31,6 +31,14 @@ Attention goes through one seam, ``_attn(kind, ...)``: on a CUDA device
 the wrappers in ops/paged_attention.py launch the hand-written kernels,
 on the CPU they compute the plain versions. The impl follows the device
 the runner was built for; there is no fallback between the two.
+
+Weights: a checkpoint that ``--model`` resolves to is loaded at boot
+(models/weights.py), straight onto the device; only a preset name draws
+random ones. Multi-LoRA (``enable_lora``): every dispatch takes its
+lanes' adapter slots; ``_lora_key`` turns them into no adapter math
+(all base), one slot for every row, or a per-row slot vector that rides
+the dispatch's packed buffer. The key is part of every staged buffer's
+key, so a stage is never consumed under another slot assignment.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ import numpy as np
 import torch
 
 from production_stack_tpu_torch.engine.config import EngineConfig
+from production_stack_tpu_torch.engine.lora import LoraManager
 from production_stack_tpu_torch.engine.sampler import (
     LOGPROB_CAP,
     RAGGED_IDLE_TOKEN,
@@ -56,8 +65,8 @@ from production_stack_tpu_torch.engine.sampler import (
     stop_hit,
     token_logprobs,
 )
-from production_stack_tpu_torch.models import llama
-from production_stack_tpu_torch.models.config import ModelConfig, list_presets
+from production_stack_tpu_torch.models import llama, weights
+from production_stack_tpu_torch.models.config import ModelConfig
 from production_stack_tpu_torch.ops import paged_attention
 from production_stack_tpu_torch.utils import init_logger
 
@@ -170,12 +179,11 @@ class ModelRunner:
                     f"cannot run on the card: {e}") from None
 
         if params is None:
-            if config.model not in list_presets():
-                raise NotImplementedError(
-                    f"model {config.model!r}: checkpoint loading is not "
-                    "ported to the PyTorch engine yet (presets run on "
-                    "random weights)"
-                )
+            # a checkpoint that resolves loads (or raises); only a preset
+            # name, which resolves to none, draws random weights
+            params = weights.maybe_load(config.model, mc, self.dtype,
+                                        self.device)
+        if params is None:
             logger.info(
                 "initializing random %s params (%.2fB params, %s, %s)",
                 mc.name, mc.num_params() / 1e9, config.dtype, self.device,
@@ -232,6 +240,14 @@ class ModelRunner:
         self.dispatch_counts = {"prefill": 0, "prefill_batch": 0,
                                 "decode": 0, "decode_multi": 0,
                                 "ragged": 0, "decode_iterations": 0}
+        # multi-LoRA: stacked adapter buffers applied in the forwards
+        # (engine/lora.py); None when --enable-lora is off, so no
+        # dispatch carries adapter math
+        self.lora_manager = None
+        if config.enable_lora:
+            self.lora_manager = LoraManager(
+                mc, config.max_loras, config.max_lora_rank, self.dtype,
+                self.device)
 
     # -- sizing -----------------------------------------------------------
     def _resolve_num_blocks(self) -> int:
@@ -289,6 +305,56 @@ class ModelRunner:
             block_size=self.block_size, scale=self._scale,
             window=self.model_config.sliding_window,
         )
+
+    # -- multi-LoRA -----------------------------------------------------------
+    def _lora_key(self, *slot_lists):
+        """The adapter assignment of a dispatch, from its lanes' slots
+        (one list per lane set, None = all base): None when no lane uses
+        an adapter (slot 0 adds an exact zero, so the forward skips the
+        adapter math), one int when every lane shares one slot (the
+        uniform path), else a tuple of the lists (the per-token path,
+        whose slot vector rides the dispatch's packed buffer). Part of
+        every staged buffer's key: a stage built for another assignment
+        is rebuilt."""
+        flat = [int(x) for sl in slot_lists for x in (sl or ())]
+        if self.lora_manager is None or not any(flat):
+            return None
+        if len(set(flat)) == 1:
+            return flat[0]
+        return tuple(tuple(int(x) for x in (sl or ()))
+                     for sl in slot_lists)
+
+    def _lora_kw(self, key, vec=None) -> dict:
+        """forward() kwargs for a dispatch's adapter assignment `key`:
+        none, the uniform slot, or the per-row slot vector `vec` (on the
+        device) of a per-token key."""
+        if key is None:
+            return {}
+        return {"lora": self.lora_manager.buffers,
+                "lora_slots": vec if isinstance(key, tuple) else key}
+
+    @staticmethod
+    # stackcheck: not-hot — numpy over the host slot lists the engine
+    # built; no device tensor reaches it
+    def _rows_slot_vector(chunks, slots, r_pad: int) -> np.ndarray:
+        """Per-row adapter slots of a ragged-rows prefill pack: lane i's
+        rows carry its slot, alignment and tail rows 0."""
+        per_row = np.zeros((r_pad,), np.int32)
+        row = 0
+        for ids, slot in zip(chunks, slots or [0] * len(chunks)):
+            per_row[row:row + len(ids)] = slot
+            row += _ceil_tq(len(ids))
+        return per_row
+
+    @staticmethod
+    # stackcheck: not-hot — numpy over the host slot lists the engine
+    # built; no device tensor reaches it
+    def _packed_slot_vector(slots, n: int, s_pad: int,
+                            t_pad: int) -> np.ndarray:
+        """Per-row adapter slots of an (s_pad, t_pad) packed group."""
+        per_tok = np.zeros((s_pad, t_pad), np.int32)
+        per_tok[:n] = np.asarray(slots or [0] * n, np.int32)[:, None]
+        return per_tok.reshape(-1)
 
     # -- host-side helpers -------------------------------------------------
     # stackcheck: not-hot — numpy over host lists (block tables,
@@ -380,9 +446,10 @@ class ModelRunner:
         ])
 
     def _packed_prefill_pack_layout(self, s_pad: int, t_pad: int,
-                                    c_pad: int):
+                                    c_pad: int, lora_rows: bool = False):
         """The (s_pad, t_pad) packed-group variant (the pipeline without
-        the ragged kernel): lane s holds rows [s * t_pad, (s+1) * t_pad)."""
+        the ragged kernel): lane s holds rows [s * t_pad, (s+1) * t_pad).
+        `lora_rows` adds the per-row adapter slots."""
         return self._layout_of([
             ("tokens", (s_pad * t_pad,)),
             ("positions", (s_pad * t_pad,)),
@@ -394,7 +461,7 @@ class ModelRunner:
             ("top_ks", (s_pad,)),
             ("min_ps", (s_pad,)),
             ("noise", (s_pad, self._top_cap)),
-        ])
+        ] + ([("lora_rows", (s_pad * t_pad,))] if lora_rows else []))
 
     def _put_sampling(self, put, n: int, sampling) -> None:
         """The sampling fields of a prefill pack for n lanes: the
@@ -454,10 +521,11 @@ class ModelRunner:
     # h2d buffer; one pass over the lanes, no device work
     def _fill_packed_prefill_pack(
         self, chunks, start_positions, block_tables, total_lens,
-        sampling=None,
+        sampling=None, lora_slots=None,
     ) -> tuple[int, int, int, np.ndarray]:
         """Host build of the (s_pad, t_pad) packed prefill pack; returns
         (s_pad, t_pad, c_pad, packed)."""
+        per_tok = isinstance(self._lora_key(lora_slots), tuple)
         (s_pad, t_pad, c_pad, tokens, positions_dev, write_slots,
          _q_starts, tables) = self._packed_host_prep(
             chunks, start_positions, block_tables, total_lens
@@ -465,7 +533,8 @@ class ModelRunner:
         last_rows = np.arange(s_pad, dtype=np.int32) * t_pad
         for s, ids in enumerate(chunks):
             last_rows[s] += len(ids) - 1
-        layout, size = self._packed_prefill_pack_layout(s_pad, t_pad, c_pad)
+        layout, size = self._packed_prefill_pack_layout(s_pad, t_pad, c_pad,
+                                                        per_tok)
         packed = np.zeros((size,), np.int32)
         put = functools.partial(self._pack_put, packed, layout)
         put("tokens", tokens)
@@ -474,11 +543,15 @@ class ModelRunner:
         put("tables", tables)
         put("last_rows", last_rows)
         self._put_sampling(put, s_pad, sampling)
+        if per_tok:
+            put("lora_rows", self._packed_slot_vector(
+                lora_slots, len(chunks), s_pad, t_pad))
         return s_pad, t_pad, c_pad, packed
 
-    def _single_prefill_step(self, t_pad: int, c_pad: int):
+    def _single_prefill_step(self, t_pad: int, c_pad: int, lora=None):
         """`step(packed, start_pos)` -> (token, logits (vocab,)): the
-        single-sequence prefill forward on its packed buffer."""
+        single-sequence prefill forward on its packed buffer (`lora`: a
+        _lora_key, uniform or None for one sequence)."""
         mc = self.model_config
         layout, _ = self._prefill_pack_layout(t_pad, c_pad)
 
@@ -492,7 +565,7 @@ class ModelRunner:
             logits, _, _ = llama.forward(
                 mc, self.params, seg("tokens"), seg("positions"),
                 self.k_cache, self.v_cache, seg("write_slots"), attn,
-                logits_rows=seg("last_row"),
+                logits_rows=seg("last_row"), **self._lora_kw(lora),
             )
             token = sample_tokens(
                 logits, seg("temps").view(torch.float32),
@@ -504,12 +577,15 @@ class ModelRunner:
 
         return step
 
-    def _packed_prefill_step(self, s_pad: int, t_pad: int, c_pad: int):
+    def _packed_prefill_step(self, s_pad: int, t_pad: int, c_pad: int,
+                             lora=None):
         """`step(packed, q_starts)` -> (sampled (s_pad,), logits (s_pad,
         vocab)): the (s_pad, t_pad) packed group on the composed prefill
-        kernel, one launch a lane a layer."""
+        kernel, one launch a lane a layer (`lora`: its _lora_key)."""
         mc = self.model_config
-        layout, _ = self._packed_prefill_pack_layout(s_pad, t_pad, c_pad)
+        per_tok = isinstance(lora, tuple)
+        layout, _ = self._packed_prefill_pack_layout(s_pad, t_pad, c_pad,
+                                                     per_tok)
 
         def step(packed, q_starts):
             seg = functools.partial(self._pack_seg, packed, layout)
@@ -519,7 +595,8 @@ class ModelRunner:
             logits, _, _ = llama.forward(
                 mc, self.params, seg("tokens"), seg("positions"),
                 self.k_cache, self.v_cache, seg("write_slots"), attn,
-                logits_rows=seg("last_rows"),
+                logits_rows=seg("last_rows"), **self._lora_kw(
+                    lora, seg("lora_rows") if per_tok else None),
             )
             sampled = sample_tokens(
                 logits, seg("temps").view(torch.float32),
@@ -568,6 +645,7 @@ class ModelRunner:
     def stage_prefill(
         self, token_ids: list[int], start_pos: int,
         block_table: list[int], total_len: int, sampling=None,
+        lora_slot: int = 0,
     ) -> StagedBuffer:
         """Build the packed buffer of a FUTURE single-sequence prefill
         chunk and start its copy, so the upload overlaps the dispatch in
@@ -579,7 +657,8 @@ class ModelRunner:
         )
         t1 = time.perf_counter()
         self._phase_add("prep", t1 - t0)
-        handle = self._stage(("single", t_pad, c_pad), packed)
+        handle = self._stage(
+            ("single", t_pad, c_pad, self._lora_key([lora_slot])), packed)
         self._phase_add("h2d", time.perf_counter() - t1)
         return handle
 
@@ -591,22 +670,25 @@ class ModelRunner:
         block_tables: list[list[int]],
         total_lens: list[int],
         sampling=None,
+        lora_slots: list[int] | None = None,
     ) -> StagedBuffer:
         """Packed-group variant of stage_prefill (the ragged-rows layout
         under the ragged kernel)."""
         t0 = time.perf_counter()
+        lora = self._lora_key(lora_slots)
         if self.ragged_kernel:
             r_pad, pc_pad, packed = self._fill_rows_prefill_pack(
                 chunks, start_positions, block_tables, total_lens,
-                sampling=sampling,
+                sampling=sampling, lora_slots=lora_slots,
+                lora_rows=isinstance(lora, tuple),
             )
-            key = ("rows", r_pad, pc_pad)
+            key = ("rows", r_pad, pc_pad, lora)
         else:
             s_pad, t_pad, c_pad, packed = self._fill_packed_prefill_pack(
                 chunks, start_positions, block_tables, total_lens,
-                sampling=sampling,
+                sampling=sampling, lora_slots=lora_slots,
             )
-            key = ("packed", s_pad, t_pad, c_pad)
+            key = ("packed", s_pad, t_pad, c_pad, lora)
         t1 = time.perf_counter()
         self._phase_add("prep", t1 - t0)
         handle = self._stage(key, packed)
@@ -623,6 +705,7 @@ class ModelRunner:
         total_len: int,
         sampling=None,
         staged: StagedBuffer | None = None,
+        lora_slot: int = 0,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Run one prefill chunk; returns (token, logits) on the device:
         the first generated token sampled from the chunk's last actual
@@ -631,13 +714,17 @@ class ModelRunner:
 
         `staged` = a stage_prefill handle whose copy is already under
         way; used only when its bucket key matches (the CALLER guarantees
-        its content equals what these arguments build)."""
+        its content equals what these arguments build).
+
+        `lora_slot`: the sequence's adapter slot (0 = base model); the
+        whole chunk takes the uniform path."""
+        lora = self._lora_key([lora_slot])
         if self.prefill_pipeline:
             t_pad = self._prefill_bucket(len(token_ids))
             c_pad = self._ctx_bucket(total_len)
             packed_dev = None
             if staged is not None and staged.key == ("single", t_pad,
-                                                     c_pad):
+                                                     c_pad, lora):
                 packed_dev = self._take(staged)
             if packed_dev is None:
                 t0 = time.perf_counter()
@@ -650,8 +737,8 @@ class ModelRunner:
                 packed_dev = self._upload(packed)
                 self._phase_add("h2d", time.perf_counter() - t1)
             t2 = time.perf_counter()
-            out = self._single_prefill_step(t_pad, c_pad)(packed_dev,
-                                                          start_pos)
+            out = self._single_prefill_step(t_pad, c_pad, lora)(
+                packed_dev, start_pos)
             self.dispatch_counts["prefill"] += 1
             self._phase_add("dispatch", time.perf_counter() - t2)
             return out
@@ -681,6 +768,7 @@ class ModelRunner:
             self.v_cache, slots_d, attn,
             logits_rows=torch.tensor([len(token_ids) - 1],
                                      device=self.device),
+            **self._lora_kw(lora),
         )
         token = self.sample(logits, temps, top_ps, top_ks, min_ps, keys)[0]
         self.dispatch_counts["prefill"] += 1
@@ -778,6 +866,7 @@ class ModelRunner:
         total_lens: list[int],
         sampling=None,
         staged: StagedBuffer | None = None,
+        lora_slots: list[int] | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Run one prompt chunk for EACH of n sequences in a single packed
         forward; returns (tokens, logits) on the device — tokens (s,)
@@ -785,19 +874,22 @@ class ModelRunner:
         (rows >= n are padding; s = the lane cap on the ragged-rows
         layout, s_pad otherwise). K/V for every chunk is written.
 
-        `staged` = a stage_prefill_batch handle (see prefill)."""
+        `staged` = a stage_prefill_batch handle (see prefill).
+        `lora_slots`: each sequence's adapter slot (None = all base)."""
+        lora = self._lora_key(lora_slots)
         if self.prefill_pipeline:
             if self.ragged_kernel:
                 # ragged-rows layout: one ragged launch a layer over the
                 # group's rows, whatever the lane mix
                 r_pad, pc_pad = self._rows_dims(chunks, total_lens)
-                key = ("rows", r_pad, pc_pad)
-                fill = self._fill_rows_prefill_pack
+                key = ("rows", r_pad, pc_pad, lora)
+                fill = functools.partial(self._fill_rows_prefill_pack,
+                                         lora_rows=isinstance(lora, tuple))
             else:
                 s_pad = next_pow2(max(len(chunks), 1))
                 t_pad = self._prefill_bucket(max(len(c) for c in chunks))
                 c_pad = max(self._ctx_bucket(tl) for tl in total_lens)
-                key = ("packed", s_pad, t_pad, c_pad)
+                key = ("packed", s_pad, t_pad, c_pad, lora)
                 fill = self._fill_packed_prefill_pack
             packed_dev = None
             if staged is not None and staged.key == key:
@@ -805,16 +897,18 @@ class ModelRunner:
             if packed_dev is None:
                 t0 = time.perf_counter()
                 packed = fill(chunks, start_positions, block_tables,
-                              total_lens, sampling=sampling)[-1]
+                              total_lens, sampling=sampling,
+                              lora_slots=lora_slots)[-1]
                 t1 = time.perf_counter()
                 self._phase_add("prep", t1 - t0)
                 packed_dev = self._upload(packed)
                 self._phase_add("h2d", time.perf_counter() - t1)
             t2 = time.perf_counter()
             if self.ragged_kernel:
-                out = self._make_prefill_rows_step(r_pad, pc_pad)(packed_dev)
+                out = self._make_prefill_rows_step(r_pad, pc_pad, lora)(
+                    packed_dev)
             else:
-                out = self._packed_prefill_step(s_pad, t_pad, c_pad)(
+                out = self._packed_prefill_step(s_pad, t_pad, c_pad, lora)(
                     packed_dev, start_positions)
             self.dispatch_counts["prefill_batch"] += 1
             self._phase_add("dispatch", time.perf_counter() - t2)
@@ -837,11 +931,14 @@ class ModelRunner:
         pos_d = self._dev(positions_dev.reshape(-1))
         slots_d = self._dev(write_slots.reshape(-1))
         rows_d = self._dev(last_rows)
+        lora_kw = self._lora_kw(lora, self._dev(self._packed_slot_vector(
+            lora_slots, len(chunks), s_pad, t_pad)) if isinstance(
+                lora, tuple) else None)
         t2 = time.perf_counter()
         self._phase_add("h2d", t2 - t1)
         logits, _, _ = llama.forward(
             self.model_config, self.params, tokens_d, pos_d, self.k_cache,
-            self.v_cache, slots_d, attn, logits_rows=rows_d,
+            self.v_cache, slots_d, attn, logits_rows=rows_d, **lora_kw,
         )
         sampled = self.sample(logits, temps, top_ps, top_ks, min_ps, keys)
         self.dispatch_counts["prefill_batch"] += 1
@@ -892,9 +989,11 @@ class ModelRunner:
         positions: list[int],
         block_tables: list[list[int]],
         context_lens: list[int],
+        lora_slots: list[int] | None = None,
     ) -> torch.Tensor:
         """One decode step for a batch; returns f32 logits (b, vocab) on
-        the device where rows beyond len(token_ids) are padded lanes."""
+        the device where rows beyond len(token_ids) are padded lanes.
+        `lora_slots`: each lane's adapter slot (None = all base)."""
         b_actual = len(token_ids)
         b = self.config.max_num_seqs
         c_pad = self._ctx_bucket(max(context_lens))
@@ -918,11 +1017,18 @@ class ModelRunner:
             for i in range(b)
         ])
         attn = self._decode_attn(b, self._dev(tables), self._dev(ctx))
+        lora = self._lora_key(lora_slots)
+        vec = None
+        if isinstance(lora, tuple):
+            vec = np.zeros((b,), np.int32)
+            vec[:b_actual] = lora_slots
+            vec = self._dev(vec)
         logits, _, _ = llama.forward(
             self.model_config, self.params, self._dev(tokens),
             self._dev(pos), self.k_cache, self.v_cache,
             self._dev(write_slots), attn,
             logits_rows=torch.arange(b, device=self.device),
+            **self._lora_kw(lora, vec),
         )
         self.dispatch_counts["decode"] += 1
         return logits
@@ -968,7 +1074,8 @@ class ModelRunner:
     def _decode_pack_layout(self, b: int, c_pad: int, k_steps: int,
                             stop_cap: int | None = None,
                             use_penalties: bool = False,
-                            bias_cap: int = 0, chained: bool = False):
+                            bias_cap: int = 0, chained: bool = False,
+                            lora_lanes: bool = False):
         """Layout of the ONE int32 buffer a fused decode round ships.
         `noise` is the round's (k, b, cap) sampler noise, drawn on the
         host from each lane's (seed, step + i) key. `stop_cap` None = the
@@ -977,7 +1084,8 @@ class ModelRunner:
         matrix. Penalties add the generated-id history (b, c_pad), -1
         padded; logit bias its (b, bias_cap) ids and values. A `chained`
         round has no tokens field: its tokens are the previous round's
-        last row, on the device."""
+        last row, on the device. `lora_lanes` adds each lane's adapter
+        slot (a per-token dispatch)."""
         n_pages = c_pad // self.block_size
         fields = [] if chained else [("tokens", (b,))]
         fields += [
@@ -1007,6 +1115,8 @@ class ModelRunner:
             ]
         if bias_cap:
             fields += [("lb_ids", (b, bias_cap)), ("lb_vals", (b, bias_cap))]
+        if lora_lanes:
+            fields.append(("lora_slots", (b,)))
         return self._layout_of(fields)
 
     @staticmethod
@@ -1022,6 +1132,7 @@ class ModelRunner:
         context_lens, temps, top_ps, top_ks, keys, min_ps=None,
         stop: tuple | None = None, penalties: tuple | None = None,
         logit_bias: tuple | None = None, chained: bool = False,
+        lora_slots=None, lora_lanes: bool = False,
     ) -> np.ndarray:
         """Build the packed buffer of a fused decode round (layout:
         _decode_pack_layout) for len(positions) real lanes, padded to
@@ -1035,7 +1146,7 @@ class ModelRunner:
         bias_cap = 0 if logit_bias is None else int(logit_bias[0].shape[1])
         layout, total = self._decode_pack_layout(
             b, c_pad, k_steps, stop_cap, penalties is not None, bias_cap,
-            chained,
+            chained, lora_lanes,
         )
         packed = np.zeros((total,), np.int32)
         put = functools.partial(self._pack_put, packed, layout)
@@ -1086,6 +1197,9 @@ class ModelRunner:
             put("lb_ids", lanes(logit_bias[0], 0, np.int32, (bias_cap,)))
             put("lb_vals", lanes(logit_bias[1], 0.0, np.float32,
                                  (bias_cap,)))
+        if lora_lanes:
+            # padded lanes: the base model (their rows are discarded)
+            put("lora_slots", lanes(lora_slots, 0, np.int32))
         return packed
 
     def _decode_round_core(self, b: int, c_pad: int, k_steps: int,
@@ -1093,7 +1207,8 @@ class ModelRunner:
                            want_logprobs: bool = False,
                            bias_cap: int = 0,
                            stop_cap: int | None = None,
-                           chained: bool = False):
+                           chained: bool = False, lora=None,
+                           lora_lanes: bool = False):
         """The fused K-step decode round as four closures shared by
         decode_multi and the unified ragged round (whose step-0 decode
         forward is welded to the prefill rows): `unpack` (packed buffer ->
@@ -1113,13 +1228,18 @@ class ModelRunner:
         advancing, its penalty counts stop updating. The loop then reads
         one flag per iteration, `done.all()`, and exits when it is set;
         the round returns each lane's valid count last. Tokens below a
-        lane's valid count equal the fixed-trip loop's."""
+        lane's valid count equal the fixed-trip loop's.
+
+        `lora` is the decode lanes' _lora_key; `lora_lanes` says the pack
+        holds their slot vector (a per-token round). The slots are
+        constant across the K iterations."""
         mc = self.model_config
         bs = self.block_size
         n_pages = c_pad // bs
         use_stop = stop_cap is not None
         layout, _ = self._decode_pack_layout(
             b, c_pad, k_steps, stop_cap, use_penalties, bias_cap, chained,
+            lora_lanes,
         )
         lane = torch.arange(b, device=self.device)
 
@@ -1139,6 +1259,8 @@ class ModelRunner:
                 "noise": f32("noise"),
                 "page_tables": seg("page_tables"),
             }
+            if lora_lanes:
+                consts["lora_slots"] = seg("lora_slots")
             counts0 = None
             if use_penalties:
                 # per-lane generated-token counts, kept on the device
@@ -1194,6 +1316,7 @@ class ModelRunner:
             logits, _, _ = llama.forward(
                 mc, self.params, tokens, positions, self.k_cache,
                 self.v_cache, write_slots, attn, logits_rows=lane,
+                **self._lora_kw(lora, consts.get("lora_slots")),
             )
             return logits
 
@@ -1281,6 +1404,7 @@ class ModelRunner:
     def stage_decode_multi(
         self, positions, block_tables, context_lens, steps,
         temps, top_ps, top_ks, keys, min_ps=None, stop=None,
+        lora_slots=None,
     ) -> StagedBuffer:
         """Build the packed buffer of the next fused round on the same
         lanes (chained: its tokens will be this round's last row) and
@@ -1291,12 +1415,14 @@ class ModelRunner:
         (context-bucket or length mismatch) is ignored by decode_multi.
         Returns a handle for decode_multi(staged=...)."""
         c_pad = self._ctx_bucket(max(context_lens) + max(0, steps - 1))
+        lora = self._lora_key(lora_slots)
         packed = self._fill_decode_pack(
             c_pad, steps, None, positions, block_tables, context_lens,
             temps, top_ps, top_ks, keys, min_ps=min_ps, stop=stop,
-            chained=True,
+            chained=True, lora_slots=lora_slots,
+            lora_lanes=isinstance(lora, tuple),
         )
-        return self._stage(c_pad, packed)
+        return self._stage((c_pad, lora), packed)
 
     # stackcheck: hot-path — one packed upload, the fused loop; fetches
     # stay with the caller
@@ -1321,6 +1447,7 @@ class ModelRunner:
                                     #  min_rem, budget (b_actual,) i32,
                                     #  stop_ids (b_actual, cap) i32 | None)
         staged: StagedBuffer | None = None,  # from stage_decode_multi
+        lora_slots: list[int] | None = None,  # per lane, None = all base
     ):
         """`steps` fused decode+sample iterations, one packed upload;
         returns (steps, b) int32 sampled tokens on the device, or with
@@ -1351,13 +1478,15 @@ class ModelRunner:
         c_pad = self._ctx_bucket(max(context_lens) + steps - 1)
         bias_cap = 0 if logit_bias is None else int(logit_bias[0].shape[1])
         stop_cap = self._stop_cap(stop)
+        lora = self._lora_key(lora_slots)
+        lora_lanes = isinstance(lora, tuple)
         packed_dev = None
-        if staged is not None and chained and staged.key == c_pad:
+        if staged is not None and chained and staged.key == (c_pad, lora):
             # the stop fields vary with the batch's stop-id cap: a total
             # length that differs is a stale stage, rebuilt here
             _, want_total = self._decode_pack_layout(
                 b, c_pad, steps, stop_cap, penalties is not None, bias_cap,
-                chained,
+                chained, lora_lanes,
             )
             if staged.dev.shape[0] == want_total:
                 packed_dev = self._take(staged)
@@ -1366,12 +1495,14 @@ class ModelRunner:
                 c_pad, steps, token_ids, positions, block_tables,
                 context_lens, temps, top_ps, top_ks, keys, min_ps=min_ps,
                 stop=stop, penalties=penalties, logit_bias=logit_bias,
-                chained=chained,
+                chained=chained, lora_slots=lora_slots,
+                lora_lanes=lora_lanes,
             ))
         core = self._decode_round_core(
             b, c_pad, steps, use_penalties=penalties is not None,
             want_logprobs=want_logprobs, bias_cap=bias_cap,
-            stop_cap=stop_cap, chained=chained,
+            stop_cap=stop_cap, chained=chained, lora=lora,
+            lora_lanes=lora_lanes,
         )
         consts, carry0 = core["unpack"](
             packed_dev, chained_tokens=token_ids if chained else None)
@@ -1397,9 +1528,11 @@ class ModelRunner:
         pc_pad = max(self._ctx_bucket(tl) for tl in total_lens)
         return r_pad, pc_pad
 
-    def _rows_prefill_pack_layout(self, r_pad: int, pc_pad: int):
+    def _rows_prefill_pack_layout(self, r_pad: int, pc_pad: int,
+                                  lora_rows: bool = False):
         """Flat row-axis fields + per-lane metadata at the lane cap; the
-        sampler noise (s_cap, cap) takes the place of the JAX keys."""
+        sampler noise (s_cap, cap) takes the place of the JAX keys.
+        `lora_rows` adds the per-row adapter slots."""
         s_cap = self._rows_lane_cap()
         fields = [
             ("tokens", (r_pad,)),
@@ -1416,6 +1549,8 @@ class ModelRunner:
             ("min_ps", (s_cap,)),
             ("noise", (s_cap, self._top_cap)),
         ]
+        if lora_rows:
+            fields.append(("lora_rows", (r_pad,)))
         return self._layout_of(fields)
 
     # stackcheck: hot-path — host build of the ragged-rows prefill pack;
@@ -1427,11 +1562,14 @@ class ModelRunner:
         block_tables: list[list[int]],
         total_lens: list[int],
         sampling=None,
+        lora_slots: list[int] | None = None,
+        lora_rows: bool = False,
     ) -> tuple[int, int, np.ndarray]:
         """Host build of the ragged-rows prefill pack; returns (r_pad,
         pc_pad, packed). Lane i's chunk occupies rows [lane_row0[i],
         lane_row0[i] + len(chunk)); alignment and bucket tail rows carry
-        position -1 -> rope 0 and write the trash slot."""
+        position -1 -> rope 0 and write the trash slot. `lora_rows`
+        writes the lanes' adapter slots per row (a per-token dispatch)."""
         n = len(chunks)
         s_cap = self._rows_lane_cap()
         r_pad, pc_pad = self._rows_dims(chunks, total_lens)
@@ -1462,7 +1600,8 @@ class ModelRunner:
         # idle lanes: empty row ranges past the packed region (they cover
         # no block), last row 0 (the round pins their sample)
         lane_row0[n:] = row
-        layout, size = self._rows_prefill_pack_layout(r_pad, pc_pad)
+        layout, size = self._rows_prefill_pack_layout(r_pad, pc_pad,
+                                                      lora_rows)
         packed = np.zeros((size,), np.int32)
         put = functools.partial(self._pack_put, packed, layout)
         put("tokens", tokens)
@@ -1474,6 +1613,9 @@ class ModelRunner:
         put("q_starts", q_starts)
         put("last_rows", last_rows)
         self._put_sampling(put, s_cap, sampling)
+        if lora_rows:
+            put("lora_rows", self._rows_slot_vector(chunks, lora_slots,
+                                                    r_pad))
         return r_pad, pc_pad, packed
 
     @staticmethod
@@ -1501,20 +1643,24 @@ class ModelRunner:
             torch.where(has, qpos0, torch.zeros_like(qpos0)),
         ], dim=1).to(torch.int32)
 
-    def _make_prefill_rows_step(self, r_pad: int, pc_pad: int):
+    def _make_prefill_rows_step(self, r_pad: int, pc_pad: int, lora=None):
         """Ragged-rows packed prefill: chunks of up to max_prefill_seqs
         sequences on ONE flat row axis, the group's chunk attention ONE
         ragged kernel launch a layer. `step(packed)` -> (sampled (s_cap,)
         int32, logits (s_cap, vocab)); `step.unpack` is shared with the
-        unified round (_build_ragged_rows)."""
+        unified round (_build_ragged_rows). `lora`: the dispatch's
+        _lora_key (a tuple: the pack carries per-row slots)."""
         mc = self.model_config
-        layout, _ = self._rows_prefill_pack_layout(r_pad, pc_pad)
+        per_tok = isinstance(lora, tuple)
+        layout, _ = self._rows_prefill_pack_layout(r_pad, pc_pad, per_tok)
 
         def unpack(packed):
             seg = functools.partial(self._pack_seg, packed, layout)
             pf = {name: seg(name) for name in (
                 "tokens", "positions", "write_slots", "tables", "lane_row0",
                 "lane_rows", "q_starts", "last_rows", "top_ks")}
+            if per_tok:
+                pf["lora_rows"] = seg("lora_rows")
             for name in ("temps", "top_ps", "min_ps", "noise"):
                 pf[name] = seg(name).view(torch.float32)
             return pf
@@ -1539,6 +1685,7 @@ class ModelRunner:
                 mc, self.params, pf["tokens"], pf["positions"],
                 self.k_cache, self.v_cache, pf["write_slots"], attn,
                 logits_rows=pf["last_rows"],
+                **self._lora_kw(lora, pf.get("lora_rows")),
             )
             return sample(pf, logits), logits
 
@@ -1556,16 +1703,18 @@ class ModelRunner:
     def _ragged_rows_pack_sizes(
         self, r_pad: int, pc_pad: int, b: int, c_pad: int, k_steps: int,
         stop_cap: int | None = None, use_penalties: bool = False,
-        bias_cap: int = 0, chained: bool = False,
+        bias_cap: int = 0, chained: bool = False, lora_rows: bool = False,
     ) -> tuple[int, int, int]:
         """(meta, prefill, decode) segment lengths of a ragged round's
         packed buffer: the lane-type header (lane cap + b lanes), the
-        ragged-rows prefill pack, the decode pack. A staged buffer whose
+        ragged-rows prefill pack, the decode pack (`lora_rows`: both
+        packs carry their rows' adapter slots). A staged buffer whose
         total differs from the dispatch's is stale."""
         meta = self._rows_lane_cap() + b
-        _, pf = self._rows_prefill_pack_layout(r_pad, pc_pad)
+        _, pf = self._rows_prefill_pack_layout(r_pad, pc_pad, lora_rows)
         _, dec = self._decode_pack_layout(b, c_pad, k_steps, stop_cap,
-                                          use_penalties, bias_cap, chained)
+                                          use_penalties, bias_cap, chained,
+                                          lora_rows)
         return meta, pf, dec
 
     # stackcheck: hot-path — host build of the ragged round's one h2d
@@ -1576,6 +1725,7 @@ class ModelRunner:
         pf_sampling, c_pad, token_ids, positions, block_tables,
         context_lens, steps, temps, top_ps, top_ks, keys, min_ps=None,
         stop=None, penalties=None, logit_bias=None, chained=False,
+        pf_lora_slots=None, lora_slots=None, lora_rows=False,
     ) -> tuple[int, int, np.ndarray]:
         """Lane-type header + ragged-rows prefill pack + decode pack, one
         int32 buffer (dispatch and staging). Returns (r_pad, pc_pad,
@@ -1584,12 +1734,14 @@ class ModelRunner:
         s_cap = self._rows_lane_cap()
         r_pad, pc_pad, pf_packed = self._fill_rows_prefill_pack(
             pf_chunks, pf_start_positions, pf_block_tables, pf_total_lens,
-            sampling=pf_sampling,
+            sampling=pf_sampling, lora_slots=pf_lora_slots,
+            lora_rows=lora_rows,
         )
         dec_packed = self._fill_decode_pack(
             c_pad, steps, token_ids, positions, block_tables, context_lens,
             temps, top_ps, top_ks, keys, min_ps=min_ps, stop=stop,
             penalties=penalties, logit_bias=logit_bias, chained=chained,
+            lora_slots=lora_slots, lora_lanes=lora_rows,
         )
         types = np.full((s_cap + b,), RAGGED_LANE_IDLE, np.int32)
         types[:len(pf_chunks)] = RAGGED_LANE_PREFILL
@@ -1639,26 +1791,34 @@ class ModelRunner:
                            want_logprobs: bool = False,
                            bias_cap: int = 0,
                            stop_cap: int | None = None,
-                           chained: bool = False):
+                           chained: bool = False, lora=None):
         """The unified round as `step(packed, chained_tokens=None)` ->
         (pf_sampled (s_cap,)
         int32, RAGGED_IDLE_TOKEN on non-prefill lanes; pf_logits (s_cap,
         vocab); decode ys as decode_multi returns them). The prefill
         lanes' rows and the decode lanes' step-0 rows share one row space
         and one forward, whose attention is one ragged kernel launch a
-        layer; decode iterations 1..K-1 continue on the decode core."""
+        layer; decode iterations 1..K-1 continue on the decode core.
+
+        `lora` is the round's _lora_key over (prefill lanes, decode
+        lanes): the step-0 forward takes it whole (per-token: the prefill
+        rows' slots then the decode lanes'), the decode loop the decode
+        lanes' share of it."""
         mc = self.model_config
         s_cap = self._rows_lane_cap()
         b_pad = _ceil_tq(b)
-        pf_step = self._make_prefill_rows_step(r_pad, pc_pad)
+        per_tok = isinstance(lora, tuple)
+        pf_step = self._make_prefill_rows_step(r_pad, pc_pad, lora)
         core = self._decode_round_core(
             b, c_pad, k_steps, use_penalties=use_penalties,
             want_logprobs=want_logprobs, bias_cap=bias_cap,
             stop_cap=stop_cap, chained=chained,
+            lora=self._lora_key(lora[1]) if per_tok else lora,
+            lora_lanes=per_tok,
         )
         meta_n, pf_n, _ = self._ragged_rows_pack_sizes(
             r_pad, pc_pad, b, c_pad, k_steps, stop_cap, use_penalties,
-            bias_cap, chained,
+            bias_cap, chained, per_tok,
         )
         n_pages = max(pc_pad, c_pad) // self.block_size
 
@@ -1693,6 +1853,9 @@ class ModelRunner:
                     r_pad + torch.arange(b, dtype=torch.int32,
                                          device=packed.device),
                 ]),
+                **self._lora_kw(lora, torch.cat([
+                    pf["lora_rows"], consts["lora_slots"]])
+                    if per_tok else None),
             )
             pf_logits = logits[:s_cap]
             pf_sampled = torch.where(
@@ -1716,7 +1879,7 @@ class ModelRunner:
         pf_sampling,
         positions, block_tables, context_lens, steps,
         temps, top_ps, top_ks, keys,
-        min_ps=None, stop=None,
+        min_ps=None, stop=None, pf_lora_slots=None, lora_slots=None,
     ) -> StagedBuffer:
         """Build the predicted next ragged round's packed buffer (its
         decode half chained: the tokens ride on the device from the
@@ -1725,15 +1888,18 @@ class ModelRunner:
         fingerprint, and the dispatch its bucket key and total length."""
         t0 = time.perf_counter()
         c_pad = self._ctx_bucket(max(context_lens) + max(0, steps - 1))
+        lora = self._lora_key(pf_lora_slots, lora_slots)
         r_pad, pc_pad, packed = self._fill_ragged_rows_pack(
             pf_chunks, pf_start_positions, pf_block_tables, pf_total_lens,
             pf_sampling, c_pad, None, positions, block_tables,
             context_lens, steps, temps, top_ps, top_ks, keys,
             min_ps=min_ps, stop=stop, chained=True,
+            pf_lora_slots=pf_lora_slots, lora_slots=lora_slots,
+            lora_rows=isinstance(lora, tuple),
         )
         t1 = time.perf_counter()
         self._phase_add("prep", t1 - t0)
-        handle = self._stage(("rows", r_pad, pc_pad, c_pad), packed)
+        handle = self._stage(("rows", r_pad, pc_pad, c_pad, lora), packed)
         self._phase_add("h2d", time.perf_counter() - t1)
         return handle
 
@@ -1759,6 +1925,8 @@ class ModelRunner:
         logit_bias: tuple | None = None,
         stop: tuple | None = None,
         staged: StagedBuffer | None = None,
+        pf_lora_slots: list[int] | None = None,
+        lora_slots: list[int] | None = None,
     ) -> tuple:
         """One lane-typed round: prefill chunk lanes + fused decode lanes.
         Returns (pf_sampled (s_cap,) int32 on the device, RAGGED_IDLE_TOKEN
@@ -1768,7 +1936,8 @@ class ModelRunner:
         decode_multi); `staged` = a stage_ragged handle, used only when
         its bucket key AND total length match this dispatch (a lane-mix
         or stop-cap change since the stage rebuilds here: a counted miss
-        for the engine, never an error)."""
+        for the engine, never an error). `pf_lora_slots` / `lora_slots`:
+        the prefill and decode lanes' adapter slots (None = all base)."""
         if steps > self.block_size:
             raise ValueError(
                 f"num_scheduler_steps={steps} > block_size="
@@ -1786,12 +1955,14 @@ class ModelRunner:
         bias_cap = 0 if logit_bias is None else int(logit_bias[0].shape[1])
         stop_cap = self._stop_cap(stop)
         r_pad, pc_pad = self._rows_dims(pf_chunks, pf_total_lens)
+        lora = self._lora_key(pf_lora_slots, lora_slots)
+        per_tok = isinstance(lora, tuple)
         packed_dev = None
         if (staged is not None and chained
-                and staged.key == ("rows", r_pad, pc_pad, c_pad)):
+                and staged.key == ("rows", r_pad, pc_pad, c_pad, lora)):
             want_total = sum(self._ragged_rows_pack_sizes(
                 r_pad, pc_pad, b, c_pad, steps, stop_cap,
-                penalties is not None, bias_cap, chained,
+                penalties is not None, bias_cap, chained, per_tok,
             ))
             if staged.dev.shape[0] == want_total:
                 packed_dev = self._take(staged)
@@ -1803,6 +1974,8 @@ class ModelRunner:
                 block_tables, context_lens, steps, temps, top_ps, top_ks,
                 keys, min_ps=min_ps, stop=stop, penalties=penalties,
                 logit_bias=logit_bias, chained=chained,
+                pf_lora_slots=pf_lora_slots, lora_slots=lora_slots,
+                lora_rows=per_tok,
             )
             t1 = time.perf_counter()
             self._phase_add("prep", t1 - t0)
@@ -1813,7 +1986,7 @@ class ModelRunner:
             r_pad, pc_pad, b, c_pad, steps,
             use_penalties=penalties is not None,
             want_logprobs=want_logprobs, bias_cap=bias_cap,
-            stop_cap=stop_cap, chained=chained,
+            stop_cap=stop_cap, chained=chained, lora=lora,
         )
         out = step(packed_dev,
                    chained_tokens=token_ids if chained else None)

@@ -2,8 +2,11 @@
 
 Counterpart of ``production_stack_tpu/engine/server.py`` for the
 endpoints this slice serves: ``/health``, ``/v1/models`` (with
-``max_model_len`` and the PD role), ``/v1/completions`` and
-``/v1/chat/completions`` (both with ``stream``), ``/metrics`` (the JAX
+``max_model_len`` and the PD role, then one card a loaded LoRA adapter),
+``/v1/completions`` and ``/v1/chat/completions`` (both with ``stream``;
+a ``model`` naming a loaded adapter is served with it),
+``POST /v1/load_lora_adapter`` and ``/v1/unload_lora_adapter`` (the
+operator's LoraAdapter controller calls them), ``/metrics`` (the JAX
 engine's families the port serves, written by engine/metrics.py: the
 ``vllm:*`` families the router scrapes, request latency histograms and
 the ``tpu:*`` prefill, staging, decode and ragged-round families), and
@@ -43,9 +46,11 @@ MAX_BODY_BYTES = 64 * 2**20
 
 
 class HttpError(Exception):
-    def __init__(self, status: int, message: str):
+    def __init__(self, status: int, message: str,
+                 err_type: str = "invalid_request_error"):
         super().__init__(message)
         self.status = status
+        self.err_type = err_type
 
 
 class EngineServer:
@@ -55,6 +60,7 @@ class EngineServer:
         self.model_name = config.served_model_name or config.model
         self.max_model_len = config.resolved_max_model_len()
         self.metrics = EngineMetrics(self.model_name)
+        self.lora_adapters: dict[str, str] = {}  # name -> path
         self._server: asyncio.AbstractServer | None = None
         self._routes = {
             ("GET", "/health"): self.handle_health,
@@ -62,6 +68,8 @@ class EngineServer:
             ("GET", "/metrics"): self.handle_metrics,
             ("POST", "/v1/completions"): self.handle_completions,
             ("POST", "/v1/chat/completions"): self.handle_chat,
+            ("POST", "/v1/load_lora_adapter"): self.handle_load_lora,
+            ("POST", "/v1/unload_lora_adapter"): self.handle_unload_lora,
             ("GET", "/debug/kernel_launches"): self.handle_kernel_launches,
             ("DELETE", "/debug/kernel_launches"):
                 self.handle_reset_kernel_launches,
@@ -127,7 +135,7 @@ class EngineServer:
                 await handler(body, writer)
             except HttpError as e:
                 await _send_json(writer, e.status, proto.error_json(
-                    str(e), code=e.status))
+                    str(e), e.err_type, e.status))
             except proto.ProtocolError as e:
                 await _send_json(writer, 400, proto.error_json(str(e)))
             except NotImplementedError as e:
@@ -138,6 +146,9 @@ class EngineServer:
                     str(e), "service_unavailable", 503))
             except ValueError as e:
                 await _send_json(writer, 400, proto.error_json(str(e)))
+            except KeyError as e:  # an adapter unloaded since the check
+                await _send_json(writer, 404, proto.error_json(
+                    str(e.args[0]) if e.args else str(e), code=404))
         except ConnectionError:
             pass  # the client went away mid-response
         except Exception:  # noqa: BLE001 — one request, not the server
@@ -155,7 +166,9 @@ class EngineServer:
             kv_role=self.config.pd_role(),
             max_model_len=self.max_model_len,
         )
-        await _send_json(writer, 200, {"object": "list", "data": [card]})
+        cards = [card] + [proto.model_card(name, root=path)
+                          for name, path in self.lora_adapters.items()]
+        await _send_json(writer, 200, {"object": "list", "data": cards})
 
     async def handle_metrics(self, body, writer) -> None:
         payload = self.metrics.render(self.engine.stats()).encode()
@@ -216,12 +229,40 @@ class EngineServer:
         ids = self.engine.tokenizer.encode(prompt)
         await self._generate(req, ids, writer, chat=True)
 
+    # -- LoRA hot-load (reference: loraadapter_controller.go:582-598 POSTs) -
+    async def handle_load_lora(self, body, writer) -> None:
+        req = _json(body)
+        name, path = req.get("lora_name"), req.get("lora_path")
+        if not name or not path:
+            raise HttpError(400, "need lora_name and lora_path")
+        loop = asyncio.get_running_loop()
+        try:
+            # the file read and the slot write wait for the step lock:
+            # off the event loop
+            await loop.run_in_executor(None, self.engine.load_lora, name,
+                                       path)
+        except (OSError, ValueError, RuntimeError, KeyError) as e:
+            # a missing or malformed file, a full slot table
+            raise HttpError(500, f"failed to load adapter: {e}") from None
+        self.lora_adapters[name] = path
+        logger.info("loaded LoRA adapter %s from %s", name, path)
+        await _send_json(writer, 200, {"status": "success"})
+
+    async def handle_unload_lora(self, body, writer) -> None:
+        name = _json(body).get("lora_name")
+        if name not in self.lora_adapters:
+            raise HttpError(404, f"adapter {name!r} not loaded")
+        await asyncio.get_running_loop().run_in_executor(
+            None, self.engine.unload_lora, name)
+        del self.lora_adapters[name]
+        await _send_json(writer, 200, {"status": "success"})
+
     # -- shared generation paths -------------------------------------------
     def _check_model(self, req: dict) -> None:
         model = req.get("model")
         if model is not None and model not in (
             self.model_name, self.config.model
-        ):
+        ) and model not in self.lora_adapters:
             raise HttpError(404, f"model {model!r} is not served here")
 
     async def _generate(self, req: dict, ids: list[int], writer,
@@ -230,16 +271,20 @@ class EngineServer:
         if sp.n != 1:
             raise NotImplementedError("n > 1 is not ported yet")
         if len(ids) >= self.max_model_len:
+            # vLLM's wording and error type for a prompt the KV layout
+            # cannot hold, rejected before admission
             raise HttpError(
-                400, f"prompt of {len(ids)} tokens leaves no room in the "
-                f"{self.max_model_len}-token context"
-            )
+                400, f"This model's maximum context length is "
+                f"{self.max_model_len} tokens. However, your request has "
+                f"{len(ids)} prompt tokens; please reduce the length of "
+                "the messages or prompt.", "context_length_exceeded")
         model = req.get("model") or self.model_name
+        lora_name = model if model in self.lora_adapters else None
         request_id = proto.make_id("chatcmpl" if chat else "cmpl")
         arrival = time.time()
         gen = self.engine.generate(
             request_id, prompt_token_ids=ids, sampling_params=sp,
-            priority=int(req.get("priority", 0)),
+            lora_name=lora_name, priority=int(req.get("priority", 0)),
         )
         if req.get("stream"):
             # the first output comes before the headers, so a request the
@@ -248,17 +293,47 @@ class EngineServer:
             await self._stream(first, gen, writer, request_id, model,
                                chat, len(ids), _wants_usage(req), arrival)
             return
-        text, reason, n_out = "", None, 0
+        final = None
         async for out in gen:
-            text, reason, n_out = out.text, out.finish_reason, len(
-                out.token_ids)
+            final = out
             if out.finished:
                 self.metrics.observe_finish(out, arrival)
-        if reason == "error":
+        if final.finish_reason == "error":
             raise HttpError(500, "engine step failed")
         make = proto.chat_response if chat else proto.completion_response
-        await _send_json(writer, 200, make(
-            request_id, model, text, reason, len(ids), n_out))
+        resp = make(request_id, model, final.text, final.finish_reason,
+                    len(ids), len(final.token_ids))
+        if not chat and final.logprobs is not None:
+            resp["choices"][0]["logprobs"] = self._completion_logprobs(
+                final.logprobs, bool(req.get("return_tokens_as_token_ids")))
+        await _send_json(writer, 200, resp)
+
+    def _completion_logprobs(self, entries: list[dict],
+                             as_ids: bool) -> dict:
+        """OpenAI completions logprobs (tokens, token_logprobs,
+        top_logprobs, text_offset) of a finished request; `as_ids`
+        renders each token as "token_id:N" (vLLM's
+        return_tokens_as_token_ids), and so does a top entry whose
+        string another entry of its row already took."""
+        def tok(token_id: int) -> str:
+            return (f"token_id:{token_id}" if as_ids
+                    else self.engine.tokenizer.decode([token_id]))
+
+        tokens, lps, tops, offsets, pos = [], [], [], [], 0
+        for e in entries:
+            s = tok(e["token_id"])
+            tokens.append(s)
+            lps.append(e["logprob"])
+            top: dict = {}
+            for t in e["top_logprobs"]:
+                key = tok(t["token_id"])
+                top[key if key not in top
+                    else f"token_id:{t['token_id']}"] = t["logprob"]
+            tops.append(top)
+            offsets.append(pos)
+            pos += len(s)
+        return {"tokens": tokens, "token_logprobs": lps,
+                "top_logprobs": tops, "text_offset": offsets}
 
     async def _stream(self, first, gen, writer, request_id, model, chat,
                       n_prompt, include_usage, arrival) -> None:

@@ -338,9 +338,14 @@ def get_model_config(model: str) -> ModelConfig:
         os.path.join(model, "config.json")
     ):
         return from_hf_config(model)
+    from production_stack_tpu_torch.models.weights import resolve_model_dir
+
+    d = resolve_model_dir(model)
+    if d is not None:
+        return from_hf_config(d, name=model)
     raise ValueError(
-        f"unknown model {model!r} (not a preset or local checkpoint dir); "
-        f"known presets: {sorted(_PRESETS)}"
+        f"unknown model {model!r} (not a preset, local checkpoint dir, or "
+        f"cached HF id); known presets: {sorted(_PRESETS)}"
     )
 
 

@@ -12,7 +12,9 @@ the new rows are written INTO the cache tensors in place (JAX's donated
 scatter): the caller's caches are updated, and the same tensors are
 returned for symmetry with the JAX signature.
 
-No LoRA and no MoE in this port yet: both raise.
+Multi-LoRA (engine/lora.py's stacked slots) adds scaling * (x @ A) @ B
+to the wq/wk/wv/wo projections, in plain PyTorch as the JAX package
+computes it in XLA. MoE is not ported yet: it raises.
 """
 
 from __future__ import annotations
@@ -106,16 +108,25 @@ def decoder_layer(
     attn_fn: AttnFn,
     dtype: torch.dtype,
     cache_dtype: torch.dtype,
+    lora_ctx: tuple | None = None,  # (lz, slot | weights (n, S))
 ):
     """One decoder layer over n token rows. Writes the rows' K/V into the
     cache at `write_slots` (in place) BEFORE attn_fn runs, so attention
-    sees them."""
+    sees them.
+
+    `lora_ctx` = (lz, sel): lz holds this layer's adapter rows ({t}_B
+    (S, r, out), scaling (S,), {t}_A (S, in, r), or (in, S*r) on the
+    per-row path); sel is one slot (an int or 0-d tensor: every row uses
+    it) or (n, S) f32 per-row weights, row i's scaling at its slot's
+    column and 0 elsewhere (see lora_row_weights)."""
     n = h.shape[0]
 
     def proj(x, target, bias):
         out = matmul_f32(x, lp[target])
         if bias is not None:
             out = out + bias.float()
+        if lora_ctx is not None:
+            out = out + lora_delta(x, lora_ctx, target)
         return out
 
     x = rms_norm(h, lp["attn_norm"], cfg.rms_norm_eps,
@@ -155,18 +166,19 @@ def forward(
     write_slots: torch.Tensor,  # (n,) int cache rows for the new tokens
     attn_fn: AttnFn,
     logits_rows: torch.Tensor,  # (r,) int rows of h to project to logits
-    lora: dict | None = None,
-    lora_slots: torch.Tensor | None = None,
+    lora: dict | None = None,  # LoraManager.buffers
+    lora_slots: torch.Tensor | int | None = None,  # (n,) or one slot
     return_hidden: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run the decoder over n tokens; returns (logits[r, V] f32, k_cache,
     v_cache). The new tokens' K/V are written into the caches in place
-    before attention runs."""
+    before attention runs.
+
+    Multi-LoRA: with `lora` (A (L, S, in, r), B (L, S, r, out), scaling
+    (S,)) and `lora_slots`, scaling * (x @ A) @ B of each row's slot is
+    added to wq/wk/wv/wo (slot 0 is all zeros: no adapter). A scalar slot
+    is the uniform path, an (n,) vector the per-token one."""
     _refuse_unported(cfg)
-    if lora is not None or lora_slots is not None:
-        raise NotImplementedError(
-            "LoRA adapters are not ported to the PyTorch engine yet"
-        )
     dtype = params["embed"].dtype
     cache_dtype = k_cache.dtype
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
@@ -178,13 +190,32 @@ def forward(
         # sqrt(hidden_size)
         h = (h.float() * cfg.embed_scale).to(dtype)
 
+    sel = None
+    if lora is not None:
+        if lora_slots is None:
+            raise ValueError("lora buffers given without lora_slots")
+        if isinstance(lora_slots, int) or lora_slots.dim() == 0:
+            # one slot for every row (a prefill chunk, a one-adapter
+            # batch): plain (in, r) products
+            sel = lora_slots
+        else:
+            sel = lora_row_weights(lora["scaling"], lora_slots)
+            # each layer multiplies x by every slot's A at once: A as
+            # (L, in, S*r), one permuted copy a target a forward
+            lora = {k: v.permute(0, 2, 1, 3).flatten(2)
+                    if k.endswith("_A") else v for k, v in lora.items()}
+
     layers = params["layers"]
     for l in range(cfg.num_layers):
         lp = {name: w[l] for name, w in layers.items()}
+        lora_ctx = None
+        if lora is not None:
+            lora_ctx = ({k: (v if k == "scaling" else v[l])
+                         for k, v in lora.items()}, sel)
         h, k_cache, v_cache = decoder_layer(
             cfg, h, k_cache, v_cache, lp, l,
             cos=cos, sin=sin, write_slots=write_slots, attn_fn=attn_fn,
-            dtype=dtype, cache_dtype=cache_dtype,
+            dtype=dtype, cache_dtype=cache_dtype, lora_ctx=lora_ctx,
         )
 
     h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps,
@@ -196,6 +227,37 @@ def forward(
         params["embed"].t() if cfg.tie_word_embeddings else params["lm_head"]
     )
     return matmul_f32(h_sel, lm_head), k_cache, v_cache
+
+
+def lora_row_weights(scaling: torch.Tensor,
+                     slots: torch.Tensor) -> torch.Tensor:
+    """(n, S) f32 per-row adapter weights of a per-token forward: row i
+    holds scaling[slots[i]] at column slots[i] and exact zeros elsewhere,
+    so a slot-0 (base) row adds exactly 0."""
+    S = scaling.shape[0]
+    onehot = slots.long()[:, None] == torch.arange(S, device=slots.device)
+    return onehot.float() * scaling[slots.long()][:, None]
+
+
+def lora_delta(x: torch.Tensor, lora_ctx: tuple,
+               target: str) -> torch.Tensor:
+    """scaling * (x @ A) @ B of one target for the rows of x, f32.
+
+    One slot: x @ A[slot] then @ B[slot]. Per row (the JAX package
+    gathers each row's A and B, (n, in, r) and (n, r, out) a target, which
+    is hundreds of MB at a 2048-row chunk): x times every slot's A at
+    once, A laid out (in, S*r) by forward(), then each row's r columns
+    kept by its weights (n, S) and the (n, S*r) result times B viewed
+    (S*r, out) — the other slots' columns are exact zeros there."""
+    lz, sel = lora_ctx
+    A, B = lz[f"{target}_A"], lz[f"{target}_B"]
+    if isinstance(sel, int) or sel.dim() == 0:
+        t = matmul_f32(x, A[sel])
+        return (t @ B[sel].float()) * lz["scaling"][sel]
+    n = x.shape[0]
+    S, r, dout = B.shape
+    t = matmul_f32(x, A).view(n, S, r) * sel[:, :, None]
+    return t.view(n, S * r) @ B.reshape(S * r, dout).float()
 
 
 def attention_scale(cfg: ModelConfig) -> float:

@@ -415,3 +415,51 @@ def test_staged_buffers_on_busy_streams(cuda_device, monkeypatch):
     got = staged.decode_multi(first[-1], *nxt, 4, *sampling, staged=h)
     want = ref.decode_multi([int(first[-1][0])], *nxt, 4, *sampling)
     assert torch.equal(got[:, 0].cpu(), want[:, 0].cpu())
+
+
+@pytest.mark.cuda
+def test_safetensors_bf16_round_trip_through_the_card(cuda_device,
+                                                      tmp_path):
+    """A bf16 tensor written from the card and read back onto it through
+    models/safetensors_io.py comes back bit for bit."""
+    from production_stack_tpu_torch.models import safetensors_io
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    t = torch.randn((3, 1024, 129), generator=g,
+                    device=cuda_device).bfloat16()
+    path = str(tmp_path / "t.safetensors")
+    safetensors_io.save_file({"t": t, "tt": t[0].t()}, path)
+    got = {k: v.to(cuda_device) for k, v in
+           safetensors_io.load_file(path).items()}
+    assert got["t"].dtype == torch.bfloat16
+    assert torch.equal(got["t"], t) and torch.equal(got["tt"], t[0].t())
+
+
+@pytest.mark.cuda
+def test_per_token_lora_projection_on_card(cuda_device):
+    """One per-token LoRA projection (llama.lora_delta over every slot
+    at once) at 3B widths in bf16 on the card, held to its value on the
+    CPU: float32 accumulations in another order only."""
+    from production_stack_tpu_torch.models import llama
+
+    g = torch.Generator().manual_seed(0)
+    n, din, dout, S, r = 96, 3072, 1024, 5, 16
+    x = torch.randn((n, din), generator=g).bfloat16()
+    A = (torch.randn((1, S, din, r), generator=g) * 0.02).bfloat16()
+    B = (torch.randn((1, S, r, dout), generator=g) * 0.02).bfloat16()
+    A[:, 0] = 0
+    B[:, 0] = 0
+    scaling = torch.tensor([0.0, 2.0, 1.0, 0.5, 0.25])
+    slots = torch.randint(0, S, (n,), generator=g)
+
+    def delta(dev):
+        w = llama.lora_row_weights(scaling.to(dev), slots.to(dev))
+        lz = {"wq_A": A.to(dev).permute(0, 2, 1, 3).flatten(2)[0],
+              "wq_B": B.to(dev)[0], "scaling": scaling.to(dev)}
+        return llama.lora_delta(x.to(dev), (lz, w), "wq").cpu()
+
+    ref, got = delta("cpu"), delta(cuda_device)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))
+    assert torch.equal(got[slots == 0], torch.zeros_like(got[slots == 0]))

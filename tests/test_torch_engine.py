@@ -129,7 +129,7 @@ def test_seeded_sampling_is_reproducible(np_params):
     ("precompile_serving", True), ("long_prefill_threshold", 1024),
     ("ragged_kernel", False),  # the composed-kernel ragged round
     ("disk_offload_dir", "kv-offload"), ("async_decode", True),
-    ("enable_lora", True), ("tensor_parallel_size", 2),
+    ("tensor_parallel_size", 2),
     ("pipeline_parallel_size", 2), ("multihost", True),
     ("num_speculative_tokens", 2), ("cpu_offload_bytes", 1 << 20),
     ("remote_cache_url", "127.0.0.1:1"), ("model", "pst-tiny-moe-debug"),

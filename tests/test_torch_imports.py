@@ -16,7 +16,11 @@ PORT = REPO / "production_stack_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                         REPO / "scripts/torch_kernel_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "production_stack_tpu", "aiohttp",
-             "prometheus_client", "xxhash")
+             "prometheus_client", "xxhash", "safetensors")
+# HF packages the card machine lacks: imported only inside the functions
+# that serve a checkpoint's own tokenizer or write a debug one
+LAZY_HF = {"transformers": {"engine/tokenizer.py"},
+           "tokenizers": {"models/debug_checkpoint.py"}}
 
 
 def _imports(path: Path) -> list[str]:
@@ -34,6 +38,27 @@ def _imports(path: Path) -> list[str]:
 def test_no_jax_or_jax_package_imports(path):
     bad = [n for n in _imports(path) if n.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+@pytest.mark.parametrize("package", sorted(LAZY_HF))
+def test_hf_packages_only_behind_lazy_imports(package):
+    """No module of the port (nor chip_smoke.py) imports `package` at
+    top level, and only LAZY_HF's files import it at all."""
+    users = set()
+    for path in SOURCES:
+        tree = ast.parse(path.read_text(), str(path))
+        top = [n for n in tree.body
+               if isinstance(n, (ast.Import, ast.ImportFrom))]
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import)
+                     else [node.module or ""]
+                     if isinstance(node, ast.ImportFrom) else [])
+            if any(n.split(".")[0] == package for n in names):
+                assert node not in top, f"{path} imports {package} at top"
+                users.add(str(path.relative_to(PORT)) if PORT in
+                          path.parents else str(path))
+    assert users <= LAZY_HF[package], users
 
 
 def test_every_port_module_imports_without_a_card():

@@ -315,7 +315,8 @@ def test_init_params_layout_and_refusals():
     moe = tcfg.get_model_config("pst-tiny-moe-debug")
     with pytest.raises(NotImplementedError, match="MoE"):
         tllama.init_params(moe, torch.Generator(), torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="LoRA"):
+    # LoRA buffers need the rows' adapter slots
+    with pytest.raises(ValueError, match="lora_slots"):
         tllama.forward(tc, p, torch.zeros(1, dtype=torch.int32),
                        torch.zeros(1, dtype=torch.int32),
                        torch.zeros(2, 2, 8, 16), torch.zeros(2, 2, 8, 16),
