@@ -109,16 +109,38 @@ Phases, each fatal on failure:
    base streams are held to an engine without LoRA and each adapter's
    to an engine on merged weights W + A @ B, under the near-tie rule
    (an adapter's tolerance is at least the LoRA vs merged forward's
-   max|dlogit| over 256 rows).
+   max|dlogit| over 256 rows);
+10. KV: the port's cache server process (python -m
+   production_stack_tpu_torch.kv.cache_server) starts; (a) an
+   in-process 28-layer bf16 engine prefills a 1500-token prompt and its
+   46 full blocks (3.5 MiB each) are exported (gather on the compute
+   stream, pinned d2h) and imported into 46 other blocks, three times,
+   and read back byte-equal to each other, to a direct gather of the
+   cache and through serialize/deserialize (export and import GB/s and
+   the xxh64 microseconds a block printed); (b) the same engine, with a
+   host-RAM tier of 24 blocks, a disk tier under build/ and the cache
+   server written through, serves three other 1500-token prompts that
+   evict the first from its 100-block pool, then restores all 46 blocks
+   of it from the tiers (tpu:kv_restore_blocks), its greedy stream held
+   to the cold one under the near-tie rule (cold and restored TTFT
+   printed); (c) two CLI servers, prefill (--kv-role prefill
+   --kv-transfer-listen) and decode (--kv-role kv_consumer --kv-peer),
+   get an 1100-token prompt as the router's pd policy sends it (prefill
+   with max_tokens 1, then decode): the decode server pulls 34 blocks
+   and its stream is held to the prefill server's own for the same
+   request; (d) a fresh engine with only the cache server restores the
+   1500-token prompt from it. Restore and export fallbacks read 0
+   throughout, launches 28 a forward on every engine and server.
 
 Launch counts are reset just before the serve phase's requests (through
 the server's /debug/kernel_launches), before the decode phase's
 --no-ragged-kernel engine, before each pipeline-phase engine and before
-each mixed-round engine and before the checkpoint phase's requests, and
-read just after; a kernel launched 0 times on those paths fails the
-run. The
-servers' logs go to build/chip_smoke_serve.log and
-build/chip_smoke_lora_serve.log. The last lines are the kernels JSON, the
+each mixed-round engine, before the checkpoint phase's requests and
+before each KV-phase engine's and server's requests, and read just
+after; a kernel launched 0 times on those paths fails the run. The
+servers' logs go to build/chip_smoke_serve.log,
+build/chip_smoke_lora_serve.log, build/chip_smoke_prefill_serve.log,
+build/chip_smoke_decode_serve.log and build/chip_smoke_cache_server.log. The last lines are the kernels JSON, the
 card's name and power limit (nvidia-smi), and {"ok": true, "device":
 {...}}.
 """
@@ -1924,6 +1946,351 @@ def checkpoint_phase(torch, pa, gap_tol: float, smi: str) -> dict:
     return report["launches"]
 
 
+# -- KV phase ------------------------------------------------------------------
+KV_PROMPT_TOKENS = 1500   # 46 full 32-token blocks
+PD_PROMPT_TOKENS = 1100   # 34 full blocks
+
+
+class HttpStream:
+    """A greedy stream read over HTTP with its top-2 logprobs, shaped as
+    near_tie_check reads a RequestOutput (token ids from vLLM's
+    return_tokens_as_token_ids)."""
+
+    def __init__(self, choice: dict):
+        lp = choice["logprobs"]
+        self.token_ids = [int(t.split(":")[1]) for t in lp["tokens"]]
+        self.logprobs = [
+            {"top_logprobs": [{"logprob": v} for v in
+                              sorted(top.values(), reverse=True)]}
+            for top in lp["top_logprobs"]]
+
+
+def kv_counters(what: str, samples: dict, want: dict) -> None:
+    """tpu:kv_* samples (from /metrics or EngineMetrics.render) against
+    the values the phase requires; the restore and export fallbacks of
+    the JAX engine's degradations must read 0, so the card path is the
+    one that ran."""
+    got = {k: samples[k][0][1] if k in samples else None for k in want}
+    print(f"{what}: {got}", flush=True)
+    bad = {k: v for k, v in got.items() if v != want[k]}
+    if bad:
+        fail(f"{what}: {bad}, want {want}")
+
+
+def kv_phase(torch, pa, gap_tol: float, smi: str,
+             model: str = "llama-3.2-3b", device: str = "cuda") -> dict:
+    """The port's KV export, import, tiers, PD pull and shared cache
+    server at full 3B width (28 layers, bf16, random weights). `model`
+    and `device` exist for a dry run of the phase's logic on a CPU with a
+    tiny model."""
+    import gc
+    import shutil
+
+    from production_stack_tpu_torch.engine.block_manager import (
+        iter_chain_hashes,
+    )
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.llm_engine import LLMEngine
+    from production_stack_tpu_torch.engine.metrics import EngineMetrics
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+    from production_stack_tpu_torch.kv import offload
+    from production_stack_tpu_torch.kv.remote import CacheClient
+    from production_stack_tpu_torch.models.config import get_model_config
+    from production_stack_tpu_torch.ops.attention import block_table_slots
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    bs = 32
+    mc = get_model_config(model)
+    layers, nkv, d = mc.num_layers, mc.num_kv_heads, mc.head_dim
+    block_bytes = 2 * layers * nkv * bs * d * 2  # bf16 wire block
+    engine_kw = dict(model=model, tokenizer="byte", device=device,
+                     block_size=bs, num_kv_blocks=100, max_num_seqs=4,
+                     seed=SEED, kv_restore_wait_s=30.0)
+    server_args = () if device == "cuda" else ("--device", device)
+    prompt = [(17 * j + 5) % 250 + 1 for j in range(KV_PROMPT_TOKENS)]
+    churn = [[(13 * j + 7 * i + 3) % 250 + 1
+              for j in range(KV_PROMPT_TOKENS)] for i in range(1, 4)]
+    n_full = KV_PROMPT_TOKENS // bs
+    sp = SamplingParams(max_tokens=16, temperature=0, ignore_eos=True,
+                        logprobs=2)
+    root = REPO / "build" / "chip_smoke_kv"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    cs_port = free_port()
+    cs_log = REPO / "build" / "chip_smoke_cache_server.log"
+    with open(cs_log, "wb") as log:
+        cache_srv = subprocess.Popen(
+            [sys.executable, "-m",
+             "production_stack_tpu_torch.kv.cache_server",
+             "--host", "127.0.0.1", "--port", str(cs_port),
+             "--capacity-gb", "4"],
+            cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT)
+    procs = []
+    counts = {}
+    try:
+        client = CacheClient("127.0.0.1", cs_port, timeout=30)
+        t0 = time.perf_counter()
+        while not client.ping():
+            if cache_srv.poll() is not None or time.perf_counter() - t0 > 60:
+                fail(f"KV phase: cache server not up:\n{log_tail(cs_log)}")
+            time.sleep(0.2)
+        print(f"KV phase: cache server (python -m production_stack_tpu_"
+              f"torch.kv.cache_server) up on :{cs_port}", flush=True)
+
+        # (a) runner: export, import, read back, serialize; hash cost
+        eng = LLMEngine(EngineConfig(
+            **engine_kw, cpu_offload_bytes=24 * block_bytes,
+            disk_offload_dir=str(root / "disk"),
+            remote_cache_url=f"127.0.0.1:{cs_port}"))
+        pa.reset_launch_counts()
+        first = eng.generate([prompt], sp)[0]
+        bm, r = eng.block_manager, eng.runner
+        hashes = bm.block_hashes_for(prompt, 0)
+        bids = [bm.cached_blocks[h] for h in hashes]
+        free = [b for b in range(1, 100) if b not in bm.cached_blocks.values()
+                and bm.blocks[b].ref_count == 0][:n_full]
+        if len(bids) != n_full or len(free) != n_full:
+            fail(f"KV phase: {len(bids)} cached and {len(free)} free blocks")
+        nbytes = n_full * block_bytes
+        exp_s, imp_s, pin_s = [], [], []
+
+        def ms(ts):
+            return [round(t * 1e3, 2) for t in ts]
+
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            data = r.export_blocks(bids)
+            exp_s.append(time.perf_counter() - t0)
+            # from pageable host memory, as the tiers hand blocks back
+            # (the import pins a copy), and from the pinned export
+            host = data.clone()
+            for src, out in ((host, imp_s), (data, pin_s)):
+                t0 = time.perf_counter()
+                r.import_blocks(free, src)
+                sync()
+                out.append(time.perf_counter() - t0)
+            del host
+        slots = block_table_slots(torch.tensor(bids), bs).to(device)
+        direct = torch.stack([
+            c.index_select(2, slots).view(layers, nkv, n_full, bs, d)
+            .transpose(1, 2) for c in (r.k_cache, r.v_cache)]).cpu()
+        back = r.export_blocks(free)
+        wire = offload.deserialize_block(offload.serialize_block(data))
+        ok = (torch.equal(data, direct) and torch.equal(back, data)
+              and torch.equal(r.export_blocks(bids), data)
+              and torch.equal(wire, data))
+        print(f"KV phase (a): {n_full} blocks of the {KV_PROMPT_TOKENS}-"
+              f"token prompt ({nbytes / 2**20:.1f} MiB, wire layout "
+              f"{tuple(data.shape)} {data.dtype}) exported and imported "
+              f"into {n_full} other blocks: read back byte-equal {ok}; "
+              f"export (gather + pinned d2h) {ms(exp_s)} ms = best "
+              f"{nbytes / min(exp_s) / 1e9:.2f} GB/s, import from pageable "
+              f"memory (pin copy + h2d + index_copy_) {ms(imp_s)} ms = best "
+              f"{nbytes / min(imp_s) / 1e9:.2f} GB/s, from the pinned "
+              f"export {ms(pin_s)} ms = best "
+              f"{nbytes / min(pin_s) / 1e9:.2f} GB/s (host clock) on {smi}",
+              flush=True)
+        if not ok:
+            fail("KV phase (a): exported/imported blocks differ")
+        t0 = time.perf_counter()
+        for _ in range(20):
+            list(iter_chain_hashes(prompt, bs))
+        per_prompt = (time.perf_counter() - t0) / 20
+        print(f"KV phase (a): xxh64 chain hash {per_prompt / n_full * 1e6:.1f}"
+              f" us a {bs}-token block, {per_prompt * 1e3:.3f} ms a "
+              f"{KV_PROMPT_TOKENS}-token prompt (host clock)", flush=True)
+        del data, back, wire, direct
+
+        # (b) offload engine: churn evicts the prompt, restore from tiers
+        def drain(e):
+            """Until the offload worker has stored every export (the
+            restore below then measures itself, not a queue)."""
+            t0 = time.perf_counter()
+            def busy():
+                pending = next(t for t in e.offload.stats()
+                               if t["tier"] == "pending")
+                return (e.offload.export_backlog() or pending["blocks"]
+                        or not e.offload._q.empty())
+
+            while busy() and time.perf_counter() - t0 < 120:
+                time.sleep(0.01)
+
+        drain(eng)
+        for c in churn:
+            eng.generate([c], SamplingParams(max_tokens=4, temperature=0,
+                                             ignore_eos=True))
+            drain(eng)
+        resident = sum(bm.contains_hash(h) for h in hashes)
+        tiers = {t.name: len(t.hashes()) for t in eng.offload.tiers}
+        local = [h for h in hashes if any(t.contains(h)
+                                          for t in eng.offload.tiers)]
+        r0 = eng._kv_restore_blocks_total
+        restored = eng.generate([prompt], sp)[0]
+        sync()
+        # where a restore's time goes: the tier reads on the host, then
+        # the batch's stack, pin copy, h2d and scatter
+        t0 = time.perf_counter()
+        blocks = [eng.offload.get(h) for h in hashes]
+        t1 = time.perf_counter()
+        r.import_blocks(free, torch.stack(blocks, dim=2))
+        sync()
+        t2 = time.perf_counter()
+        print(f"KV phase (b): the prompt's {n_full} blocks read from the "
+              f"tiers on the host in {(t1 - t0) * 1e3:.1f} ms, stacked and "
+              f"imported in {(t2 - t1) * 1e3:.1f} ms (host clock)",
+              flush=True)
+        del blocks
+        ttft = [o.metrics.first_token_time - o.metrics.arrival_time
+                for o in (first, restored)]
+        restore_s = eng._kv_restore_seconds_total
+        samples, _ = parse_metrics(EngineMetrics("m").render(eng.stats()))
+        counters = eng.offload.counters()
+        print(f"KV phase (b): after churn {resident} of the prompt's "
+              f"{n_full} blocks resident, tiers hold {tiers}; restored "
+              f"{eng._kv_restore_blocks_total - r0} blocks in "
+              f"{restore_s:.4f} s (enqueue -> landed); tier counters "
+              f"{counters}; TTFT cold {ttft[0] * 1e3:.1f} ms, restored "
+              f"{ttft[1] * 1e3:.1f} ms (host clock) on {smi}", flush=True)
+        if resident or len(local) != n_full:
+            fail(f"KV phase (b): {resident} blocks still resident, "
+                 f"{len(local)} in the tiers")
+        kv_counters("KV phase (b) metrics", samples, {
+            "tpu:kv_restore_blocks_total": float(n_full),
+            "tpu:kv_restore_fallbacks_total": 0.0,
+            "tpu:kv_export_sync_fallbacks_total": 0.0})
+        n_same = near_tie_check("KV phase (b)", [first], [restored], gap_tol)
+        check_launches("KV phase (b)", pa.launch_counts(),
+                       r.dispatch_counts)
+        counts["offload"] = pa.launch_counts()
+        remote = eng.offload.remote
+        remote.flush()
+        print(f"KV phase (b): {n_same}/1 restored greedy stream equal to "
+              f"the cold one; shared cache write-through: "
+              f"{remote.counters()}", flush=True)
+        if client.lookup(hashes) != n_full:
+            fail("KV phase (b): the cache server does not hold the prompt")
+        eng.shutdown()
+        del eng, r, bm
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) PD over HTTP: prefill serves KV, decode pulls it
+        kv_port, pf_port, dc_port = free_port(), free_port(), free_port()
+        pf_log = REPO / "build" / "chip_smoke_prefill_serve.log"
+        dc_log = REPO / "build" / "chip_smoke_decode_serve.log"
+        t0 = time.perf_counter()
+        pf = start_server(pf_port, pf_log, model, extra=server_args + (
+            "--kv-role", "prefill",
+            "--kv-transfer-listen", f"127.0.0.1:{kv_port}"))
+        procs.append(pf)
+        dc = start_server(dc_port, dc_log, model, extra=server_args + (
+            "--kv-role", "kv_consumer", "--kv-peer", f"127.0.0.1:{kv_port}"))
+        procs.append(dc)
+        for name, proc, port, log in (("prefill", pf, pf_port, pf_log),
+                                      ("decode", dc, dc_port, dc_log)):
+            wait_healthy(f"KV phase (c) {name}", proc, port, log, t0)
+            role = json.loads(http(port, "/v1/models")[1])["data"][0].get(
+                "kv_role")
+            if role != name:
+                fail(f"KV phase (c): the {name} server's card says {role}")
+            http(port, "/debug/kernel_launches", method="DELETE")
+        ids = [(7 * j + 11) % 250 + 1 for j in range(PD_PROMPT_TOKENS)]
+        n_pd = PD_PROMPT_TOKENS // bs
+
+        def completion(port, n):
+            st, text = http(port, "/v1/completions", {
+                "prompt": ids, "max_tokens": n, "temperature": 0,
+                "ignore_eos": True, "logprobs": 2,
+                "return_tokens_as_token_ids": True})
+            choice = json.loads(text)["choices"][0]
+            if st != 200 or len(choice["logprobs"]["tokens"]) != n:
+                fail(f"KV phase (c): bad completion {text[:300]}")
+            return HttpStream(choice)
+
+        t1 = time.perf_counter()
+        completion(pf_port, 1)  # the pd policy's phase 1
+        t2 = time.perf_counter()
+        pulled = completion(dc_port, 16)
+        t3 = time.perf_counter()
+        own = completion(pf_port, 16)
+        print(f"KV phase (c): {PD_PROMPT_TOKENS}-token prompt, prefill "
+              f"(max_tokens 1) {t2 - t1:.3f}s, decode with the pull "
+              f"{t3 - t2:.3f}s (host clock)", flush=True)
+        for name, port in (("prefill", pf_port), ("decode", dc_port)):
+            samples, _ = parse_metrics(http(port, "/metrics")[1])
+            want = {"tpu:kv_restore_fallbacks_total": 0.0,
+                    "tpu:kv_export_sync_fallbacks_total": 0.0}
+            if name == "decode":
+                want.update({"tpu:kv_peer_hits_total": float(n_pd),
+                             "tpu:kv_peer_fallbacks_total": 0.0,
+                             "tpu:kv_restore_blocks_total": float(n_pd)})
+            kv_counters(f"KV phase (c) {name} server", samples, want)
+            report = json.loads(http(port, "/debug/kernel_launches")[1])
+            check_launches(f"KV phase (c) {name} server",
+                           report["launches"], report["dispatches"])
+            counts[name] = report["launches"]
+        n_same = near_tie_check("KV phase (c)", [own], [pulled], gap_tol)
+        print(f"KV phase (c): {n_same}/1 pulled greedy stream equal to the "
+              "prefill server's own", flush=True)
+        for proc in (dc, pf):  # decode first: it holds the peer socket
+            stop_server(proc)
+        procs.clear()
+        torch.cuda.empty_cache()
+
+        # (d) a second engine restores the prompt from the cache server
+        eng = LLMEngine(EngineConfig(
+            **engine_kw, remote_cache_url=f"127.0.0.1:{cs_port}"))
+        pa.reset_launch_counts()
+        again = eng.generate([prompt], sp)[0]
+        t0 = time.perf_counter()
+        pulled = client.get_chain(hashes)
+        print(f"KV phase (d): one get_chain of {len(pulled)} blocks from "
+              f"the cache server in {(time.perf_counter() - t0) * 1e3:.1f}"
+              " ms (host clock: serialize, loopback, deserialize)",
+              flush=True)
+        del pulled
+        samples, _ = parse_metrics(EngineMetrics("m").render(eng.stats()))
+        kv_counters("KV phase (d) metrics", samples, {
+            "tpu:kv_remote_hits_total": float(n_full),
+            "tpu:kv_restore_blocks_total": float(n_full),
+            "tpu:kv_restore_fallbacks_total": 0.0,
+            "tpu:kv_export_sync_fallbacks_total": 0.0})
+        check_launches("KV phase (d)", pa.launch_counts(),
+                       eng.runner.dispatch_counts)
+        counts["remote"] = pa.launch_counts()
+        n_same = near_tie_check("KV phase (d)", [first], [again], gap_tol)
+        m = again.metrics
+        print(f"KV phase (d): a second engine restored {n_full} blocks from "
+              f"the cache server in {eng._kv_restore_seconds_total:.4f} s, "
+              f"TTFT {(m.first_token_time - m.arrival_time) * 1e3:.1f} ms; "
+              f"{n_same}/1 greedy stream equal to the first engine's; "
+              f"cache server {client.stats().get('blocks')} blocks",
+              flush=True)
+        eng.shutdown()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        client.close()
+    finally:
+        for proc in procs:
+            stop_server(proc)
+        stop_server(cache_srv)
+        shutil.rmtree(root, ignore_errors=True)
+    idle = [k for k, c in counts.items() if not c.get("ragged")]
+    if idle:
+        fail(f"KV phase: the ragged kernel never launched on {idle}")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1961,6 +2328,7 @@ def main() -> int:
     pipeline_phase(torch, pa, smi)
     mixed_counts = mixed_phase(torch, pa, gap_tol, smi)
     lora_counts = checkpoint_phase(torch, pa, gap_tol, smi)
+    kv_counts = kv_phase(torch, pa, gap_tol, smi)
     launches = {
         "ragged": serve_counts["ragged"],
         "prefill": serve_counts["prefill"],
@@ -1968,7 +2336,8 @@ def main() -> int:
     }
     print(f"launches: serve path {serve_counts}, decode path "
           f"{decode_counts}, mixed-round path {mixed_counts}, loaded "
-          f"checkpoint with adapters {lora_counts}; a served "
+          f"checkpoint with adapters {lora_counts}, KV paths {kv_counts}; "
+          f"a served "
           f"mixed round launches the ragged kernel {LAYERS_3B} times a "
           "forward (its step-0 forward and each further decode iteration)",
           flush=True)

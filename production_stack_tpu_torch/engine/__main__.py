@@ -10,9 +10,15 @@ preset name (random weights from ``--seed``), a local HF checkpoint
 directory or an HF id in the local cache (its weights are loaded; one
 that resolves but cannot load stops the boot). ``--enable-lora`` serves
 adapters loaded through ``POST /v1/load_lora_adapter``, up to
-``--max-loras`` of rank up to ``--max-lora-rank``. Every flag whose
-feature is not ported yet makes the engine refuse to start
-(NotImplementedError from EngineConfig).
+``--max-loras`` of rank up to ``--max-lora-rank``. KV tiers:
+``--cpu-offload-gb``, ``--disk-offload-dir``, ``--remote-cache-url``
+(a ``kv.cache_server``), ``--kv-controller-url`` with
+``--kv-instance-id`` (host:port of this server by default),
+``--sync-kv-offload`` and ``--kv-restore-wait-s``; disaggregated
+prefill/decode: ``--kv-role`` (``kv_producer`` / ``kv_consumer`` are
+vLLM's names for prefill / decode), ``--kv-transfer-listen`` and
+``--kv-peer``. Every flag whose feature is not ported yet makes the
+engine refuse to start (NotImplementedError from EngineConfig).
 """
 
 from __future__ import annotations
@@ -123,6 +129,42 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-loras", type=int, default=4,
                    help="adapter slots loaded at once")
     p.add_argument("--max-lora-rank", type=int, default=16)
+    # disaggregated prefill / KV transfer
+    p.add_argument("--kv-role", default=None,
+                   choices=[None, "prefill", "decode", "both",
+                            "kv_producer", "kv_consumer"],
+                   help="disaggregated prefill/decode role (advertised "
+                        "to the router's `pd` policy via /v1/models; "
+                        "kv_producer/kv_consumer are vLLM-flag-compat "
+                        "aliases for prefill/decode)")
+    p.add_argument("--kv-transfer-listen", default=None,
+                   help="host:port to serve KV block chains on "
+                        "(prefill/both roles)")
+    p.add_argument("--kv-peer", default=None,
+                   help="comma list of peer addresses to pull KV from "
+                        "(decode/both roles): prefill engines' "
+                        "--kv-transfer-listen addresses or a "
+                        "kv.cache_server, address-interchangeably")
+    # KV offload (LMCache-equivalent)
+    p.add_argument("--cpu-offload-gb", type=float, default=0.0)
+    p.add_argument("--disk-offload-dir", default=None)
+    p.add_argument("--remote-cache-url", default=None)
+    p.add_argument("--kv-controller-url", default=None)
+    p.add_argument("--kv-instance-id", default="default-instance",
+                   help="id reported to the KV controller (default: "
+                        "this server's host:port, which kvaware routing "
+                        "maps back to its endpoint)")
+    p.add_argument("--sync-kv-offload", action="store_true",
+                   default=False,
+                   help="synchronous KV tier traffic: d2h export inside "
+                        "scheduling and blocking tier reads + import on "
+                        "the step loop (attribution control; the default "
+                        "is the deferred export and staged restore)")
+    p.add_argument("--kv-restore-wait-s", type=float, default=2.0,
+                   help="staged-restore admission budget: max seconds a "
+                        "waiting request may hold its admission slot "
+                        "while its KV tier fetch + h2d staging are in "
+                        "flight before recomputing from scratch")
     # not ported yet: accepted so existing deployments parse, refused by
     # EngineConfig when switched on
     p.add_argument("--async-decode", action="store_true", default=False)
@@ -131,14 +173,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--context-parallel-size", type=int, default=0)
     p.add_argument("--multihost", action="store_true")
     p.add_argument("--num-speculative-tokens", type=int, default=0)
-    p.add_argument("--cpu-offload-gb", type=float, default=0.0)
-    p.add_argument("--disk-offload-dir", default=None)
-    p.add_argument("--remote-cache-url", default=None)
-    p.add_argument("--kv-controller-url", default=None)
     return p
 
 
 def config_from_args(args: argparse.Namespace) -> EngineConfig:
+    # vLLM-flag-compat aliases; prefill/decode/both pass through
+    role = {
+        "kv_producer": "prefill", "kv_consumer": "decode",
+    }.get(args.kv_role, args.kv_role)
     return EngineConfig(
         model=args.model,
         tokenizer=args.tokenizer,
@@ -176,15 +218,36 @@ def config_from_args(args: argparse.Namespace) -> EngineConfig:
         context_parallel_size=args.context_parallel_size,
         multihost=args.multihost,
         num_speculative_tokens=args.num_speculative_tokens,
+        kv_role=role,
+        kv_transfer_config={
+            "listen": args.kv_transfer_listen,
+            "peer": args.kv_peer,
+        },
         cpu_offload_bytes=int(args.cpu_offload_gb * 2**30),
         disk_offload_dir=args.disk_offload_dir,
         remote_cache_url=args.remote_cache_url,
         kv_controller_url=args.kv_controller_url,
+        kv_instance_id=args.kv_instance_id,
+        sync_kv_offload=args.sync_kv_offload,
+        kv_restore_wait_s=args.kv_restore_wait_s,
     )
 
 
 def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
+    if args.kv_instance_id == "default-instance":
+        # by convention the instance id is host:port so kvaware routing
+        # can map controller matches back to endpoint urls; 0.0.0.0 never
+        # appears in an endpoint url, so resolve a real address for it
+        host = args.host
+        if host in ("0.0.0.0", "::", ""):
+            import socket
+
+            try:
+                host = socket.gethostbyname(socket.gethostname())
+            except OSError:
+                host = "127.0.0.1"
+        args.kv_instance_id = f"{host}:{args.port}"
     from production_stack_tpu_torch.engine.server import EngineServer
 
     EngineServer(config_from_args(args)).run(host=args.host, port=args.port)

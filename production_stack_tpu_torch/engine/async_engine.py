@@ -201,6 +201,10 @@ class AsyncLLMEngine:
         with self._lock:
             return self.engine.stats()
 
+    def drain_kv_observations(self) -> tuple[list[float], list[float]]:
+        # GIL-atomic deque pops; no step-lock needed
+        return self.engine.drain_kv_observations()
+
     @property
     def tokenizer(self):
         return self.engine.tokenizer

@@ -17,24 +17,24 @@ garbage K/V there, so it is never handed to a sequence.
 
 from __future__ import annotations
 
+import struct
 from collections import OrderedDict
 
-import hashlib
+from production_stack_tpu_torch.utils.xxh64 import xxh64
 
 NULL_BLOCK = 0
 
 
 def hash_block(prev_hash: int, token_ids: tuple[int, ...],
                extra: tuple = ()) -> int:
-    """Chain hash for a full block given the previous block's hash."""
-    # stdlib 64-bit hash (same chaining as the xxh64 original)
-    h = hashlib.blake2b(digest_size=8)
-    h.update(prev_hash.to_bytes(8, "little", signed=False))
-    for t in token_ids:
-        h.update(int(t).to_bytes(4, "little", signed=False))
-    for e in extra:
-        h.update(str(e).encode())
-    return int.from_bytes(h.digest(), "little")
+    """Chain hash for a full block given the previous block's hash: the
+    JAX package's xxh64 over the 8-byte little-endian previous hash, each
+    token as 4 little-endian bytes, then str(e) of each extra."""
+    data = prev_hash.to_bytes(8, "little", signed=False) + struct.pack(
+        f"<{len(token_ids)}I", *token_ids)
+    if extra:
+        data += b"".join(str(e).encode() for e in extra)
+    return xxh64(data)
 
 
 def iter_chain_hashes(token_ids, block_size: int, seed: int = 0):

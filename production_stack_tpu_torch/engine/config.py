@@ -5,8 +5,9 @@ serves, plus ``device``, with the JAX package's defaults: unified ragged
 rounds (a round holding prefill chunks and decode lanes runs as one
 lane-typed forward on the ragged kernel), fused K-step decode up to
 ``num_scheduler_steps`` with device-side stop masks and adaptive K, the
-prefill pipeline and the decode prefetch. The fields of features not
-ported yet stay so that
+prefill pipeline and the decode prefetch; the KV offload tiers, the
+shared cache server, the KV controller and both roles of disaggregated
+prefill/decode. The fields of features not ported yet stay so that
 asking for one fails loudly: ``__post_init__`` raises
 NotImplementedError for each (see ``unported``), so no request ever
 reaches a missing path.
@@ -119,13 +120,35 @@ class EngineConfig:
     context_parallel_size: int = 0
     long_prefill_threshold: int | None = None
     multihost: bool = False
-    # KV offload tiers and disaggregated prefill/decode
+
+    # disaggregated prefill/decode role: None (undeclared) | "prefill"
+    # | "decode" | "both". Prefill/both engines serve KV chains over
+    # kv_transfer_config["listen"] (kv/transfer.py); decode/both engines
+    # pull through a PeerTier at kv_transfer_config["peer"] (comma list
+    # of peer addresses — a prefill engine or a cache server, address-
+    # interchangeably). The role is advertised on the /v1/models card so
+    # the router's `pd` policy can split the fleet.
+    kv_role: str | None = None
+    kv_transfer_config: dict = field(default_factory=dict)
+
+    # KV offload (LMCache-equivalent) tiers: host RAM, local disk, the
+    # shared cache server (write-through) and the KV controller
     cpu_offload_bytes: int = 0
     disk_offload_dir: str | None = None
     remote_cache_url: str | None = None
     kv_controller_url: str | None = None
-    kv_role: str | None = None
-    kv_transfer_config: dict = field(default_factory=dict)
+    kv_instance_id: str = "default-instance"
+    # zero-stall KV tiering: exports are deferred (freed blocks pinned,
+    # the gather enqueued after the step's dispatch, d2h and tier IO on
+    # the offload worker) and restores are staged (tier fetch + h2d while
+    # the request WAITS). True keeps the synchronous path — d2h export
+    # inside scheduling, blocking tier reads and import on the step
+    # loop — as the attribution control (--sync-kv-offload).
+    sync_kv_offload: bool = False
+    # staged-restore admission budget: how long an admission slot may be
+    # held back while the request's tier fetch + h2d are in flight,
+    # before falling back to recompute-from-scratch
+    kv_restore_wait_s: float = 2.0
 
     def unported(self) -> list[str]:
         """Names of the requested features this port cannot serve yet."""
@@ -144,14 +167,6 @@ class EngineConfig:
             "context_parallel_size>1": self.context_parallel_size > 1,
             "long_prefill_threshold": self.long_prefill_threshold is not None,
             "multihost": self.multihost,
-            "cpu_offload_bytes": self.cpu_offload_bytes > 0,
-            "disk_offload_dir": self.disk_offload_dir is not None,
-            "remote_cache_url": self.remote_cache_url is not None,
-            "kv_controller_url": self.kv_controller_url is not None,
-            "kv_role": self.kv_role is not None,
-            "kv_transfer_config": any(
-                (self.kv_transfer_config or {}).values()
-            ),
         }
         return [name for name, on in checks.items() if on]
 
@@ -163,6 +178,11 @@ class EngineConfig:
         if self.scheduling_policy not in ("fcfs", "priority"):
             raise ValueError(
                 "scheduling_policy must be 'fcfs' or 'priority'"
+            )
+        if self.kv_role not in (None, "prefill", "decode", "both"):
+            raise ValueError(
+                "kv_role must be one of None/'prefill'/'decode'/'both',"
+                f" got {self.kv_role!r}"
             )
         if not 1 <= self.num_scheduler_steps <= self.block_size:
             raise ValueError(
@@ -180,9 +200,20 @@ class EngineConfig:
             )
 
     def pd_role(self) -> str | None:
-        """Resolved PD role for discovery (None: not PD-configured —
-        the only value this slice serves)."""
-        return self.kv_role
+        """Resolved PD role for discovery: the explicit kv_role, else
+        inferred from the transfer config ('both' when an engine both
+        serves and pulls), else None (not PD-configured)."""
+        if self.kv_role in ("prefill", "decode", "both"):
+            return self.kv_role
+        cfg = self.kv_transfer_config or {}
+        listen, peer = cfg.get("listen"), cfg.get("peer")
+        if listen and peer:
+            return "both"
+        if listen:
+            return "prefill"
+        if peer:
+            return "decode"
+        return None
 
     def model_config(self) -> ModelConfig:
         return get_model_config(self.model)

@@ -16,15 +16,25 @@ runs; every stage is validated by fingerprint at its dispatch, and a
 stale one is a counted miss. The scheduler, block manager and sequences
 are the JAX package's, copied. Multi-LoRA (``--enable-lora``): every
 dispatch carries its lanes' adapter slots, and every staged buffer's
-fingerprint holds the slots it was built for. Async decode, the
-composed-kernel ragged round, long prefill, KV export, speculative and
-guided decoding and prompt logprobs are not ported here: EngineConfig
-refuses their flags and add_request refuses their request fields.
+fingerprint holds the slots it was built for.
+
+KV tiers (the JAX engine's KV section): cached blocks that leave HBM are
+exported to host RAM / disk / the shared cache server (deferred: pinned,
+their gather enqueued after the step's dispatch, the d2h and tier IO on
+the offload worker), and a request whose prefix is held by a tier, a PD
+peer or the cache server restores it through a staged import while it
+waits. The controller reporter streams HBM and tier admits and evicts.
+The timeline attribution of a restore waits for tracing/, which is not
+ported. Async decode, the composed-kernel ragged round, long prefill,
+speculative and guided decoding and prompt logprobs are not ported here:
+EngineConfig refuses their flags and add_request refuses their request
+fields.
 """
 
 from __future__ import annotations
 
 import time
+from collections import deque
 
 import numpy as np
 import torch
@@ -48,6 +58,7 @@ from production_stack_tpu_torch.engine.scheduler import (
 )
 from production_stack_tpu_torch.engine.sequence import Sequence
 from production_stack_tpu_torch.engine.tokenizer import get_tokenizer
+from production_stack_tpu_torch.kv.offload import own_block
 from production_stack_tpu_torch.utils import init_logger
 
 logger = init_logger(__name__)
@@ -133,6 +144,568 @@ class LLMEngine:
         self._ragged_split_rounds_total = 0
         self._ragged_prefill_lanes_total = 0
         self._ragged_decode_lanes_total = 0
+        self._init_kv_tiers()
+
+    # -- KV offload tiers + controller reporting (LMCache-equivalent) ------
+    def _init_kv_tiers(self) -> None:
+        """The JAX engine's KV set-up: controller reporter, PD peer,
+        offload manager and the block manager / scheduler hooks."""
+        config = self.config
+        self.kv_reporter = None
+        self.offload = None
+        if config.kv_controller_url:
+            from production_stack_tpu_torch.kv.controller import (
+                ControllerReporter,
+            )
+
+            self.kv_reporter = ControllerReporter(
+                config.kv_controller_url,
+                instance_id=config.kv_instance_id,
+                url=config.kv_instance_id,
+                block_size=config.block_size,
+                snapshot_fn=self._kv_snapshot,
+            )
+        from production_stack_tpu_torch.kv.offload import (
+            build_offload_manager,
+        )
+
+        # disaggregated-prefill consumer side: a PeerTier that rides the
+        # offload manager's pending-READ map, so the staged restore below
+        # handles peer pulls with no blocking socket IO on this thread
+        self.kv_peer = None
+        peer_spec = (config.kv_transfer_config or {}).get("peer")
+        if peer_spec and config.kv_role != "prefill":
+            from production_stack_tpu_torch.kv.peer import PeerTier
+
+            self.kv_peer = PeerTier(peer_spec)
+        self.offload = build_offload_manager(
+            config, self.kv_reporter, peer=self.kv_peer
+        )
+        if self.kv_reporter is not None:
+            bm = self.block_manager
+            bm.on_admit = lambda hs: self.kv_reporter.admit("hbm", hs)
+            bm.on_evict = lambda hs: self.kv_reporter.evict("hbm", hs)
+        # zero-stall KV tiering: deferred export + staged restore;
+        # sync_kv_offload keeps the synchronous path as the control
+        self._kv_async = (
+            self.offload is not None and not config.sync_kv_offload
+        )
+        # deferred-export queue: (block_id, hash) pairs pinned against
+        # reuse until _flush_kv_exports enqueues their device snapshot
+        self._kv_export_pending: list[tuple[int, int]] = []
+        self._kv_export_queued: set[int] = set()
+        # staged restores by request_id (see _begin_kv_restore)
+        self._kv_restores: dict[str, dict] = {}
+        # histogram observations drained by the server's stats loop
+        # (deque appends/pops are GIL-atomic: the export side appends
+        # from the offload worker thread)
+        self._kv_export_obs: deque = deque(maxlen=1024)
+        self._kv_restore_obs: deque = deque(maxlen=1024)
+        self._kv_export_seconds_total = 0.0
+        self._kv_export_blocks_total = 0
+        self._kv_export_bytes_total = 0
+        self._kv_restore_seconds_total = 0.0
+        self._kv_restore_blocks_total = 0
+        self._kv_restore_bytes_total = 0
+        self._kv_restore_fallbacks_total = 0
+        self._kv_export_sync_fallbacks_total = 0
+        if self.offload is not None and (
+            self.offload.tiers or self.offload.remote is not None
+        ):
+            # export hooks only where there is somewhere to export TO: a
+            # peer-only manager (pure PD decode engine) must not pin and
+            # snapshot freed blocks into an empty cascade
+            if self._kv_async:
+                self.block_manager.on_freed_cached = (
+                    self._queue_freed_exports
+                )
+                self.scheduler.kv_flush = self._flush_kv_exports
+            else:
+                self.block_manager.on_freed_cached = (
+                    self._offload_freed_blocks
+                )
+        if self.offload is not None:
+            self.scheduler.kv_restore = self._restore_from_offload
+
+    def _kv_snapshot(self) -> dict[str, list[int]]:
+        """Full tier->hashes state for controller (re)registration replay."""
+        out = {"hbm": list(self.block_manager.cached_blocks.keys())}
+        if self.offload is not None:
+            out.update(self.offload.snapshot())
+        return out
+
+    def _offload_freed_blocks(self, pairs: list[tuple[int, int]]) -> None:
+        """SYNCHRONOUS export path (--sync-kv-offload): cached blocks just
+        became evictable -> batched d2h export inside scheduling -> tiers."""
+        pairs = [(bid, h) for bid, h in pairs if not self.offload.contains(h)]
+        self._export_sync(pairs)
+
+    def _export_sync(self, pairs: list[tuple[int, int]]) -> None:
+        """Blocking export of (block_id, hash) pairs on the CALLING
+        thread: the --sync-kv-offload path and the async path's
+        backlog-cap degradation share it."""
+        if not pairs:
+            return
+        data = self.runner.export_blocks([bid for bid, _ in pairs])
+        # per-block owning copies: a view of the batched export would pin
+        # the WHOLE export alive in the CPU tier until every sibling block
+        # is evicted, blowing the tier's byte accounting
+        self.offload.put_batch(
+            [(h, own_block(data, i)) for i, (_, h) in enumerate(pairs)]
+        )
+
+    def _queue_freed_exports(self, pairs: list[tuple[int, int]]) -> None:
+        """Deferred export (the zero-stall path): freed-but-cached blocks
+        are PINNED against reuse and queued; _flush_kv_exports enqueues
+        their device snapshot at the end of the step (after the dispatch)
+        and the blocking d2h + tier IO run on the offload worker."""
+        fresh: list[tuple[int, int]] = []
+        pin: list[int] = []
+        for bid, h in pairs:
+            if h in self._kv_export_queued:
+                pin.append(bid)  # re-freed before the snapshot: re-pin
+                continue
+            if self.offload.contains(h):
+                continue
+            fresh.append((bid, h))
+            pin.append(bid)
+            self._kv_export_queued.add(h)
+        if pin:
+            self.block_manager.pin_for_export(pin)
+        self._kv_export_pending.extend(fresh)
+
+    # in-flight deferred-export batches before the flush degrades to a
+    # synchronous (stalling, counted) export: device gather buffers
+    # queued behind a slow tier must not fill the card
+    KV_EXPORT_BACKLOG_CAP = 4
+
+    # stackcheck: hot-path — runs on the step thread between/after
+    # device dispatches: may only ENQUEUE the device-side snapshot; the
+    # blocking d2h + tier IO happen on the offload worker (the
+    # backlog-cap branch is the deliberate, counted exception)
+    def _flush_kv_exports(self) -> bool:
+        """Enqueue the deferred-export snapshot and release the pins.
+        The gather runs on the runner's compute stream with an event
+        after it, so later dispatches cannot overwrite the snapshot —
+        unpinning here is safe. Returns True when anything was flushed
+        (scheduler retry contract)."""
+        pending = self._kv_export_pending
+        if not pending:
+            return False
+        self._kv_export_pending = []
+        self._kv_export_queued.clear()
+        bids = [bid for bid, _ in pending]
+        try:
+            if self.offload.export_backlog() >= self.KV_EXPORT_BACKLOG_CAP:
+                # backpressure: materialize THIS batch on the step thread
+                # (a bounded, counted stall) instead of growing the queue
+                self._kv_export_sync_fallbacks_total += 1
+                self._export_sync(pending)
+                return True
+            handle = self.runner.stage_export_blocks(bids)
+            self.offload.put_batch_async(
+                [h for _, h in pending], handle,
+                self.runner.materialize_export, self._note_kv_export,
+            )
+        except Exception:  # noqa: BLE001 — export is best-effort: a
+            # failed gather (e.g. device OOM sizing the snapshot) drops
+            # the batch, it must not kill the step or leak the pins
+            logger.exception("kv export staging failed; batch dropped")
+        finally:
+            # pins release even on failure — a leaked pin would shrink
+            # the KV pool permanently
+            self.block_manager.unpin_exported(bids)
+        return True
+
+    def _note_kv_export(
+        self, seconds: float, blocks: int, nbytes: int
+    ) -> None:
+        """Offload-worker callback when a deferred export batch lands
+        (GIL-atomic appends/adds only)."""
+        self._kv_export_obs.append(seconds)
+        self._kv_export_seconds_total += seconds
+        self._kv_export_blocks_total += blocks
+        self._kv_export_bytes_total += nbytes
+
+    # -- staged restore ----------------------------------------------------
+    # outstanding restore records (fetching or staged) before new
+    # enqueue-time restores stop being started; the admission head
+    # bypasses the cap (force)
+    KV_RESTORE_FETCH_CAP = 8
+
+    def _begin_kv_restore(
+        self, seq: Sequence, force: bool = False
+    ) -> tuple[dict | None, list[int] | None]:
+        """Start the async restore for a request: find the tier chain
+        continuation past the resident HBM prefix (cheap host-map probes
+        only) and queue its reads on the offload worker. Returns (record,
+        hashes) — hashes also on a no-restore miss."""
+        if not force and len(self._kv_restores) >= \
+                self.KV_RESTORE_FETCH_CAP:
+            return None, None
+        bm = self.block_manager
+        # ONE hashing pass per admission: reused by staging and finalize
+        hashes = bm.block_hashes_for(seq.prompt_token_ids, seq.hash_seed)
+        if not hashes:
+            return None, hashes
+        # cap the fetch at what could ever be adopted: the pool's usable
+        # blocks (minus the null block) and the model-length ceiling
+        cap = min(
+            bm.num_blocks - 1,
+            self.scheduler.config.max_model_len // bm.block_size,
+        )
+        has_chain = self.offload.has_chain_source()
+        i = 0
+        want: list[int] = []   # ordered fetch list (local + chain)
+        local: list[int] = []  # hashes a local tier claims to hold
+        remote: list[int] = []  # tail a chain source may hold (1 pull)
+        while i < len(hashes) and len(want) < cap:
+            h = hashes[i]
+            if bm.contains_hash(h):
+                i += 1  # already resident: nothing to fetch
+                continue
+            if self.offload.contains_local(h):
+                want.append(h)
+                local.append(h)
+            elif has_chain:
+                # past the local continuation the PD peer or the shared
+                # cache server may still hold the chain: the whole tail
+                # rides ONE get_chain pull on the offload worker
+                want.append(h)
+                remote.append(h)
+            else:
+                break  # chain continuation ends here
+            i += 1
+        if not want:
+            return None, hashes
+        if local:
+            self.offload.request_reads(local)
+        if remote:
+            self.offload.request_chain_reads(remote)
+        rec = {
+            "rid": seq.request_id,
+            "hashes": hashes,
+            "want": want,
+            # a pure-chain record that comes back empty is a cold prompt
+            # neither the peer nor the shared cache held: not a fallback
+            "peer_only": bool(remote) and not local,
+            "state": "fetching",
+            "t0": time.monotonic(),
+            "handle": None,
+            "cols": {},
+            "col_bytes": [],
+            "col_tiers": [],
+        }
+        self._kv_restores[seq.request_id] = rec
+        return rec, hashes
+
+    # staged (device-buffer-holding) restores allowed at once: a burst of
+    # waiting requests must not land every chain on the card at once
+    KV_RESTORE_STAGED_CAP = 4
+
+    def _poll_kv_restores(self) -> None:
+        """Advance in-flight restores (start the h2d for completed
+        fetches) so uploads overlap whatever the engine is doing."""
+        staged = sum(
+            1 for r in self._kv_restores.values()
+            if r["state"] == "staged"
+        )
+        for rec in list(self._kv_restores.values()):
+            if rec["state"] != "fetching":
+                continue
+            if staged >= self.KV_RESTORE_STAGED_CAP:
+                break
+            try:
+                self._advance_kv_restore(rec)
+                if rec["state"] == "staged":
+                    staged += 1
+            except Exception:  # noqa: BLE001 — a staging failure must
+                # never kill the step loop: this request recomputes
+                logger.exception(
+                    "kv restore staging failed for %s; recomputing",
+                    rec["rid"],
+                )
+                self._mark_restore_failed(rec)
+
+    # stackcheck: hot-path — restore staging on the step thread:
+    # assemble the host batch and START its h2d; no device fetch, no
+    # tier IO (reads completed on the worker)
+    def _advance_kv_restore(self, rec: dict) -> None:
+        if rec["state"] != "fetching":
+            return
+        done = self.offload.poll_reads(rec["want"])
+        if len(done) < len(rec["want"]):
+            return  # worker still fetching
+        usable: list[tuple[int, torch.Tensor, str]] = []
+        for h in rec["want"]:
+            arr, tier = done[h]
+            if arr is None:
+                break  # mid-restore failure: the tail recomputes
+            usable.append((h, arr, tier))
+        self.offload.discard_reads(rec["want"])
+        # references are released: leave "fetching" NOW so a staging
+        # exception below cannot discard a second time
+        rec["state"] = "failed"
+        if not usable:
+            rec["nothing_fetched"] = True
+            return
+        data = torch.stack([a for _, a, _ in usable], dim=2)
+        rec["handle"] = self.runner.stage_import_blocks(data)
+        rec["cols"] = {h: j for j, (h, _, _) in enumerate(usable)}
+        rec["col_bytes"] = [int(a.nbytes) for _, a, _ in usable]
+        rec["col_tiers"] = [tier for _, _, tier in usable]
+        rec["state"] = "staged"
+
+    def _finalize_kv_restore(self, seq: Sequence, rec: dict) -> None:
+        """Admission-time landing: re-validate the staged window against
+        the CURRENT cache (the chain must still connect from the resident
+        prefix; any break recomputes from the break) and scatter the
+        adopted blocks in place."""
+        self._kv_restores.pop(rec["rid"], None)
+        if rec["state"] != "staged":
+            if not (rec.get("peer_only") and rec.get("nothing_fetched")):
+                self._kv_restore_fallbacks_total += 1
+            return
+        bm = self.block_manager
+        if self._kv_export_pending:
+            # release export pins so adoption can claim free blocks
+            self._flush_kv_exports()
+        cols = rec["cols"]
+        hashes = rec["hashes"]
+        bids: list[int] = []
+        src: list[int] = []
+        adopted: list[int] = []
+        i = 0
+        while i < len(hashes):
+            h = hashes[i]
+            if bm.contains_hash(h):
+                i += 1
+                continue
+            j = cols.get(h)
+            if j is None:
+                break  # staged window over (or chain moved): recompute
+            if not bm.can_adopt_another(len(bids)):
+                break  # only OUR adoptions left to evict
+            bid = bm.adopt_cached_block(h)
+            if bid is None:
+                break  # pool exhausted: partial
+            bids.append(bid)
+            src.append(j)
+            adopted.append(h)
+            i += 1
+        import_failed = False
+        if bids and not self._import_restored(bids, adopted,
+                                              rec["handle"], src):
+            bids = []
+            src = []
+            import_failed = True
+        seconds = time.monotonic() - rec["t0"]
+        if bids:
+            self._kv_restore_obs.append(seconds)
+            self._kv_restore_seconds_total += seconds
+            self._kv_restore_blocks_total += len(bids)
+            self._kv_restore_bytes_total += sum(
+                rec["col_bytes"][j] for j in src
+            )
+        elif i < len(hashes) or import_failed:
+            # adoption was CUT SHORT (chain break / full HBM) or the
+            # import failed; a walk that reached the end restoring
+            # nothing found everything resident: not a fallback
+            self._kv_restore_fallbacks_total += 1
+
+    def _import_restored(
+        self, bids: list[int], adopted: list[int], handle,
+        src: list[int],
+    ) -> bool:
+        """Land adopted blocks via the staged scatter; on failure
+        UN-ADOPT them — a cache entry whose KV was never written would
+        serve garbage to every later prefix hit on its hash."""
+        try:
+            self.runner.import_staged_blocks(bids, handle, src)
+            return True
+        except Exception:  # noqa: BLE001 — e.g. stale wrong-shape tier
+            # data after a model swap; the request just recomputes
+            logger.exception(
+                "kv import failed; dropping %d adopted blocks", len(bids)
+            )
+            for h in adopted:
+                self.block_manager.drop_cached_block(h)
+            return False
+
+    def _drop_kv_restore(self, request_id: str) -> None:
+        """Forget a request's staged restore (abort / admission abort)."""
+        rec = self._kv_restores.pop(request_id, None)
+        if rec is not None and rec["state"] == "fetching":
+            self.offload.discard_reads(rec["want"])
+
+    def _mark_restore_failed(self, rec: dict) -> None:
+        """Park a failed restore as state='failed' but KEEP the record:
+        the owning request's next admission attempt consumes it (one
+        fallback, recompute, proceed) instead of re-creating it fresh
+        each step."""
+        if rec["state"] == "fetching":
+            self.offload.discard_reads(rec["want"])
+        rec["state"] = "failed"
+
+    def _restore_from_offload(self, seq: Sequence):
+        """Scheduler admission hook. Async mode: poll/stage/land the
+        request's staged restore — returns False to keep the request
+        WAITING while its tier fetch + h2d are in flight (bounded by
+        kv_restore_wait_s, then recompute). Sync mode: the blocking
+        restore. Always returns truthy once admission may proceed."""
+        if not self._kv_async:
+            self._restore_sync(seq)
+            return True
+        if not self.block_manager.enable_prefix_caching:
+            return True
+        rec = self._kv_restores.get(seq.request_id)
+        if rec is None:
+            # no record (preempted requeue, fetch-cap skip, or blocks
+            # offloaded after enqueue): begin the ASYNC fetch now
+            rec, _hashes = self._begin_kv_restore(seq, force=True)
+            if rec is None:
+                return True
+        try:
+            self._advance_kv_restore(rec)
+        except Exception:  # noqa: BLE001 — staging failure: recompute
+            logger.exception(
+                "kv restore staging failed for %s; recomputing",
+                seq.request_id,
+            )
+            self._mark_restore_failed(rec)
+        if rec["state"] == "fetching":
+            # the wait budget covers how long the request HOLDS its
+            # admission slot: consecutive deferrals bill at most ~one
+            # engine round each
+            now = time.monotonic()
+            last = rec.get("last_defer")
+            if last is not None:
+                rec["held_s"] = (
+                    rec.get("held_s", 0.0) + min(now - last, 1.0)
+                )
+            rec["last_defer"] = now
+            if rec.get("held_s", 0.0) < self.config.kv_restore_wait_s:
+                return False
+            logger.warning(
+                "kv restore for %s held admission %.1fs; recomputing",
+                seq.request_id, self.config.kv_restore_wait_s,
+            )
+            self._drop_kv_restore(seq.request_id)
+            self._kv_restore_fallbacks_total += 1
+            return True
+        self._finalize_kv_restore(seq, rec)
+        return True
+
+    def _restore_sync(self, seq: Sequence) -> None:
+        """Synchronous restore: blocking tier reads on the scheduler
+        thread (the --sync-kv-offload control)."""
+        bm = self.block_manager
+        if not bm.enable_prefix_caching:
+            return
+        hashes = bm.block_hashes_for(seq.prompt_token_ids, seq.hash_seed)
+        matched, _ = bm.match_prefix(seq.prompt_token_ids, seq.hash_seed)
+        restore: list[tuple[int, torch.Tensor]] = []  # (block_id, data)
+        adopted: list[int] = []
+        i = len(matched)
+        hbm_full = False
+        while i < len(hashes):
+            h = hashes[i]
+            if bm.contains_hash(h):
+                break  # already back in HBM (another seq restored it)
+            arr = self.offload.get(h)
+            if arr is None:
+                break  # local chain broken; try the PD peer below
+            if not bm.can_adopt_another(len(restore)):
+                hbm_full = True
+                break
+            bid = bm.adopt_cached_block(h)
+            if bid is None:
+                hbm_full = True  # no room: a network pull is pointless
+                break
+            restore.append((bid, arr))
+            adopted.append(h)
+            i += 1
+        self._import_restored_host(restore, adopted)
+        if not hbm_full:
+            self._pd_transfer_restore(seq, hashes)
+
+    def _pd_transfer_restore(
+        self, seq: Sequence, hashes: list[int] | None = None
+    ) -> None:
+        """SYNC-MODE chain-source pull: one batched blocking round-trip
+        from the PD peer (then the shared cache server) for whatever the
+        local tiers could not supply. Only reachable from _restore_sync;
+        the async path routes chain pulls through the staged restore."""
+        if self.offload is None or not self.offload.has_chain_source():
+            return
+        bm = self.block_manager
+        if hashes is None:
+            hashes = bm.block_hashes_for(
+                seq.prompt_token_ids, seq.hash_seed
+            )
+        i = 0
+        while i < len(hashes) and bm.contains_hash(hashes[i]):
+            i += 1
+        if i >= len(hashes):
+            return
+        blocks: list[torch.Tensor] = []
+        for source in self.offload.chain_sources():
+            if i + len(blocks) >= len(hashes):
+                break
+            # a source serving only a short prefix hands the UNSERVED
+            # TAIL to the next one
+            got, _addr = source.get_chain(hashes[i + len(blocks):])
+            blocks.extend(got)
+        if not blocks:
+            return
+        restore: list[tuple[int, torch.Tensor]] = []
+        adopted: list[int] = []
+        for j, arr in enumerate(blocks):
+            if not bm.can_adopt_another(len(restore)):
+                break
+            bid = bm.adopt_cached_block(hashes[i + j])
+            if bid is None:
+                break
+            restore.append((bid, arr))
+            adopted.append(hashes[i + j])
+        self._import_restored_host(restore, adopted)
+
+    def _import_restored_host(
+        self, restore: list[tuple[int, torch.Tensor]], adopted: list[int]
+    ) -> None:
+        """import_blocks with the same un-adopt-on-failure contract as
+        _import_restored (sync restore + PD pull paths)."""
+        if not restore:
+            return
+        try:
+            self.runner.import_blocks(
+                [bid for bid, _ in restore],
+                torch.stack([a for _, a in restore], dim=2),
+            )
+        except Exception:  # noqa: BLE001 — see _import_restored
+            logger.exception(
+                "kv import failed; dropping %d adopted blocks",
+                len(restore),
+            )
+            for h in adopted:
+                self.block_manager.drop_cached_block(h)
+
+    def drain_kv_observations(self) -> tuple[list[float], list[float]]:
+        """(export_seconds, restore_seconds) observations since the last
+        drain, for the server's tpu:kv_*_seconds histograms."""
+        exp: list[float] = []
+        rst: list[float] = []
+        while True:
+            try:
+                exp.append(self._kv_export_obs.popleft())
+            except IndexError:
+                break
+        while True:
+            try:
+                rst.append(self._kv_restore_obs.popleft())
+            except IndexError:
+                break
+        return exp, rst
 
     def add_request(
         self,
@@ -213,11 +786,23 @@ class LLMEngine:
         )
         self._seqs[request_id] = seq
         self.scheduler.add_seq(seq)
+        if self._kv_async and self.block_manager.enable_prefix_caching:
+            # the staged restore starts the moment the request enters the
+            # waiting queue: the tier fetch (offload worker) and then the
+            # h2d (_poll_kv_restores) overlap the queue wait
+            try:
+                self._begin_kv_restore(seq)
+            except Exception:  # noqa: BLE001 — restore is best-effort;
+                # admission simply recomputes the prefix
+                logger.exception("kv restore staging failed for %s",
+                                 request_id)
 
     def abort_request(self, request_id: str) -> bool:
         seq = self._seqs.pop(request_id, None)
         if seq is None:
             return False
+        if self._kv_restores:
+            self._drop_kv_restore(request_id)
         return self.scheduler.abort(request_id)
 
     def has_request(self, request_id: str) -> bool:
@@ -232,9 +817,22 @@ class LLMEngine:
 
     # -- the step loop ----------------------------------------------------
     def step(self) -> list[RequestOutput]:
-        return self._step_scheduled()
+        with self.runner.on_compute_stream():
+            try:
+                return self._step_scheduled()
+            finally:
+                # deferred KV exports flush at the END of every step —
+                # after the dispatch, so the d2h overlaps device compute;
+                # on idle/final steps this keeps freed blocks from staying
+                # pinned
+                if self._kv_export_pending:
+                    self._flush_kv_exports()
 
     def _step_scheduled(self) -> list[RequestOutput]:
+        if self._kv_restores:
+            # start h2d uploads for restores whose tier fetch landed while
+            # their requests sit in the waiting queue
+            self._poll_kv_restores()
         sched_out = self.scheduler.schedule()
         if sched_out.preempted or sched_out.prefills or sched_out.aborted:
             # a table free or lane-set change invalidates the staged
@@ -269,6 +867,13 @@ class LLMEngine:
             else "idle"
         )
         if sched_out.is_empty:
+            if self._kv_restores and not self.scheduler.running:
+                # every waiting request is restore-deferred and nothing is
+                # dispatchable: yield briefly instead of pegging the step
+                # thread against the offload worker doing the fetch
+                # stackcheck: disable=blocking-hot — deliberate 1ms idle
+                # yield on the no-dispatchable-work branch (see above)
+                time.sleep(0.001)
             return []
 
         outputs: list[RequestOutput] = []
@@ -277,6 +882,8 @@ class LLMEngine:
             self._finished_total += 1
             outputs.append(self._make_output(seq))
             self._seqs.pop(seq.request_id, None)
+            if self._kv_restores:
+                self._drop_kv_restore(seq.request_id)
 
         stepped: list[Sequence] = []
         if sched_out.is_ragged:
@@ -1332,11 +1939,16 @@ class LLMEngine:
         return tuple(self._lora_slots(seqs) or ())
 
     def shutdown(self) -> None:
-        """Nothing to release: no offload tiers or followers in this port."""
+        if self.offload is not None:
+            self.offload.close()  # also closes the PD PeerTier
+        if self.kv_reporter is not None:
+            self.kv_reporter.close()
 
     # -- stats for /metrics -------------------------------------------------
     def stats(self) -> EngineStatsSnapshot:
         phase = self.runner.prefill_phase_s
+        peer = self.kv_peer
+        remote = self.offload.remote if self.offload is not None else None
         return EngineStatsSnapshot(
             num_running=self.scheduler.num_running,
             num_waiting=self.scheduler.num_waiting,
@@ -1364,6 +1976,29 @@ class LLMEngine:
             ragged_split_rounds_total=self._ragged_split_rounds_total,
             ragged_prefill_lanes_total=self._ragged_prefill_lanes_total,
             ragged_decode_lanes_total=self._ragged_decode_lanes_total,
+            kv_export_seconds_total=self._kv_export_seconds_total,
+            kv_export_blocks_total=self._kv_export_blocks_total,
+            kv_export_bytes_total=self._kv_export_bytes_total,
+            kv_restore_seconds_total=self._kv_restore_seconds_total,
+            kv_restore_blocks_total=self._kv_restore_blocks_total,
+            kv_restore_bytes_total=self._kv_restore_bytes_total,
+            kv_restore_fallbacks_total=self._kv_restore_fallbacks_total,
+            kv_export_sync_fallbacks_total=(
+                self._kv_export_sync_fallbacks_total),
+            kv_tier_counters=(
+                self.offload.counters() if self.offload is not None
+                else {}),
+            kv_peer_hits_total=peer.hits if peer else 0,
+            kv_peer_misses_total=peer.misses if peer else 0,
+            kv_peer_read_bytes_total=peer.read_bytes if peer else 0,
+            kv_peer_fallbacks_total=peer.fallbacks if peer else 0,
+            kv_remote_hits_total=remote.hits if remote else 0,
+            kv_remote_misses_total=remote.misses if remote else 0,
+            kv_remote_read_bytes_total=remote.read_bytes if remote else 0,
+            kv_remote_write_bytes_total=(
+                remote.write_bytes if remote else 0),
+            kv_remote_flushes_total=remote.flushes if remote else 0,
+            kv_remote_fallbacks_total=remote.fallbacks if remote else 0,
         )
 
     # -- offline convenience (tests, benchmarks) ---------------------------

@@ -20,14 +20,13 @@ Adapter files: native .npz with arrays `{target}_A` (L, in, r) and
 `scaling`; HF PEFT safetensors checkpoints (``adapter_model.safetensors``
 + ``adapter_config.json``), read through models/safetensors_io.py.
 
-The prefix-cache seed of an adapter's requests hashes its name and load
-generation with ``hashlib`` (the JAX package uses ``xxhash``): the seed
-values differ from the JAX package's, the hits and misses do not.
+The prefix-cache seed of an adapter's requests is the JAX package's xxh64
+of its name and load generation (utils/xxh64.py), so an adapter's blocks
+carry the same content addresses in both packages.
 """
 
 from __future__ import annotations
 
-import hashlib
 import json
 import os
 
@@ -37,6 +36,7 @@ import torch
 from production_stack_tpu_torch.models import safetensors_io
 from production_stack_tpu_torch.models.config import ModelConfig
 from production_stack_tpu_torch.utils import init_logger
+from production_stack_tpu_torch.utils.xxh64 import xxh64
 
 logger = init_logger(__name__)
 
@@ -157,9 +157,7 @@ class LoraManager:
         if name is None:
             return 0
         gen = self._generation.get(name, 0)
-        return int.from_bytes(hashlib.blake2b(
-            f"lora:{name}:{gen}".encode(), digest_size=8).digest(),
-            "little")
+        return xxh64(f"lora:{name}:{gen}".encode())
 
     def unload(self, name: str) -> bool:
         slot = self.name_to_slot.pop(name, None)

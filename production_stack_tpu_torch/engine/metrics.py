@@ -82,7 +82,59 @@ _COUNTERS = (
     ("tpu:ragged_split_rounds",
      "Planned mixed rounds executed as split prefill+decode dispatches",
      "ragged_split_rounds_total"),
+    ("tpu:kv_export_blocks", "KV blocks exported to the offload tiers",
+     "kv_export_blocks_total"),
+    ("tpu:kv_restore_blocks",
+     "KV blocks restored from the offload tiers into HBM",
+     "kv_restore_blocks_total"),
+    ("tpu:kv_restore_fallbacks",
+     "Staged restores that fell back to recompute (broken chain, timeout, "
+     "or full HBM)", "kv_restore_fallbacks_total"),
+    ("tpu:kv_export_sync_fallbacks",
+     "Deferred exports forced synchronous by the device-buffer backlog "
+     "cap (tier IO slower than eviction churn)",
+     "kv_export_sync_fallbacks_total"),
+    ("tpu:kv_peer_hits",
+     "KV blocks pulled from the disaggregated-prefill peer",
+     "kv_peer_hits_total"),
+    ("tpu:kv_peer_misses",
+     "KV blocks requested from the PD peer but not served (chain evicted "
+     "or never prefilled there)", "kv_peer_misses_total"),
+    ("tpu:kv_peer_read_bytes",
+     "Bytes pulled over the inter-engine KV transfer link",
+     "kv_peer_read_bytes_total"),
+    ("tpu:kv_peer_fallbacks",
+     "Failed PD peer pulls (dead peer / mid-frame death / corrupt "
+     "payload) that degraded to local recompute", "kv_peer_fallbacks_total"),
+    ("tpu:kv_remote_hits", "KV blocks served by the shared cache server",
+     "kv_remote_hits_total"),
+    ("tpu:kv_remote_misses",
+     "KV blocks requested from the shared cache server but not held there "
+     "(cold chain or evicted/expired)", "kv_remote_misses_total"),
+    ("tpu:kv_remote_read_bytes", "Bytes pulled from the shared cache server",
+     "kv_remote_read_bytes_total"),
+    ("tpu:kv_remote_write_bytes",
+     "Bytes shipped to the shared cache server (write-behind batched puts)",
+     "kv_remote_write_bytes_total"),
+    ("tpu:kv_remote_flushes",
+     "Write-behind put_batch frames shipped to the shared cache",
+     "kv_remote_flushes_total"),
+    ("tpu:kv_remote_fallbacks",
+     "Failed shared-cache flushes/pulls (dead server / corrupt frame) that "
+     "degraded without stalling the engine", "kv_remote_fallbacks_total"),
 )
+# (name, help, kv_tier_counters key): one sample per tier
+_TIER_COUNTERS = (
+    ("tpu:kv_tier_hits", "KV tier read hits", "hits"),
+    ("tpu:kv_tier_misses",
+     "KV tier read misses (consulted tier did not hold the block)",
+     "misses"),
+    ("tpu:kv_tier_read_bytes", "Bytes served from a KV tier", "read_bytes"),
+    ("tpu:kv_tier_write_bytes", "Bytes admitted into a KV tier",
+     "write_bytes"),
+)
+_KV_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+               1.0, 2.5, 5.0)
 
 
 def _num(v: float) -> str:
@@ -150,6 +202,27 @@ class EngineMetrics:
         )
         # finish reason -> finished requests
         self.request_success: dict[str, int] = {}
+        # KV tiering: deferred-export batch wall time (on the offload
+        # worker) and staged-restore enqueue -> landed time
+        self.kv_export_s = Histogram(_KV_BUCKETS)
+        self.kv_restore_s = Histogram(_KV_BUCKETS)
+        self._kv_hists = (
+            ("tpu:kv_export_seconds",
+             "Deferred KV export batch wall time (d2h materialization + "
+             "tier store, on the offload worker)", self.kv_export_s),
+            ("tpu:kv_restore_seconds",
+             "Staged KV restore wall time (enqueue -> blocks landed in "
+             "HBM; overlaps the request's queue wait)", self.kv_restore_s),
+        )
+
+    def observe_kv(self, export_seconds: list[float],
+                   restore_seconds: list[float]) -> None:
+        """Feed drained engine observations (LLMEngine.
+        drain_kv_observations) into the tpu:kv_*_seconds histograms."""
+        for s in export_seconds:
+            self.kv_export_s.observe(max(0.0, s))
+        for s in restore_seconds:
+            self.kv_restore_s.observe(max(0.0, s))
 
     def observe_request(
         self,
@@ -224,7 +297,13 @@ class EngineMetrics:
                   "round (adaptive K buckets; the cap with "
                   "--no-adaptive-decode-k)", f"# TYPE {name} histogram"]
         lines += k_hist.lines(name, lab)
-        for name, help_, hist in self._request_hists:
+        for name, help_, hist in self._request_hists + self._kv_hists:
             lines += [f"# HELP {name} {help_}", f"# TYPE {name} histogram"]
             lines += hist.lines(name, lab)
+        tiers = sorted((s.kv_tier_counters or {}).items())
+        for name, help_, key in _TIER_COUNTERS:
+            lines += [f"# HELP {name}_total {help_}",
+                      f"# TYPE {name}_total counter"]
+            lines += [f'{name}_total{{{lab},tier="{tier}"}} '
+                      f"{_num(c.get(key, 0))}" for tier, c in tiers]
         return "\n".join(lines) + "\n"

@@ -2,11 +2,14 @@
 the prefill / packed-prefill / decode forwards.
 
 Counterpart of ``production_stack_tpu/engine/model_runner.py`` without
-its guided, prompt-logprob and export paths: single-sequence
-``prefill``, packed ``prefill_batch``, single-step ``decode``, the fused
-K-step ``decode_multi``, the unified lane-typed round
-``ragged_dispatch``, and the staging of each (``stage_prefill``,
-``stage_prefill_batch``, ``stage_decode_multi``, ``stage_ragged``).
+its guided and prompt-logprob paths: single-sequence ``prefill``, packed
+``prefill_batch``, single-step ``decode``, the fused K-step
+``decode_multi``, the unified lane-typed round ``ragged_dispatch``, the
+staging of each (``stage_prefill``, ``stage_prefill_batch``,
+``stage_decode_multi``, ``stage_ragged``), and the KV export and import
+of whole blocks in the wire layout the tiers, peers and cache server
+share (``stage_export_blocks`` / ``materialize_export``,
+``stage_import_blocks`` / ``import_staged_blocks``).
 Host-side padding keeps the JAX buckets — chunks pad to a power of two
 >= 8, contexts to a power-of-two block count, decode to max_num_seqs
 lanes, ragged-round prefill rows to a power of two — so the kernels see
@@ -27,6 +30,12 @@ the carried tensors: the only host read inside it is the early-exit
 test of the device-stop variant. A chained round takes its tokens from
 the previous round's device output instead of the buffer.
 
+Every dispatch runs on the runner's named ``compute_stream`` (the
+device's default stream; ``LLMEngine.step`` enters it). A KV export may
+be enqueued from another thread (a PD pull), so its gather is enqueued
+on that stream by name, with an event after it: a later dispatch that
+overwrites the blocks is ordered behind the gather.
+
 Attention goes through one seam, ``_attn(kind, ...)``: on a CUDA device
 the wrappers in ops/paged_attention.py launch the hand-written kernels,
 on the CPU they compute the plain versions. The impl follows the device
@@ -44,8 +53,10 @@ key, so a stage is never consumed under another slot assignment.
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import math
+import threading
 import time
 
 import numpy as np
@@ -68,6 +79,7 @@ from production_stack_tpu_torch.engine.sampler import (
 from production_stack_tpu_torch.models import llama, weights
 from production_stack_tpu_torch.models.config import ModelConfig
 from production_stack_tpu_torch.ops import paged_attention
+from production_stack_tpu_torch.ops.attention import block_table_slots
 from production_stack_tpu_torch.utils import init_logger
 
 logger = init_logger(__name__)
@@ -220,6 +232,23 @@ class ModelRunner:
         # until their event fires even when the handle is dropped
         self._copy_stream = None
         self._inflight: collections.deque = collections.deque()
+        # the stream every dispatch runs on, named so a KV export
+        # enqueued from another thread is ordered with the dispatches;
+        # exports copy device->host on their own stream (made at the
+        # first export, under the lock: several threads may export)
+        self.compute_stream = (
+            torch.cuda.default_stream(self.device)
+            if self.device.type == "cuda" else None
+        )
+        self._d2h_stream = None
+        self._d2h_lock = threading.Lock()
+        # the card's index, for threads that export (set_device takes
+        # an index; "cuda" names the device current at construction)
+        self._device_index = (
+            (self.device.index if self.device.index is not None
+             else torch.cuda.current_device())
+            if self.device.type == "cuda" else None
+        )
         logger.info(
             "attention impl: %s%s", self.attention_impl,
             " (ragged kernel)" if self.ragged_kernel else "",
@@ -609,11 +638,14 @@ class ModelRunner:
         return step
 
     # -- staged buffers ----------------------------------------------------------
-    def _stage(self, key, packed: np.ndarray) -> StagedBuffer:
-        """Start the copy of a future dispatch's packed buffer: pinned,
-        non_blocking on the runner's copy stream, an event recorded
-        after it. Enqueue only: nothing here waits on the card."""
-        host = torch.from_numpy(packed)
+    def _stage(self, key, packed: np.ndarray | torch.Tensor
+               ) -> StagedBuffer:
+        """Start the copy of a future dispatch's packed buffer (or a
+        restore's host blocks): pinned, non_blocking on the runner's copy
+        stream, an event recorded after it. Enqueue only: nothing here
+        waits on the card."""
+        host = (packed if isinstance(packed, torch.Tensor)
+                else torch.from_numpy(packed))
         if self.device.type != "cuda":
             return StagedBuffer(key, host)
         if self._copy_stream is None:
@@ -1993,6 +2025,134 @@ class ModelRunner:
         self.dispatch_counts["ragged"] += 1
         self._phase_add("dispatch", time.perf_counter() - t2)
         return out
+
+
+    # -- cache import/export (KV offload + PD transfer tiers) -------------
+    def on_compute_stream(self):
+        """Context that makes the runner's compute stream current (the
+        engine steps inside it); nothing on the CPU."""
+        if self.compute_stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.compute_stream)
+
+    def _block_slots(self, block_ids: list[int]) -> torch.Tensor:
+        return block_table_slots(
+            torch.as_tensor(block_ids, dtype=torch.long),
+            self.block_size).to(self.device)
+
+    # stackcheck: hot-path — the deferred-export snapshot is enqueued on
+    # the engine step thread right after (or between) dispatches, and by
+    # a PD pull's executor thread: it may only ENQUEUE the gather; the
+    # blocking d2h belongs to the offload worker (materialize_export)
+    def stage_export_blocks(self, block_ids: list[int]) -> tuple:
+        """Enqueue the device-side snapshot of whole KV blocks, already
+        in the wire layout (2, L, n, nkv, bs, d). Returns (n, snapshot,
+        event): on the card the gather runs on the compute stream, whoever
+        calls, and `event` is recorded after it, so a later dispatch that
+        overwrites these slots cannot reach the snapshot and the caller
+        may release the blocks the moment this returns. On the CPU the
+        snapshot is taken here and `event` is None."""
+        mc = self.model_config
+        n = len(block_ids)
+        with self.on_compute_stream():
+            idx = self._block_slots(block_ids)
+            snap = torch.empty(
+                (2, mc.num_layers, n, mc.num_kv_heads, self.block_size,
+                 mc.head_dim), dtype=self.cache_dtype, device=self.device)
+            for i, cache in enumerate((self.k_cache, self.v_cache)):
+                # head-major (L, nkv, n*bs, d) -> wire (L, n, nkv, bs, d)
+                snap[i].copy_(cache.index_select(2, idx).view(
+                    mc.num_layers, mc.num_kv_heads, n, self.block_size,
+                    mc.head_dim).transpose(1, 2))
+            event = None
+            if self.compute_stream is not None:
+                event = torch.cuda.Event()
+                event.record(self.compute_stream)
+        return n, snap, event
+
+    def _export_stream(self):
+        with self._d2h_lock:
+            if self._d2h_stream is None:
+                self._d2h_stream = torch.cuda.Stream(self.device)
+            return self._d2h_stream
+
+    def materialize_export(self, handle: tuple) -> torch.Tensor:
+        """Blocking half of the deferred export (the offload worker's or
+        a PD pull's thread): the (2, L, n, nkv, bs, d) host tensor. On the
+        card a copy stream waits on the gather's event and copies into a
+        pinned buffer non_blocking; only that copy is waited for, never
+        the step thread's work. The buffer comes from torch's pinned
+        allocator and is not reused while the returned tensor lives; the
+        tiers keep per-block copies of it (kv/offload.own_block)."""
+        _, snap, event = handle
+        if event is None:
+            return snap
+        torch.cuda.set_device(self._device_index)
+        stream = self._export_stream()
+        host = torch.empty(snap.shape, dtype=snap.dtype, pin_memory=True)
+        stream.wait_event(event)
+        with torch.cuda.stream(stream):
+            # the snapshot was allocated on the compute stream: mark its
+            # use here so its memory is not handed out mid-copy
+            snap.record_stream(stream)
+            host.copy_(snap, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
+        done.synchronize()
+        return host
+
+    def export_blocks(self, block_ids: list[int]) -> torch.Tensor:
+        """Synchronous device->host copy of whole KV blocks (the
+        --sync-kv-offload path and the export backlog cap)."""
+        return self.materialize_export(self.stage_export_blocks(block_ids))
+
+    # stackcheck: hot-path — restore staging: START the h2d upload;
+    # enqueue-only (no device fetch, no tier IO)
+    def stage_import_blocks(self, data: torch.Tensor) -> StagedBuffer:
+        """Begin the restore's host->device upload of wire-layout blocks
+        (2, L, n, nkv, bs, d): a pinned source, the copy stream and an
+        event, as every staged dispatch buffer (`_stage`). The JAX
+        runner pads the block axis to a power of two and writes the
+        padding into the null block, only to bound its XLA compiles;
+        eager PyTorch compiles nothing, so the port copies exactly n."""
+        return self._stage(None, data)
+
+    # stackcheck: hot-path — the restore's device-side write on the
+    # admission path: index copies on the compute stream, no host sync
+    def import_staged_blocks(
+        self, block_ids: list[int], handle: StagedBuffer,
+        src_cols: list[int],
+    ) -> None:
+        """In-place scatter of staged blocks into the KV cache:
+        `src_cols[i]` names the staged column holding block_ids[i]'s
+        contents. An index_copy_ into k_cache / v_cache over the slots of
+        block_table_slots(block_ids), cast to the cache dtype. These are
+        index operations, not kernels (the JAX runner runs them in XLA
+        outside any Pallas kernel)."""
+        if not block_ids:
+            return
+        mc = self.model_config
+        staged = self._take(handle)
+        m = len(block_ids)
+        cols = torch.as_tensor(src_cols, dtype=torch.long)
+        if not torch.equal(cols, torch.arange(m)):
+            staged = staged.index_select(2, cols.to(self.device))
+        elif staged.shape[2] != m:
+            staged = staged[:, :, :m]
+        idx = self._block_slots(block_ids)
+        for i, cache in enumerate((self.k_cache, self.v_cache)):
+            # wire (L, m, nkv, bs, d) -> head-major (L, nkv, m*bs, d)
+            cache.index_copy_(2, idx, staged[i].transpose(1, 2).reshape(
+                mc.num_layers, mc.num_kv_heads, m * self.block_size,
+                mc.head_dim).to(self.cache_dtype))
+
+    def import_blocks(self, block_ids: list[int],
+                      data: torch.Tensor) -> None:
+        """Host->device restore of whole KV blocks (inverse of
+        export_blocks), through the staged upload and the same scatter."""
+        self.import_staged_blocks(
+            block_ids, self.stage_import_blocks(data),
+            list(range(len(block_ids))))
 
 
 def _to_device(tree: dict, device: torch.device) -> dict:

@@ -6,9 +6,8 @@ import enum
 import time
 from dataclasses import dataclass, field
 
-import hashlib
-
 from production_stack_tpu_torch.engine.sampling_params import SamplingParams
+from production_stack_tpu_torch.utils.xxh64 import xxh64
 
 
 class SequenceStatus(enum.Enum):
@@ -78,12 +77,7 @@ class Sequence:
         elif lora_name is None:
             self.hash_seed = 0
         else:
-            self.hash_seed = int.from_bytes(
-                hashlib.blake2b(
-                    b"lora:" + lora_name.encode(), digest_size=8
-                ).digest(),
-                "little",
-            )
+            self.hash_seed = xxh64(b"lora:" + lora_name.encode())
         # vLLM --scheduling-policy priority role: LOWER value = served
         # first; ties break by arrival order (a per-process ordinal, not
         # wall time, so equal-timestamp arrivals stay FIFO)

@@ -11,7 +11,10 @@ engine's families the port serves, written by engine/metrics.py: the
 ``vllm:*`` families the router scrapes, request latency histograms and
 the ``tpu:*`` prefill, staging, decode and ragged-round families), and
 ``/debug/kernel_launches``, which reads (GET) or zeroes (DELETE) the
-attention kernels' launch counts and the runner's forward dispatches. The
+attention kernels' launch counts and the runner's forward dispatches. A
+prefill (or both-role) engine with ``kv_transfer_config["listen"]`` also
+serves its KV block chains to decode peers (kv/transfer.py), and a
+watched stats task feeds the KV export and restore histograms. The
 Prometheus text is written by hand and HTTP/1.1 is parsed by hand
 (``asyncio.start_server``): the port needs neither aiohttp nor
 prometheus_client. One request per connection (``Connection: close``);
@@ -33,6 +36,7 @@ from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.metrics import EngineMetrics
 from production_stack_tpu_torch.ops import paged_attention
 from production_stack_tpu_torch.utils import init_logger
+from production_stack_tpu_torch.utils.tasks import spawn_watched
 
 logger = init_logger(__name__)
 
@@ -43,6 +47,7 @@ _REASONS = {
     503: "Service Unavailable",
 }
 MAX_BODY_BYTES = 64 * 2**20
+STATS_UPDATE_INTERVAL_S = 1.0
 
 
 class HttpError(Exception):
@@ -62,6 +67,8 @@ class EngineServer:
         self.metrics = EngineMetrics(self.model_name)
         self.lora_adapters: dict[str, str] = {}  # name -> path
         self._server: asyncio.AbstractServer | None = None
+        self._stats_task: asyncio.Task | None = None
+        self._kv_transfer_server = None
         self._routes = {
             ("GET", "/health"): self.handle_health,
             ("GET", "/v1/models"): self.handle_models,
@@ -79,6 +86,19 @@ class EngineServer:
     async def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
         """Start the step loop and listen; returns the bound port."""
         self.engine.start(asyncio.get_running_loop())
+        self._stats_task = spawn_watched(self._stats_loop(), "engine-stats")
+        # disaggregated prefill producer: serve KV block chains to decode
+        # peers. prefill AND both roles serve — a both-role engine can
+        # hand its chains to any peer.
+        listen = (self.config.kv_transfer_config or {}).get("listen")
+        if listen and self.config.pd_role() in ("prefill", "both"):
+            from production_stack_tpu_torch.kv import transfer
+            from production_stack_tpu_torch.kv.wire import parse_addr
+
+            kv_host, kv_port = parse_addr(listen, transfer.DEFAULT_PORT)
+            self._kv_transfer_server = transfer.KVTransferServer(self.engine)
+            await self._kv_transfer_server.start(kv_host or "0.0.0.0",
+                                                 kv_port)
         self._server = await asyncio.start_server(self._handle, host, port)
         bound = self._server.sockets[0].getsockname()[1]
         logger.info("serving %s on http://%s:%d", self.model_name, host,
@@ -86,10 +106,30 @@ class EngineServer:
         return bound
 
     async def stop(self) -> None:
+        if self._stats_task is not None:
+            self._stats_task.cancel()
+            self._stats_task = None
         if self._server is not None:
             self._server.close()
             await self._server.wait_closed()
+        if self._kv_transfer_server is not None:
+            # its stop waits for the peers' connections to close; a decode
+            # engine that stays up must not hold this server's shutdown
+            try:
+                await asyncio.wait_for(self._kv_transfer_server.stop(), 5)
+            except asyncio.TimeoutError:
+                logger.warning("kv-transfer server: peers still connected "
+                               "at shutdown")
+            self._kv_transfer_server = None
         self.engine.shutdown()
+
+    async def _stats_loop(self) -> None:
+        """Drain the engine's KV export / restore observations into the
+        tpu:kv_*_seconds histograms (the snapshot families are rendered
+        at each scrape)."""
+        while True:
+            self.metrics.observe_kv(*self.engine.drain_kv_observations())
+            await asyncio.sleep(STATS_UPDATE_INTERVAL_S)
 
     def run(self, host: str = "0.0.0.0", port: int = 8000) -> None:
         async def main():
@@ -163,6 +203,7 @@ class EngineServer:
     async def handle_models(self, body, writer) -> None:
         card = proto.model_card(
             self.model_name, root=self.config.model,
+            kv_instance_id=self.config.kv_instance_id,
             kv_role=self.config.pd_role(),
             max_model_len=self.max_model_len,
         )
@@ -171,6 +212,7 @@ class EngineServer:
         await _send_json(writer, 200, {"object": "list", "data": cards})
 
     async def handle_metrics(self, body, writer) -> None:
+        self.metrics.observe_kv(*self.engine.drain_kv_observations())
         payload = self.metrics.render(self.engine.stats()).encode()
         await _send(writer, 200, payload,
                     "text/plain; version=0.0.4; charset=utf-8")

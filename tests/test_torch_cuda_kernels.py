@@ -463,3 +463,98 @@ def test_per_token_lora_projection_on_card(cuda_device):
     torch.testing.assert_close(got, ref, rtol=0,
                                atol=1e-5 * float(ref.abs().max()))
     assert torch.equal(got[slots == 0], torch.zeros_like(got[slots == 0]))
+
+
+def _kv_runner(monkeypatch, cache_dtype, device):
+    """A runner at a narrow width (head_dim 64) on `device`."""
+    import dataclasses
+
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.model_runner import ModelRunner
+    from production_stack_tpu_torch.models.config import get_model_config
+
+    small = dataclasses.replace(get_model_config("pst-tiny-debug"),
+                                num_heads=4, num_kv_heads=2, head_dim=64,
+                                hidden_size=256)
+    monkeypatch.setattr(EngineConfig, "model_config", lambda self: small)
+    return ModelRunner(EngineConfig(
+        model="pst-tiny-debug", tokenizer="byte", dtype="float32",
+        cache_dtype=cache_dtype, block_size=32, num_kv_blocks=64,
+        device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+def test_kv_export_import_byte_equal_on_card(cuda_device, monkeypatch,
+                                             cache_dtype):
+    """KV blocks exported from the card (gather on the compute stream,
+    d2h into pinned memory on the export stream) equal the CPU runner's
+    export of the same cache byte for byte; imported into other blocks
+    through the staged upload they read back byte-equal, and the
+    serialized bytes round-trip."""
+    from production_stack_tpu_torch.kv import offload
+
+    card = _kv_runner(monkeypatch, cache_dtype, "cuda")
+    host = _kv_runner(monkeypatch, cache_dtype, "cpu")
+    g = torch.Generator().manual_seed(1)
+    for c in ("k_cache", "v_cache"):
+        x = torch.randn(getattr(host, c).shape, generator=g)
+        getattr(host, c).copy_(x)
+        getattr(card, c).copy_(x)
+    bids = [5, 1, 33, 17, 2, 60]
+    data = card.export_blocks(bids)
+    assert data.is_pinned() and data.dtype == card.cache_dtype
+    want = host.export_blocks(bids)
+    assert torch.equal(data, want)
+    dst = [40, 41, 42, 50, 51, 52]
+    wire = offload.deserialize_block(offload.serialize_block(data))
+    card.import_blocks(dst, wire)
+    assert torch.equal(card.export_blocks(dst), want)
+    h = card.stage_import_blocks(wire)
+    card.import_staged_blocks([7, 8], h, [3, 0])
+    back = card.export_blocks([7, 8])
+    assert torch.equal(back[:, :, 0], want[:, :, 3])
+    assert torch.equal(back[:, :, 1], want[:, :, 0])
+
+
+@pytest.mark.cuda
+def test_export_from_a_second_thread_keeps_the_snapshot(cuda_device,
+                                                        monkeypatch):
+    """A PD pull enqueues the export from an executor thread whose
+    current stream is another one, while the compute stream is busy; the
+    step thread then overwrites the same slots. The gather runs on the
+    runner's compute stream by name, so it is ordered before the write:
+    the snapshot holds the old values."""
+    import threading
+
+    r = _kv_runner(monkeypatch, "bfloat16", "cuda")
+    g = torch.Generator().manual_seed(2)
+    r.k_cache.copy_(torch.randn(r.k_cache.shape, generator=g))
+    r.v_cache.copy_(torch.randn(r.v_cache.shape, generator=g))
+    bids = [3, 4, 9]
+    old = r.export_blocks(bids)
+    slots = torch.cat([torch.arange(b * 32, (b + 1) * 32) for b in bids])
+    box = {}
+
+    def pull():
+        with torch.cuda.stream(torch.cuda.Stream(cuda_device)):
+            box["handle"] = r.stage_export_blocks(bids)
+
+    with r.on_compute_stream():
+        x = torch.randn((4096, 4096), device=cuda_device)
+        for _ in range(16):  # keep the compute stream busy
+            x = x @ x * 1e-3
+        th = threading.Thread(target=pull)
+        th.start()
+        th.join()
+        r.k_cache[:, :, slots.to(cuda_device)] = 7.0
+        r.v_cache[:, :, slots.to(cuda_device)] = -7.0
+    got = {}
+    th = threading.Thread(
+        target=lambda: got.setdefault(
+            "data", r.materialize_export(box["handle"])))
+    th.start()
+    th.join()
+    assert torch.equal(got["data"], old)
+    now = r.export_blocks(bids)
+    assert bool((now[0] == 7.0).all()) and bool((now[1] == -7.0).all())

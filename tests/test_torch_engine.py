@@ -128,11 +128,9 @@ def test_seeded_sampling_is_reproducible(np_params):
 @pytest.mark.parametrize("field,value", [
     ("precompile_serving", True), ("long_prefill_threshold", 1024),
     ("ragged_kernel", False),  # the composed-kernel ragged round
-    ("disk_offload_dir", "kv-offload"), ("async_decode", True),
-    ("tensor_parallel_size", 2),
+    ("async_decode", True), ("tensor_parallel_size", 2),
     ("pipeline_parallel_size", 2), ("multihost", True),
-    ("num_speculative_tokens", 2), ("cpu_offload_bytes", 1 << 20),
-    ("remote_cache_url", "127.0.0.1:1"), ("model", "pst-tiny-moe-debug"),
+    ("num_speculative_tokens", 2), ("model", "pst-tiny-moe-debug"),
 ])
 def test_unported_flags_refuse_to_start(field, value):
     """On the default (unified ragged round) configuration."""

@@ -16,7 +16,7 @@ PORT = REPO / "production_stack_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                         REPO / "scripts/torch_kernel_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "production_stack_tpu", "aiohttp",
-             "prometheus_client", "xxhash", "safetensors")
+             "prometheus_client", "xxhash", "safetensors", "ml_dtypes")
 # HF packages the card machine lacks: imported only inside the functions
 # that serve a checkpoint's own tokenizer or write a debug one
 LAZY_HF = {"transformers": {"engine/tokenizer.py"},

@@ -185,7 +185,23 @@ def test_families_match_the_jax_module():
         decode_rounds_total=9, decode_overshoot_tokens_total=0,
         decode_early_exit_rounds_total=2, ragged_rounds_total=3,
         ragged_split_rounds_total=1,
+        kv_export_blocks_total=46, kv_restore_blocks_total=40,
+        kv_restore_fallbacks_total=1, kv_export_sync_fallbacks_total=2,
+        kv_peer_hits_total=34, kv_peer_misses_total=3,
+        kv_peer_read_bytes_total=34 << 20, kv_peer_fallbacks_total=1,
+        kv_remote_hits_total=12, kv_remote_misses_total=5,
+        kv_remote_read_bytes_total=12 << 20,
+        kv_remote_write_bytes_total=50 << 20, kv_remote_flushes_total=4,
+        kv_remote_fallbacks_total=1,
+        kv_tier_counters={
+            "cpu": {"hits": 7, "misses": 2, "read_bytes": 7 << 20,
+                    "write_bytes": 20 << 20},
+            "disk": {"hits": 1, "misses": 1, "read_bytes": 1 << 20,
+                     "write_bytes": 9 << 20},
+            "peer": {"hits": 34, "read_bytes": 34 << 20},
+        },
     )
+    kv_obs = ([0.004, 0.03, 1.7], [0.02, 0.0009])
     ks = [8, 8, 4, 2, 8, 1, 8, 4, 8]
     finishes = [
         ("length", 0.03, 0.9, 12, 0.001, 0.002, None),
@@ -193,6 +209,7 @@ def test_families_match_the_jax_module():
         ("length", None, 0.04, 1, None, None, None),
     ]
     mine = EngineMetrics("m")
+    mine.observe_kv(*kv_obs)
     for f in finishes:
         mine.observe_request(*f[:4], queue_s=f[4], sched_delay_s=f[5],
                              preempt_stall_s=f[6])
@@ -205,11 +222,12 @@ def test_families_match_the_jax_module():
     ref = JMetrics("m", registry=reg)
     ref.update_from_snapshot(JSnapshot(**fields))
     ref.observe_decode_k(ks)
+    ref.observe_kv(*kv_obs)
     for f in finishes:
         ref.observe_request(*f[:4], queue_s=f[4], sched_delay_s=f[5],
                             preempt_stall_s=f[6])
     want = _families(generate_latest(reg).decode())
-    assert len(got) == 29
+    assert len(got) == 49
     for name, (kind, samples) in got.items():
         assert name in want, name
         assert kind == want[name][0], name
@@ -219,5 +237,7 @@ def test_families_match_the_jax_module():
     for name in ("vllm:gpu_prefix_cache_hit_rate",
                  "vllm:gpu_prefix_cache_hits_total",
                  "vllm:gpu_prefix_cache_queries_total",
-                 "tpu:scheduling_delay_seconds"):
+                 "tpu:scheduling_delay_seconds", "tpu:kv_tier_hits",
+                 "tpu:kv_restore_seconds", "tpu:kv_restore_fallbacks",
+                 "tpu:kv_export_sync_fallbacks"):
         assert name in got
