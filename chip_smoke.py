@@ -57,7 +57,20 @@ Phases, each fatal on failure:
    hit rate above 0 and one scheduling delay per finished request, and
    that the ragged kernel launched 28 times a forward and the prefill
    kernel 28 times a single-sequence prefill; prints the staged prefill
-   hits, misses and chained chunks;
+   hits, misses and chained chunks. Then the OpenAI request surface on
+   the same server, launch counts zeroed before it: guided_json,
+   guided_regex (two), guided_choice and a chat's response_format
+   json_schema, each answer parsed and held to its constraint; n = 3
+   (equal greedy choices) and a batched prompt of 4; a chat with tools
+   and a named tool_choice (the call forced by a guided_regex, since
+   random weights write none) in the OpenAI tool_calls shape;
+   /tokenize -> /detokenize round trip and /version; /sleep while a
+   request decodes (no token in 0.5 s, /is_sleeping true), then
+   /wake_up and the request finishes; prompt_logprobs 5 of a
+   1500-token prompt (three chunks) held to the log-softmax of one
+   forward of the whole prompt on the card (the server's seeded
+   weights) within LOGIT_REL_TOL of max|logit|; /debug/requests lists
+   each request's timeline from enqueue to finish;
 6. decode kernel: one ModelRunner.decode step of the 28-layer model over
    the same cache state on the ragged kernel and on
    paged_decode_attention, logits held to a stated tolerance, which the
@@ -69,6 +82,16 @@ Phases, each fatal on failure:
    ragged engine's top-2 logprob gap at the first differing step is
    below the largest logit difference the direct step measured (the
    first divergence is printed);
+6b. guided: in-process 28-layer bf16 engines, K=8 (default config)
+   and K=1, serve the four guided constraints beside four free lanes:
+   the K=8 engine's fused rounds must run the guided lanes on the
+   device DFA tables (runner.guided_rounds), every answer must satisfy
+   its constraint, and the K=8 streams are held to the K=1
+   (host-masked) engine's under the near-tie rule; prints the TokenDFA
+   builds' ms at V = 128256, the DFA step's µs an iteration at b = 8
+   (eager, and device time from a CUDA graph), and the wall ms a
+   generated token at batch 8 of 8 guided lanes against 8 free ones,
+   in turns;
 7. pipeline: an in-process 28-layer bf16 engine on the default config
    takes a cold ~1500-token prompt alone and must chain its three
    512-token chunks in one engine step with one fetch; the buffers of
@@ -133,7 +156,8 @@ Phases, each fatal on failure:
    throughout, launches 28 a forward on every engine and server.
 
 Launch counts are reset just before the serve phase's requests (through
-the server's /debug/kernel_launches), before the decode phase's
+the server's /debug/kernel_launches) and again before its API requests,
+before each guided-phase engine, before the decode phase's
 --no-ragged-kernel engine, before each pipeline-phase engine and before
 each mixed-round engine, before the checkpoint phase's requests and
 before each KV-phase engine's and server's requests, and read just
@@ -810,7 +834,7 @@ def wait_healthy(what: str, proc, port: int, log_path: Path,
         time.sleep(0.5)
 
 
-def serve_phase() -> dict:
+def serve_phase(torch) -> tuple[dict, dict]:
     port = free_port()
     log_path = REPO / "build" / "chip_smoke_serve.log"
     t0 = time.perf_counter()
@@ -961,11 +985,410 @@ def serve_phase() -> dict:
         print(f"serve: since the reset: dispatches {report['dispatches']}, "
               f"launches {report['launches']}", flush=True)
         check_launches("serve", report["launches"], report["dispatches"])
+        api_launches = api_requests(torch, port)
     finally:
         stop_server(proc)
     print(f"serve: server exited with {proc.returncode}; log tail:\n"
           f"{log_tail(log_path, 8)}", flush=True)
+    return report["launches"], api_launches
+
+
+# -- API phase: the OpenAI request surface ---------------------------------------
+GUIDED_SCHEMA = {
+    "type": "object",
+    "properties": {"age": {"type": "integer"},
+                   "mood": {"enum": ["happy", "sad"]}},
+    "required": ["age", "mood"],
+}
+GUIDED_CHOICES = ["alpha", "beta", "betamax"]
+# the four constraints of the API phase: request field -> value
+GUIDED = {
+    "guided_json": GUIDED_SCHEMA,
+    "guided_regex": r"(yes|no), [0-9]{2}",
+    "guided_choice": GUIDED_CHOICES,
+    "guided_regex ab": r"[ab]{8}",
+}
+WEATHER_TOOL = {
+    "type": "function",
+    "function": {
+        "name": "get_weather", "description": "Get current weather",
+        "parameters": {"type": "object",
+                       "properties": {"city": {"type": "string"}},
+                       "required": ["city"]}}}
+# random weights never write a tool call: a guided_regex forces one
+TOOL_CALL_RE = (r'<tool_call>\{"name": "get_weather", "arguments": '
+                r'\{"city": "(Oslo|Paris)"\}\}</tool_call>')
+PLP_PROMPT_TOKENS = 1500  # three 512-token chunks
+
+
+def guided_field(name: str) -> dict:
+    return {name.split()[0]: GUIDED[name]}
+
+
+def guided_valid(name: str, text: str) -> bool:
+    """`text` satisfies constraint GUIDED[name] in full."""
+    import re
+
+    if name == "guided_json":
+        try:
+            v = json.loads(text)
+        except json.JSONDecodeError:
+            return False
+        return (isinstance(v, dict) and isinstance(v.get("age"), int)
+                and v.get("mood") in ("happy", "sad"))
+    if name == "guided_choice":
+        return text in GUIDED_CHOICES
+    return re.fullmatch(GUIDED[name], text) is not None
+
+
+def api_requests(torch, port: int) -> dict:
+    """The serve phase's CLI server (default config) answers the request
+    surface: the four guided constraints and response_format, prompt
+    logprobs of a 1500-token prompt held to a one-shot forward's
+    log-softmax on the card, n = 3, a batched prompt of 4, a chat with
+    tools and a named tool_choice, /tokenize, /detokenize, /version,
+    /sleep and /wake_up around a request in flight, /debug/requests.
+    Launch counts zeroed just before, read just after; returns them."""
+    t_phase = time.perf_counter()
+    st, body = http(port, "/debug/kernel_launches", method="DELETE")
+    if st != 200 or any(json.loads(body)["launches"].values()):
+        fail(f"API phase: launch counts not reset: {body}")
+
+    def post(path, req):
+        st, body = http(port, path, req)
+        if st != 200:
+            fail(f"API phase: {path} answered {st}: {body[:400]}")
+        return json.loads(body)
+
+    for name in GUIDED:
+        t0 = time.perf_counter()
+        r = post("/v1/completions", {"prompt": "Answer: ", "max_tokens": 256,
+                                     "temperature": 0,
+                                     **guided_field(name)})
+        text = r["choices"][0]["text"]
+        print(f"API phase: {name} {GUIDED[name]!r} -> {text!r} "
+              f"({r['usage']['completion_tokens']} tokens, "
+              f"{time.perf_counter() - t0:.2f}s)", flush=True)
+        if not guided_valid(name, text):
+            fail(f"API phase: {name} answer {text!r} breaks its constraint")
+    r = post("/v1/chat/completions", {
+        "messages": [{"role": "user", "content": "Describe a person."}],
+        "max_tokens": 256, "temperature": 0,
+        "response_format": {"type": "json_schema", "json_schema": {
+            "name": "person", "schema": GUIDED_SCHEMA}}})
+    text = r["choices"][0]["message"]["content"]
+    print(f"API phase: response_format json_schema -> {text!r}", flush=True)
+    if not guided_valid("guided_json", text):
+        fail(f"API phase: response_format answer {text!r} breaks its schema")
+
+    r = post("/v1/completions", {"prompt": "Three of a kind:", "n": 3,
+                                 "max_tokens": 12, "temperature": 0,
+                                 "ignore_eos": True})
+    texts = [c["text"] for c in r["choices"]]
+    if ([c["index"] for c in r["choices"]] != [0, 1, 2]
+            or len(set(texts)) != 1
+            or r["usage"]["completion_tokens"] != 36):
+        fail(f"API phase: n=3 greedy choices differ or miscount: {r}")
+    batch = [f"batched prompt {i}: " + "la " * (3 + 5 * i) for i in range(4)]
+    r = post("/v1/completions", {"prompt": batch, "max_tokens": 10,
+                                 "temperature": 0, "ignore_eos": True})
+    if ([c["index"] for c in r["choices"]] != [0, 1, 2, 3]
+            or r["usage"]["completion_tokens"] != 40
+            or r["usage"]["prompt_tokens"] != sum(
+                len(p.encode()) + 1 for p in batch)):
+        fail(f"API phase: bad batched-prompt response {r}")
+    print("API phase: n=3 (equal greedy choices) and a batched prompt of 4 "
+          "served", flush=True)
+
+    r = post("/v1/chat/completions", {
+        "messages": [{"role": "user", "content": "Weather in Oslo?"}],
+        "tools": [WEATHER_TOOL], "max_tokens": 96, "temperature": 0,
+        "tool_choice": {"type": "function",
+                        "function": {"name": "get_weather"}},
+        "guided_regex": TOOL_CALL_RE})
+    choice = r["choices"][0]
+    calls = choice["message"].get("tool_calls") or []
+    if not (choice["finish_reason"] == "tool_calls" and len(calls) == 1
+            and calls[0]["type"] == "function"
+            and calls[0]["id"].startswith("call_")
+            and calls[0]["function"]["name"] == "get_weather"
+            and json.loads(calls[0]["function"]["arguments"])["city"]
+            in ("Oslo", "Paris")
+            and choice["message"]["content"] is None):
+        fail(f"API phase: the tool call is not in the OpenAI shape: {r}")
+    print(f"API phase: chat with a named tool_choice -> tool_calls "
+          f"{calls[0]['function']}", flush=True)
+
+    text = "Tokenize me, please."
+    toks = post("/tokenize", {"prompt": text})
+    back = post("/detokenize", {"tokens": toks["tokens"]})["prompt"]
+    version = json.loads(http(port, "/version")[1])
+    if back != text or toks["count"] != len(toks["tokens"]) or not version.get(
+            "version"):
+        fail(f"API phase: tokenize round trip {toks} -> {back!r}, "
+             f"version {version}")
+
+    # /sleep lands while a request decodes: no token is generated until
+    # /wake_up, then the request finishes
+    with ThreadPoolExecutor(1) as ex:
+        gen0 = metric(port, "vllm:generation_tokens_total")
+        fut = ex.submit(post, "/v1/completions", {
+            "prompt": "sleep through this", "max_tokens": 160,
+            "temperature": 0, "ignore_eos": True})
+        while metric(port, "vllm:generation_tokens_total") < gen0 + 2:
+            time.sleep(0.005)
+        post("/sleep", {})
+        if not json.loads(http(port, "/is_sleeping")[1])["is_sleeping"]:
+            fail("API phase: /is_sleeping is false after /sleep")
+        time.sleep(0.2)  # a step under way ends
+        asleep = metric(port, "vllm:generation_tokens_total")
+        time.sleep(0.5)
+        still = metric(port, "vllm:generation_tokens_total")
+        post("/wake_up", {})
+        r = fut.result()
+    if still != asleep or r["usage"]["completion_tokens"] != 160:
+        fail(f"API phase: tokens moved while asleep ({asleep} -> {still}) "
+             f"or the request did not finish: {r['usage']}")
+    print(f"API phase: /tokenize round trip, /version {version}; a request "
+          f"in flight made no token in 0.5 s asleep and finished after "
+          f"/wake_up", flush=True)
+
+    ids = [(7 * j + 3) % 250 + 1 for j in range(PLP_PROMPT_TOKENS)]
+    t0 = time.perf_counter()
+    r = post("/v1/completions", {"prompt": ids, "max_tokens": 1,
+                                 "temperature": 0, "prompt_logprobs": 5})
+    plp = r["choices"][0]["prompt_logprobs"]
+    print(f"API phase: prompt_logprobs 5 of a {PLP_PROMPT_TOKENS}-token "
+          f"prompt in {time.perf_counter() - t0:.2f}s", flush=True)
+    prompt_logprob_check(torch, ids, plp)
+
+    tls = json.loads(http(port, "/debug/requests?limit=256")[1])
+    done = [t for t in tls["requests"] if t["finished"]]
+    kinds = [[e["name"] for e in t["events"]] for t in done]
+    if not (tls["enabled"] and len(done) >= 12 and all(
+            k[0] == "enqueue" and k[-1] == "finish" for k in kinds)):
+        fail(f"API phase: /debug/requests {len(done)} finished timelines, "
+             f"first {kinds[:2]}")
+    print(f"API phase: /debug/requests lists {len(done)} finished "
+          f"timelines, each enqueue ... finish; the last: {kinds[-1]}",
+          flush=True)
+    report = json.loads(http(port, "/debug/kernel_launches")[1])
+    check_launches("API phase", report["launches"], report["dispatches"])
+    print(f"API phase: {time.perf_counter() - t_phase:.1f}s", flush=True)
     return report["launches"]
+
+
+def prompt_logprob_check(torch, ids: list[int], plp: list) -> None:
+    """The served prompt logprobs (three chunks) against the log-softmax
+    of a one-shot forward of the whole prompt on the card (the prefill
+    kernel, the server's seeded weights): each chosen and top-5 logprob
+    within LOGIT_REL_TOL of the forward's max|logit|."""
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.models.config import get_model_config
+    from production_stack_tpu_torch.ops import paged_attention as pa
+
+    cfg = get_model_config("llama-3.2-3b")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = llama.init_params(cfg, gen, torch.bfloat16, "cuda")
+    with torch.inference_mode():
+        # the prefill kernel takes whole 8-row tiles: pad rows after the
+        # prompt (causal, so they change no real row)
+        pad = -len(ids) % pa.PREFILL_TQ
+        logits = all_row_logits(torch, pa, cfg, params,
+                                ids + [0] * pad)[:len(ids)]
+        top = float(logits.abs().max())
+        lp = torch.log_softmax(logits, dim=-1)
+        del logits
+        if len(plp) != len(ids) or plp[0] is not None:
+            fail(f"API phase: {len(plp)} prompt logprob entries for "
+                 f"{len(ids)} prompt tokens")
+        rows = torch.arange(len(ids) - 1, device="cuda")
+        want = lp[rows, torch.tensor(ids[1:], device="cuda")]
+        got = torch.tensor([e["logprob"] for e in plp[1:]], device="cuda")
+        top_ids = torch.tensor([[t["token_id"] for t in e["top_logprobs"]]
+                                for e in plp[1:]], device="cuda")
+        top_got = torch.tensor([[t["logprob"] for t in e["top_logprobs"]]
+                                for e in plp[1:]], device="cuda")
+        d_chosen = float((got - want).abs().max())
+        d_top = float((top_got - lp[rows[:, None], top_ids]).abs().max())
+        d_max = float((top_got[:, 0] - lp[rows].max(dim=-1).values)
+                      .abs().max())
+    del params, lp
+    torch.cuda.empty_cache()
+    rel = max(d_chosen, d_top, d_max) / top
+    print(f"API phase: prompt logprobs vs a one-shot forward's "
+          f"log-softmax: max|d| chosen {d_chosen:.3e}, top-5 {d_top:.3e}, "
+          f"top-1 vs the row max {d_max:.3e}; / max|logit| {top:.3f} = "
+          f"{rel:.3e} (tol {LOGIT_REL_TOL})", flush=True)
+    if not rel <= LOGIT_REL_TOL:
+        fail(f"API phase: prompt logprobs off by {rel:.3e} of max|logit|")
+    if [e["token_id"] for e in plp[1:]] != ids[1:]:
+        fail("API phase: prompt logprob entries name other tokens")
+
+
+def guided_step_us(torch, token_class, class_mask, class_trans,
+                   b: int = 8) -> tuple[float, float]:
+    """One iteration's DFA work in the fused loop (the runner's post():
+    the lanes' allowed classes spread to the vocab, the mask, the sampled
+    token's class, the state step) at b lanes, in µs: (eager, between
+    CUDA events over 200 iterations, host enqueue included; device, 20
+    iterations captured in one CUDA graph replayed 10 times, so no host
+    gap sits between the kernels)."""
+    dev = "cuda"
+    tc = torch.from_numpy(token_class).to(dev)
+    mask = torch.from_numpy(class_mask).to(dev)
+    trans = torch.from_numpy(class_trans.astype("int64")).to(dev)
+    lane_tc = tc[torch.zeros(b, dtype=torch.long, device=dev)].long()
+    g = torch.zeros(b, dtype=torch.long, device=dev)
+    logits = torch.randn((b, tc.shape[1]), device=dev)
+    nxt = torch.zeros(b, dtype=torch.int32, device=dev)
+
+    def one():
+        allowed = torch.gather(mask[g], 1, lane_tc)
+        masked = torch.where(allowed, logits,
+                             torch.full_like(logits, float("-inf")))
+        cls = torch.gather(lane_tc, 1, nxt.long()[:, None])[:, 0]
+        return masked, trans[g, cls]
+
+    def span_us(fn, reps: int, per: int) -> float:
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) * 1e3 / (reps * per)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        for _ in range(10):
+            one()
+    torch.cuda.current_stream().wait_stream(side)
+    eager = span_us(one, 200, 1)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(20):
+            one()
+    graph.replay()
+    return eager, span_us(graph.replay, 10, 20)
+
+
+def guided_phase(torch, pa, gap_tol: float, smi: str) -> dict:
+    """In process, 28 layers, bf16: a K=8 engine on the default config
+    runs the four guided constraints beside four free lanes. Fails unless
+    the DFA tables were built and the fused rounds ran the guided lanes
+    on them (runner.guided_rounds), every guided answer satisfies its
+    constraint, and the greedy streams equal a K=1 host-masked engine's
+    under the near-tie rule. Prints the table builds' ms, the DFA step's
+    device µs an iteration at b = 8, and the wall ms a generated token of
+    the K=8 round with 8 guided lanes beside the same round without
+    constraints, in turns; returns the K=8 engine's launches."""
+    from production_stack_tpu_torch.engine import structured
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.llm_engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+
+    t_phase = time.perf_counter()
+    engines = {k: LLMEngine(EngineConfig(
+        model="llama-3.2-3b", tokenizer="byte", device="cuda",
+        block_size=32, num_kv_blocks=256, max_num_seqs=8, seed=SEED,
+        num_scheduler_steps=k)) for k in (8, 1)}
+    eng = engines[8]
+    mc, vocab = eng._mask_cache(), eng.runner.model_config.vocab_size
+    eos = eng.tokenizer.eos_token_id
+    builds = {}
+    structured._TOKEN_DFA_CACHE.clear()
+    for name in GUIDED:
+        t0 = time.perf_counter()
+        if name == "guided_choice":
+            spec = [tuple(eng.tokenizer.encode(c, add_bos=False))
+                    for c in GUIDED_CHOICES]
+        else:
+            kind = "json" if name == "guided_json" else "regex"
+            spec = structured.get_machine(kind, GUIDED[name])
+        dfa = structured.get_token_dfa(spec, mc, vocab, eos)
+        if dfa is None:
+            fail(f"guided phase: no TokenDFA for {name} at V={vocab}")
+        builds[name] = (round((time.perf_counter() - t0) * 1e3, 3),
+                        dfa.num_states, dfa.num_classes)
+    print(f"guided phase: TokenDFA builds (ms, states, classes) at "
+          f"V={vocab}, byte tokenizer: {builds} (host clock)", flush=True)
+    eager_us, device_us = guided_step_us(
+        torch, dfa.token_class[None], dfa.class_mask, dfa.class_trans)
+    print(f"guided phase: the DFA step (mask + class step) at b=8, "
+          f"V={vocab}: {eager_us:.2f} µs an iteration eager (CUDA events "
+          f"over 200, host enqueue included), {device_us:.2f} µs of device "
+          f"time (a CUDA graph of 20 iterations, replayed 10 times) on "
+          f"{smi}", flush=True)
+
+    prompts = [[(11 * i + 5 * j) % 250 + 1 for j in range(12 + 9 * i)]
+               for i in range(8)]
+    sps = [SamplingParams(max_tokens=128, temperature=0, logprobs=2,
+                          **guided_field(name)) for name in GUIDED]
+    sps += [SamplingParams(max_tokens=40, temperature=0, ignore_eos=True,
+                           logprobs=2)] * 4
+    outs = {}
+    for k, e in engines.items():
+        pa.reset_launch_counts()
+        runs0 = dict(e.runner.dispatch_counts)
+        t0 = time.perf_counter()
+        outs[k] = e.generate(prompts, sps)
+        torch.cuda.synchronize()
+        runs = {key: v - runs0[key]
+                for key, v in e.runner.dispatch_counts.items()}
+        print(f"guided phase: K={k} engine, 4 guided + 4 free lanes in "
+              f"{time.perf_counter() - t0:.3f}s (host clock): fused rounds "
+              f"on the device tables {e.runner.guided_rounds}, rounds with "
+              f"guided lanes on the host mask {e._guided_host_rounds_total}, "
+              f"table uploads {e.runner.guided_table_uploads}; dispatches "
+              f"{runs}", flush=True)
+        check_launches(f"guided phase K={k}", pa.launch_counts(), runs)
+        if k == 8:
+            launches = pa.launch_counts()
+            if not e.runner.guided_rounds > 0:
+                fail("guided phase: no fused round ran guided lanes on the "
+                     "device tables")
+        for name, o in zip(GUIDED, outs[k]):
+            if not guided_valid(name, o.text):
+                fail(f"guided phase K={k}: {name} answer {o.text!r} breaks "
+                     "its constraint")
+    n_same = near_tie_check("guided phase (K=8 vs K=1)", outs[1], outs[8],
+                            gap_tol)
+    print(f"guided phase: {n_same}/8 greedy streams of the K=8 engine equal "
+          f"to the K=1 host-masked engine's; answers "
+          f"{[o.text for o in outs[8][:4]]}", flush=True)
+
+    # wall ms a token, 8 guided lanes against 8 free ones, in turns
+    guided_sp = SamplingParams(max_tokens=128, temperature=0,
+                               guided_regex=r"[a-z]{96}")
+    free_sp = SamplingParams(max_tokens=97, temperature=0, ignore_eos=True)
+    walls: dict = {"guided": [], "free": []}
+    for turn, kind in enumerate(("guided", "free", "free", "guided")):
+        for i in range(8):
+            eng.add_request(f"w{turn}-{i}", prompt_token_ids=[
+                (13 * i + 7 * j + 29 * turn) % 250 + 1 for j in range(24)],
+                sampling_params=guided_sp if kind == "guided" else free_sp)
+        eng.step()  # the packed prefill: one token each
+        torch.cuda.synchronize()
+        gen0, t0 = eng.stats().generation_tokens_total, time.perf_counter()
+        while eng.has_unfinished():
+            eng.step()
+        torch.cuda.synchronize()
+        n_tok = eng.stats().generation_tokens_total - gen0
+        walls[kind].append(round((time.perf_counter() - t0) * 1e3 / n_tok,
+                                 4))
+    print(f"guided phase: K=8 at batch 8, wall ms a generated token "
+          f"(host clock, turns guided, free, free, guided): {walls}; "
+          f"guided rounds on the device {eng.runner.guided_rounds}, on the "
+          f"host mask {eng._guided_host_rounds_total} on {smi}", flush=True)
+    del engines, eng
+    torch.cuda.empty_cache()
+    print(f"guided phase: {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return launches
 
 
 # -- decode-kernel phase -------------------------------------------------------
@@ -2323,8 +2746,9 @@ def main() -> int:
     stats = kernel_phase(torch)
     forward_phase(torch)
     families_phase(torch, pa, smi)
-    serve_counts = serve_phase()
+    serve_counts, api_counts = serve_phase(torch)
     decode_counts, gap_tol = decode_phase(torch, pa)
+    guided_counts = guided_phase(torch, pa, gap_tol, smi)
     pipeline_phase(torch, pa, smi)
     mixed_counts = mixed_phase(torch, pa, gap_tol, smi)
     lora_counts = checkpoint_phase(torch, pa, gap_tol, smi)
@@ -2334,8 +2758,9 @@ def main() -> int:
         "prefill": serve_counts["prefill"],
         "decode": decode_counts["decode"],
     }
-    print(f"launches: serve path {serve_counts}, decode path "
-          f"{decode_counts}, mixed-round path {mixed_counts}, loaded "
+    print(f"launches: serve path {serve_counts}, API requests "
+          f"{api_counts}, decode path {decode_counts}, guided K=8 engine "
+          f"{guided_counts}, mixed-round path {mixed_counts}, loaded "
           f"checkpoint with adapters {lora_counts}, KV paths {kv_counts}; "
           f"a served "
           f"mixed round launches the ragged kernel {LAYERS_3B} times a "

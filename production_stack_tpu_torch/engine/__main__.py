@@ -17,8 +17,13 @@ adapters loaded through ``POST /v1/load_lora_adapter``, up to
 ``--sync-kv-offload`` and ``--kv-restore-wait-s``; disaggregated
 prefill/decode: ``--kv-role`` (``kv_producer`` / ``kv_consumer`` are
 vLLM's names for prefill / decode), ``--kv-transfer-listen`` and
-``--kv-peer``. Every flag whose feature is not ported yet makes the
-engine refuse to start (NotImplementedError from EngineConfig).
+``--kv-peer``. Tool calling: ``--enable-auto-tool-choice`` (OpenAI
+``tools`` with ``tool_choice`` auto; a named tool works without it) and
+``--tool-call-parser``. Request timelines (``/debug/requests``) are on;
+``--no-request-timeline``, ``--timeline-ring-size`` and
+``--tracing-exporter`` as in the JAX CLI. Every flag whose feature is
+not ported yet makes the engine refuse to start (NotImplementedError
+from EngineConfig).
 """
 
 from __future__ import annotations
@@ -122,6 +127,12 @@ def build_parser() -> argparse.ArgumentParser:
                    action="store_false",
                    help="serial per-array prefill uploads")
     p.add_argument("--chat-template", default=None)
+    p.add_argument("--enable-auto-tool-choice", action="store_true",
+                   help="honor OpenAI `tools` with tool_choice=auto "
+                        "(engine/tools.py)")
+    p.add_argument("--tool-call-parser", default="hermes",
+                   choices=["hermes"],
+                   help="tool-call output format to parse")
     p.add_argument("--api-key", default=os.environ.get("PST_API_KEY"),
                    help="require `Authorization: Bearer <key>` on /v1/*")
     p.add_argument("--enable-lora", action="store_true",
@@ -129,6 +140,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-loras", type=int, default=4,
                    help="adapter slots loaded at once")
     p.add_argument("--max-lora-rank", type=int, default=16)
+    # observability: per-request lifecycle timelines + span export
+    p.add_argument("--request-timeline", action="store_true",
+                   default=True,
+                   help="record per-request lifecycle timelines "
+                        "(enqueue/admit/prefill-chunks/first-token/"
+                        "decode-rounds/preempt/finish) served by "
+                        "/debug/requests")
+    p.add_argument("--no-request-timeline", dest="request_timeline",
+                   action="store_false",
+                   help="disable timeline recording (every hook "
+                        "degrades to one boolean check)")
+    p.add_argument("--timeline-ring-size", type=int, default=256,
+                   help="finished timelines kept for /debug/requests")
+    p.add_argument("--tracing-exporter", default="none",
+                   choices=["none", "log", "memory", "otlp"],
+                   help="engine-side span export: one engine_request "
+                        "span per request (child of the router span "
+                        "via the propagated traceparent header)")
     # disaggregated prefill / KV transfer
     p.add_argument("--kv-role", default=None,
                    choices=[None, "prefill", "decode", "both",
@@ -203,6 +232,11 @@ def config_from_args(args: argparse.Namespace) -> EngineConfig:
         ragged_kernel=args.ragged_kernel,
         served_model_name=args.served_model_name,
         api_key=args.api_key,
+        enable_auto_tool_choice=args.enable_auto_tool_choice,
+        tool_call_parser=args.tool_call_parser,
+        request_timeline=args.request_timeline,
+        timeline_ring_size=args.timeline_ring_size,
+        tracing_exporter=args.tracing_exporter,
         num_scheduler_steps=args.num_scheduler_steps,
         device_stop=args.device_stop,
         adaptive_decode_k=args.adaptive_decode_k,

@@ -143,6 +143,7 @@ class AsyncLLMEngine:
         sampling_params: SamplingParams | None = None,
         lora_name: str | None = None,
         priority: int = 0,
+        traceparent: str | None = None,
     ) -> AsyncIterator[RequestOutput]:
         if self.sleeping:
             raise EngineSleepingError("engine is sleeping")
@@ -159,6 +160,7 @@ class AsyncLLMEngine:
                     arrival_time=time.time(),
                     lora_name=lora_name,
                     priority=priority,
+                    traceparent=traceparent,
                 )
             self._wake.set()
             while True:
@@ -204,6 +206,21 @@ class AsyncLLMEngine:
     def drain_kv_observations(self) -> tuple[list[float], list[float]]:
         # GIL-atomic deque pops; no step-lock needed
         return self.engine.drain_kv_observations()
+
+    def drain_ragged_observations(self) -> list[int]:
+        """Ragged lane-mix observations (tpu:ragged_lane_mix) since the
+        last drain; lock-free like the KV drain."""
+        return self.engine.drain_ragged_observations()
+
+    @property
+    def timeline(self):
+        """Per-request lifecycle recorder (tracing.TimelineRecorder)."""
+        return self.engine.timeline
+
+    @property
+    def tracer(self):
+        """Engine-side span tracer (tracing.RequestTracer)."""
+        return self.engine.tracer
 
     @property
     def tokenizer(self):

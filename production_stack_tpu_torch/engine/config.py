@@ -7,7 +7,8 @@ lane-typed forward on the ragged kernel), fused K-step decode up to
 ``num_scheduler_steps`` with device-side stop masks and adaptive K, the
 prefill pipeline and the decode prefetch; the KV offload tiers, the
 shared cache server, the KV controller and both roles of disaggregated
-prefill/decode. The fields of features not ported yet stay so that
+prefill/decode; OpenAI tool calling and the per-request timeline. The
+fields of features not ported yet stay so that
 asking for one fails loudly: ``__post_init__`` raises
 NotImplementedError for each (see ``unported``), so no request ever
 reaches a missing path.
@@ -102,6 +103,10 @@ class EngineConfig:
 
     # serving
     served_model_name: str | None = None
+    # OpenAI tool calling (engine/tools.py; vLLM flag names): auto tool
+    # choice requires the explicit opt-in
+    enable_auto_tool_choice: bool = False
+    tool_call_parser: str = "hermes"
     # require `Authorization: Bearer <key>` on /v1/* (vLLM --api-key)
     api_key: str | None = None
 
@@ -110,6 +115,18 @@ class EngineConfig:
     enable_lora: bool = False
     max_loras: int = 4
     max_lora_rank: int = 16
+
+    # -- observability ------------------------------------------------
+    # per-request lifecycle timeline (tracing/timeline.py): enqueue ->
+    # admit -> prefill chunks -> first token -> sampled decode rounds ->
+    # preempt/resume -> finish, served by /debug/requests and exported
+    # as `engine_request` spans. Appends only, on the host; False makes
+    # every hook one boolean check.
+    request_timeline: bool = True
+    # finished timelines kept for /debug/requests (bounded ring)
+    timeline_ring_size: int = 256
+    # engine-side span export: "none" | "log" | "memory" | "otlp"
+    tracing_exporter: str = "none"
 
     # -- not ported yet: any non-default value refuses at construction --
     async_decode: bool = False        # double-buffered decode

@@ -24,11 +24,17 @@ their gather enqueued after the step's dispatch, the d2h and tier IO on
 the offload worker), and a request whose prefix is held by a tier, a PD
 peer or the cache server restores it through a staged import while it
 waits. The controller reporter streams HBM and tier admits and evicts.
-The timeline attribution of a restore waits for tracing/, which is not
-ported. Async decode, the composed-kernel ragged round, long prefill,
-speculative and guided decoding and prompt logprobs are not ported here:
-EngineConfig refuses their flags and add_request refuses their request
-fields.
+
+Guided decoding (``engine/structured.py``): a constrained lane's allowed
+tokens come from its machine on the host (single-step rounds and first
+tokens), or, on fused and ragged rounds, from the TokenDFA tables the
+runner evaluates inside the decode loop (``_device_guided_tables``); a
+constraint too large to compile, or a lane near its token budget,
+keeps the host mask. Prompt logprobs run on the single-sequence prefill,
+which scores every row on the device. Every request has a lifecycle
+timeline (``tracing/``) when ``request_timeline`` is on. Async decode,
+the composed-kernel ragged round, long prefill and speculative decoding
+are not ported here: EngineConfig refuses their flags.
 """
 
 from __future__ import annotations
@@ -56,9 +62,17 @@ from production_stack_tpu_torch.engine.scheduler import (
     Scheduler,
     SchedulerConfig,
 )
-from production_stack_tpu_torch.engine.sequence import Sequence
+from production_stack_tpu_torch.engine.sequence import (
+    Sequence,
+    SequenceStatus,
+)
 from production_stack_tpu_torch.engine.tokenizer import get_tokenizer
 from production_stack_tpu_torch.kv.offload import own_block
+from production_stack_tpu_torch.tracing import (
+    NULL_RECORDER,
+    RequestTracer,
+    TimelineRecorder,
+)
 from production_stack_tpu_torch.utils import init_logger
 
 logger = init_logger(__name__)
@@ -96,6 +110,32 @@ class LLMEngine:
             ),
             self.block_manager,
         )
+        # -- request-lifecycle timeline (tracing/timeline.py) -------------
+        # one recorder per engine: scheduler admission / preemption
+        # events, per-chunk prefill attribution, first token, sampled
+        # decode rounds, finish. Appends only; the per-step call sites
+        # guard on _tl_enabled so a disabled recorder costs one check.
+        exporter = config.tracing_exporter
+        if not config.request_timeline and exporter != "none":
+            # engine spans are derived from timelines: with recording off
+            # the exporter would sit dead, so say so and drop it
+            logger.warning(
+                "engine span export DISABLED: tracing_exporter=%r "
+                "requires request timelines (drop "
+                "--no-request-timeline to export engine_request spans)",
+                exporter,
+            )
+            exporter = "none"
+        self.tracer = RequestTracer(
+            exporter, service_name=config.served_model_name or config.model,
+        )
+        self.timeline = (
+            TimelineRecorder(maxlen=config.timeline_ring_size,
+                             tracer=self.tracer)
+            if config.request_timeline else NULL_RECORDER
+        )
+        self._tl_enabled = self.timeline.enabled
+        self.scheduler.timeline = self.timeline
         # device-side stop masks ride the fused K-step loop only
         self._device_stop = (
             config.device_stop and config.num_scheduler_steps > 1
@@ -144,6 +184,12 @@ class LLMEngine:
         self._ragged_split_rounds_total = 0
         self._ragged_prefill_lanes_total = 0
         self._ragged_decode_lanes_total = 0
+        # prefill lanes of each fused ragged round, drained into the
+        # tpu:ragged_lane_mix histogram (appends / pops are GIL-atomic)
+        self._ragged_obs: deque = deque(maxlen=4096)
+        # rounds with guided lanes that took the host mask (the runner
+        # counts those that ran on the device tables: guided_rounds)
+        self._guided_host_rounds_total = 0
         self._init_kv_tiers()
 
     # -- KV offload tiers + controller reporting (LMCache-equivalent) ------
@@ -343,6 +389,11 @@ class LLMEngine:
         if not force and len(self._kv_restores) >= \
                 self.KV_RESTORE_FETCH_CAP:
             return None, None
+        if seq.sampling_params.prompt_logprobs is not None:
+            # the scheduler allocates these with reuse_cache=False (every
+            # position must be computed): a restored prefix would go
+            # unused
+            return None, None
         bm = self.block_manager
         # ONE hashing pass per admission: reused by staging and finalize
         hashes = bm.block_hashes_for(seq.prompt_token_ids, seq.hash_seed)
@@ -500,6 +551,10 @@ class LLMEngine:
             src = []
             import_failed = True
         seconds = time.monotonic() - rec["t0"]
+        tiers: dict[str, int] = {}
+        for j in src:
+            t = rec["col_tiers"][j]
+            tiers[t] = tiers.get(t, 0) + 1
         if bids:
             self._kv_restore_obs.append(seconds)
             self._kv_restore_seconds_total += seconds
@@ -512,6 +567,12 @@ class LLMEngine:
             # import failed; a walk that reached the end restoring
             # nothing found everything resident: not a fallback
             self._kv_restore_fallbacks_total += 1
+        if self._tl_enabled:
+            self.timeline.event(
+                seq.request_id, "kv_restore",
+                {"tiers": tiers, "blocks": len(bids),
+                 "seconds": round(seconds, 6)},
+            )
 
     def _import_restored(
         self, bids: list[int], adopted: list[int], handle,
@@ -716,6 +777,7 @@ class LLMEngine:
         arrival_time: float | None = None,
         lora_name: str | None = None,
         priority: int = 0,
+        traceparent: str | None = None,
     ) -> None:
         if request_id in self._seqs:
             raise ValueError(f"duplicate request_id {request_id!r}")
@@ -731,22 +793,6 @@ class LLMEngine:
             # array build would raise inside the step-loop thread
             raise ValueError("prompt_token_ids must be integers")
         sp = sampling_params or SamplingParams()
-        unported = [
-            name for name, on in (
-                ("prompt_logprobs", sp.prompt_logprobs is not None),
-                ("guided decoding", any(
-                    x is not None for x in (
-                        sp.guided_choice, sp.guided_json, sp.guided_regex,
-                        sp.guided_grammar,
-                    )
-                )),
-            ) if on
-        ]
-        if unported:
-            raise NotImplementedError(
-                "not ported to the PyTorch engine yet: "
-                + ", ".join(unported)
-            )
         if sp.truncate_prompt_tokens is not None:
             from production_stack_tpu_torch.engine.sampling_params import (
                 truncate_prompt,
@@ -755,6 +801,9 @@ class LLMEngine:
             prompt_token_ids = truncate_prompt(
                 prompt_token_ids, sp, self.scheduler.config.max_model_len
             )
+        if (sp.prompt_logprobs is not None
+                and sp.prompt_logprobs > LOGPROB_CAP):
+            raise ValueError(f"prompt_logprobs > {LOGPROB_CAP} unsupported")
         if sp.logit_bias:
             vocab = self.runner.model_config.vocab_size
             bad = [t for t in sp.logit_bias if t >= vocab]
@@ -784,6 +833,7 @@ class LLMEngine:
                        else lora.hash_seed_of(lora_name)),
             priority=int(priority),
         )
+        self._setup_guided(seq)
         self._seqs[request_id] = seq
         self.scheduler.add_seq(seq)
         if self._kv_async and self.block_manager.enable_prefix_caching:
@@ -796,6 +846,62 @@ class LLMEngine:
                 # admission simply recomputes the prefix
                 logger.exception("kv restore staging failed for %s",
                                  request_id)
+        self.timeline.start(
+            request_id,
+            arrival_time=seq.metrics.arrival_time,
+            traceparent=traceparent,
+            prompt_tokens=seq.num_prompt_tokens,
+            priority=seq.priority,
+        )
+
+    def _setup_guided(self, seq: Sequence) -> None:
+        """Validate a request's guided constraint and attach its machine
+        (or its tokenized choices) to the sequence; schema, pattern and
+        grammar errors raise ValueError (HTTP 400)."""
+        sp = seq.sampling_params
+        if sp.guided_choice is not None:
+            if not sp.guided_choice or not all(
+                isinstance(c, str) and c for c in sp.guided_choice
+            ):
+                raise ValueError(
+                    "guided_choice must be a non-empty list of "
+                    "non-empty strings"
+                )
+            try:
+                choice_ids = [
+                    self.tokenizer.encode(c, add_bos=False)
+                    for c in sp.guided_choice
+                ]
+            except TypeError:  # tokenizer without the add_bos kwarg
+                choice_ids = [
+                    self.tokenizer.encode(c) for c in sp.guided_choice
+                ]
+            if any(not ids for ids in choice_ids):
+                raise ValueError("guided_choice entries must tokenize "
+                                 "to at least one token")
+            seq._guided_choices = choice_ids  # type: ignore[attr-defined]
+        if (sp.guided_json is not None or sp.guided_regex is not None
+                or sp.guided_grammar is not None):
+            from production_stack_tpu_torch.engine import structured
+
+            if self.tokenizer.eos_token_id is None:
+                # the mask offers EOS as the stop-here move at accepting
+                # states; without one a finished constraint could not
+                # stop
+                raise ValueError(
+                    "guided decoding requires a tokenizer with an EOS "
+                    "token"
+                )
+            kind, spec = (
+                ("json", sp.guided_json)
+                if sp.guided_json is not None
+                else ("regex", sp.guided_regex)
+                if sp.guided_regex is not None
+                else ("grammar", sp.guided_grammar)
+            )
+            machine = structured.get_machine(kind, spec)
+            seq._guided_machine = machine  # type: ignore[attr-defined]
+            seq._guided_state = machine.initial()  # type: ignore[attr-defined]
 
     def abort_request(self, request_id: str) -> bool:
         seq = self._seqs.pop(request_id, None)
@@ -803,7 +909,9 @@ class LLMEngine:
             return False
         if self._kv_restores:
             self._drop_kv_restore(request_id)
-        return self.scheduler.abort(request_id)
+        aborted = self.scheduler.abort(request_id)
+        self.timeline.finish(request_id, "abort")
+        return aborted
 
     def has_request(self, request_id: str) -> bool:
         return request_id in self._seqs
@@ -884,6 +992,7 @@ class LLMEngine:
             self._seqs.pop(seq.request_id, None)
             if self._kv_restores:
                 self._drop_kv_restore(seq.request_id)
+            self.timeline.finish(seq.request_id, seq.finish_reason)
 
         stepped: list[Sequence] = []
         if sched_out.is_ragged:
@@ -906,8 +1015,11 @@ class LLMEngine:
             self.scheduler.staged_prefill_ready = False
             works = sched_out.prefills
             chain_budget = self.scheduler.config.max_staged_prefill_run
+            chained = False
             while True:
-                stepped.extend(self._run_prefill_works(works, staged))
+                stepped.extend(
+                    self._run_prefill_works(works, staged, chained=chained)
+                )
                 staged = None
                 if chain_budget <= 0:
                     break
@@ -916,6 +1028,7 @@ class LLMEngine:
                     break
                 chain_budget -= 1
                 self._pf_chained_chunks_total += len(nxt)
+                chained = True
                 works = nxt
             self._maybe_stage_prefill(works)
         elif sched_out.decode is not None:
@@ -960,12 +1073,16 @@ class LLMEngine:
         """True when the NEXT fused round on these same lanes can be
         staged: no waiting admission, no lane mid-prefill under ragged
         rounds (the next round is lane-typed: the ragged stage covers
-        it), and tables growable to cover this round and the next."""
+        it), no guided lane (a staged round carries no DFA tables: guided
+        lanes re-initialize their device states every round), and tables
+        growable to cover this round and the next."""
         if self.scheduler.waiting:
             return False  # admission will change the lane set
         if self._ragged_dispatch and any(
             not s.prefill_done for s in self.scheduler.running
         ):
+            return False
+        if any(self._is_guided(s) for s in seqs):
             return False
         return self._reserve_next_round(seqs, k)
 
@@ -1006,8 +1123,24 @@ class LLMEngine:
         the ragged round's split execution): the fused K-step loop on the
         device when K > 1 (chained on a staged buffer when the prefetch
         prediction held, then staging the next round), else one forward
-        with host-side sampling (penalties / logit bias applied first)."""
-        if k_steps > 1:
+        with host-side sampling (penalties / logit bias / guided mask
+        applied first). Guided lanes ride the fused loop on the device
+        DFA tables; a lane near its token budget (its final steps need
+        the host's completion steering) or a constraint too large to
+        compile keeps the whole round on the host path."""
+        guided_tables = None
+        needs_guided = any(self._is_guided(s) for s in seqs)
+        if needs_guided and k_steps > 1:
+            near_budget = any(
+                self._is_guided(s)
+                and (s.sampling_params.max_tokens
+                     - len(s.generated_token_ids))
+                <= k_steps + self.GUIDED_STEER_BOUND
+                for s in seqs
+            )
+            if not near_budget:
+                guided_tables = self._device_guided_tables(seqs)
+        if k_steps > 1 and (not needs_guided or guided_tables is not None):
             temps, top_ps, top_ks, min_ps, keys, needs_pen = (
                 self._sampling_arrays(seqs)
             )
@@ -1024,6 +1157,7 @@ class LLMEngine:
             self._staged_decode = None
             if st is not None:
                 if (penalties is None and bias is None
+                        and guided_tables is None
                         and st["fp"] == self._stage_fingerprint(
                             seqs, k_steps)):
                     # the prediction held: chain on the previous round's
@@ -1040,10 +1174,12 @@ class LLMEngine:
                 [s.num_tokens for s in seqs], k_steps,
                 temps, top_ps, top_ks, keys, min_ps=min_ps,
                 penalties=penalties, want_logprobs=want_lp,
-                logit_bias=bias, stop=stop, lora_slots=slots, **staged_kw,
+                guided=guided_tables, logit_bias=bias, stop=stop,
+                lora_slots=slots, **staged_kw,
             )
             if (self._prefetch_decode and penalties is None
-                    and bias is None and self._can_stage(seqs, k_steps)):
+                    and guided_tables is None and bias is None
+                    and self._can_stage(seqs, k_steps)):
                 # stage round N+1 now: its copy rides out this round's
                 # fetch. Its K is predicted and capped at this round's,
                 # the most _reserve_next_round grew the tables for.
@@ -1071,6 +1207,8 @@ class LLMEngine:
             self._apply_fused_decode(seqs, k_steps, ys, want_lp,
                                      stop is not None)
             return list(seqs)
+        if needs_guided:
+            self._guided_host_rounds_total += 1
         tokens = [s.all_token_ids[-1] for s in seqs]
         positions = [s.num_tokens - 1 for s in seqs]
         tables = [s.block_table for s in seqs]
@@ -1100,7 +1238,8 @@ class LLMEngine:
         return stepped
 
     def _apply_fused_decode(self, seqs: list[Sequence], k_steps: int, ys,
-                            want_lp: bool, with_stop: bool) -> None:
+                            want_lp: bool, with_stop: bool,
+                            round_attrs: dict | None = None) -> None:
         """Fetch a fused round's device results in one place (the fetch
         phase meter) and apply them: ys as decode_multi returns it."""
         ys = ys if isinstance(ys, tuple) else (ys,)
@@ -1111,11 +1250,13 @@ class LLMEngine:
         self._apply_multi_tokens(
             seqs, host[0], k_steps,
             lps=tuple(host[1:4]) if want_lp else None, valid=valid,
+            round_attrs=round_attrs,
         )
 
     def _apply_multi_tokens(
         self, seqs: list[Sequence], toks: np.ndarray, k: int,
         lps: tuple | None = None, valid: np.ndarray | None = None,
+        round_attrs: dict | None = None,
     ) -> None:
         """Apply a fused round's (k, b) sampled tokens. `lps` = (chosen
         (k, b), top_vals (k, b, CAP), top_ids (k, b, CAP)) when a lane
@@ -1131,8 +1272,9 @@ class LLMEngine:
                 if vcounts is not None and i >= vcounts[j]:
                     continue  # device-frozen rows: pad, never sampled
                 if seq.finished:
-                    # host-side stop (stop strings, or the fixed-trip
-                    # --no-device-stop loop): a sampled slot discarded
+                    # host-side stop (stop strings, guided completion, or
+                    # the fixed-trip --no-device-stop loop): a sampled
+                    # slot discarded
                     self._decode_overshoot_tokens_total += 1
                     continue
                 seq.num_computed_tokens = seq.num_tokens
@@ -1150,14 +1292,33 @@ class LLMEngine:
                         ],
                     }
                 self._append_token(seq, int(toks[i, j]), entry)
-        self._note_decode_round(seqs, k)
+        if round_attrs:
+            self._note_decode_round(seqs, k, extra_attrs=round_attrs)
+        else:
+            self._note_decode_round(seqs, k)
 
-    def _note_decode_round(self, seqs: list[Sequence], k: int) -> None:
+    def _note_decode_round(self, seqs: list[Sequence], k: int,
+                           extra_attrs: dict | None = None) -> None:
         """Per-round decode accounting shared by the fused and the
-        single-step paths: tpu:decode_rounds and the tpu:decode_k
-        chosen-K histogram."""
+        single-step paths: tpu:decode_rounds, the tpu:decode_k chosen-K
+        histogram, and one SAMPLED timeline tick a request a round
+        (tracing.DECODE_EVENT_EVERY) with the round's lane mix."""
         self._decode_rounds_total += 1
         self._decode_k_hist[k] = self._decode_k_hist.get(k, 0) + 1
+        if self._tl_enabled:
+            # a split decode round carries no prefill lanes; ragged rounds
+            # override through extra_attrs
+            attrs = {
+                "k_chosen": k,
+                "lanes_done": sum(1 for s in seqs if s.finished),
+                "prefill_lanes": 0, "decode_lanes": len(seqs),
+            }
+            if extra_attrs:
+                attrs.update(extra_attrs)
+            for seq in seqs:
+                if not seq.finished:
+                    self.timeline.decode_round(seq.request_id, k,
+                                               attrs=attrs)
 
     # -- unified ragged rounds ----------------------------------------------
     def _penalty_args(self, seqs: list[Sequence]) -> tuple:
@@ -1175,33 +1336,55 @@ class LLMEngine:
         )
 
     def _ragged_prefill_fusable(self, works: list[PrefillWork]) -> bool:
-        """Prefill lanes the fused round can serve: final chunks whose
-        first token the device sample may give (prompt_logprobs requests
-        are refused at add_request)."""
-        return not any(
-            w.is_last_chunk and self._needs_host_first_sample(w.seq)
-            for w in works
-        )
+        """Prefill lanes the fused round can serve: no prompt_logprobs
+        lane (it scores every row on the single-sequence prefill) and no
+        final chunk whose first token needs host sampling."""
+        for w in works:
+            if w.seq.sampling_params.prompt_logprobs is not None:
+                return False
+            if w.is_last_chunk and self._needs_host_first_sample(w.seq):
+                return False
+        return True
 
     def _step_ragged(self, works: list[PrefillWork], dwork) -> list[Sequence]:
         """One planned lane-typed round: prefill-chunk lanes + the decode
         batch in ONE ragged_dispatch when every lane is fusable, else
         split execution of the SAME plan (both halves still run this
-        step)."""
-        if not self._ragged_prefill_fusable(works):
+        step). The decode half's guided gates are _run_decode_round's;
+        the fused round also takes K = 1 rounds on the DFA tables."""
+        seqs, k_steps = dwork.seqs, dwork.k
+        guided_tables = None
+        fusable = True
+        if any(self._is_guided(s) for s in seqs):
+            near_budget = any(
+                self._is_guided(s)
+                and (s.sampling_params.max_tokens
+                     - len(s.generated_token_ids))
+                <= k_steps + self.GUIDED_STEER_BOUND
+                for s in seqs
+            )
+            if near_budget:
+                fusable = False
+            else:
+                guided_tables = self._device_guided_tables(seqs)
+                fusable = guided_tables is not None
+        if fusable:
+            fusable = self._ragged_prefill_fusable(works)
+        if not fusable:
             self._ragged_split_rounds_total += 1
             if self._staged_ragged is not None:
                 # the stage expects the fused round: a counted miss
                 self._ragged_staged_misses_total += 1
                 self._staged_ragged = None
             stepped = self._run_prefill_works(works)
-            stepped.extend(self._run_decode_round(dwork.seqs, dwork.k))
+            stepped.extend(self._run_decode_round(seqs, k_steps))
             return stepped
-        return self._dispatch_ragged(works, dwork.seqs, dwork.k)
+        return self._dispatch_ragged(works, seqs, k_steps, guided_tables)
 
     def _dispatch_ragged(self, works: list[PrefillWork],
-                         seqs: list[Sequence],
-                         k_steps: int) -> list[Sequence]:
+                         seqs: list[Sequence], k_steps: int,
+                         guided_tables: tuple | None = None,
+                         ) -> list[Sequence]:
         """The fused lane-typed round: one packed buffer (staged ahead
         when the prediction held), one dispatch, the next round staged
         before any fetch, then the prefill bookkeeping and the shared
@@ -1216,6 +1399,9 @@ class LLMEngine:
         for w in works:
             if w.seq.metrics.first_scheduled_time is None:
                 w.seq.metrics.first_scheduled_time = now
+        phase_snap = (
+            self.runner.phase_snapshot() if self._tl_enabled else None
+        )
         pf_sampling = self._sampling_arrays([w.seq for w in works])[:5]
         temps, top_ps, top_ks, min_ps, keys, needs_pen = (
             self._sampling_arrays(seqs)
@@ -1230,6 +1416,7 @@ class LLMEngine:
         self._staged_ragged = None
         if st is not None:
             if (penalties is None and bias is None
+                    and guided_tables is None
                     and st["fp"] == self._ragged_fingerprint(
                         works, seqs, k_steps)):
                 # the prediction held: the decode lanes chain on the
@@ -1254,7 +1441,8 @@ class LLMEngine:
             [s.num_tokens for s in seqs],
             k_steps, temps, top_ps, top_ks, keys, min_ps=min_ps,
             pf_sampling=pf_sampling, penalties=penalties,
-            want_logprobs=want_lp, logit_bias=bias, stop=stop,
+            want_logprobs=want_lp, guided=guided_tables, logit_bias=bias,
+            stop=stop,
             pf_lora_slots=self._lora_slots([w.seq for w in works]),
             lora_slots=self._lora_slots(seqs), **staged_kw,
         )
@@ -1262,12 +1450,31 @@ class LLMEngine:
         # so its copy overlaps this round
         self._maybe_stage_ragged(
             works, seqs, k_steps, temps, top_ps, top_ks, keys, min_ps,
-            stop, penalties, bias, ys[0] if isinstance(ys, tuple) else ys,
+            stop, penalties, bias, guided_tables,
+            ys[0] if isinstance(ys, tuple) else ys,
         )
         stepped: list[Sequence] = []
         for w in works:
             w.seq.num_computed_tokens += w.chunk_len
             self._prompt_tokens_total += w.chunk_len
+        if self._tl_enabled:
+            phases = self.runner.phase_delta(phase_snap)
+            for w in works:
+                self.timeline.event(
+                    w.seq.request_id, "prefill_chunk",
+                    {
+                        "chunk_start": w.chunk_start,
+                        "chunk_len": w.chunk_len,
+                        "last": w.is_last_chunk,
+                        "staged_hit": len(staged_kw) > 0,
+                        "chained": False,
+                        "group_size": len(works),
+                        "ragged": True,
+                        "prefill_lanes": len(works),
+                        "decode_lanes": len(seqs),
+                        **({"group_phase_s": phases} if phases else {}),
+                    },
+                )
         finals = [(i, w) for i, w in enumerate(works) if w.is_last_chunk]
         if finals:
             tf = time.perf_counter()
@@ -1291,13 +1498,34 @@ class LLMEngine:
                     )
                 self._append_token(w.seq, tok, entry)
                 stepped.append(w.seq)
-        self._apply_fused_decode(seqs, k_steps, ys, want_lp,
-                                 stop is not None)
+        self._apply_fused_decode(
+            seqs, k_steps, ys, want_lp, stop is not None,
+            round_attrs={"prefill_lanes": len(works),
+                         "decode_lanes": len(seqs)},
+        )
         stepped.extend(seqs)
-        self._ragged_rounds_total += 1
-        self._ragged_prefill_lanes_total += len(works)
-        self._ragged_decode_lanes_total += len(seqs)
+        self._note_ragged_round(len(works), len(seqs))
         return stepped
+
+    def _note_ragged_round(self, n_pf: int, n_dec: int) -> None:
+        """Fused lane-typed round accounting: tpu:ragged_rounds, the lane
+        totals and the tpu:ragged_lane_mix feed."""
+        self._ragged_rounds_total += 1
+        self._ragged_prefill_lanes_total += n_pf
+        self._ragged_decode_lanes_total += n_dec
+        self._ragged_obs.append(n_pf)
+
+    def drain_ragged_observations(self) -> list[int]:
+        """Prefill-lane counts of fused ragged rounds since the last
+        drain, for the server's tpu:ragged_lane_mix histogram (deque pops
+        are GIL-atomic)."""
+        out: list[int] = []
+        while True:
+            try:
+                out.append(self._ragged_obs.popleft())
+            except IndexError:
+                break
+        return out
 
     def _predict_next_prefill_works(
         self, works: list[PrefillWork]
@@ -1310,6 +1538,8 @@ class LLMEngine:
         chunked = self.scheduler.config.enable_chunked_prefill
         for w in works:
             s = w.seq
+            if s.sampling_params.prompt_logprobs is not None:
+                continue
             start = w.chunk_start + w.chunk_len
             rem = s.num_prompt_tokens - start
             if rem <= 0:
@@ -1341,7 +1571,7 @@ class LLMEngine:
 
     def _maybe_stage_ragged(
         self, works, seqs, k_steps, temps, top_ps, top_ks, keys, min_ps,
-        stop, penalties, bias, toks_dev,
+        stop, penalties, bias, guided_tables, toks_dev,
     ) -> None:
         """Stage the PREDICTED next lane-typed round: prefill lanes
         advance by their chunk, decode lanes chain on this round's
@@ -1349,7 +1579,8 @@ class LLMEngine:
         the runner's bucket key and total length, before use."""
         if not (self._prefetch_decode and self._prefill_pipeline):
             return
-        if penalties is not None or bias is not None:
+        if (penalties is not None or bias is not None
+                or guided_tables is not None):
             return  # per-round host state does not chain
         if self.scheduler.waiting:
             return  # admission will change the lane set
@@ -1417,12 +1648,16 @@ class LLMEngine:
         self, works: list[PrefillWork]
     ) -> list[PrefillWork]:
         """The predicted chunk set after `works` completes: the same
-        sequences (order kept) that still have prompt left."""
+        sequences (order kept) that still have prompt left. prompt_logprobs
+        sequences are left out: their per-chunk fetches serialize
+        anyway."""
         nxt: list[PrefillWork] = []
         chunked = self.scheduler.config.enable_chunked_prefill
         for w in works:
             s = w.seq
             if s.finished or s not in self.scheduler.running:
+                continue
+            if s.sampling_params.prompt_logprobs is not None:
                 continue
             rem = s.num_uncomputed_prompt_tokens
             if rem <= 0:
@@ -1446,6 +1681,9 @@ class LLMEngine:
             return None
         if any(w.is_last_chunk for w in works):
             return None  # finals made their sequences decode-ready
+        if any(w.seq.sampling_params.prompt_logprobs is not None
+               for w in works):
+            return None
         if self.scheduler.waiting:
             return None  # admission may pack new arrivals into the group
         if any(s.prefill_done and not s.finished
@@ -1499,17 +1737,24 @@ class LLMEngine:
 
     def _run_prefill_works(
         self, works: list[PrefillWork], staged: dict | None = None,
+        chained: bool = False,
     ) -> list[Sequence]:
-        """Dispatch one scheduled prefill chunk group: one sequence on
-        the single-sequence forward, several in one packed forward; first
-        tokens (sampled on the device) are appended for final chunks.
-        `staged` = a _maybe_stage_prefill record, used when its
-        fingerprint matches this exact group (else a counted miss)."""
+        """Dispatch one scheduled prefill chunk group: prompt_logprobs
+        sequences on the single-sequence prefill that scores every row on
+        the device, the others on the single-sequence forward (one) or
+        one packed forward (several); first tokens (sampled on the
+        device) are appended for final chunks. `staged` = a
+        _maybe_stage_prefill record, used when its fingerprint matches
+        this exact group (else a counted miss). `chained` marks a group
+        dispatched by cold-prompt chaining, for the timeline."""
         stepped: list[Sequence] = []
         now = time.time()
         for w in works:
             if w.seq.metrics.first_scheduled_time is None:
                 w.seq.metrics.first_scheduled_time = now
+        phase_snap = (
+            self.runner.phase_snapshot() if self._tl_enabled else None
+        )
         staged_kw = {}
         if staged is not None:
             if staged["fp"] == self._prefill_fingerprint(works):
@@ -1519,48 +1764,102 @@ class LLMEngine:
             else:
                 self._pf_staged_misses_total += 1
                 self.scheduler.note_staged_prefill_miss()
-        seqs_w = [w.seq for w in works]
-        temps, top_ps, top_ks, min_ps, keys, _ = (
-            self._sampling_arrays(seqs_w)
-        )
-        sampling = (temps, top_ps, top_ks, min_ps, keys)
-        chunks = [
-            w.seq.prompt_token_ids[w.chunk_start:w.chunk_start + w.chunk_len]
-            for w in works
-        ]
-        slots = self._lora_slots(seqs_w)
-        if len(works) == 1:
-            w = works[0]
-            token_dev, logits = self.runner.prefill(
-                chunks[0],
-                start_pos=w.chunk_start,
-                block_table=w.seq.block_table,
+        plp_works = [(i, w) for i, w in enumerate(works)
+                     if w.seq.sampling_params.prompt_logprobs is not None]
+        std_works = [(i, w) for i, w in enumerate(works)
+                     if w.seq.sampling_params.prompt_logprobs is None]
+        last_logits: dict[int, torch.Tensor] = {}
+        tok_of: dict[int, int] = {}  # index in works -> sampled token
+        for i, w in plp_works:
+            seq = w.seq
+            chunk = seq.prompt_token_ids[
+                w.chunk_start:w.chunk_start + w.chunk_len]
+            # row j scores the NEXT prompt token; the final chunk's last
+            # row has none (its continuation is generated)
+            tgts = seq.prompt_token_ids[
+                w.chunk_start + 1:w.chunk_start + w.chunk_len + 1]
+            slots = self._lora_slots([seq])
+            token_dev, logits, chosen, tv, ti = self.runner.prefill(
+                chunk, start_pos=w.chunk_start,
+                block_table=seq.block_table,
                 total_len=w.chunk_start + w.chunk_len,
-                sampling=sampling, lora_slot=slots[0] if slots else 0,
-                **staged_kw,
+                sampling=self._sampling_arrays([seq])[:5],
+                lora_slot=slots[0] if slots else 0,
+                prompt_lp_targets=[int(x) for x in tgts],
             )
-            tokens_dev = token_dev[None]
-            last_logits = logits[None]
-        else:
-            tokens_dev, last_logits = self.runner.prefill_batch(
-                chunks,
-                start_positions=[w.chunk_start for w in works],
-                block_tables=[w.seq.block_table for w in works],
-                total_lens=[w.chunk_start + w.chunk_len for w in works],
-                sampling=sampling, lora_slots=slots, **staged_kw,
-            )
-        toks_np = None
-        if any(w.is_last_chunk for w in works):
             tf = time.perf_counter()
-            toks_np = _to_numpy(tokens_dev)  # ONE fetch for the group
+            # the lane's one fetch: its token and the (t, CAP) scores
+            tok_of[i] = int(_to_numpy(token_dev))
+            chosen, tv, ti = _to_numpy(chosen), _to_numpy(tv), _to_numpy(ti)
             self.runner._phase_add("fetch", time.perf_counter() - tf)
+            last_logits[i] = logits
+            self._accumulate_prompt_lps(seq, w.chunk_start, tgts, chosen,
+                                        tv, ti)
+        if std_works:
+            sworks = [w for _, w in std_works]
+            seqs_w = [w.seq for w in sworks]
+            sampling = self._sampling_arrays(seqs_w)[:5]
+            chunks = [
+                w.seq.prompt_token_ids[
+                    w.chunk_start:w.chunk_start + w.chunk_len]
+                for w in sworks
+            ]
+            slots = self._lora_slots(seqs_w)
+            if len(sworks) == 1:
+                w = sworks[0]
+                token_dev, logits = self.runner.prefill(
+                    chunks[0],
+                    start_pos=w.chunk_start,
+                    block_table=w.seq.block_table,
+                    total_len=w.chunk_start + w.chunk_len,
+                    sampling=sampling, lora_slot=slots[0] if slots else 0,
+                    **staged_kw,
+                )
+                tokens_dev = token_dev[None]
+                last_logits[std_works[0][0]] = logits
+            else:
+                tokens_dev, logits = self.runner.prefill_batch(
+                    chunks,
+                    start_positions=[w.chunk_start for w in sworks],
+                    block_tables=[w.seq.block_table for w in sworks],
+                    total_lens=[w.chunk_start + w.chunk_len
+                                for w in sworks],
+                    sampling=sampling, lora_slots=slots, **staged_kw,
+                )
+                for j, (i, _) in enumerate(std_works):
+                    last_logits[i] = logits[j]
+            if any(w.is_last_chunk for w in sworks):
+                tf = time.perf_counter()
+                toks_np = _to_numpy(tokens_dev)  # ONE fetch for the group
+                self.runner._phase_add("fetch", time.perf_counter() - tf)
+                for j, (i, _) in enumerate(std_works):
+                    tok_of[i] = int(toks_np[j])
         for w in works:
             w.seq.num_computed_tokens += w.chunk_len
             self._prompt_tokens_total += w.chunk_len
+        if self._tl_enabled:
+            # one event a chunk, with the dispatch group's per-phase wall
+            # time (the group shares one dispatch)
+            phases = self.runner.phase_delta(phase_snap)
+            for w in works:
+                self.timeline.event(
+                    w.seq.request_id, "prefill_chunk",
+                    {
+                        "chunk_start": w.chunk_start,
+                        "chunk_len": w.chunk_len,
+                        "last": w.is_last_chunk,
+                        "staged_hit": len(staged_kw) > 0,
+                        "chained": chained,
+                        "group_size": len(works),
+                        "prefill_lanes": len(works),
+                        "decode_lanes": 0,
+                        **({"group_phase_s": phases} if phases else {}),
+                    },
+                )
         finals = [(i, w) for i, w in enumerate(works) if w.is_last_chunk]
-        # a post-preemption sequence with active penalties folds its
-        # generated history into the prompt, so its "first" token needs
-        # the penalised logits: sample those lanes on the host
+        # guided lanes, logit bias, and a post-preemption sequence with
+        # active penalties (its generated history is folded into the
+        # prompt) sample their first token on the host
         pen = [(i, w) for i, w in finals
                if self._needs_host_first_sample(w.seq)]
         for i, w in finals:
@@ -1570,9 +1869,9 @@ class LLMEngine:
             n = w.seq.sampling_params.logprobs
             if n is not None:
                 entry = self._host_logprob_entry(
-                    _to_numpy(last_logits[i]), int(toks_np[i]), n
+                    _to_numpy(last_logits[i]), tok_of[i], n
                 )
-            self._append_token(w.seq, int(toks_np[i]), entry)
+            self._append_token(w.seq, tok_of[i], entry)
             stepped.append(w.seq)
         if pen:
             rows = torch.stack([last_logits[i] for i, _ in pen])
@@ -1591,12 +1890,13 @@ class LLMEngine:
                 stepped.append(w.seq)
         return stepped
 
-    @staticmethod
-    def _needs_host_first_sample(s: Sequence) -> bool:
+    def _needs_host_first_sample(self, s: Sequence) -> bool:
         """A final prefill chunk whose first token cannot be taken from
-        the on-device sample: logit_bias, or non-empty penalty state
-        after a preemption recompute."""
+        the on-device sample: a guided mask, logit_bias, or non-empty
+        penalty state after a preemption recompute."""
         sp = s.sampling_params
+        if self._is_guided(s):
+            return True  # the first token must be masked
         if sp.logit_bias:
             return True  # the on-device sample knows no bias
         return len(s.generated_token_ids) > 0 and (
@@ -1617,6 +1917,13 @@ class LLMEngine:
                 self._finished_total += 1
                 self.scheduler.free_finished(seq)
                 self._seqs.pop(seq.request_id, None)
+                self.timeline.finish(
+                    seq.request_id, seq.finish_reason,
+                    {
+                        "generated_tokens": len(seq.generated_token_ids),
+                        "preemptions": seq.metrics.num_preemptions,
+                    } if self._tl_enabled else None,
+                )
         return outputs
 
     # -- internals ---------------------------------------------------------
@@ -1718,6 +2025,295 @@ class LLMEngine:
             else (self.config.seed ^ (hash(s.request_id) & 0x7FFFFFFF))
         )
 
+    # -- structured output (guided choice / json / regex / grammar) --------
+    @staticmethod
+    def _is_guided(seq: Sequence) -> bool:
+        return (
+            getattr(seq, "_guided_choices", None) is not None
+            or getattr(seq, "_guided_machine", None) is not None
+        )
+
+    def _mask_cache(self):
+        """Lazy per-engine vocab trie for constraint masking."""
+        mc = getattr(self, "_token_mask_cache", None)
+        if mc is None:
+            from production_stack_tpu_torch.engine.structured import (
+                TokenMaskCache,
+            )
+
+            mc = TokenMaskCache(self.tokenizer)
+            self._token_mask_cache = mc
+        return mc
+
+    def _guided_allowed(self, seq: Sequence) -> set[int] | None:
+        """Tokens the constraint allows next, or None when the sequence
+        is unconstrained."""
+        machine = getattr(seq, "_guided_machine", None)
+        if machine is not None:
+            if getattr(seq, "_guided_dead", False):
+                # the constraint blew up earlier for THIS request: the
+                # only legal move is to stop
+                return (
+                    {int(seq.eos_token_id)}
+                    if seq.eos_token_id is not None else set()
+                )
+            states = seq._guided_state
+            try:
+                allowed = set(self._mask_cache().allowed(machine, states))
+            except ValueError as e:
+                # fail ONLY this request: a per-lane constraint blow-up
+                # must never abort the engine step
+                logger.warning(
+                    "guided constraint diverged for %s mid-generation "
+                    "(%s); ending the stream", seq.request_id, e,
+                )
+                seq._guided_dead = True  # type: ignore[attr-defined]
+                return (
+                    {int(seq.eos_token_id)}
+                    if seq.eos_token_id is not None else set()
+                )
+            # budget-aware completion steering: with only a few budget
+            # tokens left, keep only moves from which the machine can
+            # still accept within what remains
+            remaining = (seq.sampling_params.max_tokens
+                         - len(seq.generated_token_ids))
+            if 0 < remaining <= self.GUIDED_STEER_BOUND:
+                steered = self._steer_allowed(
+                    machine, states, allowed, remaining
+                )
+                if steered is not None:
+                    allowed = steered
+            if machine.accepting(states) and seq.eos_token_id is not None:
+                allowed.add(int(seq.eos_token_id))
+            if not allowed and seq.eos_token_id is not None:
+                # dead end (should not happen for live machines)
+                allowed.add(int(seq.eos_token_id))
+            return allowed
+        choices = getattr(seq, "_guided_choices", None)
+        if choices is None:
+            return None
+        g = list(seq.generated_token_ids)
+        allowed = set()
+        complete = False
+        for ids in choices:
+            if len(ids) > len(g) and list(ids[: len(g)]) == g:
+                allowed.add(int(ids[len(g)]))
+            elif list(ids) == g:
+                complete = True
+        if complete and allowed and seq.eos_token_id is not None:
+            # a complete choice that a longer one still extends ("go" vs
+            # "gone"): EOS is the stop-here option the model may take
+            allowed.add(int(seq.eos_token_id))
+        return allowed
+
+    # budget window (tokens) in which constraint steering engages; also
+    # the margin by which guided lanes leave the fused device path so
+    # their final steered steps run host-masked (unsteered steps mask
+    # identically on both paths)
+    GUIDED_STEER_BOUND = 8
+    # frontier cap for the completion-distance search: a node offering
+    # more distinct next strings than this is too wide to steer
+    GUIDED_STEER_FANOUT = 128
+
+    # stackcheck: not-hot — host-side BFS over a constraint machine, run
+    # only in a guided request's final GUIDED_STEER_BOUND tokens
+    def _dist_to_accept(self, machine, states, cap: int) -> int | None:
+        """Shortest number of further tokens from `states` to an
+        accepting state (token-level BFS, deduped by token string), or
+        None when none is reachable within `cap` tokens or the frontier
+        is too wide. Memoized per live machine object (weak-keyed)."""
+        import weakref
+
+        memos = getattr(self, "_guided_dist_memo", None)
+        if memos is None:
+            memos = weakref.WeakKeyDictionary()
+            self._guided_dist_memo = memos
+        memo = memos.get(machine)
+        if memo is None:
+            memo = {}
+            memos[machine] = memo
+        cached = memo.get(states)
+        if cached is not None:
+            dist, searched_cap = cached
+            if dist is not None or cap <= searched_cap:
+                return dist
+        mc = self._mask_cache()
+        if machine.accepting(states):
+            memo[states] = (0, cap)
+            return 0
+        seen = {states}
+        frontier = [states]
+        for d in range(1, cap + 1):
+            nxt = []
+            for st in frontier:
+                try:
+                    allowed = mc.allowed(machine, st)
+                except ValueError:
+                    continue  # diverging constraint: unsearchable here
+                strs = {mc.token_str(t) for t in allowed}
+                strs.discard("")
+                if len(strs) > self.GUIDED_STEER_FANOUT:
+                    memo[states] = (None, cap)
+                    return None
+                for tok_s in strs:
+                    try:
+                        ns = machine.step_str(st, tok_s)
+                    except ValueError:
+                        continue
+                    if not ns or ns in seen:
+                        continue
+                    if machine.accepting(ns):
+                        memo[states] = (d, cap)
+                        return d
+                    seen.add(ns)
+                    nxt.append(ns)
+            if not nxt:
+                break
+            frontier = nxt
+        memo[states] = (None, cap)
+        return None
+
+    def _steer_allowed(
+        self, machine, states, allowed: set[int], remaining: int,
+    ) -> set[int] | None:
+        """Subset of `allowed` whose successor states can still accept
+        within `remaining - 1` further tokens, or None when steering is
+        infeasible (the caller keeps the unsteered mask)."""
+        mc = self._mask_cache()
+        by_str: dict[str, list[int]] = {}
+        for t in allowed:
+            by_str.setdefault(mc.token_str(t), []).append(t)
+        by_str.pop("", None)
+        if len(by_str) > self.GUIDED_STEER_FANOUT:
+            return None
+        keep: set[int] = set()
+        for tok_s, ids in by_str.items():
+            try:
+                ns = machine.step_str(states, tok_s)
+            except ValueError:
+                continue
+            if not ns:
+                continue
+            d = self._dist_to_accept(machine, ns, remaining - 1)
+            if d is not None and d <= remaining - 1:
+                keep.update(ids)
+        return keep or None
+
+    # stackcheck: not-hot — host table assembly for a round with guided
+    # lanes: cached per set of live constraints, a dict probe a round
+    def _device_guided_tables(self, seqs: list[Sequence]):
+        """TokenDFA tables of a round with guided lanes, for the runner's
+        fused loop: (cache_token, init_states (b,), lane_map (b,),
+        token_class (M, V) int32, class_mask (S, C) bool, class_trans
+        (S, C) int32), or None when a lane's constraint is too large to
+        compile under budget or its state was never enumerated (the
+        caller keeps the host path). Unguided lanes ride a shared
+        allow-everything machine, the last real row."""
+        from production_stack_tpu_torch.engine.structured import (
+            get_token_dfa,
+        )
+
+        vocab = self.runner.model_config.vocab_size
+        mask_cache = self._mask_cache()
+        lane_dfas: list = []
+        for s in seqs:
+            machine = getattr(s, "_guided_machine", None)
+            choices = getattr(s, "_guided_choices", None)
+            if machine is None and choices is None:
+                lane_dfas.append(None)
+                continue
+            # a missing EOS id is legal for guided_choice: -1 never lands
+            # in the vocab-range EOS column
+            eos = (int(s.eos_token_id)
+                   if s.eos_token_id is not None else -1)
+            dfa = get_token_dfa(
+                machine if machine is not None else choices,
+                mask_cache, vocab, eos,
+            )
+            if dfa is None:
+                return None  # over budget (or diverging): host path
+            lane_dfas.append(dfa)
+
+        distinct: list = []
+        for d in lane_dfas:
+            if d is not None and all(d is not x for x in distinct):
+                distinct.append(d)
+        # order-invariant identity: reordering the running lanes must not
+        # rebuild the tables or their device copies
+        distinct.sort(key=lambda d: d.serial)
+        n_real = len(distinct) + 1
+        offsets: dict[int, int] = {}
+        off = 0
+        for d in distinct:
+            offsets[id(d)] = off
+            off += d.num_states
+        free_state = off
+        s_total = off + 1
+        c_max = max([d.num_classes for d in distinct] + [1])
+        s_pad = 1 << (s_total - 1).bit_length()
+        c_pad = 1 << (c_max - 1).bit_length()
+        m_pad = 1 << (n_real - 1).bit_length()
+        # identity by TokenDFA.serial, never id(): ids recycle once the
+        # structured module's LRU drops a DFA
+        cache_token = (
+            tuple(d.serial for d in distinct), s_pad, c_pad, m_pad,
+        )
+        cached = getattr(self, "_guided_host_tables", None)
+        if cached is not None and cached[0] == cache_token:
+            _, token_class, class_mask, class_trans = cached
+        else:
+            token_class = np.zeros((m_pad, vocab), np.int32)
+            class_mask = np.zeros((s_pad, c_pad), bool)
+            class_trans = np.tile(
+                np.arange(s_pad, dtype=np.int32)[:, None], (1, c_pad)
+            )
+            for mi, d in enumerate(distinct):
+                token_class[mi] = d.token_class
+                o = offsets[id(d)]
+                S, C = d.class_mask.shape
+                class_mask[o:o + S, :C] = d.class_mask
+                class_trans[o:o + S, :C] = d.class_trans + o
+            class_mask[free_state, :] = True  # allow-all, unguided lanes
+            self._guided_host_tables = (
+                cache_token, token_class, class_mask, class_trans,
+            )
+        init_states = np.zeros((len(seqs),), np.int32)
+        lane_map = np.zeros((len(seqs),), np.int32)
+        for i, (s, d) in enumerate(zip(seqs, lane_dfas)):
+            if d is None:
+                init_states[i] = free_state
+                lane_map[i] = n_real - 1
+                continue
+            machine = getattr(s, "_guided_machine", None)
+            host_state = (
+                s._guided_state if machine is not None
+                else tuple(s.generated_token_ids)
+            )
+            idx = d.state_index.get(host_state)
+            if idx is None:
+                # a frozen / strayed state the DFA never enumerated
+                return None
+            init_states[i] = offsets[id(d)] + idx
+            lane_map[i] = distinct.index(d)
+        return (cache_token, init_states, lane_map, token_class,
+                class_mask, class_trans)
+
+    def _apply_guided_mask(self, seqs: list[Sequence],
+                           logits: torch.Tensor) -> torch.Tensor:
+        """-inf everything outside each guided lane's allowed set."""
+        if not any(self._is_guided(s) for s in seqs):
+            return logits
+        allowed = np.ones(tuple(logits.shape), bool)
+        for i, s in enumerate(seqs):
+            ok = self._guided_allowed(s)
+            if ok:
+                allowed[i] = False
+                allowed[i, list(ok)] = True
+        return torch.where(self.runner._dev(allowed), logits,
+                           torch.full_like(logits, float("-inf")))
+
+    # stackcheck: not-hot — the single-step HOST sampling seam: it reads
+    # the logits for penalty / bias / guided math by contract
     def _sample(self, seqs: list[Sequence], logits: torch.Tensor,
                 return_logits: bool = False):
         b = logits.shape[0]
@@ -1733,6 +2329,7 @@ class LLMEngine:
                 for t, v in (sq.sampling_params.logit_bias or {}).items():
                     if int(t) < vocab:
                         logits[i, int(t)] += float(v)
+        logits = self._apply_guided_mask(seqs, logits)
         out = self.runner.sample(logits, temps, top_ps, top_ks, min_ps, keys)
         sampled = _to_numpy(out)[: len(seqs)]
         if return_logits:
@@ -1740,6 +2337,36 @@ class LLMEngine:
             # entries are computed against
             return sampled, logits
         return sampled
+
+    @staticmethod
+    def _accumulate_prompt_lps(
+        seq: Sequence, chunk_start: int, tgts: list[int],
+        chosen: np.ndarray, tv: np.ndarray, ti: np.ndarray,
+    ) -> None:
+        """Collect one chunk's per-position prompt logprobs (already
+        fetched). Capped at the ORIGINAL prompt length: a recompute after
+        preemption folds generated tokens into the prompt, and those are
+        not prompt."""
+        n = seq.sampling_params.prompt_logprobs
+        entries = getattr(seq, "_prompt_lp_entries", None)
+        if entries is None:
+            entries = []
+            seq._prompt_lp_entries = entries  # type: ignore[attr-defined]
+        limit = seq.orig_prompt_len - 1
+        for j, t in enumerate(tgts):
+            pos = chunk_start + 1 + j  # the prompt position row j scores
+            if pos > limit:
+                break
+            if pos - 1 < len(entries):
+                continue  # a recompute replays earlier chunks
+            entries.append({
+                "token_id": int(t),
+                "logprob": float(chosen[j]),
+                "top_logprobs": [
+                    {"token_id": int(ti[j, m]), "logprob": float(tv[j, m])}
+                    for m in range(n)
+                ],
+            })
 
     @staticmethod
     def _host_logprob_entry(
@@ -1792,8 +2419,29 @@ class LLMEngine:
                       logprob_entry: dict | None = None) -> None:
         if seq.metrics.first_token_time is None:
             seq.metrics.first_token_time = time.time()
+            if self._tl_enabled:
+                self.timeline.event(
+                    seq.request_id, "first_token",
+                    {"ttft_s": round(seq.metrics.first_token_time
+                                     - seq.metrics.arrival_time, 6)},
+                )
         seq.append_token(int(token))
         self._generation_tokens_total += 1
+        machine = getattr(seq, "_guided_machine", None)
+        if machine is not None and int(token) != (
+            seq.eos_token_id if seq.eos_token_id is not None else -1
+        ):
+            ts = self._mask_cache().token_str(int(token))
+            if ts:
+                try:
+                    ns = machine.step_str(seq._guided_state, ts)
+                except ValueError:
+                    ns = frozenset()  # per-lane containment
+                    seq._guided_dead = True  # type: ignore[attr-defined]
+                if ns:
+                    seq._guided_state = ns  # type: ignore[attr-defined]
+                # an empty set: the token strayed off the machine (only
+                # on an unmasked path); the state stays frozen
         if seq.sampling_params.logprobs is not None:
             entries = getattr(seq, "_logprob_entries", None)
             if entries is None:
@@ -1837,15 +2485,26 @@ class LLMEngine:
             getattr(seq, "_pending_ids", []) + [int(token)]
         )  # type: ignore[attr-defined]
         seq.check_stop(new_text)
+        choices = getattr(seq, "_guided_choices", None)
+        if not seq.finished and choices is not None:
+            g = list(seq.generated_token_ids)
+            complete = any(list(ids) == g for ids in choices)
+            extendable = any(
+                len(ids) > len(g) and list(ids[: len(g)]) == g
+                for ids in choices
+            )
+            # finish when a choice completed and nothing longer extends
+            # it, or when no choice matches any more (the model took EOS
+            # at a complete-but-extendable prefix)
+            if (complete and not (
+                extendable and seq.eos_token_id is not None
+            )) or (not complete and not extendable):
+                seq.status = SequenceStatus.FINISHED_STOPPED
         # hard cap: the KV layout cannot hold more than max_model_len
         if (
             not seq.finished
             and seq.num_tokens >= self.scheduler.config.max_model_len
         ):
-            from production_stack_tpu_torch.engine.sequence import (
-                SequenceStatus,
-            )
-
             seq.status = SequenceStatus.FINISHED_LENGTH
 
     def _register_full_blocks(self, seq: Sequence) -> None:
@@ -1881,6 +2540,11 @@ class LLMEngine:
             seq._pending_lps = []  # type: ignore[attr-defined]
             if seq.finished:
                 lp_all = list(getattr(seq, "_logprob_entries", []))
+        plp = None
+        if seq.sampling_params.prompt_logprobs is not None and seq.finished:
+            # vLLM shape: one entry a prompt position, None first (no
+            # context scores position 0)
+            plp = [None] + list(getattr(seq, "_prompt_lp_entries", []))
         return RequestOutput(
             request_id=seq.request_id,
             prompt_token_ids=seq.prompt_token_ids[: seq.orig_prompt_len],
@@ -1894,6 +2558,7 @@ class LLMEngine:
             num_cached_tokens=seq.metrics.num_cached_prompt_tokens,
             logprobs=lp_all,
             new_logprobs=lp_new,
+            prompt_logprobs=plp,
         )
 
     # -- LoRA hot-load (adapters applied in the forwards; engine/lora.py)

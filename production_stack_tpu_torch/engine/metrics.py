@@ -15,7 +15,9 @@ it here.
 
 Snapshot families are rendered from ``LLMEngine.stats()`` at each
 scrape; request histograms are fed once per finished request by the
-server (``observe_request``, the JAX server's ``_observe_finish``).
+server (``observe_request``, the JAX server's ``_observe_finish``), and
+``tpu:ragged_lane_mix`` from the engine's drained lane-mix observations
+(``observe_ragged``).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ _LATENCY_BUCKETS = (
 _TPOT_BUCKETS = (0.002, 0.005, 0.01, 0.02, 0.04, 0.08, 0.16, 0.32, 0.64,
                  1.28)
 _DECODE_K_BUCKETS = (1, 2, 4, 8, 16, 32)
+_RAGGED_LANE_BUCKETS = (1, 2, 4, 8, 16)
 
 # (name, help, snapshot field)
 _GAUGES = (
@@ -214,6 +217,15 @@ class EngineMetrics:
              "Staged KV restore wall time (enqueue -> blocks landed in "
              "HBM; overlaps the request's queue wait)", self.kv_restore_s),
         )
+        # prefill lanes of each fused ragged round (one observation a
+        # mixed prefill+decode dispatch)
+        self.ragged_lane_mix = Histogram(_RAGGED_LANE_BUCKETS)
+        self._ragged_hists = (
+            ("tpu:ragged_lane_mix",
+             "Prefill-chunk lanes fused into a ragged round (each "
+             "observation is one mixed prefill+decode dispatch)",
+             self.ragged_lane_mix),
+        )
 
     def observe_kv(self, export_seconds: list[float],
                    restore_seconds: list[float]) -> None:
@@ -223,6 +235,13 @@ class EngineMetrics:
             self.kv_export_s.observe(max(0.0, s))
         for s in restore_seconds:
             self.kv_restore_s.observe(max(0.0, s))
+
+    def observe_ragged(self, lane_counts: list[int]) -> None:
+        """Feed drained ragged lane-mix observations (LLMEngine.
+        drain_ragged_observations: prefill lanes per fused round) into
+        the tpu:ragged_lane_mix histogram."""
+        for n in lane_counts:
+            self.ragged_lane_mix.observe(n)
 
     def observe_request(
         self,
@@ -297,7 +316,8 @@ class EngineMetrics:
                   "round (adaptive K buckets; the cap with "
                   "--no-adaptive-decode-k)", f"# TYPE {name} histogram"]
         lines += k_hist.lines(name, lab)
-        for name, help_, hist in self._request_hists + self._kv_hists:
+        for name, help_, hist in (self._request_hists + self._kv_hists
+                                  + self._ragged_hists):
             lines += [f"# HELP {name} {help_}", f"# TYPE {name} histogram"]
             lines += hist.lines(name, lab)
         tiers = sorted((s.kv_tier_counters or {}).items())

@@ -1,10 +1,12 @@
 """Model runner: owns params + the paged KV cache on the device and runs
 the prefill / packed-prefill / decode forwards.
 
-Counterpart of ``production_stack_tpu/engine/model_runner.py`` without
-its guided and prompt-logprob paths: single-sequence ``prefill``, packed
-``prefill_batch``, single-step ``decode``, the fused K-step
-``decode_multi``, the unified lane-typed round ``ragged_dispatch``, the
+Counterpart of ``production_stack_tpu/engine/model_runner.py``:
+single-sequence ``prefill`` (with ``prompt_lp_targets``, every row's
+target logprob and top-LOGPROB_CAP alternatives computed on the device),
+packed ``prefill_batch``, single-step ``decode``, the fused K-step
+``decode_multi`` and the unified lane-typed round ``ragged_dispatch``
+(both evaluate guided lanes' TokenDFA tables inside the loop), the
 staging of each (``stage_prefill``, ``stage_prefill_batch``,
 ``stage_decode_multi``, ``stage_ragged``), and the KV export and import
 of whole blocks in the wire layout the tiers, peers and cache server
@@ -80,6 +82,7 @@ from production_stack_tpu_torch.models import llama, weights
 from production_stack_tpu_torch.models.config import ModelConfig
 from production_stack_tpu_torch.ops import paged_attention
 from production_stack_tpu_torch.ops.attention import block_table_slots
+from production_stack_tpu_torch.ops.layers import matmul_f32
 from production_stack_tpu_torch.utils import init_logger
 
 logger = init_logger(__name__)
@@ -96,6 +99,18 @@ RAGGED_TQ = paged_attention.RAGGED_TQ
 RAGGED_LANE_IDLE = 0
 RAGGED_LANE_PREFILL = 1
 RAGGED_LANE_DECODE = 2
+
+# prompt-logprob rows projected to the vocab at once: a 512-row chunk's
+# (512, V) f32 logits at V = 128256 would be 262 MB
+PROMPT_LP_ROW_CHUNK = 128
+
+# the fused decode loop's carry, all on the device: (b,) int32 tokens,
+# positions and context lengths, (b, V) f32 penalty counts or None, (b,)
+# bool done, (b,) int32 valid counts, (b,) int32 guided DFA states
+DecodeCarry = collections.namedtuple(
+    "DecodeCarry",
+    ["tokens", "positions", "ctx", "counts", "done", "valid", "g_state"],
+)
 
 
 def next_pow2(n: int) -> int:
@@ -269,6 +284,12 @@ class ModelRunner:
         self.dispatch_counts = {"prefill": 0, "prefill_batch": 0,
                                 "decode": 0, "decode_multi": 0,
                                 "ragged": 0, "decode_iterations": 0}
+        # the DFA tables of the live constraints on the device, keyed by
+        # the engine's cache token; how often they were uploaded, and the
+        # fused rounds that ran guided lanes on them
+        self._guided_dev = None
+        self.guided_table_uploads = 0
+        self.guided_rounds = 0
         # multi-LoRA: stacked adapter buffers applied in the forwards
         # (engine/lora.py); None when --enable-lora is off, so no
         # dispatch carries adapter math
@@ -455,12 +476,26 @@ class ModelRunner:
     def _phase_add(self, name: str, dt: float) -> None:
         self.prefill_phase_s[name] += dt
 
+    def phase_snapshot(self) -> dict[str, float]:
+        return dict(self.prefill_phase_s)
+
+    def phase_delta(self, snapshot: dict[str, float]) -> dict[str, float]:
+        """Per-phase seconds spent since `snapshot` (the timeline's
+        group_phase_s attribution)."""
+        return {
+            k: round(v - snapshot.get(k, 0.0), 6)
+            for k, v in self.prefill_phase_s.items()
+            if v - snapshot.get(k, 0.0) > 0.0
+        }
+
     # -- pipelined prefill: one packed buffer a dispatch ---------------------
-    def _prefill_pack_layout(self, t_pad: int, c_pad: int):
+    def _prefill_pack_layout(self, t_pad: int, c_pad: int,
+                             want_plp: bool = False):
         """Layout of the ONE int32 buffer a single-sequence prefill ships
         under the pipeline; the sampler noise (1, cap) takes the place of
         the JAX keys. The chunk's start position stays a host argument
-        of the dispatch (the prefill kernel takes it as a scalar)."""
+        of the dispatch (the prefill kernel takes it as a scalar).
+        `want_plp` adds each row's prompt-logprob target (-1: none)."""
         return self._layout_of([
             ("tokens", (t_pad,)),
             ("positions", (t_pad,)),
@@ -472,7 +507,7 @@ class ModelRunner:
             ("top_ks", (1,)),
             ("min_ps", (1,)),
             ("noise", (1, self._top_cap)),
-        ])
+        ] + ([("targets", (t_pad,))] if want_plp else []))
 
     def _packed_prefill_pack_layout(self, s_pad: int, t_pad: int,
                                     c_pad: int, lora_rows: bool = False):
@@ -529,13 +564,15 @@ class ModelRunner:
     def _fill_prefill_pack(
         self, token_ids: list[int], start_pos: int,
         block_table: list[int], total_len: int, sampling=None,
+        prompt_lp_targets: list[int] | None = None,
     ) -> tuple[int, int, np.ndarray]:
         """Host build of the single-sequence prefill pack; returns (t_pad,
         c_pad, packed)."""
         t_pad, c_pad, tokens, positions, write_slots, table = (
             self._prefill_host_prep(token_ids, start_pos, block_table,
                                     total_len))
-        layout, size = self._prefill_pack_layout(t_pad, c_pad)
+        want_plp = prompt_lp_targets is not None
+        layout, size = self._prefill_pack_layout(t_pad, c_pad, want_plp)
         packed = np.zeros((size,), np.int32)
         put = functools.partial(self._pack_put, packed, layout)
         put("tokens", tokens)
@@ -544,7 +581,41 @@ class ModelRunner:
         put("table", table)
         put("last_row", np.full((1,), len(token_ids) - 1, np.int32))
         self._put_sampling(put, 1, sampling)
+        if want_plp:
+            put("targets", self._plp_targets(t_pad, prompt_lp_targets))
         return t_pad, c_pad, packed
+
+    @staticmethod
+    def _plp_targets(t_pad: int, targets: list[int]) -> np.ndarray:
+        tg = np.full((t_pad,), -1, np.int32)
+        tg[:len(targets)] = targets
+        return tg
+
+    def _prompt_lp_scores(self, hidden: torch.Tensor, last_row,
+                          targets: torch.Tensor):
+        """Prompt logprobs of a chunk on the device, from its final-norm
+        hidden rows (t_pad, hidden): row i scores targets[i] (-1: none,
+        chosen 0). The rows reach the vocab PROMPT_LP_ROW_CHUNK at a
+        time, so only (t_pad,) + 2 x (t_pad, LOGPROB_CAP) values and the
+        last row's (V,) logits come out. Returns (last_logits (V,),
+        chosen (t_pad,) f32, top_vals (t_pad, CAP) f32, top_ids (t_pad,
+        CAP) int32)."""
+        mc = self.model_config
+        lm_head = (self.params["embed"].t() if mc.tie_word_embeddings
+                   else self.params["lm_head"])
+        h = hidden.to(self.dtype)
+        chosen, vals, ids = [], [], []
+        for r0 in range(0, h.shape[0], PROMPT_LP_ROW_CHUNK):
+            rows = slice(r0, r0 + PROMPT_LP_ROW_CHUNK)
+            tg = targets[rows]
+            c, v, i = token_logprobs(matmul_f32(h[rows], lm_head),
+                                     tg.clamp_min(0))
+            chosen.append(torch.where(tg >= 0, c, torch.zeros_like(c)))
+            vals.append(v)
+            ids.append(i)
+        last_logits = matmul_f32(h[last_row].reshape(1, -1), lm_head)[0]
+        return (last_logits, torch.cat(chosen), torch.cat(vals),
+                torch.cat(ids))
 
     # stackcheck: hot-path — host build of a packed prefill group's one
     # h2d buffer; one pass over the lanes, no device work
@@ -577,12 +648,15 @@ class ModelRunner:
                 lora_slots, len(chunks), s_pad, t_pad))
         return s_pad, t_pad, c_pad, packed
 
-    def _single_prefill_step(self, t_pad: int, c_pad: int, lora=None):
+    def _single_prefill_step(self, t_pad: int, c_pad: int, lora=None,
+                             want_plp: bool = False):
         """`step(packed, start_pos)` -> (token, logits (vocab,)): the
         single-sequence prefill forward on its packed buffer (`lora`: a
-        _lora_key, uniform or None for one sequence)."""
+        _lora_key, uniform or None for one sequence). `want_plp` scores
+        every row against the pack's targets too: (token, logits, chosen
+        (t_pad,), top_vals, top_ids (t_pad, LOGPROB_CAP))."""
         mc = self.model_config
-        layout, _ = self._prefill_pack_layout(t_pad, c_pad)
+        layout, _ = self._prefill_pack_layout(t_pad, c_pad, want_plp)
 
         def step(packed, start_pos):
             seg = functools.partial(self._pack_seg, packed, layout)
@@ -591,18 +665,27 @@ class ModelRunner:
             def attn(q, l, kc, vc):
                 return self._attn("prefill", q, l, kc, vc, table, start_pos)
 
-            logits, _, _ = llama.forward(
+            out, _, _ = llama.forward(
                 mc, self.params, seg("tokens"), seg("positions"),
                 self.k_cache, self.v_cache, seg("write_slots"), attn,
-                logits_rows=seg("last_row"), **self._lora_kw(lora),
+                logits_rows=(torch.arange(t_pad, device=packed.device)
+                             if want_plp else seg("last_row")),
+                return_hidden=want_plp, **self._lora_kw(lora),
             )
+            scores = ()
+            if want_plp:
+                logits, *scores = self._prompt_lp_scores(
+                    out, seg("last_row")[0], seg("targets"))
+                logits = logits[None]
+            else:
+                logits = out
             token = sample_tokens(
                 logits, seg("temps").view(torch.float32),
                 seg("top_ps").view(torch.float32), seg("top_ks"),
                 seg("noise").view(torch.float32),
                 min_p=seg("min_ps").view(torch.float32),
             )[0]
-            return token, logits[0]
+            return (token, logits[0], *scores)
 
         return step
 
@@ -738,7 +821,8 @@ class ModelRunner:
         sampling=None,
         staged: StagedBuffer | None = None,
         lora_slot: int = 0,
-    ) -> tuple[torch.Tensor, torch.Tensor]:
+        prompt_lp_targets: list[int] | None = None,
+    ) -> tuple:
         """Run one prefill chunk; returns (token, logits) on the device:
         the first generated token sampled from the chunk's last actual
         row, and that row's f32 (vocab,) logits. K/V for the chunk is
@@ -749,33 +833,39 @@ class ModelRunner:
         its content equals what these arguments build).
 
         `lora_slot`: the sequence's adapter slot (0 = base model); the
-        whole chunk takes the uniform path."""
+        whole chunk takes the uniform path.
+
+        `prompt_lp_targets` (vLLM prompt_logprobs): each row's NEXT
+        prompt token id; the return then adds (chosen (t_pad,) f32,
+        top_vals (t_pad, LOGPROB_CAP) f32, top_ids (t_pad, LOGPROB_CAP)
+        int32), row i scoring targets[i], all computed on the device."""
         lora = self._lora_key([lora_slot])
+        want_plp = prompt_lp_targets is not None
         if self.prefill_pipeline:
             t_pad = self._prefill_bucket(len(token_ids))
             c_pad = self._ctx_bucket(total_len)
             packed_dev = None
-            if staged is not None and staged.key == ("single", t_pad,
-                                                     c_pad, lora):
+            if (staged is not None and not want_plp
+                    and staged.key == ("single", t_pad, c_pad, lora)):
                 packed_dev = self._take(staged)
             if packed_dev is None:
                 t0 = time.perf_counter()
                 t_pad, c_pad, packed = self._fill_prefill_pack(
                     token_ids, start_pos, block_table, total_len,
-                    sampling=sampling,
+                    sampling=sampling, prompt_lp_targets=prompt_lp_targets,
                 )
                 t1 = time.perf_counter()
                 self._phase_add("prep", t1 - t0)
                 packed_dev = self._upload(packed)
                 self._phase_add("h2d", time.perf_counter() - t1)
             t2 = time.perf_counter()
-            out = self._single_prefill_step(t_pad, c_pad, lora)(
+            out = self._single_prefill_step(t_pad, c_pad, lora, want_plp)(
                 packed_dev, start_pos)
             self.dispatch_counts["prefill"] += 1
             self._phase_add("dispatch", time.perf_counter() - t2)
             return out
         t0 = time.perf_counter()
-        _, _, tokens, positions_dev, write_slots, table = (
+        t_pad, _, tokens, positions_dev, write_slots, table = (
             self._prefill_host_prep(token_ids, start_pos, block_table,
                                     total_len))
         temps, top_ps, top_ks, min_ps, keys = self._sampling_args(
@@ -795,17 +885,27 @@ class ModelRunner:
         def attn(q, l, kc, vc):
             return self._attn("prefill", q, l, kc, vc, table_d, start_pos)
 
-        logits, _, _ = llama.forward(
+        last_row = len(token_ids) - 1
+        out, _, _ = llama.forward(
             self.model_config, self.params, tokens_d, pos_d, self.k_cache,
             self.v_cache, slots_d, attn,
-            logits_rows=torch.tensor([len(token_ids) - 1],
-                                     device=self.device),
-            **self._lora_kw(lora),
+            logits_rows=(torch.arange(t_pad, device=self.device)
+                         if want_plp else
+                         torch.tensor([last_row], device=self.device)),
+            return_hidden=want_plp, **self._lora_kw(lora),
         )
+        scores = ()
+        if want_plp:
+            logits, *scores = self._prompt_lp_scores(
+                out, last_row,
+                self._dev(self._plp_targets(t_pad, prompt_lp_targets)))
+            logits = logits[None]
+        else:
+            logits = out
         token = self.sample(logits, temps, top_ps, top_ks, min_ps, keys)[0]
         self.dispatch_counts["prefill"] += 1
         self._phase_add("dispatch", time.perf_counter() - t2)
-        return token, logits[0]
+        return (token, logits[0], *scores)
 
     def _packed_host_prep(
         self,
@@ -1107,7 +1207,7 @@ class ModelRunner:
                             stop_cap: int | None = None,
                             use_penalties: bool = False,
                             bias_cap: int = 0, chained: bool = False,
-                            lora_lanes: bool = False):
+                            lora_lanes: bool = False, guided: bool = False):
         """Layout of the ONE int32 buffer a fused decode round ships.
         `noise` is the round's (k, b, cap) sampler noise, drawn on the
         host from each lane's (seed, step + i) key. `stop_cap` None = the
@@ -1117,7 +1217,9 @@ class ModelRunner:
         padded; logit bias its (b, bias_cap) ids and values. A `chained`
         round has no tokens field: its tokens are the previous round's
         last row, on the device. `lora_lanes` adds each lane's adapter
-        slot (a per-token dispatch)."""
+        slot (a per-token dispatch); `guided` each lane's initial DFA
+        state and machine row (the tables themselves stay resident on
+        the device, _decode_guided_tables)."""
         n_pages = c_pad // self.block_size
         fields = [] if chained else [("tokens", (b,))]
         fields += [
@@ -1149,6 +1251,8 @@ class ModelRunner:
             fields += [("lb_ids", (b, bias_cap)), ("lb_vals", (b, bias_cap))]
         if lora_lanes:
             fields.append(("lora_slots", (b,)))
+        if guided:
+            fields += [("g_state", (b,)), ("g_lane", (b,))]
         return self._layout_of(fields)
 
     @staticmethod
@@ -1164,21 +1268,23 @@ class ModelRunner:
         context_lens, temps, top_ps, top_ks, keys, min_ps=None,
         stop: tuple | None = None, penalties: tuple | None = None,
         logit_bias: tuple | None = None, chained: bool = False,
-        lora_slots=None, lora_lanes: bool = False,
+        lora_slots=None, lora_lanes: bool = False, guided_lanes=None,
     ) -> np.ndarray:
         """Build the packed buffer of a fused decode round (layout:
         _decode_pack_layout) for len(positions) real lanes, padded to
         max_num_seqs. Padded lanes ship token 0, context 1, the zero
         table (trash block 0), EOS -1 and budget 0, so under device stops
-        they are done from iteration 0. Shared by the dispatch
-        (decode_multi, ragged_dispatch) and the staging (stage_*)."""
+        they are done from iteration 0. `guided_lanes` = (init_states,
+        lane_map) of a round with guided lanes (padded lanes: state 0 of
+        machine row 0, never read). Shared by the dispatch (decode_multi,
+        ragged_dispatch) and the staging (stage_*)."""
         b = self.config.max_num_seqs
         n = len(positions)
         stop_cap = self._stop_cap(stop)
         bias_cap = 0 if logit_bias is None else int(logit_bias[0].shape[1])
         layout, total = self._decode_pack_layout(
             b, c_pad, k_steps, stop_cap, penalties is not None, bias_cap,
-            chained, lora_lanes,
+            chained, lora_lanes, guided_lanes is not None,
         )
         packed = np.zeros((total,), np.int32)
         put = functools.partial(self._pack_put, packed, layout)
@@ -1232,7 +1338,30 @@ class ModelRunner:
         if lora_lanes:
             # padded lanes: the base model (their rows are discarded)
             put("lora_slots", lanes(lora_slots, 0, np.int32))
+        if guided_lanes is not None:
+            init_states, lane_map = guided_lanes
+            put("g_state", lanes(init_states, 0, np.int32))
+            put("g_lane", lanes(lane_map, 0, np.int32))
         return packed
+
+    # stackcheck: hot-path — a dict probe a round; the upload happens only
+    # when the set of live constraints changes
+    def _decode_guided_tables(self, guided: tuple | None):
+        """The DFA tables of a round's `guided` tuple (the engine's
+        _device_guided_tables) on the device: token_class (M, V) int32,
+        class_mask (S, C) bool, class_trans (S, C) int64. They stay
+        resident and are uploaded again only when the cache token (the
+        set of live constraints) changes."""
+        if guided is None:
+            return None
+        g_token, _, _, token_class, class_mask, class_trans = guided
+        if self._guided_dev is None or self._guided_dev[0] != g_token:
+            self._guided_dev = (
+                g_token, self._dev(token_class), self._dev(class_mask),
+                self._dev(class_trans.astype(np.int64)),
+            )
+            self.guided_table_uploads += 1
+        return self._guided_dev[1:]
 
     def _decode_round_core(self, b: int, c_pad: int, k_steps: int,
                            use_penalties: bool = False,
@@ -1240,7 +1369,7 @@ class ModelRunner:
                            bias_cap: int = 0,
                            stop_cap: int | None = None,
                            chained: bool = False, lora=None,
-                           lora_lanes: bool = False):
+                           lora_lanes: bool = False, guided: bool = False):
         """The fused K-step decode round as four closures shared by
         decode_multi and the unified ragged round (whose step-0 decode
         forward is welded to the prefill rows): `unpack` (packed buffer ->
@@ -1251,16 +1380,23 @@ class ModelRunner:
         iteration 0's post half to externally computed logits and loops
         from iteration 1).
 
-        The carry is (tokens, positions, ctx, counts, done, valid), all on
-        the device. Under device stops (`stop_cap` not None) a lane is
-        done once its append count reaches its budget or it samples its
-        EOS / a stop id at or past its min_tokens gate; a done lane
-        freezes: its sampled slot is pinned to STOP_PAD_TOKEN, its KV
-        write goes to the trash slot 0, its position and context stop
-        advancing, its penalty counts stop updating. The loop then reads
-        one flag per iteration, `done.all()`, and exits when it is set;
-        the round returns each lane's valid count last. Tokens below a
-        lane's valid count equal the fixed-trip loop's.
+        The carry is a DecodeCarry, all on the device. Under device stops
+        (`stop_cap` not None) a lane is done once its append count
+        reaches its budget or it samples its EOS / a stop id at or past
+        its min_tokens gate; a done lane freezes: its sampled slot is
+        pinned to STOP_PAD_TOKEN, its KV write goes to the trash slot 0,
+        its position and context stop advancing, its penalty counts and
+        DFA state stop updating. The loop then reads one flag per
+        iteration, `done.all()`, and exits when it is set; the round
+        returns each lane's valid count last. Tokens below a lane's
+        valid count equal the fixed-trip loop's.
+
+        `guided`: the pack holds each lane's DFA state and machine row,
+        and `unpack` takes the device tables (token_class, class_mask,
+        class_trans). Each iteration masks the logits to the classes its
+        state allows (after penalties and bias, before sampling: the
+        host path's order) and steps the state by the sampled token's
+        class; unguided lanes sit on an allow-everything state.
 
         `lora` is the decode lanes' _lora_key; `lora_lanes` says the pack
         holds their slot vector (a per-token round). The slots are
@@ -1271,13 +1407,14 @@ class ModelRunner:
         use_stop = stop_cap is not None
         layout, _ = self._decode_pack_layout(
             b, c_pad, k_steps, stop_cap, use_penalties, bias_cap, chained,
-            lora_lanes,
+            lora_lanes, guided,
         )
         lane = torch.arange(b, device=self.device)
 
-        def unpack(packed, chained_tokens=None):
+        def unpack(packed, chained_tokens=None, guided_tables=None):
             """Packed buffer -> (consts, carry0); a chained round's
-            tokens are `chained_tokens`, (b,) int32 on the device."""
+            tokens are `chained_tokens`, (b,) int32 on the device;
+            `guided_tables` the device DFA tables of a guided round."""
             seg = functools.partial(self._pack_seg, packed, layout)
 
             def f32(name):
@@ -1322,9 +1459,19 @@ class ModelRunner:
                                     device=packed.device)
             valid0 = torch.zeros((b,), dtype=torch.int32,
                                  device=packed.device)
+            g_state0 = None
+            if guided:
+                token_class, class_mask, class_trans = guided_tables
+                # each lane's (V,) token -> class row, gathered once a
+                # dispatch (int64: the loop's gathers index with it)
+                consts.update(
+                    lane_tc=token_class[seg("g_lane").long()].long(),
+                    g_class_mask=class_mask, g_class_trans=class_trans,
+                )
+                g_state0 = seg("g_state").long()
             tokens = chained_tokens if chained else seg("tokens")
-            carry0 = (tokens, seg("positions"), seg("ctx"), counts0, done0,
-                      valid0)
+            carry0 = DecodeCarry(tokens, seg("positions"), seg("ctx"),
+                                 counts0, done0, valid0, g_state0)
             return consts, carry0
 
         def fwd_args(carry, consts):
@@ -1332,7 +1479,8 @@ class ModelRunner:
             computed on the device: each lane's slot from its block table
             (idle lanes carry the zero table, so they write the trash
             block 0, and K <= block_size keeps them inside it)."""
-            tokens, positions, ctx, _, done, _ = carry
+            tokens, positions, ctx, done = (carry.tokens, carry.positions,
+                                            carry.ctx, carry.done)
             page = torch.clamp(positions // bs, max=n_pages - 1).long()
             write_slots = (consts["page_tables"][lane, page] * bs
                            + positions % bs)
@@ -1353,9 +1501,11 @@ class ModelRunner:
             return logits
 
         def post(logits, carry, i, consts):
-            """Sample iteration i from its logits and advance the stop
-            and penalty state; returns (carry', ys_i)."""
-            tokens, positions, ctx, counts, done, valid = carry
+            """Sample iteration i from its logits and advance the stop,
+            penalty and DFA state; returns (carry', ys_i)."""
+            positions, ctx, counts, done, valid, g_state = (
+                carry.positions, carry.ctx, carry.counts, carry.done,
+                carry.valid, carry.g_state)
             if use_penalties:
                 logits = apply_penalties(
                     logits, counts > 0, counts, consts["presence"],
@@ -1366,6 +1516,13 @@ class ModelRunner:
                 # order)
                 logits = logits.scatter_add(1, consts["lb_ids"],
                                             consts["lb_vals"])
+            if guided:
+                # the classes each lane's state allows, spread to its
+                # tokens: (b, C) -> (b, V)
+                allowed = torch.gather(consts["g_class_mask"][g_state], 1,
+                                       consts["lane_tc"])
+                logits = torch.where(allowed, logits,
+                                     torch.full_like(logits, float("-inf")))
             nxt = sample_tokens(
                 logits, consts["temps"], consts["top_ps"],
                 consts["top_ks"], consts["noise"][i],
@@ -1375,6 +1532,14 @@ class ModelRunner:
             if use_stop:
                 nxt = torch.where(done, torch.full_like(nxt, STOP_PAD_TOKEN),
                                   nxt)
+            if guided:
+                cls = torch.gather(consts["lane_tc"], 1,
+                                   nxt.long()[:, None])[:, 0]
+                new_g = consts["g_class_trans"][g_state, cls]
+                # a frozen lane's state stops stepping (the pad token is
+                # not part of its stream)
+                g_state = torch.where(done, g_state, new_g) if use_stop \
+                    else new_g
             if use_penalties:
                 inc = live.float() if use_stop else torch.ones_like(
                     counts[:, 0])
@@ -1392,8 +1557,8 @@ class ModelRunner:
                 adv = (~done).to(torch.int32)
             ys = (nxt, *token_logprobs(logits, nxt)) if want_logprobs else (
                 nxt,)
-            return (nxt, positions + adv, ctx + adv, counts, done,
-                    valid), ys
+            return DecodeCarry(nxt, positions + adv, ctx + adv, counts,
+                               done, valid, g_state), ys
 
         def run(consts, carry0, first_logits=None):
             dev = self.device
@@ -1418,15 +1583,17 @@ class ModelRunner:
             while i < k_steps:
                 # the loop's one host read: a 1-byte flag (real lanes
                 # enter with budget >= 1, so iteration 0 always runs)
-                if use_stop and i > 0 and bool(carry[4].all()):
+                if use_stop and i > 0 and bool(carry.done.all()):
                     break
                 carry, ys = post(fwd(carry, consts), carry, i, consts)
                 for buf, y in zip(bufs, ys):
                     buf[i] = y
                 i += 1
             self.dispatch_counts["decode_iterations"] += i
+            if guided:
+                self.guided_rounds += 1
             if use_stop:
-                bufs.append(carry[5])
+                bufs.append(carry.valid)
             return bufs[0] if len(bufs) == 1 else tuple(bufs)
 
         return {"unpack": unpack, "fwd_args": fwd_args, "run": run}
@@ -1480,6 +1647,7 @@ class ModelRunner:
                                     #  stop_ids (b_actual, cap) i32 | None)
         staged: StagedBuffer | None = None,  # from stage_decode_multi
         lora_slots: list[int] | None = None,  # per lane, None = all base
+        guided: tuple | None = None,  # the engine's _device_guided_tables
     ):
         """`steps` fused decode+sample iterations, one packed upload;
         returns (steps, b) int32 sampled tokens on the device, or with
@@ -1498,7 +1666,14 @@ class ModelRunner:
         of a host list: the round is then chained on the previous
         round's sampled tokens, and a `staged` buffer (stage_decode_multi)
         is used when its context bucket and total length match this
-        dispatch's layout; otherwise the buffer is built here."""
+        dispatch's layout; otherwise the buffer is built here.
+
+        `guided`: (cache_token, init_states (b_actual,), lane_map
+        (b_actual,), token_class (M, V), class_mask (S, C), class_trans
+        (S, C)): TokenDFA tables evaluated inside the loop, so guided
+        lanes keep the fused round; the three tables are uploaded once
+        per cache_token (_decode_guided_tables). A guided round is never
+        staged."""
         if steps > self.block_size:
             raise ValueError(
                 f"num_scheduler_steps={steps} > block_size="
@@ -1512,8 +1687,10 @@ class ModelRunner:
         stop_cap = self._stop_cap(stop)
         lora = self._lora_key(lora_slots)
         lora_lanes = isinstance(lora, tuple)
+        guided_lanes = None if guided is None else (guided[1], guided[2])
         packed_dev = None
-        if staged is not None and chained and staged.key == (c_pad, lora):
+        if (staged is not None and chained and guided is None
+                and staged.key == (c_pad, lora)):
             # the stop fields vary with the batch's stop-id cap: a total
             # length that differs is a stale stage, rebuilt here
             _, want_total = self._decode_pack_layout(
@@ -1528,16 +1705,17 @@ class ModelRunner:
                 context_lens, temps, top_ps, top_ks, keys, min_ps=min_ps,
                 stop=stop, penalties=penalties, logit_bias=logit_bias,
                 chained=chained, lora_slots=lora_slots,
-                lora_lanes=lora_lanes,
+                lora_lanes=lora_lanes, guided_lanes=guided_lanes,
             ))
         core = self._decode_round_core(
             b, c_pad, steps, use_penalties=penalties is not None,
             want_logprobs=want_logprobs, bias_cap=bias_cap,
             stop_cap=stop_cap, chained=chained, lora=lora,
-            lora_lanes=lora_lanes,
+            lora_lanes=lora_lanes, guided=guided is not None,
         )
         consts, carry0 = core["unpack"](
-            packed_dev, chained_tokens=token_ids if chained else None)
+            packed_dev, chained_tokens=token_ids if chained else None,
+            guided_tables=self._decode_guided_tables(guided))
         ys = core["run"](consts, carry0)
         self.dispatch_counts["decode_multi"] += 1
         return ys
@@ -1736,6 +1914,7 @@ class ModelRunner:
         self, r_pad: int, pc_pad: int, b: int, c_pad: int, k_steps: int,
         stop_cap: int | None = None, use_penalties: bool = False,
         bias_cap: int = 0, chained: bool = False, lora_rows: bool = False,
+        guided: bool = False,
     ) -> tuple[int, int, int]:
         """(meta, prefill, decode) segment lengths of a ragged round's
         packed buffer: the lane-type header (lane cap + b lanes), the
@@ -1746,7 +1925,7 @@ class ModelRunner:
         _, pf = self._rows_prefill_pack_layout(r_pad, pc_pad, lora_rows)
         _, dec = self._decode_pack_layout(b, c_pad, k_steps, stop_cap,
                                           use_penalties, bias_cap, chained,
-                                          lora_rows)
+                                          lora_rows, guided)
         return meta, pf, dec
 
     # stackcheck: hot-path — host build of the ragged round's one h2d
@@ -1758,10 +1937,13 @@ class ModelRunner:
         context_lens, steps, temps, top_ps, top_ks, keys, min_ps=None,
         stop=None, penalties=None, logit_bias=None, chained=False,
         pf_lora_slots=None, lora_slots=None, lora_rows=False,
+        guided_lanes=None,
     ) -> tuple[int, int, np.ndarray]:
         """Lane-type header + ragged-rows prefill pack + decode pack, one
         int32 buffer (dispatch and staging). Returns (r_pad, pc_pad,
-        packed)."""
+        packed). The decode pack carries the guided lanes' initial DFA
+        states: the round's step 0 samples from the mixed forward's
+        logits, so the states ride this buffer."""
         b = self.config.max_num_seqs
         s_cap = self._rows_lane_cap()
         r_pad, pc_pad, pf_packed = self._fill_rows_prefill_pack(
@@ -1774,6 +1956,7 @@ class ModelRunner:
             temps, top_ps, top_ks, keys, min_ps=min_ps, stop=stop,
             penalties=penalties, logit_bias=logit_bias, chained=chained,
             lora_slots=lora_slots, lora_lanes=lora_rows,
+            guided_lanes=guided_lanes,
         )
         types = np.full((s_cap + b,), RAGGED_LANE_IDLE, np.int32)
         types[:len(pf_chunks)] = RAGGED_LANE_PREFILL
@@ -1823,8 +2006,10 @@ class ModelRunner:
                            want_logprobs: bool = False,
                            bias_cap: int = 0,
                            stop_cap: int | None = None,
-                           chained: bool = False, lora=None):
-        """The unified round as `step(packed, chained_tokens=None)` ->
+                           chained: bool = False, lora=None,
+                           guided: bool = False):
+        """The unified round as `step(packed, chained_tokens=None,
+        guided_tables=None)` ->
         (pf_sampled (s_cap,)
         int32, RAGGED_IDLE_TOKEN on non-prefill lanes; pf_logits (s_cap,
         vocab); decode ys as decode_multi returns them). The prefill
@@ -1846,19 +2031,20 @@ class ModelRunner:
             want_logprobs=want_logprobs, bias_cap=bias_cap,
             stop_cap=stop_cap, chained=chained,
             lora=self._lora_key(lora[1]) if per_tok else lora,
-            lora_lanes=per_tok,
+            lora_lanes=per_tok, guided=guided,
         )
         meta_n, pf_n, _ = self._ragged_rows_pack_sizes(
             r_pad, pc_pad, b, c_pad, k_steps, stop_cap, use_penalties,
-            bias_cap, chained, per_tok,
+            bias_cap, chained, per_tok, guided,
         )
         n_pages = max(pc_pad, c_pad) // self.block_size
 
-        def step(packed, chained_tokens=None):
+        def step(packed, chained_tokens=None, guided_tables=None):
             lane_types = packed[:s_cap]
             pf = pf_step.unpack(packed[meta_n:meta_n + pf_n])
             consts, carry0 = core["unpack"](packed[meta_n + pf_n:],
-                                            chained_tokens=chained_tokens)
+                                            chained_tokens=chained_tokens,
+                                            guided_tables=guided_tables)
             # decode write slots / ctx from the shared core, so frozen-
             # lane trash redirection matches the loop's
             d_tokens, d_positions, d_ws, d_ctx = core["fwd_args"](
@@ -1959,6 +2145,7 @@ class ModelRunner:
         staged: StagedBuffer | None = None,
         pf_lora_slots: list[int] | None = None,
         lora_slots: list[int] | None = None,
+        guided: tuple | None = None,
     ) -> tuple:
         """One lane-typed round: prefill chunk lanes + fused decode lanes.
         Returns (pf_sampled (s_cap,) int32 on the device, RAGGED_IDLE_TOKEN
@@ -1969,7 +2156,9 @@ class ModelRunner:
         its bucket key AND total length match this dispatch (a lane-mix
         or stop-cap change since the stage rebuilds here: a counted miss
         for the engine, never an error). `pf_lora_slots` / `lora_slots`:
-        the prefill and decode lanes' adapter slots (None = all base)."""
+        the prefill and decode lanes' adapter slots (None = all base).
+        `guided`: the decode lanes' DFA tables, as decode_multi takes
+        them (a guided round is never staged)."""
         if steps > self.block_size:
             raise ValueError(
                 f"num_scheduler_steps={steps} > block_size="
@@ -1989,8 +2178,9 @@ class ModelRunner:
         r_pad, pc_pad = self._rows_dims(pf_chunks, pf_total_lens)
         lora = self._lora_key(pf_lora_slots, lora_slots)
         per_tok = isinstance(lora, tuple)
+        guided_lanes = None if guided is None else (guided[1], guided[2])
         packed_dev = None
-        if (staged is not None and chained
+        if (staged is not None and chained and guided is None
                 and staged.key == ("rows", r_pad, pc_pad, c_pad, lora)):
             want_total = sum(self._ragged_rows_pack_sizes(
                 r_pad, pc_pad, b, c_pad, steps, stop_cap,
@@ -2007,7 +2197,7 @@ class ModelRunner:
                 keys, min_ps=min_ps, stop=stop, penalties=penalties,
                 logit_bias=logit_bias, chained=chained,
                 pf_lora_slots=pf_lora_slots, lora_slots=lora_slots,
-                lora_rows=per_tok,
+                lora_rows=per_tok, guided_lanes=guided_lanes,
             )
             t1 = time.perf_counter()
             self._phase_add("prep", t1 - t0)
@@ -2019,9 +2209,11 @@ class ModelRunner:
             use_penalties=penalties is not None,
             want_logprobs=want_logprobs, bias_cap=bias_cap,
             stop_cap=stop_cap, chained=chained, lora=lora,
+            guided=guided is not None,
         )
         out = step(packed_dev,
-                   chained_tokens=token_ids if chained else None)
+                   chained_tokens=token_ids if chained else None,
+                   guided_tables=self._decode_guided_tables(guided))
         self.dispatch_counts["ragged"] += 1
         self._phase_add("dispatch", time.perf_counter() - t2)
         return out

@@ -1,10 +1,18 @@
 """OpenAI-compatible HTTP server for the PyTorch engine, on stdlib asyncio.
 
 Counterpart of ``production_stack_tpu/engine/server.py`` for the
-endpoints this slice serves: ``/health``, ``/v1/models`` (with
-``max_model_len`` and the PD role, then one card a loaded LoRA adapter),
-``/v1/completions`` and ``/v1/chat/completions`` (both with ``stream``;
-a ``model`` naming a loaded adapter is served with it),
+endpoints the port serves: ``/health``, ``/version``, ``/v1/models``
+(with ``max_model_len`` and the PD role, then one card a loaded LoRA
+adapter), ``/v1/completions`` (a string, a token-id list, or a batch of
+either; ``n``, ``best_of`` = n, ``echo``, ``prompt_logprobs``) and
+``/v1/chat/completions`` (``tools`` with a named ``tool_choice``, or
+``auto`` under ``--enable-auto-tool-choice``, parsed into OpenAI
+``tool_calls``; ``n``), both with ``stream`` and the guided-decoding
+fields (``guided_json`` / ``guided_regex`` / ``guided_choice`` /
+``guided_grammar`` / ``response_format``); a ``model`` naming a loaded
+adapter is served with it. ``/tokenize`` and ``/detokenize``; ``/sleep``,
+``/wake_up`` and ``/is_sleeping`` (the router's service discovery probes
+them); ``/debug/requests`` (the per-request lifecycle timelines);
 ``POST /v1/load_lora_adapter`` and ``/v1/unload_lora_adapter`` (the
 operator's LoraAdapter controller calls them), ``/metrics`` (the JAX
 engine's families the port serves, written by engine/metrics.py: the
@@ -12,29 +20,48 @@ engine's families the port serves, written by engine/metrics.py: the
 the ``tpu:*`` prefill, staging, decode and ragged-round families), and
 ``/debug/kernel_launches``, which reads (GET) or zeroes (DELETE) the
 attention kernels' launch counts and the runner's forward dispatches. A
-prefill (or both-role) engine with ``kv_transfer_config["listen"]`` also
-serves its KV block chains to decode peers (kv/transfer.py), and a
-watched stats task feeds the KV export and restore histograms. The
-Prometheus text is written by hand and HTTP/1.1 is parsed by hand
-(``asyncio.start_server``): the port needs neither aiohttp nor
-prometheus_client. One request per connection (``Connection: close``);
-streamed bodies are server-sent events ended by closing the connection.
+router-supplied ``x-request-id`` becomes the engine's request id and is
+echoed on the response; ``traceparent`` rides into the request's
+timeline. A prefill (or both-role) engine with
+``kv_transfer_config["listen"]`` also serves its KV block chains to
+decode peers (kv/transfer.py), and a watched stats task feeds the KV and
+lane-mix histograms. The Prometheus text is written by hand and
+HTTP/1.1 is parsed by hand (``asyncio.start_server``): the port needs
+neither aiohttp nor prometheus_client. One request per connection
+(``Connection: close``); streamed bodies are server-sent events ended by
+closing the connection.
 """
 
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import json
 import time
+from urllib.parse import parse_qs
 
+import production_stack_tpu_torch
 from production_stack_tpu_torch.engine import protocol as proto
+from production_stack_tpu_torch.engine import tools
 from production_stack_tpu_torch.engine.async_engine import (
     AsyncLLMEngine,
     EngineSleepingError,
 )
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.metrics import EngineMetrics
+from production_stack_tpu_torch.engine.sampling_params import (
+    SamplingParams,
+    truncate_prompt,
+)
 from production_stack_tpu_torch.ops import paged_attention
+from production_stack_tpu_torch.tracing import (
+    REQUEST_ID_HEADER,
+    TRACEPARENT_HEADER,
+    debug_requests_payload,
+    log_otlp_payload,
+    otlp_flush_loop,
+    valid_request_id,
+)
 from production_stack_tpu_torch.utils import init_logger
 from production_stack_tpu_torch.utils.tasks import spawn_watched
 
@@ -48,6 +75,8 @@ _REASONS = {
 }
 MAX_BODY_BYTES = 64 * 2**20
 STATS_UPDATE_INTERVAL_S = 1.0
+# paths behind --api-key besides /v1/* (the JAX server's list)
+_AUTH_PATHS = ("/tokenize", "/detokenize", "/sleep", "/wake_up")
 
 
 class HttpError(Exception):
@@ -56,6 +85,13 @@ class HttpError(Exception):
         super().__init__(message)
         self.status = status
         self.err_type = err_type
+
+
+@dataclasses.dataclass
+class HttpRequest:
+    body: bytes
+    headers: dict[str, str]  # lower-cased names
+    query: dict[str, str]
 
 
 class EngineServer:
@@ -68,13 +104,21 @@ class EngineServer:
         self.lora_adapters: dict[str, str] = {}  # name -> path
         self._server: asyncio.AbstractServer | None = None
         self._stats_task: asyncio.Task | None = None
+        self._trace_flush_task: asyncio.Task | None = None
         self._kv_transfer_server = None
         self._routes = {
             ("GET", "/health"): self.handle_health,
+            ("GET", "/version"): self.handle_version,
             ("GET", "/v1/models"): self.handle_models,
             ("GET", "/metrics"): self.handle_metrics,
             ("POST", "/v1/completions"): self.handle_completions,
             ("POST", "/v1/chat/completions"): self.handle_chat,
+            ("POST", "/tokenize"): self.handle_tokenize,
+            ("POST", "/detokenize"): self.handle_detokenize,
+            ("GET", "/debug/requests"): self.handle_debug_requests,
+            ("POST", "/sleep"): self.handle_sleep,
+            ("POST", "/wake_up"): self.handle_wake,
+            ("GET", "/is_sleeping"): self.handle_is_sleeping,
             ("POST", "/v1/load_lora_adapter"): self.handle_load_lora,
             ("POST", "/v1/unload_lora_adapter"): self.handle_unload_lora,
             ("GET", "/debug/kernel_launches"): self.handle_kernel_launches,
@@ -87,6 +131,9 @@ class EngineServer:
         """Start the step loop and listen; returns the bound port."""
         self.engine.start(asyncio.get_running_loop())
         self._stats_task = spawn_watched(self._stats_loop(), "engine-stats")
+        if self.engine.tracer.exporter == "otlp":
+            self._trace_flush_task = spawn_watched(
+                otlp_flush_loop(self.engine.tracer), "engine-trace-flush")
         # disaggregated prefill producer: serve KV block chains to decode
         # peers. prefill AND both roles serve — a both-role engine can
         # hand its chains to any peer.
@@ -109,6 +156,11 @@ class EngineServer:
         if self._stats_task is not None:
             self._stats_task.cancel()
             self._stats_task = None
+        if self._trace_flush_task is not None:
+            self._trace_flush_task.cancel()
+            self._trace_flush_task = None
+            # final drain: spans still buffered must not be dropped
+            log_otlp_payload(self.engine.tracer)
         if self._server is not None:
             self._server.close()
             await self._server.wait_closed()
@@ -123,12 +175,16 @@ class EngineServer:
             self._kv_transfer_server = None
         self.engine.shutdown()
 
+    def _drain_observations(self) -> None:
+        self.metrics.observe_kv(*self.engine.drain_kv_observations())
+        self.metrics.observe_ragged(self.engine.drain_ragged_observations())
+
     async def _stats_loop(self) -> None:
-        """Drain the engine's KV export / restore observations into the
-        tpu:kv_*_seconds histograms (the snapshot families are rendered
-        at each scrape)."""
+        """Drain the engine's KV export / restore and ragged lane-mix
+        observations into their histograms (the snapshot families are
+        rendered at each scrape)."""
         while True:
-            self.metrics.observe_kv(*self.engine.drain_kv_observations())
+            self._drain_observations()
             await asyncio.sleep(STATS_UPDATE_INTERVAL_S)
 
     def run(self, host: str = "0.0.0.0", port: int = 8000) -> None:
@@ -149,7 +205,7 @@ class EngineServer:
                       writer: asyncio.StreamWriter) -> None:
         try:
             try:
-                method, path, headers, body = await _read_request(reader)
+                method, path, req = await _read_request(reader)
             except HttpError as e:
                 await _send_json(writer, e.status, proto.error_json(
                     str(e), code=e.status))
@@ -163,8 +219,10 @@ class EngineServer:
                 await _send_json(writer, status, proto.error_json(
                     f"{method} {path} not served", code=status))
                 return
-            if self.config.api_key and path.startswith("/v1/"):
-                if headers.get("authorization") != (
+            if self.config.api_key and (
+                path.startswith("/v1/") or path in _AUTH_PATHS
+            ):
+                if req.headers.get("authorization") != (
                     f"Bearer {self.config.api_key}"
                 ):
                     await _send_json(writer, 401, proto.error_json(
@@ -172,7 +230,7 @@ class EngineServer:
                         "authentication_error", 401))
                     return
             try:
-                await handler(body, writer)
+                await handler(req, writer)
             except HttpError as e:
                 await _send_json(writer, e.status, proto.error_json(
                     str(e), e.err_type, e.status))
@@ -197,10 +255,14 @@ class EngineServer:
             writer.close()
 
     # -- endpoints ---------------------------------------------------------
-    async def handle_health(self, body, writer) -> None:
+    async def handle_health(self, req, writer) -> None:
         await _send_json(writer, 200, {"status": "healthy"})
 
-    async def handle_models(self, body, writer) -> None:
+    async def handle_version(self, req, writer) -> None:
+        await _send_json(writer, 200, {
+            "version": production_stack_tpu_torch.__version__})
+
+    async def handle_models(self, req, writer) -> None:
         card = proto.model_card(
             self.model_name, root=self.config.model,
             kv_instance_id=self.config.kv_instance_id,
@@ -211,11 +273,64 @@ class EngineServer:
                           for name, path in self.lora_adapters.items()]
         await _send_json(writer, 200, {"object": "list", "data": cards})
 
-    async def handle_metrics(self, body, writer) -> None:
-        self.metrics.observe_kv(*self.engine.drain_kv_observations())
+    async def handle_metrics(self, req, writer) -> None:
+        self._drain_observations()
         payload = self.metrics.render(self.engine.stats()).encode()
         await _send(writer, 200, payload,
                     "text/plain; version=0.0.4; charset=utf-8")
+
+    async def handle_tokenize(self, req, writer) -> None:
+        body = _json(req.body)
+        tok = self.engine.tokenizer
+        if "prompt" in body:
+            text = body["prompt"]
+        elif "messages" in body:
+            text = tok.apply_chat_template(body["messages"])
+        else:
+            raise HttpError(400, "missing 'prompt' or 'messages'")
+        ids = tok.encode(text)
+        await _send_json(writer, 200, {"tokens": ids, "count": len(ids),
+                                       "max_model_len": self.max_model_len})
+
+    async def handle_detokenize(self, req, writer) -> None:
+        tokens = _json(req.body).get("tokens")
+        if tokens is None:
+            raise HttpError(400, "missing 'tokens'")
+        await _send_json(writer, 200, {
+            "prompt": self.engine.tokenizer.decode(tokens)})
+
+    async def handle_debug_requests(self, req, writer) -> None:
+        """Recent request lifecycle timelines (a bounded ring) and the
+        in-flight ones: enqueue -> admit -> prefill chunks (staged /
+        chained flags) -> first token -> sampled decode rounds ->
+        preempt / resume -> finish. ?limit=N caps the finished ones."""
+        recorder = self.engine.timeline
+        await _send_json(writer, 200, debug_requests_payload(
+            req.query.get("limit"),
+            enabled=recorder.enabled,
+            snapshot=lambda n: recorder.snapshot(limit=n),
+            hint="start the engine with request_timeline=True (drop "
+                 "--no-request-timeline) to record per-request "
+                 "lifecycle timelines",
+        ))
+
+    # -- sleep / wake (the router's service discovery probes these) --------
+    async def handle_sleep(self, req, writer) -> None:
+        try:
+            level = int(req.query.get("level", "1"))
+        except ValueError:
+            raise HttpError(400, "level must be an integer") from None
+        self.engine.sleep(level)
+        await _send_json(writer, 200, {"status": "sleeping",
+                                       "level": level})
+
+    async def handle_wake(self, req, writer) -> None:
+        self.engine.wake_up()
+        await _send_json(writer, 200, {"status": "awake"})
+
+    async def handle_is_sleeping(self, req, writer) -> None:
+        await _send_json(writer, 200,
+                         {"is_sleeping": self.engine.is_sleeping()})
 
     def _launch_report(self) -> dict:
         return {
@@ -223,58 +338,182 @@ class EngineServer:
             "dispatches": dict(self.engine.engine.runner.dispatch_counts),
         }
 
-    async def handle_kernel_launches(self, body, writer) -> None:
+    async def handle_kernel_launches(self, req, writer) -> None:
         """Kernel launches (counted only where a CUDA kernel launched) and
         forward dispatches since boot or the last DELETE: shows a driver
         which kernels served its requests."""
         await _send_json(writer, 200, self._launch_report())
 
-    async def handle_reset_kernel_launches(self, body, writer) -> None:
+    async def handle_reset_kernel_launches(self, req, writer) -> None:
         paged_attention.reset_launch_counts()
         counts = self.engine.engine.runner.dispatch_counts
         for k in counts:
             counts[k] = 0
         await _send_json(writer, 200, self._launch_report())
 
-    async def handle_completions(self, body, writer) -> None:
-        req = _json(body)
-        self._check_model(req)
-        prompt = req.get("prompt")
-        if isinstance(prompt, list) and len(prompt) == 1 and isinstance(
-            prompt[0], (str, list)
-        ):
-            prompt = prompt[0]
-        if isinstance(prompt, str):
-            ids = self.engine.tokenizer.encode(prompt)
-        elif isinstance(prompt, list) and prompt and all(
-            isinstance(t, int) for t in prompt
-        ):
-            ids = list(prompt)
-        else:
-            raise HttpError(
-                400, "'prompt' must be one string or one token-id list "
-                "(batched prompts are not served by this engine yet)"
-            )
-        await self._generate(req, ids, writer, chat=False)
+    # -- request identity + trace context ----------------------------------
+    def _request_identity(self, req: HttpRequest,
+                          prefix: str) -> tuple[str, str | None]:
+        """(request_id, traceparent) of one HTTP request. A
+        router-supplied x-request-id becomes the engine's request id (and
+        is echoed on the response) so logs, spans and timelines join on
+        one id; an id that fails the charset / length gate, or is still
+        in flight (alone or as an n > 1 request's `<id>-c<i>`), falls
+        back to a fresh one. The traceparent passes through verbatim
+        (the timeline recorder validates it)."""
+        rid = req.headers.get(REQUEST_ID_HEADER)
+        if (not valid_request_id(rid) or self.engine.has_request(rid)
+                or self.engine.has_request_prefix(rid)):
+            rid = proto.make_id(prefix)
+        return rid, req.headers.get(TRACEPARENT_HEADER)
 
-    async def handle_chat(self, body, writer) -> None:
-        req = _json(body)
-        self._check_model(req)
-        messages = req.get("messages")
+    def _prompt_ids(self, ids: list[int], sp: SamplingParams) -> list[int]:
+        """vLLM truncate_prompt_tokens, then the context-length gate:
+        a prompt the KV layout cannot hold is refused before admission
+        with vLLM's wording and error type."""
+        ids = truncate_prompt(ids, sp, self.max_model_len)
+        if len(ids) >= self.max_model_len:
+            raise HttpError(
+                400, f"This model's maximum context length is "
+                f"{self.max_model_len} tokens. However, your request has "
+                f"{len(ids)} prompt tokens; please reduce the length of "
+                "the messages or prompt.", "context_length_exceeded")
+        return ids
+
+    def _lora_name(self, req: dict) -> str | None:
+        model = req.get("model")
+        return model if model in self.lora_adapters else None
+
+    @staticmethod
+    def _priority(req: dict) -> int:
+        try:
+            return int(req.get("priority", 0))
+        except (TypeError, ValueError):
+            raise HttpError(400, "priority must be an integer") from None
+
+    async def handle_completions(self, req, writer) -> None:
+        body = _json(req.body)
+        self._check_model(body)
+        prompt = body.get("prompt")
+        if prompt is None:
+            raise HttpError(400, "missing 'prompt'")
+        # OpenAI batches: one string, one token-id list, or a list of
+        # either (choice index = prompt_idx * n + sample)
+        if isinstance(prompt, str):
+            raw_prompts: list = [prompt]
+        elif isinstance(prompt, list) and prompt and all(
+            isinstance(x, int) for x in prompt
+        ):
+            raw_prompts = [prompt]
+        elif isinstance(prompt, list) and prompt and all(
+            isinstance(x, str) or (isinstance(x, list) and x and all(
+                isinstance(t, int) for t in x))
+            for x in prompt
+        ):
+            raw_prompts = list(prompt)
+        else:
+            raise HttpError(400, "'prompt' must be a string, a token-id "
+                            "list, or a non-empty list of either")
+        sp = proto.sampling_params_from_request(body)
+        if body.get("suffix"):
+            raise HttpError(400, "suffix is not supported")
+        best_of = body.get("best_of")
+        try:
+            best_of = int(best_of) if best_of is not None else None
+        except (TypeError, ValueError):
+            raise HttpError(400, "best_of must be an integer") from None
+        if best_of is not None and best_of != sp.n:
+            raise HttpError(
+                400, "best_of != n is not supported (use n-way sampling)")
+        priority = self._priority(body)
+        echo = bool(body.get("echo", False))
+        if echo and sp.logprobs is not None:
+            raise HttpError(400, "echo with logprobs is not supported; "
+                            "request prompt_logprobs for per-prompt-token "
+                            "logprobs")
+        request_id, traceparent = self._request_identity(req, "cmpl")
+        ids_list = [
+            self._prompt_ids(list(p) if isinstance(p, list)
+                             else self.engine.tokenizer.encode(p), sp)
+            for p in raw_prompts
+        ]
+        # OpenAI echo: the text leads with the prompt the engine
+        # processed (a string prompt echoes verbatim unless truncated)
+        echoes = None
+        if echo:
+            echoes = [
+                p if (isinstance(p, str)
+                      and sp.truncate_prompt_tokens is None)
+                else self.engine.tokenizer.decode(list(ids))
+                for p, ids in zip(raw_prompts, ids_list)
+            ]
+        job = _Job(request_id, body.get("model") or self.model_name,
+                   chat=False, sp=sp, lora_name=self._lora_name(body),
+                   priority=priority, traceparent=traceparent,
+                   as_ids=bool(body.get("return_tokens_as_token_ids")))
+        if len(ids_list) * sp.n > 1:
+            await self._multi_completion(
+                job, ids_list, writer, bool(body.get("stream")),
+                _wants_usage(body), echoes=echoes)
+        elif body.get("stream"):
+            await self._stream_completion(
+                job, ids_list[0], writer, _wants_usage(body),
+                echo=echoes[0] if echoes else None)
+        else:
+            await self._blocking_completion(
+                job, ids_list[0], writer,
+                echo=echoes[0] if echoes else None)
+
+    async def handle_chat(self, req, writer) -> None:
+        body = _json(req.body)
+        self._check_model(body)
+        messages = body.get("messages")
         if not isinstance(messages, list) or not messages:
             raise HttpError(400, "'messages' must be a non-empty list")
-        if req.get("tools"):
-            raise NotImplementedError(
-                "tool calling is not ported to the PyTorch engine yet"
-            )
-        prompt = self.engine.tokenizer.apply_chat_template(messages)
-        ids = self.engine.tokenizer.encode(prompt)
-        await self._generate(req, ids, writer, chat=True)
+        req_tools = body.get("tools")
+        tool_choice = body.get("tool_choice",
+                               "auto" if req_tools else "none")
+        use_tools = bool(req_tools) and tool_choice != "none"
+        if (use_tools and tool_choice == "auto"
+                and not self.config.enable_auto_tool_choice):
+            raise HttpError(400, "tools require --enable-auto-tool-choice "
+                            "(or a named tool_choice)")
+        if use_tools:
+            messages = tools.inject_tools(messages, req_tools, tool_choice)
+        try:
+            prompt = self.engine.tokenizer.apply_chat_template(messages)
+        except Exception as e:  # noqa: BLE001 — a template error is the
+            # request's fault, whatever the template raised
+            raise HttpError(400, f"chat template error: {e}") from None
+        sp = proto.sampling_params_from_request(body)
+        if body.get("logprobs") is True:
+            # chat form: logprobs: true + top_logprobs: N
+            top_n = int(body.get("top_logprobs", 0) or 0)
+            if not 0 <= top_n <= 20:
+                raise HttpError(400, "top_logprobs must be in [0, 20]")
+            sp = dataclasses.replace(sp, logprobs=top_n)
+        request_id, traceparent = self._request_identity(req, "chatcmpl")
+        ids = self._prompt_ids(self.engine.tokenizer.encode(prompt), sp)
+        job = _Job(request_id, body.get("model") or self.model_name,
+                   chat=True, sp=sp, lora_name=self._lora_name(body),
+                   priority=self._priority(body), traceparent=traceparent,
+                   parse_tools=use_tools)
+        if sp.n > 1:
+            await self._multi_completion(
+                job, [ids], writer, bool(body.get("stream")),
+                _wants_usage(body))
+        elif body.get("stream"):
+            # a streamed response passes tool-call text through verbatim
+            # (the client parses it); the blocking one parses
+            await self._stream_completion(job, ids, writer,
+                                          _wants_usage(body))
+        else:
+            await self._blocking_completion(job, ids, writer)
 
     # -- LoRA hot-load (reference: loraadapter_controller.go:582-598 POSTs) -
-    async def handle_load_lora(self, body, writer) -> None:
-        req = _json(body)
-        name, path = req.get("lora_name"), req.get("lora_path")
+    async def handle_load_lora(self, req, writer) -> None:
+        body = _json(req.body)
+        name, path = body.get("lora_name"), body.get("lora_path")
         if not name or not path:
             raise HttpError(400, "need lora_name and lora_path")
         loop = asyncio.get_running_loop()
@@ -290,8 +529,8 @@ class EngineServer:
         logger.info("loaded LoRA adapter %s from %s", name, path)
         await _send_json(writer, 200, {"status": "success"})
 
-    async def handle_unload_lora(self, body, writer) -> None:
-        name = _json(body).get("lora_name")
+    async def handle_unload_lora(self, req, writer) -> None:
+        name = _json(req.body).get("lora_name")
         if name not in self.lora_adapters:
             raise HttpError(404, f"adapter {name!r} not loaded")
         await asyncio.get_running_loop().run_in_executor(
@@ -307,61 +546,246 @@ class EngineServer:
         ) and model not in self.lora_adapters:
             raise HttpError(404, f"model {model!r} is not served here")
 
-    async def _generate(self, req: dict, ids: list[int], writer,
-                        chat: bool) -> None:
-        sp = proto.sampling_params_from_request(req)
-        if sp.n != 1:
-            raise NotImplementedError("n > 1 is not ported yet")
-        if len(ids) >= self.max_model_len:
-            # vLLM's wording and error type for a prompt the KV layout
-            # cannot hold, rejected before admission
-            raise HttpError(
-                400, f"This model's maximum context length is "
-                f"{self.max_model_len} tokens. However, your request has "
-                f"{len(ids)} prompt tokens; please reduce the length of "
-                "the messages or prompt.", "context_length_exceeded")
-        model = req.get("model") or self.model_name
-        lora_name = model if model in self.lora_adapters else None
-        request_id = proto.make_id("chatcmpl" if chat else "cmpl")
-        arrival = time.time()
-        gen = self.engine.generate(
+    def _generate(self, job: "_Job", request_id: str, ids: list[int],
+                  sp: SamplingParams):
+        return self.engine.generate(
             request_id, prompt_token_ids=ids, sampling_params=sp,
-            lora_name=lora_name, priority=int(req.get("priority", 0)),
+            lora_name=job.lora_name, priority=job.priority,
+            traceparent=job.traceparent,
         )
-        if req.get("stream"):
-            # the first output comes before the headers, so a request the
-            # engine refuses still gets a plain error response
-            first = await anext(gen)
-            await self._stream(first, gen, writer, request_id, model,
-                               chat, len(ids), _wants_usage(req), arrival)
-            return
+
+    def _choice(self, job: "_Job", index: int, final, echo: str = "") -> dict:
+        """One finished choice in the response's wire shape (chat message
+        with parsed tool calls, or completion text), logprobs and
+        prompt_logprobs attached."""
+        if job.chat:
+            text, calls = final.text, None
+            if job.parse_tools:
+                text, calls = tools.parse_tool_calls(final.text)
+            choice = proto.chat_message_choice(
+                index, text, final.finish_reason, calls)
+            choice["logprobs"] = self._chat_logprobs(final.logprobs)
+        else:
+            choice = {
+                "index": index, "text": echo + final.text,
+                "logprobs": self._completion_logprobs(final.logprobs,
+                                                      job.as_ids),
+                "finish_reason": final.finish_reason,
+            }
+        if final.prompt_logprobs is not None:
+            # vLLM field: one entry a prompt position, None first
+            choice["prompt_logprobs"] = final.prompt_logprobs
+        return choice
+
+    async def _blocking_completion(self, job: "_Job", ids: list[int],
+                                   writer, echo: str | None = None) -> None:
+        arrival = time.time()
         final = None
-        async for out in gen:
+        async for out in self._generate(job, job.request_id, ids, job.sp):
             final = out
-            if out.finished:
-                self.metrics.observe_finish(out, arrival)
+        self.metrics.observe_finish(final, arrival)
         if final.finish_reason == "error":
             raise HttpError(500, "engine step failed")
-        make = proto.chat_response if chat else proto.completion_response
-        resp = make(request_id, model, final.text, final.finish_reason,
-                    len(ids), len(final.token_ids))
-        if not chat and final.logprobs is not None:
-            resp["choices"][0]["logprobs"] = self._completion_logprobs(
-                final.logprobs, bool(req.get("return_tokens_as_token_ids")))
-        await _send_json(writer, 200, resp)
+        resp = proto.multi_choice_response(
+            job.request_id, job.model, job.chat,
+            [self._choice(job, 0, final, echo or "")],
+            len(final.prompt_token_ids), len(final.token_ids))
+        await _send_json(writer, 200, resp, job.headers())
 
-    def _completion_logprobs(self, entries: list[dict],
-                             as_ids: bool) -> dict:
+    async def _multi_completion(self, job: "_Job", ids_list, writer,
+                                stream: bool, include_usage: bool,
+                                echoes: list[str] | None = None) -> None:
+        """Batched prompts and / or n > 1: every choice is an engine
+        sub-request `<id>-c<index>` (continuous batching runs them
+        together), index = prompt_idx * n + sample_idx; an explicit seed
+        gives sample j the seed + j, so samples differ but reproduce."""
+        arrival = time.time()
+        sp, n = job.sp, job.sp.n
+        plan = []
+        for pi, ids in enumerate(ids_list):
+            for j in range(n):
+                sp_j = (dataclasses.replace(sp, seed=sp.seed + j)
+                        if n > 1 and sp.seed is not None else sp)
+                plan.append((pi * n + j, sp_j, ids))
+        n_prompt = sum(len(ids) for ids in ids_list)
+
+        if not stream:
+            async def run_one(idx, sp_i, ids):
+                final = None
+                async for out in self._generate(
+                        job, f"{job.request_id}-c{idx}", ids, sp_i):
+                    final = out
+                return final
+
+            tasks = [asyncio.ensure_future(run_one(*p)) for p in plan]
+            try:
+                finals = await asyncio.gather(*tasks)
+            except BaseException:
+                # any failure cancels the siblings: their generate()
+                # finalizers abort the engine requests, so no orphan
+                # keeps decoding after the error response
+                for t in tasks:
+                    t.cancel()
+                await asyncio.gather(*tasks, return_exceptions=True)
+                raise
+            choices = []
+            for (idx, _, _), final in zip(plan, finals):
+                self.metrics.observe_finish(final, arrival)
+                choices.append(self._choice(
+                    job, idx, final, echoes[idx // n] if echoes else ""))
+            await _send_json(writer, 200, proto.multi_choice_response(
+                job.request_id, job.model, job.chat, choices, n_prompt,
+                sum(len(f.token_ids) for f in finals)), job.headers())
+            return
+
+        # streamed: per-choice chunks tagged with their index
+        queue: asyncio.Queue = asyncio.Queue()
+
+        async def pump(idx, sp_i, ids):
+            try:
+                final = None
+                async for out in self._generate(
+                        job, f"{job.request_id}-c{idx}", ids, sp_i):
+                    final = out
+                    if out.delta_text or out.new_logprobs:
+                        await queue.put(("delta", idx, out))
+                await queue.put(("finish", idx, final))
+            except Exception as e:  # noqa: BLE001 — surfaced as a chunk
+                await queue.put(("error", idx, e))
+
+        writer.write(_head(200, "text/event-stream", None, job.headers()))
+        tasks = [asyncio.ensure_future(pump(*p)) for p in plan]
+        try:
+            if echoes and not job.chat:
+                # OpenAI echo: each choice's stream leads with its prompt
+                for idx, _, _ in plan:
+                    await _event(writer, proto.completion_chunk(
+                        job.request_id, job.model, echoes[idx // n], None,
+                        index=idx))
+            if job.chat:
+                for idx, _, _ in plan:
+                    await _event(writer, proto.chat_chunk(
+                        job.request_id, job.model, {"role": "assistant"},
+                        None, index=idx))
+            n_out, lp_pos, remaining = 0, {}, len(plan)
+            while remaining:
+                kind, idx, payload = await queue.get()
+                if kind == "delta":
+                    chunk, lp_pos[idx] = self._stream_chunk(
+                        job, payload.delta_text, payload.new_logprobs, idx,
+                        lp_pos.get(idx, 0))
+                    await _event(writer, chunk)
+                    continue
+                remaining -= 1
+                if kind == "finish":
+                    self.metrics.observe_finish(payload, arrival)
+                    n_out += len(payload.token_ids)
+                    await _event(writer, self._finish_chunk(
+                        job, idx, payload.finish_reason,
+                        payload.prompt_logprobs))
+                else:
+                    await _event(writer, proto.error_json(str(payload)))
+                    # close the choice: clients wait for a finish_reason
+                    # on every index
+                    await _event(writer, self._finish_chunk(
+                        job, idx, "stop", None))
+            if include_usage:
+                await _event(writer, proto.usage_tail_chunk(
+                    job.request_id, job.model, job.chat, n_prompt, n_out))
+            writer.write(b"data: [DONE]\n\n")
+            await writer.drain()
+        finally:
+            for t in tasks:
+                t.cancel()
+
+    def _stream_chunk(self, job: "_Job", text: str, new_lps, index: int,
+                      lp_start: int) -> tuple[dict, int]:
+        """One streamed content chunk with its logprobs; returns (chunk,
+        the next text_offset seed)."""
+        if job.chat:
+            chunk = proto.chat_chunk(job.request_id, job.model,
+                                     {"content": text}, None, index=index)
+        else:
+            chunk = proto.completion_chunk(job.request_id, job.model, text,
+                                           None, index=index)
+        if new_lps:
+            if job.chat:
+                chunk["choices"][0]["logprobs"] = self._chat_logprobs(
+                    new_lps)
+            else:
+                fmt = self._completion_logprobs(new_lps, job.as_ids,
+                                                lp_start)
+                chunk["choices"][0]["logprobs"] = fmt
+                if fmt["tokens"]:
+                    lp_start = fmt["text_offset"][-1] + len(
+                        fmt["tokens"][-1])
+        return chunk, lp_start
+
+    def _finish_chunk(self, job: "_Job", index: int, reason,
+                      prompt_lps) -> dict:
+        """The chunk that ends a choice; prompt_logprobs ride it."""
+        fin = (proto.chat_chunk(job.request_id, job.model, {}, reason,
+                                index=index) if job.chat
+               else proto.completion_chunk(job.request_id, job.model, "",
+                                           reason, index=index))
+        if prompt_lps is not None:
+            fin["choices"][0]["prompt_logprobs"] = prompt_lps
+        return fin
+
+    async def _stream_completion(self, job: "_Job", ids: list[int], writer,
+                                 include_usage: bool,
+                                 echo: str | None = None) -> None:
+        arrival = time.time()
+        gen = self._generate(job, job.request_id, ids, job.sp)
+        # the first output comes before the headers, so a request the
+        # engine refuses still gets a plain error response
+        out = await anext(gen)
+        writer.write(_head(200, "text/event-stream", None, job.headers()))
+        if echo and not job.chat:
+            # OpenAI echo streams the prompt text as the first chunk
+            await _event(writer, proto.completion_chunk(
+                job.request_id, job.model, echo, None))
+        if job.chat:
+            await _event(writer, proto.chat_chunk(
+                job.request_id, job.model,
+                {"role": "assistant", "content": ""}, None))
+        lp_pos = 0
+        while True:
+            if out.delta_text or out.new_logprobs:
+                chunk, lp_pos = self._stream_chunk(
+                    job, out.delta_text, out.new_logprobs, 0, lp_pos)
+                await _event(writer, chunk)
+            if out.finished:
+                break
+            out = await anext(gen)
+        self.metrics.observe_finish(out, arrival)
+        await _event(writer, self._finish_chunk(
+            job, 0, out.finish_reason, out.prompt_logprobs))
+        if include_usage:
+            await _event(writer, proto.usage_tail_chunk(
+                job.request_id, job.model, job.chat,
+                len(out.prompt_token_ids), len(out.token_ids)))
+        writer.write(b"data: [DONE]\n\n")
+        await writer.drain()
+
+    # -- logprobs in the OpenAI wire shapes ----------------------------------
+    def _completion_logprobs(self, entries: list[dict] | None,
+                             as_ids: bool = False, start: int = 0
+                             ) -> dict | None:
         """OpenAI completions logprobs (tokens, token_logprobs,
-        top_logprobs, text_offset) of a finished request; `as_ids`
-        renders each token as "token_id:N" (vLLM's
-        return_tokens_as_token_ids), and so does a top entry whose
-        string another entry of its row already took."""
+        top_logprobs, text_offset); `start` seeds text_offset (a
+        streamed chunk passes the text already sent). `as_ids` renders
+        each token as "token_id:N" (vLLM's return_tokens_as_token_ids),
+        and so does a top entry whose string another entry of its row
+        already took."""
+        if entries is None:
+            return None
+
         def tok(token_id: int) -> str:
             return (f"token_id:{token_id}" if as_ids
                     else self.engine.tokenizer.decode([token_id]))
 
-        tokens, lps, tops, offsets, pos = [], [], [], [], 0
+        tokens, lps, tops, offsets, pos = [], [], [], [], start
         for e in entries:
             s = tok(e["token_id"])
             tokens.append(s)
@@ -377,40 +801,41 @@ class EngineServer:
         return {"tokens": tokens, "token_logprobs": lps,
                 "top_logprobs": tops, "text_offset": offsets}
 
-    async def _stream(self, first, gen, writer, request_id, model, chat,
-                      n_prompt, include_usage, arrival) -> None:
-        writer.write(_head(200, "text/event-stream", None))
+    def _chat_logprobs(self, entries: list[dict] | None) -> dict | None:
+        """Chat shape: {"content": [{token, logprob, bytes,
+        top_logprobs: [...]}]}."""
+        if entries is None:
+            return None
 
-        async def event(data: dict) -> None:
-            writer.write(b"data: " + json.dumps(data).encode() + b"\n\n")
-            await writer.drain()
+        def one(token_id: int, lp: float) -> dict:
+            s = self.engine.tokenizer.decode([token_id])
+            return {"token": s, "logprob": lp,
+                    "bytes": list(s.encode("utf-8", "replace"))}
 
-        if chat:
-            await event(proto.chat_chunk(
-                request_id, model, {"role": "assistant", "content": ""},
-                None))
-        n_out = 0
-        out = first
-        while out is not None:
-            n_out = len(out.token_ids)
-            reason = out.finish_reason if out.finished else None
-            if out.finished:
-                self.metrics.observe_finish(out, arrival)
-            if out.delta_text or reason is not None:
-                if chat:
-                    delta = {"content": out.delta_text} if (
-                        out.delta_text) else {}
-                    await event(proto.chat_chunk(
-                        request_id, model, delta, reason))
-                else:
-                    await event(proto.completion_chunk(
-                        request_id, model, out.delta_text, reason))
-            out = None if out.finished else await anext(gen, None)
-        if include_usage:
-            await event(proto.usage_tail_chunk(
-                request_id, model, chat, n_prompt, n_out))
-        writer.write(b"data: [DONE]\n\n")
-        await writer.drain()
+        return {"content": [
+            {**one(e["token_id"], e["logprob"]),
+             "top_logprobs": [one(t["token_id"], t["logprob"])
+                              for t in e["top_logprobs"]]}
+            for e in entries
+        ]}
+
+
+@dataclasses.dataclass
+class _Job:
+    """What every choice of one HTTP generation request shares."""
+    request_id: str
+    model: str
+    chat: bool
+    sp: SamplingParams
+    lora_name: str | None = None
+    priority: int = 0
+    traceparent: str | None = None
+    parse_tools: bool = False
+    as_ids: bool = False
+
+    def headers(self) -> dict[str, str]:
+        # the (possibly router-supplied) engine request id, echoed
+        return {REQUEST_ID_HEADER: self.request_id}
 
 
 def _wants_usage(req: dict) -> bool:
@@ -426,6 +851,11 @@ def _json(body: bytes) -> dict:
     if not isinstance(req, dict):
         raise HttpError(400, "JSON body must be an object")
     return req
+
+
+async def _event(writer, data: dict) -> None:
+    writer.write(b"data: " + json.dumps(data).encode() + b"\n\n")
+    await writer.drain()
 
 
 async def _read_request(reader: asyncio.StreamReader):
@@ -447,10 +877,13 @@ async def _read_request(reader: asyncio.StreamReader):
     if length > MAX_BODY_BYTES:
         raise HttpError(413, "request body too large")
     body = await reader.readexactly(length) if length else b""
-    return method.upper(), target.split("?", 1)[0], headers, body
+    path, _, qs = target.partition("?")
+    query = {k: v[-1] for k, v in parse_qs(qs).items()}
+    return method.upper(), path, HttpRequest(body, headers, query)
 
 
-def _head(status: int, content_type: str, length: int | None) -> bytes:
+def _head(status: int, content_type: str, length: int | None,
+          extra: dict[str, str] | None = None) -> bytes:
     lines = [
         f"HTTP/1.1 {status} {_REASONS.get(status, 'Error')}",
         f"Content-Type: {content_type}",
@@ -461,15 +894,17 @@ def _head(status: int, content_type: str, length: int | None) -> bytes:
         lines.append(f"Content-Length: {length}")
     else:
         lines.append("Cache-Control: no-cache")
+    lines += [f"{k}: {v}" for k, v in (extra or {}).items()]
     return ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
 
 
-async def _send(writer, status: int, payload: bytes,
-                content_type: str) -> None:
-    writer.write(_head(status, content_type, len(payload)) + payload)
+async def _send(writer, status: int, payload: bytes, content_type: str,
+                extra: dict[str, str] | None = None) -> None:
+    writer.write(_head(status, content_type, len(payload), extra) + payload)
     await writer.drain()
 
 
-async def _send_json(writer, status: int, obj: dict) -> None:
+async def _send_json(writer, status: int, obj: dict,
+                     extra: dict[str, str] | None = None) -> None:
     await _send(writer, status, json.dumps(obj).encode(),
-                "application/json")
+                "application/json", extra)

@@ -558,3 +558,127 @@ def test_export_from_a_second_thread_keeps_the_snapshot(cuda_device,
     assert torch.equal(got["data"], old)
     now = r.export_blocks(bids)
     assert bool((now[0] == 7.0).all()) and bool((now[1] == -7.0).all())
+
+
+# -- guided DFA lanes and prompt logprobs on the card -------------------------
+GUIDED_CASES = {
+    "json": {"guided_json": {
+        "type": "object",
+        "properties": {"age": {"type": "integer"},
+                       "mood": {"enum": ["happy", "sad"]}},
+        "required": ["age", "mood"]}},
+    "regex": {"guided_regex": r"(yes|no), [0-9]{2}"},
+    "choice": {"guided_choice": ["alpha", "beta", "betamax"]},
+}
+
+
+def _small_engine(monkeypatch, device, params, **over):
+    """An engine at a narrow width (head_dim 64, the card kernels' least)
+    on `device`, on the given params."""
+    import dataclasses
+
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.llm_engine import LLMEngine
+    from production_stack_tpu_torch.models.config import get_model_config
+
+    small = dataclasses.replace(get_model_config("pst-tiny-debug"),
+                                num_heads=4, num_kv_heads=2, head_dim=64,
+                                hidden_size=256)
+    monkeypatch.setattr(EngineConfig, "model_config", lambda self: small)
+    cfg = dict(model="pst-tiny-debug", tokenizer="byte", dtype="float32",
+               cache_dtype="float32", block_size=32, num_kv_blocks=64,
+               max_num_seqs=4, seed=0, device=device)
+    return LLMEngine(EngineConfig(**{**cfg, **over}), params=params)
+
+
+def _small_params(monkeypatch, dtype=torch.float32):
+    from production_stack_tpu_torch.models import llama
+
+    eng = _small_engine(monkeypatch, "cpu", None)
+    gen = torch.Generator().manual_seed(3)
+    return llama.init_params(eng.runner.model_config, gen, dtype, "cpu")
+
+
+def _guided_streams(eng):
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+
+    sps = [SamplingParams(max_tokens=48, temperature=0.0, **kw)
+           for kw in GUIDED_CASES.values()]
+    sps.append(SamplingParams(max_tokens=20, temperature=0.0,
+                              ignore_eos=True))
+    prompts = [[3, 4, 5], [9, 8, 7, 6], [1, 2], [40, 41, 42, 43, 44]]
+    return [o.token_ids for o in eng.generate(prompts, sps)]
+
+
+@pytest.mark.cuda
+def test_guided_dfa_lanes_on_card_equal_cpu(cuda_device, monkeypatch):
+    """K=8 with three guided lanes beside a free one, f32: the fused
+    rounds' DFA mask and state step on the card give the CPU run's
+    streams, and they did run on the device tables."""
+    params = _small_params(monkeypatch)
+    card = _small_engine(monkeypatch, "cuda", params, num_scheduler_steps=8)
+    got = _guided_streams(card)
+    assert card.runner.guided_rounds > 0
+    want = _guided_streams(_small_engine(monkeypatch, "cpu", params,
+                                         num_scheduler_steps=8))
+    assert got == want
+
+
+@pytest.mark.cuda
+def test_guided_k8_on_card_equals_k1_host_mask(cuda_device, monkeypatch):
+    """On the card, K=8 device lanes give the K=1 host-masked streams."""
+    params = _small_params(monkeypatch)
+    k8 = _small_engine(monkeypatch, "cuda", params, num_scheduler_steps=8)
+    k1 = _small_engine(monkeypatch, "cuda", params, num_scheduler_steps=1)
+    assert _guided_streams(k8) == _guided_streams(k1)
+    assert k8.runner.guided_rounds > 0 and k1.runner.guided_rounds == 0
+
+
+@pytest.mark.cuda
+def test_prompt_logprobs_on_card_match_one_shot(cuda_device, monkeypatch):
+    """bf16: a 100-token prompt's prompt logprobs in 32-row chunks (the
+    single-sequence prefill scoring every row on the card) against the
+    log-softmax of one forward over the whole prompt, within 5e-2 of
+    max|logit| (the bf16 forward tolerance of chip_smoke.py)."""
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+    from production_stack_tpu_torch.models import llama
+
+    params = _small_params(monkeypatch, torch.bfloat16)
+    eng = _small_engine(monkeypatch, "cuda", params, dtype="bfloat16",
+                        cache_dtype="bfloat16", max_prefill_chunk=32)
+    ids = [(7 * j + 3) % 250 + 1 for j in range(100)]
+    out = eng.generate([ids], SamplingParams(
+        max_tokens=1, temperature=0.0, prompt_logprobs=5))[0]
+    r = eng.runner
+    mc = r.model_config
+    kc = torch.zeros_like(r.k_cache)
+    vc = torch.zeros_like(r.v_cache)
+    # the kernel takes whole 8-row tiles: 4 pad rows after the prompt
+    # (causal, so they change no real row)
+    pos = torch.arange(104, device=cuda_device)
+    table = torch.arange(1, 5, dtype=torch.int32, device=cuda_device)
+
+    def attn(q, l, k, v):
+        return tpa.paged_prefill_attention(q, k, v, l, table, 0,
+                                           block_size=32,
+                                           scale=mc.head_dim**-0.5)
+
+    logits, _, _ = llama.forward(mc, r.params,
+                                 torch.tensor(ids + [0] * 4,
+                                              device=cuda_device), pos,
+                                 kc, vc, pos + 32, attn, logits_rows=pos)
+    logits = logits[:len(ids)]
+    lp = torch.log_softmax(logits, dim=-1).cpu()
+    top = float(logits.abs().max())
+    plp = out.prompt_logprobs
+    assert len(plp) == len(ids) and plp[0] is None
+    for i, e in enumerate(plp[1:]):
+        assert e["token_id"] == ids[i + 1]
+        assert abs(e["logprob"] - float(lp[i, ids[i + 1]])) <= 5e-2 * top
+        for t in e["top_logprobs"]:
+            assert abs(t["logprob"] - float(lp[i, t["token_id"]])) <= (
+                5e-2 * top)

@@ -142,12 +142,19 @@ def test_unported_flags_refuse_to_start(field, value):
 
 
 def test_unported_request_fields_refuse(np_params):
+    """prompt_logprobs and guided decoding are served now; what no engine
+    can serve still refuses at add_request, as in the JAX engine: a
+    prompt_logprobs count past LOGPROB_CAP, a guided_choice entry that
+    tokenizes to nothing, a constraint that does not compile."""
     teng = LLMEngine(EngineConfig(**BASE, device="cpu"),
                      params=params_from_numpy(np_params, "cpu"))
-    for sp in (SamplingParams(prompt_logprobs=1),
-               SamplingParams(guided_choice=["a", "b"])):
-        with pytest.raises(NotImplementedError):
+    sp = SamplingParams(prompt_logprobs=1)
+    sp.prompt_logprobs = 21  # past the validation in __post_init__
+    for sp in (sp, SamplingParams(guided_choice=["a", ""]),
+               SamplingParams(guided_regex="(unclosed")):
+        with pytest.raises(ValueError):
             teng.add_request("r", prompt_token_ids=[1, 2], sampling_params=sp)
+    assert not teng.has_request("r")
 
 
 def test_cuda_device_without_a_card_raises(monkeypatch):

@@ -208,8 +208,10 @@ def test_families_match_the_jax_module():
         ("stop", 0.5, 3.2, 40, 0.2, 0.01, 1.5),
         ("length", None, 0.04, 1, None, None, None),
     ]
+    lane_mix = [1, 3, 1, 8, 2]
     mine = EngineMetrics("m")
     mine.observe_kv(*kv_obs)
+    mine.observe_ragged(lane_mix)
     for f in finishes:
         mine.observe_request(*f[:4], queue_s=f[4], sched_delay_s=f[5],
                              preempt_stall_s=f[6])
@@ -223,11 +225,12 @@ def test_families_match_the_jax_module():
     ref.update_from_snapshot(JSnapshot(**fields))
     ref.observe_decode_k(ks)
     ref.observe_kv(*kv_obs)
+    ref.observe_ragged(lane_mix)
     for f in finishes:
         ref.observe_request(*f[:4], queue_s=f[4], sched_delay_s=f[5],
                             preempt_stall_s=f[6])
     want = _families(generate_latest(reg).decode())
-    assert len(got) == 49
+    assert len(got) == 50
     for name, (kind, samples) in got.items():
         assert name in want, name
         assert kind == want[name][0], name
@@ -239,5 +242,46 @@ def test_families_match_the_jax_module():
                  "vllm:gpu_prefix_cache_queries_total",
                  "tpu:scheduling_delay_seconds", "tpu:kv_tier_hits",
                  "tpu:kv_restore_seconds", "tpu:kv_restore_fallbacks",
-                 "tpu:kv_export_sync_fallbacks"):
+                 "tpu:kv_export_sync_fallbacks", "tpu:ragged_lane_mix"):
         assert name in got
+
+
+def test_ragged_lane_mix_matches_jax_engine(np_params):
+    """tpu:ragged_lane_mix: a port engine and a JAX engine at their
+    defaults (unified ragged rounds, K=4) on the same staggered arrivals
+    drain the same prefill-lane count a fused round, and the port's
+    histogram renders as the JAX module's does from the JAX engine's."""
+    cfg = {**CFG, "num_scheduler_steps": 4, "max_prefill_chunk": 8}
+    jeng = JEngine(JConfig(**cfg, attention_impl="xla"),
+                   params=jax.tree_util.tree_map(jnp.asarray, np_params))
+    from production_stack_tpu_torch.engine.llm_engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+
+    peng = LLMEngine(EngineConfig(**cfg, device="cpu"),
+                     params=params_from_numpy(np_params, "cpu"))
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(1, 250, size=n).tolist() for n in (5, 29, 13)]
+
+    def drive(eng, sp_cls):
+        for step in range(400):
+            if step < len(prompts):
+                eng.add_request(f"r{step}", prompt_token_ids=prompts[step],
+                                sampling_params=sp_cls(**GREEDY))
+            elif not eng.has_unfinished():
+                break
+            eng.step()
+        return eng.drain_ragged_observations()
+
+    want = drive(jeng, JSampling)
+    got = drive(peng, SamplingParams)
+    assert got == want and len(got) > 0
+    assert peng.drain_ragged_observations() == []  # drained
+    mine = EngineMetrics("m")
+    mine.observe_ragged(got)
+    reg = CollectorRegistry()
+    JMetrics("m", registry=reg).observe_ragged(want)
+    fam = _families(mine.render(EngineStatsSnapshot()))["tpu:ragged_lane_mix"]
+    assert fam == _families(generate_latest(reg).decode())[
+        "tpu:ragged_lane_mix"]

@@ -1,6 +1,6 @@
 """The PyTorch port's OpenAI server on loopback, on the CPU: health,
 models, completions (plain and streamed), chat, metrics, and the
-refusals of what this slice does not serve. Random weights give
+refusals of malformed requests. Random weights give
 gibberish text: the checks are on token counts, finish reasons, usage
 and the wire format."""
 
@@ -166,9 +166,9 @@ def test_kernel_launch_report_reads_and_resets(port):
 
 
 @pytest.mark.parametrize("path,body,status", [
-    ("/v1/completions", {"prompt": "x", "n": 2}, 501),
-    ("/v1/completions", {"prompt": "x", "prompt_logprobs": 1}, 501),
-    ("/v1/completions", {"prompt": ["a", "b"]}, 400),
+    ("/v1/completions", {"prompt": "x", "n": 2, "best_of": 3}, 400),
+    ("/v1/completions", {"prompt": "x", "prompt_logprobs": 21}, 400),
+    ("/v1/completions", {"prompt": ["a", 1]}, 400),
     ("/v1/completions", {"prompt": "x", "model": "other"}, 404),
     ("/v1/completions", {"prompt": "x", "max_tokens": "many"}, 400),
     ("/v1/chat/completions", {"messages": []}, 400),
