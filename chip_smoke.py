@@ -69,8 +69,13 @@ Phases, each fatal on failure:
    /wake_up and the request finishes; prompt_logprobs 5 of a
    1500-token prompt (three chunks) held to the log-softmax of one
    forward of the whole prompt on the card (the server's seeded
-   weights) within LOGIT_REL_TOL of max|logit|; /debug/requests lists
-   each request's timeline from enqueue to finish;
+   weights) within LOGIT_REL_TOL of max|logit|; /v1/embeddings on three
+   texts, the last 1500 tokens (three chunks over the embedding's own
+   scratch cache), twice: unit-norm vectors, equal across the calls,
+   each within EMBED_MIN_COSINE of a mean-pooled one-shot forward of its
+   ids on the card, and /v1/rerank and /v1/score equal to the cosines of
+   those vectors; /debug/requests lists each request's timeline from
+   enqueue to finish;
 6. decode kernel: one ModelRunner.decode step of the 28-layer model over
    the same cache state on the ragged kernel and on
    paged_decode_attention, logits held to a stated tolerance, which the
@@ -115,6 +120,19 @@ Phases, each fatal on failure:
    round's device time (host clock; reported beside the card's name and
    power limit and the reads taken before staging existed, not
    claims);
+8b. spec: in-process 28-layer bf16 engines on the default config with
+   --num-speculative-tokens 4 and without it, in turns: a repetitive
+   prompt at batch 1 (turns spec, plain, plain, spec; wall ms a
+   generated token printed), then batch 8 with 4 greedy and 4 seeded
+   sampled lanes, 64 tokens each: greedy streams part only under the
+   near-tie rule, sampled ones only where a rank could change hands
+   under that rule's logit difference (sampled_tie_check); drafts and
+   verify dispatches above 0, 28 ragged launches a verify forward, the
+   acceptance rate printed. Then the composed verify (--no-ragged-kernel
+   --no-ragged-dispatch: 28 prefill launches a lane a verify forward) at
+   batch 2, held to plain decode, and the CLI with
+   --num-speculative-tokens 4 (log build/chip_smoke_spec_serve.log),
+   whose /metrics carries both vllm:spec_decode_* counters;
 9. checkpoint: the seeded llama-3.2-3b params (28 layers, bf16) written
    as an HF checkpoint (two shards, 6.4 GB) in a temporary directory
    under build/ that the phase removes, read back byte for byte (write
@@ -159,11 +177,12 @@ Launch counts are reset just before the serve phase's requests (through
 the server's /debug/kernel_launches) and again before its API requests,
 before each guided-phase engine, before the decode phase's
 --no-ragged-kernel engine, before each pipeline-phase engine and before
-each mixed-round engine, before the checkpoint phase's requests and
+each mixed-round engine, before each spec-phase engine's run and the
+spec server's requests, before the checkpoint phase's requests and
 before each KV-phase engine's and server's requests, and read just
 after; a kernel launched 0 times on those paths fails the run. The
 servers' logs go to build/chip_smoke_serve.log,
-build/chip_smoke_lora_serve.log, build/chip_smoke_prefill_serve.log,
+build/chip_smoke_spec_serve.log, build/chip_smoke_lora_serve.log, build/chip_smoke_prefill_serve.log,
 build/chip_smoke_decode_serve.log and build/chip_smoke_cache_server.log. The last lines are the kernels JSON, the
 card's name and power limit (nvidia-smi), and {"ok": true, "device":
 {...}}.
@@ -802,11 +821,12 @@ ROUTER_FAMILIES = {
 def check_launches(what: str, launches: dict, dispatches: dict) -> None:
     """Every ragged-kernel forward launches it once a layer (packed and
     single-step decode forwards, each iteration of a fused loop, each
-    mixed round's step-0 forward), the prefill kernel once a layer per
-    single-sequence prefill."""
+    mixed round's step-0 forward, each speculative verify forward), the
+    prefill kernel once a layer per single-sequence prefill."""
     layers = LAYERS_3B
     fwd = (dispatches["prefill_batch"] + dispatches["decode"]
-           + dispatches["decode_iterations"])
+           + dispatches["decode_iterations"]
+           + dispatches.get("verify_batch", 0))
     want = {"ragged": layers * fwd, "prefill": layers * dispatches["prefill"]}
     got = {k: launches[k] for k in want}
     print(f"{what}: launches {got}, {layers} x forwards {want}", flush=True)
@@ -834,7 +854,7 @@ def wait_healthy(what: str, proc, port: int, log_path: Path,
         time.sleep(0.5)
 
 
-def serve_phase(torch) -> tuple[dict, dict]:
+def serve_phase(torch, smi: str) -> tuple[dict, dict]:
     port = free_port()
     log_path = REPO / "build" / "chip_smoke_serve.log"
     t0 = time.perf_counter()
@@ -985,7 +1005,7 @@ def serve_phase(torch) -> tuple[dict, dict]:
         print(f"serve: since the reset: dispatches {report['dispatches']}, "
               f"launches {report['launches']}", flush=True)
         check_launches("serve", report["launches"], report["dispatches"])
-        api_launches = api_requests(torch, port)
+        api_launches = api_requests(torch, port, smi)
     finally:
         stop_server(proc)
     print(f"serve: server exited with {proc.returncode}; log tail:\n"
@@ -1041,7 +1061,7 @@ def guided_valid(name: str, text: str) -> bool:
     return re.fullmatch(GUIDED[name], text) is not None
 
 
-def api_requests(torch, port: int) -> dict:
+def api_requests(torch, port: int, smi: str) -> dict:
     """The serve phase's CLI server (default config) answers the request
     surface: the four guided constraints and response_format, prompt
     logprobs of a 1500-token prompt held to a one-shot forward's
@@ -1162,6 +1182,8 @@ def api_requests(torch, port: int) -> dict:
           f"prompt in {time.perf_counter() - t0:.2f}s", flush=True)
     prompt_logprob_check(torch, ids, plp)
 
+    embedding_requests(torch, port, smi)
+
     tls = json.loads(http(port, "/debug/requests?limit=256")[1])
     done = [t for t in tls["requests"] if t["finished"]]
     kinds = [[e["name"] for e in t["events"]] for t in done]
@@ -1224,6 +1246,100 @@ def prompt_logprob_check(torch, ids: list[int], plp: list) -> None:
         fail(f"API phase: prompt logprobs off by {rel:.3e} of max|logit|")
     if [e["token_id"] for e in plp[1:]] != ids[1:]:
         fail("API phase: prompt logprob entries name other tokens")
+
+
+# /v1/embeddings: one pooled vector a text; the last text runs in three
+# 512-token chunks over the embedding's own scratch cache
+EMBED_LONG_TOKENS = 1500
+# served embedding vs a mean-pooled one-shot forward of the same ids on
+# the prefill kernel (the server's seeded weights): both pool bf16
+# forwards that sum attention in different orders, so they agree to a
+# cosine of 1 - O(1e-4); 0.999 is the bound
+EMBED_MIN_COSINE = 0.999
+# rerank / score against the cosines of the /v1/embeddings vectors: the
+# server's float32 dot products against float64 ones of the same vectors
+SCORE_TOL = 1e-5
+
+
+def embedding_requests(torch, port: int, smi: str) -> None:
+    """/v1/embeddings on three texts (the last EMBED_LONG_TOKENS tokens,
+    three chunks), twice: each vector unit-norm, both calls equal, each
+    within EMBED_MIN_COSINE of a mean-pooled one-shot forward of its ids
+    on the card; /v1/rerank and /v1/score hold their order and values to
+    the cosines of those vectors."""
+    import numpy as np
+
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.models.config import get_model_config
+    from production_stack_tpu_torch.ops import paged_attention as pa
+
+    def post(path, req):
+        st, body = http(port, path, req)
+        if st != 200:
+            fail(f"embeddings: {path} answered {st}: {body[:400]}")
+        return json.loads(body)
+
+    texts = ["The cat sat on the mat.",
+             "A kitten is resting on a rug in the sun.",
+             "long " + "q r s t " * ((EMBED_LONG_TOKENS - 7) // 8)]
+    texts[2] += "x" * (EMBED_LONG_TOKENS - 1 - len(texts[2].encode()))
+    ids = [post("/tokenize", {"prompt": t})["tokens"] for t in texts]
+    if len(ids[2]) != EMBED_LONG_TOKENS:
+        fail(f"embeddings: the long text has {len(ids[2])} tokens")
+    t0 = time.perf_counter()
+    r1 = post("/v1/embeddings", {"input": texts})
+    all_s = time.perf_counter() - t0
+    r2 = post("/v1/embeddings", {"input": texts, "model": "llama-3.2-3b"})
+    t0 = time.perf_counter()
+    post("/v1/embeddings", {"input": texts[2]})
+    long_s = time.perf_counter() - t0
+    vecs = [np.asarray(d["embedding"], np.float64) for d in r1["data"]]
+    again = [np.asarray(d["embedding"], np.float64) for d in r2["data"]]
+    if ([d["index"] for d in r1["data"]] != [0, 1, 2]
+            or r1["usage"]["prompt_tokens"] != sum(map(len, ids))
+            or r1["object"] != "list"):
+        fail(f"embeddings: bad response shape {str(r1)[:300]}")
+    drift = max(float(np.abs(a - b).max()) for a, b in zip(vecs, again))
+    norms = [float(np.linalg.norm(v)) for v in vecs]
+    if drift != 0.0 or not all(abs(n - 1.0) < 1e-4 for n in norms):
+        fail(f"embeddings: two calls differ by {drift} or norms {norms}")
+
+    cfg = get_model_config("llama-3.2-3b")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = llama.init_params(cfg, gen, torch.bfloat16, "cuda")
+    cos = []
+    with torch.inference_mode():
+        for v, tid in zip(vecs, ids):
+            pad = -len(tid) % pa.PREFILL_TQ
+            h = all_row_logits(torch, pa, cfg, params, tid + [0] * pad,
+                               return_hidden=True)[:len(tid)]
+            ref = h.double().mean(0).cpu().numpy()
+            cos.append(float(ref @ v / np.linalg.norm(ref)))
+    del params
+    torch.cuda.empty_cache()
+    print(f"embeddings: 3 texts of {[len(t) for t in ids]} tokens in "
+          f"{all_s:.3f}s (the server's first embeddings), then the "
+          f"{EMBED_LONG_TOKENS}-token text alone in {long_s:.3f}s (3 "
+          f"chunks; host clock) on {smi}; unit norms {norms}, "
+          f"two calls equal; cosine to a one-shot forward's mean-pooled "
+          f"hidden state {cos} (bound {EMBED_MIN_COSINE})", flush=True)
+    if not min(cos) >= EMBED_MIN_COSINE:
+        fail(f"embeddings: cosine {min(cos)} to the one-shot forward")
+
+    want = [float(vecs[0] @ v) for v in vecs[1:]]
+    rr = post("/v1/rerank", {"query": texts[0], "documents": texts[1:]})
+    order = sorted(range(2), key=lambda i: -want[i])
+    got = [(r["index"], r["relevance_score"]) for r in rr["results"]]
+    if ([i for i, _ in got] != order or max(
+            abs(s - want[i]) for i, s in got) > SCORE_TOL):
+        fail(f"embeddings: rerank {got} against cosines {want}")
+    sc = post("/v1/score", {"text_1": texts[0], "text_2": texts[1:]})
+    scores = [d["score"] for d in sc["data"]]
+    if max(abs(a - b) for a, b in zip(scores, want)) > SCORE_TOL:
+        fail(f"embeddings: score {scores} against cosines {want}")
+    print(f"embeddings: /v1/rerank order {order} and /v1/score {scores} "
+          f"equal the embeddings' cosines {want} (tol {SCORE_TOL})",
+          flush=True)
 
 
 def guided_step_us(torch, token_class, class_mask, class_trans,
@@ -1864,6 +1980,264 @@ def mixed_phase(torch, pa, gap_tol: float, smi: str) -> dict:
     return launches[default]
 
 
+# -- spec phase ------------------------------------------------------------------
+SPEC_TOKENS = 64
+SPEC_K = 4
+SPEC_TEMP = 0.8
+
+
+def spec_prompt(i: int, n: int = 48) -> list[int]:
+    """A repetitive prompt (a period-6 cycle, shifted by i): prompt
+    lookup finds its trailing n-gram earlier in the context."""
+    return [(5 * i + j % 6) % 250 + 1 for j in range(n)]
+
+
+def sampled_tie_check(torch, pa, what: str, eng, prompt: list[int], ref,
+                      other, seed: int, gap_tol: float) -> bool:
+    """The near-tie rule of a sampled lane (temperature SPEC_TEMP) of two
+    engines that sum differently. The sampler adds the noise of key
+    (seed, step) to the TOP_CAP largest logits by RANK, so a parting at
+    step k is explained by logit differences up to gap_tol when each
+    engine's token could hold a winning rank: with the logits of a
+    one-shot forward of the prompt and the reference's first k tokens
+    (the engine's weights; it differs from each engine by up to gap_tol
+    too, hence 2 * gap_tol), a rank r can win if its perturbed score
+    v_r / T + g_r is within 2 * gap_tol / T of the best (the two leading
+    scores' near tie), and a token can hold rank r if its logit is
+    within 2 * gap_tol of v_r (ranks swap among near-equal logits).
+    Fails unless both engines' tokens at step k can; returns whether the
+    streams are equal."""
+    from production_stack_tpu_torch.engine.sampler import gumbel_noise
+
+    if ref == other:
+        return True
+    k = next(k for k, (a, b) in enumerate(zip(ref, other)) if a != b)
+    ids = prompt + list(ref[:k])
+    pad = -len(ids) % pa.PREFILL_TQ
+    cap = eng.runner._top_cap
+    with torch.inference_mode():
+        row = all_row_logits(torch, pa, eng.runner.model_config,
+                             eng.runner.params, ids + [0] * pad)[len(ids) - 1]
+        vals = torch.topk(row, cap).values.cpu().numpy()
+        picks = row[[ref[k], other[k]]].cpu().numpy()
+    scores = vals / SPEC_TEMP + gumbel_noise([(seed & 0xFFFFFFFF, k)],
+                                             cap)[0]
+    can_win = vals[scores >= scores.max() - 2 * gap_tol / SPEC_TEMP]
+    dist = [float(abs(can_win - p).min()) for p in picks]
+    print(f"{what}: sampled lane (seed {seed}) diverges at step {k}: "
+          f"{ref[k]} vs {other[k]}; {len(can_win)} rank(s) within "
+          f"{2 * gap_tol / SPEC_TEMP:.4f} of the best perturbed score, the "
+          f"two tokens' logits {dist[0]:.4f} and {dist[1]:.4f} from one of "
+          f"them (pass at most {2 * gap_tol:.4f})", flush=True)
+    if not max(dist) <= 2 * gap_tol:
+        fail(f"{what}: sampled lane diverges at step {k}, a token "
+             f"{max(dist):.4f} from every winnable rank's logit")
+    return False
+
+
+def spec_phase(torch, pa, gap_tol: float, smi: str,
+               model: str = "llama-3.2-3b", device: str = "cuda") -> dict:
+    """Speculative decoding (n-gram drafts, one packed verify forward a
+    round) on the 28-layer model: in-process engines on the default
+    config with num_speculative_tokens=SPEC_K and without it, in turns:
+    a repetitive prompt at batch 1, then batch 8 (4 greedy lanes, 4
+    seeded sampled lanes), SPEC_TOKENS tokens each. Greedy streams part
+    only under the near-tie rule, sampled ones under sampled_tie_check;
+    drafts and verify dispatches > 0, launches 28 a forward (a verify
+    forward is one ragged launch a layer); the acceptance rate and the
+    wall ms a token at batch 1 (spec / plain, 4 turns) printed. Then the
+    composed verify (--no-ragged-kernel --no-ragged-dispatch, one
+    prefill launch a lane a layer) at batch 2, and the CLI with
+    --num-speculative-tokens whose /metrics carries both
+    vllm:spec_decode_* counters. Returns the spec engine's launches.
+    `model` and `device` exist for a dry run of the phase's logic on a
+    CPU with a tiny model."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.llm_engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def engine(spec: int, **over):
+        return LLMEngine(EngineConfig(
+            model=model, tokenizer="byte", device=device,
+            block_size=32, num_kv_blocks=512, max_num_seqs=8, seed=SEED,
+            num_speculative_tokens=spec, **over))
+
+    spec_eng, plain_eng = engine(SPEC_K), engine(0)
+    greedy = SamplingParams(max_tokens=SPEC_TOKENS, temperature=0,
+                            ignore_eos=True)
+    greedy_lp = SamplingParams(max_tokens=SPEC_TOKENS, temperature=0,
+                               ignore_eos=True, logprobs=2)
+
+    def sampled(i):
+        return SamplingParams(max_tokens=SPEC_TOKENS, temperature=SPEC_TEMP,
+                              seed=1000 + i, ignore_eos=True)
+
+    launches = dict.fromkeys(("decode", "prefill", "ragged"), 0)
+    outs: dict = {}
+
+    def run(name, eng, prompts, sps):
+        pa.reset_launch_counts()
+        runs0 = dict(eng.runner.dispatch_counts)
+        st0 = eng.stats()
+        for i, (p, sp) in enumerate(zip(prompts, sps)):
+            eng.add_request(f"{name}{i}", prompt_token_ids=p,
+                            sampling_params=sp)
+        eng.step()  # the prefill: one token each
+        sync()
+        t0 = time.perf_counter()
+        finals = {}
+        while eng.has_unfinished():
+            finals.update({o.request_id: o for o in eng.step()
+                           if o.finished})
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        runs = {k: v - runs0[k] for k, v in eng.runner.dispatch_counts.items()}
+        got = pa.launch_counts()
+        st = eng.stats()
+        drafts = st.spec_draft_tokens_total - st0.spec_draft_tokens_total
+        acc = st.spec_accepted_tokens_total - st0.spec_accepted_tokens_total
+        what = f"spec phase {name}"
+        check_launches(what, got, runs)
+        if eng is spec_eng:
+            for k in launches:
+                launches[k] += got[k]
+            if not (drafts > 0 and runs["verify_batch"] > 0):
+                fail(f"{what}: {drafts} drafts, {runs['verify_batch']} "
+                     "verify dispatches")
+        n_tok = len(prompts) * (SPEC_TOKENS - 1)
+        print(f"{what}: {n_tok} tokens after the prefill in {ms:.1f} ms = "
+              f"{ms / n_tok:.3f} wall ms a generated token (host clock) on "
+              f"{smi}; dispatches {runs}; drafts {drafts}, accepted {acc}"
+              + (f" (acceptance {acc / drafts:.3f})" if drafts else ""),
+              flush=True)
+        return [finals[f"{name}{i}"] for i in range(len(prompts))], ms / n_tok
+
+    # batch 1, in turns spec / plain / plain / spec, each on its own prompt
+    ms = {"spec": [], "plain": []}
+    for turn, name in enumerate(("spec", "plain", "plain", "spec")):
+        eng = spec_eng if name == "spec" else plain_eng
+        # the plain engine's first turn reads the reference of turn 0
+        p = spec_prompt(turn if turn != 1 else 0)
+        o, t = run(f"{name}-b1-t{turn}", eng, [p],
+                   [greedy if name == "spec" else greedy_lp])
+        ms[name].append(round(t, 3))
+        outs[name, turn] = o
+    same = near_tie_check("spec phase batch 1", outs["plain", 1],
+                          outs["spec", 0], gap_tol)
+    print(f"spec phase: batch 1 greedy stream equal to plain decode: "
+          f"{same == 1}; wall ms a generated token at batch 1, spec "
+          f"{ms['spec']} vs plain {ms['plain']} (turns spec, plain, plain, "
+          f"spec; host clock) on {smi}", flush=True)
+
+    # batch 8: 4 greedy + 4 seeded sampled lanes
+    prompts = [spec_prompt(10 + i, 40 + 8 * i) for i in range(8)]
+    sps_spec = [greedy] * 4 + [sampled(i) for i in range(4, 8)]
+    sps_plain = [greedy_lp] * 4 + [sampled(i) for i in range(4, 8)]
+    o_spec, _ = run("spec-b8", spec_eng, prompts, sps_spec)
+    o_plain, _ = run("plain-b8", plain_eng, prompts, sps_plain)
+    same = near_tie_check("spec phase batch 8", o_plain[:4], o_spec[:4],
+                          gap_tol)
+    same_s = sum(sampled_tie_check(
+        torch, pa, "spec phase batch 8", spec_eng, prompts[i],
+        o_plain[i].token_ids, o_spec[i].token_ids, 1000 + i, gap_tol)
+        for i in range(4, 8))
+    print(f"spec phase: batch 8: {same}/4 greedy and {same_s}/4 sampled "
+          "streams equal to plain decode", flush=True)
+    st = spec_eng.stats()
+    print(f"spec phase: spec engine drafts {st.spec_draft_tokens_total}, "
+          f"accepted {st.spec_accepted_tokens_total}, acceptance rate "
+          f"{st.spec_accepted_tokens_total / st.spec_draft_tokens_total:.3f}"
+          f"; staged decode (hits, misses) ({spec_eng._staged_hits_total}, "
+          f"{spec_eng._staged_misses_total})", flush=True)
+    del spec_eng, plain_eng
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # the composed verify: one prefill launch a lane a layer
+    eng = engine(SPEC_K, ragged_kernel=False, ragged_dispatch=False)
+    lanes = []
+    orig = eng.runner._packed_attn
+
+    def packed_attn(s_pad, *a, **kw):
+        lanes.append(s_pad)
+        return orig(s_pad, *a, **kw)
+
+    eng.runner._packed_attn = packed_attn
+    prompts = [spec_prompt(20), spec_prompt(21, 56)]
+    pa.reset_launch_counts()
+    runs0 = dict(eng.runner.dispatch_counts)
+    t0 = time.perf_counter()
+    o_comp = eng.generate(prompts, SamplingParams(
+        max_tokens=24, temperature=0, ignore_eos=True))
+    sync()
+    runs = {k: v - runs0[k] for k, v in eng.runner.dispatch_counts.items()}
+    got = pa.launch_counts()
+    want = {"ragged": 0, "decode": LAYERS_3B * runs["decode"],
+            "prefill": LAYERS_3B * (runs["prefill"] + sum(lanes))}
+    print(f"spec phase composed: 2 x 24 tokens in "
+          f"{time.perf_counter() - t0:.2f}s (host clock) on {smi}; "
+          f"dispatches {runs}, packed "
+          f"forwards' lanes {lanes}; launches {got}, want {want}",
+          flush=True)
+    if not (runs["verify_batch"] > 0
+            and {k: got[k] for k in want} == want):
+        fail("spec phase composed: no verify forward or launches not 28 a "
+             "lane a forward")
+    del eng
+    ref_eng = engine(0)
+    o_ref = ref_eng.generate(prompts, SamplingParams(
+        max_tokens=24, temperature=0, ignore_eos=True, logprobs=2))
+    del ref_eng
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    same = near_tie_check("spec phase composed", o_ref, o_comp, gap_tol)
+    print(f"spec phase composed: {same}/2 greedy streams equal to plain "
+          "decode on the ragged kernel", flush=True)
+
+    # the CLI with --num-speculative-tokens: both counters on /metrics
+    port = free_port()
+    log_path = REPO / "build" / "chip_smoke_spec_serve.log"
+    t0 = time.perf_counter()
+    proc = start_server(port, log_path, model=model, extra=(
+        "--num-speculative-tokens", str(SPEC_K)) + (
+        () if device == "cuda" else ("--device", device)))
+    try:
+        boot = wait_healthy("spec serve", proc, port, log_path, t0)
+        http(port, "/debug/kernel_launches", method="DELETE")
+        text = "".join(chr(97 + j % 6) for j in range(60))
+        with ThreadPoolExecutor(4) as ex:
+            res = list(ex.map(lambda i: http(port, "/v1/completions", {
+                "prompt": f"{i} {text}", "max_tokens": 32, "temperature": 0,
+                "ignore_eos": True}), range(4)))
+        if any(st != 200 or json.loads(b)["usage"]["completion_tokens"] != 32
+               for st, b in res):
+            fail(f"spec serve: bad completion {res[0][1][:300]}")
+        samples, types = parse_metrics(http(port, "/metrics")[1])
+        fams = ("vllm:spec_decode_num_draft_tokens_total",
+                "vllm:spec_decode_num_accepted_tokens_total")
+        vals = [samples.get(f, [(None, -1)])[0][1] for f in fams]
+        report = json.loads(http(port, "/debug/kernel_launches")[1])
+        print(f"spec serve: healthy {boot:.1f}s after start on {smi}; 4 "
+              f"completions; /metrics {dict(zip(fams, vals))}; dispatches "
+              f"{report['dispatches']}", flush=True)
+        if not (all(types.get(f) == "counter" for f in fams)
+                and vals[0] > 0 and 0 <= vals[1] <= vals[0]
+                and report["dispatches"]["verify_batch"] > 0):
+            fail("spec serve: the vllm:spec_decode_* counters or the verify "
+                 "dispatches did not move")
+        check_launches("spec serve", report["launches"],
+                       report["dispatches"])
+    finally:
+        stop_server(proc)
+    return launches
+
+
 # -- families phase ------------------------------------------------------------
 # published config.json of each model (Hugging Face Hub, the model's main
 # revision; fields the loader does not read left out), cut to 2 layers
@@ -2107,9 +2481,11 @@ def merged_params(torch, params: dict, w: dict) -> dict:
     return {**params, "layers": layers}
 
 
-def all_row_logits(torch, pa, cfg, params, ids, lora=None, slot=None):
+def all_row_logits(torch, pa, cfg, params, ids, lora=None, slot=None,
+                   return_hidden: bool = False):
     """f32 logits of every row of one prompt (one prefill chunk on the
-    prefill kernel), optionally with one adapter slot."""
+    prefill kernel), optionally with one adapter slot; the final-norm
+    hidden rows instead with `return_hidden`."""
     from production_stack_tpu_torch.models import llama
 
     bs, T = 32, len(ids)
@@ -2129,7 +2505,7 @@ def all_row_logits(torch, pa, cfg, params, ids, lora=None, slot=None):
     kw = {} if lora is None else {"lora": lora, "lora_slots": slot}
     lg, _, _ = llama.forward(cfg, params, torch.tensor(ids, device="cuda"),
                              pos, kc, vc, pos + bs, attn, logits_rows=pos,
-                             **kw)
+                             return_hidden=return_hidden, **kw)
     return lg
 
 
@@ -2746,11 +3122,12 @@ def main() -> int:
     stats = kernel_phase(torch)
     forward_phase(torch)
     families_phase(torch, pa, smi)
-    serve_counts, api_counts = serve_phase(torch)
+    serve_counts, api_counts = serve_phase(torch, smi)
     decode_counts, gap_tol = decode_phase(torch, pa)
     guided_counts = guided_phase(torch, pa, gap_tol, smi)
     pipeline_phase(torch, pa, smi)
     mixed_counts = mixed_phase(torch, pa, gap_tol, smi)
+    spec_counts = spec_phase(torch, pa, gap_tol, smi)
     lora_counts = checkpoint_phase(torch, pa, gap_tol, smi)
     kv_counts = kv_phase(torch, pa, gap_tol, smi)
     launches = {
@@ -2760,7 +3137,8 @@ def main() -> int:
     }
     print(f"launches: serve path {serve_counts}, API requests "
           f"{api_counts}, decode path {decode_counts}, guided K=8 engine "
-          f"{guided_counts}, mixed-round path {mixed_counts}, loaded "
+          f"{guided_counts}, mixed-round path {mixed_counts}, spec "
+          f"decode {spec_counts}, loaded "
           f"checkpoint with adapters {lora_counts}, KV paths {kv_counts}; "
           f"a served "
           f"mixed round launches the ragged kernel {LAYERS_3B} times a "

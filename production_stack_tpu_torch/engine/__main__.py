@@ -21,7 +21,9 @@ vLLM's names for prefill / decode), ``--kv-transfer-listen`` and
 ``tools`` with ``tool_choice`` auto; a named tool works without it) and
 ``--tool-call-parser``. Request timelines (``/debug/requests``) are on;
 ``--no-request-timeline``, ``--timeline-ring-size`` and
-``--tracing-exporter`` as in the JAX CLI. Every flag whose feature is
+``--tracing-exporter`` as in the JAX CLI. Speculative decoding:
+``--num-speculative-tokens`` with ``--ngram-prompt-lookup-max`` /
+``--ngram-prompt-lookup-min``. Every flag whose feature is
 not ported yet makes the engine refuse to start (NotImplementedError
 from EngineConfig).
 """
@@ -194,6 +196,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "waiting request may hold its admission slot "
                         "while its KV tier fetch + h2d staging are in "
                         "flight before recomputing from scratch")
+    p.add_argument("--num-speculative-tokens", type=int, default=0,
+                   help="ngram prompt-lookup speculative decoding: "
+                        "draft up to this many tokens a lane and verify "
+                        "them in one packed forward (0=off)")
+    p.add_argument("--ngram-prompt-lookup-max", type=int, default=3)
+    p.add_argument("--ngram-prompt-lookup-min", type=int, default=1)
     # not ported yet: accepted so existing deployments parse, refused by
     # EngineConfig when switched on
     p.add_argument("--async-decode", action="store_true", default=False)
@@ -201,7 +209,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pipeline-parallel-size", type=int, default=1)
     p.add_argument("--context-parallel-size", type=int, default=0)
     p.add_argument("--multihost", action="store_true")
-    p.add_argument("--num-speculative-tokens", type=int, default=0)
     return p
 
 
@@ -252,6 +259,8 @@ def config_from_args(args: argparse.Namespace) -> EngineConfig:
         context_parallel_size=args.context_parallel_size,
         multihost=args.multihost,
         num_speculative_tokens=args.num_speculative_tokens,
+        ngram_prompt_lookup_max=args.ngram_prompt_lookup_max,
+        ngram_prompt_lookup_min=args.ngram_prompt_lookup_min,
         kv_role=role,
         kv_transfer_config={
             "listen": args.kv_transfer_listen,

@@ -7,8 +7,9 @@ lane-typed forward on the ragged kernel), fused K-step decode up to
 ``num_scheduler_steps`` with device-side stop masks and adaptive K, the
 prefill pipeline and the decode prefetch; the KV offload tiers, the
 shared cache server, the KV controller and both roles of disaggregated
-prefill/decode; OpenAI tool calling and the per-request timeline. The
-fields of features not ported yet stay so that
+prefill/decode; OpenAI tool calling, the per-request timeline, and
+n-gram speculative decoding (``num_speculative_tokens``, drafts from
+prompt lookup). The fields of features not ported yet stay so that
 asking for one fails loudly: ``__post_init__`` raises
 NotImplementedError for each (see ``unported``), so no request ever
 reaches a missing path.
@@ -128,10 +129,16 @@ class EngineConfig:
     # engine-side span export: "none" | "log" | "memory" | "otlp"
     tracing_exporter: str = "none"
 
+    # speculative decoding (vLLM's ngram prompt-lookup drafting): up to
+    # this many draft tokens a lane a round, verified in one packed
+    # forward. 0 = off.
+    num_speculative_tokens: int = 0
+    ngram_prompt_lookup_max: int = 3
+    ngram_prompt_lookup_min: int = 1
+
     # -- not ported yet: any non-default value refuses at construction --
     async_decode: bool = False        # double-buffered decode
     precompile_serving: bool = False  # startup shape warmup
-    num_speculative_tokens: int = 0   # ngram spec decode
     tensor_parallel_size: int = 1
     pipeline_parallel_size: int = 1
     context_parallel_size: int = 0
@@ -178,7 +185,6 @@ class EngineConfig:
             ),
             "async_decode": self.async_decode,
             "precompile_serving": self.precompile_serving,
-            "num_speculative_tokens": self.num_speculative_tokens > 0,
             "tensor_parallel_size>1": self.tensor_parallel_size > 1,
             "pipeline_parallel_size>1": self.pipeline_parallel_size > 1,
             "context_parallel_size>1": self.context_parallel_size > 1,
@@ -207,6 +213,20 @@ class EngineConfig:
                 f"[1, block_size={self.block_size}]: idle lanes would "
                 "overrun the trash block"
             )
+        # n=0 would make the prompt-lookup window match every position
+        # (arr[-0:] is the whole context), degenerating drafts to noise.
+        if self.num_speculative_tokens:
+            if not (
+                1
+                <= self.ngram_prompt_lookup_min
+                <= self.ngram_prompt_lookup_max
+            ):
+                raise ValueError(
+                    "require 1 <= ngram_prompt_lookup_min <= "
+                    f"ngram_prompt_lookup_max, got min="
+                    f"{self.ngram_prompt_lookup_min} max="
+                    f"{self.ngram_prompt_lookup_max}"
+                )
         missing = self.unported()
         if self.model_config().is_moe:
             missing.append(f"MoE model {self.model}")

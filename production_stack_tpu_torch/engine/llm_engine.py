@@ -32,9 +32,17 @@ runner evaluates inside the decode loop (``_device_guided_tables``); a
 constraint too large to compile, or a lane near its token budget,
 keeps the host mask. Prompt logprobs run on the single-sequence prefill,
 which scores every row on the device. Every request has a lifecycle
-timeline (``tracing/``) when ``request_timeline`` is on. Async decode,
-the composed-kernel ragged round, long prefill and speculative decoding
-are not ported here: EngineConfig refuses their flags.
+timeline (``tracing/``) when ``request_timeline`` is on.
+
+Speculative decoding (``num_speculative_tokens``): a decode-only round
+whose lanes all sample plainly drafts each lane's next tokens by n-gram
+prompt lookup and verifies them in ONE packed forward
+(``ModelRunner.verify_batch``), every row sampled on the device with the
+key its sequential step would use, so the accepted stream is the plain
+one. ``embed_one`` mean-pools the final hidden state over a scratch
+cache (``ModelRunner.embed``) for /v1/embeddings, /v1/rerank and
+/v1/score. Async decode, the composed-kernel ragged round and long
+prefill are not ported here: EngineConfig refuses their flags.
 """
 
 from __future__ import annotations
@@ -171,6 +179,11 @@ class LLMEngine:
         self._generation_tokens_total = 0
         self._preemptions_total = 0
         self._finished_total = 0
+        # speculative decoding: n-gram drafts verified in one packed
+        # forward a round; drafts proposed and accepted, for /metrics
+        self._spec_enabled = config.num_speculative_tokens > 0
+        self._spec_drafts_total = 0
+        self._spec_accepted_total = 0
         # decode rounds, the chosen-K histogram (tpu:decode_k),
         # host-discarded overshoot tokens (~0 under device stops) and
         # rounds whose device loop exited early
@@ -1032,11 +1045,14 @@ class LLMEngine:
                 works = nxt
             self._maybe_stage_prefill(works)
         elif sched_out.decode is not None:
-            stepped.extend(
-                self._run_decode_round(
-                    sched_out.decode.seqs, sched_out.decode.k
-                )
-            )
+            seqs = sched_out.decode.seqs
+            spec = (self._try_spec_decode_batch(seqs)
+                    if self._spec_enabled else None)
+            if spec is not None:
+                stepped.extend(spec)
+            else:
+                stepped.extend(
+                    self._run_decode_round(seqs, sched_out.decode.k))
         outputs.extend(self._finalize_stepped(stepped))
         return outputs
 
@@ -1319,6 +1335,123 @@ class LLMEngine:
                 if not seq.finished:
                     self.timeline.decode_round(seq.request_id, k,
                                                attrs=attrs)
+
+    # -- speculative decoding (prompt-lookup n-gram drafts) ----------------
+    # haystack bound for prompt-lookup: the scan runs per lane per round
+    # on the step loop, so it is capped to a recent suffix (older matches
+    # are stale context anyway)
+    NGRAM_SCAN_WINDOW = 8192
+
+    # stackcheck: not-hot — host n-gram matching over python token lists;
+    # no device tensor reaches it
+    def _ngram_drafts(self, seq: Sequence, k: int) -> list[int]:
+        """Up to `k` draft tokens: the continuation of the LAST earlier
+        occurrence of the context's trailing n-gram, longest n first
+        (vLLM's ngram prompt lookup): no draft model, only the
+        sequence's own tokens."""
+        context = seq.all_token_ids[-self.NGRAM_SCAN_WINDOW:]
+        arr = np.asarray(context, np.int32)
+        cfg = self.config
+        for n in range(cfg.ngram_prompt_lookup_max,
+                       cfg.ngram_prompt_lookup_min - 1, -1):
+            if len(arr) <= n:
+                continue
+            pattern = arr[-n:]
+            win = np.lib.stride_tricks.sliding_window_view(arr, n)
+            matches = np.nonzero((win == pattern).all(axis=1))[0]
+            matches = matches[matches + n < len(arr)]  # need continuation
+            if len(matches):
+                i = int(matches[-1])
+                return [int(t) for t in context[i + n: i + n + k]]
+        return []
+
+    def _try_spec_decode_batch(
+        self, seqs: list[Sequence]
+    ) -> list[Sequence] | None:
+        """One speculative round over the whole decode batch; returns
+        the stepped lanes, or None to run the normal decode round.
+
+        Every lane's chunk [last_token, d_1..d_k] (zero-draft lanes feed
+        their last token alone) runs in ONE packed verify forward whose
+        every row is sampled on the device with the key sequential decode
+        would use at that step, (seed, generated_len + j): acceptance by
+        equality then yields exactly the sequential stream at any
+        temperature. Eligibility is whole-batch: a lane that edits its
+        logits each step (logprobs, a guided mask, penalties, logit_bias)
+        sends the batch to the normal path. The round stages nothing, so
+        no later round chains on it; a decode stage built before it
+        misses by its fingerprint."""
+        for s in seqs:
+            sp = s.sampling_params
+            if (
+                sp.logprobs is not None
+                or self._is_guided(s)
+                or sp.logit_bias
+                or sp.presence_penalty != 0.0
+                or sp.frequency_penalty != 0.0
+                or sp.repetition_penalty != 1.0
+            ):
+                return None
+        k_cfg = self.config.num_speculative_tokens
+        drafts_by_lane: list[list[int]] = []
+        for s in seqs:
+            n0 = s.num_tokens
+            # drafts fit the KV layout and the generation budget, and the
+            # k + 1 fed rows one prefill bucket
+            k = min(
+                k_cfg,
+                self.scheduler.config.max_model_len - n0,
+                s.sampling_params.max_tokens
+                - len(s.generated_token_ids) - 1,
+                self.config.max_prefill_chunk - 1,
+            )
+            d = self._ngram_drafts(s, k) if k > 0 else []
+            if d and not self.block_manager.ensure_capacity(
+                n0 + len(d), s.block_table
+            ):
+                d = []  # no room to grow: this lane rides draft-free
+            drafts_by_lane.append(d)
+        if not any(drafts_by_lane):
+            return None
+        chunks = [[s.all_token_ids[-1]] + d
+                  for s, d in zip(seqs, drafts_by_lane)]
+        temps, top_ps, top_ks, min_ps, _keys, _pen = (
+            self._sampling_arrays(seqs))
+        seeds = np.asarray(
+            [self._seq_seed(s) & 0xFFFFFFFF for s in seqs], np.uint32)
+        starts = np.asarray(
+            [len(s.generated_token_ids) for s in seqs], np.int64)
+        sampled = self.runner.verify_batch(
+            chunks,
+            start_positions=[s.num_tokens - 1 for s in seqs],
+            block_tables=[s.block_table for s in seqs],
+            total_lens=[s.num_tokens - 1 + len(c)
+                        for s, c in zip(seqs, chunks)],
+            row_sampling=(temps, top_ps, top_ks, min_ps, seeds, starts),
+            lora_slots=self._lora_slots(seqs),
+        )
+        stepped: list[Sequence] = []
+        for seq, drafts, row in zip(seqs, drafts_by_lane, sampled):
+            accepted = 0
+            for d in drafts:
+                if int(row[accepted]) != d:
+                    break
+                accepted += 1
+            self._spec_drafts_total += len(drafts)
+            self._spec_accepted_total += accepted
+            # the accepted drafts, then the verify forward's own next
+            # token (the correction on a mismatch, the bonus token on
+            # full acceptance)
+            new_tokens = drafts[:accepted] + [int(row[accepted])]
+            for t in new_tokens:
+                if seq.finished:
+                    break  # EOS / stop mid-acceptance: drop the rest
+                seq.num_computed_tokens = seq.num_tokens
+                self._append_token(seq, int(t))
+            if self._tl_enabled and not seq.finished:
+                self.timeline.decode_round(seq.request_id, len(new_tokens))
+            stepped.append(seq)
+        return stepped
 
     # -- unified ragged rounds ----------------------------------------------
     def _penalty_args(self, seqs: list[Sequence]) -> tuple:
@@ -2609,6 +2742,28 @@ class LLMEngine:
         if self.kv_reporter is not None:
             self.kv_reporter.close()
 
+    # -- embeddings (stateless one-shots, /v1/embeddings) -------------------
+    def embed_one(
+        self, text: str, lora_name: str | None = None
+    ) -> tuple[np.ndarray, int]:
+        """Embed one text -> (vector, token_count). One text a call, so
+        the server can release the step-loop lock between items."""
+        ids = self.tokenizer.encode(text)
+        if not ids:
+            ids = [self.tokenizer.eos_token_id or 0]
+        lora_slot = 0
+        if lora_name is not None:
+            if self.runner.lora_manager is None:
+                raise ValueError(
+                    "embeddings for a LoRA adapter require --enable-lora"
+                )
+            lora_slot = self.runner.lora_manager.slot_of(lora_name)
+        return self.runner.embed(ids, lora_slot=lora_slot), len(ids)
+
+    def embed(self, texts: list[str],
+              lora_name: str | None = None) -> list[np.ndarray]:
+        return [self.embed_one(t, lora_name)[0] for t in texts]
+
     # -- stats for /metrics -------------------------------------------------
     def stats(self) -> EngineStatsSnapshot:
         phase = self.runner.prefill_phase_s
@@ -2624,6 +2779,8 @@ class LLMEngine:
             generation_tokens_total=self._generation_tokens_total,
             num_preemptions_total=self._preemptions_total,
             requests_finished_total=self._finished_total,
+            spec_draft_tokens_total=self._spec_drafts_total,
+            spec_accepted_tokens_total=self._spec_accepted_total,
             prefill_prep_seconds_total=phase["prep"],
             prefill_h2d_seconds_total=phase["h2d"],
             prefill_dispatch_seconds_total=phase["dispatch"],

@@ -55,6 +55,10 @@ _COUNTERS = (
      "generation_tokens_total"),
     ("vllm:num_preemptions", "Sequence preemptions",
      "num_preemptions_total"),
+    ("vllm:spec_decode_num_draft_tokens", "Speculative draft tokens proposed",
+     "spec_draft_tokens_total"),
+    ("vllm:spec_decode_num_accepted_tokens",
+     "Speculative draft tokens accepted", "spec_accepted_tokens_total"),
     ("tpu:prefill_prep_seconds", "Prefill host-prep wall time",
      "prefill_prep_seconds_total"),
     ("tpu:prefill_h2d_seconds", "Prefill host->device upload wall time",

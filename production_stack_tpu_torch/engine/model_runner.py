@@ -4,14 +4,16 @@ the prefill / packed-prefill / decode forwards.
 Counterpart of ``production_stack_tpu/engine/model_runner.py``:
 single-sequence ``prefill`` (with ``prompt_lp_targets``, every row's
 target logprob and top-LOGPROB_CAP alternatives computed on the device),
-packed ``prefill_batch``, single-step ``decode``, the fused K-step
+packed ``prefill_batch``, the packed speculative ``verify_batch`` (every
+row sampled on the device), single-step ``decode``, the fused K-step
 ``decode_multi`` and the unified lane-typed round ``ragged_dispatch``
 (both evaluate guided lanes' TokenDFA tables inside the loop), the
 staging of each (``stage_prefill``, ``stage_prefill_batch``,
 ``stage_decode_multi``, ``stage_ragged``), and the KV export and import
 of whole blocks in the wire layout the tiers, peers and cache server
 share (``stage_export_blocks`` / ``materialize_export``,
-``stage_import_blocks`` / ``import_staged_blocks``).
+``stage_import_blocks`` / ``import_staged_blocks``), and ``embed`` (a
+mean-pooled final hidden state over a scratch cache of its own).
 Host-side padding keeps the JAX buckets — chunks pad to a power of two
 >= 8, contexts to a power-of-two block count, decode to max_num_seqs
 lanes, ragged-round prefill rows to a power of two — so the kernels see
@@ -81,7 +83,10 @@ from production_stack_tpu_torch.engine.sampler import (
 from production_stack_tpu_torch.models import llama, weights
 from production_stack_tpu_torch.models.config import ModelConfig
 from production_stack_tpu_torch.ops import paged_attention
-from production_stack_tpu_torch.ops.attention import block_table_slots
+from production_stack_tpu_torch.ops.attention import (
+    block_table_slots,
+    context_attention_prefill,
+)
 from production_stack_tpu_torch.ops.layers import matmul_f32
 from production_stack_tpu_torch.utils import init_logger
 
@@ -283,7 +288,8 @@ class ModelRunner:
         self._top_cap = min(TOP_CAP, self.model_config.vocab_size)
         self.dispatch_counts = {"prefill": 0, "prefill_batch": 0,
                                 "decode": 0, "decode_multi": 0,
-                                "ragged": 0, "decode_iterations": 0}
+                                "ragged": 0, "decode_iterations": 0,
+                                "verify_batch": 0}
         # the DFA tables of the live constraints on the device, keyed by
         # the engine's cache token; how often they were uploaded, and the
         # fused rounds that ran guided lanes on them
@@ -1076,6 +1082,117 @@ class ModelRunner:
         self.dispatch_counts["prefill_batch"] += 1
         self._phase_add("dispatch", time.perf_counter() - t2)
         return sampled, logits
+
+    # -- speculative verification ------------------------------------------
+    def _verify_pack_layout(self, s_pad: int, t_pad: int, c_pad: int,
+                            lora_rows: bool = False):
+        """Layout of the ONE int32 buffer a verify dispatch ships: the
+        (s_pad, t_pad) packed group's rows, then per-ROW sampling fields
+        (row (s, j) samples with lane s's parameters and its own noise).
+        `lora_rows` adds the per-row adapter slots."""
+        r = s_pad * t_pad
+        return self._layout_of([
+            ("tokens", (r,)),
+            ("positions", (r,)),
+            ("write_slots", (r,)),
+            ("tables", (s_pad, c_pad // self.block_size)),
+            ("temps", (r,)),
+            ("top_ps", (r,)),
+            ("top_ks", (r,)),
+            ("min_ps", (r,)),
+            ("noise", (r, self._top_cap)),
+        ] + ([("lora_rows", (r,))] if lora_rows else []))
+
+    @torch.inference_mode()
+    def verify_batch(
+        self,
+        chunks: list[list[int]],
+        start_positions: list[int],
+        block_tables: list[list[int]],
+        total_lens: list[int],
+        row_sampling: tuple,
+        lora_slots: list[int] | None = None,
+    ) -> np.ndarray:
+        """One packed verification forward over n lanes' draft chunks
+        [last_token, d_1..d_k]; returns (n, t_pad) int32, fetched once:
+        row (s, j) is the token lane s's sampler picks after consuming
+        chunk row j. `row_sampling` = per-lane (temps, top_ps, top_ks,
+        min_ps, seeds, key_starts): row j of lane s samples with the noise
+        of key (seeds[s], key_starts[s] + j), the key sequential step j
+        would use (greedy lanes take zeros, never read). KV of every fed
+        row is written; rejected rows' KV lies past every reader's
+        context until real tokens overwrite it, and padding rows write
+        the trash slot. Attention: one ragged launch a layer over the
+        whole packed axis, or one prefill launch a lane a layer with
+        --no-ragged-kernel. The LM head and the sampler run
+        PROMPT_LP_ROW_CHUNK rows at a time."""
+        n = len(chunks)
+        lora = self._lora_key(lora_slots)
+        per_tok = isinstance(lora, tuple)
+        (s_pad, t_pad, c_pad, tokens, positions_dev, write_slots,
+         q_starts, tables) = self._packed_host_prep(
+            chunks, start_positions, block_tables, total_lens
+        )
+        l_temps, l_top_ps, l_top_ks, l_min_ps, l_seeds, l_starts = (
+            row_sampling)
+
+        def rows(vals, fill, dtype):
+            out = np.full((s_pad, t_pad), fill, dtype)
+            out[:n] = np.asarray(vals, dtype)[:, None]
+            return out
+
+        temps = rows(l_temps, 0.0, np.float32)
+        keys = np.stack([np.asarray(l_seeds, np.uint64),
+                         np.asarray(l_starts, np.uint64)], axis=1)
+        noise = np.zeros((s_pad, t_pad, self._top_cap), np.float32)
+        noise[:n] = round_noise(keys, temps[:n, 0], t_pad,
+                                self._top_cap).transpose(1, 0, 2)
+        layout, size = self._verify_pack_layout(s_pad, t_pad, c_pad,
+                                                per_tok)
+        packed = np.zeros((size,), np.int32)
+        put = functools.partial(self._pack_put, packed, layout)
+        put("tokens", tokens)
+        put("positions", positions_dev)
+        put("write_slots", write_slots)
+        put("tables", tables)
+        put("temps", temps)
+        put("top_ps", rows(l_top_ps, 1.0, np.float32))
+        put("top_ks", rows(l_top_ks, -1, np.int32))
+        put("min_ps", rows(l_min_ps, 0.0, np.float32))
+        put("noise", noise)
+        if per_tok:
+            put("lora_rows", self._packed_slot_vector(
+                lora_slots, n, s_pad, t_pad))
+        packed_dev = self._upload(packed)
+        seg = functools.partial(self._pack_seg, packed_dev, layout)
+        attn = self._packed_attn(s_pad, t_pad, seg("tables"), q_starts)
+        r = s_pad * t_pad
+        hidden, _, _ = llama.forward(
+            self.model_config, self.params, seg("tokens"),
+            seg("positions"), self.k_cache, self.v_cache,
+            seg("write_slots"), attn,
+            logits_rows=torch.arange(r, device=self.device),
+            return_hidden=True,
+            **self._lora_kw(lora, seg("lora_rows") if per_tok else None),
+        )
+        mc = self.model_config
+        lm_head = (self.params["embed"].t() if mc.tie_word_embeddings
+                   else self.params["lm_head"])
+        h = hidden.to(self.dtype)
+        f32 = {name: seg(name).view(torch.float32)
+               for name in ("temps", "top_ps", "min_ps", "noise")}
+        top_ks = seg("top_ks")
+        sampled = torch.cat([
+            sample_tokens(
+                matmul_f32(h[b], lm_head), f32["temps"][b],
+                f32["top_ps"][b], top_ks[b], f32["noise"][b],
+                min_p=f32["min_ps"][b],
+            )
+            for b in (slice(r0, r0 + PROMPT_LP_ROW_CHUNK)
+                      for r0 in range(0, r, PROMPT_LP_ROW_CHUNK))
+        ])
+        self.dispatch_counts["verify_batch"] += 1
+        return sampled.cpu().numpy().reshape(s_pad, t_pad)[:n]
 
     def _decode_blk_seg(self, b: int) -> torch.Tensor:
         """The CSR row-block offsets of a b-lane decode step (shapes
@@ -2218,6 +2335,63 @@ class ModelRunner:
         self._phase_add("dispatch", time.perf_counter() - t2)
         return out
 
+
+    # -- embeddings (stateless, /v1/embeddings) ------------------------------
+    @torch.inference_mode()
+    def embed(self, token_ids: list[int], lora_slot: int = 0) -> np.ndarray:
+        """Mean-pooled, L2-normalised final hidden state -> (hidden,) f32
+        (a decoder as embedder, the e5-mistral pattern). The input runs
+        in chunks of max_prefill_chunk through llama.forward over a
+        scratch cache of its own, (L, nkv, c_pad + 1, d), allocated for
+        this call: cache row == absolute position, and padded chunk rows
+        carry position c_pad, landing in the extra trash row and masked
+        out of attention and pooling. Attention is the plain chunk x
+        context one (ops/attention.py), as the JAX package computes it
+        in XLA. Inputs above max_model_len are refused, never
+        truncated."""
+        t = len(token_ids)
+        if t > self.max_model_len:
+            raise ValueError(
+                f"embedding input has {t} tokens, exceeds max_model_len="
+                f"{self.max_model_len}"
+            )
+        mc = self.model_config
+        c_pad = self._ctx_bucket(t)
+        chunk = self.config.max_prefill_chunk
+        kc = torch.zeros(
+            (mc.num_layers, mc.num_kv_heads, c_pad + 1, mc.head_dim),
+            dtype=self.cache_dtype, device=self.device,
+        )
+        vc = torch.zeros_like(kc)
+        lora_kw = self._lora_kw(self._lora_key([lora_slot]))
+        pooled_sum = np.zeros((mc.hidden_size,), np.float64)
+        for start in range(0, t, chunk):
+            ids = token_ids[start: start + chunk]
+            t_pad = self._prefill_bucket(len(ids))
+            toks = np.zeros((t_pad,), np.int32)
+            toks[: len(ids)] = ids
+            positions = np.full((t_pad,), c_pad, np.int32)
+            positions[: len(ids)] = np.arange(start, start + len(ids))
+            pos_d = self._dev(positions)
+            total_len = start + len(ids)
+
+            def attn(q, l, kcache, vcache):
+                return context_attention_prefill(
+                    q, kcache[l].transpose(0, 1), vcache[l].transpose(0, 1),
+                    pos_d, total_len, self._scale,
+                    window=mc.sliding_window,
+                )
+
+            h, _, _ = llama.forward(
+                mc, self.params, self._dev(toks), pos_d, kc, vc, pos_d,
+                attn, logits_rows=torch.arange(t_pad, device=self.device),
+                return_hidden=True, **lora_kw,
+            )  # (t_pad, hidden) f32
+            keep = (pos_d < t)[:, None].float()
+            pooled_sum += (h * keep).sum(0).double().cpu().numpy()
+        pooled = pooled_sum / max(t, 1)
+        norm = float(np.linalg.norm(pooled))
+        return (pooled / max(norm, 1e-12)).astype(np.float32)
 
     # -- cache import/export (KV offload + PD transfer tiers) -------------
     def on_compute_stream(self):

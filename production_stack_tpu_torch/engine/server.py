@@ -10,7 +10,11 @@ either; ``n``, ``best_of`` = n, ``echo``, ``prompt_logprobs``) and
 ``tool_calls``; ``n``), both with ``stream`` and the guided-decoding
 fields (``guided_json`` / ``guided_regex`` / ``guided_choice`` /
 ``guided_grammar`` / ``response_format``); a ``model`` naming a loaded
-adapter is served with it. ``/tokenize`` and ``/detokenize``; ``/sleep``,
+adapter is served with it. ``/v1/embeddings`` (mean-pooled, normalised
+final hidden states), ``/v1/rerank`` (also ``/rerank``) and ``/v1/score``
+(also ``/score``), which score by the cosine of those embeddings; each
+text is embedded under the step lock on its own, off the event loop.
+``/tokenize`` and ``/detokenize``; ``/sleep``,
 ``/wake_up`` and ``/is_sleeping`` (the router's service discovery probes
 them); ``/debug/requests`` (the per-request lifecycle timelines);
 ``POST /v1/load_lora_adapter`` and ``/v1/unload_lora_adapter`` (the
@@ -76,7 +80,8 @@ _REASONS = {
 MAX_BODY_BYTES = 64 * 2**20
 STATS_UPDATE_INTERVAL_S = 1.0
 # paths behind --api-key besides /v1/* (the JAX server's list)
-_AUTH_PATHS = ("/tokenize", "/detokenize", "/sleep", "/wake_up")
+_AUTH_PATHS = ("/tokenize", "/detokenize", "/sleep", "/wake_up", "/rerank",
+               "/score")
 
 
 class HttpError(Exception):
@@ -113,6 +118,11 @@ class EngineServer:
             ("GET", "/metrics"): self.handle_metrics,
             ("POST", "/v1/completions"): self.handle_completions,
             ("POST", "/v1/chat/completions"): self.handle_chat,
+            ("POST", "/v1/embeddings"): self.handle_embeddings,
+            ("POST", "/v1/rerank"): self.handle_rerank,
+            ("POST", "/rerank"): self.handle_rerank,
+            ("POST", "/v1/score"): self.handle_score,
+            ("POST", "/score"): self.handle_score,
             ("POST", "/tokenize"): self.handle_tokenize,
             ("POST", "/detokenize"): self.handle_detokenize,
             ("GET", "/debug/requests"): self.handle_debug_requests,
@@ -509,6 +519,114 @@ class EngineServer:
                                           _wants_usage(body))
         else:
             await self._blocking_completion(job, ids, writer)
+
+    # -- embeddings, rerank and score ----------------------------------------
+    # A decoder engine embeds by mean-pooling its final hidden state
+    # (LLMEngine.embed_one) and scores rerank / score pairs by the cosine
+    # of those embeddings, as the JAX server does: the API contract and
+    # the ordering hold; a cross-encoder would give calibrated scores.
+    def _embed_texts(self, texts: list[str], lora_name: str | None):
+        """-> (vectors, prompt tokens). One text per acquisition of the
+        step lock, so an in-flight decode batch waits for one embedding
+        forward at most, never for the whole list. Runs off the event
+        loop (run_in_executor)."""
+        vecs, n_tokens = [], 0
+        for t in texts:
+            with self.engine._lock:
+                vec, count = self.engine.engine.embed_one(t, lora_name)
+            vecs.append(vec)
+            n_tokens += count
+        return vecs, n_tokens
+
+    async def _embed(self, texts: list[str], model: str):
+        lora_name = model if model in self.lora_adapters else None
+        return await asyncio.get_running_loop().run_in_executor(
+            None, self._embed_texts, texts, lora_name)
+
+    async def handle_embeddings(self, req, writer) -> None:
+        body = _json(req.body)
+        self._check_model(body)
+        model = body.get("model", self.model_name)
+        inputs = body.get("input")
+        if isinstance(inputs, str):
+            inputs = [inputs]
+        if (not isinstance(inputs, list) or not inputs
+                or not all(isinstance(x, str) for x in inputs)):
+            raise HttpError(400, "'input' must be a non-empty string or "
+                            "list of strings")
+        vecs, n_tokens = await self._embed(inputs, model)
+        await _send_json(writer, 200, {
+            "object": "list",
+            "model": model,
+            "data": [{"object": "embedding", "index": i,
+                      "embedding": v.tolist()}
+                     for i, v in enumerate(vecs)],
+            "usage": {"prompt_tokens": n_tokens, "total_tokens": n_tokens},
+        })
+
+    async def handle_rerank(self, req, writer) -> None:
+        """Jina / Cohere-style rerank: query + documents -> the documents
+        by descending score, the first top_n."""
+        body = _json(req.body)
+        self._check_model(body)
+        query, docs = body.get("query"), body.get("documents")
+        if (not isinstance(query, str) or not isinstance(docs, list)
+                or not docs or not all(isinstance(d, str) for d in docs)):
+            raise HttpError(400, "'query' must be a string and "
+                            "'documents' a non-empty list of strings")
+        model = body.get("model", self.model_name)
+        top_n = body.get("top_n", len(docs))
+        if isinstance(top_n, bool) or not isinstance(top_n, int) \
+                or top_n < 0:
+            raise HttpError(400, "'top_n' must be a non-negative integer")
+        vecs, n_tokens = await self._embed([query] + docs, model)
+        q = vecs[0]
+        scored = sorted(
+            ({"index": i, "relevance_score": float(q @ v),
+              "document": {"text": docs[i]}}
+             for i, v in enumerate(vecs[1:])),
+            key=lambda r: -r["relevance_score"],
+        )[:top_n]
+        await _send_json(writer, 200, {
+            "id": proto.make_id("rerank"),
+            "model": model,
+            "results": scored,
+            "usage": {"total_tokens": n_tokens},
+        })
+
+    async def handle_score(self, req, writer) -> None:
+        """vLLM-style /v1/score: text_1 x text_2 similarity, broadcast
+        1xM, Nx1 or paired NxN; each distinct text is embedded once."""
+        body = _json(req.body)
+        self._check_model(body)
+        t1, t2 = body.get("text_1"), body.get("text_2")
+        t1 = [t1] if isinstance(t1, str) else t1
+        t2 = [t2] if isinstance(t2, str) else t2
+        if not (isinstance(t1, list) and isinstance(t2, list) and t1 and t2
+                and all(isinstance(x, str) for x in t1 + t2)
+                and (len(t1) == 1 or len(t2) == 1 or len(t1) == len(t2))):
+            raise HttpError(400, "'text_1'/'text_2' must be strings or "
+                            "lists of strings with broadcastable lengths "
+                            "(1xM, Nx1, NxN)")
+        if len(t1) == 1:
+            pairs = [(t1[0], x) for x in t2]
+        elif len(t2) == 1:
+            pairs = [(x, t2[0]) for x in t1]
+        else:
+            pairs = list(zip(t1, t2))
+        model = body.get("model", self.model_name)
+        uniq = list(dict.fromkeys(t for p in pairs for t in p))
+        vecs, n_tokens = await self._embed(uniq, model)
+        by_text = dict(zip(uniq, vecs))
+        await _send_json(writer, 200, {
+            "id": proto.make_id("score"),
+            "object": "list",
+            "model": model,
+            "data": [{"object": "score", "index": i,
+                      "score": float(by_text[a] @ by_text[b])}
+                     for i, (a, b) in enumerate(pairs)],
+            "usage": {"total_tokens": n_tokens},
+        })
 
     # -- LoRA hot-load (reference: loraadapter_controller.go:582-598 POSTs) -
     async def handle_load_lora(self, req, writer) -> None:

@@ -7,7 +7,9 @@ p % block_size``, so row i of the gathered context is absolute position i.
 
 This module materialises the gathered context and runs a plain masked
 softmax. It is the oracle the paged kernels (ops/paged_attention.py) are
-held against in the tests; the card's serving path never calls it.
+held against in the tests, and the attention of ``ModelRunner.embed``
+(chunk x context over its scratch cache, as the JAX package computes it
+in XLA); no other serving path calls it.
 """
 
 from __future__ import annotations

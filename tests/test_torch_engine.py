@@ -130,7 +130,7 @@ def test_seeded_sampling_is_reproducible(np_params):
     ("ragged_kernel", False),  # the composed-kernel ragged round
     ("async_decode", True), ("tensor_parallel_size", 2),
     ("pipeline_parallel_size", 2), ("multihost", True),
-    ("num_speculative_tokens", 2), ("model", "pst-tiny-moe-debug"),
+    ("context_parallel_size", 2), ("model", "pst-tiny-moe-debug"),
 ])
 def test_unported_flags_refuse_to_start(field, value):
     """On the default (unified ragged round) configuration."""

@@ -178,6 +178,7 @@ def test_families_match_the_jax_module():
         prefix_cache_queries=40, prefix_cache_hits=12,
         prompt_tokens_total=300, generation_tokens_total=77,
         num_preemptions_total=1, requests_finished_total=5,
+        spec_draft_tokens_total=64, spec_accepted_tokens_total=23,
         prefill_prep_seconds_total=0.5, prefill_h2d_seconds_total=0.125,
         prefill_dispatch_seconds_total=2.0,
         prefill_fetch_seconds_total=0.75, prefill_staged_hits_total=4,
@@ -230,7 +231,7 @@ def test_families_match_the_jax_module():
         ref.observe_request(*f[:4], queue_s=f[4], sched_delay_s=f[5],
                             preempt_stall_s=f[6])
     want = _families(generate_latest(reg).decode())
-    assert len(got) == 50
+    assert len(got) == 52
     for name, (kind, samples) in got.items():
         assert name in want, name
         assert kind == want[name][0], name
@@ -242,7 +243,9 @@ def test_families_match_the_jax_module():
                  "vllm:gpu_prefix_cache_queries_total",
                  "tpu:scheduling_delay_seconds", "tpu:kv_tier_hits",
                  "tpu:kv_restore_seconds", "tpu:kv_restore_fallbacks",
-                 "tpu:kv_export_sync_fallbacks", "tpu:ragged_lane_mix"):
+                 "tpu:kv_export_sync_fallbacks", "tpu:ragged_lane_mix",
+                 "vllm:spec_decode_num_draft_tokens",
+                 "vllm:spec_decode_num_accepted_tokens"):
         assert name in got
 
 
