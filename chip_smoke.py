@@ -40,8 +40,14 @@ Phases, each fatal on failure:
    logits held to the CPU as in phase 3, and an engine booted on each
    directory generates; a 5000-token Mistral prompt (past its window,
    ten prefill chunks) on the prefill kernel is held to the same
-   forward on the plain attention on the card; a Gemma-7B config
-   (head_dim 256) is refused at boot with a message naming it;
+   forward on the plain attention on the card; Gemma-7B (head_dim 256)
+   and Phi-3-mini (head_dim 96, a 2047-token window), whose head_dims
+   the kernels lack, the same at 2 layers on the gather path (logits
+   card vs CPU, a 3000-token Phi-3 prompt past its window held to the
+   prefill kernel's plain version on the card): an engine booted under
+   attention_impl auto resolves to xla, logs "attention impl: xla
+   (head_dim N not in (64, 128))" and generates with no kernel launch,
+   and under pallas each is refused at boot naming its head_dim;
 5. serve: the port's CLI (python -m production_stack_tpu_torch.engine)
    starts its OpenAI server on loopback with llama-3.2-3b (all 28
    layers, random bf16 weights, byte tokenizer) on its default config
@@ -120,7 +126,18 @@ Phases, each fatal on failure:
    round's device time (host clock; reported beside the card's name and
    power limit and the reads taken before staging existed, not
    claims);
-8b. spec: in-process 28-layer bf16 engines on the default config with
+8b. impl: the composed ragged round and the gather path beside the
+   ragged kernel, in-process 28-layer bf16 engines at K=8 on the same
+   seeded weights: the default engine, one with --no-ragged-kernel
+   (attention_impl pallas) and one with --attention-impl xla serve the
+   mixed phase's scenario and decode at batch 8, in turns ragged,
+   composed, gather, gather, composed, ragged; the composed engine
+   launches the prefill kernel 28 times per single-sequence prefill and
+   per padded prefill lane of a packed forward and the decode kernel 28
+   times a decode forward, the ragged kernel never, the gather engine
+   no kernel; their greedy streams are held to the ragged-kernel
+   engine's under the near-tie rule; wall ms a token printed;
+8c. spec: in-process 28-layer bf16 engines on the default config with
    --num-speculative-tokens 4 and without it, in turns: a repetitive
    prompt at batch 1 (turns spec, plain, plain, spec; wall ms a
    generated token printed), then batch 8 with 4 greedy and 4 seeded
@@ -171,19 +188,39 @@ Phases, each fatal on failure:
    and its stream is held to the prefill server's own for the same
    request; (d) a fresh engine with only the cache server restores the
    1500-token prompt from it. Restore and export fallbacks read 0
-   throughout, launches 28 a forward on every engine and server.
+   throughout, launches 28 a forward on every engine and server;
+11. phi-3: Phi-3-mini at full depth (32 layers, 7.6 GB of seeded bf16
+   weights) written as an HF checkpoint under build/ (removed after) and
+   served by the CLI under auto (the gather path; log
+   build/chip_smoke_phi3_serve.log): prompts of 24, 300, 900 and 3000
+   tokens (the last past the 2047-token window) at once, 16 tokens
+   each, no kernel launch;
+12. MoE: Mixtral-8x7B at its published widths, depth cut to 4 of 32
+   layers (12.2 GB in bf16; the whole model does not fit one card): 2
+   layers' logits card vs CPU; a 1-layer checkpoint with
+   block_sparse_moe.* keys written and read back byte for byte; the
+   dense MoE block's device time at batch 8 against its bytes bound;
+   an engine on the default path serves the mixed phase's scenario with
+   4 ragged launches a forward, in bf16 (its agreement with one-shot
+   bf16 forwards of each whole sequence printed, beside how many
+   (layer, token) expert pairs bf16 rounding alone moves between bf16
+   and float32 one-shot forwards) and on the same weights in float32,
+   whose greedy streams are held to one-shot float32 forwards under the
+   near-tie rule.
 
 Launch counts are reset just before the serve phase's requests (through
 the server's /debug/kernel_launches) and again before its API requests,
 before each guided-phase engine, before the decode phase's
 --no-ragged-kernel engine, before each pipeline-phase engine and before
 each mixed-round engine, before each spec-phase engine's run and the
-spec server's requests, before the checkpoint phase's requests and
-before each KV-phase engine's and server's requests, and read just
-after; a kernel launched 0 times on those paths fails the run. The
+spec server's requests, before the checkpoint phase's requests,
+before each KV-phase engine's and server's requests, before each
+impl-phase turn, the gather families' engines, the Phi-3 server's
+requests and the Mixtral engine's run, and read just after; a kernel launched 0 times on those paths fails the run. The
 servers' logs go to build/chip_smoke_serve.log,
 build/chip_smoke_spec_serve.log, build/chip_smoke_lora_serve.log, build/chip_smoke_prefill_serve.log,
-build/chip_smoke_decode_serve.log and build/chip_smoke_cache_server.log. The last lines are the kernels JSON, the
+build/chip_smoke_decode_serve.log, build/chip_smoke_cache_server.log and
+build/chip_smoke_phi3_serve.log. The last lines are the kernels JSON, the
 card's name and power limit (nvidia-smi), and {"ok": true, "device":
 {...}}.
 """
@@ -639,12 +676,15 @@ def kernel_phase(torch) -> list[tuple[str, dict]]:
 
 
 # -- forward phase -------------------------------------------------------------
-def two_step_logits(torch, pa, cfg, params, dev):
+def two_step_logits(torch, pa, cfg, params, dev, gather=False):
     """Logits of a 40-token prompt's last row (one 64-row prefill chunk on
     paged_prefill_attention) and of one decode step after it (a
     single-row segment on ragged_paged_attention), through
-    models/llama.forward on `dev`'s params; (2, vocab) f32 on the CPU."""
+    models/llama.forward on `dev`'s params; (2, vocab) f32 on the CPU.
+    `gather`: both steps on the gather path (ops/attention.py, the xla
+    attention impl) instead of the kernels."""
     from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.ops import attention
 
     bs, n_blocks = 32, 16
     scale = cfg.head_dim**-0.5
@@ -660,9 +700,10 @@ def two_step_logits(torch, pa, cfg, params, dev):
     slots[first:] = 0
 
     def attn_pf(q, l, k, v):
-        return pa.paged_prefill_attention(q, k, v, l, table, 0,
-                                          block_size=bs, scale=scale,
-                                          window=cfg.sliding_window)
+        fn = (attention.paged_prefill_attention_gather if gather
+              else pa.paged_prefill_attention)
+        return fn(q, k, v, l, table, 0, block_size=bs, scale=scale,
+                  window=cfg.sliding_window)
 
     lg1, _, _ = llama.forward(
         cfg, params, toks, pos, kc, vc, slots, attn_pf,
@@ -671,6 +712,11 @@ def two_step_logits(torch, pa, cfg, params, dev):
     meta = torch.tensor([[0, 0, 1, first]], dtype=torch.int32, device=dev)
 
     def attn_dec(q, l, k, v):
+        if gather:
+            return attention.paged_decode_attention_gather(
+                q, k, v, l, table[None, :],
+                torch.tensor([first + 1], device=dev), block_size=bs,
+                scale=scale, window=cfg.sliding_window)
         qp = torch.zeros((8,) + tuple(q.shape[1:]), dtype=q.dtype,
                          device=dev)
         qp[:1] = q
@@ -691,11 +737,13 @@ def tree_to(tree, dev):
             for k, v in tree.items()}
 
 
-def card_vs_cpu(torch, pa, what, cfg, params_gpu) -> float:
-    """two_step_logits on the card (kernels) against the CPU (plain
-    versions) on the same params; fails above LOGIT_REL_TOL."""
-    ref = two_step_logits(torch, pa, cfg, tree_to(params_gpu, "cpu"), "cpu")
-    got = two_step_logits(torch, pa, cfg, params_gpu, "cuda")
+def card_vs_cpu(torch, pa, what, cfg, params_gpu, gather=False) -> float:
+    """two_step_logits on the card (kernels, or the gather path) against
+    the CPU (plain versions, or the gather path) on the same params;
+    fails above LOGIT_REL_TOL."""
+    ref = two_step_logits(torch, pa, cfg, tree_to(params_gpu, "cpu"), "cpu",
+                          gather)
+    got = two_step_logits(torch, pa, cfg, params_gpu, "cuda", gather)
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
         fail(f"{what}: non-finite logits on the card")
@@ -818,16 +866,31 @@ ROUTER_FAMILIES = {
 }
 
 
-def check_launches(what: str, launches: dict, dispatches: dict) -> None:
-    """Every ragged-kernel forward launches it once a layer (packed and
-    single-step decode forwards, each iteration of a fused loop, each
-    mixed round's step-0 forward, each speculative verify forward), the
-    prefill kernel once a layer per single-sequence prefill."""
-    layers = LAYERS_3B
-    fwd = (dispatches["prefill_batch"] + dispatches["decode"]
-           + dispatches["decode_iterations"]
-           + dispatches.get("verify_batch", 0))
-    want = {"ragged": layers * fwd, "prefill": layers * dispatches["prefill"]}
+def check_launches(what: str, launches: dict, dispatches: dict,
+                   layers: int = LAYERS_3B, impl: str = "ragged") -> None:
+    """impl "ragged" (the default config): every ragged-kernel forward
+    launches it once a layer (packed and single-step decode forwards,
+    each iteration of a fused loop, each mixed round's step-0 forward,
+    each speculative verify forward), the prefill kernel once a layer
+    per single-sequence prefill. "composed" (--no-ragged-kernel): the
+    prefill kernel once a layer per single-sequence prefill and per
+    padded lane of a packed forward (runner prefill_lanes), the decode
+    kernel once a layer per decode forward and fused-loop iteration, the
+    ragged kernel never. "xla": no kernel at all."""
+    if impl == "ragged":
+        fwd = (dispatches["prefill_batch"] + dispatches["decode"]
+               + dispatches["decode_iterations"]
+               + dispatches.get("verify_batch", 0))
+        want = {"ragged": layers * fwd,
+                "prefill": layers * dispatches["prefill"]}
+    elif impl == "composed":
+        want = {"ragged": 0,
+                "prefill": layers * (dispatches["prefill"]
+                                     + dispatches["prefill_lanes"]),
+                "decode": layers * (dispatches["decode"]
+                                    + dispatches["decode_iterations"])}
+    else:
+        want = {"ragged": 0, "prefill": 0, "decode": 0}
     got = {k: launches[k] for k in want}
     print(f"{what}: launches {got}, {layers} x forwards {want}", flush=True)
     if got != want:
@@ -1849,7 +1912,6 @@ def mixed_phase(torch, pa, gap_tol: float, smi: str) -> dict:
     # round exiting after 7 iterations)
     sp = SamplingParams(max_tokens=32, temperature=0, ignore_eos=True,
                         logprobs=2)
-    bsp = SamplingParams(max_tokens=33, temperature=0, ignore_eos=True)
     default, unstaged, split = ("K=8 ragged default", "K=8 ragged unstaged",
                                 "K=1 split")
     specs = {default: (8, True), unstaged: (8, False), split: (1, True)}
@@ -1930,25 +1992,12 @@ def mixed_phase(torch, pa, gap_tol: float, smi: str) -> dict:
 
     def decode8(name: str, turn: int) -> None:
         """Decode at batch 8: wall ms per generated token."""
-        eng = engines[name]
         k = specs[name][0]
-        for i in range(8):
-            eng.add_request(
-                f"t{turn}b{i}", prompt_token_ids=[
-                    (7 * i + j + 13 * turn) % 250 + 1 for j in range(32)],
-                sampling_params=bsp)
-        eng.step()  # the packed prefill: one token each
-        torch.cuda.synchronize()
-        gen0, t0 = eng.stats().generation_tokens_total, time.perf_counter()
-        while eng.has_unfinished():
-            eng.step()
-        torch.cuda.synchronize()
-        n_tok = eng.stats().generation_tokens_total - gen0
-        ms = (time.perf_counter() - t0) * 1e3
-        print(f"mixed phase {name}, turn {turn}: decode at batch 8: {n_tok} "
-              f"tokens in {ms:.1f} ms = {ms / n_tok:.3f} wall ms per "
-              f"generated token (host clock; before staging at K={k}: "
-              f"{UNSTAGED_MS_PER_TOKEN[k]}) on {smi}", flush=True)
+        ms = decode_batch8(torch, engines[name], "t", turn)
+        print(f"mixed phase {name}, turn {turn}: decode at batch 8: "
+              f"{ms:.3f} wall ms per generated token (host clock; before "
+              f"staging at K={k}: {UNSTAGED_MS_PER_TOKEN[k]}) on {smi}",
+              flush=True)
 
     turns = [(default, 0), (unstaged, 0), (unstaged, 1), (default, 1)]
     for name, turn in turns:
@@ -1978,6 +2027,141 @@ def mixed_phase(torch, pa, gap_tol: float, smi: str) -> dict:
     del engines
     torch.cuda.empty_cache()
     return launches[default]
+
+
+# -- composed and gather phases --------------------------------------------------
+def staggered_mix(torch, pa, eng, tag: str, turn: int, sp) -> tuple:
+    """The mixed phase's scenario on one engine: four greedy requests,
+    then a LONG_PROMPT_TOKENS prompt at step 2 while they decode, on
+    prompts of this turn. Returns (outputs d0..d3, long; launch counts;
+    dispatch counts; lane-typed rounds; wall seconds), launches and
+    dispatches counted from 0 just before it."""
+    prompts = [[(11 * i + 5 * j + 17 * turn) % 250 + 1 for j in range(n)]
+               for i, n in enumerate((17, 40, 64, 90))]
+    long_prompt = [(3 * j + 7 * turn) % 250 + 1
+                   for j in range(LONG_PROMPT_TOKENS)]
+    pa.reset_launch_counts()
+    runs0 = dict(eng.runner.dispatch_counts)
+    rounds0 = eng.stats().ragged_rounds_total
+    for i, p in enumerate(prompts):
+        eng.add_request(f"{tag}{turn}d{i}", prompt_token_ids=p,
+                        sampling_params=sp)
+    finals, step = {}, 0
+    t0 = time.perf_counter()
+    while eng.has_unfinished():
+        if step == 2:
+            eng.add_request(f"{tag}{turn}long", prompt_token_ids=long_prompt,
+                            sampling_params=sp)
+        finals.update({o.request_id: o for o in eng.step() if o.finished})
+        step += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    runs = {k: v - runs0[k] for k, v in eng.runner.dispatch_counts.items()}
+    return ([finals[f"{tag}{turn}{r}"] for r in ("d0", "d1", "d2", "d3",
+                                                  "long")],
+            pa.launch_counts(), runs,
+            eng.stats().ragged_rounds_total - rounds0, wall)
+
+
+def decode_batch8(torch, eng, tag: str, turn: int) -> float:
+    """Eight 32-token prompts packed into one prefill, then decoded to
+    33 tokens each: wall ms per generated token of the decode (host
+    clock, synchronized)."""
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+
+    bsp = SamplingParams(max_tokens=33, temperature=0, ignore_eos=True)
+    for i in range(8):
+        eng.add_request(f"{tag}{turn}b{i}", prompt_token_ids=[
+            (7 * i + j + 13 * turn) % 250 + 1 for j in range(32)],
+            sampling_params=bsp)
+    eng.step()  # the packed prefill: one token each
+    torch.cuda.synchronize()
+    gen0, t0 = eng.stats().generation_tokens_total, time.perf_counter()
+    while eng.has_unfinished():
+        eng.step()
+    torch.cuda.synchronize()
+    n_tok = eng.stats().generation_tokens_total - gen0
+    return (time.perf_counter() - t0) * 1e3 / n_tok
+
+
+def impl_phase(torch, pa, gap_tol: float, smi: str) -> dict:
+    """The composed ragged round and the gather path at Llama-3.2-3B
+    (28 layers, bf16), K=8 on the default ragged dispatch, beside the
+    ragged-kernel engine on the same seeded weights: --no-ragged-kernel
+    (attention_impl pallas: the prefill kernel a padded prefill lane a
+    layer, the decode kernel a layer an iteration, no ragged launch) and
+    --attention-impl xla (no kernel launch). Each serves the mixed
+    phase's scenario and decodes at batch 8, in turns ragged, composed,
+    gather, gather, composed, ragged; their greedy streams are held to
+    the ragged-kernel engine's of the same turn under the near-tie rule.
+    Returns the composed engine's launches."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.llm_engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.models.config import get_model_config
+
+    t_phase = time.perf_counter()
+    sp = SamplingParams(max_tokens=32, temperature=0, ignore_eos=True,
+                        logprobs=2)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = llama.init_params(get_model_config("llama-3.2-3b"), gen,
+                               torch.bfloat16, "cuda")
+    specs = {"ragged": {}, "composed": {"ragged_kernel": False,
+                                        "attention_impl": "pallas"},
+             "gather": {"attention_impl": "xla"}}
+    engines = {
+        name: LLMEngine(EngineConfig(
+            model="llama-3.2-3b", tokenizer="byte", device="cuda",
+            block_size=32, num_kv_blocks=512, max_num_seqs=8, seed=SEED,
+            num_scheduler_steps=8, **over), params=params)
+        for name, over in specs.items()}
+    impls = {name: eng.runner.attention_impl
+             for name, eng in engines.items()}
+    if impls != {"ragged": "pallas", "composed": "pallas", "gather": "xla"}:
+        fail(f"impl phase: runners resolved {impls}")
+    outs, walls, launches = {}, {}, dict.fromkeys(("decode", "prefill",
+                                                   "ragged"), 0)
+    turns = [("ragged", 0), ("composed", 0), ("gather", 0), ("gather", 1),
+             ("composed", 1), ("ragged", 1)]
+    for name, turn in turns:
+        eng = engines[name]
+        outs[name, turn], got, runs, n_mixed, wall = staggered_mix(
+            torch, pa, eng, name, turn, sp)
+        what = f"impl phase {name}, turn {turn}"
+        print(f"{what}: mixed scenario in {wall:.3f}s (host clock), "
+              f"{n_mixed} lane-typed rounds; dispatches {runs}", flush=True)
+        if n_mixed < 1:
+            fail(f"{what}: no lane-typed round ran")
+        if name != "ragged":
+            impl = "composed" if name == "composed" else "xla"
+            check_launches(what, got, runs, impl=impl)
+        else:
+            check_launches(what, got, runs)
+        if name == "composed":
+            for k in launches:
+                launches[k] += got[k]
+        walls[name, turn] = decode_batch8(torch, eng, name, turn)
+    for name in ("composed", "gather"):
+        for turn in (0, 1):
+            n_same = near_tie_check(
+                f"impl phase ({name} vs ragged, turn {turn})",
+                outs["ragged", turn], outs[name, turn], gap_tol)
+            print(f"impl phase: {n_same}/5 greedy token sequences of the "
+                  f"{name} engine equal to the ragged-kernel engine's "
+                  f"(turn {turn})", flush=True)
+    print(f"impl phase: decode at batch 8, K=8, wall ms per generated "
+          f"token (host clock, turns {[f'{n}{t}' for n, t in turns]}): "
+          + ", ".join(f"{n} {walls[n, t]:.3f}" for n, t in turns)
+          + f" on {smi}", flush=True)
+    del engines, params
+    torch.cuda.empty_cache()
+    print(f"impl phase: {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return launches
 
 
 # -- spec phase ------------------------------------------------------------------
@@ -2279,9 +2463,22 @@ GEMMA_7B = {
     "max_position_embeddings": 8192, "num_attention_heads": 16,
     "num_hidden_layers": 28, "num_key_value_heads": 16,
     "rms_norm_eps": 1e-06, "rope_theta": 10000.0, "vocab_size": 256000}
+# microsoft/Phi-3-mini-4k-instruct: head_dim 3072 / 32 = 96, which the
+# card kernels do not take, and a 2047-token sliding window
+PHI_3_MINI = {
+    "architectures": ["Phi3ForCausalLM"], "hidden_act": "silu",
+    "hidden_size": 3072, "intermediate_size": 8192,
+    "max_position_embeddings": 4096, "num_attention_heads": 32,
+    "num_hidden_layers": 32, "num_key_value_heads": 32,
+    "rms_norm_eps": 1e-05, "rope_theta": 10000.0, "sliding_window": 2047,
+    "tie_word_embeddings": False, "vocab_size": 32064}
+# families whose head_dim the kernels lack: served on the gather path
+GATHER_FAMILIES = {"Gemma-7B": GEMMA_7B, "Phi-3-mini": PHI_3_MINI}
 FAMILY_LAYERS = 2
 # the Mistral prompt past its window: ten prefill chunks of <= 512 rows
 WINDOW_PROMPT_TOKENS = 5000
+# the Phi-3-mini prompt past its 2047-token window, inside its 4096
+PHI3_LONG_PROMPT_TOKENS = 3000
 
 
 def tree_equal(torch, got: dict, want: dict) -> bool:
@@ -2296,12 +2493,13 @@ def tree_equal(torch, got: dict, want: dict) -> bool:
 
 
 def chunked_logits(torch, pa, cfg, params, n_tok: int, plain: bool,
-                   window="cfg"):
+                   window="cfg", gather=False):
     """The last row's logits of each <= 512-row prefill chunk of an
-    n_tok-token prompt on the card, attention through the prefill kernel
-    or (`plain`) its plain version, with the config's window (or
-    `window`)."""
+    n_tok-token prompt on the card, attention through the prefill kernel,
+    (`plain`) its plain version or (`gather`) the gather path, with the
+    config's window (or `window`)."""
     from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.ops import attention
 
     bs, chunk = 32, 512
     win = cfg.sliding_window if window == "cfg" else window
@@ -2312,7 +2510,8 @@ def chunked_logits(torch, pa, cfg, params, n_tok: int, plain: bool,
     vc = torch.zeros_like(kc)
     table = torch.arange(1, pages + 1, dtype=torch.int32, device="cuda")
     ids = torch.arange(n_tok, device="cuda") * 7919 % cfg.vocab_size
-    fn = (pa.paged_prefill_attention_plain if plain
+    fn = (attention.paged_prefill_attention_gather if gather
+          else pa.paged_prefill_attention_plain if plain
           else pa.paged_prefill_attention)
     out = []
     for s0 in range(0, n_tok, chunk):
@@ -2330,13 +2529,174 @@ def chunked_logits(torch, pa, cfg, params, n_tok: int, plain: bool,
     return torch.cat(out).float()
 
 
+def runner_log():
+    """The model runner's log records from here on (a handler on its
+    logger, which does not propagate)."""
+    import logging
+
+    records: list = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logging.getLogger(
+        "production_stack_tpu_torch.engine.model_runner").addHandler(handler)
+    return records
+
+
+def gather_attention_us(torch, cfg) -> tuple[float, float]:
+    """Device µs of one layer's attention on the gather path at `cfg`'s
+    heads (bf16, block size 32, CUDA events, mean of 20 calls): a
+    512-row prefill chunk at position 512 over its 1024 keys, and a
+    decode step of 8 lanes over 2048 keys each."""
+    from production_stack_tpu_torch.ops import attention
+
+    bs, pages = 32, 2048 // 32
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    nq, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kc = randn(1, nkv, (8 * pages + 1) * bs, d)
+    vc = randn(1, nkv, (8 * pages + 1) * bs, d)
+    kw = dict(block_size=bs, scale=d**-0.5, window=cfg.sliding_window)
+    q_pf, q_dec = randn(512, nq, d), randn(8, nq, d)
+    table = torch.arange(1, 1 + 1024 // bs, dtype=torch.int32, device="cuda")
+    tables = torch.arange(1, 1 + 8 * pages, dtype=torch.int32,
+                          device="cuda").view(8, pages)
+    ctx = torch.full((8,), 2048, dtype=torch.int32, device="cuda")
+    calls = (
+        lambda: attention.paged_prefill_attention_gather(
+            q_pf, kc, vc, 0, table, 512, **kw),
+        lambda: attention.paged_decode_attention_gather(
+            q_dec, kc, vc, 0, tables, ctx, **kw))
+    out = []
+    for fn in calls:
+        fn()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(20):
+            fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        out.append(ev[0].elapsed_time(ev[1]) / 20 * 1e3)
+    return out[0], out[1]
+
+
+def gather_family(torch, pa, d: Path, name: str, published: dict, i: int,
+                  smi: str) -> None:
+    """A family whose head_dim the kernels lack, at full width cut to
+    FAMILY_LAYERS: written and read back byte for byte, logits on the
+    gather path held to the CPU; a windowed one's prompt past its window
+    on the gather path held to the prefill kernel's plain version on the
+    card; an engine booted under auto resolves to xla (the warning in
+    its log) and generates with no kernel launch; under pallas it is
+    refused at boot."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.llm_engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.models.config import get_model_config
+    from production_stack_tpu_torch.models.debug_checkpoint import (
+        write_hf_checkpoint,
+    )
+    from production_stack_tpu_torch.models.weights import load_hf_weights
+
+    hf = dict(published, num_hidden_layers=FAMILY_LAYERS)
+    d.mkdir()
+    (d / "config.json").write_text(json.dumps(hf))
+    cfg = get_model_config(str(d))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10 + i)
+    params = llama.init_params(cfg, gen, torch.bfloat16, "cuda")
+    t0 = time.perf_counter()
+    write_hf_checkpoint(str(d), hf, params)
+    t1 = time.perf_counter()
+    loaded = load_hf_weights(cfg, str(d), torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    print(f"families phase {name}: head_dim {cfg.head_dim}, window "
+          f"{cfg.sliding_window}, {FAMILY_LAYERS} layers: wrote "
+          f"{t1 - t0:.2f}s, loaded {time.perf_counter() - t1:.2f}s",
+          flush=True)
+    if not tree_equal(torch, loaded, params):
+        fail(f"families phase {name}: the loaded params differ from the "
+             "written ones")
+    del params
+    card_vs_cpu(torch, pa, f"families phase {name} (gather path)", cfg,
+                loaded, gather=True)
+    if cfg.sliding_window:
+        n_tok = PHI3_LONG_PROMPT_TOKENS
+        got = chunked_logits(torch, pa, cfg, loaded, n_tok, plain=False,
+                             gather=True)
+        ref = chunked_logits(torch, pa, cfg, loaded, n_tok, plain=True)
+        torch.cuda.synchronize()
+        top = float(ref.abs().max())
+        rel = float((got - ref).abs().max()) / top
+        print(f"families phase {name}: a {n_tok}-token prompt past the "
+              f"{cfg.sliding_window}-token window, last rows of "
+              f"{got.shape[0]} chunks, gather path vs the prefill kernel's "
+              f"plain version on the card max|d|/max|ref|={rel:.3e} "
+              f"tol={LOGIT_REL_TOL}", flush=True)
+        if not (torch.isfinite(got).all() and rel <= LOGIT_REL_TOL):
+            fail(f"families phase {name}: windowed prompt logits differ "
+                 f"by {rel:.3e}")
+    del loaded
+    torch.cuda.empty_cache()
+    pf_us, dec_us = gather_attention_us(torch, cfg)
+    print(f"families phase {name}: gather-path attention, one layer "
+          f"({cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim "
+          f"{cfg.head_dim}, bf16): a 512-row prefill chunk over 1024 keys "
+          f"{pf_us:.1f} us, a decode step of 8 lanes over 2048 keys "
+          f"{dec_us:.1f} us (CUDA events, mean of 20) on {smi}",
+          flush=True)
+    records = runner_log()
+    pa.reset_launch_counts()
+    eng = LLMEngine(EngineConfig(
+        model=str(d), tokenizer="byte", device="cuda", block_size=32,
+        num_kv_blocks=64, max_num_seqs=4, seed=SEED))
+    want = f"attention impl: xla (head_dim {cfg.head_dim} not in (64, 128))"
+    warned = [r.getMessage() for r in records if r.levelname == "WARNING"]
+    if eng.runner.attention_impl != "xla" or want not in warned:
+        fail(f"families phase {name}: auto resolved to "
+             f"{eng.runner.attention_impl}, warnings {warned}")
+    outs = eng.generate(
+        [[(5 * j + i) % 250 + 1 for j in range(n)] for n in (9, 77)],
+        SamplingParams(max_tokens=8, temperature=0, ignore_eos=True))
+    torch.cuda.synchronize()
+    if [len(o.token_ids) for o in outs] != [8, 8]:
+        fail(f"families phase {name}: engine on the checkpoint gave "
+             f"{[o.token_ids for o in outs]}")
+    if any(pa.launch_counts().values()):
+        fail(f"families phase {name}: the gather path launched kernels "
+             f"{pa.launch_counts()}")
+    print(f"families phase {name}: engine booted under auto logged "
+          f"'{want}', greedy tokens {[o.token_ids for o in outs]}, no "
+          f"kernel launch, on {smi}", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    try:
+        LLMEngine(EngineConfig(model=str(d), tokenizer="byte",
+                               device="cuda", num_kv_blocks=64,
+                               attention_impl="pallas"))
+    except ValueError as e:
+        if f"head_dim {cfg.head_dim}" not in str(e):
+            fail(f"families phase {name}: refused without naming its "
+                 f"head_dim: {e}")
+        print(f"families phase {name}: refused at boot under pallas: {e}",
+              flush=True)
+    else:
+        fail(f"families phase {name}: head_dim {cfg.head_dim} booted on "
+             "the card under pallas")
+
+
 def families_phase(torch, pa, smi: str) -> None:
     """HF checkpoints of published configs at full width, cut to 2
     layers: written from seeded params (qkv biases drawn too), read back
     byte for byte through models/weights.py onto the card, logits held
     to the CPU, a short greedy run through an engine booted on the
     directory; the Mistral prompt past its window held to the plain
-    attention on the card; Gemma-7B's head_dim 256 refused at boot."""
+    attention on the card; Gemma-7B (head_dim 256) and Phi-3-mini
+    (head_dim 96) on the gather path (gather_family)."""
     import shutil
     import tempfile
 
@@ -2425,21 +2785,8 @@ def families_phase(torch, pa, smi: str) -> None:
             del eng
             shutil.rmtree(d)
             torch.cuda.empty_cache()
-        d = root / "gemma-7b"
-        d.mkdir()
-        (d / "config.json").write_text(json.dumps(GEMMA_7B))
-        try:
-            LLMEngine(EngineConfig(model=str(d), tokenizer="byte",
-                                   device="cuda", num_kv_blocks=64))
-        except ValueError as e:
-            if "gemma-7b" not in str(e) or "head_dim 256" not in str(e):
-                fail(f"families phase: Gemma-7B refused without naming "
-                     f"it: {e}")
-            print(f"families phase: Gemma-7B refused at boot: {e}",
-                  flush=True)
-        else:
-            fail("families phase: Gemma-7B (head_dim 256) booted on the "
-                 "card")
+        for i, (name, published) in enumerate(GATHER_FAMILIES.items()):
+            gather_family(torch, pa, root / name, name, published, i, smi)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3090,6 +3437,371 @@ def kv_phase(torch, pa, gap_tol: float, smi: str,
     return counts
 
 
+# -- Phi-3-mini at full depth ------------------------------------------------------
+def phi3_serve_phase(torch, pa, smi: str) -> None:
+    """Phi-3-mini at its published width and full depth (32 layers,
+    seeded random bf16 weights, 7.6 GB) written as an HF checkpoint in a
+    temporary directory under build/ that the phase removes, served by
+    the CLI under the default attention_impl auto (the gather path:
+    head_dim 96; log build/chip_smoke_phi3_serve.log): three short
+    requests and one PHI3_LONG_PROMPT_TOKENS-token request past the
+    2047-token window, sent at once, each answers its max_tokens with
+    finish reason length and no kernel launches; request seconds
+    printed."""
+    import shutil
+    import tempfile
+
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.models.config import get_model_config
+    from production_stack_tpu_torch.models.debug_checkpoint import (
+        write_hf_checkpoint,
+    )
+
+    t_phase = time.perf_counter()
+    (REPO / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="phi3-", dir=REPO / "build"))
+    ckdir = root / "phi-3-mini"
+    proc = None
+    try:
+        ckdir.mkdir()
+        (ckdir / "config.json").write_text(json.dumps(PHI_3_MINI))
+        cfg = get_model_config(str(ckdir))
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = llama.init_params(cfg, gen, torch.bfloat16, "cuda")
+        t0 = time.perf_counter()
+        shards = write_hf_checkpoint(str(ckdir), PHI_3_MINI, params,
+                                     shard_bytes=5 * 10**9)
+        size = sum(os.path.getsize(p) for p in shards)
+        print(f"phi-3 phase: {cfg.num_layers} layers, head_dim "
+              f"{cfg.head_dim}, window {cfg.sliding_window}: wrote "
+              f"{len(shards)} shards, {size / 1e9:.2f} GB, in "
+              f"{time.perf_counter() - t0:.2f}s", flush=True)
+        del params
+        torch.cuda.empty_cache()
+        port = free_port()
+        log_path = REPO / "build" / "chip_smoke_phi3_serve.log"
+        t0 = time.perf_counter()
+        proc = start_server(port, log_path, model=str(ckdir))
+        boot = wait_healthy("phi-3 phase", proc, port, log_path, t0)
+        want = "attention impl: xla (head_dim 96 not in (64, 128))"
+        if want not in log_path.read_text(errors="replace"):
+            fail(f"phi-3 phase: the server log lacks '{want}':\n"
+                 f"{log_tail(log_path)}")
+        print(f"phi-3 phase: --model <dir> server healthy {boot:.1f}s "
+              f"after start (the load included), its log: '{want}'",
+              flush=True)
+        st, body = http(port, "/debug/kernel_launches", method="DELETE")
+        if st != 200:
+            fail(f"phi-3 phase: launch counts not reset: {body}")
+        prompts = [[(13 * i + 7 * j) % 31999 + 1 for j in range(n)]
+                   for i, n in enumerate((24, 300, 900,
+                                          PHI3_LONG_PROMPT_TOKENS))]
+
+        def ask(ids):
+            t1 = time.perf_counter()
+            st, body = http(port, "/v1/completions", {
+                "prompt": ids, "max_tokens": 16, "temperature": 0,
+                "ignore_eos": True})
+            r = json.loads(body)
+            u = r.get("usage", {})
+            if not (st == 200 and r["choices"][0]["finish_reason"] == "length"
+                    and u.get("completion_tokens") == 16
+                    and u.get("prompt_tokens") == len(ids)):
+                fail(f"phi-3 phase: bad answer to a {len(ids)}-token "
+                     f"prompt: {body[:400]}")
+            return time.perf_counter() - t1
+
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(len(prompts)) as ex:
+            secs = list(ex.map(ask, prompts))
+        wall = time.perf_counter() - t1
+        report = json.loads(http(port, "/debug/kernel_launches")[1])
+        if any(report["launches"].values()):
+            fail(f"phi-3 phase: the gather path launched kernels {report}")
+        print(f"phi-3 phase: {len(prompts)} requests at once (prompts "
+              f"{[len(p) for p in prompts]} tokens, 16 generated each) "
+              f"answered in {wall:.2f}s; seconds each "
+              f"{[round(x, 3) for x in secs]} (host clock); dispatches "
+              f"{report['dispatches']}, no kernel launch, on {smi}",
+              flush=True)
+    finally:
+        if proc is not None:
+            stop_server(proc)
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"phi-3 phase: {time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
+# -- MoE phase --------------------------------------------------------------------
+# Mixtral-8x7B's depth on the card: 4 of its 32 layers (46.7B parameters
+# do not fit one 80 GB card; 4 layers are 6.1B, 12.2 GB in bf16)
+MIXTRAL_LAYERS = 4
+
+
+def oneshot_streams(torch, cfg, params, outs) -> tuple[list, float]:
+    """Each output's stream as one forward of its whole sequence (prompt
+    and generated tokens but the last) on the gather attention over a
+    contiguous cache in the params' dtype, no paging and no chunks: the
+    greedy token and the
+    top-2 logprobs at each generated position, for near_tie_check; and
+    the largest |logit| of those positions."""
+    from types import SimpleNamespace
+
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.ops.attention import (
+        context_attention_prefill,
+    )
+
+    refs, top_logit = [], 0.0
+    for o in outs:
+        ids = list(o.prompt_token_ids) + list(o.token_ids[:-1])
+        n, p = len(ids), len(o.prompt_token_ids)
+        shape = (cfg.num_layers, cfg.num_kv_heads, n, cfg.head_dim)
+        kc = torch.zeros(shape, dtype=params["embed"].dtype, device="cuda")
+        vc = torch.zeros_like(kc)
+        pos = torch.arange(n, device="cuda")
+
+        def attn(q, l, k, v):
+            return context_attention_prefill(
+                q, k[l].transpose(0, 1), v[l].transpose(0, 1), pos, n,
+                cfg.head_dim**-0.5, window=cfg.sliding_window)
+
+        logits, _, _ = llama.forward(
+            cfg, params, torch.tensor(ids, device="cuda"), pos, kc, vc, pos,
+            attn, logits_rows=torch.arange(p - 1, n, device="cuda"))
+        top_logit = max(top_logit, float(logits.abs().max()))
+        top = torch.log_softmax(logits.float(), -1).topk(2, dim=-1)
+        vals, idx = top.values.tolist(), top.indices.tolist()
+        refs.append(SimpleNamespace(
+            token_ids=[i[0] for i in idx],
+            logprobs=[{"top_logprobs": [
+                {"token_id": t, "logprob": v} for t, v in zip(ti, vi)]}
+                for ti, vi in zip(idx, vals)]))
+    return refs, top_logit
+
+
+def routed_oneshot(torch, cfg, params, outs) -> tuple[list, float, list]:
+    """oneshot_streams, and each sequence's top-k expert sets as its
+    forwards route them: per sequence a (layers, rows, k) tensor of
+    sorted expert indices."""
+    from production_stack_tpu_torch.ops import moe
+
+    seen = []
+    gating = moe.top_k_gating
+
+    def spy(x, gate_w, k):
+        gates = gating(x, gate_w, k)
+        seen.append(gates.topk(k, dim=-1).indices.sort(dim=-1).values)
+        return gates
+
+    moe.top_k_gating = spy
+    try:
+        refs, top_logit = oneshot_streams(torch, cfg, params, outs)
+    finally:
+        moe.top_k_gating = gating
+    layers = cfg.num_layers
+    routes = [torch.stack(seen[i:i + layers])
+              for i in range(0, len(seen), layers)]
+    return refs, top_logit, routes
+
+
+def agreed_logprob_diff(refs, outs) -> float:
+    """The largest |logprob| difference of the same token between two
+    paths, over every generated position where both pick it (the
+    one-shot forward is fed the engine's tokens, so each position sees
+    one prefix on both paths): the two paths' measured rounding on these
+    very sequences."""
+    diff = 0.0
+    for r, o in zip(refs, outs):
+        for k, (a, b) in enumerate(zip(r.token_ids, o.token_ids)):
+            if a == b:
+                diff = max(diff, abs(r.logprobs[k]["top_logprobs"][0][
+                    "logprob"] - o.logprobs[k]["logprob"]))
+    return diff
+
+
+def moe_phase(torch, pa, gap_tol: float, smi: str) -> dict:
+    """Mixtral-8x7B at its published widths (mixtral-8x7b preset),
+    depth cut to MIXTRAL_LAYERS: 2 layers' logits held to the CPU; a
+    1-layer checkpoint with block_sparse_moe.* keys written through
+    models/safetensors_io.py and read back byte for byte; the MoE
+    block's device time per layer at batch 8 against its bytes bound;
+    then an engine on the default path (ragged kernel, K=8) serves the
+    mixed phase's scenario with the ragged kernel MIXTRAL_LAYERS times a
+    forward, in bf16 (its agreement with one-shot bf16 forwards printed)
+    and on the same weights in float32, whose greedy streams are held to
+    one-shot float32 forwards under the near-tie rule. Returns the bf16
+    engine's launches."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.llm_engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+    from production_stack_tpu_torch.models import llama, safetensors_io
+    from production_stack_tpu_torch.models.config import get_model_config
+    from production_stack_tpu_torch.models.debug_checkpoint import (
+        hf_config_of,
+        write_hf_checkpoint,
+    )
+    from production_stack_tpu_torch.models.weights import load_hf_weights
+    from production_stack_tpu_torch.ops import moe
+
+    t_phase = time.perf_counter()
+    full = get_model_config("mixtral-8x7b")
+    cut = dataclasses.replace(full, num_layers=MIXTRAL_LAYERS)
+    print(f"moe phase: Mixtral-8x7B at its published widths (hidden "
+          f"{full.hidden_size}, intermediate {full.intermediate_size}, "
+          f"{full.num_experts} experts, top-{full.num_experts_per_tok}, "
+          f"{full.num_heads}/{full.num_kv_heads} heads, head_dim "
+          f"{full.head_dim}), depth cut to {MIXTRAL_LAYERS} of "
+          f"{full.num_layers} layers: {cut.num_params() / 1e9:.2f}B "
+          f"params, {cut.num_params() * 2 / 1e9:.1f} GB in bf16 (all "
+          f"{full.num_layers} layers, {full.num_params() / 1e9:.1f}B "
+          "params, do not fit one card)", flush=True)
+
+    cfg2 = dataclasses.replace(full, num_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = llama.init_params(cfg2, gen, torch.bfloat16, "cuda")
+    card_vs_cpu(torch, pa, "moe phase Mixtral-8x7B x2 layers bf16", cfg2,
+                params)
+    del params
+    torch.cuda.empty_cache()
+
+    cfg1 = dataclasses.replace(full, num_layers=1)
+    (REPO / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="mixtral-", dir=REPO / "build"))
+    try:
+        d = str(root / "mixtral-1l")
+        params = llama.init_params(cfg1, gen, torch.bfloat16, "cuda")
+        t0 = time.perf_counter()
+        shards = write_hf_checkpoint(d, hf_config_of(cfg1), params,
+                                     shard_bytes=5 * 10**9)
+        t1 = time.perf_counter()
+        loaded = load_hf_weights(get_model_config(d), d, torch.bfloat16,
+                                 "cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        names = set()
+        for path in shards:
+            names |= set(safetensors_io.read_header(path)[0])
+        moe_keys = [k for k in names if ".block_sparse_moe." in k]
+        if (len(moe_keys) != 1 + 3 * full.num_experts
+                or any(".mlp." in k for k in names)
+                or not tree_equal(torch, loaded, params)):
+            fail(f"moe phase: the 1-layer Mixtral checkpoint ({len(moe_keys)}"
+                 " block_sparse_moe tensors) did not load back byte for "
+                 "byte")
+        size = sum(os.path.getsize(p) for p in shards)
+        print(f"moe phase: a 1-layer Mixtral checkpoint, {len(moe_keys)} "
+              f"block_sparse_moe.* tensors, {size / 1e9:.2f} GB: wrote "
+              f"{t1 - t0:.2f}s, loaded onto the card {t2 - t1:.2f}s, byte "
+              "for byte", flush=True)
+        del params, loaded
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    class CutConfig(EngineConfig):
+        """The mixtral-8x7b preset at MIXTRAL_LAYERS layers."""
+
+        def model_config(self):
+            return cut
+
+    sp = SamplingParams(max_tokens=32, temperature=0, ignore_eos=True,
+                        logprobs=2)
+    eng = LLMEngine(CutConfig(
+        model="mixtral-8x7b", tokenizer="byte", device="cuda",
+        block_size=32, num_kv_blocks=512, max_num_seqs=8, seed=SEED,
+        num_scheduler_steps=8))
+    if not eng.runner.ragged_kernel:
+        fail("moe phase: the default engine is not on the ragged kernel")
+
+    lp = {k: v[0] for k, v in eng.runner.params["layers"].items()}
+    x = (torch.randn((8, full.hidden_size), generator=gen, device="cuda")
+         * 0.5).bfloat16()
+
+    def block():
+        return moe.moe_block(x, lp["moe_gate"], lp["w_gate"], lp["w_up"],
+                             lp["w_down"], full.num_experts_per_tok)
+
+    for _ in range(3):
+        block()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(20):
+        block()
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1]) / 20
+    nbytes = sum(lp[k].numel() * lp[k].element_size()
+                 for k in ("moe_gate", "w_gate", "w_up", "w_down"))
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"moe phase: MoE block (dense, all {full.num_experts} experts) "
+          f"at batch 8, one layer: {ms * 1e3:.1f} us device (CUDA events, "
+          f"mean of 20 back-to-back calls, {nbytes / 1e9:.2f} GB of "
+          f"weights each, past the L2) against its bytes bound "
+          f"{bound * 1e3:.1f} us (router and expert weights read once at "
+          f"3.35 TB/s): {bound / ms:.1%} of the bound, on {smi}",
+          flush=True)
+
+    outs, got, runs, n_mixed, wall = staggered_mix(torch, pa, eng, "moe", 0,
+                                                   sp)
+    what = "moe phase engine"
+    print(f"{what}: mixed scenario in {wall:.3f}s (host clock), {n_mixed} "
+          f"lane-typed rounds; dispatches {runs}", flush=True)
+    if n_mixed < 1:
+        fail(f"{what}: no lane-typed round ran")
+    check_launches(what, got, runs, layers=MIXTRAL_LAYERS)
+    # the same weights in float32, for the engine below and to see how
+    # often bf16 rounding alone moves a token to another expert pair:
+    # one-shot forwards of these sequences in each dtype
+    params32 = {k: ({n: w.float() for n, w in v.items()}
+                    if isinstance(v, dict) else v.float())
+                for k, v in eng.runner.params.items()}
+    refs, _, r16 = routed_oneshot(torch, cut, eng.runner.params, outs)
+    _, _, r32 = routed_oneshot(torch, cut, params32, outs)
+    moved = sum(int((a != b).any(dim=-1).sum()) for a, b in zip(r16, r32))
+    total = sum(a.shape[0] * a.shape[1] for a in r16)
+    n16 = sum(r.token_ids == o.token_ids for r, o in zip(refs, outs))
+    print(f"{what}: {n16}/{len(outs)} greedy token sequences equal to "
+          f"one-shot bf16 forwards; the same token's |dlogprob| up to "
+          f"{agreed_logprob_diff(refs, outs):.4f} over the positions where "
+          f"they agree. Top-2 routing of these sequences: {moved} of "
+          f"{total} (layer, token) expert pairs differ between the bf16 "
+          "and float32 one-shot forwards, so bf16 rounding alone moves "
+          "tokens to other experts; the streams are held in float32 "
+          "below", flush=True)
+    del eng, refs, r16, r32
+    torch.cuda.empty_cache()
+    eng = LLMEngine(CutConfig(
+        model="mixtral-8x7b", tokenizer="byte", device="cuda",
+        block_size=32, num_kv_blocks=512, max_num_seqs=8, seed=SEED,
+        num_scheduler_steps=8, dtype="float32", cache_dtype="float32"),
+        params=params32)
+    outs32, got32, runs32, _, wall32 = staggered_mix(torch, pa, eng,
+                                                     "moe32", 0, sp)
+    what32 = f"{what} (float32)"
+    print(f"{what32}: mixed scenario in {wall32:.3f}s (host clock); "
+          f"dispatches {runs32}", flush=True)
+    check_launches(what32, got32, runs32, layers=MIXTRAL_LAYERS)
+    refs, _ = oneshot_streams(torch, cut, params32, outs32)
+    d32 = agreed_logprob_diff(refs, outs32)
+    n_same = near_tie_check(f"{what32} (vs one-shot forwards)", refs,
+                            outs32, gap_tol)
+    print(f"{what32}: {n_same}/{len(outs32)} greedy token sequences equal "
+          f"to one-shot float32 forwards of the same weights, the same "
+          f"token's |dlogprob| up to {d32:.2e} where they agree, on {smi}",
+          flush=True)
+    del eng, params32
+    torch.cuda.empty_cache()
+    print(f"moe phase: {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return {k: got[k] for k in ("decode", "prefill", "ragged")}
+
+
 def main() -> int:
     try:
         import torch
@@ -3127,9 +3839,12 @@ def main() -> int:
     guided_counts = guided_phase(torch, pa, gap_tol, smi)
     pipeline_phase(torch, pa, smi)
     mixed_counts = mixed_phase(torch, pa, gap_tol, smi)
+    composed_counts = impl_phase(torch, pa, gap_tol, smi)
     spec_counts = spec_phase(torch, pa, gap_tol, smi)
     lora_counts = checkpoint_phase(torch, pa, gap_tol, smi)
     kv_counts = kv_phase(torch, pa, gap_tol, smi)
+    phi3_serve_phase(torch, pa, smi)
+    moe_counts = moe_phase(torch, pa, gap_tol, smi)
     launches = {
         "ragged": serve_counts["ragged"],
         "prefill": serve_counts["prefill"],
@@ -3137,9 +3852,11 @@ def main() -> int:
     }
     print(f"launches: serve path {serve_counts}, API requests "
           f"{api_counts}, decode path {decode_counts}, guided K=8 engine "
-          f"{guided_counts}, mixed-round path {mixed_counts}, spec "
+          f"{guided_counts}, mixed-round path {mixed_counts}, composed "
+          f"ragged rounds {composed_counts}, spec "
           f"decode {spec_counts}, loaded "
-          f"checkpoint with adapters {lora_counts}, KV paths {kv_counts}; "
+          f"checkpoint with adapters {lora_counts}, KV paths {kv_counts}, "
+          f"Mixtral-8x7B x{MIXTRAL_LAYERS} {moe_counts}; "
           f"a served "
           f"mixed round launches the ragged kernel {LAYERS_3B} times a "
           "forward (its step-0 forward and each further decode iteration)",

@@ -23,9 +23,16 @@ vLLM's names for prefill / decode), ``--kv-transfer-listen`` and
 ``--no-request-timeline``, ``--timeline-ring-size`` and
 ``--tracing-exporter`` as in the JAX CLI. Speculative decoding:
 ``--num-speculative-tokens`` with ``--ngram-prompt-lookup-max`` /
-``--ngram-prompt-lookup-min``. Every flag whose feature is
-not ported yet makes the engine refuse to start (NotImplementedError
-from EngineConfig).
+``--ngram-prompt-lookup-min``. ``--attention-impl`` picks the kernels
+(``pallas``) or the gather path (``xla``); ``auto`` takes the gather
+path only on the card for a head_dim the kernels are not built for.
+``--enable-sleep-mode`` and ``--no-async-decode`` are accepted and change
+nothing, as in the JAX CLI. Every flag of the JAX CLI parses; one whose
+feature is not ported yet (``--precompile-serving``,
+``--long-prefill-threshold``, tp/pp/cp above 1, ``--async-decode``, and
+``--multihost`` with ``--num-processes``, ``--process-id`` and
+``--coordinator-address``) makes the engine refuse to start
+(NotImplementedError from EngineConfig, naming it).
 """
 
 from __future__ import annotations
@@ -202,14 +209,40 @@ def build_parser() -> argparse.ArgumentParser:
                         "them in one packed forward (0=off)")
     p.add_argument("--ngram-prompt-lookup-max", type=int, default=3)
     p.add_argument("--ngram-prompt-lookup-min", type=int, default=1)
-    # not ported yet: accepted so existing deployments parse, refused by
-    # EngineConfig when switched on
+    p.add_argument("--attention-impl", default="auto",
+                   choices=["auto", "xla", "pallas"],
+                   help="pallas: the hand-written kernels (CUDA on the "
+                        "card, their plain versions on the CPU); xla: the "
+                        "gather path; auto: pallas, except on the card "
+                        "for a head_dim the kernels are not built for")
+    p.add_argument("--enable-sleep-mode", action="store_true",
+                   help="advertise sleep/wake support (endpoints always "
+                        "on)")
+    # not ported yet: accepted so existing deployments and the chart
+    # parse, refused by EngineConfig (naming the feature) when switched on
     p.add_argument("--async-decode", action="store_true", default=False)
+    p.add_argument("--no-async-decode", dest="async_decode",
+                   action="store_false")
+    p.add_argument("--precompile-serving", action="store_true",
+                   default=False)
     p.add_argument("--tensor-parallel-size", type=int, default=1)
     p.add_argument("--pipeline-parallel-size", type=int, default=1)
     p.add_argument("--context-parallel-size", type=int, default=0)
+    p.add_argument("--long-prefill-threshold", type=int, default=None)
+    p.add_argument("--long-prefill-chunk", type=int, default=2048)
     p.add_argument("--multihost", action="store_true")
+    p.add_argument("--coordinator-address", default=None)
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     return p
+
+
+def multihost_requested(args: argparse.Namespace) -> bool:
+    """--multihost, or any of the flags the JAX CLI passes to its
+    multi-host initialisation: each asks for an engine spanning hosts."""
+    return args.multihost or any(
+        v is not None for v in (args.coordinator_address,
+                                args.num_processes, args.process_id))
 
 
 def config_from_args(args: argparse.Namespace) -> EngineConfig:
@@ -250,14 +283,18 @@ def config_from_args(args: argparse.Namespace) -> EngineConfig:
         ragged_dispatch=args.ragged_dispatch,
         prefill_pipeline=args.prefill_pipeline,
         prefetch_decode=args.prefetch_decode,
+        attention_impl=args.attention_impl,
         async_decode=args.async_decode,
+        precompile_serving=args.precompile_serving,
         enable_lora=args.enable_lora,
         max_loras=args.max_loras,
         max_lora_rank=args.max_lora_rank,
         tensor_parallel_size=args.tensor_parallel_size,
         pipeline_parallel_size=args.pipeline_parallel_size,
         context_parallel_size=args.context_parallel_size,
-        multihost=args.multihost,
+        long_prefill_threshold=args.long_prefill_threshold,
+        long_prefill_chunk=args.long_prefill_chunk,
+        multihost=multihost_requested(args),
         num_speculative_tokens=args.num_speculative_tokens,
         ngram_prompt_lookup_max=args.ngram_prompt_lookup_max,
         ngram_prompt_lookup_min=args.ngram_prompt_lookup_min,

@@ -9,7 +9,9 @@ prefill pipeline and the decode prefetch; the KV offload tiers, the
 shared cache server, the KV controller and both roles of disaggregated
 prefill/decode; OpenAI tool calling, the per-request timeline, and
 n-gram speculative decoding (``num_speculative_tokens``, drafts from
-prompt lookup). The fields of features not ported yet stay so that
+prompt lookup), the attention implementation (``attention_impl``: the
+kernels or the gather path) and MoE models. The fields of features not
+ported yet stay so that
 asking for one fails loudly: ``__post_init__`` raises
 NotImplementedError for each (see ``unported``), so no request ever
 reaches a missing path.
@@ -101,6 +103,13 @@ class EngineConfig:
     # scheduler's interleave. False: --no-prefill-pipeline, the
     # per-array upload path.
     prefill_pipeline: bool = True
+    # attention implementation, the JAX package's names: "pallas" = the
+    # hand-written kernels (CUDA on the card, their plain versions on the
+    # CPU), "xla" = the gather path (ops/attention.py: each lane's
+    # context gathered by slot, plain masked softmax), "auto" = pallas,
+    # except on the card for a head_dim the kernels are not built for
+    # (ModelRunner resolves it at boot from the shapes alone)
+    attention_impl: str = "auto"
 
     # serving
     served_model_name: str | None = None
@@ -143,6 +152,7 @@ class EngineConfig:
     pipeline_parallel_size: int = 1
     context_parallel_size: int = 0
     long_prefill_threshold: int | None = None
+    long_prefill_chunk: int = 2048
     multihost: bool = False
 
     # disaggregated prefill/decode role: None (undeclared) | "prefill"
@@ -177,19 +187,14 @@ class EngineConfig:
     def unported(self) -> list[str]:
         """Names of the requested features this port cannot serve yet."""
         checks = {
-            # the composed-kernel ragged round (per-lane prefill and
-            # decode kernels in one round) is not ported
-            "ragged_dispatch with --no-ragged-kernel (pass "
-            "--no-ragged-dispatch)": (
-                self.ragged_dispatch and not self.ragged_kernel
-            ),
             "async_decode": self.async_decode,
             "precompile_serving": self.precompile_serving,
             "tensor_parallel_size>1": self.tensor_parallel_size > 1,
             "pipeline_parallel_size>1": self.pipeline_parallel_size > 1,
             "context_parallel_size>1": self.context_parallel_size > 1,
             "long_prefill_threshold": self.long_prefill_threshold is not None,
-            "multihost": self.multihost,
+            "multihost (--multihost, --num-processes, --process-id, "
+            "--coordinator-address)": self.multihost,
         }
         return [name for name, on in checks.items() if on]
 
@@ -227,9 +232,12 @@ class EngineConfig:
                     f"{self.ngram_prompt_lookup_min} max="
                     f"{self.ngram_prompt_lookup_max}"
                 )
+        if self.attention_impl not in ("auto", "xla", "pallas"):
+            raise ValueError(
+                "attention_impl must be auto|xla|pallas, got "
+                f"{self.attention_impl!r}"
+            )
         missing = self.unported()
-        if self.model_config().is_moe:
-            missing.append(f"MoE model {self.model}")
         if missing:
             raise NotImplementedError(
                 "not ported to the PyTorch engine yet: "

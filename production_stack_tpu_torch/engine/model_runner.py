@@ -40,10 +40,16 @@ be enqueued from another thread (a PD pull), so its gather is enqueued
 on that stream by name, with an event after it: a later dispatch that
 overwrites the blocks is ordered behind the gather.
 
-Attention goes through one seam, ``_attn(kind, ...)``: on a CUDA device
-the wrappers in ops/paged_attention.py launch the hand-written kernels,
-on the CPU they compute the plain versions. The impl follows the device
-the runner was built for; there is no fallback between the two.
+Attention goes through one seam, ``_attn(kind, ...)``, whose functions
+the attention impl picks at boot (``attention_impl``, the JAX package's
+names): ``pallas``, the wrappers in ops/paged_attention.py, which launch
+the hand-written kernels on a CUDA device and compute their plain
+versions on the CPU; ``xla``, the gather path of ops/attention.py on the
+same page tables. ``auto`` is pallas, except on the card for a head_dim
+the kernels are not built for (logged). Under xla, or with
+``--no-ragged-kernel``, every round composes per-lane prefill and decode
+calls: the ragged round too (``_build_ragged``). The choice is made from
+shapes alone; no build or launch failure changes it.
 
 Weights: a checkpoint that ``--model`` resolves to is loaded at boot
 (models/weights.py), straight onto the device; only a preset name draws
@@ -86,6 +92,8 @@ from production_stack_tpu_torch.ops import paged_attention
 from production_stack_tpu_torch.ops.attention import (
     block_table_slots,
     context_attention_prefill,
+    paged_decode_attention_gather,
+    paged_prefill_attention_gather,
 )
 from production_stack_tpu_torch.ops.layers import matmul_f32
 from production_stack_tpu_torch.utils import init_logger
@@ -154,6 +162,23 @@ def decode_seg_meta(ctx: torch.Tensor) -> torch.Tensor:
     ], dim=1)
 
 
+def resolve_attention_impl(requested: str, head_dim: int,
+                           device_type: str) -> str:
+    """The attention impl a runner serves with, from shapes alone and
+    never changed after boot (no build or launch failure moves it):
+    "xla" or "pallas" as asked; "auto" is pallas, except on the card for
+    a head_dim the kernels are not built for, where it is xla and says
+    so (the JAX package's rule, on its accelerator only)."""
+    if requested != "auto":
+        return requested
+    if (device_type == "cuda"
+            and head_dim not in paged_attention.KERNEL_HEAD_DIMS):
+        logger.warning("attention impl: xla (head_dim %d not in %s)",
+                       head_dim, paged_attention.KERNEL_HEAD_DIMS)
+        return "xla"
+    return "pallas"
+
+
 def resolve_dtype(name: str) -> torch.dtype:
     if name not in DTYPES:
         raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got {name!r}")
@@ -195,15 +220,30 @@ class ModelRunner:
         self.max_model_len = config.resolved_max_model_len()
         self.block_size = config.block_size
         mc = self.model_config
-        if self.device.type == "cuda":
+        if mc.is_moe and mc.moe_capacity_factor > 0:
+            # serving pads decode lanes and prefill buckets, and the
+            # capacity path has no per-row validity inside llama.forward:
+            # padded rows would take expert capacity from real tokens
+            raise ValueError(
+                f"model {mc.name}: moe_capacity_factor="
+                f"{mc.moe_capacity_factor} is not servable; the engine "
+                "requires the exact dense MoE path (capacity_factor=0)"
+            )
+        impl = resolve_attention_impl(config.attention_impl, mc.head_dim,
+                                      self.device.type)
+        self.attention_impl = impl
+        # the single ragged kernel serves pallas rounds only; off it (or
+        # under xla) rounds compose the per-lane prefill and decode calls
+        self.ragged_kernel = bool(config.ragged_kernel) and impl == "pallas"
+        if self.device.type == "cuda" and impl == "pallas":
             # refuse at boot what the card kernels are not built for: the
             # prefill tile (prefill and ragged kernels) runs on every path,
-            # the decode kernel under --no-ragged-kernel
+            # the decode kernel without the ragged kernel
             g = mc.num_heads // mc.num_kv_heads
             try:
                 paged_attention.check_kernel_shapes(
                     mc.head_dim, self.block_size,
-                    None if config.ragged_kernel else g)
+                    None if self.ragged_kernel else g)
             except ValueError as e:
                 raise ValueError(
                     f"model {mc.name} (head_dim {mc.head_dim}, {g} query "
@@ -242,8 +282,14 @@ class ModelRunner:
         self.v_cache = torch.zeros_like(self.k_cache)
 
         self._scale = mc.head_dim**-0.5
-        self.attention_impl = "cuda" if self.device.type == "cuda" else "torch"
-        self.ragged_kernel = bool(config.ragged_kernel)
+        self._attn_fns = (
+            {"prefill": paged_attention.paged_prefill_attention,
+             "decode": paged_attention.paged_decode_attention,
+             "ragged": paged_attention.ragged_paged_attention}
+            if impl == "pallas" else
+            {"prefill": paged_prefill_attention_gather,
+             "decode": paged_decode_attention_gather}
+        )
         # pipelined prefill: one packed buffer a prefill dispatch (packed
         # groups on the ragged-rows layout under the ragged kernel)
         self.prefill_pipeline = bool(config.prefill_pipeline)
@@ -282,14 +328,16 @@ class ModelRunner:
         # forwards run per entry point (packed prefill included), so a
         # run can show which paths it took
         # (decode_iterations: forwards the fused K-step loops ran, so a
-        # run can see a round that exited before its K)
+        # run can see a round that exited before its K; prefill_lanes:
+        # the padded lanes of composed packed forwards, one prefill call
+        # each a layer)
         self._blk_seg_cache: dict[int, torch.Tensor] = {}
         # sampler candidates (and noise columns) per row
         self._top_cap = min(TOP_CAP, self.model_config.vocab_size)
         self.dispatch_counts = {"prefill": 0, "prefill_batch": 0,
                                 "decode": 0, "decode_multi": 0,
                                 "ragged": 0, "decode_iterations": 0,
-                                "verify_batch": 0}
+                                "verify_batch": 0, "prefill_lanes": 0}
         # the DFA tables of the live constraints on the device, keyed by
         # the engine's cache token; how often they were uploaded, and the
         # fused rounds that ran guided lanes on them
@@ -346,16 +394,13 @@ class ModelRunner:
 
     # -- the attention seam -------------------------------------------------
     def _attn(self, kind: str, q, layer, kc, vc, *args):
-        """Route one attention call to the paged kernel for `kind`
-        ("prefill" | "decode" | "ragged"), filling block size, scale and
-        window from the runner's config. The wrapper launches the CUDA
-        kernel for tensors on the card and the plain version for CPU
-        tensors."""
-        fn = {
-            "prefill": paged_attention.paged_prefill_attention,
-            "decode": paged_attention.paged_decode_attention,
-            "ragged": paged_attention.ragged_paged_attention,
-        }[kind]
+        """Route one attention call for `kind` ("prefill" | "decode" |
+        "ragged", the last under the ragged kernel only) to the impl's
+        function, filling block size, scale and window from the runner's
+        config. pallas: the paged kernel's wrapper, which launches the
+        CUDA kernel for tensors on the card and the plain version for CPU
+        tensors; xla: the gather path on the same arguments."""
+        fn = self._attn_fns[kind]
         return fn(
             q, kc, vc, layer, *args,
             block_size=self.block_size, scale=self._scale,
@@ -985,6 +1030,7 @@ class ModelRunner:
             return attn
 
         starts = [int(x) for x in q_starts]
+        self.dispatch_counts["prefill_lanes"] += s_pad
 
         def attn(q, l, kc, vc):
             qs = q.reshape(s_pad, t_pad, mc.num_heads, mc.head_dim)
@@ -2203,6 +2249,116 @@ class ModelRunner:
 
         return step
 
+    # -- composed ragged rounds --------------------------------------------------
+    # Without the ragged kernel (--no-ragged-kernel, or the xla impl) a
+    # lane-typed round is one packed buffer [lane types | packed prefill
+    # pack | decode pack] and two forwards on it: the packed prefill step
+    # over the prefill lanes (one prefill call a lane a layer), then the
+    # fused decode loop over the decode lanes (one decode call a layer an
+    # iteration). The lane sets hold disjoint block tables, so the order
+    # changes no value.
+    def _ragged_pack_sizes(
+        self, s_pad: int, t_pad: int, pc_pad: int, b: int, c_pad: int,
+        k_steps: int, stop_cap: int | None = None,
+        use_penalties: bool = False, bias_cap: int = 0,
+        chained: bool = False, pf_lora_rows: bool = False,
+        lora_lanes: bool = False, guided: bool = False,
+    ) -> tuple[int, int, int]:
+        """(meta, prefill, decode) segment lengths of a composed round's
+        packed buffer: the lane types (s_pad prefill lanes + b decode
+        lanes), the (s_pad, t_pad) packed prefill pack, the decode pack.
+        A staged buffer whose total differs from the dispatch's is
+        stale."""
+        _, pf = self._packed_prefill_pack_layout(s_pad, t_pad, pc_pad,
+                                                 pf_lora_rows)
+        _, dec = self._decode_pack_layout(b, c_pad, k_steps, stop_cap,
+                                          use_penalties, bias_cap, chained,
+                                          lora_lanes, guided)
+        return s_pad + b, pf, dec
+
+    def _ragged_dims(self, pf_chunks, pf_total_lens) -> tuple[int, int, int]:
+        """(s_pad, t_pad, pc_pad) of a composed round's prefill lanes."""
+        return (next_pow2(max(len(pf_chunks), 1)),
+                self._prefill_bucket(max(len(c) for c in pf_chunks)),
+                max(self._ctx_bucket(tl) for tl in pf_total_lens))
+
+    # stackcheck: hot-path — host build of the composed round's one h2d
+    # buffer; one pass over the lanes, no device work
+    def _fill_ragged_pack(
+        self,
+        pf_chunks, pf_start_positions, pf_block_tables, pf_total_lens,
+        pf_sampling, c_pad, token_ids, positions, block_tables,
+        context_lens, steps, temps, top_ps, top_ks, keys, min_ps=None,
+        stop=None, penalties=None, logit_bias=None, chained=False,
+        pf_lora_slots=None, lora_slots=None, guided_lanes=None,
+    ) -> tuple[int, int, int, np.ndarray]:
+        """Lane types + packed prefill pack + decode pack, one int32
+        buffer (dispatch and staging). Returns (s_pad, t_pad, pc_pad,
+        packed). Each half carries its own lanes' adapter slots (the two
+        forwards take their own _lora_key)."""
+        b = self.config.max_num_seqs
+        s_pad, t_pad, pc_pad, pf_packed = self._fill_packed_prefill_pack(
+            pf_chunks, pf_start_positions, pf_block_tables, pf_total_lens,
+            sampling=pf_sampling, lora_slots=pf_lora_slots,
+        )
+        dec_packed = self._fill_decode_pack(
+            c_pad, steps, token_ids, positions, block_tables, context_lens,
+            temps, top_ps, top_ks, keys, min_ps=min_ps, stop=stop,
+            penalties=penalties, logit_bias=logit_bias, chained=chained,
+            lora_slots=lora_slots,
+            lora_lanes=isinstance(self._lora_key(lora_slots), tuple),
+            guided_lanes=guided_lanes,
+        )
+        types = np.full((s_pad + b,), RAGGED_LANE_IDLE, np.int32)
+        types[:len(pf_chunks)] = RAGGED_LANE_PREFILL
+        types[s_pad:s_pad + len(positions)] = RAGGED_LANE_DECODE
+        packed = np.concatenate([types, pf_packed, dec_packed])
+        return s_pad, t_pad, pc_pad, packed
+
+    def _build_ragged(self, s_pad: int, t_pad: int, pc_pad: int, b: int,
+                      c_pad: int, k_steps: int, use_penalties: bool = False,
+                      want_logprobs: bool = False, bias_cap: int = 0,
+                      stop_cap: int | None = None, chained: bool = False,
+                      pf_lora=None, lora=None, guided: bool = False):
+        """The composed round as `step(packed, q_starts,
+        chained_tokens=None, guided_tables=None)` -> (pf_sampled (s_pad,)
+        int32, RAGGED_IDLE_TOKEN on non-prefill lanes; pf_logits (s_pad,
+        vocab); decode ys as decode_multi returns them). `q_starts`: the
+        prefill lanes' start positions on the host (the prefill calls
+        take them as scalars). `pf_lora` / `lora`: the prefill and the
+        decode lanes' _lora_key."""
+        pf_step = self._packed_prefill_step(s_pad, t_pad, pc_pad, pf_lora)
+        lora_lanes = isinstance(lora, tuple)
+        core = self._decode_round_core(
+            b, c_pad, k_steps, use_penalties=use_penalties,
+            want_logprobs=want_logprobs, bias_cap=bias_cap,
+            stop_cap=stop_cap, chained=chained, lora=lora,
+            lora_lanes=lora_lanes, guided=guided,
+        )
+        meta_n, pf_n, _ = self._ragged_pack_sizes(
+            s_pad, t_pad, pc_pad, b, c_pad, k_steps, stop_cap,
+            use_penalties, bias_cap, chained, isinstance(pf_lora, tuple),
+            lora_lanes, guided,
+        )
+
+        def step(packed, q_starts, chained_tokens=None, guided_tables=None):
+            lane_types = packed[:s_pad]
+            # prefill lanes first: their chunks' K/V lands before the
+            # decode loop runs, the split rounds' order
+            pf_sampled, pf_logits = pf_step(packed[meta_n:meta_n + pf_n],
+                                            q_starts)
+            consts, carry0 = core["unpack"](packed[meta_n + pf_n:],
+                                            chained_tokens=chained_tokens,
+                                            guided_tables=guided_tables)
+            ys = core["run"](consts, carry0)
+            pf_sampled = torch.where(
+                lane_types == RAGGED_LANE_PREFILL, pf_sampled,
+                torch.full_like(pf_sampled, RAGGED_IDLE_TOKEN),
+            )
+            return pf_sampled, pf_logits, ys
+
+        return step
+
     # stackcheck: hot-path — speculative prefetch of the NEXT ragged
     # round's buffer: enqueue only, no device fetch
     def stage_ragged(
@@ -2224,17 +2380,22 @@ class ModelRunner:
         t0 = time.perf_counter()
         c_pad = self._ctx_bucket(max(context_lens) + max(0, steps - 1))
         lora = self._lora_key(pf_lora_slots, lora_slots)
-        r_pad, pc_pad, packed = self._fill_ragged_rows_pack(
-            pf_chunks, pf_start_positions, pf_block_tables, pf_total_lens,
-            pf_sampling, c_pad, None, positions, block_tables,
-            context_lens, steps, temps, top_ps, top_ks, keys,
-            min_ps=min_ps, stop=stop, chained=True,
-            pf_lora_slots=pf_lora_slots, lora_slots=lora_slots,
-            lora_rows=isinstance(lora, tuple),
-        )
+        args = (pf_chunks, pf_start_positions, pf_block_tables,
+                pf_total_lens, pf_sampling, c_pad, None, positions,
+                block_tables, context_lens, steps, temps, top_ps, top_ks,
+                keys)
+        kw = dict(min_ps=min_ps, stop=stop, chained=True,
+                  pf_lora_slots=pf_lora_slots, lora_slots=lora_slots)
+        if self.ragged_kernel:
+            *dims, packed = self._fill_ragged_rows_pack(
+                *args, lora_rows=isinstance(lora, tuple), **kw)
+            key = ("rows", *dims, c_pad, lora)
+        else:
+            *dims, packed = self._fill_ragged_pack(*args, **kw)
+            key = ("ragged", *dims, c_pad, lora)
         t1 = time.perf_counter()
         self._phase_add("prep", t1 - t0)
-        handle = self._stage(("rows", r_pad, pc_pad, c_pad, lora), packed)
+        handle = self._stage(key, packed)
         self._phase_add("h2d", time.perf_counter() - t1)
         return handle
 
@@ -2264,10 +2425,13 @@ class ModelRunner:
         lora_slots: list[int] | None = None,
         guided: tuple | None = None,
     ) -> tuple:
-        """One lane-typed round: prefill chunk lanes + fused decode lanes.
-        Returns (pf_sampled (s_cap,) int32 on the device, RAGGED_IDLE_TOKEN
-        on non-prefill lanes; pf_logits (s_cap, vocab); dec_ys) where
-        dec_ys has decode_multi's return shape for the same flags.
+        """One lane-typed round: prefill chunk lanes + fused decode lanes,
+        on the ragged kernel (_build_ragged_rows) or composed
+        (_build_ragged: without the ragged kernel, or under xla).
+        Returns (pf_sampled (s,) int32 on the device, RAGGED_IDLE_TOKEN on
+        non-prefill lanes; pf_logits (s, vocab); dec_ys) where dec_ys has
+        decode_multi's return shape for the same flags (s: the lane cap
+        on the ragged kernel, the padded lane count composed).
         `token_ids` may be a device tensor (chained decode half, see
         decode_multi); `staged` = a stage_ragged handle, used only when
         its bucket key AND total length match this dispatch (a lane-mix
@@ -2282,55 +2446,71 @@ class ModelRunner:
                 f"{self.block_size}: idle lanes would overrun the trash "
                 "block"
             )
-        if not self.ragged_kernel:
-            raise NotImplementedError(
-                "the composed-kernel ragged round is not ported to the "
-                "PyTorch engine yet: pass --no-ragged-dispatch"
-            )
         b = self.config.max_num_seqs
         chained = isinstance(token_ids, torch.Tensor)
         c_pad = self._ctx_bucket(max(context_lens) + steps - 1)
         bias_cap = 0 if logit_bias is None else int(logit_bias[0].shape[1])
         stop_cap = self._stop_cap(stop)
-        r_pad, pc_pad = self._rows_dims(pf_chunks, pf_total_lens)
         lora = self._lora_key(pf_lora_slots, lora_slots)
         per_tok = isinstance(lora, tuple)
+        pf_lora = self._lora_key(pf_lora_slots)
+        dec_lora = self._lora_key(lora_slots)
         guided_lanes = None if guided is None else (guided[1], guided[2])
+        if self.ragged_kernel:
+            dims = self._rows_dims(pf_chunks, pf_total_lens)
+            key = ("rows", *dims, c_pad, lora)
+        else:
+            dims = self._ragged_dims(pf_chunks, pf_total_lens)
+            key = ("ragged", *dims, c_pad, lora)
         packed_dev = None
         if (staged is not None and chained and guided is None
-                and staged.key == ("rows", r_pad, pc_pad, c_pad, lora)):
-            want_total = sum(self._ragged_rows_pack_sizes(
-                r_pad, pc_pad, b, c_pad, steps, stop_cap,
-                penalties is not None, bias_cap, chained, per_tok,
-            ))
-            if staged.dev.shape[0] == want_total:
+                and staged.key == key):
+            if self.ragged_kernel:
+                sizes = self._ragged_rows_pack_sizes(
+                    *dims, b, c_pad, steps, stop_cap, penalties is not None,
+                    bias_cap, chained, per_tok)
+            else:
+                sizes = self._ragged_pack_sizes(
+                    *dims, b, c_pad, steps, stop_cap, penalties is not None,
+                    bias_cap, chained, isinstance(pf_lora, tuple),
+                    isinstance(dec_lora, tuple))
+            if staged.dev.shape[0] == sum(sizes):
                 packed_dev = self._take(staged)
         if packed_dev is None:
             t0 = time.perf_counter()
-            r_pad, pc_pad, packed = self._fill_ragged_rows_pack(
-                pf_chunks, pf_start_positions, pf_block_tables,
-                pf_total_lens, pf_sampling, c_pad, token_ids, positions,
-                block_tables, context_lens, steps, temps, top_ps, top_ks,
-                keys, min_ps=min_ps, stop=stop, penalties=penalties,
-                logit_bias=logit_bias, chained=chained,
-                pf_lora_slots=pf_lora_slots, lora_slots=lora_slots,
-                lora_rows=per_tok, guided_lanes=guided_lanes,
-            )
+            args = (pf_chunks, pf_start_positions, pf_block_tables,
+                    pf_total_lens, pf_sampling, c_pad, token_ids, positions,
+                    block_tables, context_lens, steps, temps, top_ps, top_ks,
+                    keys)
+            kw = dict(min_ps=min_ps, stop=stop, penalties=penalties,
+                      logit_bias=logit_bias, chained=chained,
+                      pf_lora_slots=pf_lora_slots, lora_slots=lora_slots,
+                      guided_lanes=guided_lanes)
+            if self.ragged_kernel:
+                packed = self._fill_ragged_rows_pack(
+                    *args, lora_rows=per_tok, **kw)[-1]
+            else:
+                packed = self._fill_ragged_pack(*args, **kw)[-1]
             t1 = time.perf_counter()
             self._phase_add("prep", t1 - t0)
             packed_dev = self._upload(packed)
             self._phase_add("h2d", time.perf_counter() - t1)
         t2 = time.perf_counter()
-        step = self._build_ragged_rows(
-            r_pad, pc_pad, b, c_pad, steps,
-            use_penalties=penalties is not None,
-            want_logprobs=want_logprobs, bias_cap=bias_cap,
-            stop_cap=stop_cap, chained=chained, lora=lora,
-            guided=guided is not None,
-        )
-        out = step(packed_dev,
-                   chained_tokens=token_ids if chained else None,
-                   guided_tables=self._decode_guided_tables(guided))
+        flags = dict(use_penalties=penalties is not None,
+                     want_logprobs=want_logprobs, bias_cap=bias_cap,
+                     stop_cap=stop_cap, chained=chained,
+                     guided=guided is not None)
+        run_kw = dict(chained_tokens=token_ids if chained else None,
+                      guided_tables=self._decode_guided_tables(guided))
+        if self.ragged_kernel:
+            out = self._build_ragged_rows(
+                *dims, b, c_pad, steps, lora=lora, **flags,
+            )(packed_dev, **run_kw)
+        else:
+            out = self._build_ragged(
+                *dims, b, c_pad, steps, pf_lora=pf_lora, lora=dec_lora,
+                **flags,
+            )(packed_dev, pf_start_positions, **run_kw)
         self.dispatch_counts["ragged"] += 1
         self._phase_add("dispatch", time.perf_counter() - t2)
         return out

@@ -140,11 +140,12 @@ def write_debug_checkpoint(
 def hf_config_of(cfg: ModelConfig) -> dict:
     """HF ``config.json`` fields that models/config.py:from_hf_config
     reads back as `cfg` (Llama, Mistral with a window, Qwen2 with qkv
-    bias; Gemma's knobs have no such inverse here)."""
-    if cfg.norm_weight_offset or cfg.embed_scale != 1.0 or cfg.is_moe:
-        raise ValueError(f"{cfg.name}: only Llama, Mistral and Qwen2 "
-                         "layouts are written")
-    arch = ("Qwen2ForCausalLM" if cfg.qkv_bias
+    bias, Mixtral; Gemma's knobs have no such inverse here)."""
+    if cfg.norm_weight_offset or cfg.embed_scale != 1.0:
+        raise ValueError(f"{cfg.name}: only Llama, Mistral, Qwen2 and "
+                         "Mixtral layouts are written")
+    arch = ("MixtralForCausalLM" if cfg.is_moe
+            else "Qwen2ForCausalLM" if cfg.qkv_bias
             else "MistralForCausalLM" if cfg.sliding_window
             else "LlamaForCausalLM")
     hf = {
@@ -165,6 +166,9 @@ def hf_config_of(cfg: ModelConfig) -> dict:
     }
     if cfg.qkv_bias:
         hf["use_sliding_window"] = cfg.sliding_window is not None
+    if cfg.is_moe:
+        hf["num_local_experts"] = cfg.num_experts
+        hf["num_experts_per_tok"] = cfg.num_experts_per_tok
     return hf
 
 
@@ -183,6 +187,15 @@ _HF_LAYER = {
     "w_up": ("mlp.up_proj.weight", True),
     "w_down": ("mlp.down_proj.weight", True),
 }
+# a MoE layer's router and experts (HF MixtralSparseMoeBlock): port key ->
+# HF suffix, every one stored transposed in the port; expert e of
+# w_gate / w_up / w_down is experts.{e}.w1 / w3 / w2
+_HF_MOE = {
+    "moe_gate": "block_sparse_moe.gate.weight",
+    "w_gate": "block_sparse_moe.experts.{e}.w1.weight",
+    "w_up": "block_sparse_moe.experts.{e}.w3.weight",
+    "w_down": "block_sparse_moe.experts.{e}.w2.weight",
+}
 
 
 def hf_tensors(params: dict):
@@ -191,12 +204,19 @@ def hf_tensors(params: dict):
     yield "model.embed_tokens.weight", params["embed"]
     layers = params["layers"]
     n_layers = layers["wq"].shape[0]
+    moe = "moe_gate" in layers
     for layer in range(n_layers):
+        p = f"model.layers.{layer}."
         for ours, (suffix, transpose) in _HF_LAYER.items():
-            if ours in layers:
+            if ours in layers and not (moe and ours in _HF_MOE):
                 w = layers[ours][layer]
-                yield (f"model.layers.{layer}.{suffix}",
-                       w.t() if transpose else w)
+                yield p + suffix, w.t() if transpose else w
+        if moe:
+            yield p + _HF_MOE["moe_gate"], layers["moe_gate"][layer].t()
+            for e in range(layers["w_gate"].shape[1]):
+                for ours in ("w_gate", "w_up", "w_down"):
+                    yield (p + _HF_MOE[ours].format(e=e),
+                           layers[ours][layer, e].t())
     yield "model.norm.weight", params["final_norm"]
     if "lm_head" in params:
         yield "lm_head.weight", params["lm_head"].t()

@@ -14,7 +14,8 @@ returned for symmetry with the JAX signature.
 
 Multi-LoRA (engine/lora.py's stacked slots) adds scaling * (x @ A) @ B
 to the wq/wk/wv/wo projections, in plain PyTorch as the JAX package
-computes it in XLA. MoE is not ported yet: it raises.
+computes it in XLA. A MoE model (Mixtral) runs ops/moe.py's block in
+place of the dense MLP; its experts take no adapter.
 """
 
 from __future__ import annotations
@@ -31,18 +32,11 @@ from production_stack_tpu_torch.ops.layers import (
     rope_cos_sin,
     swiglu,
 )
+from production_stack_tpu_torch.ops.moe import moe_block
 
 # attn_fn(q_rope, layer_idx, k_cache, v_cache) -> attn_out
 AttnFn = Callable[[torch.Tensor, int, torch.Tensor, torch.Tensor],
                   torch.Tensor]
-
-
-def _refuse_unported(cfg: ModelConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"model {cfg.name}: MoE layers are not ported to the PyTorch "
-            "engine yet"
-        )
 
 
 def init_params(
@@ -53,8 +47,9 @@ def init_params(
 ) -> dict:
     """Random-init parameters (scaled normal), layer weights stacked on
     axis 0. `generator` must live on `device`; weights are drawn there in
-    float32 one tensor at a time and cast to `dtype`."""
-    _refuse_unported(cfg)
+    float32 one tensor at a time and cast to `dtype`. A MoE model
+    (Mixtral) has a router moe_gate (L, h, E) and stacked experts w_gate /
+    w_up (L, E, h, f), w_down (L, E, f, h) in place of the dense MLP."""
     h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     L = cfg.num_layers
 
@@ -76,10 +71,17 @@ def init_params(
         "wk": w((L, h, cfg.kv_size), h),
         "wv": w((L, h, cfg.kv_size), h),
         "wo": w((L, cfg.q_size, h), cfg.q_size),
-        "w_gate": w((L, h, i), h),
-        "w_up": w((L, h, i), h),
-        "w_down": w((L, i, h), i),
     }
+    if cfg.is_moe:
+        E = cfg.num_experts
+        layers["moe_gate"] = w((L, h, E), h)
+        layers["w_gate"] = w((L, E, h, i), h)
+        layers["w_up"] = w((L, E, h, i), h)
+        layers["w_down"] = w((L, E, i, h), i)
+    else:
+        layers["w_gate"] = w((L, h, i), h)
+        layers["w_up"] = w((L, h, i), h)
+        layers["w_down"] = w((L, i, h), i)
     if cfg.qkv_bias:
         layers["bq"] = zeros((L, cfg.q_size))
         layers["bk"] = zeros((L, cfg.kv_size))
@@ -151,8 +153,14 @@ def decoder_layer(
 
     x = rms_norm(h, lp["mlp_norm"], cfg.rms_norm_eps,
                  cfg.norm_weight_offset)
-    h = h + swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"],
-                   act=cfg.hidden_act)
+    if cfg.is_moe:
+        h = h + moe_block(
+            x, lp["moe_gate"], lp["w_gate"], lp["w_up"], lp["w_down"],
+            cfg.num_experts_per_tok, cfg.moe_capacity_factor,
+        ).to(dtype)
+    else:
+        h = h + swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"],
+                       act=cfg.hidden_act)
     return h, kc, vc
 
 
@@ -178,7 +186,6 @@ def forward(
     (S,)) and `lora_slots`, scaling * (x @ A) @ B of each row's slot is
     added to wq/wk/wv/wo (slot 0 is all zeros: no adapter). A scalar slot
     is the uniform path, an (n,) vector the per-token one."""
-    _refuse_unported(cfg)
     dtype = params["embed"].dtype
     cache_dtype = k_cache.dtype
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)

@@ -102,12 +102,8 @@ def load_hf_weights(
     cfg: ModelConfig, model_dir: str, dtype: torch.dtype = torch.bfloat16,
     device: str | torch.device = "cpu",
 ) -> dict:
-    """Read an HF Llama/Mistral/Qwen2/Phi-3/Gemma checkpoint into the
-    port's param tree on `device`, in `dtype`."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"checkpoint at {model_dir} is a MoE model ({cfg.name}): MoE "
-            "layers are not ported to the PyTorch engine yet")
+    """Read an HF Llama/Mistral/Qwen2/Phi-3/Gemma/Mixtral checkpoint into
+    the port's param tree on `device`, in `dtype`."""
     t0 = time.perf_counter()
     L, h = cfg.num_layers, cfg.hidden_size
 
@@ -123,10 +119,17 @@ def load_hf_weights(
         "wk": alloc((L, h, cfg.kv_size)),
         "wv": alloc((L, h, cfg.kv_size)),
         "wo": alloc((L, cfg.q_size, h)),
-        "w_gate": alloc((L, h, i_sz)),
-        "w_up": alloc((L, h, i_sz)),
-        "w_down": alloc((L, i_sz, h)),
     }
+    if cfg.is_moe:
+        E = cfg.num_experts
+        layers["moe_gate"] = alloc((L, h, E))
+        layers["w_gate"] = alloc((L, E, h, i_sz))
+        layers["w_up"] = alloc((L, E, h, i_sz))
+        layers["w_down"] = alloc((L, E, i_sz, h))
+    else:
+        layers["w_gate"] = alloc((L, h, i_sz))
+        layers["w_up"] = alloc((L, h, i_sz))
+        layers["w_down"] = alloc((L, i_sz, h))
     if cfg.qkv_bias:
         layers["bq"] = alloc((L, cfg.q_size))
         layers["bk"] = alloc((L, cfg.kv_size))
@@ -170,6 +173,25 @@ def load_hf_weights(
             continue
         _, idx, *rest = key.split(".", 2)
         i, suffix = int(idx), rest[0]
+        # Mixtral MoE block (HF MixtralSparseMoeBlock):
+        #   block_sparse_moe.gate.weight            [E, h] -> moe_gate
+        #   block_sparse_moe.experts.{e}.w1.weight  [f, h] -> w_gate
+        #   block_sparse_moe.experts.{e}.w3.weight  [f, h] -> w_up
+        #   block_sparse_moe.experts.{e}.w2.weight  [h, f] -> w_down
+        if cfg.is_moe and suffix.startswith("block_sparse_moe."):
+            if suffix == "block_sparse_moe.gate.weight":
+                _put(layers["moe_gate"][i], tensor, name, transpose=True)
+                n_loaded += 1
+                continue
+            parts = suffix.split(".")  # [.., 'experts', e, 'w1', 'weight']
+            if len(parts) == 5 and parts[1] == "experts":
+                ours = {"w1": "w_gate", "w3": "w_up",
+                        "w2": "w_down"}.get(parts[3])
+                if ours is not None:
+                    _put(layers[ours][i, int(parts[2])], tensor, name,
+                         transpose=True)
+                    n_loaded += 1
+            continue
         # Phi-3 fuses attention and MLP inputs into single matrices;
         # split the rows back out to the Llama-layout params
         if suffix == "self_attn.qkv_proj.weight":
@@ -199,9 +221,13 @@ def load_hf_weights(
         raise ValueError(f"checkpoint at {model_dir} has no embed_tokens")
     # completeness: a partial shard set must never load as zero-filled
     # layers (n per-layer tensors + embed + final_norm [+ lm_head])
+    dense_mlp = {"w_gate", "w_up", "w_down"}
     per_layer_count = len([
-        k for k, (ours, _) in per_layer.items() if ours in layers
+        k for k, (ours, _) in per_layer.items()
+        if ours in layers and not (cfg.is_moe and ours in dense_mlp)
     ])
+    if cfg.is_moe:
+        per_layer_count += 1 + 3 * cfg.num_experts  # router + experts
     expected = (
         L * per_layer_count + 2 + (0 if cfg.tie_word_embeddings else 1)
     )

@@ -6,10 +6,15 @@ position p lives in slot ``block_table[p // block_size] * block_size +
 p % block_size``, so row i of the gathered context is absolute position i.
 
 This module materialises the gathered context and runs a plain masked
-softmax. It is the oracle the paged kernels (ops/paged_attention.py) are
-held against in the tests, and the attention of ``ModelRunner.embed``
-(chunk x context over its scratch cache, as the JAX package computes it
-in XLA); no other serving path calls it.
+softmax: the ``xla`` attention impl of the model runner (the JAX
+package's XLA gather path, which has no Pallas kernel), the oracle the
+paged kernels (ops/paged_attention.py) are held against in the tests,
+and the attention of ``ModelRunner.embed`` (chunk x context over its
+scratch cache). ``paged_prefill_attention_gather`` and
+``paged_decode_attention_gather`` take the paged kernels' arguments
+(page tables, not slot lists), so the runner swaps one set of functions
+for the other at one seam; each expands its tables into per-position
+gather slots on the tables' device.
 """
 
 from __future__ import annotations
@@ -95,3 +100,37 @@ def context_attention_prefill(
                          torch.full_like(scores, MASK_VALUE))
     p = torch.softmax(scores, dim=-1)
     return _gqa_output(p, v_ctx).to(q.dtype)
+
+
+def _gather_ctx(cache: torch.Tensor, layer: int, slots: torch.Tensor
+                ) -> torch.Tensor:
+    """Rows `slots` (..., c) of one layer of a head-major cache (L, nkv,
+    num_slots, d) -> (..., c, nkv, d): row i is absolute position i."""
+    return cache[layer][:, slots.long()].movedim(0, -2)
+
+
+def paged_prefill_attention_gather(q, k_cache, v_cache, layer, block_table,
+                                   q_start, *, block_size, scale,
+                                   window=None):
+    """One sequence's chunk (row i at position q_start + i) over its whole
+    page table, gathered: the arguments of
+    ops/paged_attention.paged_prefill_attention. -> (t, nq, d)."""
+    slots = block_table_slots(block_table, block_size)
+    q_pos = int(q_start) + torch.arange(q.shape[0], device=q.device)
+    return context_attention_prefill(
+        q, _gather_ctx(k_cache, layer, slots),
+        _gather_ctx(v_cache, layer, slots), q_pos, slots.shape[-1], scale,
+        window=window)
+
+
+def paged_decode_attention_gather(q, k_cache, v_cache, layer, block_tables,
+                                  context_lens, *, block_size, scale,
+                                  window=None):
+    """One query row per sequence (at position context_lens - 1) over its
+    page table, gathered: the arguments of
+    ops/paged_attention.paged_decode_attention. -> (b, nq, d)."""
+    slots = block_table_slots(block_tables, block_size)
+    return context_attention_decode(
+        q, _gather_ctx(k_cache, layer, slots),
+        _gather_ctx(v_cache, layer, slots), context_lens, scale,
+        window=window)

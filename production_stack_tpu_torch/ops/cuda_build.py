@@ -3,9 +3,12 @@
 Every ``csrc/*.cu`` goes into one shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds): one ``nvcc -c`` per source, all started at once, then one link.
-The build runs at first use into ``build/kernels/`` beside the package;
-the library's file name carries a hash of every file under ``csrc/`` and
-of the compiler flags, so an edited source or header never loads a stale
+The build runs at first use into ``build_dir()``: ``$PST_KERNEL_BUILD_DIR``
+when it is set, else ``build/kernels/`` beside the package (in a
+checkout, the repository's gitignored ``build/``), else, where that is
+not writable (an installed package), a per-user cache directory. The
+library's file name carries a hash of every file under ``csrc/`` and of
+the compiler flags, so an edited source or header never loads a stale
 build. Nothing here runs at import time: the CPU-only tests import every
 module.
 """
@@ -17,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 from pathlib import Path
@@ -31,8 +35,30 @@ _LIB: ctypes.CDLL | None = None
 _LOCK = threading.Lock()
 
 
+BUILD_DIR_ENV = "PST_KERNEL_BUILD_DIR"
+
+
+def _writable(path: Path) -> bool:
+    """Whether `path` could be created and written: its nearest existing
+    ancestor is a writable directory."""
+    for p in (path, *path.parents):
+        if p.exists():
+            return p.is_dir() and os.access(p, os.W_OK | os.X_OK)
+    return False
+
+
 def build_dir() -> Path:
-    return CSRC.parent.parent / "build" / "kernels"
+    """Where the library is built: $PST_KERNEL_BUILD_DIR, else
+    build/kernels beside the package, else (not writable there) the
+    user's cache directory."""
+    env = os.environ.get(BUILD_DIR_ENV)
+    if env:
+        return Path(env).expanduser()
+    beside = CSRC.parent.parent / "build" / "kernels"
+    if _writable(beside):
+        return beside
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "production_stack_tpu_torch" / "kernels"
 
 
 def nvcc_path() -> str:
@@ -70,6 +96,9 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
+    print(f"building the CUDA kernels into {out.parent} (set "
+          f"{BUILD_DIR_ENV} to choose the directory)", file=sys.stderr,
+          flush=True)
     nvcc = nvcc_path()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         cus = [s for s in sources() if s.suffix == ".cu"]

@@ -1,0 +1,166 @@
+"""The port's CLI and packaging against what deployments hand it.
+
+- Every flag of the JAX package's engine CLI parses in the port's
+  (a deployment's arguments never stop at argparse's exit code 2), and
+  makes an EngineConfig or a NotImplementedError naming the feature;
+  the flags the port serves reach EngineConfig.
+- Every flag the Helm chart's engine template can emit parses.
+- Every file cuda_build.sources() builds from (the .cu sources and the
+  .cuh headers they include and the library hash covers) ships in the
+  package data.
+- The kernels' build directory: $PST_KERNEL_BUILD_DIR, else build/kernels
+  beside the package, else a per-user cache when that is not writable;
+  a build (a stand-in nvcc here) says where it went.
+"""
+
+import fnmatch
+import os
+import re
+import stat
+import sys
+import tomllib
+from pathlib import Path
+
+import pytest
+
+from production_stack_tpu.engine.__main__ import build_parser as j_parser
+from production_stack_tpu_torch.engine.__main__ import (
+    build_parser,
+    config_from_args,
+    main,
+)
+from production_stack_tpu_torch.ops import cuda_build
+
+REPO = Path(__file__).resolve().parent.parent
+# values for flags that take one (others: by the JAX action's type)
+VALUES = {"--model": "pst-tiny-debug", "--tokenizer": "byte",
+          "--kv-role": "prefill", "--attention-impl": "xla",
+          "--coordinator-address": "10.0.0.1:1234"}
+
+
+def _flags(parser) -> dict:
+    return {o: a for a in parser._actions for o in a.option_strings
+            if o.startswith("--")}
+
+
+def _argv(flag, action) -> list[str]:
+    """The flag with a value the JAX CLI takes (a choice the port's parser
+    lists, where it lists them)."""
+    if action.nargs == 0:
+        return [flag]
+    if flag in VALUES:
+        return [flag, VALUES[flag]]
+    choices = _flags(build_parser())[flag].choices or action.choices
+    if choices:
+        return [flag, str(list(choices)[-1])]
+    return [flag, {int: "2", float: "0.5"}.get(action.type, "x")]
+
+
+# argparse's own --help prints the usage and exits, in both CLIs
+JAX_FLAGS = sorted(set(_flags(j_parser())) - {"--help"})
+
+
+@pytest.mark.parametrize("flag", JAX_FLAGS)
+def test_every_jax_cli_flag_parses_in_the_port(flag):
+    argv = ["--device", "cpu"] + _argv(flag, _flags(j_parser())[flag])
+    args = build_parser().parse_args(argv)
+    try:
+        config_from_args(args)
+    except NotImplementedError as e:
+        assert "not ported to the PyTorch engine yet" in str(e)
+
+
+@pytest.mark.parametrize("argv,field,want", [
+    (["--attention-impl", "xla"], "attention_impl", "xla"),
+    (["--attention-impl", "pallas"], "attention_impl", "pallas"),
+    ([], "attention_impl", "auto"),
+    (["--enable-sleep-mode"], "async_decode", False),
+    (["--no-async-decode"], "async_decode", False),
+    (["--long-prefill-chunk", "128"], "long_prefill_chunk", 128),
+])
+def test_served_flags_reach_engine_config(argv, field, want):
+    cfg = config_from_args(build_parser().parse_args(["--device", "cpu",
+                                                      *argv]))
+    assert getattr(cfg, field) == want
+
+
+@pytest.mark.parametrize("argv,name", [
+    (["--precompile-serving"], "precompile_serving"),
+    (["--long-prefill-threshold", "256"], "long_prefill_threshold"),
+    (["--num-processes", "2"], "multihost"),
+    (["--process-id", "1"], "multihost"),
+    (["--coordinator-address", "10.0.0.1:1234"], "multihost"),
+    (["--multihost"], "multihost"),
+])
+def test_unported_flags_stop_with_engine_config_message(argv, name):
+    """main() stops in EngineConfig with its message naming the feature
+    (a NotImplementedError, not argparse's SystemExit)."""
+    with pytest.raises(NotImplementedError, match=name):
+        main(["--device", "cpu", *argv])
+
+
+def test_engine_template_covers_the_port_cli():
+    """Twin of tests/test_helm.py::test_engine_template_covers_engine_cli
+    for the port's parser."""
+    flags = _flags(build_parser())
+    text = (REPO / "helm/templates/deployment-engine.yaml").read_text()
+    emitted = re.findall(r'"(--[a-z][a-z0-9-]*)"', text)
+    assert "--attention-impl" in emitted and "--precompile-serving" in emitted
+    for flag in emitted:
+        assert flag in flags, f"chart emits unknown flag {flag}"
+
+
+def test_package_data_ships_every_kernel_source():
+    data = tomllib.loads((REPO / "pyproject.toml").read_text())
+    globs = data["tool"]["setuptools"]["package-data"][
+        "production_stack_tpu_torch"]
+    pkg = REPO / "production_stack_tpu_torch"
+    srcs = cuda_build.sources()
+    assert {p.suffix for p in srcs} == {".cu", ".cuh"}
+    for src in srcs:
+        rel = src.relative_to(pkg).as_posix()
+        assert any(fnmatch.fnmatch(rel, g) for g in globs), rel
+
+
+def test_build_dir_override_and_fallback(monkeypatch, tmp_path):
+    monkeypatch.setenv("PST_KERNEL_BUILD_DIR", str(tmp_path / "k"))
+    assert cuda_build.build_dir() == tmp_path / "k"
+    assert cuda_build.library_path().parent == tmp_path / "k"
+    monkeypatch.delenv("PST_KERNEL_BUILD_DIR")
+    # a checkout: beside the package, in the gitignored build/
+    assert cuda_build.build_dir() == REPO / "build" / "kernels"
+    # an installed package where build/ cannot be made: the user's cache
+    blocker = tmp_path / "site"
+    blocker.write_text("a file where build/ would go")
+    monkeypatch.setattr(cuda_build, "CSRC", blocker / "pkg" / "csrc")
+    assert not cuda_build._writable(blocker / "build" / "kernels")
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    assert cuda_build.build_dir() == (
+        tmp_path / "cache" / "production_stack_tpu_torch" / "kernels")
+    # a directory that does not exist yet is writable where its nearest
+    # existing ancestor is
+    assert cuda_build._writable(tmp_path / "new" / "deeper")
+    assert os.access(tmp_path, os.W_OK)
+
+
+def test_build_writes_into_the_chosen_dir_and_says_so(monkeypatch, tmp_path,
+                                                      capsys):
+    """build() with a stand-in nvcc (it writes each -o file): one compile
+    per .cu source, one link, the library and its log land in the build
+    directory, and stderr names it."""
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        f"#!{sys.executable}\n"
+        "import sys\n"
+        "a = sys.argv\n"
+        "open(a[a.index('-o') + 1], 'w').write('x')\n"
+        "print('ptxas info : stand-in')\n")
+    fake.chmod(stat.S_IRWXU)
+    monkeypatch.setattr(cuda_build, "nvcc_path", lambda: str(fake))
+    monkeypatch.setenv("PST_KERNEL_BUILD_DIR", str(tmp_path / "out"))
+    lib = cuda_build.build()
+    assert lib.parent == tmp_path / "out" and lib.exists()
+    n_cu = sum(1 for s in cuda_build.sources() if s.suffix == ".cu")
+    assert lib.with_suffix(".log").read_text().count("stand-in") == n_cu
+    assert str(tmp_path / "out") in capsys.readouterr().err
+    assert cuda_build.build() == lib  # built once

@@ -127,16 +127,16 @@ def test_seeded_sampling_is_reproducible(np_params):
 
 @pytest.mark.parametrize("field,value", [
     ("precompile_serving", True), ("long_prefill_threshold", 1024),
-    ("ragged_kernel", False),  # the composed-kernel ragged round
     ("async_decode", True), ("tensor_parallel_size", 2),
     ("pipeline_parallel_size", 2), ("multihost", True),
-    ("context_parallel_size", 2), ("model", "pst-tiny-moe-debug"),
+    ("context_parallel_size", 2),
 ])
 def test_unported_flags_refuse_to_start(field, value):
-    """On the default (unified ragged round) configuration."""
-    with pytest.raises(NotImplementedError,
-                       match="--no-ragged-dispatch" if field == "ragged_kernel"
-                       else field):
+    """On the default (unified ragged round) configuration. The composed
+    ragged round (--no-ragged-kernel) and MoE models are served: their
+    engines are held to the JAX package's in tests/test_torch_composed.py
+    and tests/test_torch_moe.py."""
+    with pytest.raises(NotImplementedError, match=field):
         EngineConfig(**{**BASE, "ragged_dispatch": True, field: value},
                      device="cpu")
 
@@ -164,7 +164,8 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("over,match", [
-    ({}, "head_dim"),  # pst-tiny-debug: head_dim 16
+    # pst-tiny-debug: head_dim 16 (auto would take the gather path)
+    ({"attention_impl": "pallas"}, "head_dim"),
     ({"model": "llama-3.2-3b", "block_size": 4}, "block_size"),
     ({"model": "llama-3.2-3b", "block_size": 256}, "block_size"),
 ])

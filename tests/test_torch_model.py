@@ -312,9 +312,15 @@ def test_init_params_layout_and_refusals():
     assert p["layers"]["wq"].shape == (2, 64, 64)
     assert p["layers"]["wk"].shape == (2, 64, 32)
     assert "lm_head" not in p  # tied
+    # MoE: the router and the stacked experts take the dense MLP's
+    # place, in the JAX package's shapes
     moe = tcfg.get_model_config("pst-tiny-moe-debug")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tllama.init_params(moe, torch.Generator(), torch.float32, "cpu")
+    pm = tllama.init_params(moe, torch.Generator().manual_seed(0),
+                            torch.float32, "cpu")
+    jm = jllama.init_params(moe, jax.random.key(0), jnp.float32)
+    assert {k: tuple(v.shape) for k, v in pm["layers"].items()} == {
+        k: tuple(v.shape) for k, v in jm["layers"].items()}
+    assert pm["layers"]["w_gate"].shape == (2, 4, 64, 128)
     # LoRA buffers need the rows' adapter slots
     with pytest.raises(ValueError, match="lora_slots"):
         tllama.forward(tc, p, torch.zeros(1, dtype=torch.int32),

@@ -154,7 +154,8 @@ def test_kernel_launch_report_reads_and_resets(port):
     zero = {"launches": {"decode": 0, "prefill": 0, "ragged": 0},
             "dispatches": {"prefill": 0, "prefill_batch": 0, "decode": 0,
                            "decode_multi": 0, "ragged": 0,
-                           "decode_iterations": 0, "verify_batch": 0}}
+                           "decode_iterations": 0, "verify_batch": 0,
+                           "prefill_lanes": 0}}
     assert st == 200 and json.loads(body) == zero
     call(port, "/v1/completions", {"prompt": "count me", "max_tokens": 3,
                                    "temperature": 0, "ignore_eos": True})
