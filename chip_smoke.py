@@ -51,8 +51,9 @@ Phases, each fatal on failure:
 5. serve: the port's CLI (python -m production_stack_tpu_torch.engine)
    starts its OpenAI server on loopback with llama-3.2-3b (all 28
    layers, random bf16 weights, byte tokenizer) on its default config
-   (unified ragged rounds, prefill pipeline, decode prefetch) in a child
-   process: /health, /v1/models, a greedy completion, a streamed
+   (unified ragged rounds, prefill pipeline, decode prefetch) with
+   --precompile-serving in a child process: its warm-up log line is
+   there when /health first answers; /health, /v1/models, a greedy completion, a streamed
    completion, a chat request, 4 concurrent multi-chunk completions
    (packed prefill or mixed rounds, on the ragged kernel), then a
    ~1500-token prompt (three 512-token chunks) sent while four greedy
@@ -62,8 +63,9 @@ Phases, each fatal on failure:
    library) has the four families the router parses with a prefix-cache
    hit rate above 0 and one scheduling delay per finished request, and
    that the ragged kernel launched 28 times a forward and the prefill
-   kernel 28 times a single-sequence prefill; prints the staged prefill
-   hits, misses and chained chunks. Then the OpenAI request surface on
+   kernel 28 times a single-sequence prefill, and that /metrics carries
+   tpu:compile_events_total; prints the staged prefill hits, misses and
+   chained chunks. Then the OpenAI request surface on
    the same server, launch counts zeroed before it: guided_json,
    guided_regex (two), guided_choice and a chat's response_format
    json_schema, each answer parsed and held to its constraint; n = 3
@@ -137,6 +139,25 @@ Phases, each fatal on failure:
    times a decode forward, the ragged kernel never, the gather engine
    no kernel; their greedy streams are held to the ragged-kernel
    engine's under the near-tie rule; wall ms a token printed;
+8d. compiled: the decode programs as CUDA graphs (every engine of the
+   script runs them; this phase holds them to their eager control). A
+   K=8 3B engine on the defaults, contexts capped at
+   COMPILED_MAX_MODEL_LEN and chunks at COMPILED_MAX_PREFILL_CHUNK, runs
+   precompile_serving (dispatches, seconds, grid, compile events by
+   kind, graph pool bytes printed) and then, in turns with an eager
+   engine (ModelRunner(eager=True)) on the same params, the mixed
+   phase's scenario greedy without logprobs: no compile event in the
+   graphed turns, launches 28 a forward counted on replay and equal to
+   the eager engine's, greedy streams equal (a parting is held to the
+   near-tie rule on the eager engine's logprobs), one mixed round of
+   each under torch.profiler (busy share); decode at batch 8 in turns
+   (wall ms a token) and one pure decode round of each under the
+   profiler; then the same with split K=1 engines (single-step decode
+   graphs, host sampling);
+8e. async: a K=8 --async-decode engine against the synchronous K=8
+   engine on 8 prompts (4 greedy, 4 seeded sampled): streams
+   bit-identical, rounds chained on device tokens > 0, launches 28 a
+   forward, wall ms a token at batch 8 in turns;
 8c. spec: in-process 28-layer bf16 engines on the default config with
    --num-speculative-tokens 4 and without it, in turns: a repetitive
    prompt at batch 1 (turns spec, plain, plain, spec; wall ms a
@@ -212,7 +233,8 @@ Launch counts are reset just before the serve phase's requests (through
 the server's /debug/kernel_launches) and again before its API requests,
 before each guided-phase engine, before the decode phase's
 --no-ragged-kernel engine, before each pipeline-phase engine and before
-each mixed-round engine, before each spec-phase engine's run and the
+each mixed-round engine, before each compiled-phase and async-phase
+engine's run, before each spec-phase engine's run and the
 spec server's requests, before the checkpoint phase's requests,
 before each KV-phase engine's and server's requests, before each
 impl-phase turn, the gather families' engines, the Phi-3 server's
@@ -264,6 +286,16 @@ LAYERS_3B = 28
 # the prompt that arrives while other requests decode: three 512-token
 # chunks at the engine's default max_prefill_chunk
 LONG_PROMPT_TOKENS = 1500
+
+
+def release(torch) -> None:
+    """Free the memory of engines a phase dropped: a runner holding
+    compiled programs is part of a reference cycle (its variants' code
+    refers to it), so it goes at a collection, not at `del`."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def fail(msg: str) -> None:
@@ -499,7 +531,7 @@ def kernel_phase(torch) -> list[tuple[str, dict]]:
         split = device_breakdown(torch, kern, flush, cuda_names)
         plain_ms = time_cuda(torch, plain, 3, flush)
         lib_ms = sdpa_ms(lib_args())
-        torch.cuda.empty_cache()
+        release(torch)
         bms, by = bound(n_rows, qpos, kv_tokens)
         print(f"kernel {name}: kernel_ms={ms:.4f} (mean of {iters}; "
               f"profiler, per call: {split}) plain_ms={plain_ms:.3f} "
@@ -671,7 +703,7 @@ def kernel_phase(torch) -> list[tuple[str, dict]]:
           f"kernel_ms={dec['ms']:.4f} (x{rdec['ms'] / dec['ms']:.2f})",
           flush=True)
     del k_cache, v_cache, k32, v32, flush
-    torch.cuda.empty_cache()
+    release(torch)
     return [("ragged", rag), ("prefill", pre), ("decode", dec)]
 
 
@@ -769,7 +801,7 @@ def forward_phase(torch) -> None:
     card_vs_cpu(torch, pa, "forward llama-3.2-3b x2 layers bf16", cfg,
                 params)
     del params
-    torch.cuda.empty_cache()
+    release(torch)
 
 
 # -- serve phase ---------------------------------------------------------------
@@ -921,10 +953,18 @@ def serve_phase(torch, smi: str) -> tuple[dict, dict]:
     port = free_port()
     log_path = REPO / "build" / "chip_smoke_serve.log"
     t0 = time.perf_counter()
-    proc = start_server(port, log_path)
+    proc = start_server(port, log_path, extra=("--precompile-serving",))
     try:
         boot = wait_healthy("serve", proc, port, log_path, t0)
-        print(f"serve: healthy {boot:.1f}s after start", flush=True)
+        # the warm-up runs before the server listens: its log line is
+        # there by the time /health answers
+        warm = [ln for ln in log_path.read_text(errors="replace")
+                .splitlines() if "serving precompile:" in ln]
+        if not warm:
+            fail(f"serve: healthy without the precompile log line:\n"
+                 f"{log_tail(log_path)}")
+        print(f"serve: healthy {boot:.1f}s after start, after "
+              f"{warm[0].split('INFO ', 1)[-1]}", flush=True)
         card = json.loads(http(port, "/v1/models")[1])["data"][0]
         assert card["id"] == "llama-3.2-3b" and card["max_model_len"], card
         assert "kv_role" not in card or card["kv_role"] is None, card
@@ -1068,6 +1108,11 @@ def serve_phase(torch, smi: str) -> tuple[dict, dict]:
         print(f"serve: since the reset: dispatches {report['dispatches']}, "
               f"launches {report['launches']}", flush=True)
         check_launches("serve", report["launches"], report["dispatches"])
+        compiles = {tuple(sorted(lab.items())): v for lab, v in
+                    samples.get("tpu:compile_events_total", [])}
+        print(f"serve: tpu:compile_events_total {compiles}", flush=True)
+        if not compiles:
+            fail("serve: /metrics lacks tpu:compile_events_total")
         api_launches = api_requests(torch, port, smi)
     finally:
         stop_server(proc)
@@ -1299,7 +1344,7 @@ def prompt_logprob_check(torch, ids: list[int], plp: list) -> None:
         d_max = float((top_got[:, 0] - lp[rows].max(dim=-1).values)
                       .abs().max())
     del params, lp
-    torch.cuda.empty_cache()
+    release(torch)
     rel = max(d_chosen, d_top, d_max) / top
     print(f"API phase: prompt logprobs vs a one-shot forward's "
           f"log-softmax: max|d| chosen {d_chosen:.3e}, top-5 {d_top:.3e}, "
@@ -1379,7 +1424,7 @@ def embedding_requests(torch, port: int, smi: str) -> None:
             ref = h.double().mean(0).cpu().numpy()
             cos.append(float(ref @ v / np.linalg.norm(ref)))
     del params
-    torch.cuda.empty_cache()
+    release(torch)
     print(f"embeddings: 3 texts of {[len(t) for t in ids]} tokens in "
           f"{all_s:.3f}s (the server's first embeddings), then the "
           f"{EMBED_LONG_TOKENS}-token text alone in {long_s:.3f}s (3 "
@@ -1565,7 +1610,7 @@ def guided_phase(torch, pa, gap_tol: float, smi: str) -> dict:
           f"guided rounds on the device {eng.runner.guided_rounds}, on the "
           f"host mask {eng._guided_host_rounds_total} on {smi}", flush=True)
     del engines, eng
-    torch.cuda.empty_cache()
+    release(torch)
     print(f"guided phase: {time.perf_counter() - t_phase:.1f}s", flush=True)
     return launches
 
@@ -1598,6 +1643,9 @@ def decode_step_check(torch, pa, runner, prompts) -> float:
         ctx = torch.where(ctx > keys, (ctx - 1) // keys * keys, ctx)
         return attn(kind, q, layer, kc, vc, tables, ctx)
 
+    # eager steps: a captured decode graph would replay the first kernel
+    # whatever the runner's attention is switched to
+    runner.eager = True
     ragged = runner.decode(*args)[:len(prompts)].float()
     runner.ragged_kernel = False
     try:
@@ -1606,6 +1654,7 @@ def decode_step_check(torch, pa, runner, prompts) -> float:
         bad = runner.decode(*args)[:len(prompts)].float()
     finally:
         runner.ragged_kernel = True
+        runner.eager = False
         del runner._attn
     torch.cuda.synchronize()
     if not (torch.isfinite(ragged).all() and torch.isfinite(dec).all()):
@@ -1682,7 +1731,7 @@ def decode_phase(torch, pa) -> tuple[dict, float]:
             # greedy parting passes only below its largest logit change
             gap_tol = decode_step_check(torch, pa, eng.runner, prompts)
         del eng
-        torch.cuda.empty_cache()
+        release(torch)
     n_same = near_tie_check("decode phase", outs[True], outs[False],
                             gap_tol)
     print(f"decode phase: --no-ragged-kernel engine launches {counts}; "
@@ -1848,7 +1897,7 @@ def pipeline_phase(torch, pa, smi: str) -> None:
         if staged:
             stage_readback_check(torch, eng.runner)
         del eng
-        torch.cuda.empty_cache()
+        release(torch)
 
 
 # -- mixed-round phase ---------------------------------------------------------
@@ -2025,17 +2074,20 @@ def mixed_phase(torch, pa, gap_tol: float, smi: str) -> dict:
               f"the default K=8 engine equal to the {other} engine's "
               f"(turn {turn})", flush=True)
     del engines
-    torch.cuda.empty_cache()
+    release(torch)
     return launches[default]
 
 
 # -- composed and gather phases --------------------------------------------------
-def staggered_mix(torch, pa, eng, tag: str, turn: int, sp) -> tuple:
+def staggered_mix(torch, pa, eng, tag: str, turn: int, sp,
+                  profile: list | None = None) -> tuple:
     """The mixed phase's scenario on one engine: four greedy requests,
     then a LONG_PROMPT_TOKENS prompt at step 2 while they decode, on
     prompts of this turn. Returns (outputs d0..d3, long; launch counts;
     dispatch counts; lane-typed rounds; wall seconds), launches and
-    dispatches counted from 0 just before it."""
+    dispatches counted from 0 just before it. With `profile`, step 4 (a
+    mixed round) runs under torch.profiler and its summary is appended
+    there (that step's wall is inside the returned seconds)."""
     prompts = [[(11 * i + 5 * j + 17 * turn) % 250 + 1 for j in range(n)]
                for i, n in enumerate((17, 40, 64, 90))]
     long_prompt = [(3 * j + 7 * turn) % 250 + 1
@@ -2052,7 +2104,12 @@ def staggered_mix(torch, pa, eng, tag: str, turn: int, sp) -> tuple:
         if step == 2:
             eng.add_request(f"{tag}{turn}long", prompt_token_ids=long_prompt,
                             sampling_params=sp)
-        finals.update({o.request_id: o for o in eng.step() if o.finished})
+        if profile is not None and step == 4:
+            profile.append(profile_step(torch, lambda: finals.update(
+                {o.request_id: o for o in eng.step() if o.finished})))
+        else:
+            finals.update({o.request_id: o for o in eng.step()
+                           if o.finished})
         step += 1
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2159,9 +2216,245 @@ def impl_phase(torch, pa, gap_tol: float, smi: str) -> dict:
           + ", ".join(f"{n} {walls[n, t]:.3f}" for n, t in turns)
           + f" on {smi}", flush=True)
     del engines, params
-    torch.cuda.empty_cache()
+    release(torch)
     print(f"impl phase: {time.perf_counter() - t_phase:.1f}s", flush=True)
     return launches
+
+
+# -- compiled programs and async decode ------------------------------------------
+# the compiled phase caps the precompile grid: contexts up to 2048 tokens
+# (ctx buckets 32..2048) and 512-token prefill chunks (buckets 8..512)
+COMPILED_MAX_MODEL_LEN = 2048
+COMPILED_MAX_PREFILL_CHUNK = 512
+
+
+def compiled_engines(torch, params, k: int, **over) -> dict:
+    """A compiled 3B engine (program variants, CUDA graphs) and its eager
+    control on the same params; K=k, contexts capped for the grid."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.llm_engine import LLMEngine
+
+    cfg = EngineConfig(
+        model="llama-3.2-3b", tokenizer="byte", device="cuda",
+        block_size=32, num_kv_blocks=512, max_num_seqs=8, seed=SEED,
+        num_scheduler_steps=k, max_model_len=COMPILED_MAX_MODEL_LEN,
+        max_prefill_chunk=COMPILED_MAX_PREFILL_CHUNK, **over)
+    return {"graphed": LLMEngine(cfg, params=params),
+            "eager": LLMEngine(cfg, params=params, eager=True)}
+
+
+def profiled_decode_round(torch, eng, tag: str) -> str:
+    """Eight 32-token prompts prefilled, one decode round under
+    torch.profiler (the second after the prefill), the rest run out."""
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+
+    sp = SamplingParams(max_tokens=33, temperature=0, ignore_eos=True)
+    for i in range(8):
+        eng.add_request(f"{tag}p{i}", prompt_token_ids=[
+            (5 * i + 3 * j) % 250 + 1 for j in range(32)], sampling_params=sp)
+    for _ in range(2):
+        eng.step()
+    prof = profile_step(torch, eng.step)
+    while eng.has_unfinished():
+        eng.step()
+    return prof
+
+
+def graphed_vs_eager(what: str, engs: dict, outs: dict, turn: int, sp,
+                     gap_tol: float, torch, pa) -> None:
+    """The graphed engine's greedy streams of one turn equal the eager
+    engine's, or part only at near ties: the eager engine then runs the
+    turn again with top-2 logprobs for the near-tie rule."""
+    ref, got = outs["eager", turn], outs["graphed", turn]
+    n_same = sum(a.token_ids == b.token_ids for a, b in zip(ref, got))
+    if n_same < len(ref):
+        from production_stack_tpu_torch.engine.sampling_params import (
+            SamplingParams,
+        )
+
+        lp = SamplingParams(max_tokens=sp.max_tokens, temperature=0,
+                            ignore_eos=True, logprobs=2)
+        ref = staggered_mix(torch, pa, engs["eager"], "lp", turn, lp)[0]
+        near_tie_check(what, ref, got, gap_tol)
+    print(f"{what}: {n_same}/{len(ref)} greedy token sequences of the "
+          "graphed engine equal to the eager engine's", flush=True)
+
+
+def compiled_phase(torch, pa, gap_tol: float, smi: str) -> dict:
+    """The compiled programs at Llama-3.2-3B (28 layers, bf16, random
+    weights): a K=8 engine on the defaults runs precompile_serving (its
+    dispatches, seconds, compile events by kind and the graph pool's
+    bytes printed, with the grid), then serves the mixed phase's scenario
+    (greedy, no logprobs: shapes the sweep covered) in turns graphed,
+    eager, eager, graphed against its eager control on the same params:
+    no compile event in the graphed turns, launches 28 a forward counted
+    on replay and equal to the eager engine's, greedy streams equal (or
+    parting at near ties), one mixed round of each engine under
+    torch.profiler. Then wall ms a token at batch 8 in turns and one pure
+    decode round of each under the profiler; then the same on split K=1
+    engines (--no-ragged-dispatch: the single-step decode graphs).
+    Returns the graphed engines' launches."""
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.models.config import get_model_config
+
+    t_phase = time.perf_counter()
+    sp = SamplingParams(max_tokens=32, temperature=0, ignore_eos=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = llama.init_params(get_model_config("llama-3.2-3b"), gen,
+                               torch.bfloat16, "cuda")
+    launches = dict.fromkeys(("decode", "prefill", "ragged"), 0)
+    turns = [("graphed", 0), ("eager", 0), ("eager", 1), ("graphed", 1)]
+    for k, over in ((8, {}), (1, {"ragged_dispatch": False})):
+        engs = compiled_engines(torch, params, k, **over)
+        tag = f"compiled phase K={k}" + (" split" if k == 1 else "")
+        g = engs["graphed"].runner
+        t0 = time.perf_counter()
+        n = engs["graphed"].precompile_serving()
+        secs = time.perf_counter() - t0
+        print(f"{tag}: precompile_serving {n} dispatches in {secs:.2f}s "
+              f"(host clock) over the grid {engs['graphed'].precompile_grid}"
+              f"; compile events {g.compile_events} "
+              f"({g.compile_events_total} variants), graph pool "
+              f"{g.graph_pool_bytes()} bytes "
+              f"({g.graph_pool_bytes() / 2**20:.1f} MiB) on {smi}",
+              flush=True)
+        if not (n > 0 and g.compile_events.get("decode")
+                and (k == 1 or g.compile_events.get("decode_multi"))):
+            fail(f"{tag}: the sweep built no decode variant")
+        outs, runs_of = {}, {}
+        for name, turn in turns:
+            eng = engs[name]
+            ev0 = dict(eng.runner.compile_events)
+            prof = [] if turn == 0 else None
+            outs[name, turn], got, runs, n_mixed, wall = staggered_mix(
+                torch, pa, eng, f"c{k}", turn, sp, profile=prof)
+            new = {kind: v - ev0.get(kind, 0)
+                   for kind, v in eng.runner.compile_events.items()
+                   if v != ev0.get(kind, 0)}
+            what = f"{tag} {name}, turn {turn}"
+            print(f"{what}: mixed scenario in {wall:.3f}s (host clock), "
+                  f"{n_mixed} lane-typed rounds; dispatches {runs}; new "
+                  f"compile events {new}", flush=True)
+            check_launches(what, got, runs)
+            if name == "graphed" and new:
+                fail(f"{what}: compile events {new} inside precompiled "
+                     "shapes")
+            if k > 1 and n_mixed < 1:
+                fail(f"{what}: no lane-typed round ran")
+            if prof:
+                print(f"{what}: step 4 under torch.profiler: {prof[0]}",
+                      flush=True)
+            runs_of[name, turn] = (got, runs)
+            if name == "graphed":
+                for kk in launches:
+                    launches[kk] += got[kk]
+        for turn in (0, 1):
+            if runs_of["graphed", turn] != runs_of["eager", turn]:
+                fail(f"{tag}, turn {turn}: graphed (launches, dispatches) "
+                     f"{runs_of['graphed', turn]} differ from the eager "
+                     f"engine's {runs_of['eager', turn]}")
+            graphed_vs_eager(f"{tag} (graphed vs eager, turn {turn})", engs,
+                             outs, turn, sp, gap_tol, torch, pa)
+        walls = {(name, turn): decode_batch8(torch, engs[name], f"b{k}",
+                                             turn)
+                 for name, turn in turns}
+        print(f"{tag}: decode at batch 8, wall ms per generated token "
+              f"(host clock, turns {[f'{n}{t}' for n, t in turns]}): "
+              + ", ".join(f"{n} {walls[n, t]:.3f}" for n, t in turns)
+              + f" on {smi}", flush=True)
+        for name in ("graphed", "eager"):
+            print(f"{tag} {name}: one pure decode round at batch 8 under "
+                  f"torch.profiler: "
+                  f"{profiled_decode_round(torch, engs[name], f'q{k}')}",
+                  flush=True)
+        del engs, g
+        release(torch)
+    del params
+    release(torch)
+    print(f"compiled phase: {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return launches
+
+
+def async_phase(torch, pa, smi: str) -> dict:
+    """async_decode at Llama-3.2-3B (28 layers, bf16): a K=8 engine with
+    --async-decode against the synchronous K=8 engine on the same params
+    serves 8 prompts at once, 4 greedy and 4 seeded sampled lanes: the
+    streams must be bit-identical and the chain must engage (rounds
+    dispatched on the previous round's device tokens > 0); launches 28 a
+    forward; wall ms a token at batch 8 in turns async, sync, sync,
+    async. Returns the async engine's launches."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.llm_engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.models.config import get_model_config
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = llama.init_params(get_model_config("llama-3.2-3b"), gen,
+                               torch.bfloat16, "cuda")
+    engs = {name: LLMEngine(EngineConfig(
+        model="llama-3.2-3b", tokenizer="byte", device="cuda",
+        block_size=32, num_kv_blocks=512, max_num_seqs=8, seed=SEED,
+        num_scheduler_steps=8, max_model_len=COMPILED_MAX_MODEL_LEN,
+        async_decode=name == "async"), params=params)
+        for name in ("async", "sync")}
+    chained = [0]
+    can_chain = engs["async"]._can_chain
+
+    def counting():
+        ok = can_chain()
+        chained[0] += ok
+        return ok
+
+    engs["async"]._can_chain = counting
+    prompts = [[(9 * i + 4 * j) % 250 + 1 for j in range(24 + 5 * i)]
+               for i in range(8)]
+    sps = [SamplingParams(max_tokens=48, ignore_eos=True,
+                          **({"temperature": 0} if i < 4 else
+                             {"temperature": 0.8, "top_p": 0.95,
+                              "seed": 100 + i}))
+           for i in range(8)]
+    outs, counts = {}, {}
+    for name, eng in engs.items():
+        pa.reset_launch_counts()
+        runs0 = dict(eng.runner.dispatch_counts)
+        t0 = time.perf_counter()
+        outs[name] = [o.token_ids for o in eng.generate(prompts, sps)]
+        torch.cuda.synchronize()
+        runs = {k: v - runs0[k] for k, v in eng.runner.dispatch_counts.items()}
+        counts[name] = pa.launch_counts()
+        print(f"async phase {name}: 8 x 48 tokens in "
+              f"{time.perf_counter() - t0:.3f}s (host clock); dispatches "
+              f"{runs}; compile events {eng.runner.compile_events}",
+              flush=True)
+        check_launches(f"async phase {name}", counts[name], runs)
+    same = sum(a == b for a, b in zip(outs["async"], outs["sync"]))
+    print(f"async phase: {same}/8 streams (4 greedy, 4 sampled) of the "
+          f"async engine bit-identical to the sync engine's; "
+          f"{chained[0]} rounds chained on device tokens", flush=True)
+    if same != 8:
+        fail("async phase: async streams differ from the sync engine's")
+    if not chained[0] > 0:
+        fail("async phase: no round was chained")
+    turns = [("async", 0), ("sync", 0), ("sync", 1), ("async", 1)]
+    walls = {(n, t): decode_batch8(torch, engs[n], "a", t)
+             for n, t in turns}
+    print(f"async phase: decode at batch 8, K=8, wall ms per generated "
+          f"token (host clock, turns {[f'{n}{t}' for n, t in turns]}): "
+          + ", ".join(f"{n} {walls[n, t]:.3f}" for n, t in turns)
+          + f" on {smi}", flush=True)
+    del engs, params
+    release(torch)
+    print(f"async phase: {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return counts["async"]
 
 
 # -- spec phase ------------------------------------------------------------------
@@ -2341,7 +2634,7 @@ def spec_phase(torch, pa, gap_tol: float, smi: str,
           f"{spec_eng._staged_misses_total})", flush=True)
     del spec_eng, plain_eng
     if device == "cuda":
-        torch.cuda.empty_cache()
+        release(torch)
 
     # the composed verify: one prefill launch a lane a layer
     eng = engine(SPEC_K, ragged_kernel=False, ragged_dispatch=False)
@@ -2379,7 +2672,7 @@ def spec_phase(torch, pa, gap_tol: float, smi: str,
         max_tokens=24, temperature=0, ignore_eos=True, logprobs=2))
     del ref_eng
     if device == "cuda":
-        torch.cuda.empty_cache()
+        release(torch)
     same = near_tie_check("spec phase composed", o_ref, o_comp, gap_tol)
     print(f"spec phase composed: {same}/2 greedy streams equal to plain "
           "decode on the ragged kernel", flush=True)
@@ -2641,7 +2934,7 @@ def gather_family(torch, pa, d: Path, name: str, published: dict, i: int,
             fail(f"families phase {name}: windowed prompt logits differ "
                  f"by {rel:.3e}")
     del loaded
-    torch.cuda.empty_cache()
+    release(torch)
     pf_us, dec_us = gather_attention_us(torch, cfg)
     print(f"families phase {name}: gather-path attention, one layer "
           f"({cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim "
@@ -2673,7 +2966,7 @@ def gather_family(torch, pa, d: Path, name: str, published: dict, i: int,
           f"'{want}', greedy tokens {[o.token_ids for o in outs]}, no "
           f"kernel launch, on {smi}", flush=True)
     del eng
-    torch.cuda.empty_cache()
+    release(torch)
     try:
         LLMEngine(EngineConfig(model=str(d), tokenizer="byte",
                                device="cuda", num_kv_blocks=64,
@@ -2768,7 +3061,7 @@ def families_phase(torch, pa, smi: str) -> None:
                     fail(f"families phase {name}: windowed prompt logits "
                          f"differ by {rel:.3e}")
             del loaded
-            torch.cuda.empty_cache()
+            release(torch)
             eng = LLMEngine(EngineConfig(
                 model=str(d), tokenizer="byte", device="cuda",
                 block_size=32, num_kv_blocks=64, max_num_seqs=4, seed=SEED))
@@ -2784,7 +3077,7 @@ def families_phase(torch, pa, smi: str) -> None:
                   flush=True)
             del eng
             shutil.rmtree(d)
-            torch.cuda.empty_cache()
+            release(torch)
         for i, (name, published) in enumerate(GATHER_FAMILIES.items()):
             gather_family(torch, pa, root / name, name, published, i, smi)
     finally:
@@ -2915,7 +3208,7 @@ def checkpoint_phase(torch, pa, gap_tol: float, smi: str) -> dict:
             fail("checkpoint phase: the loaded params differ from the "
                  "written ones")
         del loaded, params
-        torch.cuda.empty_cache()
+        release(torch)
 
         ranks = {"ad16": 16, "ad8": 8}
         weights = {name: lora_weights(torch, cfg, r, SEED + r)
@@ -3064,7 +3357,7 @@ def checkpoint_phase(torch, pa, gap_tol: float, smi: str) -> dict:
             del merged
             refs = reference(m_eng, name)
             del m_eng
-            torch.cuda.empty_cache()
+            release(torch)
             tol = max(gap_tol, tols[name])
             n_same = near_tie_check(
                 f"checkpoint phase ({name} vs merged weights)", refs,
@@ -3075,7 +3368,7 @@ def checkpoint_phase(torch, pa, gap_tol: float, smi: str) -> dict:
                   f"{tols[name]:.4f}, near-tie tolerance {tol:.4f}",
                   flush=True)
         del lora_eng, r, base_params
-        torch.cuda.empty_cache()
+        release(torch)
         base_eng = LLMEngine(EngineConfig(**base_cfg))
         refs = reference(base_eng, None)
         del base_eng
@@ -3088,7 +3381,7 @@ def checkpoint_phase(torch, pa, gap_tol: float, smi: str) -> dict:
         if proc is not None:
             stop_server(proc)
         shutil.rmtree(root, ignore_errors=True)
-        torch.cuda.empty_cache()
+        release(torch)
     return report["launches"]
 
 
@@ -3327,7 +3620,7 @@ def kv_phase(torch, pa, gap_tol: float, smi: str,
         eng.shutdown()
         del eng, r, bm
         gc.collect()
-        torch.cuda.empty_cache()
+        release(torch)
 
         # (c) PD over HTTP: prefill serves KV, decode pulls it
         kv_port, pf_port, dc_port = free_port(), free_port(), free_port()
@@ -3390,7 +3683,7 @@ def kv_phase(torch, pa, gap_tol: float, smi: str,
         for proc in (dc, pf):  # decode first: it holds the peer socket
             stop_server(proc)
         procs.clear()
-        torch.cuda.empty_cache()
+        release(torch)
 
         # (d) a second engine restores the prompt from the cache server
         eng = LLMEngine(EngineConfig(
@@ -3424,7 +3717,7 @@ def kv_phase(torch, pa, gap_tol: float, smi: str,
         eng.shutdown()
         del eng
         gc.collect()
-        torch.cuda.empty_cache()
+        release(torch)
         client.close()
     finally:
         for proc in procs:
@@ -3477,7 +3770,7 @@ def phi3_serve_phase(torch, pa, smi: str) -> None:
               f"{len(shards)} shards, {size / 1e9:.2f} GB, in "
               f"{time.perf_counter() - t0:.2f}s", flush=True)
         del params
-        torch.cuda.empty_cache()
+        release(torch)
         port = free_port()
         log_path = REPO / "build" / "chip_smoke_phi3_serve.log"
         t0 = time.perf_counter()
@@ -3528,7 +3821,7 @@ def phi3_serve_phase(torch, pa, smi: str) -> None:
         if proc is not None:
             stop_server(proc)
         shutil.rmtree(root, ignore_errors=True)
-    torch.cuda.empty_cache()
+    release(torch)
     print(f"phi-3 phase: {time.perf_counter() - t_phase:.1f}s", flush=True)
 
 
@@ -3669,7 +3962,7 @@ def moe_phase(torch, pa, gap_tol: float, smi: str) -> dict:
     card_vs_cpu(torch, pa, "moe phase Mixtral-8x7B x2 layers bf16", cfg2,
                 params)
     del params
-    torch.cuda.empty_cache()
+    release(torch)
 
     cfg1 = dataclasses.replace(full, num_layers=1)
     (REPO / "build").mkdir(exist_ok=True)
@@ -3703,7 +3996,7 @@ def moe_phase(torch, pa, gap_tol: float, smi: str) -> dict:
         del params, loaded
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    torch.cuda.empty_cache()
+    release(torch)
 
     class CutConfig(EngineConfig):
         """The mixtral-8x7b preset at MIXTRAL_LAYERS layers."""
@@ -3776,7 +4069,7 @@ def moe_phase(torch, pa, gap_tol: float, smi: str) -> dict:
           "tokens to other experts; the streams are held in float32 "
           "below", flush=True)
     del eng, refs, r16, r32
-    torch.cuda.empty_cache()
+    release(torch)
     eng = LLMEngine(CutConfig(
         model="mixtral-8x7b", tokenizer="byte", device="cuda",
         block_size=32, num_kv_blocks=512, max_num_seqs=8, seed=SEED,
@@ -3797,7 +4090,7 @@ def moe_phase(torch, pa, gap_tol: float, smi: str) -> dict:
           f"token's |dlogprob| up to {d32:.2e} where they agree, on {smi}",
           flush=True)
     del eng, params32
-    torch.cuda.empty_cache()
+    release(torch)
     print(f"moe phase: {time.perf_counter() - t_phase:.1f}s", flush=True)
     return {k: got[k] for k in ("decode", "prefill", "ragged")}
 
@@ -3840,6 +4133,8 @@ def main() -> int:
     pipeline_phase(torch, pa, smi)
     mixed_counts = mixed_phase(torch, pa, gap_tol, smi)
     composed_counts = impl_phase(torch, pa, gap_tol, smi)
+    compiled_counts = compiled_phase(torch, pa, gap_tol, smi)
+    async_counts = async_phase(torch, pa, smi)
     spec_counts = spec_phase(torch, pa, gap_tol, smi)
     lora_counts = checkpoint_phase(torch, pa, gap_tol, smi)
     kv_counts = kv_phase(torch, pa, gap_tol, smi)
@@ -3853,7 +4148,8 @@ def main() -> int:
     print(f"launches: serve path {serve_counts}, API requests "
           f"{api_counts}, decode path {decode_counts}, guided K=8 engine "
           f"{guided_counts}, mixed-round path {mixed_counts}, composed "
-          f"ragged rounds {composed_counts}, spec "
+          f"ragged rounds {composed_counts}, graphed engines "
+          f"{compiled_counts}, async decode {async_counts}, spec "
           f"decode {spec_counts}, loaded "
           f"checkpoint with adapters {lora_counts}, KV paths {kv_counts}, "
           f"Mixtral-8x7B x{MIXTRAL_LAYERS} {moe_counts}; "

@@ -26,11 +26,14 @@ vLLM's names for prefill / decode), ``--kv-transfer-listen`` and
 ``--ngram-prompt-lookup-min``. ``--attention-impl`` picks the kernels
 (``pallas``) or the gather path (``xla``); ``auto`` takes the gather
 path only on the card for a head_dim the kernels are not built for.
-``--enable-sleep-mode`` and ``--no-async-decode`` are accepted and change
-nothing, as in the JAX CLI. Every flag of the JAX CLI parses; one whose
-feature is not ported yet (``--precompile-serving``,
-``--long-prefill-threshold``, tp/pp/cp above 1, ``--async-decode``, and
-``--multihost`` with ``--num-processes``, ``--process-id`` and
+``--enable-sleep-mode`` is accepted and changes nothing, as in the JAX
+CLI. ``--precompile-serving`` runs every serving program once at startup
+(the decode programs' CUDA graphs captured, the eager ones warmed)
+before ``/health`` answers; ``--async-decode`` dispatches decode round
+N+1 on round N's device tokens before fetching round N (K > 1). Every
+flag of the JAX CLI parses; one whose feature is not ported yet
+(``--long-prefill-threshold``, tp/pp/cp above 1, and ``--multihost``
+with ``--num-processes``, ``--process-id`` and
 ``--coordinator-address``) makes the engine refuse to start
 (NotImplementedError from EngineConfig, naming it).
 """
@@ -218,13 +221,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--enable-sleep-mode", action="store_true",
                    help="advertise sleep/wake support (endpoints always "
                         "on)")
-    # not ported yet: accepted so existing deployments and the chart
-    # parse, refused by EngineConfig (naming the feature) when switched on
-    p.add_argument("--async-decode", action="store_true", default=False)
+    p.add_argument("--async-decode", action="store_true", default=False,
+                   help="double-buffered decode: dispatch round N+1 on "
+                        "round N's device tokens before fetching it "
+                        "(K > 1; no device stops on chained rounds)")
     p.add_argument("--no-async-decode", dest="async_decode",
                    action="store_false")
     p.add_argument("--precompile-serving", action="store_true",
-                   default=False)
+                   default=False,
+                   help="run every config-derivable serving program once "
+                        "at startup (decode graphs captured, eager "
+                        "programs warmed) before /health turns ok")
+    # not ported yet: accepted so existing deployments and the chart
+    # parse, refused by EngineConfig (naming the feature) when switched on
     p.add_argument("--tensor-parallel-size", type=int, default=1)
     p.add_argument("--pipeline-parallel-size", type=int, default=1)
     p.add_argument("--context-parallel-size", type=int, default=0)

@@ -10,8 +10,10 @@ shared cache server, the KV controller and both roles of disaggregated
 prefill/decode; OpenAI tool calling, the per-request timeline, and
 n-gram speculative decoding (``num_speculative_tokens``, drafts from
 prompt lookup), the attention implementation (``attention_impl``: the
-kernels or the gather path) and MoE models. The fields of features not
-ported yet stay so that
+kernels or the gather path), MoE models, the startup warm-up of every
+serving program (``precompile_serving``) and the double-buffered decode
+(``async_decode``). The fields of features not ported yet (the
+multi-device and long-prefill paths) stay so that
 asking for one fails loudly: ``__post_init__`` raises
 NotImplementedError for each (see ``unported``), so no request ever
 reaches a missing path.
@@ -187,8 +189,6 @@ class EngineConfig:
     def unported(self) -> list[str]:
         """Names of the requested features this port cannot serve yet."""
         checks = {
-            "async_decode": self.async_decode,
-            "precompile_serving": self.precompile_serving,
             "tensor_parallel_size>1": self.tensor_parallel_size > 1,
             "pipeline_parallel_size>1": self.pipeline_parallel_size > 1,
             "context_parallel_size>1": self.context_parallel_size > 1,

@@ -41,8 +41,18 @@ prompt lookup and verifies them in ONE packed forward
 key its sequential step would use, so the accepted stream is the plain
 one. ``embed_one`` mean-pools the final hidden state over a scratch
 cache (``ModelRunner.embed``) for /v1/embeddings, /v1/rerank and
-/v1/score. Async decode, the composed-kernel ragged round and long
-prefill are not ported here: EngineConfig refuses their flags.
+/v1/score.
+
+Async decode (``async_decode``, K > 1): a fused decode round leaves its
+tokens on the device (``_pending_decode``); the next step dispatches
+round N+1 chained on them before it fetches round N (``_can_chain``,
+``_resolve_pending``), so the fetch and the host's bookkeeping overlap
+the device's work. Chained rounds carry no device stops, penalties, bias
+or guided tables; a lane that stopped mid-flight discards at most one
+round. Ragged rounds are off under it. ``precompile_serving`` runs the
+JAX engine's warm-up grid of every config-derivable serving program
+(the runner's ``precompile_*`` sweeps). Long prefill is not ported
+here: EngineConfig refuses its flags.
 """
 
 from __future__ import annotations
@@ -69,6 +79,8 @@ from production_stack_tpu_torch.engine.scheduler import (
     PrefillWork,
     Scheduler,
     SchedulerConfig,
+    decode_k_buckets,
+    decode_precompile_variants,
 )
 from production_stack_tpu_torch.engine.sequence import (
     Sequence,
@@ -87,13 +99,23 @@ logger = init_logger(__name__)
 
 
 class LLMEngine:
-    def __init__(self, config: EngineConfig, params: dict | None = None):
+    def __init__(self, config: EngineConfig, params: dict | None = None,
+                 eager: bool = False):
+        """`eager`: the runner's comparison control (ModelRunner)."""
         self.config = config
         self.tokenizer = get_tokenizer(
             config.tokenizer, config.model,
             chat_template=config.chat_template,
         )
-        self.runner = ModelRunner(config, params=params)
+        self.runner = ModelRunner(config, params=params, eager=eager)
+        # async decode pipeline (double-buffered dispatch): the in-flight
+        # decode round whose sampled tokens are still on the device
+        self._pending_decode: dict | None = None
+        self._async_decode = (
+            config.async_decode and config.num_scheduler_steps > 1
+        )
+        # the grid the last precompile_serving ran
+        self.precompile_grid: dict | None = None
         self.block_manager = BlockManager(
             num_blocks=self.runner.num_blocks,
             block_size=config.block_size,
@@ -114,7 +136,10 @@ class LLMEngine:
                     config.adaptive_decode_k
                     and config.num_scheduler_steps > 1
                 ),
-                ragged_dispatch=config.ragged_dispatch,
+                # the chain commits round N+1 before round N's lane mix
+                # is known: no ragged rounds under async decode
+                ragged_dispatch=(config.ragged_dispatch
+                                 and not self._async_decode),
             ),
             self.block_manager,
         )
@@ -148,7 +173,7 @@ class LLMEngine:
         self._device_stop = (
             config.device_stop and config.num_scheduler_steps > 1
         )
-        self._ragged_dispatch = config.ragged_dispatch
+        self._ragged_dispatch = self.scheduler.config.ragged_dispatch
         # speculative h2d prefetch (stage_decode_multi / stage_ragged):
         # the NEXT fused round's buffer is copied while the current round
         # runs, and that round chains on the device tokens when the
@@ -934,13 +959,16 @@ class LLMEngine:
         return any(k.startswith(pref) for k in list(self._seqs))
 
     def has_unfinished(self) -> bool:
-        return self.scheduler.has_unfinished()
+        # an in-flight async round counts even when every owning request
+        # was aborted: the loop must step once more to flush it
+        return (self.scheduler.has_unfinished()
+                or self._pending_decode is not None)
 
     # -- the step loop ----------------------------------------------------
     def step(self) -> list[RequestOutput]:
         with self.runner.on_compute_stream():
             try:
-                return self._step_scheduled()
+                return self._step_impl()
             finally:
                 # deferred KV exports flush at the END of every step —
                 # after the dispatch, so the d2h overlaps device compute;
@@ -948,6 +976,72 @@ class LLMEngine:
                 # pinned
                 if self._kv_export_pending:
                     self._flush_kv_exports()
+
+    def _step_impl(self) -> list[RequestOutput]:
+        """The async fast path: with a round in flight, dispatch the next
+        one chained on its device tokens, then fetch and apply it (the
+        fetch overlaps the new round). A round that cannot chain is
+        flushed before scheduling reads any sequence state."""
+        pend = self._pending_decode
+        if pend is None:
+            return self._step_scheduled()
+        if not self._can_chain():
+            return self._resolve_pending() + self._step_scheduled()
+        seqs: list[Sequence] = pend["seqs"]
+        k = pend["k"]
+        want_lp = pend["lps"] is not None
+        temps, top_ps, top_ks, min_ps, keys, _ = self._sampling_arrays(seqs)
+        keys[:, 1] += k  # k sampled-but-unapplied tokens a lane
+        ys = self.runner.decode_multi(
+            pend["toks"][-1], [s.num_tokens - 1 + k for s in seqs],
+            [s.block_table for s in seqs], [s.num_tokens + k for s in seqs],
+            k, temps, top_ps, top_ks, keys, min_ps=min_ps,
+            want_logprobs=want_lp, lora_slots=self._lora_slots(seqs),
+        )
+        outputs = self._resolve_pending()
+        self._pending_decode = {
+            "seqs": seqs, "k": k,
+            "toks": ys[0] if want_lp else ys,
+            "lps": ys[1:] if want_lp else None,
+        }
+        self.last_step_kind = "decode"
+        return outputs
+
+    def _can_chain(self) -> bool:
+        """True when the in-flight round can be followed by another on
+        the SAME lanes before its tokens land: nothing waiting for
+        admission, every lane alive and unguided with no logit bias, the
+        running set unchanged, and tables growable for both rounds
+        without preemption. Host-side stops do not refuse the chain: a
+        lane found stopped at resolve time discards its overshoot (at
+        most one round), and the next step flushes."""
+        pend = self._pending_decode
+        if pend is None or self.scheduler.waiting:
+            return False
+        seqs: list[Sequence] = pend["seqs"]
+        if any(s.finished for s in seqs):
+            return False
+        if any(self._is_guided(s) or s.sampling_params.logit_bias
+               for s in seqs):
+            return False  # a chained dispatch carries neither
+        if {id(s) for s in self.scheduler.running} != {id(s) for s in seqs}:
+            return False
+        return self._reserve_next_round(seqs, pend["k"])
+
+    def _resolve_pending(self) -> list[RequestOutput]:
+        """Fetch the in-flight round's tokens and apply them (the
+        synchronous path's bookkeeping). Requests aborted mid-flight
+        already had their final output: they are not finalized again."""
+        pend = self._pending_decode
+        self._pending_decode = None
+        seqs = pend["seqs"]
+        lps = pend["lps"]
+        self._apply_fused_decode(
+            seqs, pend["k"],
+            pend["toks"] if lps is None else (pend["toks"], *lps),
+            lps is not None, False)
+        return self._finalize_stepped(
+            [s for s in seqs if s.request_id in self._seqs])
 
     def _step_scheduled(self) -> list[RequestOutput]:
         if self._kv_restores:
@@ -1143,7 +1237,9 @@ class LLMEngine:
         applied first). Guided lanes ride the fused loop on the device
         DFA tables; a lane near its token budget (its final steps need
         the host's completion steering) or a constraint too large to
-        compile keeps the whole round on the host path."""
+        compile keeps the whole round on the host path. Returns the
+        stepped lanes: none when the round went async (a later step
+        resolves it)."""
         guided_tables = None
         needs_guided = any(self._is_guided(s) for s in seqs)
         if needs_guided and k_steps > 1:
@@ -1165,7 +1261,12 @@ class LLMEngine:
                 s.sampling_params.logprobs is not None for s in seqs
             )
             bias = self._bias_arrays(seqs)
-            stop = self._stop_arrays(seqs) if self._device_stop else None
+            will_async = (self._async_decode and penalties is None
+                          and guided_tables is None and bias is None)
+            # no device stops on a round the chain follows: the chain
+            # commits round N+1 before round N's valid counts exist
+            stop = (self._stop_arrays(seqs)
+                    if self._device_stop and not will_async else None)
             tokens = [s.all_token_ids[-1] for s in seqs]
             slots = self._lora_slots(seqs)
             staged_kw = {}
@@ -1193,6 +1294,15 @@ class LLMEngine:
                 guided=guided_tables, logit_bias=bias, stop=stop,
                 lora_slots=slots, **staged_kw,
             )
+            if will_async:
+                # the tokens stay on the device: the next step dispatches
+                # the following round before fetching this one
+                self._pending_decode = {
+                    "seqs": list(seqs), "k": k_steps,
+                    "toks": ys[0] if want_lp else ys,
+                    "lps": ys[1:] if want_lp else None,
+                }
+                return []
             if (self._prefetch_decode and penalties is None
                     and guided_tables is None and bias is None
                     and self._can_stage(seqs, k_steps)):
@@ -2798,6 +2908,8 @@ class LLMEngine:
             ragged_split_rounds_total=self._ragged_split_rounds_total,
             ragged_prefill_lanes_total=self._ragged_prefill_lanes_total,
             ragged_decode_lanes_total=self._ragged_decode_lanes_total,
+            compile_events_total=self.runner.compile_events_total,
+            compile_events=dict(self.runner.compile_events),
             kv_export_seconds_total=self._kv_export_seconds_total,
             kv_export_blocks_total=self._kv_export_blocks_total,
             kv_export_bytes_total=self._kv_export_bytes_total,
@@ -2822,6 +2934,99 @@ class LLMEngine:
             kv_remote_flushes_total=remote.flushes if remote else 0,
             kv_remote_fallbacks_total=remote.fallbacks if remote else 0,
         )
+
+    # -- startup warm-up ----------------------------------------------------
+    def precompile_serving(self) -> int:
+        """Run every config-derivable serving program once (the JAX
+        engine's grid): the single-sequence prefill of every pow2 chunk
+        bucket x every reachable ctx bucket, the packed prefill of every
+        pow2 group size (under the ragged kernel, once per padded row
+        bucket), the decode variants of every K the scheduler can pick
+        (``decode_precompile_variants``: chained and device-stop ones as
+        this config dispatches them), the ragged rounds' lane-mix
+        buckets, and, when on, the verify and KV-import dispatches. On
+        the card the decode variants' CUDA graphs are captured here and
+        the eager programs warmed. Request-dependent variants
+        (penalties, logprobs, bias, stop ids, guided tables, adapters)
+        still build on first use. Returns the trash dispatches run; the
+        grid is kept in ``precompile_grid``. The reachable contexts stop
+        at the resolved max_model_len or what the pool holds."""
+        rnr = self.runner
+        cfg = self.config
+        sched = self.scheduler.config
+        bs = self.block_manager.block_size
+        cap = min(sched.max_model_len, rnr.num_blocks * bs)
+        ctxs: list[int] = []
+        c = rnr._ctx_bucket(1)
+        while True:
+            ctxs.append(c)
+            if c >= cap:
+                break
+            c = rnr._ctx_bucket(c + 1)
+        tbs: list[int] = []
+        t = rnr._prefill_bucket(1)
+        while True:
+            tbs.append(t)
+            if t >= rnr._prefill_bucket(cfg.max_prefill_chunk):
+                break
+            t = rnr._prefill_bucket(t + 1)
+        singles: list[tuple[int, int]] = []
+        groups: list[tuple[int, int, int]] = []
+        for c in ctxs:
+            for t in tbs:
+                if t > c:
+                    continue
+                singles.append((t, c))
+                s = 2
+                while s <= cfg.max_prefill_seqs:
+                    groups.append((s, t, c))
+                    s *= 2
+        if rnr.ragged_kernel and rnr.prefill_pipeline:
+            # the packed prefill keys on the padded row bucket: (group,
+            # chunk) pairs of equal rows share one program
+            seen_rows: set[tuple[int, int]] = set()
+            deduped = []
+            for s, t, c in groups:
+                rkey = (rnr._rows_bucket(s * t), c)
+                if rkey not in seen_rows:
+                    seen_rows.add(rkey)
+                    deduped.append((s, t, c))
+            groups = deduped
+        variants = decode_precompile_variants(
+            cfg.num_scheduler_steps, sched.adaptive_decode_k,
+            overlap=self._async_decode or self._prefetch_decode,
+            async_chained=self._async_decode, device_stop=self._device_stop,
+        )
+        self.precompile_grid = {
+            "ctx_buckets": ctxs, "chunk_buckets": tbs,
+            "singles": len(singles), "groups": len(groups),
+            "decode_variants": variants,
+        }
+        with rnr.on_compute_stream():
+            n = rnr.precompile_prefill(singles, groups)
+            # decode: context lengths that land IN each bucket after the
+            # +K-1 lookahead shift
+            for kk, chained, stop in variants:
+                n += rnr.precompile_decode(
+                    [max(1, c - kk + 1) for c in ctxs], kk,
+                    chained=chained, stop=stop,
+                )
+            if self._ragged_dispatch:
+                n += rnr.precompile_ragged(
+                    [max(1, c - cfg.num_scheduler_steps + 1) for c in ctxs],
+                    decode_k_buckets(cfg.num_scheduler_steps,
+                                     sched.adaptive_decode_k),
+                    cfg.max_prefill_seqs, cfg.max_prefill_chunk,
+                    stop=self._device_stop, chained=self._prefetch_decode,
+                )
+            if cfg.num_speculative_tokens > 0:
+                n += rnr.precompile_verify(
+                    ctxs, cfg.num_speculative_tokens + 1, cfg.max_num_seqs)
+            if self.offload is not None:
+                n += rnr.precompile_kv_import(cap // bs)
+            if rnr.device.type == "cuda":
+                torch.cuda.synchronize(rnr.device)
+        return n
 
     # -- offline convenience (tests, benchmarks) ---------------------------
     def generate(

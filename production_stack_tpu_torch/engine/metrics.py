@@ -17,7 +17,9 @@ Snapshot families are rendered from ``LLMEngine.stats()`` at each
 scrape; request histograms are fed once per finished request by the
 server (``observe_request``, the JAX server's ``_observe_finish``), and
 ``tpu:ragged_lane_mix`` from the engine's drained lane-mix observations
-(``observe_ragged``).
+(``observe_ragged``). ``tpu:compile_events_total`` carries the runner's
+program-variant builds by kind (its JAX name already ends in ``_total``,
+which prometheus_client does not double).
 """
 
 from __future__ import annotations
@@ -41,6 +43,9 @@ _GAUGES = (
     ("vllm:num_requests_waiting", "Requests waiting to be scheduled",
      "num_waiting"),
     ("vllm:gpu_cache_usage_perc", "KV-cache usage (1 = full)", "kv_usage"),
+    # the JAX module's device-native alias (dashboards use either)
+    ("tpu:hbm_kv_cache_usage_perc", "KV-cache usage in TPU HBM",
+     "kv_usage"),
     ("vllm:gpu_prefix_cache_hit_rate",
      "Prefix-cache hit rate over engine lifetime", "prefix_cache_hit_rate"),
     ("vllm:gpu_prefix_cache_hits_total", "Prefix-cache token hits (total)",
@@ -140,6 +145,10 @@ _TIER_COUNTERS = (
     ("tpu:kv_tier_write_bytes", "Bytes admitted into a KV tier",
      "write_bytes"),
 )
+_COMPILE_HELP = (
+    "Program-variant builds (program-cache misses in the model runner) "
+    "— the cold-start compile tax, labeled by kind (decode, "
+    "decode_multi, ...)")
 _KV_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
                1.0, 2.5, 5.0)
 
@@ -324,6 +333,13 @@ class EngineMetrics:
                                   + self._ragged_hists):
             lines += [f"# HELP {name} {help_}", f"# TYPE {name} histogram"]
             lines += hist.lines(name, lab)
+        # named with its _total in the JAX module: prometheus_client
+        # writes it once, as here
+        name = "tpu:compile_events_total"
+        lines += [f"# HELP {name} {_COMPILE_HELP}",
+                  f"# TYPE {name} counter"]
+        lines += [f'{name}{{{lab},kind="{kind}"}} {_num(n)}'
+                  for kind, n in sorted((s.compile_events or {}).items())]
         tiers = sorted((s.kv_tier_counters or {}).items())
         for name, help_, key in _TIER_COUNTERS:
             lines += [f"# HELP {name}_total {help_}",

@@ -17,8 +17,22 @@ mean-pooled final hidden state over a scratch cache of its own).
 Host-side padding keeps the JAX buckets — chunks pad to a power of two
 >= 8, contexts to a power-of-two block count, decode to max_num_seqs
 lanes, ragged-round prefill rows to a power of two — so the kernels see
-the same padded tables and metadata as the Pallas kernels do. PyTorch
-runs eagerly: there is no jit and no program cache.
+the same padded tables and metadata as the Pallas kernels do.
+
+Compiled programs (engine/programs.py): the JAX runner jits one program
+per padded key and counts each build (``_note_compile``,
+``compile_events``). Here the decode programs are variants keyed the
+same way: the single-step ``decode`` per (b, c_pad) and ONE iteration
+of the fused K-step loop per (b, c_pad, sampling / stop / guided / LoRA
+flags, chained), each with static buffers and, on the card, a CUDA
+graph captured over them (``decode_multi``, the ragged round's
+iterations 1..K-1 and the composed round's loop replay the same
+iteration graph). Building a variant is a compile event. Prefill, the
+ragged round's step-0 forward, verify, embed and KV import run eagerly.
+``ModelRunner(eager=True)`` runs every dispatch eagerly (the comparison
+control). The ``precompile_*`` methods run the JAX runner's trash
+dispatches at the top of the block pool, building every decode variant
+a serving config reaches and warming the eager programs.
 
 Every dispatch of the default configuration ships its inputs as ONE
 packed int32 host buffer (pinned, one non_blocking copy on the card;
@@ -74,6 +88,7 @@ import torch
 
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.lora import LoraManager
+from production_stack_tpu_torch.engine.programs import ProgramVariant
 from production_stack_tpu_torch.engine.sampler import (
     LOGPROB_CAP,
     RAGGED_IDLE_TOKEN,
@@ -116,6 +131,13 @@ RAGGED_LANE_DECODE = 2
 # prompt-logprob rows projected to the vocab at once: a 512-row chunk's
 # (512, V) f32 logits at V = 128256 would be 262 MB
 PROMPT_LP_ROW_CHUNK = 128
+
+# device memory kept back from the KV pool for the CUDA graphs' shared
+# pool: at least this, or GRAPH_POOL_ROWS (b, V) float32 tensors (an
+# iteration's logits, penalty counts, guided mask and sampler
+# temporaries live at once)
+GRAPH_POOL_RESERVE_MIN = 256 * 2**20
+GRAPH_POOL_ROWS = 32
 
 # the fused decode loop's carry, all on the device: (b,) int32 tokens,
 # positions and context lengths, (b, V) f32 penalty counts or None, (b,)
@@ -206,8 +228,20 @@ class StagedBuffer:
 
 
 class ModelRunner:
-    def __init__(self, config: EngineConfig, params: dict | None = None):
+    def __init__(self, config: EngineConfig, params: dict | None = None,
+                 eager: bool = False):
+        """`eager`: run every dispatch eagerly, with no program variant
+        and no CUDA graph (the control the compiled path is held to; not
+        a serving option)."""
         self.config = config
+        self.eager = bool(eager)
+        # program variants by key (engine/programs.py), the graphs'
+        # shared pool (made at the first capture), and the builds counted
+        # per kind as the JAX runner's compile events
+        self._variants: dict[tuple, ProgramVariant] = {}
+        self._graph_pool = None
+        self.compile_events: dict[str, int] = {}
+        self.compile_events_total = 0
         self.model_config: ModelConfig = config.model_config()
         self.device = torch.device(config.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -364,9 +398,14 @@ class ModelRunner:
         )
         if self.device.type == "cuda":
             # the params already sit on the card, so free memory excludes
-            # them; keep (1 - utilization) of the card unclaimed
+            # them; keep (1 - utilization) of the card unclaimed, and
+            # room for the graphs' pool
             free, total = torch.cuda.mem_get_info(self.device)
             budget = int(free - total * (1.0 - cfg.hbm_utilization))
+            if not self.eager:
+                budget -= max(GRAPH_POOL_RESERVE_MIN,
+                              GRAPH_POOL_ROWS * cfg.max_num_seqs
+                              * mc.vocab_size * 4)
         else:
             param_bytes = mc.num_params() * self.dtype.itemsize
             budget = int(16 * 2**30 * cfg.hbm_utilization) - param_bytes
@@ -391,6 +430,46 @@ class ModelRunner:
             next_pow2(max(chunk_len, 8)),
             next_pow2(self.config.max_prefill_chunk),
         )
+
+    # -- compiled programs --------------------------------------------------
+    def _note_compile(self, kind: str) -> None:
+        """Count one program-variant build (the JAX runner's jit cache
+        miss)."""
+        self.compile_events[kind] = self.compile_events.get(kind, 0) + 1
+        self.compile_events_total += 1
+
+    def _static_addresses(self) -> tuple:
+        """Addresses a captured graph bakes in besides its own buffers:
+        the KV caches and the LoRA buffers (both updated in place)."""
+        bufs = [self.k_cache, self.v_cache]
+        if self.lora_manager is not None:
+            bufs += [self.lora_manager.buffers[k]
+                     for k in sorted(self.lora_manager.buffers)]
+        return tuple(t.data_ptr() for t in bufs)
+
+    def _program(self, kind: str, key: tuple, make) -> ProgramVariant:
+        """The variant of `key`, built on first use from `make()` ->
+        (fn, inputs) and counted as a compile event of `kind`."""
+        var = self._variants.get(key)
+        if var is None:
+            self._note_compile(kind)
+            fn, inputs = make()
+            if self.device.type == "cuda" and self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            var = self._variants[key] = ProgramVariant(
+                kind, key, fn, inputs, self.device, self._graph_pool,
+                self._static_addresses)
+        return var
+
+    @staticmethod
+    def _program_lora(lora):
+        """A _lora_key as a program key: none, the uniform slot (the
+        graph bakes it in), or "lanes" (the slot vector is an input)."""
+        return "lanes" if isinstance(lora, tuple) else lora
+
+    def graph_pool_bytes(self) -> int:
+        """Device memory the captures added to the graphs' shared pool."""
+        return sum(v.pool_bytes for v in self._variants.values())
 
     # -- the attention seam -------------------------------------------------
     def _attn(self, kind: str, q, layer, kc, vc, *args):
@@ -1277,6 +1356,39 @@ class ModelRunner:
             return self._attn("decode", q, l, kc, vc, tables_d, ctx_d)
         return attn
 
+    def _decode_step_layout(self, b: int, c_pad: int,
+                            lora_lanes: bool = False):
+        """Layout of the ONE int32 buffer a single-step decode ships;
+        `lora_lanes` adds each lane's adapter slot (a per-token step)."""
+        return self._layout_of([
+            ("tokens", (b,)),
+            ("positions", (b,)),
+            ("ctx", (b,)),
+            ("write_slots", (b,)),
+            ("tables", (b, c_pad // self.block_size)),
+        ] + ([("lora_slots", (b,))] if lora_lanes else []))
+
+    def _decode_step(self, b: int, c_pad: int, lora=None):
+        """`step(packed)` -> (logits (b, vocab) f32,): the single-step
+        decode forward on its packed buffer (`lora`: its _lora_key)."""
+        per_tok = isinstance(lora, tuple)
+        layout, _ = self._decode_step_layout(b, c_pad, per_tok)
+        rows = torch.arange(b, device=self.device)
+
+        def step(packed):
+            seg = functools.partial(self._pack_seg, packed, layout)
+            attn = self._decode_attn(b, seg("tables"), seg("ctx"))
+            logits, _, _ = llama.forward(
+                self.model_config, self.params, seg("tokens"),
+                seg("positions"), self.k_cache, self.v_cache,
+                seg("write_slots"), attn, logits_rows=rows,
+                **self._lora_kw(lora,
+                                seg("lora_slots") if per_tok else None),
+            )
+            return (logits,)
+
+        return step
+
     @torch.inference_mode()
     def decode(
         self,
@@ -1288,45 +1400,55 @@ class ModelRunner:
     ) -> torch.Tensor:
         """One decode step for a batch; returns f32 logits (b, vocab) on
         the device where rows beyond len(token_ids) are padded lanes.
-        `lora_slots`: each lane's adapter slot (None = all base)."""
+        `lora_slots`: each lane's adapter slot (None = all base). The
+        step is the program variant of (b, c_pad, adapter key): its
+        static buffer takes this step's packed upload, and on the card
+        its CUDA graph replays."""
         b_actual = len(token_ids)
         b = self.config.max_num_seqs
         c_pad = self._ctx_bucket(max(context_lens))
+        lora = self._lora_key(lora_slots)
+        per_tok = isinstance(lora, tuple)
+        layout, size = self._decode_step_layout(b, c_pad, per_tok)
+        packed = np.zeros((size,), np.int32)
+        put = functools.partial(self._pack_put, packed, layout)
 
-        tokens = np.zeros((b,), dtype=np.int32)
-        tokens[:b_actual] = token_ids
-        pos = np.zeros((b,), dtype=np.int32)
-        pos[:b_actual] = positions
-        ctx = np.ones((b,), dtype=np.int32)
-        ctx[:b_actual] = context_lens
-        write_slots = np.zeros((b,), dtype=np.int32)
-        for i in range(b_actual):
-            write_slots[i] = self._slots_for_positions(
-                block_tables[i], np.asarray([positions[i]])
-            )[0]
+        def lanes(vals, fill):
+            full = np.full((b,), fill, np.int32)
+            full[:b_actual] = vals
+            return full
+
+        put("tokens", lanes(token_ids, 0))
+        put("positions", lanes(positions, 0))
+        put("ctx", lanes(context_lens, 1))
+        put("write_slots", lanes([
+            self._slots_for_positions(block_tables[i],
+                                      np.asarray([positions[i]]))[0]
+            for i in range(b_actual)], 0))
         n_pages = c_pad // self.block_size
-        tables = np.stack([
+        put("tables", np.stack([
             self._padded_block_table(
                 block_tables[i] if i < b_actual else [], n_pages
             )
             for i in range(b)
-        ])
-        attn = self._decode_attn(b, self._dev(tables), self._dev(ctx))
-        lora = self._lora_key(lora_slots)
-        vec = None
-        if isinstance(lora, tuple):
-            vec = np.zeros((b,), np.int32)
-            vec[:b_actual] = lora_slots
-            vec = self._dev(vec)
-        logits, _, _ = llama.forward(
-            self.model_config, self.params, self._dev(tokens),
-            self._dev(pos), self.k_cache, self.v_cache,
-            self._dev(write_slots), attn,
-            logits_rows=torch.arange(b, device=self.device),
-            **self._lora_kw(lora, vec),
-        )
+        ]))
+        if per_tok:
+            put("lora_slots", lanes(lora_slots, 0))
+        packed_dev = self._upload(packed)
         self.dispatch_counts["decode"] += 1
-        return logits
+        if self.eager:
+            return self._decode_step(b, c_pad, lora)(packed_dev)[0]
+
+        def make():
+            step = self._decode_step(b, c_pad, lora)
+            return ((lambda inp: step(inp["packed"])),
+                    {"packed": torch.empty_like(packed_dev)})
+
+        var = self._program(
+            "decode", ("decode", b, c_pad, self._program_lora(lora)), make)
+        var.inputs["packed"].copy_(packed_dev)
+        # the graph's output is overwritten by the next replay
+        return var.run()[0].clone()
 
     # -- packed host->device buffers -----------------------------------------
     @staticmethod
@@ -1563,7 +1685,17 @@ class ModelRunner:
 
         `lora` is the decode lanes' _lora_key; `lora_lanes` says the pack
         holds their slot vector (a per-token round). The slots are
-        constant across the K iterations."""
+        constant across the K iterations.
+
+        One iteration (`fwd` then `post`) is the program variant of
+        (b, c_pad, the flags above, chained; guided: the DFA tables'
+        shape): `run` copies the round's consts and carry into its
+        static buffers once, then runs it once an iteration with that
+        iteration's noise row copied into its noise slot; the new carry
+        is written back into the static carry inside the program, and
+        each iteration's samples are copied out of its outputs. The one
+        host read stays between iterations. Under `eager` the loop runs
+        the same iteration on the round's own tensors."""
         mc = self.model_config
         bs = self.block_size
         n_pages = c_pad // bs
@@ -1663,9 +1795,10 @@ class ModelRunner:
             )
             return logits
 
-        def post(logits, carry, i, consts):
-            """Sample iteration i from its logits and advance the stop,
-            penalty and DFA state; returns (carry', ys_i)."""
+        def post(logits, carry, noise, consts):
+            """Sample one iteration from its logits with its (b, cap)
+            noise row and advance the stop, penalty and DFA state;
+            returns (carry', ys)."""
             positions, ctx, counts, done, valid, g_state = (
                 carry.positions, carry.ctx, carry.counts, carry.done,
                 carry.valid, carry.g_state)
@@ -1688,8 +1821,7 @@ class ModelRunner:
                                      torch.full_like(logits, float("-inf")))
             nxt = sample_tokens(
                 logits, consts["temps"], consts["top_ps"],
-                consts["top_ks"], consts["noise"][i],
-                min_p=consts["min_ps"],
+                consts["top_ks"], noise, min_p=consts["min_ps"],
             )
             live = ~done
             if use_stop:
@@ -1723,6 +1855,14 @@ class ModelRunner:
             return DecodeCarry(nxt, positions + adv, ctx + adv, counts,
                                done, valid, g_state), ys
 
+        def step(carry, consts, noise):
+            """One iteration: the decode forward, then `post`."""
+            return post(fwd(carry, consts), carry, noise, consts)
+
+        base_key = ("decode_multi", b, c_pad, use_penalties, want_logprobs,
+                    bias_cap, stop_cap, chained, self._program_lora(lora),
+                    lora_lanes)
+
         def run(consts, carry0, first_logits=None):
             dev = self.device
             toks = torch.full((k_steps, b), STOP_PAD_TOKEN,
@@ -1739,16 +1879,27 @@ class ModelRunner:
                 ]
             carry, i = carry0, 0
             if first_logits is not None:
-                carry, ys = post(first_logits, carry, 0, consts)
+                carry, ys = post(first_logits, carry, consts["noise"][0],
+                                 consts)
                 for buf, y in zip(bufs, ys):
                     buf[0] = y
                 i = 1
+            var = None
+            if not self.eager and i < k_steps:
+                key = base_key + ((tuple(consts["g_class_mask"].shape),)
+                                  if guided else (None,))
+                var = self._iteration_program(key, step, consts, carry)
+                carry = var.inputs["carry"]
             while i < k_steps:
                 # the loop's one host read: a 1-byte flag (real lanes
                 # enter with budget >= 1, so iteration 0 always runs)
                 if use_stop and i > 0 and bool(carry.done.all()):
                     break
-                carry, ys = post(fwd(carry, consts), carry, i, consts)
+                if var is None:
+                    carry, ys = step(carry, consts, consts["noise"][i])
+                else:
+                    var.inputs["noise"].copy_(consts["noise"][i])
+                    ys = var.run()
                 for buf, y in zip(bufs, ys):
                     buf[i] = y
                 i += 1
@@ -1756,10 +1907,47 @@ class ModelRunner:
             if guided:
                 self.guided_rounds += 1
             if use_stop:
-                bufs.append(carry.valid)
+                # a variant's carry is overwritten by its next round
+                bufs.append(carry.valid if var is None
+                            else carry.valid.clone())
             return bufs[0] if len(bufs) == 1 else tuple(bufs)
 
         return {"unpack": unpack, "fwd_args": fwd_args, "run": run}
+
+    def _iteration_program(self, key: tuple, step, consts: dict,
+                           carry: DecodeCarry) -> ProgramVariant:
+        """The fused loop's iteration variant of `key`, its static consts
+        and carry loaded with this round's (the noise row is loaded per
+        iteration). Its program runs `step` on the static buffers and
+        writes the new carry back into them."""
+
+        def make():
+            inputs = {
+                "consts": {name: None if t is None else torch.empty_like(t)
+                           for name, t in consts.items() if name != "noise"},
+                "carry": DecodeCarry(*(None if t is None
+                                       else torch.empty_like(t)
+                                       for t in carry)),
+                "noise": torch.empty_like(consts["noise"][0]),
+            }
+
+            def fn(inp):
+                new, ys = step(inp["carry"], inp["consts"], inp["noise"])
+                for dst, src in zip(inp["carry"], new):
+                    if dst is not None:
+                        dst.copy_(src)
+                return ys
+
+            return fn, inputs
+
+        var = self._program("decode_multi", key, make)
+        for name, t in var.inputs["consts"].items():
+            if t is not None:
+                t.copy_(consts[name])
+        for dst, src in zip(var.inputs["carry"], carry):
+            if dst is not None:
+                dst.copy_(src)
+        return var
 
     # stackcheck: hot-path — speculative prefetch of the NEXT chained
     # fused round: enqueue only, no device fetch
@@ -2514,6 +2702,245 @@ class ModelRunner:
         self.dispatch_counts["ragged"] += 1
         self._phase_add("dispatch", time.perf_counter() - t2)
         return out
+
+    # -- precompile: the JAX runner's warm-up sweeps ---------------------------
+    # Each sweep runs trash dispatches whose block tables point at the TOP
+    # of the pool (the allocator hands out low ids first) and skips, with
+    # a warning, an entry whose claim is not below half the pool plus 64
+    # blocks of slack. Every dispatch builds (or replays) the variants it
+    # reaches and warms the eager programs it runs: the allocator's
+    # blocks, cuBLAS heuristics, the kernel library. Each returns the
+    # dispatches it ran, as the JAX runner's do.
+    def precompile_prefill(
+        self,
+        singles: list[tuple[int, int]] = (),
+        groups: list[tuple[int, int, int]] = (),
+    ) -> int:
+        """`singles`: (chunk_len, total_len) pairs of the single-sequence
+        path; `groups`: (group_size, chunk_len, total_len) of the packed
+        path."""
+        bs = self.block_size
+        nb = self.num_blocks
+        n = 0
+        for chunk_len, total in singles:
+            bp = (total + bs - 1) // bs
+            if nb < 2 * bp + 64:
+                logger.warning(
+                    "prefill precompile: skipping single (%d, %d) — pool "
+                    "of %d blocks too small", chunk_len, total, nb,
+                )
+                continue
+            self.prefill([1] * chunk_len, total - chunk_len,
+                         list(range(nb - bp, nb)), total)
+            n += 1
+        for s, chunk_len, total in groups:
+            bp = (total + bs - 1) // bs
+            if nb < 2 * s * bp + 64:
+                logger.warning(
+                    "prefill precompile: skipping group (%d, %d, %d) — "
+                    "pool of %d blocks too small", s, chunk_len, total, nb,
+                )
+                continue
+            tabs = [list(range(nb - (i + 1) * bp, nb - i * bp))
+                    for i in range(s)]
+            self.prefill_batch(
+                [[1] * chunk_len] * s, start_positions=[total - chunk_len] * s,
+                block_tables=tabs, total_lens=[total] * s,
+            )
+            n += 1
+        return n
+
+    def precompile_decode(self, context_lens: list[int], steps: int,
+                          chained: bool = False, stop: bool = False) -> int:
+        """The decode variant of every ctx bucket the context lengths
+        reach: the fused loop's iteration at `steps` > 1 (with
+        `chained`, the chained round's too; with `stop`, the device-stop
+        loop at stop-id cap 0, budgets of `steps` so nothing freezes),
+        the single-step decode at 1. Every lane shares one trash table."""
+        b = self.config.max_num_seqs
+        bs = self.block_size
+        nb = self.num_blocks
+        temps = np.zeros((b,), np.float32)
+        top_ps = np.ones((b,), np.float32)
+        top_ks = np.full((b,), -1, np.int32)
+        keys = np.zeros((b, 2), np.uint32)
+        seen: set[int] = set()
+        n = 0
+        for cl in context_lens:
+            c_pad = self._ctx_bucket(cl + max(0, steps - 1))
+            if c_pad in seen:
+                continue
+            seen.add(c_pad)
+            npages = c_pad // bs
+            if nb < 2 * npages + 64:
+                logger.warning(
+                    "decode precompile: skipping ctx %d — pool of %d "
+                    "blocks too small", cl, nb,
+                )
+                continue
+            table = list(range(nb - npages, nb))
+            ctx = c_pad - max(0, steps - 1)
+            if steps > 1:
+                stop_kw = {}
+                if stop:
+                    stop_kw = {"stop": (
+                        np.full((b,), -1, np.int32), np.zeros((b,), np.int32),
+                        np.full((b,), steps, np.int32), None,
+                    )}
+                out = self.decode_multi(
+                    [1] * b, [ctx - 1] * b, [table] * b, [ctx] * b, steps,
+                    temps, top_ps, top_ks, keys, **stop_kw,
+                )
+                toks = out[0] if isinstance(out, tuple) else out
+                n += 1
+                if chained:
+                    self.decode_multi(
+                        toks[-1], [ctx - 1] * b, [table] * b, [ctx] * b,
+                        steps, temps, top_ps, top_ks, keys, **stop_kw,
+                    )
+                    n += 1
+            else:
+                self.decode([1] * b, [ctx - 1] * b, [table] * b, [ctx] * b)
+                n += 1
+        return n
+
+    def precompile_verify(self, context_lens: list[int], draft_len: int,
+                          max_lanes: int) -> int:
+        """The packed verify dispatch of every pow2 lane count up to
+        max_lanes x the draft chunk's bucket x each ctx bucket (eager: it
+        warms, it builds nothing)."""
+        bs = self.block_size
+        nb = self.num_blocks
+        lanes: list[int] = []
+        s = 1
+        while s <= max_lanes:
+            lanes.append(s)
+            s *= 2
+        seen: set[tuple] = set()
+        n = 0
+        for cl in context_lens:
+            c_pad = self._ctx_bucket(cl)
+            npages = c_pad // bs
+            for s in lanes:
+                key = (s, self._prefill_bucket(draft_len), c_pad)
+                if key in seen:
+                    continue
+                seen.add(key)
+                if nb < 2 * s * npages + 64:
+                    logger.warning(
+                        "verify precompile: skipping s=%d ctx=%d — pool "
+                        "of %d blocks too small", s, c_pad, nb,
+                    )
+                    continue
+                tabs = [list(range(nb - (i + 1) * npages, nb - i * npages))
+                        for i in range(s)]
+                row_sampling = (
+                    np.zeros((s,), np.float32), np.ones((s,), np.float32),
+                    np.full((s,), -1, np.int32), np.zeros((s,), np.float32),
+                    np.zeros((s,), np.uint32), np.zeros((s,), np.int64),
+                )
+                self.verify_batch([[1] * draft_len] * s,
+                                  [c_pad - draft_len] * s, tabs,
+                                  [c_pad] * s, row_sampling)
+                n += 1
+        return n
+
+    def precompile_ragged(
+        self, context_lens: list[int], ks: list[int], max_groups: int,
+        chunk_len: int, stop: bool = False, chained: bool = False,
+    ) -> int:
+        """The ragged round of every pow2 prefill-lane group up to
+        max_groups x each fused-K bucket x each ctx bucket, the prefill
+        lanes' context matched to the decode bucket. The JAX runner's
+        program keys decide what repeats: under the ragged kernel the
+        padded row bucket, so group sizes that pack to the same rows run
+        once. `chained` runs the staged round's chained dispatch too.
+        Their step-0 forwards run eagerly; their iterations build the
+        iteration variants."""
+        b = self.config.max_num_seqs
+        bs = self.block_size
+        nb = self.num_blocks
+        temps = np.zeros((b,), np.float32)
+        top_ps = np.ones((b,), np.float32)
+        top_ks = np.full((b,), -1, np.int32)
+        keys = np.zeros((b, 2), np.uint32)
+        groups: list[int] = []
+        s = 1
+        while s <= max(1, max_groups):
+            groups.append(s)
+            s *= 2
+        seen: set[tuple] = set()
+        n = 0
+        for cl in context_lens:
+            for k in ks:
+                c_pad = self._ctx_bucket(cl + max(0, k - 1))
+                ctx = c_pad - max(0, k - 1)
+                clen = min(chunk_len, c_pad)
+                for s in groups:
+                    if self.ragged_kernel:
+                        key = (self._rows_bucket(s * _ceil_tq(clen)),
+                               c_pad, k)
+                    else:
+                        key = (s, self._prefill_bucket(clen), c_pad, k)
+                    if key in seen:
+                        continue
+                    seen.add(key)
+                    npages = c_pad // bs
+                    if nb < 2 * (s + 1) * npages + 64:
+                        logger.warning(
+                            "ragged precompile: skipping s=%d ctx=%d "
+                            "k=%d — pool of %d blocks too small",
+                            s, c_pad, k, nb,
+                        )
+                        continue
+                    # decode lanes share the topmost trash table; prefill
+                    # lanes stack below it, all above live KV
+                    dec_table = list(range(nb - npages, nb))
+                    pf_tabs = [list(range(nb - (i + 2) * npages,
+                                          nb - (i + 1) * npages))
+                               for i in range(s)]
+                    stop_kw = {}
+                    if stop:
+                        stop_kw = {"stop": (
+                            np.full((b,), -1, np.int32),
+                            np.zeros((b,), np.int32),
+                            np.full((b,), k, np.int32), None,
+                        )}
+                    pf_args = ([[1] * clen] * s, [c_pad - clen] * s,
+                               pf_tabs, [c_pad] * s)
+                    out = self.ragged_dispatch(
+                        *pf_args, [1] * b, [ctx - 1] * b, [dec_table] * b,
+                        [ctx] * b, k, temps, top_ps, top_ks, keys,
+                        **stop_kw,
+                    )
+                    n += 1
+                    if chained and k > 1:
+                        ys = out[2]
+                        toks = ys[0] if isinstance(ys, tuple) else ys
+                        self.ragged_dispatch(
+                            *pf_args, toks[-1], [ctx - 1] * b,
+                            [dec_table] * b, [ctx] * b, k, temps, top_ps,
+                            top_ks, keys, **stop_kw,
+                        )
+                        n += 1
+        return n
+
+    def precompile_kv_import(self, max_blocks: int) -> int:
+        """The KV import of every pow2 block count up to max_blocks (the
+        JAX runner's (n, n) diagonal), zeros written into the null block
+        0 (trash by design). Eager: it warms the copy path."""
+        mc = self.model_config
+        n = 0
+        p = 1
+        while p <= next_pow2(max(1, max_blocks)):
+            data = torch.zeros(
+                (2, mc.num_layers, p, mc.num_kv_heads, self.block_size,
+                 mc.head_dim), dtype=self.cache_dtype)
+            self.import_staged_blocks([0] * p, self.stage_import_blocks(data),
+                                      list(range(p)))
+            n += 1
+            p *= 2
+        return n
 
 
     # -- embeddings (stateless, /v1/embeddings) ------------------------------

@@ -21,7 +21,8 @@ them); ``/debug/requests`` (the per-request lifecycle timelines);
 operator's LoraAdapter controller calls them), ``/metrics`` (the JAX
 engine's families the port serves, written by engine/metrics.py: the
 ``vllm:*`` families the router scrapes, request latency histograms and
-the ``tpu:*`` prefill, staging, decode and ragged-round families), and
+the ``tpu:*`` prefill, staging, decode, ragged-round and compile-event
+families), and
 ``/debug/kernel_launches``, which reads (GET) or zeroes (DELETE) the
 attention kernels' launch counts and the runner's forward dispatches. A
 router-supplied ``x-request-id`` becomes the engine's request id and is
@@ -29,7 +30,8 @@ echoed on the response; ``traceparent`` rides into the request's
 timeline. A prefill (or both-role) engine with
 ``kv_transfer_config["listen"]`` also serves its KV block chains to
 decode peers (kv/transfer.py), and a watched stats task feeds the KV and
-lane-mix histograms. The Prometheus text is written by hand and
+lane-mix histograms. ``precompile_serving`` runs every serving program
+once at construction, before the server listens. The Prometheus text is written by hand and
 HTTP/1.1 is parsed by hand (``asyncio.start_server``): the port needs
 neither aiohttp nor prometheus_client. One request per connection
 (``Connection: close``); streamed bodies are server-sent events ended by
@@ -103,6 +105,20 @@ class EngineServer:
     def __init__(self, config: EngineConfig, params: dict | None = None):
         self.config = config
         self.engine = AsyncLLMEngine(config, params=params)
+        if config.precompile_serving:
+            # before the step loop starts and before anything listens, so
+            # /health turns ok only once every serving program ran
+            t0 = time.perf_counter()
+            eng = self.engine.engine
+            n = eng.precompile_serving()
+            rnr = eng.runner
+            logger.info(
+                "serving precompile: %d dispatches in %.1fs; program "
+                "variants built %s, graph pool %.1f MiB (only "
+                "request-dependent variants can still build lazily)",
+                n, time.perf_counter() - t0, rnr.compile_events,
+                rnr.graph_pool_bytes() / 2**20,
+            )
         self.model_name = config.served_model_name or config.model
         self.max_model_len = config.resolved_max_model_len()
         self.metrics = EngineMetrics(self.model_name)

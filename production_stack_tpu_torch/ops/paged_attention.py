@@ -67,7 +67,8 @@ KERNEL_BLOCK_SIZES = (8, 16, 32, 64, 128)
 MAX_SMEM_BYTES = 232448
 
 # Launch accounting: each wrapper adds one where it launches its kernel
-# and nowhere else (the plain versions never count).
+# and nowhere else (the plain versions never count); a replayed CUDA
+# graph adds the launches its capture recorded (add_launches).
 _LAUNCHES = {"decode": 0, "prefill": 0, "ragged": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -80,6 +81,14 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for k in _LAUNCHES:
         _LAUNCHES[k] = 0
+
+
+def add_launches(counts: dict) -> None:
+    """Count the kernels a replayed CUDA graph launched: the launches its
+    capture recorded (a replay runs no wrapper, so nothing else counts
+    them)."""
+    for k, n in counts.items():
+        _LAUNCHES[k] += n
 
 
 # -- plain versions ----------------------------------------------------------

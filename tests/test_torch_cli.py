@@ -76,6 +76,8 @@ def test_every_jax_cli_flag_parses_in_the_port(flag):
     ([], "attention_impl", "auto"),
     (["--enable-sleep-mode"], "async_decode", False),
     (["--no-async-decode"], "async_decode", False),
+    (["--async-decode"], "async_decode", True),
+    (["--precompile-serving"], "precompile_serving", True),
     (["--long-prefill-chunk", "128"], "long_prefill_chunk", 128),
 ])
 def test_served_flags_reach_engine_config(argv, field, want):
@@ -92,9 +94,26 @@ def test_served_flags_reach_engine_config(argv, field, want):
     (["--coordinator-address", "10.0.0.1:1234"], "multihost"),
     (["--multihost"], "multihost"),
 ])
-def test_unported_flags_stop_with_engine_config_message(argv, name):
+def test_unported_flags_stop_with_engine_config_message(argv, name,
+                                                       monkeypatch):
     """main() stops in EngineConfig with its message naming the feature
-    (a NotImplementedError, not argparse's SystemExit)."""
+    (a NotImplementedError, not argparse's SystemExit). --precompile-
+    serving is served now: main() starts an engine on the CPU, whose
+    server ran the warm-up sweep before it would listen."""
+    if name == "precompile_serving":
+        from production_stack_tpu_torch.engine import server
+
+        started = []
+        monkeypatch.setattr(server.EngineServer, "run",
+                            lambda self, **kw: started.append(self))
+        main(["--device", "cpu", "--tokenizer", "byte", *argv])
+        (srv,) = started
+        eng = srv.engine.engine
+        assert srv.config.precompile_serving
+        assert eng.precompile_grid is not None
+        assert eng.runner.compile_events_total > 0
+        srv.engine.shutdown()
+        return
     with pytest.raises(NotImplementedError, match=name):
         main(["--device", "cpu", *argv])
 

@@ -572,9 +572,9 @@ GUIDED_CASES = {
 }
 
 
-def _small_engine(monkeypatch, device, params, **over):
+def _small_engine(monkeypatch, device, params, eager=False, **over):
     """An engine at a narrow width (head_dim 64, the card kernels' least)
-    on `device`, on the given params."""
+    on `device`, on the given params (`eager`: the runner's control)."""
     import dataclasses
 
     from production_stack_tpu_torch.engine.config import EngineConfig
@@ -588,7 +588,8 @@ def _small_engine(monkeypatch, device, params, **over):
     cfg = dict(model="pst-tiny-debug", tokenizer="byte", dtype="float32",
                cache_dtype="float32", block_size=32, num_kv_blocks=64,
                max_num_seqs=4, seed=0, device=device)
-    return LLMEngine(EngineConfig(**{**cfg, **over}), params=params)
+    return LLMEngine(EngineConfig(**{**cfg, **over}), params=params,
+                     eager=eager)
 
 
 def _small_params(monkeypatch, dtype=torch.float32):
@@ -682,3 +683,107 @@ def test_prompt_logprobs_on_card_match_one_shot(cuda_device, monkeypatch):
         for t in e["top_logprobs"]:
             assert abs(t["logprob"] - float(lp[i, t["token_id"]])) <= (
                 5e-2 * top)
+
+
+def _runner_pair(monkeypatch, dtype):
+    """A compiled runner and its eager control on the same small-model
+    params, each with the same three prompts prefilled (eager in both)."""
+    params = _small_params(monkeypatch, getattr(torch, dtype))
+    runners = []
+    for eager in (False, True):
+        r = _small_engine(monkeypatch, "cuda", params, eager=eager,
+                          dtype=dtype, cache_dtype=dtype).runner
+        for i, n in enumerate((5, 40, 70)):
+            r.prefill([(3 * i + j) % 250 + 1 for j in range(n)], 0,
+                      [1 + 4 * i + p for p in range(4)], n)
+        runners.append(r)
+    return runners
+
+
+def _round(r, tokens, ctx, k=4):
+    """One sampled K-step round with logprobs and device stops (lane 1's
+    budget ends mid-round) over the three prefilled lanes."""
+    b = len(ctx)
+    return r.decode_multi(
+        tokens, [c - 1 for c in ctx],
+        [[1 + 4 * i + p for p in range(4)] for i in range(b)], ctx, k,
+        np.full(b, 0.7, np.float32), np.full(b, 0.9, np.float32),
+        np.full(b, 40, np.int32),
+        np.stack([np.arange(b), ctx], 1).astype(np.uint32),
+        stop=(np.full(b, -1, np.int32), np.zeros(b, np.int32),
+              np.array([k, 2, k], np.int32), None),
+        want_logprobs=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graph_replay_equals_eager_iteration(cuda_device, monkeypatch,
+                                             dtype):
+    """The fused loop's iteration replayed from its CUDA graph gives the
+    eager iteration's tokens, logprobs, valid counts and KV bit for bit:
+    the first round builds the variant (iteration 0 runs eagerly on a
+    side stream, then the capture; 1..3 replay), the second (chained on
+    the first's device tokens) is its own variant."""
+    runners = _runner_pair(monkeypatch, dtype)
+    tokens = [[7, 8, 9]] * 2
+    ctx = [6, 41, 71]
+    for _ in range(2):
+        outs = [_round(r, t, ctx) for r, t in zip(runners, tokens)]
+        for got, want in zip(*outs):
+            assert torch.equal(got, want)
+        tokens = [ys[0][-1] for ys in outs]
+        ctx = [c + 4 for c in ctx]
+        compiled, eager = runners
+        assert torch.equal(compiled.k_cache, eager.k_cache)
+        assert torch.equal(compiled.v_cache, eager.v_cache)
+    assert [v.replays for v in compiled._variants.values()] == [3, 3]
+    assert compiled.compile_events == {"decode_multi": 2}
+    assert eager.compile_events == {} and not eager._variants
+
+
+@pytest.mark.cuda
+def test_graph_replays_count_their_launches(cuda_device, monkeypatch):
+    """A replay adds the launches its capture recorded: the compiled
+    engine's launch and dispatch counts equal the eager engine's, one
+    ragged launch a layer a forward; a single-step decode graph records
+    one ragged launch a layer."""
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+
+    params = _small_params(monkeypatch)
+    counts = []
+    for eager in (False, True):
+        eng = _small_engine(monkeypatch, "cuda", params, eager=eager,
+                            num_scheduler_steps=4)
+        tpa.reset_launch_counts()
+        runs0 = dict(eng.runner.dispatch_counts)
+        out = eng.generate([[1, 2, 3], [4, 5, 6, 7, 8]], SamplingParams(
+            max_tokens=13, temperature=0.0, ignore_eos=True))
+        runs = {k: v - runs0[k] for k, v in eng.runner.dispatch_counts.items()}
+        got = tpa.launch_counts()
+        counts.append((got, runs, [o.token_ids for o in out]))
+        layers = eng.runner.model_config.num_layers
+        assert got["ragged"] == layers * (
+            runs["prefill_batch"] + runs["decode"] + runs["decode_iterations"])
+        assert got["prefill"] == layers * runs["prefill"]
+        assert bool(eng.runner._variants) != eager
+    assert counts[0] == counts[1]
+    r = _small_engine(monkeypatch, "cuda", params).runner
+    for _ in range(2):
+        r.decode([1, 2], [3, 4], [[1], [2]], [4, 5])
+    (var,) = r._variants.values()
+    assert var.kind == "decode" and var.replays == 1
+    assert var.launches == {"ragged": r.model_config.num_layers}
+
+
+@pytest.mark.cuda
+def test_moved_cache_stops_the_replay(cuda_device, monkeypatch):
+    """No fallback: a graph whose captured KV cache was reallocated
+    raises instead of replaying on stale addresses or running eagerly."""
+    r = _small_engine(monkeypatch, "cuda", _small_params(monkeypatch)).runner
+    for _ in range(2):
+        r.decode([1], [3], [[1]], [4])
+    r.k_cache = r.k_cache.clone()
+    with pytest.raises(RuntimeError, match="in place"):
+        r.decode([1], [3], [[1]], [4])

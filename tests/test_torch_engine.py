@@ -135,10 +135,24 @@ def test_unported_flags_refuse_to_start(field, value):
     """On the default (unified ragged round) configuration. The composed
     ragged round (--no-ragged-kernel) and MoE models are served: their
     engines are held to the JAX package's in tests/test_torch_composed.py
-    and tests/test_torch_moe.py."""
+    and tests/test_torch_moe.py. precompile_serving and async_decode are
+    served too: their configs start an engine on the CPU (held to the
+    JAX engine in tests/test_torch_precompile.py and
+    tests/test_torch_async_decode.py)."""
+    cfg = {**BASE, "ragged_dispatch": True, field: value}
+    if field in ("precompile_serving", "async_decode"):
+        eng = LLMEngine(EngineConfig(**cfg, num_scheduler_steps=4,
+                                     device="cpu"))
+        if field == "precompile_serving":
+            assert eng.precompile_serving() > 0
+        else:
+            assert eng._async_decode and not eng._ragged_dispatch
+        out = eng.generate([[1, 2, 3]], SamplingParams(
+            max_tokens=9, temperature=0.0, ignore_eos=True))
+        assert len(out[0].token_ids) == 9
+        return
     with pytest.raises(NotImplementedError, match=field):
-        EngineConfig(**{**BASE, "ragged_dispatch": True, field: value},
-                     device="cpu")
+        EngineConfig(**cfg, device="cpu")
 
 
 def test_unported_request_fields_refuse(np_params):
