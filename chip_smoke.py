@@ -28,7 +28,10 @@ Phases, each fatal on failure:
    memory, achieved GB/s or TFLOP/s and bound / kernel time. The ragged
    kernel is also checked and timed on the decode lanes alone, packed as
    the model runner packs a decode step (one single-row segment per
-   lane), beside the decode kernel on the same lanes;
+   lane), beside the decode kernel on the same lanes; then each kernel
+   through its *_tp wrapper at one rank's local shape of the 3B at tp=2
+   (nq=12 over nkv=4, d=128, bs=32), bf16 and f32 against the plain
+   version, its time beside its bound;
 3. forward: the same random params through models/llama.forward on the
    CPU (plain versions) and on the card (kernels), 2 layers at full 3B
    width, bf16; logits held to a stated tolerance;
@@ -227,7 +230,23 @@ Phases, each fatal on failure:
    (layer, token) expert pairs bf16 rounding alone moves between bf16
    and float32 one-shot forwards) and on the same weights in float32,
    whose greedy streams are held to one-shot float32 forwards under the
-   near-tie rule.
+   near-tie rule;
+13. tp: tensor parallelism on the one card: Llama-3.2-3B (28 layers,
+   bf16, seeded random weights) at tp=2, rank 0 in this process and
+   rank 1 spawned (parallel/launch.start_tp_ranks with devices [cuda:0,
+   cuda:0] and gloo: NCCL refuses two ranks on one device), beside a
+   tp=1 engine on the same seed, both K=8: a one-shot 512-token
+   forward's logits held to tp=1's (TP_LOGIT_REL_TOL, printed); the
+   mixed phase's scenario (four greedy 32-token requests, a 1500-token
+   prompt at step 2) with streams held to tp=1's under the near-tie
+   rule; each rank's launches (read from the followers through the
+   step broadcast) held to 28 a forward, its params and KV cache on
+   the card and no collective on a host tensor; wall ms a token at
+   batch 8 in turns, printed as gloo on one shared card (not a TP
+   speed); then the Qwen2-7B 2-layer checkpoint (the families phase's
+   config: qkv bias split, untied lm_head vocab-sharded, each rank
+   loading its shard) at tp=2, logits held to tp=1's. A follower that
+   fails, or exits with another code than 0, fails the run.
 
 Launch counts are reset just before the serve phase's requests (through
 the server's /debug/kernel_launches) and again before its API requests,
@@ -238,7 +257,8 @@ engine's run, before each spec-phase engine's run and the
 spec server's requests, before the checkpoint phase's requests,
 before each KV-phase engine's and server's requests, before each
 impl-phase turn, the gather families' engines, the Phi-3 server's
-requests and the Mixtral engine's run, and read just after; a kernel launched 0 times on those paths fails the run. The
+requests, the Mixtral engine's run and, on every rank, before the tp
+phase's one-shot forwards and its tp=2 scenario, and read just after; a kernel launched 0 times on those paths fails the run. The
 servers' logs go to build/chip_smoke_serve.log,
 build/chip_smoke_spec_serve.log, build/chip_smoke_lora_serve.log, build/chip_smoke_prefill_serve.log,
 build/chip_smoke_decode_serve.log, build/chip_smoke_cache_server.log and
@@ -4095,6 +4115,291 @@ def moe_phase(torch, pa, gap_tol: float, smi: str) -> dict:
     return {k: got[k] for k in ("decode", "prefill", "ragged")}
 
 
+# -- tensor-parallel phase -----------------------------------------------------
+# tp=2 on the one card: rank 0 in this process, rank 1 spawned, both on
+# cuda:0 over gloo (NCCL refuses two ranks on one device). The ranks sum
+# their f32 partials of wo and w_down (gloo through the host) where the
+# tp=1 forward sums them inside one GEMM: the same kind of summation
+# order change as the decode phase's two kernels, so its bound is used
+# for one-shot logits, tp=2 against tp=1 (max|dlogit| / max|logit|)
+TP_LOGIT_REL_TOL = DECODE_LOGIT_REL_TOL
+TP_KV_BLOCKS = 512  # 3.5 MiB a block on a rank (nkv 4 of 8), 7 on tp=1
+TP_ONESHOT_TOKENS = 512
+
+
+def tp_kernel_shapes(torch) -> None:
+    """The three kernels through their *_tp wrappers at one rank's local
+    shape of Llama-3.2-3B at tp=2 (nq=12 over nkv=4, d=128, bs=32), on
+    the kernel phase's decode lanes and 512-row chunk: bf16 and f32
+    against the plain versions at the kernel phase's tolerances, then
+    time (mean of 20 after an L2 flush) beside the plain version's (mean
+    of 3) and the bound."""
+    import numpy as np
+
+    from production_stack_tpu_torch.engine.model_runner import (
+        decode_segments,
+    )
+    from production_stack_tpu_torch.ops import paged_attention as pa
+
+    dev = torch.device("cuda")
+    nq, nkv, d, bs, L = 12, 4, 128, 32, 2
+    num_blocks = 2560
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    kc = torch.randn((L, nkv, num_blocks * bs, d), generator=gen,
+                     device=dev, dtype=torch.bfloat16)
+    vc = torch.randn_like(kc)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    tp_kw = dict(num_heads=2 * nq, num_kv_heads=2 * nkv, tp_size=2,
+                 block_size=bs, scale=d**-0.5)
+    plain_kw = dict(block_size=bs, scale=d**-0.5)
+    dec_ctx = [1, 31, 32, 33, 500, 1000, 1531, 2047]
+    P = -(-max(dec_ctx) // bs)
+    perm = np.random.default_rng(SEED).permutation(num_blocks)
+    tables = torch.from_numpy(
+        perm[:len(dec_ctx) * P].reshape(len(dec_ctx), P).astype(np.int32)
+    ).to(dev)
+    ctx = torch.tensor(dec_ctx, dtype=torch.int32, device=dev)
+    _, blk, meta = decode_segments(np.asarray(dec_ctx, np.int32))
+    blk, meta = (torch.from_numpy(x).to(dev) for x in (blk, meta))
+    qd = torch.randn((len(dec_ctx), nq, d), generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    t, qs = 512, 1024
+    qp = torch.randn((t, nq, d), generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    pf_table = tables[-1]
+    dec_kv = sum(dec_ctx)
+    cases = {
+        "ragged_paged_attention_tp (decode lanes)": (
+            pa.ragged_paged_attention_tp, pa.ragged_paged_attention_plain,
+            qd, (tables, blk, meta), len(dec_ctx), dec_kv,
+            sum(c for c in dec_ctx)),
+        "paged_prefill_attention_tp": (
+            pa.paged_prefill_attention_tp, pa.paged_prefill_attention_plain,
+            qp, (pf_table, qs), t, qs + t, sum(qs + i + 1 for i in range(t))),
+        "paged_decode_attention_tp": (
+            pa.paged_decode_attention_tp, pa.paged_decode_attention_plain,
+            qd, (tables, ctx), len(dec_ctx), dec_kv, dec_kv),
+    }
+    for name, (fn, plain, q, extra, rows, kv_tok, visible) in cases.items():
+        for dt, tol in ((torch.bfloat16, BF16_REL_TOL),
+                        (torch.float32, F32_REL_TOL)):
+            qq, kk, vv = (x.to(dt) for x in (q, kc, vc))
+            out = fn(qq, kk, vv, 1, *extra, **tp_kw).float()
+            ref = plain(qq, kk, vv, 1, *extra, **plain_kw).float()
+            torch.cuda.synchronize()
+            err = (out - ref).abs()
+            worst = float((err / (tol * ref.abs().amax(-1, keepdim=True))
+                           .clamp_min(1e-30)).max())
+            print(f"tp kernels: {name} {str(dt)[6:]}: max_abs_err="
+                  f"{float(err.max()):.3e} worst err/tol={worst:.3f}",
+                  flush=True)
+            if not worst <= 1.0:
+                fail(f"tp kernels: {name} off its plain version by "
+                     f"{worst:.3f}x the tolerance")
+            del kk, vv
+        ms = time_cuda(torch, lambda: fn(q, kc, vc, 1, *extra, **tp_kw),
+                       20, flush)
+        plain_ms = time_cuda(
+            torch, lambda: plain(q, kc, vc, 1, *extra, **plain_kw), 3,
+            flush)
+        t_bytes = (2 * kv_tok * nkv * d * 2 + 2 * rows * nq * d * 2
+                   ) / HBM_BYTES_PER_S * 1e3
+        t_ops = 4 * visible * nq * d / BF16_FLOPS * 1e3
+        bms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                               "operations")
+        print(f"tp kernels: {name} at the tp=2 local shape (nq {nq}, nkv "
+              f"{nkv}, d {d}, bs {bs}): kernel_ms={ms:.4f} plain_ms="
+              f"{plain_ms:.3f} bound_ms={bms:.4f} ({by}), bound/kernel="
+              f"{bms / ms:.3f}", flush=True)
+    del kc, vc, flush
+    release(torch)
+
+
+def tp_forward_check(torch, what: str, ref, eng, ids: list[int],
+                     layers: int) -> float:
+    """One-shot forward of `ids` (one prefill chunk over free blocks of an
+    idle engine) on the tp=1 engine `ref` and the tp=2 engine `eng`:
+    last-row logits, max|dlogit| / max|logit| held to TP_LOGIT_REL_TOL,
+    and each rank's launches of the tp=2 forward (counted from 0 after
+    the tp=1 one, which rank 0's process counts too) held to one prefill
+    launch a layer."""
+    n_blk = -(-len(ids) // ref.config.block_size)
+    table = list(range(1, 1 + n_blk))
+    out = [ref.runner.prefill(ids, 0, table, len(ids))[1].float()]
+    torch.cuda.synchronize()
+    eng.runner.reset_counts()
+    runs0 = [dict(r["dispatch_counts"]) for r in eng.runner.reports()]
+    out.append(eng.runner.prefill(ids, 0, table, len(ids))[1].float())
+    torch.cuda.synchronize()
+    top = float(out[0].abs().max())
+    rel = float((out[1] - out[0]).abs().max()) / top
+    print(f"{what}: one-shot {len(ids)}-token forward, last-row logits "
+          f"tp=2 vs tp=1 on the card max|d|/max|logit|={rel:.3e} "
+          f"(tol {TP_LOGIT_REL_TOL})", flush=True)
+    if not (torch.isfinite(out[1]).all() and rel <= TP_LOGIT_REL_TOL):
+        fail(f"{what}: tp=2 logits differ from tp=1 by {rel:.3e}")
+    tp_rank_check(f"{what} one-shot forward", eng.runner.reports(), layers,
+                  runs0)
+    return rel
+
+
+def tp_rank_check(what: str, reports: list[dict], layers: int,
+                  runs0: list[dict] | None = None) -> list[dict]:
+    """Every rank launched the ragged kernel once a layer per
+    ragged-kernel forward and the prefill kernel once a layer per
+    single-sequence prefill (counted from its last reset, dispatches
+    from `runs0`), on the card only: no tensor of the params or the KV
+    cache off it, no collective on a host tensor. Returns each rank's
+    launch counts."""
+    out = []
+    for i, rep in enumerate(reports):
+        runs = dict(rep["dispatch_counts"])
+        if runs0 is not None:
+            runs = {k: v - runs0[i][k] for k, v in runs.items()}
+        check_launches(f"{what} rank {rep['rank']}", rep["launches"], runs,
+                       layers=layers)
+        if rep["tensor_devices"] != ["cuda:0"] or rep["host_collectives"]:
+            fail(f"{what} rank {rep['rank']}: tensors on "
+                 f"{rep['tensor_devices']}, {rep['host_collectives']} "
+                 "collectives on host tensors")
+        out.append(rep["launches"])
+    return out
+
+
+def tp_phase(torch, pa, gap_tol: float, smi: str) -> dict:
+    """Llama-3.2-3B (28 layers, bf16, seeded random weights, byte
+    tokenizer) at tp=2 on the one card (start_tp_ranks with devices
+    [cuda:0, cuda:0] and gloo; rank 1 spawned) beside a tp=1 engine on
+    the same seed, both K=8 (under tp: split rounds, the fused K-step
+    decode on the ragged kernel, no staging): a one-shot 512-token
+    forward's logits held to tp=1's; the mixed phase's scenario (four
+    greedy 32-token requests, a 1500-token prompt at step 2) on both,
+    streams held to tp=1's under the near-tie rule, and every rank's
+    launches held to 28 a forward; wall ms a token at batch 8 in turns
+    (gloo through the host on one shared card: not a TP speed). Then
+    the Qwen2-7B 2-layer checkpoint (qkv bias split, untied lm_head
+    vocab-sharded, g = 7 on a rank) at tp=2: logits held to tp=1's.
+    Returns rank 0's and rank 1's launches over the scenario."""
+    import shutil
+    import tempfile
+
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.llm_engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.models.config import get_model_config
+    from production_stack_tpu_torch.models.debug_checkpoint import (
+        write_hf_checkpoint,
+    )
+    from production_stack_tpu_torch.parallel.launch import start_tp_ranks
+
+    def tp_engine(cfg):
+        t0 = time.perf_counter()
+        group = start_tp_ranks(cfg, devices=["cuda:0", "cuda:0"],
+                               backend="gloo")
+        eng = LLMEngine(cfg, tp_group=group)
+        return eng, time.perf_counter() - t0
+
+    def stop(eng, what):
+        """Shut the rank set down; a follower that did not exit cleanly
+        fails the run."""
+        followers = list(eng.tp_group.followers)
+        eng.shutdown()
+        codes = [p.exitcode for p in followers]
+        if codes != [0] * len(followers):
+            fail(f"{what}: followers exited with {codes}")
+
+    base = dict(model="llama-3.2-3b", tokenizer="byte", device="cuda",
+                block_size=32, num_kv_blocks=TP_KV_BLOCKS, max_num_seqs=8,
+                seed=SEED, num_scheduler_steps=8)
+    ref = LLMEngine(EngineConfig(**base))
+    eng, boot = tp_engine(EngineConfig(**base, tensor_parallel_size=2))
+    try:
+        print(f"tp phase: tp=2 rank set (gloo, both ranks on cuda:0) and "
+              f"its engine up in {boot:.1f}s; ragged rounds "
+              f"{eng._ragged_dispatch}, staging off", flush=True)
+        ids = [(5 * j + 3) % 250 + 1 for j in range(TP_ONESHOT_TOKENS)]
+        tp_forward_check(torch, "tp phase llama-3.2-3b", ref, eng, ids,
+                         LAYERS_3B)
+        sp = SamplingParams(max_tokens=32, temperature=0, ignore_eos=True,
+                            logprobs=2)
+        outs, walls = {}, {}
+        for tag, e in (("tp1", ref), ("tp2", eng)):
+            if tag == "tp2":
+                e.runner.reset_counts()
+                runs0 = [dict(r["dispatch_counts"])
+                         for r in e.runner.reports()]
+            outs[tag], _, _, _, walls[tag] = staggered_mix(
+                torch, pa, e, f"tp-{tag}", 0, sp)
+        counts = tp_rank_check("tp phase mixed scenario",
+                               eng.runner.reports(), LAYERS_3B, runs0)
+        if min(c["ragged"] for c in counts) < LAYERS_3B:
+            fail(f"tp phase: a rank never launched the ragged kernel: "
+                 f"{counts}")
+        n_same = near_tie_check("tp phase tp=2 vs tp=1", outs["tp1"],
+                                outs["tp2"], gap_tol)
+        print(f"tp phase: {n_same}/5 greedy streams (4 x 32 tokens and the "
+              f"{LONG_PROMPT_TOKENS}-token prompt's) equal to tp=1's; the "
+              f"scenario's wall {walls['tp2']:.2f}s at tp=2 against "
+              f"{walls['tp1']:.2f}s at tp=1; launches a rank {counts}",
+              flush=True)
+        ms = {"tp1": [], "tp2": []}
+        for turn, tag in enumerate(("tp2", "tp1", "tp1", "tp2")):
+            e = eng if tag == "tp2" else ref
+            ms[tag].append(decode_batch8(torch, e, f"tp-{tag}-b8", turn))
+        print(f"tp phase: wall ms a generated token at batch 8 (K=8, host "
+              f"clock; tp=2 is gloo through the host with both ranks on "
+              f"one shared card, not a tensor-parallel speed): tp=2 "
+              f"{', '.join(f'{x:.3f}' for x in ms['tp2'])}; tp=1 "
+              f"{', '.join(f'{x:.3f}' for x in ms['tp1'])} ({smi})",
+              flush=True)
+    finally:
+        stop(eng, "tp phase llama-3.2-3b")
+        del ref
+        release(torch)
+
+    (REPO / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="tp-qwen2-", dir=REPO / "build"))
+    try:
+        name = "Qwen2-7B"
+        hf = dict(FAMILY_CONFIGS[name], num_hidden_layers=FAMILY_LAYERS)
+        (root / "config.json").write_text(json.dumps(hf))
+        cfg = get_model_config(str(root))
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = llama.init_params(cfg, gen, torch.bfloat16, "cuda")
+        for b in ("bq", "bk", "bv"):
+            params["layers"][b] = (torch.randn(
+                params["layers"][b].shape, generator=gen,
+                device="cuda") * 0.5).bfloat16()
+        write_hf_checkpoint(str(root), hf, params)
+        del params
+        release(torch)
+        qbase = dict(model=str(root), tokenizer="byte", device="cuda",
+                     block_size=32, num_kv_blocks=64, max_num_seqs=4,
+                     seed=SEED)
+        qref = LLMEngine(EngineConfig(**qbase))
+        qeng, boot = tp_engine(EngineConfig(**qbase, tensor_parallel_size=2))
+        try:
+            print(f"tp phase {name}: {FAMILY_LAYERS} layers at tp=2 "
+                  f"({cfg.num_heads // 2} q heads over "
+                  f"{cfg.num_kv_heads // 2} kv heads a rank, qkv bias, "
+                  f"untied lm_head of {cfg.vocab_size} split in two), each "
+                  f"rank loading its shard from the checkpoint: up in "
+                  f"{boot:.1f}s", flush=True)
+            tp_forward_check(torch, f"tp phase {name}", qref, qeng,
+                             [(7 * j + 1) % 250 + 1 for j in range(300)],
+                             FAMILY_LAYERS)
+        finally:
+            stop(qeng, f"tp phase {name}")
+            del qref
+            release(torch)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"rank0": counts[0], "rank1": counts[1]}
+
+
 def main() -> int:
     try:
         import torch
@@ -4125,6 +4430,7 @@ def main() -> int:
         print(f"  ptxas {line}", flush=True)
 
     stats = kernel_phase(torch)
+    tp_kernel_shapes(torch)
     forward_phase(torch)
     families_phase(torch, pa, smi)
     serve_counts, api_counts = serve_phase(torch, smi)
@@ -4140,6 +4446,7 @@ def main() -> int:
     kv_counts = kv_phase(torch, pa, gap_tol, smi)
     phi3_serve_phase(torch, pa, smi)
     moe_counts = moe_phase(torch, pa, gap_tol, smi)
+    tp_counts = tp_phase(torch, pa, gap_tol, smi)
     launches = {
         "ragged": serve_counts["ragged"],
         "prefill": serve_counts["prefill"],
@@ -4152,7 +4459,8 @@ def main() -> int:
           f"{compiled_counts}, async decode {async_counts}, spec "
           f"decode {spec_counts}, loaded "
           f"checkpoint with adapters {lora_counts}, KV paths {kv_counts}, "
-          f"Mixtral-8x7B x{MIXTRAL_LAYERS} {moe_counts}; "
+          f"Mixtral-8x7B x{MIXTRAL_LAYERS} {moe_counts}, tp=2 ranks "
+          f"{tp_counts}; "
           f"a served "
           f"mixed round launches the ragged kernel {LAYERS_3B} times a "
           "forward (its step-0 forward and each further decode iteration)",

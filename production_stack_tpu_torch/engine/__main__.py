@@ -30,11 +30,16 @@ path only on the card for a head_dim the kernels are not built for.
 CLI. ``--precompile-serving`` runs every serving program once at startup
 (the decode programs' CUDA graphs captured, the eager ones warmed)
 before ``/health`` answers; ``--async-decode`` dispatches decode round
-N+1 on round N's device tokens before fetching round N (K > 1). Every
-flag of the JAX CLI parses; one whose feature is not ported yet
-(``--long-prefill-threshold``, tp/pp/cp above 1, and ``--multihost``
-with ``--num-processes``, ``--process-id`` and
-``--coordinator-address``) makes the engine refuse to start
+N+1 on round N's device tokens before fetching round N (K > 1).
+``--tensor-parallel-size N`` serves the model Megatron-sharded over N
+ranks: this process is rank 0 (server, scheduler, metrics) and the
+engine spawns ranks 1..N-1, rank r on cuda:r over NCCL (gloo with
+``--device cpu``). Every flag of the JAX CLI parses; one whose feature
+is not ported yet (``--long-prefill-threshold``, pp/cp above 1, and
+``--multihost`` with ``--num-processes``, ``--process-id`` and
+``--coordinator-address``), or not carried under tensor parallelism yet
+(LoRA, KV tiers, PD roles, MoE models, ``--async-decode``,
+``--precompile-serving``), makes the engine refuse to start
 (NotImplementedError from EngineConfig, naming it).
 """
 
@@ -232,9 +237,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run every config-derivable serving program once "
                         "at startup (decode graphs captured, eager "
                         "programs warmed) before /health turns ok")
+    p.add_argument("--tensor-parallel-size", type=int, default=1,
+                   help="Megatron-sharded ranks, one process a card "
+                        "(rank 0 serves)")
     # not ported yet: accepted so existing deployments and the chart
     # parse, refused by EngineConfig (naming the feature) when switched on
-    p.add_argument("--tensor-parallel-size", type=int, default=1)
     p.add_argument("--pipeline-parallel-size", type=int, default=1)
     p.add_argument("--context-parallel-size", type=int, default=0)
     p.add_argument("--long-prefill-threshold", type=int, default=None)

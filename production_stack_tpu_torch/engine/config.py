@@ -12,11 +12,14 @@ n-gram speculative decoding (``num_speculative_tokens``, drafts from
 prompt lookup), the attention implementation (``attention_impl``: the
 kernels or the gather path), MoE models, the startup warm-up of every
 serving program (``precompile_serving``) and the double-buffered decode
-(``async_decode``). The fields of features not ported yet (the
-multi-device and long-prefill paths) stay so that
-asking for one fails loudly: ``__post_init__`` raises
-NotImplementedError for each (see ``unported``), so no request ever
-reaches a missing path.
+(``async_decode``), and tensor parallelism (``tensor_parallel_size``:
+ranks 1..N-1 spawned beside the engine, parallel/launch.py). The fields
+of features not ported yet (the pipeline, context-parallel, multi-host
+and long-prefill paths) stay so that asking for one fails loudly:
+``__post_init__`` raises NotImplementedError for each (see
+``unported``), and for each feature a tensor-parallel engine does not
+carry yet (see ``tp_unported``), so no request ever reaches a missing
+path.
 """
 
 from __future__ import annotations
@@ -147,10 +150,12 @@ class EngineConfig:
     ngram_prompt_lookup_max: int = 3
     ngram_prompt_lookup_min: int = 1
 
-    # -- not ported yet: any non-default value refuses at construction --
     async_decode: bool = False        # double-buffered decode
     precompile_serving: bool = False  # startup shape warmup
+    # Megatron-sharded ranks, one process each (rank 0 serves)
     tensor_parallel_size: int = 1
+
+    # -- not ported yet: any non-default value refuses at construction --
     pipeline_parallel_size: int = 1
     context_parallel_size: int = 0
     long_prefill_threshold: int | None = None
@@ -189,12 +194,33 @@ class EngineConfig:
     def unported(self) -> list[str]:
         """Names of the requested features this port cannot serve yet."""
         checks = {
-            "tensor_parallel_size>1": self.tensor_parallel_size > 1,
             "pipeline_parallel_size>1": self.pipeline_parallel_size > 1,
             "context_parallel_size>1": self.context_parallel_size > 1,
             "long_prefill_threshold": self.long_prefill_threshold is not None,
             "multihost (--multihost, --num-processes, --process-id, "
             "--coordinator-address)": self.multihost,
+        }
+        return [name for name, on in checks.items() if on]
+
+    def tp_unported(self) -> list[str]:
+        """Names of the requested features a tensor-parallel engine
+        cannot serve yet (none at tensor_parallel_size 1): the JAX
+        package's own broadcast limits (adapter loads, KV offload tiers
+        and PD roles are not broadcast to the ranks), expert parallelism,
+        and the two serving programs built on CUDA graphs and chained
+        device tokens."""
+        if self.tensor_parallel_size <= 1:
+            return []
+        checks = {
+            "enable_lora": self.enable_lora,
+            "KV offload tiers (cpu_offload_bytes, disk_offload_dir)": bool(
+                self.cpu_offload_bytes or self.disk_offload_dir),
+            "remote_cache_url": self.remote_cache_url is not None,
+            "PD (kv_role / kv_transfer_config)": (
+                self.pd_role() is not None),
+            "MoE models (expert parallel)": self.model_config().is_moe,
+            "async_decode": self.async_decode,
+            "precompile_serving": self.precompile_serving,
         }
         return [name for name, on in checks.items() if on]
 
@@ -242,6 +268,14 @@ class EngineConfig:
             raise NotImplementedError(
                 "not ported to the PyTorch engine yet: "
                 + ", ".join(missing)
+            )
+        if self.tensor_parallel_size < 1:
+            raise ValueError("tensor_parallel_size must be >= 1")
+        missing = self.tp_unported()
+        if missing:
+            raise NotImplementedError(
+                "not ported to the PyTorch engine under "
+                "tensor_parallel_size>1 yet: " + ", ".join(missing)
             )
 
     def pd_role(self) -> str | None:

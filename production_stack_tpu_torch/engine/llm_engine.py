@@ -53,6 +53,17 @@ round. Ragged rounds are off under it. ``precompile_serving`` runs the
 JAX engine's warm-up grid of every config-derivable serving program
 (the runner's ``precompile_*`` sweeps). Long prefill is not ported
 here: EngineConfig refuses its flags.
+
+Tensor parallelism (``tensor_parallel_size`` N > 1): the engine is rank
+0 of a rank set (parallel/launch.start_tp_ranks spawns ranks 1..N-1
+unless the caller passes its own ``tp_group``), and its runner is
+wrapped in engine/multihost_engine.BroadcastingRunner, which publishes
+every forward to the followers. The JAX meshed engine's rules hold: no
+unified ragged rounds, no staged decode or ragged rounds, no staged
+prefill (each stage is a device buffer the followers never see);
+split rounds, the fused K-step decode, packed prefill, spec decode,
+embeddings, guided lanes and prompt logprobs are served. ``shutdown``
+stops and joins the followers.
 """
 
 from __future__ import annotations
@@ -66,6 +77,9 @@ import torch
 from production_stack_tpu_torch.engine.block_manager import BlockManager
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.model_runner import ModelRunner
+from production_stack_tpu_torch.engine.multihost_engine import (
+    BroadcastingRunner,
+)
 from production_stack_tpu_torch.engine.outputs import (
     EngineStatsSnapshot,
     RequestOutput,
@@ -100,14 +114,36 @@ logger = init_logger(__name__)
 
 class LLMEngine:
     def __init__(self, config: EngineConfig, params: dict | None = None,
-                 eager: bool = False):
-        """`eager`: the runner's comparison control (ModelRunner)."""
+                 eager: bool = False, tp_group=None):
+        """`eager`: the runner's comparison control (ModelRunner).
+        `tp_group`: rank 0's group of a rank set the caller started
+        (parallel/launch.start_tp_ranks, e.g. with its own devices and
+        backend); None with tensor_parallel_size > 1 starts one here."""
         self.config = config
         self.tokenizer = get_tokenizer(
             config.tokenizer, config.model,
             chat_template=config.chat_template,
         )
-        self.runner = ModelRunner(config, params=params, eager=eager)
+        if config.tensor_parallel_size > 1 and tp_group is None:
+            from production_stack_tpu_torch.parallel.launch import (
+                start_tp_ranks,
+            )
+
+            tp_group = start_tp_ranks(config, params=params)
+        self.tp_group = tp_group
+        try:
+            self.runner = ModelRunner(config, params=params, eager=eager,
+                                      group=tp_group)
+            if tp_group is not None:
+                self.runner = BroadcastingRunner(self.runner, tp_group)
+                self.runner.wait_ready()
+        except BaseException:
+            if tp_group is not None:
+                self._stop_ranks()
+            raise
+        # the JAX meshed engine's rules: under tensor parallelism every
+        # device buffer a stage would build lives on rank 0 only
+        self._tp = tp_group is not None
         # async decode pipeline (double-buffered dispatch): the in-flight
         # decode round whose sampled tokens are still on the device
         self._pending_decode: dict | None = None
@@ -137,9 +173,11 @@ class LLMEngine:
                     and config.num_scheduler_steps > 1
                 ),
                 # the chain commits round N+1 before round N's lane mix
-                # is known: no ragged rounds under async decode
+                # is known: no ragged rounds under async decode; nor
+                # under tensor parallelism, as in the JAX meshed engine
                 ragged_dispatch=(config.ragged_dispatch
-                                 and not self._async_decode),
+                                 and not self._async_decode
+                                 and not self._tp),
             ),
             self.block_manager,
         )
@@ -1186,6 +1224,8 @@ class LLMEngine:
         it), no guided lane (a staged round carries no DFA tables: guided
         lanes re-initialize their device states every round), and tables
         growable to cover this round and the next."""
+        if self._tp:
+            return False  # a staged buffer would live on rank 0 only
         if self.scheduler.waiting:
             return False  # admission will change the lane set
         if self._ragged_dispatch and any(
@@ -1939,8 +1979,8 @@ class LLMEngine:
         copy rides out the interleaved decode round instead of sitting
         before the next prefill dispatch; validated by fingerprint
         before use."""
-        if not self._prefill_pipeline:
-            return
+        if not self._prefill_pipeline or self._tp:
+            return  # under tp a stage would live on rank 0 only
         if self.scheduler.waiting:
             return  # the next group will include new admissions
         if self._ragged_dispatch and any(
@@ -2851,6 +2891,27 @@ class LLMEngine:
             self.offload.close()  # also closes the PD PeerTier
         if self.kv_reporter is not None:
             self.kv_reporter.close()
+        if self.tp_group is not None:
+            self._stop_ranks()
+
+    def _stop_ranks(self) -> None:
+        """Stop and join the followers of this engine's rank set."""
+        group, self.tp_group = self.tp_group, None
+        runner = getattr(self, "runner", None)
+        if isinstance(runner, BroadcastingRunner):
+            runner.shutdown_followers()
+        else:  # the runner never got built: nothing listens for a step
+            for p in group.followers:
+                p.terminate()
+                p.join(5)
+        group.close()
+
+    def tp_alive(self) -> bool:
+        """False once a tensor-parallel follower died or a broadcast
+        dispatch failed (always True without tensor parallelism)."""
+        if not isinstance(self.runner, BroadcastingRunner):
+            return True
+        return self.runner.alive()
 
     # -- embeddings (stateless one-shots, /v1/embeddings) -------------------
     def embed_one(

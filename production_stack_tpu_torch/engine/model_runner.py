@@ -110,7 +110,7 @@ from production_stack_tpu_torch.ops.attention import (
     paged_decode_attention_gather,
     paged_prefill_attention_gather,
 )
-from production_stack_tpu_torch.ops.layers import matmul_f32
+from production_stack_tpu_torch.parallel import sharding
 from production_stack_tpu_torch.utils import init_logger
 
 logger = init_logger(__name__)
@@ -229,12 +229,32 @@ class StagedBuffer:
 
 class ModelRunner:
     def __init__(self, config: EngineConfig, params: dict | None = None,
-                 eager: bool = False):
+                 eager: bool = False, group=None):
         """`eager`: run every dispatch eagerly, with no program variant
         and no CUDA graph (the control the compiled path is held to; not
-        a serving option)."""
+        a serving option).
+
+        `group` (parallel/group.TPGroup, the JAX runner's `mesh`): this
+        runner is one rank of a tensor-parallel set. It runs on the
+        group's device, holds its rank's shard of the params
+        (parallel/sharding.py) and its local KV cache (L, nkv/tp, slots,
+        d), runs the forward on the local config view with the group's
+        all-reduces, and attention through the *_tp wrappers. A TP runner
+        is eager: the gloo collectives cannot be captured in a CUDA
+        graph."""
         self.config = config
-        self.eager = bool(eager)
+        self.group = group
+        self.tp_size = group.world_size if group is not None else 1
+        if self.tp_size != config.tensor_parallel_size:
+            raise ValueError(
+                f"tensor_parallel_size={config.tensor_parallel_size} but "
+                f"the runner's group has {self.tp_size} ranks"
+            )
+        if group is not None and not eager:
+            logger.info("tensor-parallel rank %d/%d runs eagerly (no CUDA "
+                        "graphs under tensor parallelism)", group.rank,
+                        group.world_size)
+        self.eager = bool(eager) or group is not None
         # program variants by key (engine/programs.py), the graphs'
         # shared pool (made at the first capture), and the builds counted
         # per kind as the JAX runner's compile events
@@ -242,8 +262,16 @@ class ModelRunner:
         self._graph_pool = None
         self.compile_events: dict[str, int] = {}
         self.compile_events_total = 0
+        # the global config (sizing, the engine's vocab and lengths);
+        # local_config is one rank's view for the forward and the cache
         self.model_config: ModelConfig = config.model_config()
-        self.device = torch.device(config.device)
+        if group is not None:
+            sharding.validate_tp(self.model_config, self.tp_size)
+        self.local_config: ModelConfig = (
+            self.model_config.tp_local(self.tp_size) if group is not None
+            else self.model_config)
+        self.device = (group.device if group is not None
+                       else torch.device(config.device))
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "device='cuda' but no CUDA device is available; pass "
@@ -284,11 +312,19 @@ class ModelRunner:
                     f"heads per kv head) at block_size {self.block_size} "
                     f"cannot run on the card: {e}") from None
 
-        if params is None:
-            # a checkpoint that resolves loads (or raises); only a preset
-            # name, which resolves to none, draws random weights
+        shard = ((group.rank, self.tp_size) if group is not None
+                 else None)
+        if params is not None:
+            # the caller's full params: this rank's shard of them
+            if shard is not None:
+                params = sharding.shard_params(params, mc, *shard)
+            params = _to_device(params, self.device)
+        else:
+            # a checkpoint that resolves loads (or raises), sliced to the
+            # rank's shard as it is read; only a preset name, which
+            # resolves to none, draws random weights
             params = weights.maybe_load(config.model, mc, self.dtype,
-                                        self.device)
+                                        self.device, shard=shard)
         if params is None:
             logger.info(
                 "initializing random %s params (%.2fB params, %s, %s)",
@@ -296,16 +332,20 @@ class ModelRunner:
             )
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
-            params = llama.init_params(mc, gen, self.dtype, self.device)
-        else:
-            params = _to_device(params, self.device)
+            params = llama.init_params(mc, gen, self.dtype, self.device,
+                                       shard=shard)
         self.params = params
+        self._forward = (
+            functools.partial(llama.forward, tp_group=group)
+            if group is not None else llama.forward
+        )
 
         self.num_blocks = self._resolve_num_blocks()
         num_slots = self.num_blocks * self.block_size
-        # head-major (L, nkv, slots, d): the layout the kernels walk
-        cache_shape = (mc.num_layers, mc.num_kv_heads, num_slots,
-                       mc.head_dim)
+        # head-major (L, nkv, slots, d): the layout the kernels walk (a
+        # rank's kv heads under tensor parallelism)
+        cache_shape = sharding.local_cache_shape(mc, num_slots,
+                                                 self.tp_size)
         logger.info(
             "allocating KV cache: %d blocks x %d slots (%.2f GiB)",
             self.num_blocks, self.block_size,
@@ -324,6 +364,19 @@ class ModelRunner:
             {"prefill": paged_prefill_attention_gather,
              "decode": paged_decode_attention_gather}
         )
+        if impl == "pallas" and group is not None:
+            # the kernels on the rank's shard (the JAX runner's *_tp
+            # branch of _attn); the gather path sees local heads as is
+            tp_kw = dict(num_heads=mc.num_heads,
+                         num_kv_heads=mc.num_kv_heads, tp_size=self.tp_size)
+            self._attn_fns = {
+                "prefill": functools.partial(
+                    paged_attention.paged_prefill_attention_tp, **tp_kw),
+                "decode": functools.partial(
+                    paged_attention.paged_decode_attention_tp, **tp_kw),
+                "ragged": functools.partial(
+                    paged_attention.ragged_paged_attention_tp, **tp_kw),
+            }
         # pipelined prefill: one packed buffer a prefill dispatch (packed
         # groups on the ragged-rows layout under the ragged kernel)
         self.prefill_pipeline = bool(config.prefill_pipeline)
@@ -392,10 +445,12 @@ class ModelRunner:
         cfg, mc = self.config, self.model_config
         if cfg.num_kv_blocks is not None:
             return cfg.num_kv_blocks
+        # per-rank view: KV blocks and weights are both split ~1/tp
+        tp = self.tp_size
         bytes_per_block = (
             2 * mc.num_layers * cfg.block_size * mc.num_kv_heads
             * mc.head_dim * self.cache_dtype.itemsize
-        )
+        ) // tp
         if self.device.type == "cuda":
             # the params already sit on the card, so free memory excludes
             # them; keep (1 - utilization) of the card unclaimed, and
@@ -407,7 +462,7 @@ class ModelRunner:
                               GRAPH_POOL_ROWS * cfg.max_num_seqs
                               * mc.vocab_size * 4)
         else:
-            param_bytes = mc.num_params() * self.dtype.itemsize
+            param_bytes = mc.num_params() * self.dtype.itemsize // tp
             budget = int(16 * 2**30 * cfg.hbm_utilization) - param_bytes
         num = max(2, budget // bytes_per_block)
         # cap: no point holding more than max_model_len * max_num_seqs * 2
@@ -415,7 +470,13 @@ class ModelRunner:
             2 * (self.max_model_len // cfg.block_size + 1)
             * max(1, cfg.max_num_seqs)
         )
-        return int(min(num, max(cap, 2)))
+        num = int(min(num, max(cap, 2)))
+        if self.group is not None:
+            # rank 0's scheduler hands out block ids for every rank: the
+            # pool is the smallest any rank can hold (ranks sharing a card
+            # also see each other's allocations in mem_get_info)
+            num = self.group.agree_min(num)
+        return num
 
     # -- buckets ----------------------------------------------------------
     def _ctx_bucket(self, num_tokens: int) -> int:
@@ -730,20 +791,18 @@ class ModelRunner:
         last row's (V,) logits come out. Returns (last_logits (V,),
         chosen (t_pad,) f32, top_vals (t_pad, CAP) f32, top_ids (t_pad,
         CAP) int32)."""
-        mc = self.model_config
-        lm_head = (self.params["embed"].t() if mc.tie_word_embeddings
-                   else self.params["lm_head"])
+        lm = functools.partial(llama.lm_logits, self.local_config,
+                               self.params, tp_group=self.group)
         h = hidden.to(self.dtype)
         chosen, vals, ids = [], [], []
         for r0 in range(0, h.shape[0], PROMPT_LP_ROW_CHUNK):
             rows = slice(r0, r0 + PROMPT_LP_ROW_CHUNK)
             tg = targets[rows]
-            c, v, i = token_logprobs(matmul_f32(h[rows], lm_head),
-                                     tg.clamp_min(0))
+            c, v, i = token_logprobs(lm(h[rows]), tg.clamp_min(0))
             chosen.append(torch.where(tg >= 0, c, torch.zeros_like(c)))
             vals.append(v)
             ids.append(i)
-        last_logits = matmul_f32(h[last_row].reshape(1, -1), lm_head)[0]
+        last_logits = lm(h[last_row].reshape(1, -1))[0]
         return (last_logits, torch.cat(chosen), torch.cat(vals),
                 torch.cat(ids))
 
@@ -785,7 +844,7 @@ class ModelRunner:
         _lora_key, uniform or None for one sequence). `want_plp` scores
         every row against the pack's targets too: (token, logits, chosen
         (t_pad,), top_vals, top_ids (t_pad, LOGPROB_CAP))."""
-        mc = self.model_config
+        mc = self.local_config
         layout, _ = self._prefill_pack_layout(t_pad, c_pad, want_plp)
 
         def step(packed, start_pos):
@@ -795,7 +854,7 @@ class ModelRunner:
             def attn(q, l, kc, vc):
                 return self._attn("prefill", q, l, kc, vc, table, start_pos)
 
-            out, _, _ = llama.forward(
+            out, _, _ = self._forward(
                 mc, self.params, seg("tokens"), seg("positions"),
                 self.k_cache, self.v_cache, seg("write_slots"), attn,
                 logits_rows=(torch.arange(t_pad, device=packed.device)
@@ -824,7 +883,7 @@ class ModelRunner:
         """`step(packed, q_starts)` -> (sampled (s_pad,), logits (s_pad,
         vocab)): the (s_pad, t_pad) packed group on the composed prefill
         kernel, one launch a lane a layer (`lora`: its _lora_key)."""
-        mc = self.model_config
+        mc = self.local_config
         per_tok = isinstance(lora, tuple)
         layout, _ = self._packed_prefill_pack_layout(s_pad, t_pad, c_pad,
                                                      per_tok)
@@ -834,7 +893,7 @@ class ModelRunner:
             # padding lanes start at 0 over the null table
             starts = list(q_starts) + [0] * (s_pad - len(q_starts))
             attn = self._packed_attn(s_pad, t_pad, seg("tables"), starts)
-            logits, _, _ = llama.forward(
+            logits, _, _ = self._forward(
                 mc, self.params, seg("tokens"), seg("positions"),
                 self.k_cache, self.v_cache, seg("write_slots"), attn,
                 logits_rows=seg("last_rows"), **self._lora_kw(
@@ -1016,8 +1075,8 @@ class ModelRunner:
             return self._attn("prefill", q, l, kc, vc, table_d, start_pos)
 
         last_row = len(token_ids) - 1
-        out, _, _ = llama.forward(
-            self.model_config, self.params, tokens_d, pos_d, self.k_cache,
+        out, _, _ = self._forward(
+            self.local_config, self.params, tokens_d, pos_d, self.k_cache,
             self.v_cache, slots_d, attn,
             logits_rows=(torch.arange(t_pad, device=self.device)
                          if want_plp else
@@ -1084,7 +1143,7 @@ class ModelRunner:
         """Attention over s_pad back-to-back chunks on one flat token axis
         (row s*t_pad + r is row r of chunk s); `tables_d` on the device,
         `q_starts` each lane's start position on the host."""
-        mc = self.model_config
+        mc = self.local_config
         if self.ragged_kernel:
             # ONE ragged-kernel launch per layer: every block of t_pad
             # (pow2 >= RAGGED_TQ) belongs to exactly one lane, so each
@@ -1199,8 +1258,8 @@ class ModelRunner:
                 lora, tuple) else None)
         t2 = time.perf_counter()
         self._phase_add("h2d", t2 - t1)
-        logits, _, _ = llama.forward(
-            self.model_config, self.params, tokens_d, pos_d, self.k_cache,
+        logits, _, _ = self._forward(
+            self.local_config, self.params, tokens_d, pos_d, self.k_cache,
             self.v_cache, slots_d, attn, logits_rows=rows_d, **lora_kw,
         )
         sampled = self.sample(logits, temps, top_ps, top_ks, min_ps, keys)
@@ -1292,24 +1351,22 @@ class ModelRunner:
         seg = functools.partial(self._pack_seg, packed_dev, layout)
         attn = self._packed_attn(s_pad, t_pad, seg("tables"), q_starts)
         r = s_pad * t_pad
-        hidden, _, _ = llama.forward(
-            self.model_config, self.params, seg("tokens"),
+        hidden, _, _ = self._forward(
+            self.local_config, self.params, seg("tokens"),
             seg("positions"), self.k_cache, self.v_cache,
             seg("write_slots"), attn,
             logits_rows=torch.arange(r, device=self.device),
             return_hidden=True,
             **self._lora_kw(lora, seg("lora_rows") if per_tok else None),
         )
-        mc = self.model_config
-        lm_head = (self.params["embed"].t() if mc.tie_word_embeddings
-                   else self.params["lm_head"])
         h = hidden.to(self.dtype)
         f32 = {name: seg(name).view(torch.float32)
                for name in ("temps", "top_ps", "min_ps", "noise")}
         top_ks = seg("top_ks")
         sampled = torch.cat([
             sample_tokens(
-                matmul_f32(h[b], lm_head), f32["temps"][b],
+                llama.lm_logits(self.local_config, self.params, h[b],
+                                self.group), f32["temps"][b],
                 f32["top_ps"][b], top_ks[b], f32["noise"][b],
                 min_p=f32["min_ps"][b],
             )
@@ -1378,8 +1435,8 @@ class ModelRunner:
         def step(packed):
             seg = functools.partial(self._pack_seg, packed, layout)
             attn = self._decode_attn(b, seg("tables"), seg("ctx"))
-            logits, _, _ = llama.forward(
-                self.model_config, self.params, seg("tokens"),
+            logits, _, _ = self._forward(
+                self.local_config, self.params, seg("tokens"),
                 seg("positions"), self.k_cache, self.v_cache,
                 seg("write_slots"), attn, logits_rows=rows,
                 **self._lora_kw(lora,
@@ -1696,7 +1753,7 @@ class ModelRunner:
         each iteration's samples are copied out of its outputs. The one
         host read stays between iterations. Under `eager` the loop runs
         the same iteration on the round's own tensors."""
-        mc = self.model_config
+        mc = self.local_config
         bs = self.block_size
         n_pages = c_pad // bs
         use_stop = stop_cap is not None
@@ -1788,7 +1845,7 @@ class ModelRunner:
         def fwd(carry, consts):
             tokens, positions, write_slots, ctx = fwd_args(carry, consts)
             attn = self._decode_attn(b, consts["page_tables"], ctx)
-            logits, _, _ = llama.forward(
+            logits, _, _ = self._forward(
                 mc, self.params, tokens, positions, self.k_cache,
                 self.v_cache, write_slots, attn, logits_rows=lane,
                 **self._lora_kw(lora, consts.get("lora_slots")),
@@ -2211,7 +2268,7 @@ class ModelRunner:
         int32, logits (s_cap, vocab)); `step.unpack` is shared with the
         unified round (_build_ragged_rows). `lora`: the dispatch's
         _lora_key (a tuple: the pack carries per-row slots)."""
-        mc = self.model_config
+        mc = self.local_config
         per_tok = isinstance(lora, tuple)
         layout, _ = self._rows_prefill_pack_layout(r_pad, pc_pad, per_tok)
 
@@ -2242,7 +2299,7 @@ class ModelRunner:
                 return self._attn("ragged", q, l, kc, vc, pf["tables"],
                                   blk_seg, seg_meta)
 
-            logits, _, _ = llama.forward(
+            logits, _, _ = self._forward(
                 mc, self.params, pf["tokens"], pf["positions"],
                 self.k_cache, self.v_cache, pf["write_slots"], attn,
                 logits_rows=pf["last_rows"],
@@ -2372,7 +2429,7 @@ class ModelRunner:
         lanes): the step-0 forward takes it whole (per-token: the prefill
         rows' slots then the decode lanes'), the decode loop the decode
         lanes' share of it."""
-        mc = self.model_config
+        mc = self.local_config
         s_cap = self._rows_lane_cap()
         b_pad = _ceil_tq(b)
         per_tok = isinstance(lora, tuple)
@@ -2413,7 +2470,7 @@ class ModelRunner:
                                  seg_meta)
                 return out[:n_rows]
 
-            logits, _, _ = llama.forward(
+            logits, _, _ = self._forward(
                 mc, self.params, torch.cat([pf["tokens"], d_tokens]),
                 torch.cat([pf["positions"], d_positions]), self.k_cache,
                 self.v_cache, torch.cat([pf["write_slots"], d_ws]), attn,
@@ -2962,7 +3019,7 @@ class ModelRunner:
                 f"embedding input has {t} tokens, exceeds max_model_len="
                 f"{self.max_model_len}"
             )
-        mc = self.model_config
+        mc = self.local_config
         c_pad = self._ctx_bucket(t)
         chunk = self.config.max_prefill_chunk
         kc = torch.zeros(
@@ -2989,7 +3046,7 @@ class ModelRunner:
                     window=mc.sliding_window,
                 )
 
-            h, _, _ = llama.forward(
+            h, _, _ = self._forward(
                 mc, self.params, self._dev(toks), pos_d, kc, vc, pos_d,
                 attn, logits_rows=torch.arange(t_pad, device=self.device),
                 return_hidden=True, **lora_kw,

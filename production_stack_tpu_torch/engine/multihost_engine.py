@@ -1,0 +1,298 @@
+"""One engine over a tensor-parallel rank set: rank 0 broadcasts, the
+followers replay.
+
+Counterpart of ``production_stack_tpu/engine/multihost_engine.py``. The
+scheduler, HTTP server and sampler live on rank 0 only. Rank 0 wraps its
+ModelRunner in ``BroadcastingRunner``, which publishes each forward's
+kind and host arguments (parallel/multihost.StepBroadcaster) before it
+runs the forward itself; each follower runs ``follower_loop``, replaying
+the steps against its own runner, so every rank runs the same forwards,
+and so the same all-reduces, in the same order. Every host-side random
+input is among the arguments (sampling keys and the round noise they
+make, spec-decode seeds), so each rank samples the same tokens from the
+same gathered logits.
+
+Broadcast: ``prefill``, ``prefill_batch``, ``decode``, ``decode_multi``,
+``verify_batch`` and ``embed``. Guided lanes' DFA tables ride a
+``decode_multi`` only when the set of live constraints changes (the
+followers keep the last ones). Every other runner method that would run
+a forward or touch the device state the followers hold (the unified
+ragged round, the staged buffers, the precompile sweeps, KV export and
+import) raises under tensor parallelism instead of passing through, so
+a missed path fails loudly rather than leaving the ranks waiting on each
+other. The engine keeps those paths off (engine/llm_engine.py) and
+EngineConfig refuses the features that need them.
+
+A follower that raises publishes its traceback and launch counts under
+its own exit key and exits; rank 0's next collective then fails (the
+peer closed) or times out, and its dispatch raises naming the
+follower's error. After that the rank set is broken: every later
+dispatch raises, and the server's /health fails.
+"""
+
+from __future__ import annotations
+
+import multiprocessing
+import pickle
+import time
+
+import torch
+
+from production_stack_tpu_torch.ops import paged_attention
+from production_stack_tpu_torch.parallel.multihost import StepBroadcaster
+from production_stack_tpu_torch.utils import init_logger
+
+logger = init_logger(__name__)
+
+# runner methods that run a forward: published, then run on rank 0
+BROADCAST = ("prefill", "prefill_batch", "decode", "decode_multi",
+             "verify_batch", "embed")
+# runner methods whose device work the followers would never see
+UNBROADCAST = frozenset({
+    "ragged_dispatch", "stage_prefill", "stage_prefill_batch",
+    "stage_decode_multi", "stage_ragged", "precompile_prefill",
+    "precompile_decode", "precompile_verify", "precompile_ragged",
+    "precompile_kv_import", "stage_export_blocks", "materialize_export",
+    "export_blocks", "stage_import_blocks", "import_staged_blocks",
+    "import_blocks",
+})
+
+
+# rank 0 waits this long for the followers to build their runners, and
+# this long for each to exit at shutdown
+BOOT_TIMEOUT_S = 600.0
+EXIT_TIMEOUT_S = 30.0
+
+
+def ready_key(rank: int) -> str:
+    return f"pst/rank/{rank}/ready"
+
+
+def exit_key(rank: int) -> str:
+    return f"pst/rank/{rank}/exit"
+
+
+def report_key(rank: int, n: int) -> str:
+    return f"pst/rank/{rank}/report/{n}"
+
+
+def rank_report(runner, group) -> dict:
+    """What a rank ran: its kernel launches and dispatches, its device,
+    the devices its params and KV cache lie on, and its collectives
+    (host_collectives: those handed a host tensor on a card rank)."""
+    devs = {str(t.device) for t in _leaves(runner.params)}
+    devs |= {str(runner.k_cache.device), str(runner.v_cache.device)}
+    return {
+        "rank": group.rank,
+        "launches": paged_attention.launch_counts(),
+        "dispatch_counts": dict(runner.dispatch_counts),
+        "device": str(runner.device),
+        "tensor_devices": sorted(devs),
+        "all_reduces": group.all_reduces,
+        "host_collectives": group.host_collectives,
+    }
+
+
+def _leaves(tree: dict):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+class BroadcastingRunner:
+    """Rank 0's ModelRunner proxy: publish each forward, then run it.
+
+    The forward methods are intercepted; the methods in UNBROADCAST
+    raise; every other attribute (model_config, num_blocks,
+    dispatch_counts, sample, ...) is the wrapped runner's."""
+
+    def __init__(self, runner, group):
+        self._runner = runner
+        self._group = group
+        self._bc = StepBroadcaster(group.store)
+        self._guided_sent = None
+        self._reports = 0
+        self._failed: str | None = None
+
+    def __getattr__(self, name):
+        if name in UNBROADCAST:
+            raise RuntimeError(
+                f"ModelRunner.{name} is not broadcast to the "
+                "tensor-parallel ranks: under tensor_parallel_size>1 the "
+                "engine must not reach it"
+            )
+        return getattr(self._runner, name)
+
+    # -- rank set --------------------------------------------------------
+    # stackcheck: not-hot — boot: blocks until every follower built its
+    # runner
+    def wait_ready(self) -> None:
+        """Block until every follower has built its runner (or raise with
+        the error of one that died on the way)."""
+        t0 = time.monotonic()
+        for r in range(1, self._group.world_size):
+            while not self._group.store.check([ready_key(r)]):
+                err = self.follower_error()
+                if err is not None:
+                    raise RuntimeError(
+                        f"tensor-parallel rank failed at boot: {err}")
+                if time.monotonic() - t0 > BOOT_TIMEOUT_S:
+                    raise TimeoutError(
+                        f"tensor-parallel rank {r} not ready after "
+                        f"{BOOT_TIMEOUT_S} s")
+                time.sleep(0.05)
+
+    def follower_error(self) -> str | None:
+        """The first follower's published error (or its exit without
+        one), else None."""
+        store = self._group.store
+        for r in range(1, self._group.world_size):
+            if store.check([exit_key(r)]):
+                out = pickle.loads(store.get(exit_key(r)))
+                if out["error"] is not None:
+                    return f"rank {r}: {out['error']}"
+                return f"rank {r} exited"
+        for r, proc in enumerate(self._group.followers, 1):
+            if proc.exitcode is not None:
+                return f"rank {r} exited with code {proc.exitcode}"
+        return None
+
+    def alive(self) -> bool:
+        """True while no dispatch failed and every follower runs."""
+        return self._failed is None and all(
+            p.is_alive() for p in self._group.followers)
+
+    # stackcheck: not-hot — a debug read of every rank's counts (one store
+    # round trip a follower)
+    def reports(self) -> list[dict]:
+        """Every rank's rank_report, rank 0 first (followers answer in
+        step order, after every step published before)."""
+        n = self._reports
+        self._reports += 1
+        self._bc.publish({"kind": "report", "n": n})
+        out = [rank_report(self._runner, self._group)]
+        for r in range(1, self._group.world_size):
+            self._group.store.wait([report_key(r, n)])
+            out.append(pickle.loads(self._group.store.get(report_key(r, n))))
+        return out
+
+    def reset_counts(self) -> None:
+        """Zero the kernel launch counts on every rank."""
+        self._bc.publish({"kind": "reset_counts"})
+        paged_attention.reset_launch_counts()
+
+    def shutdown_followers(self) -> None:
+        """Tell the followers to exit and join them (terminating any
+        that does not exit in time)."""
+        followers = self._group.followers
+        if any(p.is_alive() for p in followers):
+            self._bc.publish({"kind": "shutdown"})
+        for p in followers:
+            p.join(EXIT_TIMEOUT_S)
+            if p.is_alive():
+                logger.error("tensor-parallel follower %d did not exit; "
+                             "terminating it", p.pid)
+                p.terminate()
+                p.join(5)
+
+    # -- the broadcast dispatches ----------------------------------------
+    # stackcheck: hot-path — every TP forward: one store write, then the
+    # rank's own forward
+    def _dispatch(self, kind: str, args: tuple, kwargs: dict):
+        if self._failed is not None:
+            raise RuntimeError(self._failed)
+        if any(isinstance(a, torch.Tensor) for a in args) or any(
+                isinstance(v, torch.Tensor) for v in kwargs.values()):
+            raise RuntimeError(
+                f"{kind}: a device tensor cannot be broadcast (chained "
+                "rounds are off under tensor_parallel_size>1)")
+        if kwargs.get("staged") is not None:
+            raise RuntimeError(f"{kind}: staged buffers are off under "
+                               "tensor_parallel_size>1")
+        wire = kwargs
+        guided = kwargs.get("guided")
+        if guided is not None:
+            # the (M, V) tables ride only when the constraint set changes
+            if self._guided_sent == guided[0]:
+                wire = {**kwargs, "guided": (*guided[:3], None, None, None)}
+            self._guided_sent = guided[0]
+        self._bc.publish({"kind": kind, "args": args, "kwargs": wire})
+        try:
+            return getattr(self._runner, kind)(*args, **kwargs)
+        except Exception as e:
+            err = self.follower_error()
+            self._failed = (f"tensor-parallel rank set failed at {kind}: "
+                            f"{err or repr(e)}")
+            if err is None:
+                raise
+            raise RuntimeError(self._failed) from e
+
+    def prefill(self, *args, **kwargs):
+        return self._dispatch("prefill", args, kwargs)
+
+    def prefill_batch(self, *args, **kwargs):
+        return self._dispatch("prefill_batch", args, kwargs)
+
+    def decode(self, *args, **kwargs):
+        return self._dispatch("decode", args, kwargs)
+
+    def decode_multi(self, *args, **kwargs):
+        return self._dispatch("decode_multi", args, kwargs)
+
+    def verify_batch(self, *args, **kwargs):
+        return self._dispatch("verify_batch", args, kwargs)
+
+    def embed(self, token_ids, lora_slot: int = 0):
+        if len(token_ids) > self._runner.max_model_len:
+            # refused here, before the broadcast: on every rank the
+            # runner's own refusal would take the followers down with it
+            raise ValueError(
+                f"embedding input has {len(token_ids)} tokens, exceeds "
+                f"max_model_len={self._runner.max_model_len}"
+            )
+        return self._dispatch("embed", (token_ids,),
+                              {"lora_slot": lora_slot})
+
+
+# stackcheck: not-hot — a follower's own loop (no serving thread)
+def follower_loop(runner, group) -> None:
+    """Followers: replay rank 0's steps until it says shutdown (or is
+    gone)."""
+    bc = StepBroadcaster(group.store)
+    parent = multiprocessing.parent_process()
+    alive = parent.is_alive if parent is not None else None
+    guided_tables = None
+    logger.info("tensor-parallel rank %d/%d: replaying rank 0's steps",
+                group.rank, group.world_size)
+    with runner.on_compute_stream():
+        while True:
+            msg = bc.next(alive=alive)
+            kind = msg["kind"]
+            if kind == "shutdown":
+                logger.info("rank %d: shutdown received", group.rank)
+                return
+            if kind == "report":
+                group.store.set(report_key(group.rank, msg["n"]),
+                                pickle.dumps(rank_report(runner, group)))
+                continue
+            if kind == "reset_counts":
+                paged_attention.reset_launch_counts()
+                continue
+            if kind not in BROADCAST:
+                # a future step kind fails loudly, never desyncs
+                raise RuntimeError(
+                    f"unknown tensor-parallel step kind {kind!r}")
+            kwargs = msg["kwargs"]
+            guided = kwargs.get("guided")
+            if guided is not None:
+                if guided[3] is not None:
+                    guided_tables = (guided[0], guided[3:])
+                elif guided_tables is None or guided_tables[0] != guided[0]:
+                    raise RuntimeError(
+                        "a guided step referenced DFA tables this rank "
+                        "never received")
+                kwargs = {**kwargs,
+                          "guided": (*guided[:3], *guided_tables[1])}
+            getattr(runner, kind)(*msg["args"], **kwargs)

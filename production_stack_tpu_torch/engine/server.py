@@ -31,7 +31,11 @@ timeline. A prefill (or both-role) engine with
 ``kv_transfer_config["listen"]`` also serves its KV block chains to
 decode peers (kv/transfer.py), and a watched stats task feeds the KV and
 lane-mix histograms. ``precompile_serving`` runs every serving program
-once at construction, before the server listens. The Prometheus text is written by hand and
+once at construction, before the server listens. Under
+``tensor_parallel_size`` N > 1 the server, scheduler and metrics live on
+rank 0 (this process; the engine starts ranks 1..N-1), a watched task
+logs a follower's death, ``/health`` answers 503 from then on, and
+``stop`` stops the followers. The Prometheus text is written by hand and
 HTTP/1.1 is parsed by hand (``asyncio.start_server``): the port needs
 neither aiohttp nor prometheus_client. One request per connection
 (``Connection: close``); streamed bodies are server-sent events ended by
@@ -81,6 +85,8 @@ _REASONS = {
 }
 MAX_BODY_BYTES = 64 * 2**20
 STATS_UPDATE_INTERVAL_S = 1.0
+# how often the tensor-parallel follower watch looks at the rank set
+TP_WATCH_INTERVAL_S = 1.0
 # paths behind --api-key besides /v1/* (the JAX server's list)
 _AUTH_PATHS = ("/tokenize", "/detokenize", "/sleep", "/wake_up", "/rerank",
                "/score")
@@ -126,6 +132,7 @@ class EngineServer:
         self._server: asyncio.AbstractServer | None = None
         self._stats_task: asyncio.Task | None = None
         self._trace_flush_task: asyncio.Task | None = None
+        self._tp_watch_task: asyncio.Task | None = None
         self._kv_transfer_server = None
         self._routes = {
             ("GET", "/health"): self.handle_health,
@@ -157,6 +164,9 @@ class EngineServer:
         """Start the step loop and listen; returns the bound port."""
         self.engine.start(asyncio.get_running_loop())
         self._stats_task = spawn_watched(self._stats_loop(), "engine-stats")
+        if self.config.tensor_parallel_size > 1:
+            self._tp_watch_task = spawn_watched(self._tp_watch_loop(),
+                                                "tp-follower-watch")
         if self.engine.tracer.exporter == "otlp":
             self._trace_flush_task = spawn_watched(
                 otlp_flush_loop(self.engine.tracer), "engine-trace-flush")
@@ -182,6 +192,9 @@ class EngineServer:
         if self._stats_task is not None:
             self._stats_task.cancel()
             self._stats_task = None
+        if self._tp_watch_task is not None:
+            self._tp_watch_task.cancel()
+            self._tp_watch_task = None
         if self._trace_flush_task is not None:
             self._trace_flush_task.cancel()
             self._trace_flush_task = None
@@ -212,6 +225,15 @@ class EngineServer:
         while True:
             self._drain_observations()
             await asyncio.sleep(STATS_UPDATE_INTERVAL_S)
+
+    async def _tp_watch_loop(self) -> None:
+        """Log once when the tensor-parallel rank set fails (a follower
+        died, or a broadcast dispatch raised); /health reads the same
+        state on every probe."""
+        while self.engine.engine.tp_alive():
+            await asyncio.sleep(TP_WATCH_INTERVAL_S)
+        logger.error("tensor-parallel rank set failed: /health now "
+                     "answers 503")
 
     def run(self, host: str = "0.0.0.0", port: int = 8000) -> None:
         async def main():
@@ -282,6 +304,11 @@ class EngineServer:
 
     # -- endpoints ---------------------------------------------------------
     async def handle_health(self, req, writer) -> None:
+        if not self.engine.engine.tp_alive():
+            await _send_json(writer, 503, {
+                "status": "unhealthy",
+                "reason": "a tensor-parallel rank failed"})
+            return
         await _send_json(writer, 200, {"status": "healthy"})
 
     async def handle_version(self, req, writer) -> None:

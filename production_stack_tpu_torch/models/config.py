@@ -82,6 +82,20 @@ class ModelConfig:
         embed = v * h * (1 if self.tie_word_embeddings else 2)
         return self.num_layers * per_layer + embed + h
 
+    def tp_local(self, tp: int) -> "ModelConfig":
+        """One tensor-parallel rank's view, for the forward's reshapes and
+        the local KV cache: num_heads, num_kv_heads and intermediate_size
+        divided by tp (parallel/sharding.validate_tp checks they divide).
+        The vocab stays whole: a vocab-sharded lm_head's logits are
+        gathered. tp=1 is the config itself."""
+        if tp == 1:
+            return self
+        return dataclasses.replace(
+            self, num_heads=self.num_heads // tp,
+            num_kv_heads=self.num_kv_heads // tp,
+            intermediate_size=self.intermediate_size // tp,
+        )
+
 
 # -- Presets ---------------------------------------------------------------
 # Architecture hyper-parameters are public knowledge (HF config.json files).

@@ -4,13 +4,18 @@ The JAX package's params are a nested dict of arrays (layer weights
 stacked on axis 0, projection weights ``(in, out)``); the port uses the
 same layout, so conversion is leaf by leaf. Callers hand over numpy
 arrays (``np.asarray`` of each JAX leaf), which keeps the port free of
-any JAX import.
+any JAX import. ``tp_params_from_numpy`` carries a full tree across to
+one tensor-parallel rank: converted, then sharded
+(parallel/sharding.shard_params).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from production_stack_tpu_torch.models.config import ModelConfig
+from production_stack_tpu_torch.parallel.sharding import shard_params
 
 
 def _leaf(x, device, dtype):
@@ -35,3 +40,13 @@ def params_from_numpy(tree: dict, device: str | torch.device = "cuda",
             else _leaf(v, device, dtype))
         for k, v in tree.items()
     }
+
+
+def tp_params_from_numpy(tree: dict, cfg: ModelConfig, rank: int, tp: int,
+                         device: str | torch.device = "cuda",
+                         dtype: torch.dtype | None = None) -> dict:
+    """Rank `rank`'s shard at tensor_parallel_size `tp` of the full tree
+    (the slices the JAX package's ``addressable_shards[rank]`` hold on a
+    tp mesh)."""
+    return shard_params(params_from_numpy(tree, device, dtype), cfg, rank,
+                        tp)

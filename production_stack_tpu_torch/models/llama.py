@@ -12,6 +12,13 @@ the new rows are written INTO the cache tensors in place (JAX's donated
 scatter): the caller's caches are updated, and the same tensors are
 returned for symmetry with the JAX signature.
 
+Tensor parallelism (``tp_group``, parallel/group.TPGroup): the params are
+one rank's shard (parallel/sharding.py) and ``cfg`` its local view
+(``ModelConfig.tp_local``); the f32 partials of ``wo`` and ``w_down``
+are all-reduced before their cast, where the JAX package's GSPMD psum
+sits on the f32 dot, and an untied lm_head's vocab slices are gathered.
+With ``tp_group=None`` nothing of that runs.
+
 Multi-LoRA (engine/lora.py's stacked slots) adds scaling * (x @ A) @ B
 to the wq/wk/wv/wo projections, in plain PyTorch as the JAX package
 computes it in XLA. A MoE model (Mixtral) runs ops/moe.py's block in
@@ -33,6 +40,7 @@ from production_stack_tpu_torch.ops.layers import (
     swiglu,
 )
 from production_stack_tpu_torch.ops.moe import moe_block
+from production_stack_tpu_torch.parallel import sharding
 
 # attn_fn(q_rope, layer_idx, k_cache, v_cache) -> attn_out
 AttnFn = Callable[[torch.Tensor, int, torch.Tensor, torch.Tensor],
@@ -44,55 +52,74 @@ def init_params(
     generator: torch.Generator,
     dtype: torch.dtype = torch.bfloat16,
     device: str | torch.device = "cuda",
+    shard: tuple[int, int] | None = None,
 ) -> dict:
     """Random-init parameters (scaled normal), layer weights stacked on
     axis 0. `generator` must live on `device`; weights are drawn there in
     float32 one tensor at a time and cast to `dtype`. A MoE model
     (Mixtral) has a router moe_gate (L, h, E) and stacked experts w_gate /
-    w_up (L, E, h, f), w_down (L, E, f, h) in place of the dense MLP."""
+    w_up (L, E, h, f), w_down (L, E, f, h) in place of the dense MLP.
+
+    `shard` = (rank, tp): every tensor is still drawn whole, in the same
+    order from the same generator, and only the rank's slice of a split
+    leaf (parallel/sharding.py) is kept, so a tp=N model is the tp=1
+    model of the same seed, cut."""
     h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     L = cfg.num_layers
+    rank, tp = shard if shard is not None else (0, 1)
 
-    def w(shape, fan_in):
+    def keep(path, x):
+        axis = sharding.split_axis(path, cfg)
+        if axis is None or tp == 1:
+            return x
+        return sharding.shard(x, axis, rank, tp).contiguous()
+
+    def w(path, shape, fan_in):
         x = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=device)
-        return (x * fan_in**-0.5).to(dtype)
+        return keep(path, (x * fan_in**-0.5).to(dtype))
 
     def ones(shape):
         return torch.ones(shape, dtype=dtype, device=device)
 
-    def zeros(shape):
-        return torch.zeros(shape, dtype=dtype, device=device)
+    def zeros(path, shape):
+        return keep(path, torch.zeros(shape, dtype=dtype, device=device))
+
+    def lw(name, shape, fan_in):
+        return w(("layers", name), shape, fan_in)
 
     layers = {
         "attn_norm": ones((L, h)),
         "mlp_norm": ones((L, h)),
-        "wq": w((L, h, cfg.q_size), h),
-        "wk": w((L, h, cfg.kv_size), h),
-        "wv": w((L, h, cfg.kv_size), h),
-        "wo": w((L, cfg.q_size, h), cfg.q_size),
+        "wq": lw("wq", (L, h, cfg.q_size), h),
+        "wk": lw("wk", (L, h, cfg.kv_size), h),
+        "wv": lw("wv", (L, h, cfg.kv_size), h),
+        "wo": lw("wo", (L, cfg.q_size, h), cfg.q_size),
     }
     if cfg.is_moe:
+        if tp > 1:
+            raise NotImplementedError(
+                "tensor parallelism over MoE experts is not ported")
         E = cfg.num_experts
-        layers["moe_gate"] = w((L, h, E), h)
-        layers["w_gate"] = w((L, E, h, i), h)
-        layers["w_up"] = w((L, E, h, i), h)
-        layers["w_down"] = w((L, E, i, h), i)
+        layers["moe_gate"] = lw("moe_gate", (L, h, E), h)
+        layers["w_gate"] = lw("w_gate", (L, E, h, i), h)
+        layers["w_up"] = lw("w_up", (L, E, h, i), h)
+        layers["w_down"] = lw("w_down", (L, E, i, h), i)
     else:
-        layers["w_gate"] = w((L, h, i), h)
-        layers["w_up"] = w((L, h, i), h)
-        layers["w_down"] = w((L, i, h), i)
+        layers["w_gate"] = lw("w_gate", (L, h, i), h)
+        layers["w_up"] = lw("w_up", (L, h, i), h)
+        layers["w_down"] = lw("w_down", (L, i, h), i)
     if cfg.qkv_bias:
-        layers["bq"] = zeros((L, cfg.q_size))
-        layers["bk"] = zeros((L, cfg.kv_size))
-        layers["bv"] = zeros((L, cfg.kv_size))
+        layers["bq"] = zeros(("layers", "bq"), (L, cfg.q_size))
+        layers["bk"] = zeros(("layers", "bk"), (L, cfg.kv_size))
+        layers["bv"] = zeros(("layers", "bv"), (L, cfg.kv_size))
     params = {
-        "embed": w((v, h), h),
+        "embed": w(("embed",), (v, h), h),
         "layers": layers,
         "final_norm": ones((h,)),
     }
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = w((h, v), h)
+        params["lm_head"] = w(("lm_head",), (h, v), h)
     return params
 
 
@@ -111,6 +138,7 @@ def decoder_layer(
     dtype: torch.dtype,
     cache_dtype: torch.dtype,
     lora_ctx: tuple | None = None,  # (lz, slot | weights (n, S))
+    reduce=None,                # TP: in-place all-reduce of f32 partials
 ):
     """One decoder layer over n token rows. Writes the rows' K/V into the
     cache at `write_slots` (in place) BEFORE attn_fn runs, so attention
@@ -148,8 +176,10 @@ def decoder_layer(
     vc[l][:, write_slots] = v.to(cache_dtype).transpose(0, 1)
 
     attn_out = attn_fn(q, l, kc, vc)  # (n, nq, d)
-    h = h + proj(attn_out.reshape(n, cfg.q_size).to(dtype), "wo",
-                 None).to(dtype)
+    o = proj(attn_out.reshape(n, cfg.q_size).to(dtype), "wo", None)
+    if reduce is not None:
+        o = reduce(o)
+    h = h + o.to(dtype)
 
     x = rms_norm(h, lp["mlp_norm"], cfg.rms_norm_eps,
                  cfg.norm_weight_offset)
@@ -160,7 +190,7 @@ def decoder_layer(
         ).to(dtype)
     else:
         h = h + swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"],
-                       act=cfg.hidden_act)
+                       act=cfg.hidden_act, reduce=reduce)
     return h, kc, vc
 
 
@@ -177,6 +207,7 @@ def forward(
     lora: dict | None = None,  # LoraManager.buffers
     lora_slots: torch.Tensor | int | None = None,  # (n,) or one slot
     return_hidden: bool = False,
+    tp_group=None,  # parallel/group.TPGroup: params are its rank's shard
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run the decoder over n tokens; returns (logits[r, V] f32, k_cache,
     v_cache). The new tokens' K/V are written into the caches in place
@@ -212,6 +243,7 @@ def forward(
             lora = {k: v.permute(0, 2, 1, 3).flatten(2)
                     if k.endswith("_A") else v for k, v in lora.items()}
 
+    reduce = tp_group.all_reduce if tp_group is not None else None
     layers = params["layers"]
     for l in range(cfg.num_layers):
         lp = {name: w[l] for name, w in layers.items()}
@@ -223,6 +255,7 @@ def forward(
             cfg, h, k_cache, v_cache, lp, l,
             cos=cos, sin=sin, write_slots=write_slots, attn_fn=attn_fn,
             dtype=dtype, cache_dtype=cache_dtype, lora_ctx=lora_ctx,
+            reduce=reduce,
         )
 
     h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps,
@@ -230,10 +263,20 @@ def forward(
     h_sel = h[logits_rows.long()]  # (r, hidden)
     if return_hidden:
         return h_sel.float(), k_cache, v_cache
-    lm_head = (
-        params["embed"].t() if cfg.tie_word_embeddings else params["lm_head"]
-    )
-    return matmul_f32(h_sel, lm_head), k_cache, v_cache
+    return lm_logits(cfg, params, h_sel, tp_group), k_cache, v_cache
+
+
+def lm_logits(cfg: ModelConfig, params: dict, h: torch.Tensor,
+              tp_group=None) -> torch.Tensor:
+    """(r, V) f32 logits of final hidden rows `h`: the tied embedding or
+    the lm_head; under tensor parallelism an untied lm_head is the
+    rank's vocab slice, and the slices are gathered on every rank."""
+    if cfg.tie_word_embeddings:
+        return matmul_f32(h, params["embed"].t())
+    logits = matmul_f32(h, params["lm_head"])
+    if tp_group is not None:
+        logits = tp_group.gather_last(logits)
+    return logits
 
 
 def lora_row_weights(scaling: torch.Tensor,

@@ -14,6 +14,11 @@ card). Nothing is widened to float32 on the host, and the shards are
 mapped (models/safetensors_io.py), so host memory holds the checkpoint
 once, in the page cache.
 
+Tensor parallelism (``shard=(rank, tp)``): each rank allocates its own
+shard's shapes (parallel/sharding.py) and slices every split tensor as
+the mmap reader hands it over, in the checkpoint's own layout, before it
+reaches the card: no rank holds the full weights there.
+
 Zero-egress: only local paths (a model directory, or an HF id already
 present in the local HF cache) are accepted.
 """
@@ -27,6 +32,7 @@ import torch
 
 from production_stack_tpu_torch.models import safetensors_io
 from production_stack_tpu_torch.models.config import ModelConfig
+from production_stack_tpu_torch.parallel import sharding
 from production_stack_tpu_torch.utils.log import init_logger
 
 logger = init_logger(__name__)
@@ -83,11 +89,17 @@ def _iter_tensors(model_dir: str):
 
 
 def _put(dst: torch.Tensor, src: torch.Tensor, name: str,
-         transpose: bool = False) -> None:
+         transpose: bool = False, part: tuple | None = None) -> None:
     """Copy checkpoint tensor `src` (its own dtype, on the CPU) into
     `dst` (a slice of a stacked weight), transposed and cast on the way.
-    Shapes must match exactly: a broadcasting copy would hide a wrong
-    tensor."""
+    `part` = (axis, rank, tp): first take the rank's slice of `src` on
+    `axis` of `dst`'s layout (on the host, before any upload). Shapes
+    must match exactly: a broadcasting copy would hide a wrong tensor."""
+    if part is not None:
+        axis, rank, tp = part
+        if transpose:  # dst is src's transpose: the other axis
+            axis = 1 - axis % 2
+        src = sharding.shard(src, axis, rank, tp)
     want = tuple(dst.shape[::-1]) if transpose else tuple(dst.shape)
     if tuple(src.shape) != want:
         raise ValueError(
@@ -100,12 +112,30 @@ def _put(dst: torch.Tensor, src: torch.Tensor, name: str,
 
 def load_hf_weights(
     cfg: ModelConfig, model_dir: str, dtype: torch.dtype = torch.bfloat16,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cpu", shard: tuple[int, int] | None = None,
 ) -> dict:
     """Read an HF Llama/Mistral/Qwen2/Phi-3/Gemma/Mixtral checkpoint into
-    the port's param tree on `device`, in `dtype`."""
+    the port's param tree on `device`, in `dtype`; with `shard` = (rank,
+    tp), the rank's tensor-parallel shard of it."""
     t0 = time.perf_counter()
+    rank, tp = shard if shard is not None else (0, 1)
+    if tp > 1:
+        sharding.validate_tp(cfg, tp)
+        if cfg.is_moe:
+            raise NotImplementedError(
+                "tensor parallelism over MoE experts is not ported")
+    full_cfg = cfg
+    if tp > 1:
+        cfg = cfg.tp_local(tp)
     L, h = cfg.num_layers, cfg.hidden_size
+
+    def part(path: tuple, per_layer: bool = True):
+        """The (axis, rank, tp) of leaf `path` in a per-layer (or, with
+        per_layer False, whole) tensor's layout, or None."""
+        axis = sharding.split_axis(path, full_cfg)
+        if axis is None or tp == 1:
+            return None
+        return (axis - 1 if per_layer and axis > 0 else axis, rank, tp)
 
     def alloc(shape):
         # zeros, as the JAX loader: a slot no tensor filled reads 0
@@ -165,8 +195,11 @@ def load_hf_weights(
             n_loaded += 1
             continue
         if name == "lm_head.weight":
-            top["lm_head"] = alloc((h, cfg.vocab_size))
-            _put(top["lm_head"], tensor, name, transpose=True)
+            lm_axis = part(("lm_head",), per_layer=False)
+            top["lm_head"] = alloc(
+                (h, cfg.vocab_size // (tp if lm_axis else 1)))
+            _put(top["lm_head"], tensor, name, transpose=True,
+                 part=lm_axis)
             n_loaded += 1
             continue
         if not key.startswith("layers."):
@@ -196,16 +229,20 @@ def load_hf_weights(
         # split the rows back out to the Llama-layout params
         if suffix == "self_attn.qkv_proj.weight":
             q, k, v = torch.split(
-                tensor, [cfg.q_size, cfg.kv_size, cfg.kv_size], dim=0)
-            _put(layers["wq"][i], q, name, transpose=True)
-            _put(layers["wk"][i], k, name, transpose=True)
-            _put(layers["wv"][i], v, name, transpose=True)
+                tensor,
+                [full_cfg.q_size, full_cfg.kv_size, full_cfg.kv_size], dim=0)
+            for ours, t in (("wq", q), ("wk", k), ("wv", v)):
+                _put(layers[ours][i], t, name, transpose=True,
+                     part=part(("layers", ours)))
             n_loaded += 3
             continue
         if suffix == "mlp.gate_up_proj.weight":
-            gate, up = torch.split(tensor, [i_sz, i_sz], dim=0)
-            _put(layers["w_gate"][i], gate, name, transpose=True)
-            _put(layers["w_up"][i], up, name, transpose=True)
+            full_i = full_cfg.intermediate_size
+            gate, up = torch.split(tensor, [full_i, full_i], dim=0)
+            _put(layers["w_gate"][i], gate, name, transpose=True,
+                 part=part(("layers", "w_gate")))
+            _put(layers["w_up"][i], up, name, transpose=True,
+                 part=part(("layers", "w_up")))
             n_loaded += 2
             continue
         mapping = per_layer.get(suffix)
@@ -214,7 +251,8 @@ def load_hf_weights(
         ours, transpose = mapping
         if ours not in layers:
             continue  # bias tensors on a model without qkv_bias
-        _put(layers[ours][i], tensor, name, transpose=transpose)
+        _put(layers[ours][i], tensor, name, transpose=transpose,
+             part=part(("layers", ours)))
         n_loaded += 1
 
     if "embed" not in top:
@@ -246,7 +284,8 @@ def load_hf_weights(
             params["lm_head"] = top["lm_head"]
         else:
             logger.warning("no lm_head in checkpoint; tying to embeddings")
-            params["lm_head"] = params["embed"].t()
+            params["lm_head"] = sharding.shard(
+                params["embed"].t(), sharding.LM_HEAD_SPLIT_AXIS, rank, tp)
     logger.info(
         "loaded %d tensors from %s (%s, %s on %s) in %.2fs", n_loaded,
         model_dir, cfg.name, dtype, device, time.perf_counter() - t0,
@@ -256,7 +295,8 @@ def load_hf_weights(
 
 def maybe_load(model: str, cfg: ModelConfig,
                dtype: torch.dtype = torch.bfloat16,
-               device: str | torch.device = "cpu") -> dict | None:
+               device: str | torch.device = "cpu",
+               shard: tuple[int, int] | None = None) -> dict | None:
     """Load weights if `model` resolves to a local checkpoint, else None
     (the runner draws random weights for preset names).
 
@@ -266,4 +306,4 @@ def maybe_load(model: str, cfg: ModelConfig,
     d = resolve_model_dir(model)
     if d is None:
         return None
-    return load_hf_weights(cfg, d, dtype, device)
+    return load_hf_weights(cfg, d, dtype, device, shard=shard)

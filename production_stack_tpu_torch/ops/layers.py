@@ -79,15 +79,21 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor, act: str = "silu") -> torch.Tensor:
+           w_down: torch.Tensor, act: str = "silu",
+           reduce=None) -> torch.Tensor:
     """Gated MLP: (act(x @ w_gate) * (x @ w_up)) @ w_down.
 
     act: "silu" (Llama/Mistral/Qwen SwiGLU) or "gelu_tanh" (Gemma
-    GeGLU)."""
+    GeGLU). `reduce` (tensor parallelism: the group's all-reduce) sums
+    the ranks' f32 partial down-projections before the cast, where the
+    JAX package's psum sits on the f32 dot."""
     pre = matmul_f32(x, w_gate)
     if act == "gelu_tanh":
         gate = F.gelu(pre, approximate="tanh")
     else:
         gate = F.silu(pre)
     up = matmul_f32(x, w_up)
-    return matmul_f32((gate * up).to(x.dtype), w_down).to(x.dtype)
+    out = matmul_f32((gate * up).to(x.dtype), w_down)
+    if reduce is not None:
+        out = reduce(out)
+    return out.to(x.dtype)

@@ -434,6 +434,8 @@ _ARGTYPES = {
 _FNS: dict = {}
 
 
+# stackcheck: not-hot — the library is built and loaded once a process,
+# at the first launch (a rank set's rank 0 builds it before it spawns)
 def _kernel(entry: str):
     """The C entry point, the kernel library built and loaded on first
     use."""
@@ -508,6 +510,8 @@ def ragged_paged_attention(q, k_cache, v_cache, layer, block_tables,
         *ptrs, out.data_ptr(), block_tables.data_ptr(), blk_seg.data_ptr(),
         seg_meta.data_ptr(), _DTYPE_CODES[q.dtype],
         _DTYPE_CODES[k_cache.dtype], layer, n_blocks, n_segs, tq, nq, nkv,
+        # stackcheck: disable=device-sync-transitive — scale is a host
+        # float (the runner's head_dim ** -0.5), never a device value
         slots, d, block_size, block_tables.shape[1], float(scale),
         _window_arg(window), _stream(q),
     )
@@ -545,6 +549,8 @@ def paged_prefill_attention(q, k_cache, v_cache, layer, block_table,
         *ptrs, out.data_ptr(), block_table.data_ptr(),
         _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype], layer, q_start,
         t, nq, nkv, slots, d, block_size, block_table.shape[0],
+        # stackcheck: disable=device-sync-transitive — scale is a host
+        # float (the runner's head_dim ** -0.5), never a device value
         float(scale), _window_arg(window), _stream(q),
     )
     _raise_on(rc, "paged prefill attention")
@@ -596,9 +602,74 @@ def paged_decode_attention(q, k_cache, v_cache, layer, block_tables,
         *ptrs, out.data_ptr(), part_acc, part_ml, block_tables.data_ptr(),
         context_lens.data_ptr(), _DTYPE_CODES[q.dtype],
         _DTYPE_CODES[k_cache.dtype], layer, b, nq, nkv, slots, d,
+        # stackcheck: disable=device-sync-transitive — scale is a host
+        # float (the runner's head_dim ** -0.5), never a device value
         block_size, num_pages, pps, n_splits, float(scale),
         _window_arg(window), _stream(q),
     )
     _raise_on(rc, "paged decode attention")
     _LAUNCHES["decode"] += 1
     return out
+
+
+# -- tensor parallelism: each rank's kernel on its own shard -----------------
+def _check_tp_shard(q, k_cache, num_heads: int, num_kv_heads: int,
+                    tp_size: int) -> None:
+    """q's heads and the cache's kv heads must be one rank's congruent
+    shard of (num_heads, num_kv_heads) over tp_size ranks, so every GQA
+    group of the rank lies whole in its cache shard."""
+    if num_heads % tp_size or num_kv_heads % tp_size:
+        raise ValueError(
+            f"heads ({num_heads}/{num_kv_heads}) not divisible by "
+            f"tp={tp_size}"
+        )
+    want = (num_heads // tp_size, num_kv_heads // tp_size)
+    if (q.shape[1], k_cache.shape[1]) != want:
+        raise ValueError(
+            f"a rank's shard at tp={tp_size} holds {want[0]} q heads over "
+            f"{want[1]} kv heads, got q {tuple(q.shape)} and cache "
+            f"{tuple(k_cache.shape)}"
+        )
+
+
+# stackcheck: hot-path — every TP ragged attention call
+def ragged_paged_attention_tp(q, k_cache, v_cache, layer, block_tables,
+                              blk_seg, seg_meta, *, num_heads, num_kv_heads,
+                              tp_size, block_size, scale, window=None):
+    """Tensor-parallel ragged paged attention on one rank: q (R, nq/tp, d)
+    and the cache shard (L, nkv/tp, slots, d); tables and segment
+    metadata replicated. Counterpart of the JAX shard_map over "tp"
+    (production_stack_tpu/ops/pallas_attention.py:582): the rank runs
+    the same kernel (or, on CPU tensors, its plain version) on its
+    shard, and no collective runs in the body (the all-reduce follows
+    wo, in models/llama.py)."""
+    _check_tp_shard(q, k_cache, num_heads, num_kv_heads, tp_size)
+    return ragged_paged_attention(
+        q, k_cache, v_cache, layer, block_tables, blk_seg, seg_meta,
+        block_size=block_size, scale=scale, window=window)
+
+
+# stackcheck: hot-path — every TP single-sequence prefill attention call
+def paged_prefill_attention_tp(q, k_cache, v_cache, layer, block_table,
+                               q_start, *, num_heads, num_kv_heads, tp_size,
+                               block_size, scale, window=None):
+    """Tensor-parallel prefill attention on one rank's shard (JAX
+    production_stack_tpu/ops/pallas_attention.py:710); see
+    ragged_paged_attention_tp."""
+    _check_tp_shard(q, k_cache, num_heads, num_kv_heads, tp_size)
+    return paged_prefill_attention(
+        q, k_cache, v_cache, layer, block_table, q_start,
+        block_size=block_size, scale=scale, window=window)
+
+
+# stackcheck: hot-path — every TP decode attention call
+def paged_decode_attention_tp(q, k_cache, v_cache, layer, block_tables,
+                              context_lens, *, num_heads, num_kv_heads,
+                              tp_size, block_size, scale, window=None):
+    """Tensor-parallel decode attention on one rank's shard (JAX
+    production_stack_tpu/ops/pallas_attention.py:764); see
+    ragged_paged_attention_tp."""
+    _check_tp_shard(q, k_cache, num_heads, num_kv_heads, tp_size)
+    return paged_decode_attention(
+        q, k_cache, v_cache, layer, block_tables, context_lens,
+        block_size=block_size, scale=scale, window=window)

@@ -1,0 +1,119 @@
+"""Tensor-parallel sharding rules for the Llama family, one process a rank.
+
+Counterpart of ``production_stack_tpu/parallel/sharding.py``. The JAX
+package places params and cache with ``NamedSharding``s over a mesh and
+lets GSPMD insert the psums; here each rank holds its own contiguous
+slice of every split leaf, and the forward reduces explicitly
+(models/llama.py, through parallel/group.TPGroup). The layout is the
+JAX package's (Megatron-style, hidden activations replicated):
+
+- attention: wq/wk/wv (and Qwen2's bq/bk/bv) column-parallel, heads
+  split across tp; wo row-parallel -> one all-reduce a layer after the
+  attention output projection;
+- MLP: w_gate/w_up column-parallel, w_down row-parallel -> one
+  all-reduce;
+- KV cache: split on the kv-head axis, (L, nkv/tp, slots, d) a rank, so
+  paged attention is local to each rank (q heads and kv heads split
+  congruently: every GQA group lies whole on one rank);
+- lm_head split on the vocab for untied models, its logits gathered;
+  the embedding, the norms and a tied vocab projection replicated.
+
+The mesh builders (``make_mesh``, ``make_serving_mesh``) have no
+counterpart: a rank set is processes (parallel/launch.py). The pipeline
+axis is not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from production_stack_tpu_torch.models.config import ModelConfig
+
+# split axis of each stacked per-layer leaf (layer axis 0): column
+# splits on the last axis, row splits on axis 1 (JAX param_shardings)
+LAYER_SPLIT_AXIS = {
+    "wq": -1, "wk": -1, "wv": -1, "w_gate": -1, "w_up": -1,
+    "bq": -1, "bk": -1, "bv": -1,
+    "wo": 1, "w_down": 1,
+}
+# an untied lm_head (hidden, vocab) splits on the vocab
+LM_HEAD_SPLIT_AXIS = -1
+
+
+def validate_tp(cfg: ModelConfig, tp_size: int) -> None:
+    """The JAX package's validate_tp, message for message."""
+    if cfg.num_heads % tp_size or cfg.num_kv_heads % tp_size:
+        raise ValueError(
+            f"model {cfg.name}: heads ({cfg.num_heads}/{cfg.num_kv_heads}) "
+            f"not divisible by tp={tp_size}"
+        )
+    if cfg.is_moe:
+        if cfg.num_experts % tp_size:
+            raise ValueError(
+                f"model {cfg.name}: num_experts {cfg.num_experts} not "
+                f"divisible by tp={tp_size} (experts shard whole)"
+            )
+    elif cfg.intermediate_size % tp_size:
+        raise ValueError(
+            f"model {cfg.name}: intermediate_size "
+            f"{cfg.intermediate_size} not divisible by tp={tp_size}"
+        )
+    if not cfg.tie_word_embeddings and cfg.vocab_size % tp_size:
+        raise ValueError(
+            f"model {cfg.name}: vocab_size {cfg.vocab_size} not divisible "
+            f"by tp={tp_size} (lm_head is vocab-sharded)"
+        )
+
+
+def split_axis(path: tuple[str, ...], cfg: ModelConfig) -> int | None:
+    """The axis leaf `path` (("layers", "wq"), ("lm_head",), ...) splits
+    on, or None where it is replicated."""
+    if path[0] == "layers":
+        return LAYER_SPLIT_AXIS.get(path[1])
+    if path == ("lm_head",) and not cfg.tie_word_embeddings:
+        return LM_HEAD_SPLIT_AXIS
+    return None
+
+
+def shard(x: torch.Tensor, axis: int | None, rank: int,
+          tp: int) -> torch.Tensor:
+    """Rank `rank`'s contiguous slice of `x` on `axis` (a view; None:
+    x itself)."""
+    if axis is None or tp == 1:
+        return x
+    n = x.shape[axis] // tp
+    return x.narrow(axis, rank * n, n)
+
+
+def shard_params(full: dict, cfg: ModelConfig, rank: int, tp: int) -> dict:
+    """One rank's params from the full tree (models/llama.init_params'
+    layout): every split leaf narrowed to the rank's contiguous slice
+    and copied out (contiguous, so the full tensor can go), replicated
+    leaves as they are. The same slices as the JAX package's
+    ``addressable_shards[rank]`` on a tp mesh."""
+    if cfg.is_moe and tp > 1:
+        raise NotImplementedError(
+            "tensor parallelism over MoE experts (expert parallel) is not "
+            "ported"
+        )
+
+    def walk(tree, path):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, path + (k,))
+                continue
+            axis = split_axis(path + (k,), cfg)
+            out[k] = (v if axis is None or tp == 1
+                      else shard(v, axis, rank, tp).contiguous())
+        return out
+
+    return walk(full, ())
+
+
+def local_cache_shape(cfg: ModelConfig, num_slots: int,
+                      tp: int) -> tuple[int, int, int, int]:
+    """One rank's head-major KV cache (L, nkv/tp, slots, d): the JAX
+    package's cache_sharding, as the shape each rank allocates."""
+    return (cfg.num_layers, cfg.num_kv_heads // tp, num_slots,
+            cfg.head_dim)

@@ -79,6 +79,9 @@ def test_every_jax_cli_flag_parses_in_the_port(flag):
     (["--async-decode"], "async_decode", True),
     (["--precompile-serving"], "precompile_serving", True),
     (["--long-prefill-chunk", "128"], "long_prefill_chunk", 128),
+    (["--tensor-parallel-size", "2"], "tensor_parallel_size", 2),
+    (["--tensor-parallel-size", "4", "--no-ragged-kernel"],
+     "tensor_parallel_size", 4),
 ])
 def test_served_flags_reach_engine_config(argv, field, want):
     cfg = config_from_args(build_parser().parse_args(["--device", "cpu",
@@ -93,6 +96,23 @@ def test_served_flags_reach_engine_config(argv, field, want):
     (["--process-id", "1"], "multihost"),
     (["--coordinator-address", "10.0.0.1:1234"], "multihost"),
     (["--multihost"], "multihost"),
+    # what a tensor-parallel engine does not carry yet
+    (["--tensor-parallel-size", "2", "--enable-lora"], "enable_lora"),
+    (["--tensor-parallel-size", "2", "--cpu-offload-gb", "1"],
+     "cpu_offload_bytes"),
+    (["--tensor-parallel-size", "2", "--disk-offload-dir", "/nonexistent"],
+     "disk_offload_dir"),
+    (["--tensor-parallel-size", "2", "--remote-cache-url",
+      "http://127.0.0.1:1"], "remote_cache_url"),
+    (["--tensor-parallel-size", "2", "--kv-role", "kv_consumer"], "kv_role"),
+    (["--tensor-parallel-size", "2", "--kv-transfer-listen",
+      "127.0.0.1:1"], "kv_transfer_config"),
+    (["--tensor-parallel-size", "2", "--model", "pst-tiny-moe-debug"],
+     "MoE"),
+    (["--tensor-parallel-size", "2", "--async-decode",
+      "--num-scheduler-steps", "4"], "async_decode"),
+    (["--tensor-parallel-size", "2", "--precompile-serving"],
+     "precompile_serving"),
 ])
 def test_unported_flags_stop_with_engine_config_message(argv, name,
                                                        monkeypatch):
@@ -100,7 +120,7 @@ def test_unported_flags_stop_with_engine_config_message(argv, name,
     (a NotImplementedError, not argparse's SystemExit). --precompile-
     serving is served now: main() starts an engine on the CPU, whose
     server ran the warm-up sweep before it would listen."""
-    if name == "precompile_serving":
+    if argv == ["--precompile-serving"]:
         from production_stack_tpu_torch.engine import server
 
         started = []
@@ -114,8 +134,69 @@ def test_unported_flags_stop_with_engine_config_message(argv, name,
         assert eng.runner.compile_events_total > 0
         srv.engine.shutdown()
         return
-    with pytest.raises(NotImplementedError, match=name):
+    with pytest.raises(NotImplementedError, match=re.escape(name)):
         main(["--device", "cpu", *argv])
+
+
+def _serve_completion(argv, monkeypatch) -> tuple[dict, object]:
+    """main(argv) on the CPU with its server started on a loopback port;
+    one greedy completion -> (response, the server), stopped."""
+    import asyncio
+    import json
+    import threading
+    import urllib.request
+
+    from production_stack_tpu_torch.engine import server
+
+    started = []
+    monkeypatch.setattr(server.EngineServer, "run",
+                        lambda self, **kw: started.append(self))
+    main(["--device", "cpu", "--tokenizer", "byte", "--dtype", "float32",
+          "--kv-cache-dtype", "float32", "--block-size", "4",
+          "--num-kv-blocks", "128", *argv])
+    (srv,) = started
+    loop = asyncio.new_event_loop()
+    box, ready = [], threading.Event()
+
+    def run():
+        asyncio.set_event_loop(loop)
+        box.append(loop.run_until_complete(srv.start("127.0.0.1", 0)))
+        ready.set()
+        loop.run_forever()
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    try:
+        assert ready.wait(60)
+        body = {"model": "pst-tiny-debug", "prompt": "tensor parallel",
+                "max_tokens": 8, "temperature": 0.0}
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{box[0]}/v1/completions",
+            data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            out = json.loads(r.read())
+        with urllib.request.urlopen(f"http://127.0.0.1:{box[0]}/health",
+                                    timeout=60) as r:
+            assert r.status == 200
+    finally:
+        asyncio.run_coroutine_threadsafe(srv.stop(), loop).result(60)
+        loop.call_soon_threadsafe(loop.stop)
+        th.join(30)
+    return out, srv
+
+
+def test_cli_serves_tp2_on_the_cpu_equal_to_tp1(monkeypatch):
+    """--tensor-parallel-size 2 --device cpu: the CLI's server on rank 0
+    (rank 1 spawned by the engine) answers a greedy completion equal to
+    the tp=1 server's, and stopping the server stops the follower."""
+    want, _ = _serve_completion([], monkeypatch)
+    got, srv = _serve_completion(["--tensor-parallel-size", "2"],
+                                 monkeypatch)
+    assert got["choices"][0]["text"] == want["choices"][0]["text"]
+    assert got["usage"] == want["usage"]
+    (follower,) = srv.engine.engine.runner._group.followers
+    assert follower.exitcode == 0
 
 
 def test_engine_template_covers_the_port_cli():

@@ -787,3 +787,97 @@ def test_moved_cache_stops_the_replay(cuda_device, monkeypatch):
     r.k_cache = r.k_cache.clone()
     with pytest.raises(RuntimeError, match="in place"):
         r.decode([1], [3], [[1]], [4])
+
+
+# -- tensor parallelism: the kernels on one rank's shard ---------------------
+def _tp_case(kind, dev, dtype):
+    """Llama-3.2-3B's attention at tp=2, one rank's local shape: 12 q
+    heads over 4 kv heads (one GQA group of 3), d=128, bs=32."""
+    nq, nkv, d, bs = 12, 4, 128, 32
+    rng = np.random.RandomState(31)
+    kw = dict(block_size=bs, scale=d**-0.5)
+    tp_kw = dict(num_heads=2 * nq, num_kv_heads=2 * nkv, tp_size=2)
+    num_blocks = 1 + 4 * 16
+    kc, vc = _cache_pair(rng, 2, nkv, num_blocks * bs, d)
+    tables = rng.permutation(np.arange(1, num_blocks)).astype(np.int32)
+    tables = tables[:4 * 16].reshape(4, 16)
+    put = [_t(x).to(dev, dtype) for x in (kc, vc)]
+    if kind == "decode":
+        q = rng.randn(4, nq, d).astype(np.float32)
+        args = [_t(q).to(dev, dtype), *put, 1, _t(tables).to(dev),
+                _t(np.asarray([1, 33, 300, 512], np.int32)).to(dev)]
+        return (tpa.paged_decode_attention_tp(*args, **kw, **tp_kw),
+                tpa.paged_decode_attention_plain(*args, **kw))
+    if kind == "prefill":
+        q = rng.randn(64, nq, d).astype(np.float32)
+        args = [_t(q).to(dev, dtype), *put, 1, _t(tables[0]).to(dev), 100]
+        return (tpa.paged_prefill_attention_tp(*args, **kw, **tp_kw),
+                tpa.paged_prefill_attention_plain(*args, **kw))
+    # 4 decode lanes as the runner packs a decode step
+    q = rng.randn(8, nq, d).astype(np.float32)
+    blk_seg = np.asarray([0, 4], np.int32)
+    seg = np.asarray([[i, i, 1, c - 1] for i, c in
+                      enumerate([1, 33, 300, 512])], np.int32)
+    args = [_t(q).to(dev, dtype), *put, 1] + [
+        _t(x).to(dev) for x in (tables, blk_seg, seg)]
+    out = tpa.ragged_paged_attention_tp(*args, **kw, **tp_kw)
+    return out[:4], tpa.ragged_paged_attention_plain(*args, **kw)[:4]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["decode", "prefill", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tp_wrappers_launch_the_kernels_at_the_tp2_shape(cuda_device, kind,
+                                                         dtype):
+    before = tpa.launch_counts()[kind]
+    out, ref = _tp_case(kind, cuda_device, dtype)
+    torch.cuda.synchronize()
+    assert tpa.launch_counts()[kind] == before + 1
+    _assert_rel(out, ref, _REL[dtype])
+
+
+@pytest.mark.cuda
+def test_tp2_engine_on_one_card_equals_tp1(cuda_device, monkeypatch):
+    """Two ranks on one card over gloo (NCCL refuses two ranks on one
+    device): the tp=2 engine's greedy streams equal the tp=1 engine's in
+    float32, each rank launched the ragged kernel on its shard, and no
+    collective took a host tensor."""
+    import dataclasses
+
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.llm_engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+    from production_stack_tpu_torch.models import config as mconfig
+    from production_stack_tpu_torch.parallel.launch import start_tp_ranks
+
+    cfg = dataclasses.replace(mconfig.get_model_config("pst-tiny-debug"),
+                              name="pst-tiny-tp-card", head_dim=64,
+                              hidden_size=256)
+    monkeypatch.setitem(mconfig._PRESETS, cfg.name, cfg)
+    base = dict(model=cfg.name, tokenizer="byte", dtype="float32",
+                cache_dtype="float32", block_size=32, num_kv_blocks=64,
+                max_num_seqs=4, seed=0, num_scheduler_steps=4)
+    prompts = [[1, 2, 3], [4, 5, 6, 7, 8]]
+    sp = SamplingParams(max_tokens=13, temperature=0.0, ignore_eos=True)
+    want = [o.token_ids for o in LLMEngine(EngineConfig(**base)).generate(
+        prompts, sp)]
+    tp_cfg = EngineConfig(**base, tensor_parallel_size=2)
+    group = start_tp_ranks(tp_cfg, devices=["cuda:0", "cuda:0"],
+                           backend="gloo")
+    eng = LLMEngine(tp_cfg, tp_group=group)
+    try:
+        eng.runner.reset_counts()
+        got = [o.token_ids for o in eng.generate(prompts, sp)]
+        reports = eng.runner.reports()
+    finally:
+        eng.shutdown()
+    assert got == want
+    for r in reports:
+        runs = r["dispatch_counts"]
+        assert r["launches"]["ragged"] == cfg.num_layers * (
+            runs["prefill_batch"] + runs["decode"]
+            + runs["decode_iterations"])
+        assert r["tensor_devices"] == ["cuda:0"]
+        assert r["host_collectives"] == 0 and r["all_reduces"] > 0

@@ -138,8 +138,24 @@ def test_unported_flags_refuse_to_start(field, value):
     and tests/test_torch_moe.py. precompile_serving and async_decode are
     served too: their configs start an engine on the CPU (held to the
     JAX engine in tests/test_torch_precompile.py and
-    tests/test_torch_async_decode.py)."""
+    tests/test_torch_async_decode.py). So is tensor_parallel_size 2: its
+    config starts a rank set on the CPU (held to the JAX meshed engine in
+    tests/test_torch_tensor_parallel.py), and it refuses, naming it, what
+    it does not carry yet."""
     cfg = {**BASE, "ragged_dispatch": True, field: value}
+    if field == "tensor_parallel_size":
+        with pytest.raises(NotImplementedError, match="async_decode"):
+            EngineConfig(**cfg, num_scheduler_steps=4, async_decode=True,
+                         device="cpu")
+        eng = LLMEngine(EngineConfig(**cfg, device="cpu"))
+        try:
+            assert not eng._ragged_dispatch
+            out = eng.generate([[1, 2, 3]], SamplingParams(
+                max_tokens=9, temperature=0.0, ignore_eos=True))
+            assert len(out[0].token_ids) == 9
+        finally:
+            eng.shutdown()
+        return
     if field in ("precompile_serving", "async_decode"):
         eng = LLMEngine(EngineConfig(**cfg, num_scheduler_steps=4,
                                      device="cpu"))
