@@ -31,7 +31,8 @@ Phases, each fatal on failure:
    lane), beside the decode kernel on the same lanes; then each kernel
    through its *_tp wrapper at one rank's local shape of the 3B at tp=2
    (nq=12 over nkv=4, d=128, bs=32), bf16 and f32 against the plain
-   version, its time beside its bound;
+   version, its time beside the profiler's device time and the host
+   enqueue a call, its bound and the library call at that shape;
 3. forward: the same random params through models/llama.forward on the
    CPU (plain versions) and on the card (kernels), 2 layers at full 3B
    width, bf16; logits held to a stated tolerance;
@@ -246,7 +247,38 @@ Phases, each fatal on failure:
    speed); then the Qwen2-7B 2-layer checkpoint (the families phase's
    config: qkv bias split, untied lm_head vocab-sharded, each rank
    loading its shard) at tp=2, logits held to tp=1's. A follower that
-   fails, or exits with another code than 0, fails the run.
+   fails, or exits with another code than 0, fails the run;
+14. long context (parallel/ring_attention.py, parallel/long_context.py,
+   engine/long_prefill.py; every rank of a ring on the one card, which
+   its ranks share, so no time here is an sp speed): (a) the ring
+   (ring_attention_local on each of sp=2 and sp=4 ranks) against a
+   float32 oracle built apart from the port's grouping helpers (K/V
+   repeated to the q heads) on the card at 8192 rows, the 3B's heads
+   (24 q over 8 kv, d 128) causal and Mistral-7B's (32 over 8) with its
+   4096-token window, bf16 and f32 on the same inputs, held per (row,
+   head) to LC_BF16_REL_TOL / LC_F32_REL_TOL, ms printed (float32
+   products, TF32 off); (b) LongContextPrefiller.prefill of a
+   4096-token prompt at sp=2 on the 28-layer 3B (seeded bf16 params,
+   used without a copy) against chunked prefill of the same prompt on
+   the prefill kernel: last-row logits within DECODE_LOGIT_REL_TOL of
+   max|logit|, K/V rows within LC_KV_REL_TOL, no kernel launched by the
+   ring; (c) an engine with long_prefill_threshold 4096,
+   context_parallel_size 2 and long_prefill_chunk 2048 and the same
+   engine without the lane, on those params, each serving four greedy
+   64-token requests with a ~16000-token prompt arriving at step 12:
+   the lane serves it in 8 ring chunks (S_pad 16384) with 0 fallbacks,
+   ring / d2h / land seconds > 0, ring devices on the card, no
+   'DISABLED' or 'failed' lane warning and one shared-card warning,
+   decode rounds while the ring is in flight, 28 ragged
+   launches a forward over the run and over the decode after landing
+   (the ring launches none), streams held to the control's under the
+   near-tie rule; TTFT ring and chunked, the step-thread host ms of
+   each chunk's dispatch, the decoders' ITL with and without a ring in
+   flight and the memory peak printed; (d) the CLI with
+   --long-prefill-threshold 4096 --context-parallel-size 2 (log
+   build/chip_smoke_lc_serve.log): /v1/models carries sp_size 2, a
+   5000-token completion is answered, /metrics counts one long-prefill
+   request and no fallback, launches 28 a forward.
 
 Launch counts are reset just before the serve phase's requests (through
 the server's /debug/kernel_launches) and again before its API requests,
@@ -258,8 +290,11 @@ spec server's requests, before the checkpoint phase's requests,
 before each KV-phase engine's and server's requests, before each
 impl-phase turn, the gather families' engines, the Phi-3 server's
 requests, the Mixtral engine's run and, on every rank, before the tp
-phase's one-shot forwards and its tp=2 scenario, and read just after; a kernel launched 0 times on those paths fails the run. The
-servers' logs go to build/chip_smoke_serve.log,
+phase's one-shot forwards and its tp=2 scenario, before each
+long-context engine's run and the long-context server's request, and
+read just after; a kernel launched 0 times on those paths fails the
+run. The servers' logs go to build/chip_smoke_serve.log,
+build/chip_smoke_lc_serve.log,
 build/chip_smoke_spec_serve.log, build/chip_smoke_lora_serve.log, build/chip_smoke_prefill_serve.log,
 build/chip_smoke_decode_serve.log, build/chip_smoke_cache_server.log and
 build/chip_smoke_phi3_serve.log. The last lines are the kernels JSON, the
@@ -4132,9 +4167,15 @@ def tp_kernel_shapes(torch) -> None:
     shape of Llama-3.2-3B at tp=2 (nq=12 over nkv=4, d=128, bs=32), on
     the kernel phase's decode lanes and 512-row chunk: bf16 and f32
     against the plain versions at the kernel phase's tolerances, then
-    time (mean of 20 after an L2 flush) beside the plain version's (mean
-    of 3) and the bound."""
+    time (mean of 20 after an L2 flush) beside the profiler's device time
+    and the host's enqueue time per call, the plain version's (mean of
+    3), the bound and the library call at the same local shape, as the
+    kernel phase defines them: for the prefill chunk one SDPA
+    (enable_gqa) over the chunk's context read once under the causal
+    mask, for the decode lanes one SDPA of each lane's row over its
+    context padded to the table width."""
     import numpy as np
+    import torch.nn.functional as F
 
     from production_stack_tpu_torch.engine.model_runner import (
         decode_segments,
@@ -4168,19 +4209,51 @@ def tp_kernel_shapes(torch) -> None:
                      dtype=torch.bfloat16)
     pf_table = tables[-1]
     dec_kv = sum(dec_ctx)
+    g = nq // nkv
+
+    def padded_decode_sdpa():
+        """Each lane's row (b, nq, 1, d) over its context padded to the
+        table width, K/V repeated over the g query heads, under a
+        visibility mask (the kernel phase's decode yardstick)."""
+        C = tables.shape[1] * bs
+        sl = (tables.long()[:, :, None] * bs
+              + torch.arange(bs, device=dev)).reshape(len(dec_ctx), C)
+        k = kc[1][:, sl].permute(1, 0, 2, 3).repeat_interleave(g, 1)
+        v = vc[1][:, sl].permute(1, 0, 2, 3).repeat_interleave(g, 1)
+        mask = torch.arange(C, device=dev)[None, :] < ctx[:, None]
+        return (qd[:, :, None].contiguous(), k.contiguous(),
+                v.contiguous(), mask[:, None, None].contiguous(), False)
+
+    def fair_prefill_sdpa():
+        """The chunk's rows (1, nq, t, d) over its context read once,
+        (1, nkv, qs + t, d), GQA through enable_gqa, causal mask (the
+        kernel phase's prefill yardstick)."""
+        pos = torch.arange(qs + t, device=dev)
+        sl = pf_table.long()[pos // bs] * bs + pos % bs
+        mask = pos[None, :] <= (qs + torch.arange(t, device=dev))[:, None]
+        return (qp.transpose(0, 1)[None].contiguous(),
+                kc[1][:, sl][None].contiguous(),
+                vc[1][:, sl][None].contiguous(),
+                mask[None, None].contiguous(), True)
+
     cases = {
         "ragged_paged_attention_tp (decode lanes)": (
             pa.ragged_paged_attention_tp, pa.ragged_paged_attention_plain,
             qd, (tables, blk, meta), len(dec_ctx), dec_kv,
-            sum(c for c in dec_ctx)),
+            sum(c for c in dec_ctx), ("ragged_tile_kernel",),
+            padded_decode_sdpa),
         "paged_prefill_attention_tp": (
             pa.paged_prefill_attention_tp, pa.paged_prefill_attention_plain,
-            qp, (pf_table, qs), t, qs + t, sum(qs + i + 1 for i in range(t))),
+            qp, (pf_table, qs), t, qs + t, sum(qs + i + 1 for i in range(t)),
+            ("prefill_kernel",), fair_prefill_sdpa),
         "paged_decode_attention_tp": (
             pa.paged_decode_attention_tp, pa.paged_decode_attention_plain,
-            qd, (tables, ctx), len(dec_ctx), dec_kv, dec_kv),
+            qd, (tables, ctx), len(dec_ctx), dec_kv, dec_kv,
+            ("decode_split_kernel", "decode_merge_kernel"),
+            padded_decode_sdpa),
     }
-    for name, (fn, plain, q, extra, rows, kv_tok, visible) in cases.items():
+    for name, (fn, plain, q, extra, rows, kv_tok, visible, cuda_names,
+               lib_args) in cases.items():
         for dt, tol in ((torch.bfloat16, BF16_REL_TOL),
                         (torch.float32, F32_REL_TOL)):
             qq, kk, vv = (x.to(dt) for x in (q, kc, vc))
@@ -4199,18 +4272,27 @@ def tp_kernel_shapes(torch) -> None:
             del kk, vv
         ms = time_cuda(torch, lambda: fn(q, kc, vc, 1, *extra, **tp_kw),
                        20, flush)
+        split = device_breakdown(
+            torch, lambda: fn(q, kc, vc, 1, *extra, **tp_kw), flush,
+            cuda_names)
         plain_ms = time_cuda(
             torch, lambda: plain(q, kc, vc, 1, *extra, **plain_kw), 3,
             flush)
+        q4, k4, v4, m4, gqa = lib_args()
+        lib_ms = time_cuda(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=m4, scale=d**-0.5,
+            **({"enable_gqa": True} if gqa else {})), 20, flush)
+        del q4, k4, v4, m4
         t_bytes = (2 * kv_tok * nkv * d * 2 + 2 * rows * nq * d * 2
                    ) / HBM_BYTES_PER_S * 1e3
         t_ops = 4 * visible * nq * d / BF16_FLOPS * 1e3
         bms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                                "operations")
         print(f"tp kernels: {name} at the tp=2 local shape (nq {nq}, nkv "
-              f"{nkv}, d {d}, bs {bs}): kernel_ms={ms:.4f} plain_ms="
-              f"{plain_ms:.3f} bound_ms={bms:.4f} ({by}), bound/kernel="
-              f"{bms / ms:.3f}", flush=True)
+              f"{nkv}, d {d}, bs {bs}): kernel_ms={ms:.4f} (profiler, per "
+              f"call: {split}) plain_ms={plain_ms:.3f} bound_ms={bms:.4f} "
+              f"({by}), bound/kernel={bms / ms:.3f} library_ms="
+              f"{lib_ms:.4f}", flush=True)
     del kc, vc, flush
     release(torch)
 
@@ -4400,6 +4482,488 @@ def tp_phase(torch, pa, gap_tol: float, smi: str) -> dict:
     return {"rank0": counts[0], "rank1": counts[1]}
 
 
+# -- long-context phase ----------------------------------------------------------
+# the ring against its oracle (plain_attention, a float32 result), per
+# (row, head): |out - ref| <= TOL * max|ref| over d. Both compute float32
+# products of the same inputs. In bf16 the ring rounds its float32
+# result once: half a step (2^-8 of the row's largest value), one step
+# where a value sits just under a power of two; 2^-6 is the kernel
+# phase's bound. In f32 they differ by the summation order only (the
+# kernel phase's f32 bound)
+LC_BF16_REL_TOL = BF16_REL_TOL
+LC_F32_REL_TOL = F32_REL_TOL
+LC_RING_ROWS = 8192
+LC_SP = 2
+LC_PREFILL_TOKENS = 4096
+# the 28-layer prefiller's K/V against chunked prefill on the prefill
+# kernel, per (layer, row, kv head) relative to the row's max|ref| over
+# d: bf16 roundings that part in attention (f32 ring vs the kernel's
+# bf16 P) and travel through the layers; the last-row logits' bound is
+# the decode phase's 3e-2 of max|logit|
+LC_KV_REL_TOL = 2.0**-4
+LC_THRESHOLD = 4096
+LC_CHUNK = 2048
+# 8 ring chunks of 2048 tokens (the last part-filled), S_pad 16384
+LC_PROMPT_TOKENS = 16000
+# the four decoders run alone for LC_LONG_STEP steps, then beside the
+# long prompt, and outlast its lane
+LC_DECODE_TOKENS = 64
+LC_LONG_STEP = 12
+LC_CLI_PROMPT_TOKENS = 5000
+
+
+def per_row_check(torch, what: str, out, ref, tol: float) -> float:
+    """Held per (row, head): |out - ref| <= tol * max|ref| over the last
+    dim; returns the max abs error."""
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    bound = tol * ref.float().abs().amax(-1, keepdim=True)
+    worst = float((err / bound.clamp_min(1e-30)).max())
+    max_err = float(err.max())
+    print(f"{what}: max_abs_err={max_err:.3e} worst err/tol={worst:.3f} "
+          f"(tol {tol:.3g} x max|ref| per row, head)", flush=True)
+    if not (torch.isfinite(out).all() and worst <= 1.0):
+        fail(f"{what}: off its reference by {worst:.3f}x the tolerance")
+    return max_err
+
+
+def plain_attention(torch, q, k, v, window=None):
+    """Causal softmax attention of (1, n, h, d) q over (1, n, hk, d) k / v
+    in float32, built apart from the port's grouping helpers: K and V
+    repeated to the q heads, an explicit causal (and HF window: keys j
+    with i - window < j <= i) mask, eight heads at a time."""
+    n, nq, d = q.shape[1], q.shape[2], q.shape[3]
+    g = nq // k.shape[2]
+    qpos = torch.arange(n, device=q.device)[:, None]
+    kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+    keep = kpos <= qpos
+    if window is not None:
+        keep &= kpos > qpos - window
+    kr = k[0].float().repeat_interleave(g, dim=1).transpose(0, 1)
+    vr = v[0].float().repeat_interleave(g, dim=1).transpose(0, 1)
+    qh = q[0].float().transpose(0, 1)
+    out = torch.empty((nq, n, d), dtype=torch.float32, device=q.device)
+    for h0 in range(0, nq, 8):
+        h1 = min(h0 + 8, nq)
+        s = (qh[h0:h1] @ kr[h0:h1].transpose(1, 2)) * d ** -0.5
+        s.masked_fill_(~keep, float("-inf"))
+        out[h0:h1] = torch.softmax(s, dim=-1) @ vr[h0:h1]
+        del s
+    return out.transpose(0, 1)[None]
+
+
+def ring_oracle_checks(torch, smi: str) -> None:
+    """(a) ring_attention over sp=2 and sp=4 ranks on the card against
+    plain_attention (float32, K/V repeated to the q heads: not the
+    port's grouping) on the card: the 3B's heads (24 q over 8 kv, d 128)
+    causal, and Mistral-7B's (32 over 8) with its 4096-token window
+    (ring_attention_blocks, as the prefiller calls it), 8192 rows, bf16
+    and f32 on the same inputs; ms of each (CUDA events, mean of 3,
+    float32 products with TF32 off)."""
+    from production_stack_tpu_torch.parallel import ring_attention as ra
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    n, d = LC_RING_ROWS, 128
+    for name, nq, nkv, window, sps in (("Llama-3.2-3B", 24, 8, None, (2, 4)),
+                                       ("Mistral-7B", 32, 8, 4096, (2, 4))):
+        q = torch.randn((1, n, nq, d), generator=gen, device=dev)
+        k = torch.randn((1, n, nkv, d), generator=gen, device=dev)
+        v = torch.randn((1, n, nkv, d), generator=gen, device=dev)
+        for dt, tol in ((torch.bfloat16, LC_BF16_REL_TOL),
+                        (torch.float32, LC_F32_REL_TOL)):
+            qq, kk, vv = (x.to(dt) for x in (q, k, v))
+            ref = plain_attention(torch, qq, kk, vv, window=window)
+            ref_ms = time_cuda(torch, lambda: plain_attention(
+                torch, qq, kk, vv, window=window), 3, flush)
+            for sp in sps:
+                lk = n // sp
+                kb = [kk[:, j * lk:(j + 1) * lk] for j in range(sp)]
+                vb = [vv[:, j * lk:(j + 1) * lk] for j in range(sp)]
+
+                def ring():
+                    return ra.ring_attention_blocks(qq, kb, vb,
+                                                    window=window)
+
+                what = (f"long-context phase ring {name} (nq {nq}, nkv "
+                        f"{nkv}{f', window {window}' if window else ''}) "
+                        f"sp={sp} {str(dt)[6:]} {n} rows")
+                if window is None:
+                    # the whole-array entry, which shards k and v itself
+                    per_row_check(torch, what, ra.ring_attention(
+                        qq, kk, vv, [dev] * sp), ref, tol)
+                else:
+                    per_row_check(torch, what, ring(), ref, tol)
+                ms = time_cuda(torch, ring, 3, flush)
+                print(f"{what}: ring_ms={ms:.3f} oracle_ms={ref_ms:.3f} "
+                      f"(float32 products, TF32 off; one card holds "
+                      f"every rank) on {smi}", flush=True)
+            del ref, qq, kk, vv
+            release(torch)
+    del flush
+    release(torch)
+
+
+def lc_prefill_check(torch, pa, params, cfg, smi: str) -> None:
+    """(b) LongContextPrefiller.prefill of a LC_PREFILL_TOKENS-token
+    prompt at sp=2 on the 28-layer 3B against the port's chunked prefill
+    of the same prompt (512-row chunks, the prefill kernel, a contiguous
+    paged cache): last-row logits within DECODE_LOGIT_REL_TOL of
+    max|logit|, every K/V row within LC_KV_REL_TOL; the prefiller uses
+    the caller's params (no copy) and launches no kernel."""
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.parallel.long_context import (
+        LongContextPrefiller,
+    )
+
+    n, bs, chunk = LC_PREFILL_TOKENS, 32, 512
+    ids = [(j * 7919) % cfg.vocab_size for j in range(n)]
+    pre = LongContextPrefiller(cfg, params, ["cuda"] * LC_SP,
+                               cache_dtype=torch.bfloat16)
+    if pre.params is not params or any(d.type != "cuda"
+                                       for d in pre.devices):
+        fail("long-context phase: the prefiller copied the params or left "
+             "the card")
+    pa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, kc, vc, _ = pre.prefill(ids)
+    torch.cuda.synchronize()
+    ring_s = time.perf_counter() - t0
+    if any(pa.launch_counts().values()):
+        fail(f"long-context phase: the ring launched paged-attention "
+             f"kernels {pa.launch_counts()}")
+    rows = kc.shards[0].shape[2]
+    pages = n // bs
+    shape = (cfg.num_layers, cfg.num_kv_heads, (pages + 1) * bs,
+             cfg.head_dim)
+    kp = torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+    vp = torch.zeros_like(kp)
+    table = torch.arange(1, pages + 1, dtype=torch.int32, device="cuda")
+    tok = torch.tensor(ids, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s0 in range(0, n, chunk):
+        pos = torch.arange(s0, s0 + chunk, device="cuda")
+
+        def attn(q, l, k, v, s0=s0):
+            return pa.paged_prefill_attention(
+                q, k, v, l, table, s0, block_size=bs,
+                scale=cfg.head_dim**-0.5)
+
+        want, _, _ = llama.forward(
+            cfg, params, tok[s0:s0 + chunk], pos, kp, vp, pos + bs, attn,
+            logits_rows=torch.tensor([chunk - 1], device="cuda"))
+    torch.cuda.synchronize()
+    chunked_s = time.perf_counter() - t0
+    got = pa.launch_counts()
+    if got["prefill"] != cfg.num_layers * (n // chunk):
+        fail(f"long-context phase: chunked control launches {got}")
+    want = want[0].float()
+    top = float(want.abs().max())
+    rel = float((logits.float() - want).abs().max()) / top
+    print(f"long-context phase prefiller: {n}-token prompt, "
+          f"{cfg.num_layers} layers, "
+          f"sp={LC_SP} ({rows} cache rows a rank) in {ring_s:.3f}s against "
+          f"chunked prefill on the prefill kernel ({n // chunk} chunks of "
+          f"{chunk}) in {chunked_s:.3f}s (host clock, synchronized); "
+          f"last-row logits max|d|/max|logit|={rel:.3e} (tol "
+          f"{DECODE_LOGIT_REL_TOL}) on {smi}", flush=True)
+    if not (torch.isfinite(logits).all() and rel <= DECODE_LOGIT_REL_TOL):
+        fail(f"long-context phase: prefiller logits off by {rel:.3e}")
+    for name, ring_c, paged in (("K", kc, kp), ("V", vc, vp)):
+        per_row_check(torch, f"long-context phase prefiller {name} rows "
+                      f"({cfg.num_layers} layers x {n} rows x "
+                      f"{cfg.num_kv_heads} kv heads) vs chunked",
+                      ring_c.gather()[:, :, :n], paged[:, :, bs:bs + n],
+                      LC_KV_REL_TOL)
+    del kc, vc, kp, vp, logits
+    release(torch)
+    # one ring chunk of the lane's shape (LC_CHUNK rows at the top of its
+    # padded sequence) under the profiler: its kernels, device time and
+    # the host's enqueue share
+    s_pad = pre.seq_pad(LC_PROMPT_TOKENS, LC_CHUNK)
+    kc, vc = pre.begin_cache(s_pad)
+    toks = pre.stage_tokens(ids[:LC_CHUNK], LC_CHUNK)
+    prof = profile_step(torch, lambda: pre.prefill_chunk(
+        kc, vc, toks, s_pad - LC_CHUNK, LC_CHUNK - 1))
+    print(f"long-context phase: one {LC_CHUNK}-row ring chunk over "
+          f"S_pad {s_pad} (sp={LC_SP}, {cfg.num_layers} layers) under "
+          f"torch.profiler: {prof} on {smi}", flush=True)
+    del kc, vc, pre
+    release(torch)
+
+
+def lc_scenario(torch, pa, eng, tag: str, sp) -> dict:
+    """Four greedy LC_DECODE_TOKENS-token requests, then the
+    LC_PROMPT_TOKENS-token prompt at step LC_LONG_STEP while they decode.
+    Returns the streams (d0..d3, long), the TTFT of the long prompt, the
+    step walls in which the decoders got a token (in steps that
+    dispatched a ring chunk, in other steps with the long prompt's
+    prefill in flight, and with none), the decode rounds run while a
+    ring was in flight, the ring chunks' dispatch ms, the launches and
+    dispatches over the run and over the decode after the long prompt's
+    first token, and the memory peak."""
+    prompts = [[(11 * i + 5 * j) % 250 + 1 for j in range(n)]
+               for i, n in enumerate((17, 40, 64, 90))]
+    long_prompt = [(3 * j + 1) % 250 + 1 for j in range(LC_PROMPT_TOKENS)]
+    mgr = eng.long_prefill
+    chunk_ms: list[float] = []
+    if mgr is not None:
+        dispatch = mgr._dispatch_next_chunk
+
+        def timed(rec):
+            t = time.perf_counter()
+            dispatch(rec)
+            chunk_ms.append((time.perf_counter() - t) * 1e3)
+
+        mgr._dispatch_next_chunk = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pa.reset_launch_counts()
+    runs0 = dict(eng.runner.dispatch_counts)
+    for i, p in enumerate(prompts):
+        eng.add_request(f"{tag}d{i}", prompt_token_ids=p, sampling_params=sp)
+    finals, step, ttft, t_long = {}, 0, None, None
+    itl = {"chunk": [], "in flight": [], "none": []}
+    ring_rounds, after = 0, None
+    while eng.has_unfinished():
+        if step == LC_LONG_STEP:
+            eng.add_request(f"{tag}long", prompt_token_ids=long_prompt,
+                            sampling_params=sp)
+            t_long = time.perf_counter()
+        long_seq = eng._seqs.get(f"{tag}long")
+        busy = long_seq is not None and not (
+            long_seq.prefill_done and not long_seq.long_prefill_active)
+        ring = mgr is not None and mgr.active
+        rounds0, chunks0 = eng._decode_rounds_total, len(chunk_ms)
+        ts = time.perf_counter()
+        outs = eng.step()
+        dt = time.perf_counter() - ts
+        if ring and eng._decode_rounds_total > rounds0:
+            ring_rounds += 1
+        if any(o.new_token_ids and not o.request_id.endswith("long")
+               for o in outs):
+            itl["chunk" if len(chunk_ms) > chunks0 else
+                "in flight" if busy else "none"].append(dt * 1e3)
+        for o in outs:
+            if (o.request_id == f"{tag}long" and o.token_ids
+                    and ttft is None):
+                ttft = time.perf_counter() - t_long
+                torch.cuda.synchronize()
+                launches0 = pa.launch_counts()
+                after = (launches0, dict(eng.runner.dispatch_counts))
+            if o.finished:
+                finals[o.request_id] = o
+        step += 1
+    torch.cuda.synchronize()
+    if mgr is not None:
+        del mgr._dispatch_next_chunk
+    end = pa.launch_counts()
+    runs = {k: v - runs0[k] for k, v in eng.runner.dispatch_counts.items()}
+    tail = ({k: end[k] - after[0][k] for k in end},
+            {k: v - after[1][k] for k, v in eng.runner.dispatch_counts.items()})
+    return {"outs": [finals[f"{tag}{r}"] for r in ("d0", "d1", "d2", "d3",
+                                                    "long")],
+            "ttft": ttft, "itl": itl, "ring_rounds": ring_rounds,
+            "chunk_ms": chunk_ms, "launches": end, "runs": runs,
+            "tail": tail, "steps": step,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def lc_engine_check(torch, pa, params, gap_tol: float, smi: str) -> dict:
+    """(c) the lane in an engine at full width: the 3B (28 layers, bf16,
+    the seeded params) with long_prefill_threshold LC_THRESHOLD,
+    context_parallel_size LC_SP and long_prefill_chunk LC_CHUNK beside
+    the same engine without the lane (chunked prefill on the kernels),
+    on the same params, each serving lc_scenario. The lane: one request,
+    8 chunks, 0 fallbacks, ring / d2h / land seconds > 0, ring devices on
+    the card, no 'DISABLED' or 'failed' warning, decode rounds while the
+    ring was in flight, 28 ragged launches a forward over the run and
+    over the decode after landing (the ring launches none); the streams
+    held to the control's under the near-tie rule. Returns the lane
+    engine's launches."""
+    import logging
+
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.llm_engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+
+    warned: list = []
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = lambda r: warned.append(r.getMessage())
+    logging.getLogger(
+        "production_stack_tpu_torch.engine.llm_engine").addHandler(handler)
+    base = dict(model="llama-3.2-3b", tokenizer="byte", device="cuda",
+                block_size=32, num_kv_blocks=640, max_num_seqs=8, seed=SEED)
+    sp = SamplingParams(max_tokens=LC_DECODE_TOKENS, temperature=0,
+                        ignore_eos=True, logprobs=2)
+    res = {}
+    try:
+        for tag, lane in (("lane", True), ("chunked", False)):
+            over = (dict(long_prefill_threshold=LC_THRESHOLD,
+                         context_parallel_size=LC_SP,
+                         long_prefill_chunk=LC_CHUNK) if lane else {})
+            eng = LLMEngine(EngineConfig(**base, **over), params=params)
+            try:
+                if lane:
+                    mgr = eng.long_prefill
+                    if mgr is None or any(d.type != "cuda"
+                                          for d in mgr.prefiller.devices):
+                        fail(f"long-context phase: the lane is not live on "
+                             f"the card: {warned}")
+                    if mgr.prefiller.params["embed"] is not (
+                            eng.runner.params["embed"]):
+                        fail("long-context phase: the ring copied the "
+                             "runner's params")
+                res[tag] = lc_scenario(torch, pa, eng, f"lc-{tag}-", sp)
+                res[tag]["stats"] = eng.stats()
+            finally:
+                eng.shutdown()
+                del eng
+                release(torch)
+    finally:
+        logging.getLogger(
+            "production_stack_tpu_torch.engine.llm_engine").removeHandler(
+            handler)
+    bad = [w for w in warned if "DISABLED" in w or "failed" in w]
+    if bad:
+        fail(f"long-context phase: {bad}")
+    shared = [w for w in warned if "share the serving card" in w]
+    if len(shared) != 1:
+        fail(f"long-context phase: the lane engine on one card gave "
+             f"{len(shared)} shared-card warnings, not 1")
+    print(f"long-context phase lane engine warned: {shared[0]}", flush=True)
+    lane, ctrl = res["lane"], res["chunked"]
+    st = lane["stats"]
+    n_chunks = -(-LC_PROMPT_TOKENS // LC_CHUNK)
+    counters = (st.long_prefill_requests_total, st.long_prefill_chunks_total,
+                st.long_prefill_fallbacks_total)
+    phases = (st.long_prefill_ring_seconds_total,
+              st.long_prefill_d2h_seconds_total,
+              st.long_prefill_land_seconds_total)
+    print(f"long-context phase lane: requests, chunks, fallbacks {counters}; "
+          f"ring / d2h / land / overflow seconds "
+          f"{[round(x, 4) for x in phases]} / "
+          f"{st.long_prefill_overflow_seconds_total:.4f}; {lane['steps']} "
+          f"steps; decode rounds while a ring was in flight "
+          f"{lane['ring_rounds']}", flush=True)
+    if counters != (1, n_chunks, 0) or not all(x > 0 for x in phases):
+        fail(f"long-context phase: lane counters {counters}, phase "
+             f"seconds {phases}")
+    if lane["ring_rounds"] < 3:
+        fail(f"long-context phase: only {lane['ring_rounds']} decode "
+             "rounds ran while the ring was in flight")
+    if ctrl["stats"].long_prefill_requests_total:
+        fail("long-context phase: the control engine took the lane")
+    for tag, r in res.items():
+        check_launches(f"long-context phase {tag} engine", r["launches"],
+                       r["runs"])
+        check_launches(f"long-context phase {tag} engine, decode after the "
+                       f"long prompt's first token", *r["tail"])
+    if lane["tail"][1]["decode"] + lane["tail"][1]["decode_iterations"] < 1:
+        fail("long-context phase: no decode forward after landing")
+    n_same = near_tie_check("long-context phase lane vs chunked",
+                            ctrl["outs"], lane["outs"], gap_tol)
+
+    def ms(xs):
+        return (f"median {sorted(xs)[len(xs) // 2]:.2f} ms, max "
+                f"{max(xs):.2f} over {len(xs)}" if xs else "none")
+
+    cms = lane["chunk_ms"]
+    print(f"long-context phase: {n_same}/5 greedy streams (4 x "
+          f"{LC_DECODE_TOKENS} tokens and the {LC_PROMPT_TOKENS}-token "
+          f"prompt's) of the lane equal to the chunked control's; TTFT of "
+          f"the long prompt: ring {lane['ttft']:.3f}s, chunked "
+          f"{ctrl['ttft']:.3f}s (host clock); step-thread host ms a ring "
+          f"chunk's dispatch {[round(x, 1) for x in cms]}; ITL of the four "
+          f"decoders (step wall): lane engine in a step that dispatched a "
+          f"ring chunk {ms(lane['itl']['chunk'])}, in other steps with the "
+          f"ring's d2h or landing in flight {ms(lane['itl']['in flight'])}, "
+          f"without a ring {ms(lane['itl']['none'])}; chunked engine with "
+          f"the prompt's chunks in flight {ms(ctrl['itl']['in flight'])}, "
+          f"without {ms(ctrl['itl']['none'])}; memory peak "
+          f"{lane['peak_gb']:.2f} GB "
+          f"(lane engine) / {ctrl['peak_gb']:.2f} GB (chunked); a ring on "
+          f"one card shares that card: not sp speeds; on {smi}", flush=True)
+    return lane["launches"]
+
+
+def lc_cli_check(torch, smi: str) -> None:
+    """(d) the CLI with --long-prefill-threshold LC_THRESHOLD
+    --context-parallel-size LC_SP (log build/chip_smoke_lc_serve.log):
+    /v1/models carries sp_size, one LC_CLI_PROMPT_TOKENS-token greedy
+    completion is answered, /metrics shows one long-prefill request and
+    no fallback, and the server's launches are 28 a forward."""
+    port = free_port()
+    log_path = REPO / "build" / "chip_smoke_lc_serve.log"
+    t0 = time.perf_counter()
+    proc = start_server(port, log_path, extra=(
+        "--long-prefill-threshold", str(LC_THRESHOLD),
+        "--context-parallel-size", str(LC_SP)))
+    try:
+        boot = wait_healthy("long-context phase CLI", proc, port, log_path,
+                            t0)
+        card = json.loads(http(port, "/v1/models")[1])["data"][0]
+        if card.get("sp_size") != LC_SP:
+            fail(f"long-context phase CLI: /v1/models card {card}:\n"
+                 f"{log_tail(log_path)}")
+        http(port, "/debug/kernel_launches", method="DELETE")
+        ids = [(5 * j + 2) % 250 + 1 for j in range(LC_CLI_PROMPT_TOKENS)]
+        t1 = time.perf_counter()
+        st, body = http(port, "/v1/completions", {
+            "prompt": ids, "max_tokens": 8, "temperature": 0,
+            "ignore_eos": True})
+        secs = time.perf_counter() - t1
+        r = json.loads(body)
+        u = r.get("usage", {})
+        if not (st == 200 and u.get("prompt_tokens") == len(ids)
+                and u.get("completion_tokens") == 8):
+            fail(f"long-context phase CLI: bad answer {body[:400]}")
+        report = json.loads(http(port, "/debug/kernel_launches")[1])
+        check_launches("long-context phase CLI", report["launches"],
+                       report["dispatches"])
+        reqs = metric(port, "tpu:long_prefill_requests_total")
+        falls = metric(port, "tpu:long_prefill_fallbacks_total")
+        if reqs != 1 or falls != 0:
+            fail(f"long-context phase CLI: /metrics long-prefill requests "
+                 f"{reqs}, fallbacks {falls}")
+        print(f"long-context phase CLI: healthy {boot:.1f}s after start, "
+              f"/v1/models sp_size {card['sp_size']}, a "
+              f"{len(ids)}-token completion in {secs:.3f}s, "
+              f"tpu:long_prefill_requests_total {reqs:g}, fallbacks "
+              f"{falls:g} on {smi}", flush=True)
+    finally:
+        stop_server(proc)
+
+
+def long_context_phase(torch, pa, gap_tol: float, smi: str) -> dict:
+    """The long-context path (parallel/ring_attention.py,
+    parallel/long_context.py, engine/long_prefill.py) at full width:
+    (a) the ring against its oracle, (b) the prefiller against chunked
+    prefill, (c) the lane in an engine against the chunked control,
+    (d) the lane through the CLI. Returns the lane engine's launches."""
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.models.config import get_model_config
+
+    t_phase = time.perf_counter()
+    ring_oracle_checks(torch, smi)
+    cfg = get_model_config("llama-3.2-3b")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = llama.init_params(cfg, gen, torch.bfloat16, "cuda")
+    lc_prefill_check(torch, pa, params, cfg, smi)
+    counts = lc_engine_check(torch, pa, params, gap_tol, smi)
+    del params
+    release(torch)
+    lc_cli_check(torch, smi)
+    print(f"long-context phase: {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -4447,6 +5011,7 @@ def main() -> int:
     phi3_serve_phase(torch, pa, smi)
     moe_counts = moe_phase(torch, pa, gap_tol, smi)
     tp_counts = tp_phase(torch, pa, gap_tol, smi)
+    lc_counts = long_context_phase(torch, pa, gap_tol, smi)
     launches = {
         "ragged": serve_counts["ragged"],
         "prefill": serve_counts["prefill"],
@@ -4460,7 +5025,7 @@ def main() -> int:
           f"decode {spec_counts}, loaded "
           f"checkpoint with adapters {lora_counts}, KV paths {kv_counts}, "
           f"Mixtral-8x7B x{MIXTRAL_LAYERS} {moe_counts}, tp=2 ranks "
-          f"{tp_counts}; "
+          f"{tp_counts}, long-context lane engine {lc_counts}; "
           f"a served "
           f"mixed round launches the ragged kernel {LAYERS_3B} times a "
           "forward (its step-0 forward and each further decode iteration)",

@@ -34,12 +34,19 @@ N+1 on round N's device tokens before fetching round N (K > 1).
 ``--tensor-parallel-size N`` serves the model Megatron-sharded over N
 ranks: this process is rank 0 (server, scheduler, metrics) and the
 engine spawns ranks 1..N-1, rank r on cuda:r over NCCL (gloo with
-``--device cpu``). Every flag of the JAX CLI parses; one whose feature
-is not ported yet (``--long-prefill-threshold``, pp/cp above 1, and
+``--device cpu``). ``--long-prefill-threshold T
+--context-parallel-size N`` serves prompts past T tokens as
+sequence-parallel ring chunks over N ranks (``--long-prefill-chunk``
+tokens each), with the other requests' decode rounds run between the
+chunks (not at their normal cadence: on one card a chunk's step lasts
+about its device time, and the lane is slower than chunked prefill, as
+the engine warns at boot); the threshold without N > 1 stops with
+EngineConfig's ValueError. Every flag of the
+JAX CLI parses; one whose feature is not ported yet (pp above 1, and
 ``--multihost`` with ``--num-processes``, ``--process-id`` and
 ``--coordinator-address``), or not carried under tensor parallelism yet
 (LoRA, KV tiers, PD roles, MoE models, ``--async-decode``,
-``--precompile-serving``), makes the engine refuse to start
+``--precompile-serving``, cp above 1), makes the engine refuse to start
 (NotImplementedError from EngineConfig, naming it).
 """
 
@@ -240,12 +247,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tensor-parallel-size", type=int, default=1,
                    help="Megatron-sharded ranks, one process a card "
                         "(rank 0 serves)")
+    p.add_argument("--context-parallel-size", type=int, default=0,
+                   help="ranks of the long-prefill ring")
+    p.add_argument("--long-prefill-threshold", type=int, default=None,
+                   help="prompts whose uncached part exceeds this many "
+                        "tokens run as context-parallel ring prefill, "
+                        "decode rounds running between its chunks, not "
+                        "at their normal cadence (requires "
+                        "--context-parallel-size > 1; on one card slower "
+                        "than chunked prefill)")
+    p.add_argument("--long-prefill-chunk", type=int, default=2048,
+                   help="ring chunk length in tokens")
     # not ported yet: accepted so existing deployments and the chart
     # parse, refused by EngineConfig (naming the feature) when switched on
     p.add_argument("--pipeline-parallel-size", type=int, default=1)
-    p.add_argument("--context-parallel-size", type=int, default=0)
-    p.add_argument("--long-prefill-threshold", type=int, default=None)
-    p.add_argument("--long-prefill-chunk", type=int, default=2048)
     p.add_argument("--multihost", action="store_true")
     p.add_argument("--coordinator-address", default=None)
     p.add_argument("--num-processes", type=int, default=None)

@@ -12,10 +12,12 @@ n-gram speculative decoding (``num_speculative_tokens``, drafts from
 prompt lookup), the attention implementation (``attention_impl``: the
 kernels or the gather path), MoE models, the startup warm-up of every
 serving program (``precompile_serving``) and the double-buffered decode
-(``async_decode``), and tensor parallelism (``tensor_parallel_size``:
-ranks 1..N-1 spawned beside the engine, parallel/launch.py). The fields
-of features not ported yet (the pipeline, context-parallel, multi-host
-and long-prefill paths) stay so that asking for one fails loudly:
+(``async_decode``), tensor parallelism (``tensor_parallel_size``:
+ranks 1..N-1 spawned beside the engine, parallel/launch.py) and the
+long-prefill lane (``long_prefill_threshold`` over a ring of
+``context_parallel_size`` ranks, engine/long_prefill.py). The fields
+of features not ported yet (the pipeline and multi-host paths) stay so
+that asking for one fails loudly:
 ``__post_init__`` raises NotImplementedError for each (see
 ``unported``), and for each feature a tensor-parallel engine does not
 carry yet (see ``tp_unported``), so no request ever reaches a missing
@@ -155,11 +157,23 @@ class EngineConfig:
     # Megatron-sharded ranks, one process each (rank 0 serves)
     tensor_parallel_size: int = 1
 
+    # long-context serving (context-parallel ring prefill,
+    # engine/long_prefill.py): a prompt whose UNCACHED remainder exceeds
+    # this many tokens leaves the chunked-prefill lane and runs as
+    # sequence-sharded ring chunks over context_parallel_size ranks
+    # (parallel/long_context.py), its KV landing in the paged cache
+    # through the KV import primitives. None = off; requires
+    # context_parallel_size > 1.
+    long_prefill_threshold: int | None = None
+    # ring chunk length in tokens (rounded up to a multiple of the ring
+    # size and the KV block size); the padded sequence is chunk x pow2
+    long_prefill_chunk: int = 2048
+    # ranks of the ring (0/1 = none): the cards past the serving one when
+    # the host has them, else the serving card (or the CPU) repeated
+    context_parallel_size: int = 0
+
     # -- not ported yet: any non-default value refuses at construction --
     pipeline_parallel_size: int = 1
-    context_parallel_size: int = 0
-    long_prefill_threshold: int | None = None
-    long_prefill_chunk: int = 2048
     multihost: bool = False
 
     # disaggregated prefill/decode role: None (undeclared) | "prefill"
@@ -195,8 +209,6 @@ class EngineConfig:
         """Names of the requested features this port cannot serve yet."""
         checks = {
             "pipeline_parallel_size>1": self.pipeline_parallel_size > 1,
-            "context_parallel_size>1": self.context_parallel_size > 1,
-            "long_prefill_threshold": self.long_prefill_threshold is not None,
             "multihost (--multihost, --num-processes, --process-id, "
             "--coordinator-address)": self.multihost,
         }
@@ -221,10 +233,26 @@ class EngineConfig:
             "MoE models (expert parallel)": self.model_config().is_moe,
             "async_decode": self.async_decode,
             "precompile_serving": self.precompile_serving,
+            # the JAX engine rings under TP on one ("tp", "sp") mesh; the
+            # port's TP ranks are processes, so the ring there needs its
+            # own broadcast
+            "context_parallel_size>1": self.context_parallel_size > 1,
         }
         return [name for name, on in checks.items() if on]
 
     def __post_init__(self) -> None:
+        if self.long_prefill_threshold is not None:
+            if self.long_prefill_threshold <= 0:
+                raise ValueError(
+                    "long_prefill_threshold must be positive (None "
+                    "disables the long-prefill lane)"
+                )
+            if self.context_parallel_size <= 1:
+                raise ValueError(
+                    "long_prefill_threshold requires "
+                    "context_parallel_size > 1 (the ring needs an sp "
+                    "mesh axis)"
+                )
         if self.device not in ("cuda", "cpu"):
             raise ValueError(
                 f"device must be 'cuda' or 'cpu', got {self.device!r}"

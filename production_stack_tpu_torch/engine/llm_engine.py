@@ -51,8 +51,18 @@ the device's work. Chained rounds carry no device stops, penalties, bias
 or guided tables; a lane that stopped mid-flight discards at most one
 round. Ragged rounds are off under it. ``precompile_serving`` runs the
 JAX engine's warm-up grid of every config-derivable serving program
-(the runner's ``precompile_*`` sweeps). Long prefill is not ported
-here: EngineConfig refuses its flags.
+(the runner's ``precompile_*`` sweeps).
+
+Long prefill (``long_prefill_threshold`` with ``context_parallel_size``
+> 1, engine/long_prefill.py): a prompt past the threshold runs as
+sequence-parallel ring chunks, one a step before ``schedule()``; the
+other users' rounds run between the chunks (not at their normal cadence:
+a step that dispatches a chunk lasts about the chunk's device time on
+the card, as the chunk enqueues eagerly); its KV lands in the paged cache
+through the KV import primitives and its first token is sampled from
+the ring's final-row logits (``_advance_long_prefills``). Adapter and
+prompt-logprob requests stay chunked; a failed ring falls back to the
+chunked lane.
 
 Tensor parallelism (``tensor_parallel_size`` N > 1): the engine is rank
 0 of a rank set (parallel/launch.start_tp_ranks spawns ranks 1..N-1
@@ -267,6 +277,50 @@ class LLMEngine:
         # counts those that ran on the device tables: guided_rounds)
         self._guided_host_rounds_total = 0
         self._init_kv_tiers()
+        self._init_long_prefill()
+
+    def _init_long_prefill(self) -> None:
+        """The long-prefill lane (engine/long_prefill.py): prompts past
+        long_prefill_threshold ring over context_parallel_size ranks,
+        with decode / ragged rounds run between the chunks, and their KV
+        lands through the KV import primitives. A ring that cannot be
+        built degrades loudly to chunked-only serving; a ring whose ranks
+        share the serving card boots with a warning that it is slower
+        than chunked prefill there."""
+        config = self.config
+        self.long_prefill = None
+        if (config.long_prefill_threshold is None
+                or config.context_parallel_size <= 1):
+            return
+        from production_stack_tpu_torch.engine.long_prefill import (
+            LongPrefillManager,
+        )
+
+        try:
+            self.long_prefill = LongPrefillManager(
+                self.runner, chunk_tokens=config.long_prefill_chunk)
+        except Exception as e:  # noqa: BLE001 — a ring that cannot be
+            # built: serve every prompt chunked instead of refusing to
+            # boot
+            logger.warning(
+                "long-prefill lane DISABLED (%s); prompts past %d tokens "
+                "will serve via chunked prefill",
+                e, config.long_prefill_threshold,
+            )
+        else:
+            self.scheduler.config.long_prefill_threshold = (
+                config.long_prefill_threshold)
+            self.scheduler.long_prefill = self._begin_long_prefill
+            ring = self.long_prefill.prefiller.devices
+            if self.runner.device.type == "cuda" and all(
+                    d == ring[0] for d in ring):
+                logger.warning(
+                    "long-prefill ring: all %d ranks share the serving "
+                    "card %s and each chunk dispatches eagerly, so a long "
+                    "prompt's TTFT and the other requests' ITL in chunk "
+                    "steps are worse than chunked prefill's (ROADMAP "
+                    "Queue 1 item 11)", len(ring), ring[0],
+                )
 
     # -- KV offload tiers + controller reporting (LMCache-equivalent) ------
     def _init_kv_tiers(self) -> None:
@@ -331,6 +385,15 @@ class LLMEngine:
         self._kv_restore_bytes_total = 0
         self._kv_restore_fallbacks_total = 0
         self._kv_export_sync_fallbacks_total = 0
+        # wall seconds spent in SYNCHRONOUS tier exports (backlog-cap
+        # degradations and sync_kv_offload): the overflow-export slice
+        # of a long prefill's attribution reads the delta of this and of
+        # the worker-side export seconds over the job's lifetime
+        self._kv_export_sync_seconds_total = 0.0
+        # high-water anchor for that attribution: overlapping long jobs
+        # must not each claim the SAME export seconds; each finalize
+        # claims only the window past the last claim
+        self._long_overflow_anchor = 0.0
         if self.offload is not None and (
             self.offload.tiers or self.offload.remote is not None
         ):
@@ -368,6 +431,7 @@ class LLMEngine:
         backlog-cap degradation share it."""
         if not pairs:
             return
+        t0 = time.monotonic()
         data = self.runner.export_blocks([bid for bid, _ in pairs])
         # per-block owning copies: a view of the batched export would pin
         # the WHOLE export alive in the CPU tier until every sibling block
@@ -375,6 +439,7 @@ class LLMEngine:
         self.offload.put_batch(
             [(h, own_block(data, i)) for i, (_, h) in enumerate(pairs)]
         )
+        self._kv_export_sync_seconds_total += time.monotonic() - t0
 
     def _queue_freed_exports(self, pairs: list[tuple[int, int]]) -> None:
         """Deferred export (the zero-stall path): freed-but-cached blocks
@@ -844,6 +909,113 @@ class LLMEngine:
                 break
         return exp, rst
 
+    # -- long-prefill lane (context-parallel ring prefill) ------------------
+    def _begin_long_prefill(self, seq: Sequence) -> bool:
+        """Scheduler admission hook: claim an admitted long prompt for
+        the ring lane. Declines (-> chunked path) for adapter requests
+        (the ring runs base weights only) and prompt_logprobs (the ring
+        fetches only the final row's logits)."""
+        mgr = self.long_prefill
+        if mgr is None:
+            return False
+        if seq.lora_name is not None:
+            return False
+        if seq.sampling_params.prompt_logprobs is not None:
+            return False
+        # anchor for the overflow-export attribution: tier-export
+        # seconds that accrue while this job is in flight are the
+        # headroom the landed chain displaced
+        export_s0 = (self._kv_export_seconds_total
+                     + self._kv_export_sync_seconds_total)
+        if not mgr.start(seq, export_s0=export_s0):
+            return False
+        seq.long_prefill_active = True
+        if seq.metrics.first_scheduled_time is None:
+            seq.metrics.first_scheduled_time = time.time()
+        return True
+
+    def _advance_long_prefills(self) -> tuple[list[Sequence], bool]:
+        """One engine step's worth of long-prefill progress (chunk
+        dispatch / batch landing — LongPrefillManager.advance) plus
+        finalization of completed jobs: the sequence's chain is fully
+        landed in the paged cache, so its first token is sampled from
+        the ring's final-row logits and it joins the normal decode path.
+        Returns (stepped sequences, progressed)."""
+        mgr = self.long_prefill
+        done, failed, progressed = mgr.advance()
+        stepped: list[Sequence] = []
+        for rec in failed:
+            seq = rec["seq"]
+            if seq.request_id in self._seqs and not seq.finished:
+                # the block table is already allocated; the chunked
+                # planners pick the sequence up next schedule()
+                seq.long_prefill_active = False
+                logger.warning(
+                    "long prefill failed for %s; serving via chunked "
+                    "prefill", seq.request_id,
+                )
+        for rec in done:
+            seq = rec["seq"]
+            if (
+                seq.finished
+                or seq.request_id not in self._seqs
+                or not seq.long_prefill_active
+            ):
+                continue  # aborted/preempted while the last batch landed
+            seq.long_prefill_active = False
+            new_tokens = seq.num_prompt_tokens - seq.num_computed_tokens
+            seq.num_computed_tokens = seq.num_prompt_tokens
+            self._prompt_tokens_total += max(0, new_tokens)
+            export_now = (self._kv_export_seconds_total
+                          + self._kv_export_sync_seconds_total)
+            # claim only the export window past BOTH this job's start and
+            # the last claim: overlapping jobs share the seconds instead
+            # of each counting them (see _long_overflow_anchor)
+            anchor = max(rec.get("export_s0", export_now),
+                         self._long_overflow_anchor)
+            overflow_s = max(0.0, export_now - anchor)
+            self._long_overflow_anchor = export_now
+            mgr.phase_s["overflow"] += overflow_s
+            # first token: sampled from the ring's final-row logits (the
+            # worker parked them on the host, pinned) on the runner's
+            # device, as the host-sampled finals of _run_prefill_works
+            logits = rec["logits"].to(self.runner.device, non_blocking=True)
+            sampled, used_logits = self._sample(
+                [seq], logits[None], return_logits=True)
+            entry = None
+            n_lp = seq.sampling_params.logprobs
+            if n_lp is not None:
+                entry = self._host_logprob_entry(
+                    # stackcheck: disable=device-sync-transitive — the
+                    # long-prefill first-token logprob row materializes
+                    # only when the request asked for logprobs
+                    _to_numpy(used_logits)[0], int(sampled[0]), n_lp)
+            if self._tl_enabled:
+                self.timeline.event(
+                    seq.request_id, "long_prefill",
+                    {
+                        "prompt_tokens": rec["n"],
+                        "chunk_tokens": mgr.chunk,
+                        "chunks": rec["ring_end"] // mgr.chunk,
+                        "blocks_landed": rec["landed_blocks"],
+                        "cached_prompt_tokens": (
+                            rec["start_block"] * mgr.block_size),
+                        "ring_s": round(rec["ring_s"], 6),
+                        "d2h_s": round(rec["d2h_s"], 6),
+                        "land_s": round(rec["land_s"], 6),
+                        "overflow_s": round(overflow_s, 6),
+                    },
+                )
+            self._append_token(seq, int(sampled[0]), entry)
+            stepped.append(seq)
+        return stepped, progressed
+
+    def _cancel_long_prefill(self, seq: Sequence) -> None:
+        """Drop a sequence's ring job (abort / preemption)."""
+        if self.long_prefill is not None:
+            self.long_prefill.cancel(seq.request_id)
+        seq.long_prefill_active = False
+
     def add_request(
         self,
         request_id: str,
@@ -985,6 +1157,8 @@ class LLMEngine:
             return False
         if self._kv_restores:
             self._drop_kv_restore(request_id)
+        if self.long_prefill is not None:
+            self._cancel_long_prefill(seq)
         aborted = self.scheduler.abort(request_id)
         self.timeline.finish(request_id, "abort")
         return aborted
@@ -1086,6 +1260,14 @@ class LLMEngine:
             # start h2d uploads for restores whose tier fetch landed while
             # their requests sit in the waiting queue
             self._poll_kv_restores()
+        # long-prefill lane: advance ring chunks / KV landing BEFORE
+        # scheduling, so a job whose chain just finished landing is
+        # decode-ready in THIS round's plan. Enqueues only, never a
+        # device fetch, so the rounds below keep their cadence.
+        long_stepped: list[Sequence] = []
+        long_progress = True
+        if self.long_prefill is not None and self.long_prefill.active:
+            long_stepped, long_progress = self._advance_long_prefills()
         sched_out = self.scheduler.schedule()
         if sched_out.preempted or sched_out.prefills or sched_out.aborted:
             # a table free or lane-set change invalidates the staged
@@ -1103,6 +1285,14 @@ class LLMEngine:
             # staging miss, never a dispatch error
             self._ragged_staged_misses_total += 1
             self._staged_ragged = None
+        if sched_out.preempted and self.long_prefill is not None:
+            # a preempted long-lane sequence lost its block table: its
+            # ring job is stale. A sequence preempted AND re-admitted in
+            # this same schedule() carries the flag again with a FRESH
+            # job (manager.start replaced the stale record): keep it
+            for seq in sched_out.preempted:
+                if not seq.long_prefill_active:
+                    self.long_prefill.cancel(seq.request_id)
         if sched_out.preempted:
             # preemption frees tables that can be handed out again: the
             # staged prefill buffer goes too, and a zero-cost admission
@@ -1120,6 +1310,10 @@ class LLMEngine:
             else "idle"
         )
         if sched_out.is_empty:
+            if long_stepped:
+                # a long prefill finished with nothing else scheduled:
+                # emit its first-token output now
+                return self._finalize_stepped(long_stepped)
             if self._kv_restores and not self.scheduler.running:
                 # every waiting request is restore-deferred and nothing is
                 # dispatchable: yield briefly instead of pegging the step
@@ -1127,6 +1321,14 @@ class LLMEngine:
                 # stackcheck: disable=blocking-hot — deliberate 1ms idle
                 # yield on the no-dispatchable-work branch (see above)
                 time.sleep(0.001)
+            elif (self.long_prefill is not None
+                  and self.long_prefill.active and not long_progress):
+                # only long-prefill work exists and it waits on the
+                # materialization worker: yield instead of pegging the
+                # step thread against the worker's copy
+                # stackcheck: disable=blocking-hot — deliberate 0.5ms
+                # idle yield while the worker owns the d2h (see above)
+                time.sleep(0.0005)
             return []
 
         outputs: list[RequestOutput] = []
@@ -1139,7 +1341,7 @@ class LLMEngine:
                 self._drop_kv_restore(seq.request_id)
             self.timeline.finish(seq.request_id, seq.finish_reason)
 
-        stepped: list[Sequence] = []
+        stepped: list[Sequence] = list(long_stepped)
         if sched_out.is_ragged:
             # prefill-chunk lanes + the decode batch in ONE lane-typed
             # round (split execution for lanes the fused round cannot
@@ -1185,6 +1387,13 @@ class LLMEngine:
             else:
                 stepped.extend(
                     self._run_decode_round(seqs, sched_out.decode.k))
+        if long_stepped and len(stepped) > len(long_stepped):
+            # a just-finalized long prefill may ALSO have ridden this
+            # round's decode batch (its first token made it decode-ready
+            # before schedule()): finalize it once
+            seen: set[int] = set()
+            stepped = [s for s in stepped
+                       if not (id(s) in seen or seen.add(id(s)))]
         outputs.extend(self._finalize_stepped(stepped))
         return outputs
 
@@ -1229,9 +1438,12 @@ class LLMEngine:
         if self.scheduler.waiting:
             return False  # admission will change the lane set
         if self._ragged_dispatch and any(
-            not s.prefill_done for s in self.scheduler.running
+            not s.prefill_done and not s.long_prefill_active
+            for s in self.scheduler.running
         ):
-            return False
+            return False  # a long-lane runner is NOT a ragged lane: its
+            # ring runs outside the round, so pure-decode staging stays
+            # live under it
         if any(self._is_guided(s) for s in seqs):
             return False
         return self._reserve_next_round(seqs, k)
@@ -2887,6 +3099,8 @@ class LLMEngine:
         return tuple(self._lora_slots(seqs) or ())
 
     def shutdown(self) -> None:
+        if self.long_prefill is not None:
+            self.long_prefill.close()
         if self.offload is not None:
             self.offload.close()  # also closes the PD PeerTier
         if self.kv_reporter is not None:
@@ -2959,6 +3173,7 @@ class LLMEngine:
             prefill_staged_hits_total=self._pf_staged_hits_total,
             prefill_staged_misses_total=self._pf_staged_misses_total,
             prefill_chained_chunks_total=self._pf_chained_chunks_total,
+            **self._long_prefill_stats(),
             decode_rounds_total=self._decode_rounds_total,
             decode_overshoot_tokens_total=(
                 self._decode_overshoot_tokens_total),
@@ -2994,6 +3209,20 @@ class LLMEngine:
                 remote.write_bytes if remote else 0),
             kv_remote_flushes_total=remote.flushes if remote else 0,
             kv_remote_fallbacks_total=remote.fallbacks if remote else 0,
+        )
+
+    def _long_prefill_stats(self) -> dict:
+        mgr = self.long_prefill
+        if mgr is None:
+            return {}
+        return dict(
+            long_prefill_requests_total=mgr.requests_total,
+            long_prefill_chunks_total=mgr.chunks_total,
+            long_prefill_fallbacks_total=mgr.fallbacks_total,
+            long_prefill_ring_seconds_total=mgr.phase_s["ring"],
+            long_prefill_d2h_seconds_total=mgr.phase_s["d2h"],
+            long_prefill_land_seconds_total=mgr.phase_s["land"],
+            long_prefill_overflow_seconds_total=mgr.phase_s["overflow"],
         )
 
     # -- startup warm-up ----------------------------------------------------

@@ -81,6 +81,30 @@ _COUNTERS = (
     ("tpu:prefill_chained_chunks",
      "Prefill chunks dispatched via cold-prompt chaining (no host "
      "round-trip between chunks)", "prefill_chained_chunks_total"),
+    # the long-prefill lane (context-parallel ring prefill): per-phase
+    # attribution of the prompts the ring serves
+    ("tpu:long_prefill_requests",
+     "Prompts served via the context-parallel ring prefill lane",
+     "long_prefill_requests_total"),
+    ("tpu:long_prefill_chunks", "Ring prefill chunk dispatches",
+     "long_prefill_chunks_total"),
+    ("tpu:long_prefill_fallbacks",
+     "Long prefills that failed back to chunked prefill",
+     "long_prefill_fallbacks_total"),
+    ("tpu:prefill_ring_seconds",
+     "Long-prefill ring compute wall time (job start -> ring drained; "
+     "overlaps other users' decode rounds)",
+     "long_prefill_ring_seconds_total"),
+    ("tpu:prefill_ring_d2h_seconds",
+     "Long-prefill device->host KV materialization wall time (on the "
+     "long-prefill worker)", "long_prefill_d2h_seconds_total"),
+    ("tpu:prefill_kv_land_seconds",
+     "Long-prefill paged-cache landing wall time (first parked batch -> "
+     "last donated import enqueued)", "long_prefill_land_seconds_total"),
+    ("tpu:prefill_overflow_export_seconds",
+     "Tier-export seconds attributed to in-flight long prefills (HBM "
+     "headroom the landed chain displaced)",
+     "long_prefill_overflow_seconds_total"),
     ("tpu:decode_rounds", "Decode rounds dispatched", "decode_rounds_total"),
     ("tpu:decode_overshoot_tokens",
      "Sampled decode slots discarded by the host past a stop condition",

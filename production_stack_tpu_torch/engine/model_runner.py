@@ -3065,10 +3065,17 @@ class ModelRunner:
             return contextlib.nullcontext()
         return torch.cuda.stream(self.compute_stream)
 
+    def _index_to_device(self, idx: torch.Tensor) -> torch.Tensor:
+        """A host index tensor on the device, enqueued: from pinned memory
+        the copy does not wait for the stream's earlier work, from
+        pageable memory it would."""
+        if self.device.type == "cuda":
+            idx = idx.pin_memory()
+        return idx.to(self.device, non_blocking=True)
+
     def _block_slots(self, block_ids: list[int]) -> torch.Tensor:
-        return block_table_slots(
-            torch.as_tensor(block_ids, dtype=torch.long),
-            self.block_size).to(self.device)
+        return self._index_to_device(block_table_slots(
+            torch.as_tensor(block_ids, dtype=torch.long), self.block_size))
 
     # stackcheck: hot-path — the deferred-export snapshot is enqueued on
     # the engine step thread right after (or between) dispatches, and by
@@ -3166,7 +3173,7 @@ class ModelRunner:
         m = len(block_ids)
         cols = torch.as_tensor(src_cols, dtype=torch.long)
         if not torch.equal(cols, torch.arange(m)):
-            staged = staged.index_select(2, cols.to(self.device))
+            staged = staged.index_select(2, self._index_to_device(cols))
         elif staged.shape[2] != m:
             staged = staged[:, :, :m]
         idx = self._block_slots(block_ids)
@@ -3183,6 +3190,49 @@ class ModelRunner:
         self.import_staged_blocks(
             block_ids, self.stage_import_blocks(data),
             list(range(len(block_ids))))
+
+    # -- long-context ring (engine/long_prefill.py) ------------------------
+    def build_long_prefiller(self):
+        """The ring prefiller of the long-prefill lane, sp =
+        EngineConfig.context_parallel_size ranks. Its pool is the sp
+        cards past the serving one when the host has them (ring compute
+        then does not queue behind decode on the serving card; the
+        params are copied to the ring's first card); otherwise the
+        serving card repeated sp times, and on the CPU the CPU repeated
+        sp times. Repeated, the ring uses the runner's parameter tensors
+        and makes no second copy.
+
+        A ring on one card computes what a ring over sp cards computes
+        (each rank holds S_pad / sp cache rows and the same hops run in
+        the same order), but its ranks share that card: its times are
+        not sp speeds. Raises for a tensor-parallel runner (the ring
+        under tensor parallelism is not ported) and for sp < 2."""
+        from production_stack_tpu_torch.parallel.long_context import (
+            LongContextPrefiller,
+            make_sp_ring,
+        )
+
+        sp = self.config.context_parallel_size
+        if sp <= 1:
+            raise ValueError("context_parallel_size must be > 1")
+        if self.group is not None:
+            raise ValueError("the long-context ring under tensor "
+                             "parallelism is not ported")
+        dev = self.device
+        if dev.type == "cuda":
+            serving = (dev.index if dev.index is not None
+                       else torch.cuda.current_device())
+            spare = [torch.device("cuda", i)
+                     for i in range(torch.cuda.device_count())
+                     if i != serving]
+            pool = spare if len(spare) >= sp else [
+                torch.device("cuda", serving)] * sp
+        else:
+            pool = [dev] * sp
+        return LongContextPrefiller(
+            self.model_config, self.params, make_sp_ring(sp, pool),
+            cache_dtype=self.cache_dtype,
+        )
 
 
 def _to_device(tree: dict, device: torch.device) -> dict:

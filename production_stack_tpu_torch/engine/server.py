@@ -321,6 +321,10 @@ class EngineServer:
             kv_instance_id=self.config.kv_instance_id,
             kv_role=self.config.pd_role(),
             max_model_len=self.max_model_len,
+            # the ring size, while the long-prefill lane is live
+            sp_size=(self.config.context_parallel_size
+                     if self.engine.engine.long_prefill is not None
+                     else None),
         )
         cards = [card] + [proto.model_card(name, root=path)
                           for name, path in self.lora_adapters.items()]

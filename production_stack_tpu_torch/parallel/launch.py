@@ -72,7 +72,8 @@ def start_tp_ranks(config, devices: list | None = None,
             p = ctx.Process(
                 target=_follower_main, name=f"pst-tp-rank{r}", daemon=True,
                 args=(r, config, config.model_config(), devs, backend,
-                      store_path, timeout_s, params_path),
+                      store_path, timeout_s, params_path,
+                      torch.get_num_threads()),
             )
             p.start()
             followers.append(p)
@@ -99,10 +100,13 @@ def _to_cpu(tree: dict) -> dict:
 
 def _follower_main(rank: int, config, model_config, devices: list[str],
                    backend: str, store_path: str, timeout_s: float,
-                   params_path: str | None) -> None:
+                   params_path: str | None, threads: int) -> None:
     """A spawned rank: join the group, build the runner, replay rank 0's
     steps; publish the exit key (error or not, with the launch counts)
-    before exiting."""
+    before exiting. It takes rank 0's intra-op thread count: a spawned
+    process would otherwise start with one thread a core, whatever its
+    launcher chose."""
+    torch.set_num_threads(threads)
     from production_stack_tpu_torch.engine.model_runner import ModelRunner
     from production_stack_tpu_torch.engine.multihost_engine import (
         exit_key,

@@ -31,6 +31,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from aiohttp import web
 
 from production_stack_tpu.engine import tools as jtools
@@ -48,6 +49,11 @@ from production_stack_tpu_torch.engine.llm_engine import LLMEngine
 from production_stack_tpu_torch.engine.sampling_params import SamplingParams
 from production_stack_tpu_torch.engine.server import EngineServer
 from production_stack_tpu_torch.models.convert import params_from_numpy
+
+# the CPU runs these tests at tiny widths, where intra-op threads
+# cost more than they save: with several test workers on one box,
+# one thread a worker keeps them from oversubscribing the cores
+torch.set_num_threads(1)
 
 MODEL = "pst-tiny-ctx1k-debug"
 CFG = dict(model=MODEL, tokenizer="byte", dtype="float32",

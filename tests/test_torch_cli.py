@@ -22,6 +22,7 @@ import tomllib
 from pathlib import Path
 
 import pytest
+import torch
 
 from production_stack_tpu.engine.__main__ import build_parser as j_parser
 from production_stack_tpu_torch.engine.__main__ import (
@@ -30,6 +31,11 @@ from production_stack_tpu_torch.engine.__main__ import (
     main,
 )
 from production_stack_tpu_torch.ops import cuda_build
+
+# the CPU runs these tests at tiny widths, where intra-op threads
+# cost more than they save: with several test workers on one box,
+# one thread a worker keeps them from oversubscribing the cores
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 # values for flags that take one (others: by the JAX action's type)
@@ -68,6 +74,16 @@ def test_every_jax_cli_flag_parses_in_the_port(flag):
         config_from_args(args)
     except NotImplementedError as e:
         assert "not ported to the PyTorch engine yet" in str(e)
+    except ValueError as e:
+        # a value the JAX package's EngineConfig refuses too, with the
+        # same message (--long-prefill-threshold without a ring)
+        from production_stack_tpu.engine.__main__ import (
+            config_from_args as j_config_from_args,
+        )
+
+        with pytest.raises(ValueError) as want:
+            j_config_from_args(j_parser().parse_args(argv[2:]))
+        assert str(e) == str(want.value)
 
 
 @pytest.mark.parametrize("argv,field,want", [
@@ -79,6 +95,9 @@ def test_every_jax_cli_flag_parses_in_the_port(flag):
     (["--async-decode"], "async_decode", True),
     (["--precompile-serving"], "precompile_serving", True),
     (["--long-prefill-chunk", "128"], "long_prefill_chunk", 128),
+    (["--long-prefill-threshold", "4096", "--context-parallel-size", "2"],
+     "long_prefill_threshold", 4096),
+    (["--context-parallel-size", "2"], "context_parallel_size", 2),
     (["--tensor-parallel-size", "2"], "tensor_parallel_size", 2),
     (["--tensor-parallel-size", "4", "--no-ragged-kernel"],
      "tensor_parallel_size", 4),
@@ -91,7 +110,9 @@ def test_served_flags_reach_engine_config(argv, field, want):
 
 @pytest.mark.parametrize("argv,name", [
     (["--precompile-serving"], "precompile_serving"),
-    (["--long-prefill-threshold", "256"], "long_prefill_threshold"),
+    # the ring under tensor parallelism (its own broadcast, not ported)
+    (["--tensor-parallel-size", "2", "--context-parallel-size", "2"],
+     "context_parallel_size>1"),
     (["--num-processes", "2"], "multihost"),
     (["--process-id", "1"], "multihost"),
     (["--coordinator-address", "10.0.0.1:1234"], "multihost"),
@@ -136,6 +157,21 @@ def test_unported_flags_stop_with_engine_config_message(argv, name,
         return
     with pytest.raises(NotImplementedError, match=re.escape(name)):
         main(["--device", "cpu", *argv])
+
+
+def test_long_prefill_threshold_alone_stops_with_the_jax_message():
+    """--long-prefill-threshold without --context-parallel-size > 1
+    stops in EngineConfig with the JAX package's ValueError."""
+    from production_stack_tpu.engine.__main__ import (
+        config_from_args as j_config_from_args,
+    )
+
+    argv = ["--long-prefill-threshold", "256"]
+    with pytest.raises(ValueError, match="context_parallel_size") as want:
+        j_config_from_args(j_parser().parse_args(argv))
+    with pytest.raises(ValueError) as got:
+        main(["--device", "cpu", *argv])
+    assert str(got.value) == str(want.value)
 
 
 def _serve_completion(argv, monkeypatch) -> tuple[dict, object]:

@@ -50,6 +50,11 @@ from production_stack_tpu_torch.engine.model_runner import ModelRunner
 from production_stack_tpu_torch.engine.sampling_params import SamplingParams
 from production_stack_tpu_torch.models.convert import params_from_numpy
 
+# the CPU runs these tests at tiny widths, where intra-op threads
+# cost more than they save: with several test workers on one box,
+# one thread a worker keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 REL = 1e-5
 BASE = dict(
     model="pst-tiny-debug", tokenizer="byte", dtype="float32",

@@ -16,6 +16,11 @@ import torch
 
 from production_stack_tpu_torch.ops import paged_attention as tpa
 
+# the CPU runs these tests at tiny widths, where intra-op threads
+# cost more than they save: with several test workers on one box,
+# one thread a worker keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 
 def _np(x):
     return np.asarray(x, np.float32)

@@ -30,6 +30,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from aiohttp import web
 
 from production_stack_tpu.engine.config import EngineConfig as JConfig
@@ -48,6 +49,11 @@ from production_stack_tpu_torch.engine.lora import save_adapter_npz
 from production_stack_tpu_torch.engine.model_runner import ModelRunner
 from production_stack_tpu_torch.engine.server import EngineServer
 from production_stack_tpu_torch.models.convert import params_from_numpy
+
+# the CPU runs these tests at tiny widths, where intra-op threads
+# cost more than they save: with several test workers on one box,
+# one thread a worker keeps them from oversubscribing the cores
+torch.set_num_threads(1)
 
 REL = 1e-5
 MODEL = "pst-tiny-ctx1k-debug"

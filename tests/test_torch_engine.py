@@ -33,6 +33,11 @@ from production_stack_tpu_torch.engine.sampling_params import SamplingParams
 from production_stack_tpu_torch.models.convert import params_from_numpy
 from production_stack_tpu_torch.ops import paged_attention as tpa
 
+# the CPU runs these tests at tiny widths, where intra-op threads
+# cost more than they save: with several test workers on one box,
+# one thread a worker keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 BASE = dict(
     model="pst-tiny-debug", tokenizer="byte", dtype="float32",
     cache_dtype="float32", block_size=4, num_kv_blocks=128, max_num_seqs=4,
@@ -141,8 +146,26 @@ def test_unported_flags_refuse_to_start(field, value):
     tests/test_torch_async_decode.py). So is tensor_parallel_size 2: its
     config starts a rank set on the CPU (held to the JAX meshed engine in
     tests/test_torch_tensor_parallel.py), and it refuses, naming it, what
-    it does not carry yet."""
+    it does not carry yet. So is the long-prefill lane (held to the JAX
+    engine's in tests/test_torch_long_context.py): a threshold needs
+    context_parallel_size > 1 (the JAX ValueError), with it the lane is
+    live, and context_parallel_size alone starts an engine without it."""
     cfg = {**BASE, "ragged_dispatch": True, field: value}
+    if field in ("long_prefill_threshold", "context_parallel_size"):
+        if field == "long_prefill_threshold":
+            with pytest.raises(ValueError, match="context_parallel_size"):
+                EngineConfig(**cfg, device="cpu")
+            cfg["context_parallel_size"] = 2
+        eng = LLMEngine(EngineConfig(**cfg, device="cpu"))
+        try:
+            assert (eng.long_prefill is not None) == (
+                field == "long_prefill_threshold")
+            out = eng.generate([[1, 2, 3]], SamplingParams(
+                max_tokens=9, temperature=0.0, ignore_eos=True))
+            assert len(out[0].token_ids) == 9
+        finally:
+            eng.shutdown()
+        return
     if field == "tensor_parallel_size":
         with pytest.raises(NotImplementedError, match="async_decode"):
             EngineConfig(**cfg, num_scheduler_steps=4, async_decode=True,

@@ -28,6 +28,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import production_stack_tpu.engine.structured as jstructured
 import production_stack_tpu_torch.engine.structured as tstructured
@@ -44,6 +45,11 @@ from production_stack_tpu_torch.engine.llm_engine import LLMEngine
 from production_stack_tpu_torch.engine.sampling_params import SamplingParams
 from production_stack_tpu_torch.engine.tokenizer import ByteTokenizer
 from production_stack_tpu_torch.models.convert import params_from_numpy
+
+# the CPU runs these tests at tiny widths, where intra-op threads
+# cost more than they save: with several test workers on one box,
+# one thread a worker keeps them from oversubscribing the cores
+torch.set_num_threads(1)
 
 BASE = dict(model="pst-tiny-debug", tokenizer="byte", dtype="float32",
             cache_dtype="float32", block_size=8, num_kv_blocks=64,

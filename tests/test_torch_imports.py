@@ -10,6 +10,12 @@ import pkgutil
 from pathlib import Path
 
 import pytest
+import torch
+
+# the CPU runs these tests at tiny widths, where intra-op threads
+# cost more than they save: with several test workers on one box,
+# one thread a worker keeps them from oversubscribing the cores
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "production_stack_tpu_torch"

@@ -68,6 +68,11 @@ from production_stack_tpu_torch.kv import remote as tremote
 from production_stack_tpu_torch.models.convert import params_from_numpy
 from production_stack_tpu_torch.utils.xxh64 import xxh64
 
+# the CPU runs these tests at tiny widths, where intra-op threads
+# cost more than they save: with several test workers on one box,
+# one thread a worker keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 PKGS = ("jax", "port")
 OFF = {"jax": joff, "port": toff}
 COMMON = dict(model="pst-tiny-debug", tokenizer="byte", dtype="float32",

@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from prometheus_client import CollectorRegistry, generate_latest
 from prometheus_client.parser import text_string_to_metric_families
 
@@ -43,6 +44,11 @@ from production_stack_tpu_torch.engine.metrics import EngineMetrics
 from production_stack_tpu_torch.engine.outputs import EngineStatsSnapshot
 from production_stack_tpu_torch.engine.server import EngineServer
 from production_stack_tpu_torch.models.convert import params_from_numpy
+
+# the CPU runs these tests at tiny widths, where intra-op threads
+# cost more than they save: with several test workers on one box,
+# one thread a worker keeps them from oversubscribing the cores
+torch.set_num_threads(1)
 
 CFG = dict(model="pst-tiny-debug", tokenizer="byte", dtype="float32",
            cache_dtype="float32", block_size=4, num_kv_blocks=256,
@@ -169,19 +175,15 @@ def _families(text):
     return out
 
 
-# JAX families of the paths the port has not ported (the long-prefill
-# lane and its context-parallel ring prefill, ROADMAP Queue 1 item 7)
-UNPORTED_FAMILIES = ("tpu:long_prefill_", "tpu:prefill_ring_",
-                     "tpu:prefill_kv_land_seconds",
-                     "tpu:prefill_overflow_export_seconds")
-
 
 def test_families_match_the_jax_module():
     """The same snapshot and finished requests through both modules:
     every family the port exports exists in the JAX module's output with
     the same type, sample names, label names, buckets and values, and
-    every family of the JAX module is exported by the port except those
-    of UNPORTED_FAMILIES (and prometheus_client's _created gauges)."""
+    every family of the JAX module is exported by the port (except
+    prometheus_client's _created gauges), the long-prefill lane's
+    tpu:long_prefill_* and tpu:prefill_{ring,ring_d2h,kv_land,
+    overflow_export}_seconds families included."""
     fields = dict(
         num_running=3, num_waiting=2, kv_usage=0.25,
         prefix_cache_queries=40, prefix_cache_hits=12,
@@ -192,6 +194,12 @@ def test_families_match_the_jax_module():
         prefill_dispatch_seconds_total=2.0,
         prefill_fetch_seconds_total=0.75, prefill_staged_hits_total=4,
         prefill_staged_misses_total=1, prefill_chained_chunks_total=6,
+        long_prefill_requests_total=2, long_prefill_chunks_total=16,
+        long_prefill_fallbacks_total=1,
+        long_prefill_ring_seconds_total=3.25,
+        long_prefill_d2h_seconds_total=0.5,
+        long_prefill_land_seconds_total=0.125,
+        long_prefill_overflow_seconds_total=0.0625,
         decode_rounds_total=9, decode_overshoot_tokens_total=0,
         decode_early_exit_rounds_total=2, ragged_rounds_total=3,
         ragged_split_rounds_total=1,
@@ -242,10 +250,9 @@ def test_families_match_the_jax_module():
         ref.observe_request(*f[:4], queue_s=f[4], sched_delay_s=f[5],
                             preempt_stall_s=f[6])
     want = _families(generate_latest(reg).decode())
-    assert len(got) == 54
+    assert len(got) == 61
     missing = sorted(name for name in want
-                     if name not in got and not name.endswith("_created")
-                     and not name.startswith(UNPORTED_FAMILIES))
+                     if name not in got and not name.endswith("_created"))
     assert missing == []
     for name, (kind, samples) in got.items():
         assert name in want, name
@@ -261,7 +268,12 @@ def test_families_match_the_jax_module():
                  "tpu:kv_export_sync_fallbacks", "tpu:ragged_lane_mix",
                  "vllm:spec_decode_num_draft_tokens",
                  "vllm:spec_decode_num_accepted_tokens",
-                 "tpu:compile_events", "tpu:hbm_kv_cache_usage_perc"):
+                 "tpu:compile_events", "tpu:hbm_kv_cache_usage_perc",
+                 "tpu:long_prefill_requests", "tpu:long_prefill_chunks",
+                 "tpu:long_prefill_fallbacks", "tpu:prefill_ring_seconds",
+                 "tpu:prefill_ring_d2h_seconds",
+                 "tpu:prefill_kv_land_seconds",
+                 "tpu:prefill_overflow_export_seconds"):
         assert name in got
 
 

@@ -27,6 +27,11 @@ from production_stack_tpu_torch.models.convert import params_from_numpy
 from production_stack_tpu_torch.ops import layers as tlayers
 from production_stack_tpu_torch.ops import paged_attention as tpa
 
+# the CPU runs these tests at tiny widths, where intra-op threads
+# cost more than they save: with several test workers on one box,
+# one thread a worker keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 RTOL = 1e-5
 
 

@@ -53,6 +53,11 @@ from production_stack_tpu_torch.models.weights import load_hf_weights
 from production_stack_tpu_torch.ops import attention as tattn
 from production_stack_tpu_torch.ops import moe as tmoe
 
+# the CPU runs these tests at tiny widths, where intra-op threads
+# cost more than they save: with several test workers on one box,
+# one thread a worker keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 REL = 1e-5
 N, D, F, E, K = 12, 16, 32, 4, 2
 MC = get_model_config("pst-tiny-moe-debug")

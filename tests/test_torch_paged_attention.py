@@ -29,6 +29,11 @@ from test_torch_cuda_kernels import (
     ragged_case,
 )
 
+# the CPU runs these tests at tiny widths, where intra-op threads
+# cost more than they save: with several test workers on one box,
+# one thread a worker keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 RTOL = ATOL = 1e-5  # f32, order of summation only
 
 

@@ -22,6 +22,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from production_stack_tpu.engine.config import EngineConfig as JConfig
 from production_stack_tpu.engine.llm_engine import LLMEngine as JEngine
@@ -41,6 +42,11 @@ from production_stack_tpu_torch.engine.sampling_params import SamplingParams
 from production_stack_tpu_torch.kv import transfer as ttransfer
 from production_stack_tpu_torch.kv.peer import PeerTier
 from production_stack_tpu_torch.models.convert import params_from_numpy
+
+# the CPU runs these tests at tiny widths, where intra-op threads
+# cost more than they save: with several test workers on one box,
+# one thread a worker keeps them from oversubscribing the cores
+torch.set_num_threads(1)
 
 BASE = dict(model="pst-tiny-debug", tokenizer="byte", dtype="float32",
             cache_dtype="float32", seed=0, block_size=4, num_kv_blocks=64,

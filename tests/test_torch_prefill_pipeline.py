@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from production_stack_tpu.engine import block_manager as jbm
 from production_stack_tpu.engine.config import EngineConfig as JConfig
@@ -47,6 +48,11 @@ from production_stack_tpu_torch.engine.llm_engine import LLMEngine
 from production_stack_tpu_torch.engine.model_runner import ModelRunner
 from production_stack_tpu_torch.engine.sampling_params import SamplingParams
 from production_stack_tpu_torch.models.convert import params_from_numpy
+
+# the CPU runs these tests at tiny widths, where intra-op threads
+# cost more than they save: with several test workers on one box,
+# one thread a worker keeps them from oversubscribing the cores
+torch.set_num_threads(1)
 
 COMMON = dict(model="pst-tiny-debug", tokenizer="byte", dtype="float32",
               cache_dtype="float32", seed=0)

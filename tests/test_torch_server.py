@@ -11,9 +11,15 @@ import urllib.error
 import urllib.request
 
 import pytest
+import torch
 
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.server import EngineServer
+
+# the CPU runs these tests at tiny widths, where intra-op threads
+# cost more than they save: with several test workers on one box,
+# one thread a worker keeps them from oversubscribing the cores
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

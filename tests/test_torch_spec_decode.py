@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from prometheus_client import CollectorRegistry, generate_latest
 from prometheus_client.parser import text_string_to_metric_families
 
@@ -52,6 +53,11 @@ from production_stack_tpu_torch.engine.model_runner import ModelRunner
 from production_stack_tpu_torch.engine.sampling_params import SamplingParams
 from production_stack_tpu_torch.engine.sequence import Sequence
 from production_stack_tpu_torch.models.convert import params_from_numpy
+
+# the CPU runs these tests at tiny widths, where intra-op threads
+# cost more than they save: with several test workers on one box,
+# one thread a worker keeps them from oversubscribing the cores
+torch.set_num_threads(1)
 
 REL = 1e-5
 MC = get_model_config("pst-tiny-debug")

@@ -58,6 +58,11 @@ from production_stack_tpu_torch.parallel import sharding as tsharding
 from production_stack_tpu_torch.parallel.launch import start_tp_ranks
 from reference_model import dense_greedy_generate
 
+# the CPU runs these tests at tiny widths, where intra-op threads
+# cost more than they save: with several test workers on one box,
+# one thread a worker keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 REL = 1e-5
 TIED = jmcfg.ModelConfig(
     name="pst-tiny-tp-port",

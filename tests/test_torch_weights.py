@@ -75,6 +75,11 @@ from production_stack_tpu_torch.ops.attention import (
     context_attention_prefill as t_prefill_attn,
 )
 
+# the CPU runs these tests at tiny widths, where intra-op threads
+# cost more than they save: with several test workers on one box,
+# one thread a worker keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 REL = 1e-5
 COMMON = dict(
     vocab_size=128, hidden_size=32, intermediate_size=64,

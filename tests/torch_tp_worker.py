@@ -26,7 +26,8 @@ def run_ranks(fn, tp: int, *args, timeout_s: float = 60.0) -> list:
     store = os.path.join(tmp, "store")
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=_rank_main,
-                         args=(fn, r, tp, store, tmp, args, timeout_s))
+                         args=(fn, r, tp, store, tmp, args, timeout_s,
+                               torch.get_num_threads()))
              for r in range(1, tp)]
     try:
         for p in procs:
@@ -47,7 +48,10 @@ def run_ranks(fn, tp: int, *args, timeout_s: float = 60.0) -> list:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _rank_main(fn, rank, tp, store, tmp, args, timeout_s):
+def _rank_main(fn, rank, tp, store, tmp, args, timeout_s, threads):
+    # the caller's intra-op thread count (a spawned process would start
+    # with one a core)
+    torch.set_num_threads(threads)
     group = TPGroup(rank, tp, store, "cpu", "gloo", timeout_s)
     torch.save(fn(group, *args), os.path.join(tmp, f"rank{rank}.pt"))
 
