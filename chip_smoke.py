@@ -279,6 +279,28 @@ Phases, each fatal on failure:
    build/chip_smoke_lc_serve.log): /v1/models carries sp_size 2, a
    5000-token completion is answered, /metrics counts one long-prefill
    request and no fallback, launches 28 a forward.
+15. Pipeline parallelism (pp_phase): the 3B served at pp=2 (two ranks)
+   and at pp=2 x tp=2 (four ranks), every rank on cuda:0 over gloo,
+   each rank set started once, against one pp=1 engine on the gather
+   path (attention_impl xla) on the same seed: a one-shot 512-token
+   forward's logits within PP_LOGIT_REL_TOL of max|logit|, the mixed
+   scenario's streams under the near-tie rule, every rank's report
+   (stage and tp index by the row-major layout, 14 layers, no kernel
+   launch: pp serves on the gather path as JAX serves it on XLA, the
+   store steps rank 0 published), wall ms a token at batch 8 in turns
+   (ranks share one card over gloo: not a PP speed); then
+   PipelinedPrefiller on a 4096-token prompt, 2 stages of 14 layers on
+   the card: all rows' logits and every K/V row held to a one-shot
+   forward.
+16. Multihost (multihost_phase): two processes of the CLI joined into
+   one job on loopback (--multihost --num-processes 2 --process-id
+   {0,1} --coordinator-address 127.0.0.1:<port>
+   --tensor-parallel-size 2; logs build/chip_smoke_mh{0,1}_serve.log),
+   each one rank on cuda:0 over gloo: process 0 serves, process 1
+   follows; a greedy completion held to the tp phase's single-process
+   tp=2 engine under the near-tie rule, rank 0's launches 28 a forward,
+   and process 1 exits non-zero within MH_EXIT_S of SIGTERM to process
+   0.
 
 Launch counts are reset just before the serve phase's requests (through
 the server's /debug/kernel_launches) and again before its API requests,
@@ -291,13 +313,15 @@ before each KV-phase engine's and server's requests, before each
 impl-phase turn, the gather families' engines, the Phi-3 server's
 requests, the Mixtral engine's run and, on every rank, before the tp
 phase's one-shot forwards and its tp=2 scenario, before each
-long-context engine's run and the long-context server's request, and
-read just after; a kernel launched 0 times on those paths fails the
+long-context engine's run and the long-context server's request, on
+every rank before each pp scenario, and before the multi-host
+server's completion, and read just after; a kernel launched 0 times on those paths fails the
 run. The servers' logs go to build/chip_smoke_serve.log,
 build/chip_smoke_lc_serve.log,
 build/chip_smoke_spec_serve.log, build/chip_smoke_lora_serve.log, build/chip_smoke_prefill_serve.log,
 build/chip_smoke_decode_serve.log, build/chip_smoke_cache_server.log and
-build/chip_smoke_phi3_serve.log. The last lines are the kernels JSON, the
+build/chip_smoke_phi3_serve.log and build/chip_smoke_mh{0,1}_serve.log.
+The last lines are the kernels JSON, the
 card's name and power limit (nvidia-smi), and {"ok": true, "device":
 {...}}.
 """
@@ -4361,7 +4385,9 @@ def tp_phase(torch, pa, gap_tol: float, smi: str) -> dict:
     (gloo through the host on one shared card: not a TP speed). Then
     the Qwen2-7B 2-layer checkpoint (qkv bias split, untied lm_head
     vocab-sharded, g = 7 on a rank) at tp=2: logits held to tp=1's.
-    Returns rank 0's and rank 1's launches over the scenario."""
+    Returns rank 0's and rank 1's launches over the scenario, and the
+    tp=2 engine's greedy stream of MH_PROMPT (the multi-host phase's
+    reference)."""
     import shutil
     import tempfile
 
@@ -4437,6 +4463,11 @@ def tp_phase(torch, pa, gap_tol: float, smi: str) -> dict:
               f"{', '.join(f'{x:.3f}' for x in ms['tp2'])}; tp=1 "
               f"{', '.join(f'{x:.3f}' for x in ms['tp1'])} ({smi})",
               flush=True)
+        # the multi-host phase's reference: this single-process tp=2
+        # engine's greedy stream of its prompt
+        [mh_ref] = eng.generate([MH_PROMPT], SamplingParams(
+            max_tokens=MH_TOKENS, temperature=0, ignore_eos=True,
+            logprobs=2))
     finally:
         stop(eng, "tp phase llama-3.2-3b")
         del ref
@@ -4479,7 +4510,7 @@ def tp_phase(torch, pa, gap_tol: float, smi: str) -> dict:
             release(torch)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return {"rank0": counts[0], "rank1": counts[1]}
+    return {"rank0": counts[0], "rank1": counts[1]}, mh_ref
 
 
 # -- long-context phase ----------------------------------------------------------
@@ -4964,6 +4995,285 @@ def long_context_phase(torch, pa, gap_tol: float, smi: str) -> dict:
     return counts
 
 
+# -- pipeline-parallel phase -------------------------------------------------------
+PP_KV_BLOCKS = 512
+PP_ONESHOT_TOKENS = 512
+PP_PREFILL_TOKENS = 4096
+# the pp forward against pp=1, both on the gather path: the same bf16
+# math in the same order on one card (a stage's rows reach the next stage
+# bit for bit), so the decode phase's bound holds with room
+PP_LOGIT_REL_TOL = DECODE_LOGIT_REL_TOL
+# (rank set name, pp, tp): every rank on the one card over gloo
+PP_LAYOUTS = (("pp2", 2, 1), ("pp2 x tp2", 2, 2))
+
+
+def pp_rank_check(what: str, reports: list[dict], pp: int, tp: int,
+                  layers: int) -> None:
+    """Every rank of a pp x tp set: stage r // tp, tp index r % tp,
+    layers / pp layers held, no kernel launch (pp serves on the gather
+    path, as the JAX engine serves it on XLA), its tensors on cuda:0, no
+    collective on a host tensor, the same dispatches as rank 0 and the
+    step descriptors it read from the store equal to those rank 0
+    published."""
+    steps = reports[0]["store_steps"]
+    for rep in reports:
+        r = rep["rank"]
+        print(f"{what} rank {r}: stage {rep['stage']}, tp index "
+              f"{rep['tp_rank']}, {rep['layers']} layers, store steps "
+              f"{rep['store_steps']}, broadcasts {rep['broadcasts']}, "
+              f"all-reduces {rep['all_reduces']}, launches "
+              f"{rep['launches']}", flush=True)
+        if ((rep["stage"], rep["tp_rank"]) != divmod(r, tp)
+                or rep["layers"] != layers // pp
+                or any(rep["launches"].values())
+                or rep["tensor_devices"] != ["cuda:0"]
+                or rep["host_collectives"] or rep["store_steps"] != steps
+                or rep["dispatch_counts"] != reports[0]["dispatch_counts"]):
+            fail(f"{what} rank {r}: report {rep}")
+
+
+def pp_prefiller_check(torch, smi: str) -> None:
+    """parallel/pipeline.PipelinedPrefiller on the 28-layer 3B, 2 stages
+    both on the card: a PP_PREFILL_TOKENS-token prompt's logits (every
+    row) within PP_LOGIT_REL_TOL of max|logit| and every K/V row within
+    LC_KV_REL_TOL of a one-shot forward's (contiguous cache rows, the
+    plain chunk attention); no kernel launch."""
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.models.config import get_model_config
+    from production_stack_tpu_torch.ops import paged_attention as pa
+    from production_stack_tpu_torch.ops.attention import (
+        context_attention_prefill,
+    )
+    from production_stack_tpu_torch.parallel.pipeline import (
+        PipelinedPrefiller,
+        make_pp_stages,
+    )
+
+    cfg = get_model_config("llama-3.2-3b")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = llama.init_params(cfg, gen, torch.bfloat16, "cuda")
+    n = PP_PREFILL_TOKENS
+    ids = [(j * 7919 + 3) % cfg.vocab_size for j in range(n)]
+    pre = PipelinedPrefiller(cfg, params,
+                             make_pp_stages(2, ["cuda:0", "cuda:0"]))
+    pa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, kcs, vcs, T = pre.prefill(ids)
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t0
+    if any(pa.launch_counts().values()) or T != n:
+        fail(f"pp phase prefiller: T {T}, launches {pa.launch_counts()}")
+    kc = torch.zeros((cfg.num_layers, cfg.num_kv_heads, n, cfg.head_dim),
+                     dtype=torch.bfloat16, device="cuda")
+    vc = torch.zeros_like(kc)
+    pos = torch.arange(n, device="cuda")
+
+    def attn(q, l, k, v):
+        return context_attention_prefill(
+            q, k[l].transpose(0, 1), v[l].transpose(0, 1), pos, n,
+            cfg.head_dim**-0.5)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, _, _ = llama.forward(cfg, params, torch.tensor(ids, device="cuda"),
+                               pos, kc, vc, pos, attn, logits_rows=pos)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    rel = float((logits - want).abs().max()) / float(want.abs().max())
+    print(f"pp phase prefiller: {n}-token prompt through 2 stages x "
+          f"{cfg.num_layers // 2} layers ({pre.num_microbatches} "
+          f"microbatches, both stages on cuda:0) in {pipe_s:.3f}s, the "
+          f"one-shot forward in {one_s:.3f}s (host clock, synchronized); "
+          f"logits of all {n} rows max|d|/max|logit|={rel:.3e} (tol "
+          f"{PP_LOGIT_REL_TOL}) on {smi}", flush=True)
+    if not (torch.isfinite(logits).all() and rel <= PP_LOGIT_REL_TOL):
+        fail(f"pp phase prefiller: logits off by {rel:.3e}")
+    del logits, want
+    for name, got, ref in (("K", kcs, kc), ("V", vcs, vc)):
+        per_row_check(torch, f"pp phase prefiller {name} rows "
+                      f"({cfg.num_layers} layers x {n} rows x "
+                      f"{cfg.num_kv_heads} kv heads) vs one-shot",
+                      torch.cat(got)[:, :, :n], ref, LC_KV_REL_TOL)
+    del kcs, vcs, kc, vc, pre, params
+    release(torch)
+
+
+def pp_phase(torch, pa, gap_tol: float, smi: str) -> None:
+    """Llama-3.2-3B (28 layers, bf16, seeded random weights, byte
+    tokenizer) served at pp=2 (two ranks on cuda:0 over gloo, 14 layers
+    each) and at pp=2 x tp=2 (four ranks on cuda:0), each rank set
+    started once, against one pp=1 engine on the gather path
+    (attention_impl xla) on the same seed, all K=8 (under pp: split
+    rounds, the fused K-step decode, no staging): a one-shot
+    PP_ONESHOT_TOKENS-token forward's logits held to pp=1's; the mixed
+    phase's scenario (four greedy 32-token requests, a 1500-token prompt
+    at step 2), streams held to pp=1's under the near-tie rule and every
+    rank's report checked (pp_rank_check); wall ms a token at batch 8 in
+    turns (ranks share one card over gloo: not a PP speed). Then the
+    pipelined prefiller (pp_prefiller_check)."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.llm_engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+    from production_stack_tpu_torch.parallel.launch import start_tp_ranks
+
+    t_phase = time.perf_counter()
+    base = dict(model="llama-3.2-3b", tokenizer="byte", device="cuda",
+                block_size=32, num_kv_blocks=PP_KV_BLOCKS, max_num_seqs=8,
+                seed=SEED, num_scheduler_steps=8)
+    sp = SamplingParams(max_tokens=32, temperature=0, ignore_eos=True,
+                        logprobs=2)
+    ids = [(5 * j + 3) % 250 + 1 for j in range(PP_ONESHOT_TOKENS)]
+    table = list(range(1, 1 + -(-len(ids) // 32)))
+    ref = LLMEngine(EngineConfig(**base, attention_impl="xla"))
+    try:
+        want = ref.runner.prefill(ids, 0, table, len(ids))[1].float()
+        ref_outs, _, _, _, ref_wall = staggered_mix(torch, pa, ref, "pp-ref",
+                                                    0, sp)
+        for tag, pp, tp in PP_LAYOUTS:
+            t0 = time.perf_counter()
+            cfg = EngineConfig(**base, pipeline_parallel_size=pp,
+                               tensor_parallel_size=tp)
+            group = start_tp_ranks(cfg, devices=["cuda:0"] * (pp * tp),
+                                   backend="gloo")
+            eng = LLMEngine(cfg, tp_group=group)
+            try:
+                print(f"pp phase {tag}: {pp * tp} ranks (gloo, all on "
+                      f"cuda:0) and the engine up in "
+                      f"{time.perf_counter() - t0:.1f}s; attention impl "
+                      f"{eng.runner.attention_impl}, ragged rounds "
+                      f"{eng._ragged_dispatch}, staging off", flush=True)
+                got = eng.runner.prefill(ids, 0, table, len(ids))[1].float()
+                torch.cuda.synchronize()
+                rel = float((got - want).abs().max()) / float(
+                    want.abs().max())
+                print(f"pp phase {tag}: one-shot {len(ids)}-token forward, "
+                      f"last-row logits vs pp=1 max|d|/max|logit|="
+                      f"{rel:.3e} (tol {PP_LOGIT_REL_TOL}) on {smi}",
+                      flush=True)
+                if not (torch.isfinite(got).all()
+                        and rel <= PP_LOGIT_REL_TOL):
+                    fail(f"pp phase {tag}: logits off pp=1's by {rel:.3e}")
+                eng.runner.reset_counts()
+                outs, _, runs, _, wall = staggered_mix(
+                    torch, pa, eng, f"pp-{tag}", 0, sp)
+                pp_rank_check(f"pp phase {tag}", eng.runner.reports(), pp,
+                              tp, LAYERS_3B)
+                n_same = near_tie_check(f"pp phase {tag} vs pp=1",
+                                        ref_outs, outs, gap_tol)
+                print(f"pp phase {tag}: {n_same}/5 greedy streams (4 x 32 "
+                      f"tokens and the {LONG_PROMPT_TOKENS}-token prompt's) "
+                      f"equal to pp=1's; dispatches {runs}; the scenario's "
+                      f"wall {wall:.2f}s against {ref_wall:.2f}s at pp=1 on "
+                      f"{smi}", flush=True)
+                ms = {"pp": [], "pp1": []}
+                for turn, who in enumerate(("pp", "pp1", "pp1", "pp")):
+                    ms[who].append(decode_batch8(
+                        torch, eng if who == "pp" else ref,
+                        f"pp-{tag}-{who}-b8", turn))
+                print(f"pp phase {tag}: wall ms a generated token at batch "
+                      f"8 (K=8, host clock; ranks share one card over "
+                      f"gloo: not a PP speed): {tag} "
+                      f"{', '.join(f'{x:.3f}' for x in ms['pp'])}; pp=1 "
+                      f"{', '.join(f'{x:.3f}' for x in ms['pp1'])} on "
+                      f"{smi}", flush=True)
+            finally:
+                followers = list(eng.tp_group.followers)
+                eng.shutdown()
+                codes = [p.exitcode for p in followers]
+                if codes != [0] * len(followers):
+                    fail(f"pp phase {tag}: followers exited with {codes}")
+    finally:
+        del ref
+        release(torch)
+    pp_prefiller_check(torch, smi)
+    print(f"pp phase: {time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
+# -- multi-host phase ----------------------------------------------------------------
+MH_PROMPT = [(13 * j + 5) % 250 + 1 for j in range(200)]
+MH_TOKENS = 32
+# process 1 must exit within this many seconds of process 0's SIGTERM
+MH_EXIT_S = 30.0
+
+
+def multihost_phase(torch, gap_tol: float, smi: str, ref) -> dict:
+    """Two processes of the port's CLI joined into one job on loopback
+    (--multihost --num-processes 2 --process-id {0,1}
+    --coordinator-address 127.0.0.1:<port> --tensor-parallel-size 2),
+    the 3B at full width, each process one rank on cuda:0 over gloo
+    (logs build/chip_smoke_mh{0,1}_serve.log): process 0 serves HTTP,
+    process 1 follows. A greedy completion of MH_PROMPT equals `ref`
+    (the single-process tp=2 engine's, tp phase) under the near-tie
+    rule; rank 0 launches the ragged kernel 28 times a forward
+    (/debug/kernel_launches); after SIGTERM to process 0, process 1
+    exits non-zero within MH_EXIT_S. Returns rank 0's launches."""
+    import types
+
+    t_phase = time.perf_counter()
+    port, coord = free_port(), free_port()
+    logs = [REPO / "build" / f"chip_smoke_mh{i}_serve.log" for i in (0, 1)]
+    procs = []
+    try:
+        for i in (0, 1):
+            procs.append(start_server(
+                port if i == 0 else free_port(), logs[i], extra=(
+                    "--multihost", "--num-processes", "2", "--process-id",
+                    str(i), "--coordinator-address", f"127.0.0.1:{coord}",
+                    "--tensor-parallel-size", "2")))
+        boot = wait_healthy("multi-host phase", procs[0], port, logs[0],
+                            t_phase)
+        if procs[1].poll() is not None:
+            fail(f"multi-host phase: process 1 exited with "
+                 f"{procs[1].returncode}:\n{log_tail(logs[1])}")
+        http(port, "/debug/kernel_launches", method="DELETE")
+        t1 = time.perf_counter()
+        st, body = http(port, "/v1/completions", {
+            "prompt": MH_PROMPT, "max_tokens": MH_TOKENS, "temperature": 0,
+            "ignore_eos": True, "logprobs": 2,
+            "return_tokens_as_token_ids": True})
+        secs = time.perf_counter() - t1
+        r = json.loads(body)
+        if st != 200 or r["usage"]["completion_tokens"] != MH_TOKENS:
+            fail(f"multi-host phase: bad answer {body[:400]}")
+        toks = [int(t.split(":")[1])
+                for t in r["choices"][0]["logprobs"]["tokens"]]
+        report = json.loads(http(port, "/debug/kernel_launches")[1])
+        check_launches("multi-host phase rank 0", report["launches"],
+                       report["dispatches"])
+        n_same = near_tie_check("multi-host phase vs single-process tp=2",
+                                [ref], [types.SimpleNamespace(
+                                    token_ids=toks)], gap_tol)
+        print(f"multi-host phase: two processes (one rank each, gloo on "
+              f"cuda:0) healthy {boot:.1f}s after start; a "
+              f"{len(MH_PROMPT)}-token prompt's {MH_TOKENS}-token greedy "
+              f"completion in {secs:.3f}s, {n_same}/1 equal to the "
+              f"single-process tp=2 engine's; rank 0 dispatches "
+              f"{report['dispatches']} on {smi}", flush=True)
+        procs[0].send_signal(signal.SIGTERM)
+        t2 = time.perf_counter()
+        try:
+            code = procs[1].wait(MH_EXIT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"multi-host phase: process 1 still running "
+                 f"{MH_EXIT_S:g}s after process 0's SIGTERM:\n"
+                 f"{log_tail(logs[1])}")
+        waited = time.perf_counter() - t2
+        print(f"multi-host phase: process 1 exited with {code} "
+              f"{waited:.2f}s after SIGTERM to process 0 (bound "
+              f"{MH_EXIT_S:g}s); phase {time.perf_counter() - t_phase:.1f}s "
+              f"on {smi}", flush=True)
+        if code == 0:
+            fail(f"multi-host phase: process 1 exited 0 with process 0 "
+                 f"gone:\n{log_tail(logs[1])}")
+        return report["launches"]
+    finally:
+        for p in procs:
+            stop_server(p)
+
+
 def main() -> int:
     try:
         import torch
@@ -5010,8 +5320,10 @@ def main() -> int:
     kv_counts = kv_phase(torch, pa, gap_tol, smi)
     phi3_serve_phase(torch, pa, smi)
     moe_counts = moe_phase(torch, pa, gap_tol, smi)
-    tp_counts = tp_phase(torch, pa, gap_tol, smi)
+    tp_counts, mh_ref = tp_phase(torch, pa, gap_tol, smi)
     lc_counts = long_context_phase(torch, pa, gap_tol, smi)
+    pp_phase(torch, pa, gap_tol, smi)
+    mh_counts = multihost_phase(torch, gap_tol, smi, mh_ref)
     launches = {
         "ragged": serve_counts["ragged"],
         "prefill": serve_counts["prefill"],
@@ -5025,7 +5337,9 @@ def main() -> int:
           f"decode {spec_counts}, loaded "
           f"checkpoint with adapters {lora_counts}, KV paths {kv_counts}, "
           f"Mixtral-8x7B x{MIXTRAL_LAYERS} {moe_counts}, tp=2 ranks "
-          f"{tp_counts}, long-context lane engine {lc_counts}; "
+          f"{tp_counts}, long-context lane engine {lc_counts}, multi-host "
+          f"rank 0 {mh_counts}, pipeline-parallel ranks none (the gather "
+          f"path); "
           f"a served "
           f"mixed round launches the ragged kernel {LAYERS_3B} times a "
           "forward (its step-0 forward and each further decode iteration)",

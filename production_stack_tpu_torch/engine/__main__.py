@@ -32,28 +32,38 @@ CLI. ``--precompile-serving`` runs every serving program once at startup
 before ``/health`` answers; ``--async-decode`` dispatches decode round
 N+1 on round N's device tokens before fetching round N (K > 1).
 ``--tensor-parallel-size N`` serves the model Megatron-sharded over N
-ranks: this process is rank 0 (server, scheduler, metrics) and the
-engine spawns ranks 1..N-1, rank r on cuda:r over NCCL (gloo with
-``--device cpu``). ``--long-prefill-threshold T
+ranks and ``--pipeline-parallel-size M`` its layers split over M
+stages (on the gather path, as the JAX engine serves pp on its XLA
+path): this process is rank 0 (server, scheduler, metrics) and the
+engine spawns ranks 1..N*M-1, rank r on cuda:r over NCCL (gloo with
+``--device cpu``). ``--multihost`` with ``--coordinator-address
+host:port`` (or ``COORDINATOR_ADDRESS``), ``--num-processes P`` and
+``--process-id p`` joins P processes into one job, a process a host as
+in JAX: each runs N*M/P ranks (local rank i on cuda:i), process 0
+serves HTTP and every other process follows (no server); a job that
+cannot join stops the process, and a follower whose process 0 is gone
+exits non-zero. ``--long-prefill-threshold T
 --context-parallel-size N`` serves prompts past T tokens as
 sequence-parallel ring chunks over N ranks (``--long-prefill-chunk``
 tokens each), with the other requests' decode rounds run between the
 chunks (not at their normal cadence: on one card a chunk's step lasts
 about its device time, and the lane is slower than chunked prefill, as
 the engine warns at boot); the threshold without N > 1 stops with
-EngineConfig's ValueError. Every flag of the
-JAX CLI parses; one whose feature is not ported yet (pp above 1, and
-``--multihost`` with ``--num-processes``, ``--process-id`` and
-``--coordinator-address``), or not carried under tensor parallelism yet
-(LoRA, KV tiers, PD roles, MoE models, ``--async-decode``,
-``--precompile-serving``, cp above 1), makes the engine refuse to start
-(NotImplementedError from EngineConfig, naming it).
+EngineConfig's ValueError. Every flag of the JAX CLI parses; one whose
+feature a rank set does not carry yet (LoRA and MoE models at pp 1, KV
+tiers, PD roles, ``--async-decode``, ``--precompile-serving``, cp above
+1) makes the engine refuse to start (NotImplementedError from
+EngineConfig, naming it); under pp, LoRA, MoE models and
+``--attention-impl pallas`` stop with the JAX package's ValueErrors,
+and under ``--multihost`` LoRA, the KV tiers and PD roles with its
+``validate_multihost_config``.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 from production_stack_tpu_torch.engine.config import EngineConfig
 
@@ -258,11 +268,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "than chunked prefill)")
     p.add_argument("--long-prefill-chunk", type=int, default=2048,
                    help="ring chunk length in tokens")
-    # not ported yet: accepted so existing deployments and the chart
-    # parse, refused by EngineConfig (naming the feature) when switched on
-    p.add_argument("--pipeline-parallel-size", type=int, default=1)
-    p.add_argument("--multihost", action="store_true")
-    p.add_argument("--coordinator-address", default=None)
+    p.add_argument("--pipeline-parallel-size", type=int, default=1,
+                   help="pipeline stages of the rank set (layers split "
+                        "over them)")
+    p.add_argument("--multihost", action="store_true",
+                   help="span the processes (hosts) of one job: process "
+                        "0 serves, the others follow")
+    p.add_argument("--coordinator-address", default=None,
+                   help="host:port of the job's store, hosted by process "
+                        "0 (default: COORDINATOR_ADDRESS)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     return p
@@ -359,9 +373,30 @@ def main(argv: list[str] | None = None) -> None:
             except OSError:
                 host = "127.0.0.1"
         args.kv_instance_id = f"{host}:{args.port}"
+    cfg = config_from_args(args)
+    if cfg.multihost:
+        # joins the job before anything touches a device
+        from production_stack_tpu_torch.parallel import multihost
+
+        multihost.initialize(
+            coordinator_address=args.coordinator_address,
+            num_processes=args.num_processes,
+            process_id=args.process_id,
+        )
+        if multihost.process_index() != 0:
+            # follower host: no HTTP server, replay process 0's steps
+            from production_stack_tpu_torch.engine.multihost_engine import (
+                validate_multihost_config,
+            )
+            from production_stack_tpu_torch.parallel.launch import (
+                run_follower_host,
+            )
+
+            validate_multihost_config(cfg)
+            sys.exit(run_follower_host(cfg))
     from production_stack_tpu_torch.engine.server import EngineServer
 
-    EngineServer(config_from_args(args)).run(host=args.host, port=args.port)
+    EngineServer(cfg).run(host=args.host, port=args.port)
 
 
 if __name__ == "__main__":

@@ -12,16 +12,14 @@ n-gram speculative decoding (``num_speculative_tokens``, drafts from
 prompt lookup), the attention implementation (``attention_impl``: the
 kernels or the gather path), MoE models, the startup warm-up of every
 serving program (``precompile_serving``) and the double-buffered decode
-(``async_decode``), tensor parallelism (``tensor_parallel_size``:
-ranks 1..N-1 spawned beside the engine, parallel/launch.py) and the
-long-prefill lane (``long_prefill_threshold`` over a ring of
-``context_parallel_size`` ranks, engine/long_prefill.py). The fields
-of features not ported yet (the pipeline and multi-host paths) stay so
-that asking for one fails loudly:
-``__post_init__`` raises NotImplementedError for each (see
-``unported``), and for each feature a tensor-parallel engine does not
-carry yet (see ``tp_unported``), so no request ever reaches a missing
-path.
+(``async_decode``), tensor and pipeline parallelism
+(``tensor_parallel_size`` x ``pipeline_parallel_size`` ranks, all but
+rank 0 spawned beside the engine, parallel/launch.py), the multi-host
+job (``multihost``: parallel/multihost.py) and the long-prefill lane
+(``long_prefill_threshold`` over a ring of ``context_parallel_size``
+ranks, engine/long_prefill.py). ``__post_init__`` raises
+NotImplementedError for each feature a rank set does not carry yet (see
+``rank_set_unported``), so no request ever reaches a missing path.
 """
 
 from __future__ import annotations
@@ -154,8 +152,15 @@ class EngineConfig:
 
     async_decode: bool = False        # double-buffered decode
     precompile_serving: bool = False  # startup shape warmup
-    # Megatron-sharded ranks, one process each (rank 0 serves)
+    # a rank set of tensor_parallel_size x pipeline_parallel_size ranks,
+    # one process each (rank 0 serves): Megatron-sharded within a stage,
+    # layers split over the stages (parallel/pp_serving.py)
     tensor_parallel_size: int = 1
+    pipeline_parallel_size: int = 1
+    # the engine spans the processes (hosts) of a multi-host job
+    # (parallel/multihost.initialize): process 0 serves, every other
+    # process runs its ranks as followers
+    multihost: bool = False
 
     # long-context serving (context-parallel ring prefill,
     # engine/long_prefill.py): a prompt whose UNCACHED remainder exceeds
@@ -171,10 +176,6 @@ class EngineConfig:
     # ranks of the ring (0/1 = none): the cards past the serving one when
     # the host has them, else the serving card (or the CPU) repeated
     context_parallel_size: int = 0
-
-    # -- not ported yet: any non-default value refuses at construction --
-    pipeline_parallel_size: int = 1
-    multihost: bool = False
 
     # disaggregated prefill/decode role: None (undeclared) | "prefill"
     # | "decode" | "both". Prefill/both engines serve KV chains over
@@ -205,37 +206,32 @@ class EngineConfig:
     # before falling back to recompute-from-scratch
     kv_restore_wait_s: float = 2.0
 
-    def unported(self) -> list[str]:
-        """Names of the requested features this port cannot serve yet."""
-        checks = {
-            "pipeline_parallel_size>1": self.pipeline_parallel_size > 1,
-            "multihost (--multihost, --num-processes, --process-id, "
-            "--coordinator-address)": self.multihost,
-        }
-        return [name for name, on in checks.items() if on]
-
-    def tp_unported(self) -> list[str]:
-        """Names of the requested features a tensor-parallel engine
-        cannot serve yet (none at tensor_parallel_size 1): the JAX
-        package's own broadcast limits (adapter loads, KV offload tiers
-        and PD roles are not broadcast to the ranks), expert parallelism,
-        and the two serving programs built on CUDA graphs and chained
-        device tokens."""
-        if self.tensor_parallel_size <= 1:
+    def rank_set_unported(self) -> list[str]:
+        """Names of the requested features an engine over a rank set
+        (tensor_parallel_size x pipeline_parallel_size > 1) cannot serve
+        yet (none on one rank): the JAX package's own broadcast limits
+        (adapter loads, KV offload tiers and PD roles are not broadcast
+        to the ranks), expert parallelism, and the two serving programs
+        built on CUDA graphs and chained device tokens. Under pipeline
+        parallelism LoRA and MoE models are refused at engine boot by
+        the JAX package's own messages (pp_serving.validate_pp_serving)."""
+        if self.tensor_parallel_size * self.pipeline_parallel_size <= 1:
             return []
+        tp_only = self.pipeline_parallel_size == 1
         checks = {
-            "enable_lora": self.enable_lora,
+            "enable_lora": self.enable_lora and tp_only,
             "KV offload tiers (cpu_offload_bytes, disk_offload_dir)": bool(
                 self.cpu_offload_bytes or self.disk_offload_dir),
             "remote_cache_url": self.remote_cache_url is not None,
             "PD (kv_role / kv_transfer_config)": (
                 self.pd_role() is not None),
-            "MoE models (expert parallel)": self.model_config().is_moe,
+            "MoE models (expert parallel)": (
+                tp_only and self.model_config().is_moe),
             "async_decode": self.async_decode,
             "precompile_serving": self.precompile_serving,
-            # the JAX engine rings under TP on one ("tp", "sp") mesh; the
-            # port's TP ranks are processes, so the ring there needs its
-            # own broadcast
+            # the JAX engine rings under TP on one ("tp", "sp") mesh (and
+            # turns the lane off under pp); the port's ranks are
+            # processes, so the ring there needs its own broadcast
             "context_parallel_size>1": self.context_parallel_size > 1,
         }
         return [name for name, on in checks.items() if on]
@@ -291,19 +287,16 @@ class EngineConfig:
                 "attention_impl must be auto|xla|pallas, got "
                 f"{self.attention_impl!r}"
             )
-        missing = self.unported()
-        if missing:
-            raise NotImplementedError(
-                "not ported to the PyTorch engine yet: "
-                + ", ".join(missing)
-            )
         if self.tensor_parallel_size < 1:
             raise ValueError("tensor_parallel_size must be >= 1")
-        missing = self.tp_unported()
+        if self.pipeline_parallel_size < 1:
+            raise ValueError("pipeline_parallel_size must be >= 1")
+        missing = self.rank_set_unported()
         if missing:
             raise NotImplementedError(
-                "not ported to the PyTorch engine under "
-                "tensor_parallel_size>1 yet: " + ", ".join(missing)
+                "not ported to the PyTorch engine over a rank set "
+                "(tensor_parallel_size x pipeline_parallel_size > 1) yet: "
+                + ", ".join(missing)
             )
 
     def pd_role(self) -> str | None:

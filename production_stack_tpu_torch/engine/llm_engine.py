@@ -64,16 +64,22 @@ the ring's final-row logits (``_advance_long_prefills``). Adapter and
 prompt-logprob requests stay chunked; a failed ring falls back to the
 chunked lane.
 
-Tensor parallelism (``tensor_parallel_size`` N > 1): the engine is rank
-0 of a rank set (parallel/launch.start_tp_ranks spawns ranks 1..N-1
-unless the caller passes its own ``tp_group``), and its runner is
-wrapped in engine/multihost_engine.BroadcastingRunner, which publishes
-every forward to the followers. The JAX meshed engine's rules hold: no
+Tensor and pipeline parallelism (``tensor_parallel_size`` x
+``pipeline_parallel_size`` = N > 1): the engine is rank 0 of a rank set
+(parallel/launch.start_tp_ranks spawns ranks 1..N-1 unless the caller
+passes its own ``tp_group``), and its runner is wrapped in
+engine/multihost_engine.BroadcastingRunner, which publishes every
+forward to the followers. The JAX meshed engine's rules hold: no
 unified ragged rounds, no staged decode or ragged rounds, no staged
 prefill (each stage is a device buffer the followers never see);
 split rounds, the fused K-step decode, packed prefill, spec decode,
 embeddings, guided lanes and prompt logprobs are served. ``shutdown``
-stops and joins the followers.
+stops and joins the followers. Under ``multihost`` (a job of
+parallel/multihost.initialize) this engine is process 0's: the rank
+set spans the job's processes, ``validate_multihost_config`` refuses
+what is not broadcast, and the JAX multi-host engine's rules turn off
+device stops, the decode prefetch, the prefill pipeline, ragged rounds
+and async decode.
 """
 
 from __future__ import annotations
@@ -86,9 +92,13 @@ import torch
 
 from production_stack_tpu_torch.engine.block_manager import BlockManager
 from production_stack_tpu_torch.engine.config import EngineConfig
-from production_stack_tpu_torch.engine.model_runner import ModelRunner
+from production_stack_tpu_torch.engine.model_runner import (
+    ModelRunner,
+    validate_parallel,
+)
 from production_stack_tpu_torch.engine.multihost_engine import (
     BroadcastingRunner,
+    validate_multihost_config,
 )
 from production_stack_tpu_torch.engine.outputs import (
     EngineStatsSnapshot,
@@ -128,13 +138,27 @@ class LLMEngine:
         """`eager`: the runner's comparison control (ModelRunner).
         `tp_group`: rank 0's group of a rank set the caller started
         (parallel/launch.start_tp_ranks, e.g. with its own devices and
-        backend); None with tensor_parallel_size > 1 starts one here."""
+        backend); None with tensor_parallel_size x
+        pipeline_parallel_size > 1 starts one here."""
         self.config = config
+        world = config.tensor_parallel_size * config.pipeline_parallel_size
+        if config.multihost:
+            from production_stack_tpu_torch.parallel import multihost
+
+            validate_multihost_config(config)
+            if multihost.is_multihost() and world < (
+                    hosts := multihost.process_count()):
+                raise ValueError(
+                    f"a multi-host job of {hosts} processes needs a rank "
+                    "set of at least as many ranks (tensor_parallel_size "
+                    f"x pipeline_parallel_size = {world})")
+        # the JAX runner's boot checks, before any rank starts
+        validate_parallel(config, config.model_config())
         self.tokenizer = get_tokenizer(
             config.tokenizer, config.model,
             chat_template=config.chat_template,
         )
-        if config.tensor_parallel_size > 1 and tp_group is None:
+        if world > 1 and tp_group is None:
             from production_stack_tpu_torch.parallel.launch import (
                 start_tp_ranks,
             )
@@ -151,14 +175,16 @@ class LLMEngine:
             if tp_group is not None:
                 self._stop_ranks()
             raise
-        # the JAX meshed engine's rules: under tensor parallelism every
-        # device buffer a stage would build lives on rank 0 only
-        self._tp = tp_group is not None
+        # the JAX meshed engine's rules: in a rank set every device
+        # buffer a stage would build lives on rank 0 only (and the JAX
+        # multi-host engine's: the broadcast ships host argument lists)
+        self._rank_set = tp_group is not None or config.multihost
         # async decode pipeline (double-buffered dispatch): the in-flight
         # decode round whose sampled tokens are still on the device
         self._pending_decode: dict | None = None
         self._async_decode = (
             config.async_decode and config.num_scheduler_steps > 1
+            and not config.multihost
         )
         # the grid the last precompile_serving ran
         self.precompile_grid: dict | None = None
@@ -183,11 +209,11 @@ class LLMEngine:
                     and config.num_scheduler_steps > 1
                 ),
                 # the chain commits round N+1 before round N's lane mix
-                # is known: no ragged rounds under async decode; nor
-                # under tensor parallelism, as in the JAX meshed engine
+                # is known: no ragged rounds under async decode; nor in
+                # a rank set, as in the JAX meshed engine
                 ragged_dispatch=(config.ragged_dispatch
                                  and not self._async_decode
-                                 and not self._tp),
+                                 and not self._rank_set),
             ),
             self.block_manager,
         )
@@ -217,9 +243,11 @@ class LLMEngine:
         )
         self._tl_enabled = self.timeline.enabled
         self.scheduler.timeline = self.timeline
-        # device-side stop masks ride the fused K-step loop only
+        # device-side stop masks ride the fused K-step loop only (not
+        # multi-host: the broadcast wire ships host token lists)
         self._device_stop = (
             config.device_stop and config.num_scheduler_steps > 1
+            and not config.multihost
         )
         self._ragged_dispatch = self.scheduler.config.ragged_dispatch
         # speculative h2d prefetch (stage_decode_multi / stage_ragged):
@@ -228,13 +256,15 @@ class LLMEngine:
         # prediction holds (fused rounds only: K > 1)
         self._prefetch_decode = (
             config.prefetch_decode and config.num_scheduler_steps > 1
+            and not config.multihost
         )
         self._staged_decode: dict | None = None
         self._staged_hits_total = 0
         self._staged_misses_total = 0
         # pipelined prefill: staged next chunk, chained cold prompts,
         # zero-cost staged admission in the scheduler's interleave
-        self._prefill_pipeline = config.prefill_pipeline
+        self._prefill_pipeline = (config.prefill_pipeline
+                                  and not config.multihost)
         self._staged_prefill: dict | None = None
         self._pf_staged_hits_total = 0
         self._pf_staged_misses_total = 0
@@ -1433,7 +1463,7 @@ class LLMEngine:
         it), no guided lane (a staged round carries no DFA tables: guided
         lanes re-initialize their device states every round), and tables
         growable to cover this round and the next."""
-        if self._tp:
+        if self._rank_set:
             return False  # a staged buffer would live on rank 0 only
         if self.scheduler.waiting:
             return False  # admission will change the lane set
@@ -2191,8 +2221,8 @@ class LLMEngine:
         copy rides out the interleaved decode round instead of sitting
         before the next prefill dispatch; validated by fingerprint
         before use."""
-        if not self._prefill_pipeline or self._tp:
-            return  # under tp a stage would live on rank 0 only
+        if not self._prefill_pipeline or self._rank_set:
+            return  # in a rank set a stage would live on rank 0 only
         if self.scheduler.waiting:
             return  # the next group will include new admissions
         if self._ragged_dispatch and any(
@@ -3121,8 +3151,8 @@ class LLMEngine:
         group.close()
 
     def tp_alive(self) -> bool:
-        """False once a tensor-parallel follower died or a broadcast
-        dispatch failed (always True without tensor parallelism)."""
+        """False once a follower of the rank set died or a broadcast
+        dispatch failed (always True without a rank set)."""
         if not isinstance(self.runner, BroadcastingRunner):
             return True
         return self.runner.alive()

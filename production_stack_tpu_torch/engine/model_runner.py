@@ -65,6 +65,12 @@ the kernels are not built for (logged). Under xla, or with
 calls: the ragged round too (``_build_ragged``). The choice is made from
 shapes alone; no build or launch failure changes it.
 
+A rank-set runner (``group``) holds its stage's layers and its tp
+shard; under pipeline parallelism its forward is
+parallel/pp_serving.forward_pp and its attention the gather path (the
+JAX runner's rule: pp serves on XLA, ``pallas`` refused at boot,
+``validate_parallel``).
+
 Weights: a checkpoint that ``--model`` resolves to is loaded at boot
 (models/weights.py), straight onto the device; only a preset name draws
 random ones. Multi-LoRA (``enable_lora``): every dispatch takes its
@@ -201,6 +207,28 @@ def resolve_attention_impl(requested: str, head_dim: int,
     return "pallas"
 
 
+def validate_parallel(config: EngineConfig, mc: ModelConfig) -> None:
+    """The JAX runner's boot checks of a meshed engine, message for
+    message: the tensor-parallel split, then the pipeline's (divisible
+    layers, no MoE, no LoRA) and its refusal of the kernels (pp serves
+    on the gather path)."""
+    tp = config.tensor_parallel_size
+    pp = config.pipeline_parallel_size
+    if tp * pp > 1:
+        sharding.validate_tp(mc, tp)
+    if pp > 1:
+        from production_stack_tpu_torch.parallel import pp_serving
+
+        pp_serving.validate_pp_serving(mc, pp, config)
+        if config.attention_impl == "pallas":
+            raise ValueError(
+                "attention_impl=pallas does not compose with "
+                "pipeline_parallel_size>1 yet (the kernels' own "
+                "shard_map cannot nest in the pp manual region); "
+                "use auto or xla"
+            )
+
+
 def resolve_dtype(name: str) -> torch.dtype:
     if name not in DTYPES:
         raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got {name!r}")
@@ -235,25 +263,35 @@ class ModelRunner:
         a serving option).
 
         `group` (parallel/group.TPGroup, the JAX runner's `mesh`): this
-        runner is one rank of a tensor-parallel set. It runs on the
-        group's device, holds its rank's shard of the params
-        (parallel/sharding.py) and its local KV cache (L, nkv/tp, slots,
-        d), runs the forward on the local config view with the group's
-        all-reduces, and attention through the *_tp wrappers. A TP runner
-        is eager: the gloo collectives cannot be captured in a CUDA
-        graph."""
+        runner is one rank of a set of tensor_parallel_size x
+        pipeline_parallel_size ranks, stage group.stage and tp index
+        group.tp_rank. It runs on the group's device, holds its stage's
+        layers and its rank's tp shard of the params
+        (parallel/sharding.py) and its local KV cache (L/pp, nkv/tp,
+        slots, d), runs the forward on the local config view with its
+        stage's all-reduces (under pp the staged forward of
+        parallel/pp_serving.py, on the gather path), and attention at
+        pp=1 through the *_tp wrappers. A rank-set runner is eager: the
+        gloo collectives cannot be captured in a CUDA graph."""
         self.config = config
         self.group = group
-        self.tp_size = group.world_size if group is not None else 1
-        if self.tp_size != config.tensor_parallel_size:
+        self.tp_size = config.tensor_parallel_size
+        self.pp_size = config.pipeline_parallel_size
+        layout = ((group.world_size, group.pp_size) if group is not None
+                  else (1, 1))
+        if layout != (self.tp_size * self.pp_size, self.pp_size):
             raise ValueError(
-                f"tensor_parallel_size={config.tensor_parallel_size} but "
-                f"the runner's group has {self.tp_size} ranks"
+                f"tensor_parallel_size={self.tp_size} x "
+                f"pipeline_parallel_size={self.pp_size} but the runner's "
+                f"group has {layout[0]} ranks in {layout[1]} stages"
             )
+        # the stage's tp group: the Megatron all-reduces and the vocab
+        # gather (the whole set at pp=1, None at tp=1)
+        self._tp_comm = group.tp if group is not None else None
         if group is not None and not eager:
-            logger.info("tensor-parallel rank %d/%d runs eagerly (no CUDA "
-                        "graphs under tensor parallelism)", group.rank,
-                        group.world_size)
+            logger.info("rank %d/%d (stage %d, tp index %d) runs eagerly "
+                        "(no CUDA graphs in a rank set)", group.rank,
+                        group.world_size, group.stage, group.tp_rank)
         self.eager = bool(eager) or group is not None
         # program variants by key (engine/programs.py), the graphs'
         # shared pool (made at the first capture), and the builds counted
@@ -265,11 +303,10 @@ class ModelRunner:
         # the global config (sizing, the engine's vocab and lengths);
         # local_config is one rank's view for the forward and the cache
         self.model_config: ModelConfig = config.model_config()
-        if group is not None:
-            sharding.validate_tp(self.model_config, self.tp_size)
+        validate_parallel(config, self.model_config)
         self.local_config: ModelConfig = (
-            self.model_config.tp_local(self.tp_size) if group is not None
-            else self.model_config)
+            self.model_config.tp_local(self.tp_size).pp_local(self.pp_size)
+            if group is not None else self.model_config)
         self.device = (group.device if group is not None
                        else torch.device(config.device))
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -291,8 +328,9 @@ class ModelRunner:
                 f"{mc.moe_capacity_factor} is not servable; the engine "
                 "requires the exact dense MoE path (capacity_factor=0)"
             )
-        impl = resolve_attention_impl(config.attention_impl, mc.head_dim,
-                                      self.device.type)
+        impl = ("xla" if self.pp_size > 1 else  # see validate_parallel
+                resolve_attention_impl(config.attention_impl, mc.head_dim,
+                                       self.device.type))
         self.attention_impl = impl
         # the single ragged kernel serves pallas rounds only; off it (or
         # under xla) rounds compose the per-lane prefill and decode calls
@@ -312,19 +350,25 @@ class ModelRunner:
                     f"heads per kv head) at block_size {self.block_size} "
                     f"cannot run on the card: {e}") from None
 
-        shard = ((group.rank, self.tp_size) if group is not None
+        shard = ((group.tp_rank, self.tp_size) if group is not None
                  else None)
+        # the stage's layers (pipeline parallelism)
+        layers = (sharding.stage_layers(mc.num_layers, group.stage,
+                                        self.pp_size)
+                  if self.pp_size > 1 else None)
         if params is not None:
             # the caller's full params: this rank's shard of them
             if shard is not None:
-                params = sharding.shard_params(params, mc, *shard)
+                params = sharding.shard_params(params, mc, *shard,
+                                               layers=layers)
             params = _to_device(params, self.device)
         else:
             # a checkpoint that resolves loads (or raises), sliced to the
             # rank's shard as it is read; only a preset name, which
             # resolves to none, draws random weights
             params = weights.maybe_load(config.model, mc, self.dtype,
-                                        self.device, shard=shard)
+                                        self.device, shard=shard,
+                                        layers=layers)
         if params is None:
             logger.info(
                 "initializing random %s params (%.2fB params, %s, %s)",
@@ -333,19 +377,25 @@ class ModelRunner:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
             params = llama.init_params(mc, gen, self.dtype, self.device,
-                                       shard=shard)
+                                       shard=shard, layers=layers)
         self.params = params
-        self._forward = (
-            functools.partial(llama.forward, tp_group=group)
-            if group is not None else llama.forward
-        )
+        if self.pp_size > 1:
+            from production_stack_tpu_torch.parallel import pp_serving
+
+            self._forward = functools.partial(pp_serving.forward_pp,
+                                              group=group)
+        elif group is not None:
+            self._forward = functools.partial(llama.forward,
+                                              tp_group=self._tp_comm)
+        else:
+            self._forward = llama.forward
 
         self.num_blocks = self._resolve_num_blocks()
         num_slots = self.num_blocks * self.block_size
         # head-major (L, nkv, slots, d): the layout the kernels walk (a
-        # rank's kv heads under tensor parallelism)
+        # stage's layers and a rank's kv heads in a rank set)
         cache_shape = sharding.local_cache_shape(mc, num_slots,
-                                                 self.tp_size)
+                                                 self.tp_size, self.pp_size)
         logger.info(
             "allocating KV cache: %d blocks x %d slots (%.2f GiB)",
             self.num_blocks, self.block_size,
@@ -445,12 +495,12 @@ class ModelRunner:
         cfg, mc = self.config, self.model_config
         if cfg.num_kv_blocks is not None:
             return cfg.num_kv_blocks
-        # per-rank view: KV blocks and weights are both split ~1/tp
-        tp = self.tp_size
+        # per-rank view: KV blocks and weights are both split ~1/(tp*pp)
+        ways = self.tp_size * self.pp_size
         bytes_per_block = (
             2 * mc.num_layers * cfg.block_size * mc.num_kv_heads
             * mc.head_dim * self.cache_dtype.itemsize
-        ) // tp
+        ) // ways
         if self.device.type == "cuda":
             # the params already sit on the card, so free memory excludes
             # them; keep (1 - utilization) of the card unclaimed, and
@@ -462,7 +512,7 @@ class ModelRunner:
                               GRAPH_POOL_ROWS * cfg.max_num_seqs
                               * mc.vocab_size * 4)
         else:
-            param_bytes = mc.num_params() * self.dtype.itemsize // tp
+            param_bytes = mc.num_params() * self.dtype.itemsize // ways
             budget = int(16 * 2**30 * cfg.hbm_utilization) - param_bytes
         num = max(2, budget // bytes_per_block)
         # cap: no point holding more than max_model_len * max_num_seqs * 2
@@ -792,7 +842,7 @@ class ModelRunner:
         chosen (t_pad,) f32, top_vals (t_pad, CAP) f32, top_ids (t_pad,
         CAP) int32)."""
         lm = functools.partial(llama.lm_logits, self.local_config,
-                               self.params, tp_group=self.group)
+                               self.params, tp_group=self._tp_comm)
         h = hidden.to(self.dtype)
         chosen, vals, ids = [], [], []
         for r0 in range(0, h.shape[0], PROMPT_LP_ROW_CHUNK):
@@ -1366,7 +1416,7 @@ class ModelRunner:
         sampled = torch.cat([
             sample_tokens(
                 llama.lm_logits(self.local_config, self.params, h[b],
-                                self.group), f32["temps"][b],
+                                self._tp_comm), f32["temps"][b],
                 f32["top_ps"][b], top_ks[b], f32["noise"][b],
                 min_p=f32["min_ps"][b],
             )

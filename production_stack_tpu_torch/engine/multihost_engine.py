@@ -1,8 +1,11 @@
-"""One engine over a tensor-parallel rank set: rank 0 broadcasts, the
+"""One engine over a rank set (tensor and pipeline parallel, on one host
+or across the hosts of a multi-host job): rank 0 broadcasts, the
 followers replay.
 
 Counterpart of ``production_stack_tpu/engine/multihost_engine.py``. The
-scheduler, HTTP server and sampler live on rank 0 only. Rank 0 wraps its
+scheduler, HTTP server and sampler live on rank 0 only (process 0 of a
+multi-host job, which serves HTTP; every other process runs its ranks
+as followers, parallel/launch.run_follower_host). Rank 0 wraps its
 ModelRunner in ``BroadcastingRunner``, which publishes each forward's
 kind and host arguments (parallel/multihost.StepBroadcaster) before it
 runs the forward itself; each follower runs ``follower_loop``, replaying
@@ -27,7 +30,15 @@ A follower that raises publishes its traceback and launch counts under
 its own exit key and exits; rank 0's next collective then fails (the
 peer closed) or times out, and its dispatch raises naming the
 follower's error. After that the rank set is broken: every later
-dispatch raises, and the server's /health fails.
+dispatch raises, and the server's /health fails. Rank 0 reads its
+followers' state from their store keys (a rank on another host has no
+exit code here; a local one's exit code is read too). A follower sees
+rank 0 gone when its parent process is (a spawned rank) or when the
+store cannot be reached (a multi-host job's store lives in process 0),
+and exits non-zero.
+
+``validate_multihost_config`` refuses, with the JAX package's message,
+what a multi-host engine does not broadcast.
 """
 
 from __future__ import annotations
@@ -39,7 +50,10 @@ import time
 import torch
 
 from production_stack_tpu_torch.ops import paged_attention
-from production_stack_tpu_torch.parallel.multihost import StepBroadcaster
+from production_stack_tpu_torch.parallel.multihost import (
+    StepBroadcaster,
+    store_reachable,
+)
 from production_stack_tpu_torch.utils import init_logger
 
 logger = init_logger(__name__)
@@ -64,6 +78,27 @@ BOOT_TIMEOUT_S = 600.0
 EXIT_TIMEOUT_S = 30.0
 
 
+def validate_multihost_config(config) -> None:
+    """Reject single-host-only features early with a clear message (the
+    JAX package's, message for message)."""
+    problems = []
+    if config.enable_lora:
+        problems.append("--enable-lora (adapter loads are not broadcast)")
+    if config.cpu_offload_bytes or config.disk_offload_dir or (
+        config.remote_cache_url
+    ):
+        problems.append(
+            "KV offload tiers (cache export needs host-0-addressable "
+            "shards)"
+        )
+    if config.kv_role:
+        problems.append("disaggregated prefill roles")
+    if problems:
+        raise ValueError(
+            "multihost mode does not yet support: " + "; ".join(problems)
+        )
+
+
 def ready_key(rank: int) -> str:
     return f"pst/rank/{rank}/ready"
 
@@ -76,20 +111,27 @@ def report_key(rank: int, n: int) -> str:
     return f"pst/rank/{rank}/report/{n}"
 
 
-def rank_report(runner, group) -> dict:
+def rank_report(runner, group, steps: int | None = None) -> dict:
     """What a rank ran: its kernel launches and dispatches, its device,
-    the devices its params and KV cache lie on, and its collectives
-    (host_collectives: those handed a host tensor on a card rank)."""
+    the devices its params and KV cache lie on, its place (stage, tp
+    index, layers held), its collectives (host_collectives: those handed
+    a host tensor on a card rank) and the step descriptors it read from
+    the store (`steps`; rank 0: published)."""
     devs = {str(t.device) for t in _leaves(runner.params)}
     devs |= {str(runner.k_cache.device), str(runner.v_cache.device)}
     return {
         "rank": group.rank,
+        "stage": group.stage,
+        "tp_rank": group.tp_rank,
+        "layers": runner.local_config.num_layers,
         "launches": paged_attention.launch_counts(),
         "dispatch_counts": dict(runner.dispatch_counts),
         "device": str(runner.device),
         "tensor_devices": sorted(devs),
         "all_reduces": group.all_reduces,
+        "broadcasts": group.counts["broadcasts"],
         "host_collectives": group.host_collectives,
+        "store_steps": steps,
     }
 
 
@@ -120,7 +162,8 @@ class BroadcastingRunner:
         if name in UNBROADCAST:
             raise RuntimeError(
                 f"ModelRunner.{name} is not broadcast to the "
-                "tensor-parallel ranks: under tensor_parallel_size>1 the "
+                "tensor-parallel ranks: in a rank set "
+                "(tensor_parallel_size x pipeline_parallel_size > 1) the "
                 "engine must not reach it"
             )
         return getattr(self._runner, name)
@@ -146,7 +189,9 @@ class BroadcastingRunner:
 
     def follower_error(self) -> str | None:
         """The first follower's published error (or its exit without
-        one), else None."""
+        one), read from its exit key in the store; else the exit code of
+        a follower of this host that died without publishing one; else
+        None."""
         store = self._group.store
         for r in range(1, self._group.world_size):
             if store.check([exit_key(r)]):
@@ -160,9 +205,12 @@ class BroadcastingRunner:
         return None
 
     def alive(self) -> bool:
-        """True while no dispatch failed and every follower runs."""
-        return self._failed is None and all(
-            p.is_alive() for p in self._group.followers)
+        """True while no dispatch failed, every follower of this host
+        runs and no follower (of any host) published its exit."""
+        return (self._failed is None
+                and all(p.is_alive() for p in self._group.followers)
+                and not any(self._group.store.check([exit_key(r)])
+                            for r in range(1, self._group.world_size)))
 
     # stackcheck: not-hot — a debug read of every rank's counts (one store
     # round trip a follower)
@@ -172,7 +220,7 @@ class BroadcastingRunner:
         n = self._reports
         self._reports += 1
         self._bc.publish({"kind": "report", "n": n})
-        out = [rank_report(self._runner, self._group)]
+        out = [rank_report(self._runner, self._group, self._bc.count)]
         for r in range(1, self._group.world_size):
             self._group.store.wait([report_key(r, n)])
             out.append(pickle.loads(self._group.store.get(report_key(r, n))))
@@ -184,10 +232,11 @@ class BroadcastingRunner:
         paged_attention.reset_launch_counts()
 
     def shutdown_followers(self) -> None:
-        """Tell the followers to exit and join them (terminating any
-        that does not exit in time)."""
+        """Tell the followers (of every host) to exit and join this
+        host's (terminating any that does not exit in time)."""
         followers = self._group.followers
-        if any(p.is_alive() for p in followers):
+        if self._group.world_size > 1 + len(followers) or any(
+                p.is_alive() for p in followers):
             self._bc.publish({"kind": "shutdown"})
         for p in followers:
             p.join(EXIT_TIMEOUT_S)
@@ -257,25 +306,32 @@ class BroadcastingRunner:
 
 
 # stackcheck: not-hot — a follower's own loop (no serving thread)
-def follower_loop(runner, group) -> None:
-    """Followers: replay rank 0's steps until it says shutdown (or is
-    gone)."""
+def follower_loop(runner, group) -> int:
+    """Followers: replay rank 0's steps until it says shutdown (returns
+    the steps read) or is gone (raises): a spawned rank's parent process
+    exited, or the set's store cannot be reached."""
     bc = StepBroadcaster(group.store)
     parent = multiprocessing.parent_process()
-    alive = parent.is_alive if parent is not None else None
+
+    def alive() -> bool:
+        return ((parent is None or parent.is_alive())
+                and store_reachable(group.store))
+
     guided_tables = None
-    logger.info("tensor-parallel rank %d/%d: replaying rank 0's steps",
-                group.rank, group.world_size)
+    logger.info("rank %d/%d (stage %d, tp index %d): replaying rank 0's "
+                "steps", group.rank, group.world_size, group.stage,
+                group.tp_rank)
     with runner.on_compute_stream():
         while True:
             msg = bc.next(alive=alive)
             kind = msg["kind"]
             if kind == "shutdown":
                 logger.info("rank %d: shutdown received", group.rank)
-                return
+                return bc.count
             if kind == "report":
                 group.store.set(report_key(group.rank, msg["n"]),
-                                pickle.dumps(rank_report(runner, group)))
+                                pickle.dumps(rank_report(runner, group,
+                                                         bc.count)))
                 continue
             if kind == "reset_counts":
                 paged_attention.reset_launch_counts()

@@ -31,9 +31,11 @@ timeline. A prefill (or both-role) engine with
 ``kv_transfer_config["listen"]`` also serves its KV block chains to
 decode peers (kv/transfer.py), and a watched stats task feeds the KV and
 lane-mix histograms. ``precompile_serving`` runs every serving program
-once at construction, before the server listens. Under
-``tensor_parallel_size`` N > 1 the server, scheduler and metrics live on
-rank 0 (this process; the engine starts ranks 1..N-1), a watched task
+once at construction, before the server listens. Over a rank set
+(``tensor_parallel_size`` x ``pipeline_parallel_size`` N > 1) the
+server, scheduler and metrics live on rank 0 (this process; the engine
+starts ranks 1..N-1, or process 0's share of a multi-host job's), a
+watched task
 logs a follower's death, ``/health`` answers 503 from then on, and
 ``stop`` stops the followers. The Prometheus text is written by hand and
 HTTP/1.1 is parsed by hand (``asyncio.start_server``): the port needs
@@ -164,7 +166,7 @@ class EngineServer:
         """Start the step loop and listen; returns the bound port."""
         self.engine.start(asyncio.get_running_loop())
         self._stats_task = spawn_watched(self._stats_loop(), "engine-stats")
-        if self.config.tensor_parallel_size > 1:
+        if self.engine.engine.tp_group is not None:
             self._tp_watch_task = spawn_watched(self._tp_watch_loop(),
                                                 "tp-follower-watch")
         if self.engine.tracer.exporter == "otlp":

@@ -96,6 +96,15 @@ class ModelConfig:
             intermediate_size=self.intermediate_size // tp,
         )
 
+    def pp_local(self, pp: int) -> "ModelConfig":
+        """One pipeline stage's view: num_layers divided by pp (the
+        stage's layers of the params and the KV cache;
+        parallel/pp_serving.validate_pp_serving checks they divide).
+        pp=1 is the config itself."""
+        if pp == 1:
+            return self
+        return dataclasses.replace(self, num_layers=self.num_layers // pp)
+
 
 # -- Presets ---------------------------------------------------------------
 # Architecture hyper-parameters are public knowledge (HF config.json files).

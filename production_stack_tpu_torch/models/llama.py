@@ -17,7 +17,10 @@ one rank's shard (parallel/sharding.py) and ``cfg`` its local view
 (``ModelConfig.tp_local``); the f32 partials of ``wo`` and ``w_down``
 are all-reduced before their cast, where the JAX package's GSPMD psum
 sits on the f32 dot, and an untied lm_head's vocab slices are gathered.
-With ``tp_group=None`` nothing of that runs.
+With ``tp_group=None`` nothing of that runs. Pipeline parallelism
+(parallel/pp_serving.forward_pp) runs the same pieces, ``embed_tokens``,
+``decoder_stack`` over a stage's layers and ``final_rows``, with a
+hand-off between the stages.
 
 Multi-LoRA (engine/lora.py's stacked slots) adds scaling * (x @ A) @ B
 to the wq/wk/wv/wo projections, in plain PyTorch as the JAX package
@@ -53,6 +56,7 @@ def init_params(
     dtype: torch.dtype = torch.bfloat16,
     device: str | torch.device = "cuda",
     shard: tuple[int, int] | None = None,
+    layers: tuple[int, int] | None = None,
 ) -> dict:
     """Random-init parameters (scaled normal), layer weights stacked on
     axis 0. `generator` must live on `device`; weights are drawn there in
@@ -60,27 +64,26 @@ def init_params(
     (Mixtral) has a router moe_gate (L, h, E) and stacked experts w_gate /
     w_up (L, E, h, f), w_down (L, E, f, h) in place of the dense MLP.
 
-    `shard` = (rank, tp): every tensor is still drawn whole, in the same
-    order from the same generator, and only the rank's slice of a split
-    leaf (parallel/sharding.py) is kept, so a tp=N model is the tp=1
-    model of the same seed, cut."""
+    `shard` = (rank, tp) and `layers` = (lo, hi), a pipeline stage's
+    layer range: every tensor is still drawn whole, in the same order from
+    the same generator, and only the stage's layers and the rank's slice
+    of a split leaf (parallel/sharding.py) are kept, so a tp=N, pp=M
+    model is the tp=1, pp=1 model of the same seed, cut."""
     h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     L = cfg.num_layers
     rank, tp = shard if shard is not None else (0, 1)
+    span = layers  # the name is the layer dict's below
 
     def keep(path, x):
-        axis = sharding.split_axis(path, cfg)
-        if axis is None or tp == 1:
-            return x
-        return sharding.shard(x, axis, rank, tp).contiguous()
+        return sharding.cut(path, x, cfg, rank, tp, span)
 
     def w(path, shape, fan_in):
         x = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=device)
         return keep(path, (x * fan_in**-0.5).to(dtype))
 
-    def ones(shape):
-        return torch.ones(shape, dtype=dtype, device=device)
+    def ones(path, shape):
+        return keep(path, torch.ones(shape, dtype=dtype, device=device))
 
     def zeros(path, shape):
         return keep(path, torch.zeros(shape, dtype=dtype, device=device))
@@ -89,8 +92,8 @@ def init_params(
         return w(("layers", name), shape, fan_in)
 
     layers = {
-        "attn_norm": ones((L, h)),
-        "mlp_norm": ones((L, h)),
+        "attn_norm": ones(("layers", "attn_norm"), (L, h)),
+        "mlp_norm": ones(("layers", "mlp_norm"), (L, h)),
         "wq": lw("wq", (L, h, cfg.q_size), h),
         "wk": lw("wk", (L, h, cfg.kv_size), h),
         "wv": lw("wv", (L, h, cfg.kv_size), h),
@@ -116,7 +119,7 @@ def init_params(
     params = {
         "embed": w(("embed",), (v, h), h),
         "layers": layers,
-        "final_norm": ones((h,)),
+        "final_norm": ones(("final_norm",), (h,)),
     }
     if not cfg.tie_word_embeddings:
         params["lm_head"] = w(("lm_head",), (h, v), h)
@@ -217,16 +220,8 @@ def forward(
     (S,)) and `lora_slots`, scaling * (x @ A) @ B of each row's slot is
     added to wq/wk/wv/wo (slot 0 is all zeros: no adapter). A scalar slot
     is the uniform path, an (n,) vector the per-token one."""
-    dtype = params["embed"].dtype
-    cache_dtype = k_cache.dtype
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-    write_slots = write_slots.long()
-
-    h = params["embed"][token_ids.long()].to(dtype)
-    if cfg.embed_scale != 1.0:
-        # Gemma normalizer: hidden states enter the stack scaled by
-        # sqrt(hidden_size)
-        h = (h.float() * cfg.embed_scale).to(dtype)
+    h = embed_tokens(cfg, params, token_ids)
 
     sel = None
     if lora is not None:
@@ -243,7 +238,38 @@ def forward(
             lora = {k: v.permute(0, 2, 1, 3).flatten(2)
                     if k.endswith("_A") else v for k, v in lora.items()}
 
-    reduce = tp_group.all_reduce if tp_group is not None else None
+    h = decoder_stack(
+        cfg, params, h, k_cache, v_cache, cos=cos, sin=sin,
+        write_slots=write_slots, attn_fn=attn_fn, lora=lora, sel=sel,
+        reduce=tp_group.all_reduce if tp_group is not None else None)
+    return (final_rows(cfg, params, h, logits_rows, return_hidden,
+                       tp_group), k_cache, v_cache)
+
+
+def embed_tokens(cfg: ModelConfig, params: dict,
+                 token_ids: torch.Tensor) -> torch.Tensor:
+    """(n, hidden) input rows of `token_ids`, in the params' dtype."""
+    dtype = params["embed"].dtype
+    h = params["embed"][token_ids.long()].to(dtype)
+    if cfg.embed_scale != 1.0:
+        # Gemma normalizer: hidden states enter the stack scaled by
+        # sqrt(hidden_size)
+        h = (h.float() * cfg.embed_scale).to(dtype)
+    return h
+
+
+def decoder_stack(cfg: ModelConfig, params: dict, h: torch.Tensor,
+                  k_cache: torch.Tensor, v_cache: torch.Tensor, *,
+                  cos: torch.Tensor, sin: torch.Tensor,
+                  write_slots: torch.Tensor, attn_fn: AttnFn,
+                  lora: dict | None = None, sel=None,
+                  reduce=None) -> torch.Tensor:
+    """The cfg.num_layers layers of `params` over rows `h` (layer l of
+    the params writes layer l of the caches, in place); returns the
+    stack's output rows."""
+    dtype = params["embed"].dtype
+    cache_dtype = k_cache.dtype
+    write_slots = write_slots.long()
     layers = params["layers"]
     for l in range(cfg.num_layers):
         lp = {name: w[l] for name, w in layers.items()}
@@ -257,13 +283,21 @@ def forward(
             dtype=dtype, cache_dtype=cache_dtype, lora_ctx=lora_ctx,
             reduce=reduce,
         )
+    return h
 
+
+def final_rows(cfg: ModelConfig, params: dict, h: torch.Tensor,
+               logits_rows: torch.Tensor, return_hidden: bool,
+               tp_group=None) -> torch.Tensor:
+    """The final norm of the stack's output `h`, rows `logits_rows`:
+    their (r, V) f32 logits, or with `return_hidden` the (r, hidden) f32
+    rows themselves."""
     h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps,
                  cfg.norm_weight_offset)
     h_sel = h[logits_rows.long()]  # (r, hidden)
     if return_hidden:
-        return h_sel.float(), k_cache, v_cache
-    return lm_logits(cfg, params, h_sel, tp_group), k_cache, v_cache
+        return h_sel.float()
+    return lm_logits(cfg, params, h_sel, tp_group)
 
 
 def lm_logits(cfg: ModelConfig, params: dict, h: torch.Tensor,

@@ -17,7 +17,9 @@ once, in the page cache.
 Tensor parallelism (``shard=(rank, tp)``): each rank allocates its own
 shard's shapes (parallel/sharding.py) and slices every split tensor as
 the mmap reader hands it over, in the checkpoint's own layout, before it
-reaches the card: no rank holds the full weights there.
+reaches the card: no rank holds the full weights there. Pipeline
+parallelism (``layers=(lo, hi)``): a stage allocates its L/pp layers
+and reads only their tensors.
 
 Zero-egress: only local paths (a model directory, or an HF id already
 present in the local HF cache) are accepted.
@@ -113,10 +115,13 @@ def _put(dst: torch.Tensor, src: torch.Tensor, name: str,
 def load_hf_weights(
     cfg: ModelConfig, model_dir: str, dtype: torch.dtype = torch.bfloat16,
     device: str | torch.device = "cpu", shard: tuple[int, int] | None = None,
+    layers: tuple[int, int] | None = None,
 ) -> dict:
     """Read an HF Llama/Mistral/Qwen2/Phi-3/Gemma/Mixtral checkpoint into
     the port's param tree on `device`, in `dtype`; with `shard` = (rank,
-    tp), the rank's tensor-parallel shard of it."""
+    tp), the rank's tensor-parallel shard of it; with `layers` = (lo, hi),
+    a pipeline stage's layers only (another stage's tensors are skipped
+    by name: a safetensors view that is never touched reads nothing)."""
     t0 = time.perf_counter()
     rank, tp = shard if shard is not None else (0, 1)
     if tp > 1:
@@ -127,7 +132,8 @@ def load_hf_weights(
     full_cfg = cfg
     if tp > 1:
         cfg = cfg.tp_local(tp)
-    L, h = cfg.num_layers, cfg.hidden_size
+    lo, hi = layers if layers is not None else (0, cfg.num_layers)
+    L, h = hi - lo, cfg.hidden_size
 
     def part(path: tuple, per_layer: bool = True):
         """The (axis, rank, tp) of leaf `path` in a per-layer (or, with
@@ -205,7 +211,9 @@ def load_hf_weights(
         if not key.startswith("layers."):
             continue
         _, idx, *rest = key.split(".", 2)
-        i, suffix = int(idx), rest[0]
+        i, suffix = int(idx) - lo, rest[0]
+        if not 0 <= i < L:
+            continue  # another pipeline stage's layer
         # Mixtral MoE block (HF MixtralSparseMoeBlock):
         #   block_sparse_moe.gate.weight            [E, h] -> moe_gate
         #   block_sparse_moe.experts.{e}.w1.weight  [f, h] -> w_gate
@@ -296,9 +304,11 @@ def load_hf_weights(
 def maybe_load(model: str, cfg: ModelConfig,
                dtype: torch.dtype = torch.bfloat16,
                device: str | torch.device = "cpu",
-               shard: tuple[int, int] | None = None) -> dict | None:
+               shard: tuple[int, int] | None = None,
+               layers: tuple[int, int] | None = None) -> dict | None:
     """Load weights if `model` resolves to a local checkpoint, else None
-    (the runner draws random weights for preset names).
+    (the runner draws random weights for preset names); `shard` and
+    `layers` as load_hf_weights takes them.
 
     A checkpoint that RESOLVES but fails to load raises: silently serving
     random weights under a real model's name would be far worse than
@@ -306,4 +316,5 @@ def maybe_load(model: str, cfg: ModelConfig,
     d = resolve_model_dir(model)
     if d is None:
         return None
-    return load_hf_weights(cfg, d, dtype, device, shard=shard)
+    return load_hf_weights(cfg, d, dtype, device, shard=shard,
+                           layers=layers)

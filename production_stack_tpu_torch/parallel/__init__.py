@@ -1,5 +1,6 @@
 """Parallelism (counterpart of ``production_stack_tpu/parallel/``):
-tensor parallelism (the sharding rules, the rank group, the step
-broadcast and the launcher of a rank set) and the long-context ring
-(ring attention and the sequence-parallel prefiller). The pipeline and
-the multi-host bring-up are not ported."""
+tensor and pipeline parallelism over a rank set (the sharding rules
+with the layer axis, the rank groups, the step broadcast, the launcher
+and the staged serving forward), the multi-host job that spans hosts,
+the GPipe prefiller, and the long-context ring (ring attention and the
+sequence-parallel prefiller)."""

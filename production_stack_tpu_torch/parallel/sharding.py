@@ -1,4 +1,5 @@
-"""Tensor-parallel sharding rules for the Llama family, one process a rank.
+"""Tensor- and pipeline-parallel sharding rules for the Llama family, one
+process a rank.
 
 Counterpart of ``production_stack_tpu/parallel/sharding.py``. The JAX
 package places params and cache with ``NamedSharding``s over a mesh and
@@ -18,9 +19,17 @@ JAX package's (Megatron-style, hidden activations replicated):
 - lm_head split on the vocab for untied models, its logits gathered;
   the embedding, the norms and a tied vocab projection replicated.
 
+Pipeline parallelism adds the layer axis: a rank set of tp * pp ranks is
+the JAX ``("pp", "tp")`` serving mesh reshaped row-major, so rank r is
+stage ``r // tp`` and tp index ``r % tp`` (``rank_layout``), the tp
+ranks of a stage are contiguous, and stage s holds layers
+``[s * L / pp, (s + 1) * L / pp)`` of every stacked leaf
+(``stage_layers``) and of the KV cache. The embedding, the final norm and
+the lm_head (cut on the vocab over tp) sit on every stage, as the JAX
+package replicates them over "pp".
+
 The mesh builders (``make_mesh``, ``make_serving_mesh``) have no
-counterpart: a rank set is processes (parallel/launch.py). The pipeline
-axis is not ported.
+counterpart: a rank set is processes (parallel/launch.py).
 """
 
 from __future__ import annotations
@@ -85,12 +94,26 @@ def shard(x: torch.Tensor, axis: int | None, rank: int,
     return x.narrow(axis, rank * n, n)
 
 
-def shard_params(full: dict, cfg: ModelConfig, rank: int, tp: int) -> dict:
+def rank_layout(rank: int, tp: int) -> tuple[int, int]:
+    """(stage, tp index) of `rank` in a set of tp ranks a stage."""
+    return divmod(rank, tp)
+
+
+def stage_layers(num_layers: int, stage: int, pp: int) -> tuple[int, int]:
+    """The layer range [lo, hi) stage `stage` of `pp` holds."""
+    n = num_layers // pp
+    return stage * n, (stage + 1) * n
+
+
+def shard_params(full: dict, cfg: ModelConfig, rank: int, tp: int,
+                 layers: tuple[int, int] | None = None) -> dict:
     """One rank's params from the full tree (models/llama.init_params'
-    layout): every split leaf narrowed to the rank's contiguous slice
-    and copied out (contiguous, so the full tensor can go), replicated
-    leaves as they are. The same slices as the JAX package's
-    ``addressable_shards[rank]`` on a tp mesh."""
+    layout): with `layers` = (lo, hi), every stacked layer leaf cut to
+    the stage's layers; every split leaf narrowed to the rank's
+    contiguous slice; a cut leaf copied out (contiguous, so the full
+    tensor can go), the rest as they are. The same slices as the JAX
+    package's ``addressable_shards[rank]`` on a tp (or ("pp", "tp"))
+    mesh."""
     if cfg.is_moe and tp > 1:
         raise NotImplementedError(
             "tensor parallelism over MoE experts (expert parallel) is not "
@@ -103,17 +126,30 @@ def shard_params(full: dict, cfg: ModelConfig, rank: int, tp: int) -> dict:
             if isinstance(v, dict):
                 out[k] = walk(v, path + (k,))
                 continue
-            axis = split_axis(path + (k,), cfg)
-            out[k] = (v if axis is None or tp == 1
-                      else shard(v, axis, rank, tp).contiguous())
+            out[k] = cut(path + (k,), v, cfg, rank, tp, layers)
         return out
 
     return walk(full, ())
 
 
-def local_cache_shape(cfg: ModelConfig, num_slots: int,
-                      tp: int) -> tuple[int, int, int, int]:
-    """One rank's head-major KV cache (L, nkv/tp, slots, d): the JAX
+def cut(path: tuple[str, ...], x: torch.Tensor, cfg: ModelConfig,
+        rank: int, tp: int,
+        layers: tuple[int, int] | None = None) -> torch.Tensor:
+    """Leaf `path` of the full tree as rank `rank` holds it: a stacked
+    layer leaf cut to `layers`, then a split leaf narrowed to the rank's
+    tp slice; contiguous wherever it was cut (else `x` itself)."""
+    out = x
+    if layers is not None and path[0] == "layers":
+        out = out[layers[0]:layers[1]]
+    axis = split_axis(path, cfg)
+    if axis is not None and tp > 1:
+        out = shard(out, axis, rank, tp)
+    return out if out is x else out.contiguous()
+
+
+def local_cache_shape(cfg: ModelConfig, num_slots: int, tp: int,
+                      pp: int = 1) -> tuple[int, int, int, int]:
+    """One rank's head-major KV cache (L/pp, nkv/tp, slots, d): the JAX
     package's cache_sharding, as the shape each rank allocates."""
-    return (cfg.num_layers, cfg.num_kv_heads // tp, num_slots,
+    return (cfg.num_layers // pp, cfg.num_kv_heads // tp, num_slots,
             cfg.head_dim)

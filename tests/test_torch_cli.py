@@ -101,6 +101,9 @@ def test_every_jax_cli_flag_parses_in_the_port(flag):
     (["--tensor-parallel-size", "2"], "tensor_parallel_size", 2),
     (["--tensor-parallel-size", "4", "--no-ragged-kernel"],
      "tensor_parallel_size", 4),
+    (["--pipeline-parallel-size", "2"], "pipeline_parallel_size", 2),
+    (["--multihost", "--num-processes", "2", "--process-id", "1",
+      "--coordinator-address", "127.0.0.1:1234"], "multihost", True),
 ])
 def test_served_flags_reach_engine_config(argv, field, want):
     cfg = config_from_args(build_parser().parse_args(["--device", "cpu",
@@ -113,9 +116,10 @@ def test_served_flags_reach_engine_config(argv, field, want):
     # the ring under tensor parallelism (its own broadcast, not ported)
     (["--tensor-parallel-size", "2", "--context-parallel-size", "2"],
      "context_parallel_size>1"),
-    (["--num-processes", "2"], "multihost"),
+    # multi-host flags: an engine on one host, or the job's refusal
+    (["--num-processes", "2"], "coordinator address"),
     (["--process-id", "1"], "multihost"),
-    (["--coordinator-address", "10.0.0.1:1234"], "multihost"),
+    (["--coordinator-address", "10.0.0.1:1234"], "num_processes"),
     (["--multihost"], "multihost"),
     # what a tensor-parallel engine does not carry yet
     (["--tensor-parallel-size", "2", "--enable-lora"], "enable_lora"),
@@ -140,7 +144,35 @@ def test_unported_flags_stop_with_engine_config_message(argv, name,
     """main() stops in EngineConfig with its message naming the feature
     (a NotImplementedError, not argparse's SystemExit). --precompile-
     serving is served now: main() starts an engine on the CPU, whose
-    server ran the warm-up sweep before it would listen."""
+    server ran the warm-up sweep before it would listen. So are the
+    multi-host flags: each reaches EngineConfig as multihost, and main()
+    joins the job first. With no job configured (--multihost, a lone
+    --process-id) it serves on one host as the JAX CLI does; a job that
+    cannot be joined (a process count without a coordinator, a
+    coordinator without a count) stops with multihost.initialize's
+    RuntimeError naming what it lacks, before anything connects."""
+    if name in ("multihost", "coordinator address", "num_processes"):
+        from production_stack_tpu_torch.engine import server
+        from production_stack_tpu_torch.parallel import multihost
+
+        assert config_from_args(build_parser().parse_args(argv)).multihost
+        monkeypatch.setattr(multihost, "_JOB", None)
+        monkeypatch.delenv("COORDINATOR_ADDRESS", raising=False)
+        started = []
+        monkeypatch.setattr(server.EngineServer, "run",
+                            lambda self, **kw: started.append(self))
+        if name != "multihost":
+            with pytest.raises(RuntimeError, match=name):
+                main(["--device", "cpu", "--tokenizer", "byte", *argv])
+            assert not started and multihost.job() is None
+            return
+        main(["--device", "cpu", "--tokenizer", "byte", *argv])
+        (srv,) = started
+        eng = srv.engine.engine
+        assert srv.config.multihost and not multihost.is_multihost()
+        assert not eng._ragged_dispatch and not eng._device_stop
+        srv.engine.shutdown()
+        return
     if argv == ["--precompile-serving"]:
         from production_stack_tpu_torch.engine import server
 
@@ -233,6 +265,21 @@ def test_cli_serves_tp2_on_the_cpu_equal_to_tp1(monkeypatch):
     assert got["usage"] == want["usage"]
     (follower,) = srv.engine.engine.runner._group.followers
     assert follower.exitcode == 0
+
+
+def test_cli_serves_pp2_and_pp2_tp2_on_the_cpu_equal_to_pp1(monkeypatch):
+    """--pipeline-parallel-size 2 (and with --tensor-parallel-size 2)
+    --device cpu: the CLI's server on rank 0 (stage 0) answers a greedy
+    completion equal to the one-rank server's; stopping the server stops
+    every follower."""
+    want, _ = _serve_completion([], monkeypatch)
+    for extra in ([], ["--tensor-parallel-size", "2"]):
+        got, srv = _serve_completion(
+            ["--pipeline-parallel-size", "2", *extra], monkeypatch)
+        assert got["choices"][0]["text"] == want["choices"][0]["text"]
+        assert got["usage"] == want["usage"]
+        followers = srv.engine.engine.runner._group.followers
+        assert [p.exitcode for p in followers] == [0] * len(followers)
 
 
 def test_engine_template_covers_the_port_cli():

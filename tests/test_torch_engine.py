@@ -143,10 +143,12 @@ def test_unported_flags_refuse_to_start(field, value):
     and tests/test_torch_moe.py. precompile_serving and async_decode are
     served too: their configs start an engine on the CPU (held to the
     JAX engine in tests/test_torch_precompile.py and
-    tests/test_torch_async_decode.py). So is tensor_parallel_size 2: its
-    config starts a rank set on the CPU (held to the JAX meshed engine in
-    tests/test_torch_tensor_parallel.py), and it refuses, naming it, what
-    it does not carry yet. So is the long-prefill lane (held to the JAX
+    tests/test_torch_async_decode.py). So are tensor_parallel_size 2 and
+    pipeline_parallel_size 2: each config starts a rank set on the CPU
+    (held to the JAX meshed engine in tests/test_torch_tensor_parallel.py
+    and tests/test_torch_pipeline_parallel.py), and a rank set refuses,
+    naming it, what it does not carry yet; and multihost, whose engine
+    with no job configured serves on one host. So is the long-prefill lane (held to the JAX
     engine's in tests/test_torch_long_context.py): a threshold needs
     context_parallel_size > 1 (the JAX ValueError), with it the lane is
     live, and context_parallel_size alone starts an engine without it."""
@@ -160,6 +162,24 @@ def test_unported_flags_refuse_to_start(field, value):
         try:
             assert (eng.long_prefill is not None) == (
                 field == "long_prefill_threshold")
+            out = eng.generate([[1, 2, 3]], SamplingParams(
+                max_tokens=9, temperature=0.0, ignore_eos=True))
+            assert len(out[0].token_ids) == 9
+        finally:
+            eng.shutdown()
+        return
+    if field in ("pipeline_parallel_size", "multihost"):
+        # a pp rank set (rank 1 spawned; held to the JAX pp engine in
+        # tests/test_torch_pipeline_parallel.py), and a multihost engine
+        # with no job (a single-host run, as in JAX: held across two
+        # processes in tests/test_torch_multihost.py), each under the JAX
+        # rules of its engine
+        eng = LLMEngine(EngineConfig(**cfg, device="cpu"))
+        try:
+            assert not eng._ragged_dispatch
+            assert (eng.tp_group is not None) == (field != "multihost")
+            if field == "multihost":
+                assert not (eng._device_stop or eng._prefill_pipeline)
             out = eng.generate([[1, 2, 3]], SamplingParams(
                 max_tokens=9, temperature=0.0, ignore_eos=True))
             assert len(out[0].token_ids) == 9

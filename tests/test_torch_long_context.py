@@ -656,7 +656,7 @@ def test_ring_under_tensor_parallelism_is_refused_by_name():
                      long_prefill_threshold=256)
     cfg = EngineConfig(model="pst-tiny-debug", device="cpu",
                        context_parallel_size=2)
-    assert cfg.unported() == [] and cfg.tp_unported() == []
+    assert cfg.rank_set_unported() == []
 
 
 def test_a_ring_that_cannot_be_built_degrades_loudly(np_params, monkeypatch):

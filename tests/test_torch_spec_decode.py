@@ -113,8 +113,7 @@ def _greedy(n, **kw):
 # -- config and CLI -------------------------------------------------------------
 @pytest.mark.parametrize("lo,hi", [(1, 3), (2, 2), (0, 3), (3, 2), (1, 1)])
 def test_ngram_bounds_check_matches_jax(lo, hi):
-    """EngineConfig(num_speculative_tokens=4) constructs (it left
-    unported()), and the 1 <= min <= max check refuses what the JAX
+    """EngineConfig(num_speculative_tokens=4) constructs, and the 1 <= min <= max check refuses what the JAX
     config refuses, with its message."""
     kw = dict(BASE, num_speculative_tokens=4, ngram_prompt_lookup_min=lo,
               ngram_prompt_lookup_max=hi)
@@ -137,7 +136,7 @@ def test_cli_flags_reach_the_config():
         "--ngram-prompt-lookup-max", "5", "--ngram-prompt-lookup-min", "2"]))
     assert (cfg.num_speculative_tokens, cfg.ngram_prompt_lookup_max,
             cfg.ngram_prompt_lookup_min) == (4, 5, 2)
-    assert "num_speculative_tokens" not in " ".join(cfg.unported())
+    assert cfg.rank_set_unported() == []
 
 
 # -- drafts ------------------------------------------------------------------------
