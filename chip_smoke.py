@@ -301,6 +301,14 @@ Phases, each fatal on failure:
    tp=2 engine under the near-tie rule, rank 0's launches 28 a forward,
    and process 1 exits non-zero within MH_EXIT_S of SIGTERM to process
    0.
+17. Rank-set features (rank_set_phase): the 3B at tp=2 (both ranks on
+   cuda:0 over gloo) beside a tp=1 engine, with two rank-8 adapters
+   (buffers a rank, one-shot logits of each lane, streams), the KV
+   phase's 46-block export and import (every rank's slice byte-equal
+   to its cut of the wire), evict and restore through the CPU tier, a
+   PD pull into a tp=1 decode engine; then Mixtral-8x7B x4 float32 at
+   tp=2 against tp=1, block by block and on the logits, beside a
+   bfloat16 control, 4 experts a rank.
 
 Launch counts are reset just before the serve phase's requests (through
 the server's /debug/kernel_launches) and again before its API requests,
@@ -314,8 +322,9 @@ impl-phase turn, the gather families' engines, the Phi-3 server's
 requests, the Mixtral engine's run and, on every rank, before the tp
 phase's one-shot forwards and its tp=2 scenario, before each
 long-context engine's run and the long-context server's request, on
-every rank before each pp scenario, and before the multi-host
-server's completion, and read just after; a kernel launched 0 times on those paths fails the
+every rank before each pp scenario, before the multi-host
+server's completion, and on every rank before each rank-set run, and
+read just after; a kernel launched 0 times on those paths fails the
 run. The servers' logs go to build/chip_smoke_serve.log,
 build/chip_smoke_lc_serve.log,
 build/chip_smoke_spec_serve.log, build/chip_smoke_lora_serve.log, build/chip_smoke_prefill_serve.log,
@@ -5274,6 +5283,510 @@ def multihost_phase(torch, gap_tol: float, smi: str, ref) -> dict:
             stop_server(p)
 
 
+# -- rank-set features phase ----------------------------------------------------
+# the 3B rank set of this phase: tp=2 on the one card (both ranks on
+# cuda:0 over gloo, as in the tp and pp phases: no time here is a
+# tensor-parallel speed), LoRA on and the CPU tier under a 128-block pool:
+# room for the adapter requests' blocks, the 47 of the KV prompt and 46
+# to import into, which four prompts of churn then evict from the card
+# (the CPU tier holds 320 blocks: all of them)
+RS_KV_BLOCKS = 128
+RS_LORA_RANK = 8
+RS_LORA_TOKENS = 32
+# the adapter lanes' one-shot prefill: last-row logits tp=2 vs tp=1 within
+# the tp phase's bf16 bound, and each adapter lane at tp=2 farther than
+# that bound from tp=1's base lane (a delta dropped on every rank shows
+# there, one dropped or miscut on one rank in the first)
+RS_LORA_ONESHOT_TOKENS = 200
+# tests/test_moe.py's expert-parallel check at Mixtral-8x7B's widths,
+# float32 (bf16 rounding alone moves tokens to other expert pairs, moe
+# phase), on a 256-token one-shot prefill with every MoE block's input
+# and router logits recorded in both runs (_GateSpy). Only the order of
+# float32 sums differs at tp=2 (the wo all-reduce, the two ranks'
+# expert partials, the kernels' head split), so every block's input
+# agrees to RS_MOE_INPUT_REL_TOL of its max up to the first block whose
+# top-2 routing parts, and that block may part only at tokens whose
+# tp=1 top-2 margin is within the layer's router-logit difference (a
+# near tie the sum order decides); one such flip moves every later row.
+# On an H100 the sound run reads at most 2.7e-6 on the inputs, one flip
+# at a 1.37e-6 margin in layer 1 and 5.323e-3 on the last-row logits;
+# the same prefill in bfloat16 against float32 reads 7.6e-3 on layer 0's
+# input and 3.28e-2 on the logits, and must stay above both bounds
+RS_MOE_INPUT_REL_TOL = 1e-4
+RS_MOE_LOGIT_REL_TOL = 1e-2
+RS_MOE_ONESHOT_TOKENS = 256
+RS_MOE_PROMPTS = [[(11 * j + 3 * i) % 250 + 1 for j in range(40 + 24 * i)]
+                  for i in range(3)]
+
+
+class _TransferHost:
+    """The port's KVTransferServer for an in-process engine (a stand-in
+    for AsyncLLMEngine: the engine and its lock) on a loop in a thread."""
+
+    def __init__(self, engine):
+        import asyncio
+        import threading
+
+        from production_stack_tpu_torch.kv import transfer
+
+        self.engine, self._lock = engine, threading.Lock()
+        self._ready = threading.Event()
+
+        async def serve():
+            srv = transfer.KVTransferServer(self)
+            await srv.start("127.0.0.1", 0)
+            self.port = srv.port
+            self._loop = asyncio.get_running_loop()
+            self._stop = asyncio.Event()
+            self._ready.set()
+            await self._stop.wait()
+            await srv.stop()
+
+        self._thread = threading.Thread(target=asyncio.run, args=(serve(),),
+                                        daemon=True)
+        self._thread.start()
+        if not self._ready.wait(30):
+            fail("rank-set phase: the KV transfer server did not start")
+
+    def close(self):
+        self._loop.call_soon_threadsafe(self._stop.set)
+        self._thread.join(timeout=15)
+
+
+class _GateSpy:
+    """Records every MoE block's input and router logits computed in this
+    process (ops/moe.top_k_gating) inside `record`: a tp=1 engine's, or
+    rank 0's of a rank set, whose routing every rank shares (the same x
+    and the replicated router)."""
+
+    def __init__(self):
+        from production_stack_tpu_torch.ops import moe
+        from production_stack_tpu_torch.ops.layers import matmul_f32
+
+        self._moe, self._orig, self._rows = moe, moe.top_k_gating, None
+
+        def spy(x, gate_w, k):
+            if self._rows is not None:
+                self._rows.append((x.float().cpu(),
+                                   matmul_f32(x, gate_w).float().cpu()))
+            return self._orig(x, gate_w, k)
+
+        moe.top_k_gating = spy
+
+    def record(self, fn):
+        """fn()'s result and the (input, router logits) of each block it
+        ran, in layer order."""
+        self._rows = []
+        try:
+            return fn(), self._rows
+        finally:
+            self._rows = None
+
+    def close(self):
+        self._moe.top_k_gating = self._orig
+
+
+def moe_parting(torch, want: list, got: list, k: int) -> list[dict]:
+    """Per MoE block of two one-shot runs: max|dx| / max|x| of its input,
+    max|d| of its router logits, the rows whose top-k expert sets part
+    and the reference's largest top-k margin (k-th minus (k+1)-th logit)
+    among them."""
+    out = []
+    for (xa, ga), (xb, gb) in zip(want, got):
+        sa = torch.topk(ga, k, -1).indices.sort(-1).values
+        sb = torch.topk(gb, k, -1).indices.sort(-1).values
+        flips = (sa != sb).any(-1).nonzero().flatten().tolist()
+        top = ga.sort(-1, descending=True).values
+        margin = top[:, k - 1] - top[:, k]
+        out.append({
+            "dx": float((xa - xb).abs().max()) / float(xa.abs().max()),
+            "dg": float((ga - gb).abs().max()),
+            "flips": flips,
+            "margin": max((float(margin[r]) for r in flips), default=0.0),
+        })
+    return out
+
+
+def drive_lora(eng, reqs, sp) -> list:
+    """Greedy requests [(prompt ids, adapter or None)] at once; their
+    outputs in order."""
+    rid = f"rs{time.monotonic_ns()}"
+    for i, (ids, lora) in enumerate(reqs):
+        eng.add_request(f"{rid}-{i}", prompt_token_ids=ids, lora_name=lora,
+                        sampling_params=sp)
+    done = {}
+    while eng.has_unfinished():
+        for o in eng.step():
+            if o.finished:
+                done[o.request_id] = o
+    return [done[f"{rid}-{i}"] for i in range(len(reqs))]
+
+
+def rank_set_phase(torch, pa, gap_tol: float, smi: str) -> dict:
+    """LoRA, the KV tier and PD on a Llama-3.2-3B tp=2 rank set (28
+    layers, bf16, seeded random weights; both ranks on cuda:0 over gloo)
+    beside a tp=1 engine of the same config; then Mixtral-8x7B at its
+    widths, MIXTRAL_LAYERS layers, float32, with its experts split E/2 a
+    rank. (a) two random rank-8 PEFT adapters: every rank's adapter
+    buffers byte-equal to its cut of tp=1's, each lane's one-shot
+    last-row logits held to tp=1's (and each adapter lane's away from
+    the base's), base and adapter greedy streams held to tp=1's under
+    the near-tie rule, an unload answered as tp=1 answers it; (b) the
+    KV phase's 46-block export and import at tp=2 (rank 0 assembles
+    the wire from each rank's slice; every rank's slice, read through a
+    report step, byte-equal to its cut of the wire), then evict and
+    restore through the CPU tier: the restored stream held to the cold
+    one, 0 fallbacks; (c) PD: the tp=2 engine serves a tp=1 decode
+    engine's pull; (d) the MoE set's one-shot prefill held to tp=1's
+    block by block (RS_MOE_INPUT_REL_TOL, the near-tie routing rule) and
+    on its logits, beside a bfloat16 control that must read above both
+    bounds, and its greedy streams, each rank holding its experts and
+    launching the ragged kernel MIXTRAL_LAYERS times a forward. Returns
+    the launches of each rank set's driven run."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.llm_engine import LLMEngine
+    from production_stack_tpu_torch.engine.lora import write_peft_adapter
+    from production_stack_tpu_torch.engine.multihost_engine import (
+        tensor_digest,
+    )
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+    from production_stack_tpu_torch.models import config as mconfig
+    from production_stack_tpu_torch.parallel import sharding
+    from production_stack_tpu_torch.parallel.launch import start_tp_ranks
+
+    t_phase = time.perf_counter()
+
+    def tp_engine(cfg):
+        t0 = time.perf_counter()
+        group = start_tp_ranks(cfg, devices=["cuda:0", "cuda:0"],
+                               backend="gloo")
+        return LLMEngine(cfg, tp_group=group), time.perf_counter() - t0
+
+    def stop(eng, what):
+        followers = list(eng.tp_group.followers)
+        eng.shutdown()
+        codes = [p.exitcode for p in followers]
+        if codes != [0] * len(followers):
+            fail(f"{what}: followers exited with {codes}")
+
+    cfg3 = mconfig.get_model_config("llama-3.2-3b")
+    bs = 32
+    layers, nkv, d = cfg3.num_layers, cfg3.num_kv_heads, cfg3.head_dim
+    block_bytes = 2 * layers * nkv * bs * d * 2  # bf16 wire block
+    base = dict(model="llama-3.2-3b", tokenizer="byte", device="cuda",
+                block_size=bs, num_kv_blocks=RS_KV_BLOCKS, max_num_seqs=4,
+                seed=SEED, num_scheduler_steps=8, enable_lora=True,
+                max_loras=2, max_lora_rank=RS_LORA_RANK,
+                cpu_offload_bytes=320 * block_bytes, kv_restore_wait_s=30.0)
+    root = Path(tempfile.mkdtemp(prefix="rank-set-", dir=REPO / "build"))
+    counts = {}
+    ref = LLMEngine(EngineConfig(**base))
+    eng, boot = tp_engine(EngineConfig(**base, tensor_parallel_size=2))
+    try:
+        print(f"rank-set phase: llama-3.2-3b tp=2 rank set (LoRA, the CPU "
+              f"tier) up in {boot:.1f}s beside a tp=1 engine; the store "
+              f"holds {eng.runner.reports()[0]['store_keys']} keys",
+              flush=True)
+        # (a) LoRA
+        paths = {}
+        for i, name in enumerate(("a1", "a2")):
+            paths[name] = write_peft_adapter(
+                str(root / name), lora_weights(torch, cfg3, RS_LORA_RANK,
+                                               101 + i),
+                lora_alpha=float(RS_LORA_RANK))
+        for e in (ref, eng):
+            for name, path in paths.items():
+                e.load_lora(name, path)
+        reps = eng.runner.reports(adapter_digests=True)
+        full = ref.runner.lora_manager.buffers
+        for r, rep in enumerate(reps):
+            want = {k: tensor_digest(sharding.cut_adapter(k, v, r, 2))
+                    for k, v in full.items()}
+            if (rep["adapter_digests"] != want
+                    or rep["adapters"] != ref.runner.lora_manager
+                    .name_to_slot):
+                fail(f"rank-set phase (a): rank {r}'s adapter buffers are "
+                     "not its cut of tp=1's")
+        # one-shot last-row logits of each lane, tp=2 against tp=1 (into
+        # blocks no request holds yet)
+        ids = [(7 * j + 5) % 250 + 1 for j in range(RS_LORA_ONESHOT_TOKENS)]
+        table = list(range(1, 1 + -(-len(ids) // bs)))
+        lanes = {}
+        for name in (None, "a1", "a2"):
+            slot = ref.runner.lora_manager.name_to_slot[name] if name else 0
+            lanes[name] = [e.runner.prefill(ids, 0, table, len(ids),
+                                            lora_slot=slot)[1].float().cpu()
+                           for e in (ref, eng)]
+        rels, moved = {}, {}
+        for name, (want_l, got_l) in lanes.items():
+            top = float(want_l.abs().max())
+            rels[name] = float((got_l - want_l).abs().max()) / top
+            # how far the adapter moves tp=2's lane from tp=1's base
+            moved[name] = float((got_l - lanes[None][0]).abs().max()) / top
+        print(f"rank-set phase (a): one-shot {len(ids)}-token last-row "
+              f"logits max|d|/max|logit| tp=2 vs tp=1, base / a1 / a2: "
+              f"{' / '.join(f'{v:.3e}' for v in rels.values())} (tol "
+              f"{TP_LOGIT_REL_TOL}); the adapter lanes at tp=2 vs tp=1's "
+              f"base: {moved['a1']:.3e} / {moved['a2']:.3e}", flush=True)
+        if not (all(v <= TP_LOGIT_REL_TOL for v in rels.values())
+                and min(moved["a1"], moved["a2"]) > TP_LOGIT_REL_TOL):
+            fail(f"rank-set phase (a): adapter lane logits at tp=2 "
+                 f"{rels}, moved from the base by {moved}")
+        sp = SamplingParams(max_tokens=RS_LORA_TOKENS, temperature=0,
+                            ignore_eos=True, logprobs=2)
+        reqs = [([(7 * j + 5 * i) % 250 + 1 for j in range(60 + 40 * i)],
+                 lora) for i, lora in enumerate((None, "a1", "a2", "a1"))]
+        outs = {"tp1": drive_lora(ref, reqs, sp)}
+        # after the tp=1 run: rank 0's process counts its launches too
+        eng.runner.reset_counts()
+        runs0 = [dict(r["dispatch_counts"]) for r in eng.runner.reports()]
+        t0 = time.perf_counter()
+        outs["tp2"] = drive_lora(eng, reqs, sp)
+        wall = time.perf_counter() - t0
+        counts["lora tp2"] = tp_rank_check(
+            "rank-set phase (a) LoRA", eng.runner.reports(), LAYERS_3B,
+            runs0)
+        n_same = near_tie_check("rank-set phase (a) tp=2 vs tp=1 with "
+                                "adapters", outs["tp1"], outs["tp2"],
+                                gap_tol)
+        if len({tuple(o.token_ids) for o in outs["tp2"][:3]}) < 3:
+            fail("rank-set phase (a): an adapter's stream equals another's")
+        answers = []
+        for e in (ref, eng):
+            e.unload_lora("a2")
+            try:
+                e.add_request("gone", prompt_token_ids=[1, 2, 3],
+                              lora_name="a2", sampling_params=sp)
+                answers.append(("served", e.list_loras()))
+            except Exception as exc:  # noqa: BLE001 — compared below
+                answers.append((type(exc).__name__, str(exc),
+                                e.list_loras()))
+        if answers[0] != answers[1] or answers[0][0] == "served":
+            fail(f"rank-set phase (a): an unloaded adapter answers "
+                 f"{answers[1]} at tp=2, {answers[0]} at tp=1")
+        print(f"rank-set phase (a): two rank-{RS_LORA_RANK} PEFT adapters "
+              f"loaded on every rank (each rank's buffers byte-equal to "
+              f"its cut of tp=1's); {n_same}/{len(reqs)} greedy streams "
+              f"(base and adapter lanes at once) equal to tp=1's in "
+              f"{wall:.2f}s; an unloaded adapter answers {answers[1][:2]} "
+              f"as at tp=1", flush=True)
+
+        # (b) KV: export and import at tp=2, evict and restore
+        prompt = [(17 * j + 5) % 250 + 1 for j in range(KV_PROMPT_TOKENS)]
+        churn = [[(13 * j + 7 * i + 3) % 250 + 1
+                  for j in range(KV_PROMPT_TOKENS)] for i in range(1, 5)]
+        n_full = KV_PROMPT_TOKENS // bs
+        sp = SamplingParams(max_tokens=16, temperature=0, ignore_eos=True,
+                            logprobs=2)
+        cold = eng.generate([prompt], sp)[0]
+        bm = eng.block_manager
+        bids = [bm.cached_blocks[h] for h in bm.block_hashes_for(prompt, 0)]
+        free = [b for b in range(1, RS_KV_BLOCKS)
+                if b not in bm.cached_blocks.values()
+                and bm.blocks[b].ref_count == 0][:n_full]
+        if len(bids) != n_full or len(free) != n_full:
+            fail(f"rank-set phase (b): {len(bids)} cached and {len(free)} "
+                 "free blocks")
+        nbytes = n_full * block_bytes
+        exp_s, imp_s = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            data = eng.runner.export_blocks(bids)
+            exp_s.append(time.perf_counter() - t0)
+            host = data.clone()
+            t0 = time.perf_counter()
+            eng.runner.import_blocks(free, host)
+            torch.cuda.synchronize()
+            imp_s.append(time.perf_counter() - t0)
+        back = eng.runner.export_blocks(free)
+        digests = []
+        for r, rep in enumerate(eng.runner.reports(kv_blocks=bids)):
+            cut = data[:, :, :, r * nkv // 2:(r + 1) * nkv // 2]
+            digests.append(rep["kv_digest"] == tensor_digest(cut))
+        if not (torch.equal(back, data) and all(digests)):
+            fail(f"rank-set phase (b): wire read back {torch.equal(back, data)}"
+                 f", rank slices byte-equal {digests}")
+        print(f"rank-set phase (b): {n_full} blocks of the "
+              f"{KV_PROMPT_TOKENS}-token prompt ({nbytes / 2**20:.1f} MiB, "
+              f"wire {tuple(data.shape)} {data.dtype}) exported at tp=2 "
+              f"(each rank gathers its {nkv // 2} kv heads, rank 1 "
+              f"broadcasts its slice through gloo, rank 0 assembles and "
+              f"copies d2h) and "
+              f"imported into {n_full} other blocks (rank 0 broadcasts the "
+              f"wire, each rank scatters its heads): read back byte-equal, "
+              f"every rank's slice byte-equal to its cut of the wire; "
+              f"export {[round(t * 1e3, 2) for t in exp_s]} ms = best "
+              f"{nbytes / min(exp_s) / 1e9:.2f} GB/s, import from pageable "
+              f"memory {[round(t * 1e3, 2) for t in imp_s]} ms = best "
+              f"{nbytes / min(imp_s) / 1e9:.2f} GB/s (host clock; tp=1 in "
+              f"PR 8: 42.26 / 39.76 GB/s) on {smi}", flush=True)
+        for c in churn:
+            eng.generate([c], sp)
+        r0 = eng._kv_restore_blocks_total
+        eng.runner.reset_counts()
+        runs0 = [dict(r["dispatch_counts"]) for r in eng.runner.reports()]
+        warm = eng.generate([prompt], sp)[0]
+        counts["kv tp2"] = tp_rank_check(
+            "rank-set phase (b) restore", eng.runner.reports(), LAYERS_3B,
+            runs0)
+        restored = eng._kv_restore_blocks_total - r0
+        fallbacks = eng._kv_restore_fallbacks_total
+        n_same = near_tie_check("rank-set phase (b) restored vs cold",
+                                [cold], [warm], gap_tol)
+        print(f"rank-set phase (b): after {len(churn)} prompts of churn "
+              f"the prompt "
+              f"restored {restored} blocks from the CPU tier at tp=2 "
+              f"(fallbacks {fallbacks}, export fallbacks "
+              f"{eng._kv_export_sync_fallbacks_total}); its stream equal "
+              f"to the cold one: {n_same == 1}", flush=True)
+        if restored <= 0 or fallbacks:
+            fail(f"rank-set phase (b): restored {restored} blocks with "
+                 f"{fallbacks} fallbacks")
+
+        # (c) PD: the tp=2 engine prefills and serves; a tp=1 decodes
+        pd_prompt = [(23 * j + 11) % 250 + 1 for j in range(PD_PROMPT_TOKENS)]
+        eng.generate([pd_prompt], SamplingParams(max_tokens=1,
+                                                 temperature=0))
+        # the reference first: a dropped engine's CUDA graphs must not be
+        # freed while another runner captures (release below)
+        want = ref.generate([pd_prompt], sp)[0]
+        host = _TransferHost(eng)
+        try:
+            dec = LLMEngine(EngineConfig(
+                model="llama-3.2-3b", tokenizer="byte", device="cuda",
+                block_size=bs, num_kv_blocks=RS_KV_BLOCKS, max_num_seqs=4,
+                seed=SEED, kv_role="decode",
+                kv_transfer_config={"peer": f"127.0.0.1:{host.port}"},
+                kv_restore_wait_s=30.0))
+            got = dec.generate([pd_prompt], sp)[0]
+            pulls, hits = dec.kv_peer.pulls, dec.kv_peer.hits
+            pd_restored = dec._kv_restore_blocks_total
+            pd_fallbacks = dec._kv_restore_fallbacks_total
+            dec.shutdown()
+            del dec
+            release(torch)
+        finally:
+            host.close()
+        n_same = near_tie_check("rank-set phase (c) PD decode vs tp=1",
+                                [want], [got], gap_tol)
+        print(f"rank-set phase (c): a tp=1 decode engine pulled the "
+              f"{PD_PROMPT_TOKENS}-token prompt's chain from the tp=2 "
+              f"prefill engine: {pulls} pulls, {hits} blocks, "
+              f"{pd_restored} restored, fallbacks {pd_fallbacks}; stream "
+              f"equal to a tp=1 engine's: {n_same == 1}", flush=True)
+        if pulls < 1 or pd_restored < 1 or pd_fallbacks:
+            fail(f"rank-set phase (c): {pulls} pulls, {pd_restored} "
+                 f"restored, {pd_fallbacks} fallbacks")
+        keys = eng.runner.reports()[0]["store_keys"]
+        print(f"rank-set phase: the set's store holds {keys} keys after "
+              f"{eng.runner._bc.count} steps", flush=True)
+    finally:
+        stop(eng, "rank-set phase llama-3.2-3b")
+        del ref
+        release(torch)
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (d) Mixtral-8x7B, MIXTRAL_LAYERS layers, float32, experts E/2 a rank
+    cut = dataclasses.replace(mconfig.get_model_config("mixtral-8x7b"),
+                              name=f"mixtral-8x7b-x{MIXTRAL_LAYERS}",
+                              num_layers=MIXTRAL_LAYERS)
+    mconfig._PRESETS[cut.name] = cut
+    mbase = dict(model=cut.name, tokenizer="byte", device="cuda",
+                 block_size=bs, num_kv_blocks=64, max_num_seqs=4, seed=SEED,
+                 num_scheduler_steps=8, dtype="float32",
+                 cache_dtype="float32")
+    ids = [(5 * j + 3) % 250 + 1 for j in range(RS_MOE_ONESHOT_TOKENS)]
+    table = list(range(1, 1 + -(-len(ids) // bs)))
+    sp = SamplingParams(max_tokens=24, temperature=0, ignore_eos=True,
+                        logprobs=2)
+    k = cut.num_experts_per_tok
+    spy = _GateSpy()
+    try:
+        def oneshot(runner):
+            return spy.record(lambda: runner.prefill(ids, 0, table, len(ids))
+                              [1].float().cpu())
+
+        # the bfloat16 control: the same prefill at bf16 precision
+        ctl = LLMEngine(EngineConfig(**{**mbase, "dtype": "bfloat16",
+                                        "cache_dtype": "bfloat16"}))
+        ctl_logits, ctl_rows = oneshot(ctl.runner)
+        del ctl
+        release(torch)
+        ref = LLMEngine(EngineConfig(**mbase))
+        want_logits, want_rows = oneshot(ref.runner)
+        want = ref.generate(RS_MOE_PROMPTS, sp)
+        del ref
+        release(torch)  # the rank set's experts take the card's room
+        eng, boot = tp_engine(EngineConfig(**mbase,
+                                           tensor_parallel_size=2))
+        try:
+            reps = eng.runner.reports()
+            experts = [r["experts"] for r in reps]
+            half = cut.num_experts // 2
+            if experts != [[0, half], [half, cut.num_experts]]:
+                fail(f"rank-set phase (d): experts a rank {experts}")
+            held = eng.runner._runner.params["layers"]["w_gate"]
+            got_logits, got_rows = oneshot(eng.runner)
+            top = float(want_logits.abs().max())
+            rel = float((got_logits - want_logits).abs().max()) / top
+            ctl_rel = float((ctl_logits - want_logits).abs().max()) / top
+            eng.runner.reset_counts()
+            runs0 = [dict(r["dispatch_counts"])
+                     for r in eng.runner.reports()]
+            t0 = time.perf_counter()
+            got = eng.generate(RS_MOE_PROMPTS, sp)
+            wall = time.perf_counter() - t0
+            counts["moe tp2"] = tp_rank_check(
+                "rank-set phase (d) Mixtral EP", eng.runner.reports(),
+                MIXTRAL_LAYERS, runs0)
+            n_same = near_tie_check("rank-set phase (d) Mixtral tp=2 vs "
+                                    "tp=1", want, got, gap_tol)
+        finally:
+            stop(eng, "rank-set phase Mixtral")
+            release(torch)
+    finally:
+        spy.close()
+    blocks = moe_parting(torch, want_rows, got_rows, k)
+    ctl_blocks = moe_parting(torch, want_rows, ctl_rows, k)
+    for i, (b, c) in enumerate(zip(blocks, ctl_blocks)):
+        print(f"rank-set phase (d): layer {i} MoE input max|dx|/max|x| "
+              f"{b['dx']:.3e} (bf16 control {c['dx']:.3e}), router "
+              f"logits max|d| {b['dg']:.3e}, top-{k} parts at rows "
+              f"{b['flips']} (largest tp=1 margin there {b['margin']:.3e}; "
+              f"bf16 control parts at {len(c['flips'])} rows)", flush=True)
+    first = next((i for i, b in enumerate(blocks) if b["flips"]),
+                 len(blocks) - 1)
+    print(f"rank-set phase (d): Mixtral-8x7B x{MIXTRAL_LAYERS} float32 at "
+          f"tp=2 (rank set up in {boot:.1f}s; each rank holds experts "
+          f"{experts} a layer, w_gate {tuple(held.shape)}): one-shot "
+          f"{len(ids)}-token last-row logits max|d|/max|logit|={rel:.3e} "
+          f"(tol {RS_MOE_LOGIT_REL_TOL}; bf16 control {ctl_rel:.3e}); "
+          f"{n_same}/{len(want)} greedy streams equal to tp=1's, in "
+          f"{wall:.2f}s (gloo through the host on one card, not an EP "
+          f"speed)", flush=True)
+    if not (torch.isfinite(got_logits).all()
+            and all(b["dx"] <= RS_MOE_INPUT_REL_TOL
+                    for b in blocks[:first + 1])
+            and blocks[first]["margin"] <= blocks[first]["dg"]
+            and rel <= RS_MOE_LOGIT_REL_TOL):
+        fail(f"rank-set phase (d): EP parts from tp=1 beyond float32 "
+             f"summation order: logits {rel:.3e}, blocks {blocks}")
+    if not (ctl_blocks[0]["dx"] > RS_MOE_INPUT_REL_TOL
+            and ctl_rel > RS_MOE_LOGIT_REL_TOL):
+        fail(f"rank-set phase (d): the bf16 control reads {ctl_rel:.3e} "
+             f"and {ctl_blocks[0]['dx']:.3e}, inside the float32 bounds")
+    print(f"rank-set phase: {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -5324,6 +5837,7 @@ def main() -> int:
     lc_counts = long_context_phase(torch, pa, gap_tol, smi)
     pp_phase(torch, pa, gap_tol, smi)
     mh_counts = multihost_phase(torch, gap_tol, smi, mh_ref)
+    rs_counts = rank_set_phase(torch, pa, gap_tol, smi)
     launches = {
         "ragged": serve_counts["ragged"],
         "prefill": serve_counts["prefill"],
@@ -5338,8 +5852,8 @@ def main() -> int:
           f"checkpoint with adapters {lora_counts}, KV paths {kv_counts}, "
           f"Mixtral-8x7B x{MIXTRAL_LAYERS} {moe_counts}, tp=2 ranks "
           f"{tp_counts}, long-context lane engine {lc_counts}, multi-host "
-          f"rank 0 {mh_counts}, pipeline-parallel ranks none (the gather "
-          f"path); "
+          f"rank 0 {mh_counts}, rank-set features {rs_counts}, "
+          f"pipeline-parallel ranks none (the gather path); "
           f"a served "
           f"mixed round launches the ragged kernel {LAYERS_3B} times a "
           "forward (its step-0 forward and each further decode iteration)",

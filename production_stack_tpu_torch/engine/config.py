@@ -209,24 +209,18 @@ class EngineConfig:
     def rank_set_unported(self) -> list[str]:
         """Names of the requested features an engine over a rank set
         (tensor_parallel_size x pipeline_parallel_size > 1) cannot serve
-        yet (none on one rank): the JAX package's own broadcast limits
-        (adapter loads, KV offload tiers and PD roles are not broadcast
-        to the ranks), expert parallelism, and the two serving programs
-        built on CUDA graphs and chained device tokens. Under pipeline
-        parallelism LoRA and MoE models are refused at engine boot by
-        the JAX package's own messages (pp_serving.validate_pp_serving)."""
+        yet (none on one rank): the two serving programs built on CUDA
+        graphs and chained device tokens, and the ring under tensor
+        parallelism. LoRA, the KV tiers, the remote cache, PD roles and
+        MoE (expert parallel) are served on a one-host rank set; under
+        pipeline parallelism LoRA and MoE models are refused at engine
+        boot by the JAX package's own messages
+        (pp_serving.validate_pp_serving), and a multi-host job refuses
+        what the JAX multi-host engine refuses
+        (multihost_engine.validate_multihost_config)."""
         if self.tensor_parallel_size * self.pipeline_parallel_size <= 1:
             return []
-        tp_only = self.pipeline_parallel_size == 1
         checks = {
-            "enable_lora": self.enable_lora and tp_only,
-            "KV offload tiers (cpu_offload_bytes, disk_offload_dir)": bool(
-                self.cpu_offload_bytes or self.disk_offload_dir),
-            "remote_cache_url": self.remote_cache_url is not None,
-            "PD (kv_role / kv_transfer_config)": (
-                self.pd_role() is not None),
-            "MoE models (expert parallel)": (
-                tp_only and self.model_config().is_moe),
             "async_decode": self.async_decode,
             "precompile_serving": self.precompile_serving,
             # the JAX engine rings under TP on one ("tp", "sp") mesh (and

@@ -73,7 +73,11 @@ forward to the followers. The JAX meshed engine's rules hold: no
 unified ragged rounds, no staged decode or ragged rounds, no staged
 prefill (each stage is a device buffer the followers never see);
 split rounds, the fused K-step decode, packed prefill, spec decode,
-embeddings, guided lanes and prompt logprobs are served. ``shutdown``
+embeddings, guided lanes and prompt logprobs are served, and on one
+host so are LoRA, the KV tiers, the remote cache and PD roles (their
+exports, imports and adapter loads are broadcast steps, issued from the
+step thread or under AsyncLLMEngine's lock; a rank-set failure in one
+raises RankSetError, never a counted fallback). ``shutdown``
 stops and joins the followers. Under ``multihost`` (a job of
 parallel/multihost.initialize) this engine is process 0's: the rank
 set spans the job's processes, ``validate_multihost_config`` refuses
@@ -98,6 +102,7 @@ from production_stack_tpu_torch.engine.model_runner import (
 )
 from production_stack_tpu_torch.engine.multihost_engine import (
     BroadcastingRunner,
+    RankSetError,
     validate_multihost_config,
 )
 from production_stack_tpu_torch.engine.outputs import (
@@ -524,6 +529,8 @@ class LLMEngine:
                 [h for _, h in pending], handle,
                 self.runner.materialize_export, self._note_kv_export,
             )
+        except RankSetError:
+            raise  # the rank set is down: an error, never a dropped batch
         except Exception:  # noqa: BLE001 — export is best-effort: a
             # failed gather (e.g. device OOM sizing the snapshot) drops
             # the batch, it must not kill the step or leak the pins
@@ -641,6 +648,8 @@ class LLMEngine:
                 self._advance_kv_restore(rec)
                 if rec["state"] == "staged":
                     staged += 1
+            except RankSetError:
+                raise  # an error of the rank set, not a recompute
             except Exception:  # noqa: BLE001 — a staging failure must
                 # never kill the step loop: this request recomputes
                 logger.exception(
@@ -755,6 +764,8 @@ class LLMEngine:
         try:
             self.runner.import_staged_blocks(bids, handle, src)
             return True
+        except RankSetError:
+            raise  # the rank set is down: never a counted fallback
         except Exception:  # noqa: BLE001 — e.g. stale wrong-shape tier
             # data after a model swap; the request just recomputes
             logger.exception(
@@ -799,6 +810,8 @@ class LLMEngine:
                 return True
         try:
             self._advance_kv_restore(rec)
+        except RankSetError:
+            raise
         except Exception:  # noqa: BLE001 — staging failure: recompute
             logger.exception(
                 "kv restore staging failed for %s; recomputing",
@@ -914,6 +927,8 @@ class LLMEngine:
                 [bid for bid, _ in restore],
                 torch.stack([a for _, a in restore], dim=2),
             )
+        except RankSetError:
+            raise
         except Exception:  # noqa: BLE001 — see _import_restored
             logger.exception(
                 "kv import failed; dropping %d adopted blocks",
@@ -3092,11 +3107,12 @@ class LLMEngine:
             raise RuntimeError(
                 "LoRA is disabled; start the engine with --enable-lora"
             )
-        self.runner.lora_manager.load(name, path)
+        # in a rank set a broadcast step (every rank loads its slice)
+        self.runner.load_lora(name, path)
 
     def unload_lora(self, name: str) -> None:
         if self.runner.lora_manager is not None:
-            self.runner.lora_manager.unload(name)
+            self.runner.unload_lora(name)
 
     def list_loras(self) -> list[str]:
         if self.runner.lora_manager is None:

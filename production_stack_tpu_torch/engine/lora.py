@@ -14,6 +14,10 @@ vllmruntime spec enableLora):
   scaling * (x @ A) @ B to the wq/wk/wv/wo projections
   (models/llama.py), so a batch can mix any combination of adapters.
 - Ranks smaller than r_max are zero-padded.
+- Under tensor parallelism each rank's manager holds the slice of every
+  adapter its base weights use (``shard``): wq/wk/wv's B on the head
+  columns, wo's A on its input rows; a rank set's loads and unloads are
+  broadcast steps (engine/multihost_engine.py).
 
 Adapter files: native .npz with arrays `{target}_A` (L, in, r) and
 `{target}_B` (L, r, out) for targets wq/wk/wv/wo plus optional scalar
@@ -35,6 +39,7 @@ import torch
 
 from production_stack_tpu_torch.models import safetensors_io
 from production_stack_tpu_torch.models.config import ModelConfig
+from production_stack_tpu_torch.parallel import sharding
 from production_stack_tpu_torch.utils import init_logger
 from production_stack_tpu_torch.utils.xxh64 import xxh64
 
@@ -56,22 +61,36 @@ def _target_dims(mc: ModelConfig) -> dict[str, tuple[int, int]]:
     }
 
 
+def _local_dims(mc: ModelConfig, tp: int) -> dict[str, tuple[int, int]]:
+    """A tp rank's (in, out) of each target: the column targets' out and
+    wo's in divided by tp (parallel/sharding.LORA_SPLIT_AXIS)."""
+    return {t: (din // tp, dout) if t == "wo" else (din, dout // tp)
+            for t, (din, dout) in _target_dims(mc).items()}
+
+
 class LoraManager:
     """Owns the stacked adapter buffers + name->slot registry."""
 
     def __init__(self, mc: ModelConfig, max_loras: int, max_rank: int,
                  dtype: torch.dtype = torch.bfloat16,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cpu",
+                 shard: tuple[int, int] | None = None):
+        """`shard` = (tp index, tp): a tensor-parallel rank's manager,
+        whose buffers hold the slice its base weights use (the column
+        targets' B on their head columns, wo's A on its input rows;
+        parallel/sharding.cut_adapter). An adapter is read and checked
+        whole, then cut."""
         self.mc = mc
         self.max_loras = max_loras
         self.max_rank = max_rank
         self.dtype = dtype
+        self.shard = shard if shard is not None else (0, 1)
         L = mc.num_layers
         S = max_loras + 1  # slot 0 = no adapter
         # layer-leading layout (L, S, ...): the forward's layer loop
         # slices a layer's adapter rows beside its base weights
         self.buffers: dict[str, torch.Tensor] = {}
-        for t, (din, dout) in _target_dims(mc).items():
+        for t, (din, dout) in _local_dims(mc, self.shard[1]).items():
             self.buffers[f"{t}_A"] = torch.zeros(
                 (L, S, din, max_rank), dtype=dtype, device=device)
             self.buffers[f"{t}_B"] = torch.zeros(
@@ -91,26 +110,57 @@ class LoraManager:
             raise KeyError(f"LoRA adapter {name!r} is not loaded")
         return slot
 
+    def path_of(self, name: str) -> str | None:
+        """The path `name` was loaded from (None: not loaded)."""
+        return self._paths.get(name)
+
     def list_adapters(self) -> list[str]:
         return sorted(self.name_to_slot)
 
     # -- load/unload -------------------------------------------------------
-    def load(self, name: str, path: str) -> int:
-        if name in self.name_to_slot:
-            if self._paths.get(name) == path:
-                return self.name_to_slot[name]  # idempotent reload
-            # same name, new path: replace the served weights (the caller
-            # expects the new adapter, not a silent no-op)
-            self.unload(name)
-        if not self._free:
+    def load(self, name: str, path: str, slot: int | None = None) -> int:
+        """Load the adapter at `path` as `name`; returns its slot. Same
+        name and path: nothing changes. Same name, another path: the new
+        weights replace the old. Every check (a free slot, the file, the
+        rank and the shapes) runs before anything changes, so a refused
+        load leaves the manager as it was. `slot`: the slot rank 0
+        assigned (a follower of a rank set mirrors it)."""
+        if name in self.name_to_slot and self._paths.get(name) == path:
+            return self.name_to_slot[name]  # idempotent reload
+        replacing = name in self.name_to_slot
+        if not replacing and not self._free:
             raise RuntimeError(
                 f"max_loras={self.max_loras} adapters already loaded"
             )
-        weights = self._read_adapter(path)
+        staged, scaling = self._stage(self._read_adapter(path))
+        if replacing:
+            # same name, new path: replace the served weights (the caller
+            # expects the new adapter, not a silent no-op)
+            self.unload(name)
+        if slot is None:
+            slot = self._free.pop(0)
+        else:
+            self._free.remove(slot)
+        for key, arr in staged.items():
+            self.buffers[key][:, slot] = arr.to(self.buffers[key].device)
+        self.buffers["scaling"][slot] = scaling
+        self.name_to_slot[name] = slot
+        self._paths[name] = path
+        # per-load generation: the prefix-cache hash seed folds this in so
+        # KV computed under an earlier load of the same name is never
+        # reused after a reload with different weights
+        self._generation[name] = self._generation.get(name, 0) + 1
+        logger.info("loaded LoRA %r into slot %d (path %s, gen %d)",
+                    name, slot, path, self._generation[name])
+        return slot
+
+    def _stage(self, weights: dict) -> tuple[dict, float]:
+        """Validate and pad EVERY target before any buffer write, so a
+        bad adapter can never leave partial rows in a freed slot; then
+        cut each padded array to this rank's slice."""
         L = self.mc.num_layers
         dims = _target_dims(self.mc)
-        # validate + pad EVERY target before any buffer write, so a bad
-        # adapter can never leave partial rows in a freed slot
+        rank, tp = self.shard
         staged: dict[str, torch.Tensor] = {}
         for t in TARGETS:
             A = weights.get(f"{t}_A")
@@ -133,22 +183,9 @@ class LoraManager:
             B_pad = torch.zeros((L, self.max_rank, dout), dtype=self.dtype)
             A_pad[:, :, :r] = torch.as_tensor(A)
             B_pad[:, :r, :] = torch.as_tensor(B)
-            staged[f"{t}_A"] = A_pad
-            staged[f"{t}_B"] = B_pad
-
-        slot = self._free.pop(0)
-        for key, arr in staged.items():
-            self.buffers[key][:, slot] = arr.to(self.buffers[key].device)
-        self.buffers["scaling"][slot] = float(weights.get("scaling", 1.0))
-        self.name_to_slot[name] = slot
-        self._paths[name] = path
-        # per-load generation: the prefix-cache hash seed folds this in so
-        # KV computed under an earlier load of the same name is never
-        # reused after a reload with different weights
-        self._generation[name] = self._generation.get(name, 0) + 1
-        logger.info("loaded LoRA %r into slot %d (path %s, gen %d)",
-                    name, slot, path, self._generation[name])
-        return slot
+            for key, arr in ((f"{t}_A", A_pad), (f"{t}_B", B_pad)):
+                staged[key] = sharding.cut_adapter(key, arr, rank, tp)
+        return staged, float(weights.get("scaling", 1.0))
 
     def hash_seed_of(self, name: str | None) -> int:
         """Prefix-cache chain seed for requests using this adapter: folds

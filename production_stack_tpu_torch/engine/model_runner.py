@@ -486,9 +486,11 @@ class ModelRunner:
         # dispatch carries adapter math
         self.lora_manager = None
         if config.enable_lora:
+            # a tp rank's manager holds its slice of each adapter (LoRA
+            # under pp is refused at boot, the JAX package's rule)
             self.lora_manager = LoraManager(
                 mc, config.max_loras, config.max_lora_rank, self.dtype,
-                self.device)
+                self.device, shard=shard)
 
     # -- sizing -----------------------------------------------------------
     def _resolve_num_blocks(self) -> int:
@@ -3138,24 +3140,78 @@ class ModelRunner:
         calls, and `event` is recorded after it, so a later dispatch that
         overwrites these slots cannot reach the snapshot and the caller
         may release the blocks the moment this returns. On the CPU the
-        snapshot is taken here and `event` is None."""
-        mc = self.model_config
+        snapshot is taken here and `event` is None.
+
+        In a rank set every rank runs this in step order (a broadcast
+        step, engine/multihost_engine.py): each gathers its (layers,
+        heads) slice, and each follower in turn broadcasts it to the set,
+        so rank 0 assembles the whole wire on its device, byte for byte
+        (no zero-fill sum: -0.0 + 0.0 is +0.0). A follower's snapshot is
+        None."""
         n = len(block_ids)
         with self.on_compute_stream():
             idx = self._block_slots(block_ids)
-            snap = torch.empty(
-                (2, mc.num_layers, n, mc.num_kv_heads, self.block_size,
-                 mc.head_dim), dtype=self.cache_dtype, device=self.device)
-            for i, cache in enumerate((self.k_cache, self.v_cache)):
-                # head-major (L, nkv, n*bs, d) -> wire (L, n, nkv, bs, d)
-                snap[i].copy_(cache.index_select(2, idx).view(
-                    mc.num_layers, mc.num_kv_heads, n, self.block_size,
-                    mc.head_dim).transpose(1, 2))
+            snap = self._gather_wire(idx, n)
+            if self.group is not None:
+                snap = self._assemble_wire(snap)
             event = None
-            if self.compute_stream is not None:
+            if self.compute_stream is not None and snap is not None:
                 event = torch.cuda.Event()
                 event.record(self.compute_stream)
         return n, snap, event
+
+    def local_wire(self, block_ids: list[int]) -> torch.Tensor:
+        """This rank's own (layers, kv heads) slice of the blocks' wire,
+        gathered with no collective (a debug read; in a rank set the
+        whole wire is stage_export_blocks')."""
+        with self.on_compute_stream():
+            return self._gather_wire(self._block_slots(block_ids),
+                                     len(block_ids))
+
+    def _gather_wire(self, idx: torch.Tensor, n: int) -> torch.Tensor:
+        """This rank's cache rows `idx` (n whole blocks) in the wire
+        layout: (2, L, n, nkv, bs, d) of its local config."""
+        lc = self.local_config
+        snap = torch.empty(
+            (2, lc.num_layers, n, lc.num_kv_heads, self.block_size,
+             lc.head_dim), dtype=self.cache_dtype, device=self.device)
+        for i, cache in enumerate((self.k_cache, self.v_cache)):
+            # head-major (L, nkv, n*bs, d) -> wire (L, n, nkv, bs, d)
+            snap[i].copy_(cache.index_select(2, idx).view(
+                lc.num_layers, lc.num_kv_heads, n, self.block_size,
+                lc.head_dim).transpose(1, 2))
+        return snap
+
+    def _wire_slice(self, rank: int) -> tuple[slice, slice]:
+        """The (layers, kv heads) of the whole wire that `rank` of the
+        set holds."""
+        mc, tp = self.model_config, self.tp_size
+        stage, tp_rank = sharding.rank_layout(rank, tp)
+        lo, hi = sharding.stage_layers(mc.num_layers, stage, self.pp_size)
+        nkv = mc.num_kv_heads // tp
+        return slice(lo, hi), slice(tp_rank * nkv, (tp_rank + 1) * nkv)
+
+    def _assemble_wire(self, local: torch.Tensor) -> torch.Tensor | None:
+        """Rank 0: the whole wire from every rank's slice, each follower's
+        broadcast to the set in rank order; a follower: None, after
+        sending its own slice and receiving the others'."""
+        g = self.group
+        full = None
+        if g.rank == 0:
+            mc = self.model_config
+            full = torch.empty(
+                (2, mc.num_layers, local.shape[2], mc.num_kv_heads,
+                 *local.shape[4:]), dtype=local.dtype, device=self.device)
+        for r in range(g.world_size):
+            part = local
+            if r > 0:
+                if r != g.rank:
+                    part = torch.empty_like(local)
+                g.broadcast(part, r)
+            if full is not None:
+                layers, heads = self._wire_slice(r)
+                full[:, layers, :, heads].copy_(part)
+        return full
 
     def _export_stream(self):
         with self._d2h_lock:
@@ -3218,20 +3274,47 @@ class ModelRunner:
         outside any Pallas kernel)."""
         if not block_ids:
             return
-        mc = self.model_config
+        self.import_wire(block_ids, self.staged_wire(handle, src_cols,
+                                                     len(block_ids)))
+
+    def staged_wire(self, handle: StagedBuffer, src_cols: list[int],
+                    m: int) -> torch.Tensor:
+        """The staged wire's columns `src_cols` (m blocks), in order."""
         staged = self._take(handle)
-        m = len(block_ids)
         cols = torch.as_tensor(src_cols, dtype=torch.long)
         if not torch.equal(cols, torch.arange(m)):
             staged = staged.index_select(2, self._index_to_device(cols))
         elif staged.shape[2] != m:
             staged = staged[:, :, :m]
-        idx = self._block_slots(block_ids)
-        for i, cache in enumerate((self.k_cache, self.v_cache)):
-            # wire (L, m, nkv, bs, d) -> head-major (L, nkv, m*bs, d)
-            cache.index_copy_(2, idx, staged[i].transpose(1, 2).reshape(
-                mc.num_layers, mc.num_kv_heads, m * self.block_size,
-                mc.head_dim).to(self.cache_dtype))
+        return staged
+
+    def import_wire(self, block_ids: list[int],
+                    wire: torch.Tensor | None = None,
+                    shape: tuple | None = None,
+                    dtype: str | None = None) -> None:
+        """Scatter whole-wire blocks (2, L, m, nkv, bs, d) into this
+        rank's cache at `block_ids`. In a rank set (a broadcast step)
+        rank 0 holds `wire` and broadcasts it to the set; a follower
+        receives it (`shape`, `dtype`: the wire's) and each rank writes
+        its own (layers, kv heads) slice."""
+        lc = self.local_config
+        m = len(block_ids)
+        with self.on_compute_stream():
+            if self.group is not None:
+                if wire is None:
+                    wire = torch.empty(shape, dtype=getattr(torch, dtype),
+                                       device=self.device)
+                else:
+                    wire = wire.contiguous()
+                self.group.broadcast(wire, 0)
+                layers, heads = self._wire_slice(self.group.rank)
+                wire = wire[:, layers, :, heads]
+            idx = self._block_slots(block_ids)
+            for i, cache in enumerate((self.k_cache, self.v_cache)):
+                # wire (L, m, nkv, bs, d) -> head-major (L, nkv, m*bs, d)
+                cache.index_copy_(2, idx, wire[i].transpose(1, 2).reshape(
+                    lc.num_layers, lc.num_kv_heads, m * self.block_size,
+                    lc.head_dim).to(self.cache_dtype))
 
     def import_blocks(self, block_ids: list[int],
                       data: torch.Tensor) -> None:
@@ -3240,6 +3323,16 @@ class ModelRunner:
         self.import_staged_blocks(
             block_ids, self.stage_import_blocks(data),
             list(range(len(block_ids))))
+
+    # -- LoRA (engine/lora.py) ---------------------------------------------
+    def load_lora(self, name: str, path: str,
+                  slot: int | None = None) -> int:
+        """Load an adapter into this rank's manager (`slot`: the one rank
+        0 assigned); returns its slot."""
+        return self.lora_manager.load(name, path, slot)
+
+    def unload_lora(self, name: str) -> bool:
+        return self.lora_manager.unload(name)
 
     # -- long-context ring (engine/long_prefill.py) ------------------------
     def build_long_prefiller(self):

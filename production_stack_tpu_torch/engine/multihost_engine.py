@@ -18,19 +18,39 @@ same gathered logits.
 Broadcast: ``prefill``, ``prefill_batch``, ``decode``, ``decode_multi``,
 ``verify_batch`` and ``embed``. Guided lanes' DFA tables ride a
 ``decode_multi`` only when the set of live constraints changes (the
-followers keep the last ones). Every other runner method that would run
-a forward or touch the device state the followers hold (the unified
-ragged round, the staged buffers, the precompile sweeps, KV export and
-import) raises under tensor parallelism instead of passing through, so
-a missed path fails loudly rather than leaving the ranks waiting on each
-other. The engine keeps those paths off (engine/llm_engine.py) and
-EngineConfig refuses the features that need them.
+followers keep the last ones). Besides the forwards, four step kinds
+move bytes between the ranks or change what they hold:
+
+- ``kv_export`` (``stage_export_blocks``): every rank gathers its
+  (layers, kv heads) slice of the blocks and each follower in turn
+  broadcasts it, so rank 0 assembles the whole wire (2, L, n, nkv, bs,
+  d) on its device; ``materialize_export`` stays rank 0's d2h with no
+  collective (the offload worker's and a PD pull's thread call it);
+- ``kv_import`` (``import_staged_blocks`` / ``import_blocks``): rank 0
+  broadcasts the staged wire and every rank scatters its slice into its
+  own cache (``stage_import_blocks`` stays rank 0's h2d);
+- ``lora_load`` / ``lora_unload``: rank 0 loads first (a load it
+  refuses is never published), then the followers read the same path
+  into the slot rank 0 assigned and cut their slice; the set agrees
+  (one all-reduce) before the load returns.
+
+Every collective is published and issued in step order: from the engine
+step thread, or under AsyncLLMEngine's lock (a PD pull's snapshot, an
+adapter load). Every other runner method that would run a forward or
+touch the device state the followers hold (the unified ragged round,
+the staged dispatch buffers, the precompile sweeps) raises in a rank set
+instead of passing through, so a missed path fails loudly rather than
+leaving the ranks waiting on each other. The engine keeps those paths
+off (engine/llm_engine.py) and EngineConfig refuses the features that
+need them.
 
 A follower that raises publishes its traceback and launch counts under
 its own exit key and exits; rank 0's next collective then fails (the
-peer closed) or times out, and its dispatch raises naming the
-follower's error. After that the rank set is broken: every later
-dispatch raises, and the server's /health fails. Rank 0 reads its
+peer closed) or times out, and its dispatch raises ``RankSetError``
+naming the follower's error (an export, import or adapter load too:
+the engine never turns it into a counted fallback or a recompute).
+After that the rank set is broken: every later dispatch raises, and the
+server's /health fails. Rank 0 reads its
 followers' state from their store keys (a rank on another host has no
 exit code here; a local one's exit code is read too). A follower sees
 rank 0 gone when its parent process is (a spawned rank) or when the
@@ -43,6 +63,7 @@ what a multi-host engine does not broadcast.
 
 from __future__ import annotations
 
+import hashlib
 import multiprocessing
 import pickle
 import time
@@ -50,6 +71,7 @@ import time
 import torch
 
 from production_stack_tpu_torch.ops import paged_attention
+from production_stack_tpu_torch.parallel import sharding
 from production_stack_tpu_torch.parallel.multihost import (
     StepBroadcaster,
     store_reachable,
@@ -61,15 +83,21 @@ logger = init_logger(__name__)
 # runner methods that run a forward: published, then run on rank 0
 BROADCAST = ("prefill", "prefill_batch", "decode", "decode_multi",
              "verify_batch", "embed")
+# step kinds that move bytes between the ranks or change their adapters
+# (BroadcastingRunner publishes them; follower_loop replays them)
+RANK_STEPS = ("kv_export", "kv_import", "lora_load", "lora_unload")
 # runner methods whose device work the followers would never see
 UNBROADCAST = frozenset({
     "ragged_dispatch", "stage_prefill", "stage_prefill_batch",
     "stage_decode_multi", "stage_ragged", "precompile_prefill",
     "precompile_decode", "precompile_verify", "precompile_ragged",
-    "precompile_kv_import", "stage_export_blocks", "materialize_export",
-    "export_blocks", "stage_import_blocks", "import_staged_blocks",
-    "import_blocks",
+    "precompile_kv_import",
 })
+
+
+class RankSetError(RuntimeError):
+    """The rank set failed: a follower died or raised in a step. Every
+    later dispatch raises it too."""
 
 
 # rank 0 waits this long for the followers to build their runners, and
@@ -111,15 +139,26 @@ def report_key(rank: int, n: int) -> str:
     return f"pst/rank/{rank}/report/{n}"
 
 
-def rank_report(runner, group, steps: int | None = None) -> dict:
+def tensor_digest(t: torch.Tensor) -> str:
+    """The sha256 of a tensor's bytes (any dtype, any device)."""
+    return hashlib.sha256(
+        t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes()
+    ).hexdigest()
+
+
+def rank_report(runner, group, steps: int | None = None,
+                kv_blocks: list[int] | None = None,
+                adapter_digests: bool = False) -> dict:
     """What a rank ran: its kernel launches and dispatches, its device,
     the devices its params and KV cache lie on, its place (stage, tp
     index, layers held), its collectives (host_collectives: those handed
     a host tensor on a card rank) and the step descriptors it read from
-    the store (`steps`; rank 0: published)."""
+    the store (`steps`; rank 0: published). With `kv_blocks`, the digest
+    of the rank's own wire slice of those blocks (`kv_digest`); with
+    `adapter_digests`, the digest of each of its adapter buffers."""
     devs = {str(t.device) for t in _leaves(runner.params)}
     devs |= {str(runner.k_cache.device), str(runner.v_cache.device)}
-    return {
+    out = {
         "rank": group.rank,
         "stage": group.stage,
         "tp_rank": group.tp_rank,
@@ -132,7 +171,29 @@ def rank_report(runner, group, steps: int | None = None) -> dict:
         "broadcasts": group.counts["broadcasts"],
         "host_collectives": group.host_collectives,
         "store_steps": steps,
+        # adapter name -> slot, and the experts [lo, hi) a MoE rank holds
+        "adapters": (dict(runner.lora_manager.name_to_slot)
+                     if runner.lora_manager is not None else None),
+        "experts": (list(sharding.expert_range(
+            runner.model_config, group.tp_rank, group.tp_size))
+            if runner.model_config.is_moe else None),
+        # the keys of the set's store (None where the store cannot count)
+        "store_keys": _num_keys(group.store),
     }
+    if kv_blocks is not None:
+        out["kv_digest"] = tensor_digest(runner.local_wire(kv_blocks))
+    if adapter_digests and runner.lora_manager is not None:
+        out["adapter_digests"] = {
+            k: tensor_digest(v)
+            for k, v in runner.lora_manager.buffers.items()}
+    return out
+
+
+def _num_keys(store) -> int | None:
+    try:
+        return store.num_keys()
+    except RuntimeError:
+        return None
 
 
 def _leaves(tree: dict):
@@ -214,16 +275,21 @@ class BroadcastingRunner:
 
     # stackcheck: not-hot — a debug read of every rank's counts (one store
     # round trip a follower)
-    def reports(self) -> list[dict]:
+    def reports(self, kv_blocks: list[int] | None = None,
+                adapter_digests: bool = False) -> list[dict]:
         """Every rank's rank_report, rank 0 first (followers answer in
-        step order, after every step published before)."""
+        step order, after every step published before; `kv_blocks` and
+        `adapter_digests` as rank_report takes them)."""
         n = self._reports
         self._reports += 1
-        self._bc.publish({"kind": "report", "n": n})
-        out = [rank_report(self._runner, self._group, self._bc.count)]
+        opts = {"kv_blocks": kv_blocks, "adapter_digests": adapter_digests}
+        self._bc.publish({"kind": "report", "n": n, **opts})
+        out = [rank_report(self._runner, self._group, self._bc.count,
+                           **opts)]
         for r in range(1, self._group.world_size):
             self._group.store.wait([report_key(r, n)])
             out.append(pickle.loads(self._group.store.get(report_key(r, n))))
+            self._group.store.delete_key(report_key(r, n))
         return out
 
     def reset_counts(self) -> None:
@@ -249,9 +315,11 @@ class BroadcastingRunner:
     # -- the broadcast dispatches ----------------------------------------
     # stackcheck: hot-path — every TP forward: one store write, then the
     # rank's own forward
-    def _dispatch(self, kind: str, args: tuple, kwargs: dict):
+    def _dispatch(self, kind: str, args: tuple, kwargs: dict, run=None):
+        """Publish step `kind` with its host arguments, then run it here:
+        `run()`, or the runner's method of that name."""
         if self._failed is not None:
-            raise RuntimeError(self._failed)
+            raise RankSetError(self._failed)
         if any(isinstance(a, torch.Tensor) for a in args) or any(
                 isinstance(v, torch.Tensor) for v in kwargs.values()):
             raise RuntimeError(
@@ -269,6 +337,8 @@ class BroadcastingRunner:
             self._guided_sent = guided[0]
         self._bc.publish({"kind": kind, "args": args, "kwargs": wire})
         try:
+            if run is not None:
+                return run()
             return getattr(self._runner, kind)(*args, **kwargs)
         except Exception as e:
             err = self.follower_error()
@@ -276,7 +346,69 @@ class BroadcastingRunner:
                             f"{err or repr(e)}")
             if err is None:
                 raise
-            raise RuntimeError(self._failed) from e
+            raise RankSetError(self._failed) from e
+
+    # -- KV blocks across the ranks ----------------------------------------
+    def stage_export_blocks(self, block_ids: list[int]) -> tuple:
+        """Every rank's slice of the blocks, assembled on rank 0 (see
+        ModelRunner.stage_export_blocks)."""
+        bids = [int(b) for b in block_ids]
+        return self._dispatch(
+            "kv_export", (bids,), {},
+            run=lambda: self._runner.stage_export_blocks(bids))
+
+    def export_blocks(self, block_ids: list[int]) -> torch.Tensor:
+        return self._runner.materialize_export(
+            self.stage_export_blocks(block_ids))
+
+    def import_staged_blocks(self, block_ids: list[int], handle,
+                             src_cols: list[int]) -> None:
+        """Rank 0's staged wire, broadcast to the set; every rank scatters
+        its slice (ModelRunner.import_wire)."""
+        if self._failed is not None:
+            raise RankSetError(self._failed)
+        if not block_ids:
+            return
+        bids = [int(b) for b in block_ids]
+        wire = self._runner.staged_wire(handle, src_cols, len(bids))
+        self._dispatch(
+            "kv_import", (bids,),
+            {"shape": tuple(wire.shape),
+             "dtype": str(wire.dtype).removeprefix("torch.")},
+            run=lambda: self._runner.import_wire(bids, wire))
+
+    def import_blocks(self, block_ids: list[int],
+                      data: torch.Tensor) -> None:
+        self.import_staged_blocks(
+            block_ids, self._runner.stage_import_blocks(data),
+            list(range(len(block_ids))))
+
+    # -- adapters ------------------------------------------------------------
+    def load_lora(self, name: str, path: str) -> int:
+        """Rank 0 loads first (every refusal raises here, before anything
+        is published), then the followers load the same path into the
+        same slot; the set's agreement (one all-reduce) returns only
+        once every rank has it. A follower that fails takes the set down
+        and rank 0 drops its own copy: no rank serves a half-loaded
+        adapter."""
+        mgr = self._runner.lora_manager
+        if mgr.path_of(name) == path:
+            return mgr.name_to_slot[name]  # already loaded: nothing moves
+        slot = self._runner.load_lora(name, path)
+        try:
+            self._dispatch("lora_load", (name, path, slot), {},
+                           run=lambda: self._group.agree_min(1))
+        except Exception:
+            mgr.unload(name)
+            raise
+        return slot
+
+    def unload_lora(self, name: str) -> bool:
+        if name not in self._runner.lora_manager.name_to_slot:
+            return False
+        return self._dispatch("lora_unload", (name,), {}, run=lambda: (
+            self._runner.unload_lora(name),
+            self._group.agree_min(1))[0])
 
     def prefill(self, *args, **kwargs):
         return self._dispatch("prefill", args, kwargs)
@@ -330,11 +462,16 @@ def follower_loop(runner, group) -> int:
                 return bc.count
             if kind == "report":
                 group.store.set(report_key(group.rank, msg["n"]),
-                                pickle.dumps(rank_report(runner, group,
-                                                         bc.count)))
+                                pickle.dumps(rank_report(
+                                    runner, group, bc.count,
+                                    msg.get("kv_blocks"),
+                                    msg.get("adapter_digests", False))))
                 continue
             if kind == "reset_counts":
                 paged_attention.reset_launch_counts()
+                continue
+            if kind in RANK_STEPS:
+                _rank_step(runner, group, kind, msg["args"], msg["kwargs"])
                 continue
             if kind not in BROADCAST:
                 # a future step kind fails loudly, never desyncs
@@ -352,3 +489,17 @@ def follower_loop(runner, group) -> int:
                 kwargs = {**kwargs,
                           "guided": (*guided[:3], *guided_tables[1])}
             getattr(runner, kind)(*msg["args"], **kwargs)
+
+
+def _rank_step(runner, group, kind: str, args: tuple, kwargs: dict) -> None:
+    """A follower's half of a RANK_STEPS step."""
+    if kind == "kv_export":
+        runner.stage_export_blocks(*args)
+    elif kind == "kv_import":
+        runner.import_wire(*args, **kwargs)
+    elif kind == "lora_load":
+        runner.load_lora(*args)
+        group.agree_min(1)
+    else:  # lora_unload
+        runner.unload_lora(*args)
+        group.agree_min(1)

@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import hmac
 import json
 import time
 from urllib.parse import parse_qs
@@ -100,6 +101,23 @@ class HttpError(Exception):
         super().__init__(message)
         self.status = status
         self.err_type = err_type
+
+
+class BadHttpMessage(HttpError):
+    """A request head the HTTP parser refuses: 400 with aiohttp's plain
+    text body (the reference server's parser answers these before any
+    handler runs)."""
+
+    def __init__(self, message: str):
+        super().__init__(400, message)
+
+
+def _key_matches(auth: str, api_key: str) -> bool:
+    """The reference's bearer check: bytes compared in constant time
+    (compare_digest refuses non-ASCII str; the header's bytes come back
+    through utf-8 with surrogateescape, as they were read)."""
+    return hmac.compare_digest(auth.encode("utf-8", "surrogateescape"),
+                               f"Bearer {api_key}".encode())
 
 
 @dataclasses.dataclass
@@ -256,11 +274,24 @@ class EngineServer:
         try:
             try:
                 method, path, req = await _read_request(reader)
+            except BadHttpMessage as e:
+                await _send(writer, 400, str(e).encode(),
+                            "text/plain; charset=utf-8")
+                return
             except HttpError as e:
                 await _send_json(writer, e.status, proto.error_json(
                     str(e), code=e.status))
                 return
             except (asyncio.IncompleteReadError, ConnectionError):
+                return
+            if self.config.api_key and (
+                path.startswith("/v1/") or path in _AUTH_PATHS
+            ) and not _key_matches(req.headers.get("authorization", ""),
+                                   self.config.api_key):
+                # before the route lookup: an unknown /v1/ path answers
+                # 401 too, as the reference's middleware does
+                await _send_json(writer, 401, proto.error_json(
+                    "invalid API key", "authentication_error", 401))
                 return
             handler = self._routes.get((method, path))
             if handler is None:
@@ -269,16 +300,6 @@ class EngineServer:
                 await _send_json(writer, status, proto.error_json(
                     f"{method} {path} not served", code=status))
                 return
-            if self.config.api_key and (
-                path.startswith("/v1/") or path in _AUTH_PATHS
-            ):
-                if req.headers.get("authorization") != (
-                    f"Bearer {self.config.api_key}"
-                ):
-                    await _send_json(writer, 401, proto.error_json(
-                        "invalid or missing API key",
-                        "authentication_error", 401))
-                    return
             try:
                 await handler(req, writer)
             except HttpError as e:
@@ -1034,19 +1055,102 @@ async def _read_request(reader: asyncio.StreamReader):
     except ValueError:
         raise HttpError(400, "malformed request line") from None
     headers: dict[str, str] = {}
+    lines: dict[str, bytes] = {}
     while True:
         h = await reader.readline()
         if h in (b"\r\n", b"\n", b""):
             break
-        name, _, value = h.decode("latin-1").partition(":")
+        # header bytes as aiohttp reads them: utf-8, surrogateescape
+        name, _, value = h.decode("utf-8", "surrogateescape").partition(":")
         headers[name.strip().lower()] = value.strip()
-    length = int(headers.get("content-length", "0") or 0)
-    if length > MAX_BODY_BYTES:
-        raise HttpError(413, "request body too large")
-    body = await reader.readexactly(length) if length else b""
+        lines[name.strip().lower()] = h.rstrip(b"\r\n")
+    if "chunked" in headers.get("transfer-encoding", "").lower():
+        body = await _read_chunked(reader)
+    else:
+        length = _content_length(headers.get("content-length"),
+                                 lines.get("content-length"))
+        if length > MAX_BODY_BYTES:
+            raise HttpError(413, "request body too large")
+        body = await reader.readexactly(length) if length else b""
     path, _, qs = target.partition("?")
     query = {k: v[-1] for k, v in parse_qs(qs).items()}
     return method.upper(), path, HttpRequest(body, headers, query)
+
+
+def _content_length(value: str | None, line: bytes | None) -> int:
+    """The body length of a Content-Length value: ASCII digits only, as
+    aiohttp's parser takes it (no sign, no underscore, whitespace only
+    after the digits); any other value is its 400 with its message, a
+    caret under the first character it refuses."""
+    if value is None:
+        return 0
+    bad, gap = (None if value else 0), False
+    for i, c in enumerate(value):
+        if c in " \t":
+            gap = True  # whitespace may only trail the digits
+        elif c not in "0123456789" or gap:
+            bad = i
+            break
+    if bad is None:
+        return int(value)
+    col = line.index(b":") + 1
+    while line[col:col + 1] in (b" ", b"\t"):
+        col += 1
+    # the repr's "b'" and the two spaces of indent before the caret
+    raise BadHttpMessage(
+        f"Invalid character in Content-Length:\n\n  {line!r}\n"
+        + " " * (col + bad + 4) + "^")
+
+
+async def _read_chunked(reader: asyncio.StreamReader) -> bytes:
+    """A Transfer-Encoding: chunked body (sizes in hex digits only,
+    extensions after ';' ignored, trailers skipped), capped at
+    MAX_BODY_BYTES. A size line or a chunk end that aiohttp's parser
+    refuses is its 400 with its message (_chunk_error)."""
+    parts: list[bytes] = []
+    total = 0
+    while True:
+        size_line = await reader.readline()
+        if not size_line:
+            raise asyncio.IncompleteReadError(b"", None)
+        line = size_line.rstrip(b"\r\n")
+        digits = len(line) - len(line.lstrip(_HEX_DIGITS))
+        after = line[digits:digits + 1]
+        if digits == 0 or after not in (b"", b";"):
+            # aiohttp places the caret past a blank after the digits
+            raise _chunk_error("Invalid character in chunk size", line,
+                               digits + (digits > 0 and after in b" \t"))
+        if not size_line.endswith(b"\r\n"):
+            raise _chunk_error("Missing expected CR after chunk size",
+                               size_line, len(size_line))
+        size = int(line[:digits], 16)
+        if size == 0:
+            while (await reader.readline()) not in (b"\r\n", b"\n", b""):
+                pass  # trailers
+            return b"".join(parts)
+        total += size
+        if total > MAX_BODY_BYTES:
+            raise HttpError(413, "request body too large")
+        parts.append(await reader.readexactly(size))
+        end = await reader.readexactly(2)
+        if end != b"\r\n":
+            # the excerpt: the chunk since its last CRLF, then the two
+            # bytes read after it (aiohttp's runs on through its
+            # receive buffer to the next CRLF)
+            tail = parts[-1].rsplit(b"\r\n", 1)[-1]
+            raise _chunk_error("Expected LF after chunk data",
+                               tail + end.split(b"\r")[0], len(tail))
+
+
+_HEX_DIGITS = b"0123456789abcdefABCDEF"
+
+
+def _chunk_error(reason: str, data: bytes, at: int) -> BadHttpMessage:
+    """aiohttp's 400 text for a chunked body its parser refuses at byte
+    `at` of `data`: the reason, the excerpt's repr and a caret under
+    that byte."""
+    return BadHttpMessage(f"{reason}:\n\n  {data!r}\n"
+                          + " " * (len(repr(data[:at])) + 1) + "^")
 
 
 def _head(status: int, content_type: str, length: int | None,

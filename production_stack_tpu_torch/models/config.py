@@ -87,13 +87,16 @@ class ModelConfig:
         the local KV cache: num_heads, num_kv_heads and intermediate_size
         divided by tp (parallel/sharding.validate_tp checks they divide).
         The vocab stays whole: a vocab-sharded lm_head's logits are
-        gathered. tp=1 is the config itself."""
+        gathered. A MoE model's experts shard whole: its
+        intermediate_size and num_experts (every rank gates over all E)
+        stay as they are. tp=1 is the config itself."""
         if tp == 1:
             return self
         return dataclasses.replace(
             self, num_heads=self.num_heads // tp,
             num_kv_heads=self.num_kv_heads // tp,
-            intermediate_size=self.intermediate_size // tp,
+            intermediate_size=(self.intermediate_size if self.is_moe
+                               else self.intermediate_size // tp),
         )
 
     def pp_local(self, pp: int) -> "ModelConfig":

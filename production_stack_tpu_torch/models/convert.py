@@ -6,7 +6,9 @@ same layout, so conversion is leaf by leaf. Callers hand over numpy
 arrays (``np.asarray`` of each JAX leaf), which keeps the port free of
 any JAX import. ``tp_params_from_numpy`` carries a full tree across to
 one tensor-parallel rank: converted, then sharded
-(parallel/sharding.shard_params).
+(parallel/sharding.shard_params), a MoE model's experts E/tp whole a
+rank; with ``adapter`` it carries a LoRA adapter's arrays across the
+same way (parallel/sharding.cut_adapter).
 """
 
 from __future__ import annotations
@@ -15,7 +17,10 @@ import numpy as np
 import torch
 
 from production_stack_tpu_torch.models.config import ModelConfig
-from production_stack_tpu_torch.parallel.sharding import shard_params
+from production_stack_tpu_torch.parallel.sharding import (
+    cut_adapter,
+    shard_params,
+)
 
 
 def _leaf(x, device, dtype):
@@ -44,9 +49,16 @@ def params_from_numpy(tree: dict, device: str | torch.device = "cuda",
 
 def tp_params_from_numpy(tree: dict, cfg: ModelConfig, rank: int, tp: int,
                          device: str | torch.device = "cuda",
-                         dtype: torch.dtype | None = None) -> dict:
+                         dtype: torch.dtype | None = None,
+                         adapter: bool = False) -> dict:
     """Rank `rank`'s shard at tensor_parallel_size `tp` of the full tree
     (the slices the JAX package's ``addressable_shards[rank]`` hold on a
-    tp mesh)."""
+    tp mesh; a MoE model's experts E/tp whole). With `adapter`, `tree`
+    is a LoRA adapter's flat arrays ({t}_A, {t}_B, scaling; the native
+    .npz layout, or a LoraManager's stacked buffers) and each is cut as
+    a rank's LoraManager holds it."""
+    if adapter:
+        return {k: cut_adapter(k, _leaf(v, device, dtype), rank, tp)
+                for k, v in tree.items()}
     return shard_params(params_from_numpy(tree, device, dtype), cfg, rank,
                         tp)

@@ -16,7 +16,9 @@ Tensor parallelism (``tp_group``, parallel/group.TPGroup): the params are
 one rank's shard (parallel/sharding.py) and ``cfg`` its local view
 (``ModelConfig.tp_local``); the f32 partials of ``wo`` and ``w_down``
 are all-reduced before their cast, where the JAX package's GSPMD psum
-sits on the f32 dot, and an untied lm_head's vocab slices are gathered.
+sits on the f32 dot, as is a MoE block's output (each rank runs its
+E/tp experts: expert parallelism), and an untied lm_head's vocab slices
+are gathered.
 With ``tp_group=None`` nothing of that runs. Pipeline parallelism
 (parallel/pp_serving.forward_pp) runs the same pieces, ``embed_tokens``,
 ``decoder_stack`` over a stage's layers and ``final_rows``, with a
@@ -100,9 +102,6 @@ def init_params(
         "wo": lw("wo", (L, cfg.q_size, h), cfg.q_size),
     }
     if cfg.is_moe:
-        if tp > 1:
-            raise NotImplementedError(
-                "tensor parallelism over MoE experts is not ported")
         E = cfg.num_experts
         layers["moe_gate"] = lw("moe_gate", (L, h, E), h)
         layers["w_gate"] = lw("w_gate", (L, E, h, i), h)
@@ -142,6 +141,7 @@ def decoder_layer(
     cache_dtype: torch.dtype,
     lora_ctx: tuple | None = None,  # (lz, slot | weights (n, S))
     reduce=None,                # TP: in-place all-reduce of f32 partials
+    first_expert: int = 0,      # EP: the first of the rank's experts
 ):
     """One decoder layer over n token rows. Writes the rows' K/V into the
     cache at `write_slots` (in place) BEFORE attn_fn runs, so attention
@@ -187,10 +187,15 @@ def decoder_layer(
     x = rms_norm(h, lp["mlp_norm"], cfg.rms_norm_eps,
                  cfg.norm_weight_offset)
     if cfg.is_moe:
-        h = h + moe_block(
+        # under TP the rank's experts' share, summed as the dense MLP's
+        o = moe_block(
             x, lp["moe_gate"], lp["w_gate"], lp["w_up"], lp["w_down"],
             cfg.num_experts_per_tok, cfg.moe_capacity_factor,
-        ).to(dtype)
+            first_expert=first_expert,
+        )
+        if reduce is not None:
+            o = reduce(o)
+        h = h + o.to(dtype)
     else:
         h = h + swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"],
                        act=cfg.hidden_act, reduce=reduce)
@@ -241,7 +246,10 @@ def forward(
     h = decoder_stack(
         cfg, params, h, k_cache, v_cache, cos=cos, sin=sin,
         write_slots=write_slots, attn_fn=attn_fn, lora=lora, sel=sel,
-        reduce=tp_group.all_reduce if tp_group is not None else None)
+        reduce=tp_group.all_reduce if tp_group is not None else None,
+        first_expert=(sharding.expert_range(cfg, tp_group.rank,
+                                            tp_group.world_size)[0]
+                      if tp_group is not None and cfg.is_moe else 0))
     return (final_rows(cfg, params, h, logits_rows, return_hidden,
                        tp_group), k_cache, v_cache)
 
@@ -263,7 +271,7 @@ def decoder_stack(cfg: ModelConfig, params: dict, h: torch.Tensor,
                   cos: torch.Tensor, sin: torch.Tensor,
                   write_slots: torch.Tensor, attn_fn: AttnFn,
                   lora: dict | None = None, sel=None,
-                  reduce=None) -> torch.Tensor:
+                  reduce=None, first_expert: int = 0) -> torch.Tensor:
     """The cfg.num_layers layers of `params` over rows `h` (layer l of
     the params writes layer l of the caches, in place); returns the
     stack's output rows."""
@@ -281,7 +289,7 @@ def decoder_stack(cfg: ModelConfig, params: dict, h: torch.Tensor,
             cfg, h, k_cache, v_cache, lp, l,
             cos=cos, sin=sin, write_slots=write_slots, attn_fn=attn_fn,
             dtype=dtype, cache_dtype=cache_dtype, lora_ctx=lora_ctx,
-            reduce=reduce,
+            reduce=reduce, first_expert=first_expert,
         )
     return h
 

@@ -17,7 +17,8 @@ once, in the page cache.
 Tensor parallelism (``shard=(rank, tp)``): each rank allocates its own
 shard's shapes (parallel/sharding.py) and slices every split tensor as
 the mmap reader hands it over, in the checkpoint's own layout, before it
-reaches the card: no rank holds the full weights there. Pipeline
+reaches the card: no rank holds the full weights there. A Mixtral rank
+reads only its E/tp experts (each HF expert is a tensor of its own). Pipeline
 parallelism (``layers=(lo, hi)``): a stage allocates its L/pp layers
 and reads only their tensors.
 
@@ -126,9 +127,6 @@ def load_hf_weights(
     rank, tp = shard if shard is not None else (0, 1)
     if tp > 1:
         sharding.validate_tp(cfg, tp)
-        if cfg.is_moe:
-            raise NotImplementedError(
-                "tensor parallelism over MoE experts is not ported")
     full_cfg = cfg
     if tp > 1:
         cfg = cfg.tp_local(tp)
@@ -158,10 +156,13 @@ def load_hf_weights(
     }
     if cfg.is_moe:
         E = cfg.num_experts
+        # expert parallelism: the rank's experts only, each HF expert its
+        # own tensor (another rank's are skipped by name, unread)
+        e_lo, e_hi = sharding.expert_range(cfg, rank, tp)
         layers["moe_gate"] = alloc((L, h, E))
-        layers["w_gate"] = alloc((L, E, h, i_sz))
-        layers["w_up"] = alloc((L, E, h, i_sz))
-        layers["w_down"] = alloc((L, E, i_sz, h))
+        layers["w_gate"] = alloc((L, e_hi - e_lo, h, i_sz))
+        layers["w_up"] = alloc((L, e_hi - e_lo, h, i_sz))
+        layers["w_down"] = alloc((L, e_hi - e_lo, i_sz, h))
     else:
         layers["w_gate"] = alloc((L, h, i_sz))
         layers["w_up"] = alloc((L, h, i_sz))
@@ -228,8 +229,9 @@ def load_hf_weights(
             if len(parts) == 5 and parts[1] == "experts":
                 ours = {"w1": "w_gate", "w3": "w_up",
                         "w2": "w_down"}.get(parts[3])
-                if ours is not None:
-                    _put(layers[ours][i, int(parts[2])], tensor, name,
+                e = int(parts[2])
+                if ours is not None and e_lo <= e < e_hi:
+                    _put(layers[ours][i, e - e_lo], tensor, name,
                          transpose=True)
                     n_loaded += 1
             continue
@@ -273,7 +275,8 @@ def load_hf_weights(
         if ours in layers and not (cfg.is_moe and ours in dense_mlp)
     ])
     if cfg.is_moe:
-        per_layer_count += 1 + 3 * cfg.num_experts  # router + experts
+        # the router + the rank's experts
+        per_layer_count += 1 + 3 * (e_hi - e_lo)
     expected = (
         L * per_layer_count + 2 + (0 if cfg.tie_word_embeddings else 1)
     )

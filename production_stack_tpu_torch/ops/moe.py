@@ -93,12 +93,27 @@ def moe_capacity(x: torch.Tensor, gates: torch.Tensor,
 def moe_block(x: torch.Tensor, gate_w: torch.Tensor, w_gate: torch.Tensor,
               w_up: torch.Tensor, w_down: torch.Tensor,
               num_experts_per_tok: int, capacity_factor: float = 0.0,
-              valid: torch.Tensor | None = None) -> torch.Tensor:
+              valid: torch.Tensor | None = None,
+              first_expert: int = 0) -> torch.Tensor:
     """The MoE MLP block: gate, then compute. capacity_factor 0 selects
     the exact dense path (serving); > 0 GShard dispatch with C =
     ceil(k * n * factor / E), for callers that pass `valid` when rows
-    include padding."""
+    include padding.
+
+    Expert parallelism: `w_gate` / `w_up` / `w_down` may hold a rank's
+    experts only, [first_expert, first_expert + w_gate.shape[0]) of the
+    router's E columns. The gating still runs over all E (the same top-k
+    on every rank), and the dense path runs the rank's experts with
+    their gate columns: the rank's share of the output, which the
+    caller sums over the ranks (the JAX package's dispatch and combine,
+    summed in another order)."""
     gates = top_k_gating(x, gate_w, num_experts_per_tok)
+    held = w_gate.shape[0]
+    if held != gates.shape[1]:
+        if capacity_factor > 0:
+            raise ValueError("the capacity path runs every expert; under "
+                             "expert parallelism serve capacity_factor 0")
+        gates = gates[:, first_expert:first_expert + held]
     if capacity_factor <= 0:
         return moe_dense(x, gates, w_gate, w_up, w_down)
     n, e = gates.shape

@@ -29,9 +29,9 @@ one after another (the tests build a rank set a scenario). Every group
 has a timeout: a collective that a dead or stuck rank never joins raises
 on the others after ``timeout_s`` instead of hanging.
 
-The store is the caller's (a FileStore in a temporary directory for a
-set on one host, the job's TCPStore for a set spanning hosts,
-parallel/multihost.py); a path names a FileStore. It carries the step
+The store is the caller's TCPStore (one rank 0 hosts on loopback for a
+set started on one host, parallel/launch.py; the job's for a set
+spanning hosts, parallel/multihost.py). It carries the step
 broadcast (parallel/multihost.StepBroadcaster) and each follower's
 ready, report and exit keys. Gloo binds each rank to ``hostname``:
 loopback for a set on one host, the host's own address when the set
@@ -94,14 +94,6 @@ def device_identity(device: torch.device) -> str:
     uuid = getattr(torch.cuda.get_device_properties(index), "uuid", None)
     return (f"cuda:{uuid}" if uuid is not None
             else f"cuda:{socket.gethostname()}:{index}")
-
-
-def open_store(path: str, timeout: datetime.timedelta):
-    """The FileStore at `path` (one store object a process; -1: no
-    owner count, the set's launcher removes the directory)."""
-    store = dist.FileStore(path, -1)
-    store.set_timeout(timeout)
-    return store
 
 
 def _backend(name: str, store, rank: int, size: int,
@@ -169,7 +161,7 @@ class TPGroup(Comm):
     ranks a stage: its device, its groups (itself over the whole set,
     `tp` and `pp`), its (stage, tp index) and the set's store. Rank 0 of
     a set started by parallel/launch.py also holds its host's follower
-    processes (`followers`) and a FileStore's directory (`store_dir`),
+    processes (`followers`) and its temporary directory (`store_dir`),
     which `close` removes."""
 
     def __init__(self, rank: int, world_size: int, store,
@@ -194,8 +186,6 @@ class TPGroup(Comm):
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
         timeout = datetime.timedelta(seconds=self.timeout_s)
-        if isinstance(store, str):
-            store = open_store(store, timeout)
         self.store = store
         self.backend = backend or self._agree_backend(rank, world_size)
         self.tp_size = world_size // pp
@@ -247,8 +237,8 @@ class TPGroup(Comm):
         return int(self.all_reduce(t, "min").item())
 
     def close(self) -> None:
-        """Drop the device groups; rank 0 of a launched set removes the
-        store's directory."""
+        """Drop the device groups; rank 0 of a launched set removes its
+        temporary directory."""
         self._pg = None
         self.tp = self.pp = None
         if self.store_dir is not None:

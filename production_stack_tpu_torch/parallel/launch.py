@@ -16,7 +16,9 @@ runner's construction itself runs collectives (the KV pool agreement),
 so every rank builds in the same order.
 
 On one host the set is all of this process's: rank 0 here, ranks
-1..N-1 spawned, over a FileStore in a temporary directory (no port).
+1..N-1 spawned, over a TCPStore rank 0 hosts on loopback at a free
+port (a deleted key is gone, so the step window keeps the store
+bounded; a temporary directory holds only caller-supplied params).
 In a multi-host job (parallel/multihost.initialize ran) each process is
 a host holding N / num_processes ranks, process p's first rank being
 p * N / num_processes, its local rank i on cuda:i; the store is the
@@ -31,6 +33,7 @@ reach the followers through a file in a temporary directory
 
 from __future__ import annotations
 
+import datetime
 import multiprocessing
 import os
 import pickle
@@ -40,6 +43,7 @@ import tempfile
 import traceback
 
 import torch
+import torch.distributed as dist
 
 from production_stack_tpu_torch.parallel import multihost
 from production_stack_tpu_torch.parallel.group import (
@@ -94,8 +98,14 @@ def start_tp_ranks(config, devices: list | None = None,
         store, spec, hostname = (job.store, ("tcp", job.host, job.port),
                                  job.hostname)
     else:
-        store = spec = os.path.join(tmp, "store")
+        # rank 0 hosts the set's store on loopback (a free port, read
+        # back): a deleted step key is gone, where a FileStore appends
+        # every set and delete to its file and never compacts it
         hostname = "127.0.0.1"
+        store = dist.TCPStore(hostname, 0, is_master=True,
+                              wait_for_workers=False,
+                              timeout=datetime.timedelta(seconds=timeout_s))
+        spec = ("tcp", hostname, store.port)
     ctx = multiprocessing.get_context("spawn")
     followers = []
     try:
@@ -131,14 +141,9 @@ def _to_cpu(tree: dict) -> dict:
 
 
 def _open(spec, timeout_s: float):
-    """The set's store in a spawned rank: a FileStore path, or a client
-    of the job's TCPStore ("tcp", host, port)."""
-    if isinstance(spec, str):
-        return spec  # TPGroup opens a path as a FileStore
-    import datetime
-
-    import torch.distributed as dist
-
+    """The set's store in a spawned rank: a client of the TCPStore
+    ("tcp", host, port) rank 0's process hosts (its own on one host, the
+    job's in a multi-host job)."""
     _, host, port = spec
     return dist.TCPStore(host, port, is_master=False,
                          timeout=datetime.timedelta(seconds=timeout_s))

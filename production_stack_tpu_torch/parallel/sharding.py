@@ -16,6 +16,10 @@ JAX package's (Megatron-style, hidden activations replicated):
 - KV cache: split on the kv-head axis, (L, nkv/tp, slots, d) a rank, so
   paged attention is local to each rank (q heads and kv heads split
   congruently: every GQA group lies whole on one rank);
+- MoE (expert parallelism over the same axis): each rank holds E/tp
+  whole experts, w_gate / w_up / w_down (L, E, ...) cut on E, the
+  router moe_gate replicated; every rank gates over all E experts,
+  runs its own and the block's output is all-reduced;
 - lm_head split on the vocab for untied models, its logits gathered;
   the embedding, the norms and a tied vocab projection replicated.
 
@@ -45,8 +49,18 @@ LAYER_SPLIT_AXIS = {
     "bq": -1, "bk": -1, "bv": -1,
     "wo": 1, "w_down": 1,
 }
+# a MoE model's experts (L, E, ...) split whole on E (expert
+# parallelism over the tp axis, as the JAX package shards them); its
+# router moe_gate (L, h, E) is replicated
+MOE_SPLIT_AXIS = {"w_gate": 1, "w_up": 1, "w_down": 1, "moe_gate": None}
 # an untied lm_head (hidden, vocab) splits on the vocab
 LM_HEAD_SPLIT_AXIS = -1
+# a LoRA adapter's split arrays, in its (L, in, r) / (L, r, out) layout
+# or the stacked slots' (L, S, in, r) / (L, S, r, out): the B of a
+# column target on its head columns, the A of the row target wo on its
+# input rows (its partial deltas sum in the o-projection's all-reduce);
+# every other array (the A of wq / wk / wv, wo's B, scaling) replicated
+LORA_SPLIT_AXIS = {"wq_B": -1, "wk_B": -1, "wv_B": -1, "wo_A": -2}
 
 
 def validate_tp(cfg: ModelConfig, tp_size: int) -> None:
@@ -78,6 +92,8 @@ def split_axis(path: tuple[str, ...], cfg: ModelConfig) -> int | None:
     """The axis leaf `path` (("layers", "wq"), ("lm_head",), ...) splits
     on, or None where it is replicated."""
     if path[0] == "layers":
+        if cfg.is_moe and path[1] in MOE_SPLIT_AXIS:
+            return MOE_SPLIT_AXIS[path[1]]
         return LAYER_SPLIT_AXIS.get(path[1])
     if path == ("lm_head",) and not cfg.tie_word_embeddings:
         return LM_HEAD_SPLIT_AXIS
@@ -92,6 +108,16 @@ def shard(x: torch.Tensor, axis: int | None, rank: int,
         return x
     n = x.shape[axis] // tp
     return x.narrow(axis, rank * n, n)
+
+
+def cut_adapter(key: str, x: torch.Tensor, rank: int,
+                tp: int) -> torch.Tensor:
+    """Adapter array `key` ("wq_A", "wo_B", ...) as tp index `rank`
+    holds it: contiguous where cut, else `x` itself."""
+    axis = LORA_SPLIT_AXIS.get(key)
+    if axis is None or tp == 1:
+        return x
+    return shard(x, axis, rank, tp).contiguous()
 
 
 def rank_layout(rank: int, tp: int) -> tuple[int, int]:
@@ -114,12 +140,6 @@ def shard_params(full: dict, cfg: ModelConfig, rank: int, tp: int,
     tensor can go), the rest as they are. The same slices as the JAX
     package's ``addressable_shards[rank]`` on a tp (or ("pp", "tp"))
     mesh."""
-    if cfg.is_moe and tp > 1:
-        raise NotImplementedError(
-            "tensor parallelism over MoE experts (expert parallel) is not "
-            "ported"
-        )
-
     def walk(tree, path):
         out = {}
         for k, v in tree.items():
@@ -145,6 +165,12 @@ def cut(path: tuple[str, ...], x: torch.Tensor, cfg: ModelConfig,
     if axis is not None and tp > 1:
         out = shard(out, axis, rank, tp)
     return out if out is x else out.contiguous()
+
+
+def expert_range(cfg: ModelConfig, rank: int, tp: int) -> tuple[int, int]:
+    """The experts [lo, hi) tp index `rank` holds of a MoE model."""
+    n = cfg.num_experts // tp
+    return rank * n, (rank + 1) * n
 
 
 def local_cache_shape(cfg: ModelConfig, num_slots: int, tp: int,

@@ -111,6 +111,43 @@ def test_served_flags_reach_engine_config(argv, field, want):
     assert getattr(cfg, field) == want
 
 
+# served on a one-host rank set since their exports, imports and adapter
+# loads became broadcast steps (the disk tier goes to a temporary
+# directory, DISK_DIR)
+DISK_DIR = "<tmp>"
+
+
+@pytest.mark.parametrize("argv", [
+    ["--enable-lora"],
+    ["--cpu-offload-gb", "1"],
+    ["--disk-offload-dir", DISK_DIR],
+    ["--remote-cache-url", "http://127.0.0.1:1"],
+    ["--kv-role", "kv_consumer"],
+    ["--kv-transfer-listen", "127.0.0.1:1"],
+    ["--model", "pst-tiny-moe-debug"],
+], ids=["enable_lora", "cpu_offload_bytes", "disk_offload_dir",
+        "remote_cache_url", "kv_role", "kv_transfer_config", "MoE"])
+def test_cli_serves_rank_set_features(argv, monkeypatch, tmp_path):
+    """LoRA, the KV tiers, the remote cache, PD roles and MoE at tp=2:
+    main() starts the rank set, its config refuses nothing of it, and
+    its engine is alive."""
+    from production_stack_tpu_torch.engine import server
+
+    started = []
+    monkeypatch.setattr(server.EngineServer, "run",
+                        lambda self, **kw: started.append(self))
+    argv = [str(tmp_path) if a == DISK_DIR else a for a in argv]
+    main(["--device", "cpu", "--tokenizer", "byte",
+          "--tensor-parallel-size", "2", *argv])
+    (srv,) = started
+    try:
+        assert srv.config.tensor_parallel_size == 2
+        assert srv.config.rank_set_unported() == []
+        assert srv.engine.engine.tp_alive()
+    finally:
+        srv.engine.shutdown()
+
+
 @pytest.mark.parametrize("argv,name", [
     (["--precompile-serving"], "precompile_serving"),
     # the ring under tensor parallelism (its own broadcast, not ported)
@@ -121,19 +158,7 @@ def test_served_flags_reach_engine_config(argv, field, want):
     (["--process-id", "1"], "multihost"),
     (["--coordinator-address", "10.0.0.1:1234"], "num_processes"),
     (["--multihost"], "multihost"),
-    # what a tensor-parallel engine does not carry yet
-    (["--tensor-parallel-size", "2", "--enable-lora"], "enable_lora"),
-    (["--tensor-parallel-size", "2", "--cpu-offload-gb", "1"],
-     "cpu_offload_bytes"),
-    (["--tensor-parallel-size", "2", "--disk-offload-dir", "/nonexistent"],
-     "disk_offload_dir"),
-    (["--tensor-parallel-size", "2", "--remote-cache-url",
-      "http://127.0.0.1:1"], "remote_cache_url"),
-    (["--tensor-parallel-size", "2", "--kv-role", "kv_consumer"], "kv_role"),
-    (["--tensor-parallel-size", "2", "--kv-transfer-listen",
-      "127.0.0.1:1"], "kv_transfer_config"),
-    (["--tensor-parallel-size", "2", "--model", "pst-tiny-moe-debug"],
-     "MoE"),
+    # what a rank set does not carry yet
     (["--tensor-parallel-size", "2", "--async-decode",
       "--num-scheduler-steps", "4"], "async_decode"),
     (["--tensor-parallel-size", "2", "--precompile-serving"],

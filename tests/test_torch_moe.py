@@ -14,7 +14,13 @@ float32: the scenarios of tests/test_moe.py run on both packages.
 - a tiny Mixtral checkpoint (block_sparse_moe.* keys) written by the
   port's writer loads bit for bit like params_from_numpy(JAX
   load_hf_weights), f32 and bf16, and a partial one is refused;
-- a capacity factor above 0 refuses to serve at boot, as in JAX.
+- a capacity factor above 0 refuses to serve at boot, as in JAX;
+- expert parallelism at tp=2 (each rank E/tp whole experts): the
+  shards byte-equal to the JAX package's addressable_shards, the rank
+  set's forward logits and local KV within 1e-5 relative of the JAX
+  tp=2 meshed forward, its greedy stream equal to the JAX tp=2 meshed
+  engine's (tests/test_moe.py's expert-parallel setup), and a rank's
+  Mixtral checkpoint read holding its experts only.
 """
 
 import dataclasses
@@ -334,3 +340,123 @@ def test_capacity_factor_refused_at_boot(monkeypatch):
     with pytest.raises(ValueError, match="not servable"):
         ModelRunner(EngineConfig(**{**BASE, "model": bad.name},
                                  device="cpu"))
+
+
+# -- expert parallelism over the tp axis -----------------------------------------
+EP_PROMPT = [1, 2, 3, 4, 5, 6, 7]  # tests/test_moe.py's EP prompt
+EP_ENGINE = dict(model="pst-tiny-moe-debug", tokenizer="byte",
+                 dtype="float32", cache_dtype="float32", block_size=4,
+                 num_kv_blocks=64, max_num_seqs=2, max_prefill_chunk=16,
+                 seed=0)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_expert_shards_byte_equal_jax_addressable_shards(np_params, tp):
+    """Each rank holds E/tp whole experts (w_gate / w_up / w_down cut on
+    E), the router whole: the slices of the JAX package's
+    addressable_shards on a tp mesh, byte for byte."""
+    from production_stack_tpu.parallel import sharding as jsharding
+    from production_stack_tpu_torch.models.convert import tp_params_from_numpy
+
+    mesh = jsharding.make_mesh(tp)
+    jtree = jsharding.shard_params(
+        jax.tree_util.tree_map(jnp.asarray, np_params), mesh, MC)
+    for r in range(tp):
+        mine = tp_params_from_numpy(np_params, MC, r, tp, "cpu")
+        assert mine["layers"]["w_gate"].shape[1] == MC.num_experts // tp
+        for k, leaf in jtree["layers"].items():
+            (want,) = [s.data for s in leaf.addressable_shards
+                       if s.device == mesh.devices[r]]
+            got = mine["layers"][k]
+            assert got.is_contiguous(), k
+            assert got.numpy().tobytes() == np.asarray(want).tobytes(), (
+                k, r)
+
+
+def test_ep_forward_logits_equal_jax_meshed(np_params):
+    """Two ranks, each gating over all experts and running its own, the
+    block's output all-reduced: logits within 1e-5 relative of the JAX
+    tp=2 meshed forward, and the local KV of each rank its cache shard."""
+    import torch_tp_worker
+    from production_stack_tpu.parallel import sharding as jsharding
+
+    steps = [(list(range(5, 17)), list(range(12))),
+             ([40, 41, 42, 43], list(range(12, 16)))]
+    tmc = tcfg.get_model_config(MC.name)
+    ranks = torch_tp_worker.run_ranks(torch_tp_worker.tp_forward, 2,
+                                      [(tmc, np_params, steps, 16)])
+    mesh = jsharding.make_mesh(2)
+    params = jsharding.shard_params(
+        jax.tree_util.tree_map(jnp.asarray, np_params), mesh, MC)
+    shape = (MC.num_layers, MC.num_kv_heads, 16, MC.head_dim)
+    kc = jax.device_put(jnp.zeros(shape), jsharding.cache_sharding(mesh))
+    vc = jax.device_put(jnp.zeros(shape), jsharding.cache_sharding(mesh))
+    want = []
+    for tokens, positions in steps:
+        pos = jnp.asarray(positions, jnp.int32)
+        total = positions[-1] + 1
+
+        def attn(q, layer, k, v):
+            return jattn.context_attention_prefill(
+                q, k[layer].swapaxes(0, 1), v[layer].swapaxes(0, 1), pos,
+                total, MC.head_dim**-0.5)
+
+        lg, kc, vc = jax.jit(lambda p, t, kc, vc: jllama.forward(
+            MC, p, t, pos, kc, vc, pos, attn, jnp.arange(len(tokens))))(
+            params, jnp.asarray(tokens, jnp.int32), kc, vc)
+        want.append(np.asarray(lg))
+    for r, [(logits, k, v)] in enumerate(ranks):
+        for got, w in zip(logits, want):
+            _close(got, w)
+        for got, arr in ((k, kc), (v, vc)):
+            (w,) = [s.data for s in arr.addressable_shards
+                    if s.device == mesh.devices[r]]
+            _close(got, np.asarray(w))
+
+
+def test_ep_engine_streams_equal_jax_meshed_and_tp1(np_params):
+    """tests/test_moe.py's expert-parallel setup at tp=2: the port's
+    rank set (each rank holding 2 of the 4 experts a layer) decodes the
+    JAX tp=2 meshed engine's greedy stream, which is the tp=1 stream."""
+    sp = dict(max_tokens=5, temperature=0.0, ignore_eos=True)
+    want = []
+    for tp in (1, 2):
+        jeng = JEngine(JConfig(**EP_ENGINE, attention_impl="xla",
+                               tensor_parallel_size=tp),
+                       params=jax.tree_util.tree_map(jnp.asarray,
+                                                     np_params))
+        want.append(jeng.generate([EP_PROMPT], JSampling(**sp))[0]
+                    .token_ids)
+    assert want[0] == want[1]
+    eng = LLMEngine(EngineConfig(**EP_ENGINE, device="cpu",
+                                 tensor_parallel_size=2),
+                    params=params_from_numpy(np_params, "cpu"))
+    try:
+        got = eng.generate([EP_PROMPT], SamplingParams(**sp))[0].token_ids
+        assert got == want[1]
+        reps = eng.runner.reports()
+        assert [r["experts"] for r in reps] == [[0, 2], [2, 4]]
+        assert reps[0]["dispatch_counts"] == reps[1]["dispatch_counts"]
+        held = eng.runner._runner.params["layers"]
+        assert held["w_gate"].shape[1] == held["w_down"].shape[1] == 2
+        assert held["moe_gate"].shape[-1] == MC.num_experts
+    finally:
+        eng.shutdown()
+
+
+def test_mixtral_checkpoint_rank_reads_its_experts(np_params, tmp_path):
+    """load_hf_weights(shard=(r, 2)) of a Mixtral checkpoint holds the
+    rank's experts only, equal to the cut of the full load."""
+    from production_stack_tpu_torch.parallel import sharding as tsharding
+
+    tmc = tcfg.get_model_config(MC.name)
+    write_hf_checkpoint(str(tmp_path), hf_config_of(tmc),
+                        params_from_numpy(np_params, "cpu"))
+    full = load_hf_weights(tmc, str(tmp_path), torch.float32, "cpu")
+    for r in range(2):
+        got = load_hf_weights(tmc, str(tmp_path), torch.float32, "cpu",
+                              shard=(r, 2))
+        want = tsharding.shard_params(full, tmc, r, 2)
+        for k, leaf in want["layers"].items():
+            assert torch.equal(got["layers"][k], leaf), (k, r)
+        assert got["layers"]["w_up"].shape[1] == MC.num_experts // 2

@@ -4,10 +4,10 @@ The JAX package serves pp as one SPMD program over a ("pp", "tp") mesh
 of the conftest's 8 virtual CPU devices (parallel/pp_serving.py) and
 prefills with a GPipe pipeline over a "pp" axis (parallel/pipeline.py).
 The port serves pp over a rank set (rank 0 here, the other ranks
-spawned, gloo on a FileStore): stage r // tp holds its L/pp layers and
-hands its output rows on with a broadcast (parallel/pp_serving.py); its
-PipelinedPrefiller drives the stages from one process, stage devices
-the CPU repeated.
+spawned, gloo on a loopback TCPStore): stage r // tp holds its L/pp
+layers and hands its output rows on with a broadcast
+(parallel/pp_serving.py); its PipelinedPrefiller drives the stages from
+one process, stage devices the CPU repeated.
 
 Models: tests/test_pp_serving.py's engine config (pst-tiny-debug, 2
 layers, tied embeddings) and tests/test_pipeline_parallel.py's CFG (4
@@ -52,6 +52,9 @@ from production_stack_tpu_torch.models.debug_checkpoint import (
 from production_stack_tpu_torch.parallel import pipeline as tpipeline
 from production_stack_tpu_torch.parallel import pp_serving as tpp
 from production_stack_tpu_torch.parallel import sharding as tsharding
+import test_torch_rank_set_features as rsf
+from test_torch_rank_set_features import np_params as rs_np_params  # noqa: F401
+from test_torch_rank_set_features import register_cfgs  # noqa: F401
 
 # the CPU runs these tests at tiny widths, where intra-op threads
 # cost more than they save: with several test workers on one box,
@@ -264,12 +267,41 @@ def test_engine_refusals_equal_jax(over):
     ({"context_parallel_size": 2}, "context_parallel_size>1"),
     ({"async_decode": True, "num_scheduler_steps": 4}, "async_decode"),
     ({"precompile_serving": True}, "precompile_serving"),
-    ({"cpu_offload_bytes": 2**20}, "cpu_offload_bytes"),
 ])
 def test_rank_set_refusals_under_pp_name_the_feature(over, name):
     with pytest.raises(NotImplementedError, match=re.escape(name)):
         EngineConfig(device="cpu", pipeline_parallel_size=2,
                      **{**ENGINE, **over})
+
+
+# -- the KV tiers over the stages ----------------------------------------------
+@pytest.fixture(scope="module", params=["pp2", "pp2xtp2"])
+def pp_kv(request, rs_np_params):
+    """A pp=2 (or pp=2 x tp=2) rank set with the CPU tier, beside the JAX
+    meshed engine of the same layout, each through the rank-set
+    features' KV scenario (tests/test_torch_rank_set_features.py)."""
+    pp, tp = LAYOUTS[request.param.replace("xtp", "tp")]
+    jeng = rsf._jax(rs_np_params, tp=tp, pp=pp)
+    try:
+        want = rsf._kv_scenario(jeng, "jax")
+    finally:
+        jeng.shutdown()
+    eng = rsf._port(rs_np_params, tp=tp, pp=pp)
+    eng.runs = {"kv": rsf._kv_scenario(eng, "port")}
+    yield eng, want
+    eng.shutdown()
+
+
+def test_kv_export_and_restore_under_pp_equal_jax_meshed(pp_kv):
+    """The KV tiers are served under pp (the JAX package refuses them
+    under multihost only): a prompt evicted by churn restores with the
+    JAX meshed engine's stream and blocks, 0 fallbacks; the wire each
+    stage's ranks assemble on rank 0 equals the JAX meshed export, and
+    each rank's slice is its cut of it."""
+    eng, want = pp_kv
+    rsf._check_kv(eng, want)
+    reps = eng.runner.reports()
+    assert [r["layers"] for r in reps] == [1] * len(reps)
 
 
 # -- sharding: the layer axis ----------------------------------------------------

@@ -2,7 +2,8 @@
 
 The JAX package runs TP on the conftest's 8-device CPU mesh (one
 process, GSPMD psums); the port runs a rank set: rank 0 in this process,
-ranks 1.. spawned, joined by gloo on a FileStore (parallel/launch.py).
+ranks 1.. spawned, joined by gloo on a loopback TCPStore
+(parallel/launch.py).
 The models are tests/test_tensor_parallel.py's TP_TEST_CFG (16 q heads
 over 8 kv heads, head_dim 8, 2 layers, tied embeddings) and an untied
 variant with Qwen2's qkv bias (its lm_head vocab-sharded, its logits
@@ -40,6 +41,7 @@ from production_stack_tpu_torch.engine.llm_engine import LLMEngine
 from production_stack_tpu_torch.engine.multihost_engine import (
     UNBROADCAST,
     BroadcastingRunner,
+    RankSetError,
 )
 from production_stack_tpu_torch.engine.sampling_params import SamplingParams
 from production_stack_tpu_torch.models import config as tmcfg
@@ -552,17 +554,11 @@ def test_spec_decode_streams_and_counts_equal_tp1(np_params, impl):
         engs[0].shutdown()
 
 
-# -- what tensor parallelism refuses, and failures -----------------------------
+# -- what tensor parallelism refuses, serves, and failures ---------------------
 @pytest.mark.parametrize("over,name", [
-    ({"enable_lora": True}, "enable_lora"),
-    ({"cpu_offload_bytes": 2**20}, "cpu_offload_bytes"),
-    ({"disk_offload_dir": "/nonexistent"}, "disk_offload_dir"),
-    ({"remote_cache_url": "http://127.0.0.1:1"}, "remote_cache_url"),
-    ({"kv_role": "prefill"}, "kv_role"),
-    ({"kv_transfer_config": {"peer": "127.0.0.1:1"}}, "kv_transfer_config"),
-    ({"model": "pst-tiny-moe-debug"}, "MoE"),
     ({"async_decode": True, "num_scheduler_steps": 4}, "async_decode"),
     ({"precompile_serving": True}, "precompile_serving"),
+    ({"context_parallel_size": 2}, "context_parallel_size>1"),
 ])
 def test_tp_refuses_what_it_does_not_carry(over, name):
     cfg = {**ENGINE, "model": TIED.name, "device": "cpu",
@@ -571,6 +567,51 @@ def test_tp_refuses_what_it_does_not_carry(over, name):
         EngineConfig(**cfg)
     cfg["tensor_parallel_size"] = 1
     EngineConfig(**cfg)  # each is served at tp=1
+
+
+# the features a one-host rank set serves since their exports, imports
+# and adapter loads became broadcast steps (each was a refusal case of
+# the test above; tests/test_torch_rank_set_features.py serves them
+# against the JAX meshed engine, tests/test_torch_moe.py the experts)
+SERVED = [
+    ({"enable_lora": True}, "enable_lora"),
+    ({"cpu_offload_bytes": 2**20}, "cpu_offload_bytes"),
+    ({"disk_offload_dir": "/nonexistent"}, "disk_offload_dir"),
+    ({"remote_cache_url": "http://127.0.0.1:1"}, "remote_cache_url"),
+    ({"kv_role": "prefill"}, "kv_role"),
+    ({"kv_transfer_config": {"peer": "127.0.0.1:1"}}, "kv_transfer_config"),
+    ({"model": "pst-tiny-moe-debug"}, "MoE"),
+]
+
+
+@pytest.mark.parametrize("over,name", SERVED)
+def test_tp_config_takes_what_it_used_to_refuse(over, name):
+    """EngineConfig at tp=2 on one host accepts each (rank_set_unported
+    names only async_decode, precompile_serving and cp > 1); a
+    multi-host job keeps the JAX multi-host engine's refusals
+    (tests/test_torch_multihost.py holds their messages)."""
+    from production_stack_tpu_torch.engine.multihost_engine import (
+        validate_multihost_config,
+    )
+
+    from production_stack_tpu.engine.multihost_engine import (
+        validate_multihost_config as jvalidate,
+    )
+
+    over = {**ENGINE, "model": TIED.name, "tensor_parallel_size": 2, **over}
+    cfg = EngineConfig(**over, device="cpu")
+    assert cfg.rank_set_unported() == []
+    errs = []
+    for fn, c in ((jvalidate, JConfig(**over)), (validate_multihost_config,
+                                                 cfg)):
+        try:
+            fn(c)
+            errs.append(None)
+        except ValueError as e:
+            errs.append(str(e))
+    assert errs[0] == errs[1]
+    # a peer alone declares no role; MoE is a forward, broadcast as one
+    assert (errs[0] is None) == (name in ("kv_transfer_config", "MoE"))
 
 
 @pytest.mark.parametrize("name", sorted(UNBROADCAST))
@@ -586,6 +627,49 @@ def test_broadcasting_runner_refuses_unbroadcast_methods(name):
     assert br.num_blocks == 64 and not published
 
 
+# the KV methods that were in UNBROADCAST: what each publishes now (the
+# kind, or nothing for rank 0's own halves: its h2d and its d2h)
+KV_METHODS = {
+    "stage_export_blocks": ["kv_export"], "export_blocks": ["kv_export"],
+    "materialize_export": [], "stage_import_blocks": [],
+    "import_staged_blocks": ["kv_import"], "import_blocks": ["kv_import"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(KV_METHODS))
+def test_broadcasting_runner_serves_kv_methods(name):
+    """Each former UNBROADCAST KV method is served: the halves that move
+    bytes between the ranks publish their step kind first (with host
+    arguments only), rank 0's own h2d and d2h publish nothing."""
+    assert name not in UNBROADCAST
+    wire = torch.arange(2 * 2 * 3, dtype=torch.float32).view(2, 2, 3)
+    calls = []
+    runner = types.SimpleNamespace(
+        stage_export_blocks=lambda b: calls.append("gather") or (
+            len(b), wire, None),
+        materialize_export=lambda h: calls.append("d2h") or h[1],
+        stage_import_blocks=lambda d: calls.append("h2d") or d,
+        staged_wire=lambda h, cols, m: h,
+        import_wire=lambda b, w: calls.append(("scatter", b)))
+    group = types.SimpleNamespace(store=None, world_size=2, followers=[])
+    br = BroadcastingRunner(runner, group)
+    published = []
+    br._bc = types.SimpleNamespace(publish=published.append)
+    args = {"stage_export_blocks": ([3, 4],), "export_blocks": ([3, 4],),
+            "materialize_export": ((2, wire, None),),
+            "stage_import_blocks": (wire,),
+            "import_staged_blocks": ([5, 6], wire, [0, 1]),
+            "import_blocks": ([5, 6], wire)}[name]
+    getattr(br, name)(*args)
+    assert [m["kind"] for m in published] == KV_METHODS[name]
+    for m in published:
+        assert not any(isinstance(a, torch.Tensor) for a in m["args"])
+    if KV_METHODS[name] == ["kv_import"]:
+        assert published[0]["kwargs"] == {"shape": (2, 2, 3),
+                                          "dtype": "float32"}
+        assert calls[-1] == ("scatter", [5, 6])
+
+
 def test_broadcast_refuses_device_tensors_and_stages():
     runner = types.SimpleNamespace(decode_multi=lambda *a, **k: "ran")
     group = types.SimpleNamespace(store=None, world_size=2, followers=[])
@@ -599,9 +683,9 @@ def test_broadcast_refuses_device_tensors_and_stages():
     assert not published
 
 
-def _failing_engine(np_params, timeout_s):
+def _failing_engine(np_params, timeout_s, **over):
     cfg = EngineConfig(model=TIED.name, device="cpu",
-                       tensor_parallel_size=2, **ENGINE)
+                       tensor_parallel_size=2, **{**ENGINE, **over})
     group = start_tp_ranks(cfg, params=params_from_numpy(np_params["tied"],
                                                          "cpu"),
                            timeout_s=timeout_s)
@@ -609,30 +693,75 @@ def _failing_engine(np_params, timeout_s):
                      tp_group=group)
 
 
-@pytest.mark.parametrize("how", ["raises", "killed"])
-def test_follower_failure_raises_on_rank0_within_the_timeout(np_params, how):
-    """A follower that raises (an unknown step kind) or dies makes rank
-    0's next dispatch raise, naming the follower's error, well inside
-    the group timeout; the rank set then reports dead."""
+def _adapter_file(path):
+    rng = np.random.RandomState(1)
+    L, h, q = TIED.num_layers, TIED.hidden_size, TIED.q_size
+    np.savez(path, wq_A=rng.randn(L, h, 2).astype(np.float32),
+             wq_B=rng.randn(L, 2, q).astype(np.float32))
+    return str(path)
+
+
+@pytest.mark.parametrize("how", ["raises", "killed", "export", "import",
+                                 "lora"])
+def test_follower_failure_raises_on_rank0_within_the_timeout(np_params, how,
+                                                             tmp_path):
+    """A follower that raises (an unknown step kind; a KV export, a KV
+    import or an adapter load that fails on it) or dies makes rank 0's
+    next dispatch raise, naming the follower's error, well inside the
+    group timeout; the rank set then reports dead. A failed import is
+    an error, not a counted fallback; a failed adapter load leaves no
+    rank serving it."""
     timeout_s = 20.0
-    eng = _failing_engine(np_params, timeout_s)
+    over = ({"enable_lora": True, "max_loras": 1, "max_lora_rank": 4}
+            if how == "lora" else {})
+    eng = _failing_engine(np_params, timeout_s, **over)
     proc = eng.runner._group.followers[0]
+    wire = torch.zeros(2, TIED.num_layers, 1, TIED.num_kv_heads, 4,
+                       TIED.head_dim)
+    poison = {
+        "raises": {"kind": "no-such-step"},
+        # a block id past the follower's cache
+        "export": {"kind": "kv_export", "args": ([10**6],), "kwargs": {}},
+        # a wire dtype torch does not have
+        "import": {"kind": "kv_import", "args": ([1],),
+                   "kwargs": {"shape": tuple(wire.shape),
+                              "dtype": "no_such_dtype"}},
+        "lora": {"kind": "lora_load",
+                 "args": ("x", str(tmp_path / "none.npz"), 1),
+                 "kwargs": {}},
+    }
+    act = {
+        "export": lambda: eng.runner.export_blocks([1]),
+        "import": lambda: eng.runner.import_blocks([1], wire),
+        "lora": lambda: eng.load_lora("a", _adapter_file(tmp_path / "a.npz")),
+    }.get(how, lambda: eng.generate([PROMPTS[0]], SamplingParams(**GREEDY)))
     try:
         assert eng.tp_alive()
-        if how == "raises":
-            eng.runner._bc.publish({"kind": "no-such-step"})
-        else:
+        if how == "killed":
             proc.kill()
             proc.join(10)
+        else:
+            eng.runner._bc.publish(poison[how])
         t0 = time.monotonic()
-        with pytest.raises(RuntimeError) as info:
-            eng.generate([PROMPTS[0]], SamplingParams(**GREEDY))
+        with pytest.raises(RankSetError) as info:
+            act()
         assert time.monotonic() - t0 < timeout_s
+        assert "rank 1" in str(info.value)
         if how == "raises":
             assert "unknown tensor-parallel step kind" in str(info.value)
+        elif how != "killed":
+            assert f"failed at {'lora_load' if how == 'lora' else 'kv_' + how}"\
+                in str(info.value)
         assert not eng.tp_alive()
         with pytest.raises(RuntimeError, match="rank set failed"):
             eng.runner.embed([1, 2, 3])
+        if how == "import":
+            # the engine's restore landing raises; no counted fallback
+            with pytest.raises(RankSetError):
+                eng._import_restored([2], [], None, [0])
+            assert eng._kv_restore_fallbacks_total == 0
+        if how == "lora":
+            assert eng.list_loras() == []
     finally:
         eng.shutdown()
     assert proc.exitcode not in (0, None)

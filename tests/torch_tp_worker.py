@@ -5,12 +5,14 @@ torch and the port only, so a spawned rank starts in about a second."""
 
 from __future__ import annotations
 
+import datetime
 import multiprocessing
 import os
 import shutil
 import tempfile
 
 import torch
+import torch.distributed as dist
 
 from production_stack_tpu_torch.models import llama
 from production_stack_tpu_torch.models.convert import tp_params_from_numpy
@@ -21,12 +23,15 @@ from production_stack_tpu_torch.parallel.group import TPGroup
 
 def run_ranks(fn, tp: int, *args, timeout_s: float = 60.0) -> list:
     """[fn(group_r, *args) for r in range(tp)], each rank in its own
-    process."""
+    process, over a TCPStore this process hosts on loopback (as
+    parallel/launch.py starts a set on one host)."""
     tmp = tempfile.mkdtemp(prefix="pst-tp-test-")
-    store = os.path.join(tmp, "store")
+    store = dist.TCPStore("127.0.0.1", 0, is_master=True,
+                          wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=timeout_s))
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=_rank_main,
-                         args=(fn, r, tp, store, tmp, args, timeout_s,
+                         args=(fn, r, tp, store.port, tmp, args, timeout_s,
                                torch.get_num_threads()))
              for r in range(1, tp)]
     try:
@@ -48,10 +53,12 @@ def run_ranks(fn, tp: int, *args, timeout_s: float = 60.0) -> list:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _rank_main(fn, rank, tp, store, tmp, args, timeout_s, threads):
+def _rank_main(fn, rank, tp, port, tmp, args, timeout_s, threads):
     # the caller's intra-op thread count (a spawned process would start
     # with one a core)
     torch.set_num_threads(threads)
+    store = dist.TCPStore("127.0.0.1", port, is_master=False,
+                          timeout=datetime.timedelta(seconds=timeout_s))
     group = TPGroup(rank, tp, store, "cpu", "gloo", timeout_s)
     torch.save(fn(group, *args), os.path.join(tmp, f"rank{rank}.pt"))
 
