@@ -309,6 +309,17 @@ Phases, each fatal on failure:
    PD pull into a tp=1 decode engine; then Mixtral-8x7B x4 float32 at
    tp=2 against tp=1, block by block and on the logits, beside a
    bfloat16 control, 4 experts a rank.
+18. Rank-set serving (rank_set_serving_phase): the 3B at tp=2 (both
+   ranks on cuda:0 over gloo): (f) a K=8 engine at max_model_len 2048
+   runs precompile_serving on every rank (grid and count against
+   expected_sweep, the ranks' dispatches equal, the sweep's seconds);
+   (e) a K=8 --async-decode engine beside it on the tp phase's mixed
+   scenario (streams under the near-tie rule, chained rounds and token
+   checks on every rank, 28 ragged launches a forward a rank) and batch
+   8 in turns; (g) the long-context phase's lane scenario at tp=2 x
+   sp=2 beside a chunked tp=2 control (streams, first-token logits
+   against the tp=1 lane's, chunks, fallbacks, blocks landed, TTFT, the
+   collect's seconds, the decoders' ITL).
 
 Launch counts are reset just before the serve phase's requests (through
 the server's /debug/kernel_launches) and again before its API requests,
@@ -323,8 +334,8 @@ requests, the Mixtral engine's run and, on every rank, before the tp
 phase's one-shot forwards and its tp=2 scenario, before each
 long-context engine's run and the long-context server's request, on
 every rank before each pp scenario, before the multi-host
-server's completion, and on every rank before each rank-set run, and
-read just after; a kernel launched 0 times on those paths fails the
+server's completion, on every rank before each rank-set run and
+before each rank-set serving run, and read just after; a kernel launched 0 times on those paths fails the
 run. The servers' logs go to build/chip_smoke_serve.log,
 build/chip_smoke_lc_serve.log,
 build/chip_smoke_spec_serve.log, build/chip_smoke_lora_serve.log, build/chip_smoke_prefill_serve.log,
@@ -2168,10 +2179,11 @@ def mixed_phase(torch, pa, gap_tol: float, smi: str) -> dict:
 
 # -- composed and gather phases --------------------------------------------------
 def staggered_mix(torch, pa, eng, tag: str, turn: int, sp,
-                  profile: list | None = None) -> tuple:
+                  profile: list | None = None,
+                  n_long: int | None = None) -> tuple:
     """The mixed phase's scenario on one engine: four greedy requests,
-    then a LONG_PROMPT_TOKENS prompt at step 2 while they decode, on
-    prompts of this turn. Returns (outputs d0..d3, long; launch counts;
+    then a LONG_PROMPT_TOKENS (or `n_long`) prompt at step 2 while they
+    decode, on prompts of this turn. Returns (outputs d0..d3, long; launch counts;
     dispatch counts; lane-typed rounds; wall seconds), launches and
     dispatches counted from 0 just before it. With `profile`, step 4 (a
     mixed round) runs under torch.profiler and its summary is appended
@@ -2179,7 +2191,7 @@ def staggered_mix(torch, pa, eng, tag: str, turn: int, sp,
     prompts = [[(11 * i + 5 * j + 17 * turn) % 250 + 1 for j in range(n)]
                for i, n in enumerate((17, 40, 64, 90))]
     long_prompt = [(3 * j + 7 * turn) % 250 + 1
-                   for j in range(LONG_PROMPT_TOKENS)]
+                   for j in range(n_long or LONG_PROMPT_TOKENS)]
     pa.reset_launch_counts()
     runs0 = dict(eng.runner.dispatch_counts)
     rounds0 = eng.stats().ragged_rounds_total
@@ -4735,9 +4747,26 @@ def lc_prefill_check(torch, pa, params, cfg, smi: str) -> None:
     release(torch)
 
 
-def lc_scenario(torch, pa, eng, tag: str, sp) -> dict:
+def lane_logits(mgr) -> dict:
+    """Spy on a lane manager's advance: the first-token logits (on the
+    host, float32) of each job that finished landing, by request id."""
+    got = {}
+    advance = mgr.advance
+
+    def spy():
+        done, failed, progressed = advance()
+        for rec in done:
+            got[rec["rid"]] = rec["logits"].float().clone()
+        return done, failed, progressed
+
+    mgr.advance = spy
+    return got
+
+
+def lc_scenario(torch, pa, eng, tag: str, sp,
+                n_long: int = LC_PROMPT_TOKENS) -> dict:
     """Four greedy LC_DECODE_TOKENS-token requests, then the
-    LC_PROMPT_TOKENS-token prompt at step LC_LONG_STEP while they decode.
+    n_long-token prompt at step LC_LONG_STEP while they decode.
     Returns the streams (d0..d3, long), the TTFT of the long prompt, the
     step walls in which the decoders got a token (in steps that
     dispatched a ring chunk, in other steps with the long prompt's
@@ -4747,7 +4776,7 @@ def lc_scenario(torch, pa, eng, tag: str, sp) -> dict:
     first token, and the memory peak."""
     prompts = [[(11 * i + 5 * j) % 250 + 1 for j in range(n)]
                for i, n in enumerate((17, 40, 64, 90))]
-    long_prompt = [(3 * j + 1) % 250 + 1 for j in range(LC_PROMPT_TOKENS)]
+    long_prompt = [(3 * j + 1) % 250 + 1 for j in range(n_long)]
     mgr = eng.long_prefill
     chunk_ms: list[float] = []
     if mgr is not None:
@@ -4823,7 +4852,8 @@ def lc_engine_check(torch, pa, params, gap_tol: float, smi: str) -> dict:
     ring was in flight, 28 ragged launches a forward over the run and
     over the decode after landing (the ring launches none); the streams
     held to the control's under the near-tie rule. Returns the lane
-    engine's launches."""
+    engine's launches and the long prompt's first-token logits from the
+    ring (the tp=1 reference of the rank-set serving phase (g))."""
     import logging
 
     from production_stack_tpu_torch.engine.config import EngineConfig
@@ -4859,6 +4889,7 @@ def lc_engine_check(torch, pa, params, gap_tol: float, smi: str) -> dict:
                             eng.runner.params["embed"]):
                         fail("long-context phase: the ring copied the "
                              "runner's params")
+                    first = lane_logits(mgr)
                 res[tag] = lc_scenario(torch, pa, eng, f"lc-{tag}-", sp)
                 res[tag]["stats"] = eng.stats()
             finally:
@@ -4929,7 +4960,7 @@ def lc_engine_check(torch, pa, params, gap_tol: float, smi: str) -> dict:
           f"{lane['peak_gb']:.2f} GB "
           f"(lane engine) / {ctrl['peak_gb']:.2f} GB (chunked); a ring on "
           f"one card shares that card: not sp speeds; on {smi}", flush=True)
-    return lane["launches"]
+    return lane["launches"], first["lc-lane-long"]
 
 
 def lc_cli_check(torch, smi: str) -> None:
@@ -4985,7 +5016,8 @@ def long_context_phase(torch, pa, gap_tol: float, smi: str) -> dict:
     parallel/long_context.py, engine/long_prefill.py) at full width:
     (a) the ring against its oracle, (b) the prefiller against chunked
     prefill, (c) the lane in an engine against the chunked control,
-    (d) the lane through the CLI. Returns the lane engine's launches."""
+    (d) the lane through the CLI. Returns the lane engine's launches and
+    its long prompt's first-token logits."""
     from production_stack_tpu_torch.models import llama
     from production_stack_tpu_torch.models.config import get_model_config
 
@@ -4995,13 +5027,13 @@ def long_context_phase(torch, pa, gap_tol: float, smi: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = llama.init_params(cfg, gen, torch.bfloat16, "cuda")
     lc_prefill_check(torch, pa, params, cfg, smi)
-    counts = lc_engine_check(torch, pa, params, gap_tol, smi)
+    counts, first = lc_engine_check(torch, pa, params, gap_tol, smi)
     del params
     release(torch)
     lc_cli_check(torch, smi)
     print(f"long-context phase: {time.perf_counter() - t_phase:.1f}s",
           flush=True)
-    return counts
+    return counts, first
 
 
 # -- pipeline-parallel phase -------------------------------------------------------
@@ -5787,6 +5819,346 @@ def rank_set_phase(torch, pa, gap_tol: float, smi: str) -> dict:
     return counts
 
 
+# -- rank-set serving phase ------------------------------------------------------
+# (e): the tp=2 engines' max_model_len, room for the mixed scenario
+RSS_MAX_MODEL_LEN = 2048
+# (f): the swept engine's max_model_len (the sweep's grid of ctx buckets
+# ends there). At 2048 the sweep ran 79.68 s on an H100 80GB HBM3 at
+# 700 W (eager, gloo through the host: ~0.11 s a decode forward, ~1.2 ms
+# a prefill token), past the 60 s the phase allows it; at 256 it is the
+# same grid's shape (4 ctx buckets, 7 chunk buckets, 4 decode variants)
+RSS_SWEEP_MAX_MODEL_LEN = 256
+# (f): the mixed scenario's long prompt inside that max_model_len
+RSS_SWEEP_LONG_TOKENS = 120
+# (g): the long-context phase's lane scenario at tp=2 x sp=2
+RSS_LC_PROMPT_TOKENS = LC_PROMPT_TOKENS
+
+
+def expected_sweep(cfg, num_blocks: int, variants: list) -> tuple[dict, int]:
+    """The grid and the dispatch count of precompile_serving on a rank
+    set of `cfg` with a pool of `num_blocks`, derived from the sweep's
+    rules: ctx buckets of pow2 whole blocks up to the smaller of
+    max_model_len and the pool; chunk buckets of pow2 rows from 8 to the
+    chunk's; a single (chunk, ctx) for each chunk no longer than its ctx
+    and a group of each pow2 size from 2 to max_prefill_seqs beside it,
+    none dropped (a rank-set runner has no packed-prefill row buckets);
+    one decode sweep a (K, chained, stop) variant over the ctx buckets
+    shifted by K - 1, two dispatches a chained one; no ragged, verify or
+    import sweep here. The sweeps skip a dispatch whose tables the pool
+    cannot hold twice beside 64 blocks."""
+    bs = cfg.block_size
+
+    def pow2(n):
+        p = 1
+        while p < n:
+            p *= 2
+        return p
+
+    top = pow2(-(-cfg.max_model_len // bs))
+
+    def ctx_bucket(n):
+        return min(pow2(max(1, -(-n // bs))), top) * bs
+
+    cap = min(cfg.max_model_len, num_blocks * bs)
+    ctxs = [ctx_bucket(1)]
+    while ctxs[-1] < cap:
+        ctxs.append(ctx_bucket(ctxs[-1] + 1))
+    tbs = [8]
+    while tbs[-1] < pow2(cfg.max_prefill_chunk):
+        tbs.append(tbs[-1] * 2)
+    singles = [(t, c) for c in ctxs for t in tbs if t <= c]
+    sizes = [s for s in (2, 4, 8, 16, 32) if s <= cfg.max_prefill_seqs]
+    groups = [(s, t, c) for t, c in singles for s in sizes]
+    n = sum(num_blocks >= 2 * (c // bs) + 64 for _, c in singles)
+    n += sum(num_blocks >= 2 * s * (c // bs) + 64 for s, _, c in groups)
+    for k, chained, _ in variants:
+        pads = {ctx_bucket(max(1, c - k + 1) + k - 1) for c in ctxs}
+        n += sum((1 + (chained and k > 1)) for p in pads
+                 if num_blocks >= 2 * (p // bs) + 64)
+    grid = {"ctx_buckets": ctxs, "chunk_buckets": tbs,
+            "singles": len(singles), "groups": len(groups),
+            "decode_variants": variants}
+    return grid, n
+
+
+def rank_set_serving_phase(torch, pa, gap_tol: float, smi: str,
+                           tp1_first) -> dict:
+    """Async decode, the serving warm-up sweep and the long-prefill ring
+    on Llama-3.2-3B tp=2 rank sets (28 layers, bf16, seeded random
+    weights, byte tokenizer; both ranks of a set on cuda:0 over gloo, so
+    no time here is a TP or sp speed). (f) A synchronous K=8 engine at
+    max_model_len RSS_SWEEP_MAX_MODEL_LEN runs precompile_serving: its
+    grid and count equal expected_sweep's for its config, every rank's
+    dispatch counts grew by the same sweeps, summing to the count, and
+    the mixed scenario (its long prompt cut to RSS_SWEEP_LONG_TOKENS to
+    fit) gives the streams of an unswept tp=2 engine under the near-tie
+    rule. (e) An async K=8 engine at max_model_len RSS_MAX_MODEL_LEN
+    serves the tp phase's mixed scenario beside a synchronous one:
+    streams held to each other under the near-tie rule, chained rounds
+    > 0 on every rank,
+    every follower's check of the chained tokens passed (the guard never
+    fired: checks a rank equal the chained rounds and the set is alive),
+    28 ragged launches a forward a rank; wall ms a token at batch 8 in
+    turns async, sync, sync, async. (g) A lane engine (threshold
+    LC_THRESHOLD, context_parallel_size LC_SP, chunk LC_CHUNK) and a
+    chunked control at tp=2 serve the long-context phase's lane scenario
+    with an RSS_LC_PROMPT_TOKENS-token prompt: streams held to the
+    control's under the near-tie rule, the long prompt's first-token
+    logits to the tp=1 lane's (`tp1_first`) within TP_LOGIT_REL_TOL of
+    max|logit|, ceil(n / LC_CHUNK) chunks, 0 fallbacks, ceil(n / 32)
+    blocks landed, no ring state left on the follower, 28 ragged
+    launches a forward a rank. Returns each driven run's launches a
+    rank."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.llm_engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+    from production_stack_tpu_torch.engine.scheduler import (
+        decode_precompile_variants,
+    )
+    from production_stack_tpu_torch.parallel.launch import start_tp_ranks
+
+    t_phase = time.perf_counter()
+
+    def tp_engine(cfg):
+        t0 = time.perf_counter()
+        group = start_tp_ranks(cfg, devices=["cuda:0", "cuda:0"],
+                               backend="gloo")
+        return LLMEngine(cfg, tp_group=group), time.perf_counter() - t0
+
+    def stop(eng, what):
+        followers = list(eng.tp_group.followers)
+        eng.shutdown()
+        codes = [p.exitcode for p in followers]
+        if codes != [0] * len(followers):
+            fail(f"{what}: followers exited with {codes}")
+
+    def runs_of(reps, runs0):
+        return [{k: v - r0[k] for k, v in r["dispatch_counts"].items()}
+                for r, r0 in zip(reps, runs0)]
+
+    counts = {}
+    base = dict(model="llama-3.2-3b", tokenizer="byte", device="cuda",
+                block_size=32, num_kv_blocks=TP_KV_BLOCKS, max_num_seqs=8,
+                seed=SEED, num_scheduler_steps=8,
+                max_model_len=RSS_MAX_MODEL_LEN, tensor_parallel_size=2)
+    sp = SamplingParams(max_tokens=32, temperature=0, ignore_eos=True,
+                        logprobs=2)
+    # (f) the sweep, on every rank of its own engine
+    swept, boot = tp_engine(EngineConfig(
+        **{**base, "max_model_len": RSS_SWEEP_MAX_MODEL_LEN}))
+    try:
+        cfg = swept.config
+        sched = swept.scheduler.config
+        variants = decode_precompile_variants(
+            cfg.num_scheduler_steps, sched.adaptive_decode_k,
+            overlap=swept._async_decode or swept._prefetch_decode,
+            async_chained=swept._async_decode,
+            device_stop=swept._device_stop)
+        want_grid, want_n = expected_sweep(cfg, swept.runner.num_blocks,
+                                           variants)
+        runs0 = [dict(r["dispatch_counts"])
+                 for r in swept.runner.reports()]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = swept.precompile_serving()
+        sweep_s = time.perf_counter() - t0
+        runs = runs_of(swept.runner.reports(), runs0)
+        total = sum(runs[0][k] for k in ("prefill", "prefill_batch",
+                                          "decode", "decode_multi"))
+        print(f"rank-set serving phase (f): tp=2 rank set up in "
+              f"{boot:.1f}s; precompile_serving at max_model_len "
+              f"{RSS_SWEEP_MAX_MODEL_LEN}: {n} dispatches in "
+              f"{sweep_s:.2f}s (host clock, every rank eager: no program "
+              f"variant, no graph; compile events "
+              f"{swept.runner.compile_events_total}); grid "
+              f"{swept.precompile_grid}; every rank's dispatches {runs}",
+              flush=True)
+        if swept.precompile_grid != want_grid or n != want_n:
+            fail(f"rank-set serving phase (f): grid "
+                 f"{swept.precompile_grid} and count {n}, not {want_grid} "
+                 f"and {want_n}")
+        if (any(r != runs[0] for r in runs) or total != n
+                or swept.runner.compile_events_total):
+            fail(f"rank-set serving phase (f): the ranks' sweeps {runs} "
+                 f"for {n} dispatches")
+        # turn 1: prompts that share no prefix with (e)'s turn 0, whose
+        # cached blocks would change the sync engine's prefill there
+        short = {"swept": staggered_mix(torch, pa, swept, "rss-swept", 1,
+                                        sp, n_long=RSS_SWEEP_LONG_TOKENS)[0]}
+    finally:
+        stop(swept, "rank-set serving phase (f)")
+        del swept
+        release(torch)
+    sync, boot = tp_engine(EngineConfig(**base))
+    engs = {"sync": sync}
+    try:
+        short["unswept"] = staggered_mix(torch, pa, sync, "rss-swept", 1, sp,
+                                         n_long=RSS_SWEEP_LONG_TOKENS)[0]
+        n_same = near_tie_check("rank-set serving phase (f) swept vs "
+                                "unswept", short["unswept"], short["swept"],
+                                gap_tol)
+        print(f"rank-set serving phase (f): the mixed scenario with a "
+              f"{RSS_SWEEP_LONG_TOKENS}-token prompt: {n_same}/5 greedy "
+              f"streams of the swept engine equal to an unswept tp=2 "
+              f"engine's", flush=True)
+        asy, boot = tp_engine(EngineConfig(**base, async_decode=True))
+        engs["async"] = asy
+        print(f"rank-set serving phase (e): async tp=2 rank set up in "
+              f"{boot:.1f}s; async decode {asy._async_decode}, ragged "
+              f"rounds {asy._ragged_dispatch}", flush=True)
+        # (e) the tp phase's mixed scenario on both
+        outs, walls = {}, {}
+        for tag in ("sync", "async"):
+            e = engs[tag]
+            e.runner.reset_counts()
+            runs0 = [dict(r["dispatch_counts"]) for r in e.runner.reports()]
+            outs[tag], _, _, _, walls[tag] = staggered_mix(
+                torch, pa, e, f"rss-{tag}", 0, sp)
+            reps = e.runner.reports()
+            got = tp_rank_check(f"rank-set serving phase (e) {tag}", reps,
+                                LAYERS_3B, runs0)
+            if tag == "async":
+                # a fresh engine: its lifetime counts are the scenario's
+                counts["async tp2"] = got
+                chained = [r["chained_rounds"] for r in reps]
+                checks = [r["chain_checks"] for r in reps]
+        n_same = near_tie_check("rank-set serving phase (e) async vs "
+                                "sync", outs["sync"], outs["async"],
+                                gap_tol)
+        print(f"rank-set serving phase (e): {n_same}/5 greedy streams of "
+              f"the async tp=2 engine equal to the sync engine's; "
+              f"chained rounds a rank {chained}, token checks a rank "
+              f"(rank 0 sent, the follower passed) {checks}; the "
+              f"scenario's wall {walls['async']:.2f}s async, "
+              f"{walls['sync']:.2f}s sync; launches a rank "
+              f"{counts['async tp2']}", flush=True)
+        if (min(chained) < 1 or len(set(chained)) != 1
+                or checks != [checks[0]] * 2 or checks[0] < chained[0]
+                or not asy.tp_alive()):
+            fail(f"rank-set serving phase (e): chained {chained}, checks "
+                 f"{checks}, alive {asy.tp_alive()}")
+        ms = {"async": [], "sync": []}
+        for turn, tag in enumerate(("async", "sync", "sync", "async")):
+            ms[tag].append(decode_batch8(torch, engs[tag], f"rss-{tag}-b8",
+                                         turn))
+        print(f"rank-set serving phase (e): wall ms a generated token at "
+              f"batch 8 (K=8, host clock, turns async, sync, sync, async; "
+              f"gloo through the host with both ranks on one card): async "
+              f"{', '.join(f'{x:.3f}' for x in ms['async'])}; sync "
+              f"{', '.join(f'{x:.3f}' for x in ms['sync'])} ({smi})",
+              flush=True)
+    finally:
+        for tag, e in engs.items():
+            stop(e, f"rank-set serving phase {tag}")
+        del engs, sync
+        release(torch)
+
+    # (g) the ring at tp=2 x sp=2 beside the chunked tp=2 control
+    t_g = time.perf_counter()
+    n_long = RSS_LC_PROMPT_TOKENS
+    lbase = dict(model="llama-3.2-3b", tokenizer="byte", device="cuda",
+                 block_size=32, num_kv_blocks=640, max_num_seqs=8,
+                 seed=SEED, tensor_parallel_size=2)
+    sp = SamplingParams(max_tokens=LC_DECODE_TOKENS, temperature=0,
+                        ignore_eos=True, logprobs=2)
+    res = {}
+    for tag, lane in (("lane", True), ("chunked", False)):
+        over = (dict(long_prefill_threshold=LC_THRESHOLD,
+                     context_parallel_size=LC_SP,
+                     long_prefill_chunk=LC_CHUNK) if lane else {})
+        eng, boot = tp_engine(EngineConfig(**lbase, **over))
+        try:
+            first = None
+            if lane:
+                mgr = eng.long_prefill
+                if (mgr is None or mgr.prefiller.tp_group is None
+                        or any(d.type != "cuda"
+                               for d in mgr.prefiller.devices)):
+                    fail("rank-set serving phase (g): the lane is not live "
+                         "on the tp ranks")
+                first = lane_logits(mgr)
+            eng.runner.reset_counts()
+            runs0 = [dict(r["dispatch_counts"])
+                     for r in eng.runner.reports()]
+            r = lc_scenario(torch, pa, eng, f"rss-{tag}-", sp, n_long)
+            reps = eng.runner.reports()
+            r["ranks"] = tp_rank_check(f"rank-set serving phase (g) {tag}",
+                                       reps, LAYERS_3B, runs0)
+            r["lane_jobs"] = [rep["lane_jobs"] for rep in reps]
+            r["stats"] = eng.stats()
+            r["boot"] = boot
+            if lane:
+                r["first"] = first.get("rss-lane-long")
+                r["collect_s"] = mgr.collect_s_total
+                tl = {t["request_id"]: t
+                      for t in eng.timeline.snapshot(limit=256)}
+                evs = [e for e in tl["rss-lane-long"]["events"]
+                       if e["name"] == "long_prefill"]
+                r["event"] = evs[0]["attributes"] if evs else None
+            res[tag] = r
+        finally:
+            stop(eng, f"rank-set serving phase (g) {tag}")
+            del eng
+            release(torch)
+    lane, ctrl = res["lane"], res["chunked"]
+    counts["lane tp2"] = lane["ranks"]
+    st = lane["stats"]
+    n_chunks = -(-n_long // LC_CHUNK)
+    n_blocks = -(-n_long // 32)
+    counters = (st.long_prefill_requests_total, st.long_prefill_chunks_total,
+                st.long_prefill_fallbacks_total)
+    landed = lane["event"]["blocks_landed"] if lane["event"] else None
+    want_l = tp1_first.float()
+    got_l = lane["first"]
+    rel = (float((got_l - want_l).abs().max()) / float(want_l.abs().max())
+           if got_l is not None else float("inf"))
+    n_same = near_tie_check("rank-set serving phase (g) lane vs chunked at "
+                            "tp=2", ctrl["outs"], lane["outs"], gap_tol)
+
+    def ms(xs):
+        return (f"median {sorted(xs)[len(xs) // 2]:.2f} ms, max "
+                f"{max(xs):.2f} over {len(xs)}" if xs else "none")
+
+    print(f"rank-set serving phase (g): tp=2 x sp=2 lane engine up in "
+          f"{lane['boot']:.1f}s; requests, chunks, fallbacks {counters} "
+          f"(chunks wanted {n_chunks}); blocks landed {landed} (wanted "
+          f"{n_blocks}); ring state left on the ranks {lane['lane_jobs']}; "
+          f"the long prompt's first-token logits max|d|/max|logit| "
+          f"{rel:.3e} from the tp=1 lane's (tol {TP_LOGIT_REL_TOL}); "
+          f"{n_same}/5 greedy streams equal to the chunked tp=2 "
+          f"control's; launches a rank {lane['ranks']}", flush=True)
+    print(f"rank-set serving phase (g): TTFT of the {n_long}-token prompt: "
+          f"ring {lane['ttft']:.3f}s, chunked {ctrl['ttft']:.3f}s (host "
+          f"clock); the collect (rank 1's kv heads of the ring cache "
+          f"through gloo to rank 0) {lane['collect_s']:.3f}s; ring / d2h "
+          f"/ land seconds {st.long_prefill_ring_seconds_total:.3f} / "
+          f"{st.long_prefill_d2h_seconds_total:.3f} / "
+          f"{st.long_prefill_land_seconds_total:.3f}; step-thread host ms "
+          f"a chunk {[round(x, 1) for x in lane['chunk_ms']]}; ITL of the "
+          f"four decoders (step wall): lane engine in a step that "
+          f"dispatched a ring chunk {ms(lane['itl']['chunk'])}, with the "
+          f"collect, d2h or landing in flight "
+          f"{ms(lane['itl']['in flight'])}, without a ring "
+          f"{ms(lane['itl']['none'])}; chunked engine with the prompt's "
+          f"chunks in flight {ms(ctrl['itl']['in flight'])}, without "
+          f"{ms(ctrl['itl']['none'])}; memory peak {lane['peak_gb']:.2f} / "
+          f"{ctrl['peak_gb']:.2f} GB (rank 0's process); the (g) part "
+          f"{time.perf_counter() - t_g:.1f}s; every rank on one card over "
+          f"gloo: not tp or sp speeds; on {smi}", flush=True)
+    if (counters != (1, n_chunks, 0) or landed != n_blocks
+            or lane["lane_jobs"] != [0, 0] or not rel <= TP_LOGIT_REL_TOL
+            or lane["collect_s"] <= 0
+            or ctrl["stats"].long_prefill_requests_total):
+        fail(f"rank-set serving phase (g): counters {counters}, landed "
+             f"{landed}, ring state {lane['lane_jobs']}, logits {rel:.3e}, "
+             f"collect {lane['collect_s']}")
+    print(f"rank-set serving phase: {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -5834,10 +6206,11 @@ def main() -> int:
     phi3_serve_phase(torch, pa, smi)
     moe_counts = moe_phase(torch, pa, gap_tol, smi)
     tp_counts, mh_ref = tp_phase(torch, pa, gap_tol, smi)
-    lc_counts = long_context_phase(torch, pa, gap_tol, smi)
+    lc_counts, lc_first = long_context_phase(torch, pa, gap_tol, smi)
     pp_phase(torch, pa, gap_tol, smi)
     mh_counts = multihost_phase(torch, gap_tol, smi, mh_ref)
     rs_counts = rank_set_phase(torch, pa, gap_tol, smi)
+    rss_counts = rank_set_serving_phase(torch, pa, gap_tol, smi, lc_first)
     launches = {
         "ragged": serve_counts["ragged"],
         "prefill": serve_counts["prefill"],
@@ -5853,6 +6226,7 @@ def main() -> int:
           f"Mixtral-8x7B x{MIXTRAL_LAYERS} {moe_counts}, tp=2 ranks "
           f"{tp_counts}, long-context lane engine {lc_counts}, multi-host "
           f"rank 0 {mh_counts}, rank-set features {rs_counts}, "
+          f"rank-set async decode and ring {rss_counts}, "
           f"pipeline-parallel ranks none (the gather path); "
           f"a served "
           f"mixed round launches the ragged kernel {LAYERS_3B} times a "

@@ -49,14 +49,13 @@ tokens each), with the other requests' decode rounds run between the
 chunks (not at their normal cadence: on one card a chunk's step lasts
 about its device time, and the lane is slower than chunked prefill, as
 the engine warns at boot); the threshold without N > 1 stops with
-EngineConfig's ValueError. Every flag of the JAX CLI parses; one whose
-feature a rank set does not carry yet (LoRA and MoE models at pp 1, KV
-tiers, PD roles, ``--async-decode``, ``--precompile-serving``, cp above
-1) makes the engine refuse to start (NotImplementedError from
-EngineConfig, naming it); under pp, LoRA, MoE models and
+EngineConfig's ValueError. Every flag of the JAX CLI parses, and a
+one-host rank set serves each; under pp, LoRA, MoE models and
 ``--attention-impl pallas`` stop with the JAX package's ValueErrors,
 and under ``--multihost`` LoRA, the KV tiers and PD roles with its
-``validate_multihost_config``.
+``validate_multihost_config``. As in JAX, the long-prefill lane is off
+under pp and ``--multihost`` (those prompts serve chunked), and so is
+``--async-decode`` under ``--multihost``.
 """
 
 from __future__ import annotations

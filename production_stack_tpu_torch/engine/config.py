@@ -17,9 +17,9 @@ serving program (``precompile_serving``) and the double-buffered decode
 rank 0 spawned beside the engine, parallel/launch.py), the multi-host
 job (``multihost``: parallel/multihost.py) and the long-prefill lane
 (``long_prefill_threshold`` over a ring of ``context_parallel_size``
-ranks, engine/long_prefill.py). ``__post_init__`` raises
-NotImplementedError for each feature a rank set does not carry yet (see
-``rank_set_unported``), so no request ever reaches a missing path.
+ranks, engine/long_prefill.py). A rank set serves every one of them
+on one host; under pipeline parallelism and across hosts it refuses
+(or turns off) what the JAX package's meshed and multi-host engines do.
 """
 
 from __future__ import annotations
@@ -206,30 +206,6 @@ class EngineConfig:
     # before falling back to recompute-from-scratch
     kv_restore_wait_s: float = 2.0
 
-    def rank_set_unported(self) -> list[str]:
-        """Names of the requested features an engine over a rank set
-        (tensor_parallel_size x pipeline_parallel_size > 1) cannot serve
-        yet (none on one rank): the two serving programs built on CUDA
-        graphs and chained device tokens, and the ring under tensor
-        parallelism. LoRA, the KV tiers, the remote cache, PD roles and
-        MoE (expert parallel) are served on a one-host rank set; under
-        pipeline parallelism LoRA and MoE models are refused at engine
-        boot by the JAX package's own messages
-        (pp_serving.validate_pp_serving), and a multi-host job refuses
-        what the JAX multi-host engine refuses
-        (multihost_engine.validate_multihost_config)."""
-        if self.tensor_parallel_size * self.pipeline_parallel_size <= 1:
-            return []
-        checks = {
-            "async_decode": self.async_decode,
-            "precompile_serving": self.precompile_serving,
-            # the JAX engine rings under TP on one ("tp", "sp") mesh (and
-            # turns the lane off under pp); the port's ranks are
-            # processes, so the ring there needs its own broadcast
-            "context_parallel_size>1": self.context_parallel_size > 1,
-        }
-        return [name for name, on in checks.items() if on]
-
     def __post_init__(self) -> None:
         if self.long_prefill_threshold is not None:
             if self.long_prefill_threshold <= 0:
@@ -285,13 +261,6 @@ class EngineConfig:
             raise ValueError("tensor_parallel_size must be >= 1")
         if self.pipeline_parallel_size < 1:
             raise ValueError("pipeline_parallel_size must be >= 1")
-        missing = self.rank_set_unported()
-        if missing:
-            raise NotImplementedError(
-                "not ported to the PyTorch engine over a rank set "
-                "(tensor_parallel_size x pipeline_parallel_size > 1) yet: "
-                + ", ".join(missing)
-            )
 
     def pd_role(self) -> str | None:
         """Resolved PD role for discovery: the explicit kv_role, else

@@ -72,18 +72,22 @@ engine/multihost_engine.BroadcastingRunner, which publishes every
 forward to the followers. The JAX meshed engine's rules hold: no
 unified ragged rounds, no staged decode or ragged rounds, no staged
 prefill (each stage is a device buffer the followers never see);
-split rounds, the fused K-step decode, packed prefill, spec decode,
-embeddings, guided lanes and prompt logprobs are served, and on one
-host so are LoRA, the KV tiers, the remote cache and PD roles (their
-exports, imports and adapter loads are broadcast steps, issued from the
-step thread or under AsyncLLMEngine's lock; a rank-set failure in one
-raises RankSetError, never a counted fallback). ``shutdown``
-stops and joins the followers. Under ``multihost`` (a job of
+split rounds, the fused K-step decode, async decode (a chained round
+is published with a marker, each rank chaining on its own tokens),
+packed prefill, spec decode, embeddings, guided lanes, prompt logprobs
+and the warm-up sweep are served, and on one host so are LoRA, the KV
+tiers, the remote cache, PD roles and, at pp=1, the long-prefill lane
+(its ring chunks, collect and landing are broadcast steps; exports,
+imports and adapter loads too, issued from the step thread or under
+AsyncLLMEngine's lock; a rank-set failure in one raises RankSetError,
+never a counted fallback). Under pipeline parallelism the lane is off
+and long prompts serve chunked, as in JAX. ``shutdown`` stops and joins
+the followers. Under ``multihost`` (a job of
 parallel/multihost.initialize) this engine is process 0's: the rank
 set spans the job's processes, ``validate_multihost_config`` refuses
 what is not broadcast, and the JAX multi-host engine's rules turn off
-device stops, the decode prefetch, the prefill pipeline, ragged rounds
-and async decode.
+device stops, the decode prefetch, the prefill pipeline, ragged rounds,
+async decode and the long-prefill lane.
 """
 
 from __future__ import annotations
@@ -318,14 +322,27 @@ class LLMEngine:
         """The long-prefill lane (engine/long_prefill.py): prompts past
         long_prefill_threshold ring over context_parallel_size ranks,
         with decode / ragged rounds run between the chunks, and their KV
-        lands through the KV import primitives. A ring that cannot be
-        built degrades loudly to chunked-only serving; a ring whose ranks
-        share the serving card boots with a warning that it is slower
-        than chunked prefill there."""
+        lands through the KV import primitives. In a tp rank set each tp
+        rank rings its own kv heads (engine/long_prefill.py). Under
+        pipeline parallelism and multihost the lane is off, as in JAX.
+        A ring that cannot be built degrades loudly to chunked-only
+        serving; a ring whose ranks share the serving card boots with a
+        warning that it is slower than chunked prefill there."""
         config = self.config
         self.long_prefill = None
         if (config.long_prefill_threshold is None
                 or config.context_parallel_size <= 1):
+            return
+        if config.multihost or config.pipeline_parallel_size > 1:
+            # the JAX engine's condition: the lane is off under pp and
+            # across hosts, and those prompts serve chunked
+            logger.info(
+                "long-prefill lane off (%s): prompts past %d tokens "
+                "serve via chunked prefill",
+                "multihost" if config.multihost
+                else f"pipeline_parallel_size={config.pipeline_parallel_size}",
+                config.long_prefill_threshold,
+            )
             return
         from production_stack_tpu_torch.engine.long_prefill import (
             LongPrefillManager,

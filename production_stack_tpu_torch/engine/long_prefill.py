@@ -32,10 +32,23 @@ Division of labor:
   the import primitives take (pinned, so their upload needs no second
   copy), and park them for the step thread.
 
+In a tensor-parallel rank set (rank 0's runner is a
+multihost_engine.BroadcastingRunner) every ring chunk is a published
+step (``lane_chunk``): each tp rank rings its own kv heads over its
+shard of the params, and the chunk's all-reduces tie the ranks
+together. After the last chunk one collect step (``lane_collect``)
+brings every rank's heads of the ring cache to rank 0, which then
+materializes and lands the whole cache as on one card; the landing's
+imports are the rank set's ``kv_import`` steps. A job dropped before
+its collect (cancel, a failure before a chunk was published) releases
+the followers' ring state (``lane_release``).
+
 Failure degrades, never wedges: a failed ring parks the record as
 'failed' and the engine flips the sequence back to the chunked-prefill
 lane (its block table is already allocated), counted in
-``fallbacks_total``.
+``fallbacks_total``. That is for a failure of the lane on rank 0 alone:
+a rank-set failure (RankSetError, or any error of a published step,
+after which the set is broken) propagates.
 
 Per-phase attribution (``phase_s``; the ``long_prefill`` timeline event
 and the tpu:prefill_* families): ``ring`` = job start -> ring drained
@@ -53,6 +66,10 @@ from collections import deque
 
 import torch
 
+from production_stack_tpu_torch.engine.multihost_engine import (
+    BroadcastingRunner,
+    RankSetError,
+)
 from production_stack_tpu_torch.utils import init_logger
 
 logger = init_logger(__name__)
@@ -73,6 +90,9 @@ class LongPrefillManager:
         # engine degrades to chunked prefill then
         self.runner = runner
         self.prefiller = runner.build_long_prefiller()
+        # rank 0 of a tp rank set: chunks, collect and release are
+        # published steps
+        self._rank_set = isinstance(runner, BroadcastingRunner)
         self.block_size = runner.block_size
         # chunk length: ring-size AND block-size aligned so the padded
         # sequence always covers whole paged blocks
@@ -95,6 +115,9 @@ class LongPrefillManager:
         self.phase_s = {
             "ring": 0.0, "d2h": 0.0, "land": 0.0, "overflow": 0.0,
         }
+        # rank set: seconds rank 0 spent assembling the ring caches (part
+        # of the ring phase)
+        self.collect_s_total = 0.0
 
     @property
     def active(self) -> bool:
@@ -148,6 +171,8 @@ class LongPrefillManager:
             "ring_s": 0.0,
             "d2h_s": 0.0,
             "land_s": 0.0,
+            # rank set: the followers hold a ring cache for it
+            "followers_hold": False,
         }
         try:
             rec["kc"], rec["vc"] = pre.begin_cache(s_pad)
@@ -163,6 +188,7 @@ class LongPrefillManager:
             # preempt-then-readmit inside one schedule(): the stale
             # job's table is gone — only the fresh record may land
             old["cancelled"] = True
+            self._release(old)
         self._jobs[seq.request_id] = rec
         self.requests_total += 1
         return True
@@ -188,24 +214,29 @@ class LongPrefillManager:
             if state == "ringing":
                 try:
                     self._dispatch_next_chunk(rec)
-                except Exception:  # noqa: BLE001 — a chunk dispatch
+                except Exception as e:  # noqa: BLE001 — a chunk dispatch
                     # failure (e.g. an OOM of the score tensors) must
                     # fail ONE request back to the chunked path, never
-                    # the step loop
+                    # the step loop; a rank-set failure is not one
+                    if self._rank_set_failure(e):
+                        raise
                     logger.exception(
                         "long prefill chunk dispatch failed for %s",
                         rec["rid"],
                     )
                     rec["state"] = state = "failed"
+                    self._release(rec)
                 else:
                     progressed = True
             elif state == "landing":
                 try:
                     if self._land_one_batch(rec):
                         progressed = True
-                except Exception:  # noqa: BLE001 — same contract: a
+                except Exception as e:  # noqa: BLE001 — same contract: a
                     # failed import recomputes via chunked prefill
                     # (partial landings are overwritten there)
+                    if self._rank_set_failure(e):
+                        raise
                     logger.exception(
                         "long prefill landing failed for %s", rec["rid"],
                     )
@@ -242,6 +273,21 @@ class LongPrefillManager:
         rec = self._jobs.pop(request_id, None)
         if rec is not None:
             rec["cancelled"] = True
+            self._release(rec)
+
+    def _rank_set_failure(self, e: Exception) -> bool:
+        """True when `e` broke the rank set (a follower failed, or a
+        published step failed on rank 0 and left the set out of step):
+        never a lane fallback."""
+        return self._rank_set and (isinstance(e, RankSetError)
+                                   or self.runner.broken)
+
+    def _release(self, rec: dict) -> None:
+        """The followers drop the ring state of a job that ends before
+        its collect."""
+        if rec["followers_hold"]:
+            rec["followers_hold"] = False
+            self.runner.lane_release(rec["rid"])
 
     def close(self) -> None:
         self._closed = True
@@ -266,9 +312,17 @@ class LongPrefillManager:
         # chunk (earlier chunks pass a clamped dummy row; their logits
         # are computed but never fetched)
         last_local = min(max(rec["n"] - 1 - start, 0), C - 1)
-        logits, kc, vc = pre.prefill_chunk(
-            rec["kc"], rec["vc"], toks, start, last_local,
-        )
+        if self._rank_set:
+            rec["followers_hold"] = True
+            logits, kc, vc = self.runner.lane_chunk(
+                rec["rid"], rec["ids"][start: start + C], start, C,
+                rec["s_pad"], last_local,
+                run=lambda: pre.prefill_chunk(
+                    rec["kc"], rec["vc"], toks, start, last_local))
+        else:
+            logits, kc, vc = pre.prefill_chunk(
+                rec["kc"], rec["vc"], toks, start, last_local,
+            )
         rec["kc"], rec["vc"] = kc, vc
         rec["next_start"] = start + C
         self.chunks_total += 1
@@ -280,19 +334,28 @@ class LongPrefillManager:
             )
             rec["staged_start"] = nxt
         else:
+            if self._rank_set:
+                # every rank's kv heads of the ring cache, on rank 0
+                t0 = time.monotonic()
+                rec["followers_hold"] = False
+                rec["kc"], rec["vc"] = self.runner.lane_collect(
+                    rec["rid"], kc, vc)
+                self.collect_s_total += time.monotonic() - t0
             rec["logits_dev"] = logits
-            rec["ring_events"] = self._record_ring_events()
+            rec["ring_events"] = self._record_ring_events(
+                [logits, *rec["kc"].shards, *rec["vc"].shards])
             rec["t_ring0"] = rec["t0"]
             rec["state"] = "materializing"
             self._submit(rec)
 
-    def _record_ring_events(self) -> list:
-        """One CUDA event a ring device, recorded on its current stream
-        (the step thread's) after the last chunk: the worker waits on
-        these, never on the whole device. None on the CPU, where the
+    def _record_ring_events(self, tensors: list[torch.Tensor]) -> list:
+        """One CUDA event a device of `tensors` (the results the worker
+        fetches: every ring card holds a shard), recorded on its current
+        stream (the step thread's) after the last chunk: the worker waits
+        on these, never on the whole device. None on the CPU, where the
         chunk's work is done when its dispatch returns."""
         events = []
-        for dev in dict.fromkeys(self.prefiller.devices):
+        for dev in dict.fromkeys(t.device for t in tensors):
             if dev.type != "cuda":
                 continue
             ev = torch.cuda.Event()

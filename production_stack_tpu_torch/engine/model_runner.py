@@ -428,8 +428,11 @@ class ModelRunner:
                     paged_attention.ragged_paged_attention_tp, **tp_kw),
             }
         # pipelined prefill: one packed buffer a prefill dispatch (packed
-        # groups on the ragged-rows layout under the ragged kernel)
-        self.prefill_pipeline = bool(config.prefill_pipeline)
+        # groups on the ragged-rows layout under the ragged kernel); a
+        # rank-set runner keeps the per-array path, as the JAX meshed
+        # runner does (precompile_serving's grid keys on this flag)
+        self.prefill_pipeline = (bool(config.prefill_pipeline)
+                                 and group is None)
         # staged copies: a side stream (made at the first stage), and the
         # pinned sources of copies that may still be in flight, held
         # until their event fires even when the handle is dropped
@@ -475,6 +478,8 @@ class ModelRunner:
                                 "decode": 0, "decode_multi": 0,
                                 "ragged": 0, "decode_iterations": 0,
                                 "verify_batch": 0, "prefill_lanes": 0}
+        # fused rounds chained on the previous round's device tokens
+        self.chained_rounds = 0
         # the DFA tables of the live constraints on the device, keyed by
         # the engine's cache token; how often they were uploaded, and the
         # fused rounds that ran guided lanes on them
@@ -2178,6 +2183,7 @@ class ModelRunner:
             guided_tables=self._decode_guided_tables(guided))
         ys = core["run"](consts, carry0)
         self.dispatch_counts["decode_multi"] += 1
+        self.chained_rounds += chained
         return ys
 
     # -- ragged-rows prefill -----------------------------------------------------
@@ -3338,18 +3344,25 @@ class ModelRunner:
     def build_long_prefiller(self):
         """The ring prefiller of the long-prefill lane, sp =
         EngineConfig.context_parallel_size ranks. Its pool is the sp
-        cards past the serving one when the host has them (ring compute
-        then does not queue behind decode on the serving card; the
-        params are copied to the ring's first card); otherwise the
-        serving card repeated sp times, and on the CPU the CPU repeated
-        sp times. Repeated, the ring uses the runner's parameter tensors
-        and makes no second copy.
+        cards past the serving ones when the host has sp of them per
+        serving rank (ring compute then does not queue behind decode on
+        a serving card; the params are copied to the ring's first card);
+        otherwise the serving card repeated sp times, and on the CPU the
+        CPU repeated sp times. Repeated, the ring uses the runner's
+        parameter tensors and makes no second copy.
+
+        In a tensor-parallel rank set each rank builds its own ring on
+        its shard of the params: its ring cache holds the rank's kv
+        heads, and the forward reduces over the set's tp group as
+        serving does (the JAX lane's ("tp", "sp") mesh, tp ranks of sp
+        ring ranks each). Rank r of tp takes spare cards [r*sp,
+        (r+1)*sp) past the tp serving cards.
 
         A ring on one card computes what a ring over sp cards computes
         (each rank holds S_pad / sp cache rows and the same hops run in
         the same order), but its ranks share that card: its times are
-        not sp speeds. Raises for a tensor-parallel runner (the ring
-        under tensor parallelism is not ported) and for sp < 2."""
+        not sp speeds. Raises for sp < 2 and under pipeline parallelism
+        (the engine serves those prompts chunked, as JAX does)."""
         from production_stack_tpu_torch.parallel.long_context import (
             LongContextPrefiller,
             make_sp_ring,
@@ -3358,24 +3371,66 @@ class ModelRunner:
         sp = self.config.context_parallel_size
         if sp <= 1:
             raise ValueError("context_parallel_size must be > 1")
-        if self.group is not None:
-            raise ValueError("the long-context ring under tensor "
-                             "parallelism is not ported")
+        if self.pp_size > 1:
+            raise ValueError("the long-context ring does not run under "
+                             "pipeline parallelism")
         dev = self.device
         if dev.type == "cuda":
             serving = (dev.index if dev.index is not None
                        else torch.cuda.current_device())
-            spare = [torch.device("cuda", i)
-                     for i in range(torch.cuda.device_count())
-                     if i != serving]
-            pool = spare if len(spare) >= sp else [
-                torch.device("cuda", serving)] * sp
+            # the serving cards: cuda:0..tp-1 in a rank set (a set whose
+            # ranks share a card has no spare one), this card at tp=1
+            taken = (set(range(self.tp_size)) if self.group is not None
+                     else {serving})
+            spare = [i for i in range(torch.cuda.device_count())
+                     if i not in taken]
+            r = self.group.tp_rank if self.group is not None else 0
+            mine = (spare[r * sp:(r + 1) * sp]
+                    if len(spare) >= self.tp_size * sp else [])
+            pool = ([torch.device("cuda", i) for i in mine]
+                    or [torch.device("cuda", serving)] * sp)
         else:
             pool = [dev] * sp
         return LongContextPrefiller(
-            self.model_config, self.params, make_sp_ring(sp, pool),
-            cache_dtype=self.cache_dtype,
+            self.local_config, self.params, make_sp_ring(sp, pool),
+            cache_dtype=self.cache_dtype, tp_group=self._tp_comm,
         )
+
+    def collect_ring_cache(self, kc, vc) -> tuple | None:
+        """A tp rank set's ring cache on rank 0: every rank's kv heads of
+        the full-sequence K/V (SeqShardedCache, (L, nkv/tp, R, d) a
+        shard), each follower's broadcast to the set in rank order as
+        stage_export_blocks assembles the wire (the bytes travel). Rank
+        0 gets (kc, vc) of all the model's kv heads, its shards on this
+        runner's device; a follower gets None."""
+        from production_stack_tpu_torch.parallel.long_context import (
+            SeqShardedCache,
+        )
+
+        g = self.group
+        sp = len(kc.shards)
+        with self.on_compute_stream():
+            # (2 * sp, L, nkv / tp, R, d): the k shards, then the v
+            local = torch.stack([t.to(self.device)
+                                 for t in (*kc.shards, *vc.shards)])
+            nkv = local.shape[2]
+            full = None
+            if g.rank == 0:
+                full = local.new_empty((2 * sp, local.shape[1],
+                                        nkv * g.world_size,
+                                        *local.shape[3:]))
+            for r in range(g.world_size):
+                part = local
+                if r > 0:
+                    if r != g.rank:
+                        part = torch.empty_like(local)
+                    g.broadcast(part, r)
+                if full is not None:
+                    full[:, :, r * nkv:(r + 1) * nkv].copy_(part)
+        if full is None:
+            return None
+        return (SeqShardedCache(list(full[:sp])),
+                SeqShardedCache(list(full[sp:])))
 
 
 def _to_device(tree: dict, device: torch.device) -> dict:

@@ -16,10 +16,24 @@ make, spec-decode seeds), so each rank samples the same tokens from the
 same gathered logits.
 
 Broadcast: ``prefill``, ``prefill_batch``, ``decode``, ``decode_multi``,
-``verify_batch`` and ``embed``. Guided lanes' DFA tables ride a
-``decode_multi`` only when the set of live constraints changes (the
-followers keep the last ones). Besides the forwards, four step kinds
-move bytes between the ranks or change what they hold:
+``verify_batch`` and ``embed``, and the warm-up sweeps
+``precompile_prefill``, ``precompile_decode``, ``precompile_verify`` and
+``precompile_kv_import`` (every rank runs the same trash dispatches; a
+rank-set runner is eager, so they warm the eager programs and capture
+nothing). Guided lanes' DFA tables ride a ``decode_multi`` only when the
+set of live constraints changes (the followers keep the last ones).
+
+Chained decode (async decode): a ``decode_multi`` whose tokens are the
+previous round's device tokens is published with the marker
+``"chained"`` in their place; every follower chains on the last row of
+its own previous ``decode_multi``, which holds the same tokens because
+every rank samples them from the same gathered logits. The guard: the
+first step rank 0 publishes after it resolved the round a chain consumed
+carries that round's host tokens, and a follower whose own copy differs
+raises RankSetError (through its exit key, as any follower failure).
+
+Besides the forwards, these step kinds move bytes between the ranks or
+change what they hold:
 
 - ``kv_export`` (``stage_export_blocks``): every rank gathers its
   (layers, kv heads) slice of the blocks and each follower in turn
@@ -32,17 +46,24 @@ move bytes between the ranks or change what they hold:
 - ``lora_load`` / ``lora_unload``: rank 0 loads first (a load it
   refuses is never published), then the followers read the same path
   into the slot rank 0 assigned and cut their slice; the set agrees
-  (one all-reduce) before the load returns.
+  (one all-reduce) before the load returns;
+- ``lp_chunk`` / ``lp_collect`` / ``lp_release``: the long-prefill
+  lane's ring chunks (engine/long_prefill.py). Each tp rank rings its
+  own kv heads over its shard of the params (the chunk's token ids,
+  start, padded length and request ride the step); after the last chunk
+  each follower broadcasts its heads of the ring cache and rank 0
+  assembles the full-sequence cache, which then lands through
+  ``kv_import`` as on one card. A follower holds a request's ring cache
+  until the collect, or an ``lp_release`` for a job dropped before it.
 
 Every collective is published and issued in step order: from the engine
 step thread, or under AsyncLLMEngine's lock (a PD pull's snapshot, an
 adapter load). Every other runner method that would run a forward or
 touch the device state the followers hold (the unified ragged round,
-the staged dispatch buffers, the precompile sweeps) raises in a rank set
-instead of passing through, so a missed path fails loudly rather than
-leaving the ranks waiting on each other. The engine keeps those paths
-off (engine/llm_engine.py) and EngineConfig refuses the features that
-need them.
+the staged dispatch buffers, the ragged rounds' sweep) raises in a rank
+set instead of passing through, so a missed path fails loudly rather
+than leaving the ranks waiting on each other. The engine keeps those
+paths off (engine/llm_engine.py).
 
 A follower that raises publishes its traceback and launch counts under
 its own exit key and exits; rank 0's next collective then fails (the
@@ -82,17 +103,22 @@ logger = init_logger(__name__)
 
 # runner methods that run a forward: published, then run on rank 0
 BROADCAST = ("prefill", "prefill_batch", "decode", "decode_multi",
-             "verify_batch", "embed")
-# step kinds that move bytes between the ranks or change their adapters
-# (BroadcastingRunner publishes them; follower_loop replays them)
-RANK_STEPS = ("kv_export", "kv_import", "lora_load", "lora_unload")
+             "verify_batch", "embed", "precompile_prefill",
+             "precompile_decode", "precompile_verify",
+             "precompile_kv_import")
+# step kinds that move bytes between the ranks, change their adapters
+# or run the long-prefill lane's ring (BroadcastingRunner publishes
+# them; follower_loop replays them)
+RANK_STEPS = ("kv_export", "kv_import", "lora_load", "lora_unload",
+              "lp_chunk", "lp_collect", "lp_release")
 # runner methods whose device work the followers would never see
 UNBROADCAST = frozenset({
     "ragged_dispatch", "stage_prefill", "stage_prefill_batch",
-    "stage_decode_multi", "stage_ragged", "precompile_prefill",
-    "precompile_decode", "precompile_verify", "precompile_ragged",
-    "precompile_kv_import",
+    "stage_decode_multi", "stage_ragged", "precompile_ragged",
 })
+# the decode_multi token argument of a round chained on the previous
+# round's device tokens (each rank holds its own copy of them)
+CHAINED = "chained"
 
 
 class RankSetError(RuntimeError):
@@ -148,14 +174,18 @@ def tensor_digest(t: torch.Tensor) -> str:
 
 def rank_report(runner, group, steps: int | None = None,
                 kv_blocks: list[int] | None = None,
-                adapter_digests: bool = False) -> dict:
+                adapter_digests: bool = False,
+                chain: "ChainState | None" = None,
+                lane_jobs: int = 0) -> dict:
     """What a rank ran: its kernel launches and dispatches, its device,
     the devices its params and KV cache lie on, its place (stage, tp
     index, layers held), its collectives (host_collectives: those handed
-    a host tensor on a card rank) and the step descriptors it read from
-    the store (`steps`; rank 0: published). With `kv_blocks`, the digest
-    of the rank's own wire slice of those blocks (`kv_digest`); with
-    `adapter_digests`, the digest of each of its adapter buffers."""
+    a host tensor on a card rank), the step descriptors it read from
+    the store (`steps`; rank 0: published), the rounds it chained on
+    device tokens and their token checks it made (a follower) or sent
+    (rank 0), and the ring jobs it holds. With `kv_blocks`, the digest of the rank's own wire slice of
+    those blocks (`kv_digest`); with `adapter_digests`, the digest of
+    each of its adapter buffers."""
     devs = {str(t.device) for t in _leaves(runner.params)}
     devs |= {str(runner.k_cache.device), str(runner.v_cache.device)}
     out = {
@@ -179,6 +209,9 @@ def rank_report(runner, group, steps: int | None = None,
             if runner.model_config.is_moe else None),
         # the keys of the set's store (None where the store cannot count)
         "store_keys": _num_keys(group.store),
+        "chained_rounds": runner.chained_rounds,
+        "chain_checks": chain.checks if chain is not None else 0,
+        "lane_jobs": lane_jobs,
     }
     if kv_blocks is not None:
         out["kv_digest"] = tensor_digest(runner.local_wire(kv_blocks))
@@ -204,6 +237,76 @@ def _leaves(tree: dict):
             yield v
 
 
+class ChainState:
+    """One rank's side of chained decode rounds: the sampled tokens of
+    its last decode_multi (`last`, (K, b) on the device) and how many it
+    ran (`rounds`, the index of the next); on a follower the tokens a
+    chain consumed, by round, until rank 0's check of that round
+    arrives (`kept`); the checks made or sent (`checks`)."""
+
+    def __init__(self):
+        self.last: torch.Tensor | None = None
+        self.rounds = 0
+        self.kept: dict[int, torch.Tensor] = {}
+        self.checks = 0
+
+    def ran(self, ys) -> None:
+        """Note a decode_multi's result (decode_multi's return)."""
+        self.last = ys[0] if isinstance(ys, tuple) else ys
+        self.rounds += 1
+
+    def source(self) -> torch.Tensor:
+        """The tokens a chained round consumes: the last row of this
+        rank's previous decode_multi."""
+        if self.last is None:
+            raise RuntimeError("a chained decode round with no decode "
+                               "round before it")
+        return self.last[-1]
+
+    def check(self, rank: int, n: int, want: list[int]) -> None:
+        """A follower: rank 0's host tokens of round `n` against the ones
+        this rank chained on; parted tokens raise RankSetError."""
+        got = self.kept.pop(n, None)
+        if got is None:
+            raise RankSetError(f"rank {rank}: rank 0 checked decode round "
+                               f"{n}, which this rank never chained on")
+        got = got.cpu().tolist()
+        if got != want:
+            raise RankSetError(
+                f"rank {rank}: the tokens of decode round {n} that a "
+                f"chained round consumed parted from rank 0's: {got} "
+                f"against {want}")
+        self.checks += 1
+
+
+class LaneState:
+    """A follower's long-prefill lane: its ring prefiller (built at the
+    first chunk) and each request's ring cache (kc, vc)."""
+
+    def __init__(self, runner):
+        self._runner = runner
+        self._pre = None
+        self.jobs: dict[str, tuple] = {}
+
+    def chunk(self, rid: str, ids: list[int], start: int, chunk: int,
+              s_pad: int, last_row: int) -> None:
+        if self._pre is None:
+            self._pre = self._runner.build_long_prefiller()
+        pre = self._pre
+        if start == 0:
+            self.jobs[rid] = pre.begin_cache(s_pad)
+        kc, vc = self.jobs[rid]
+        pre.prefill_chunk(kc, vc, pre.stage_tokens(ids, chunk), start,
+                          last_row)
+
+    def collect(self, rid: str) -> None:
+        kc, vc = self.jobs.pop(rid)
+        self._runner.collect_ring_cache(kc, vc)
+
+    def release(self, rid: str) -> None:
+        self.jobs.pop(rid, None)
+
+
 class BroadcastingRunner:
     """Rank 0's ModelRunner proxy: publish each forward, then run it.
 
@@ -218,6 +321,10 @@ class BroadcastingRunner:
         self._guided_sent = None
         self._reports = 0
         self._failed: str | None = None
+        self._chain = ChainState()
+        # (round, its device tokens a chain consumed): checked by the
+        # followers at the next step published after the one that chained
+        self._chain_pending: tuple[int, torch.Tensor] | None = None
 
     def __getattr__(self, name):
         if name in UNBROADCAST:
@@ -265,6 +372,26 @@ class BroadcastingRunner:
                 return f"rank {r} exited with code {proc.exitcode}"
         return None
 
+    @property
+    def broken(self) -> bool:
+        """True once a dispatch failed: every later one raises."""
+        return self._failed is not None
+
+    def _publish(self, msg: dict) -> None:
+        """Publish one step, carrying the pending chained round's host
+        tokens: that round was resolved (fetched) by the engine before
+        this step, so the fetch waits for nothing new."""
+        if self._chain_pending is not None:
+            n, toks = self._chain_pending
+            self._chain_pending = None
+            msg["chain_check"] = (n, self._host_tokens(toks))
+            self._chain.checks += 1
+        self._bc.publish(msg)
+
+    @staticmethod
+    def _host_tokens(toks: torch.Tensor) -> list[int]:
+        return toks.cpu().tolist()
+
     def alive(self) -> bool:
         """True while no dispatch failed, every follower of this host
         runs and no follower (of any host) published its exit."""
@@ -283,9 +410,9 @@ class BroadcastingRunner:
         n = self._reports
         self._reports += 1
         opts = {"kv_blocks": kv_blocks, "adapter_digests": adapter_digests}
-        self._bc.publish({"kind": "report", "n": n, **opts})
+        self._publish({"kind": "report", "n": n, **opts})
         out = [rank_report(self._runner, self._group, self._bc.count,
-                           **opts)]
+                           **opts, chain=self._chain)]
         for r in range(1, self._group.world_size):
             self._group.store.wait([report_key(r, n)])
             out.append(pickle.loads(self._group.store.get(report_key(r, n))))
@@ -294,7 +421,7 @@ class BroadcastingRunner:
 
     def reset_counts(self) -> None:
         """Zero the kernel launch counts on every rank."""
-        self._bc.publish({"kind": "reset_counts"})
+        self._publish({"kind": "reset_counts"})
         paged_attention.reset_launch_counts()
 
     def shutdown_followers(self) -> None:
@@ -303,7 +430,7 @@ class BroadcastingRunner:
         followers = self._group.followers
         if self._group.world_size > 1 + len(followers) or any(
                 p.is_alive() for p in followers):
-            self._bc.publish({"kind": "shutdown"})
+            self._publish({"kind": "shutdown"})
         for p in followers:
             p.join(EXIT_TIMEOUT_S)
             if p.is_alive():
@@ -323,8 +450,8 @@ class BroadcastingRunner:
         if any(isinstance(a, torch.Tensor) for a in args) or any(
                 isinstance(v, torch.Tensor) for v in kwargs.values()):
             raise RuntimeError(
-                f"{kind}: a device tensor cannot be broadcast (chained "
-                "rounds are off under tensor_parallel_size>1)")
+                f"{kind}: a device tensor cannot be broadcast (a chained "
+                "round publishes its tokens as the marker 'chained')")
         if kwargs.get("staged") is not None:
             raise RuntimeError(f"{kind}: staged buffers are off under "
                                "tensor_parallel_size>1")
@@ -335,7 +462,7 @@ class BroadcastingRunner:
             if self._guided_sent == guided[0]:
                 wire = {**kwargs, "guided": (*guided[:3], None, None, None)}
             self._guided_sent = guided[0]
-        self._bc.publish({"kind": kind, "args": args, "kwargs": wire})
+        self._publish({"kind": kind, "args": args, "kwargs": wire})
         try:
             if run is not None:
                 return run()
@@ -419,8 +546,63 @@ class BroadcastingRunner:
     def decode(self, *args, **kwargs):
         return self._dispatch("decode", args, kwargs)
 
-    def decode_multi(self, *args, **kwargs):
-        return self._dispatch("decode_multi", args, kwargs)
+    def decode_multi(self, token_ids, *args, **kwargs):
+        """A round with host tokens, or one chained on the previous
+        round's device tokens (async decode), published as CHAINED: each
+        follower chains on its own copy. The round it consumed is checked
+        against the followers' copies at the next step published."""
+        chained = isinstance(token_ids, torch.Tensor)
+        if chained:
+            src = self._chain.source()
+            if (token_ids.data_ptr() != src.data_ptr()
+                    or token_ids.shape != src.shape):
+                raise RuntimeError(
+                    "decode_multi: a chained round in a rank set must "
+                    "consume the last row of the previous decode_multi's "
+                    "tokens (each rank chains on its own copy)")
+        ys = self._dispatch(
+            "decode_multi", (CHAINED if chained else token_ids, *args),
+            kwargs, run=lambda: self._runner.decode_multi(
+                token_ids, *args, **kwargs))
+        if chained:
+            self._chain_pending = (self._chain.rounds - 1, token_ids)
+        self._chain.ran(ys)
+        return ys
+
+    def precompile_prefill(self, *args, **kwargs):
+        return self._dispatch("precompile_prefill", args, kwargs)
+
+    def precompile_decode(self, *args, **kwargs):
+        return self._dispatch("precompile_decode", args, kwargs)
+
+    def precompile_verify(self, *args, **kwargs):
+        return self._dispatch("precompile_verify", args, kwargs)
+
+    def precompile_kv_import(self, *args, **kwargs):
+        return self._dispatch("precompile_kv_import", args, kwargs)
+
+    # -- the long-prefill lane ---------------------------------------------
+    def lane_chunk(self, rid: str, ids: list[int], start: int, chunk: int,
+                   s_pad: int, last_row: int, run):
+        """One ring chunk of request `rid` (its token ids, global offset,
+        padded chunk and sequence lengths, and the chunk's last real row):
+        published, then `run()` here (rank 0's own ring)."""
+        return self._dispatch(
+            "lp_chunk", (rid, [int(t) for t in ids], int(start), int(chunk),
+                         int(s_pad), int(last_row)), {}, run=run)
+
+    def lane_collect(self, rid: str, kc, vc) -> tuple:
+        """After the last chunk: every tp rank's kv heads of the ring
+        cache, assembled on rank 0 (ModelRunner.collect_ring_cache); the
+        followers drop their ring state."""
+        return self._dispatch(
+            "lp_collect", (rid,), {},
+            run=lambda: self._runner.collect_ring_cache(kc, vc))
+
+    def lane_release(self, rid: str) -> None:
+        """The followers drop `rid`'s ring state (a job that ended before
+        its collect)."""
+        self._dispatch("lp_release", (rid,), {}, run=lambda: None)
 
     def verify_batch(self, *args, **kwargs):
         return self._dispatch("verify_batch", args, kwargs)
@@ -450,6 +632,8 @@ def follower_loop(runner, group) -> int:
                 and store_reachable(group.store))
 
     guided_tables = None
+    chain = ChainState()
+    lane = LaneState(runner)
     logger.info("rank %d/%d (stage %d, tp index %d): replaying rank 0's "
                 "steps", group.rank, group.world_size, group.stage,
                 group.tp_rank)
@@ -457,6 +641,8 @@ def follower_loop(runner, group) -> int:
         while True:
             msg = bc.next(alive=alive)
             kind = msg["kind"]
+            if "chain_check" in msg:
+                chain.check(group.rank, *msg["chain_check"])
             if kind == "shutdown":
                 logger.info("rank %d: shutdown received", group.rank)
                 return bc.count
@@ -465,13 +651,16 @@ def follower_loop(runner, group) -> int:
                                 pickle.dumps(rank_report(
                                     runner, group, bc.count,
                                     msg.get("kv_blocks"),
-                                    msg.get("adapter_digests", False))))
+                                    msg.get("adapter_digests", False),
+                                    chain=chain,
+                                    lane_jobs=len(lane.jobs))))
                 continue
             if kind == "reset_counts":
                 paged_attention.reset_launch_counts()
                 continue
             if kind in RANK_STEPS:
-                _rank_step(runner, group, kind, msg["args"], msg["kwargs"])
+                _rank_step(runner, group, lane, kind, msg["args"],
+                           msg["kwargs"])
                 continue
             if kind not in BROADCAST:
                 # a future step kind fails loudly, never desyncs
@@ -488,10 +677,19 @@ def follower_loop(runner, group) -> int:
                         "never received")
                 kwargs = {**kwargs,
                           "guided": (*guided[:3], *guided_tables[1])}
-            getattr(runner, kind)(*msg["args"], **kwargs)
+            args = msg["args"]
+            if kind != "decode_multi":
+                getattr(runner, kind)(*args, **kwargs)
+                continue
+            if args[0] == CHAINED:
+                # chained on this rank's own tokens of the previous round
+                chain.kept[chain.rounds - 1] = chain.source()
+                args = (chain.source(), *args[1:])
+            chain.ran(runner.decode_multi(*args, **kwargs))
 
 
-def _rank_step(runner, group, kind: str, args: tuple, kwargs: dict) -> None:
+def _rank_step(runner, group, lane: LaneState, kind: str, args: tuple,
+               kwargs: dict) -> None:
     """A follower's half of a RANK_STEPS step."""
     if kind == "kv_export":
         runner.stage_export_blocks(*args)
@@ -500,6 +698,12 @@ def _rank_step(runner, group, kind: str, args: tuple, kwargs: dict) -> None:
     elif kind == "lora_load":
         runner.load_lora(*args)
         group.agree_min(1)
-    else:  # lora_unload
+    elif kind == "lora_unload":
         runner.unload_lora(*args)
         group.agree_min(1)
+    elif kind == "lp_chunk":
+        lane.chunk(*args)
+    elif kind == "lp_collect":
+        lane.collect(*args)
+    else:  # lp_release
+        lane.release(*args)

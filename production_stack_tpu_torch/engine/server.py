@@ -138,13 +138,23 @@ class EngineServer:
             eng = self.engine.engine
             n = eng.precompile_serving()
             rnr = eng.runner
-            logger.info(
-                "serving precompile: %d dispatches in %.1fs; program "
-                "variants built %s, graph pool %.1f MiB (only "
-                "request-dependent variants can still build lazily)",
-                n, time.perf_counter() - t0, rnr.compile_events,
-                rnr.graph_pool_bytes() / 2**20,
-            )
+            if eng.tp_group is not None:
+                # a rank-set runner is eager: its sweeps build nothing
+                logger.info(
+                    "serving precompile: %d dispatches in %.1fs on each "
+                    "of the %d ranks; the eager programs warmed, no "
+                    "program variant built and no CUDA graph captured (a "
+                    "rank set runs eagerly)",
+                    n, time.perf_counter() - t0, eng.tp_group.world_size,
+                )
+            else:
+                logger.info(
+                    "serving precompile: %d dispatches in %.1fs; program "
+                    "variants built %s, graph pool %.1f MiB (only "
+                    "request-dependent variants can still build lazily)",
+                    n, time.perf_counter() - t0, rnr.compile_events,
+                    rnr.graph_pool_bytes() / 2**20,
+                )
         self.model_name = config.served_model_name or config.model
         self.max_model_len = config.resolved_max_model_len()
         self.metrics = EngineMetrics(self.model_name)

@@ -30,9 +30,14 @@ each rank's attention runs on its own device. Two entry points:
   JAX program ladder). Each chunk attends over all S_pad rows (the
   unwritten tail is causally masked), as in JAX.
 
-Scope: Llama-family decoders (dense and MoE), batch 1, no LoRA, no
-tensor parallelism (the ring under TP is not ported). Sliding-window
-models ride the ring's window mask.
+Under tensor parallelism (``tp_group``) each tp rank holds a ring of
+its own over its shard of the params: its cache shards hold the rank's
+kv heads, and the forward's all-reduces and vocab gather run over the
+tp group, as the serving forward's do (JAX: one ("tp", "sp") mesh, heads
+on "tp"). The tp ranks run their rings in step.
+
+Scope: Llama-family decoders (dense and MoE), batch 1, no LoRA.
+Sliding-window models ride the ring's window mask.
 """
 
 from __future__ import annotations
@@ -143,12 +148,13 @@ class StagedTokens:
 
 def _forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
              kc: SeqShardedCache, vc: SeqShardedCache, start: int,
-             last_row: int
+             last_row: int, tp_group=None
              ) -> tuple[torch.Tensor, SeqShardedCache, SeqShardedCache]:
     """One forward of C tokens at global rows [start, start + C) through
     llama.forward with the ring as attn_fn. `last_row` is the row (local
     to the chunk) whose logits are returned. Returns (that row's logits
-    (V,) f32, kc, vc): the caches are written in place."""
+    (V,) f32, kc, vc): the caches are written in place. `tp_group`: the
+    params (and `cfg`) are a tp rank's shard."""
     C = tokens.shape[0]
     dev = tokens.device
     positions = start + torch.arange(C, device=dev)
@@ -171,6 +177,7 @@ def _forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         cfg, params, tokens, positions, kc, vc, write_slots=positions,
         attn_fn=attn_fn,
         logits_rows=torch.arange(last_row, last_row + 1, device=dev),
+        tp_group=tp_group,
     )
     return logits[0], kc, vc
 
@@ -187,10 +194,12 @@ class LongContextPrefiller:
 
     `params` on the ring's first device are used as they are (a serving
     runner's tensors: no second copy); elsewhere they are copied there.
+    With `tp_group`, `cfg` and `params` are a tp rank's view and shard
+    (ModelConfig.tp_local, parallel/sharding.shard_params).
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, devices: list,
-                 cache_dtype: torch.dtype | None = None):
+                 cache_dtype: torch.dtype | None = None, tp_group=None):
         self.devices = [_resolved(torch.device(d)) for d in devices]
         if not self.devices:
             raise ValueError(f"the ring needs an '{SP_AXIS}' axis: no "
@@ -200,6 +209,7 @@ class LongContextPrefiller:
             params = _to_device(params, dev)
         self.cfg = cfg
         self.params = params
+        self.tp_group = tp_group
         self.sp = len(self.devices)
         self.window = cfg.sliding_window
         self.cache_dtype = (cache_dtype if cache_dtype is not None
@@ -292,7 +302,7 @@ class LongContextPrefiller:
         (last_row's logits (V,) f32, kc, vc): the caches are written in
         place and returned for symmetry with the JAX signature."""
         return _forward(self.cfg, self.params, tokens.take(), kc, vc,
-                        start, last_row)
+                        start, last_row, self.tp_group)
 
 
 def _resolved(dev: torch.device) -> torch.device:

@@ -2,8 +2,8 @@
 
 - Every flag of the JAX package's engine CLI parses in the port's
   (a deployment's arguments never stop at argparse's exit code 2), and
-  makes an EngineConfig or a NotImplementedError naming the feature;
-  the flags the port serves reach EngineConfig.
+  makes an EngineConfig (or the JAX package's own ValueError); the
+  flags the port serves reach EngineConfig.
 - Every flag the Helm chart's engine template can emit parses.
 - Every file cuda_build.sources() builds from (the .cu sources and the
   .cuh headers they include and the library hash covers) ships in the
@@ -72,8 +72,6 @@ def test_every_jax_cli_flag_parses_in_the_port(flag):
     args = build_parser().parse_args(argv)
     try:
         config_from_args(args)
-    except NotImplementedError as e:
-        assert "not ported to the PyTorch engine yet" in str(e)
     except ValueError as e:
         # a value the JAX package's EngineConfig refuses too, with the
         # same message (--long-prefill-threshold without a ring)
@@ -142,7 +140,6 @@ def test_cli_serves_rank_set_features(argv, monkeypatch, tmp_path):
     (srv,) = started
     try:
         assert srv.config.tensor_parallel_size == 2
-        assert srv.config.rank_set_unported() == []
         assert srv.engine.engine.tp_alive()
     finally:
         srv.engine.shutdown()
@@ -150,7 +147,7 @@ def test_cli_serves_rank_set_features(argv, monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("argv,name", [
     (["--precompile-serving"], "precompile_serving"),
-    # the ring under tensor parallelism (its own broadcast, not ported)
+    # the ring under tensor parallelism (each tp rank rings its heads)
     (["--tensor-parallel-size", "2", "--context-parallel-size", "2"],
      "context_parallel_size>1"),
     # multi-host flags: an engine on one host, or the job's refusal
@@ -158,7 +155,8 @@ def test_cli_serves_rank_set_features(argv, monkeypatch, tmp_path):
     (["--process-id", "1"], "multihost"),
     (["--coordinator-address", "10.0.0.1:1234"], "num_processes"),
     (["--multihost"], "multihost"),
-    # what a rank set does not carry yet
+    # what a rank set carries since its chained rounds, sweeps and ring
+    # chunks became published steps
     (["--tensor-parallel-size", "2", "--async-decode",
       "--num-scheduler-steps", "4"], "async_decode"),
     (["--tensor-parallel-size", "2", "--precompile-serving"],
@@ -166,16 +164,19 @@ def test_cli_serves_rank_set_features(argv, monkeypatch, tmp_path):
 ])
 def test_unported_flags_stop_with_engine_config_message(argv, name,
                                                        monkeypatch):
-    """main() stops in EngineConfig with its message naming the feature
-    (a NotImplementedError, not argparse's SystemExit). --precompile-
-    serving is served now: main() starts an engine on the CPU, whose
-    server ran the warm-up sweep before it would listen. So are the
-    multi-host flags: each reaches EngineConfig as multihost, and main()
-    joins the job first. With no job configured (--multihost, a lone
-    --process-id) it serves on one host as the JAX CLI does; a job that
-    cannot be joined (a process count without a coordinator, a
-    coordinator without a count) stops with multihost.initialize's
-    RuntimeError naming what it lacks, before anything connects."""
+    """No flag stops in EngineConfig any more: each case was one that
+    did (a NotImplementedError naming the feature). --precompile-serving
+    is served: main() starts an engine on the CPU, whose server ran the
+    warm-up sweep before it would listen (at tp=2 on every rank, eagerly:
+    no program variant is built). At tp=2 --async-decode chains its
+    rounds and --context-parallel-size 2 is taken (the lane needs a
+    threshold too). So are the multi-host flags: each reaches
+    EngineConfig as multihost, and main() joins the job first. With no
+    job configured (--multihost, a lone --process-id) it serves on one
+    host as the JAX CLI does; a job that cannot be joined (a process
+    count without a coordinator, a coordinator without a count) stops
+    with multihost.initialize's RuntimeError naming what it lacks,
+    before anything connects."""
     if name in ("multihost", "coordinator address", "num_processes"):
         from production_stack_tpu_torch.engine import server
         from production_stack_tpu_torch.parallel import multihost
@@ -198,22 +199,31 @@ def test_unported_flags_stop_with_engine_config_message(argv, name,
         assert not eng._ragged_dispatch and not eng._device_stop
         srv.engine.shutdown()
         return
-    if argv == ["--precompile-serving"]:
-        from production_stack_tpu_torch.engine import server
+    from production_stack_tpu_torch.engine import server
 
-        started = []
-        monkeypatch.setattr(server.EngineServer, "run",
-                            lambda self, **kw: started.append(self))
-        main(["--device", "cpu", "--tokenizer", "byte", *argv])
-        (srv,) = started
-        eng = srv.engine.engine
-        assert srv.config.precompile_serving
-        assert eng.precompile_grid is not None
-        assert eng.runner.compile_events_total > 0
+    started = []
+    monkeypatch.setattr(server.EngineServer, "run",
+                        lambda self, **kw: started.append(self))
+    extra = (["--max-model-len", "64"]
+             if argv[:2] == ["--tensor-parallel-size", "2"] else [])
+    main(["--device", "cpu", "--tokenizer", "byte", *argv, *extra])
+    (srv,) = started
+    eng = srv.engine.engine
+    try:
+        tp = srv.config.tensor_parallel_size
+        if name == "precompile_serving":
+            assert srv.config.precompile_serving
+            assert eng.precompile_grid is not None
+            # a rank set is eager: its sweep builds no program variant
+            assert (eng.runner.compile_events_total > 0) == (tp == 1)
+        elif name == "async_decode":
+            assert eng._async_decode and tp == 2
+        else:
+            assert srv.config.context_parallel_size == 2 and tp == 2
+            assert eng.long_prefill is None  # no threshold, no lane
+        assert tp == 1 or eng.tp_alive()
+    finally:
         srv.engine.shutdown()
-        return
-    with pytest.raises(NotImplementedError, match=re.escape(name)):
-        main(["--device", "cpu", *argv])
 
 
 def test_long_prefill_threshold_alone_stops_with_the_jax_message():

@@ -146,8 +146,8 @@ def test_unported_flags_refuse_to_start(field, value):
     tests/test_torch_async_decode.py). So are tensor_parallel_size 2 and
     pipeline_parallel_size 2: each config starts a rank set on the CPU
     (held to the JAX meshed engine in tests/test_torch_tensor_parallel.py
-    and tests/test_torch_pipeline_parallel.py), and a rank set refuses,
-    naming it, what it does not carry yet; and multihost, whose engine
+    and tests/test_torch_pipeline_parallel.py), async decode included
+    (tests/test_torch_rank_set_serving.py); and multihost, whose engine
     with no job configured serves on one host. So is the long-prefill lane (held to the JAX
     engine's in tests/test_torch_long_context.py): a threshold needs
     context_parallel_size > 1 (the JAX ValueError), with it the lane is
@@ -187,12 +187,12 @@ def test_unported_flags_refuse_to_start(field, value):
             eng.shutdown()
         return
     if field == "tensor_parallel_size":
-        with pytest.raises(NotImplementedError, match="async_decode"):
-            EngineConfig(**cfg, num_scheduler_steps=4, async_decode=True,
-                         device="cpu")
-        eng = LLMEngine(EngineConfig(**cfg, device="cpu"))
+        # async decode at tp=2 (it was refused until chained rounds were
+        # published)
+        eng = LLMEngine(EngineConfig(**cfg, num_scheduler_steps=4,
+                                     async_decode=True, device="cpu"))
         try:
-            assert not eng._ragged_dispatch
+            assert not eng._ragged_dispatch and eng._async_decode
             out = eng.generate([[1, 2, 3]], SamplingParams(
                 max_tokens=9, temperature=0.0, ignore_eos=True))
             assert len(out[0].token_ids) == 9

@@ -648,15 +648,27 @@ def test_config_refusals_equal_jax(kw):
     assert str(got.value) == str(want.value)
 
 
-def test_ring_under_tensor_parallelism_is_refused_by_name():
-    with pytest.raises(NotImplementedError,
-                       match=r"context_parallel_size>1"):
-        EngineConfig(model="pst-tiny-debug", device="cpu",
-                     tensor_parallel_size=2, context_parallel_size=2,
-                     long_prefill_threshold=256)
-    cfg = EngineConfig(model="pst-tiny-debug", device="cpu",
-                       context_parallel_size=2)
-    assert cfg.rank_set_unported() == []
+def test_ring_under_tensor_parallelism_is_refused_by_name(np_params,
+                                                         engines):
+    """The ring under tensor parallelism, once refused by the name
+    context_parallel_size>1, is served: each tp rank rings its own kv
+    heads (tests/test_torch_rank_set_serving.py holds it to the JAX
+    meshed engine). A >threshold prompt at tp=2 x sp=2 lands as the
+    chunked control decodes it."""
+    eng = LLMEngine(_tconfig(DENSE.name, tensor_parallel_size=2),
+                    params=params_from_numpy(np_params["dense"], "cpu"))
+    try:
+        pre = eng.long_prefill.prefiller
+        assert pre.tp_group is not None and pre.sp == 2
+        assert pre.cfg.num_kv_heads == DENSE.num_kv_heads // 2
+        reqs = {"x": (_prompt(300, 4), GREEDY)}
+        got = _drive(eng, reqs, SamplingParams)["x"]
+        assert eng.stats().long_prefill_requests_total == 1
+        assert eng.stats().long_prefill_fallbacks_total == 0
+    finally:
+        eng.shutdown()
+    want = _drive(engines["ctrl"], reqs, SamplingParams)["x"]
+    assert got.token_ids == want.token_ids
 
 
 def test_a_ring_that_cannot_be_built_degrades_loudly(np_params, monkeypatch):

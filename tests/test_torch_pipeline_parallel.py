@@ -19,7 +19,6 @@ port engine of each layout serves every scenario (module-scoped).
 """
 
 import dataclasses
-import re
 import time
 
 import jax
@@ -268,10 +267,39 @@ def test_engine_refusals_equal_jax(over):
     ({"async_decode": True, "num_scheduler_steps": 4}, "async_decode"),
     ({"precompile_serving": True}, "precompile_serving"),
 ])
-def test_rank_set_refusals_under_pp_name_the_feature(over, name):
-    with pytest.raises(NotImplementedError, match=re.escape(name)):
-        EngineConfig(device="cpu", pipeline_parallel_size=2,
-                     **{**ENGINE, **over})
+def test_rank_set_refusals_under_pp_name_the_feature(over, name, np_params):
+    """Each of the three was refused under pp by this name. Now, as in
+    the JAX engine: async decode chains its rounds and the warm-up sweep
+    runs on every rank (streams after either equal pp=1's), and the
+    long-prefill lane is accepted and off (those prompts serve
+    chunked)."""
+    over = dict(over, max_model_len=64, num_kv_blocks=128)
+    if name == "context_parallel_size>1":
+        over["long_prefill_threshold"] = 32
+    jeng = JEngine(JConfig(pipeline_parallel_size=2, **{**ENGINE, **over}))
+    eng = _port(np_params, pp=2, **over)
+    try:
+        # room for two K=4 rounds after the first: a chain
+        sp = SamplingParams(**{**GREEDY, "max_tokens": 12})
+        k = over.get("num_scheduler_steps", 1)
+        if name == "precompile_serving":
+            assert eng.precompile_serving() > 0
+            assert eng.stats().compile_events_total == 0
+        got = [o.token_ids for o in eng.generate(PROMPTS, sp)]
+        reps = eng.runner.reports()
+        assert got == [o.token_ids for o in _pp1(
+            np_params, num_scheduler_steps=k).generate(PROMPTS, sp)]
+        assert reps[0]["dispatch_counts"] == reps[1]["dispatch_counts"]
+        if name == "async_decode":
+            assert eng._async_decode and jeng._async_decode
+            assert reps[1]["chained_rounds"] > 0
+            assert reps[1]["chain_checks"] > 0
+        elif name == "context_parallel_size>1":
+            assert eng.long_prefill is None and jeng.long_prefill is None
+            assert eng.stats().long_prefill_requests_total == 0
+    finally:
+        eng.shutdown()
+        jeng.shutdown()
 
 
 # -- the KV tiers over the stages ----------------------------------------------

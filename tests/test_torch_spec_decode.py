@@ -136,7 +136,6 @@ def test_cli_flags_reach_the_config():
         "--ngram-prompt-lookup-max", "5", "--ngram-prompt-lookup-min", "2"]))
     assert (cfg.num_speculative_tokens, cfg.ngram_prompt_lookup_max,
             cfg.ngram_prompt_lookup_min) == (4, 5, 2)
-    assert cfg.rank_set_unported() == []
 
 
 # -- drafts ------------------------------------------------------------------------

@@ -561,12 +561,19 @@ def test_spec_decode_streams_and_counts_equal_tp1(np_params, impl):
     ({"context_parallel_size": 2}, "context_parallel_size>1"),
 ])
 def test_tp_refuses_what_it_does_not_carry(over, name):
-    cfg = {**ENGINE, "model": TIED.name, "device": "cpu",
-           "tensor_parallel_size": 2, **over}
-    with pytest.raises(NotImplementedError, match=re.escape(name)):
-        EngineConfig(**cfg)
-    cfg["tensor_parallel_size"] = 1
-    EngineConfig(**cfg)  # each is served at tp=1
+    """The three features EngineConfig refused at tp=2 (by these names)
+    until their steps were published: it takes each at tp=2 as at tp=1,
+    and so does the JAX package's config
+    (tests/test_torch_rank_set_serving.py serves each against the JAX
+    meshed engine)."""
+    for tp in (2, 1):
+        cfg = {**ENGINE, "model": TIED.name, "tensor_parallel_size": tp,
+               **over}
+        got = EngineConfig(**cfg, device="cpu")
+        want = JConfig(**cfg)
+        for field in over:
+            assert getattr(got, field) == getattr(want, field) == over[field]
+    assert not hasattr(EngineConfig, "rank_set_unported"), name
 
 
 # the features a one-host rank set serves since their exports, imports
@@ -586,9 +593,8 @@ SERVED = [
 
 @pytest.mark.parametrize("over,name", SERVED)
 def test_tp_config_takes_what_it_used_to_refuse(over, name):
-    """EngineConfig at tp=2 on one host accepts each (rank_set_unported
-    names only async_decode, precompile_serving and cp > 1); a
-    multi-host job keeps the JAX multi-host engine's refusals
+    """EngineConfig at tp=2 on one host accepts each; a multi-host job
+    keeps the JAX multi-host engine's refusals
     (tests/test_torch_multihost.py holds their messages)."""
     from production_stack_tpu_torch.engine.multihost_engine import (
         validate_multihost_config,
@@ -600,7 +606,6 @@ def test_tp_config_takes_what_it_used_to_refuse(over, name):
 
     over = {**ENGINE, "model": TIED.name, "tensor_parallel_size": 2, **over}
     cfg = EngineConfig(**over, device="cpu")
-    assert cfg.rank_set_unported() == []
     errs = []
     for fn, c in ((jvalidate, JConfig(**over)), (validate_multihost_config,
                                                  cfg)):
@@ -614,17 +619,34 @@ def test_tp_config_takes_what_it_used_to_refuse(over, name):
     assert (errs[0] is None) == (name in ("kv_transfer_config", "MoE"))
 
 
-@pytest.mark.parametrize("name", sorted(UNBROADCAST))
+# the warm-up sweeps that were in UNBROADCAST: each is a published step
+# now (the kind is the method's name)
+PRECOMPILE_STEPS = ("precompile_prefill", "precompile_decode",
+                    "precompile_verify", "precompile_kv_import")
+
+
+@pytest.mark.parametrize("name", sorted(UNBROADCAST | set(PRECOMPILE_STEPS)))
 def test_broadcasting_runner_refuses_unbroadcast_methods(name):
+    """A method in UNBROADCAST raises before anything is published; a
+    sweep that was in it publishes its step (host arguments only), then
+    runs on rank 0."""
     published = []
-    runner = types.SimpleNamespace(**{name: lambda *a, **k: "ran"},
-                                   num_blocks=64)
+    ran = []
+    runner = types.SimpleNamespace(
+        **{name: lambda *a, **k: ran.append((a, k)) or 3}, num_blocks=64)
     group = types.SimpleNamespace(store=None, world_size=2, followers=[])
     br = BroadcastingRunner(runner, group)
     br._bc = types.SimpleNamespace(publish=published.append)
-    with pytest.raises(RuntimeError, match=name):
-        getattr(br, name)
-    assert br.num_blocks == 64 and not published
+    if name in UNBROADCAST:
+        with pytest.raises(RuntimeError, match=name):
+            getattr(br, name)
+        assert br.num_blocks == 64 and not published
+        return
+    assert name in PRECOMPILE_STEPS
+    assert getattr(br, name)([8, 16], steps=4) == 3
+    assert published == [{"kind": name, "args": ([8, 16],),
+                          "kwargs": {"steps": 4}}]
+    assert ran == [(([8, 16],), {"steps": 4})]
 
 
 # the KV methods that were in UNBROADCAST: what each publishes now (the
@@ -671,16 +693,31 @@ def test_broadcasting_runner_serves_kv_methods(name):
 
 
 def test_broadcast_refuses_device_tensors_and_stages():
-    runner = types.SimpleNamespace(decode_multi=lambda *a, **k: "ran")
+    """A device tensor rides no step: a chained round's tokens must be
+    the last row of the previous round's (published as the marker
+    'chained'), any other tensor argument and any staged buffer are
+    refused before anything is published."""
+    toks = torch.arange(8, dtype=torch.int32).view(4, 2)
+    runner = types.SimpleNamespace(decode_multi=lambda *a, **k: toks)
     group = types.SimpleNamespace(store=None, world_size=2, followers=[])
     br = BroadcastingRunner(runner, group)
     published = []
     br._bc = types.SimpleNamespace(publish=published.append)
-    with pytest.raises(RuntimeError, match="device tensor"):
+    with pytest.raises(RuntimeError, match="no decode round before"):
         br.decode_multi(torch.zeros(2, dtype=torch.int32), [0])
+    with pytest.raises(RuntimeError, match="device tensor"):
+        br.decode_multi([1], torch.zeros(2, dtype=torch.int32))
     with pytest.raises(RuntimeError, match="staged"):
         br.decode_multi([1], [0], staged=object())
     assert not published
+    br.decode_multi([1, 2], [0])
+    with pytest.raises(RuntimeError, match="last row"):
+        br.decode_multi(toks[-1].clone(), [0])
+    br.decode_multi(toks[-1], [0])
+    assert [m["args"][0] for m in published] == [[1, 2], "chained"]
+    # the chained-on round (round 0) is checked at the next step
+    br.reset_counts()
+    assert published[-1]["chain_check"] == (0, [6, 7])
 
 
 def _failing_engine(np_params, timeout_s, **over):
