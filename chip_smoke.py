@@ -320,6 +320,31 @@ Phases, each fatal on failure:
    sp=2 beside a chunked tp=2 control (streams, first-token logits
    against the tp=1 lane's, chunks, fallbacks, blocks landed, TTFT, the
    collect's seconds, the decoders' ITL).
+19. Stack (stack_phase): the whole port stack, each process started as a
+   user starts it: a KV controller (python -m
+   production_stack_tpu_torch.kv.controller), four CLI engines of the
+   3B at full width (two both-role with 512 KV blocks reporting to the
+   controller, a prefill-role and a decode-role PD pair) and, in turn,
+   the port's router (python -m production_stack_tpu_torch.router) in
+   front of them under each routing algorithm: roundrobin (8 greedy
+   streams, completions and chats, split 4 and 4 by the engines'
+   /metrics), session (8 requests of one x-user-id on one engine),
+   prefixaware and kvaware (8 requests sharing a 1500-char prefix, all
+   on the first request's engine, its prefix-cache hits up and the
+   other's not), ttft and latency, every stream held to the same
+   request sent straight to an engine under the near-tie rule and the
+   router's request counts (read with the port's Prometheus parser)
+   equal to the engines'; TTFT through the router against direct (p50
+   and p90 of 16 streams, the router's first event well before its
+   last), the router's boot seconds and its hashing µs a prefixaware
+   request; pd and disaggregated_prefill over the PD pair (an
+   1100-token prompt's prefill on the prefill engine, one 34-block
+   chain pull into the decode engine, no fallback, the stream held to a
+   both-role engine's); each engine's launches 28 a forward; then one
+   both-role engine SIGTERMed under a steady load behind a roundrobin
+   router with static health checks: no client error, and once the
+   router drops it from discovery every request goes to the survivor.
+   Logs build/chip_smoke_stack_*.log.
 
 Launch counts are reset just before the serve phase's requests (through
 the server's /debug/kernel_launches) and again before its API requests,
@@ -335,12 +360,14 @@ phase's one-shot forwards and its tp=2 scenario, before each
 long-context engine's run and the long-context server's request, on
 every rank before each pp scenario, before the multi-host
 server's completion, on every rank before each rank-set run and
-before each rank-set serving run, and read just after; a kernel launched 0 times on those paths fails the
-run. The servers' logs go to build/chip_smoke_serve.log,
+before each rank-set serving run, on each stack-phase engine before
+the router's first request, and read just after; a kernel launched 0
+times on those paths fails the run. The servers' logs go to build/chip_smoke_serve.log,
 build/chip_smoke_lc_serve.log,
 build/chip_smoke_spec_serve.log, build/chip_smoke_lora_serve.log, build/chip_smoke_prefill_serve.log,
 build/chip_smoke_decode_serve.log, build/chip_smoke_cache_server.log and
-build/chip_smoke_phi3_serve.log and build/chip_smoke_mh{0,1}_serve.log.
+build/chip_smoke_phi3_serve.log, build/chip_smoke_mh{0,1}_serve.log and
+build/chip_smoke_stack_*.log.
 The last lines are the kernels JSON, the
 card's name and power limit (nvidia-smi), and {"ok": true, "device":
 {...}}.
@@ -966,25 +993,21 @@ def metric(port: int, name: str) -> float:
 
 def parse_metrics(text: str) -> tuple[dict, dict]:
     """Prometheus text exposition -> ({sample name: [(labels, value)]},
-    {family: type}), with the standard library only (the card's machine
-    has no prometheus_client)."""
+    {family: type}), read with the port's parser (utils/prometheus.py:
+    the card's machine has no prometheus_client); a counter family is
+    named as its TYPE line names it, with its _total."""
+    from production_stack_tpu_torch.utils.prometheus import (
+        text_string_to_metric_families,
+    )
+
     samples: dict[str, list] = {}
     types: dict[str, str] = {}
-    for ln in text.splitlines():
-        if ln.startswith("# TYPE "):
-            _, _, fam, kind = ln.split(" ", 3)
-            types[fam] = kind
-            continue
-        if not ln or ln.startswith("#"):
-            continue
-        head, value = ln.rsplit(" ", 1)
-        name, _, rest = head.partition("{")
-        labels = {}
-        for part in rest.rstrip("}").split(","):
-            if "=" in part:
-                k, v = part.split("=", 1)
-                labels[k] = v.strip('"')
-        samples.setdefault(name, []).append((labels, float(value)))
+    for fam in text_string_to_metric_families(text):
+        total = "_total" if fam.type == "counter" else ""
+        types[fam.name + total] = fam.type
+        for s in fam.samples:
+            samples.setdefault(s.name, []).append((s.labels,
+                                                   float(s.value)))
     return samples, types
 
 
@@ -6159,6 +6182,583 @@ def rank_set_serving_phase(torch, pa, gap_tol: float, smi: str,
     return counts
 
 
+# -- stack phase: the port's router in front of port engines ----------------------
+STACK_KV_BLOCKS = 512       # 16384 tokens a both-role engine
+STACK_PREFIX_CHARS = 1500   # byte tokenizer: 1501 tokens with BOS
+STACK_PD_TOKENS = PD_PROMPT_TOKENS
+STACK_TOKENS = 16
+STACK_TTFT_REQUESTS = 16
+STACK_TTFT_TOKENS = 32
+STACK_KV_THRESHOLD = 1024   # kvaware: matched tokens that decide a pick
+STACK_HEALTH_WINDOW_S = 60.0
+
+
+def router_cmd(port: int, backends: list[int], logic: str,
+               extra: tuple = (), model: str = "llama-3.2-3b") -> list[str]:
+    """`python -m production_stack_tpu_torch.router` in front of local
+    engines, as a user starts it."""
+    return [sys.executable, "-m", "production_stack_tpu_torch.router",
+            "--host", "127.0.0.1", "--port", str(port),
+            "--service-discovery", "static",
+            "--static-backends",
+            ",".join(f"http://127.0.0.1:{p}" for p in backends),
+            "--static-models", ",".join(model for _ in backends),
+            "--routing-logic", logic, "--engine-stats-interval", "1",
+            *extra]
+
+
+def start_router(cmd: list[str], log_path: Path):
+    """The router in a child process -> (proc, seconds until /health)."""
+    port = int(cmd[cmd.index("--port") + 1])
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    print(f"router: {' '.join(cmd[1:])}", flush=True)
+    t0 = time.perf_counter()
+    with open(log_path, "wb") as log:
+        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log,
+                                stderr=subprocess.STDOUT)
+    while True:  # wait_healthy's polls, every 20 ms: a router boots fast
+        if proc.poll() is not None:
+            fail(f"router exited with {proc.returncode}:\n"
+                 f"{log_tail(log_path)}")
+        if time.perf_counter() - t0 > 60:
+            fail(f"router not healthy after 60 s:\n{log_tail(log_path)}")
+        try:
+            if http(port, "/health", timeout=5)[0] == 200:
+                return proc, time.perf_counter() - t0
+        except OSError:
+            pass
+        time.sleep(0.02)
+
+
+class SseStream:
+    """A streamed completion or chat read line by line over HTTP:
+    token ids (completions: "token_id:N"; chat: the token strings) and
+    top-2 logprobs a step, shaped as near_tie_check reads a
+    RequestOutput, plus the client's time to the first event and to the
+    end."""
+
+    def __init__(self, port: int, path: str, body: dict,
+                 headers: dict | None = None, timeout: float = 600.0):
+        from http.client import HTTPConnection
+
+        conn = HTTPConnection("127.0.0.1", port, timeout=timeout)
+        t0 = time.perf_counter()
+        conn.request("POST", path, json.dumps(body),
+                     {"Content-Type": "application/json", **(headers or {})})
+        r = conn.getresponse()
+        self.status = r.status
+        self.headers = dict(r.getheaders())
+        self.ttft = None
+        self.done = False
+        self.token_ids: list = []
+        self.logprobs: list = []
+        self.text = ""
+        while True:
+            line = r.readline()
+            if not line:
+                break
+            if not line.startswith(b"data: "):
+                continue
+            if self.ttft is None:
+                self.ttft = time.perf_counter() - t0
+            data = line[6:].strip()
+            if data == b"[DONE]":
+                self.done = True
+                continue
+            ch = json.loads(data)["choices"][0]
+            self.text += ch.get("text") or ch.get("delta", {}).get(
+                "content") or ""
+            lp = ch.get("logprobs")
+            if not lp:
+                continue
+            if "content" in lp:  # chat: [{token, logprob, top_logprobs}]
+                for e in lp["content"]:
+                    self.token_ids.append(e["token"])
+                    self.logprobs.append({"top_logprobs": [
+                        {"logprob": t["logprob"]} for t in sorted(
+                            e["top_logprobs"], key=lambda t: -t["logprob"])]})
+            else:
+                self.token_ids += [int(t.split(":")[1])
+                                   for t in lp["tokens"]]
+                self.logprobs += [{"top_logprobs": [
+                    {"logprob": v} for v in sorted(top.values(),
+                                                   reverse=True)]}
+                    for top in lp["top_logprobs"]]
+        self.e2e = time.perf_counter() - t0
+        conn.close()
+
+
+def stack_request(prompt, chat: bool, tokens: int = STACK_TOKENS,
+                  model: str = "llama-3.2-3b") -> tuple:
+    """(path, body) of a greedy streamed request with top-2 logprobs."""
+    body = {"model": model, "max_tokens": tokens,
+            "temperature": 0, "ignore_eos": True, "stream": True}
+    if chat:
+        return "/v1/chat/completions", {
+            **body, "messages": [{"role": "user", "content": prompt}],
+            "logprobs": True, "top_logprobs": 2}
+    return "/v1/completions", {**body, "prompt": prompt, "logprobs": 2,
+                               "return_tokens_as_token_ids": True}
+
+
+def served_counts(ports: list[int]) -> list[float]:
+    """Requests each engine finished, from its /metrics."""
+    return [metric(p, "vllm:e2e_request_latency_seconds_count")
+            for p in ports]
+
+
+def settle_counts(ports: list[int], before: list[float], n: int) -> list:
+    """The engines' finished-request deltas once they add up to n (an
+    engine counts a request as it finishes, a moment after its last
+    event)."""
+    t0 = time.perf_counter()
+    while True:
+        d = [a - b for a, b in zip(served_counts(ports), before)]
+        if sum(d) >= n or time.perf_counter() - t0 > 10:
+            return d
+        time.sleep(0.1)
+
+
+def router_served(port: int) -> dict:
+    """The router's finished proxy attempts a backend port, all
+    outcomes, read with the port's Prometheus parser."""
+    samples, types = parse_metrics(http(port, "/metrics")[1])
+    for name in ("tpu_router:requests_total", "vllm:healthy_pods_total",
+                 "tpu_router:routing_decision_seconds"):
+        if name not in types:
+            fail(f"stack phase: the router's /metrics has no {name}")
+    out: dict[int, float] = {}
+    for labels, v in samples.get("tpu_router:requests_total", []):
+        p = int(labels["server"].rsplit(":", 1)[1])
+        out[p] = out.get(p, 0.0) + v
+    return out
+
+
+def routing_decision_us(port: int) -> float:
+    """Mean routing decision (µs) over the router's requests, from its
+    tpu_router:routing_decision_seconds histogram."""
+    samples, _ = parse_metrics(http(port, "/metrics")[1])
+    tot = sum(v for _, v in samples.get(
+        "tpu_router:routing_decision_seconds_sum", []))
+    n = sum(v for _, v in samples.get(
+        "tpu_router:routing_decision_seconds_count", []))
+    return tot / n * 1e6 if n else float("nan")
+
+
+def prefix_hash_us(n_chars: int = STACK_PREFIX_CHARS, reps: int = 200
+                   ) -> float:
+    """Host µs a request of prefixaware routing spends hashing: one
+    longest-prefix match and one insert of an n_chars prompt into the
+    router's HashTrie (128-char chunks on the pure-Python xxh64), the
+    trie already holding it."""
+    import asyncio
+
+    from production_stack_tpu_torch.router.hashtrie import HashTrie
+
+    text = "".join(chr(97 + (7 * j) % 26) for j in range(n_chars))
+
+    async def run() -> float:
+        trie = HashTrie()
+        await trie.insert(text, "a")
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            await trie.longest_prefix_match(text, {"a"})
+            await trie.insert(text, "a")
+        return (time.perf_counter() - t0) / reps * 1e6
+
+    return asyncio.run(run())
+
+
+def stack_phase(torch, gap_tol: float, smi: str,
+                model: str = "llama-3.2-3b", device: str = "cuda") -> dict:
+    """The whole port stack on one card: port engines (the CLI at its
+    defaults, 3B at full width, random weights from SEED, byte
+    tokenizer) behind the port's router (`python -m
+    production_stack_tpu_torch.router`), each process started as a user
+    starts it. `model` and `device` exist for a dry run of the phase's
+    logic on a CPU with a tiny model."""
+    import functools
+    from concurrent.futures import ThreadPoolExecutor as Pool
+
+    from production_stack_tpu_torch.kv.controller import KVControllerClient
+
+    req = functools.partial(stack_request, model=model)
+    rcmd = functools.partial(router_cmd, model=model)
+
+    build = REPO / "build"
+    procs: list = []
+    ctl_port = free_port()
+    names = ("a", "b", "prefill", "decode")
+    ports = {n: free_port() for n in names}
+    kv_port = free_port()
+    dev = () if device == "cuda" else ("--device", device)
+    both = dev + ("--num-kv-blocks", str(STACK_KV_BLOCKS),
+                  "--kv-controller-url", f"127.0.0.1:{ctl_port}")
+    extra = {
+        "a": both, "b": both,
+        "prefill": dev + ("--num-kv-blocks", str(STACK_KV_BLOCKS),
+                          "--kv-role", "prefill",
+                          "--kv-transfer-listen", f"127.0.0.1:{kv_port}"),
+        "decode": dev + ("--num-kv-blocks", str(STACK_KV_BLOCKS),
+                         "--kv-role", "kv_consumer",
+                         "--kv-peer", f"127.0.0.1:{kv_port}"),
+    }
+    logs = {n: build / f"chip_smoke_stack_{n}_serve.log" for n in names}
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    build.mkdir(parents=True, exist_ok=True)
+    ctl_log = build / "chip_smoke_stack_controller.log"
+    boots: list[float] = []
+    counts: dict = {}
+    routers: list = []
+    t_phase = time.perf_counter()
+    try:
+        with open(ctl_log, "wb") as log:
+            procs.append(subprocess.Popen(
+                # on every address, as by default: a router then finds
+                # the port taken and connects to it instead of embedding
+                # a controller of its own on 0.0.0.0
+                [sys.executable, "-m", "production_stack_tpu_torch.kv."
+                 "controller", "--port", str(ctl_port)], cwd=REPO, env=env,
+                stdout=log,
+                stderr=subprocess.STDOUT))
+        t0 = time.perf_counter()
+        eng = {n: start_server(ports[n], logs[n], model, extra[n])
+               for n in names}
+        procs += list(eng.values())
+        for n in names:
+            wait_healthy(f"stack {n}", eng[n], ports[n], logs[n], t0)
+            http(ports[n], "/debug/kernel_launches", method="DELETE")
+        print(f"stack phase: 4 engines (two both-role with "
+              f"{STACK_KV_BLOCKS} KV blocks and the controller, prefill, "
+              f"decode) healthy in {time.perf_counter() - t0:.1f}s",
+              flush=True)
+        pa_, pb = ports["a"], ports["b"]
+        short = [f"Stack request {i}: " + "".join(
+            chr(97 + (5 * j + 3 * i) % 26) for j in range(160))
+            for i in range(8)]
+
+        def prefixed(seed: int) -> list[str]:
+            pre = "".join(chr(65 + (seed * 11 + 7 * j) % 26)
+                          for j in range(STACK_PREFIX_CHARS))
+            return [pre + f" suffix {i}." for i in range(8)]
+
+        def direct(reqs) -> list:
+            return [SseStream(pa_, *req(p, chat))
+                    for p, chat in reqs]
+
+        def check_streams(what: str, got: list, want: list) -> None:
+            bad = [i for i, s in enumerate(got)
+                   if s.status != 200 or not s.done
+                   or len(s.token_ids) != len(want[i].token_ids)]
+            if bad:
+                fail(f"stack phase {what}: requests {bad} answered "
+                     f"{[got[i].status for i in bad]} or cut short")
+            n_same = near_tie_check(f"stack phase {what}", want, got,
+                                    gap_tol)
+            print(f"stack phase {what}: {n_same}/{len(got)} router "
+                  "streams equal to the direct ones", flush=True)
+
+        def run_router(logic: str, reqs, extra_args=(), headers=None,
+                       check=None) -> tuple:
+            rport = free_port()
+            proc, boot = start_router(
+                rcmd(rport, [pa_, pb], logic, extra_args),
+                build / f"chip_smoke_stack_router_{logic}.log")
+            routers.append(proc)
+            boots.append(boot)
+            before = served_counts([pa_, pb])
+            got = []
+            for i, (p, chat) in enumerate(reqs):
+                got.append(SseStream(rport, *req(p, chat),
+                                     headers=headers))
+                if check is not None:
+                    check(i, rport)
+            d = settle_counts([pa_, pb], before, len(reqs))
+            served = router_served(rport)
+            if [served.get(pa_, 0.0), served.get(pb, 0.0)] != d:
+                fail(f"stack phase {logic}: the router counts "
+                     f"{served} requests a backend, the engines {d}")
+            dec_us = routing_decision_us(rport)
+            stop_server(proc)
+            routers.remove(proc)
+            print(f"stack phase {logic}: engines served {d}, router "
+                  f"boot {boot:.2f}s, routing decision "
+                  f"{dec_us:.0f} us a request (router host clock)",
+                  flush=True)
+            return got, d, dec_us
+
+        mixed = [(p, i % 2 == 1) for i, p in enumerate(short)]
+        want_mixed = None
+        # roundrobin: 2N requests split N and N
+        got, d, _ = run_router("roundrobin", mixed)
+        want_mixed = direct(mixed)
+        check_streams("roundrobin", got, want_mixed)
+        if d != [4.0, 4.0]:
+            fail(f"stack phase roundrobin: split {d}, want [4, 4]")
+        # session: every request of one session on one engine
+        got, d, _ = run_router("session", mixed,
+                               ("--session-key", "x-user-id"),
+                               headers={"x-user-id": "alice"})
+        check_streams("session", got, want_mixed)
+        if sorted(d) != [0.0, 8.0]:
+            fail(f"stack phase session: one session spread as {d}")
+        hits_of = lambda: [metric(p, "vllm:gpu_prefix_cache_hits_total")
+                           for p in (pa_, pb)]
+        dec_prefix = None
+        for logic, seed, extra_args in (
+                ("prefixaware", 1, ()),
+                ("kvaware", 2, ("--kv-controller-url",
+                                f"127.0.0.1:{ctl_port}",
+                                "--kv-aware-threshold",
+                                str(STACK_KV_THRESHOLD)))):
+            reqs = [(p, False) for p in prefixed(seed)]
+            first: list = []
+
+            def after_first(i, rport, first=first, reqs=reqs):
+                if i != 0:
+                    return
+                # the first request's engine, and (kvaware) its blocks
+                # reported to the controller before the next request
+                d0 = settle_counts([pa_, pb], before_hits[1], 1)
+                first.append(0 if d0[0] else 1)
+                if logic != "kvaware":
+                    return
+                import asyncio
+
+                from production_stack_tpu_torch.engine.tokenizer import (
+                    ByteTokenizer,
+                )
+
+                toks = ByteTokenizer().encode(reqs[0][0])
+
+                async def probe() -> dict:
+                    c = KVControllerClient("127.0.0.1", ctl_port)
+                    try:
+                        return await c.lookup(toks)
+                    finally:
+                        await c.close()
+
+                t1 = time.perf_counter()
+                while max(asyncio.run(probe()).values(),
+                          default=0) < STACK_KV_THRESHOLD:
+                    if time.perf_counter() - t1 > 30:
+                        fail("stack phase kvaware: the controller never "
+                             "held the first request's blocks")
+                    time.sleep(0.1)
+
+            before_hits = (hits_of(), served_counts([pa_, pb]))
+            got, d, dec_us = run_router(logic, reqs, extra_args,
+                                        check=after_first)
+            hits = [a - b for a, b in zip(hits_of(), before_hits[0])]
+            e = first[0]
+            if d[e] != 8.0 or d[1 - e] != 0.0:
+                fail(f"stack phase {logic}: the shared-prefix requests "
+                     f"spread as {d}; the first went to engine {e}")
+            if not hits[e] > 0 or hits[1 - e] != 0:
+                fail(f"stack phase {logic}: prefix-cache hits {hits}")
+            print(f"stack phase {logic}: 8 requests sharing a "
+                  f"{STACK_PREFIX_CHARS}-char prefix all on engine "
+                  f"{'ab'[e]} (the first's), its prefix-cache hits "
+                  f"+{hits[e]:.0f}, the other's +{hits[1 - e]:.0f}",
+                  flush=True)
+            check_streams(logic, got, direct(reqs))
+            if logic == "prefixaware":
+                dec_prefix = dec_us
+        few = mixed[:4]
+        got, _, _ = run_router("ttft", few)
+        check_streams("ttft", got, want_mixed[:4])
+
+        # latency: and TTFT through the router against direct
+        rport = free_port()
+        proc, boot = start_router(rcmd(rport, [pa_, pb], "latency"),
+                                  build / "chip_smoke_stack_router_"
+                                  "latency.log")
+        routers.append(proc)
+        boots.append(boot)
+        got = [SseStream(rport, *req(p, c)) for p, c in few]
+        check_streams("latency", got, want_mixed[:4])
+        ttft = {"direct": [], "router": [], "router_e2e": []}
+        for i in range(STACK_TTFT_REQUESTS):
+            p = f"TTFT probe {i}: " + short[i % 8][20:120]
+            path, body = req(p, False, STACK_TTFT_TOKENS)
+            order = (("direct", pa_), ("router", rport))
+            for kind, port in (order if i % 2 == 0 else order[::-1]):
+                s = SseStream(port, path, body)
+                if s.status != 200 or not s.done:
+                    fail(f"stack phase TTFT {kind}: {s.status}")
+                ttft[kind].append(s.ttft)
+                if kind == "router":
+                    ttft["router_e2e"].append(s.e2e)
+        stop_server(proc)
+        routers.remove(proc)
+
+        def pct(xs, q):
+            xs = sorted(xs)
+            return xs[min(len(xs) - 1, int(q * len(xs)))] * 1e3
+
+        print(f"stack phase TTFT over {STACK_TTFT_REQUESTS} streamed "
+              f"requests ({STACK_TTFT_TOKENS} tokens each): direct p50 "
+              f"{pct(ttft['direct'], .5):.2f} ms p90 "
+              f"{pct(ttft['direct'], .9):.2f} ms; through the router p50 "
+              f"{pct(ttft['router'], .5):.2f} ms p90 "
+              f"{pct(ttft['router'], .9):.2f} ms (client host clock) on "
+              f"{smi}", flush=True)
+        if not pct(ttft["router"], .5) < 0.5 * pct(ttft["router_e2e"], .5):
+            fail("stack phase: through the router the first event comes "
+                 f"at {pct(ttft['router'], .5):.1f} ms of a "
+                 f"{pct(ttft['router_e2e'], .5):.1f} ms stream (p50): the "
+                 "router buffers instead of streaming")
+        hash_us = prefix_hash_us()
+        print(f"stack phase: prefixaware hashing of a "
+              f"{STACK_PREFIX_CHARS}-char prompt {hash_us:.1f} us a "
+              f"request (pure-Python xxh64, host clock); the router's "
+              f"mean routing decision under prefixaware "
+              f"{dec_prefix:.0f} us; router boot {min(boots):.2f}-"
+              f"{max(boots):.2f}s over {len(boots)} starts on {smi}",
+              flush=True)
+
+        # PD: prefill-role and decode-role engines behind the router
+        pp, dp = ports["prefill"], ports["decode"]
+        n_pd = STACK_PD_TOKENS // 32
+        for j, (logic, extra_args) in enumerate((
+                ("pd", ()),
+                ("disaggregated_prefill",
+                 ("--static-model-labels", "prefill,decode",
+                  "--prefill-model-labels", "prefill",
+                  "--decode-model-labels", "decode")))):
+            ids = [(7 * k + 11 + 5 * j) % 250 + 1
+                   for k in range(STACK_PD_TOKENS)]
+            before = {p: parse_metrics(http(p, "/metrics")[1])[0]
+                      for p in (pp, dp)}
+            rport = free_port()
+            proc, boot = start_router(
+                rcmd(rport, [pp, dp], logic, extra_args),
+                build / f"chip_smoke_stack_router_{logic}.log")
+            routers.append(proc)
+            boots.append(boot)
+            got = SseStream(rport, *req(ids, False))
+            stop_server(proc)
+            routers.remove(proc)
+            after = {p: parse_metrics(http(p, "/metrics")[1])[0]
+                     for p in (pp, dp)}
+
+            def delta(p, name):
+                return (after[p].get(name, [({}, 0.0)])[0][1]
+                        - before[p].get(name, [({}, 0.0)])[0][1])
+
+            pd = {
+                "prefill served": delta(
+                    pp, "vllm:e2e_request_latency_seconds_count"),
+                "decode served": delta(
+                    dp, "vllm:e2e_request_latency_seconds_count"),
+                "peer hits": delta(dp, "tpu:kv_peer_hits_total"),
+                "restored blocks": delta(dp, "tpu:kv_restore_blocks_total"),
+                "peer fallbacks": delta(dp, "tpu:kv_peer_fallbacks_total"),
+                "restore fallbacks": delta(
+                    dp, "tpu:kv_restore_fallbacks_total"),
+            }
+            want = {"prefill served": 1.0, "decode served": 1.0,
+                    "peer hits": float(n_pd),
+                    "restored blocks": float(n_pd), "peer fallbacks": 0.0,
+                    "restore fallbacks": 0.0}
+            print(f"stack phase {logic}: {STACK_PD_TOKENS}-token prompt, "
+                  f"router boot {boot:.2f}s, engines' counters {pd}",
+                  flush=True)
+            if pd != want:
+                fail(f"stack phase {logic}: {pd}, want {want} (one chain "
+                     f"pull of {n_pd} blocks, no fallback)")
+            check_streams(logic, [got], direct([(ids, False)]))
+
+        for n in names:
+            report = json.loads(http(ports[n], "/debug/kernel_launches")[1])
+            if device == "cuda":
+                check_launches(f"stack phase engine {n}",
+                               report["launches"], report["dispatches"])
+            counts[n] = report["launches"]
+
+        # health: SIGTERM one engine under a steady load
+        rport = free_port()
+        proc, boot = start_router(
+            rcmd(rport, [pa_, pb], "roundrobin", (
+                "--static-backend-health-checks",
+                "--backend-health-check-timeout-seconds", "1")),
+            build / "chip_smoke_stack_router_health.log")
+        routers.append(proc)
+        boots.append(boot)
+        statuses: list = []
+        stop_load = False
+
+        def load() -> None:
+            i = 0
+            while not stop_load:
+                try:
+                    st, _ = http(rport, "/v1/completions", {
+                        "model": model, "max_tokens": 4,
+                        "temperature": 0, "ignore_eos": True,
+                        "prompt": short[i % 8]})
+                except OSError as e:
+                    st = f"error {e}"
+                statuses.append(st)
+                i += 1
+
+        with Pool(2) as pool:
+            jobs = [pool.submit(load) for _ in range(2)]
+            while len(statuses) < 8:
+                time.sleep(0.05)
+            t_kill = time.perf_counter()
+            eng["b"].send_signal(signal.SIGTERM)
+            eng["b"].wait(60)
+            gone = None
+            while time.perf_counter() - t_kill < STACK_HEALTH_WINDOW_S:
+                urls = [e["url"] for e in json.loads(
+                    http(rport, "/engines")[1])["engines"]]
+                if f"http://127.0.0.1:{pb}" not in urls:
+                    gone = time.perf_counter() - t_kill
+                    break
+                time.sleep(0.1)
+            if gone is None:
+                stop_load = True
+                fail("stack phase health: the router still lists the "
+                     f"stopped engine after {STACK_HEALTH_WINDOW_S}s")
+            n_window = len(statuses)
+            dead_before = router_served(rport).get(pb, 0.0)
+            a_before = served_counts([pa_])[0]
+            while len(statuses) < n_window + 16:
+                time.sleep(0.05)
+            stop_load = True
+            for j in jobs:
+                j.result()
+        n_after = len(statuses) - n_window
+        dead_after = router_served(rport).get(pb, 0.0)
+        a_after = settle_counts([pa_], [a_before], n_after)[0]
+        stop_server(proc)
+        routers.remove(proc)
+        errors = [s for s in statuses if s != 200]
+        print(f"stack phase health: {len(statuses)} requests, engine b "
+              f"SIGTERMed after 8, out of discovery {gone:.2f}s later; "
+              f"{n_after} requests after that window, the survivor "
+              f"served {a_after:.0f}, the stopped engine "
+              f"{dead_after - dead_before:.0f}; client errors "
+              f"{errors}", flush=True)
+        if errors:
+            fail(f"stack phase health: clients saw {errors}")
+        if dead_after != dead_before or a_after < n_after:
+            fail("stack phase health: requests after the detection window "
+                 "did not all go to the survivor")
+        print(f"stack phase: kernel launches a engine {counts}; "
+              f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+        return counts
+    finally:
+        for proc in routers:
+            stop_server(proc)
+        for proc in reversed(procs):  # decode before its prefill peer
+            stop_server(proc)
+
+
 def main() -> int:
     try:
         import torch
@@ -6203,6 +6803,7 @@ def main() -> int:
     spec_counts = spec_phase(torch, pa, gap_tol, smi)
     lora_counts = checkpoint_phase(torch, pa, gap_tol, smi)
     kv_counts = kv_phase(torch, pa, gap_tol, smi)
+    stack_counts = stack_phase(torch, gap_tol, smi)
     phi3_serve_phase(torch, pa, smi)
     moe_counts = moe_phase(torch, pa, gap_tol, smi)
     tp_counts, mh_ref = tp_phase(torch, pa, gap_tol, smi)
@@ -6227,6 +6828,7 @@ def main() -> int:
           f"{tp_counts}, long-context lane engine {lc_counts}, multi-host "
           f"rank 0 {mh_counts}, rank-set features {rs_counts}, "
           f"rank-set async decode and ring {rss_counts}, "
+          f"engines behind the router {stack_counts}, "
           f"pipeline-parallel ranks none (the gather path); "
           f"a served "
           f"mixed round launches the ragged kernel {LAYERS_3B} times a "

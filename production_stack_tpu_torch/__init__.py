@@ -12,7 +12,11 @@ Layout:
   models/    Llama-class decoder over the head-major paged cache
   ops/       layers, the gather-path oracle, the paged-attention kernels
   csrc/      CUDA C++ sources, built at first use
-  utils/     logging
+  kv/        KV tiers, transfer, cache server and controller
+  parallel/  tensor, pipeline and context parallelism, rank sets
+  tracing/   request spans and timelines
+  router/    the request router, on the standard library alone (no torch)
+  utils/     logging, xxh64, HTTP (server, reader, client), Prometheus
 """
 
 __version__ = "0.1.0"

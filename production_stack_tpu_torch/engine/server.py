@@ -38,8 +38,9 @@ starts ranks 1..N-1, or process 0's share of a multi-host job's), a
 watched task
 logs a follower's death, ``/health`` answers 503 from then on, and
 ``stop`` stops the followers. The Prometheus text is written by hand and
-HTTP/1.1 is parsed by hand (``asyncio.start_server``): the port needs
-neither aiohttp nor prometheus_client. One request per connection
+HTTP/1.1 is parsed by hand (``asyncio.start_server``, the reader in
+``utils/http.py``, which the router shares): the port needs neither
+aiohttp nor prometheus_client. One request per connection
 (``Connection: close``); streamed bodies are server-sent events ended by
 closing the connection.
 """
@@ -51,7 +52,6 @@ import dataclasses
 import hmac
 import json
 import time
-from urllib.parse import parse_qs
 
 import production_stack_tpu_torch
 from production_stack_tpu_torch.engine import protocol as proto
@@ -76,17 +76,17 @@ from production_stack_tpu_torch.tracing import (
     valid_request_id,
 )
 from production_stack_tpu_torch.utils import init_logger
+from production_stack_tpu_torch.utils.http import (
+    BadHttpMessage,
+    HttpError,
+    HttpRequest,
+    head,
+    read_request,
+)
 from production_stack_tpu_torch.utils.tasks import spawn_watched
 
 logger = init_logger(__name__)
 
-_REASONS = {
-    200: "OK", 400: "Bad Request", 401: "Unauthorized", 404: "Not Found",
-    405: "Method Not Allowed", 413: "Payload Too Large",
-    500: "Internal Server Error", 501: "Not Implemented",
-    503: "Service Unavailable",
-}
-MAX_BODY_BYTES = 64 * 2**20
 STATS_UPDATE_INTERVAL_S = 1.0
 # how often the tensor-parallel follower watch looks at the rank set
 TP_WATCH_INTERVAL_S = 1.0
@@ -95,36 +95,12 @@ _AUTH_PATHS = ("/tokenize", "/detokenize", "/sleep", "/wake_up", "/rerank",
                "/score")
 
 
-class HttpError(Exception):
-    def __init__(self, status: int, message: str,
-                 err_type: str = "invalid_request_error"):
-        super().__init__(message)
-        self.status = status
-        self.err_type = err_type
-
-
-class BadHttpMessage(HttpError):
-    """A request head the HTTP parser refuses: 400 with aiohttp's plain
-    text body (the reference server's parser answers these before any
-    handler runs)."""
-
-    def __init__(self, message: str):
-        super().__init__(400, message)
-
-
 def _key_matches(auth: str, api_key: str) -> bool:
     """The reference's bearer check: bytes compared in constant time
     (compare_digest refuses non-ASCII str; the header's bytes come back
     through utf-8 with surrogateescape, as they were read)."""
     return hmac.compare_digest(auth.encode("utf-8", "surrogateescape"),
                                f"Bearer {api_key}".encode())
-
-
-@dataclasses.dataclass
-class HttpRequest:
-    body: bytes
-    headers: dict[str, str]  # lower-cased names
-    query: dict[str, str]
 
 
 class EngineServer:
@@ -283,7 +259,7 @@ class EngineServer:
                       writer: asyncio.StreamWriter) -> None:
         try:
             try:
-                method, path, req = await _read_request(reader)
+                method, path, req = await read_request(reader)
             except BadHttpMessage as e:
                 await _send(writer, 400, str(e).encode(),
                             "text/plain; charset=utf-8")
@@ -851,7 +827,7 @@ class EngineServer:
             except Exception as e:  # noqa: BLE001 — surfaced as a chunk
                 await queue.put(("error", idx, e))
 
-        writer.write(_head(200, "text/event-stream", None, job.headers()))
+        writer.write(head(200, "text/event-stream", None, job.headers()))
         tasks = [asyncio.ensure_future(pump(*p)) for p in plan]
         try:
             if echoes and not job.chat:
@@ -938,7 +914,7 @@ class EngineServer:
         # the first output comes before the headers, so a request the
         # engine refuses still gets a plain error response
         out = await anext(gen)
-        writer.write(_head(200, "text/event-stream", None, job.headers()))
+        writer.write(head(200, "text/event-stream", None, job.headers()))
         if echo and not job.chat:
             # OpenAI echo streams the prompt text as the first chunk
             await _event(writer, proto.completion_chunk(
@@ -1056,132 +1032,9 @@ async def _event(writer, data: dict) -> None:
     await writer.drain()
 
 
-async def _read_request(reader: asyncio.StreamReader):
-    line = await reader.readline()
-    if not line:
-        raise asyncio.IncompleteReadError(b"", None)
-    try:
-        method, target, _version = line.decode("latin-1").split()
-    except ValueError:
-        raise HttpError(400, "malformed request line") from None
-    headers: dict[str, str] = {}
-    lines: dict[str, bytes] = {}
-    while True:
-        h = await reader.readline()
-        if h in (b"\r\n", b"\n", b""):
-            break
-        # header bytes as aiohttp reads them: utf-8, surrogateescape
-        name, _, value = h.decode("utf-8", "surrogateescape").partition(":")
-        headers[name.strip().lower()] = value.strip()
-        lines[name.strip().lower()] = h.rstrip(b"\r\n")
-    if "chunked" in headers.get("transfer-encoding", "").lower():
-        body = await _read_chunked(reader)
-    else:
-        length = _content_length(headers.get("content-length"),
-                                 lines.get("content-length"))
-        if length > MAX_BODY_BYTES:
-            raise HttpError(413, "request body too large")
-        body = await reader.readexactly(length) if length else b""
-    path, _, qs = target.partition("?")
-    query = {k: v[-1] for k, v in parse_qs(qs).items()}
-    return method.upper(), path, HttpRequest(body, headers, query)
-
-
-def _content_length(value: str | None, line: bytes | None) -> int:
-    """The body length of a Content-Length value: ASCII digits only, as
-    aiohttp's parser takes it (no sign, no underscore, whitespace only
-    after the digits); any other value is its 400 with its message, a
-    caret under the first character it refuses."""
-    if value is None:
-        return 0
-    bad, gap = (None if value else 0), False
-    for i, c in enumerate(value):
-        if c in " \t":
-            gap = True  # whitespace may only trail the digits
-        elif c not in "0123456789" or gap:
-            bad = i
-            break
-    if bad is None:
-        return int(value)
-    col = line.index(b":") + 1
-    while line[col:col + 1] in (b" ", b"\t"):
-        col += 1
-    # the repr's "b'" and the two spaces of indent before the caret
-    raise BadHttpMessage(
-        f"Invalid character in Content-Length:\n\n  {line!r}\n"
-        + " " * (col + bad + 4) + "^")
-
-
-async def _read_chunked(reader: asyncio.StreamReader) -> bytes:
-    """A Transfer-Encoding: chunked body (sizes in hex digits only,
-    extensions after ';' ignored, trailers skipped), capped at
-    MAX_BODY_BYTES. A size line or a chunk end that aiohttp's parser
-    refuses is its 400 with its message (_chunk_error)."""
-    parts: list[bytes] = []
-    total = 0
-    while True:
-        size_line = await reader.readline()
-        if not size_line:
-            raise asyncio.IncompleteReadError(b"", None)
-        line = size_line.rstrip(b"\r\n")
-        digits = len(line) - len(line.lstrip(_HEX_DIGITS))
-        after = line[digits:digits + 1]
-        if digits == 0 or after not in (b"", b";"):
-            # aiohttp places the caret past a blank after the digits
-            raise _chunk_error("Invalid character in chunk size", line,
-                               digits + (digits > 0 and after in b" \t"))
-        if not size_line.endswith(b"\r\n"):
-            raise _chunk_error("Missing expected CR after chunk size",
-                               size_line, len(size_line))
-        size = int(line[:digits], 16)
-        if size == 0:
-            while (await reader.readline()) not in (b"\r\n", b"\n", b""):
-                pass  # trailers
-            return b"".join(parts)
-        total += size
-        if total > MAX_BODY_BYTES:
-            raise HttpError(413, "request body too large")
-        parts.append(await reader.readexactly(size))
-        end = await reader.readexactly(2)
-        if end != b"\r\n":
-            # the excerpt: the chunk since its last CRLF, then the two
-            # bytes read after it (aiohttp's runs on through its
-            # receive buffer to the next CRLF)
-            tail = parts[-1].rsplit(b"\r\n", 1)[-1]
-            raise _chunk_error("Expected LF after chunk data",
-                               tail + end.split(b"\r")[0], len(tail))
-
-
-_HEX_DIGITS = b"0123456789abcdefABCDEF"
-
-
-def _chunk_error(reason: str, data: bytes, at: int) -> BadHttpMessage:
-    """aiohttp's 400 text for a chunked body its parser refuses at byte
-    `at` of `data`: the reason, the excerpt's repr and a caret under
-    that byte."""
-    return BadHttpMessage(f"{reason}:\n\n  {data!r}\n"
-                          + " " * (len(repr(data[:at])) + 1) + "^")
-
-
-def _head(status: int, content_type: str, length: int | None,
-          extra: dict[str, str] | None = None) -> bytes:
-    lines = [
-        f"HTTP/1.1 {status} {_REASONS.get(status, 'Error')}",
-        f"Content-Type: {content_type}",
-        "Connection: close",
-        f"Date: {time.strftime('%a, %d %b %Y %H:%M:%S GMT', time.gmtime())}",
-    ]
-    if length is not None:
-        lines.append(f"Content-Length: {length}")
-    else:
-        lines.append("Cache-Control: no-cache")
-    lines += [f"{k}: {v}" for k, v in (extra or {}).items()]
-    return ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
-
-
 async def _send(writer, status: int, payload: bytes, content_type: str,
                 extra: dict[str, str] | None = None) -> None:
-    writer.write(_head(status, content_type, len(payload), extra) + payload)
+    writer.write(head(status, content_type, len(payload), extra) + payload)
     await writer.drain()
 
 

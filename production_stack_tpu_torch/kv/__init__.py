@@ -13,7 +13,8 @@ Modules:
   offload       serialize_block / deserialize_block, CpuTier / DiskTier,
                 KVOffloadManager (worker, pending maps)
   cache_server  standalone shared KV cache service
-  remote        RemoteTier + CacheClient / AsyncCacheClient
+  remote        RemoteTier + CacheClient
+  cache_client  AsyncCacheClient, the router's lookup client (no torch)
   transfer      disaggregated-prefill producer (KVTransferServer)
   peer          PeerTier, the decode side's chain pulls
 """
