@@ -32,7 +32,11 @@ Phases, each fatal on failure:
    through its *_tp wrapper at one rank's local shape of the 3B at tp=2
    (nq=12 over nkv=4, d=128, bs=32), bf16 and f32 against the plain
    version, its time beside the profiler's device time and the host
-   enqueue a call, its bound and the library call at that shape;
+   enqueue a call, its bound and the library call at that shape. The
+   same checks and timings again at Gemma-7B's attention shapes (28
+   layers, nq=16, nkv=16, d=256) and Gemma-2B's (18 layers, nq=8,
+   nkv=1, d=256), bs=32, bf16 and f32 (GEMMA_KERNEL_SHAPES), each line
+   tagged with the model;
 3. forward: the same random params through models/llama.forward on the
    CPU (plain versions) and on the card (kernels), 2 layers at full 3B
    width, bf16; logits held to a stated tolerance;
@@ -44,14 +48,19 @@ Phases, each fatal on failure:
    logits held to the CPU as in phase 3, and an engine booted on each
    directory generates; a 5000-token Mistral prompt (past its window,
    ten prefill chunks) on the prefill kernel is held to the same
-   forward on the plain attention on the card; Gemma-7B (head_dim 256)
-   and Phi-3-mini (head_dim 96, a 2047-token window), whose head_dims
-   the kernels lack, the same at 2 layers on the gather path (logits
-   card vs CPU, a 3000-token Phi-3 prompt past its window held to the
-   prefill kernel's plain version on the card): an engine booted under
+   forward on the plain attention on the card; Gemma-7B and Gemma-2B
+   (head_dim 256) among them: each engine booted under auto resolves
+   to pallas with no warning and launches the kernels 2 times a forward
+   (the ragged kernel, and on a --no-ragged-kernel engine the prefill
+   and decode kernels), and one layer's attention at Gemma's heads is
+   timed on the three kernels beside the gather path (CUDA events);
+   Phi-3-mini (head_dim 96, a 2047-token window), whose head_dim the
+   kernels lack, the same at 2 layers on the gather path (logits card
+   vs CPU, a 3000-token prompt past its window held to the prefill
+   kernel's plain version on the card): an engine booted under
    attention_impl auto resolves to xla, logs "attention impl: xla
-   (head_dim N not in (64, 128))" and generates with no kernel launch,
-   and under pallas each is refused at boot naming its head_dim;
+   (head_dim 96 not in (64, 128, 256))" and generates with no kernel
+   launch, and under pallas it is refused at boot naming its head_dim;
 5. serve: the port's CLI (python -m production_stack_tpu_torch.engine)
    starts its OpenAI server on loopback with llama-3.2-3b (all 28
    layers, random bf16 weights, byte tokenizer) on its default config
@@ -220,6 +229,18 @@ Phases, each fatal on failure:
    build/chip_smoke_phi3_serve.log): prompts of 24, 300, 900 and 3000
    tokens (the last past the 2047-token window) at once, 16 tokens
    each, no kernel launch;
+11b. gemma: Gemma-7B at full depth (28 layers, 17.1 GB of seeded bf16
+   weights) written as an HF checkpoint under build/ (removed after)
+   and served by the CLI under auto on the kernels (log
+   build/chip_smoke_gemma_serve.log): prompts of 24, 300, 900 and 3000
+   tokens at once, 16 tokens each, finish reason length, no xla warning
+   in the log, mixed rounds run, launches 28 a forward; the same
+   requests on a --attention-impl xla server (log
+   build/chip_smoke_gemma_xla_serve.log, no launch); the same prompts
+   on one in-process runner on the checkpoint, the kernels against the
+   gather path: float32 prefill and decode logits within
+   GEMMA_F32_LOGIT_REL_TOL of max|logit|, and bf16's largest logit
+   difference the near-tie bound the served streams are held to;
 12. MoE: Mixtral-8x7B at its published widths, depth cut to 4 of 32
    layers (12.2 GB in bf16; the whole model does not fit one card): 2
    layers' logits card vs CPU; a 1-layer checkpoint with
@@ -353,6 +374,7 @@ before each guided-phase engine, before the decode phase's
 each mixed-round engine, before each compiled-phase and async-phase
 engine's run, before each spec-phase engine's run and the
 spec server's requests, before the checkpoint phase's requests,
+before each families-phase engine and each Gemma-7B server's requests,
 before each KV-phase engine's and server's requests, before each
 impl-phase turn, the gather families' engines, the Phi-3 server's
 requests, the Mixtral engine's run and, on every rank, before the tp
@@ -366,7 +388,8 @@ times on those paths fails the run. The servers' logs go to build/chip_smoke_ser
 build/chip_smoke_lc_serve.log,
 build/chip_smoke_spec_serve.log, build/chip_smoke_lora_serve.log, build/chip_smoke_prefill_serve.log,
 build/chip_smoke_decode_serve.log, build/chip_smoke_cache_server.log and
-build/chip_smoke_phi3_serve.log, build/chip_smoke_mh{0,1}_serve.log and
+build/chip_smoke_phi3_serve.log, build/chip_smoke_gemma{,_xla}_serve.log,
+build/chip_smoke_mh{0,1}_serve.log and
 build/chip_smoke_stack_*.log.
 The last lines are the kernels JSON, the
 card's name and power limit (nvidia-smi), and {"ok": true, "device":
@@ -508,17 +531,29 @@ def device_breakdown(torch, fn, flush, names, n: int = 10) -> str:
 
 
 # -- kernel phase --------------------------------------------------------------
-def kernel_phase(torch) -> list[tuple[str, dict]]:
+# attention shapes of the kernel phase's runs beyond the 3B's: (layers,
+# query heads, kv heads, head_dim) of google/gemma-7b and google/gemma-2b
+GEMMA_KERNEL_SHAPES = {"Gemma-7B": (28, 16, 16, 256),
+                       "Gemma-2B": (18, 8, 1, 256)}
+
+
+def kernel_phase(torch, model: str = "",
+                 shape: tuple = (28, 24, 8, 128)) -> list[tuple[str, dict]]:
+    """The kernels against their plain versions and timed at one model's
+    attention shape (layers, nq, nkv, head_dim), the 3B's by default;
+    `model` names another in every printed line."""
     import numpy as np
     import torch.nn.functional as F
 
     from production_stack_tpu_torch.ops import paged_attention as pa
 
+    t_phase = time.perf_counter()
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
-    L, nq, nkv, d, bs = 28, 24, 8, 128, 32
+    L, nq, nkv, d = shape
+    bs = 32
     g = nq // nkv
-    num_blocks = 2560  # 81920 slots: offsets of layer 27 pass 2^31
+    num_blocks = 2560  # 81920 slots: offsets of the 3B's layer 27 pass 2^31
     slots = num_blocks * bs
     layer = L - 1
     scale = d**-0.5
@@ -528,8 +563,9 @@ def kernel_phase(torch) -> list[tuple[str, dict]]:
                           dtype=dt)
     v_cache = torch.randn((L, nkv, slots, d), generator=gen, device=dev,
                           dtype=dt)
-    assert (layer * nkv + nkv - 1) * slots * d > 2**31
+    assert model or (layer * nkv + nkv - 1) * slots * d > 2**31
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    tag = f"[{model}: nq {nq}, nkv {nkv}, d {d}] " if model else ""
 
     # lanes: 8 decode lanes (page-straddling contexts) + 2 prefill chunks
     dec_ctx = [1, 31, 32, 33, 500, 1000, 1531, 2047]
@@ -625,11 +661,11 @@ def kernel_phase(torch) -> list[tuple[str, dict]]:
         tol = rel_tol * r.abs().amax(dim=-1, keepdim=True)
         worst = float((err / tol.clamp_min(1e-30)).max())
         max_err = float(err.max())
-        print(f"kernel {name}: max_abs_err={max_err:.3e} worst err/tol="
-              f"{worst:.3f} (tol {rel_tol:.3g} x max|ref| per row, head)",
-              flush=True)
+        print(f"kernel {tag}{name}: max_abs_err={max_err:.3e} worst "
+              f"err/tol={worst:.3f} (tol {rel_tol:.3g} x max|ref| per row, "
+              "head)", flush=True)
         if not worst <= 1.0:
-            fail(f"{name}: kernel vs plain off by {worst:.3f}x the "
+            fail(f"{tag}{name}: kernel vs plain off by {worst:.3f}x the "
                  "tolerance")
         return max_err
 
@@ -659,7 +695,7 @@ def kernel_phase(torch) -> list[tuple[str, dict]]:
         lib_ms = sdpa_ms(lib_args())
         release(torch)
         bms, by = bound(n_rows, qpos, kv_tokens)
-        print(f"kernel {name}: kernel_ms={ms:.4f} (mean of {iters}; "
+        print(f"kernel {tag}{name}: kernel_ms={ms:.4f} (mean of {iters}; "
               f"profiler, per call: {split}) plain_ms={plain_ms:.3f} "
               f"bound_ms={bms:.4f} ({by}) library_ms={lib_ms:.4f}",
               flush=True)
@@ -670,8 +706,8 @@ def kernel_phase(torch) -> list[tuple[str, dict]]:
         """Grid, shared memory, achieved rate and roofline share of a
         redesigned kernel (registers and spills: the build phase's
         ptxas lines)."""
-        print(f"kernel {name}: grid {grid}, dynamic shared memory {smem} "
-              f"bytes, {rate}, bound/kernel = "
+        print(f"kernel {tag}{name}: grid {grid}, dynamic shared memory "
+              f"{smem} bytes, {rate}, bound/kernel = "
               f"{st['bound_ms'] / st['ms']:.3f}", flush=True)
 
     kw = dict(block_size=bs, scale=scale)
@@ -722,12 +758,13 @@ def kernel_phase(torch) -> list[tuple[str, dict]]:
         rows_t, F32_REL_TOL)
     rag["max_abs_err"] = max(rag["max_abs_err"], werr)
     smem = pa._prefill_smem(d, 2, 2)  # the prefill tile: ragged too
+    bn = pa._key_tile(d, 2, 2)
     n_x, n_y = pa._ragged_grid(len(seg_meta), tq, g, nkv)
     rag_bytes = 2 * kv_tok * nkv * d * 2 + 2 * len(covered) * nq * d * 2
     report("ragged_paged_attention", rag,
            f"({n_x}, {n_y}) = {n_x * n_y} blocks, one per (segment, "
            f"{pa.PREFILL_BM}-fused-row tile, kv head), "
-           f"{pa.PREFILL_BN}-key tiles", smem,
+           f"{bn}-key tiles", smem,
            f"{rag_bytes / rag['ms'] / 1e6:.1f} GB/s, "
            f"{4 * visible_keys(qpos_r) * nq * d / rag['ms'] / 1e9:.1f} "
            "TFLOP/s (bf16)")
@@ -759,7 +796,7 @@ def kernel_phase(torch) -> list[tuple[str, dict]]:
     n_tiles = -(-t * g // pa.PREFILL_BM)
     report("paged_prefill_attention", pre,
            f"({n_tiles}, {nkv}) = {n_tiles * nkv} blocks of "
-           f"{pa.PREFILL_BM} fused rows x {pa.PREFILL_BN}-key tiles",
+           f"{pa.PREFILL_BM} fused rows x {bn}-key tiles",
            smem,
            f"{4 * visible_keys(qpos_p) * nq * d / pre['ms'] / 1e9:.1f} "
            f"TFLOP/s (bf16)")
@@ -824,12 +861,14 @@ def kernel_phase(torch) -> list[tuple[str, dict]]:
     report("ragged_paged_attention decode-only", rdec,
            f"({n_x}, {n_y}) = {n_x * n_y} blocks", smem,
            f"{kv_bytes / rdec['ms'] / 1e6:.1f} GB/s")
-    print(f"decode lanes ({b}, contexts {dec_ctx}): ragged_paged_attention "
-          f"kernel_ms={rdec['ms']:.4f} beside paged_decode_attention "
-          f"kernel_ms={dec['ms']:.4f} (x{rdec['ms'] / dec['ms']:.2f})",
-          flush=True)
+    print(f"{tag}decode lanes ({b}, contexts {dec_ctx}): "
+          f"ragged_paged_attention kernel_ms={rdec['ms']:.4f} beside "
+          f"paged_decode_attention kernel_ms={dec['ms']:.4f} "
+          f"(x{rdec['ms'] / dec['ms']:.2f})", flush=True)
     del k_cache, v_cache, k32, v32, flush
     release(torch)
+    print(f"kernel phase {tag}{time.perf_counter() - t_phase:.1f}s",
+          flush=True)
     return [("ragged", rag), ("prefill", pre), ("decode", dec)]
 
 
@@ -2871,14 +2910,24 @@ FAMILY_CONFIGS = {
         "num_key_value_heads": 8, "rms_norm_eps": 1e-05,
         "rope_theta": 500000.0, "tie_word_embeddings": True,
         "vocab_size": 128256},
+    # google/gemma-7b: head_dim 256, 16 query heads over 16 kv heads
+    "Gemma-7B": {
+        "architectures": ["GemmaForCausalLM"], "head_dim": 256,
+        "hidden_act": "gelu", "hidden_size": 3072,
+        "intermediate_size": 24576, "max_position_embeddings": 8192,
+        "num_attention_heads": 16, "num_hidden_layers": 28,
+        "num_key_value_heads": 16, "rms_norm_eps": 1e-06,
+        "rope_theta": 10000.0, "vocab_size": 256000},
+    # google/gemma-2b: head_dim 256, 8 query heads over one kv head
+    "Gemma-2B": {
+        "architectures": ["GemmaForCausalLM"], "head_dim": 256,
+        "hidden_act": "gelu", "hidden_size": 2048,
+        "intermediate_size": 16384, "max_position_embeddings": 8192,
+        "num_attention_heads": 8, "num_hidden_layers": 18,
+        "num_key_value_heads": 1, "rms_norm_eps": 1e-06,
+        "rope_theta": 10000.0, "vocab_size": 256000},
 }
-# google/gemma-7b: head_dim 256, which the card kernels do not take
-GEMMA_7B = {
-    "architectures": ["GemmaForCausalLM"], "head_dim": 256,
-    "hidden_act": "gelu", "hidden_size": 3072, "intermediate_size": 24576,
-    "max_position_embeddings": 8192, "num_attention_heads": 16,
-    "num_hidden_layers": 28, "num_key_value_heads": 16,
-    "rms_norm_eps": 1e-06, "rope_theta": 10000.0, "vocab_size": 256000}
+GEMMA_7B = FAMILY_CONFIGS["Gemma-7B"]
 # microsoft/Phi-3-mini-4k-instruct: head_dim 3072 / 32 = 96, which the
 # card kernels do not take, and a 2047-token sliding window
 PHI_3_MINI = {
@@ -2889,7 +2938,7 @@ PHI_3_MINI = {
     "rms_norm_eps": 1e-05, "rope_theta": 10000.0, "sliding_window": 2047,
     "tie_word_embeddings": False, "vocab_size": 32064}
 # families whose head_dim the kernels lack: served on the gather path
-GATHER_FAMILIES = {"Gemma-7B": GEMMA_7B, "Phi-3-mini": PHI_3_MINI}
+GATHER_FAMILIES = {"Phi-3-mini": PHI_3_MINI}
 FAMILY_LAYERS = 2
 # the Mistral prompt past its window: ten prefill chunks of <= 512 rows
 WINDOW_PROMPT_TOKENS = 5000
@@ -2958,11 +3007,18 @@ def runner_log():
     return records
 
 
-def gather_attention_us(torch, cfg) -> tuple[float, float]:
-    """Device µs of one layer's attention on the gather path at `cfg`'s
-    heads (bf16, block size 32, CUDA events, mean of 20 calls): a
-    512-row prefill chunk at position 512 over its 1024 keys, and a
-    decode step of 8 lanes over 2048 keys each."""
+def attention_us(torch, pa, cfg, kernels: bool) -> dict:
+    """Device µs of one layer's attention at `cfg`'s heads (bf16, block
+    size 32, CUDA events, mean of 20 calls): a 512-row prefill chunk at
+    position 512 over its 1024 keys and a decode step of 8 lanes over
+    2048 keys each, on the gather path and, with `kernels`, on the
+    prefill kernel, the decode kernel and the ragged kernel (the decode
+    lanes packed as the runner packs a decode step)."""
+    import numpy as np
+
+    from production_stack_tpu_torch.engine.model_runner import (
+        decode_segments,
+    )
     from production_stack_tpu_torch.ops import attention
 
     bs, pages = 32, 2048 // 32
@@ -2980,13 +3036,24 @@ def gather_attention_us(torch, cfg) -> tuple[float, float]:
     tables = torch.arange(1, 1 + 8 * pages, dtype=torch.int32,
                           device="cuda").view(8, pages)
     ctx = torch.full((8,), 2048, dtype=torch.int32, device="cuda")
-    calls = (
-        lambda: attention.paged_prefill_attention_gather(
+    calls = {
+        "gather prefill": lambda: attention.paged_prefill_attention_gather(
             q_pf, kc, vc, 0, table, 512, **kw),
-        lambda: attention.paged_decode_attention_gather(
-            q_dec, kc, vc, 0, tables, ctx, **kw))
-    out = []
-    for fn in calls:
+        "gather decode": lambda: attention.paged_decode_attention_gather(
+            q_dec, kc, vc, 0, tables, ctx, **kw)}
+    if kernels:
+        _, blk, meta = decode_segments(np.full(8, 2048, np.int32))
+        blk_d = torch.from_numpy(blk).cuda()
+        meta_d = torch.from_numpy(meta).cuda()
+        calls.update({
+            "prefill kernel": lambda: pa.paged_prefill_attention(
+                q_pf, kc, vc, 0, table, 512, **kw),
+            "decode kernel": lambda: pa.paged_decode_attention(
+                q_dec, kc, vc, 0, tables, ctx, **kw),
+            "ragged kernel": lambda: pa.ragged_paged_attention(
+                q_dec, kc, vc, 0, tables, blk_d, meta_d, **kw)})
+    out = {}
+    for name, fn in calls.items():
         fn()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
@@ -2994,8 +3061,23 @@ def gather_attention_us(torch, cfg) -> tuple[float, float]:
             fn()
         ev[1].record()
         torch.cuda.synchronize()
-        out.append(ev[0].elapsed_time(ev[1]) / 20 * 1e3)
-    return out[0], out[1]
+        out[name] = ev[0].elapsed_time(ev[1]) / 20 * 1e3
+    return out
+
+
+def print_attention_us(torch, pa, name: str, cfg, smi: str,
+                       kernels: bool) -> None:
+    us = attention_us(torch, pa, cfg, kernels)
+    pf = ", ".join(f"{k} {v:.1f} us" for k, v in us.items()
+                   if "prefill" in k)
+    dec = ", ".join(f"{k} {v:.1f} us" for k, v in us.items()
+                    if "prefill" not in k)
+    print(f"families phase {name}: one layer's attention "
+          f"({cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim "
+          f"{cfg.head_dim}, bf16; CUDA events, mean of 20): a 512-row "
+          f"prefill chunk over 1024 keys: {pf}; a decode step of 8 lanes "
+          f"over 2048 keys: {dec} (the ragged kernel on the lanes packed "
+          f"as the runner packs a decode step) on {smi}", flush=True)
 
 
 def gather_family(torch, pa, d: Path, name: str, published: dict, i: int,
@@ -3058,19 +3140,14 @@ def gather_family(torch, pa, d: Path, name: str, published: dict, i: int,
                  f"by {rel:.3e}")
     del loaded
     release(torch)
-    pf_us, dec_us = gather_attention_us(torch, cfg)
-    print(f"families phase {name}: gather-path attention, one layer "
-          f"({cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim "
-          f"{cfg.head_dim}, bf16): a 512-row prefill chunk over 1024 keys "
-          f"{pf_us:.1f} us, a decode step of 8 lanes over 2048 keys "
-          f"{dec_us:.1f} us (CUDA events, mean of 20) on {smi}",
-          flush=True)
+    print_attention_us(torch, pa, name, cfg, smi, kernels=False)
     records = runner_log()
     pa.reset_launch_counts()
     eng = LLMEngine(EngineConfig(
         model=str(d), tokenizer="byte", device="cuda", block_size=32,
         num_kv_blocks=64, max_num_seqs=4, seed=SEED))
-    want = f"attention impl: xla (head_dim {cfg.head_dim} not in (64, 128))"
+    want = (f"attention impl: xla (head_dim {cfg.head_dim} not in "
+            f"{pa.KERNEL_HEAD_DIMS})")
     warned = [r.getMessage() for r in records if r.levelname == "WARNING"]
     if eng.runner.attention_impl != "xla" or want not in warned:
         fail(f"families phase {name}: auto resolved to "
@@ -3105,14 +3182,18 @@ def gather_family(torch, pa, d: Path, name: str, published: dict, i: int,
              "the card under pallas")
 
 
-def families_phase(torch, pa, smi: str) -> None:
+def families_phase(torch, pa, smi: str) -> dict:
     """HF checkpoints of published configs at full width, cut to 2
     layers: written from seeded params (qkv biases drawn too), read back
     byte for byte through models/weights.py onto the card, logits held
     to the CPU, a short greedy run through an engine booted on the
-    directory; the Mistral prompt past its window held to the plain
-    attention on the card; Gemma-7B (head_dim 256) and Phi-3-mini
-    (head_dim 96) on the gather path (gather_family)."""
+    directory under auto (pallas, no warning, launches held to 2 a
+    forward); the Mistral prompt past its window held to the plain
+    attention on the card; Gemma-7B and Gemma-2B (head_dim 256) also
+    through the composed round's prefill and decode kernels, and one
+    layer's attention timed on the kernels beside the gather path;
+    Phi-3-mini (head_dim 96) on the gather path (gather_family). Returns
+    the head_dim-256 engines' launches."""
     import shutil
     import tempfile
 
@@ -3128,6 +3209,8 @@ def families_phase(torch, pa, smi: str) -> None:
     )
     from production_stack_tpu_torch.models.weights import load_hf_weights
 
+    t_phase = time.perf_counter()
+    counts = {"ragged": 0, "prefill": 0, "decode": 0}
     (REPO / "build").mkdir(exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="families-", dir=REPO / "build"))
     try:
@@ -3185,26 +3268,68 @@ def families_phase(torch, pa, smi: str) -> None:
                          f"differ by {rel:.3e}")
             del loaded
             release(torch)
-            eng = LLMEngine(EngineConfig(
-                model=str(d), tokenizer="byte", device="cuda",
-                block_size=32, num_kv_blocks=64, max_num_seqs=4, seed=SEED))
-            outs = eng.generate(
-                [[(5 * j + i) % 250 + 1 for j in range(n)] for n in (9, 77)],
-                SamplingParams(max_tokens=8, temperature=0,
-                               ignore_eos=True))
-            if [len(o.token_ids) for o in outs] != [8, 8]:
-                fail(f"families phase {name}: engine on the checkpoint "
-                     f"gave {[o.token_ids for o in outs]}")
-            print(f"families phase {name}: engine booted on the "
-                  f"directory, greedy tokens {[o.token_ids for o in outs]}",
-                  flush=True)
-            del eng
+            if cfg.head_dim == 256:
+                print_attention_us(torch, pa, name, cfg, smi, kernels=True)
+            # the default engine (unified ragged rounds) and, at head_dim
+            # 256, the composed round (--no-ragged-kernel: the prefill and
+            # decode kernels), each booted under auto on the directory
+            modes = {"ragged": {}}
+            if cfg.head_dim == 256:
+                modes["composed"] = {"ragged_kernel": False}
+            streams = {}
+            for mode, over in modes.items():
+                records = runner_log()
+                eng = LLMEngine(EngineConfig(
+                    model=str(d), tokenizer="byte", device="cuda",
+                    block_size=32, num_kv_blocks=64, max_num_seqs=4,
+                    seed=SEED, **over))
+                runs0 = dict(eng.runner.dispatch_counts)
+                pa.reset_launch_counts()
+                outs = eng.generate(
+                    [[(5 * j + i) % 250 + 1 for j in range(n)]
+                     for n in (9, 77)],
+                    SamplingParams(max_tokens=8, temperature=0,
+                                   ignore_eos=True))
+                torch.cuda.synchronize()
+                launches = pa.launch_counts()
+                if [len(o.token_ids) for o in outs] != [8, 8]:
+                    fail(f"families phase {name}: engine on the checkpoint "
+                         f"gave {[o.token_ids for o in outs]}")
+                warned = [r.getMessage() for r in records
+                          if r.levelname == "WARNING"]
+                if (eng.runner.attention_impl != "pallas"
+                        or any("attention impl" in w for w in warned)):
+                    fail(f"families phase {name}: auto resolved to "
+                         f"{eng.runner.attention_impl}, warnings {warned}")
+                runs = {k: v - runs0[k]
+                        for k, v in eng.runner.dispatch_counts.items()}
+                check_launches(f"families phase {name} ({mode})", launches,
+                               runs, layers=FAMILY_LAYERS, impl=mode)
+                if cfg.head_dim == 256:
+                    for k in counts:
+                        counts[k] += launches[k]
+                streams[mode] = [o.token_ids for o in outs]
+                print(f"families phase {name}: {mode} engine booted on the "
+                      f"directory under auto (pallas, no warning), greedy "
+                      f"tokens {streams[mode]}", flush=True)
+                del eng
+                release(torch)
+            if "composed" in streams:
+                same = sum(a == b for a, b in zip(streams["ragged"],
+                                                  streams["composed"]))
+                print(f"families phase {name}: {same}/2 greedy streams of "
+                      "the composed round equal to the ragged kernel's "
+                      "(printed, not held: no near-tie tolerance is "
+                      "measured at 2 layers)", flush=True)
             shutil.rmtree(d)
             release(torch)
         for i, (name, published) in enumerate(GATHER_FAMILIES.items()):
             gather_family(torch, pa, root / name, name, published, i, smi)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    print(f"families phase: {time.perf_counter() - t_phase:.1f}s; head_dim "
+          f"256 engines launched {counts}", flush=True)
+    return counts
 
 
 # -- checkpoint phase ----------------------------------------------------------
@@ -3899,7 +4024,8 @@ def phi3_serve_phase(torch, pa, smi: str) -> None:
         t0 = time.perf_counter()
         proc = start_server(port, log_path, model=str(ckdir))
         boot = wait_healthy("phi-3 phase", proc, port, log_path, t0)
-        want = "attention impl: xla (head_dim 96 not in (64, 128))"
+        want = (f"attention impl: xla (head_dim 96 not in "
+                f"{pa.KERNEL_HEAD_DIMS})")
         if want not in log_path.read_text(errors="replace"):
             fail(f"phi-3 phase: the server log lacks '{want}':\n"
                  f"{log_tail(log_path)}")
@@ -3946,6 +4072,245 @@ def phi3_serve_phase(torch, pa, smi: str) -> None:
         shutil.rmtree(root, ignore_errors=True)
     release(torch)
     print(f"phi-3 phase: {time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
+# -- Gemma-7B serve phase -------------------------------------------------------
+# the Gemma-7B server's requests: prompts of these lengths at once, the
+# longest in six 512-token prefill chunks that ride mixed rounds beside
+# the others' decode rows
+GEMMA_PROMPT_TOKENS = (24, 300, 900, 3000)
+GEMMA_MAX_TOKENS = 16
+GEMMA_KV_BLOCKS = 256  # 8192 tokens at 448 KiB a token: 3.8 GB
+
+
+def impl_logits(torch, runner, prompts) -> dict:
+    """The served model's forwards on one runner, on the kernels and on
+    the gather path: each prompt prefilled in 512-token chunks by each
+    impl (the last chunk's last-row logits), then one decode step of all
+    the prompts' lanes on the gather path's cache, on the ragged kernel
+    and on the gather path. {impl: (prefill rows, decode rows)}, f32."""
+    from production_stack_tpu_torch.ops import attention
+
+    bs, chunk = runner.block_size, 512
+    tables, nxt = [], 1
+    for p in prompts:
+        n = -(-(len(p) + 1) // bs)
+        tables.append(list(range(nxt, nxt + n)))
+        nxt += n
+    fns = {"kernels": dict(runner._attn_fns),
+           "gather": {"prefill": attention.paged_prefill_attention_gather,
+                      "decode": attention.paged_decode_attention_gather}}
+    args = ([11 * (i + 1) for i in range(len(prompts))],
+            [len(p) for p in prompts], tables,
+            [len(p) + 1 for p in prompts])
+
+    def use(impl):
+        runner._attn_fns = fns[impl]
+        runner.ragged_kernel = impl == "kernels"
+
+    # eager steps: a captured decode graph would replay the first impl
+    runner.eager = True
+    pf, dec = {}, {}
+    try:
+        for impl in ("kernels", "gather"):
+            use(impl)
+            rows = []
+            for p, tb in zip(prompts, tables):
+                for s0 in range(0, len(p), chunk):
+                    ids = p[s0:s0 + chunk]
+                    _, lg = runner.prefill(ids, s0, tb, s0 + len(ids))
+                rows.append(lg.float().reshape(-1))
+            pf[impl] = torch.stack(rows)
+        for impl in ("gather", "kernels"):
+            use(impl)
+            dec[impl] = runner.decode(*args)[:len(prompts)].float()
+    finally:
+        use("kernels")
+        runner.eager = False
+    torch.cuda.synchronize()
+    return {impl: (pf[impl], dec[impl]) for impl in pf}
+
+
+def max_rel(torch, a, b) -> tuple[float, float]:
+    """(max|a - b|, that over max|b|); fails on a non-finite value."""
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        fail("non-finite logits")
+    diff = float((a - b).abs().max())
+    return diff, diff / float(b.abs().max())
+
+
+# the served Gemma-7B's 28-layer logits in float32, kernels (their f32
+# CUDA-core path) against the gather path: summation order only, which
+# moves a random-weight model's logits by ~1e-5 of their largest through
+# 28 layers; a page, mask or tile fault moves them by far more
+GEMMA_F32_LOGIT_REL_TOL = 1e-3
+
+
+def gemma_serve_phase(torch, pa, gap_tol: float, smi: str) -> dict:
+    """Gemma-7B at its published width and full depth (28 layers, seeded
+    random bf16 weights, 17.1 GB) served on the kernels: written as an HF
+    checkpoint in a temporary directory under build/ that the phase
+    removes and served by the CLI under the default attention_impl auto
+    (log build/chip_smoke_gemma_serve.log). GEMMA_PROMPT_TOKENS prompts
+    at once,
+    GEMMA_MAX_TOKENS tokens each: each answers with finish reason length,
+    the log holds no 'attention impl: xla' warning, mixed rounds ran
+    (tpu:ragged_rounds_total), launches 28 a forward; then the same
+    requests on the gather path (--attention-impl xla, log
+    build/chip_smoke_gemma_xla_serve.log; no kernel launch), and the
+    kernels' greedy streams held to its under the near-tie rule. The
+    same prompts on one in-process runner of the same weights, on each
+    impl (impl_logits): in float32 the kernels' prefill and decode
+    logits within GEMMA_F32_LOGIT_REL_TOL of the gather path's, and in
+    bf16 their largest difference is the streams' near-tie bound.
+    Returns the kernels' launches."""
+    import shutil
+    import tempfile
+
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.model_runner import ModelRunner
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.models.config import get_model_config
+    from production_stack_tpu_torch.models.debug_checkpoint import (
+        write_hf_checkpoint,
+    )
+
+    t_phase = time.perf_counter()
+    (REPO / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="gemma-", dir=REPO / "build"))
+    ckdir = root / "gemma-7b"
+    procs = []
+    prompts = [[(13 * i + 7 * j) % 255999 + 1 for j in range(n)]
+               for i, n in enumerate(GEMMA_PROMPT_TOKENS)]
+    try:
+        ckdir.mkdir()
+        (ckdir / "config.json").write_text(json.dumps(GEMMA_7B))
+        cfg = get_model_config(str(ckdir))
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = llama.init_params(cfg, gen, torch.bfloat16, "cuda")
+        size = sum(t.numel() * t.element_size()
+                   for t in torch.utils._pytree.tree_leaves(params))
+        t0 = time.perf_counter()
+        shards = write_hf_checkpoint(str(ckdir), GEMMA_7B, params,
+                                     shard_bytes=5 * 10**9)
+        print(f"gemma phase: {cfg.num_layers} layers, head_dim "
+              f"{cfg.head_dim}, {size / 1e9:.2f} GB: wrote {len(shards)} "
+              f"shards in {time.perf_counter() - t0:.2f}s", flush=True)
+        del params
+        release(torch)
+
+        def serve(impl: str):
+            tag = "" if impl == "auto" else f"_{impl}"
+            log_path = REPO / "build" / f"chip_smoke_gemma{tag}_serve.log"
+            t0 = time.perf_counter()
+            port = free_port()
+            procs.append(start_server(
+                port, log_path, model=str(ckdir),
+                extra=("--num-kv-blocks", str(GEMMA_KV_BLOCKS),
+                       "--attention-impl", impl)))
+            boot_s = wait_healthy(f"gemma phase ({impl})", procs[-1], port,
+                                  log_path, t0)
+            if "attention impl: xla (" in log_path.read_text(
+                    errors="replace"):
+                fail(f"gemma phase ({impl}): the server warned of the "
+                     "gather path")
+            print(f"gemma phase: {impl} server healthy {boot_s:.1f}s after "
+                  "start (the load included), no 'attention impl: xla' "
+                  "warning", flush=True)
+            st, body = http(port, "/debug/kernel_launches", method="DELETE")
+            if st != 200:
+                fail(f"gemma phase ({impl}): launch counts not reset: "
+                     f"{body}")
+            rounds0 = metric(port, "tpu:ragged_rounds_total")
+
+            def ask(ids):
+                t1 = time.perf_counter()
+                st, body = http(port, "/v1/completions", {
+                    "prompt": ids, "max_tokens": GEMMA_MAX_TOKENS,
+                    "temperature": 0, "ignore_eos": True, "logprobs": 2,
+                    "return_tokens_as_token_ids": True})
+                r = json.loads(body)
+                u = r.get("usage", {})
+                if not (st == 200
+                        and r["choices"][0]["finish_reason"] == "length"
+                        and u.get("completion_tokens") == GEMMA_MAX_TOKENS
+                        and u.get("prompt_tokens") == len(ids)):
+                    fail(f"gemma phase ({impl}): bad answer to a "
+                         f"{len(ids)}-token prompt: {body[:400]}")
+                return (HttpStream(r["choices"][0]),
+                        time.perf_counter() - t1)
+
+            t1 = time.perf_counter()
+            with ThreadPoolExecutor(len(prompts)) as ex:
+                got = list(ex.map(ask, prompts))
+            wall = time.perf_counter() - t1
+            rounds = metric(port, "tpu:ragged_rounds_total") - rounds0
+            report = json.loads(http(port, "/debug/kernel_launches")[1])
+            what = f"gemma phase ({impl})"
+            check_launches(what, report["launches"], report["dispatches"],
+                           impl="ragged" if impl == "auto" else "xla")
+            if impl == "auto" and not rounds > 0:
+                fail(f"{what}: no mixed round ran")
+            print(f"{what}: {len(prompts)} requests at once (prompts "
+                  f"{list(GEMMA_PROMPT_TOKENS)} tokens, {GEMMA_MAX_TOKENS} "
+                  f"generated each) answered in {wall:.2f}s; seconds each "
+                  f"{[round(x[1], 3) for x in got]} (host clock); "
+                  f"{rounds:.0f} mixed rounds; dispatches "
+                  f"{report['dispatches']} on {smi}", flush=True)
+            stop_server(procs.pop())
+            release(torch)
+            return [x[0] for x in got], report["launches"]
+
+        kern, launches = serve("auto")
+        ref, _ = serve("xla")
+        # the same forwards on one runner of the same weights, on each
+        # impl, in bf16 (the served dtype) and in float32: f32 holds the
+        # kernels to the gather path through all 28 layers; bf16's
+        # largest logit difference is the streams' near-tie bound (the
+        # 3B's gap_tol, printed beside it, is another model's)
+        logits = {}
+        for dt in ("bfloat16", "float32"):
+            runner = ModelRunner(EngineConfig(
+                model=str(ckdir), tokenizer="byte", device="cuda",
+                block_size=32, num_kv_blocks=GEMMA_KV_BLOCKS, seed=SEED,
+                dtype=dt, cache_dtype=dt))
+            logits[dt] = impl_logits(torch, runner, prompts)
+            del runner
+            release(torch)
+        tol = 0.0
+        for k, what in enumerate(("prefill", "decode step")):
+            d32, r32 = max_rel(torch, logits["float32"]["kernels"][k],
+                               logits["float32"]["gather"][k])
+            d16, r16 = max_rel(torch, logits["bfloat16"]["kernels"][k],
+                               logits["bfloat16"]["gather"][k])
+            ref32 = logits["float32"]["gather"][k]
+            far = {impl: max_rel(torch, logits["bfloat16"][impl][k],
+                                 ref32)[1] for impl in ("kernels", "gather")}
+            print(f"gemma phase: {what} logits of {len(prompts)} lanes, "
+                  f"kernels vs gather path: float32 max|dlogit|="
+                  f"{d32:.3e}, /max|logit|={r32:.3e} (tol "
+                  f"{GEMMA_F32_LOGIT_REL_TOL}); bfloat16 {d16:.4f}, "
+                  f"/max|logit|={r16:.3e}; bf16 from the f32 gather path: "
+                  f"kernels {far['kernels']:.3e}, gather path "
+                  f"{far['gather']:.3e} of max|logit|", flush=True)
+            if not r32 <= GEMMA_F32_LOGIT_REL_TOL:
+                fail(f"gemma phase: float32 {what} logits on the kernels "
+                     f"differ from the gather path's by {r32:.3e}")
+            tol = max(tol, d16)
+        print(f"gemma phase: near-tie bound {tol:.4f} (the 3B decode "
+              f"phase's: {gap_tol:.4f})", flush=True)
+        n_same = near_tie_check("gemma phase kernels vs gather path", ref,
+                                kern, tol)
+        print(f"gemma phase: {n_same}/{len(prompts)} greedy streams on the "
+              "kernels equal to the gather path's; streams "
+              f"{[s.token_ids for s in kern]}", flush=True)
+    finally:
+        for proc in procs:
+            stop_server(proc)
+        shutil.rmtree(root, ignore_errors=True)
+    release(torch)
+    print(f"gemma phase: {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return launches
 
 
 # -- MoE phase --------------------------------------------------------------------
@@ -6789,9 +7154,11 @@ def main() -> int:
         print(f"  ptxas {line}", flush=True)
 
     stats = kernel_phase(torch)
+    for model, shape in GEMMA_KERNEL_SHAPES.items():
+        kernel_phase(torch, model, shape)
     tp_kernel_shapes(torch)
     forward_phase(torch)
-    families_phase(torch, pa, smi)
+    family_counts = families_phase(torch, pa, smi)
     serve_counts, api_counts = serve_phase(torch, smi)
     decode_counts, gap_tol = decode_phase(torch, pa)
     guided_counts = guided_phase(torch, pa, gap_tol, smi)
@@ -6805,6 +7172,7 @@ def main() -> int:
     kv_counts = kv_phase(torch, pa, gap_tol, smi)
     stack_counts = stack_phase(torch, gap_tol, smi)
     phi3_serve_phase(torch, pa, smi)
+    gemma_counts = gemma_serve_phase(torch, pa, gap_tol, smi)
     moe_counts = moe_phase(torch, pa, gap_tol, smi)
     tp_counts, mh_ref = tp_phase(torch, pa, gap_tol, smi)
     lc_counts, lc_first = long_context_phase(torch, pa, gap_tol, smi)
@@ -6812,10 +7180,15 @@ def main() -> int:
     mh_counts = multihost_phase(torch, gap_tol, smi, mh_ref)
     rs_counts = rank_set_phase(torch, pa, gap_tol, smi)
     rss_counts = rank_set_serving_phase(torch, pa, gap_tol, smi, lc_first)
+    # the 3B's serve and decode paths, and the head_dim-256 paths: the
+    # Gemma-7B and Gemma-2B engines of the families phase and the
+    # Gemma-7B server
     launches = {
-        "ragged": serve_counts["ragged"],
-        "prefill": serve_counts["prefill"],
-        "decode": decode_counts["decode"],
+        "ragged": (serve_counts["ragged"] + family_counts["ragged"]
+                   + gemma_counts["ragged"]),
+        "prefill": (serve_counts["prefill"] + family_counts["prefill"]
+                    + gemma_counts["prefill"]),
+        "decode": decode_counts["decode"] + family_counts["decode"],
     }
     print(f"launches: serve path {serve_counts}, API requests "
           f"{api_counts}, decode path {decode_counts}, guided K=8 engine "
@@ -6829,6 +7202,8 @@ def main() -> int:
           f"rank 0 {mh_counts}, rank-set features {rs_counts}, "
           f"rank-set async decode and ring {rss_counts}, "
           f"engines behind the router {stack_counts}, "
+          f"Gemma-7B and Gemma-2B x{FAMILY_LAYERS} engines "
+          f"{family_counts}, Gemma-7B server {gemma_counts}, "
           f"pipeline-parallel ranks none (the gather path); "
           f"a served "
           f"mixed round launches the ragged kernel {LAYERS_3B} times a "

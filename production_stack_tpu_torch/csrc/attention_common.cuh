@@ -141,33 +141,80 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // core path (qk_mma, pv_mma) and the f32 CUDA-core path (qk_fma, pv_fma),
 // so masks and the online softmax are one code.
 
-// A fragments of the 16 query rows at Qs (row stride QROW), all D/16
-// k-steps.
+// Head dims up to which a warp keeps its D/16 Q fragments (4 registers
+// each) in registers for the whole walk. Above it they do not fit beside
+// the 16 x D f32 accumulator (4 D / 8 registers a thread: 128 at D = 256)
+// within the 255 registers a thread may hold, so each k-step reads its
+// fragment again from the Q tile in shared memory (qk_mma_smem).
+constexpr int MAX_D_Q_IN_REGS = 128;
+
+// Keys of one shared-memory tile (the prefill tile's BN, the decode
+// ring's KT): 64, and 32 on the f32 FMA path (any dtype pair but bf16 q
+// and cache) above head dim 128, where 64 rows of 4-byte elements in a
+// two-stage K/V ring would not fit a block's 227 KB.
+template <int D, bool MMA>
+constexpr int key_tile() {
+  return (D > MAX_D_Q_IN_REGS && !MMA) ? 32 : 64;
+}
+
+// The A fragment of k-step kk of the 16 query rows at Qs (row stride
+// QROW).
+template <int QROW>
+__device__ __forceinline__ void load_q_frag(uint32_t (&a)[4],
+                                            const __nv_bfloat16* Qs, int kk,
+                                            int lane) {
+  ldmatrix_x4(a, Qs + ((lane & 7) + ((lane >> 3) & 1) * 8) * QROW +
+                     kk * 16 + (lane >> 4) * 8);
+}
+
+// A fragments of the 16 query rows at Qs, all D/16 k-steps.
 template <int D, int QROW>
 __device__ __forceinline__ void load_q_frags(uint32_t (&qf)[D / 16][4],
                                              const __nv_bfloat16* Qs,
                                              int lane) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldmatrix_x4(qf[kk], Qs + ((lane & 7) + ((lane >> 3) & 1) * 8) * QROW +
-                            kk * 16 + (lane >> 4) * 8);
+  for (int kk = 0; kk < D / 16; ++kk) load_q_frag<QROW>(qf[kk], Qs, kk, lane);
 }
 
-// S += Q K^T over the 8 NB keys whose rows start at Ks (stride KROW).
+// S += Q K^T over k-step kk (head-dim columns 16 kk .. 16 kk + 15) for
+// the 8 NB keys whose rows start at Ks (stride KROW).
+template <int NB, int KROW>
+__device__ __forceinline__ void qk_mma_step(float (&S)[NB][4],
+                                            const uint32_t (&a)[4],
+                                            const __nv_bfloat16* Ks, int kk,
+                                            int lane) {
+#pragma unroll
+  for (int nbp = 0; nbp < NB / 2; ++nbp) {
+    uint32_t b[4];
+    ldmatrix_x4(b, Ks + (nbp * 16 + (lane & 7) + (lane >> 4) * 8) * KROW +
+                       kk * 16 + ((lane >> 3) & 1) * 8);
+    mma_bf16_16816(S[2 * nbp], a, b[0], b[1]);
+    mma_bf16_16816(S[2 * nbp + 1], a, b[2], b[3]);
+  }
+}
+
+// S += Q K^T, Q from its fragments in registers.
 template <int D, int NB, int KROW>
 __device__ __forceinline__ void qk_mma(float (&S)[NB][4],
                                        const uint32_t (&qf)[D / 16][4],
                                        const __nv_bfloat16* Ks, int lane) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < D / 16; ++kk)
+    qk_mma_step<NB, KROW>(S, qf[kk], Ks, kk, lane);
+}
+
+// S += Q K^T, each k-step's Q fragment read from the Q tile at Qs (head
+// dims above MAX_D_Q_IN_REGS).
+template <int D, int NB, int QROW, int KROW>
+__device__ __forceinline__ void qk_mma_smem(float (&S)[NB][4],
+                                            const __nv_bfloat16* Qs,
+                                            const __nv_bfloat16* Ks,
+                                            int lane) {
 #pragma unroll
-    for (int nbp = 0; nbp < NB / 2; ++nbp) {
-      uint32_t b[4];
-      ldmatrix_x4(b, Ks + (nbp * 16 + (lane & 7) + (lane >> 4) * 8) * KROW +
-                         kk * 16 + ((lane >> 3) & 1) * 8);
-      mma_bf16_16816(S[2 * nbp], qf[kk], b[0], b[1]);
-      mma_bf16_16816(S[2 * nbp + 1], qf[kk], b[2], b[3]);
-    }
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    load_q_frag<QROW>(a, Qs, kk, lane);
+    qk_mma_step<NB, KROW>(S, a, Ks, kk, lane);
   }
 }
 
@@ -316,21 +363,25 @@ cudaError_t allow_smem(K kernel, size_t bytes, size_t* granted) {
 }  // namespace pst
 
 // Dispatch over (q dtype, cache dtype, head dim): dtype codes 0 = float32,
-// 1 = bfloat16; head dims 64 and 128. CALL(TQ, TC, D) is an expression
-// returning int (a CUDA error code).
+// 1 = bfloat16; head dims 64, 128 and 256. CALL(TQ, TC, D) is an
+// expression returning int (a CUDA error code).
 #define PST_DISPATCH_TYPES_D(qdt, cdt, d, CALL)                         \
   do {                                                                  \
     if ((qdt) < 0 || (qdt) > 1 || (cdt) < 0 || (cdt) > 1 ||             \
-        ((d) != 64 && (d) != 128))                                      \
+        ((d) != 64 && (d) != 128 && (d) != 256))                        \
       return (int)cudaErrorInvalidValue;                                \
-    switch ((qdt) * 4 + (cdt) * 2 + ((d) == 128)) {                     \
+    switch (((qdt) * 2 + (cdt)) * 3 + ((d) == 128) + 2 * ((d) == 256)) { \
       case 0: return CALL(float, float, 64);                            \
       case 1: return CALL(float, float, 128);                           \
-      case 2: return CALL(float, __nv_bfloat16, 64);                    \
-      case 3: return CALL(float, __nv_bfloat16, 128);                   \
-      case 4: return CALL(__nv_bfloat16, float, 64);                    \
-      case 5: return CALL(__nv_bfloat16, float, 128);                   \
-      case 6: return CALL(__nv_bfloat16, __nv_bfloat16, 64);            \
-      default: return CALL(__nv_bfloat16, __nv_bfloat16, 128);          \
+      case 2: return CALL(float, float, 256);                           \
+      case 3: return CALL(float, __nv_bfloat16, 64);                    \
+      case 4: return CALL(float, __nv_bfloat16, 128);                   \
+      case 5: return CALL(float, __nv_bfloat16, 256);                   \
+      case 6: return CALL(__nv_bfloat16, float, 64);                    \
+      case 7: return CALL(__nv_bfloat16, float, 128);                   \
+      case 8: return CALL(__nv_bfloat16, float, 256);                   \
+      case 9: return CALL(__nv_bfloat16, __nv_bfloat16, 64);            \
+      case 10: return CALL(__nv_bfloat16, __nv_bfloat16, 128);          \
+      default: return CALL(__nv_bfloat16, __nv_bfloat16, 256);          \
     }                                                                   \
   } while (0)

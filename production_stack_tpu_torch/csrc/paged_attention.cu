@@ -34,9 +34,10 @@
 //   at once for a segment past blk_seg[G], an idle segment, or a tile
 //   past the segment's fused rows.
 // - A segment of at most 16 fused rows (a decode row at g <= 16) fills
-//   one 16-row MMA tile: there the four warps split each 64-key tile 16
-//   keys apiece and merge at the end (paged_tile.cuh KSPLIT), so its
-//   products are not left to one warp while three compute zero rows.
+//   one 16-row MMA tile: there the four warps split each key tile (16 of
+//   64 keys apiece, 8 of 32 on the FMA path at head dim 256) and merge
+//   at the end (paged_tile.cuh KSPLIT), so its products are not left to
+//   one warp while three compute zero rows.
 
 #include "paged_tile.cuh"
 
@@ -46,7 +47,8 @@ using namespace pst;
 using namespace pst::tile;
 
 template <typename TQ, typename TC, int D>
-__global__ void __launch_bounds__(THREADS, 2) ragged_tile_kernel(
+__global__ void __launch_bounds__(THREADS, min_blocks<D>())
+    ragged_tile_kernel(
     const CacheArgs p, const TQ* __restrict__ q, TQ* __restrict__ out,
     const int* __restrict__ block_tables, const int* __restrict__ blk_seg,
     const int* __restrict__ seg_meta, int n_blocks, int tq,

@@ -26,18 +26,22 @@
 // - One block holds all g query heads of its kv head (padded to the 16
 //   rows of one MMA tile), so each K/V byte is read from device memory
 //   once.
-// - Chunks of KT = 64 keys are copied into a shared-memory ring of NSTAGE
-//   stages (3 in bf16, 2 in f32) with 16-byte cp.async (neighbouring
-//   threads on neighbouring addresses; rows past the walk are
-//   zero-filled): chunks c + 1 .. c + NSTAGE - 1 are in flight while
-//   chunk c is computed, and one __syncthreads per chunk frees a stage.
-//   Block sizes are powers of two (shift and mask).
-// - Warp w takes keys [16 w, 16 w + 16) of every chunk with its own online
-//   softmax: in bf16, S = Q K^T and O += P V are two and sixteen
-//   mma.sync m16n8k16 per k-step (the prefill kernel's fragment code,
-//   attention_common.cuh), P rounded to bf16; in f32 the same fragments
-//   by CUDA-core FMAs. The four warps' (m, l, acc) merge in shared memory
-//   (over the ring) at the end of the split.
+// - Chunks of KT keys (64; 32 on the FMA path at head dim 256,
+//   attention_common.cuh key_tile) are copied into a shared-memory ring
+//   of NSTAGE stages (3 for a bf16 cache, 2 for f32) with 16-byte
+//   cp.async (neighbouring threads on neighbouring addresses; rows past
+//   the walk are zero-filled): chunks c + 1 .. c + NSTAGE - 1 are in
+//   flight while chunk c is computed, and one __syncthreads per chunk
+//   frees a stage. Block sizes are powers of two (shift and mask). At
+//   head dim 256 the bf16 ring is 202,752 bytes: one block an SM.
+// - Warp w takes keys [w KT / 4, (w + 1) KT / 4) of every chunk with its
+//   own online softmax: in bf16, S = Q K^T and O += P V are two and
+//   D / 8 mma.sync m16n8k16 per k-step (the prefill kernel's fragment
+//   code, attention_common.cuh; the q fragments stay in registers up to
+//   head dim 128 and are read again from the q tile above it), P rounded
+//   to bf16; in f32 the same fragments by CUDA-core FMAs. The four warps'
+//   (m, l, acc) merge in shared memory (over the ring) at the end of the
+//   split.
 //   In bf16 the output stays within 2^-6 * max|ref| per (row, head) of
 //   the plain version (one output rounding plus the rounding of P).
 // - With n_splits == 1 the block writes the output; otherwise it writes
@@ -52,7 +56,6 @@ using namespace pst;
 
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int KT = 64;               // keys per chunk, 16 per warp
 constexpr int QROWS = 16;            // g query heads padded to an MMA tile
 constexpr int MAX_SPLIT_PAGES = 32;  // 256 keys at block size 8
 constexpr int ROW_PAD_BYTES = 16;    // ldmatrix rows free of bank conflicts
@@ -78,14 +81,18 @@ struct Geo {
   static constexpr bool MMA = sizeof(TQ) == 2 && sizeof(TC) == 2;
   static constexpr int QROW = D + ROW_PAD_BYTES / sizeof(TQ);
   static constexpr int KROW = D + ROW_PAD_BYTES / sizeof(TC);
-  static constexpr int STAGE = 2 * KT * KROW;  // K rows then V rows
+  static constexpr int KT = key_tile<D, MMA>();  // keys per chunk
+  static constexpr int KW = KT / WARPS;          // keys a warp
+  static constexpr int NBW = KW / 8;             // 8-key blocks a warp
+  static constexpr int STAGE = 2 * KT * KROW;    // K rows then V rows
   static constexpr int NSTAGE = sizeof(TC) == 2 ? 3 : 2;
   static constexpr int ND = D / 8;
+  static constexpr bool QREG = D <= MAX_D_Q_IN_REGS;  // q frags in regs
 };
 
 // Dynamic shared memory: the q tile (16 rows), the split's table slice,
 // the K/V ring (whose space the warps' (m, l, acc) reuse for the
-// end-of-split merge) and, on the FMA path, each warp's 16 x 16 block of
+// end-of-split merge) and, on the FMA path, each warp's 16 x KW block of
 // P. Mirrored by ops/paged_attention._decode_smem.
 template <typename TQ, typename TC, int D>
 size_t smem_bytes(int g) {
@@ -94,7 +101,7 @@ size_t smem_bytes(int g) {
   const size_t red = sizeof(float) * size_t(WARPS) * g * (D + 2);
   return sizeof(TQ) * size_t(QROWS) * G::QROW +
          sizeof(int) * MAX_SPLIT_PAGES + (ring > red ? ring : red) +
-         (G::MMA ? 0 : sizeof(float) * size_t(WARPS) * 16 * 16);
+         (G::MMA ? 0 : sizeof(float) * size_t(WARPS) * 16 * G::KW);
 }
 
 // The pages [lo, hi) that sequence i walks (Pallas _decode_kernel).
@@ -159,6 +166,7 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
   const TC* kbase = static_cast<const TC*>(p.k_cache) + head * D;
   const TC* vbase = static_cast<const TC*>(p.v_cache) + head * D;
   const int bmask = p.bs - 1;
+  constexpr int KT = G::KT;
   auto load_chunk = [&](int c) {
     constexpr int V = 16 / sizeof(TC), CH = D / V;
     TC* ks = ring + (c % G::NSTAGE) * G::STAGE;
@@ -195,26 +203,34 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
   for (int nd = 0; nd < G::ND; ++nd)
     O[nd][0] = O[nd][1] = O[nd][2] = O[nd][3] = 0.f;
   float m0 = MASK_VALUE, m1 = MASK_VALUE, l0 = 0.f, l1 = 0.f;
-  uint32_t qf[D / 16][4];  // bf16 path: q fragments, loaded once
+  // bf16 path up to MAX_D_Q_IN_REGS: q fragments, loaded once
+  [[maybe_unused]] uint32_t qf[G::QREG ? D / 16 : 1][4];
 
   for (int c = 0; c < n_chunks; ++c) {
     cp_async_wait<G::NSTAGE - 2>();
     __syncthreads();  // chunk c landed; chunk c - 1's stage is free
     if (c + G::NSTAGE - 1 < n_chunks) load_chunk(c + G::NSTAGE - 1);
     cp_async_commit();
-    const TC* Kw = ring + (c % G::NSTAGE) * G::STAGE + warp * 16 * G::KROW;
+    constexpr int NBW = G::NBW;
+    const TC* Kw =
+        ring + (c % G::NSTAGE) * G::STAGE + warp * G::KW * G::KROW;
     const TC* Vw = Kw + KT * G::KROW;
-    const int k0 = k_lo + c * KT + warp * 16;
+    const int k0 = k_lo + c * KT + warp * G::KW;
 
-    float S[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    if constexpr (G::MMA) {
+    float S[NBW][4];
+#pragma unroll
+    for (int nb = 0; nb < NBW; ++nb)
+      S[nb][0] = S[nb][1] = S[nb][2] = S[nb][3] = 0.f;
+    if constexpr (G::MMA && G::QREG) {
       if (c == 0) load_q_frags<D, G::QROW>(qf, Qs, lane);
-      qk_mma<D, 2, G::KROW>(S, qf, Kw, lane);
+      qk_mma<D, NBW, G::KROW>(S, qf, Kw, lane);
+    } else if constexpr (G::MMA) {
+      qk_mma_smem<D, NBW, G::QROW, G::KROW>(S, Qs, Kw, lane);
     } else {
-      qk_fma<D, 2, G::QROW, G::KROW>(S, Qs, Kw, lane, row1);
+      qk_fma<D, NBW, G::QROW, G::KROW>(S, Qs, Kw, lane, row1);
     }
 #pragma unroll
-    for (int nb = 0; nb < 2; ++nb) {
+    for (int nb = 0; nb < NBW; ++nb) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kp = k0 + nb * 8 + tig * 2 + (e & 1);
@@ -227,9 +243,10 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
     }
     online_softmax(S, O, m0, m1, l0, l1);
     if constexpr (G::MMA)
-      pv_mma<D, 2, G::KROW>(O, S, Vw, lane);
+      pv_mma<D, NBW, G::KROW>(O, S, Vw, lane);
     else
-      pv_fma<D, 2, G::KROW>(O, S, Ps + warp * 16 * 16, Vw, lane, row1);
+      pv_fma<D, NBW, G::KROW>(O, S, Ps + warp * 16 * G::KW, Vw, lane,
+                              row1);
   }
   cp_async_wait<0>();
   __syncthreads();  // every warp is done with the ring

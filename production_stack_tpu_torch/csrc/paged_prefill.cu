@@ -16,7 +16,10 @@
 //   kv head and runs the tensor-core tile of paged_tile.cuh (mma.sync
 //   m16n8k16 in bf16, a two-stage cp.async ring of 64-key tiles assembled
 //   through the block table, edge-only masks, an f32 FMA twin for any
-//   other dtype pair).
+//   other dtype pair, on 32-key tiles at head dim 256). Head dims 64, 128
+//   and 256; at 256 (Gemma-7B: 16 heads) a 512-row chunk over 1024 keys
+//   does some 6.4 GFLOP against 25 MB of q, out, K and V, so there the
+//   two bounds meet (about 7 us each).
 // - Each block walks its own page range: from the page of its earliest
 //   row's first visible key (window) to the page of its last row's
 //   position, so key tiles wholly above its last row are never walked.
@@ -30,7 +33,8 @@ using namespace pst;
 using namespace pst::tile;
 
 template <typename TQ, typename TC, int D>
-__global__ void __launch_bounds__(THREADS, 2) prefill_kernel(
+__global__ void __launch_bounds__(THREADS, min_blocks<D>())
+    prefill_kernel(
     const CacheArgs p, const TQ* __restrict__ q, TQ* __restrict__ out,
     const int* __restrict__ table, int q_start, int t) {
   const int g = p.g;

@@ -12,14 +12,17 @@
 // p > q - window; an invisible walked key scores MASK_VALUE; f32 online
 // softmax; out = acc / max(l, 1e-30) (0 for a tile that walks no page).
 //
-// - Key tiles of BN = 64 keys are assembled from their 64 / bs pages
+// - Key tiles of BN keys (64; 32 on the FMA path at head dim 256,
+//   attention_common.cuh key_tile) are assembled from their BN / bs pages
 //   through the table with 16-byte cp.async into a two-stage shared-memory
 //   ring (tile j + 1 in flight while tile j is computed); rows are padded
 //   by 16 bytes so ldmatrix reads are free of bank conflicts. Block sizes
 //   are powers of two, so a key's slot is a shift and a mask.
 // - bf16 q and cache: S = Q K^T and O += P V on the tensor cores with
 //   mma.sync m16n8k16 (f32 accumulators; Q fragments loaded once with
-//   ldmatrix, K with ldmatrix, V with ldmatrix.trans), the FlashAttention-2
+//   ldmatrix up to head dim 128, at 256 read again from the Q tile at
+//   each k-step so the 16 x 256 accumulator keeps its 128 registers a
+//   thread; K with ldmatrix, V with ldmatrix.trans), the FlashAttention-2
 //   register layout, P rounded to bf16 for the PV product. The scale is
 //   applied to the f32 scores. Only the key tiles that hold a causal or
 //   window edge or the walk's end are masked. In bf16 the output stays
@@ -28,6 +31,9 @@
 // - Any other dtype pair: the same tiles, ring, masks and register layout,
 //   with f32 CUDA-core FMAs out of shared memory in place of the two MMAs
 //   (P goes through a per-warp shared buffer).
+// - At head dim 256 a block's shared memory (168,960 bytes in bf16)
+//   leaves room for one block an SM, so the kernels declare one block an
+//   SM there and two below (min_blocks).
 // - Warp w owns fused rows [16 w, 16 w + 16) of the tile. Rows past t * g
 //   (a partly filled tile) read no q, are zero and are never stored. A
 //   warp whose rows all lie past t * g computes on zeros all the same: a
@@ -44,8 +50,14 @@ namespace tile {
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int BM = 64;  // fused query rows per block (16 per warp)
-constexpr int BN = 64;  // keys per tile
 constexpr int ROW_PAD_BYTES = 16;
+
+// Blocks an SM the kernels' __launch_bounds__ promise at head dim D: two
+// up to 128 (85 KB of shared memory a block in bf16), one at 256.
+template <int D>
+constexpr int min_blocks() {
+  return D > MAX_D_Q_IN_REGS ? 1 : 2;
+}
 
 // What every tile of one launch shares: the cache and its geometry, the
 // head counts and the softmax constants.
@@ -79,8 +91,10 @@ struct Geo {
       sizeof(TQ) == 2 && sizeof(TC) == 2;  // bf16 q and cache
   static constexpr int QROW = D + ROW_PAD_BYTES / sizeof(TQ);
   static constexpr int KROW = D + ROW_PAD_BYTES / sizeof(TC);
+  static constexpr int BN = key_tile<D, MMA>();  // keys per tile
   static constexpr int NB = BN / 8;   // 8-key column blocks of S
   static constexpr int ND = D / 8;    // 8-column blocks of O
+  static constexpr bool QREG = D <= MAX_D_Q_IN_REGS;  // Q frags in regs
 };
 
 // Dynamic shared memory: the Q tile, the two-stage K/V ring and, on the
@@ -90,8 +104,8 @@ template <typename TQ, typename TC, int D>
 size_t smem_bytes() {
   using G = Geo<TQ, TC, D>;
   return sizeof(TQ) * size_t(BM) * G::QROW +
-         sizeof(TC) * size_t(2 * 2 * BN) * G::KROW +
-         (G::MMA ? 0 : sizeof(float) * size_t(WARPS) * 16 * BN);
+         sizeof(TC) * size_t(2 * 2 * G::BN) * G::KROW +
+         (G::MMA ? 0 : sizeof(float) * size_t(WARPS) * 16 * G::BN);
 }
 
 // Fused rows [tile * BM, tile * BM + BM) of kv head h of the chunk (q, out,
@@ -99,17 +113,19 @@ size_t smem_bytes() {
 // block calls it with the same arguments.
 //
 // KSPLIT (a chunk of at most 16 fused rows, tile 0): every warp holds the
-// same 16 rows and takes keys [16 w, 16 w + 16) of each key tile with its
-// own online softmax, and the four warps' (m, l, acc) merge through the
-// ring at the end, as the decode kernel's warps do. Otherwise warp w owns
-// rows [16 w, 16 w + 16) and all 64 keys of each tile.
+// same 16 rows and takes keys [w BN / 4, (w + 1) BN / 4) of each key tile
+// with its own online softmax, and the four warps' (m, l, acc) merge
+// through the ring at the end, as the decode kernel's warps do.
+// Otherwise warp w owns rows [16 w, 16 w + 16) and all BN keys of each
+// tile.
 template <typename TQ, typename TC, int D, bool KSPLIT = false>
 __device__ __forceinline__ void attend_tile(
     const CacheArgs& p, const TQ* __restrict__ q, TQ* __restrict__ out,
     const int* __restrict__ table, int q_start, int t, int tile, int h,
     int n_start, int n_used, unsigned char* smem) {
   using G = Geo<TQ, TC, D>;
-  constexpr int NBW = KSPLIT ? 2 : G::NB;  // 8-key column blocks a warp
+  constexpr int BN = G::BN;
+  constexpr int NBW = KSPLIT ? BN / 32 : G::NB;  // 8-key blocks a warp
   const int g = p.g;
   const int n_rows = t * g;
   const int f0 = tile * BM;
@@ -171,7 +187,7 @@ __device__ __forceinline__ void attend_tile(
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gid = lane >> 2, tig = lane & 3;
   const int rw = KSPLIT ? 0 : warp * 16;  // the warp's first row
-  const int kw = KSPLIT ? warp * 16 : 0;  // the warp's first key of a tile
+  const int kw = KSPLIT ? warp * (BN / WARPS) : 0;  // its first key
   // rows of this thread's accumulator fragments: rw + gid and rw + gid + 8
   const int qp0 = q_start + (f0 + rw + gid) / g;
   const int qp1 = q_start + (f0 + rw + gid + 8) / g;
@@ -181,7 +197,8 @@ __device__ __forceinline__ void attend_tile(
   for (int nd = 0; nd < G::ND; ++nd)
     O[nd][0] = O[nd][1] = O[nd][2] = O[nd][3] = 0.f;
   float m0 = MASK_VALUE, m1 = MASK_VALUE, l0 = 0.f, l1 = 0.f;
-  uint32_t qf[D / 16][4];  // bf16 path: Q fragments, loaded once
+  // bf16 path up to MAX_D_Q_IN_REGS: Q fragments, loaded once
+  [[maybe_unused]] uint32_t qf[G::QREG ? D / 16 : 1][4];
 
   for (int kt = 0; kt < n_kt; ++kt) {
     if (kt + 1 < n_kt) {
@@ -201,9 +218,11 @@ __device__ __forceinline__ void attend_tile(
 #pragma unroll
     for (int nb = 0; nb < NBW; ++nb)
       S[nb][0] = S[nb][1] = S[nb][2] = S[nb][3] = 0.f;
-    if constexpr (G::MMA) {
+    if constexpr (G::MMA && G::QREG) {
       if (kt == 0) load_q_frags<D, G::QROW>(qf, Qs + rw * G::QROW, lane);
       qk_mma<D, NBW, G::KROW>(S, qf, Ks, lane);
+    } else if constexpr (G::MMA) {
+      qk_mma_smem<D, NBW, G::QROW, G::KROW>(S, Qs + rw * G::QROW, Ks, lane);
     } else {
       qk_fma<D, NBW, G::QROW, G::KROW>(S, Qs + rw * G::QROW, Ks, lane, true);
     }

@@ -48,20 +48,19 @@ RAGGED_TQ = 8
 # masks a partly filled last tile). The plain version walks PREFILL_TQ-row
 # tiles, each over its own page range.
 PREFILL_TQ = 8
-# Fused query rows x keys of one prefill (and ragged) kernel tile
-# (csrc/paged_tile.cuh BM, BN).
-PREFILL_BM = PREFILL_BN = 64
+# Fused query rows of one prefill (and ragged) kernel tile
+# (csrc/paged_tile.cuh BM); its keys a tile are _key_tile's.
+PREFILL_BM = 64
 # Keys one decode split walks: split s holds table pages
 # [s * pps, (s + 1) * pps), pps = DECODE_SPLIT_KEYS // block_size.
 DECODE_SPLIT_KEYS = 256
-# Keys of one decode chunk in the kernel's shared-memory ring (KT), and
-# the ring's stages (NSTAGE) by cache element size.
-DECODE_KT = 64
+# Stages (NSTAGE) of the decode kernel's shared-memory ring by cache
+# element size; its keys a chunk (KT) are _key_tile's.
 DECODE_STAGES = {2: 3, 4: 2}
 # Query heads per kv head the decode kernel takes: one 16-row MMA tile.
 DECODE_MAX_G = 16
 # Shapes the card kernels are built for.
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 KERNEL_BLOCK_SIZES = (8, 16, 32, 64, 128)
 # Shared memory one block may use on Hopper (227 KB).
 MAX_SMEM_BYTES = 232448
@@ -332,30 +331,41 @@ def _fits(need: int, what: str) -> int:
     return need
 
 
+def _key_tile(d, q_itemsize, cache_itemsize) -> int:
+    """Keys of one shared-memory tile of the kernels (the prefill tile's
+    BN, the decode ring's KT; csrc/attention_common.cuh key_tile): 64,
+    and 32 on the FMA path (not bf16 q and cache) above head_dim 128."""
+    mma = q_itemsize == 2 and cache_itemsize == 2
+    return 32 if d > 128 and not mma else 64
+
+
 def _decode_smem(g, d, q_itemsize, cache_itemsize) -> int:
     """csrc/paged_decode.cu smem_bytes: the q tile (16 rows of d elements
     + 16 bytes), the split's table slice (32 ints), the ring of
-    DECODE_STAGES stages of K and V chunks (DECODE_KT rows of d elements +
-    16 bytes), whose space the four warps' (m, l, acc) reuse, and on the
-    FMA path (not bf16 q and cache) each warp's 16 x 16 block of P."""
+    DECODE_STAGES stages of K and V chunks (KT rows of d elements + 16
+    bytes), whose space the four warps' (m, l, acc) reuse, and on the
+    FMA path (not bf16 q and cache) each warp's 16 x KT / 4 block of
+    P."""
     mma = q_itemsize == 2 and cache_itemsize == 2
-    ring = (DECODE_STAGES[cache_itemsize] * 2 * DECODE_KT
+    kt = _key_tile(d, q_itemsize, cache_itemsize)
+    ring = (DECODE_STAGES[cache_itemsize] * 2 * kt
             * (d * cache_itemsize + 16))
     need = (16 * (d * q_itemsize + 16) + 4 * 32
-            + max(ring, 4 * 4 * g * (d + 2)) + (0 if mma else 4 * 4 * 16 * 16))
+            + max(ring, 4 * 4 * g * (d + 2)) + (0 if mma else 4 * 16 * kt))
     return _fits(need, f"the decode kernel at g={g}, head_dim {d}")
 
 
 def _prefill_smem(d, q_itemsize, cache_itemsize) -> int:
     """csrc/paged_tile.cuh smem_bytes, the prefill and ragged kernels'
     shared memory per block: the Q tile (PREFILL_BM rows of d
-    elements + 16 bytes), two stages of K and V tiles (PREFILL_BN rows),
-    and on the FMA path (not bf16 q and cache) each warp's 16 x
-    PREFILL_BN block of P in f32."""
+    elements + 16 bytes), two stages of K and V tiles (BN rows), and on
+    the FMA path (not bf16 q and cache) each warp's 16 x BN block of P
+    in f32."""
     mma = q_itemsize == 2 and cache_itemsize == 2
+    bn = _key_tile(d, q_itemsize, cache_itemsize)
     need = (PREFILL_BM * (d * q_itemsize + 16)
-            + 2 * 2 * PREFILL_BN * (d * cache_itemsize + 16)
-            + (0 if mma else 4 * 4 * 16 * PREFILL_BN))
+            + 2 * 2 * bn * (d * cache_itemsize + 16)
+            + (0 if mma else 4 * 4 * 16 * bn))
     return _fits(need, f"the prefill kernel at head_dim {d}")
 
 

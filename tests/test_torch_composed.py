@@ -4,7 +4,7 @@ against the JAX package's, both on the CPU in float32.
 - attention_impl: "auto" resolves from the head_dim alone, and on the
   card only (a monkeypatched one here): head_dims the kernels are not
   built for take the gather path ("xla") with a warning naming the
-  head_dim, 64 and 128 the kernels ("pallas"); "pallas" with such a
+  head_dim, 64, 128 and 256 the kernels ("pallas"); "pallas" with such a
   head_dim refuses at boot, and so does a block size the kernels refuse
   under auto; "xla" skips every kernel shape check.
 - The gather path: each dispatch (prefill, packed prefill, decode,
@@ -49,6 +49,7 @@ from production_stack_tpu_torch.engine.llm_engine import LLMEngine
 from production_stack_tpu_torch.engine.model_runner import ModelRunner
 from production_stack_tpu_torch.engine.sampling_params import SamplingParams
 from production_stack_tpu_torch.models.convert import params_from_numpy
+from production_stack_tpu_torch.ops import paged_attention
 
 # the CPU runs these tests at tiny widths, where intra-op threads
 # cost more than they save: with several test workers on one box,
@@ -127,7 +128,7 @@ def _boot(monkeypatch, head_dim, **over):
 
 @pytest.mark.parametrize("head_dim,want", [
     (16, "xla"), (64, "pallas"), (96, "xla"), (128, "pallas"),
-    (256, "xla"),
+    (256, "pallas"),
 ])
 def test_auto_resolves_from_head_dim_on_the_card(head_dim, want,
                                                  card_log):
@@ -137,7 +138,7 @@ def test_auto_resolves_from_head_dim_on_the_card(head_dim, want,
               if r.levelno == logging.WARNING]
     if want == "xla":
         assert warned == [f"attention impl: xla (head_dim {head_dim} "
-                          "not in (64, 128))"]
+                          "not in (64, 128, 256))"]
     else:
         assert warned == []
     # the CPU runs the plain versions whatever the head_dim; an explicit
@@ -151,16 +152,24 @@ def test_auto_resolves_from_head_dim_on_the_card(head_dim, want,
 
 @pytest.mark.parametrize("head_dim", [96, 256])
 def test_card_boot_under_auto_and_pallas(monkeypatch, card_log, head_dim):
-    """auto boots a head_dim the kernels lack on the gather path (with
-    the warning); pallas refuses it at boot with the kernels' message;
-    xla skips the kernel shape checks (a block size they refuse too)."""
+    """auto boots a head_dim the kernels lack (96) on the gather path
+    (with the warning), and pallas refuses it at boot with the kernels'
+    message; a head_dim they take (256, Gemma's) boots on the kernels
+    under both, with no warning; xla skips the kernel shape checks (a
+    block size they refuse too)."""
+    built = head_dim in paged_attention.KERNEL_HEAD_DIMS
     with pytest.raises(_Booted):
         _boot(monkeypatch, head_dim)
-    assert any(f"head_dim {head_dim} not in" in r.getMessage()
-               for r in card_log)
-    with pytest.raises(ValueError,
-                       match=f"cannot run on the card.*head_dim.*{head_dim}"):
-        _boot(monkeypatch, head_dim, attention_impl="pallas")
+    warned = any(f"head_dim {head_dim} not in" in r.getMessage()
+                 for r in card_log)
+    assert warned != built
+    if built:
+        with pytest.raises(_Booted):
+            _boot(monkeypatch, head_dim, attention_impl="pallas")
+    else:
+        with pytest.raises(ValueError, match=("cannot run on the card.*"
+                                              f"head_dim.*{head_dim}")):
+            _boot(monkeypatch, head_dim, attention_impl="pallas")
     with pytest.raises(_Booted):
         _boot(monkeypatch, head_dim, attention_impl="xla", block_size=4)
 

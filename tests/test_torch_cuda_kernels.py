@@ -124,7 +124,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _run_case(kind, dev, dtype):
+def _run_case(kind, dev, dtype, d):
     """(kernel output, plain output, rows to compare) for one kernel."""
     kw = dict(block_size=8, scale=0.1)
 
@@ -132,18 +132,18 @@ def _run_case(kind, dev, dtype):
         return [_t(x).to(dev, dtype) for x in arrays]
 
     if kind == "decode":
-        q, kc, vc, tables, ctx = decode_case(11, d=128)
+        q, kc, vc, tables, ctx = decode_case(11, d=d)
         args = put(q, kc, vc) + [1, _t(tables).to(dev), _t(ctx).to(dev)]
         return (tpa.paged_decode_attention(*args, **kw),
                 tpa.paged_decode_attention_plain(*args, **kw),
                 slice(None))
     if kind == "prefill":
-        q, kc, vc, table, q_start = prefill_case(12, t=32, d=128)
+        q, kc, vc, table, q_start = prefill_case(12, t=32, d=d)
         args = put(q, kc, vc) + [0, _t(table).to(dev), q_start]
         return (tpa.paged_prefill_attention(*args, **kw),
                 tpa.paged_prefill_attention_plain(*args, **kw),
                 slice(None))
-    q, kc, vc, tables, blk_seg, seg, rows = ragged_case(13, d=128)
+    q, kc, vc, tables, blk_seg, seg, rows = ragged_case(13, d=d)
     args = put(q, kc, vc) + [1] + [_t(x).to(dev)
                                    for x in (tables, blk_seg, seg)]
     return (tpa.ragged_paged_attention(*args, window=7, **kw),
@@ -153,11 +153,12 @@ def _run_case(kind, dev, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["decode", "prefill", "ragged"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_matches_plain_on_card(cuda_device, kind, dtype):
+@pytest.mark.parametrize("d", [128, 256])
+def test_kernel_matches_plain_on_card(cuda_device, kind, dtype, d):
     # f32: summation order only; bf16: one output rounding (2^-6 at |x|<4)
     tol = 1e-5 if dtype == torch.float32 else 2**-6
     before = tpa.launch_counts()[kind]
-    out, ref, rows = _run_case(kind, cuda_device, dtype)
+    out, ref, rows = _run_case(kind, cuda_device, dtype, d)
     torch.cuda.synchronize()
     assert tpa.launch_counts()[kind] == before + 1
     torch.testing.assert_close(out[rows].float(), ref[rows].float(), rtol=0,
@@ -180,7 +181,8 @@ _REL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-6}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bs,d", [(8, 64), (8, 128), (32, 64), (32, 128)])
+@pytest.mark.parametrize("bs,d", [(8, 64), (8, 128), (32, 64), (32, 128),
+                                  (8, 256), (32, 256)])
 @pytest.mark.parametrize("window", [None, 100])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_many_splits(cuda_device, bs, d, window, dtype):
@@ -205,11 +207,13 @@ def test_decode_kernel_many_splits(cuda_device, bs, d, window, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("g", [1, 8, 12, 16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_kernel_head_groups(cuda_device, g, dtype):
+@pytest.mark.parametrize("d", [128, 256])
+def test_decode_kernel_head_groups(cuda_device, g, dtype, d):
     """1 to 16 query heads per kv head fill the kernel's 16-row tile (rows
-    8..15 hold heads only from g = 9)."""
+    8..15 hold heads only from g = 9); at head_dim 256 too (Gemma-7B's
+    g = 1, Gemma-2B's g = 8)."""
     q, kc, vc, tables, ctx = decode_case(21, b=3, pages=1024 // 16, bs=16,
-                                         nkv=2, g=g, d=128)
+                                         nkv=2, g=g, d=d)
     args = [_t(x).to(cuda_device, dtype) for x in (q, kc, vc)]
     args += [0, _t(tables).to(cuda_device), _t(ctx).to(cuda_device)]
     kw = dict(block_size=16, scale=0.088, window=300)
@@ -221,7 +225,8 @@ def test_decode_kernel_head_groups(cuda_device, g, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("t", [40, 72])
-@pytest.mark.parametrize("bs,d", [(8, 64), (32, 128), (8, 128), (32, 64)])
+@pytest.mark.parametrize("bs,d", [(8, 64), (32, 128), (8, 128), (32, 64),
+                                  (8, 256), (32, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_prefill_kernel_partial_tiles(cuda_device, t, bs, d, dtype):
     """t * g fused rows not a multiple of the 64-row tile (the last tile
@@ -256,16 +261,17 @@ def test_prefill_kernel_window(cuda_device, window, dtype):
 @pytest.mark.parametrize("layout,bs,nkv,g", RAGGED_CASES)
 @pytest.mark.parametrize("window", [None, 12])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [128, 256])
 def test_ragged_kernel_layouts(cuda_device, layout, bs, nkv, g, window,
-                               dtype):
+                               dtype, d):
     """Segments sharing a row block, clipped at its edges, past
     blk_seg[G], two kernel tiles to a segment (g = 16), windows that skip
     the first pages: one launch, kernel against plain on covered rows."""
     q, kc, vc, tables, blk_seg, seg, rows = ragged_case(
-        24, layout, bs=bs, nkv=nkv, g=g, d=128)
+        24, layout, bs=bs, nkv=nkv, g=g, d=d)
     args = [_t(x).to(cuda_device, dtype) for x in (q, kc, vc)]
     args += [1] + [_t(x).to(cuda_device) for x in (tables, blk_seg, seg)]
-    kw = dict(block_size=bs, scale=128**-0.5, window=window)
+    kw = dict(block_size=bs, scale=d**-0.5, window=window)
     before = tpa.launch_counts()["ragged"]
     out = tpa.ragged_paged_attention(*args, **kw)
     ref = tpa.ragged_paged_attention_plain(*args, **kw)
@@ -277,10 +283,13 @@ def test_ragged_kernel_layouts(cuda_device, layout, bs, nkv, g, window,
 @pytest.mark.cuda
 @pytest.mark.parametrize("q_dtype,cache_dtype", [
     (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
-def test_mixed_dtypes_take_the_fma_path(cuda_device, q_dtype, cache_dtype):
+@pytest.mark.parametrize("d", [64, 256])
+def test_mixed_dtypes_take_the_fma_path(cuda_device, q_dtype, cache_dtype,
+                                        d):
     """q and cache of different types: the f32 CUDA-core path of the three
-    kernels (same tiles, ring and masks); output in q's type."""
-    q, kc, vc, tables, ctx = decode_case(22, b=3, pages=64, bs=8, g=3, d=64)
+    kernels (same ring and masks; 32-key tiles at head_dim 256); output in
+    q's type."""
+    q, kc, vc, tables, ctx = decode_case(22, b=3, pages=64, bs=8, g=3, d=d)
     args = [_t(q).to(cuda_device, q_dtype)]
     args += [_t(x).to(cuda_device, cache_dtype) for x in (kc, vc)]
     args += [1, _t(tables).to(cuda_device), _t(ctx).to(cuda_device)]
@@ -288,14 +297,14 @@ def test_mixed_dtypes_take_the_fma_path(cuda_device, q_dtype, cache_dtype):
     out = tpa.paged_decode_attention(*args, **kw)
     ref = tpa.paged_decode_attention_plain(*args, **kw)
     q, kc, vc, table, q_start = prefill_case(23, t=40, prefix_pages=30,
-                                             bs=8, g=3, d=64)
+                                             bs=8, g=3, d=d)
     pargs = [_t(q).to(cuda_device, q_dtype)]
     pargs += [_t(x).to(cuda_device, cache_dtype) for x in (kc, vc)]
     pargs += [0, _t(table).to(cuda_device), q_start]
     pout = tpa.paged_prefill_attention(*pargs, **kw)
     pref = tpa.paged_prefill_attention_plain(*pargs, **kw)
     q, kc, vc, tables, blk_seg, seg, rows = ragged_case(25, "shared", g=3,
-                                                        d=64)
+                                                        d=d)
     rargs = [_t(q).to(cuda_device, q_dtype)]
     rargs += [_t(x).to(cuda_device, cache_dtype) for x in (kc, vc)]
     rargs += [1] + [_t(x).to(cuda_device) for x in (tables, blk_seg, seg)]
@@ -309,14 +318,17 @@ def test_mixed_dtypes_take_the_fma_path(cuda_device, q_dtype, cache_dtype):
 
 
 @pytest.mark.cuda
-def test_card_wrappers_reject_unbuilt_shapes(cuda_device):
-    q, kc, vc, tables, ctx = decode_case(20, d=32)
+@pytest.mark.parametrize("d", [32, 96])
+def test_card_wrappers_reject_unbuilt_shapes(cuda_device, d):
+    """head_dims the kernels lack (Phi-3-mini's 96 among them) raise
+    before any launch; 256 is built (the cases above)."""
+    q, kc, vc, tables, ctx = decode_case(20, d=d)
     args = [_t(x).to(cuda_device) for x in (q, kc, vc)]
     with pytest.raises(ValueError, match="head_dim"):
         tpa.paged_decode_attention(
             *args, 0, _t(tables).to(cuda_device), _t(ctx).to(cuda_device),
             block_size=8, scale=0.1)
-    q, kc, vc, tables, blk_seg, seg, _ = ragged_case(20, d=32)
+    q, kc, vc, tables, blk_seg, seg, _ = ragged_case(20, d=d)
     args = [_t(x).to(cuda_device) for x in (q, kc, vc, tables, blk_seg, seg)]
     with pytest.raises(ValueError, match="head_dim"):
         tpa.ragged_paged_attention(*args[:3], 0, *args[3:], block_size=8,

@@ -171,8 +171,30 @@ def test_card_kernel_shared_memory_mirrors():
     assert tpa._prefill_smem(128, 2, 2) == 64 * 272 + 4 * 64 * 272
     # f32 adds the per-warp P buffer of the FMA path
     assert tpa._prefill_smem(128, 4, 4) == 64 * 528 + 4 * 64 * 528 + 16384
+    # head_dim 256 in bf16 (Gemma): 64-key tiles, one block an SM
+    assert tpa._prefill_smem(256, 2, 2) == 64 * 528 + 4 * 64 * 528
+    assert tpa._prefill_smem(256, 2, 2) == 168960
+    assert tpa._decode_smem(1, 256, 2, 2) == 16 * 528 + 128 + 6 * 64 * 528
+    assert tpa._decode_smem(16, 256, 2, 2) == 211328
+    # head_dim 256 on the FMA path: 32-key tiles (64 would need 349,184
+    # bytes for the prefill tile and 287,104 for decode), its P buffers
+    # 16 x 32 a warp in the tile and 16 x 8 in decode
+    assert tpa._key_tile(256, 4, 4) == tpa._key_tile(256, 4, 2) == 32
+    assert tpa._key_tile(256, 2, 2) == tpa._key_tile(128, 4, 4) == 64
+    assert (tpa._prefill_smem(256, 4, 4)
+            == 64 * 1040 + 4 * 32 * 1040 + 8192 == 207872)
+    assert tpa._prefill_smem(256, 4, 2) == 64 * 1040 + 4 * 32 * 528 + 8192
+    assert tpa._prefill_smem(256, 2, 4) == 64 * 528 + 4 * 32 * 1040 + 8192
+    assert (tpa._decode_smem(16, 256, 4, 4)
+            == 16 * 1040 + 128 + 4 * 32 * 1040 + 2048 == 151936)
+    assert (tpa._decode_smem(16, 256, 4, 2)
+            == 16 * 1040 + 128 + 6 * 32 * 528 + 2048)
+    for qi in (2, 4):
+        for ci in (2, 4):
+            assert tpa._prefill_smem(256, qi, ci) <= tpa.MAX_SMEM_BYTES
+            assert tpa._decode_smem(16, 256, qi, ci) <= tpa.MAX_SMEM_BYTES
     with pytest.raises(ValueError, match="shared memory"):
-        tpa._prefill_smem(256, 4, 4)
+        tpa._prefill_smem(512, 4, 4)
     # the ragged kernel runs on the prefill tile: its blocks keep two to
     # an SM at 3B bf16 (228 KB an SM, 1 KB of it reserved per block)
     assert 2 * (tpa._prefill_smem(128, 2, 2) + 1024) <= 228 * 1024
@@ -198,6 +220,86 @@ def test_prefill_plain_matches_pallas(seed, t, window):
         scale=scale, window=window,
     )
     np.testing.assert_allclose(out.numpy(), _np(ref), rtol=RTOL, atol=ATOL)
+
+
+# -- head_dim 256 (Gemma-7B: 16 query heads over 16 kv heads; Gemma-2B: 8
+# over 1) -------------------------------------------------------------------
+D256 = 256
+
+
+@pytest.mark.parametrize("nkv,g,window", [
+    (1, 8, None), (2, 1, None), (1, 8, 13), (2, 1, 100),
+])
+def test_decode_plain_matches_pallas_d256(nkv, g, window):
+    q, kc, vc, tables, ctx = decode_case(30, nkv=nkv, g=g, d=D256)
+    scale = D256 ** -0.5
+    ref = jpa.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.int32(1),
+        jnp.asarray(tables), jnp.asarray(ctx), block_size=8, scale=scale,
+        interpret=True, window=window,
+    )
+    out = tpa.paged_decode_attention(
+        _t(q), _t(kc), _t(vc), 1, _t(tables), _t(ctx), block_size=8,
+        scale=scale, window=window,
+    )
+    np.testing.assert_allclose(out.numpy(), _np(ref), rtol=RTOL, atol=ATOL)
+
+
+def test_decode_bf16_cache_matches_pallas_d256():
+    """bf16 q and cache at Gemma-2B's grouping (8 query heads over one kv
+    head): one bf16 rounding of the same f32 result on both sides."""
+    q, kc, vc, tables, ctx = decode_case(31, nkv=1, g=8, d=D256)
+    scale = D256 ** -0.5
+    ref = jpa.paged_decode_attention(
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(kc, jnp.bfloat16),
+        jnp.asarray(vc, jnp.bfloat16), jnp.int32(0), jnp.asarray(tables),
+        jnp.asarray(ctx), block_size=8, scale=scale, interpret=True,
+    )
+    out = tpa.paged_decode_attention(
+        _t(q, torch.bfloat16), _t(kc, torch.bfloat16),
+        _t(vc, torch.bfloat16), 0, _t(tables), _t(ctx), block_size=8,
+        scale=scale,
+    )
+    np.testing.assert_allclose(out.float().numpy(), _np(ref), atol=2**-6)
+
+
+@pytest.mark.parametrize("nkv,g,t,window", [
+    (1, 8, 16, None), (2, 1, 32, None), (1, 8, 24, 21),
+])
+def test_prefill_plain_matches_pallas_d256(nkv, g, t, window):
+    q, kc, vc, table, q_start = prefill_case(32, t=t, nkv=nkv, g=g, d=D256)
+    scale = D256 ** -0.5
+    ref = jpa.paged_prefill_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.int32(1),
+        jnp.asarray(table), jnp.int32(q_start), block_size=8, scale=scale,
+        interpret=True, window=window,
+    )
+    out = tpa.paged_prefill_attention(
+        _t(q), _t(kc), _t(vc), 1, _t(table), q_start, block_size=8,
+        scale=scale, window=window,
+    )
+    np.testing.assert_allclose(out.numpy(), _np(ref), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("layout,nkv,g", [
+    ("mixed", 1, 8), ("mixed", 2, 1), ("shared", 1, 8),
+])
+@pytest.mark.parametrize("window", [None, 12])
+def test_ragged_plain_matches_pallas_d256(layout, nkv, g, window):
+    q, kc, vc, tables, blk_seg, seg, rows = ragged_case(
+        33, layout, nkv=nkv, g=g, d=D256)
+    scale = D256 ** -0.5
+    ref = jpa.ragged_paged_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.int32(1),
+        jnp.asarray(tables), jnp.asarray(blk_seg), jnp.asarray(seg),
+        block_size=8, scale=scale, interpret=True, window=window,
+    )
+    out = tpa.ragged_paged_attention(
+        _t(q), _t(kc), _t(vc), 1, _t(tables), _t(blk_seg), _t(seg),
+        block_size=8, scale=scale, window=window,
+    )
+    np.testing.assert_allclose(out.numpy()[rows], _np(ref)[rows],
+                               rtol=RTOL, atol=ATOL)
 
 
 # -- ragged ----------------------------------------------------------------

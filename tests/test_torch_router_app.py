@@ -18,6 +18,7 @@ import asyncio
 import json
 import socket
 import threading
+import time
 
 import aiohttp
 import pytest
@@ -33,6 +34,11 @@ from production_stack_tpu_torch.utils import web as port_web
 from tests.fake_engine import FakeEngine
 
 MODEL = "fake-model"
+# the series a router exports for an engine only once its stats scraper
+# has read that engine's /metrics (gauges, kept from then on)
+SCRAPED = ("tpu_router:engine_last_scrape_age_seconds",
+           "vllm:num_requests_running", "vllm:num_requests_waiting",
+           "vllm:gpu_cache_usage_perc", "vllm:gpu_prefix_cache_hit_rate")
 # values that differ between two runs of the same request
 VOLATILE = {"created", "created_at", "in_progress_at", "finalizing_at",
             "completed_at", "expires_at", "id", "input_file_id",
@@ -168,11 +174,32 @@ class Stack:
         return {w: self.run(self._one(w, "GET", "/metrics", {}))[
             "body"].decode() for w in ("jax", "port")}
 
+    def scraped_metrics(self, timeout: float = 60.0) -> dict[str, str]:
+        """Both routers' /metrics once each has scraped every live
+        engine. The scrapers run every 0.2 s with a 0.2 s timeout on the
+        loop that serves everything here, so on a loaded host a router
+        can go several rounds without a scrape, and its /metrics then
+        lacks the SCRAPED series (or holds them while the other's does
+        not)."""
+        want = {(name, (("server", e.url),))
+                for name in SCRAPED for e in self.engines}
+        deadline = time.monotonic() + timeout
+        while True:
+            text = self.metrics()
+            missing = {w: want - {key for _, samples in _families(
+                t, text_string_to_metric_families).values()
+                for key in samples} for w, t in text.items()}
+            if not any(missing.values()):
+                return text
+            assert time.monotonic() < deadline, (
+                f"no scrape of every engine in {timeout}s: {missing}")
+            time.sleep(0.05)
+
 
 @pytest.fixture(scope="module")
 def stack(tmp_path_factory):
     s = Stack(tmp_path_factory.mktemp("router_app"))
-    s.metrics_before = s.metrics()
+    s.metrics_before = s.scraped_metrics()
     yield s
     s.close()
 
@@ -405,7 +432,7 @@ TIMED = ("_seconds", "latency", "ttft", "itl", "relay_tokens", "_usage_",
 def test_metrics_families_equal(stack):
     """Run last in this file: the deltas of both routers' /metrics over
     every request above."""
-    after = stack.metrics()
+    after = stack.scraped_metrics()
     assert (_families(after["port"], port_prom.text_string_to_metric_families)
             == _families(after["port"], text_string_to_metric_families))
     delta = {}
