@@ -167,6 +167,26 @@ Phases, each fatal on failure:
    (wall ms a token) and one pure decode round of each under the
    profiler; then the same with split K=1 engines (single-step decode
    graphs, host sampling);
+8f. sync: the host syncs of the served path, held to the port's
+   analyzer. `python -m production_stack_tpu_torch.analysis
+   production_stack_tpu_torch/` must exit 0 (run here, on the card's
+   Python, with --json, beside the engines); the compiled phase's K=8
+   3B engine on the defaults (ragged kernel, unified rounds, graphed
+   decode programs after precompile_serving; its context cap) and a
+   --no-ragged-kernel one (the prefill and decode kernels; its own
+   precompile_serving) each serve the mixed scenario then eight
+   32-token prompts at batch 8, prefix cache emptied before each run,
+   first plain, then under CUDA's sync debug mode ("warn") with
+   torch.cuda.synchronize, Event.synchronize and Stream.synchronize
+   wrapped (the debug mode's own report of each explicit call is
+   printed: it misses some). Every sync is counted at the innermost
+   frame inside the package; syncs a step by round kind (mean and max),
+   each site's count, its most frequent caller and the analyzer's
+   verdict (a suppressed device-sync finding at that line, or the
+   not-hot function around it) are printed, graph capture apart. A site
+   the analyzer does not report, streams under the census that differ
+   from the plain run's, or launches other than 28 a forward fail the
+   run;
 8e. async: a K=8 --async-decode engine against the synchronous K=8
    engine on 8 prompts (4 greedy, 4 seeded sampled): streams
    bit-identical, rounds chained on device tokens > 0, launches 28 a
@@ -223,18 +243,20 @@ Phases, each fatal on failure:
    request; (d) a fresh engine with only the cache server restores the
    1500-token prompt from it. Restore and export fallbacks read 0
    throughout, launches 28 a forward on every engine and server;
-11. phi-3: Phi-3-mini at full depth (32 layers, 7.6 GB of seeded bf16
-   weights) written as an HF checkpoint under build/ (removed after) and
+11. phi-3: Phi-3-mini at full width, PHI3_SERVE_LAYERS of its 32 layers
+   (seeded bf16 weights) written as an HF checkpoint under build/
+   (removed after) and
    served by the CLI under auto (the gather path; log
    build/chip_smoke_phi3_serve.log): prompts of 24, 300, 900 and 3000
    tokens (the last past the 2047-token window) at once, 16 tokens
    each, no kernel launch;
-11b. gemma: Gemma-7B at full depth (28 layers, 17.1 GB of seeded bf16
-   weights) written as an HF checkpoint under build/ (removed after)
-   and served by the CLI under auto on the kernels (log
+11b. gemma: Gemma-7B at full width, GEMMA_SERVE_LAYERS of its 28
+   layers (seeded bf16 weights) written as an HF checkpoint under build/
+   (removed after) and served by the CLI under auto on the kernels (log
    build/chip_smoke_gemma_serve.log): prompts of 24, 300, 900 and 3000
    tokens at once, 16 tokens each, finish reason length, no xla warning
-   in the log, mixed rounds run, launches 28 a forward; the same
+   in the log, mixed rounds run, launches one a layer a forward; the
+   same
    requests on a --attention-impl xla server (log
    build/chip_smoke_gemma_xla_serve.log, no launch); the same prompts
    on one in-process runner on the checkpoint, the kernels against the
@@ -253,8 +275,9 @@ Phases, each fatal on failure:
    and float32 one-shot forwards) and on the same weights in float32,
    whose greedy streams are held to one-shot float32 forwards under the
    near-tie rule;
-13. tp: tensor parallelism on the one card: Llama-3.2-3B (28 layers,
-   bf16, seeded random weights) at tp=2, rank 0 in this process and
+13. tp: tensor parallelism on the one card: Llama-3.2-3B (full width,
+   TP_LAYERS layers, bf16, seeded random weights) at tp=2, rank 0 in
+   this process and
    rank 1 spawned (parallel/launch.start_tp_ranks with devices [cuda:0,
    cuda:0] and gloo: NCCL refuses two ranks on one device), beside a
    tp=1 engine on the same seed, both K=8: a one-shot 512-token
@@ -262,7 +285,8 @@ Phases, each fatal on failure:
    mixed phase's scenario (four greedy 32-token requests, a 1500-token
    prompt at step 2) with streams held to tp=1's under the near-tie
    rule; each rank's launches (read from the followers through the
-   step broadcast) held to 28 a forward, its params and KV cache on
+   step broadcast) held to one a layer a forward, its params and KV
+   cache on
    the card and no collective on a host tensor; wall ms a token at
    batch 8 in turns, printed as gloo on one shared card (not a TP
    speed); then the Qwen2-7B 2-layer checkpoint (the families phase's
@@ -283,14 +307,15 @@ Phases, each fatal on failure:
    used without a copy) against chunked prefill of the same prompt on
    the prefill kernel: last-row logits within DECODE_LOGIT_REL_TOL of
    max|logit|, K/V rows within LC_KV_REL_TOL, no kernel launched by the
-   ring; (c) an engine with long_prefill_threshold 4096,
-   context_parallel_size 2 and long_prefill_chunk 2048 and the same
-   engine without the lane, on those params, each serving four greedy
+   ring; (c) an engine of the 3B at TP_LAYERS layers with
+   long_prefill_threshold 4096, context_parallel_size 2 and
+   long_prefill_chunk 2048 and the same engine without the lane, on
+   the same seed, each serving four greedy
    64-token requests with a ~16000-token prompt arriving at step 12:
    the lane serves it in 8 ring chunks (S_pad 16384) with 0 fallbacks,
    ring / d2h / land seconds > 0, ring devices on the card, no
    'DISABLED' or 'failed' lane warning and one shared-card warning,
-   decode rounds while the ring is in flight, 28 ragged
+   decode rounds while the ring is in flight, TP_LAYERS ragged
    launches a forward over the run and over the decode after landing
    (the ring launches none), streams held to the control's under the
    near-tie rule; TTFT ring and chunked, the step-thread host ms of
@@ -300,17 +325,17 @@ Phases, each fatal on failure:
    build/chip_smoke_lc_serve.log): /v1/models carries sp_size 2, a
    5000-token completion is answered, /metrics counts one long-prefill
    request and no fallback, launches 28 a forward.
-15. Pipeline parallelism (pp_phase): the 3B served at pp=2 (two ranks)
-   and at pp=2 x tp=2 (four ranks), every rank on cuda:0 over gloo,
-   each rank set started once, against one pp=1 engine on the gather
-   path (attention_impl xla) on the same seed: a one-shot 512-token
-   forward's logits within PP_LOGIT_REL_TOL of max|logit|, the mixed
-   scenario's streams under the near-tie rule, every rank's report
-   (stage and tp index by the row-major layout, 14 layers, no kernel
-   launch: pp serves on the gather path as JAX serves it on XLA, the
+15. Pipeline parallelism (pp_phase): the 3B (TP_LAYERS layers) served
+   at pp=2 (two ranks) and at pp=2 x tp=2 (four ranks), every rank on
+   cuda:0 over gloo, each rank set started once, against one pp=1
+   engine on the gather path (attention_impl xla) on the same seed: a
+   one-shot 512-token forward's logits within PP_LOGIT_REL_TOL of
+   max|logit|, the mixed scenario's streams under the near-tie rule,
+   every rank's report (stage and tp index by the row-major layout,
+   half the layers, no kernel launch: pp serves on the gather path as JAX serves it on XLA, the
    store steps rank 0 published), wall ms a token at batch 8 in turns
    (ranks share one card over gloo: not a PP speed); then
-   PipelinedPrefiller on a 4096-token prompt, 2 stages of 14 layers on
+   PipelinedPrefiller on a 4096-token prompt, 2 stages of 2 layers on
    the card: all rows' logits and every K/V row held to a one-shot
    forward.
 16. Multihost (multihost_phase): two processes of the CLI joined into
@@ -318,25 +343,27 @@ Phases, each fatal on failure:
    {0,1} --coordinator-address 127.0.0.1:<port>
    --tensor-parallel-size 2; logs build/chip_smoke_mh{0,1}_serve.log),
    each one rank on cuda:0 over gloo: process 0 serves, process 1
-   follows; a greedy completion held to the tp phase's single-process
-   tp=2 engine under the near-tie rule, rank 0's launches 28 a forward,
+   follows; a greedy completion held to an in-process tp=1 engine's
+   (28 layers) under the near-tie rule, rank 0's launches 28 a forward,
    and process 1 exits non-zero within MH_EXIT_S of SIGTERM to process
    0.
-17. Rank-set features (rank_set_phase): the 3B at tp=2 (both ranks on
-   cuda:0 over gloo) beside a tp=1 engine, with two rank-8 adapters
+17. Rank-set features (rank_set_phase): the 3B (TP_LAYERS layers) at
+   tp=2 (both ranks on cuda:0 over gloo) beside a tp=1 engine, with two rank-8 adapters
    (buffers a rank, one-shot logits of each lane, streams), the KV
    phase's 46-block export and import (every rank's slice byte-equal
    to its cut of the wire), evict and restore through the CPU tier, a
    PD pull into a tp=1 decode engine; then Mixtral-8x7B x4 float32 at
    tp=2 against tp=1, block by block and on the logits, beside a
    bfloat16 control, 4 experts a rank.
-18. Rank-set serving (rank_set_serving_phase): the 3B at tp=2 (both
-   ranks on cuda:0 over gloo): (f) a K=8 engine at max_model_len 2048
-   runs precompile_serving on every rank (grid and count against
+18. Rank-set serving (rank_set_serving_phase): the 3B at TP_LAYERS
+   layers and tp=2 (both ranks on cuda:0 over gloo): (f) a K=8 engine at
+   max_model_len 256 runs precompile_serving on every rank (grid and
+   count against
    expected_sweep, the ranks' dispatches equal, the sweep's seconds);
    (e) a K=8 --async-decode engine beside it on the tp phase's mixed
    scenario (streams under the near-tie rule, chained rounds and token
-   checks on every rank, 28 ragged launches a forward a rank) and batch
+   checks on every rank, one ragged launch a layer a forward a rank)
+   and batch
    8 in turns; (g) the long-context phase's lane scenario at tp=2 x
    sp=2 beside a chunked tp=2 control (streams, first-token logits
    against the tp=1 lane's, chunks, fallbacks, blocks landed, TTFT, the
@@ -371,8 +398,8 @@ Launch counts are reset just before the serve phase's requests (through
 the server's /debug/kernel_launches) and again before its API requests,
 before each guided-phase engine, before the decode phase's
 --no-ragged-kernel engine, before each pipeline-phase engine and before
-each mixed-round engine, before each compiled-phase and async-phase
-engine's run, before each spec-phase engine's run and the
+each mixed-round engine, before each compiled-phase, sync-phase and
+async-phase engine's run, before each spec-phase engine's run and the
 spec server's requests, before the checkpoint phase's requests,
 before each families-phase engine and each Gemma-7B server's requests,
 before each KV-phase engine's and server's requests, before each
@@ -435,6 +462,28 @@ LAYERS_3B = 28
 # the prompt that arrives while other requests decode: three 512-token
 # chunks at the engine's default max_prefill_chunk
 LONG_PROMPT_TOKENS = 1500
+# the depth of the 3B in the tp, long-context engine, pp and rank-set
+# serving phases: every rank of a set shares the one card over gloo, so
+# an eager forward's host time grows with its layers' collectives (a
+# 28-layer tp=2 decode token took 14-20 ms against 0.9 ms at tp=1 on an
+# H100), and these phases check the rank sets' plumbing, which every
+# layer repeats; the serve, stack and multi-host phases keep all 28
+TP_LAYERS = 4
+
+
+def cut_3b() -> str:
+    """Register Llama-3.2-3B at its full width and TP_LAYERS layers as a
+    preset of this process (start_tp_ranks hands the resolved config to
+    the ranks it spawns) and return its name."""
+    import dataclasses
+
+    from production_stack_tpu_torch.models import config as mconfig
+
+    cut = dataclasses.replace(mconfig.get_model_config("llama-3.2-3b"),
+                              name=f"llama-3.2-3b-x{TP_LAYERS}",
+                              num_layers=TP_LAYERS)
+    mconfig._PRESETS[cut.name] = cut
+    return cut.name
 
 
 def release(torch) -> None:
@@ -2390,9 +2439,9 @@ COMPILED_MAX_MODEL_LEN = 2048
 COMPILED_MAX_PREFILL_CHUNK = 512
 
 
-def compiled_engines(torch, params, k: int, **over) -> dict:
-    """A compiled 3B engine (program variants, CUDA graphs) and its eager
-    control on the same params; K=k, contexts capped for the grid."""
+def compiled_engine(torch, params, k: int, eager: bool = False, **over):
+    """A 3B engine on `params`, K=k, contexts capped for the grid:
+    compiled (program variants, CUDA graphs), or its eager control."""
     from production_stack_tpu_torch.engine.config import EngineConfig
     from production_stack_tpu_torch.engine.llm_engine import LLMEngine
 
@@ -2401,8 +2450,7 @@ def compiled_engines(torch, params, k: int, **over) -> dict:
         block_size=32, num_kv_blocks=512, max_num_seqs=8, seed=SEED,
         num_scheduler_steps=k, max_model_len=COMPILED_MAX_MODEL_LEN,
         max_prefill_chunk=COMPILED_MAX_PREFILL_CHUNK, **over)
-    return {"graphed": LLMEngine(cfg, params=params),
-            "eager": LLMEngine(cfg, params=params, eager=True)}
+    return LLMEngine(cfg, params=params, eager=eager)
 
 
 def profiled_decode_round(torch, eng, tag: str) -> str:
@@ -2444,7 +2492,7 @@ def graphed_vs_eager(what: str, engs: dict, outs: dict, turn: int, sp,
           "graphed engine equal to the eager engine's", flush=True)
 
 
-def compiled_phase(torch, pa, gap_tol: float, smi: str) -> dict:
+def compiled_phase(torch, pa, gap_tol: float, smi: str) -> tuple:
     """The compiled programs at Llama-3.2-3B (28 layers, bf16, random
     weights): a K=8 engine on the defaults runs precompile_serving (its
     dispatches, seconds, compile events by kind and the graph pool's
@@ -2457,7 +2505,8 @@ def compiled_phase(torch, pa, gap_tol: float, smi: str) -> dict:
     torch.profiler. Then wall ms a token at batch 8 in turns and one pure
     decode round of each under the profiler; then the same on split K=1
     engines (--no-ragged-dispatch: the single-step decode graphs).
-    Returns the graphed engines' launches."""
+    Returns the graphed engines' launches, the params and the K=8
+    graphed engine, kept for the sync phase."""
     from production_stack_tpu_torch.engine.sampling_params import (
         SamplingParams,
     )
@@ -2472,7 +2521,9 @@ def compiled_phase(torch, pa, gap_tol: float, smi: str) -> dict:
     launches = dict.fromkeys(("decode", "prefill", "ragged"), 0)
     turns = [("graphed", 0), ("eager", 0), ("eager", 1), ("graphed", 1)]
     for k, over in ((8, {}), (1, {"ragged_dispatch": False})):
-        engs = compiled_engines(torch, params, k, **over)
+        engs = {"graphed": compiled_engine(torch, params, k, **over),
+                "eager": compiled_engine(torch, params, k, eager=True,
+                                         **over)}
         tag = f"compiled phase K={k}" + (" split" if k == 1 else "")
         g = engs["graphed"].runner
         t0 = time.perf_counter()
@@ -2534,12 +2585,12 @@ def compiled_phase(torch, pa, gap_tol: float, smi: str) -> dict:
                   f"torch.profiler: "
                   f"{profiled_decode_round(torch, engs[name], f'q{k}')}",
                   flush=True)
+        if k == 8:
+            kept = engs["graphed"]
         del engs, g
         release(torch)
-    del params
-    release(torch)
     print(f"compiled phase: {time.perf_counter() - t_phase:.1f}s", flush=True)
-    return launches
+    return launches, params, kept
 
 
 def async_phase(torch, pa, smi: str) -> dict:
@@ -2617,6 +2668,343 @@ def async_phase(torch, pa, smi: str) -> dict:
     release(torch)
     print(f"async phase: {time.perf_counter() - t_phase:.1f}s", flush=True)
     return counts["async"]
+
+
+# -- sync phase ------------------------------------------------------------------
+SYNC_MSG = "called a synchronizing CUDA operation"
+PKG = REPO / "production_stack_tpu_torch"
+SYNC_B8_TOKENS = 33
+
+
+class SyncCensus:
+    """The host syncs of the port's code, counted by site: the innermost
+    frame inside production_stack_tpu_torch/ of every sync that CUDA's
+    sync debug mode ("warn") reports, and of every explicit
+    torch.cuda.synchronize / Event.synchronize / Stream.synchronize call
+    (wrapped while the census is on, so a sync the debug mode misses is
+    counted, and one it sees is counted once). A sync whose stack passes
+    through ProgramVariant._warm_and_capture (a graph's warm-up and
+    capture) is counted apart; one with no frame in the package (the
+    caller's own) is not a site."""
+
+    def __init__(self, torch):
+        import threading
+
+        self.torch = torch
+        self.sites: dict[str, int] = {}
+        self.capture: dict[str, int] = {}
+        self.callers: dict[str, dict[str, int]] = {}
+        self.how: dict[str, set] = {}
+        self.outside = 0
+        self.round = 0
+        self.local = threading.local()
+
+    @staticmethod
+    def _rel(frame) -> str:
+        return (f"{Path(frame.f_code.co_filename).relative_to(REPO)}:"
+                f"{frame.f_lineno}")
+
+    def record(self, frame, how: str) -> None:
+        inner, caller, capture = None, None, False
+        f = frame
+        while f is not None:
+            name = f.f_code.co_filename
+            if name.startswith(str(PKG) + os.sep):
+                if inner is None:
+                    inner = f
+                elif caller is None:
+                    caller = f
+                if f.f_code.co_name == "_warm_and_capture":
+                    capture = True
+            f = f.f_back
+        if inner is None:
+            self.outside += 1
+            return
+        site = self._rel(inner)
+        book = self.capture if capture else self.sites
+        book[site] = book.get(site, 0) + 1
+        self.how.setdefault(site, set()).add(how)
+        if not capture:
+            self.round += 1
+            by = self.callers.setdefault(site, {})
+            c = self._rel(caller) if caller is not None else "-"
+            by[c] = by.get(c, 0) + 1
+
+    def _show(self, message, category, filename, lineno, file=None,
+              line=None):
+        if SYNC_MSG in str(message):
+            if not getattr(self.local, "inside", False):
+                self.record(sys._getframe(1), "debug mode")
+            return
+        self._orig_show(message, category, filename, lineno, file, line)
+
+    def _wrap(self, fn, how: str):
+        census = self
+
+        def wrapped(*args, **kwargs):
+            if getattr(census.local, "inside", False):
+                return fn(*args, **kwargs)
+            census.record(sys._getframe(1), how)
+            census.local.inside = True
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                census.local.inside = False
+
+        return wrapped
+
+    def __enter__(self):
+        import warnings
+
+        torch = self.torch
+        self._saved = (torch.cuda.synchronize, torch.cuda.Event.synchronize,
+                       torch.cuda.Stream.synchronize)
+        self._warn = warnings.catch_warnings()
+        self._warn.__enter__()
+        warnings.filterwarnings("always", message=f".*{SYNC_MSG}")
+        self._orig_show = warnings.showwarning
+        warnings.showwarning = self._show
+        torch.cuda.synchronize = self._wrap(self._saved[0],
+                                            "torch.cuda.synchronize")
+        torch.cuda.Event.synchronize = self._wrap(self._saved[1],
+                                                  "Event.synchronize")
+        torch.cuda.Stream.synchronize = self._wrap(self._saved[2],
+                                                   "Stream.synchronize")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch = self.torch
+        torch.cuda.set_sync_debug_mode("default")
+        (torch.cuda.synchronize, torch.cuda.Event.synchronize,
+         torch.cuda.Stream.synchronize) = self._saved
+        self._warn.__exit__(*exc)
+        return False
+
+
+def debug_mode_sees(torch) -> dict:
+    """Which explicit syncs CUDA's sync debug mode reports on this
+    build: each call made once under "warn", its warnings counted."""
+    import warnings
+
+    x = torch.ones(4, device="cuda")
+    ev = torch.cuda.Event()
+    ev.record()
+    calls = {
+        "torch.cuda.synchronize": torch.cuda.synchronize,
+        "Event.synchronize": ev.synchronize,
+        "Stream.synchronize": torch.cuda.current_stream().synchronize,
+        ".item()": lambda: x.sum().item(),
+    }
+    seen = {}
+    for name, call in calls.items():
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                call()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        seen[name] = sum(SYNC_MSG in str(w.message) for w in got)
+    return seen
+
+
+ANALYZER_CMD = ("-m", "production_stack_tpu_torch.analysis",
+                "production_stack_tpu_torch/", "--json")
+
+
+def analyzer_verdicts(report: dict) -> tuple[dict, dict]:
+    """The port's analyzer over its own package: (its device-sync
+    findings, suppressed or not, by "file:line" from the CLI's --json
+    `report`; not-hot functions by file as (first line, last line,
+    name))."""
+    from production_stack_tpu_torch.analysis.core import (
+        ModuleContext,
+        iter_functions,
+    )
+
+    by_line = {}
+    for f in report["findings"] + report["suppressed"]:
+        if f["rule"].startswith("device-sync"):
+            by_line.setdefault(f"{f['path']}:{f['line']}", f)
+    not_hot: dict[str, list] = {}
+    for path in sorted(PKG.rglob("*.py")):
+        ctx = ModuleContext(str(path), path.read_text())
+        for fn in iter_functions(ctx.tree):
+            if ctx.is_not_hot(fn):
+                lo = min([fn.lineno] + [d.lineno for d in fn.decorator_list])
+                not_hot.setdefault(str(path.relative_to(REPO)), []).append(
+                    (lo, fn.end_lineno, fn.name))
+    return by_line, not_hot
+
+
+def verdict(site: str, by_line: dict, not_hot: dict) -> str:
+    """The analyzer's word on a sync site: its finding's rule (suppressed
+    or not), the not-hot function it lies in, or "unreported"."""
+    f = by_line.get(site)
+    if f is not None:
+        return (f"suppressed {f['rule']}" if f["suppressed"]
+                else f"UNSUPPRESSED {f['rule']}")
+    path, line = site.rsplit(":", 1)
+    for lo, hi, name in not_hot.get(path, ()):
+        if lo <= int(line) <= hi:
+            return f"not-hot {name}"
+    return "unreported"
+
+
+def census_scenario(torch, pa, eng, tag: str, census) -> tuple:
+    """The mixed scenario (four greedy 32-token requests, a
+    LONG_PROMPT_TOKENS prompt at step 2) then eight 32-token prompts
+    decoded to SYNC_B8_TOKENS tokens at batch 8. Returns (the outputs'
+    token ids, launches, dispatches, {round kind: [syncs a step]}),
+    launches and dispatches counted from 0 just before it; a step's kind
+    is the engine's last_step_kind, " b8" in the batch-8 part."""
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+
+    sp = SamplingParams(max_tokens=32, temperature=0, ignore_eos=True)
+    bsp = SamplingParams(max_tokens=SYNC_B8_TOKENS, temperature=0,
+                         ignore_eos=True)
+    prompts = [[(11 * i + 5 * j) % 250 + 1 for j in range(n)]
+               for i, n in enumerate((17, 40, 64, 90))]
+    long_prompt = [(3 * j) % 250 + 1 for j in range(LONG_PROMPT_TOKENS)]
+    rounds: dict[str, list[int]] = {}
+    finals: dict = {}
+
+    def step(part: str) -> None:
+        census.round = 0
+        finals.update({o.request_id: o for o in eng.step() if o.finished})
+        rounds.setdefault(eng.last_step_kind + part, []).append(
+            census.round)
+
+    pa.reset_launch_counts()
+    runs0 = dict(eng.runner.dispatch_counts)
+    for i, p in enumerate(prompts):
+        eng.add_request(f"{tag}d{i}", prompt_token_ids=p, sampling_params=sp)
+    n = 0
+    while eng.has_unfinished():
+        if n == 2:
+            eng.add_request(f"{tag}long", prompt_token_ids=long_prompt,
+                            sampling_params=sp)
+        step("")
+        n += 1
+    for i in range(8):
+        eng.add_request(f"{tag}b{i}", prompt_token_ids=[
+            (7 * i + j) % 250 + 1 for j in range(32)], sampling_params=bsp)
+    while eng.has_unfinished():
+        step(" b8")
+    runs = {k: v - runs0[k] for k, v in eng.runner.dispatch_counts.items()}
+    ids = [finals[f"{tag}{r}"].token_ids for r in
+           ("d0", "d1", "d2", "d3", "long", *(f"b{i}" for i in range(8)))]
+    return ids, pa.launch_counts(), runs, rounds
+
+
+def sync_phase(torch, pa, smi: str, params, graphed) -> dict:
+    """The host syncs of the served path at Llama-3.2-3B (28 layers,
+    bf16, random weights, byte tokenizer), held to the port's analyzer.
+    `graphed` is a K=8 engine on the defaults (ragged kernel, unified
+    rounds, graphed decode programs after precompile_serving; contexts
+    capped at COMPILED_MAX_MODEL_LEN: the compiled phase's) on `params`;
+    a --no-ragged-kernel engine (the prefill and decode kernels) on the
+    same params runs its own precompile_serving. Each runs
+    census_scenario twice, its prefix cache emptied before each: first
+    plain, then under SyncCensus. Fatal: a sync site in the package the
+    analyzer does not report (no device-sync finding at its line and no
+    not-hot function around it), streams under the census that differ
+    from the plain run's, and `python -m production_stack_tpu_torch.analysis
+    production_stack_tpu_torch/` (run with --json beside the engines)
+    exiting non-zero. Prints syncs a step by round kind (mean and max),
+    each site's count, how it was seen, its most frequent caller and the
+    analyzer's verdict, and the captures' syncs apart. Returns the
+    engines' launches."""
+    t_phase = time.perf_counter()
+    cmd = [sys.executable, *ANALYZER_CMD]
+    analyzer = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+    print(f"sync phase: CUDA sync debug mode reports, a call: "
+          f"{debug_mode_sees(torch)} (torch {torch.__version__} on {smi})",
+          flush=True)
+    problems = []
+    runs_of = {}
+    for impl in ("ragged", "composed"):
+        tag = f"sync phase {impl}"
+        if impl == "ragged":
+            eng, n = graphed, "the compiled phase's"
+        else:
+            eng = compiled_engine(torch, params, 8, ragged_kernel=False)
+            n = eng.precompile_serving()
+        bm = eng.block_manager
+
+        def run(tag_, census):
+            for h in list(bm.cached_blocks):
+                bm.drop_cached_block(h)
+            return census_scenario(torch, pa, eng, tag_, census)
+
+        plain = run("p", SyncCensus(torch))
+        census = SyncCensus(torch)
+        ev0 = dict(eng.runner.compile_events)
+        with census:
+            ids, got, runs, rounds = run("s", census)
+        torch.cuda.synchronize()
+        new = {k: v - ev0.get(k, 0) for k, v in
+               eng.runner.compile_events.items() if v != ev0.get(k, 0)}
+        check_launches(tag, got, runs, impl=impl)
+        same = sum(a == b for a, b in zip(plain[0], ids))
+        print(f"{tag}: {n} warm-up dispatches before; {same}/{len(ids)} "
+              f"greedy streams under the census equal to the plain run's; "
+              f"compile events during it {new}; dispatches {runs} on {smi}",
+              flush=True)
+        if same != len(ids):
+            problems.append(f"{impl}: streams with sync debug mode on "
+                            "differ from the plain run's")
+        runs_of[impl] = (got, rounds, census)
+        eng.shutdown()
+        del eng, bm
+        release(torch)
+    del params, graphed
+    release(torch)
+    out, err = analyzer.communicate(timeout=300)
+    report = json.loads(out) if analyzer.returncode in (0, 1) else None
+    print(f"sync phase: python {' '.join(ANALYZER_CMD)} exits "
+          f"{analyzer.returncode}: "
+          + (f"{report['files_scanned']} file(s), "
+             f"{report['summary']['unsuppressed']} finding(s), "
+             f"{report['summary']['suppressed']} suppressed"
+             if report else err[-2000:]), flush=True)
+    if analyzer.returncode != 0:
+        print(out[-6000:] + err[-2000:], flush=True)
+        problems.append(f"the port's analyzer exits {analyzer.returncode}")
+    by_line, not_hot = analyzer_verdicts(report) if report else ({}, {})
+    launches = dict.fromkeys(("decode", "prefill", "ragged"), 0)
+    for impl, (got, rounds, census) in runs_of.items():
+        tag = f"sync phase {impl}"
+        for k in launches:
+            launches[k] += got.get(k, 0)
+        per_kind = ", ".join(
+            f"{kind} {sum(v) / len(v):.2f} / {max(v)} over {len(v)}"
+            for kind, v in sorted(rounds.items()))
+        print(f"{tag}: syncs a step by round kind (mean / max over steps): "
+              f"{per_kind}; {sum(census.sites.values())} syncs at "
+              f"{len(census.sites)} sites in the package, "
+              f"{census.outside} outside it, on {smi}", flush=True)
+        for site, cnt in sorted(census.sites.items(), key=lambda kv: -kv[1]):
+            v = verdict(site, by_line, not_hot)
+            caller = max(census.callers[site].items(), key=lambda kv: kv[1])
+            print(f"  {site} x{cnt} ({', '.join(sorted(census.how[site]))}; "
+                  f"caller {caller[0]} x{caller[1]}; {smi}): {v}",
+                  flush=True)
+            if v == "unreported" or v.startswith("UNSUPPRESSED"):
+                problems.append(f"{impl} {site}: {v}")
+        for site, cnt in sorted(census.capture.items()):
+            print(f"  capture {site} x{cnt} ({smi}): "
+                  f"{verdict(site, by_line, not_hot)} (graph warm-up and "
+                  "capture, apart)", flush=True)
+    if problems:
+        fail("sync phase: " + "; ".join(problems))
+    print(f"sync phase: {time.perf_counter() - t_phase:.1f}s (host clock) "
+          f"on {smi}", flush=True)
+    return launches
 
 
 # -- spec phase ------------------------------------------------------------------
@@ -2944,6 +3332,11 @@ FAMILY_LAYERS = 2
 WINDOW_PROMPT_TOKENS = 5000
 # the Phi-3-mini prompt past its 2047-token window, inside its 4096
 PHI3_LONG_PROMPT_TOKENS = 3000
+# the depth of the Phi-3-mini and Gemma-7B servers: full width, 8 of
+# their 32 and 28 layers (the checkpoint written, loaded and served in a
+# third of the time; every layer runs the same attention)
+PHI3_SERVE_LAYERS = 8
+GEMMA_SERVE_LAYERS = 8
 
 
 def tree_equal(torch, got: dict, want: dict) -> bool:
@@ -3980,8 +4373,8 @@ def kv_phase(torch, pa, gap_tol: float, smi: str,
 
 # -- Phi-3-mini at full depth ------------------------------------------------------
 def phi3_serve_phase(torch, pa, smi: str) -> None:
-    """Phi-3-mini at its published width and full depth (32 layers,
-    seeded random bf16 weights, 7.6 GB) written as an HF checkpoint in a
+    """Phi-3-mini at its published width, PHI3_SERVE_LAYERS of its 32
+    layers (seeded random bf16 weights) written as an HF checkpoint in a
     temporary directory under build/ that the phase removes, served by
     the CLI under the default attention_impl auto (the gather path:
     head_dim 96; log build/chip_smoke_phi3_serve.log): three short
@@ -4003,14 +4396,15 @@ def phi3_serve_phase(torch, pa, smi: str) -> None:
     root = Path(tempfile.mkdtemp(prefix="phi3-", dir=REPO / "build"))
     ckdir = root / "phi-3-mini"
     proc = None
+    hf = dict(PHI_3_MINI, num_hidden_layers=PHI3_SERVE_LAYERS)
     try:
         ckdir.mkdir()
-        (ckdir / "config.json").write_text(json.dumps(PHI_3_MINI))
+        (ckdir / "config.json").write_text(json.dumps(hf))
         cfg = get_model_config(str(ckdir))
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         params = llama.init_params(cfg, gen, torch.bfloat16, "cuda")
         t0 = time.perf_counter()
-        shards = write_hf_checkpoint(str(ckdir), PHI_3_MINI, params,
+        shards = write_hf_checkpoint(str(ckdir), hf, params,
                                      shard_bytes=5 * 10**9)
         size = sum(os.path.getsize(p) for p in shards)
         print(f"phi-3 phase: {cfg.num_layers} layers, head_dim "
@@ -4139,24 +4533,23 @@ def max_rel(torch, a, b) -> tuple[float, float]:
     return diff, diff / float(b.abs().max())
 
 
-# the served Gemma-7B's 28-layer logits in float32, kernels (their f32
-# CUDA-core path) against the gather path: summation order only, which
-# moves a random-weight model's logits by ~1e-5 of their largest through
-# 28 layers; a page, mask or tile fault moves them by far more
+# the served Gemma-7B's logits in float32, kernels (their f32 CUDA-core
+# path) against the gather path: summation order only, which moved a
+# random-weight model's logits by ~3e-5 of their largest through all 28
+# layers; a page, mask or tile fault moves them by far more
 GEMMA_F32_LOGIT_REL_TOL = 1e-3
 
 
 def gemma_serve_phase(torch, pa, gap_tol: float, smi: str) -> dict:
-    """Gemma-7B at its published width and full depth (28 layers, seeded
-    random bf16 weights, 17.1 GB) served on the kernels: written as an HF
-    checkpoint in a temporary directory under build/ that the phase
+    """Gemma-7B at its published width, GEMMA_SERVE_LAYERS of its 28
+    layers (seeded random bf16 weights) served on the kernels: written as
+    an HF checkpoint in a temporary directory under build/ that the phase
     removes and served by the CLI under the default attention_impl auto
     (log build/chip_smoke_gemma_serve.log). GEMMA_PROMPT_TOKENS prompts
-    at once,
-    GEMMA_MAX_TOKENS tokens each: each answers with finish reason length,
-    the log holds no 'attention impl: xla' warning, mixed rounds ran
-    (tpu:ragged_rounds_total), launches 28 a forward; then the same
-    requests on the gather path (--attention-impl xla, log
+    at once, GEMMA_MAX_TOKENS tokens each: each answers with finish
+    reason length, the log holds no 'attention impl: xla' warning, mixed
+    rounds ran (tpu:ragged_rounds_total), launches one a layer a
+    forward; then the same requests on the gather path (--attention-impl xla, log
     build/chip_smoke_gemma_xla_serve.log; no kernel launch), and the
     kernels' greedy streams held to its under the near-tie rule. The
     same prompts on one in-process runner of the same weights, on each
@@ -4182,16 +4575,17 @@ def gemma_serve_phase(torch, pa, gap_tol: float, smi: str) -> dict:
     procs = []
     prompts = [[(13 * i + 7 * j) % 255999 + 1 for j in range(n)]
                for i, n in enumerate(GEMMA_PROMPT_TOKENS)]
+    hf = dict(GEMMA_7B, num_hidden_layers=GEMMA_SERVE_LAYERS)
     try:
         ckdir.mkdir()
-        (ckdir / "config.json").write_text(json.dumps(GEMMA_7B))
+        (ckdir / "config.json").write_text(json.dumps(hf))
         cfg = get_model_config(str(ckdir))
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         params = llama.init_params(cfg, gen, torch.bfloat16, "cuda")
         size = sum(t.numel() * t.element_size()
                    for t in torch.utils._pytree.tree_leaves(params))
         t0 = time.perf_counter()
-        shards = write_hf_checkpoint(str(ckdir), GEMMA_7B, params,
+        shards = write_hf_checkpoint(str(ckdir), hf, params,
                                      shard_bytes=5 * 10**9)
         print(f"gemma phase: {cfg.num_layers} layers, head_dim "
               f"{cfg.head_dim}, {size / 1e9:.2f} GB: wrote {len(shards)} "
@@ -4248,6 +4642,7 @@ def gemma_serve_phase(torch, pa, gap_tol: float, smi: str) -> dict:
             report = json.loads(http(port, "/debug/kernel_launches")[1])
             what = f"gemma phase ({impl})"
             check_launches(what, report["launches"], report["dispatches"],
+                           layers=GEMMA_SERVE_LAYERS,
                            impl="ragged" if impl == "auto" else "xla")
             if impl == "auto" and not rounds > 0:
                 fail(f"{what}: no mixed round ran")
@@ -4265,7 +4660,7 @@ def gemma_serve_phase(torch, pa, gap_tol: float, smi: str) -> dict:
         ref, _ = serve("xla")
         # the same forwards on one runner of the same weights, on each
         # impl, in bf16 (the served dtype) and in float32: f32 holds the
-        # kernels to the gather path through all 28 layers; bf16's
+        # kernels to the gather path through every layer; bf16's
         # largest logit difference is the streams' near-tie bound (the
         # 3B's gap_tol, printed beside it, is another model's)
         logits = {}
@@ -4782,21 +5177,20 @@ def tp_rank_check(what: str, reports: list[dict], layers: int,
 
 
 def tp_phase(torch, pa, gap_tol: float, smi: str) -> dict:
-    """Llama-3.2-3B (28 layers, bf16, seeded random weights, byte
-    tokenizer) at tp=2 on the one card (start_tp_ranks with devices
-    [cuda:0, cuda:0] and gloo; rank 1 spawned) beside a tp=1 engine on
-    the same seed, both K=8 (under tp: split rounds, the fused K-step
-    decode on the ragged kernel, no staging): a one-shot 512-token
-    forward's logits held to tp=1's; the mixed phase's scenario (four
-    greedy 32-token requests, a 1500-token prompt at step 2) on both,
-    streams held to tp=1's under the near-tie rule, and every rank's
-    launches held to 28 a forward; wall ms a token at batch 8 in turns
-    (gloo through the host on one shared card: not a TP speed). Then
-    the Qwen2-7B 2-layer checkpoint (qkv bias split, untied lm_head
-    vocab-sharded, g = 7 on a rank) at tp=2: logits held to tp=1's.
-    Returns rank 0's and rank 1's launches over the scenario, and the
-    tp=2 engine's greedy stream of MH_PROMPT (the multi-host phase's
-    reference)."""
+    """Llama-3.2-3B (full width, TP_LAYERS layers, bf16, seeded random
+    weights, byte tokenizer) at tp=2 on the one card (start_tp_ranks
+    with devices [cuda:0, cuda:0] and gloo; rank 1 spawned) beside a
+    tp=1 engine on the same seed, both K=8 (under tp: split rounds, the
+    fused K-step decode on the ragged kernel, no staging): a one-shot
+    512-token forward's logits held to tp=1's; the mixed phase's
+    scenario (four greedy 32-token requests, a 1500-token prompt at step
+    2) on both, streams held to tp=1's under the near-tie rule, and
+    every rank's launches held to TP_LAYERS a forward; wall ms a token
+    at batch 8 in turns (gloo through the host on one shared card: not a
+    TP speed). Then the Qwen2-7B 2-layer checkpoint (qkv bias split,
+    untied lm_head vocab-sharded, g = 7 on a rank) at tp=2: logits held
+    to tp=1's. Returns rank 0's and rank 1's launches over the
+    scenario."""
     import shutil
     import tempfile
 
@@ -4828,7 +5222,7 @@ def tp_phase(torch, pa, gap_tol: float, smi: str) -> dict:
         if codes != [0] * len(followers):
             fail(f"{what}: followers exited with {codes}")
 
-    base = dict(model="llama-3.2-3b", tokenizer="byte", device="cuda",
+    base = dict(model=cut_3b(), tokenizer="byte", device="cuda",
                 block_size=32, num_kv_blocks=TP_KV_BLOCKS, max_num_seqs=8,
                 seed=SEED, num_scheduler_steps=8)
     ref = LLMEngine(EngineConfig(**base))
@@ -4838,8 +5232,8 @@ def tp_phase(torch, pa, gap_tol: float, smi: str) -> dict:
               f"its engine up in {boot:.1f}s; ragged rounds "
               f"{eng._ragged_dispatch}, staging off", flush=True)
         ids = [(5 * j + 3) % 250 + 1 for j in range(TP_ONESHOT_TOKENS)]
-        tp_forward_check(torch, "tp phase llama-3.2-3b", ref, eng, ids,
-                         LAYERS_3B)
+        tp_forward_check(torch, f"tp phase {base['model']}", ref, eng,
+                         ids, TP_LAYERS)
         sp = SamplingParams(max_tokens=32, temperature=0, ignore_eos=True,
                             logprobs=2)
         outs, walls = {}, {}
@@ -4851,8 +5245,8 @@ def tp_phase(torch, pa, gap_tol: float, smi: str) -> dict:
             outs[tag], _, _, _, walls[tag] = staggered_mix(
                 torch, pa, e, f"tp-{tag}", 0, sp)
         counts = tp_rank_check("tp phase mixed scenario",
-                               eng.runner.reports(), LAYERS_3B, runs0)
-        if min(c["ragged"] for c in counts) < LAYERS_3B:
+                               eng.runner.reports(), TP_LAYERS, runs0)
+        if min(c["ragged"] for c in counts) < TP_LAYERS:
             fail(f"tp phase: a rank never launched the ragged kernel: "
                  f"{counts}")
         n_same = near_tie_check("tp phase tp=2 vs tp=1", outs["tp1"],
@@ -4872,13 +5266,8 @@ def tp_phase(torch, pa, gap_tol: float, smi: str) -> dict:
               f"{', '.join(f'{x:.3f}' for x in ms['tp2'])}; tp=1 "
               f"{', '.join(f'{x:.3f}' for x in ms['tp1'])} ({smi})",
               flush=True)
-        # the multi-host phase's reference: this single-process tp=2
-        # engine's greedy stream of its prompt
-        [mh_ref] = eng.generate([MH_PROMPT], SamplingParams(
-            max_tokens=MH_TOKENS, temperature=0, ignore_eos=True,
-            logprobs=2))
     finally:
-        stop(eng, "tp phase llama-3.2-3b")
+        stop(eng, f"tp phase {base['model']}")
         del ref
         release(torch)
 
@@ -4919,7 +5308,7 @@ def tp_phase(torch, pa, gap_tol: float, smi: str) -> dict:
             release(torch)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return {"rank0": counts[0], "rank1": counts[1]}, mh_ref
+    return {"rank0": counts[0], "rank1": counts[1]}
 
 
 # -- long-context phase ----------------------------------------------------------
@@ -5229,19 +5618,19 @@ def lc_scenario(torch, pa, eng, tag: str, sp,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
-def lc_engine_check(torch, pa, params, gap_tol: float, smi: str) -> dict:
-    """(c) the lane in an engine at full width: the 3B (28 layers, bf16,
-    the seeded params) with long_prefill_threshold LC_THRESHOLD,
+def lc_engine_check(torch, pa, gap_tol: float, smi: str) -> dict:
+    """(c) the lane in an engine at full width: the 3B (TP_LAYERS layers,
+    bf16, seeded params) with long_prefill_threshold LC_THRESHOLD,
     context_parallel_size LC_SP and long_prefill_chunk LC_CHUNK beside
     the same engine without the lane (chunked prefill on the kernels),
-    on the same params, each serving lc_scenario. The lane: one request,
+    on the same seed, each serving lc_scenario. The lane: one request,
     8 chunks, 0 fallbacks, ring / d2h / land seconds > 0, ring devices on
     the card, no 'DISABLED' or 'failed' warning, decode rounds while the
-    ring was in flight, 28 ragged launches a forward over the run and
-    over the decode after landing (the ring launches none); the streams
-    held to the control's under the near-tie rule. Returns the lane
-    engine's launches and the long prompt's first-token logits from the
-    ring (the tp=1 reference of the rank-set serving phase (g))."""
+    ring was in flight, TP_LAYERS ragged launches a forward over the run
+    and over the decode after landing (the ring launches none); the
+    streams held to the control's under the near-tie rule. Returns the
+    lane engine's launches and the long prompt's first-token logits from
+    the ring (the tp=1 reference of the rank-set serving phase (g))."""
     import logging
 
     from production_stack_tpu_torch.engine.config import EngineConfig
@@ -5255,7 +5644,7 @@ def lc_engine_check(torch, pa, params, gap_tol: float, smi: str) -> dict:
     handler.emit = lambda r: warned.append(r.getMessage())
     logging.getLogger(
         "production_stack_tpu_torch.engine.llm_engine").addHandler(handler)
-    base = dict(model="llama-3.2-3b", tokenizer="byte", device="cuda",
+    base = dict(model=cut_3b(), tokenizer="byte", device="cuda",
                 block_size=32, num_kv_blocks=640, max_num_seqs=8, seed=SEED)
     sp = SamplingParams(max_tokens=LC_DECODE_TOKENS, temperature=0,
                         ignore_eos=True, logprobs=2)
@@ -5265,7 +5654,7 @@ def lc_engine_check(torch, pa, params, gap_tol: float, smi: str) -> dict:
             over = (dict(long_prefill_threshold=LC_THRESHOLD,
                          context_parallel_size=LC_SP,
                          long_prefill_chunk=LC_CHUNK) if lane else {})
-            eng = LLMEngine(EngineConfig(**base, **over), params=params)
+            eng = LLMEngine(EngineConfig(**base, **over))
             try:
                 if lane:
                     mgr = eng.long_prefill
@@ -5320,9 +5709,10 @@ def lc_engine_check(torch, pa, params, gap_tol: float, smi: str) -> dict:
         fail("long-context phase: the control engine took the lane")
     for tag, r in res.items():
         check_launches(f"long-context phase {tag} engine", r["launches"],
-                       r["runs"])
+                       r["runs"], layers=TP_LAYERS)
         check_launches(f"long-context phase {tag} engine, decode after the "
-                       f"long prompt's first token", *r["tail"])
+                       f"long prompt's first token", *r["tail"],
+                       layers=TP_LAYERS)
     if lane["tail"][1]["decode"] + lane["tail"][1]["decode_iterations"] < 1:
         fail("long-context phase: no decode forward after landing")
     n_same = near_tie_check("long-context phase lane vs chunked",
@@ -5335,7 +5725,8 @@ def lc_engine_check(torch, pa, params, gap_tol: float, smi: str) -> dict:
     cms = lane["chunk_ms"]
     print(f"long-context phase: {n_same}/5 greedy streams (4 x "
           f"{LC_DECODE_TOKENS} tokens and the {LC_PROMPT_TOKENS}-token "
-          f"prompt's) of the lane equal to the chunked control's; TTFT of "
+          f"prompt's, {TP_LAYERS} layers) of the lane equal to the chunked "
+          f"control's; TTFT of "
           f"the long prompt: ring {lane['ttft']:.3f}s, chunked "
           f"{ctrl['ttft']:.3f}s (host clock); step-thread host ms a ring "
           f"chunk's dispatch {[round(x, 1) for x in cms]}; ITL of the four "
@@ -5415,9 +5806,9 @@ def long_context_phase(torch, pa, gap_tol: float, smi: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = llama.init_params(cfg, gen, torch.bfloat16, "cuda")
     lc_prefill_check(torch, pa, params, cfg, smi)
-    counts, first = lc_engine_check(torch, pa, params, gap_tol, smi)
     del params
     release(torch)
+    counts, first = lc_engine_check(torch, pa, gap_tol, smi)
     lc_cli_check(torch, smi)
     print(f"long-context phase: {time.perf_counter() - t_phase:.1f}s",
           flush=True)
@@ -5462,8 +5853,8 @@ def pp_rank_check(what: str, reports: list[dict], pp: int, tp: int,
 
 
 def pp_prefiller_check(torch, smi: str) -> None:
-    """parallel/pipeline.PipelinedPrefiller on the 28-layer 3B, 2 stages
-    both on the card: a PP_PREFILL_TOKENS-token prompt's logits (every
+    """parallel/pipeline.PipelinedPrefiller on the 3B (full width,
+    TP_LAYERS layers), 2 stages both on the card: a PP_PREFILL_TOKENS-token prompt's logits (every
     row) within PP_LOGIT_REL_TOL of max|logit| and every K/V row within
     LC_KV_REL_TOL of a one-shot forward's (contiguous cache rows, the
     plain chunk attention); no kernel launch."""
@@ -5478,7 +5869,7 @@ def pp_prefiller_check(torch, smi: str) -> None:
         make_pp_stages,
     )
 
-    cfg = get_model_config("llama-3.2-3b")
+    cfg = get_model_config(cut_3b())
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = llama.init_params(cfg, gen, torch.bfloat16, "cuda")
     n = PP_PREFILL_TOKENS
@@ -5529,9 +5920,10 @@ def pp_prefiller_check(torch, smi: str) -> None:
 
 
 def pp_phase(torch, pa, gap_tol: float, smi: str) -> None:
-    """Llama-3.2-3B (28 layers, bf16, seeded random weights, byte
-    tokenizer) served at pp=2 (two ranks on cuda:0 over gloo, 14 layers
-    each) and at pp=2 x tp=2 (four ranks on cuda:0), each rank set
+    """Llama-3.2-3B (full width, TP_LAYERS layers, bf16, seeded random
+    weights, byte tokenizer) served at pp=2 (two ranks on cuda:0 over
+    gloo, TP_LAYERS / 2 layers each) and at pp=2 x tp=2 (four ranks on
+    cuda:0), each rank set
     started once, against one pp=1 engine on the gather path
     (attention_impl xla) on the same seed, all K=8 (under pp: split
     rounds, the fused K-step decode, no staging): a one-shot
@@ -5549,7 +5941,7 @@ def pp_phase(torch, pa, gap_tol: float, smi: str) -> None:
     from production_stack_tpu_torch.parallel.launch import start_tp_ranks
 
     t_phase = time.perf_counter()
-    base = dict(model="llama-3.2-3b", tokenizer="byte", device="cuda",
+    base = dict(model=cut_3b(), tokenizer="byte", device="cuda",
                 block_size=32, num_kv_blocks=PP_KV_BLOCKS, max_num_seqs=8,
                 seed=SEED, num_scheduler_steps=8)
     sp = SamplingParams(max_tokens=32, temperature=0, ignore_eos=True,
@@ -5589,7 +5981,7 @@ def pp_phase(torch, pa, gap_tol: float, smi: str) -> None:
                 outs, _, runs, _, wall = staggered_mix(
                     torch, pa, eng, f"pp-{tag}", 0, sp)
                 pp_rank_check(f"pp phase {tag}", eng.runner.reports(), pp,
-                              tp, LAYERS_3B)
+                              tp, TP_LAYERS)
                 n_same = near_tie_check(f"pp phase {tag} vs pp=1",
                                         ref_outs, outs, gap_tol)
                 print(f"pp phase {tag}: {n_same}/5 greedy streams (4 x 32 "
@@ -5628,20 +6020,35 @@ MH_TOKENS = 32
 MH_EXIT_S = 30.0
 
 
-def multihost_phase(torch, gap_tol: float, smi: str, ref) -> dict:
+def multihost_phase(torch, gap_tol: float, smi: str) -> dict:
     """Two processes of the port's CLI joined into one job on loopback
     (--multihost --num-processes 2 --process-id {0,1}
     --coordinator-address 127.0.0.1:<port> --tensor-parallel-size 2),
-    the 3B at full width, each process one rank on cuda:0 over gloo
-    (logs build/chip_smoke_mh{0,1}_serve.log): process 0 serves HTTP,
-    process 1 follows. A greedy completion of MH_PROMPT equals `ref`
-    (the single-process tp=2 engine's, tp phase) under the near-tie
-    rule; rank 0 launches the ragged kernel 28 times a forward
+    the 3B at full width and depth, each process one rank on cuda:0 over
+    gloo (logs build/chip_smoke_mh{0,1}_serve.log): process 0 serves
+    HTTP, process 1 follows. A greedy completion of MH_PROMPT equals an
+    in-process tp=1 engine's of the same seed under the near-tie rule
+    (a single-process tp=2 reference would add a rank set's boot); rank
+    0 launches the ragged kernel 28 times a forward
     (/debug/kernel_launches); after SIGTERM to process 0, process 1
     exits non-zero within MH_EXIT_S. Returns rank 0's launches."""
     import types
 
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.llm_engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+
     t_phase = time.perf_counter()
+    eng = LLMEngine(EngineConfig(
+        model="llama-3.2-3b", tokenizer="byte", device="cuda",
+        block_size=32, num_kv_blocks=64, max_num_seqs=8, seed=SEED))
+    [ref] = eng.generate([MH_PROMPT], SamplingParams(
+        max_tokens=MH_TOKENS, temperature=0, ignore_eos=True, logprobs=2))
+    eng.shutdown()
+    del eng
+    release(torch)
     port, coord = free_port(), free_port()
     logs = [REPO / "build" / f"chip_smoke_mh{i}_serve.log" for i in (0, 1)]
     procs = []
@@ -5672,14 +6079,14 @@ def multihost_phase(torch, gap_tol: float, smi: str, ref) -> dict:
         report = json.loads(http(port, "/debug/kernel_launches")[1])
         check_launches("multi-host phase rank 0", report["launches"],
                        report["dispatches"])
-        n_same = near_tie_check("multi-host phase vs single-process tp=2",
+        n_same = near_tie_check("multi-host phase vs single-process tp=1",
                                 [ref], [types.SimpleNamespace(
                                     token_ids=toks)], gap_tol)
         print(f"multi-host phase: two processes (one rank each, gloo on "
               f"cuda:0) healthy {boot:.1f}s after start; a "
               f"{len(MH_PROMPT)}-token prompt's {MH_TOKENS}-token greedy "
-              f"completion in {secs:.3f}s, {n_same}/1 equal to the "
-              f"single-process tp=2 engine's; rank 0 dispatches "
+              f"completion in {secs:.3f}s, {n_same}/1 equal to a "
+              f"single-process tp=1 engine's; rank 0 dispatches "
               f"{report['dispatches']} on {smi}", flush=True)
         procs[0].send_signal(signal.SIGTERM)
         t2 = time.perf_counter()
@@ -5843,9 +6250,9 @@ def drive_lora(eng, reqs, sp) -> list:
 
 
 def rank_set_phase(torch, pa, gap_tol: float, smi: str) -> dict:
-    """LoRA, the KV tier and PD on a Llama-3.2-3B tp=2 rank set (28
-    layers, bf16, seeded random weights; both ranks on cuda:0 over gloo)
-    beside a tp=1 engine of the same config; then Mixtral-8x7B at its
+    """LoRA, the KV tier and PD on a Llama-3.2-3B tp=2 rank set (full
+    width, TP_LAYERS layers, bf16, seeded random weights; both ranks on
+    cuda:0 over gloo) beside a tp=1 engine of the same config; then Mixtral-8x7B at its
     widths, MIXTRAL_LAYERS layers, float32, with its experts split E/2 a
     rank. (a) two random rank-8 PEFT adapters: every rank's adapter
     buffers byte-equal to its cut of tp=1's, each lane's one-shot
@@ -5895,11 +6302,11 @@ def rank_set_phase(torch, pa, gap_tol: float, smi: str) -> dict:
         if codes != [0] * len(followers):
             fail(f"{what}: followers exited with {codes}")
 
-    cfg3 = mconfig.get_model_config("llama-3.2-3b")
+    cfg3 = mconfig.get_model_config(cut_3b())
     bs = 32
     layers, nkv, d = cfg3.num_layers, cfg3.num_kv_heads, cfg3.head_dim
     block_bytes = 2 * layers * nkv * bs * d * 2  # bf16 wire block
-    base = dict(model="llama-3.2-3b", tokenizer="byte", device="cuda",
+    base = dict(model=cfg3.name, tokenizer="byte", device="cuda",
                 block_size=bs, num_kv_blocks=RS_KV_BLOCKS, max_num_seqs=4,
                 seed=SEED, num_scheduler_steps=8, enable_lora=True,
                 max_loras=2, max_lora_rank=RS_LORA_RANK,
@@ -5909,7 +6316,7 @@ def rank_set_phase(torch, pa, gap_tol: float, smi: str) -> dict:
     ref = LLMEngine(EngineConfig(**base))
     eng, boot = tp_engine(EngineConfig(**base, tensor_parallel_size=2))
     try:
-        print(f"rank-set phase: llama-3.2-3b tp=2 rank set (LoRA, the CPU "
+        print(f"rank-set phase: {cfg3.name} tp=2 rank set (LoRA, the CPU "
               f"tier) up in {boot:.1f}s beside a tp=1 engine; the store "
               f"holds {eng.runner.reports()[0]['store_keys']} keys",
               flush=True)
@@ -5970,7 +6377,7 @@ def rank_set_phase(torch, pa, gap_tol: float, smi: str) -> dict:
         outs["tp2"] = drive_lora(eng, reqs, sp)
         wall = time.perf_counter() - t0
         counts["lora tp2"] = tp_rank_check(
-            "rank-set phase (a) LoRA", eng.runner.reports(), LAYERS_3B,
+            "rank-set phase (a) LoRA", eng.runner.reports(), TP_LAYERS,
             runs0)
         n_same = near_tie_check("rank-set phase (a) tp=2 vs tp=1 with "
                                 "adapters", outs["tp1"], outs["tp2"],
@@ -6054,7 +6461,7 @@ def rank_set_phase(torch, pa, gap_tol: float, smi: str) -> dict:
         runs0 = [dict(r["dispatch_counts"]) for r in eng.runner.reports()]
         warm = eng.generate([prompt], sp)[0]
         counts["kv tp2"] = tp_rank_check(
-            "rank-set phase (b) restore", eng.runner.reports(), LAYERS_3B,
+            "rank-set phase (b) restore", eng.runner.reports(), TP_LAYERS,
             runs0)
         restored = eng._kv_restore_blocks_total - r0
         fallbacks = eng._kv_restore_fallbacks_total
@@ -6080,7 +6487,7 @@ def rank_set_phase(torch, pa, gap_tol: float, smi: str) -> dict:
         host = _TransferHost(eng)
         try:
             dec = LLMEngine(EngineConfig(
-                model="llama-3.2-3b", tokenizer="byte", device="cuda",
+                model=cfg3.name, tokenizer="byte", device="cuda",
                 block_size=bs, num_kv_blocks=RS_KV_BLOCKS, max_num_seqs=4,
                 seed=SEED, kv_role="decode",
                 kv_transfer_config={"peer": f"127.0.0.1:{host.port}"},
@@ -6108,7 +6515,7 @@ def rank_set_phase(torch, pa, gap_tol: float, smi: str) -> dict:
         print(f"rank-set phase: the set's store holds {keys} keys after "
               f"{eng.runner._bc.count} steps", flush=True)
     finally:
-        stop(eng, "rank-set phase llama-3.2-3b")
+        stop(eng, f"rank-set phase {cfg3.name}")
         del ref
         release(torch)
         shutil.rmtree(root, ignore_errors=True)
@@ -6272,9 +6679,10 @@ def expected_sweep(cfg, num_blocks: int, variants: list) -> tuple[dict, int]:
 def rank_set_serving_phase(torch, pa, gap_tol: float, smi: str,
                            tp1_first) -> dict:
     """Async decode, the serving warm-up sweep and the long-prefill ring
-    on Llama-3.2-3B tp=2 rank sets (28 layers, bf16, seeded random
-    weights, byte tokenizer; both ranks of a set on cuda:0 over gloo, so
-    no time here is a TP or sp speed). (f) A synchronous K=8 engine at
+    on Llama-3.2-3B tp=2 rank sets (full width, TP_LAYERS layers, bf16,
+    seeded random weights, byte tokenizer; both ranks of a set on cuda:0
+    over gloo, so no time here is a TP or sp speed). (f) A synchronous
+    K=8 engine at
     max_model_len RSS_SWEEP_MAX_MODEL_LEN runs precompile_serving: its
     grid and count equal expected_sweep's for its config, every rank's
     dispatch counts grew by the same sweeps, summing to the count, and
@@ -6283,18 +6691,18 @@ def rank_set_serving_phase(torch, pa, gap_tol: float, smi: str,
     rule. (e) An async K=8 engine at max_model_len RSS_MAX_MODEL_LEN
     serves the tp phase's mixed scenario beside a synchronous one:
     streams held to each other under the near-tie rule, chained rounds
-    > 0 on every rank,
-    every follower's check of the chained tokens passed (the guard never
-    fired: checks a rank equal the chained rounds and the set is alive),
-    28 ragged launches a forward a rank; wall ms a token at batch 8 in
-    turns async, sync, sync, async. (g) A lane engine (threshold
+    > 0 on every rank, every follower's check of the chained tokens
+    passed (the guard never fired: checks a rank equal the chained
+    rounds and the set is alive), TP_LAYERS ragged launches a forward a
+    rank; wall ms a token at batch 8 in turns async, sync, sync, async.
+    (g) A lane engine (threshold
     LC_THRESHOLD, context_parallel_size LC_SP, chunk LC_CHUNK) and a
     chunked control at tp=2 serve the long-context phase's lane scenario
     with an RSS_LC_PROMPT_TOKENS-token prompt: streams held to the
     control's under the near-tie rule, the long prompt's first-token
     logits to the tp=1 lane's (`tp1_first`) within TP_LOGIT_REL_TOL of
     max|logit|, ceil(n / LC_CHUNK) chunks, 0 fallbacks, ceil(n / 32)
-    blocks landed, no ring state left on the follower, 28 ragged
+    blocks landed, no ring state left on the follower, TP_LAYERS ragged
     launches a forward a rank. Returns each driven run's launches a
     rank."""
     from production_stack_tpu_torch.engine.config import EngineConfig
@@ -6327,7 +6735,7 @@ def rank_set_serving_phase(torch, pa, gap_tol: float, smi: str,
                 for r, r0 in zip(reps, runs0)]
 
     counts = {}
-    base = dict(model="llama-3.2-3b", tokenizer="byte", device="cuda",
+    base = dict(model=cut_3b(), tokenizer="byte", device="cuda",
                 block_size=32, num_kv_blocks=TP_KV_BLOCKS, max_num_seqs=8,
                 seed=SEED, num_scheduler_steps=8,
                 max_model_len=RSS_MAX_MODEL_LEN, tensor_parallel_size=2)
@@ -6406,7 +6814,7 @@ def rank_set_serving_phase(torch, pa, gap_tol: float, smi: str,
                 torch, pa, e, f"rss-{tag}", 0, sp)
             reps = e.runner.reports()
             got = tp_rank_check(f"rank-set serving phase (e) {tag}", reps,
-                                LAYERS_3B, runs0)
+                                TP_LAYERS, runs0)
             if tag == "async":
                 # a fresh engine: its lifetime counts are the scenario's
                 counts["async tp2"] = got
@@ -6446,7 +6854,7 @@ def rank_set_serving_phase(torch, pa, gap_tol: float, smi: str,
     # (g) the ring at tp=2 x sp=2 beside the chunked tp=2 control
     t_g = time.perf_counter()
     n_long = RSS_LC_PROMPT_TOKENS
-    lbase = dict(model="llama-3.2-3b", tokenizer="byte", device="cuda",
+    lbase = dict(model=base["model"], tokenizer="byte", device="cuda",
                  block_size=32, num_kv_blocks=640, max_num_seqs=8,
                  seed=SEED, tensor_parallel_size=2)
     sp = SamplingParams(max_tokens=LC_DECODE_TOKENS, temperature=0,
@@ -6473,7 +6881,7 @@ def rank_set_serving_phase(torch, pa, gap_tol: float, smi: str,
             r = lc_scenario(torch, pa, eng, f"rss-{tag}-", sp, n_long)
             reps = eng.runner.reports()
             r["ranks"] = tp_rank_check(f"rank-set serving phase (g) {tag}",
-                                       reps, LAYERS_3B, runs0)
+                                       reps, TP_LAYERS, runs0)
             r["lane_jobs"] = [rep["lane_jobs"] for rep in reps]
             r["stats"] = eng.stats()
             r["boot"] = boot
@@ -7153,48 +7561,67 @@ def main() -> int:
     for line in ptxas_report(lib.with_suffix(".log").read_text()):
         print(f"  ptxas {line}", flush=True)
 
-    stats = kernel_phase(torch)
+    secs: dict[str, float] = {}
+
+    def timed(name: str, fn, *args):
+        t = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            secs[name] = round(time.perf_counter() - t, 1)
+
+    stats = timed("kernel", kernel_phase, torch)
     for model, shape in GEMMA_KERNEL_SHAPES.items():
-        kernel_phase(torch, model, shape)
-    tp_kernel_shapes(torch)
-    forward_phase(torch)
-    family_counts = families_phase(torch, pa, smi)
-    serve_counts, api_counts = serve_phase(torch, smi)
-    decode_counts, gap_tol = decode_phase(torch, pa)
-    guided_counts = guided_phase(torch, pa, gap_tol, smi)
-    pipeline_phase(torch, pa, smi)
-    mixed_counts = mixed_phase(torch, pa, gap_tol, smi)
-    composed_counts = impl_phase(torch, pa, gap_tol, smi)
-    compiled_counts = compiled_phase(torch, pa, gap_tol, smi)
-    async_counts = async_phase(torch, pa, smi)
-    spec_counts = spec_phase(torch, pa, gap_tol, smi)
-    lora_counts = checkpoint_phase(torch, pa, gap_tol, smi)
-    kv_counts = kv_phase(torch, pa, gap_tol, smi)
-    stack_counts = stack_phase(torch, gap_tol, smi)
-    phi3_serve_phase(torch, pa, smi)
-    gemma_counts = gemma_serve_phase(torch, pa, gap_tol, smi)
-    moe_counts = moe_phase(torch, pa, gap_tol, smi)
-    tp_counts, mh_ref = tp_phase(torch, pa, gap_tol, smi)
-    lc_counts, lc_first = long_context_phase(torch, pa, gap_tol, smi)
-    pp_phase(torch, pa, gap_tol, smi)
-    mh_counts = multihost_phase(torch, gap_tol, smi, mh_ref)
-    rs_counts = rank_set_phase(torch, pa, gap_tol, smi)
-    rss_counts = rank_set_serving_phase(torch, pa, gap_tol, smi, lc_first)
-    # the 3B's serve and decode paths, and the head_dim-256 paths: the
-    # Gemma-7B and Gemma-2B engines of the families phase and the
-    # Gemma-7B server
+        timed(f"kernel {model}", kernel_phase, torch, model, shape)
+    timed("tp kernel shapes", tp_kernel_shapes, torch)
+    timed("forward", forward_phase, torch)
+    family_counts = timed("families", families_phase, torch, pa, smi)
+    serve_counts, api_counts = timed("serve", serve_phase, torch, smi)
+    decode_counts, gap_tol = timed("decode", decode_phase, torch, pa)
+    guided_counts = timed("guided", guided_phase, torch, pa, gap_tol, smi)
+    timed("pipeline", pipeline_phase, torch, pa, smi)
+    mixed_counts = timed("mixed", mixed_phase, torch, pa, gap_tol, smi)
+    composed_counts = timed("impl", impl_phase, torch, pa, gap_tol, smi)
+    compiled_counts, params, graphed = timed(
+        "compiled", compiled_phase, torch, pa, gap_tol, smi)
+    sync_counts = timed("sync", sync_phase, torch, pa, smi, params, graphed)
+    del params, graphed
+    async_counts = timed("async", async_phase, torch, pa, smi)
+    spec_counts = timed("spec", spec_phase, torch, pa, gap_tol, smi)
+    lora_counts = timed("checkpoint", checkpoint_phase, torch, pa, gap_tol,
+                        smi)
+    kv_counts = timed("kv", kv_phase, torch, pa, gap_tol, smi)
+    stack_counts = timed("stack", stack_phase, torch, gap_tol, smi)
+    timed("phi-3", phi3_serve_phase, torch, pa, smi)
+    gemma_counts = timed("gemma", gemma_serve_phase, torch, pa, gap_tol, smi)
+    moe_counts = timed("moe", moe_phase, torch, pa, gap_tol, smi)
+    tp_counts = timed("tp", tp_phase, torch, pa, gap_tol, smi)
+    lc_counts, lc_first = timed("long-context", long_context_phase, torch,
+                                pa, gap_tol, smi)
+    timed("pp", pp_phase, torch, pa, gap_tol, smi)
+    mh_counts = timed("multi-host", multihost_phase, torch, gap_tol, smi)
+    rs_counts = timed("rank-set", rank_set_phase, torch, pa, gap_tol, smi)
+    rss_counts = timed("rank-set serving", rank_set_serving_phase, torch,
+                       pa, gap_tol, smi, lc_first)
+    print(f"phase seconds (host clock, the build apart): {secs}",
+          flush=True)
+    # the 3B's serve and decode paths, the sync census's engines, and
+    # the head_dim-256 paths: the Gemma-7B and Gemma-2B engines of the
+    # families phase and the Gemma-7B server
     launches = {
         "ragged": (serve_counts["ragged"] + family_counts["ragged"]
-                   + gemma_counts["ragged"]),
+                   + gemma_counts["ragged"] + sync_counts["ragged"]),
         "prefill": (serve_counts["prefill"] + family_counts["prefill"]
-                    + gemma_counts["prefill"]),
-        "decode": decode_counts["decode"] + family_counts["decode"],
+                    + gemma_counts["prefill"] + sync_counts["prefill"]),
+        "decode": (decode_counts["decode"] + family_counts["decode"]
+                   + sync_counts["decode"]),
     }
     print(f"launches: serve path {serve_counts}, API requests "
           f"{api_counts}, decode path {decode_counts}, guided K=8 engine "
           f"{guided_counts}, mixed-round path {mixed_counts}, composed "
           f"ragged rounds {composed_counts}, graphed engines "
-          f"{compiled_counts}, async decode {async_counts}, spec "
+          f"{compiled_counts}, sync census engines {sync_counts}, "
+          f"async decode {async_counts}, spec "
           f"decode {spec_counts}, loaded "
           f"checkpoint with adapters {lora_counts}, KV paths {kv_counts}, "
           f"Mixtral-8x7B x{MIXTRAL_LAYERS} {moe_counts}, tp=2 ranks "

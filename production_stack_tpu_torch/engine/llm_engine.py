@@ -1068,6 +1068,8 @@ class LLMEngine:
                         "overflow_s": round(overflow_s, 6),
                     },
                 )
+            # stackcheck: disable=device-sync-transitive — host token:
+            # _sample (the not-hot host sampling seam) returned host ints
             self._append_token(seq, int(sampled[0]), entry)
             stepped.append(seq)
         return stepped, progressed
@@ -1239,6 +1241,8 @@ class LLMEngine:
                 or self._pending_decode is not None)
 
     # -- the step loop ----------------------------------------------------
+    # stackcheck: hot-path — may only enqueue (flush = device-snapshot
+    # enqueue; the d2h runs on the offload worker)
     def step(self) -> list[RequestOutput]:
         with self.runner.on_compute_stream():
             try:
@@ -1251,6 +1255,8 @@ class LLMEngine:
                 if self._kv_export_pending:
                     self._flush_kv_exports()
 
+    # stackcheck: hot-path — the engine round: dispatch, then the round's
+    # sanctioned fetches (each suppressed where it stands)
     def _step_impl(self) -> list[RequestOutput]:
         """The async fast path: with a round in flight, dispatch the next
         one chained on its device tokens, then fetch and apply it (the
@@ -1660,6 +1666,9 @@ class LLMEngine:
         )
         want_lp = any(s.sampling_params.logprobs is not None for s in seqs)
         if want_lp:
+            # stackcheck: disable=device-sync-transitive — the K=1
+            # round's logprob rows ride its one fetch (JAX: the one intended
+            # per-round materialization of the sampled-from logits)
             used_logits = np.asarray(_to_numpy(used_logits))
         stepped: list[Sequence] = []
         for i, (seq, token) in enumerate(zip(seqs, sampled)):
@@ -1667,9 +1676,13 @@ class LLMEngine:
             entry = None
             if seq.sampling_params.logprobs is not None:
                 entry = self._host_logprob_entry(
+                    # stackcheck: disable=device-sync-transitive — host token
+                    # (as below); the row was fetched just above
                     used_logits[i], int(token),
                     seq.sampling_params.logprobs,
                 )
+            # stackcheck: disable=device-sync-transitive — host token:
+            # _sample (the not-hot host sampling seam) returned host ints
             self._append_token(seq, int(token), entry)
             stepped.append(seq)
         # adaptive K can size a round down to 1: it belongs in the
@@ -1693,6 +1706,8 @@ class LLMEngine:
             round_attrs=round_attrs,
         )
 
+    # stackcheck: not-hot — host-side token bookkeeping over numpy
+    # arrays every caller already fetched at its metered fetch point
     def _apply_multi_tokens(
         self, seqs: list[Sequence], toks: np.ndarray, k: int,
         lps: tuple | None = None, valid: np.ndarray | None = None,
@@ -1858,6 +1873,8 @@ class LLMEngine:
         for seq, drafts, row in zip(seqs, drafts_by_lane, sampled):
             accepted = 0
             for d in drafts:
+                # stackcheck: disable=device-sync-transitive — row is
+                # verify_batch's fetched numpy output
                 if int(row[accepted]) != d:
                     break
                 accepted += 1
@@ -1866,11 +1883,15 @@ class LLMEngine:
             # the accepted drafts, then the verify forward's own next
             # token (the correction on a mismatch, the bonus token on
             # full acceptance)
+            # stackcheck: disable=device-sync-transitive — row is
+            # verify_batch's fetched numpy output
             new_tokens = drafts[:accepted] + [int(row[accepted])]
             for t in new_tokens:
                 if seq.finished:
                     break  # EOS / stop mid-acceptance: drop the rest
                 seq.num_computed_tokens = seq.num_tokens
+                # stackcheck: disable=device-sync-transitive — accepted tokens
+                # are host ints
                 self._append_token(seq, int(t))
             if self._tl_enabled and not seq.finished:
                 self.timeline.decode_round(seq.request_id, len(new_tokens))
@@ -2038,6 +2059,9 @@ class LLMEngine:
             toks_np = _to_numpy(pf_sampled)  # ONE fetch for the lanes
             self.runner._phase_add("fetch", time.perf_counter() - tf)
             for i, w in finals:
+                # stackcheck: disable=device-sync-transitive — an element of
+                # the ragged round's one prefill-token fetch, already on the
+                # host
                 tok = int(toks_np[i])
                 if tok < 0:
                     # only non-real lanes are pinned to the idle
@@ -2342,10 +2366,15 @@ class LLMEngine:
                 total_len=w.chunk_start + w.chunk_len,
                 sampling=self._sampling_arrays([seq])[:5],
                 lora_slot=slots[0] if slots else 0,
+                # stackcheck: disable=device-sync-transitive — prompt ids,
+                # a host list
                 prompt_lp_targets=[int(x) for x in tgts],
             )
             tf = time.perf_counter()
             # the lane's one fetch: its token and the (t, CAP) scores
+            # stackcheck: disable=device-sync-transitive — the prompt-
+            # logprob lane's one fetch: its token (JAX: the same lane's
+            # int(np.asarray(token_dev)) fetch)
             tok_of[i] = int(_to_numpy(token_dev))
             chosen, tv, ti = _to_numpy(chosen), _to_numpy(tv), _to_numpy(ti)
             self.runner._phase_add("fetch", time.perf_counter() - tf)
@@ -2390,6 +2419,8 @@ class LLMEngine:
                 toks_np = _to_numpy(tokens_dev)  # ONE fetch for the group
                 self.runner._phase_add("fetch", time.perf_counter() - tf)
                 for j, (i, _) in enumerate(std_works):
+                    # stackcheck: disable=device-sync-transitive — an element
+                    # of the group's one fetch, already on the host
                     tok_of[i] = int(toks_np[j])
         for w in works:
             w.seq.num_computed_tokens += w.chunk_len
@@ -2441,8 +2472,13 @@ class LLMEngine:
                 n = w.seq.sampling_params.logprobs
                 if n is not None:
                     entry = self._host_logprob_entry(
+                        # stackcheck: disable=device-sync-transitive — host
+                        # token (as below); the row was fetched by the
+                        # _to_numpy above
                         used_logits[j], int(token), n
                     )
+                # stackcheck: disable=device-sync-transitive — host token:
+                # _sample (the not-hot host sampling seam) returned host ints
                 self._append_token(w.seq, int(token), entry)
                 stepped.append(w.seq)
         return stepped
@@ -2536,6 +2572,8 @@ class LLMEngine:
         for i, s in enumerate(seqs):
             sp = s.sampling_params
             if not sp.ignore_eos and s.eos_token_id is not None:
+                # stackcheck: disable=device-sync-hot — a request's EOS id,
+                # a host int
                 eos[i] = int(s.eos_token_id)
             gen = len(s.generated_token_ids)
             min_rem[i] = max(0, sp.min_tokens - gen)
@@ -2896,6 +2934,8 @@ class LLMEngine:
         return sampled
 
     @staticmethod
+    # stackcheck: not-hot — host bookkeeping over a chunk's prompt
+    # logprob arrays, fetched at the lane's one fetch before the call
     def _accumulate_prompt_lps(
         seq: Sequence, chunk_start: int, tgts: list[int],
         chosen: np.ndarray, tv: np.ndarray, ti: np.ndarray,
@@ -2926,6 +2966,8 @@ class LLMEngine:
             })
 
     @staticmethod
+    # stackcheck: not-hot — numpy over a logits row its caller already
+    # fetched (the row's fetch is that caller's suppressed _to_numpy)
     def _host_logprob_entry(
         logits_row: np.ndarray, token: int, n: int
     ) -> dict:
@@ -2972,6 +3014,8 @@ class LLMEngine:
             dev(repetition),
         )
 
+    # stackcheck: not-hot — host bookkeeping of one sampled token that
+    # is already a host int (every caller fetched it first)
     def _append_token(self, seq: Sequence, token: int,
                       logprob_entry: dict | None = None) -> None:
         if seq.metrics.first_token_time is None:
@@ -3410,6 +3454,9 @@ class LLMEngine:
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     """Device -> host fetch (synchronises with the device)."""
+    # stackcheck: disable=device-sync-transitive — the port's d2h seam:
+    # each call is a metered fetch of its round (the JAX engine's
+    # np.asarray at the same call sites)
     return t.detach().float().cpu().numpy() if t.is_floating_point() else (
-        t.detach().cpu().numpy()
+        t.detach().cpu().numpy()  # stackcheck: disable=device-sync-transitive
     )

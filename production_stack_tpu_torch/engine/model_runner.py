@@ -162,6 +162,7 @@ def _ceil_tq(n: int) -> int:
     return -(-n // RAGGED_TQ) * RAGGED_TQ
 
 
+# stackcheck: not-hot — numpy over host lane lengths
 def decode_segments(ctx: np.ndarray):
     """The ragged kernel's row space for a decode step of len(ctx) lanes:
     (r_pad, blk_seg, seg_meta), lane i one single-row segment at row i
@@ -590,6 +591,8 @@ class ModelRunner:
         return sum(v.pool_bytes for v in self._variants.values())
 
     # -- the attention seam -------------------------------------------------
+    # stackcheck: hot-path — the ONE dispatch seam every paged attention
+    # call goes through, once a layer of every forward
     def _attn(self, kind: str, q, layer, kc, vc, *args):
         """Route one attention call for `kind` ("prefill" | "decode" |
         "ragged", the last under the ragged kernel only) to the impl's
@@ -605,6 +608,7 @@ class ModelRunner:
         )
 
     # -- multi-LoRA -----------------------------------------------------------
+    # stackcheck: not-hot — host ints of the lanes' adapter slot lists
     def _lora_key(self, *slot_lists):
         """The adapter assignment of a dispatch, from its lanes' slots
         (one list per lane set, None = all base): None when no lane uses
@@ -904,6 +908,8 @@ class ModelRunner:
         mc = self.local_config
         layout, _ = self._prefill_pack_layout(t_pad, c_pad, want_plp)
 
+        # stackcheck: hot-path — the single-sequence prefill forward, once a
+        # prefill step
         def step(packed, start_pos):
             seg = functools.partial(self._pack_seg, packed, layout)
             table = seg("table")
@@ -945,6 +951,8 @@ class ModelRunner:
         layout, _ = self._packed_prefill_pack_layout(s_pad, t_pad, c_pad,
                                                      per_tok)
 
+        # stackcheck: hot-path — the packed prefill forward, once a prefill or
+        # composed round
         def step(packed, q_starts):
             seg = functools.partial(self._pack_seg, packed, layout)
             # padding lanes start at 0 over the null table
@@ -1213,6 +1221,8 @@ class ModelRunner:
                 lane_of,
                 np.zeros((n_blk,), np.int32),
                 np.full((n_blk,), tq, np.int32),
+                # stackcheck: disable=device-sync-transitive — q_starts are
+                # the lanes' start positions, a host list
                 np.asarray(q_starts, np.int32)[lane_of] + off_in,
             ], axis=1).astype(np.int32)
             blk_seg_d = self._dev(np.arange(n_blk + 1, dtype=np.int32))
@@ -1224,6 +1234,8 @@ class ModelRunner:
                 )
             return attn
 
+        # stackcheck: disable=device-sync-transitive — q_starts are the
+        # lanes' start positions, a host list
         starts = [int(x) for x in q_starts]
         self.dispatch_counts["prefill_lanes"] += s_pad
 
@@ -1489,6 +1501,8 @@ class ModelRunner:
         layout, _ = self._decode_step_layout(b, c_pad, per_tok)
         rows = torch.arange(b, device=self.device)
 
+        # stackcheck: hot-path — the single-step decode forward, once a K=1
+        # decode round
         def step(packed):
             seg = functools.partial(self._pack_seg, packed, layout)
             attn = self._decode_attn(b, seg("tables"), seg("ctx"))
@@ -1503,6 +1517,8 @@ class ModelRunner:
 
         return step
 
+    # stackcheck: hot-path — dispatch-only: returns device logits without
+    # waiting; the caller's sampler owns the fetch of the step
     @torch.inference_mode()
     def decode(
         self,
@@ -1566,6 +1582,8 @@ class ModelRunner:
 
     # -- packed host->device buffers -----------------------------------------
     @staticmethod
+    # stackcheck: not-hot — host arithmetic over a packed buffer's field
+    # shapes
     def _layout_of(fields: list[tuple[str, tuple[int, ...]]]):
         """{name: (offset, shape)} and the total length of a packed
         int32 buffer holding `fields` back to back."""
@@ -1820,6 +1838,8 @@ class ModelRunner:
         )
         lane = torch.arange(b, device=self.device)
 
+        # stackcheck: hot-path — the fused round's packed buffer -> consts and
+        # carry, once a round
         def unpack(packed, chained_tokens=None, guided_tables=None):
             """Packed buffer -> (consts, carry0); a chained round's
             tokens are `chained_tokens`, (b,) int32 on the device;
@@ -1909,6 +1929,8 @@ class ModelRunner:
             )
             return logits
 
+        # stackcheck: hot-path — sample and advance the carry, once an
+        # iteration
         def post(logits, carry, noise, consts):
             """Sample one iteration from its logits with its (b, cap)
             noise row and advance the stop, penalty and DFA state;
@@ -1969,6 +1991,8 @@ class ModelRunner:
             return DecodeCarry(nxt, positions + adv, ctx + adv, counts,
                                done, valid, g_state), ys
 
+        # stackcheck: hot-path — one fused-loop iteration (eager, or captured
+        # once and replayed)
         def step(carry, consts, noise):
             """One iteration: the decode forward, then `post`."""
             return post(fwd(carry, consts), carry, noise, consts)
@@ -1977,6 +2001,7 @@ class ModelRunner:
                     bias_cap, stop_cap, chained, self._program_lora(lora),
                     lora_lanes)
 
+        # stackcheck: hot-path — the fused decode loop of every K-step round
         def run(consts, carry0, first_logits=None):
             dev = self.device
             toks = torch.full((k_steps, b), STOP_PAD_TOKEN,
@@ -2007,6 +2032,10 @@ class ModelRunner:
             while i < k_steps:
                 # the loop's one host read: a 1-byte flag (real lanes
                 # enter with budget >= 1, so iteration 0 always runs)
+                # stackcheck: disable=device-sync-hot — a hazard: the JAX
+                # runner's lax.while_loop tests `done` on the device, this
+                # loop reads it back once an iteration
+                # — queued: ROADMAP Queue 1 item 2
                 if use_stop and i > 0 and bool(carry.done.all()):
                     break
                 if var is None:
@@ -2045,6 +2074,8 @@ class ModelRunner:
                 "noise": torch.empty_like(consts["noise"][0]),
             }
 
+            # stackcheck: hot-path — the iteration program's body, run or
+            # replayed once an iteration
             def fn(inp):
                 new, ys = step(inp["carry"], inp["consts"], inp["noise"])
                 for dst, src in zip(inp["carry"], new):
@@ -2341,11 +2372,15 @@ class ModelRunner:
                 pf[name] = seg(name).view(torch.float32)
             return pf
 
+        # stackcheck: hot-path — the prefill lanes' sampling, once a prefill or
+        # mixed round
         def sample(pf, logits):
             return sample_tokens(logits, pf["temps"], pf["top_ps"],
                                  pf["top_ks"], pf["noise"],
                                  min_p=pf["min_ps"])
 
+        # stackcheck: hot-path — the ragged-rows prefill forward, once a
+        # prefill dispatch
         def step(packed):
             pf = unpack(packed)
             seg_meta = self._rows_pf_seg_meta(
@@ -2505,6 +2540,7 @@ class ModelRunner:
         )
         n_pages = max(pc_pad, c_pad) // self.block_size
 
+        # stackcheck: hot-path — the unified ragged round, once a mixed round
         def step(packed, chained_tokens=None, guided_tables=None):
             lane_types = packed[:s_cap]
             pf = pf_step.unpack(packed[meta_n:meta_n + pf_n])
@@ -2644,6 +2680,7 @@ class ModelRunner:
             lora_lanes, guided,
         )
 
+        # stackcheck: hot-path — the composed ragged round, once a mixed round
         def step(packed, q_starts, chained_tokens=None, guided_tables=None):
             lane_types = packed[:s_pad]
             # prefill lanes first: their chunks' K/V lands before the

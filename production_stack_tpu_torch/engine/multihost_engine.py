@@ -390,6 +390,10 @@ class BroadcastingRunner:
 
     @staticmethod
     def _host_tokens(toks: torch.Tensor) -> list[int]:
+        # stackcheck: disable=device-sync-transitive — the chained round's
+        # tokens for the followers' chain check: the engine resolved
+        # (fetched) that round before this step, so the copy waits for
+        # nothing new
         return toks.cpu().tolist()
 
     def alive(self) -> bool:

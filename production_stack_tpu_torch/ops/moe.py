@@ -117,5 +117,7 @@ def moe_block(x: torch.Tensor, gate_w: torch.Tensor, w_gate: torch.Tensor,
     if capacity_factor <= 0:
         return moe_dense(x, gates, w_gate, w_up, w_down)
     n, e = gates.shape
+    # stackcheck: disable=device-sync-transitive — n and e are
+    # gates.shape, capacity_factor a config float: host arithmetic
     cap = max(1, int(-(-num_experts_per_tok * n * capacity_factor // e)))
     return moe_capacity(x, gates, w_gate, w_up, w_down, cap, valid)

@@ -110,6 +110,8 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+# stackcheck: not-hot — the plain version runs only when the wrapper
+# is handed CPU tensors (the card launches the kernel)
 def ragged_paged_attention_plain(q, k_cache, v_cache, layer, block_tables,
                                  blk_seg, seg_meta, *, block_size, scale,
                                  window=None):
@@ -141,6 +143,8 @@ def ragged_paged_attention_plain(q, k_cache, v_cache, layer, block_tables,
     return out
 
 
+# stackcheck: not-hot — the plain version runs only when the wrapper
+# is handed CPU tensors (the card launches the kernel)
 def paged_prefill_attention_plain(q, k_cache, v_cache, layer, block_table,
                                   q_start, *, block_size, scale,
                                   window=None):
@@ -225,6 +229,8 @@ def _merge_splits(parts, like):
     return (acc / l.clamp_min(1e-30)[..., None]).to(like.dtype)
 
 
+# stackcheck: not-hot — the plain version runs only when the wrapper
+# is handed CPU tensors (the card launches the kernel)
 def paged_decode_attention_plain(q, k_cache, v_cache, layer, block_tables,
                                  context_lens, *, block_size, scale,
                                  window=None, pages_per_split=None):
@@ -316,6 +322,8 @@ def _check_index(name, t, dim):
 
 
 def _check_layer(layer, k_cache):
+    # stackcheck: disable=device-sync-transitive — layer is the forward
+    # loop's python index
     layer = int(layer)
     if not 0 <= layer < k_cache.shape[0]:
         raise ValueError(f"layer {layer} outside [0, {k_cache.shape[0]})")
@@ -473,8 +481,11 @@ def _raise_on(rc: int, what: str) -> None:
 def _window_arg(window) -> int:
     if window is None:
         return 0
+    # stackcheck: disable=device-sync-transitive — window is the
+    # model config's host int
     if int(window) <= 0:
         raise ValueError(f"window must be positive or None, got {window}")
+    # stackcheck: disable=device-sync-transitive — (as above)
     return int(window)
 
 
@@ -543,6 +554,8 @@ def paged_prefill_attention(q, k_cache, v_cache, layer, block_table,
         raise ValueError(f"chunk rows {t} must be a positive multiple of "
                          f"{PREFILL_TQ}")
     layer = _check_layer(layer, k_cache)
+    # stackcheck: disable=device-sync-transitive — q_start is the
+    # chunk's host start position (the runner passes a python int)
     q_start = int(q_start)
     if q_start < 0:
         raise ValueError(f"q_start must be >= 0, got {q_start}")

@@ -175,12 +175,16 @@ class _BucketRing:
 
     def __init__(self, fast_window_s: float, slow_window_s: float) -> None:
         self.granule_s = max(1.0, fast_window_s / 20.0)
+        # stackcheck: disable=device-sync-transitive — the router holds no
+        # device value: host float math
         self.n = int(math.ceil(slow_window_s / self.granule_s)) + 1
         self.ids = [-1] * self.n
         self.counts = [[0.0] * _NSLOTS for _ in range(self.n)]
 
     # stackcheck: hot-path — one call per tracked proxied request
     def bucket(self, now: float) -> list[float]:
+        # stackcheck: disable=device-sync-hot — the router holds no device
+        # value: host float math
         gid = int(now // self.granule_s)
         i = gid % self.n
         if self.ids[i] != gid:
@@ -240,7 +244,10 @@ class _SLORow:
             frac = (bad / n) if n > 0 else 0.0
             budget = self.spec.budget_fraction(name)
             out[name] = {
+                # stackcheck: disable=device-sync-transitive — the router holds
+                # no device value: host float math
                 "requests": int(n),
+                # stackcheck: disable=device-sync-transitive — (as above)
                 "violations": int(bad),
                 "violation_fraction": round(frac, 6),
                 "burn_rate": round(frac / budget, 4) if budget > 0

@@ -5,7 +5,8 @@
 
 It builds the kernels, runs chip_smoke.decode_phase for the near-tie
 bound, serves the long-context phase's lane scenario on a tp=1 lane
-engine of Llama-3.2-3B for the first-token logits that part (g) holds
+engine of Llama-3.2-3B (chip_smoke.TP_LAYERS layers, as the phase's
+rank sets) for the first-token logits that part (g) holds
 the tp=2 lane to, then runs chip_smoke.rank_set_serving_phase ((e) async
 decode, (f) the warm-up sweep, (g) the ring at tp=2 x sp=2). Every check
 of the phase is fatal, as in chip_smoke.py; exits 1 with no card.
@@ -46,7 +47,7 @@ def main() -> int:
     cuda_build.load()
     _, gap_tol = c.decode_phase(torch, pa)
     eng = LLMEngine(EngineConfig(
-        model="llama-3.2-3b", tokenizer="byte", device="cuda",
+        model=c.cut_3b(), tokenizer="byte", device="cuda",
         block_size=32, num_kv_blocks=640, max_num_seqs=8, seed=c.SEED,
         long_prefill_threshold=c.LC_THRESHOLD,
         context_parallel_size=c.LC_SP, long_prefill_chunk=c.LC_CHUNK))
