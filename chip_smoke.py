@@ -7,7 +7,8 @@ Phases, each fatal on failure:
 
 1. build: compile the three kernel sources (csrc/paged_attention.cu,
    paged_decode.cu, paged_prefill.cu; the first and last include the
-   tile of paged_tile.cuh), one nvcc each, all at once, and link them
+   tile of paged_tile.cuh) and csrc/graph_gate.cu (the fused loop's
+   gated iteration graph), one nvcc each, all at once, and link them
    into one library (route: plain C interface + ctypes); print the
    compiler's register/spill report;
 2. kernels: random inputs from a seed at Llama-3.2-3B attention shapes
@@ -185,27 +186,32 @@ Phases, each fatal on failure:
    verdict (a suppressed device-sync finding at that line, or the
    not-hot function around it) are printed, graph capture apart. A site
    the analyzer does not report, streams under the census that differ
-   from the plain run's, or launches other than 28 a forward fail the
-   run;
+   from the plain run's, a compile event in either run, a sync inside
+   the fused loop, a captured loop's forward after every lane was done
+   (the stop-token scenario of scripts/chip_early_exit.py) or launches
+   other than 28 a forward fail the run;
 8e. async: a K=8 --async-decode engine against the synchronous K=8
    engine on 8 prompts (4 greedy, 4 seeded sampled): streams
    bit-identical, rounds chained on device tokens > 0, launches 28 a
    forward, wall ms a token at batch 8 in turns;
-8c. spec: in-process 28-layer bf16 engines on the default config with
+8c. spec: in-process bf16 engines of the 3B at full width and
+   CKPT_LAYERS layers (a checkpoint) on the default config with
    --num-speculative-tokens 4 and without it, in turns: a repetitive
    prompt at batch 1 (turns spec, plain, plain, spec; wall ms a
    generated token printed), then batch 8 with 4 greedy and 4 seeded
    sampled lanes, 64 tokens each: greedy streams part only under the
    near-tie rule, sampled ones only where a rank could change hands
    under that rule's logit difference (sampled_tie_check); drafts and
-   verify dispatches above 0, 28 ragged launches a verify forward, the
-   acceptance rate printed. Then the composed verify (--no-ragged-kernel
-   --no-ragged-dispatch: 28 prefill launches a lane a verify forward) at
+   verify dispatches above 0, a ragged launch a layer a verify forward,
+   the acceptance rate printed. Then the composed verify
+   (--no-ragged-kernel --no-ragged-dispatch: a prefill launch a layer a
+   lane a verify forward) at
    batch 2, held to plain decode, and the CLI with
    --num-speculative-tokens 4 (log build/chip_smoke_spec_serve.log),
    whose /metrics carries both vllm:spec_decode_* counters;
-9. checkpoint: the seeded llama-3.2-3b params (28 layers, bf16) written
-   as an HF checkpoint (two shards, 6.4 GB) in a temporary directory
+9. checkpoint: the seeded llama-3.2-3b params (full width, CKPT_LAYERS =
+   8 of its 28 layers, bf16) written as an HF checkpoint (one shard,
+   2.4 GB) in a temporary directory
    under build/ that the phase removes, read back byte for byte (write
    and load seconds printed), then served by the CLI with --model <dir>
    --enable-lora --max-loras 4 --max-lora-rank 16 --num-scheduler-steps
@@ -222,10 +228,11 @@ Phases, each fatal on failure:
    to an engine on merged weights W + A @ B, under the near-tie rule
    (an adapter's tolerance is at least the LoRA vs merged forward's
    max|dlogit| over 256 rows);
-10. KV: the port's cache server process (python -m
+10. KV (the 3B at full width and CKPT_LAYERS layers, a checkpoint its
+   CLI engines serve): the port's cache server process (python -m
    production_stack_tpu_torch.kv.cache_server) starts; (a) an
-   in-process 28-layer bf16 engine prefills a 1500-token prompt and its
-   46 full blocks (3.5 MiB each) are exported (gather on the compute
+   in-process bf16 engine prefills a 1500-token prompt and its
+   46 full blocks (1 MiB each) are exported (gather on the compute
    stream, pinned d2h) and imported into 46 other blocks, three times,
    and read back byte-equal to each other, to a direct gather of the
    cache and through serialize/deserialize (export and import GB/s and
@@ -342,11 +349,14 @@ Phases, each fatal on failure:
    one job on loopback (--multihost --num-processes 2 --process-id
    {0,1} --coordinator-address 127.0.0.1:<port>
    --tensor-parallel-size 2; logs build/chip_smoke_mh{0,1}_serve.log),
-   each one rank on cuda:0 over gloo: process 0 serves, process 1
-   follows; a greedy completion held to an in-process tp=1 engine's
-   (28 layers) under the near-tie rule, rank 0's launches 28 a forward,
-   and process 1 exits non-zero within MH_EXIT_S of SIGTERM to process
-   0.
+   each one rank on cuda:0 over gloo, serving the 3B at full width and
+   TP_LAYERS layers from a checkpoint the phase writes: process 0
+   serves, process 1 follows; a greedy completion held to an in-process
+   tp=1 engine's on that checkpoint under the near-tie rule, rank 0's
+   launches TP_LAYERS a forward,
+   and after SIGTERM to process 0 (a graceful stop: its shutdown stops
+   the rank set's followers) both processes exit 0 within MH_EXIT_S,
+   process 1 on the shutdown step.
 17. Rank-set features (rank_set_phase): the 3B (TP_LAYERS layers) at
    tp=2 (both ranks on cuda:0 over gloo) beside a tp=1 engine, with two rank-8 adapters
    (buffers a rank, one-shot logits of each lane, streams), the KV
@@ -371,7 +381,8 @@ Phases, each fatal on failure:
 19. Stack (stack_phase): the whole port stack, each process started as a
    user starts it: a KV controller (python -m
    production_stack_tpu_torch.kv.controller), four CLI engines of the
-   3B at full width (two both-role with 512 KV blocks reporting to the
+   3B at full width and CKPT_LAYERS layers (a checkpoint; two both-role
+   with 512 KV blocks reporting to the
    controller, a prefill-role and a decode-role PD pair) and, in turn,
    the port's router (python -m production_stack_tpu_torch.router) in
    front of them under each routing algorithm: roundrobin (8 greedy
@@ -425,12 +436,15 @@ card's name and power limit (nvidia-smi), and {"ok": true, "device":
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import re
 import signal
 import socket
 import subprocess
 import sys
+import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -462,12 +476,12 @@ LAYERS_3B = 28
 # the prompt that arrives while other requests decode: three 512-token
 # chunks at the engine's default max_prefill_chunk
 LONG_PROMPT_TOKENS = 1500
-# the depth of the 3B in the tp, long-context engine, pp and rank-set
-# serving phases: every rank of a set shares the one card over gloo, so
-# an eager forward's host time grows with its layers' collectives (a
-# 28-layer tp=2 decode token took 14-20 ms against 0.9 ms at tp=1 on an
-# H100), and these phases check the rank sets' plumbing, which every
-# layer repeats; the serve, stack and multi-host phases keep all 28
+# the depth of the 3B in the tp, long-context engine, pp, multi-host and
+# rank-set serving phases: every rank of a set shares the one card over
+# gloo, so an eager forward's host time grows with its layers'
+# collectives (a 28-layer tp=2 decode token took 14-20 ms against 0.9 ms
+# at tp=1 on an H100), and these phases check the rank sets' plumbing,
+# which every layer repeats; the serve phase keeps all 28
 TP_LAYERS = 4
 
 
@@ -484,6 +498,41 @@ def cut_3b() -> str:
                               num_layers=TP_LAYERS)
     mconfig._PRESETS[cut.name] = cut
     return cut.name
+
+
+@contextlib.contextmanager
+def cut_3b_checkpoint(torch, layers: int, prefix: str):
+    """Llama-3.2-3B at full width and `layers` layers (seeded random
+    bf16 params) as an HF checkpoint in a temporary directory under
+    build/, removed on exit: yields its directory, which a CLI engine
+    serves with --model (the CLI takes no run-time preset)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.models.config import get_model_config
+    from production_stack_tpu_torch.models.debug_checkpoint import (
+        hf_config_of,
+        write_hf_checkpoint,
+    )
+
+    cfg = dataclasses.replace(get_model_config("llama-3.2-3b"),
+                              num_layers=layers)
+    (REPO / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix=prefix, dir=REPO / "build"))
+    try:
+        ckdir = str(root / "llama-3.2-3b")
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        write_hf_checkpoint(ckdir, hf_config_of(cfg), llama.init_params(
+            cfg, gen, torch.bfloat16, "cuda"))
+        release(torch)
+        print(f"{prefix}checkpoint: the 3B at {layers} layers written in "
+              f"{time.perf_counter() - t0:.2f}s", flush=True)
+        yield ckdir
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def release(torch) -> None:
@@ -818,8 +867,11 @@ def kernel_phase(torch, model: str = "",
            f"{4 * visible_keys(qpos_r) * nq * d / rag['ms'] / 1e9:.1f} "
            "TFLOP/s (bf16)")
 
-    # prefill: one 512-row chunk at q_start 1024 over 48 shuffled pages
+    # prefill: one 512-row chunk at q_start 1024 over 48 shuffled pages;
+    # the kernel reads its start from device memory (as a captured
+    # prefill program hands it), the plain version takes the same tensor
     t, qs = 512, 1024
+    qs_dev = torch.tensor([qs], dtype=torch.int32, device=dev)
     n_pf = -(-(qs + t) // bs)
     pf_table = torch.from_numpy(perm[:n_pf].astype(np.int32)).to(dev)
     q_p = torch.randn((t, nq, d), generator=gen, device=dev, dtype=dt)
@@ -829,16 +881,16 @@ def kernel_phase(torch, model: str = "",
     pre = check(
         "paged_prefill_attention",
         lambda: pa.paged_prefill_attention(
-            q_p, k_cache, v_cache, layer, pf_table, qs, **kw),
+            q_p, k_cache, v_cache, layer, pf_table, qs_dev, **kw),
         lambda: pa.paged_prefill_attention_plain(
-            q_p, k_cache, v_cache, layer, pf_table, qs, **kw),
+            q_p, k_cache, v_cache, layer, pf_table, qs_dev, **kw),
         torch.arange(t, device=dev),
         lambda: fair_sdpa_inputs(q_p, qpos_p, [0] * t, pf_table[None]),
         t, qpos_p, qs + t,
         (lambda: pa.paged_prefill_attention(
-            q_p32, k32, v32, 0, pf_table, qs, **kw),
+            q_p32, k32, v32, 0, pf_table, qs_dev, **kw),
          lambda: pa.paged_prefill_attention_plain(
-            q_p32, k32, v32, 0, pf_table, qs, **kw)),
+            q_p32, k32, v32, 0, pf_table, qs_dev, **kw)),
         ("prefill_kernel",),
     )
 
@@ -1031,6 +1083,36 @@ def http(port: int, path: str, body: dict | None = None,
         return r.status, r.read().decode()
 
 
+def sse_stream(port: int, body: dict, timeout: float = 600.0,
+               started=None) -> dict:
+    """One streamed completion read to its end: its data events, the
+    last one's finish_reason, whether the stream closed with [DONE], and
+    the host-clock times (time.perf_counter) its response head, last
+    data event and [DONE] arrived. `started` (a threading.Event) is set
+    once the head has arrived."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/completions",
+        data=json.dumps({**body, "stream": True}).encode(),
+        headers={"Content-Type": "application/json"})
+    out = {"events": 0, "finish": None, "done": False, "t_head": None,
+           "t_last_event": None, "t_done": None}
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        out["t_head"] = time.perf_counter()
+        if started is not None:
+            started.set()
+        for raw in r:
+            line = raw.decode().strip()
+            if line == "data: [DONE]":
+                out["done"], out["t_done"] = True, time.perf_counter()
+                break
+            if line.startswith("data:"):
+                out["events"] += 1
+                out["t_last_event"] = time.perf_counter()
+                out["finish"] = json.loads(line[5:])["choices"][0][
+                    "finish_reason"]
+    return out
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -1140,6 +1222,37 @@ def check_launches(what: str, launches: dict, dispatches: dict,
              f"{want}")
 
 
+def check_pool(what: str, runner, smi: str) -> None:
+    """The graphs' shared pool and the program variants' static buffers,
+    both allocated after the KV sizing, against the room that sizing
+    keeps back for them (ModelRunner._graph_pool_reserve): fatal above
+    it."""
+    pool, static = runner.graph_pool_bytes(), runner.static_input_bytes()
+    check_pool_bytes(what, pool, static, runner._graph_pool_reserve(), smi)
+
+
+def check_pool_bytes(what: str, pool: int, static: int, reserve: int,
+                     smi: str) -> None:
+    print(f"{what}: graph pool {pool / 2**20:.1f} MiB + static inputs "
+          f"{static / 2**20:.1f} MiB against the KV sizing's pool reserve "
+          f"{reserve / 2**20:.1f} MiB on {smi}", flush=True)
+    if pool + static > reserve:
+        fail(f"{what}: the graphs' pool and static inputs "
+             f"({(pool + static) / 2**20:.1f} MiB) exceed the pool "
+             f"reserve ({reserve / 2**20:.1f} MiB)")
+
+
+def check_logged_pool(what: str, line: str, smi: str) -> None:
+    """check_pool_bytes on a CLI engine's "serving precompile" log
+    line."""
+    m = re.search(r"graph pool ([0-9.]+) MiB, static inputs ([0-9.]+) "
+                  r"MiB, pool reserve ([0-9.]+) MiB", line)
+    if m is None:
+        fail(f"{what}: no pool bytes in the precompile log line: {line}")
+    pool, static, reserve = (int(float(x) * 2**20) for x in m.groups())
+    check_pool_bytes(what, pool, static, reserve, smi)
+
+
 def wait_healthy(what: str, proc, port: int, log_path: Path,
                  t0: float) -> float:
     """Seconds from t0 until the server answers /health with 200."""
@@ -1175,6 +1288,7 @@ def serve_phase(torch, smi: str) -> tuple[dict, dict]:
                  f"{log_tail(log_path)}")
         print(f"serve: healthy {boot:.1f}s after start, after "
               f"{warm[0].split('INFO ', 1)[-1]}", flush=True)
+        check_logged_pool("serve", warm[0], smi)
         card = json.loads(http(port, "/v1/models")[1])["data"][0]
         assert card["id"] == "llama-3.2-3b" and card["max_model_len"], card
         assert "kv_role" not in card or card["kv_role"] is None, card
@@ -2492,21 +2606,31 @@ def graphed_vs_eager(what: str, engs: dict, outs: dict, turn: int, sp,
           "graphed engine equal to the eager engine's", flush=True)
 
 
+# the program kinds precompile_serving must build, by engine: the JAX
+# runner's jit caches (_prefill_fns, _prefill_batch_fns on the ragged-rows
+# layout, _ragged_fns, _decode_fns, _decode_multi_fns)
+COMPILED_KINDS = {8: {"prefill", "prefill_rows", "ragged_rows", "decode",
+                      "decode_multi"},
+                  1: {"prefill", "prefill_rows", "decode"}}
+
+
 def compiled_phase(torch, pa, gap_tol: float, smi: str) -> tuple:
     """The compiled programs at Llama-3.2-3B (28 layers, bf16, random
     weights): a K=8 engine on the defaults runs precompile_serving (its
-    dispatches, seconds, compile events by kind and the graph pool's
-    bytes printed, with the grid), then serves the mixed phase's scenario
-    (greedy, no logprobs: shapes the sweep covered) in turns graphed,
-    eager, eager, graphed against its eager control on the same params:
-    no compile event in the graphed turns, launches 28 a forward counted
-    on replay and equal to the eager engine's, greedy streams equal (or
-    parting at near ties), one mixed round of each engine under
-    torch.profiler. Then wall ms a token at batch 8 in turns and one pure
-    decode round of each under the profiler; then the same on split K=1
-    engines (--no-ragged-dispatch: the single-step decode graphs).
-    Returns the graphed engines' launches, the params and the K=8
-    graphed engine, kept for the sync phase."""
+    dispatches, seconds, compile events by kind, the graph pool's bytes,
+    the static inputs' bytes and the pool reserve the KV sizing keeps
+    printed, with the grid; every kind of COMPILED_KINDS built), then
+    serves the mixed phase's scenario (greedy, no logprobs: shapes the
+    sweep covered) in turns graphed, eager, eager, graphed against its
+    eager control on the same params: no compile event in the graphed
+    turns, launches 28 a forward counted on replay and equal to the
+    eager engine's, greedy streams equal (or parting at near ties), one
+    mixed round of each turn under torch.profiler (its wall and busy
+    share printed by engine). Then wall ms a token at batch 8 in turns
+    and one pure decode round of each under the profiler; then the same
+    on split K=1 engines (--no-ragged-dispatch: the single-step decode
+    graphs). Returns the graphed engines' launches, the params and the
+    K=8 graphed engine, kept for the sync phase."""
     from production_stack_tpu_torch.engine.sampling_params import (
         SamplingParams,
     )
@@ -2534,16 +2658,19 @@ def compiled_phase(torch, pa, gap_tol: float, smi: str) -> tuple:
               f"; compile events {g.compile_events} "
               f"({g.compile_events_total} variants), graph pool "
               f"{g.graph_pool_bytes()} bytes "
-              f"({g.graph_pool_bytes() / 2**20:.1f} MiB) on {smi}",
+              f"({g.graph_pool_bytes() / 2**20:.1f} MiB), static inputs "
+              f"{g.static_input_bytes()} bytes, pool reserve of the KV "
+              f"sizing {g._graph_pool_reserve()} bytes on {smi}",
               flush=True)
-        if not (n > 0 and g.compile_events.get("decode")
-                and (k == 1 or g.compile_events.get("decode_multi"))):
-            fail(f"{tag}: the sweep built no decode variant")
-        outs, runs_of = {}, {}
+        missing = COMPILED_KINDS[k] - set(g.compile_events)
+        if not n > 0 or missing:
+            fail(f"{tag}: the sweep built no {sorted(missing)} variant")
+        check_pool(tag, g, smi)
+        outs, runs_of, busy = {}, {}, {}
         for name, turn in turns:
             eng = engs[name]
             ev0 = dict(eng.runner.compile_events)
-            prof = [] if turn == 0 else None
+            prof = []
             outs[name, turn], got, runs, n_mixed, wall = staggered_mix(
                 torch, pa, eng, f"c{k}", turn, sp, profile=prof)
             new = {kind: v - ev0.get(kind, 0)
@@ -2559,13 +2686,19 @@ def compiled_phase(torch, pa, gap_tol: float, smi: str) -> tuple:
                      "shapes")
             if k > 1 and n_mixed < 1:
                 fail(f"{what}: no lane-typed round ran")
-            if prof:
-                print(f"{what}: step 4 under torch.profiler: {prof[0]}",
-                      flush=True)
+            print(f"{what}: step 4 (a mixed round) under torch.profiler: "
+                  f"{prof[0]}", flush=True)
+            busy[name, turn] = re.search(r"^wall ([0-9.]+) ms.*?(?:busy "
+                                         r"([0-9.]+)%|$)", prof[0]).groups()
             runs_of[name, turn] = (got, runs)
             if name == "graphed":
                 for kk in launches:
                     launches[kk] += got[kk]
+        print(f"{tag}: a mixed round (step 4) wall ms / device busy % by "
+              f"turn: " + ", ".join(f"{n}{t} {busy[n, t][0]} / "
+                                    f"{busy[n, t][1] or 'not measured'}"
+                                    for n, t in turns) + f" on {smi}",
+              flush=True)
         for turn in (0, 1):
             if runs_of["graphed", turn] != runs_of["eager", turn]:
                 fail(f"{tag}, turn {turn}: graphed (launches, dispatches) "
@@ -2852,6 +2985,35 @@ def verdict(site: str, by_line: dict, not_hot: dict) -> str:
     return "unreported"
 
 
+def fused_loop_lines() -> tuple[str, int, int]:
+    """(path, first line, last line) of the fused decode loop, the
+    closure `run` of ModelRunner._decode_round_core: where its early
+    exit read the `done` flag back once an iteration."""
+    import ast
+
+    path = PKG / "engine" / "model_runner.py"
+    for fn in ast.walk(ast.parse(path.read_text())):
+        if (isinstance(fn, ast.FunctionDef)
+                and fn.name == "_decode_round_core"):
+            for sub in ast.walk(fn):
+                if isinstance(sub, ast.FunctionDef) and sub.name == "run":
+                    return (str(path.relative_to(REPO)), sub.lineno,
+                            sub.end_lineno)
+    fail("sync phase: no fused loop in engine/model_runner.py")
+
+
+def early_exit_module():
+    """scripts/chip_early_exit.py: the fused loop's idle-iteration count
+    (its round wrapper and its stop-token scenario)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_early_exit", REPO / "scripts" / "chip_early_exit.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def census_scenario(torch, pa, eng, tag: str, census) -> tuple:
     """The mixed scenario (four greedy 32-token requests, a
     LONG_PROMPT_TOKENS prompt at step 2) then eight 32-token prompts
@@ -2907,18 +3069,28 @@ def sync_phase(torch, pa, smi: str, params, graphed) -> dict:
     rounds, graphed decode programs after precompile_serving; contexts
     capped at COMPILED_MAX_MODEL_LEN: the compiled phase's) on `params`;
     a --no-ragged-kernel engine (the prefill and decode kernels) on the
-    same params runs its own precompile_serving. Each runs
-    census_scenario twice, its prefix cache emptied before each: first
-    plain, then under SyncCensus. Fatal: a sync site in the package the
+    same params runs its own precompile_serving (the composed sweeps and
+    precompile_cover's per-lane keys). Each runs census_scenario twice,
+    its prefix cache emptied before each: first plain, then under
+    SyncCensus. Fatal: a compile event in either run (after the sweep
+    the served scenario builds nothing), a sync site in the package the
     analyzer does not report (no device-sync finding at its line and no
     not-hot function around it), streams under the census that differ
     from the plain run's, and `python -m production_stack_tpu_torch.analysis
     production_stack_tpu_torch/` (run with --json beside the engines)
     exiting non-zero. Prints syncs a step by round kind (mean and max),
     each site's count, how it was seen, its most frequent caller and the
-    analyzer's verdict, and the captures' syncs apart. Returns the
+    analyzer's verdict, and the captures' syncs apart. The fused loop's
+    `done` site (any sync inside _decode_round_core's run) must read 0.
+    Each engine's fused rounds are counted (scripts/chip_early_exit.py):
+    the iterations they ran after every lane was done, in the census runs
+    (budget stops) and in the stop-token scenario (lanes stopping on the
+    data at different iterations; the default engine's then on an eager
+    control): its streams must be the same on every engine. Returns the
     engines' launches."""
     t_phase = time.perf_counter()
+    ee = early_exit_module()
+    from production_stack_tpu_torch.engine.model_runner import ModelRunner
     cmd = [sys.executable, *ANALYZER_CMD]
     analyzer = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
@@ -2933,7 +3105,14 @@ def sync_phase(torch, pa, smi: str, params, graphed) -> dict:
             eng, n = graphed, "the compiled phase's"
         else:
             eng = compiled_engine(torch, params, 8, ragged_kernel=False)
+            t0 = time.perf_counter()
             n = eng.precompile_serving()
+            print(f"{tag}: precompile_serving {n} dispatches in "
+                  f"{time.perf_counter() - t0:.2f}s (host clock); compile "
+                  f"events {eng.runner.compile_events}, graph pool "
+                  f"{eng.runner.graph_pool_bytes() / 2**20:.1f} MiB on "
+                  f"{smi}", flush=True)
+            check_pool(tag, eng.runner, smi)
         bm = eng.block_manager
 
         def run(tag_, census):
@@ -2941,24 +3120,51 @@ def sync_phase(torch, pa, smi: str, params, graphed) -> dict:
                 bm.drop_cached_block(h)
             return census_scenario(torch, pa, eng, tag_, census)
 
-        plain = run("p", SyncCensus(torch))
-        census = SyncCensus(torch)
-        ev0 = dict(eng.runner.compile_events)
-        with census:
-            ids, got, runs, rounds = run("s", census)
-        torch.cuda.synchronize()
-        new = {k: v - ev0.get(k, 0) for k, v in
-               eng.runner.compile_events.items() if v != ev0.get(k, 0)}
+        log, undo = ee.count_rounds(ModelRunner)
+        try:
+            ev0 = dict(eng.runner.compile_events)
+            plain = run("p", SyncCensus(torch))
+            census = SyncCensus(torch)
+            with census:
+                ids, got, runs, rounds = run("s", census)
+            torch.cuda.synchronize()
+            new = {k: v - ev0.get(k, 0) for k, v in
+                   eng.runner.compile_events.items() if v != ev0.get(k, 0)}
+            idle = ee.idle_counts(log)
+            stops = {"graphed": ee.early_exit_scenario(torch, eng,
+                                                       f"x{impl}", log)}
+            if impl == "ragged":
+                control = compiled_engine(torch, params, 8, eager=True)
+                stops["eager"] = ee.early_exit_scenario(torch, control,
+                                                        f"y{impl}", log)
+                control.shutdown()
+                del control
+        finally:
+            undo()
+        print(f"{tag}: fused rounds of the census runs (budget stops): "
+              f"{idle}; stop-token scenario (scripts/chip_early_exit.py): "
+              f"{stops} on {smi}", flush=True)
+        if len({v["digest"] for v in stops.values()} | set(
+                [runs_of["ragged"][3]] if impl != "ragged" else [])) != 1:
+            problems.append(f"{impl}: the stop-token streams differ "
+                            "from the graphed ragged engine's")
+        if stops["graphed"]["idle_forwards"]:
+            problems.append(f"{impl}: the graphed loop ran "
+                            f"{stops['graphed']['idle_forwards']} forwards "
+                            "after every lane was done")
         check_launches(tag, got, runs, impl=impl)
         same = sum(a == b for a, b in zip(plain[0], ids))
         print(f"{tag}: {n} warm-up dispatches before; {same}/{len(ids)} "
               f"greedy streams under the census equal to the plain run's; "
-              f"compile events during it {new}; dispatches {runs} on {smi}",
-              flush=True)
+              f"compile events during the plain and census runs {new}; "
+              f"dispatches {runs} on {smi}", flush=True)
+        if new:
+            problems.append(f"{impl}: the served scenario built {new} "
+                            "after precompile_serving")
         if same != len(ids):
             problems.append(f"{impl}: streams with sync debug mode on "
                             "differ from the plain run's")
-        runs_of[impl] = (got, rounds, census)
+        runs_of[impl] = (got, rounds, census, stops["graphed"]["digest"])
         eng.shutdown()
         del eng, bm
         release(torch)
@@ -2976,8 +3182,9 @@ def sync_phase(torch, pa, smi: str, params, graphed) -> dict:
         print(out[-6000:] + err[-2000:], flush=True)
         problems.append(f"the port's analyzer exits {analyzer.returncode}")
     by_line, not_hot = analyzer_verdicts(report) if report else ({}, {})
+    loop_path, lo, hi = fused_loop_lines()
     launches = dict.fromkeys(("decode", "prefill", "ragged"), 0)
-    for impl, (got, rounds, census) in runs_of.items():
+    for impl, (got, rounds, census, _) in runs_of.items():
         tag = f"sync phase {impl}"
         for k in launches:
             launches[k] += got.get(k, 0)
@@ -3000,6 +3207,14 @@ def sync_phase(torch, pa, smi: str, params, graphed) -> dict:
             print(f"  capture {site} x{cnt} ({smi}): "
                   f"{verdict(site, by_line, not_hot)} (graph warm-up and "
                   "capture, apart)", flush=True)
+        done = sum(cnt for site, cnt in census.sites.items()
+                   if site.rsplit(":", 1)[0] == loop_path
+                   and lo <= int(site.rsplit(":", 1)[1]) <= hi)
+        print(f"{tag}: the fused loop's done site ({loop_path}:{lo}-{hi}, "
+              f"_decode_round_core's run) reads {done} syncs on {smi}",
+              flush=True)
+        if done:
+            problems.append(f"{impl}: {done} syncs inside the fused loop")
     if problems:
         fail("sync phase: " + "; ".join(problems))
     print(f"sync phase: {time.perf_counter() - t_phase:.1f}s (host clock) "
@@ -3065,12 +3280,13 @@ def sampled_tie_check(torch, pa, what: str, eng, prompt: list[int], ref,
 def spec_phase(torch, pa, gap_tol: float, smi: str,
                model: str = "llama-3.2-3b", device: str = "cuda") -> dict:
     """Speculative decoding (n-gram drafts, one packed verify forward a
-    round) on the 28-layer model: in-process engines on the default
+    round) on `model` (main hands it the 3B at full width and CKPT_LAYERS
+    layers as a checkpoint): in-process engines on the default
     config with num_speculative_tokens=SPEC_K and without it, in turns:
     a repetitive prompt at batch 1, then batch 8 (4 greedy lanes, 4
     seeded sampled lanes), SPEC_TOKENS tokens each. Greedy streams part
     only under the near-tie rule, sampled ones under sampled_tie_check;
-    drafts and verify dispatches > 0, launches 28 a forward (a verify
+    drafts and verify dispatches > 0, launches one a layer a forward (a verify
     forward is one ragged launch a layer); the acceptance rate and the
     wall ms a token at batch 1 (spec / plain, 4 turns) printed. Then the
     composed verify (--no-ragged-kernel --no-ragged-dispatch, one
@@ -3084,6 +3300,9 @@ def spec_phase(torch, pa, gap_tol: float, smi: str,
     from production_stack_tpu_torch.engine.sampling_params import (
         SamplingParams,
     )
+    from production_stack_tpu_torch.models.config import get_model_config
+
+    layers = get_model_config(model).num_layers
 
     def sync():
         if device == "cuda":
@@ -3130,7 +3349,7 @@ def spec_phase(torch, pa, gap_tol: float, smi: str,
         drafts = st.spec_draft_tokens_total - st0.spec_draft_tokens_total
         acc = st.spec_accepted_tokens_total - st0.spec_accepted_tokens_total
         what = f"spec phase {name}"
-        check_launches(what, got, runs)
+        check_launches(what, got, runs, layers=layers)
         if eng is spec_eng:
             for k in launches:
                 launches[k] += got[k]
@@ -3186,16 +3405,10 @@ def spec_phase(torch, pa, gap_tol: float, smi: str,
     if device == "cuda":
         release(torch)
 
-    # the composed verify: one prefill launch a lane a layer
+    # the composed verify: one prefill launch a padded lane a layer (the
+    # runner counts the lanes of its packed forwards as it dispatches
+    # them, replayed or not: prefill_lanes)
     eng = engine(SPEC_K, ragged_kernel=False, ragged_dispatch=False)
-    lanes = []
-    orig = eng.runner._packed_attn
-
-    def packed_attn(s_pad, *a, **kw):
-        lanes.append(s_pad)
-        return orig(s_pad, *a, **kw)
-
-    eng.runner._packed_attn = packed_attn
     prompts = [spec_prompt(20), spec_prompt(21, 56)]
     pa.reset_launch_counts()
     runs0 = dict(eng.runner.dispatch_counts)
@@ -3205,17 +3418,17 @@ def spec_phase(torch, pa, gap_tol: float, smi: str,
     sync()
     runs = {k: v - runs0[k] for k, v in eng.runner.dispatch_counts.items()}
     got = pa.launch_counts()
-    want = {"ragged": 0, "decode": LAYERS_3B * runs["decode"],
-            "prefill": LAYERS_3B * (runs["prefill"] + sum(lanes))}
+    want = {"ragged": 0, "decode": layers * runs["decode"],
+            "prefill": layers * (runs["prefill"]
+                                 + runs["prefill_lanes"])}
     print(f"spec phase composed: 2 x 24 tokens in "
           f"{time.perf_counter() - t0:.2f}s (host clock) on {smi}; "
-          f"dispatches {runs}, packed "
-          f"forwards' lanes {lanes}; launches {got}, want {want}",
+          f"dispatches {runs}; launches {got}, want {want}",
           flush=True)
     if not (runs["verify_batch"] > 0
             and {k: got[k] for k in want} == want):
-        fail("spec phase composed: no verify forward or launches not 28 a "
-             "lane a forward")
+        fail(f"spec phase composed: no verify forward or launches not "
+             f"{layers} a lane a forward")
     del eng
     ref_eng = engine(0)
     o_ref = ref_eng.generate(prompts, SamplingParams(
@@ -3259,7 +3472,7 @@ def spec_phase(torch, pa, gap_tol: float, smi: str,
             fail("spec serve: the vllm:spec_decode_* counters or the verify "
                  "dispatches did not move")
         check_launches("spec serve", report["launches"],
-                       report["dispatches"])
+                       report["dispatches"], layers=layers)
     finally:
         stop_server(proc)
     return launches
@@ -3332,11 +3545,12 @@ FAMILY_LAYERS = 2
 WINDOW_PROMPT_TOKENS = 5000
 # the Phi-3-mini prompt past its 2047-token window, inside its 4096
 PHI3_LONG_PROMPT_TOKENS = 3000
-# the depth of the Phi-3-mini and Gemma-7B servers: full width, 8 of
+# the depth of the Phi-3-mini and Gemma-7B servers: full width, 4 of
 # their 32 and 28 layers (the checkpoint written, loaded and served in a
-# third of the time; every layer runs the same attention)
-PHI3_SERVE_LAYERS = 8
-GEMMA_SERVE_LAYERS = 8
+# fraction of the time, which the compiled phase's captures took; every
+# layer runs the same attention)
+PHI3_SERVE_LAYERS = 4
+GEMMA_SERVE_LAYERS = 4
 
 
 def tree_equal(torch, got: dict, want: dict) -> bool:
@@ -3698,6 +3912,8 @@ def families_phase(torch, pa, smi: str) -> dict:
                         for k, v in eng.runner.dispatch_counts.items()}
                 check_launches(f"families phase {name} ({mode})", launches,
                                runs, layers=FAMILY_LAYERS, impl=mode)
+                check_pool(f"families phase {name} ({mode})", eng.runner,
+                           smi)
                 if cfg.head_dim == 256:
                     for k in counts:
                         counts[k] += launches[k]
@@ -3792,10 +4008,15 @@ def all_row_logits(torch, pa, cfg, params, ids, lora=None, slot=None,
 
 # the checkpoint phase's long prompts: three prefill chunks each
 LORA_LONG_PROMPT_TOKENS = 1100
+# the checkpoint phase's depth: full width, 8 of the 3B's 28 layers (the
+# write, the load, the LoRA server and its four reference engines in a
+# fraction of the time, which the sync phase's composed sweep takes)
+CKPT_LAYERS = 8
 
 
 def checkpoint_phase(torch, pa, gap_tol: float, smi: str) -> dict:
-    """llama-3.2-3b at full width and depth as an HF checkpoint: written
+    """llama-3.2-3b at full width and CKPT_LAYERS of its 28 layers as an
+    HF checkpoint: written
     from seeded bf16 params (sharded as HF shards it), read back byte for
     byte, served by the CLI with --enable-lora; two PEFT adapters (rank
     16 and 8) loaded over HTTP; base and adapter requests sent at once,
@@ -3805,6 +4026,7 @@ def checkpoint_phase(torch, pa, gap_tol: float, smi: str) -> dict:
     one in-process decode step shows a base lane's logits unchanged to
     the bit by the adapters beside it. Returns the served run's kernel
     launches."""
+    import dataclasses
     import shutil
     import tempfile
     import urllib.error
@@ -3823,7 +4045,8 @@ def checkpoint_phase(torch, pa, gap_tol: float, smi: str) -> dict:
     )
     from production_stack_tpu_torch.models.weights import load_hf_weights
 
-    cfg = get_model_config("llama-3.2-3b")
+    cfg = dataclasses.replace(get_model_config("llama-3.2-3b"),
+                              num_layers=CKPT_LAYERS)
     (REPO / "build").mkdir(exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="ckpt-", dir=REPO / "build"))
     ckdir = str(root / "llama-3.2-3b")
@@ -3832,7 +4055,7 @@ def checkpoint_phase(torch, pa, gap_tol: float, smi: str) -> dict:
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         params = llama.init_params(cfg, gen, torch.bfloat16, "cuda")
         t0 = time.perf_counter()
-        # HF ships Llama-3.2-3B in two shards of <= 5 GB
+        # HF shards Llama-3.2-3B at <= 5 GB a file
         shards = write_hf_checkpoint(ckdir, hf_config_of(cfg), params,
                                      shard_bytes=5 * 10**9)
         t1 = time.perf_counter()
@@ -3926,7 +4149,7 @@ def checkpoint_phase(torch, pa, gap_tol: float, smi: str) -> dict:
         if not rounds > 0:
             fail("checkpoint phase: no mixed round served the adapters")
         check_launches("checkpoint phase", report["launches"],
-                       report["dispatches"])
+                       report["dispatches"], layers=CKPT_LAYERS)
         st, body = http(port, "/v1/unload_lora_adapter",
                         {"lora_name": "ad8"})
         try:
@@ -4060,9 +4283,10 @@ def kv_counters(what: str, samples: dict, want: dict) -> None:
 def kv_phase(torch, pa, gap_tol: float, smi: str,
              model: str = "llama-3.2-3b", device: str = "cuda") -> dict:
     """The port's KV export, import, tiers, PD pull and shared cache
-    server at full 3B width (28 layers, bf16, random weights). `model`
-    and `device` exist for a dry run of the phase's logic on a CPU with a
-    tiny model."""
+    server on `model`: main hands it the 3B at full width and CKPT_LAYERS
+    layers as a checkpoint (bf16, random weights), which its CLI engines
+    serve. `model` and `device` also serve a dry run of the phase's logic
+    on a CPU with a tiny model."""
     import gc
     import shutil
 
@@ -4249,7 +4473,7 @@ def kv_phase(torch, pa, gap_tol: float, smi: str,
             "tpu:kv_export_sync_fallbacks_total": 0.0})
         n_same = near_tie_check("KV phase (b)", [first], [restored], gap_tol)
         check_launches("KV phase (b)", pa.launch_counts(),
-                       r.dispatch_counts)
+                       r.dispatch_counts, layers=layers)
         counts["offload"] = pa.launch_counts()
         remote = eng.offload.remote
         remote.flush()
@@ -4316,7 +4540,8 @@ def kv_phase(torch, pa, gap_tol: float, smi: str,
             kv_counters(f"KV phase (c) {name} server", samples, want)
             report = json.loads(http(port, "/debug/kernel_launches")[1])
             check_launches(f"KV phase (c) {name} server",
-                           report["launches"], report["dispatches"])
+                           report["launches"], report["dispatches"],
+                           layers=layers)
             counts[name] = report["launches"]
         n_same = near_tie_check("KV phase (c)", [own], [pulled], gap_tol)
         print(f"KV phase (c): {n_same}/1 pulled greedy stream equal to the "
@@ -4345,7 +4570,7 @@ def kv_phase(torch, pa, gap_tol: float, smi: str,
             "tpu:kv_restore_fallbacks_total": 0.0,
             "tpu:kv_export_sync_fallbacks_total": 0.0})
         check_launches("KV phase (d)", pa.launch_counts(),
-                       eng.runner.dispatch_counts)
+                       eng.runner.dispatch_counts, layers=layers)
         counts["remote"] = pa.launch_counts()
         n_same = near_tie_check("KV phase (d)", [first], [again], gap_tol)
         m = again.metrics
@@ -4932,6 +5157,7 @@ def moe_phase(torch, pa, gap_tol: float, smi: str) -> dict:
     if n_mixed < 1:
         fail(f"{what}: no lane-typed round ran")
     check_launches(what, got, runs, layers=MIXTRAL_LAYERS)
+    check_pool(what, eng.runner, smi)
     # the same weights in float32, for the engine below and to see how
     # often bf16 rounding alone moves a token to another expert pair:
     # one-shot forwards of these sequences in each dtype
@@ -4964,6 +5190,7 @@ def moe_phase(torch, pa, gap_tol: float, smi: str) -> dict:
     print(f"{what32}: mixed scenario in {wall32:.3f}s (host clock); "
           f"dispatches {runs32}", flush=True)
     check_launches(what32, got32, runs32, layers=MIXTRAL_LAYERS)
+    check_pool(what32, eng.runner, smi)
     refs, _ = oneshot_streams(torch, cut, params32, outs32)
     d32 = agreed_logprob_diff(refs, outs32)
     n_same = near_tie_check(f"{what32} (vs one-shot forwards)", refs,
@@ -6016,22 +6243,28 @@ def pp_phase(torch, pa, gap_tol: float, smi: str) -> None:
 # -- multi-host phase ----------------------------------------------------------------
 MH_PROMPT = [(13 * j + 5) % 250 + 1 for j in range(200)]
 MH_TOKENS = 32
+# the stream engine b serves when the stack phase SIGTERMs it
+STACK_SIGTERM_TOKENS = 160
 # process 1 must exit within this many seconds of process 0's SIGTERM
 MH_EXIT_S = 30.0
 
 
-def multihost_phase(torch, gap_tol: float, smi: str) -> dict:
+def multihost_phase(torch, gap_tol: float, smi: str, model: str) -> dict:
     """Two processes of the port's CLI joined into one job on loopback
     (--multihost --num-processes 2 --process-id {0,1}
     --coordinator-address 127.0.0.1:<port> --tensor-parallel-size 2),
-    the 3B at full width and depth, each process one rank on cuda:0 over
-    gloo (logs build/chip_smoke_mh{0,1}_serve.log): process 0 serves
-    HTTP, process 1 follows. A greedy completion of MH_PROMPT equals an
-    in-process tp=1 engine's of the same seed under the near-tie rule
-    (a single-process tp=2 reference would add a rank set's boot); rank
-    0 launches the ragged kernel 28 times a forward
-    (/debug/kernel_launches); after SIGTERM to process 0, process 1
-    exits non-zero within MH_EXIT_S. Returns rank 0's launches."""
+    serving `model` (main hands it the 3B at full width and TP_LAYERS
+    layers as a checkpoint), each process one rank on cuda:0 over gloo
+    (logs build/chip_smoke_mh{0,1}_serve.log): process 0 serves HTTP,
+    process 1 follows. A greedy completion of MH_PROMPT equals an
+    in-process tp=1 engine's on the checkpoint under
+    the near-tie rule (a single-process tp=2 reference would add a rank
+    set's boot); rank 0 launches the ragged kernel TP_LAYERS times a
+    forward
+    (/debug/kernel_launches); after SIGTERM to process 0, which drains
+    and shuts its engine down (the followers get the shutdown step),
+    both processes exit 0 within MH_EXIT_S, process 1 having logged the
+    shutdown. Returns rank 0's launches."""
     import types
 
     from production_stack_tpu_torch.engine.config import EngineConfig
@@ -6042,7 +6275,7 @@ def multihost_phase(torch, gap_tol: float, smi: str) -> dict:
 
     t_phase = time.perf_counter()
     eng = LLMEngine(EngineConfig(
-        model="llama-3.2-3b", tokenizer="byte", device="cuda",
+        model=model, tokenizer="byte", device="cuda",
         block_size=32, num_kv_blocks=64, max_num_seqs=8, seed=SEED))
     [ref] = eng.generate([MH_PROMPT], SamplingParams(
         max_tokens=MH_TOKENS, temperature=0, ignore_eos=True, logprobs=2))
@@ -6055,7 +6288,8 @@ def multihost_phase(torch, gap_tol: float, smi: str) -> dict:
     try:
         for i in (0, 1):
             procs.append(start_server(
-                port if i == 0 else free_port(), logs[i], extra=(
+                port if i == 0 else free_port(), logs[i], model=model,
+                extra=(
                     "--multihost", "--num-processes", "2", "--process-id",
                     str(i), "--coordinator-address", f"127.0.0.1:{coord}",
                     "--tensor-parallel-size", "2")))
@@ -6078,7 +6312,7 @@ def multihost_phase(torch, gap_tol: float, smi: str) -> dict:
                 for t in r["choices"][0]["logprobs"]["tokens"]]
         report = json.loads(http(port, "/debug/kernel_launches")[1])
         check_launches("multi-host phase rank 0", report["launches"],
-                       report["dispatches"])
+                       report["dispatches"], layers=TP_LAYERS)
         n_same = near_tie_check("multi-host phase vs single-process tp=1",
                                 [ref], [types.SimpleNamespace(
                                     token_ids=toks)], gap_tol)
@@ -6091,19 +6325,23 @@ def multihost_phase(torch, gap_tol: float, smi: str) -> dict:
         procs[0].send_signal(signal.SIGTERM)
         t2 = time.perf_counter()
         try:
-            code = procs[1].wait(MH_EXIT_S)
+            codes = [p.wait(MH_EXIT_S) for p in procs]
         except subprocess.TimeoutExpired:
-            fail(f"multi-host phase: process 1 still running "
+            fail(f"multi-host phase: a process still running "
                  f"{MH_EXIT_S:g}s after process 0's SIGTERM:\n"
-                 f"{log_tail(logs[1])}")
+                 + "\n".join(log_tail(lg) for lg in logs))
         waited = time.perf_counter() - t2
-        print(f"multi-host phase: process 1 exited with {code} "
+        told = "shutdown received" in logs[1].read_text(errors="replace")
+        print(f"multi-host phase: processes exited with {codes} "
               f"{waited:.2f}s after SIGTERM to process 0 (bound "
-              f"{MH_EXIT_S:g}s); phase {time.perf_counter() - t_phase:.1f}s "
-              f"on {smi}", flush=True)
-        if code == 0:
-            fail(f"multi-host phase: process 1 exited 0 with process 0 "
-                 f"gone:\n{log_tail(logs[1])}")
+              f"{MH_EXIT_S:g}s), process 1 on the shutdown step: {told}; "
+              f"phase {time.perf_counter() - t_phase:.1f}s on {smi}",
+              flush=True)
+        if codes != [0, 0] or not told:
+            fail(f"multi-host phase: after SIGTERM to process 0 the job "
+                 f"did not stop cleanly (exit codes {codes}, shutdown "
+                 f"step seen by process 1: {told}):\n"
+                 + "\n".join(log_tail(lg) for lg in logs))
         return report["launches"]
     finally:
         for p in procs:
@@ -6540,13 +6778,16 @@ def rank_set_phase(torch, pa, gap_tol: float, smi: str) -> dict:
             return spy.record(lambda: runner.prefill(ids, 0, table, len(ids))
                               [1].float().cpu())
 
-        # the bfloat16 control: the same prefill at bf16 precision
+        # the bfloat16 control: the same prefill at bf16 precision. The
+        # tp=1 engines run eagerly: the spy records each block's input
+        # from Python, which a captured prefill's replay does not run
         ctl = LLMEngine(EngineConfig(**{**mbase, "dtype": "bfloat16",
-                                        "cache_dtype": "bfloat16"}))
+                                        "cache_dtype": "bfloat16"}),
+                        eager=True)
         ctl_logits, ctl_rows = oneshot(ctl.runner)
         del ctl
         release(torch)
-        ref = LLMEngine(EngineConfig(**mbase))
+        ref = LLMEngine(EngineConfig(**mbase), eager=True)
         want_logits, want_rows = oneshot(ref.runner)
         want = ref.generate(RS_MOE_PROMPTS, sp)
         del ref
@@ -7147,15 +7388,19 @@ def prefix_hash_us(n_chars: int = STACK_PREFIX_CHARS, reps: int = 200
 def stack_phase(torch, gap_tol: float, smi: str,
                 model: str = "llama-3.2-3b", device: str = "cuda") -> dict:
     """The whole port stack on one card: port engines (the CLI at its
-    defaults, 3B at full width, random weights from SEED, byte
+    defaults on `model`: main hands it the 3B at full width and
+    CKPT_LAYERS layers as a checkpoint, random weights from SEED; byte
     tokenizer) behind the port's router (`python -m
     production_stack_tpu_torch.router`), each process started as a user
-    starts it. `model` and `device` exist for a dry run of the phase's
+    starts it. `model` and `device` also serve a dry run of the phase's
     logic on a CPU with a tiny model."""
     import functools
     from concurrent.futures import ThreadPoolExecutor as Pool
 
     from production_stack_tpu_torch.kv.controller import KVControllerClient
+    from production_stack_tpu_torch.models.config import get_model_config
+
+    layers = get_model_config(model).num_layers
 
     req = functools.partial(stack_request, model=model)
     rcmd = functools.partial(router_cmd, model=model)
@@ -7450,7 +7695,8 @@ def stack_phase(torch, gap_tol: float, smi: str,
             report = json.loads(http(ports[n], "/debug/kernel_launches")[1])
             if device == "cuda":
                 check_launches(f"stack phase engine {n}",
-                               report["launches"], report["dispatches"])
+                               report["launches"], report["dispatches"],
+                               layers=layers)
             counts[n] = report["launches"]
 
         # health: SIGTERM one engine under a steady load
@@ -7478,13 +7724,50 @@ def stack_phase(torch, gap_tol: float, smi: str,
                 statuses.append(st)
                 i += 1
 
-        with Pool(2) as pool:
+        with Pool(3) as pool:
             jobs = [pool.submit(load) for _ in range(2)]
             while len(statuses) < 8:
                 time.sleep(0.05)
+            # a stream in flight on engine b when it is SIGTERMed: sent
+            # after the load's first 8 answers, the signal once its
+            # response head has come; the engine stops listening,
+            # finishes it, then stops
+            started = threading.Event()
+            stream = pool.submit(sse_stream, pb, {
+                "model": model, "max_tokens": STACK_SIGTERM_TOKENS,
+                "temperature": 0, "ignore_eos": True,
+                "prompt": short[0]}, started=started)
+            if not started.wait(60):
+                stop_load = True
+                fail("stack phase health: engine b sent no response head "
+                     "for the stream in 60 s")
             t_kill = time.perf_counter()
             eng["b"].send_signal(signal.SIGTERM)
-            eng["b"].wait(60)
+            rc_b = eng["b"].wait(60)
+            streamed = stream.result(60)
+            stopped = "engine server stopped" in logs["b"].read_text()
+            after = {k: None if streamed[k] is None
+                     else round(streamed[k] - t_kill, 4)
+                     for k in ("t_head", "t_last_event", "t_done")}
+            print(f"stack phase health: engine b exited {rc_b} "
+                  f"{time.perf_counter() - t_kill:.2f}s after SIGTERM; its "
+                  f"in-flight stream: {streamed['events']} data events, "
+                  f"finish {streamed['finish']}, [DONE] "
+                  f"{streamed['done']}, seconds after SIGTERM of its head, "
+                  f"last event and [DONE] {after}; shutdown logged: "
+                  f"{stopped}", flush=True)
+            mid = (after["t_head"] is not None and after["t_head"] <= 0
+                   and after["t_last_event"] is not None
+                   and after["t_last_event"] > 0
+                   and after["t_done"] is not None and after["t_done"] > 0)
+            if rc_b != 0 or not stopped or not streamed["done"] or (
+                    streamed["finish"] != "length") or not mid:
+                stop_load = True
+                fail("stack phase health: the SIGTERMed engine did not "
+                     f"finish its stream in flight and stop cleanly (exit "
+                     f"{rc_b}, stream {streamed}, seconds after SIGTERM "
+                     f"{after}, shutdown logged {stopped}):\n"
+                     + log_tail(logs["b"]))
             gone = None
             while time.perf_counter() - t_kill < STACK_HEALTH_WINDOW_S:
                 urls = [e["url"] for e in json.loads(
@@ -7587,11 +7870,15 @@ def main() -> int:
     sync_counts = timed("sync", sync_phase, torch, pa, smi, params, graphed)
     del params, graphed
     async_counts = timed("async", async_phase, torch, pa, smi)
-    spec_counts = timed("spec", spec_phase, torch, pa, gap_tol, smi)
-    lora_counts = timed("checkpoint", checkpoint_phase, torch, pa, gap_tol,
-                        smi)
-    kv_counts = timed("kv", kv_phase, torch, pa, gap_tol, smi)
-    stack_counts = timed("stack", stack_phase, torch, gap_tol, smi)
+    # the spec, KV and stack phases serve the 3B cut to CKPT_LAYERS
+    with cut_3b_checkpoint(torch, CKPT_LAYERS, "cut-") as cut_dir:
+        spec_counts = timed("spec", spec_phase, torch, pa, gap_tol, smi,
+                            cut_dir)
+        lora_counts = timed("checkpoint", checkpoint_phase, torch, pa,
+                            gap_tol, smi)
+        kv_counts = timed("kv", kv_phase, torch, pa, gap_tol, smi, cut_dir)
+        stack_counts = timed("stack", stack_phase, torch, gap_tol, smi,
+                             cut_dir)
     timed("phi-3", phi3_serve_phase, torch, pa, smi)
     gemma_counts = timed("gemma", gemma_serve_phase, torch, pa, gap_tol, smi)
     moe_counts = timed("moe", moe_phase, torch, pa, gap_tol, smi)
@@ -7599,7 +7886,9 @@ def main() -> int:
     lc_counts, lc_first = timed("long-context", long_context_phase, torch,
                                 pa, gap_tol, smi)
     timed("pp", pp_phase, torch, pa, gap_tol, smi)
-    mh_counts = timed("multi-host", multihost_phase, torch, gap_tol, smi)
+    with cut_3b_checkpoint(torch, TP_LAYERS, "mh-") as mh_dir:
+        mh_counts = timed("multi-host", multihost_phase, torch, gap_tol,
+                          smi, mh_dir)
     rs_counts = timed("rank-set", rank_set_phase, torch, pa, gap_tol, smi)
     rss_counts = timed("rank-set serving", rank_set_serving_phase, torch,
                        pa, gap_tol, smi, lc_first)

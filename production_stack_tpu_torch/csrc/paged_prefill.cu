@@ -5,7 +5,9 @@
 // What it computes: the chunk's t query rows at positions q_start + r
 // over the sequence's pages in the head-major cache (L, nkv, slots, d),
 // causal, with an optional window (paged_tile.cuh states the masks and
-// the softmax).
+// the softmax). q_start is read from device memory (one int32, as the
+// Pallas kernel takes it by scalar prefetch), so a CUDA graph that
+// captured the launch serves any chunk start its buffer is given.
 //
 // What bounds it: operations. A 512-row chunk at q_start 1024 does about
 // 4 * 1280 * 24 * 128 flops per row, some 8 GFLOP, against some 5 MB of
@@ -36,7 +38,9 @@ template <typename TQ, typename TC, int D>
 __global__ void __launch_bounds__(THREADS, min_blocks<D>())
     prefill_kernel(
     const CacheArgs p, const TQ* __restrict__ q, TQ* __restrict__ out,
-    const int* __restrict__ table, int q_start, int t) {
+    const int* __restrict__ table, const int* __restrict__ q_start_dev,
+    int t) {
+  const int q_start = *q_start_dev;
   const int g = p.g;
   const int n_rows = t * g;
   const int n_tiles = (n_rows + BM - 1) / BM;
@@ -55,7 +59,7 @@ __global__ void __launch_bounds__(THREADS, min_blocks<D>())
 
 template <typename TQ, typename TC, int D>
 int launch(const CacheArgs& p, const void* q, void* out, const int* table,
-           int q_start, int t, cudaStream_t stream) {
+           const int* q_start, int t, cudaStream_t stream) {
   static size_t granted = 0;
   const size_t bytes = smem_bytes<TQ, TC, D>();
   cudaError_t e = allow_smem(prefill_kernel<TQ, TC, D>, bytes, &granted);
@@ -74,17 +78,19 @@ extern "C" {
 // Returns a CUDA error code (0 = launched).
 int pst_paged_prefill_attention(
     const void* q, const void* k_cache, const void* v_cache, void* out,
-    const void* block_table, int q_dtype, int cache_dtype, int layer,
-    int q_start, int t, int nq, int nkv, int64_t slots, int d, int bs,
+    const void* block_table, const void* q_start, int q_dtype,
+    int cache_dtype, int layer, int t, int nq, int nkv, int64_t slots,
+    int d, int bs,
     int num_pages, float scale, int window, void* stream) {
   CacheArgs p;
   if (t <= 0 || !make_cache_args(k_cache, v_cache, layer, nq, nkv, slots,
                                  bs, num_pages, scale, window, &p))
     return (int)cudaErrorInvalidValue;
   const int* table = static_cast<const int*>(block_table);
+  const int* start = static_cast<const int*>(q_start);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PST_LAUNCH(TQ, TC, D) \
-  launch<TQ, TC, D>(p, q, out, table, q_start, t, s)
+  launch<TQ, TC, D>(p, q, out, table, start, t, s)
   PST_DISPATCH_TYPES_D(q_dtype, cache_dtype, d, PST_LAUNCH);
 #undef PST_LAUNCH
   return (int)cudaErrorInvalidValue;  // not reached

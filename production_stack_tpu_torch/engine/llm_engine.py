@@ -371,7 +371,7 @@ class LLMEngine:
                     "card %s and each chunk dispatches eagerly, so a long "
                     "prompt's TTFT and the other requests' ITL in chunk "
                     "steps are worse than chunked prefill's (ROADMAP "
-                    "Queue 1 item 11)", len(ring), ring[0],
+                    "Queue 1 item 2)", len(ring), ring[0],
                 )
 
     # -- KV offload tiers + controller reporting (LMCache-equivalent) ------
@@ -3421,6 +3421,10 @@ class LLMEngine:
                     ctxs, cfg.num_speculative_tokens + 1, cfg.max_num_seqs)
             if self.offload is not None:
                 n += rnr.precompile_kv_import(cap // bs)
+            # what the JAX sweeps leave to a live dispatch
+            n += rnr.precompile_cover(
+                ctxs, cfg.max_prefill_chunk, cfg.max_prefill_seqs,
+                stop=self._device_stop, ragged=self._ragged_dispatch)
             if rnr.device.type == "cuda":
                 torch.cuda.synchronize(rnr.device)
         return n

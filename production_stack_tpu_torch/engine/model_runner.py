@@ -21,18 +21,28 @@ the same padded tables and metadata as the Pallas kernels do.
 
 Compiled programs (engine/programs.py): the JAX runner jits one program
 per padded key and counts each build (``_note_compile``,
-``compile_events``). Here the decode programs are variants keyed the
-same way: the single-step ``decode`` per (b, c_pad) and ONE iteration
-of the fused K-step loop per (b, c_pad, sampling / stop / guided / LoRA
-flags, chained), each with static buffers and, on the card, a CUDA
-graph captured over them (``decode_multi``, the ragged round's
-iterations 1..K-1 and the composed round's loop replay the same
-iteration graph). Building a variant is a compile event. Prefill, the
-ragged round's step-0 forward, verify, embed and KV import run eagerly.
-``ModelRunner(eager=True)`` runs every dispatch eagerly (the comparison
-control). The ``precompile_*`` methods run the JAX runner's trash
-dispatches at the top of the block pool, building every decode variant
-a serving config reaches and warming the eager programs.
+``compile_events``). Here every program it jit-caches is a variant of
+the same kind, with static buffers and, on the card, a CUDA graph
+captured over them (``_dispatch_program``): single ``prefill`` per
+(t_pad, c_pad, prompt logprobs, adapter key); packed prefill per
+("prefill_rows", r_pad, pc_pad) on the ragged-rows layout or
+("prefill_batch", s_pad, t_pad, c_pad) per lane; the ragged round's
+step 0 per ("ragged_rows", r_pad, the wider context bucket's pages,
+flags) or, composed, its prefill half per ("ragged", s_pad, t_pad,
+pc_pad); ``verify`` per (s_pad, t_pad, c_pad); ``embed`` per chunk
+(t_pad, c_pad), its scratch cache the variant's static buffer;
+``kv_import`` per (n_pad, n_pad); the single-step ``decode`` per
+(b, c_pad); and ONE iteration of the fused K-step loop per (b, c_pad,
+sampling / stop / guided / LoRA flags, chained) (``decode_multi``, the
+ragged round's iterations 1..K-1 and the composed round's loop replay
+the same iteration graph). A dispatch copies its packed buffer (or its
+fields) into the variant's static buffers; every per-dispatch value,
+the prefill kernel's chunk start included, reaches the program that
+way. Building a variant is a compile event. ``ModelRunner(eager=True)``
+runs every dispatch eagerly (the comparison control). The
+``precompile_*`` methods run the JAX runner's trash dispatches at the
+top of the block pool, and ``precompile_cover`` what those leave to a
+live dispatch, building every variant a serving config reaches.
 
 Every dispatch of the default configuration ships its inputs as ONE
 packed int32 host buffer (pinned, one non_blocking copy on the card;
@@ -44,9 +54,12 @@ dispatch that consumes it makes its stream wait for the copy. A staged
 buffer whose bucket key or total length does not match the dispatch is
 ignored and the dispatch builds its own. The fused K-step loop is a
 Python loop whose per-iteration inputs are computed on the device from
-the carried tensors: the only host read inside it is the early-exit
-test of the device-stop variant. A chained round takes its tokens from
-the previous round's device output instead of the buffer.
+the carried tensors; it reads nothing back: under device stops the host
+enqueues iterations up to the largest remaining budget, and on the card
+a captured iteration skips its forward once every lane is done (a CUDA
+graph conditional node, programs.GatedProgramVariant). A chained round
+takes its tokens from the previous round's device output instead of the
+buffer.
 
 Every dispatch runs on the runner's named ``compute_stream`` (the
 device's default stream; ``LLMEngine.step`` enters it). A KV export may
@@ -94,7 +107,10 @@ import torch
 
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.lora import LoraManager
-from production_stack_tpu_torch.engine.programs import ProgramVariant
+from production_stack_tpu_torch.engine.programs import (
+    GatedProgramVariant,
+    ProgramVariant,
+)
 from production_stack_tpu_torch.engine.sampler import (
     LOGPROB_CAP,
     RAGGED_IDLE_TOKEN,
@@ -137,13 +153,24 @@ RAGGED_LANE_DECODE = 2
 # prompt-logprob rows projected to the vocab at once: a 512-row chunk's
 # (512, V) f32 logits at V = 128256 would be 262 MB
 PROMPT_LP_ROW_CHUNK = 128
+# an embed chunk's plain attention scores rows in pieces of at most this
+# many bytes of (rows, nq, context) float32 scores, so a captured embed
+# holds a bounded share of the graphs' pool at any context bucket
+EMBED_SCORE_BYTES = 64 * 2**20
 
 # device memory kept back from the KV pool for the CUDA graphs' shared
-# pool: at least this, or GRAPH_POOL_ROWS (b, V) float32 tensors (an
+# pool: at least this, GRAPH_POOL_ROWS (b, V) float32 tensors (an
 # iteration's logits, penalty counts, guided mask and sampler
-# temporaries live at once)
+# temporaries live at once), and the largest prefill-shaped program's
+# activations (ModelRunner._graph_pool_reserve)
 GRAPH_POOL_RESERVE_MIN = 256 * 2**20
 GRAPH_POOL_ROWS = 32
+# vocab-wide float32 rows a prefill-shaped program holds at once per
+# PROMPT_LP_ROW_CHUNK rows scored (logits, log-softmax, sampler scratch)
+GRAPH_POOL_VOCAB_COPIES = 3
+# the pool's size over one program's peak: captures of many shapes
+# fragment it (the 3B's K=8 sweep left 1.9x the estimate on an H100)
+GRAPH_POOL_SLACK = 2
 
 # the fused decode loop's carry, all on the device: (b,) int32 tokens,
 # positions and context lengths, (b, V) f32 penalty counts or None, (b,)
@@ -299,6 +326,8 @@ class ModelRunner:
         # per kind as the JAX runner's compile events
         self._variants: dict[tuple, ProgramVariant] = {}
         self._graph_pool = None
+        # the captured dispatches' shared output buffers
+        self._out_buffers: dict[tuple, torch.Tensor] = {}
         self.compile_events: dict[str, int] = {}
         self.compile_events_total = 0
         # the global config (sizing, the engine's vocab and lengths);
@@ -468,8 +497,8 @@ class ModelRunner:
         }
         # forwards run per entry point (packed prefill included), so a
         # run can show which paths it took
-        # (decode_iterations: forwards the fused K-step loops ran, so a
-        # run can see a round that exited before its K; prefill_lanes:
+        # (decode_iterations: iterations the fused K-step loops ran, so
+        # a run can see a round that ended before its K; prefill_lanes:
         # the padded lanes of composed packed forwards, one prefill call
         # each a layer)
         self._blk_seg_cache: dict[int, torch.Tensor] = {}
@@ -481,6 +510,16 @@ class ModelRunner:
                                 "verify_batch": 0, "prefill_lanes": 0}
         # fused rounds chained on the previous round's device tokens
         self.chained_rounds = 0
+        # decode forwards the fused loop's `step` ran on the device (a
+        # captured iteration skips its forward once every lane is done,
+        # an eager one runs it); read only by measurements
+        self.loop_forwards = torch.zeros((), dtype=torch.int64,
+                                         device=self.device)
+        # the embed programs' scratch caches: one pair of flat buffers at
+        # the largest context bucket reached, viewed per bucket
+        self._embed_scratch = None
+        # pool bytes of the program variants dropped since their capture
+        self._dropped_pool_bytes = 0
         # the DFA tables of the live constraints on the device, keyed by
         # the engine's cache token; how often they were uploaded, and the
         # fused rounds that ran guided lanes on them
@@ -516,9 +555,7 @@ class ModelRunner:
             free, total = torch.cuda.mem_get_info(self.device)
             budget = int(free - total * (1.0 - cfg.hbm_utilization))
             if not self.eager:
-                budget -= max(GRAPH_POOL_RESERVE_MIN,
-                              GRAPH_POOL_ROWS * cfg.max_num_seqs
-                              * mc.vocab_size * 4)
+                budget -= self._graph_pool_reserve()
         else:
             param_bytes = mc.num_params() * self.dtype.itemsize // ways
             budget = int(16 * 2**30 * cfg.hbm_utilization) - param_bytes
@@ -535,6 +572,35 @@ class ModelRunner:
             # also see each other's allocations in mem_get_info)
             num = self.group.agree_min(num)
         return num
+
+    def _graph_pool_reserve(self) -> int:
+        """Bytes kept back for the graphs' shared pool, sized to the
+        largest captured program: the decode programs' GRAPH_POOL_ROWS
+        (b, V) float32 tensors, or a prefill-shaped program's rows (the
+        widest packed prefill or ragged round) times a row's live float32
+        activations (residual and norms, q/k/v, the MLP's gate, up and
+        product, every expert's under the dense MoE path) plus
+        GRAPH_POOL_VOCAB_COPIES vocab rows for each of PROMPT_LP_ROW_CHUNK
+        rows (prompt logprobs, verify's sampler). Captures share the pool
+        and free their temporaries (a dispatch program's outputs go to
+        buffers outside it), but captures of many shapes fragment it:
+        GRAPH_POOL_SLACK times one program's peak."""
+        cfg, mc = self.config, self.local_config
+        decode = GRAPH_POOL_ROWS * cfg.max_num_seqs * mc.vocab_size * 4
+        rows = max(
+            self._rows_bucket(self._rows_lane_cap()
+                              * _ceil_tq(cfg.max_prefill_chunk))
+            + _ceil_tq(cfg.max_num_seqs),
+            next_pow2(max(cfg.max_prefill_seqs, cfg.max_num_seqs))
+            * self._prefill_bucket(cfg.max_prefill_chunk),
+        )
+        per_row = 4 * (4 * mc.hidden_size
+                       + 3 * mc.intermediate_size * max(1, mc.num_experts)
+                       + (mc.num_heads + 2 * mc.num_kv_heads) * mc.head_dim)
+        vocab = (GRAPH_POOL_VOCAB_COPIES * PROMPT_LP_ROW_CHUNK
+                 * mc.vocab_size * 4)
+        return max(GRAPH_POOL_RESERVE_MIN, decode,
+                   GRAPH_POOL_SLACK * (rows * per_row + vocab))
 
     # -- buckets ----------------------------------------------------------
     def _ctx_bucket(self, num_tokens: int) -> int:
@@ -568,15 +634,20 @@ class ModelRunner:
 
     def _program(self, kind: str, key: tuple, make) -> ProgramVariant:
         """The variant of `key`, built on first use from `make()` ->
-        (fn, inputs) and counted as a compile event of `kind`."""
+        (fn, inputs), or ((forward, post, done), inputs) for a gated one
+        (programs.GatedProgramVariant), and counted as a compile event of
+        `kind`."""
         var = self._variants.get(key)
         if var is None:
             self._note_compile(kind)
             fn, inputs = make()
             if self.device.type == "cuda" and self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
-            var = self._variants[key] = ProgramVariant(
-                kind, key, fn, inputs, self.device, self._graph_pool,
+            # a (forward, post, done) triple makes a gated variant
+            cls, fns = ((GatedProgramVariant, fn) if isinstance(fn, tuple)
+                        else (ProgramVariant, (fn,)))
+            var = self._variants[key] = cls(
+                kind, key, *fns, inputs, self.device, self._graph_pool,
                 self._static_addresses)
         return var
 
@@ -587,8 +658,86 @@ class ModelRunner:
         return "lanes" if isinstance(lora, tuple) else lora
 
     def graph_pool_bytes(self) -> int:
-        """Device memory the captures added to the graphs' shared pool."""
-        return sum(v.pool_bytes for v in self._variants.values())
+        """Device memory the captures added to the graphs' shared pool
+        (a dropped variant's share stays in the pool)."""
+        return self._dropped_pool_bytes + sum(
+            v.pool_bytes for v in self._variants.values())
+
+    def static_input_bytes(self) -> int:
+        """Device memory the variants' static buffers hold outside the
+        graphs' pool: their inputs, the embed scratch caches and the
+        shared output buffers."""
+        seen: dict[int, int] = {}
+        for t in _tensors([[v.inputs for v in self._variants.values()],
+                           list(self._out_buffers.values()),
+                           self._embed_scratch]):
+            n = t.numel() * t.element_size()
+            seen[t.data_ptr()] = max(n, seen.get(t.data_ptr(), 0))
+        return sum(seen.values())
+
+    def _out_buffer(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """The shared output buffer of output position `i` shaped like
+        `t` (made at a program's first, eager run, never inside a
+        capture)."""
+        key = (i, tuple(t.shape), t.dtype)
+        buf = self._out_buffers.get(key)
+        if buf is None:
+            buf = self._out_buffers[key] = torch.empty_like(t)
+        return buf
+
+    # stackcheck: hot-path — every captured dispatch loads and runs here
+    def _dispatch_program(self, kind: str, key: tuple, fn, inputs: dict,
+                          wide: dict | None = None,
+                          static: dict | None = None) -> tuple:
+        """Run `fn(inputs)` -> tuple of tensors as the program variant of
+        `key` (kind `kind`): each input is copied into the variant's
+        static buffer of its name (a None input stays None), `wide`
+        names inputs whose static buffer is wider in one dim (the copy
+        fills its leading part and zeroes the rest), and `static`
+        holds tensors the program reads in place (its scratch). On the
+        card the program copies its outputs into output buffers the
+        runner's variants share (by position, shape and dtype; outside
+        the graphs' pool, so a capture's own tensors go back to the pool
+        when it ends and the pool holds about one program's peak), and
+        the dispatch copies them out, since the next run of a variant
+        overwrites them. Under `eager` fn runs on the dispatch's own
+        tensors. `fn` must read nothing the key does not fix: the first
+        dispatch's closure serves every later one."""
+        if self.eager:
+            return fn({**inputs, **(static or {})})
+        wide = wide or {}
+
+        def make():
+            bufs = {name: None if t is None else t.new_empty(
+                wide.get(name, tuple(t.shape)))
+                for name, t in inputs.items()}
+            if self.device.type != "cuda":
+                return fn, {**bufs, **(static or {})}
+
+            def into_shared(inp):
+                return tuple(None if t is None else
+                             self._out_buffer(i, t).copy_(t)
+                             for i, t in enumerate(fn(inp)))
+
+            return into_shared, {**bufs, **(static or {})}
+
+        var = self._program(kind, key, make)
+        for name, t in inputs.items():
+            if t is None:
+                continue
+            dst = var.inputs[name]
+            if dst.shape == t.shape:
+                dst.copy_(t)
+            else:
+                d = next(i for i, (m, n) in enumerate(zip(dst.shape,
+                                                          t.shape)) if m != n)
+                w = t.shape[d]
+                dst.narrow(d, 0, w).copy_(t)
+                dst.narrow(d, w, dst.shape[d] - w).zero_()
+        out = var.run()
+        if self.device.type == "cuda":
+            out = tuple(None if t is None else t.clone() for t in out)
+        return out
 
     # -- the attention seam -------------------------------------------------
     # stackcheck: hot-path — the ONE dispatch seam every paged attention
@@ -745,14 +894,16 @@ class ModelRunner:
                              want_plp: bool = False):
         """Layout of the ONE int32 buffer a single-sequence prefill ships
         under the pipeline; the sampler noise (1, cap) takes the place of
-        the JAX keys. The chunk's start position stays a host argument
-        of the dispatch (the prefill kernel takes it as a scalar).
-        `want_plp` adds each row's prompt-logprob target (-1: none)."""
+        the JAX keys. The chunk's start position rides it too: the
+        prefill kernel reads it from device memory (the Pallas kernel's
+        scalar prefetch). `want_plp` adds each row's prompt-logprob
+        target (-1: none)."""
         return self._layout_of([
             ("tokens", (t_pad,)),
             ("positions", (t_pad,)),
             ("write_slots", (t_pad,)),
             ("table", (c_pad // self.block_size,)),
+            ("q_start", (1,)),
             ("last_row", (1,)),
             ("temps", (1,)),
             ("top_ps", (1,)),
@@ -764,13 +915,15 @@ class ModelRunner:
     def _packed_prefill_pack_layout(self, s_pad: int, t_pad: int,
                                     c_pad: int, lora_rows: bool = False):
         """The (s_pad, t_pad) packed-group variant (the pipeline without
-        the ragged kernel): lane s holds rows [s * t_pad, (s+1) * t_pad).
-        `lora_rows` adds the per-row adapter slots."""
+        the ragged kernel): lane s holds rows [s * t_pad, (s+1) * t_pad)
+        and starts at q_starts[s]. `lora_rows` adds the per-row adapter
+        slots."""
         return self._layout_of([
             ("tokens", (s_pad * t_pad,)),
             ("positions", (s_pad * t_pad,)),
             ("write_slots", (s_pad * t_pad,)),
             ("tables", (s_pad, c_pad // self.block_size)),
+            ("q_starts", (s_pad,)),
             ("last_rows", (s_pad,)),
             ("temps", (s_pad,)),
             ("top_ps", (s_pad,)),
@@ -831,6 +984,7 @@ class ModelRunner:
         put("positions", positions)
         put("write_slots", write_slots)
         put("table", table)
+        put("q_start", np.full((1,), start_pos, np.int32))
         put("last_row", np.full((1,), len(token_ids) - 1, np.int32))
         self._put_sampling(put, 1, sampling)
         if want_plp:
@@ -843,13 +997,14 @@ class ModelRunner:
         tg[:len(targets)] = targets
         return tg
 
-    def _prompt_lp_scores(self, hidden: torch.Tensor, last_row,
+    def _prompt_lp_scores(self, hidden: torch.Tensor, last_row: torch.Tensor,
                           targets: torch.Tensor):
         """Prompt logprobs of a chunk on the device, from its final-norm
         hidden rows (t_pad, hidden): row i scores targets[i] (-1: none,
-        chosen 0). The rows reach the vocab PROMPT_LP_ROW_CHUNK at a
-        time, so only (t_pad,) + 2 x (t_pad, LOGPROB_CAP) values and the
-        last row's (V,) logits come out. Returns (last_logits (V,),
+        chosen 0); `last_row` is the chunk's last row, (1,) int32 on the
+        device (gathered, never read back). The rows reach the vocab
+        PROMPT_LP_ROW_CHUNK at a time, so only (t_pad,) + 2 x (t_pad,
+        LOGPROB_CAP) values and the last row's (V,) logits come out. Returns (last_logits (V,),
         chosen (t_pad,) f32, top_vals (t_pad, CAP) f32, top_ids (t_pad,
         CAP) int32)."""
         lm = functools.partial(llama.lm_logits, self.local_config,
@@ -863,7 +1018,7 @@ class ModelRunner:
             chosen.append(torch.where(tg >= 0, c, torch.zeros_like(c)))
             vals.append(v)
             ids.append(i)
-        last_logits = lm(h[last_row].reshape(1, -1))[0]
+        last_logits = lm(h.index_select(0, last_row.long()))[0]
         return (last_logits, torch.cat(chosen), torch.cat(vals),
                 torch.cat(ids))
 
@@ -877,7 +1032,7 @@ class ModelRunner:
         (s_pad, t_pad, c_pad, packed)."""
         per_tok = isinstance(self._lora_key(lora_slots), tuple)
         (s_pad, t_pad, c_pad, tokens, positions_dev, write_slots,
-         _q_starts, tables) = self._packed_host_prep(
+         q_starts, tables) = self._packed_host_prep(
             chunks, start_positions, block_tables, total_lens
         )
         last_rows = np.arange(s_pad, dtype=np.int32) * t_pad
@@ -891,6 +1046,7 @@ class ModelRunner:
         put("positions", positions_dev)
         put("write_slots", write_slots)
         put("tables", tables)
+        put("q_starts", q_starts)
         put("last_rows", last_rows)
         self._put_sampling(put, s_pad, sampling)
         if per_tok:
@@ -898,77 +1054,80 @@ class ModelRunner:
                 lora_slots, len(chunks), s_pad, t_pad))
         return s_pad, t_pad, c_pad, packed
 
+    def _unpack_fields(self, packed: torch.Tensor, layout: dict) -> dict:
+        """A packed buffer's fields as device views, the f32 ones
+        (sampling parameters and noise) bit-viewed back."""
+        f = {name: self._pack_seg(packed, layout, name) for name in layout}
+        for name in ("temps", "top_ps", "min_ps", "noise"):
+            if name in f:
+                f[name] = f[name].view(torch.float32)
+        return f
+
     def _single_prefill_step(self, t_pad: int, c_pad: int, lora=None,
                              want_plp: bool = False):
-        """`step(packed, start_pos)` -> (token, logits (vocab,)): the
-        single-sequence prefill forward on its packed buffer (`lora`: a
-        _lora_key, uniform or None for one sequence). `want_plp` scores
-        every row against the pack's targets too: (token, logits, chosen
-        (t_pad,), top_vals, top_ids (t_pad, LOGPROB_CAP))."""
+        """`step(f)` -> (token, logits (vocab,)): the single-sequence
+        prefill forward on its fields `f` (the pack's, unpacked, or the
+        per-array path's uploads; `lora`: a _lora_key, uniform or None for
+        one sequence). The chunk starts at f["q_start"], (1,) int32 on the
+        device. `want_plp` scores every row against f["targets"] too:
+        (token, logits, chosen (t_pad,), top_vals, top_ids (t_pad,
+        LOGPROB_CAP))."""
         mc = self.local_config
-        layout, _ = self._prefill_pack_layout(t_pad, c_pad, want_plp)
 
         # stackcheck: hot-path — the single-sequence prefill forward, once a
         # prefill step
-        def step(packed, start_pos):
-            seg = functools.partial(self._pack_seg, packed, layout)
-            table = seg("table")
+        def step(f):
+            table, q_start = f["table"], f["q_start"]
 
             def attn(q, l, kc, vc):
-                return self._attn("prefill", q, l, kc, vc, table, start_pos)
+                return self._attn("prefill", q, l, kc, vc, table, q_start)
 
             out, _, _ = self._forward(
-                mc, self.params, seg("tokens"), seg("positions"),
-                self.k_cache, self.v_cache, seg("write_slots"), attn,
-                logits_rows=(torch.arange(t_pad, device=packed.device)
-                             if want_plp else seg("last_row")),
+                mc, self.params, f["tokens"], f["positions"],
+                self.k_cache, self.v_cache, f["write_slots"], attn,
+                logits_rows=(torch.arange(t_pad, device=table.device)
+                             if want_plp else f["last_row"]),
                 return_hidden=want_plp, **self._lora_kw(lora),
             )
             scores = ()
             if want_plp:
                 logits, *scores = self._prompt_lp_scores(
-                    out, seg("last_row")[0], seg("targets"))
+                    out, f["last_row"], f["targets"])
                 logits = logits[None]
             else:
                 logits = out
             token = sample_tokens(
-                logits, seg("temps").view(torch.float32),
-                seg("top_ps").view(torch.float32), seg("top_ks"),
-                seg("noise").view(torch.float32),
-                min_p=seg("min_ps").view(torch.float32),
+                logits, f["temps"], f["top_ps"], f["top_ks"], f["noise"],
+                min_p=f["min_ps"],
             )[0]
             return (token, logits[0], *scores)
 
         return step
 
-    def _packed_prefill_step(self, s_pad: int, t_pad: int, c_pad: int,
-                             lora=None):
-        """`step(packed, q_starts)` -> (sampled (s_pad,), logits (s_pad,
-        vocab)): the (s_pad, t_pad) packed group on the composed prefill
-        kernel, one launch a lane a layer (`lora`: its _lora_key)."""
+    def _packed_prefill_step(self, s_pad: int, t_pad: int, lora=None):
+        """`step(f)` -> (sampled (s_pad,), logits (s_pad, vocab)): the
+        (s_pad, t_pad) packed group on its fields `f` (a pack's, unpacked,
+        or the per-array path's uploads): one ragged launch a layer under
+        the ragged kernel, else one prefill launch a lane a layer (lane s
+        starting at f["q_starts"][s]; padding lanes start at 0 over the
+        null table). `lora`: its _lora_key."""
         mc = self.local_config
         per_tok = isinstance(lora, tuple)
-        layout, _ = self._packed_prefill_pack_layout(s_pad, t_pad, c_pad,
-                                                     per_tok)
 
         # stackcheck: hot-path — the packed prefill forward, once a prefill or
         # composed round
-        def step(packed, q_starts):
-            seg = functools.partial(self._pack_seg, packed, layout)
-            # padding lanes start at 0 over the null table
-            starts = list(q_starts) + [0] * (s_pad - len(q_starts))
-            attn = self._packed_attn(s_pad, t_pad, seg("tables"), starts)
+        def step(f):
+            attn = self._packed_attn(s_pad, t_pad, f["tables"],
+                                     f["q_starts"])
             logits, _, _ = self._forward(
-                mc, self.params, seg("tokens"), seg("positions"),
-                self.k_cache, self.v_cache, seg("write_slots"), attn,
-                logits_rows=seg("last_rows"), **self._lora_kw(
-                    lora, seg("lora_rows") if per_tok else None),
+                mc, self.params, f["tokens"], f["positions"],
+                self.k_cache, self.v_cache, f["write_slots"], attn,
+                logits_rows=f["last_rows"], **self._lora_kw(
+                    lora, f["lora_rows"] if per_tok else None),
             )
             sampled = sample_tokens(
-                logits, seg("temps").view(torch.float32),
-                seg("top_ps").view(torch.float32), seg("top_ks"),
-                seg("noise").view(torch.float32),
-                min_p=seg("min_ps").view(torch.float32),
+                logits, f["temps"], f["top_ps"], f["top_ks"], f["noise"],
+                min_p=f["min_ps"],
             )
             return sampled, logits
 
@@ -1095,9 +1254,11 @@ class ModelRunner:
         int32), row i scoring targets[i], all computed on the device."""
         lora = self._lora_key([lora_slot])
         want_plp = prompt_lp_targets is not None
+        t_pad = self._prefill_bucket(len(token_ids))
+        c_pad = self._ctx_bucket(total_len)
+        key = ("prefill", t_pad, c_pad, want_plp, self._program_lora(lora))
+        step = self._single_prefill_step(t_pad, c_pad, lora, want_plp)
         if self.prefill_pipeline:
-            t_pad = self._prefill_bucket(len(token_ids))
-            c_pad = self._ctx_bucket(total_len)
             packed_dev = None
             if (staged is not None and not want_plp
                     and staged.key == ("single", t_pad, c_pad, lora)):
@@ -1112,54 +1273,40 @@ class ModelRunner:
                 self._phase_add("prep", t1 - t0)
                 packed_dev = self._upload(packed)
                 self._phase_add("h2d", time.perf_counter() - t1)
-            t2 = time.perf_counter()
-            out = self._single_prefill_step(t_pad, c_pad, lora, want_plp)(
-                packed_dev, start_pos)
-            self.dispatch_counts["prefill"] += 1
-            self._phase_add("dispatch", time.perf_counter() - t2)
-            return out
-        t0 = time.perf_counter()
-        t_pad, _, tokens, positions_dev, write_slots, table = (
-            self._prefill_host_prep(token_ids, start_pos, block_table,
-                                    total_len))
-        temps, top_ps, top_ks, min_ps, keys = self._sampling_args(
-            1, sampling
-        )
-        t1 = time.perf_counter()
-        self._phase_add("prep", t1 - t0)
-        tokens_d, pos_d, slots_d, table_d = (
-            self._dev(tokens), self._dev(positions_dev),
-            self._dev(write_slots), self._dev(table),
-        )
-        t2 = time.perf_counter()
-        self._phase_add("h2d", t2 - t1)
-
-        # q row 0 is always a real token, so start_pos is the chunk's
-        # absolute start position
-        def attn(q, l, kc, vc):
-            return self._attn("prefill", q, l, kc, vc, table_d, start_pos)
-
-        last_row = len(token_ids) - 1
-        out, _, _ = self._forward(
-            self.local_config, self.params, tokens_d, pos_d, self.k_cache,
-            self.v_cache, slots_d, attn,
-            logits_rows=(torch.arange(t_pad, device=self.device)
-                         if want_plp else
-                         torch.tensor([last_row], device=self.device)),
-            return_hidden=want_plp, **self._lora_kw(lora),
-        )
-        scores = ()
-        if want_plp:
-            logits, *scores = self._prompt_lp_scores(
-                out, last_row,
-                self._dev(self._plp_targets(t_pad, prompt_lp_targets)))
-            logits = logits[None]
+            layout, _ = self._prefill_pack_layout(t_pad, c_pad, want_plp)
+            fn = (lambda inp: step(self._unpack_fields(inp["packed"],
+                                                        layout)))
+            inputs = {"packed": packed_dev}
         else:
-            logits = out
-        token = self.sample(logits, temps, top_ps, top_ks, min_ps, keys)[0]
+            # the per-array path: one upload a field
+            t0 = time.perf_counter()
+            _, _, tokens, positions, write_slots, table = (
+                self._prefill_host_prep(token_ids, start_pos, block_table,
+                                        total_len))
+            temps, top_ps, top_ks, min_ps, keys = self._sampling_args(
+                1, sampling)
+            host = {
+                "tokens": tokens, "positions": positions,
+                "write_slots": write_slots, "table": table,
+                "q_start": np.full((1,), start_pos, np.int32),
+                "last_row": np.full((1,), len(token_ids) - 1, np.int32),
+                "temps": temps, "top_ps": top_ps, "top_ks": top_ks,
+                "min_ps": min_ps,
+                "noise": gumbel_noise(keys, self._top_cap),
+            }
+            if want_plp:
+                host["targets"] = self._plp_targets(t_pad, prompt_lp_targets)
+            t1 = time.perf_counter()
+            self._phase_add("prep", t1 - t0)
+            inputs = {name: self._dev(a) for name, a in host.items()}
+            self._phase_add("h2d", time.perf_counter() - t1)
+            key += ("arrays",)
+            fn = step
+        t2 = time.perf_counter()
+        out = self._dispatch_program("prefill", key, fn, inputs)
         self.dispatch_counts["prefill"] += 1
         self._phase_add("dispatch", time.perf_counter() - t2)
-        return (token, logits[0], *scores)
+        return out
 
     def _packed_host_prep(
         self,
@@ -1204,10 +1351,13 @@ class ModelRunner:
                 q_starts, tables)
 
     def _packed_attn(self, s_pad: int, t_pad: int, tables_d: torch.Tensor,
-                     q_starts):
+                     q_starts_d: torch.Tensor):
         """Attention over s_pad back-to-back chunks on one flat token axis
-        (row s*t_pad + r is row r of chunk s); `tables_d` on the device,
-        `q_starts` each lane's start position on the host."""
+        (row s*t_pad + r is row r of chunk s); `tables_d` and each lane's
+        start position `q_starts_d` ((s_pad,) int32) on the device, so
+        the metadata is built there (a captured program reads each
+        dispatch's). Without the ragged kernel each lane is one prefill
+        call; the dispatch counts its padded lanes (prefill_lanes)."""
         mc = self.local_config
         if self.ragged_kernel:
             # ONE ragged-kernel launch per layer: every block of t_pad
@@ -1215,18 +1365,16 @@ class ModelRunner:
             # block is one full segment of its lane
             tq = RAGGED_TQ
             n_blk = (s_pad * t_pad) // tq
-            lane_of = np.arange(n_blk, dtype=np.int32) * tq // t_pad
-            off_in = (np.arange(n_blk, dtype=np.int32) * tq) % t_pad
-            seg_meta = np.stack([
-                lane_of,
-                np.zeros((n_blk,), np.int32),
-                np.full((n_blk,), tq, np.int32),
-                # stackcheck: disable=device-sync-transitive — q_starts are
-                # the lanes' start positions, a host list
-                np.asarray(q_starts, np.int32)[lane_of] + off_in,
-            ], axis=1).astype(np.int32)
-            blk_seg_d = self._dev(np.arange(n_blk + 1, dtype=np.int32))
-            seg_meta_d = self._dev(seg_meta)
+            dev = tables_d.device
+            row0 = torch.arange(n_blk, dtype=torch.int32, device=dev) * tq
+            lane_of = row0 // t_pad
+            seg_meta_d = torch.stack([
+                lane_of, torch.zeros_like(lane_of),
+                torch.full_like(lane_of, tq),
+                q_starts_d[lane_of.long()] + row0 % t_pad,
+            ], dim=1).to(torch.int32)
+            blk_seg_d = torch.arange(n_blk + 1, dtype=torch.int32,
+                                     device=dev)
 
             def attn(q, l, kc, vc):
                 return self._attn(
@@ -1234,16 +1382,11 @@ class ModelRunner:
                 )
             return attn
 
-        # stackcheck: disable=device-sync-transitive — q_starts are the
-        # lanes' start positions, a host list
-        starts = [int(x) for x in q_starts]
-        self.dispatch_counts["prefill_lanes"] += s_pad
-
         def attn(q, l, kc, vc):
             qs = q.reshape(s_pad, t_pad, mc.num_heads, mc.head_dim)
             return torch.cat([
                 self._attn("prefill", qs[s], l, kc, vc, tables_d[s],
-                           starts[s])
+                           q_starts_d[s:s + 1])
                 for s in range(s_pad)
             ], dim=0)
         return attn
@@ -1268,6 +1411,11 @@ class ModelRunner:
         `staged` = a stage_prefill_batch handle (see prefill).
         `lora_slots`: each sequence's adapter slot (None = all base)."""
         lora = self._lora_key(lora_slots)
+        per_tok = isinstance(lora, tuple)
+        plora = self._program_lora(lora)
+        s_pad = next_pow2(max(len(chunks), 1))
+        t_pad = self._prefill_bucket(max(len(c) for c in chunks))
+        c_pad = max(self._ctx_bucket(tl) for tl in total_lens)
         if self.prefill_pipeline:
             if self.ragged_kernel:
                 # ragged-rows layout: one ragged launch a layer over the
@@ -1275,13 +1423,22 @@ class ModelRunner:
                 r_pad, pc_pad = self._rows_dims(chunks, total_lens)
                 key = ("rows", r_pad, pc_pad, lora)
                 fill = functools.partial(self._fill_rows_prefill_pack,
-                                         lora_rows=isinstance(lora, tuple))
+                                         lora_rows=per_tok)
+                prog = ("prefill_rows", ("prefill_rows", r_pad, pc_pad,
+                                         plora))
+                rows_step = self._make_prefill_rows_step(r_pad, pc_pad,
+                                                         lora)
+                fn = (lambda inp: rows_step(inp["packed"]))
             else:
-                s_pad = next_pow2(max(len(chunks), 1))
-                t_pad = self._prefill_bucket(max(len(c) for c in chunks))
-                c_pad = max(self._ctx_bucket(tl) for tl in total_lens)
                 key = ("packed", s_pad, t_pad, c_pad, lora)
                 fill = self._fill_packed_prefill_pack
+                prog = ("prefill_batch", ("prefill_batch", s_pad, t_pad,
+                                          c_pad, plora))
+                layout, _ = self._packed_prefill_pack_layout(
+                    s_pad, t_pad, c_pad, per_tok)
+                step = self._packed_prefill_step(s_pad, t_pad, lora)
+                fn = (lambda inp: step(self._unpack_fields(inp["packed"],
+                                                            layout)))
             packed_dev = None
             if staged is not None and staged.key == key:
                 packed_dev = self._take(staged)
@@ -1294,47 +1451,46 @@ class ModelRunner:
                 self._phase_add("prep", t1 - t0)
                 packed_dev = self._upload(packed)
                 self._phase_add("h2d", time.perf_counter() - t1)
-            t2 = time.perf_counter()
-            if self.ragged_kernel:
-                out = self._make_prefill_rows_step(r_pad, pc_pad, lora)(
-                    packed_dev)
-            else:
-                out = self._packed_prefill_step(s_pad, t_pad, c_pad, lora)(
-                    packed_dev, start_positions)
-            self.dispatch_counts["prefill_batch"] += 1
-            self._phase_add("dispatch", time.perf_counter() - t2)
-            return out
-        t0 = time.perf_counter()
-        (s_pad, t_pad, c_pad, tokens, positions_dev, write_slots,
-         q_starts, tables) = self._packed_host_prep(
-            chunks, start_positions, block_tables, total_lens
-        )
-        last_rows = np.arange(s_pad, dtype=np.int32) * t_pad
-        for s, ids in enumerate(chunks):
-            last_rows[s] += len(ids) - 1
-        temps, top_ps, top_ks, min_ps, keys = self._sampling_args(
-            s_pad, sampling
-        )
-        t1 = time.perf_counter()
-        self._phase_add("prep", t1 - t0)
-        attn = self._packed_attn(s_pad, t_pad, self._dev(tables), q_starts)
-        tokens_d = self._dev(tokens.reshape(-1))
-        pos_d = self._dev(positions_dev.reshape(-1))
-        slots_d = self._dev(write_slots.reshape(-1))
-        rows_d = self._dev(last_rows)
-        lora_kw = self._lora_kw(lora, self._dev(self._packed_slot_vector(
-            lora_slots, len(chunks), s_pad, t_pad)) if isinstance(
-                lora, tuple) else None)
+            inputs = {"packed": packed_dev}
+        else:
+            # the per-array path: one upload a field
+            t0 = time.perf_counter()
+            (s_pad, t_pad, c_pad, tokens, positions_dev, write_slots,
+             q_starts, tables) = self._packed_host_prep(
+                chunks, start_positions, block_tables, total_lens
+            )
+            last_rows = np.arange(s_pad, dtype=np.int32) * t_pad
+            for s, ids in enumerate(chunks):
+                last_rows[s] += len(ids) - 1
+            temps, top_ps, top_ks, min_ps, keys = self._sampling_args(
+                s_pad, sampling
+            )
+            host = {
+                "tokens": tokens.reshape(-1),
+                "positions": positions_dev.reshape(-1),
+                "write_slots": write_slots.reshape(-1), "tables": tables,
+                "q_starts": q_starts, "last_rows": last_rows,
+                "temps": temps, "top_ps": top_ps, "top_ks": top_ks,
+                "min_ps": min_ps,
+                "noise": gumbel_noise(keys, self._top_cap),
+            }
+            if per_tok:
+                host["lora_rows"] = self._packed_slot_vector(
+                    lora_slots, len(chunks), s_pad, t_pad)
+            t1 = time.perf_counter()
+            self._phase_add("prep", t1 - t0)
+            inputs = {name: self._dev(a) for name, a in host.items()}
+            self._phase_add("h2d", time.perf_counter() - t1)
+            prog = ("prefill_batch", ("prefill_batch", s_pad, t_pad, c_pad,
+                                      plora, "arrays"))
+            fn = self._packed_prefill_step(s_pad, t_pad, lora)
+        if not self.ragged_kernel:
+            self.dispatch_counts["prefill_lanes"] += s_pad
         t2 = time.perf_counter()
-        self._phase_add("h2d", t2 - t1)
-        logits, _, _ = self._forward(
-            self.local_config, self.params, tokens_d, pos_d, self.k_cache,
-            self.v_cache, slots_d, attn, logits_rows=rows_d, **lora_kw,
-        )
-        sampled = self.sample(logits, temps, top_ps, top_ks, min_ps, keys)
+        out = self._dispatch_program(*prog, fn, inputs)
         self.dispatch_counts["prefill_batch"] += 1
         self._phase_add("dispatch", time.perf_counter() - t2)
-        return sampled, logits
+        return out
 
     # -- speculative verification ------------------------------------------
     def _verify_pack_layout(self, s_pad: int, t_pad: int, c_pad: int,
@@ -1349,6 +1505,7 @@ class ModelRunner:
             ("positions", (r,)),
             ("write_slots", (r,)),
             ("tables", (s_pad, c_pad // self.block_size)),
+            ("q_starts", (s_pad,)),
             ("temps", (r,)),
             ("top_ps", (r,)),
             ("top_ks", (r,)),
@@ -1408,6 +1565,7 @@ class ModelRunner:
         put("positions", positions_dev)
         put("write_slots", write_slots)
         put("tables", tables)
+        put("q_starts", q_starts)
         put("temps", temps)
         put("top_ps", rows(l_top_ps, 1.0, np.float32))
         put("top_ks", rows(l_top_ks, -1, np.int32))
@@ -1417,33 +1575,52 @@ class ModelRunner:
             put("lora_rows", self._packed_slot_vector(
                 lora_slots, n, s_pad, t_pad))
         packed_dev = self._upload(packed)
-        seg = functools.partial(self._pack_seg, packed_dev, layout)
-        attn = self._packed_attn(s_pad, t_pad, seg("tables"), q_starts)
-        r = s_pad * t_pad
-        hidden, _, _ = self._forward(
-            self.local_config, self.params, seg("tokens"),
-            seg("positions"), self.k_cache, self.v_cache,
-            seg("write_slots"), attn,
-            logits_rows=torch.arange(r, device=self.device),
-            return_hidden=True,
-            **self._lora_kw(lora, seg("lora_rows") if per_tok else None),
-        )
-        h = hidden.to(self.dtype)
-        f32 = {name: seg(name).view(torch.float32)
-               for name in ("temps", "top_ps", "min_ps", "noise")}
-        top_ks = seg("top_ks")
-        sampled = torch.cat([
-            sample_tokens(
-                llama.lm_logits(self.local_config, self.params, h[b],
-                                self._tp_comm), f32["temps"][b],
-                f32["top_ps"][b], top_ks[b], f32["noise"][b],
-                min_p=f32["min_ps"][b],
-            )
-            for b in (slice(r0, r0 + PROMPT_LP_ROW_CHUNK)
-                      for r0 in range(0, r, PROMPT_LP_ROW_CHUNK))
-        ])
+        if not self.ragged_kernel:
+            self.dispatch_counts["prefill_lanes"] += s_pad
+        (sampled,) = self._dispatch_program(
+            "verify", ("verify", s_pad, t_pad, c_pad,
+                       self._program_lora(lora)),
+            self._verify_step(s_pad, t_pad, c_pad, lora),
+            {"packed": packed_dev})
         self.dispatch_counts["verify_batch"] += 1
         return sampled.cpu().numpy().reshape(s_pad, t_pad)[:n]
+
+    def _verify_step(self, s_pad: int, t_pad: int, c_pad: int, lora=None):
+        """`fn(inputs)` -> (sampled (s_pad * t_pad,) int32,): the packed
+        verification forward on inputs["packed"], every row sampled (the
+        LM head and the sampler PROMPT_LP_ROW_CHUNK rows at a time)."""
+        per_tok = isinstance(lora, tuple)
+        layout, _ = self._verify_pack_layout(s_pad, t_pad, c_pad, per_tok)
+        r = s_pad * t_pad
+
+        # stackcheck: hot-path — the packed verify forward, once a
+        # speculative round
+        def fn(inp):
+            f = self._unpack_fields(inp["packed"], layout)
+            attn = self._packed_attn(s_pad, t_pad, f["tables"],
+                                     f["q_starts"])
+            hidden, _, _ = self._forward(
+                self.local_config, self.params, f["tokens"],
+                f["positions"], self.k_cache, self.v_cache,
+                f["write_slots"], attn,
+                logits_rows=torch.arange(r, device=self.device),
+                return_hidden=True,
+                **self._lora_kw(lora, f["lora_rows"] if per_tok else None),
+            )
+            h = hidden.to(self.dtype)
+            sampled = torch.cat([
+                sample_tokens(
+                    llama.lm_logits(self.local_config, self.params, h[b],
+                                    self._tp_comm), f["temps"][b],
+                    f["top_ps"][b], f["top_ks"][b], f["noise"][b],
+                    min_p=f["min_ps"][b],
+                )
+                for b in (slice(r0, r0 + PROMPT_LP_ROW_CHUNK)
+                          for r0 in range(0, r, PROMPT_LP_ROW_CHUNK))
+            ])
+            return (sampled,)
+
+        return fn
 
     def _decode_blk_seg(self, b: int) -> torch.Tensor:
         """The CSR row-block offsets of a b-lane decode step (shapes
@@ -1566,19 +1743,10 @@ class ModelRunner:
             put("lora_slots", lanes(lora_slots, 0))
         packed_dev = self._upload(packed)
         self.dispatch_counts["decode"] += 1
-        if self.eager:
-            return self._decode_step(b, c_pad, lora)(packed_dev)[0]
-
-        def make():
-            step = self._decode_step(b, c_pad, lora)
-            return ((lambda inp: step(inp["packed"])),
-                    {"packed": torch.empty_like(packed_dev)})
-
-        var = self._program(
-            "decode", ("decode", b, c_pad, self._program_lora(lora)), make)
-        var.inputs["packed"].copy_(packed_dev)
-        # the graph's output is overwritten by the next replay
-        return var.run()[0].clone()
+        step = self._decode_step(b, c_pad, lora)
+        return self._dispatch_program(
+            "decode", ("decode", b, c_pad, self._program_lora(lora)),
+            lambda inp: step(inp["packed"]), {"packed": packed_dev})[0]
 
     # -- packed host->device buffers -----------------------------------------
     @staticmethod
@@ -1603,6 +1771,8 @@ class ModelRunner:
         packed[off:off + n] = np.ascontiguousarray(arr).reshape(-1).view(
             np.int32)
 
+    # stackcheck: not-hot — host arithmetic over a field's static shape;
+    # the slice itself is a view
     @staticmethod
     def _pack_seg(packed: torch.Tensor, layout: dict, name: str):
         """Device-side read of one field (the mirror of _pack_put); an
@@ -1792,10 +1962,8 @@ class ModelRunner:
         forward is welded to the prefill rows): `unpack` (packed buffer ->
         consts, carry), `fwd_args` (one forward's tokens, positions, write
         slots, context lengths from the carry), `post` (sample and advance
-        the stop/penalty state from one iteration's logits) and
-        `run(first_logits=...)` (the loop; with first_logits it applies
-        iteration 0's post half to externally computed logits and loops
-        from iteration 1).
+        the stop/penalty state from one iteration's logits) and `run`
+        (the loop).
 
         The carry is a DecodeCarry, all on the device. Under device stops
         (`stop_cap` not None) a lane is done once its append count
@@ -1803,10 +1971,18 @@ class ModelRunner:
         its min_tokens gate; a done lane freezes: its sampled slot is
         pinned to STOP_PAD_TOKEN, its KV write goes to the trash slot 0,
         its position and context stop advancing, its penalty counts and
-        DFA state stop updating. The loop then reads one flag per
-        iteration, `done.all()`, and exits when it is set; the round
-        returns each lane's valid count last. Tokens below a lane's
-        valid count equal the fixed-trip loop's.
+        DFA state stop updating. The loop reads nothing back: the host
+        enqueues iterations up to the largest real lane's budget (`iters`,
+        which it knows), and an iteration whose lanes are all done is an
+        idle one: frozen lanes do not change. On the card a captured
+        iteration tests `done` itself: its decode forward sits in a CUDA
+        graph conditional node that runs it only while a lane is live
+        (programs.GatedProgramVariant, csrc/graph_gate.cu), so once the
+        data has stopped every lane the replays left skip their forward.
+        Run eagerly (the CPU, the eager control) an idle iteration runs
+        its forward. The round returns
+        each lane's valid count last. Tokens below a lane's valid count
+        equal the fixed-trip loop's.
 
         `guided`: the pack holds each lane's DFA state and machine row,
         and `unpack` takes the device tables (token_class, class_mask,
@@ -1825,9 +2001,14 @@ class ModelRunner:
         static buffers once, then runs it once an iteration with that
         iteration's noise row copied into its noise slot; the new carry
         is written back into the static carry inside the program, and
-        each iteration's samples are copied out of its outputs. The one
-        host read stays between iterations. Under `eager` the loop runs
-        the same iteration on the round's own tensors."""
+        each iteration's samples are copied out of its outputs. Under
+        `eager` the loop runs the same iteration on the round's own
+        tensors.
+
+        `run(consts, carry0, first=(carry1, ys0))` starts from iteration
+        1 with iteration 0 already run (the ragged round's step-0
+        program). `iters` caps the iterations run: under device stops the
+        largest real lane's budget."""
         mc = self.local_config
         bs = self.block_size
         n_pages = c_pad // bs
@@ -1910,7 +2091,10 @@ class ModelRunner:
             block 0, and K <= block_size keeps them inside it)."""
             tokens, positions, ctx, done = (carry.tokens, carry.positions,
                                             carry.ctx, carry.done)
-            page = torch.clamp(positions // bs, max=n_pages - 1).long()
+            # the table's own width (a captured step-0 program holds its
+            # tables padded to the round's wider bucket)
+            page = torch.clamp(positions // bs,
+                               max=consts["page_tables"].shape[1] - 1).long()
             write_slots = (consts["page_tables"][lane, page] * bs
                            + positions % bs)
             if use_stop:
@@ -1991,18 +2175,27 @@ class ModelRunner:
             return DecodeCarry(nxt, positions + adv, ctx + adv, counts,
                                done, valid, g_state), ys
 
+        def forward(carry, consts):
+            """The iteration's decode forward, counted in loop_forwards."""
+            logits = fwd(carry, consts)
+            self.loop_forwards += 1
+            return logits
+
         # stackcheck: hot-path — one fused-loop iteration (eager, or captured
         # once and replayed)
         def step(carry, consts, noise):
-            """One iteration: the decode forward, then `post`."""
-            return post(fwd(carry, consts), carry, noise, consts)
+            """One iteration: the decode forward, then `post`. Captured
+            under device stops, the forward runs only while a lane is
+            live (a gated variant); a skipped one leaves zero logits,
+            which `post` turns into the pad token of every frozen lane."""
+            return post(forward(carry, consts), carry, noise, consts)
 
         base_key = ("decode_multi", b, c_pad, use_penalties, want_logprobs,
                     bias_cap, stop_cap, chained, self._program_lora(lora),
                     lora_lanes)
 
         # stackcheck: hot-path — the fused decode loop of every K-step round
-        def run(consts, carry0, first_logits=None):
+        def run(consts, carry0, first=None, iters=None):
             dev = self.device
             toks = torch.full((k_steps, b), STOP_PAD_TOKEN,
                               dtype=torch.int32, device=dev)
@@ -2017,27 +2210,23 @@ class ModelRunner:
                                 dtype=torch.int32, device=dev),
                 ]
             carry, i = carry0, 0
-            if first_logits is not None:
-                carry, ys = post(first_logits, carry, consts["noise"][0],
-                                 consts)
+            if first is not None:
+                carry, ys = first
                 for buf, y in zip(bufs, ys):
                     buf[0] = y
                 i = 1
             var = None
-            if not self.eager and i < k_steps:
+            # under device stops no lane appends past its budget, which
+            # the host knows: the loop stops there
+            k_run = k_steps if iters is None else min(k_steps, iters)
+            if not self.eager and i < k_run:
                 key = base_key + ((tuple(consts["g_class_mask"].shape),)
                                   if guided else (None,))
-                var = self._iteration_program(key, step, consts, carry)
+                var = self._iteration_program(
+                    key, step, consts, carry,
+                    gate=(forward, post) if use_stop else None)
                 carry = var.inputs["carry"]
-            while i < k_steps:
-                # the loop's one host read: a 1-byte flag (real lanes
-                # enter with budget >= 1, so iteration 0 always runs)
-                # stackcheck: disable=device-sync-hot — a hazard: the JAX
-                # runner's lax.while_loop tests `done` on the device, this
-                # loop reads it back once an iteration
-                # — queued: ROADMAP Queue 1 item 2
-                if use_stop and i > 0 and bool(carry.done.all()):
-                    break
+            while i < k_run:
                 if var is None:
                     carry, ys = step(carry, consts, consts["noise"][i])
                 else:
@@ -2055,14 +2244,27 @@ class ModelRunner:
                             else carry.valid.clone())
             return bufs[0] if len(bufs) == 1 else tuple(bufs)
 
-        return {"unpack": unpack, "fwd_args": fwd_args, "run": run}
+        return {"unpack": unpack, "fwd_args": fwd_args, "post": post,
+                "run": run}
+
+    @staticmethod
+    # stackcheck: not-hot — the host's own budget array, no device value
+    def _budget_iters(stop: tuple | None) -> int | None:
+        """The most iterations a device-stop round can use: its real
+        lanes' largest remaining budget (None without device stops)."""
+        if stop is None or len(stop[2]) == 0:
+            return None
+        return max(1, int(np.max(stop[2])))
 
     def _iteration_program(self, key: tuple, step, consts: dict,
-                           carry: DecodeCarry) -> ProgramVariant:
+                           carry: DecodeCarry,
+                           gate: tuple | None = None) -> ProgramVariant:
         """The fused loop's iteration variant of `key`, its static consts
         and carry loaded with this round's (the noise row is loaded per
         iteration). Its program runs `step` on the static buffers and
-        writes the new carry back into them."""
+        writes the new carry back into them. `gate` = (forward, post),
+        the two halves of `step`, makes it a gated variant: on the card
+        the forward runs only while a lane of the carry is live."""
 
         def make():
             inputs = {
@@ -2074,16 +2276,25 @@ class ModelRunner:
                 "noise": torch.empty_like(consts["noise"][0]),
             }
 
-            # stackcheck: hot-path — the iteration program's body, run or
-            # replayed once an iteration
-            def fn(inp):
-                new, ys = step(inp["carry"], inp["consts"], inp["noise"])
+            def write_back(inp, new, ys):
                 for dst, src in zip(inp["carry"], new):
                     if dst is not None:
                         dst.copy_(src)
                 return ys
 
-            return fn, inputs
+            # stackcheck: hot-path — the iteration program's body, run or
+            # replayed once an iteration
+            def fn(inp):
+                return write_back(inp, *step(inp["carry"], inp["consts"],
+                                             inp["noise"]))
+
+            if gate is None:
+                return fn, inputs
+            forward, post = gate
+            return (lambda inp: forward(inp["carry"], inp["consts"]),
+                    lambda inp, logits: write_back(inp, *post(
+                        logits, inp["carry"], inp["noise"], inp["consts"])),
+                    lambda inp: inp["carry"].done), inputs
 
         var = self._program("decode_multi", key, make)
         for name, t in var.inputs["consts"].items():
@@ -2212,7 +2423,7 @@ class ModelRunner:
         consts, carry0 = core["unpack"](
             packed_dev, chained_tokens=token_ids if chained else None,
             guided_tables=self._decode_guided_tables(guided))
-        ys = core["run"](consts, carry0)
+        ys = core["run"](consts, carry0, iters=self._budget_iters(stop))
         self.dispatch_counts["decode_multi"] += 1
         self.chained_rounds += chained
         return ys
@@ -2521,11 +2732,21 @@ class ModelRunner:
         `lora` is the round's _lora_key over (prefill lanes, decode
         lanes): the step-0 forward takes it whole (per-token: the prefill
         rows' slots then the decode lanes'), the decode loop the decode
-        lanes' share of it."""
+        lanes' share of it.
+
+        Step 0 (from the unpacked fields to pf_sampled, the step-0
+        logits and iteration 0's post half) is the program variant of
+        ("ragged_rows", r_pad, the page count of the wider of the two
+        context buckets, the flags): its static tables are that wide, so
+        the tables the kernel sees equal the eager ones, and one variant
+        serves every prefill and decode bucket pair under it and every K
+        (the noise row of iteration 0 is its input). The packed buffer is
+        unpacked outside it into views, which load its static buffers."""
         mc = self.local_config
         s_cap = self._rows_lane_cap()
         b_pad = _ceil_tq(b)
         per_tok = isinstance(lora, tuple)
+        use_stop = stop_cap is not None
         pf_step = self._make_prefill_rows_step(r_pad, pc_pad, lora)
         core = self._decode_round_core(
             b, c_pad, k_steps, use_penalties=use_penalties,
@@ -2539,14 +2760,17 @@ class ModelRunner:
             bias_cap, chained, per_tok, guided,
         )
         n_pages = max(pc_pad, c_pad) // self.block_size
+        carry_names = [n for n in DecodeCarry._fields]
 
-        # stackcheck: hot-path — the unified ragged round, once a mixed round
-        def step(packed, chained_tokens=None, guided_tables=None):
-            lane_types = packed[:s_cap]
-            pf = pf_step.unpack(packed[meta_n:meta_n + pf_n])
-            consts, carry0 = core["unpack"](packed[meta_n + pf_n:],
-                                            chained_tokens=chained_tokens,
-                                            guided_tables=guided_tables)
+        # stackcheck: hot-path — the unified round's step 0 (run eagerly or
+        # captured once a key and replayed)
+        def step0(inp):
+            lane_types = inp["lane_types"]
+            pf = {name[3:]: t for name, t in inp.items()
+                  if name.startswith("pf_")}
+            consts = {name[2:]: t for name, t in inp.items()
+                      if name.startswith("c_")}
+            carry0 = DecodeCarry(*(inp["k_" + n] for n in carry_names))
             # decode write slots / ctx from the shared core, so frozen-
             # lane trash redirection matches the loop's
             d_tokens, d_positions, d_ws, d_ctx = core["fwd_args"](
@@ -2571,7 +2795,7 @@ class ModelRunner:
                 logits_rows=torch.cat([
                     pf["last_rows"],
                     r_pad + torch.arange(b, dtype=torch.int32,
-                                         device=packed.device),
+                                         device=lane_types.device),
                 ]),
                 **self._lora_kw(lora, torch.cat([
                     pf["lora_rows"], consts["lora_slots"]])
@@ -2583,7 +2807,42 @@ class ModelRunner:
                 pf_step.sample(pf, pf_logits),
                 torch.full_like(lane_types, RAGGED_IDLE_TOKEN),
             )
-            ys = core["run"](consts, carry0, first_logits=logits[s_cap:])
+            carry1, ys0 = core["post"](logits[s_cap:], carry0,
+                                       inp["noise0"], consts)
+            if use_stop:
+                ys0 = (*ys0, carry1.done.all())
+            return (pf_sampled, pf_logits, *carry1, *ys0)
+
+        key = ("ragged_rows", r_pad, n_pages, b, use_penalties,
+               want_logprobs, bias_cap, stop_cap, self._program_lora(lora),
+               per_tok)
+
+        # stackcheck: hot-path — the unified ragged round, once a mixed round
+        def step(packed, chained_tokens=None, guided_tables=None,
+                 iters=None):
+            pf = pf_step.unpack(packed[meta_n:meta_n + pf_n])
+            consts, carry0 = core["unpack"](packed[meta_n + pf_n:],
+                                            chained_tokens=chained_tokens,
+                                            guided_tables=guided_tables)
+            inputs = {"lane_types": packed[:s_cap],
+                      "noise0": consts["noise"][0]}
+            inputs.update(("pf_" + n, t) for n, t in pf.items())
+            inputs.update(("c_" + n, t) for n, t in consts.items()
+                          if n != "noise")
+            inputs.update(("k_" + n, t) for n, t in zip(carry_names,
+                                                        carry0))
+            wide = {"pf_tables": (s_cap, n_pages),
+                    "c_page_tables": (b, n_pages)}
+            gkey = ((tuple(consts["g_class_mask"].shape),) if guided
+                    else (None,))
+            out = self._dispatch_program("ragged_rows", key + gkey, step0,
+                                         inputs, wide=wide)
+            pf_sampled, pf_logits = out[:2]
+            n_carry = len(carry_names)
+            carry1 = DecodeCarry(*out[2:2 + n_carry])
+            ys0 = tuple(out[2 + n_carry:])
+            ys = core["run"](consts, carry0, first=(carry1, ys0),
+                             iters=iters)
             return pf_sampled, pf_logits, ys
 
         return step
@@ -2659,14 +2918,18 @@ class ModelRunner:
                       want_logprobs: bool = False, bias_cap: int = 0,
                       stop_cap: int | None = None, chained: bool = False,
                       pf_lora=None, lora=None, guided: bool = False):
-        """The composed round as `step(packed, q_starts,
-        chained_tokens=None, guided_tables=None)` -> (pf_sampled (s_pad,)
-        int32, RAGGED_IDLE_TOKEN on non-prefill lanes; pf_logits (s_pad,
-        vocab); decode ys as decode_multi returns them). `q_starts`: the
-        prefill lanes' start positions on the host (the prefill calls
-        take them as scalars). `pf_lora` / `lora`: the prefill and the
-        decode lanes' _lora_key."""
-        pf_step = self._packed_prefill_step(s_pad, t_pad, pc_pad, pf_lora)
+        """The composed round as `step(packed, chained_tokens=None,
+        guided_tables=None)` -> (pf_sampled (s_pad,) int32,
+        RAGGED_IDLE_TOKEN on non-prefill lanes; pf_logits (s_pad, vocab);
+        decode ys as decode_multi returns them). The prefill half (the
+        packed prefill step, its lanes' starts read from the pack on the
+        device) is the program variant of ("ragged", s_pad, t_pad,
+        pc_pad, its adapter key); the decode loop replays the iteration
+        variants. `pf_lora` / `lora`: the prefill and the decode lanes'
+        _lora_key."""
+        pf_step = self._packed_prefill_step(s_pad, t_pad, pf_lora)
+        pf_layout, _ = self._packed_prefill_pack_layout(
+            s_pad, t_pad, pc_pad, isinstance(pf_lora, tuple))
         lora_lanes = isinstance(lora, tuple)
         core = self._decode_round_core(
             b, c_pad, k_steps, use_penalties=use_penalties,
@@ -2680,21 +2943,33 @@ class ModelRunner:
             lora_lanes, guided,
         )
 
+        # stackcheck: hot-path — the composed round's prefill half (run eagerly
+        # or captured once a key and replayed)
+        def pf_fn(inp):
+            pf_sampled, pf_logits = pf_step(
+                self._unpack_fields(inp["packed"], pf_layout))
+            pf_sampled = torch.where(
+                inp["lane_types"] == RAGGED_LANE_PREFILL, pf_sampled,
+                torch.full_like(pf_sampled, RAGGED_IDLE_TOKEN),
+            )
+            return pf_sampled, pf_logits
+
+        key = ("ragged", s_pad, t_pad, pc_pad, self._program_lora(pf_lora))
+
         # stackcheck: hot-path — the composed ragged round, once a mixed round
-        def step(packed, q_starts, chained_tokens=None, guided_tables=None):
-            lane_types = packed[:s_pad]
+        def step(packed, chained_tokens=None, guided_tables=None,
+                 iters=None):
             # prefill lanes first: their chunks' K/V lands before the
             # decode loop runs, the split rounds' order
-            pf_sampled, pf_logits = pf_step(packed[meta_n:meta_n + pf_n],
-                                            q_starts)
+            self.dispatch_counts["prefill_lanes"] += s_pad
+            pf_sampled, pf_logits = self._dispatch_program(
+                "ragged", key, pf_fn,
+                {"packed": packed[meta_n:meta_n + pf_n],
+                 "lane_types": packed[:s_pad]})
             consts, carry0 = core["unpack"](packed[meta_n + pf_n:],
                                             chained_tokens=chained_tokens,
                                             guided_tables=guided_tables)
-            ys = core["run"](consts, carry0)
-            pf_sampled = torch.where(
-                lane_types == RAGGED_LANE_PREFILL, pf_sampled,
-                torch.full_like(pf_sampled, RAGGED_IDLE_TOKEN),
-            )
+            ys = core["run"](consts, carry0, iters=iters)
             return pf_sampled, pf_logits, ys
 
         return step
@@ -2840,7 +3115,8 @@ class ModelRunner:
                      want_logprobs=want_logprobs, bias_cap=bias_cap,
                      stop_cap=stop_cap, chained=chained,
                      guided=guided is not None)
-        run_kw = dict(chained_tokens=token_ids if chained else None,
+        run_kw = dict(iters=self._budget_iters(stop),
+                      chained_tokens=token_ids if chained else None,
                       guided_tables=self._decode_guided_tables(guided))
         if self.ragged_kernel:
             out = self._build_ragged_rows(
@@ -2850,7 +3126,7 @@ class ModelRunner:
             out = self._build_ragged(
                 *dims, b, c_pad, steps, pf_lora=pf_lora, lora=dec_lora,
                 **flags,
-            )(packed_dev, pf_start_positions, **run_kw)
+            )(packed_dev, **run_kw)
         self.dispatch_counts["ragged"] += 1
         self._phase_add("dispatch", time.perf_counter() - t2)
         return out
@@ -3077,6 +3353,111 @@ class ModelRunner:
                         n += 1
         return n
 
+    def _built(self, *prefix) -> bool:
+        """Whether a variant whose key starts with `prefix` exists."""
+        n = len(prefix)
+        return any(k[:n] == prefix for k in self._variants)
+
+    def precompile_cover(self, context_lens: list[int], chunk_len: int,
+                         max_seqs: int, stop: bool = False,
+                         ragged: bool = True) -> int:
+        """Build what the JAX runner's sweeps leave to the first live
+        dispatch: every prefill, packed-prefill and (with `ragged`)
+        ragged step-0 variant a serving config reaches over the context
+        buckets of `context_lens`, at chunks up to `chunk_len` and up to
+        `max_seqs` lanes, not yet built. The JAX sweeps match the
+        prefill lanes' context to the decode bucket, run one chunk
+        bucket a context under the ragged round and skip entries the
+        pool guard refuses; here every lane of a dispatch shares the one
+        trash table at the top of the pool (so a bucket needs its pages
+        plus 64 blocks of slack), and the ragged step-0 key (row bucket,
+        page count of the wider context bucket) serves every prefill and
+        decode bucket pair under it. Returns the dispatches run (none
+        under `eager`: nothing is built there)."""
+        if self.eager:
+            return 0
+        b = self.config.max_num_seqs
+        bs = self.block_size
+        nb = self.num_blocks
+        zeros = (np.zeros((b,), np.float32), np.ones((b,), np.float32),
+                 np.full((b,), -1, np.int32), np.zeros((b, 2), np.uint32))
+        stop_kw = {}
+        if stop:
+            stop_kw = {"stop": (np.full((b,), -1, np.int32),
+                                np.zeros((b,), np.int32),
+                                np.ones((b,), np.int32), None)}
+        tbs = []
+        t = self._prefill_bucket(1)
+        while True:
+            tbs.append(t)
+            if t >= self._prefill_bucket(chunk_len):
+                break
+            t = self._prefill_bucket(t + 1)
+        seen: set[int] = set()
+        n = 0
+        for cl in context_lens:
+            c = self._ctx_bucket(cl)
+            if c in seen:
+                continue
+            seen.add(c)
+            npages = c // bs
+            if nb < npages + 64:
+                logger.warning("cover precompile: skipping ctx %d — pool "
+                               "of %d blocks too small", c, nb)
+                continue
+            table = list(range(nb - npages, nb))
+            per = min(chunk_len, c)
+
+            def lanes(lens):
+                return ([[1] * x for x in lens], [c - x for x in lens],
+                        [table] * len(lens), [c] * len(lens))
+
+            # single prefill: every chunk bucket a chunk of this context
+            # reaches
+            for t in tbs:
+                x = min(t, per)
+                if (self._prefill_bucket(x) != t
+                        or self._built("prefill", t, c, False, None)):
+                    continue
+                self.prefill(*(a[0] for a in lanes([x])))
+                n += 1
+            # lane mixes: (lanes, chunk) pairs a packed dispatch reaches
+            mixes = []
+            if self.ragged_kernel:
+                q = _ceil_tq(per)
+                r = RAGGED_TQ
+                while r <= self._rows_bucket(max_seqs * q):
+                    full, rem = divmod(r, q)
+                    lens = [per] * full + ([rem] if rem else [])
+                    if len(lens) <= max_seqs:
+                        mixes.append(("rows", r, lens))
+                    r *= 2
+            else:
+                sp = 1
+                while sp <= next_pow2(max(1, max_seqs)):
+                    for t in tbs:
+                        x = min(t, per)
+                        if self._prefill_bucket(x) == t:
+                            mixes.append(
+                                ("packed", (sp, t),
+                                 [x] * min(sp, max(1, max_seqs))))
+                    sp *= 2
+            for kind, dims, lens in mixes:
+                if len(lens) >= 2 and not self._built(*(
+                        ("prefill_rows", dims, c) if kind == "rows" else
+                        ("prefill_batch", *dims, c))):
+                    self.prefill_batch(*lanes(lens))
+                    n += 1
+                if ragged and not (
+                        self._built("ragged_rows", dims, npages)
+                        if kind == "rows" else
+                        self._built("ragged", *dims, c)):
+                    self.ragged_dispatch(
+                        *lanes(lens), [1] * b, [c - 1] * b, [table] * b,
+                        [c] * b, 1, *zeros, **stop_kw)
+                    n += 1
+        return n
+
     def precompile_kv_import(self, max_blocks: int) -> int:
         """The KV import of every pow2 block count up to max_blocks (the
         JAX runner's (n, n) diagonal), zeros written into the null block
@@ -3101,13 +3482,19 @@ class ModelRunner:
         """Mean-pooled, L2-normalised final hidden state -> (hidden,) f32
         (a decoder as embedder, the e5-mistral pattern). The input runs
         in chunks of max_prefill_chunk through llama.forward over a
-        scratch cache of its own, (L, nkv, c_pad + 1, d), allocated for
-        this call: cache row == absolute position, and padded chunk rows
-        carry position c_pad, landing in the extra trash row and masked
-        out of attention and pooling. Attention is the plain chunk x
-        context one (ops/attention.py), as the JAX package computes it
-        in XLA. Inputs above max_model_len are refused, never
-        truncated."""
+        scratch cache, (L, nkv, c_pad + 1, d), zeroed for this call:
+        cache row == absolute position, and padded chunk rows carry
+        position c_pad, landing in the extra trash row and masked out of
+        attention and pooling. Attention is the plain chunk x context one
+        (ops/attention.py), as the JAX package computes it in XLA. Each
+        chunk is the program variant of ("embed", t_pad, c_pad, its
+        adapter key): its tokens, positions, the context length so far
+        and the input's length are its inputs, the scratch of its c_pad
+        (`_embed_cache`) its static buffer, and the chunk's pooled sum
+        (hidden,) f32 its output, fetched per chunk. Its attention scores
+        rows in pieces of EMBED_SCORE_BYTES.
+        Under `eager` the scratch is allocated for the call. Inputs above
+        max_model_len are refused, never truncated."""
         t = len(token_ids)
         if t > self.max_model_len:
             raise ValueError(
@@ -3117,12 +3504,8 @@ class ModelRunner:
         mc = self.local_config
         c_pad = self._ctx_bucket(t)
         chunk = self.config.max_prefill_chunk
-        kc = torch.zeros(
-            (mc.num_layers, mc.num_kv_heads, c_pad + 1, mc.head_dim),
-            dtype=self.cache_dtype, device=self.device,
-        )
-        vc = torch.zeros_like(kc)
-        lora_kw = self._lora_kw(self._lora_key([lora_slot]))
+        scratch = self._embed_cache(c_pad)
+        lora = self._lora_key([lora_slot])
         pooled_sum = np.zeros((mc.hidden_size,), np.float64)
         for start in range(0, t, chunk):
             ids = token_ids[start: start + chunk]
@@ -3131,26 +3514,78 @@ class ModelRunner:
             toks[: len(ids)] = ids
             positions = np.full((t_pad,), c_pad, np.int32)
             positions[: len(ids)] = np.arange(start, start + len(ids))
-            pos_d = self._dev(positions)
-            total_len = start + len(ids)
-
-            def attn(q, l, kcache, vcache):
-                return context_attention_prefill(
-                    q, kcache[l].transpose(0, 1), vcache[l].transpose(0, 1),
-                    pos_d, total_len, self._scale,
-                    window=mc.sliding_window,
-                )
-
-            h, _, _ = self._forward(
-                mc, self.params, self._dev(toks), pos_d, kc, vc, pos_d,
-                attn, logits_rows=torch.arange(t_pad, device=self.device),
-                return_hidden=True, **lora_kw,
-            )  # (t_pad, hidden) f32
-            keep = (pos_d < t)[:, None].float()
-            pooled_sum += (h * keep).sum(0).double().cpu().numpy()
+            inputs = {"tokens": self._dev(toks),
+                      "positions": self._dev(positions),
+                      "lens": self._dev(np.asarray(
+                          [start + len(ids), t], np.int32))}
+            (part,) = self._dispatch_program(
+                "embed", ("embed", t_pad, c_pad, self._program_lora(lora)),
+                self._embed_step(t_pad, lora), inputs,
+                static={"kc": scratch[0], "vc": scratch[1]})
+            pooled_sum += part.double().cpu().numpy()
         pooled = pooled_sum / max(t, 1)
         norm = float(np.linalg.norm(pooled))
         return (pooled / max(norm, 1e-12)).astype(np.float32)
+
+    def _embed_cache(self, c_pad: int) -> tuple:
+        """The zeroed (L, nkv, c_pad + 1, d) scratch caches of an embed
+        call: the leading part of one pair of flat buffers kept at the
+        largest bucket reached (the runner holds one input's scratch,
+        as an eager call's allocation would). A larger bucket replaces
+        the pair and drops the embed variants captured over the old one.
+        Under `eager`, allocated for the call."""
+        mc = self.local_config
+        shape = (mc.num_layers, mc.num_kv_heads, c_pad + 1, mc.head_dim)
+        if self.eager:
+            kc = torch.zeros(shape, dtype=self.cache_dtype,
+                             device=self.device)
+            return kc, torch.zeros_like(kc)
+        n = math.prod(shape)
+        if self._embed_scratch is None or self._embed_scratch[0].numel() < n:
+            for key in [k for k, v in self._variants.items()
+                        if v.kind == "embed"]:
+                self._dropped_pool_bytes += self._variants.pop(key).pool_bytes
+            self._embed_scratch = None
+            self._embed_scratch = tuple(
+                torch.empty((n,), dtype=self.cache_dtype, device=self.device)
+                for _ in range(2))
+        views = tuple(f[:n].view(shape) for f in self._embed_scratch)
+        for v in views:
+            v.zero_()
+        return views
+
+    def _embed_step(self, t_pad: int, lora=None):
+        """`fn(inputs)` -> (the chunk's pooled sum (hidden,) f32,): one
+        embed chunk over the scratch inputs["kc"] / ["vc"]; inputs["lens"]
+        = [context length with this chunk, the input's length] on the
+        device."""
+        mc = self.local_config
+        lora_kw = self._lora_kw(lora)
+
+        # stackcheck: hot-path — one embed chunk (eager, or captured once a
+        # key and replayed)
+        def fn(inp):
+            pos_d, lens = inp["positions"], inp["lens"]
+            c = inp["kc"].shape[2]
+            rows = max(1, EMBED_SCORE_BYTES // (4 * mc.num_heads * c))
+
+            def attn(q, l, kcache, vcache):
+                k, v = kcache[l].transpose(0, 1), vcache[l].transpose(0, 1)
+                return torch.cat([context_attention_prefill(
+                    q[r:r + rows], k, v, pos_d[r:r + rows], lens[0],
+                    self._scale, window=mc.sliding_window,
+                ) for r in range(0, t_pad, rows)])
+
+            h, _, _ = self._forward(
+                mc, self.params, inp["tokens"], pos_d, inp["kc"],
+                inp["vc"], pos_d, attn,
+                logits_rows=torch.arange(t_pad, device=pos_d.device),
+                return_hidden=True, **lora_kw,
+            )  # (t_pad, hidden) f32
+            keep = (pos_d < lens[1])[:, None].float()
+            return ((h * keep).sum(0),)
+
+        return fn
 
     # -- cache import/export (KV offload + PD transfer tiers) -------------
     def on_compute_stream(self):
@@ -3314,11 +3749,29 @@ class ModelRunner:
         contents. An index_copy_ into k_cache / v_cache over the slots of
         block_table_slots(block_ids), cast to the cache dtype. These are
         index operations, not kernels (the JAX runner runs them in XLA
-        outside any Pallas kernel)."""
+        outside any Pallas kernel).
+
+        The scatter is the program variant of ("kv_import", n_pad, n_pad,
+        wire dtype), n_pad the staged width's power of two (the JAX
+        runner's (n_src_pad, n_dst_pad) diagonal): the chosen columns
+        are copied into its static wire, and its padding columns write
+        the null block 0, trash by design. A rank set imports eagerly
+        (import_wire's broadcast)."""
         if not block_ids:
             return
-        self.import_wire(block_ids, self.staged_wire(handle, src_cols,
-                                                     len(block_ids)))
+        m = len(block_ids)
+        wire = self.staged_wire(handle, src_cols, m)
+        if self.eager:
+            self.import_wire(block_ids, wire)
+            return
+        n_pad = next_pow2(max(handle.dev.shape[2], m))
+        ids = list(block_ids) + [0] * (n_pad - m)
+        with self.on_compute_stream():
+            self._dispatch_program(
+                "kv_import", ("kv_import", n_pad, n_pad, wire.dtype),
+                self._import_step(n_pad),
+                {"wire": wire, "slots": self._block_slots(ids)},
+                wide={"wire": wire.shape[:2] + (n_pad,) + wire.shape[3:]})
 
     def staged_wire(self, handle: StagedBuffer, src_cols: list[int],
                     m: int) -> torch.Tensor:
@@ -3330,6 +3783,24 @@ class ModelRunner:
         elif staged.shape[2] != m:
             staged = staged[:, :, :m]
         return staged
+
+    def _import_step(self, n: int):
+        """`fn(inputs)` -> (): scatter the static wire inputs["wire"] (2,
+        L, n, nkv, bs, d) into the cache rows inputs["slots"]."""
+        lc = self.local_config
+
+        # stackcheck: hot-path — the KV import scatter (eager, or captured
+        # once a key and replayed)
+        def fn(inp):
+            wire, idx = inp["wire"], inp["slots"]
+            for i, cache in enumerate((self.k_cache, self.v_cache)):
+                # wire (L, n, nkv, bs, d) -> head-major (L, nkv, n*bs, d)
+                cache.index_copy_(2, idx, wire[i].transpose(1, 2).reshape(
+                    lc.num_layers, lc.num_kv_heads, n * self.block_size,
+                    lc.head_dim).to(self.cache_dtype))
+            return ()
+
+        return fn
 
     def import_wire(self, block_ids: list[int],
                     wire: torch.Tensor | None = None,
@@ -3468,6 +3939,18 @@ class ModelRunner:
             return None
         return (SeqShardedCache(list(full[:sp])),
                 SeqShardedCache(list(full[sp:])))
+
+
+def _tensors(tree):
+    """The tensors of a nest of dicts, tuples and lists."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _tensors(v)
 
 
 def _to_device(tree: dict, device: torch.device) -> dict:

@@ -8,8 +8,9 @@ variant* is one such key's static device buffers and, on the card, a
 CUDA graph captured over them:
 
 - ``inputs`` holds the static tensors the variant's function reads (a
-  loop's carry is written back into them in place). The caller copies a
-  dispatch's values into them before each run;
+  loop's carry is written back into them in place; a scratch buffer,
+  such as the embed programs' caches, is read and written in place).
+  The caller copies a dispatch's values into them before each run;
 - on the card, the first run of a new variant executes the function
   eagerly on a side stream. That is the warm-up ``torch.cuda.graph``
   asks for (first-use uploads, the kernel library's load, cuBLAS
@@ -25,9 +26,20 @@ move: the launches made while capturing are recorded and added on every
 replay. A graph's outputs live in the shared pool and stay valid only
 until the next replay of any variant of that pool, so callers copy them
 out first. Nothing falls back: a capture or a replay that fails raises.
+
+A gated variant (``GatedProgramVariant``, the fused loop's iteration
+under device stops) runs its forward only while some lane is live: the
+test is made on the device at each replay, in a CUDA graph conditional
+node built by csrc/graph_gate.cu around the captured forward (PyTorch
+offers no conditional node of its own here).
+Python's garbage collector is held off while a capture runs: a dead
+runner collected mid-capture would destroy its graphs there, which the
+capture does not permit.
 """
 
 from __future__ import annotations
+
+import gc
 
 import torch
 
@@ -37,10 +49,10 @@ from production_stack_tpu_torch.ops import paged_attention
 class ProgramVariant:
     """One program key's static buffers and (on the card) its graph.
 
-    `fn(inputs)` returns a tuple of output tensors. `pool` is the
-    runner's graph pool handle; `guard()` returns the addresses the
-    graph bakes in (the KV caches, the LoRA buffers), which must not
-    move between capture and replay."""
+    `fn(inputs)` returns a tuple of output tensors (None for an absent
+    one). `pool` is the runner's graph pool handle; `guard()` returns
+    the addresses the graph bakes in (the KV caches, the LoRA buffers),
+    which must not move between capture and replay."""
 
     def __init__(self, kind: str, key: tuple, fn, inputs: dict,
                  device: torch.device, pool=None, guard=None):
@@ -72,10 +84,26 @@ class ProgramVariant:
                 f"{self.kind} program {self.key}: a buffer its CUDA graph "
                 "captured by address was reallocated (the KV caches and "
                 "the LoRA buffers must be updated in place)")
-        self.graph.replay()
+        self._replay()
         self.replays += 1
         paged_attention.add_launches(self.launches)
         return self.outputs
+
+    def _replay(self) -> None:
+        self.graph.replay()
+
+    def _capture(self) -> tuple:
+        """Capture `fn` into the pool -> (graph, outputs, pool bytes
+        added)."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool,
+                              capture_error_mode="thread_local"):
+            # read inside: entering the capture empties the allocator's
+            # cache, and what the capture allocates comes from the pool
+            reserved = torch.cuda.memory_reserved(self.device)
+            captured = self.fn(self.inputs)
+        return (graph, captured,
+                torch.cuda.memory_reserved(self.device) - reserved)
 
     def _warm_and_capture(self) -> tuple:
         cur = torch.cuda.current_stream(self.device)
@@ -86,23 +114,111 @@ class ProgramVariant:
         cur.wait_stream(side)
         for t in out:
             # made on the side stream, read on this one
-            t.record_stream(cur)
+            if t is not None:
+                t.record_stream(cur)
         before = paged_attention.launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool,
-                              capture_error_mode="thread_local"):
-            # read inside: entering the capture empties the allocator's
-            # cache, and what the capture allocates comes from the pool
-            reserved = torch.cuda.memory_reserved(self.device)
-            captured = self.fn(self.inputs)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            graph, captured, added = self._capture()
+        finally:
+            if collecting:
+                gc.enable()
         after = paged_attention.launch_counts()
         # the capture recorded these launches; it ran none of them
         self.launches = {k: after[k] - before[k] for k in after
                          if after[k] != before[k]}
         paged_attention.add_launches(
             {k: -n for k, n in self.launches.items()})
-        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        self.graph, self.outputs = graph, captured
+        self.graph, self.outputs, self.pool_bytes = graph, captured, added
         if self.guard is not None:
             self._addresses = self.guard()
         return out
+
+
+def _gate_fns() -> tuple:
+    """csrc/graph_gate.cu's (build, launch, destroy) entries, the kernel
+    library built and loaded on first use."""
+    import ctypes
+
+    from production_stack_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load()
+    vp = ctypes.c_void_p
+    sigs = {"pst_graph_gate_build": [vp, vp, vp, ctypes.c_size_t, vp,
+                                     ctypes.c_int, ctypes.POINTER(vp),
+                                     ctypes.POINTER(vp)],
+            "pst_graph_gate_launch": [vp, vp],
+            "pst_graph_gate_destroy": [vp, vp]}
+    fns = []
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns.append(fn)
+    return tuple(fns)
+
+
+class GatedProgramVariant(ProgramVariant):
+    """A program `post(inputs, forward(inputs))` whose forward runs only
+    while some lane is live: `done(inputs)` is a (b,) bool device tensor
+    among the inputs, `forward` returns a float32 tensor. On the card the
+    forward and `post` are captured as two graphs in the shared pool and
+    joined by csrc/graph_gate.cu into one graph that zeroes the forward's
+    output, tests `done` on the device and runs the forward under an IF
+    conditional node, then `post`: a replay whose lanes are all done
+    skips the forward, and `post` reads zeros. Its launches are counted
+    on every replay, a skipped forward's too."""
+
+    def __init__(self, kind: str, key: tuple, forward, post, done,
+                 inputs: dict, device: torch.device, pool=None, guard=None):
+        super().__init__(kind, key, lambda inp: post(inp, forward(inp)),
+                         inputs, device, pool, guard)
+        self.forward, self.post, self.done = forward, post, done
+        # the built graph's (exec, graph) handles and its destroy entry
+        self._gate = None
+        self._destroy = None
+
+    def _capture(self) -> tuple:
+        import ctypes
+
+        build, self._launch, self._destroy = _gate_fns()
+        parts = []
+        added = 0
+        for fn in (lambda: self.forward(self.inputs),
+                   lambda: self.post(self.inputs, parts[0][1])):
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  capture_error_mode="thread_local"):
+                reserved = torch.cuda.memory_reserved(self.device)
+                out = fn()
+            added += torch.cuda.memory_reserved(self.device) - reserved
+            parts.append((graph, out))
+        (fwd_graph, logits), (post_graph, captured) = parts
+        done = self.done(self.inputs)
+        if (logits.dtype != torch.float32 or not logits.is_contiguous()
+                or done.dtype != torch.bool or not done.is_contiguous()):
+            raise RuntimeError(
+                f"{self.kind} program {self.key}: a gated forward needs a "
+                "contiguous float32 output and a contiguous bool `done`")
+        exec_, graph = ctypes.c_void_p(), ctypes.c_void_p()
+        rc = build(fwd_graph.raw_cuda_graph(), post_graph.raw_cuda_graph(),
+                   logits.data_ptr(), logits.numel() * 4, done.data_ptr(),
+                   done.numel(), ctypes.byref(exec_), ctypes.byref(graph))
+        if rc:
+            raise RuntimeError(f"{self.kind} program {self.key}: building "
+                               f"its gated CUDA graph failed: CUDA error {rc}")
+        self._gate = (exec_.value, graph.value)
+        # the captured graphs hold the pool's blocks the built graph
+        # addresses, the forward's output among them
+        return (fwd_graph, post_graph, logits), captured, added
+
+    def _replay(self) -> None:
+        rc = self._launch(self._gate[0],
+                          torch.cuda.current_stream(self.device).cuda_stream)
+        if rc:
+            raise RuntimeError(f"{self.kind} program {self.key}: its gated "
+                               f"CUDA graph's launch failed: CUDA error {rc}")
+
+    def __del__(self):
+        if self._gate is not None:
+            self._destroy(*self._gate)

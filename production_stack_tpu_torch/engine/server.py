@@ -42,7 +42,11 @@ HTTP/1.1 is parsed by hand (``asyncio.start_server``, the reader in
 ``utils/http.py``, which the router shares): the port needs neither
 aiohttp nor prometheus_client. One request per connection
 (``Connection: close``); streamed bodies are server-sent events ended by
-closing the connection.
+closing the connection. ``run`` serves until SIGINT or SIGTERM, then
+stops as aiohttp's ``web.run_app`` does: it stops listening, lets the
+requests in flight finish within ``SHUTDOWN_TIMEOUT_S`` (cancelling what
+is left after it), and runs ``stop``, which ends in the engine's
+shutdown.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ import asyncio
 import dataclasses
 import hmac
 import json
+import signal
 import time
 
 import production_stack_tpu_torch
@@ -90,6 +95,9 @@ logger = init_logger(__name__)
 STATS_UPDATE_INTERVAL_S = 1.0
 # how often the tensor-parallel follower watch looks at the rank set
 TP_WATCH_INTERVAL_S = 1.0
+# how long a signalled stop waits for the requests in flight (aiohttp's
+# run_app default shutdown_timeout)
+SHUTDOWN_TIMEOUT_S = 60.0
 # paths behind --api-key besides /v1/* (the JAX server's list)
 _AUTH_PATHS = ("/tokenize", "/detokenize", "/sleep", "/wake_up", "/rerank",
                "/score")
@@ -126,10 +134,13 @@ class EngineServer:
             else:
                 logger.info(
                     "serving precompile: %d dispatches in %.1fs; program "
-                    "variants built %s, graph pool %.1f MiB (only "
+                    "variants built %s, graph pool %.1f MiB, static "
+                    "inputs %.1f MiB, pool reserve %.1f MiB (only "
                     "request-dependent variants can still build lazily)",
                     n, time.perf_counter() - t0, rnr.compile_events,
                     rnr.graph_pool_bytes() / 2**20,
+                    rnr.static_input_bytes() / 2**20,
+                    rnr._graph_pool_reserve() / 2**20,
                 )
         self.model_name = config.served_model_name or config.model
         self.max_model_len = config.resolved_max_model_len()
@@ -140,6 +151,8 @@ class EngineServer:
         self._trace_flush_task: asyncio.Task | None = None
         self._tp_watch_task: asyncio.Task | None = None
         self._kv_transfer_server = None
+        # the connections being served (a signalled stop drains them)
+        self._inflight: set[asyncio.Task] = set()
         self._routes = {
             ("GET", "/health"): self.handle_health,
             ("GET", "/version"): self.handle_version,
@@ -241,22 +254,48 @@ class EngineServer:
         logger.error("tensor-parallel rank set failed: /health now "
                      "answers 503")
 
-    def run(self, host: str = "0.0.0.0", port: int = 8000) -> None:
+    async def drain(self, timeout: float = SHUTDOWN_TIMEOUT_S) -> int:
+        """Stop accepting connections and let the requests in flight
+        finish within `timeout` seconds; the ones still running then are
+        cancelled. Returns how many were cancelled."""
+        if self._server is not None:
+            self._server.close()
+        pending = {t for t in self._inflight if not t.done()}
+        if pending:
+            logger.info("stopping: %d request(s) in flight, waiting up to "
+                        "%.0fs", len(pending), timeout)
+            _, pending = await asyncio.wait(pending, timeout=timeout)
+            for t in pending:
+                t.cancel()
+            if pending:
+                await asyncio.wait(pending)
+        return len(pending)
+
+    def run(self, host: str = "0.0.0.0", port: int = 8000,
+            shutdown_timeout: float = SHUTDOWN_TIMEOUT_S) -> None:
+        """Serve until SIGINT or SIGTERM, then drain and stop (aiohttp's
+        web.run_app order)."""
+
         async def main():
-            await self.start(host, port)
+            stop = asyncio.Event()
+            loop = asyncio.get_running_loop()
+            for sig in (signal.SIGINT, signal.SIGTERM):
+                loop.add_signal_handler(sig, stop.set)
             try:
-                await self._server.serve_forever()
+                await self.start(host, port)
+                await stop.wait()
+                await self.drain(shutdown_timeout)
             finally:
                 await self.stop()
+            logger.info("engine server stopped")
 
-        try:
-            asyncio.run(main())
-        except KeyboardInterrupt:
-            pass
+        asyncio.run(main())
 
     # -- HTTP plumbing -----------------------------------------------------
     async def _handle(self, reader: asyncio.StreamReader,
                       writer: asyncio.StreamWriter) -> None:
+        task = asyncio.current_task()
+        self._inflight.add(task)
         try:
             try:
                 method, path, req = await read_request(reader)
@@ -310,6 +349,7 @@ class EngineServer:
             logger.exception("request failed")
         finally:
             writer.close()
+            self._inflight.discard(task)
 
     # -- endpoints ---------------------------------------------------------
     async def handle_health(self, req, writer) -> None:

@@ -83,7 +83,8 @@ def context_attention_prefill(
     k_ctx: torch.Tensor,        # (padded_ctx, num_kv_heads, head_dim)
     v_ctx: torch.Tensor,
     q_positions: torch.Tensor,  # (t,) absolute positions of the chunk tokens
-    total_len: int,             # valid context positions (prefix + chunk)
+    total_len,                  # valid context positions (prefix + chunk):
+                                # an int or a 0-d int tensor beside q
     scale: float,
     window: int | None = None,
 ) -> torch.Tensor:
@@ -93,7 +94,7 @@ def context_attention_prefill(
     c = k_ctx.shape[0]
     key_pos = torch.arange(c, device=q.device)[None, :]
     qp = q_positions.to(q.device).long()[:, None]
-    mask = (key_pos <= qp) & (key_pos < int(total_len))
+    mask = (key_pos <= qp) & (key_pos < total_len)
     if window is not None:
         mask = mask & (key_pos > qp - window)
     scores = torch.where(mask[:, None, None, :], scores,
@@ -116,7 +117,8 @@ def paged_prefill_attention_gather(q, k_cache, v_cache, layer, block_table,
     page table, gathered: the arguments of
     ops/paged_attention.paged_prefill_attention. -> (t, nq, d)."""
     slots = block_table_slots(block_table, block_size)
-    q_pos = int(q_start) + torch.arange(q.shape[0], device=q.device)
+    # a python int, or the kernel's (1,) int32 start on the device
+    q_pos = q_start + torch.arange(q.shape[0], device=q.device)
     return context_attention_prefill(
         q, _gather_ctx(k_cache, layer, slots),
         _gather_ctx(v_cache, layer, slots), q_pos, slots.shape[-1], scale,

@@ -149,10 +149,15 @@ def paged_prefill_attention_plain(q, k_cache, v_cache, layer, block_table,
                                   q_start, *, block_size, scale,
                                   window=None):
     """Plain PyTorch version of the prefill kernel (same PREFILL_TQ tiles
-    and per-tile page ranges)."""
+    and per-tile page ranges). `q_start`: a python int or the kernel's
+    (1,) int32 tensor (read here: the tiles' page ranges are host
+    loops)."""
     t = q.shape[0]
     num_pages = block_table.shape[0]
     bs = block_size
+    # stackcheck: disable=device-sync-transitive — the plain version's
+    # host page loop needs the start; the card path reads it on the
+    # device
     q_start = int(q_start)
     out = torch.empty_like(q)
     for t0 in range(0, t, PREFILL_TQ):
@@ -313,6 +318,22 @@ def _check_common(q, k_cache, v_cache, block_size):
     return shapes
 
 
+def _start_tensor(q_start, device) -> torch.Tensor:
+    """A prefill chunk's start as the (1,) int32 tensor on `device` the
+    kernel reads; a python int is filled in (not a device read)."""
+    if isinstance(q_start, torch.Tensor):
+        if (q_start.dtype != torch.int32 or q_start.numel() != 1
+                or q_start.device != device):
+            raise ValueError(
+                "q_start must be a (1,) int32 tensor on the queries' "
+                f"device {device}, got {q_start.dtype} "
+                f"{tuple(q_start.shape)} on {q_start.device}")
+        return q_start.reshape(1)
+    if q_start < 0:
+        raise ValueError(f"q_start must be >= 0, got {q_start}")
+    return torch.full((1,), q_start, dtype=torch.int32, device=device)
+
+
 def _check_index(name, t, dim):
     if t.dtype != torch.int32 or t.dim() != dim or not t.is_contiguous():
         raise ValueError(
@@ -438,8 +459,8 @@ _ARGTYPES = {
         _I64, _I32, _I32, _I32, _F32, _I32, _VP,   # slots d bs P scale win s
     ],
     "pst_paged_prefill_attention": [
-        _VP, _VP, _VP, _VP, _VP,             # q k v out table
-        _I32, _I32, _I32, _I32, _I32, _I32, _I32,  # dtypes layer q_start t nq nkv
+        _VP, _VP, _VP, _VP, _VP, _VP,        # q k v out table q_start
+        _I32, _I32, _I32, _I32, _I32, _I32,  # dtypes layer t nq nkv
         _I64, _I32, _I32, _I32, _F32, _I32, _VP,   # slots d bs P scale win s
     ],
     "pst_paged_decode_attention": [
@@ -545,7 +566,13 @@ def paged_prefill_attention(q, k_cache, v_cache, layer, block_table,
                             q_start, *, block_size, scale, window=None):
     """Chunked-prefill paged attention for one sequence whose t query
     rows (a positive multiple of PREFILL_TQ) sit at positions q_start,
-    q_start + 1, ... -> (t, nq, d)."""
+    q_start + 1, ... -> (t, nq, d).
+
+    `q_start` is a (1,) int32 tensor beside q (the Pallas kernel's
+    scalar-prefetch start): the card kernel reads it from device memory,
+    so a captured launch serves whatever start its buffer holds. A
+    python int is put on q's device first (a fill; a runner that
+    captures graphs passes the tensor)."""
     on_cpu = _on_cpu(q, k_cache, v_cache, block_table)
     nq, nkv, slots, d = _check_common(q, k_cache, v_cache, block_size)
     _check_index("block_table", block_table, 1)
@@ -554,11 +581,7 @@ def paged_prefill_attention(q, k_cache, v_cache, layer, block_table,
         raise ValueError(f"chunk rows {t} must be a positive multiple of "
                          f"{PREFILL_TQ}")
     layer = _check_layer(layer, k_cache)
-    # stackcheck: disable=device-sync-transitive — q_start is the
-    # chunk's host start position (the runner passes a python int)
-    q_start = int(q_start)
-    if q_start < 0:
-        raise ValueError(f"q_start must be >= 0, got {q_start}")
+    q_start = _start_tensor(q_start, q.device)
     if on_cpu:
         return paged_prefill_attention_plain(
             q, k_cache, v_cache, layer, block_table, q_start,
@@ -569,8 +592,8 @@ def paged_prefill_attention(q, k_cache, v_cache, layer, block_table,
     _check_aligned(*ptrs)
     out = torch.empty_like(q)
     rc = _kernel("pst_paged_prefill_attention")(
-        *ptrs, out.data_ptr(), block_table.data_ptr(),
-        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype], layer, q_start,
+        *ptrs, out.data_ptr(), block_table.data_ptr(), q_start.data_ptr(),
+        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype], layer,
         t, nq, nkv, slots, d, block_size, block_table.shape[0],
         # stackcheck: disable=device-sync-transitive — scale is a host
         # float (the runner's head_dim ** -0.5), never a device value

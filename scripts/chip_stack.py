@@ -5,7 +5,9 @@
 
 It builds the kernels, runs chip_smoke.decode_phase for the near-tie
 bound, then chip_smoke.stack_phase: a KV controller, four CLI engines of
-Llama-3.2-3B (two both-role, a prefill and a decode engine) and the
+Llama-3.2-3B at chip_smoke.CKPT_LAYERS layers, as chip_smoke.py serves
+it (a checkpoint written under build/; two both-role, a prefill and a
+decode engine) and the
 port's router in front of them under each routing algorithm in turn,
 then one engine SIGTERMed under load. Every check of the phase is fatal,
 as in chip_smoke.py; exits 1 with no card.
@@ -41,7 +43,8 @@ def main() -> int:
     cuda_build.load()
     _, gap_tol = c.decode_phase(torch, pa)
     c.release(torch)
-    counts = c.stack_phase(torch, gap_tol, smi)
+    with c.cut_3b_checkpoint(torch, c.CKPT_LAYERS, "cut-") as cut_dir:
+        counts = c.stack_phase(torch, gap_tol, smi, cut_dir)
     print(f"launches an engine: {counts}", flush=True)
     print(f"total {time.perf_counter() - t0:.1f}s", flush=True)
     return 0

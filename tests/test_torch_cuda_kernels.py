@@ -704,7 +704,8 @@ def test_prompt_logprobs_on_card_match_one_shot(cuda_device, monkeypatch):
 
 def _runner_pair(monkeypatch, dtype):
     """A compiled runner and its eager control on the same small-model
-    params, each with the same three prompts prefilled (eager in both)."""
+    params, each with the same three prompts prefilled (the compiled
+    runner through its prefill variants)."""
     params = _small_params(monkeypatch, getattr(torch, dtype))
     runners = []
     for eager in (False, True):
@@ -753,8 +754,10 @@ def test_graph_replay_equals_eager_iteration(cuda_device, monkeypatch,
         compiled, eager = runners
         assert torch.equal(compiled.k_cache, eager.k_cache)
         assert torch.equal(compiled.v_cache, eager.v_cache)
-    assert [v.replays for v in compiled._variants.values()] == [3, 3]
-    assert compiled.compile_events == {"decode_multi": 2}
+    loop = [v for v in compiled._variants.values()
+            if v.kind == "decode_multi"]
+    assert [v.replays for v in loop] == [3, 3]
+    assert compiled.compile_events["decode_multi"] == 2
     assert eager.compile_events == {} and not eager._variants
 
 
@@ -792,6 +795,112 @@ def test_graph_replays_count_their_launches(cuda_device, monkeypatch):
     (var,) = r._variants.values()
     assert var.kind == "decode" and var.replays == 1
     assert var.launches == {"ragged": r.model_config.num_layers}
+
+
+@pytest.mark.cuda
+def test_captured_programs_equal_eager_on_card(cuda_device, monkeypatch):
+    """Every program kind the JAX runner jit-caches, captured and
+    replayed on the card, gives the eager engine's tokens, launches and
+    dispatches: single prefill (with prompt logprobs), the ragged-rows
+    packed prefill, the mixed round's step 0, verify (n-gram drafts),
+    embed and KV import; each kind is built once and replayed."""
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+
+    params = _small_params(monkeypatch)
+    got = []
+    for eager in (False, True):
+        eng = _small_engine(monkeypatch, "cuda", params, eager=eager,
+                            num_scheduler_steps=4, max_prefill_chunk=32,
+                            num_speculative_tokens=3)
+        r = eng.runner
+        tpa.reset_launch_counts()
+        runs0 = dict(r.dispatch_counts)
+        prompts = [[5, 6, 7] * 4, list(range(1, 40)), [9, 8, 7, 6] * 5]
+        sp = SamplingParams(max_tokens=12, temperature=0.0, ignore_eos=True)
+        outs = [o.token_ids for o in eng.generate(prompts, sp)]
+        # staggered: a prompt beside decoding lanes makes mixed rounds
+        eng.add_request("late0", prompt_token_ids=[3] * 50,
+                        sampling_params=sp)
+        eng.step()
+        eng.add_request("late1", prompt_token_ids=list(range(60, 90)),
+                        sampling_params=SamplingParams(
+                            max_tokens=6, temperature=0.0, ignore_eos=True,
+                            prompt_logprobs=2))
+        while eng.has_unfinished():
+            for o in eng.step():
+                if o.finished:
+                    outs.append(o.token_ids)
+        # two inputs in one context bucket, one in a larger bucket (the
+        # scratch grows, the embed variants are rebuilt), then the first
+        emb = [r.embed(list(range(1, n))) for n in (20, 27, 70, 20)]
+        wire = r.export_blocks([1, 2, 3])
+        r.import_blocks([40, 41, 42], wire)
+        r.import_blocks([43, 44], wire[:, :, :2].contiguous())
+        kv = torch.cat([r.k_cache[:, :, 40 * 32:45 * 32],
+                        r.v_cache[:, :, 40 * 32:45 * 32]]).cpu()
+        runs = {k: v - runs0[k] for k, v in r.dispatch_counts.items()}
+        got.append((outs, runs, tpa.launch_counts(), emb, kv))
+        if not eager:
+            kinds = {v.kind for v in r._variants.values()}
+            assert {"prefill", "prefill_rows", "ragged_rows", "verify",
+                    "embed", "kv_import", "decode_multi"} <= kinds, kinds
+            assert sum(v.replays for v in r._variants.values()
+                       if v.kind in ("prefill", "embed", "kv_import",
+                                     "verify", "ragged_rows")) > 0
+            assert r.graph_pool_bytes() > 0
+    (g_outs, g_runs, g_launch, g_emb, g_kv), (e_outs, e_runs, e_launch,
+                                              e_emb, e_kv) = got
+    assert g_outs == e_outs and g_runs == e_runs and g_launch == e_launch
+    for a, b in zip(g_emb, e_emb):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+    assert torch.equal(g_kv, e_kv)
+
+
+@pytest.mark.cuda
+def test_captured_loop_skips_forwards_once_all_done(cuda_device,
+                                                    monkeypatch):
+    """Lanes stopped by the data (a stop token id each lane samples at a
+    different step) before the host's budget cap: the captured K=8 loop
+    skips its forward in the iterations after the last lane is done
+    (fewer loop forwards than the eager control's, which runs every
+    iteration it enqueues), and the streams are the eager engine's."""
+    from production_stack_tpu_torch.engine.sampling_params import (
+        SamplingParams,
+    )
+
+    params = _small_params(monkeypatch)
+    prompts = [[3 + i, 5, 7 + 2 * i] * 3 for i in range(3)]
+    got = []
+    for eager in (False, True):
+        eng = _small_engine(monkeypatch, "cuda", params, eager=eager,
+                            num_scheduler_steps=8)
+        probe = [o.token_ids for o in eng.generate(prompts, SamplingParams(
+            max_tokens=24, temperature=0.0, ignore_eos=True))]
+        # lane i stops on the token it sampled at step 2, 4, 3, gated
+        # by min_tokens so an earlier copy of it does not stop the lane
+        sps = [SamplingParams(max_tokens=24, temperature=0.0,
+                              ignore_eos=True, stop_token_ids=[pr[lo]],
+                              min_tokens=lo + 1)
+               for pr, lo in zip(probe, (2, 4, 3))]
+        r = eng.runner
+        f0, i0 = int(r.loop_forwards), r.dispatch_counts["decode_iterations"]
+        outs = []
+        for p, sp in zip(prompts, sps):
+            eng.add_request(f"s{len(outs)}", prompt_token_ids=p,
+                            sampling_params=sp)
+            outs.append(f"s{len(outs)}")
+        done = {}
+        while eng.has_unfinished():
+            done.update({o.request_id: o.token_ids for o in eng.step()
+                         if o.finished})
+        got.append(([done[k] for k in outs], int(r.loop_forwards) - f0,
+                    r.dispatch_counts["decode_iterations"] - i0))
+    (g_out, g_fwd, g_it), (e_out, e_fwd, e_it) = got
+    assert g_out == e_out and [len(o) for o in g_out] == [3, 5, 4]
+    assert g_it == e_it
+    assert g_fwd < e_fwd, (g_fwd, e_fwd)
 
 
 @pytest.mark.cuda

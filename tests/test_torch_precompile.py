@@ -232,9 +232,11 @@ def test_precompile_kv_import_matches_jax(np_params):
 def test_precompile_serving_matches_jax(np_params, over):
     """The engine's grid (ctx and chunk buckets, pow2 groups with the
     rows dedupe, decode_precompile_variants, the ragged lane mixes,
-    verify, KV import) makes the JAX engine's dispatches. Both take the
-    kernels unless the case says xla (the JAX engine's auto is xla off
-    its accelerator, the port's is pallas)."""
+    verify, KV import) makes the JAX engine's dispatches, then the
+    covering pass (ModelRunner.precompile_cover) the prefill, packed
+    prefill and ragged dispatches of the variants those leave unbuilt.
+    Both take the kernels unless the case says xla (the JAX engine's
+    auto is xla off its accelerator, the port's is pallas)."""
     cfg = {**CFG, "attention_impl": "pallas", **over}
     jeng = JEngine(JConfig(**cfg),
                    params=jax.tree_util.tree_map(jnp.asarray, np_params))
@@ -243,8 +245,12 @@ def test_precompile_serving_matches_jax(np_params, over):
                      params=params_from_numpy(np_params, "cpu"))
     tlog = _spy(teng.runner)
     n = jeng.precompile_serving()
-    assert teng.precompile_serving() == n > 0
-    assert tlog == jlog
+    got = teng.precompile_serving()
+    assert tlog[:len(jlog)] == jlog
+    cover = tlog[len(jlog):]
+    assert got == n + len(cover) and n > 0
+    assert {rec[0] for rec in cover} <= {"prefill", "prefill_batch",
+                                         "ragged_dispatch"}
     grid = teng.precompile_grid
     assert grid["singles"] > 0 and grid["ctx_buckets"][0] == 4
 
@@ -303,7 +309,10 @@ def test_compile_events_counted_once_per_key(np_params):
     assert teng.runner.compile_events_total == 0
     _staggered(teng, SamplingParams, PROMPTS, 10)
     ev = dict(teng.runner.compile_events)
-    assert ev and set(ev) <= {"decode", "decode_multi"}
+    assert ev and set(ev) <= {"decode", "decode_multi", "prefill",
+                              "prefill_rows", "ragged_rows"}
+    # the mixed round's step 0 and the packed prefill are variants too
+    assert {"ragged_rows", "prefill_rows", "decode_multi"} <= set(ev)
     assert len(teng.runner._variants) == teng.runner.compile_events_total
     s = teng.stats()
     assert s.compile_events == ev
@@ -345,7 +354,9 @@ def test_variant_streams_match_jax_at_defaults(np_params, jax_engines, k):
     assert got == want
     kinds = set(teng.runner.compile_events)
     # K=1 decodes single steps; adaptive K sizes some rounds down to 1
-    assert kinds == {"decode"} if k == 1 else "decode_multi" in kinds
+    assert ("decode" in kinds and "decode_multi" not in kinds if k == 1
+            else "decode_multi" in kinds)
+    assert "ragged_rows" in kinds
     assert _staggered(_port(np_params, k, eager=True), SamplingParams,
                       PROMPTS, 14) == want
 
