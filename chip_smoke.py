@@ -3,7 +3,10 @@
 
     python3 chip_smoke.py
 
-Phases, each fatal on failure:
+It holds the card for its whole run (utils/chip_guard.engage: a second
+run on the card fails at once; SIGTERM ends it through the phases'
+finally blocks, which stop their child processes). Phases, each fatal
+on failure:
 
 1. build: compile the three kernel sources (csrc/paged_attention.cu,
    paged_decode.cu, paged_prefill.cu; the first and last include the
@@ -316,18 +319,22 @@ Phases, each fatal on failure:
    max|logit|, K/V rows within LC_KV_REL_TOL, no kernel launched by the
    ring; (c) an engine of the 3B at TP_LAYERS layers with
    long_prefill_threshold 4096, context_parallel_size 2 and
-   long_prefill_chunk 2048 and the same engine without the lane, on
-   the same seed, each serving four greedy
+   long_prefill_chunk 2048 (its ring's chunks captured programs), the
+   same engine with its ring switched to eager chunks, and the same
+   engine without the lane, on the same seed, each serving four greedy
    64-token requests with a ~16000-token prompt arriving at step 12:
-   the lane serves it in 8 ring chunks (S_pad 16384) with 0 fallbacks,
+   each lane serves it in 8 ring chunks (S_pad 16384) with 0 fallbacks,
    ring / d2h / land seconds > 0, ring devices on the card, no
-   'DISABLED' or 'failed' lane warning and one shared-card warning,
-   decode rounds while the ring is in flight, TP_LAYERS ragged
-   launches a forward over the run and over the decode after landing
-   (the ring launches none), streams held to the control's under the
-   near-tie rule; TTFT ring and chunked, the step-thread host ms of
-   each chunk's dispatch, the decoders' ITL with and without a ring in
-   flight and the memory peak printed; (d) the CLI with
+   'DISABLED', 'failed' or eager-ring warning, decode rounds while the
+   ring is in flight, TP_LAYERS ragged launches a forward over the run
+   and over the decode after landing (the ring launches none), streams
+   held to the control's under the near-tie rule; the captured lane
+   builds one chunk program, captured at its first chunk and replayed
+   for the other 7, its graph pool and cache pair within the bytes the
+   KV sizing keeps back for them; for each lane the TTFT ring and
+   chunked, the step-thread host ms of each chunk's dispatch, the
+   decoders' ITL in a step that dispatched a chunk, with and without a
+   ring in flight, and the memory peak printed; (d) the CLI with
    --long-prefill-threshold 4096 --context-parallel-size 2 (log
    build/chip_smoke_lc_serve.log): /v1/models carries sp_size 2, a
    5000-token completion is answered, /metrics counts one long-prefill
@@ -395,8 +402,15 @@ Phases, each fatal on failure:
    router's request counts (read with the port's Prometheus parser)
    equal to the engines'; TTFT through the router against direct (p50
    and p90 of 16 streams, the router's first event well before its
-   last), the router's boot seconds and its hashing µs a prefixaware
-   request; pd and disaggregated_prefill over the PD pair (an
+   last) twice: with the router's upstream connections pooled (fewer
+   new connections to the engines than requests, read from each
+   engine's /debug/connections) and through a control router whose
+   client opens one connection a request (NO_POOL_ROUTER), the added
+   TTFT split into the router's receive and routing decision, a fresh
+   upstream connection and the rest (its /metrics phase histograms),
+   and every engine's accepted connections and served requests; the
+   router's boot seconds and its hashing µs a prefixaware request; pd
+   and disaggregated_prefill over the PD pair (an
    1100-token prompt's prefill on the prefill engine, one 34-block
    chain pull into the decode engine, no fallback, the stream held to a
    both-role engine's); each engine's launches 28 a forward; then one
@@ -5848,22 +5862,31 @@ def lc_scenario(torch, pa, eng, tag: str, sp,
 def lc_engine_check(torch, pa, gap_tol: float, smi: str) -> dict:
     """(c) the lane in an engine at full width: the 3B (TP_LAYERS layers,
     bf16, seeded params) with long_prefill_threshold LC_THRESHOLD,
-    context_parallel_size LC_SP and long_prefill_chunk LC_CHUNK beside
-    the same engine without the lane (chunked prefill on the kernels),
-    on the same seed, each serving lc_scenario. The lane: one request,
-    8 chunks, 0 fallbacks, ring / d2h / land seconds > 0, ring devices on
-    the card, no 'DISABLED' or 'failed' warning, decode rounds while the
-    ring was in flight, TP_LAYERS ragged launches a forward over the run
-    and over the decode after landing (the ring launches none); the
-    streams held to the control's under the near-tie rule. Returns the
-    lane engine's launches and the long prompt's first-token logits from
-    the ring (the tp=1 reference of the rank-set serving phase (g))."""
+    context_parallel_size LC_SP and long_prefill_chunk LC_CHUNK, its
+    ring's chunks captured (its ranks share the card), beside the same
+    engine with its ring switched to eager chunks before any prompt (the
+    serving programs stay captured) and the same engine without the lane
+    (chunked prefill on the kernels), on the same seed, each serving
+    lc_scenario. The lanes: one request, 8 chunks, 0 fallbacks, ring /
+    d2h / land seconds > 0, ring devices on the card, no 'DISABLED',
+    'failed' or eager-ring warning, decode rounds while the ring was in
+    flight, TP_LAYERS ragged launches a forward over the run and over
+    the decode after landing (the ring launches none); the captured lane
+    ran one chunk program, captured at its first chunk and replayed for
+    the other 7, its graph pool within the bytes the KV sizing would keep
+    back for it; both lanes' streams held to the control's under the
+    near-tie rule. Returns the captured lane engine's launches and the
+    long prompt's first-token logits from its ring (the tp=1 reference
+    of the rank-set serving phase (g))."""
     import logging
 
     from production_stack_tpu_torch.engine.config import EngineConfig
     from production_stack_tpu_torch.engine.llm_engine import LLMEngine
     from production_stack_tpu_torch.engine.sampling_params import (
         SamplingParams,
+    )
+    from production_stack_tpu_torch.parallel.long_context import (
+        ring_reserve_bytes,
     )
 
     warned: list = []
@@ -5875,9 +5898,11 @@ def lc_engine_check(torch, pa, gap_tol: float, smi: str) -> dict:
                 block_size=32, num_kv_blocks=640, max_num_seqs=8, seed=SEED)
     sp = SamplingParams(max_tokens=LC_DECODE_TOKENS, temperature=0,
                         ignore_eos=True, logprobs=2)
-    res = {}
+    n_chunks = -(-LC_PROMPT_TOKENS // LC_CHUNK)
+    res, ring = {}, {}
     try:
-        for tag, lane in (("lane", True), ("chunked", False)):
+        for tag, lane in (("lane", "captured"), ("eager-ring", "eager"),
+                          ("chunked", None)):
             over = (dict(long_prefill_threshold=LC_THRESHOLD,
                          context_parallel_size=LC_SP,
                          long_prefill_chunk=LC_CHUNK) if lane else {})
@@ -5889,13 +5914,31 @@ def lc_engine_check(torch, pa, gap_tol: float, smi: str) -> dict:
                                           for d in mgr.prefiller.devices):
                         fail(f"long-context phase: the lane is not live on "
                              f"the card: {warned}")
-                    if mgr.prefiller.params["embed"] is not (
-                            eng.runner.params["embed"]):
+                    pre = mgr.prefiller
+                    if pre.params["embed"] is not eng.runner.params["embed"]:
                         fail("long-context phase: the ring copied the "
                              "runner's params")
-                    first = lane_logits(mgr)
+                    if not pre.captured:
+                        fail("long-context phase: the one-card ring of a "
+                             "graphed engine is not captured")
+                    if lane == "eager":
+                        # the eager control: the same ring, its chunks
+                        # eager forwards on caches of their own prompt
+                        pre.captured = mgr._captured = False
+                    else:
+                        first = lane_logits(mgr)
                 res[tag] = lc_scenario(torch, pa, eng, f"lc-{tag}-", sp)
                 res[tag]["stats"] = eng.stats()
+                if lane == "captured":
+                    s_pad = pre.seq_pad(LC_PROMPT_TOKENS, mgr.chunk)
+                    ring = {"variants": {k: (v.replays, v.graph is not None)
+                                         for k, v in pre.variants.items()},
+                            "pool": pre.pool_bytes(),
+                            "pair": pre.pair_bytes(),
+                            "reserve": ring_reserve_bytes(
+                                pre.cfg, LC_SP, mgr.chunk, s_pad,
+                                pre.cache_dtype.itemsize),
+                            "key": (mgr.chunk, s_pad)}
             finally:
                 eng.shutdown()
                 del eng
@@ -5904,34 +5947,44 @@ def lc_engine_check(torch, pa, gap_tol: float, smi: str) -> dict:
         logging.getLogger(
             "production_stack_tpu_torch.engine.llm_engine").removeHandler(
             handler)
-    bad = [w for w in warned if "DISABLED" in w or "failed" in w]
+    bad = [w for w in warned if "DISABLED" in w or "failed" in w
+           or "eagerly" in w]
     if bad:
         fail(f"long-context phase: {bad}")
-    shared = [w for w in warned if "share the serving card" in w]
-    if len(shared) != 1:
-        fail(f"long-context phase: the lane engine on one card gave "
-             f"{len(shared)} shared-card warnings, not 1")
-    print(f"long-context phase lane engine warned: {shared[0]}", flush=True)
-    lane, ctrl = res["lane"], res["chunked"]
-    st = lane["stats"]
-    n_chunks = -(-LC_PROMPT_TOKENS // LC_CHUNK)
-    counters = (st.long_prefill_requests_total, st.long_prefill_chunks_total,
-                st.long_prefill_fallbacks_total)
-    phases = (st.long_prefill_ring_seconds_total,
-              st.long_prefill_d2h_seconds_total,
-              st.long_prefill_land_seconds_total)
-    print(f"long-context phase lane: requests, chunks, fallbacks {counters}; "
-          f"ring / d2h / land / overflow seconds "
-          f"{[round(x, 4) for x in phases]} / "
-          f"{st.long_prefill_overflow_seconds_total:.4f}; {lane['steps']} "
-          f"steps; decode rounds while a ring was in flight "
-          f"{lane['ring_rounds']}", flush=True)
-    if counters != (1, n_chunks, 0) or not all(x > 0 for x in phases):
-        fail(f"long-context phase: lane counters {counters}, phase "
-             f"seconds {phases}")
-    if lane["ring_rounds"] < 3:
-        fail(f"long-context phase: only {lane['ring_rounds']} decode "
-             "rounds ran while the ring was in flight")
+    lane, eager, ctrl = res["lane"], res["eager-ring"], res["chunked"]
+    for tag in ("lane", "eager-ring"):
+        st = res[tag]["stats"]
+        counters = (st.long_prefill_requests_total,
+                    st.long_prefill_chunks_total,
+                    st.long_prefill_fallbacks_total)
+        phases = (st.long_prefill_ring_seconds_total,
+                  st.long_prefill_d2h_seconds_total,
+                  st.long_prefill_land_seconds_total)
+        print(f"long-context phase {tag}: requests, chunks, fallbacks "
+              f"{counters}; ring / d2h / land / overflow seconds "
+              f"{[round(x, 4) for x in phases]} / "
+              f"{st.long_prefill_overflow_seconds_total:.4f}; "
+              f"{res[tag]['steps']} steps; decode rounds while a ring was "
+              f"in flight {res[tag]['ring_rounds']}", flush=True)
+        if counters != (1, n_chunks, 0) or not all(x > 0 for x in phases):
+            fail(f"long-context phase {tag}: lane counters {counters}, "
+                 f"phase seconds {phases}")
+        if res[tag]["ring_rounds"] < 3:
+            fail(f"long-context phase {tag}: only {res[tag]['ring_rounds']} "
+                 "decode rounds ran while the ring was in flight")
+    pair, pool_est = ring["reserve"]
+    print(f"long-context phase lane ring programs {ring['variants']} "
+          f"(key: replays, captured); graph pool {ring['pool'] / 2**20:.1f} "
+          f"MiB (reserve estimate {pool_est / 2**20:.1f} MiB), cache pair "
+          f"{ring['pair'] / 2**20:.1f} MiB (estimate {pair / 2**20:.1f} "
+          f"MiB) on {smi}", flush=True)
+    if ring["variants"] != {ring["key"]: (n_chunks - 1, True)}:
+        fail(f"long-context phase: the captured ring's programs "
+             f"{ring['variants']}, not one captured key replayed "
+             f"{n_chunks - 1} times")
+    if not (0 < ring["pool"] <= pool_est and ring["pair"] <= pair):
+        fail(f"long-context phase: the ring's pool {ring['pool']} / pair "
+             f"{ring['pair']} bytes past the reserve {ring['reserve']}")
     if ctrl["stats"].long_prefill_requests_total:
         fail("long-context phase: the control engine took the lane")
     for tag, r in res.items():
@@ -5940,41 +5993,51 @@ def lc_engine_check(torch, pa, gap_tol: float, smi: str) -> dict:
         check_launches(f"long-context phase {tag} engine, decode after the "
                        f"long prompt's first token", *r["tail"],
                        layers=TP_LAYERS)
-    if lane["tail"][1]["decode"] + lane["tail"][1]["decode_iterations"] < 1:
-        fail("long-context phase: no decode forward after landing")
+    for tag in ("lane", "eager-ring"):
+        tail = res[tag]["tail"][1]
+        if tail["decode"] + tail["decode_iterations"] < 1:
+            fail(f"long-context phase {tag}: no decode forward after "
+                 "landing")
     n_same = near_tie_check("long-context phase lane vs chunked",
                             ctrl["outs"], lane["outs"], gap_tol)
+    n_eager = near_tie_check("long-context phase eager ring vs chunked",
+                             ctrl["outs"], eager["outs"], gap_tol)
 
     def ms(xs):
         return (f"median {sorted(xs)[len(xs) // 2]:.2f} ms, max "
                 f"{max(xs):.2f} over {len(xs)}" if xs else "none")
 
-    cms = lane["chunk_ms"]
-    print(f"long-context phase: {n_same}/5 greedy streams (4 x "
-          f"{LC_DECODE_TOKENS} tokens and the {LC_PROMPT_TOKENS}-token "
-          f"prompt's, {TP_LAYERS} layers) of the lane equal to the chunked "
-          f"control's; TTFT of "
-          f"the long prompt: ring {lane['ttft']:.3f}s, chunked "
-          f"{ctrl['ttft']:.3f}s (host clock); step-thread host ms a ring "
-          f"chunk's dispatch {[round(x, 1) for x in cms]}; ITL of the four "
-          f"decoders (step wall): lane engine in a step that dispatched a "
-          f"ring chunk {ms(lane['itl']['chunk'])}, in other steps with the "
-          f"ring's d2h or landing in flight {ms(lane['itl']['in flight'])}, "
-          f"without a ring {ms(lane['itl']['none'])}; chunked engine with "
-          f"the prompt's chunks in flight {ms(ctrl['itl']['in flight'])}, "
-          f"without {ms(ctrl['itl']['none'])}; memory peak "
-          f"{lane['peak_gb']:.2f} GB "
-          f"(lane engine) / {ctrl['peak_gb']:.2f} GB (chunked); a ring on "
-          f"one card shares that card: not sp speeds; on {smi}", flush=True)
+    print(f"long-context phase: {n_same}/5 (captured ring) and {n_eager}/5 "
+          f"(eager ring) greedy streams (4 x {LC_DECODE_TOKENS} tokens and "
+          f"the {LC_PROMPT_TOKENS}-token prompt's, {TP_LAYERS} layers) equal "
+          f"to the chunked control's", flush=True)
+    for tag in ("lane", "eager-ring"):
+        r = res[tag]
+        print(f"long-context phase {tag}: TTFT of the long prompt "
+              f"{r['ttft']:.3f}s against chunked {ctrl['ttft']:.3f}s (host "
+              f"clock); step-thread host ms a ring chunk's dispatch "
+              f"{[round(x, 2) for x in r['chunk_ms']]}; ITL of the four "
+              f"decoders (step wall) in a step that dispatched a ring chunk "
+              f"{ms(r['itl']['chunk'])}, in other steps with the ring's d2h "
+              f"or landing in flight {ms(r['itl']['in flight'])}, without a "
+              f"ring {ms(r['itl']['none'])}; memory peak "
+              f"{r['peak_gb']:.2f} GB; a ring on one card shares that card: "
+              f"not sp speeds; on {smi}", flush=True)
+    print(f"long-context phase chunked: ITL with the prompt's chunks in "
+          f"flight {ms(ctrl['itl']['in flight'])}, without "
+          f"{ms(ctrl['itl']['none'])}; memory peak {ctrl['peak_gb']:.2f} GB "
+          f"on {smi}", flush=True)
     return lane["launches"], first["lc-lane-long"]
 
 
 def lc_cli_check(torch, smi: str) -> None:
     """(d) the CLI with --long-prefill-threshold LC_THRESHOLD
     --context-parallel-size LC_SP (log build/chip_smoke_lc_serve.log):
-    /v1/models carries sp_size, one LC_CLI_PROMPT_TOKENS-token greedy
-    completion is answered, /metrics shows one long-prefill request and
-    no fallback, and the server's launches are 28 a forward."""
+    its boot logs a captured ring and the memory the KV sizing kept back
+    for it, /v1/models carries sp_size, one LC_CLI_PROMPT_TOKENS-token
+    greedy completion is answered, /metrics shows one long-prefill
+    request and no fallback, and the server's launches are 28 a
+    forward."""
     port = free_port()
     log_path = REPO / "build" / "chip_smoke_lc_serve.log"
     t0 = time.perf_counter()
@@ -6008,6 +6071,13 @@ def lc_cli_check(torch, smi: str) -> None:
         if reqs != 1 or falls != 0:
             fail(f"long-context phase CLI: /metrics long-prefill requests "
                  f"{reqs}, fallbacks {falls}")
+        ring = [ln for ln in log_path.read_text(errors="replace")
+                .splitlines() if "each chunk a captured program" in ln]
+        if len(ring) != 1:
+            fail(f"long-context phase CLI: the ring is not captured:\n"
+                 f"{log_tail(log_path)}")
+        print(f"long-context phase CLI boot: {ring[0].split(': ', 1)[-1]}",
+              flush=True)
         print(f"long-context phase CLI: healthy {boot:.1f}s after start, "
               f"/v1/models sp_size {card['sp_size']}, a "
               f"{len(ids)}-token completion in {secs:.3f}s, "
@@ -7350,6 +7420,44 @@ def router_served(port: int) -> dict:
     return out
 
 
+# the router with its upstream session opening one connection a request
+# (the measurement control of the stack phase's TTFT split): the port's
+# router module run as `python -m` runs it, its pool bypassed
+NO_POOL_ROUTER = (
+    "import runpy, sys\n"
+    "from production_stack_tpu_torch.utils import http\n"
+    "http.ClientSession._acquire = lambda self, key: None\n"
+    "http.ClientSession._put_back = lambda self, key, r, w: w.close()\n"
+    "sys.argv[0] = 'production_stack_tpu_torch.router'\n"
+    "runpy.run_module('production_stack_tpu_torch.router', "
+    "run_name='__main__', alter_sys=True)\n")
+ROUTER_PHASES = ("receive", "route_decision", "upstream_connect",
+                 "upstream_ttft", "stream_relay")
+
+
+def router_phases(port: int) -> dict:
+    """The router's phase histograms (tpu_router:<phase>_seconds) summed
+    over its backends: {phase: (sum seconds, count)}."""
+    from production_stack_tpu_torch.router.services import metrics_service
+
+    samples, _ = parse_metrics(http(port, "/metrics")[1])
+    out = {}
+    for phase in ROUTER_PHASES:
+        name = metrics_service.PHASE_HISTOGRAMS[phase].name
+        out[phase] = tuple(sum(v for _, v in samples.get(name + k, []))
+                           for k in ("_sum", "_count"))
+    return out
+
+
+def engine_connections(ports: list[int]) -> list[tuple]:
+    """Each engine server's (connections accepted, requests served)."""
+    out = []
+    for p in ports:
+        c = json.loads(http(p, "/debug/connections")[1])
+        out.append((c["accepted"], c["requests"]))
+    return out
+
+
 def routing_decision_us(port: int) -> float:
     """Mean routing decision (µs) over the router's requests, from its
     tpu_router:routing_decision_seconds histogram."""
@@ -7590,46 +7698,96 @@ def stack_phase(torch, gap_tol: float, smi: str,
         got, _, _ = run_router("ttft", few)
         check_streams("ttft", got, want_mixed[:4])
 
-        # latency: and TTFT through the router against direct
-        rport = free_port()
-        proc, boot = start_router(rcmd(rport, [pa_, pb], "latency"),
-                                  build / "chip_smoke_stack_router_"
-                                  "latency.log")
-        routers.append(proc)
-        boots.append(boot)
-        got = [SseStream(rport, *req(p, c)) for p, c in few]
-        check_streams("latency", got, want_mixed[:4])
-        ttft = {"direct": [], "router": [], "router_e2e": []}
-        for i in range(STACK_TTFT_REQUESTS):
-            p = f"TTFT probe {i}: " + short[i % 8][20:120]
-            path, body = req(p, False, STACK_TTFT_TOKENS)
-            order = (("direct", pa_), ("router", rport))
-            for kind, port in (order if i % 2 == 0 else order[::-1]):
-                s = SseStream(port, path, body)
-                if s.status != 200 or not s.done:
-                    fail(f"stack phase TTFT {kind}: {s.status}")
-                ttft[kind].append(s.ttft)
-                if kind == "router":
-                    ttft["router_e2e"].append(s.e2e)
-        stop_server(proc)
-        routers.remove(proc)
-
+        # latency: and TTFT through the router against direct, the
+        # router's upstream connections pooled, then through a control
+        # router whose client opens one connection a request (the
+        # router's hop before keep-alive)
         def pct(xs, q):
             xs = sorted(xs)
             return xs[min(len(xs) - 1, int(q * len(xs)))] * 1e3
 
-        print(f"stack phase TTFT over {STACK_TTFT_REQUESTS} streamed "
-              f"requests ({STACK_TTFT_TOKENS} tokens each): direct p50 "
-              f"{pct(ttft['direct'], .5):.2f} ms p90 "
-              f"{pct(ttft['direct'], .9):.2f} ms; through the router p50 "
-              f"{pct(ttft['router'], .5):.2f} ms p90 "
-              f"{pct(ttft['router'], .9):.2f} ms (client host clock) on "
-              f"{smi}", flush=True)
-        if not pct(ttft["router"], .5) < 0.5 * pct(ttft["router_e2e"], .5):
-            fail("stack phase: through the router the first event comes "
-                 f"at {pct(ttft['router'], .5):.1f} ms of a "
-                 f"{pct(ttft['router_e2e'], .5):.1f} ms stream (p50): the "
-                 "router buffers instead of streaming")
+        split = {}
+        for tag, launch in (("pooled", None), ("one per request",
+                                               NO_POOL_ROUTER)):
+            rport = free_port()
+            cmd = rcmd(rport, [pa_, pb], "latency")
+            if launch is not None:
+                cmd = [sys.executable, "-c", launch, *cmd[3:]]
+            proc, boot = start_router(cmd, build / "chip_smoke_stack_router_"
+                                      f"latency{len(split)}.log")
+            routers.append(proc)
+            boots.append(boot)
+            got = [SseStream(rport, *req(p, c)) for p, c in few]
+            check_streams(f"latency ({tag})", got, want_mixed[:4])
+            ph0, cn0 = router_phases(rport), engine_connections([pa_, pb])
+            ttft = {"direct": [], "router": [], "router_e2e": []}
+            for i in range(STACK_TTFT_REQUESTS):
+                p = f"TTFT probe {i}: " + short[i % 8][20:120]
+                path, body = req(p, False, STACK_TTFT_TOKENS)
+                order = (("direct", pa_), ("router", rport))
+                for kind, port in (order if i % 2 == 0 else order[::-1]):
+                    st = SseStream(port, path, body)
+                    if st.status != 200 or not st.done:
+                        fail(f"stack phase TTFT {kind}: {st.status}")
+                    ttft[kind].append(st.ttft)
+                    if kind == "router":
+                        ttft["router_e2e"].append(st.e2e)
+            ph1, cn1 = router_phases(rport), engine_connections([pa_, pb])
+            stop_server(proc)
+            routers.remove(proc)
+            ms = {k: (ph1[k][0] - ph0[k][0]) / max(1, ph1[k][1] - ph0[k][1])
+                  * 1e3 for k in ph1}
+            # less the direct probes' own connections (one each) to
+            # engine a and the count's own request to each engine
+            accepts = [cn1[0][0] - cn0[0][0] - STACK_TTFT_REQUESTS - 1,
+                       cn1[1][0] - cn0[1][0] - 1]
+            split[tag] = (pct(ttft["router"], .5) - pct(ttft["direct"], .5),
+                          ms)
+            print(f"stack phase TTFT over {STACK_TTFT_REQUESTS} streamed "
+                  f"requests ({STACK_TTFT_TOKENS} tokens each), router "
+                  f"upstream {tag}: direct p50 "
+                  f"{pct(ttft['direct'], .5):.2f} ms p90 "
+                  f"{pct(ttft['direct'], .9):.2f} ms; through the router "
+                  f"p50 {pct(ttft['router'], .5):.2f} ms p90 "
+                  f"{pct(ttft['router'], .9):.2f} ms, added p50 "
+                  f"{split[tag][0]:.2f} ms (client host clock); the "
+                  f"router's mean ms a request (its /metrics): receive "
+                  f"{ms['receive']:.3f}, routing decision "
+                  f"{ms['route_decision']:.3f}, upstream connect to the "
+                  f"response head {ms['upstream_connect']:.3f}, head to "
+                  f"first chunk {ms['upstream_ttft']:.3f}, first chunk "
+                  f"to the stream's end {ms['stream_relay']:.3f}; the "
+                  f"router's connections "
+                  f"accepted by engines a / b {accepts[0]} / {accepts[1]} "
+                  f"for {STACK_TTFT_REQUESTS} requests on {smi}",
+                  flush=True)
+            if not pct(ttft["router"], .5) < 0.5 * pct(ttft["router_e2e"],
+                                                       .5):
+                fail("stack phase: through the router the first event "
+                     f"comes at {pct(ttft['router'], .5):.1f} ms of a "
+                     f"{pct(ttft['router_e2e'], .5):.1f} ms stream (p50): "
+                     "the router buffers instead of streaming")
+            if launch is None and sum(accepts) >= STACK_TTFT_REQUESTS:
+                fail(f"stack phase: the router opened {sum(accepts)} "
+                     f"connections to its engines for "
+                     f"{STACK_TTFT_REQUESTS} requests: not pooled")
+        (add_p, ms_p), (add_c, ms_c) = split.values()
+        print(f"stack phase router's added TTFT p50 split: pooled "
+              f"{add_p:.2f} ms, one connection a request {add_c:.2f} ms; "
+              f"routing decision (receive + decision) "
+              f"{ms_p['receive'] + ms_p['route_decision']:.3f} / "
+              f"{ms_c['receive'] + ms_c['route_decision']:.3f} ms; a "
+              f"fresh upstream connection (upstream connect, one a "
+              f"request minus pooled) "
+              f"{ms_c['upstream_connect'] - ms_p['upstream_connect']:.3f}"
+              f" ms; relay and the rest (added minus the router's "
+              f"receive, decision and head-to-first-chunk) "
+              f"{add_p - ms_p['receive'] - ms_p['route_decision'] - ms_p['upstream_ttft']:.3f}"
+              f" ms pooled on {smi}", flush=True)
+        conns = dict(zip(names, engine_connections(
+            [ports[n] for n in names])))
+        print(f"stack phase: connections accepted / requests served by "
+              f"each engine so far {conns}", flush=True)
         hash_us = prefix_hash_us()
         print(f"stack phase: prefixaware hashing of a "
               f"{STACK_PREFIX_CHARS}-char prompt {hash_us:.1f} us a "
@@ -7825,9 +7983,18 @@ def main() -> int:
     if not (REPO / "production_stack_tpu_torch").is_dir():
         fail(f"no production_stack_tpu_torch package beside {__file__}")
     sys.path.insert(0, str(REPO))
+    from production_stack_tpu_torch.utils import chip_guard
+
+    # the card is this run's for its whole length: a second run on it
+    # fails here instead of halving both runs' timings; SIGTERM becomes
+    # SystemExit, so the phases' finally blocks stop their child servers
+    try:
+        lock = chip_guard.engage(device="cuda")
+    except chip_guard.ChipBusyError as e:
+        fail(str(e))
     t_start = time.perf_counter()
     smi = nvidia_smi()
-    print(f"card: {smi}", flush=True)
+    print(f"card: {smi}; card lock {lock.path}", flush=True)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False

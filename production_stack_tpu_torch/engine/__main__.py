@@ -46,9 +46,10 @@ exits non-zero. ``--long-prefill-threshold T
 --context-parallel-size N`` serves prompts past T tokens as
 sequence-parallel ring chunks over N ranks (``--long-prefill-chunk``
 tokens each), with the other requests' decode rounds run between the
-chunks (not at their normal cadence: on one card a chunk's step lasts
-about its device time, and the lane is slower than chunked prefill, as
-the engine warns at boot); the threshold without N > 1 stops with
+chunks (on one card a chunk's step lasts about its device time; each
+chunk replays a captured program, and the KV sizing keeps back the
+ring's cache pair and graph pool for prompts up to
+``--max-model-len``); the threshold without N > 1 stops with
 EngineConfig's ValueError. Every flag of the JAX CLI parses, and a
 one-host rank set serves each; under pp, LoRA, MoE models and
 ``--attention-impl pallas`` stop with the JAX package's ValueErrors,

@@ -57,12 +57,14 @@ Long prefill (``long_prefill_threshold`` with ``context_parallel_size``
 > 1, engine/long_prefill.py): a prompt past the threshold runs as
 sequence-parallel ring chunks, one a step before ``schedule()``; the
 other users' rounds run between the chunks (not at their normal cadence:
-a step that dispatches a chunk lasts about the chunk's device time on
-the card, as the chunk enqueues eagerly); its KV lands in the paged cache
-through the KV import primitives and its first token is sampled from
-the ring's final-row logits (``_advance_long_prefills``). Adapter and
-prompt-logprob requests stay chunked; a failed ring falls back to the
-chunked lane.
+on one card a step that dispatches a chunk lasts about the chunk's
+device time, since the round queues behind it); its KV lands in the
+paged cache through the KV import primitives and its first token is
+sampled from the ring's final-row logits (``_advance_long_prefills``).
+A ring whose ranks share the serving card runs each chunk as a captured
+program (a replay); adapter and prompt-logprob requests stay chunked; a
+failed eager ring falls back to the chunked lane, a failed captured
+chunk raises.
 
 Tensor and pipeline parallelism (``tensor_parallel_size`` x
 ``pipeline_parallel_size`` = N > 1): the engine is rank 0 of a rank set
@@ -326,8 +328,9 @@ class LLMEngine:
         rank rings its own kv heads (engine/long_prefill.py). Under
         pipeline parallelism and multihost the lane is off, as in JAX.
         A ring that cannot be built degrades loudly to chunked-only
-        serving; a ring whose ranks share the serving card boots with a
-        warning that it is slower than chunked prefill there."""
+        serving. A ring whose ranks share the serving card runs its
+        chunks as captured programs (boot logs its memory); any other
+        ring on the card boots with a warning that it runs eagerly."""
         config = self.config
         self.long_prefill = None
         if (config.long_prefill_threshold is None
@@ -363,16 +366,25 @@ class LLMEngine:
             self.scheduler.config.long_prefill_threshold = (
                 config.long_prefill_threshold)
             self.scheduler.long_prefill = self._begin_long_prefill
-            ring = self.long_prefill.prefiller.devices
-            if self.runner.device.type == "cuda" and all(
-                    d == ring[0] for d in ring):
+            pre = self.long_prefill.prefiller
+            ring = pre.devices
+            if pre.captured:
+                pair, pool = self.runner._ring_reserve()
+                logger.info(
+                    "long-prefill ring: %d ranks on %s, each chunk a "
+                    "captured program; the KV sizing kept back %.1f MiB "
+                    "for its cache pair and %.1f MiB for its graph pool",
+                    len(ring), ring[0], pair / 2**20, pool / 2**20)
+            elif self.runner.device.type == "cuda":
+                why = ("the runner is eager" if self.tp_group is None
+                       and self.runner.eager else
+                       "a rank set's rings are eager, and capturing a "
+                       "ring across cards needs a machine with several "
+                       "(ROADMAP Queue 1 item 3)")
                 logger.warning(
-                    "long-prefill ring: all %d ranks share the serving "
-                    "card %s and each chunk dispatches eagerly, so a long "
-                    "prompt's TTFT and the other requests' ITL in chunk "
-                    "steps are worse than chunked prefill's (ROADMAP "
-                    "Queue 1 item 2)", len(ring), ring[0],
-                )
+                    "long-prefill ring: %d ranks on %s dispatch each "
+                    "chunk eagerly (%s)", len(ring),
+                    ", ".join(str(d) for d in ring), why)
 
     # -- KV offload tiers + controller reporting (LMCache-equivalent) ------
     def _init_kv_tiers(self) -> None:

@@ -14,23 +14,31 @@ registered in the prefix cache like any other.
 Division of labor:
 
 - STEP THREAD (``advance``, once a step): dispatch the next ring chunk
-  (an eager forward; every operation enqueues) while the next chunk's
-  token buffer copies on a side stream, and land at most one parked
-  wire-format block batch a step (a staged upload and an index copy).
-  No device fetch: decode rounds for other users keep their cadence
-  between chunks. An eager chunk is thousands of launches, though: on
-  the card the launch queue fills, and the dispatch then waits for the
-  chunk's own earlier kernels, so it holds the step thread for most of
-  the chunk's device time. After the last chunk it records a CUDA event
-  on each ring device's current stream (the step thread's compute
-  stream).
+  while the next chunk's token buffer copies on a side stream, and land
+  at most one parked wire-format block batch a step (a staged upload
+  and an index copy). No device fetch: decode rounds for other users
+  keep their cadence between chunks. A captured ring (one card, outside
+  a rank set; parallel/long_context.py) dispatches a chunk as a replay
+  of its (C, S_pad) program, its tokens, start and last row copied into
+  the program's inputs on the device: a few launches where the eager
+  chunk enqueued thousands. Its prompts ring one at a time on the
+  prefiller's one cache pair: the next prompt claims the pair once the
+  worker has enqueued the last one's copies, and its ``begin_cache``
+  zeroes the pair on the step thread's stream after that stream waits on
+  the copies' events (never a host wait). Any other ring runs each
+  chunk as an eager forward on caches of its own prompt, and its
+  prompts ring side by side. After the last chunk a CUDA event is
+  recorded on each ring device's current stream (the step thread's
+  compute stream).
 - WORKER THREAD: wait on those events (the measured ring wall; never a
   device-wide synchronize, which would stall the decode rounds), copy
   the final logits and the sharded KV to pinned host buffers on
   streams of its own (one a ring card) that wait on the events first,
-  relayout rows into the wire-format ``(2, L, n, nkv, bs, d)`` batches
-  the import primitives take (pinned, so their upload needs no second
-  copy), and park them for the step thread.
+  record an event on each after the copies (what the next prompt's
+  ``begin_cache`` waits on), relayout rows into the wire-format
+  ``(2, L, n, nkv, bs, d)`` batches the import primitives take (pinned,
+  so their upload needs no second copy), and park them for the step
+  thread.
 
 In a tensor-parallel rank set (rank 0's runner is a
 multihost_engine.BroadcastingRunner) every ring chunk is a published
@@ -46,9 +54,11 @@ the followers' ring state (``lane_release``).
 Failure degrades, never wedges: a failed ring parks the record as
 'failed' and the engine flips the sequence back to the chunked-prefill
 lane (its block table is already allocated), counted in
-``fallbacks_total``. That is for a failure of the lane on rank 0 alone:
-a rank-set failure (RankSetError, or any error of a published step,
-after which the set is broken) propagates.
+``fallbacks_total``. That is for a failure of an eager lane on rank 0
+alone: a failed chunk of a captured ring (its capture, a replay, the
+pair's allocation) propagates, as every failed program does, and so
+does a rank-set failure (RankSetError, or any error of a published
+step, after which the set is broken).
 
 Per-phase attribution (``phase_s``; the ``long_prefill`` timeline event
 and the tpu:prefill_* families): ``ring`` = job start -> ring drained
@@ -100,6 +110,13 @@ class LongPrefillManager:
             max(chunk_tokens, self.block_size), align=self.block_size
         )
         self._jobs: dict[str, dict] = {}
+        # a captured ring's prompts take turns on its one cache pair: the
+        # job ringing on it (or whose copies off it are not enqueued
+        # yet), and the events of the last copies off it, which the next
+        # begin_cache waits on
+        self._captured = self.prefiller.captured
+        self._pair_owner: dict | None = None
+        self._pair_wait: list = []
         # worker handoff: deque appends/pops are GIL-atomic; the
         # condition only wakes the worker
         self._queue: deque = deque()
@@ -173,22 +190,28 @@ class LongPrefillManager:
             "land_s": 0.0,
             # rank set: the followers hold a ring cache for it
             "followers_hold": False,
+            # the events of the copies off a captured ring's pair (set,
+            # from the worker, once they are enqueued)
+            "d2h_done": None,
         }
-        try:
-            rec["kc"], rec["vc"] = pre.begin_cache(s_pad)
-        except Exception:  # noqa: BLE001 — e.g. OOM sizing the
-            # full-sequence cache; the chunked path still serves this
-            logger.exception(
-                "long prefill cache alloc failed for %s; using chunked "
-                "prefill", seq.request_id,
-            )
-            return False
+        if self._captured:
+            # its cache is the pair's, claimed in advance() when free
+            rec["state"] = "queued"
+        else:
+            try:
+                rec["kc"], rec["vc"] = pre.begin_cache(s_pad)
+            except Exception:  # noqa: BLE001 — e.g. OOM sizing the
+                # full-sequence cache; the chunked path still serves this
+                logger.exception(
+                    "long prefill cache alloc failed for %s; using "
+                    "chunked prefill", seq.request_id,
+                )
+                return False
         old = self._jobs.pop(seq.request_id, None)
         if old is not None:
             # preempt-then-readmit inside one schedule(): the stale
             # job's table is gone — only the fresh record may land
-            old["cancelled"] = True
-            self._release(old)
+            self._forget(old)
         self._jobs[seq.request_id] = rec
         self.requests_total += 1
         return True
@@ -205,7 +228,7 @@ class LongPrefillManager:
         is False when nothing moved (the engine may yield briefly)."""
         done: list[dict] = []
         failed: list[dict] = []
-        progressed = False
+        progressed = self._captured and self._claim_pair()
         for rec in list(self._jobs.values()):
             # cancelled records never linger here: cancel() and start()'s
             # stale-job replacement pop them from _jobs with the flag set
@@ -214,11 +237,12 @@ class LongPrefillManager:
             if state == "ringing":
                 try:
                     self._dispatch_next_chunk(rec)
-                except Exception as e:  # noqa: BLE001 — a chunk dispatch
+                except Exception as e:  # noqa: BLE001 — an eager chunk's
                     # failure (e.g. an OOM of the score tensors) must
                     # fail ONE request back to the chunked path, never
-                    # the step loop; a rank-set failure is not one
-                    if self._rank_set_failure(e):
+                    # the step loop; a captured chunk's or a rank set's
+                    # is not one
+                    if self._captured or self._rank_set_failure(e):
                         raise
                     logger.exception(
                         "long prefill chunk dispatch failed for %s",
@@ -272,8 +296,43 @@ class LongPrefillManager:
         parking new data; device buffers drop with the record."""
         rec = self._jobs.pop(request_id, None)
         if rec is not None:
-            rec["cancelled"] = True
-            self._release(rec)
+            self._forget(rec)
+
+    def _forget(self, rec: dict) -> None:
+        rec["cancelled"] = True
+        self._release(rec)
+        if rec["state"] in ("queued", "ringing") and rec["d2h_done"] is None:
+            # nothing copies off the pair: the next prompt's zeroing
+            # follows this one's chunks on the step thread's stream
+            rec["d2h_done"] = []
+
+    # stackcheck: hot-path — a captured ring's cache pair passes to the
+    # next queued prompt: stream waits and an in-place zeroing, no host
+    # wait (the worker's flag says when its copies are enqueued)
+    def _claim_pair(self) -> bool:
+        """Hand the captured ring's cache pair to the oldest queued job
+        once its holder's copies off it are enqueued (their events are
+        waited on by this thread's stream before begin_cache zeroes the
+        pair). Returns True when a job began ringing."""
+        owner = self._pair_owner
+        if owner is not None:
+            if owner["d2h_done"] is None:
+                return False
+            self._pair_wait, self._pair_owner = owner["d2h_done"], None
+        rec = next((r for r in self._jobs.values()
+                    if r["state"] == "queued"), None)
+        if rec is None:
+            return False
+        pre = self.prefiller
+        if pre.device.type == "cuda":
+            stream = torch.cuda.current_stream(pre.device)
+            for ev in self._pair_wait:
+                stream.wait_event(ev)
+        self._pair_wait = []
+        rec["kc"], rec["vc"] = pre.begin_cache(rec["s_pad"])
+        rec["state"] = "ringing"
+        self._pair_owner = rec
+        return True
 
     def _rank_set_failure(self, e: Exception) -> bool:
         """True when `e` broke the rank set (a follower failed, or a
@@ -297,8 +356,9 @@ class LongPrefillManager:
                 self._cv.notify()
             self._worker.join(timeout=2.0)
 
-    # stackcheck: hot-path — enqueue-only: one eager ring-chunk forward
-    # plus the NEXT chunk's staged token copy; no device fetch
+    # stackcheck: hot-path — enqueue-only: one ring chunk (a replay or
+    # an eager forward) plus the NEXT chunk's staged token copy; no
+    # device fetch
     def _dispatch_next_chunk(self, rec: dict) -> None:
         pre = self.prefiller
         C = self.chunk
@@ -410,15 +470,20 @@ class LongPrefillManager:
                 )
                 rec["state"] = "failed"
 
-    def _to_host(self, tensors: list[torch.Tensor],
-                 events: list) -> list[torch.Tensor]:
+    def _to_host(self, tensors: list[torch.Tensor], events: list,
+                 rec: dict) -> list[torch.Tensor]:
         """Copy device tensors into pinned host buffers, ordered after the
         ring's events; waits for those copies only. A device-to-host copy
         runs on the current stream of its SOURCE card, so each card of
         the ring gets a worker stream of its own that waits on the events
-        first, and the worker waits on every one of those streams. CPU
-        tensors pass through."""
+        first, and the worker waits on every one of those streams. Once
+        the copies are enqueued, an event recorded on each stream is
+        parked as rec["d2h_done"]. CPU tensors pass through (copied when
+        they are a captured ring's shared pair)."""
         if not events:
+            if self._captured:
+                tensors = [t.clone() for t in tensors]
+            rec["d2h_done"] = []
             return tensors
         torch.cuda.set_device(self.prefiller.device)
         streams: dict[torch.device, torch.cuda.Stream] = {}
@@ -442,6 +507,7 @@ class LongPrefillManager:
                 t.record_stream(stream)
                 host.copy_(t, non_blocking=True)
             out.append(host)
+        rec["d2h_done"] = [s.record_event() for s in streams.values()]
         for stream in streams.values():
             stream.synchronize()
         return out
@@ -450,6 +516,15 @@ class LongPrefillManager:
         """Worker body: wait out the ring, pull logits + KV to the host,
         slice rows into wire-format block batches. All the blocking
         device IO of the long-prefill path lives here."""
+        try:
+            self._materialize_job(rec)
+        finally:
+            if rec["d2h_done"] is None:
+                # cancelled or failed before its copies: the ring's own
+                # events order the pair's next use
+                rec["d2h_done"] = list(rec["ring_events"] or [])
+
+    def _materialize_job(self, rec: dict) -> None:
         kc, vc = rec["kc"], rec["vc"]
         events = rec["ring_events"] or []
         for ev in events:
@@ -460,9 +535,13 @@ class LongPrefillManager:
         if rec["cancelled"]:
             return
         sp = len(kc.shards)
-        host = self._to_host([rec["logits_dev"], *kc.shards, *vc.shards],
-                             events)
-        logits, k_sh, v_sh = host[0], host[1:1 + sp], host[1 + sp:]
+        R = kc.rows
+        # whole storages: one contiguous copy a shard
+        host = self._to_host([rec["logits_dev"], *kc.storage, *vc.storage],
+                             events, rec)
+        logits = host[0]
+        k_sh, v_sh = ([t[:, :, :R] for t in host[1 + i * sp:1 + (i + 1) * sp]]
+                      for i in range(2))
         # release the device references before the (slow) host
         # relayout: the ring cache frees as soon as they drop
         rec["kc"] = rec["vc"] = rec["logits_dev"] = None
@@ -471,7 +550,6 @@ class LongPrefillManager:
         self.phase_s["d2h"] += rec["d2h_s"]
         rec["logits"] = logits
         bs = self.block_size
-        R = k_sh[0].shape[2]
         L, nkv, _, d = k_sh[0].shape
         total = rec["n_blocks"]
         b0 = rec["start_block"]

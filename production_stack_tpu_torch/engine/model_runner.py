@@ -38,7 +38,11 @@ ragged round's iterations 1..K-1 and the composed round's loop replay
 the same iteration graph). A dispatch copies its packed buffer (or its
 fields) into the variant's static buffers; every per-dispatch value,
 the prefill kernel's chunk start included, reaches the program that
-way. Building a variant is a compile event. ``ModelRunner(eager=True)``
+way. Building a variant is a compile event. The long-prefill ring's
+chunk, which JAX jit-caches per (C, S_pad) in its prefiller's
+``_chunk_fns`` and does not count as a runner compile event, is a
+variant of the prefiller's own (parallel/long_context.py), in a graph
+pool of its own (``build_long_prefiller``). ``ModelRunner(eager=True)``
 runs every dispatch eagerly (the comparison control). The
 ``precompile_*`` methods run the JAX runner's trash dispatches at the
 top of the block pool, and ``precompile_cover`` what those leave to a
@@ -556,6 +560,7 @@ class ModelRunner:
             budget = int(free - total * (1.0 - cfg.hbm_utilization))
             if not self.eager:
                 budget -= self._graph_pool_reserve()
+                budget -= sum(self._ring_reserve())
         else:
             param_bytes = mc.num_params() * self.dtype.itemsize // ways
             budget = int(16 * 2**30 * cfg.hbm_utilization) - param_bytes
@@ -3869,8 +3874,13 @@ class ModelRunner:
         A ring on one card computes what a ring over sp cards computes
         (each rank holds S_pad / sp cache rows and the same hops run in
         the same order), but its ranks share that card: its times are
-        not sp speeds. Raises for sp < 2 and under pipeline parallelism
-        (the engine serves those prompts chunked, as JAX does)."""
+        not sp speeds. Such a ring, outside a rank set and under a
+        runner that captures its programs, is captured
+        (parallel/long_context.py): its chunk programs share a graph pool
+        of their own, which the KV sizing kept back with the ring's cache
+        pair (`_ring_reserve`). Raises for sp < 2 and under pipeline
+        parallelism (the engine serves those prompts chunked, as JAX
+        does)."""
         from production_stack_tpu_torch.parallel.long_context import (
             LongContextPrefiller,
             make_sp_ring,
@@ -3882,6 +3892,19 @@ class ModelRunner:
         if self.pp_size > 1:
             raise ValueError("the long-context ring does not run under "
                              "pipeline parallelism")
+        pool = self._ring_devices()
+        captured = self._ring_captured(pool)
+        return LongContextPrefiller(
+            self.local_config, self.params, make_sp_ring(sp, pool),
+            cache_dtype=self.cache_dtype, tp_group=self._tp_comm,
+            captured=captured,
+            pool=(torch.cuda.graph_pool_handle()
+                  if captured and self.device.type == "cuda" else None),
+        )
+
+    def _ring_devices(self) -> list[torch.device]:
+        """The long-context ring's devices (build_long_prefiller)."""
+        sp = self.config.context_parallel_size
         dev = self.device
         if dev.type == "cuda":
             serving = (dev.index if dev.index is not None
@@ -3895,14 +3918,41 @@ class ModelRunner:
             r = self.group.tp_rank if self.group is not None else 0
             mine = (spare[r * sp:(r + 1) * sp]
                     if len(spare) >= self.tp_size * sp else [])
-            pool = ([torch.device("cuda", i) for i in mine]
+            return ([torch.device("cuda", i) for i in mine]
                     or [torch.device("cuda", serving)] * sp)
-        else:
-            pool = [dev] * sp
-        return LongContextPrefiller(
-            self.local_config, self.params, make_sp_ring(sp, pool),
-            cache_dtype=self.cache_dtype, tp_group=self._tp_comm,
-        )
+        return [dev] * sp
+
+    def _ring_captured(self, ring: list[torch.device]) -> bool:
+        """A ring whose ranks share this runner's device, outside a rank
+        set, runs captured unless the runner is eager."""
+        here = self.device
+        if here.type == "cuda" and here.index is None:
+            here = torch.device("cuda", torch.cuda.current_device())
+        return (not self.eager and self.group is None
+                and all(d == here for d in ring))
+
+    def _ring_reserve(self) -> tuple[int, int]:
+        """(cache pair bytes, graph pool bytes) a captured long-prefill
+        ring keeps on this card at its longest prompt (max_model_len,
+        padded to the chunk ladder); (0, 0) with no captured ring here.
+        The KV sizing keeps them back, so the lane's memory is taken at
+        boot instead of failing a long prompt later."""
+        from production_stack_tpu_torch.parallel import long_context
+
+        cfg = self.config
+        if (cfg.long_prefill_threshold is None
+                or cfg.context_parallel_size <= 1 or cfg.multihost
+                or self.pp_size > 1
+                or not self._ring_captured(self._ring_devices())):
+            return 0, 0
+        sp = cfg.context_parallel_size
+        chunk = long_context.chunk_to(
+            sp, max(cfg.long_prefill_chunk, self.block_size),
+            self.block_size)
+        return long_context.ring_reserve_bytes(
+            self.local_config, sp, chunk,
+            long_context.seq_pad(self.max_model_len, chunk),
+            self.cache_dtype.itemsize)
 
     def collect_ring_cache(self, kc, vc) -> tuple | None:
         """A tp rank set's ring cache on rank 0: every rank's kv heads of

@@ -40,9 +40,12 @@ logs a follower's death, ``/health`` answers 503 from then on, and
 ``stop`` stops the followers. The Prometheus text is written by hand and
 HTTP/1.1 is parsed by hand (``asyncio.start_server``, the reader in
 ``utils/http.py``, which the router shares): the port needs neither
-aiohttp nor prometheus_client. One request per connection
-(``Connection: close``); streamed bodies are server-sent events ended by
-closing the connection. ``run`` serves until SIGINT or SIGTERM, then
+aiohttp nor prometheus_client. A connection serves requests one after
+another, as aiohttp's server does, until the client asks to close it
+or sits idle for ``http.KEEPALIVE_TIMEOUT_S``; streamed bodies are
+server-sent events in chunked encoding, ended by its last chunk, and
+``/debug/connections`` counts the connections accepted and the requests
+served on them. ``run`` serves until SIGINT or SIGTERM, then
 stops as aiohttp's ``web.run_app`` does: it stops listening, lets the
 requests in flight finish within ``SHUTDOWN_TIMEOUT_S`` (cancelling what
 is left after it), and runs ``stop``, which ends in the engine's
@@ -82,6 +85,7 @@ from production_stack_tpu_torch.tracing import (
 )
 from production_stack_tpu_torch.utils import init_logger
 from production_stack_tpu_torch.utils.http import (
+    KEEPALIVE_TIMEOUT_S,
     BadHttpMessage,
     HttpError,
     HttpRequest,
@@ -151,8 +155,14 @@ class EngineServer:
         self._trace_flush_task: asyncio.Task | None = None
         self._tp_watch_task: asyncio.Task | None = None
         self._kv_transfer_server = None
-        # the connections being served (a signalled stop drains them)
+        # the connections serving a request (a signalled stop drains
+        # them), the ones waiting for their next request (a stop closes
+        # them), and the counts /debug/connections reads
         self._inflight: set[asyncio.Task] = set()
+        self._idle: set[asyncio.StreamWriter] = set()
+        self._closing = False
+        self.connections_accepted = 0
+        self.requests_served = 0
         self._routes = {
             ("GET", "/health"): self.handle_health,
             ("GET", "/version"): self.handle_version,
@@ -176,6 +186,7 @@ class EngineServer:
             ("GET", "/debug/kernel_launches"): self.handle_kernel_launches,
             ("DELETE", "/debug/kernel_launches"):
                 self.handle_reset_kernel_launches,
+            ("GET", "/debug/connections"): self.handle_connections,
         }
 
     # -- lifecycle ---------------------------------------------------------
@@ -221,6 +232,7 @@ class EngineServer:
             log_otlp_payload(self.engine.tracer)
         if self._server is not None:
             self._server.close()
+            self._close_idle()
             await self._server.wait_closed()
         if self._kv_transfer_server is not None:
             # its stop waits for the peers' connections to close; a decode
@@ -260,6 +272,7 @@ class EngineServer:
         cancelled. Returns how many were cancelled."""
         if self._server is not None:
             self._server.close()
+        self._close_idle()
         pending = {t for t in self._inflight if not t.done()}
         if pending:
             logger.info("stopping: %d request(s) in flight, waiting up to "
@@ -291,65 +304,103 @@ class EngineServer:
 
         asyncio.run(main())
 
+    def _close_idle(self) -> None:
+        """Serve no further request: idle connections close now, busy
+        ones after their response."""
+        self._closing = True
+        for writer in list(self._idle):
+            writer.close()
+
     # -- HTTP plumbing -----------------------------------------------------
     async def _handle(self, reader: asyncio.StreamReader,
                       writer: asyncio.StreamWriter) -> None:
-        task = asyncio.current_task()
-        self._inflight.add(task)
+        """One client connection: requests one after another while the
+        client keeps it alive (idle connections close at a stop)."""
+        self.connections_accepted += 1
+        conn = _Conn(writer)
         try:
-            try:
-                method, path, req = await read_request(reader)
-            except BadHttpMessage as e:
-                await _send(writer, 400, str(e).encode(),
-                            "text/plain; charset=utf-8")
-                return
-            except HttpError as e:
-                await _send_json(writer, e.status, proto.error_json(
-                    str(e), code=e.status))
-                return
-            except (asyncio.IncompleteReadError, ConnectionError):
-                return
-            if self.config.api_key and (
-                path.startswith("/v1/") or path in _AUTH_PATHS
-            ) and not _key_matches(req.headers.get("authorization", ""),
-                                   self.config.api_key):
-                # before the route lookup: an unknown /v1/ path answers
-                # 401 too, as the reference's middleware does
-                await _send_json(writer, 401, proto.error_json(
-                    "invalid API key", "authentication_error", 401))
-                return
-            handler = self._routes.get((method, path))
-            if handler is None:
-                known = any(p == path for _, p in self._routes)
-                status = 405 if known else 404
-                await _send_json(writer, status, proto.error_json(
-                    f"{method} {path} not served", code=status))
-                return
-            try:
-                await handler(req, writer)
-            except HttpError as e:
-                await _send_json(writer, e.status, proto.error_json(
-                    str(e), e.err_type, e.status))
-            except proto.ProtocolError as e:
-                await _send_json(writer, 400, proto.error_json(str(e)))
-            except NotImplementedError as e:
-                await _send_json(writer, 501, proto.error_json(
-                    str(e), "not_implemented", 501))
-            except EngineSleepingError as e:
-                await _send_json(writer, 503, proto.error_json(
-                    str(e), "service_unavailable", 503))
-            except ValueError as e:
-                await _send_json(writer, 400, proto.error_json(str(e)))
-            except KeyError as e:  # an adapter unloaded since the check
-                await _send_json(writer, 404, proto.error_json(
-                    str(e.args[0]) if e.args else str(e), code=404))
+            while not self._closing:
+                self._idle.add(writer)
+                try:
+                    method, path, req = await read_request(
+                        reader, idle_timeout=KEEPALIVE_TIMEOUT_S)
+                except BadHttpMessage as e:
+                    await _send(conn, 400, str(e).encode(),
+                                "text/plain; charset=utf-8")
+                    return
+                except HttpError as e:
+                    await _send_json(conn, e.status, proto.error_json(
+                        str(e), code=e.status))
+                    return
+                except (asyncio.IncompleteReadError, asyncio.TimeoutError,
+                        ConnectionError):
+                    return
+                finally:
+                    self._idle.discard(writer)
+                conn.keep = req.keep_alive and not self._closing
+                task = asyncio.current_task()
+                self._inflight.add(task)
+                try:
+                    await self._serve(method, path, req, conn)
+                finally:
+                    self._inflight.discard(task)
+                self.requests_served += 1
+                if conn.open or not conn.keep:
+                    return
         except ConnectionError:
             pass  # the client went away mid-response
         except Exception:  # noqa: BLE001 — one request, not the server
             logger.exception("request failed")
         finally:
+            self._idle.discard(writer)
             writer.close()
-            self._inflight.discard(task)
+
+    async def _serve(self, method: str, path: str, req: HttpRequest,
+                     conn: "_Conn") -> None:
+        """Answer one request on `conn`. An error after a streamed
+        response began cannot be answered: the connection then closes."""
+        if self.config.api_key and (
+            path.startswith("/v1/") or path in _AUTH_PATHS
+        ) and not _key_matches(req.headers.get("authorization", ""),
+                               self.config.api_key):
+            # before the route lookup: an unknown /v1/ path answers
+            # 401 too, as the reference's middleware does
+            await _send_json(conn, 401, proto.error_json(
+                "invalid API key", "authentication_error", 401))
+            return
+        handler = self._routes.get((method, path))
+        if handler is None:
+            known = any(p == path for _, p in self._routes)
+            status = 405 if known else 404
+            await _send_json(conn, status, proto.error_json(
+                f"{method} {path} not served", code=status))
+            return
+        try:
+            await handler(req, conn)
+        except HttpError as e:
+            await _send_json(conn, e.status, proto.error_json(
+                str(e), e.err_type, e.status))
+        except proto.ProtocolError as e:
+            await _send_json(conn, 400, proto.error_json(str(e)))
+        except NotImplementedError as e:
+            await _send_json(conn, 501, proto.error_json(
+                str(e), "not_implemented", 501))
+        except EngineSleepingError as e:
+            await _send_json(conn, 503, proto.error_json(
+                str(e), "service_unavailable", 503))
+        except ValueError as e:
+            await _send_json(conn, 400, proto.error_json(str(e)))
+        except KeyError as e:  # an adapter unloaded since the check
+            await _send_json(conn, 404, proto.error_json(
+                str(e.args[0]) if e.args else str(e), code=404))
+
+    async def handle_connections(self, req, writer) -> None:
+        """The connections this server accepted and the requests it
+        served on them (a client that keeps its connections alive makes
+        fewer of the first)."""
+        await _send_json(writer, 200, {
+            "accepted": self.connections_accepted,
+            "requests": self.requests_served})
 
     # -- endpoints ---------------------------------------------------------
     async def handle_health(self, req, writer) -> None:
@@ -867,7 +918,7 @@ class EngineServer:
             except Exception as e:  # noqa: BLE001 — surfaced as a chunk
                 await queue.put(("error", idx, e))
 
-        writer.write(head(200, "text/event-stream", None, job.headers()))
+        _stream_head(writer, job.headers())
         tasks = [asyncio.ensure_future(pump(*p)) for p in plan]
         try:
             if echoes and not job.chat:
@@ -906,8 +957,7 @@ class EngineServer:
             if include_usage:
                 await _event(writer, proto.usage_tail_chunk(
                     job.request_id, job.model, job.chat, n_prompt, n_out))
-            writer.write(b"data: [DONE]\n\n")
-            await writer.drain()
+            await _stream_end(writer)
         finally:
             for t in tasks:
                 t.cancel()
@@ -954,7 +1004,7 @@ class EngineServer:
         # the first output comes before the headers, so a request the
         # engine refuses still gets a plain error response
         out = await anext(gen)
-        writer.write(head(200, "text/event-stream", None, job.headers()))
+        _stream_head(writer, job.headers())
         if echo and not job.chat:
             # OpenAI echo streams the prompt text as the first chunk
             await _event(writer, proto.completion_chunk(
@@ -979,8 +1029,7 @@ class EngineServer:
             await _event(writer, proto.usage_tail_chunk(
                 job.request_id, job.model, job.chat,
                 len(out.prompt_token_ids), len(out.token_ids)))
-        writer.write(b"data: [DONE]\n\n")
-        await writer.drain()
+        await _stream_end(writer)
 
     # -- logprobs in the OpenAI wire shapes ----------------------------------
     def _completion_logprobs(self, entries: list[dict] | None,
@@ -1067,15 +1116,56 @@ def _json(body: bytes) -> dict:
     return req
 
 
+class _Conn:
+    """A client connection's writer, as the handlers write to it: a
+    response goes out whole (`_send`) or as a chunked event stream
+    (`_stream_head`, `_event`, `_stream_end`). `keep`: the connection
+    serves another request after this one; `open`: a streamed body has
+    begun and not ended."""
+
+    def __init__(self, writer: asyncio.StreamWriter):
+        self.writer = writer
+        self.keep = False
+        self.open = False
+
+    def write(self, data: bytes) -> None:
+        if self.open:
+            data = b"%x\r\n%s\r\n" % (len(data), data)
+        self.writer.write(data)
+
+    async def drain(self) -> None:
+        await self.writer.drain()
+
+
+def _stream_head(conn: _Conn, extra: dict[str, str]) -> None:
+    """Begin a server-sent event stream (chunked)."""
+    conn.write(head(200, "text/event-stream", None, extra,
+                    close=not conn.keep))
+    conn.open = True
+
+
+async def _stream_end(conn: _Conn) -> None:
+    """The stream's [DONE] event, then chunked encoding's last chunk."""
+    conn.write(b"data: [DONE]\n\n")
+    conn.open = False
+    conn.writer.write(b"0\r\n\r\n")
+    await conn.drain()
+
+
 async def _event(writer, data: dict) -> None:
     writer.write(b"data: " + json.dumps(data).encode() + b"\n\n")
     await writer.drain()
 
 
-async def _send(writer, status: int, payload: bytes, content_type: str,
+async def _send(conn: _Conn, status: int, payload: bytes, content_type: str,
                 extra: dict[str, str] | None = None) -> None:
-    writer.write(head(status, content_type, len(payload), extra) + payload)
-    await writer.drain()
+    if conn.open:
+        # a streamed response already began: no second head on it
+        conn.keep = False
+        return
+    conn.write(head(status, content_type, len(payload), extra,
+                    close=not conn.keep) + payload)
+    await conn.drain()
 
 
 async def _send_json(writer, status: int, obj: dict,

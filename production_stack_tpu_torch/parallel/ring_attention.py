@@ -20,6 +20,12 @@ by ``q_offset`` in chunked prefill), KV block j covers
 diagonal and fully masked cases. ``window`` adds HF sliding-window
 semantics (keys j with q_pos - window < j <= q_pos).
 
+A rank's query rows go through the hops in pieces whose float32
+scores over one KV block stay under ``RING_SCORE_BYTES``: a chunk's
+peak memory (which a captured chunk's graph keeps for as long as it
+lives) is then bounded at any padded length. Softmax is per row, so the
+pieces compute what one pass would.
+
 GQA groups q heads onto kv heads inside the products, so the moved
 blocks stay at kv-head width. Scores and values are float32 products of
 the inputs (JAX's ``preferred_element_type=jnp.float32``): bf16 inputs
@@ -31,6 +37,9 @@ here: no kernel.
 from __future__ import annotations
 
 import torch
+
+# the most float32 score bytes (b, h, rows, lk) a rank holds for one hop
+RING_SCORE_BYTES = 256 * 2**20
 
 
 def _grouped_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -81,11 +90,25 @@ def ring_attention_local(
     None = the classic full-sequence ring (q and kv cover the same span).
     """
     b, lq, h, d = q.shape
+    lk = k_blocks[0].shape[1]
+    scale = d ** -0.5 if scale is None else scale
+    rows = max(1, RING_SCORE_BYTES // (4 * b * h * lk))
+    pieces = [
+        _ring_rows(q[:, r0:r0 + rows], k_blocks, v_blocks, rank,
+                   rank * lq + r0, q_offset, causal, scale, window)
+        for r0 in range(0, lq, rows)]
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=1)
+
+
+def _ring_rows(q, k_blocks, v_blocks, rank, row0, q_offset, causal,
+               scale, window) -> torch.Tensor:
+    """The hops of `q` [b, n, h, d], the query rows from global row
+    `row0` (before `q_offset`) of rank `rank`'s block."""
+    b, lq, h, d = q.shape
     sp = len(k_blocks)
     lk = k_blocks[0].shape[1]
     dev = q.device
-    scale = d ** -0.5 if scale is None else scale
-    qpos = rank * lq + torch.arange(lq, device=dev)
+    qpos = row0 + torch.arange(lq, device=dev)
     if q_offset is not None:
         qpos = qpos + q_offset
     acc = torch.zeros((b, lq, h, d), dtype=torch.float32, device=dev)

@@ -5,7 +5,11 @@ so the port speaks HTTP/1.1 itself:
 
 - **Server side:** ``read_request`` parses one request (head, then a
   ``Content-Length`` or chunked body, with aiohttp's 400 texts for the
-  framings it refuses), ``head`` writes a response head.
+  framings it refuses), ``head`` writes a response head (a body of
+  unknown length is sent chunked). A connection serves request after
+  request, as aiohttp's server does, until the client sends
+  ``Connection: close`` (or speaks HTTP/1.0 without keep-alive) or sits
+  idle for ``KEEPALIVE_TIMEOUT_S`` (aiohttp's 75 s).
 - **Client side:** ``ClientSession`` is the subset of aiohttp's client
   the router uses: ``get`` / ``post`` / ``patch`` / ``delete`` as async
   context managers (``json=``, ``data=``, ``params=``, ``headers=``,
@@ -14,8 +18,15 @@ so the port speaks HTTP/1.1 itself:
   ``content``, whose ``iter_any()`` yields the body as it arrives (chunked
   encoding decoded, ``Content-Length`` or connection close ended) and
   whose async iteration yields lines. A server-sent event stream is
-  relayed chunk by chunk this way, never buffered to its end. Each request
-  opens its own connection (``Connection: close``). Failures raise
+  relayed chunk by chunk this way, never buffered to its end. The
+  session pools connections per (host, port, ssl) with no limit, as
+  aiohttp's ``TCPConnector(limit=0)`` does: a connection goes back to
+  the pool once its response body was read to its end and the server
+  did not ask to close it; a body left unread, a cut stream, an error or
+  a timeout closes it. A pooled connection idle past
+  ``POOL_KEEPALIVE_S`` (the connector's 15 s) is closed, and a request
+  whose pooled connection the server closed while it sat idle is sent
+  once more on a fresh one, as aiohttp retries. Failures raise
   ``ClientError`` subclasses; timeouts raise ``asyncio.TimeoutError``, as
   aiohttp's do.
 """
@@ -40,6 +51,12 @@ REASONS = {
     504: "Gateway Timeout",
 }
 MAX_BODY_BYTES = 64 * 2**20
+# a server connection idle this long between requests is closed
+# (aiohttp's server keepalive_timeout)
+KEEPALIVE_TIMEOUT_S = 75.0
+# a pooled client connection idle this long is closed rather than reused
+# (aiohttp's TCPConnector keepalive_timeout)
+POOL_KEEPALIVE_S = 15.0
 _HEX_DIGITS = b"0123456789abcdefABCDEF"
 
 
@@ -69,18 +86,33 @@ class HttpRequest:
     # (name, value) as sent, in order (a proxy forwards these)
     raw_headers: list[tuple[str, str]] = dataclasses.field(
         default_factory=list)
+    version: str = "HTTP/1.1"
+
+    @property
+    def keep_alive(self) -> bool:
+        """Whether the client lets the connection serve another request
+        after this one: HTTP/1.1 unless it sent ``Connection: close``,
+        HTTP/1.0 only with ``Connection: keep-alive``."""
+        tokens = {t.strip().lower() for t in
+                  self.headers.get("connection", "").split(",")}
+        if self.version.upper() == "HTTP/1.0":
+            return "keep-alive" in tokens
+        return "close" not in tokens
 
 
 async def read_request(reader: asyncio.StreamReader,
-                       writer: asyncio.StreamWriter | None = None):
+                       writer: asyncio.StreamWriter | None = None,
+                       idle_timeout: float | None = None):
     """One request off the connection -> (METHOD, path, HttpRequest).
     With a writer, an ``Expect: 100-continue`` is answered before the
-    body is read (curl sends it for bodies past 1 KiB)."""
-    line = await reader.readline()
+    body is read (curl sends it for bodies past 1 KiB). `idle_timeout`
+    bounds the wait for the request line (asyncio.TimeoutError)."""
+    line = await (reader.readline() if idle_timeout is None
+                  else asyncio.wait_for(reader.readline(), idle_timeout))
     if not line:
         raise asyncio.IncompleteReadError(b"", None)
     try:
-        method, target, _version = line.decode("latin-1").split()
+        method, target, version = line.decode("latin-1").split()
     except ValueError:
         raise HttpError(400, "malformed request line") from None
     headers: dict[str, str] = {}
@@ -109,7 +141,8 @@ async def read_request(reader: asyncio.StreamReader,
         body = await reader.readexactly(length) if length else b""
     path, _, qs = target.partition("?")
     query = {k: v[-1] for k, v in parse_qs(qs).items()}
-    return method.upper(), path, HttpRequest(body, headers, query, raw)
+    return method.upper(), path, HttpRequest(body, headers, query, raw,
+                                             version)
 
 
 def content_length(value: str | None, line: bytes | None) -> int:
@@ -190,17 +223,20 @@ def http_date() -> str:
 
 
 def head(status: int, content_type: str, length: int | None,
-         extra: dict[str, str] | None = None) -> bytes:
+         extra: dict[str, str] | None = None, close: bool = False) -> bytes:
+    """A response head: a body of `length` bytes, or (None) a chunked
+    one; `close` says the connection ends after this response."""
     lines = [
         f"HTTP/1.1 {status} {REASONS.get(status, 'Error')}",
         f"Content-Type: {content_type}",
-        "Connection: close",
         f"Date: {http_date()}",
     ]
+    if close:
+        lines.append("Connection: close")
     if length is not None:
         lines.append(f"Content-Length: {length}")
     else:
-        lines.append("Cache-Control: no-cache")
+        lines += ["Transfer-Encoding: chunked", "Cache-Control: no-cache"]
     lines += [f"{k}: {v}" for k, v in (extra or {}).items()]
     return ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
 
@@ -419,7 +455,8 @@ class StreamBody:
 
 class ClientResponse:
     def __init__(self, method: str, url: str, status: int, reason: str,
-                 headers: Headers, content: StreamBody, writer):
+                 headers: Headers, content: StreamBody, writer,
+                 release=None):
         self.method = method
         self.url = url
         self.status = status
@@ -427,6 +464,9 @@ class ClientResponse:
         self.headers = headers
         self.content = content
         self._writer = writer
+        # hands the connection back to its session's pool (None: the
+        # connection closes with the response)
+        self._release = release
         self._body: bytes | None = None
 
     @property
@@ -467,8 +507,14 @@ class ClientResponse:
             raise ClientResponseError(self.status, self.reason, self.url)
 
     def close(self) -> None:
+        """Done with the response: its connection goes back to the pool
+        when the body was read to its end and the server keeps it open,
+        and closes otherwise."""
         if self._writer is not None:
-            self._writer.close()
+            if self._release is not None and self.content._eof:
+                self._release()
+            else:
+                self._writer.close()
             self._writer = None
 
 
@@ -499,21 +545,49 @@ def _ssl_context(value) -> _ssl.SSLContext | None:
 
 class ClientSession:
     """aiohttp.ClientSession's subset on stdlib asyncio (see the module
-    docstring). One connection a request, closed with its response."""
+    docstring), its connections pooled per (host, port, ssl)."""
 
     def __init__(self, timeout: ClientTimeout | None = None,
                  headers: dict | None = None, **_ignored):
         self.timeout = timeout or ClientTimeout(total=300.0)
         self.headers = dict(headers or {})
         self._closed = False
+        # idle connections by (host, port, ssl): (reader, writer, since)
+        self._pool: dict[tuple, list] = {}
+        # connections this session opened
+        self.connections_opened = 0
 
     @property
     def closed(self) -> bool:
         return self._closed
 
     async def close(self) -> None:
-        # each response closes its own connection
         self._closed = True
+        for conns in self._pool.values():
+            for _, writer, _ in conns:
+                writer.close()
+        self._pool.clear()
+
+    def _acquire(self, key: tuple):
+        """An idle pooled connection of `key` the server has not closed,
+        or None."""
+        conns = self._pool.get(key)
+        now = time.monotonic()
+        while conns:
+            reader, writer, since = conns.pop()
+            if (now - since > POOL_KEEPALIVE_S or reader.at_eof()
+                    or writer.is_closing()):
+                writer.close()
+                continue
+            return reader, writer
+        return None
+
+    def _put_back(self, key: tuple, reader, writer) -> None:
+        if self._closed or writer.is_closing() or reader.at_eof():
+            writer.close()
+            return
+        self._pool.setdefault(key, []).append(
+            (reader, writer, time.monotonic()))
 
     async def __aenter__(self) -> "ClientSession":
         return self
@@ -571,34 +645,53 @@ class ClientSession:
         hdrs.setdefault("Host", host_hdr)
         hdrs.setdefault("Accept", "*/*")
         hdrs["Content-Length"] = str(len(body))
-        hdrs["Connection"] = "close"
         for k in [k for k in hdrs if k.lower() == "transfer-encoding"]:
             del hdrs[k]
-        try:
-            reader, writer = await clock.run(
-                asyncio.open_connection(
-                    host, port,
-                    ssl=_ssl_context(ssl) if secure else None,
-                    server_hostname=host if secure else None),
-                clock.t.sock_connect, clock.t.connect)
-        except asyncio.TimeoutError:
-            raise
-        except OSError as e:
-            raise ClientConnectorError(host, port, ssl, e) from e
-        try:
-            lines = [f"{method} {target} HTTP/1.1"] + [
-                f"{k}: {v}" for k, v in hdrs.items()]
-            writer.write(("\r\n".join(lines) + "\r\n\r\n").encode(
-                "utf-8", "surrogateescape") + body)
-            await clock.run(writer.drain())
-            resp = await self._read_head(method, url, reader, writer, clock)
-        except BaseException:
-            writer.close()
-            raise
-        return resp
+        lines = [f"{method} {target} HTTP/1.1"] + [
+            f"{k}: {v}" for k, v in hdrs.items()]
+        data = ("\r\n".join(lines) + "\r\n\r\n").encode(
+            "utf-8", "surrogateescape") + body
+        key = (host, port, secure, ssl if secure else None)
+        pooled = self._acquire(key)
+        while True:
+            if pooled is not None:
+                reader, writer = pooled
+            else:
+                try:
+                    reader, writer = await clock.run(
+                        asyncio.open_connection(
+                            host, port,
+                            ssl=_ssl_context(ssl) if secure else None,
+                            server_hostname=host if secure else None),
+                        clock.t.sock_connect, clock.t.connect)
+                except asyncio.TimeoutError:
+                    raise
+                except OSError as e:
+                    raise ClientConnectorError(host, port, ssl, e) from e
+                self.connections_opened += 1
+            try:
+                writer.write(data)
+                await clock.run(writer.drain())
+                resp = await self._read_head(
+                    method, url, reader, writer, clock,
+                    release=lambda r=reader, w=writer: self._put_back(
+                        key, r, w))
+            except (ServerDisconnectedError, ConnectionResetError,
+                    BrokenPipeError):
+                writer.close()
+                if pooled is None:
+                    raise
+                # the server closed the pooled connection while it sat
+                # idle: once more on a fresh one
+                pooled = None
+                continue
+            except BaseException:
+                writer.close()
+                raise
+            return resp
 
-    async def _read_head(self, method, url, reader, writer, clock
-                         ) -> ClientResponse:
+    async def _read_head(self, method, url, reader, writer, clock,
+                         release=None) -> ClientResponse:
         async def readline() -> bytes:
             try:
                 return await clock.run(reader.readline(),
@@ -611,7 +704,7 @@ class ClientSession:
             if not status_line:
                 raise ServerDisconnectedError()
             try:
-                _v, code, *rest = status_line.decode("latin-1").split(
+                version, code, *rest = status_line.decode("latin-1").split(
                     None, 2)
                 status = int(code)
             except ValueError:
@@ -637,6 +730,11 @@ class ClientSession:
             mode, length = "length", int(hdrs["Content-Length"])
         else:
             mode, length = "close", 0
+        conn = {t.strip().lower()
+                for t in hdrs.get("Connection", "").split(",")}
+        # reusable once its body is read: HTTP/1.1, framed, not closing
+        keep = (version.upper() == "HTTP/1.1" and mode != "close"
+                and "close" not in conn)
         return ClientResponse(method, url, status, reason, hdrs,
                               StreamBody(reader, mode, length, clock),
-                              writer)
+                              writer, release=release if keep else None)

@@ -16,8 +16,9 @@ counterpart:
   413) and ``multipart``.
 - ``Response`` / ``json_response`` (a whole body) and ``StreamResponse``
   (``prepare``, then ``write`` each piece as it comes, chunked encoding,
-  and ``write_eof``; ``force_close`` ends the connection without the
-  last chunk, so the client sees the stream cut).
+  and ``write_eof``, whose last chunk ends the body and leaves the
+  connection open; ``force_close`` ends the connection without the last
+  chunk, so the client sees the stream cut).
 - ``HTTPException`` and the subclasses the router raises; an unknown path
   is ``HTTPNotFound`` and a known path under another method
   ``HTTPMethodNotAllowed``, raised through the middlewares as aiohttp
@@ -25,8 +26,12 @@ counterpart:
 - ``AppRunner`` / ``TCPSite`` and ``run_app`` (which stops on SIGINT or
   SIGTERM, running the cleanup callbacks).
 
-One request per connection (``Connection: close``); a request head or
-body the parser refuses is answered 400 before any handler runs.
+A connection serves requests one after another, as aiohttp's server
+does, until the client asks to close it, a response was cut
+(``force_close``), or it sits idle for ``KEEPALIVE_TIMEOUT_S``; stopping
+a site closes its idle connections at once and the busy ones after their
+response. A request head or body the parser refuses is answered 400
+before any handler runs, and the connection closes.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import re
 import signal
 
 from production_stack_tpu_torch.utils.http import (
+    KEEPALIVE_TIMEOUT_S,
     REASONS,
     BadHttpMessage,
     Headers,
@@ -64,6 +70,8 @@ class StreamResponse:
         self._chunked = False
         self._eof = False
         self.force_closed = False
+        # whether the connection serves another request after this one
+        self._keep_alive = False
 
     @property
     def prepared(self) -> bool:
@@ -81,7 +89,8 @@ class StreamResponse:
             self._chunked = True
         h.setdefault("Date", http_date())
         h.setdefault("Server", SERVER)
-        h["Connection"] = "close"
+        if not self._keep_alive:
+            h["Connection"] = "close"
         lines = [f"HTTP/1.1 {self.status} {self.reason}"]
         lines += [f"{k}: {v}" for k, v in h.items()]
         return ("\r\n".join(lines) + "\r\n\r\n").encode(
@@ -90,6 +99,7 @@ class StreamResponse:
     async def prepare(self, request: "Request") -> "StreamResponse":
         if self._writer is None:
             self._writer = request._writer
+            self._keep_alive = request.keep_alive
             await self._send(self._head(None))
         return self
 
@@ -137,8 +147,10 @@ class Response(StreamResponse):
         elif "Content-Type" not in self.headers:
             self.headers["Content-Type"] = "application/octet-stream"
 
-    async def _render(self, writer, head_only: bool = False) -> None:
+    async def _render(self, writer, head_only: bool = False,
+                      keep_alive: bool = False) -> None:
         self._writer = writer
+        self._keep_alive = keep_alive
         await self._send(self._head(len(self.body))
                          + (b"" if head_only else self.body))
         self._eof = True
@@ -271,6 +283,8 @@ class Request:
         peer = writer.get_extra_info("peername")
         self.remote = peer[0] if isinstance(peer, tuple) else None
         self.client_max_size = app._client_max_size
+        self.version = raw.version
+        self.keep_alive = raw.keep_alive
 
     @property
     def content_type(self) -> str:
@@ -379,6 +393,11 @@ class Application:
         self.on_shutdown: list = []
         self.on_cleanup: list = []
         self._client_max_size = client_max_size
+        # connections waiting for their next request, closed when a site
+        # stops; the count of connections accepted
+        self._idle: set[asyncio.StreamWriter] = set()
+        self._closing = False
+        self.connections_accepted = 0
 
     async def _call(self, request: Request, handler):
         for mw in reversed(self.middlewares):
@@ -387,43 +406,72 @@ class Application:
 
     async def handle_connection(self, reader: asyncio.StreamReader,
                                 writer: asyncio.StreamWriter) -> None:
+        self.connections_accepted += 1
         try:
-            try:
-                method, path, raw = await read_request(reader, writer)
-            except BadHttpMessage as e:
-                await Response(status=400, text=str(e))._render(writer)
-                return
-            except HttpError as e:
-                await Response(status=e.status, text=str(e))._render(writer)
-                return
-            except (asyncio.IncompleteReadError, ConnectionError):
-                return
-            handler, info = self.router.resolve(method, path)
-            request = Request(method, path, raw, writer, self, info)
-            try:
-                resp = await self._call(request, handler)
-            except HTTPException as e:
-                resp = e
-            except Exception:  # noqa: BLE001 — one request, not the server
-                logger.exception("Error handling request %s", path)
-                resp = HTTPInternalServerError(
-                    text="500 Internal Server Error\n\n"
-                         "Server got itself in trouble")
-            if resp is None:
-                raise RuntimeError(f"handler for {path} returned None")
-            if resp.prepared:
-                if not resp._eof and not resp.force_closed:
-                    await resp.write_eof()
-            elif isinstance(resp, Response):
-                await resp._render(writer, head_only=method == "HEAD")
-            else:
-                await resp.prepare(request)
-                await resp.write_eof()
+            while not self._closing:
+                if not await self._handle_request(reader, writer):
+                    break
         except ConnectionError:
             pass  # the client went away mid-response
         except Exception:  # noqa: BLE001
             logger.exception("request failed")
         finally:
+            self._idle.discard(writer)
+            writer.close()
+
+    async def _handle_request(self, reader: asyncio.StreamReader,
+                              writer: asyncio.StreamWriter) -> bool:
+        """Serve one request off the connection; True when it may serve
+        another."""
+        self._idle.add(writer)
+        try:
+            method, path, raw = await read_request(
+                reader, writer, idle_timeout=KEEPALIVE_TIMEOUT_S)
+        except BadHttpMessage as e:
+            await Response(status=400, text=str(e))._render(writer)
+            return False
+        except HttpError as e:
+            await Response(status=e.status, text=str(e))._render(writer)
+            return False
+        except (asyncio.IncompleteReadError, asyncio.TimeoutError,
+                ConnectionError):
+            return False
+        finally:
+            self._idle.discard(writer)
+        handler, info = self.router.resolve(method, path)
+        request = Request(method, path, raw, writer, self, info)
+        keep = request.keep_alive and not self._closing
+        request.keep_alive = keep
+        try:
+            resp = await self._call(request, handler)
+        except HTTPException as e:
+            resp = e
+        except Exception:  # noqa: BLE001 — one request, not the server
+            logger.exception("Error handling request %s", path)
+            resp = HTTPInternalServerError(
+                text="500 Internal Server Error\n\n"
+                     "Server got itself in trouble")
+        if resp is None:
+            raise RuntimeError(f"handler for {path} returned None")
+        if resp.prepared:
+            if resp.force_closed:
+                return False
+            if not resp._eof:
+                await resp.write_eof()
+            return keep and resp._keep_alive
+        if isinstance(resp, Response):
+            await resp._render(writer, head_only=method == "HEAD",
+                               keep_alive=keep)
+            return keep
+        await resp.prepare(request)
+        await resp.write_eof()
+        return keep
+
+    def close_idle_connections(self) -> None:
+        """Stop serving: idle connections close now, busy ones after
+        their response."""
+        self._closing = True
+        for writer in list(self._idle):
             writer.close()
 
 
@@ -462,6 +510,7 @@ class TCPSite:
     async def stop(self) -> None:
         if self._server is not None:
             self._server.close()
+            self.runner.app.close_idle_connections()
             await self._server.wait_closed()
             self._server = None
 

@@ -377,28 +377,55 @@ def test_mixed_scenario_after_precompile_builds_nothing(engines):
     assert teng.runner.compile_events == before
 
 
-def test_loop_without_done_read_matches_jax(engines):
+def _fused_rounds(eng, monkeypatch):
+    """Record each fused round the engine applies: (K, its lanes' ids,
+    their valid counts)."""
+    rounds, apply = [], eng._apply_multi_tokens
+
+    def spy(seqs, toks, k, lps=None, valid=None, round_attrs=None):
+        rounds.append((k, [s.request_id for s in seqs],
+                       None if valid is None
+                       else [int(v) for v in valid[:len(seqs)]]))
+        return apply(seqs, toks, k, lps=lps, valid=valid,
+                     round_attrs=round_attrs)
+
+    monkeypatch.setattr(eng, "_apply_multi_tokens", spy)
+    return rounds
+
+
+def test_loop_without_done_read_matches_jax(engines, monkeypatch):
     """K=8 rounds whose lanes stop at different iterations (max_tokens
     and a stop token id), and rounds where every lane stops before K:
-    the JAX engine's streams, rounds that exited early (every lane
-    frozen before K), no round past its largest lane budget, and every
-    iteration it runs an eager forward here."""
+    the JAX engine's streams, its fused rounds (K, lanes, valid counts)
+    and its count of rounds that exited early (every lane frozen before
+    K), no round past its largest lane budget, and every iteration it
+    runs an eager forward here. Both engines serve the probe first, so
+    both hold the prompts in their prefix caches and their scheduled
+    rounds start from the same state."""
     jeng, teng = engines
     prompts = [p[::-1] for p in PROMPTS]
     kws = [dict(max_tokens=n, **GREEDY) for n in (3, 6, 13, 2)]
     probe = _staggered(jeng, JSampling, prompts, kws, [0, 0, 0, 0])
+    assert _staggered(teng, SamplingParams, prompts, kws,
+                      [0, 0, 0, 0]) == probe
     # a stop id the third lane samples at its fifth token
     kws[2] = dict(max_tokens=13, temperature=0.0,
                   stop_token_ids=[probe[2][4]])
+    jrounds = _fused_rounds(jeng, monkeypatch)
+    jexits = jeng.stats().decode_early_exit_rounds_total
     want = _staggered(jeng, JSampling, prompts, kws, [0, 0, 0, 0])
+    jexits = jeng.stats().decode_early_exit_rounds_total - jexits
     assert len(want[2]) == 5
     runs = teng.runner.dispatch_counts
     before = dict(runs)
     fwd0 = int(teng.runner.loop_forwards)
+    trounds = _fused_rounds(teng, monkeypatch)
     exits = teng.stats().decode_early_exit_rounds_total
     got = _staggered(teng, SamplingParams, prompts, kws, [0, 0, 0, 0])
     assert got == want
-    assert teng.stats().decode_early_exit_rounds_total > exits
+    assert trounds == jrounds
+    assert jexits > 0
+    assert teng.stats().decode_early_exit_rounds_total - exits == jexits
     rounds = (runs["decode_multi"] - before["decode_multi"]
               + runs["ragged"] - before["ragged"])
     iters = runs["decode_iterations"] - before["decode_iterations"]
