@@ -418,6 +418,25 @@ on failure:
    router with static health checks: no client error, and once the
    router drops it from discovery every request goes to the survivor.
    Logs build/chip_smoke_stack_*.log.
+20. Deploy (deploy_phase): docker/Dockerfile.cuda's contract. The
+   image's build step, `python -m production_stack_tpu_torch.ops.
+   cuda_build`, builds the kernels into a fresh PST_KERNEL_BUILD_DIR
+   (seconds printed) from a copy of the package installed read-only
+   (byte-compiled, then chmod -R a-w); with no nvcc on PATH and
+   CUDA_HOME at no toolkit, the same step on an empty directory must
+   fail loudly; then the engine starts from the copy in that
+   environment with the argv helm/templates/deployment-engine-cuda.yaml
+   renders for helm/values-h100.yaml's entry (DEPLOY_ARGV) on the stack
+   phase's checkpoint (CKPT_LAYERS layers, byte tokenizer; log
+   build/chip_smoke_deploy_serve.log): seconds to a healthy /health
+   against the template's startup window, one streamed completion
+   (launches CKPT_LAYERS a forward, ragged above 0), every engine name
+   the dashboard and the alert rules of observability/ query found on
+   /metrics (the router's and those made by rules or the adapter
+   listed and excused), then SIGTERM with a stream in flight: the
+   stream ends whole and the engine exits 0 within the template's 75 s
+   grace; the build and install directories unchanged and no build
+   logged.
 
 Launch counts are reset just before the serve phase's requests (through
 the server's /debug/kernel_launches) and again before its API requests,
@@ -435,14 +454,15 @@ long-context engine's run and the long-context server's request, on
 every rank before each pp scenario, before the multi-host
 server's completion, on every rank before each rank-set run and
 before each rank-set serving run, on each stack-phase engine before
-the router's first request, and read just after; a kernel launched 0
+the router's first request, before the deploy phase's streamed
+completion, and read just after; a kernel launched 0
 times on those paths fails the run. The servers' logs go to build/chip_smoke_serve.log,
 build/chip_smoke_lc_serve.log,
 build/chip_smoke_spec_serve.log, build/chip_smoke_lora_serve.log, build/chip_smoke_prefill_serve.log,
 build/chip_smoke_decode_serve.log, build/chip_smoke_cache_server.log and
 build/chip_smoke_phi3_serve.log, build/chip_smoke_gemma{,_xla}_serve.log,
-build/chip_smoke_mh{0,1}_serve.log and
-build/chip_smoke_stack_*.log.
+build/chip_smoke_mh{0,1}_serve.log,
+build/chip_smoke_stack_*.log and build/chip_smoke_deploy_serve.log.
 The last lines are the kernels JSON, the
 card's name and power limit (nvidia-smi), and {"ok": true, "device":
 {...}}.
@@ -1100,16 +1120,17 @@ def http(port: int, path: str, body: dict | None = None,
 def sse_stream(port: int, body: dict, timeout: float = 600.0,
                started=None) -> dict:
     """One streamed completion read to its end: its data events, the
-    last one's finish_reason, whether the stream closed with [DONE], and
-    the host-clock times (time.perf_counter) its response head, last
+    tokens they carried (where the request asks for logprobs), the last
+    one's finish_reason, whether the stream closed with [DONE], and the
+    host-clock times (time.perf_counter) its response head, last
     data event and [DONE] arrived. `started` (a threading.Event) is set
     once the head has arrived."""
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/v1/completions",
         data=json.dumps({**body, "stream": True}).encode(),
         headers={"Content-Type": "application/json"})
-    out = {"events": 0, "finish": None, "done": False, "t_head": None,
-           "t_last_event": None, "t_done": None}
+    out = {"events": 0, "tokens": 0, "finish": None, "done": False,
+           "t_head": None, "t_last_event": None, "t_done": None}
     with urllib.request.urlopen(req, timeout=timeout) as r:
         out["t_head"] = time.perf_counter()
         if started is not None:
@@ -1122,8 +1143,10 @@ def sse_stream(port: int, body: dict, timeout: float = 600.0,
             if line.startswith("data:"):
                 out["events"] += 1
                 out["t_last_event"] = time.perf_counter()
-                out["finish"] = json.loads(line[5:])["choices"][0][
-                    "finish_reason"]
+                choice = json.loads(line[5:])["choices"][0]
+                out["finish"] = choice["finish_reason"]
+                out["tokens"] += len((choice.get("logprobs") or {}).get(
+                    "tokens") or ())
     return out
 
 
@@ -7973,6 +7996,289 @@ def stack_phase(torch, gap_tol: float, smi: str,
             stop_server(proc)
 
 
+# -- deploy phase: the engine image's contract -------------------------------------
+# the argv helm/templates/deployment-engine-cuda.yaml renders for the
+# cudaModelSpec entry of helm/values-h100.yaml (tests/test_torch_deploy.py
+# renders the template's args for that entry and holds this to it);
+# deploy_argv swaps in the checkpoint directory and loopback
+DEPLOY_ARGV = (
+    "--model", "/models/Llama-3.2-3B-Instruct", "--host", "0.0.0.0",
+    "--port", "8000",
+    "--served-model-name", "meta-llama/Llama-3.2-3B-Instruct",
+    "--max-model-len", "8192", "--max-num-seqs", "16", "--block-size", "32",
+    "--dtype", "bfloat16", "--kv-cache-dtype", "bfloat16",
+    "--hbm-utilization", "0.9", "--num-scheduler-steps", "8",
+)
+# the card's machine has no transformers, and the phase's checkpoint no
+# tokenizer files: the byte tokenizer serves it
+DEPLOY_CARD_FLAGS = ("--tokenizer", "byte")
+# the template's startup probe at its defaults (initialDelaySeconds +
+# periodSeconds x failureThreshold) and its terminationGracePeriodSeconds
+DEPLOY_STARTUP_WINDOW_S = 15 + 10 * 120
+DEPLOY_GRACE_S = 75
+DEPLOY_TOKENS = 32
+DEPLOY_SIGTERM_TOKENS = 160
+# the Grafana dashboard and the alert rules whose engine names the
+# deploy phase finds on the engine's /metrics
+OBSERVABILITY = (REPO / "observability" / "tpu-stack-dashboard.json",
+                 REPO / "observability" / "tpu-stack-alerts.yaml")
+# vllm: names the router computes from its own request stats and health
+# board (router/services/metrics_service.py) and no engine exports
+ROUTER_VLLM_NAMES = frozenset({
+    "vllm:avg_itl", "vllm:avg_latency", "vllm:avg_ttft", "vllm:current_qps",
+    "vllm:healthy_pods_total", "vllm:num_requests_swapped",
+})
+# names made by the alerts' recording rules or the Prometheus adapter
+# (observability/prom-adapter.yaml), which no process exports
+OBS_MADE_PREFIXES = ("tpu_fleet_", "tpu_kv_cache_usage",
+                     "tpu_router:slo_burn_rate:",
+                     "vllm_num_requests_waiting")
+# a query: the dashboard's "expr" line, or the rules' expr: line with the
+# lines indented under it (a block scalar), and not the panels' and
+# alerts' descriptions, which name metric families loosely
+OBS_EXPR = re.compile(r'^( *)"?expr"?:.*(?:\n\1 +\S.*)*', re.M)
+
+
+def observability_names() -> tuple[list, list, list]:
+    """The metric names the dashboard and the alerts query, as (engine,
+    router, made): the router's are tpu_router: and router: names and
+    ROUTER_VLLM_NAMES; made ones match OBS_MADE_PREFIXES; every other
+    name is a tpu: or vllm: name an engine must export."""
+    names: set[str] = set()
+    for path in OBSERVABILITY:
+        for e in (m.group(0) for m in OBS_EXPR.finditer(path.read_text())):
+            names.update(re.findall(r"\b[A-Za-z_]\w*(?::\w+)+", e))
+            names.update(n for n in re.findall(r"\b[A-Za-z_]\w*", e)
+                         if n.startswith(OBS_MADE_PREFIXES))
+    made = {n for n in names if n.startswith(OBS_MADE_PREFIXES)}
+    router = {n for n in names - made
+              if n.startswith(("tpu_router:", "router:"))
+              or n in ROUTER_VLLM_NAMES}
+    engine = names - made - router
+    odd = sorted(n for n in engine if not n.startswith(("tpu:", "vllm:")))
+    if odd:
+        fail(f"observability queries names of no known process: {odd}")
+    return sorted(engine), sorted(router), sorted(made)
+
+
+def metric_series(samples: dict, types: dict) -> set[str]:
+    """The series names a /metrics page answers (parse_metrics' output):
+    its samples' names and, for every family it declares, the names
+    Prometheus would store for it (a labeled family with no child yet
+    declares its type and no sample)."""
+    out = set(samples)
+    for fam, kind in types.items():
+        out.update((f"{fam}_bucket", f"{fam}_count", f"{fam}_sum")
+                   if kind == "histogram" else (fam,))
+    return out
+
+
+def deploy_argv(model_dir: str, port: int) -> list[str]:
+    """DEPLOY_ARGV with `model_dir` for --model and loopback for --host
+    and --port, then DEPLOY_CARD_FLAGS."""
+    swap = {"--model": model_dir, "--host": "127.0.0.1",
+            "--port": str(port)}
+    argv = list(DEPLOY_ARGV)
+    for i, a in enumerate(argv[:-1]):
+        if a in swap:
+            argv[i + 1] = swap[a]
+    return argv + list(DEPLOY_CARD_FLAGS)
+
+
+def tree_state(root: Path) -> list[tuple]:
+    """Every path under `root` with its size and mtime."""
+    return sorted((str(p.relative_to(root)), p.lstat().st_size,
+                   p.lstat().st_mtime_ns) for p in root.rglob("*"))
+
+
+def deploy_phase(torch, smi: str, model_dir: str) -> dict:
+    """docker/Dockerfile.cuda's contract, on the card: the kernels built
+    by `python -m production_stack_tpu_torch.ops.cuda_build` into a
+    fresh PST_KERNEL_BUILD_DIR (the image's build stage: nvcc, no card
+    needed); the package installed read-only (a copy, byte-compiled as
+    pip compiles an install, then chmod -R a-w); the engine started from
+    that copy as the runtime stage starts it (no nvcc on PATH, CUDA_HOME
+    at no toolkit: a rebuild fails loudly, shown first on an empty build
+    directory) with the argv the CUDA Helm template renders for
+    helm/values-h100.yaml's entry (DEPLOY_ARGV) on `model_dir`. Reads
+    the seconds to a healthy /health against the template's startup
+    window, that the build and install directories and the engine's log
+    show no build, the launches of one streamed completion, every engine
+    name the dashboard and the alerts query on its /metrics, and a
+    SIGTERM with a stream in flight: the stream finishes whole and the
+    engine exits 0 within the template's grace."""
+    import compileall
+    import shutil
+    import tempfile
+
+    from production_stack_tpu_torch.models.config import get_model_config
+
+    t_phase = time.perf_counter()
+    layers = get_model_config(model_dir).num_layers
+    served = DEPLOY_ARGV[DEPLOY_ARGV.index("--served-model-name") + 1]
+    build = REPO / "build"
+    build.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="deploy-", dir=build))
+    site, kdir, no_cuda = root / "site", root / "kernels", root / "no-cuda"
+    log_path = build / "chip_smoke_deploy_serve.log"
+    proc = None
+    try:
+        # the install: read-only, as a package directory often is
+        shutil.copytree(REPO / "production_stack_tpu_torch",
+                        site / "production_stack_tpu_torch",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        if not compileall.compile_dir(str(site), quiet=1):
+            fail("deploy phase: byte-compiling the install failed")
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env.update(PYTHONPATH=str(site), PST_KERNEL_BUILD_DIR=str(kdir))
+        entry = [sys.executable, "-m", "production_stack_tpu_torch.ops."
+                 "cuda_build"]
+        # the image's build step, from the install
+        t0 = time.perf_counter()
+        built = subprocess.run(entry, cwd=site, env=env, capture_output=True,
+                               text=True, timeout=600)
+        build_s = time.perf_counter() - t0
+        lib = Path(built.stdout.strip().splitlines()[-1]
+                   if built.stdout.strip() else "")
+        if built.returncode or lib.parent != kdir or not lib.is_file():
+            fail(f"deploy phase: the kernel build step exited "
+                 f"{built.returncode}, printed {built.stdout!r}:\n"
+                 f"{built.stderr[-4000:]}")
+        subprocess.run(["chmod", "-R", "a-w", str(site), str(kdir)],
+                       check=True)
+        # the runtime stage: no nvcc anywhere the build would look
+        no_cuda.mkdir()
+        path = os.pathsep.join(
+            d for d in env.get("PATH", "").split(os.pathsep)
+            if d and not (Path(d) / "nvcc").exists())
+        run_env = {**env, "PATH": path, "CUDA_HOME": str(no_cuda)}
+        missing = root / "missing"
+        probe = subprocess.run(
+            entry, cwd=site, env={**run_env, "PST_KERNEL_BUILD_DIR":
+                                  str(missing)},
+            capture_output=True, text=True, timeout=120)
+        loud = (probe.returncode != 0 and "nvcc not found" in probe.stderr
+                and str(missing) in probe.stderr
+                and str(site / "production_stack_tpu_torch") in probe.stderr
+                and not missing.exists())
+        print(f"deploy phase: kernel build step {build_s:.1f}s into a fresh "
+              f"PST_KERNEL_BUILD_DIR ({lib.name}); install read-only "
+              f"(euid {os.geteuid()}: mode bits bind "
+              f"{'no root process' if os.geteuid() == 0 else 'this user'};"
+              f" the listings below do); without nvcc a missing library "
+              f"fails loudly: {loud} (exit {probe.returncode}: "
+              f"{probe.stderr.strip().splitlines()[-1:]})", flush=True)
+        if not loud:
+            fail("deploy phase: with no nvcc reachable a missing library "
+                 f"did not fail loudly from the install:\n{probe.stderr}")
+        kernels_before, site_before = tree_state(kdir), tree_state(site)
+
+        port = free_port()
+        argv = deploy_argv(model_dir, port)
+        print(f"deploy phase: python -m production_stack_tpu_torch.engine "
+              f"{' '.join(argv)}", flush=True)
+        t0 = time.perf_counter()
+        with open(log_path, "wb") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "production_stack_tpu_torch.engine",
+                 *argv], cwd=site, env=run_env, stdout=log,
+                stderr=subprocess.STDOUT)
+        boot_s = wait_healthy("deploy phase", proc, port, log_path, t0)
+        print(f"deploy phase: healthy {boot_s:.1f}s after start (the "
+              f"template's startup window {DEPLOY_STARTUP_WINDOW_S}s)",
+              flush=True)
+        if boot_s > DEPLOY_STARTUP_WINDOW_S:
+            fail("deploy phase: the engine outlasted the startup window")
+
+        prompt = "".join(chr(97 + (7 * j) % 26) for j in range(400))
+        body = {"model": served, "prompt": prompt, "temperature": 0,
+                "ignore_eos": True, "logprobs": 1,
+                "return_tokens_as_token_ids": True}
+        http(port, "/debug/kernel_launches", method="DELETE")
+        first = sse_stream(port, {**body, "max_tokens": DEPLOY_TOKENS})
+        report = json.loads(http(port, "/debug/kernel_launches")[1])
+        if not first["done"] or first["finish"] != "length" or (
+                first["tokens"] != DEPLOY_TOKENS):
+            fail(f"deploy phase: the streamed completion {first}")
+        check_launches("deploy phase engine", report["launches"],
+                       report["dispatches"], layers=layers)
+        counts = report["launches"]
+        if counts["ragged"] < 1:
+            fail(f"deploy phase: no ragged launch in {counts}")
+
+        samples, types = parse_metrics(http(port, "/metrics")[1])
+        engine_names, router_names, made = observability_names()
+        series = metric_series(samples, types)
+        absent = [n for n in engine_names if n not in series]
+        declared = [n for n in engine_names if n in series
+                    and n not in samples]
+        print(f"deploy phase: a streamed completion, {first['tokens']} "
+              f"tokens; /metrics answers "
+              f"{len(engine_names) - len(absent)} of the "
+              f"{len(engine_names)} engine names the dashboard and alerts "
+              f"query ({len(declared)} declared with no sample yet: "
+              f"{declared}); the router's {len(router_names)} excused; made "
+              f"by rules or the adapter ({', '.join(OBS_MADE_PREFIXES)}), "
+              f"excused: {made or 'none queried'}", flush=True)
+        if absent:
+            fail(f"deploy phase: /metrics lacks {absent}")
+
+        # SIGTERM with a stream in flight, as the kubelet stops a pod
+        with ThreadPoolExecutor(1) as pool:
+            started = threading.Event()
+            stream = pool.submit(sse_stream, port, {
+                **body, "max_tokens": DEPLOY_SIGTERM_TOKENS},
+                started=started)
+            if not started.wait(60):
+                fail("deploy phase: no response head for the stream in 60 s")
+            t_kill = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(DEPLOY_GRACE_S)
+            except subprocess.TimeoutExpired:
+                fail(f"deploy phase: the engine outlived the template's "
+                     f"{DEPLOY_GRACE_S}s grace after SIGTERM:\n"
+                     + log_tail(log_path))
+            exit_s = time.perf_counter() - t_kill
+            streamed = stream.result(60)
+        log_text = log_path.read_text(errors="replace")
+        whole = (streamed["done"] and streamed["finish"] == "length"
+                 and streamed["tokens"] == DEPLOY_SIGTERM_TOKENS
+                 and streamed["t_last_event"] is not None
+                 and streamed["t_last_event"] > t_kill)
+        print(f"deploy phase: SIGTERM with a stream in flight: exit {rc} "
+              f"{exit_s:.2f}s after it (grace {DEPLOY_GRACE_S}s); the "
+              f"stream {streamed['tokens']} of {DEPLOY_SIGTERM_TOKENS} "
+              f"tokens in {streamed['events']} data events, finish "
+              f"{streamed['finish']}, [DONE] {streamed['done']}; shutdown "
+              f"logged: {'engine server stopped' in log_text}", flush=True)
+        if rc != 0 or not whole or "engine server stopped" not in log_text:
+            fail("deploy phase: the SIGTERMed engine did not finish its "
+                 f"stream and exit 0 (exit {rc}, stream {streamed}):\n"
+                 + log_tail(log_path))
+        kernels_after, site_after = tree_state(kdir), tree_state(site)
+        rebuilt = "building the CUDA kernels" in log_text
+        print(f"deploy phase: build directory unchanged "
+              f"{kernels_after == kernels_before} ({len(kernels_after)} "
+              f"files), install unchanged {site_after == site_before} "
+              f"({len(site_after)} paths), build message logged {rebuilt}",
+              flush=True)
+        if kernels_after != kernels_before or site_after != site_before \
+                or rebuilt:
+            fail("deploy phase: the engine wrote into its build or install "
+                 "directory, or logged a build")
+        print(f"deploy phase (card {smi}): build {build_s:.1f}s, healthy "
+              f"{boot_s:.1f}s, SIGTERM to exit {exit_s:.2f}s; "
+              f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+        return counts
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(60)
+        subprocess.run(["chmod", "-R", "u+w", str(root)], check=False)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -8046,6 +8352,7 @@ def main() -> int:
         kv_counts = timed("kv", kv_phase, torch, pa, gap_tol, smi, cut_dir)
         stack_counts = timed("stack", stack_phase, torch, gap_tol, smi,
                              cut_dir)
+        deploy_counts = timed("deploy", deploy_phase, torch, smi, cut_dir)
     timed("phi-3", phi3_serve_phase, torch, pa, smi)
     gemma_counts = timed("gemma", gemma_serve_phase, torch, pa, gap_tol, smi)
     moe_counts = timed("moe", moe_phase, torch, pa, gap_tol, smi)
@@ -8061,14 +8368,16 @@ def main() -> int:
                        pa, gap_tol, smi, lc_first)
     print(f"phase seconds (host clock, the build apart): {secs}",
           flush=True)
-    # the 3B's serve and decode paths, the sync census's engines, and
-    # the head_dim-256 paths: the Gemma-7B and Gemma-2B engines of the
-    # families phase and the Gemma-7B server
+    # the 3B's serve and decode paths, the sync census's engines, the
+    # head_dim-256 paths (the Gemma-7B and Gemma-2B engines of the
+    # families phase and the Gemma-7B server) and the deployed engine
     launches = {
         "ragged": (serve_counts["ragged"] + family_counts["ragged"]
-                   + gemma_counts["ragged"] + sync_counts["ragged"]),
+                   + gemma_counts["ragged"] + sync_counts["ragged"]
+                   + deploy_counts["ragged"]),
         "prefill": (serve_counts["prefill"] + family_counts["prefill"]
-                    + gemma_counts["prefill"] + sync_counts["prefill"]),
+                    + gemma_counts["prefill"] + sync_counts["prefill"]
+                    + deploy_counts["prefill"]),
         "decode": (decode_counts["decode"] + family_counts["decode"]
                    + sync_counts["decode"]),
     }
@@ -8084,7 +8393,8 @@ def main() -> int:
           f"{tp_counts}, long-context lane engine {lc_counts}, multi-host "
           f"rank 0 {mh_counts}, rank-set features {rs_counts}, "
           f"rank-set async decode and ring {rss_counts}, "
-          f"engines behind the router {stack_counts}, "
+          f"engines behind the router {stack_counts}, deployed engine "
+          f"(read-only install, prebuilt kernels) {deploy_counts}, "
           f"Gemma-7B and Gemma-2B x{FAMILY_LAYERS} engines "
           f"{family_counts}, Gemma-7B server {gemma_counts}, "
           f"pipeline-parallel ranks none (the gather path); "

@@ -3,14 +3,18 @@
 Every ``csrc/*.cu`` goes into one shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds): one ``nvcc -c`` per source, all started at once, then one link.
-The build runs at first use into ``build_dir()``: ``$PST_KERNEL_BUILD_DIR``
+The build runs at first use, or ahead of it as an image step
+(``python -m production_stack_tpu_torch.ops.cuda_build``, which needs
+``nvcc`` and no card), into ``build_dir()``: ``$PST_KERNEL_BUILD_DIR``
 when it is set, else ``build/kernels/`` beside the package (in a
 checkout, the repository's gitignored ``build/``), else, where that is
 not writable (an installed package), a per-user cache directory. The
 library's file name carries a hash of every file under ``csrc/`` and of
 the compiler flags, so an edited source or header never loads a stale
-build. Nothing here runs at import time: the CPU-only tests import every
-module.
+build. A library already present loads with no compiler and no write
+access to its directory; a missing one where no ``nvcc`` can be found
+raises, naming the library it looked for. Nothing here runs at import
+time: the CPU-only tests import every module.
 """
 
 from __future__ import annotations
@@ -95,11 +99,16 @@ def build() -> Path:
     out = library_path()
     if out.exists():
         return out
+    try:
+        nvcc = nvcc_path()
+    except RuntimeError as e:
+        raise RuntimeError(
+            f"no prebuilt kernel library at {out} ({BUILD_DIR_ENV} names "
+            f"its directory) and {e}") from None
     out.parent.mkdir(parents=True, exist_ok=True)
     print(f"building the CUDA kernels into {out.parent} (set "
           f"{BUILD_DIR_ENV} to choose the directory)", file=sys.stderr,
           flush=True)
-    nvcc = nvcc_path()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         cus = [s for s in sources() if s.suffix == ".cu"]
         objs = [Path(tmp) / f"{s.stem}.o" for s in cus]
@@ -131,3 +140,12 @@ def load() -> ctypes.CDLL:
         if _LIB is None:
             _LIB = ctypes.CDLL(str(build()))
         return _LIB
+
+
+def main() -> None:
+    """Build the library into build_dir() and print its path."""
+    print(build(), flush=True)
+
+
+if __name__ == "__main__":
+    main()

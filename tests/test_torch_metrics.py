@@ -14,9 +14,7 @@ package's metrics module, on the CPU.
   snapshot and the same finished requests.
 """
 
-import asyncio
 import json
-import threading
 import urllib.request
 
 import jax
@@ -42,17 +40,14 @@ from production_stack_tpu.router.stats.engine_stats import EngineStats
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.metrics import EngineMetrics
 from production_stack_tpu_torch.engine.outputs import EngineStatsSnapshot
-from production_stack_tpu_torch.engine.server import EngineServer
 from production_stack_tpu_torch.models.convert import params_from_numpy
+from tests.torch_engine_server import CFG, serving
 
 # the CPU runs these tests at tiny widths, where intra-op threads
 # cost more than they save: with several test workers on one box,
 # one thread a worker keeps them from oversubscribing the cores
 torch.set_num_threads(1)
 
-CFG = dict(model="pst-tiny-debug", tokenizer="byte", dtype="float32",
-           cache_dtype="float32", block_size=4, num_kv_blocks=256,
-           max_num_seqs=4, max_prefill_chunk=32, seed=0)
 PROMPT = np.random.RandomState(31).randint(1, 250, size=22).tolist()
 GREEDY = dict(max_tokens=6, temperature=0.0, ignore_eos=True)
 
@@ -66,25 +61,8 @@ def np_params():
 
 @pytest.fixture(scope="module")
 def port(np_params):
-    server = EngineServer(EngineConfig(**CFG, device="cpu"),
-                          params=params_from_numpy(np_params, "cpu"))
-    loop = asyncio.new_event_loop()
-    box = []
-    ready = threading.Event()
-
-    def run():
-        asyncio.set_event_loop(loop)
-        box.append(loop.run_until_complete(server.start("127.0.0.1", 0)))
-        ready.set()
-        loop.run_forever()
-
-    th = threading.Thread(target=run, daemon=True)
-    th.start()
-    assert ready.wait(60)
-    yield box[0]
-    asyncio.run_coroutine_threadsafe(server.stop(), loop).result(30)
-    loop.call_soon_threadsafe(loop.stop)
-    th.join(30)
+    with serving(params_from_numpy(np_params, "cpu")) as p:
+        yield p
 
 
 def call(port, path, body=None):
