@@ -22,6 +22,14 @@ from production_stack_tpu_torch.engine.outputs import (
     RequestOutput,
 )
 from production_stack_tpu_torch.engine.sampling_params import SamplingParams
+from production_stack_tpu_torch.tracing.steps import (
+    ENGINE_IDLE,
+    ENGINE_LOCK,
+    FRONT_LOCK,
+    begin,
+    end,
+    span,
+)
 from production_stack_tpu_torch.utils import init_logger
 
 logger = init_logger(__name__)
@@ -72,7 +80,11 @@ class AsyncLLMEngine:
                 self._wake.clear()
                 continue
             try:
+                # the acquisition in an engine.lock range, the step's in
+                # its own (tracing/steps.py)
+                waiting = begin(ENGINE_LOCK)
                 with self._lock:
+                    end(waiting)
                     busy = self.engine.has_unfinished()
                     outputs = self.engine.step() if busy else []
             except Exception:  # noqa: BLE001 — a step failure must fail
@@ -96,7 +108,8 @@ class AsyncLLMEngine:
             if outputs and self._loop is not None:
                 self._loop.call_soon_threadsafe(self._deliver, outputs)
             if not busy:
-                self._wake.wait(timeout=0.02)
+                with span(ENGINE_IDLE):
+                    self._wake.wait(timeout=0.02)
                 self._wake.clear()
 
     def _fail_inflight(self) -> list[RequestOutput]:
@@ -150,7 +163,14 @@ class AsyncLLMEngine:
         q: asyncio.Queue[RequestOutput] = asyncio.Queue()
         finished = False
         try:
+            # the wait for the lock, which the step thread holds for a
+            # whole step: a front.lock range and the request's
+            # lock_wait_s
+            t0 = time.perf_counter()
+            waiting = begin(FRONT_LOCK)
             with self._lock:
+                end(waiting)
+                lock_wait_s = time.perf_counter() - t0
                 self._streams[request_id] = q
                 self.engine.add_request(
                     request_id,
@@ -161,6 +181,7 @@ class AsyncLLMEngine:
                     lora_name=lora_name,
                     priority=priority,
                     traceparent=traceparent,
+                    lock_wait_s=lock_wait_s,
                 )
             self._wake.set()
             while True:

@@ -138,6 +138,16 @@ from production_stack_tpu_torch.tracing import (
     RequestTracer,
     TimelineRecorder,
 )
+from production_stack_tpu_torch.tracing.steps import (
+    APPLY,
+    ENGINE_STEP,
+    LAUNCH,
+    PREPARE,
+    SCHEDULE,
+    STAGE,
+    StepMeter,
+    span,
+)
 from production_stack_tpu_torch.utils import init_logger
 
 logger = init_logger(__name__)
@@ -287,9 +297,11 @@ class LLMEngine:
         self._ragged_staged_misses_total = 0
         # "ragged" | "prefill" | "decode" | "idle": the last step's round
         self.last_step_kind = "idle"
+        # steps, host and fetch seconds by round kind, fetches, and the
+        # served work's prompt rows and keys (tracing/steps.py)
+        self._meter = StepMeter()
         self._seqs: dict[str, Sequence] = {}
         # lifetime counters for /metrics
-        self._prompt_tokens_total = 0
         self._generation_tokens_total = 0
         self._preemptions_total = 0
         self._finished_total = 0
@@ -1038,8 +1050,10 @@ class LLMEngine:
                 continue  # aborted/preempted while the last batch landed
             seq.long_prefill_active = False
             new_tokens = seq.num_prompt_tokens - seq.num_computed_tokens
+            if new_tokens > 0:
+                self._meter.prompt_chunk(seq.num_computed_tokens,
+                                         new_tokens)
             seq.num_computed_tokens = seq.num_prompt_tokens
-            self._prompt_tokens_total += max(0, new_tokens)
             export_now = (self._kv_export_seconds_total
                           + self._kv_export_sync_seconds_total)
             # claim only the export window past BOTH this job's start and
@@ -1063,7 +1077,7 @@ class LLMEngine:
                     # stackcheck: disable=device-sync-transitive — the
                     # long-prefill first-token logprob row materializes
                     # only when the request asked for logprobs
-                    _to_numpy(used_logits)[0], int(sampled[0]), n_lp)
+                    self._fetch(used_logits)[0], int(sampled[0]), n_lp)
             if self._tl_enabled:
                 self.timeline.event(
                     seq.request_id, "long_prefill",
@@ -1102,7 +1116,10 @@ class LLMEngine:
         lora_name: str | None = None,
         priority: int = 0,
         traceparent: str | None = None,
+        lock_wait_s: float | None = None,
     ) -> None:
+        """`lock_wait_s`: the seconds the caller waited for the engine's
+        lock (AsyncLLMEngine.generate), kept in the request's metrics."""
         if request_id in self._seqs:
             raise ValueError(f"duplicate request_id {request_id!r}")
         if prompt_token_ids is None:
@@ -1157,6 +1174,7 @@ class LLMEngine:
                        else lora.hash_seed_of(lora_name)),
             priority=int(priority),
         )
+        seq.metrics.lock_wait_s = lock_wait_s
         self._setup_guided(seq)
         self._seqs[request_id] = seq
         self.scheduler.add_seq(seq)
@@ -1256,7 +1274,8 @@ class LLMEngine:
     # stackcheck: hot-path — may only enqueue (flush = device-snapshot
     # enqueue; the d2h runs on the offload worker)
     def step(self) -> list[RequestOutput]:
-        with self.runner.on_compute_stream():
+        t0 = time.perf_counter()
+        with span(ENGINE_STEP), self.runner.on_compute_stream():
             try:
                 return self._step_impl()
             finally:
@@ -1266,6 +1285,13 @@ class LLMEngine:
                 # pinned
                 if self._kv_export_pending:
                     self._flush_kv_exports()
+                self._meter.step_done(self.last_step_kind,
+                                      time.perf_counter() - t0)
+
+    def _fetch(self, t: torch.Tensor) -> np.ndarray:
+        """The step's device->host seam: `_to_numpy`, counted and timed
+        by the step meter."""
+        return self._meter.fetch(_to_numpy, t)
 
     # stackcheck: hot-path — the engine round: dispatch, then the round's
     # sanctioned fetches (each suppressed where it stands)
@@ -1282,14 +1308,18 @@ class LLMEngine:
         seqs: list[Sequence] = pend["seqs"]
         k = pend["k"]
         want_lp = pend["lps"] is not None
-        temps, top_ps, top_ks, min_ps, keys, _ = self._sampling_arrays(seqs)
-        keys[:, 1] += k  # k sampled-but-unapplied tokens a lane
-        ys = self.runner.decode_multi(
-            pend["toks"][-1], [s.num_tokens - 1 + k for s in seqs],
-            [s.block_table for s in seqs], [s.num_tokens + k for s in seqs],
-            k, temps, top_ps, top_ks, keys, min_ps=min_ps,
-            want_logprobs=want_lp, lora_slots=self._lora_slots(seqs),
-        )
+        with span(PREPARE):
+            temps, top_ps, top_ks, min_ps, keys, _ = (
+                self._sampling_arrays(seqs))
+            keys[:, 1] += k  # k sampled-but-unapplied tokens a lane
+        with span(LAUNCH):
+            ys = self.runner.decode_multi(
+                pend["toks"][-1], [s.num_tokens - 1 + k for s in seqs],
+                [s.block_table for s in seqs],
+                [s.num_tokens + k for s in seqs],
+                k, temps, top_ps, top_ks, keys, min_ps=min_ps,
+                want_logprobs=want_lp, lora_slots=self._lora_slots(seqs),
+            )
         outputs = self._resolve_pending()
         self._pending_decode = {
             "seqs": seqs, "k": k,
@@ -1335,19 +1365,10 @@ class LLMEngine:
         return self._finalize_stepped(
             [s for s in seqs if s.request_id in self._seqs])
 
-    def _step_scheduled(self) -> list[RequestOutput]:
-        if self._kv_restores:
-            # start h2d uploads for restores whose tier fetch landed while
-            # their requests sit in the waiting queue
-            self._poll_kv_restores()
-        # long-prefill lane: advance ring chunks / KV landing BEFORE
-        # scheduling, so a job whose chain just finished landing is
-        # decode-ready in THIS round's plan. Enqueues only, never a
-        # device fetch, so the rounds below keep their cadence.
-        long_stepped: list[Sequence] = []
-        long_progress = True
-        if self.long_prefill is not None and self.long_prefill.active:
-            long_stepped, long_progress = self._advance_long_prefills()
+    def _schedule_round(self):
+        """The scheduler's plan for this step and its bookkeeping: stages
+        the plan invalidates, preempted long-lane jobs, the preemption
+        count and the step's round kind."""
         sched_out = self.scheduler.schedule()
         if sched_out.preempted or sched_out.prefills or sched_out.aborted:
             # a table free or lane-set change invalidates the staged
@@ -1389,6 +1410,23 @@ class LLMEngine:
             else "decode" if sched_out.decode is not None
             else "idle"
         )
+        return sched_out
+
+    def _step_scheduled(self) -> list[RequestOutput]:
+        if self._kv_restores:
+            # start h2d uploads for restores whose tier fetch landed while
+            # their requests sit in the waiting queue
+            self._poll_kv_restores()
+        # long-prefill lane: advance ring chunks / KV landing BEFORE
+        # scheduling, so a job whose chain just finished landing is
+        # decode-ready in THIS round's plan. Enqueues only, never a
+        # device fetch, so the rounds below keep their cadence.
+        long_stepped: list[Sequence] = []
+        long_progress = True
+        if self.long_prefill is not None and self.long_prefill.active:
+            long_stepped, long_progress = self._advance_long_prefills()
+        with span(SCHEDULE):
+            sched_out = self._schedule_round()
         if sched_out.is_empty:
             if long_stepped:
                 # a long prefill finished with nothing else scheduled:
@@ -1457,7 +1495,8 @@ class LLMEngine:
                 self._pf_chained_chunks_total += len(nxt)
                 chained = True
                 works = nxt
-            self._maybe_stage_prefill(works)
+            with span(STAGE):
+                self._maybe_stage_prefill(works)
         elif sched_out.decode is not None:
             seqs = sched_out.decode.seqs
             spec = (self._try_spec_decode_batch(seqs)
@@ -1585,47 +1624,49 @@ class LLMEngine:
             if not near_budget:
                 guided_tables = self._device_guided_tables(seqs)
         if k_steps > 1 and (not needs_guided or guided_tables is not None):
-            temps, top_ps, top_ks, min_ps, keys, needs_pen = (
-                self._sampling_arrays(seqs)
-            )
-            penalties = self._penalty_args(seqs) if needs_pen else None
-            want_lp = any(
-                s.sampling_params.logprobs is not None for s in seqs
-            )
-            bias = self._bias_arrays(seqs)
-            will_async = (self._async_decode and penalties is None
-                          and guided_tables is None and bias is None)
-            # no device stops on a round the chain follows: the chain
-            # commits round N+1 before round N's valid counts exist
-            stop = (self._stop_arrays(seqs)
-                    if self._device_stop and not will_async else None)
-            tokens = [s.all_token_ids[-1] for s in seqs]
-            slots = self._lora_slots(seqs)
-            staged_kw = {}
-            st = self._staged_decode
-            self._staged_decode = None
-            if st is not None:
-                if (penalties is None and bias is None
-                        and guided_tables is None
-                        and st["fp"] == self._stage_fingerprint(
-                            seqs, k_steps)):
-                    # the prediction held: chain on the previous round's
-                    # device tokens with the buffer already copied
-                    staged_kw = {"staged": st["handle"]}
-                    tokens = st["chain_tokens"]
-                    self._staged_hits_total += 1
-                else:
-                    self._staged_misses_total += 1
-            ys = self.runner.decode_multi(
-                tokens,
-                [s.num_tokens - 1 for s in seqs],
-                [s.block_table for s in seqs],
-                [s.num_tokens for s in seqs], k_steps,
-                temps, top_ps, top_ks, keys, min_ps=min_ps,
-                penalties=penalties, want_logprobs=want_lp,
-                guided=guided_tables, logit_bias=bias, stop=stop,
-                lora_slots=slots, **staged_kw,
-            )
+            with span(PREPARE):
+                temps, top_ps, top_ks, min_ps, keys, needs_pen = (
+                    self._sampling_arrays(seqs)
+                )
+                penalties = self._penalty_args(seqs) if needs_pen else None
+                want_lp = any(
+                    s.sampling_params.logprobs is not None for s in seqs
+                )
+                bias = self._bias_arrays(seqs)
+                will_async = (self._async_decode and penalties is None
+                              and guided_tables is None and bias is None)
+                # no device stops on a round the chain follows: the chain
+                # commits round N+1 before round N's valid counts exist
+                stop = (self._stop_arrays(seqs)
+                        if self._device_stop and not will_async else None)
+                tokens = [s.all_token_ids[-1] for s in seqs]
+                slots = self._lora_slots(seqs)
+                staged_kw = {}
+                st = self._staged_decode
+                self._staged_decode = None
+                if st is not None:
+                    if (penalties is None and bias is None
+                            and guided_tables is None
+                            and st["fp"] == self._stage_fingerprint(
+                                seqs, k_steps)):
+                        # the prediction held: chain on the previous round's
+                        # device tokens with the buffer already copied
+                        staged_kw = {"staged": st["handle"]}
+                        tokens = st["chain_tokens"]
+                        self._staged_hits_total += 1
+                    else:
+                        self._staged_misses_total += 1
+            with span(LAUNCH):
+                ys = self.runner.decode_multi(
+                    tokens,
+                    [s.num_tokens - 1 for s in seqs],
+                    [s.block_table for s in seqs],
+                    [s.num_tokens for s in seqs], k_steps,
+                    temps, top_ps, top_ks, keys, min_ps=min_ps,
+                    penalties=penalties, want_logprobs=want_lp,
+                    guided=guided_tables, logit_bias=bias, stop=stop,
+                    lora_slots=slots, **staged_kw,
+                )
             if will_async:
                 # the tokens stay on the device: the next step dispatches
                 # the following round before fetching this one
@@ -1636,32 +1677,10 @@ class LLMEngine:
                 }
                 return []
             if (self._prefetch_decode and penalties is None
-                    and guided_tables is None and bias is None
-                    and self._can_stage(seqs, k_steps)):
-                # stage round N+1 now: its copy rides out this round's
-                # fetch. Its K is predicted and capped at this round's,
-                # the most _reserve_next_round grew the tables for.
-                nk = keys.copy()
-                nk[:, 1] += k_steps
-                k_next = min(
-                    self.scheduler.pick_decode_k(seqs, advance=k_steps),
-                    k_steps,
-                )
-                toks_dev = ys[0] if isinstance(ys, tuple) else ys
-                self._staged_decode = {
-                    "fp": self._stage_fingerprint(
-                        seqs, k_next, advance=k_steps),
-                    "handle": self.runner.stage_decode_multi(
-                        [s.num_tokens - 1 + k_steps for s in seqs],
-                        [s.block_table for s in seqs],
-                        [s.num_tokens + k_steps for s in seqs],
-                        k_next, temps, top_ps, top_ks, nk,
-                        min_ps=min_ps,
-                        stop=self._advance_stop(stop, k_steps),
-                        lora_slots=slots,
-                    ),
-                    "chain_tokens": toks_dev[-1],
-                }
+                    and guided_tables is None and bias is None):
+                with span(STAGE):
+                    self._stage_decode(seqs, k_steps, ys, temps, top_ps,
+                                       top_ks, keys, min_ps, stop, slots)
             self._apply_fused_decode(seqs, k_steps, ys, want_lp,
                                      stop is not None)
             return list(seqs)
@@ -1671,36 +1690,64 @@ class LLMEngine:
         positions = [s.num_tokens - 1 for s in seqs]
         tables = [s.block_table for s in seqs]
         ctx_lens = [s.num_tokens for s in seqs]
-        logits = self.runner.decode(tokens, positions, tables, ctx_lens,
-                                    lora_slots=self._lora_slots(seqs))
-        sampled, used_logits = self._sample(
-            seqs, logits[: len(seqs)], return_logits=True
-        )
+        with span(LAUNCH):  # the host sampler's fetch is step.wait
+            logits = self.runner.decode(tokens, positions, tables, ctx_lens,
+                                        lora_slots=self._lora_slots(seqs))
+            sampled, used_logits = self._sample(
+                seqs, logits[: len(seqs)], return_logits=True
+            )
         want_lp = any(s.sampling_params.logprobs is not None for s in seqs)
         if want_lp:
             # stackcheck: disable=device-sync-transitive — the K=1
             # round's logprob rows ride its one fetch (JAX: the one intended
             # per-round materialization of the sampled-from logits)
-            used_logits = np.asarray(_to_numpy(used_logits))
+            used_logits = np.asarray(self._fetch(used_logits))
         stepped: list[Sequence] = []
-        for i, (seq, token) in enumerate(zip(seqs, sampled)):
-            seq.num_computed_tokens = seq.num_tokens
-            entry = None
-            if seq.sampling_params.logprobs is not None:
-                entry = self._host_logprob_entry(
-                    # stackcheck: disable=device-sync-transitive — host token
-                    # (as below); the row was fetched just above
-                    used_logits[i], int(token),
-                    seq.sampling_params.logprobs,
-                )
-            # stackcheck: disable=device-sync-transitive — host token:
-            # _sample (the not-hot host sampling seam) returned host ints
-            self._append_token(seq, int(token), entry)
-            stepped.append(seq)
+        with span(APPLY):
+            for i, (seq, token) in enumerate(zip(seqs, sampled)):
+                seq.num_computed_tokens = seq.num_tokens
+                entry = None
+                if seq.sampling_params.logprobs is not None:
+                    entry = self._host_logprob_entry(
+                        # stackcheck: disable=device-sync-transitive —
+                        # host token (as below); the row was fetched just
+                        # above
+                        used_logits[i], int(token),
+                        seq.sampling_params.logprobs,
+                    )
+                # stackcheck: disable=device-sync-transitive — host token:
+                # _sample (the not-hot host sampling seam) returned host ints
+                self._append_token(seq, int(token), entry)
+                stepped.append(seq)
         # adaptive K can size a round down to 1: it belongs in the
         # tpu:decode_k histogram too
         self._note_decode_round(seqs, 1)
         return stepped
+
+    def _stage_decode(self, seqs, k_steps, ys, temps, top_ps, top_ks, keys,
+                      min_ps, stop, slots) -> None:
+        """Stage round N+1 now when it can be: its copy rides out this
+        round's fetch. Its K is predicted and capped at this round's, the
+        most _reserve_next_round grew the tables for."""
+        if not self._can_stage(seqs, k_steps):
+            return
+        nk = keys.copy()
+        nk[:, 1] += k_steps
+        k_next = min(
+            self.scheduler.pick_decode_k(seqs, advance=k_steps), k_steps,
+        )
+        toks_dev = ys[0] if isinstance(ys, tuple) else ys
+        self._staged_decode = {
+            "fp": self._stage_fingerprint(seqs, k_next, advance=k_steps),
+            "handle": self.runner.stage_decode_multi(
+                [s.num_tokens - 1 + k_steps for s in seqs],
+                [s.block_table for s in seqs],
+                [s.num_tokens + k_steps for s in seqs],
+                k_next, temps, top_ps, top_ks, nk, min_ps=min_ps,
+                stop=self._advance_stop(stop, k_steps), lora_slots=slots,
+            ),
+            "chain_tokens": toks_dev[-1],
+        }
 
     def _apply_fused_decode(self, seqs: list[Sequence], k_steps: int, ys,
                             want_lp: bool, with_stop: bool,
@@ -1708,15 +1755,16 @@ class LLMEngine:
         """Fetch a fused round's device results in one place (the fetch
         phase meter) and apply them: ys as decode_multi returns it."""
         ys = ys if isinstance(ys, tuple) else (ys,)
-        tf = time.perf_counter()
-        host = [_to_numpy(a) for a in ys]
-        self.runner._phase_add("fetch", time.perf_counter() - tf)
-        valid = host.pop() if with_stop else None
-        self._apply_multi_tokens(
-            seqs, host[0], k_steps,
-            lps=tuple(host[1:4]) if want_lp else None, valid=valid,
-            round_attrs=round_attrs,
-        )
+        with span(APPLY):  # its fetches are step.wait
+            tf = time.perf_counter()
+            host = [self._fetch(a) for a in ys]
+            self.runner._phase_add("fetch", time.perf_counter() - tf)
+            valid = host.pop() if with_stop else None
+            self._apply_multi_tokens(
+                seqs, host[0], k_steps,
+                lps=tuple(host[1:4]) if want_lp else None, valid=valid,
+                round_attrs=round_attrs,
+            )
 
     # stackcheck: not-hot — host-side token bookkeeping over numpy
     # arrays every caller already fetched at its metered fetch point
@@ -1872,7 +1920,7 @@ class LLMEngine:
             [self._seq_seed(s) & 0xFFFFFFFF for s in seqs], np.uint32)
         starts = np.asarray(
             [len(s.generated_token_ids) for s in seqs], np.int64)
-        sampled = self.runner.verify_batch(
+        sampled = self._fetch(self.runner.verify_batch(
             chunks,
             start_positions=[s.num_tokens - 1 for s in seqs],
             block_tables=[s.block_table for s in seqs],
@@ -1880,7 +1928,7 @@ class LLMEngine:
                         for s, c in zip(seqs, chunks)],
             row_sampling=(temps, top_ps, top_ks, min_ps, seeds, starts),
             lora_slots=self._lora_slots(seqs),
-        )
+        ))
         stepped: list[Sequence] = []
         for seq, drafts, row in zip(seqs, drafts_by_lane, sampled):
             accepted = 0
@@ -1979,118 +2027,124 @@ class LLMEngine:
         when the prediction held), one dispatch, the next round staged
         before any fetch, then the prefill bookkeeping and the shared
         fused-decode bookkeeping."""
-        now = time.time()
-        if self._staged_prefill is not None:
-            # a pure-prefill round was staged but the round went
-            # lane-typed: the prefill stage cannot serve it
-            self._pf_staged_misses_total += 1
-            self._staged_prefill = None
-            self.scheduler.staged_prefill_ready = False
-        for w in works:
-            if w.seq.metrics.first_scheduled_time is None:
-                w.seq.metrics.first_scheduled_time = now
-        phase_snap = (
-            self.runner.phase_snapshot() if self._tl_enabled else None
-        )
-        pf_sampling = self._sampling_arrays([w.seq for w in works])[:5]
-        temps, top_ps, top_ks, min_ps, keys, needs_pen = (
-            self._sampling_arrays(seqs)
-        )
-        penalties = self._penalty_args(seqs) if needs_pen else None
-        want_lp = any(s.sampling_params.logprobs is not None for s in seqs)
-        bias = self._bias_arrays(seqs)
-        stop = self._stop_arrays(seqs) if self._device_stop else None
-        tokens = [s.all_token_ids[-1] for s in seqs]
-        staged_kw = {}
-        st = self._staged_ragged
-        self._staged_ragged = None
-        if st is not None:
-            if (penalties is None and bias is None
-                    and guided_tables is None
-                    and st["fp"] == self._ragged_fingerprint(
-                        works, seqs, k_steps)):
-                # the prediction held: the decode lanes chain on the
-                # previous round's device tokens, the buffer is copied
-                staged_kw = {"staged": st["handle"]}
-                tokens = st["chain_tokens"]
-                self._ragged_staged_hits_total += 1
-            else:
-                # lane mix or state drifted since the stage (the runner
-                # also checks the buffer's total length): a counted
-                # miss, the dispatch builds and uploads its own
-                self._ragged_staged_misses_total += 1
-        pf_sampled, pf_logits, ys = self.runner.ragged_dispatch(
-            [w.seq.prompt_token_ids[w.chunk_start:w.chunk_start + w.chunk_len]
-             for w in works],
-            [w.chunk_start for w in works],
-            [w.seq.block_table for w in works],
-            [w.chunk_start + w.chunk_len for w in works],
-            tokens,
-            [s.num_tokens - 1 for s in seqs],
-            [s.block_table for s in seqs],
-            [s.num_tokens for s in seqs],
-            k_steps, temps, top_ps, top_ks, keys, min_ps=min_ps,
-            pf_sampling=pf_sampling, penalties=penalties,
-            want_logprobs=want_lp, guided=guided_tables, logit_bias=bias,
-            stop=stop,
-            pf_lora_slots=self._lora_slots([w.seq for w in works]),
-            lora_slots=self._lora_slots(seqs), **staged_kw,
-        )
+        with span(PREPARE):
+            now = time.time()
+            if self._staged_prefill is not None:
+                # a pure-prefill round was staged but the round went
+                # lane-typed: the prefill stage cannot serve it
+                self._pf_staged_misses_total += 1
+                self._staged_prefill = None
+                self.scheduler.staged_prefill_ready = False
+            for w in works:
+                if w.seq.metrics.first_scheduled_time is None:
+                    w.seq.metrics.first_scheduled_time = now
+            phase_snap = (
+                self.runner.phase_snapshot() if self._tl_enabled else None
+            )
+            pf_sampling = self._sampling_arrays([w.seq for w in works])[:5]
+            temps, top_ps, top_ks, min_ps, keys, needs_pen = (
+                self._sampling_arrays(seqs)
+            )
+            penalties = self._penalty_args(seqs) if needs_pen else None
+            want_lp = any(s.sampling_params.logprobs is not None for s in seqs)
+            bias = self._bias_arrays(seqs)
+            stop = self._stop_arrays(seqs) if self._device_stop else None
+            tokens = [s.all_token_ids[-1] for s in seqs]
+            staged_kw = {}
+            st = self._staged_ragged
+            self._staged_ragged = None
+            if st is not None:
+                if (penalties is None and bias is None
+                        and guided_tables is None
+                        and st["fp"] == self._ragged_fingerprint(
+                            works, seqs, k_steps)):
+                    # the prediction held: the decode lanes chain on the
+                    # previous round's device tokens, the buffer is copied
+                    staged_kw = {"staged": st["handle"]}
+                    tokens = st["chain_tokens"]
+                    self._ragged_staged_hits_total += 1
+                else:
+                    # lane mix or state drifted since the stage (the runner
+                    # also checks the buffer's total length): a counted
+                    # miss, the dispatch builds and uploads its own
+                    self._ragged_staged_misses_total += 1
+        with span(LAUNCH):
+            pf_sampled, pf_logits, ys = self.runner.ragged_dispatch(
+                [w.seq.prompt_token_ids[
+                    w.chunk_start:w.chunk_start + w.chunk_len]
+                 for w in works],
+                [w.chunk_start for w in works],
+                [w.seq.block_table for w in works],
+                [w.chunk_start + w.chunk_len for w in works],
+                tokens,
+                [s.num_tokens - 1 for s in seqs],
+                [s.block_table for s in seqs],
+                [s.num_tokens for s in seqs],
+                k_steps, temps, top_ps, top_ks, keys, min_ps=min_ps,
+                pf_sampling=pf_sampling, penalties=penalties,
+                want_logprobs=want_lp, guided=guided_tables, logit_bias=bias,
+                stop=stop,
+                pf_lora_slots=self._lora_slots([w.seq for w in works]),
+                lora_slots=self._lora_slots(seqs), **staged_kw,
+            )
         # stage the predicted NEXT ragged round before any fetch below,
         # so its copy overlaps this round
-        self._maybe_stage_ragged(
-            works, seqs, k_steps, temps, top_ps, top_ks, keys, min_ps,
-            stop, penalties, bias, guided_tables,
-            ys[0] if isinstance(ys, tuple) else ys,
-        )
-        stepped: list[Sequence] = []
-        for w in works:
-            w.seq.num_computed_tokens += w.chunk_len
-            self._prompt_tokens_total += w.chunk_len
-        if self._tl_enabled:
-            phases = self.runner.phase_delta(phase_snap)
+        with span(STAGE):
+            self._maybe_stage_ragged(
+                works, seqs, k_steps, temps, top_ps, top_ks, keys, min_ps,
+                stop, penalties, bias, guided_tables,
+                ys[0] if isinstance(ys, tuple) else ys,
+            )
+        # the round's bookkeeping; its fetches are step.wait
+        with span(APPLY):
+            stepped: list[Sequence] = []
             for w in works:
-                self.timeline.event(
-                    w.seq.request_id, "prefill_chunk",
-                    {
-                        "chunk_start": w.chunk_start,
-                        "chunk_len": w.chunk_len,
-                        "last": w.is_last_chunk,
-                        "staged_hit": len(staged_kw) > 0,
-                        "chained": False,
-                        "group_size": len(works),
-                        "ragged": True,
-                        "prefill_lanes": len(works),
-                        "decode_lanes": len(seqs),
-                        **({"group_phase_s": phases} if phases else {}),
-                    },
-                )
-        finals = [(i, w) for i, w in enumerate(works) if w.is_last_chunk]
-        if finals:
-            tf = time.perf_counter()
-            toks_np = _to_numpy(pf_sampled)  # ONE fetch for the lanes
-            self.runner._phase_add("fetch", time.perf_counter() - tf)
-            for i, w in finals:
-                # stackcheck: disable=device-sync-transitive — an element of
-                # the ragged round's one prefill-token fetch, already on the
-                # host
-                tok = int(toks_np[i])
-                if tok < 0:
-                    # only non-real lanes are pinned to the idle
-                    # sentinel: a real lane with it means the lane
-                    # packing drifted
-                    raise RuntimeError(
-                        f"ragged dispatch returned the idle-lane sentinel "
-                        f"for real prefill lane {i} ({w.seq.request_id})"
+                w.seq.num_computed_tokens += w.chunk_len
+                self._meter.prompt_chunk(w.chunk_start, w.chunk_len)
+            if self._tl_enabled:
+                phases = self.runner.phase_delta(phase_snap)
+                for w in works:
+                    self.timeline.event(
+                        w.seq.request_id, "prefill_chunk",
+                        {
+                            "chunk_start": w.chunk_start,
+                            "chunk_len": w.chunk_len,
+                            "last": w.is_last_chunk,
+                            "staged_hit": len(staged_kw) > 0,
+                            "chained": False,
+                            "group_size": len(works),
+                            "ragged": True,
+                            "prefill_lanes": len(works),
+                            "decode_lanes": len(seqs),
+                            **({"group_phase_s": phases} if phases else {}),
+                        },
                     )
-                entry = None
-                n = w.seq.sampling_params.logprobs
-                if n is not None:
-                    entry = self._host_logprob_entry(
-                        _to_numpy(pf_logits[i]), tok, n
-                    )
-                self._append_token(w.seq, tok, entry)
-                stepped.append(w.seq)
+            finals = [(i, w) for i, w in enumerate(works) if w.is_last_chunk]
+            if finals:
+                tf = time.perf_counter()
+                toks_np = self._fetch(pf_sampled)  # ONE fetch for the lanes
+                self.runner._phase_add("fetch", time.perf_counter() - tf)
+                for i, w in finals:
+                    # stackcheck: disable=device-sync-transitive — an
+                    # element of the ragged round's one prefill-token
+                    # fetch, already on the host
+                    tok = int(toks_np[i])
+                    if tok < 0:
+                        # only non-real lanes are pinned to the idle
+                        # sentinel: a real lane with it means the lane
+                        # packing drifted
+                        raise RuntimeError(
+                            f"ragged dispatch returned the idle-lane sentinel "
+                            f"for real prefill lane {i} ({w.seq.request_id})"
+                        )
+                    entry = None
+                    n = w.seq.sampling_params.logprobs
+                    if n is not None:
+                        entry = self._host_logprob_entry(
+                            self._fetch(pf_logits[i]), tok, n
+                        )
+                    self._append_token(w.seq, tok, entry)
+                    stepped.append(w.seq)
         self._apply_fused_decode(
             seqs, k_steps, ys, want_lp, stop is not None,
             round_attrs={"prefill_lanes": len(works),
@@ -2372,23 +2426,25 @@ class LLMEngine:
             tgts = seq.prompt_token_ids[
                 w.chunk_start + 1:w.chunk_start + w.chunk_len + 1]
             slots = self._lora_slots([seq])
-            token_dev, logits, chosen, tv, ti = self.runner.prefill(
-                chunk, start_pos=w.chunk_start,
-                block_table=seq.block_table,
-                total_len=w.chunk_start + w.chunk_len,
-                sampling=self._sampling_arrays([seq])[:5],
-                lora_slot=slots[0] if slots else 0,
-                # stackcheck: disable=device-sync-transitive — prompt ids,
-                # a host list
-                prompt_lp_targets=[int(x) for x in tgts],
-            )
+            with span(LAUNCH):
+                token_dev, logits, chosen, tv, ti = self.runner.prefill(
+                    chunk, start_pos=w.chunk_start,
+                    block_table=seq.block_table,
+                    total_len=w.chunk_start + w.chunk_len,
+                    sampling=self._sampling_arrays([seq])[:5],
+                    lora_slot=slots[0] if slots else 0,
+                    # stackcheck: disable=device-sync-transitive — prompt
+                    # ids, a host list
+                    prompt_lp_targets=[int(x) for x in tgts],
+                )
             tf = time.perf_counter()
             # the lane's one fetch: its token and the (t, CAP) scores
             # stackcheck: disable=device-sync-transitive — the prompt-
             # logprob lane's one fetch: its token (JAX: the same lane's
             # int(np.asarray(token_dev)) fetch)
-            tok_of[i] = int(_to_numpy(token_dev))
-            chosen, tv, ti = _to_numpy(chosen), _to_numpy(tv), _to_numpy(ti)
+            tok_of[i] = int(self._fetch(token_dev))
+            chosen, tv, ti = (self._fetch(chosen), self._fetch(tv),
+                              self._fetch(ti))
             self.runner._phase_add("fetch", time.perf_counter() - tf)
             last_logits[i] = logits
             self._accumulate_prompt_lps(seq, w.chunk_start, tgts, chosen,
@@ -2396,103 +2452,108 @@ class LLMEngine:
         if std_works:
             sworks = [w for _, w in std_works]
             seqs_w = [w.seq for w in sworks]
-            sampling = self._sampling_arrays(seqs_w)[:5]
-            chunks = [
-                w.seq.prompt_token_ids[
-                    w.chunk_start:w.chunk_start + w.chunk_len]
-                for w in sworks
-            ]
-            slots = self._lora_slots(seqs_w)
-            if len(sworks) == 1:
-                w = sworks[0]
-                token_dev, logits = self.runner.prefill(
-                    chunks[0],
-                    start_pos=w.chunk_start,
-                    block_table=w.seq.block_table,
-                    total_len=w.chunk_start + w.chunk_len,
-                    sampling=sampling, lora_slot=slots[0] if slots else 0,
-                    **staged_kw,
-                )
-                tokens_dev = token_dev[None]
-                last_logits[std_works[0][0]] = logits
-            else:
-                tokens_dev, logits = self.runner.prefill_batch(
-                    chunks,
-                    start_positions=[w.chunk_start for w in sworks],
-                    block_tables=[w.seq.block_table for w in sworks],
-                    total_lens=[w.chunk_start + w.chunk_len
-                                for w in sworks],
-                    sampling=sampling, lora_slots=slots, **staged_kw,
-                )
-                for j, (i, _) in enumerate(std_works):
-                    last_logits[i] = logits[j]
+            with span(PREPARE):
+                sampling = self._sampling_arrays(seqs_w)[:5]
+                chunks = [
+                    w.seq.prompt_token_ids[
+                        w.chunk_start:w.chunk_start + w.chunk_len]
+                    for w in sworks
+                ]
+                slots = self._lora_slots(seqs_w)
+            with span(LAUNCH):
+                if len(sworks) == 1:
+                    w = sworks[0]
+                    token_dev, logits = self.runner.prefill(
+                        chunks[0],
+                        start_pos=w.chunk_start,
+                        block_table=w.seq.block_table,
+                        total_len=w.chunk_start + w.chunk_len,
+                        sampling=sampling, lora_slot=slots[0] if slots else 0,
+                        **staged_kw,
+                    )
+                    tokens_dev = token_dev[None]
+                    last_logits[std_works[0][0]] = logits
+                else:
+                    tokens_dev, logits = self.runner.prefill_batch(
+                        chunks,
+                        start_positions=[w.chunk_start for w in sworks],
+                        block_tables=[w.seq.block_table for w in sworks],
+                        total_lens=[w.chunk_start + w.chunk_len
+                                    for w in sworks],
+                        sampling=sampling, lora_slots=slots, **staged_kw,
+                    )
+                    for j, (i, _) in enumerate(std_works):
+                        last_logits[i] = logits[j]
             if any(w.is_last_chunk for w in sworks):
                 tf = time.perf_counter()
-                toks_np = _to_numpy(tokens_dev)  # ONE fetch for the group
+                toks_np = self._fetch(tokens_dev)  # ONE fetch for the group
                 self.runner._phase_add("fetch", time.perf_counter() - tf)
                 for j, (i, _) in enumerate(std_works):
                     # stackcheck: disable=device-sync-transitive — an element
                     # of the group's one fetch, already on the host
                     tok_of[i] = int(toks_np[j])
-        for w in works:
-            w.seq.num_computed_tokens += w.chunk_len
-            self._prompt_tokens_total += w.chunk_len
-        if self._tl_enabled:
-            # one event a chunk, with the dispatch group's per-phase wall
-            # time (the group shares one dispatch)
-            phases = self.runner.phase_delta(phase_snap)
+        # the group's bookkeeping; its fetches are step.wait
+        with span(APPLY):
             for w in works:
-                self.timeline.event(
-                    w.seq.request_id, "prefill_chunk",
-                    {
-                        "chunk_start": w.chunk_start,
-                        "chunk_len": w.chunk_len,
-                        "last": w.is_last_chunk,
-                        "staged_hit": len(staged_kw) > 0,
-                        "chained": chained,
-                        "group_size": len(works),
-                        "prefill_lanes": len(works),
-                        "decode_lanes": 0,
-                        **({"group_phase_s": phases} if phases else {}),
-                    },
-                )
-        finals = [(i, w) for i, w in enumerate(works) if w.is_last_chunk]
-        # guided lanes, logit bias, and a post-preemption sequence with
-        # active penalties (its generated history is folded into the
-        # prompt) sample their first token on the host
-        pen = [(i, w) for i, w in finals
-               if self._needs_host_first_sample(w.seq)]
-        for i, w in finals:
-            if self._needs_host_first_sample(w.seq):
-                continue
-            entry = None
-            n = w.seq.sampling_params.logprobs
-            if n is not None:
-                entry = self._host_logprob_entry(
-                    _to_numpy(last_logits[i]), tok_of[i], n
-                )
-            self._append_token(w.seq, tok_of[i], entry)
-            stepped.append(w.seq)
-        if pen:
-            rows = torch.stack([last_logits[i] for i, _ in pen])
-            sampled, used_logits = self._sample(
-                [w.seq for _, w in pen], rows, return_logits=True
-            )
-            used_logits = _to_numpy(used_logits)
-            for j, ((_, w), token) in enumerate(zip(pen, sampled)):
+                w.seq.num_computed_tokens += w.chunk_len
+                self._meter.prompt_chunk(w.chunk_start, w.chunk_len)
+            if self._tl_enabled:
+                # one event a chunk, with the dispatch group's per-phase wall
+                # time (the group shares one dispatch)
+                phases = self.runner.phase_delta(phase_snap)
+                for w in works:
+                    self.timeline.event(
+                        w.seq.request_id, "prefill_chunk",
+                        {
+                            "chunk_start": w.chunk_start,
+                            "chunk_len": w.chunk_len,
+                            "last": w.is_last_chunk,
+                            "staged_hit": len(staged_kw) > 0,
+                            "chained": chained,
+                            "group_size": len(works),
+                            "prefill_lanes": len(works),
+                            "decode_lanes": 0,
+                            **({"group_phase_s": phases} if phases else {}),
+                        },
+                    )
+            finals = [(i, w) for i, w in enumerate(works) if w.is_last_chunk]
+            # guided lanes, logit bias, and a post-preemption sequence with
+            # active penalties (its generated history is folded into the
+            # prompt) sample their first token on the host
+            pen = [(i, w) for i, w in finals
+                   if self._needs_host_first_sample(w.seq)]
+            for i, w in finals:
+                if self._needs_host_first_sample(w.seq):
+                    continue
                 entry = None
                 n = w.seq.sampling_params.logprobs
                 if n is not None:
                     entry = self._host_logprob_entry(
-                        # stackcheck: disable=device-sync-transitive — host
-                        # token (as below); the row was fetched by the
-                        # _to_numpy above
-                        used_logits[j], int(token), n
+                        self._fetch(last_logits[i]), tok_of[i], n
                     )
-                # stackcheck: disable=device-sync-transitive — host token:
-                # _sample (the not-hot host sampling seam) returned host ints
-                self._append_token(w.seq, int(token), entry)
+                self._append_token(w.seq, tok_of[i], entry)
                 stepped.append(w.seq)
+            if pen:
+                rows = torch.stack([last_logits[i] for i, _ in pen])
+                sampled, used_logits = self._sample(
+                    [w.seq for _, w in pen], rows, return_logits=True
+                )
+                used_logits = self._fetch(used_logits)
+                for j, ((_, w), token) in enumerate(zip(pen, sampled)):
+                    entry = None
+                    n = w.seq.sampling_params.logprobs
+                    if n is not None:
+                        entry = self._host_logprob_entry(
+                            # stackcheck: disable=device-sync-transitive —
+                            # host token (as below); the row was fetched by
+                            # the _fetch above
+                            used_logits[j], int(token), n
+                        )
+                    # stackcheck: disable=device-sync-transitive — host
+                    # token: _sample (the not-hot host sampling seam)
+                    # returned host ints
+                    self._append_token(w.seq, int(token), entry)
+                    stepped.append(w.seq)
         return stepped
 
     def _needs_host_first_sample(self, s: Sequence) -> bool:
@@ -2514,21 +2575,22 @@ class LLMEngine:
         self, stepped: list[Sequence]
     ) -> list[RequestOutput]:
         outputs: list[RequestOutput] = []
-        for seq in stepped:
-            self._register_full_blocks(seq)
-            outputs.append(self._make_output(seq))
-            if seq.finished:
-                seq.metrics.finished_time = time.time()
-                self._finished_total += 1
-                self.scheduler.free_finished(seq)
-                self._seqs.pop(seq.request_id, None)
-                self.timeline.finish(
-                    seq.request_id, seq.finish_reason,
-                    {
-                        "generated_tokens": len(seq.generated_token_ids),
-                        "preemptions": seq.metrics.num_preemptions,
-                    } if self._tl_enabled else None,
-                )
+        with span(APPLY):
+            for seq in stepped:
+                self._register_full_blocks(seq)
+                outputs.append(self._make_output(seq))
+                if seq.finished:
+                    seq.metrics.finished_time = time.time()
+                    self._finished_total += 1
+                    self.scheduler.free_finished(seq)
+                    self._seqs.pop(seq.request_id, None)
+                    self.timeline.finish(
+                        seq.request_id, seq.finish_reason,
+                        {
+                            "generated_tokens": len(seq.generated_token_ids),
+                            "preemptions": seq.metrics.num_preemptions,
+                        } if self._tl_enabled else None,
+                    )
         return outputs
 
     # -- internals ---------------------------------------------------------
@@ -2938,7 +3000,7 @@ class LLMEngine:
                         logits[i, int(t)] += float(v)
         logits = self._apply_guided_mask(seqs, logits)
         out = self.runner.sample(logits, temps, top_ps, top_ks, min_ps, keys)
-        sampled = _to_numpy(out)[: len(seqs)]
+        sampled = self._fetch(out)[: len(seqs)]
         if return_logits:
             # the (penalized) logits the sample came from — what logprob
             # entries are computed against
@@ -2979,7 +3041,7 @@ class LLMEngine:
 
     @staticmethod
     # stackcheck: not-hot — numpy over a logits row its caller already
-    # fetched (the row's fetch is that caller's suppressed _to_numpy)
+    # fetched (the row's fetch is that caller's suppressed _fetch)
     def _host_logprob_entry(
         logits_row: np.ndarray, token: int, n: int
     ) -> dict:
@@ -3030,7 +3092,9 @@ class LLMEngine:
     # is already a host int (every caller fetched it first)
     def _append_token(self, seq: Sequence, token: int,
                       logprob_entry: dict | None = None) -> None:
-        if seq.metrics.first_token_time is None:
+        first = seq.metrics.first_token_time is None
+        self._meter.token(first, seq.num_tokens)
+        if first:
             seq.metrics.first_token_time = time.time()
             if self._tl_enabled:
                 self.timeline.event(
@@ -3279,7 +3343,6 @@ class LLMEngine:
             kv_usage=self.block_manager.usage,
             prefix_cache_queries=self.block_manager.prefix_queries,
             prefix_cache_hits=self.block_manager.prefix_hits,
-            prompt_tokens_total=self._prompt_tokens_total,
             generation_tokens_total=self._generation_tokens_total,
             num_preemptions_total=self._preemptions_total,
             requests_finished_total=self._finished_total,
@@ -3328,6 +3391,7 @@ class LLMEngine:
                 remote.write_bytes if remote else 0),
             kv_remote_flushes_total=remote.flushes if remote else 0,
             kv_remote_fallbacks_total=remote.fallbacks if remote else 0,
+            **self._meter.snapshot(),
         )
 
     def _long_prefill_stats(self) -> dict:

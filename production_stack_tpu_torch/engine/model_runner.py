@@ -137,6 +137,7 @@ from production_stack_tpu_torch.ops.attention import (
     paged_prefill_attention_gather,
 )
 from production_stack_tpu_torch.parallel import sharding
+from production_stack_tpu_torch.tracing.steps import PREPARE, span
 from production_stack_tpu_torch.utils import init_logger
 
 logger = init_logger(__name__)
@@ -1269,15 +1270,17 @@ class ModelRunner:
                     and staged.key == ("single", t_pad, c_pad, lora)):
                 packed_dev = self._take(staged)
             if packed_dev is None:
-                t0 = time.perf_counter()
-                t_pad, c_pad, packed = self._fill_prefill_pack(
-                    token_ids, start_pos, block_table, total_len,
-                    sampling=sampling, prompt_lp_targets=prompt_lp_targets,
-                )
-                t1 = time.perf_counter()
-                self._phase_add("prep", t1 - t0)
-                packed_dev = self._upload(packed)
-                self._phase_add("h2d", time.perf_counter() - t1)
+                with span(PREPARE):
+                    t0 = time.perf_counter()
+                    t_pad, c_pad, packed = self._fill_prefill_pack(
+                        token_ids, start_pos, block_table, total_len,
+                        sampling=sampling,
+                        prompt_lp_targets=prompt_lp_targets,
+                    )
+                    t1 = time.perf_counter()
+                    self._phase_add("prep", t1 - t0)
+                    packed_dev = self._upload(packed)
+                    self._phase_add("h2d", time.perf_counter() - t1)
             layout, _ = self._prefill_pack_layout(t_pad, c_pad, want_plp)
             fn = (lambda inp: step(self._unpack_fields(inp["packed"],
                                                         layout)))
@@ -1448,14 +1451,15 @@ class ModelRunner:
             if staged is not None and staged.key == key:
                 packed_dev = self._take(staged)
             if packed_dev is None:
-                t0 = time.perf_counter()
-                packed = fill(chunks, start_positions, block_tables,
-                              total_lens, sampling=sampling,
-                              lora_slots=lora_slots)[-1]
-                t1 = time.perf_counter()
-                self._phase_add("prep", t1 - t0)
-                packed_dev = self._upload(packed)
-                self._phase_add("h2d", time.perf_counter() - t1)
+                with span(PREPARE):
+                    t0 = time.perf_counter()
+                    packed = fill(chunks, start_positions, block_tables,
+                                  total_lens, sampling=sampling,
+                                  lora_slots=lora_slots)[-1]
+                    t1 = time.perf_counter()
+                    self._phase_add("prep", t1 - t0)
+                    packed_dev = self._upload(packed)
+                    self._phase_add("h2d", time.perf_counter() - t1)
             inputs = {"packed": packed_dev}
         else:
             # the per-array path: one upload a field
@@ -1529,8 +1533,8 @@ class ModelRunner:
         lora_slots: list[int] | None = None,
     ) -> np.ndarray:
         """One packed verification forward over n lanes' draft chunks
-        [last_token, d_1..d_k]; returns (n, t_pad) int32, fetched once:
-        row (s, j) is the token lane s's sampler picks after consuming
+        [last_token, d_1..d_k]; returns (n, t_pad) int32 on the device,
+        for the caller's one fetch: row (s, j) is the token lane s's sampler picks after consuming
         chunk row j. `row_sampling` = per-lane (temps, top_ps, top_ks,
         min_ps, seeds, key_starts): row j of lane s samples with the noise
         of key (seeds[s], key_starts[s] + j), the key sequential step j
@@ -1588,7 +1592,7 @@ class ModelRunner:
             self._verify_step(s_pad, t_pad, c_pad, lora),
             {"packed": packed_dev})
         self.dispatch_counts["verify_batch"] += 1
-        return sampled.cpu().numpy().reshape(s_pad, t_pad)[:n]
+        return sampled.reshape(s_pad, t_pad)[:n]
 
     def _verify_step(self, s_pad: int, t_pad: int, c_pad: int, lora=None):
         """`fn(inputs)` -> (sampled (s_pad * t_pad,) int32,): the packed
@@ -2412,13 +2416,15 @@ class ModelRunner:
             if staged.dev.shape[0] == want_total:
                 packed_dev = self._take(staged)
         if packed_dev is None:
-            packed_dev = self._upload(self._fill_decode_pack(
-                c_pad, steps, token_ids, positions, block_tables,
-                context_lens, temps, top_ps, top_ks, keys, min_ps=min_ps,
-                stop=stop, penalties=penalties, logit_bias=logit_bias,
-                chained=chained, lora_slots=lora_slots,
-                lora_lanes=lora_lanes, guided_lanes=guided_lanes,
-            ))
+            with span(PREPARE):
+                packed_dev = self._upload(self._fill_decode_pack(
+                    c_pad, steps, token_ids, positions, block_tables,
+                    context_lens, temps, top_ps, top_ks, keys,
+                    min_ps=min_ps, stop=stop, penalties=penalties,
+                    logit_bias=logit_bias, chained=chained,
+                    lora_slots=lora_slots, lora_lanes=lora_lanes,
+                    guided_lanes=guided_lanes,
+                ))
         core = self._decode_round_core(
             b, c_pad, steps, use_penalties=penalties is not None,
             want_logprobs=want_logprobs, bias_cap=bias_cap,
@@ -3097,24 +3103,25 @@ class ModelRunner:
             if staged.dev.shape[0] == sum(sizes):
                 packed_dev = self._take(staged)
         if packed_dev is None:
-            t0 = time.perf_counter()
-            args = (pf_chunks, pf_start_positions, pf_block_tables,
-                    pf_total_lens, pf_sampling, c_pad, token_ids, positions,
-                    block_tables, context_lens, steps, temps, top_ps, top_ks,
-                    keys)
-            kw = dict(min_ps=min_ps, stop=stop, penalties=penalties,
-                      logit_bias=logit_bias, chained=chained,
-                      pf_lora_slots=pf_lora_slots, lora_slots=lora_slots,
-                      guided_lanes=guided_lanes)
-            if self.ragged_kernel:
-                packed = self._fill_ragged_rows_pack(
-                    *args, lora_rows=per_tok, **kw)[-1]
-            else:
-                packed = self._fill_ragged_pack(*args, **kw)[-1]
-            t1 = time.perf_counter()
-            self._phase_add("prep", t1 - t0)
-            packed_dev = self._upload(packed)
-            self._phase_add("h2d", time.perf_counter() - t1)
+            with span(PREPARE):
+                t0 = time.perf_counter()
+                args = (pf_chunks, pf_start_positions, pf_block_tables,
+                        pf_total_lens, pf_sampling, c_pad, token_ids,
+                        positions, block_tables, context_lens, steps, temps,
+                        top_ps, top_ks, keys)
+                kw = dict(min_ps=min_ps, stop=stop, penalties=penalties,
+                          logit_bias=logit_bias, chained=chained,
+                          pf_lora_slots=pf_lora_slots, lora_slots=lora_slots,
+                          guided_lanes=guided_lanes)
+                if self.ragged_kernel:
+                    packed = self._fill_ragged_rows_pack(
+                        *args, lora_rows=per_tok, **kw)[-1]
+                else:
+                    packed = self._fill_ragged_pack(*args, **kw)[-1]
+                t1 = time.perf_counter()
+                self._phase_add("prep", t1 - t0)
+                packed_dev = self._upload(packed)
+                self._phase_add("h2d", time.perf_counter() - t1)
         t2 = time.perf_counter()
         flags = dict(use_penalties=penalties is not None,
                      want_logprobs=want_logprobs, bias_cap=bias_cap,

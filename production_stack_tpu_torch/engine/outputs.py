@@ -47,12 +47,14 @@ class EngineStatsSnapshot:
     spec_accepted_tokens_total: int = 0
     # pipelined-prefill attribution: wall seconds per phase of the
     # prefill dispatch path (prep = host array build, h2d = upload,
-    # dispatch = jitted-call enqueue, fetch = device->host token reads)
-    # plus staging effectiveness — tpu:prefill_* in /metrics and the
-    # bench.py prefill_phase_s detail slot
+    # dispatch = program enqueue, fetch = device->host token reads)
+    # plus staging effectiveness — tpu:prefill_* in /metrics
     prefill_prep_seconds_total: float = 0.0
     prefill_h2d_seconds_total: float = 0.0
     prefill_dispatch_seconds_total: float = 0.0
+    # includes the wait for the device (and the fused decode rounds'
+    # fetches); step_wait_seconds_by_kind is the step meter's split of
+    # every fetch by round kind
     prefill_fetch_seconds_total: float = 0.0
     prefill_staged_hits_total: int = 0
     prefill_staged_misses_total: int = 0
@@ -63,8 +65,7 @@ class EngineStatsSnapshot:
     # the per-phase TTFT attribution — ring compute, device->host KV
     # materialization, paged-cache landing, and tier-export overflow
     # seconds that ran while long jobs were in flight —
-    # tpu:prefill_ring/d2h/land/overflow_* in /metrics and the bench
-    # `long_prefill` detail slot
+    # tpu:prefill_ring/d2h/land/overflow_* in /metrics
     long_prefill_requests_total: int = 0
     long_prefill_chunks_total: int = 0
     long_prefill_fallbacks_total: int = 0
@@ -75,7 +76,7 @@ class EngineStatsSnapshot:
     # elastic fused decode: rounds dispatched, sampled-then-discarded
     # overshoot tokens (~0 with device stops, except host-resolved stop
     # strings), and whole-round device early exits — tpu:decode_* in
-    # /metrics and the bench `elastic_decode` detail slot
+    # /metrics
     decode_rounds_total: int = 0
     decode_overshoot_tokens_total: int = 0
     decode_early_exit_rounds_total: int = 0
@@ -83,25 +84,23 @@ class EngineStatsSnapshot:
     decode_k_hist: dict = field(default_factory=dict)
     # unified ragged dispatch: fused lane-typed rounds, rounds a mixed
     # plan ran split (exotic lanes), and per-side lane totals —
-    # tpu:ragged_* in /metrics and the bench `ragged_dispatch` slot
+    # tpu:ragged_* in /metrics
     ragged_rounds_total: int = 0
     ragged_split_rounds_total: int = 0
     ragged_prefill_lanes_total: int = 0
     ragged_decode_lanes_total: int = 0
     # compile-count observability: program-variant builds (jit cache
     # misses on the runner's step builders) since boot, total and per
-    # builder kind — tpu:compile_events_total in /metrics and the
-    # bench `compiles` detail slot. The chip-window cold-start tax
-    # (and the single-kernel variant-space shrink) read directly off
-    # this instead of being inferred from compile logs.
+    # program kind — tpu:compile_events_total in /metrics. A run reads
+    # programs built inside its window off this instead of inferring
+    # them from compile logs.
     compile_events_total: int = 0
     # kind -> count, e.g. {"decode_multi": 3, "ragged_rows": 2}
     compile_events: dict = field(default_factory=dict)
     # zero-stall KV tiering attribution: deferred-export batches (wall
     # seconds measured ON THE OFFLOAD WORKER — overlapped activity, not
     # step-loop stalls) and staged restores (enqueue -> landed), plus
-    # per-tier hit/miss/byte counters — tpu:kv_* in /metrics and the
-    # bench `kv_offload` detail slot
+    # per-tier hit/miss/byte counters — tpu:kv_* in /metrics
     kv_export_seconds_total: float = 0.0
     kv_export_blocks_total: int = 0
     kv_export_bytes_total: int = 0
@@ -117,7 +116,7 @@ class EngineStatsSnapshot:
     # disaggregated-prefill peer pulls (PeerTier): blocks served by /
     # missing from the PD peer, bytes pulled over the transfer link,
     # and failed pulls (dead peer, corrupt frame) — tpu:kv_peer_* in
-    # /metrics and the bench `pd_transfer` detail slot
+    # /metrics
     kv_peer_hits_total: int = 0
     kv_peer_misses_total: int = 0
     kv_peer_read_bytes_total: int = 0
@@ -125,14 +124,30 @@ class EngineStatsSnapshot:
     # shared cache server (RemoteTier): blocks served by / missing from
     # the cluster-wide cache, bytes over the wire in each direction,
     # write-behind put_batch frames shipped, and failed flushes/pulls
-    # (dead server) — tpu:kv_remote_* in /metrics and the bench
-    # `kv_remote` detail slot
+    # (dead server) — tpu:kv_remote_* in /metrics
     kv_remote_hits_total: int = 0
     kv_remote_misses_total: int = 0
     kv_remote_read_bytes_total: int = 0
     kv_remote_write_bytes_total: int = 0
     kv_remote_flushes_total: int = 0
     kv_remote_fallbacks_total: int = 0
+    # the step meter (tracing/steps.py; not rendered on /metrics): steps
+    # by round kind ("ragged" | "prefill" | "decode" | "idle", the
+    # step's last_step_kind), each step's wall seconds less its seconds
+    # in the device->host seam, and those seam seconds
+    steps_by_kind: dict = field(default_factory=dict)
+    step_host_seconds_by_kind: dict = field(default_factory=dict)
+    step_wait_seconds_by_kind: dict = field(default_factory=dict)
+    # calls through the seam (the engine's _to_numpy)
+    host_syncs_total: int = 0
+    # the served work's attention keys, counted where its result is
+    # kept: each prompt chunk computed, sum of (position + 1) over its
+    # rows; each generated token after a request's first, the context
+    # its forward saw. Beside prompt_tokens_total, generation_tokens_total
+    # and first_tokens_total they give the work's FLOPs
+    prompt_keys_total: int = 0
+    decode_keys_total: int = 0
+    first_tokens_total: int = 0
 
     @property
     def prefix_cache_hit_rate(self) -> float:

@@ -41,6 +41,9 @@ class RequestMetrics:
     # every preemption; feeds tpu:preemption_stall_seconds
     preempt_stall_s: float = 0.0
     last_preempt_time: float | None = None
+    # seconds AsyncLLMEngine.generate waited for the engine's lock
+    # before adding the request (None when added another way)
+    lock_wait_s: float | None = None
 
 
 class Sequence:

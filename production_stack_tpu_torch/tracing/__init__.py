@@ -1,6 +1,6 @@
 """Distributed request tracing for the PyTorch engine: a copy of the JAX
 package's ``production_stack_tpu/tracing`` with its imports repointed
-(stdlib only, plus ``utils.log``).
+(stdlib only, plus ``utils.log``), and the port's own step meter.
 
 - ``context``: W3C `traceparent` encode/parse + `x-request-id` hygiene.
 - ``spans``: the span model, pluggable exporters (log / memory /
@@ -9,6 +9,10 @@ package's ``production_stack_tpu/tracing`` with its imports repointed
   admit → prefill chunks → first token → sampled decode rounds →
   preempt/resume → finish) feeding `/debug/requests` and the
   `engine_request` span.
+- ``steps`` (imported by the engine, not here: it alone needs torch):
+  the step meter, host ranges of the step loop entered only while a
+  profiler runs, and counters of steps, fetches and served work that
+  the engine's stats publish.
 
 See ``production_stack_tpu/tracing/README.md`` for the end-to-end flow
 and how to read a timeline when triaging a TTFT regression.

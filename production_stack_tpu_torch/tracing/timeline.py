@@ -7,8 +7,8 @@ points), first token, sampled decode-round boundaries, preemption /
 resume, and finish. Recording is an append of a small tuple to a
 per-request list — no locks, no device syncs — so it stays off the
 device-dispatch critical path; when disabled every entry point returns
-after ONE boolean check (the bench `@trace` A/B pins the zero-cost
-claim, PERF.md).
+after ONE boolean check. PERF.md gives the host time a step with it on
+against off, from the engine's step meter (tracing/steps.py).
 
 Event times are ``time.monotonic()`` stamps anchored to the request's
 arrival epoch at export (wall-clock steps cannot reorder a timeline).
